@@ -1,0 +1,42 @@
+"""Load the JAX package's GPT weights into the port.
+
+The JAX ``GPTForCausalLM.state_dict()`` names map one to one onto the
+port's parameters, with the same layouts (linear weights ``[in, out]``,
+the word embeddings ``[vocab, hidden]``), so conversion is a copy by
+name. The caller passes the state as numpy arrays
+(``{k: np.asarray(v) for k, v in jax_model.state_dict().items()}``);
+this module imports nothing of JAX.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .models.gpt import GPTConfig, GPTForCausalLM
+
+__all__ = ["gpt_from_jax"]
+
+
+def gpt_from_jax(state: Dict[str, np.ndarray], cfg: GPTConfig,
+                 device=None) -> GPTForCausalLM:
+    """A port ``GPTForCausalLM`` for ``cfg`` on ``device`` carrying the
+    weights in ``state``. Raises ``KeyError`` on a missing or an extra
+    name and ``ValueError`` on a wrong shape."""
+    model = GPTForCausalLM(cfg, device=device)
+    params = dict(model.named_parameters())
+    missing = sorted(set(params) - set(state))
+    extra = sorted(set(state) - set(params))
+    if missing or extra:
+        raise KeyError(f"state does not match the port's GPT: missing "
+                       f"{missing}, unexpected {extra}")
+    with torch.no_grad():
+        for name, p in params.items():
+            value = np.array(state[name], dtype=np.float32)  # a copy
+            if tuple(value.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(value.shape)}, the "
+                                 f"port expects {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(value))
+    model.eval()
+    return model

@@ -43,6 +43,8 @@ def pytest_configure(config):
     # tests opt out of the 870 s budget with this marker
     config.addinivalue_line(
         "markers", "slow: excluded from the tier-1 time budget")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one")
 
 
 def pytest_terminal_summary(terminalreporter, exitstatus, config):
