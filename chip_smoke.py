@@ -8,7 +8,7 @@ exits non-zero:
 
 1. device   - the card (nvidia-smi name and power limit), torch and CUDA.
 2. build    - compiles every CUDA kernel of the port from the sources in
-              this checkout (nvcc, one process per source, in parallel).
+              this checkout (nvcc, one library per source).
 3. kernels  - calls each kernel's wrapper on the card at the shapes the
               serving path gives it, and holds the result against its plain
               PyTorch version on the same inputs (stated tolerance). Times
@@ -18,8 +18,9 @@ exits non-zero:
 4. serving  - a gpt_1p3b model (full width, random weights from a seed)
               behind InferenceServer(slots=4, max_length=2048) serves six
               requests; every stream must equal a solo generate() with the
-              same arguments, the flash kernel's launch count over the
-              served run must cover every prefill, and the kernel-path
+              same arguments, no request may be requeued or failed, the
+              flash kernel must launch exactly once per layer per prefill
+              over the served run, and the kernel-path
               prefill logits must agree with the plain-attention path.
 
 Then a line with the kernels' summary, a line with the card's name and
@@ -43,8 +44,30 @@ PEAK_BF16_TC_FLOPS = 989e12   # tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 F32_TOL = 1e-4   # float32 kernel vs float32 einsum: summation order only
-BF16_TOL = 2e-2  # bf16 outputs: both round one f32 value to bf16 (ulp <= 2^-6 below 4)
+# bf16 outputs: kernel and plain version each round an f32 value (equal to
+# ~1e-6) to bf16, so they differ by at most one bf16 ulp of the element;
+# the limit is two ulps of each element's own size, plus 1e-6 near zero
+BF16_ULPS = 2
 PREFILL_LOGITS_TOL = 2e-3  # 24 layers of f32 rounding between two attention paths
+
+
+def bf16_ulp(x):
+    """The bf16 spacing at |x|, elementwise (8 significant bits): 2^(e-8)
+    for 2^(e-1) <= |x| < 2^e; 0 where x is 0."""
+    import torch
+
+    _, e = torch.frexp(x.float().abs())
+    return torch.where(x == 0, 0.0, torch.exp2((e - 8).float()))
+
+
+def output_tolerance(o_ref, tol):
+    """The elementwise limit on |o - o_ref|: ``tol`` for float32 outputs,
+    BF16_ULPS ulps of o_ref plus 1e-6 for bfloat16 ones."""
+    import torch
+
+    if o_ref.dtype == torch.bfloat16:
+        return BF16_ULPS * bf16_ulp(o_ref) + 1e-6
+    return torch.full_like(o_ref, tol, dtype=torch.float32)
 
 
 def emit(phase: str, **fields) -> None:
@@ -117,7 +140,7 @@ def phase_kernels(seed: int) -> dict:
         cases.append((f"prefill_f32_L{L}", *blhd_views(L, 16, 128, torch.float32),
                       True, None, F32_TOL))
     cases.append(("causal_bf16_L2048", *blhd_views(2048, 16, 128, torch.bfloat16),
-                  True, None, BF16_TOL))
+                  True, None, f"{BF16_ULPS} bf16 ulps + 1e-6"))
     q = torch.randn(1, 16, 384, 128, generator=g, device="cuda")
     k = torch.randn(1, 16, 640, 128, generator=g, device="cuda")
     v = torch.randn(1, 16, 640, 128, generator=g, device="cuda")
@@ -132,11 +155,16 @@ def phase_kernels(seed: int) -> dict:
         torch.cuda.synchronize()
         o_ref, lse_ref = fa.reference_attention_fwd(q, k, v, causal=causal,
                                                     bias=bias)
-        err = (o.float() - o_ref.float()).abs().max().item()
+        diff = (o.float() - o_ref.float()).abs()
+        err = diff.max().item()
+        # the largest error as a share of its element's limit (<= 1 passes)
+        err_share = (diff / output_tolerance(o_ref, tol)).max().item()
         lse_err = (lse - lse_ref).abs().max().item()
-        if not (math.isfinite(err) and err <= tol and lse_err <= F32_TOL * 10):
+        if not (math.isfinite(err) and err_share <= 1.0
+                and lse_err <= F32_TOL * 10):
             raise AssertionError(f"{name}: kernel vs plain max|err| {err} "
-                                 f"(tol {tol}), lse {lse_err}")
+                                 f"at {err_share} of its limit (tol {tol}), "
+                                 f"lse {lse_err}")
         ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
                                                     bias=bias))
         plain_ms = cuda_ms(lambda: fa.reference_attention_fwd(
@@ -151,7 +179,8 @@ def phase_kernels(seed: int) -> dict:
         results[name] = dict(shape=[B, H, Lq, k.shape[2], D],
                              dtype=str(q.dtype).replace("torch.", ""),
                              causal=causal, bias=bias is not None,
-                             max_abs_err=err, lse_max_abs_err=lse_err, tol=tol,
+                             max_abs_err=err, err_share_of_tol=err_share,
+                             lse_max_abs_err=lse_err, tol=tol,
                              ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              roofline_share=bound_ms / ms)
@@ -200,12 +229,17 @@ def phase_serving(seed: int) -> dict:
     if snap["requests_completed"] != len(requests):
         raise AssertionError(f"{snap['requests_completed']} of "
                              f"{len(requests)} requests completed")
-    need = cfg.num_layers * snap["prefills"]
-    if launches < need:
-        raise AssertionError(f"flash kernel launched {launches} times in the "
-                             f"served run, expected >= {need} "
-                             f"({cfg.num_layers} layers x {snap['prefills']} "
-                             f"prefills)")
+    # the server recovers from a fault in admit/step by resetting the engine
+    # and re-running the request; a smoke run must need no such recovery
+    if snap["requests_requeued"] or snap["requests_failed"]:
+        raise AssertionError(f"{snap['requests_requeued']} requests requeued, "
+                             f"{snap['requests_failed']} failed")
+    need = cfg.num_layers * len(requests)
+    if snap["prefills"] != len(requests) or launches != need:
+        raise AssertionError(f"flash kernel launched {launches} times over "
+                             f"{snap['prefills']} prefills in the served run, "
+                             f"expected exactly {need} ({cfg.num_layers} "
+                             f"layers x {len(requests)} requests)")
     for r, got in zip(requests, streams):
         solo = model.generate(r["prompt"][None], **{k: v for k, v in r.items()
                                                      if k != "prompt"}, **geo)[0]
@@ -274,9 +308,8 @@ def main(argv=None) -> int:
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    libs = _build.build()
-    emit("build", seconds=time.perf_counter() - t0,
-         libraries={s: str(p.name) for s, p in libs.items()},
+    libs = {s: _build.build(s).name for s in _build.SOURCES}
+    emit("build", seconds=time.perf_counter() - t0, libraries=libs,
          ptxas=[ln.strip() for s in libs for ln in _build.build_log(s).splitlines()
                 if "Used" in ln or "spill" in ln])
 

@@ -4,8 +4,7 @@ Each source under ``csrc/`` compiles with ``nvcc`` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds, not minutes), under ``build/kernels/`` at the repository root.
 The library's file name carries a digest of its source and flags, so an
-edited source rebuilds and an unchanged one is reused. Several sources
-build in parallel: one ``nvcc`` process each, all started together.
+edited source rebuilds and an unchanged one is reused.
 
 Nothing here runs at import time; this module is safe to import on a
 machine without ``nvcc`` or a GPU.
@@ -19,14 +18,14 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build",
            "load", "build_log"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-#: every kernel source of the port, built together by :func:`build`
+#: every kernel source of the port
 SOURCES = ("flash_attention_fwd.cu",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -62,33 +61,25 @@ def build_log(source: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def build(sources: Sequence[str] = SOURCES) -> Dict[str, Path]:
-    """Compile every source in ``sources`` that has no up-to-date library,
-    all in parallel, and return ``{source: library path}``. Raises
-    ``RuntimeError`` with the compiler's output if any build fails."""
+def build(source: str) -> Path:
+    """Compile ``source`` unless an up-to-date library exists, and return
+    the library's path. Raises ``RuntimeError`` with the compiler's output
+    if the build fails."""
+    out = _library_path(source)
+    if out.exists():
+        return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {s: _library_path(s) for s in sources}
-    procs = {}
-    for s, out in paths.items():
-        if out.exists():
-            continue
-        tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / s)]
-        procs[s] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp, out)
-    failures = []
-    for s, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"{s}: nvcc exited {proc.returncode}\n{log}")
-            tmp.unlink(missing_ok=True)
-            continue
-        out.with_suffix(".log").write_text(log)
-        os.replace(tmp, out)  # atomic: a reader never sees half a library
-    if failures:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
-    return paths
+    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"kernel build failed: {source}: nvcc exited "
+                           f"{proc.returncode}\n{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
+    os.replace(tmp, out)  # atomic: a reader never sees half a library
+    return out
 
 
 def load(source: str) -> ctypes.CDLL:
@@ -96,6 +87,5 @@ def load(source: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(source)
         if lib is None:
-            path = build([source])[source]
-            lib = _loaded[source] = ctypes.CDLL(str(path))
+            lib = _loaded[source] = ctypes.CDLL(str(build(source)))
         return lib

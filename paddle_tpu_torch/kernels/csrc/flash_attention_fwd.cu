@@ -43,6 +43,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -285,9 +287,19 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   constexpr size_t kSmem =
       sizeof(float) * ((kBlockQ + kBlockK) * (D + 4) + kBlockQ * kLdP);
   auto kernel = flash_fwd_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  // the opt-in above 48 KB is per device: set it on a device's first launch
+  // of this instantiation only (one bit per device; devices past 31 always)
+  static std::atomic<unsigned> smem_set{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (bit == 0u || !(smem_set.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+    if (err != cudaSuccess) return err;
+    smem_set.fetch_or(bit, std::memory_order_release);
+  }
   const dim3 grid((Lq + kBlockQ - 1) / kBlockQ, H, B);
   kernel<<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

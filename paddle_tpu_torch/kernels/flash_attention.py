@@ -32,6 +32,7 @@ ported yet; it comes with the backward kernels, and until then
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -97,7 +98,10 @@ def reference_attention_bhld(q, k, v, causal: bool = False, bias=None):
 
 
 # ---------------------------------------------------------------- kernel
+@functools.lru_cache(maxsize=None)
 def _kernel_fn():
+    """The typed ctypes entry of the kernel library (built and loaded on
+    the first call, then reused)."""
     fn = _build.load(_SOURCE).pt_flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,

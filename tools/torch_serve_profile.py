@@ -1,14 +1,13 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's serving path, on one GPU.
 
-    python3 tools/torch_serve_profile.py [--seed N] [--slots 4]
-        [--prompt-len 512] [--steps 20] [--trace-dir DIR]
+    python3 tools/torch_serve_profile.py [--seed N]
 
 Builds ``gpt_1p3b`` (full width, random weights from ``--seed``, bf16 KV
 cache) on ``cuda``, fills every slot of a ``ContinuousBatchingEngine``
-with a ``--prompt-len`` prompt, then:
+with a ``PROMPT_LEN``-token prompt, then:
 
-- times ``--steps`` decode steps on the host clock (each ends in the
+- times ``STEPS`` decode steps on the host clock (each ends in the
   engine's token read-back, so each is complete on the device);
 - times one prefill per bucket (64 ... 2048) the same way;
 - traces 5 decode steps and one 2048-token prefill with
@@ -30,12 +29,16 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+SLOTS = 4          # the smoke's InferenceServer(slots=4)
+PROMPT_LEN = 512   # a 512-token prefill bucket per slot
+STEPS = 20         # timed decode steps
+
 
 def _emit(**fields) -> None:
     print(json.dumps(fields), flush=True)
 
 
-def _profile(fn, label: str, calls: int, trace_dir):
+def _profile(fn, label: str, calls: int):
     """Trace ``fn`` (``calls`` units of work) and print device-kernel time
     by kernel name, per unit. Only GPU kernels count (the CPU-side aten
     ops that launched them are left out, so nothing is counted twice)."""
@@ -61,18 +64,11 @@ def _profile(fn, label: str, calls: int, trace_dir):
           kernel_launches=sum(r[2] for r in rows),
           top=[{"kernel": k[:100], "ms": ms, "launches": n}
                for k, ms, n in rows[:12]])
-    if trace_dir:
-        os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(trace_dir, f"{label}.json"))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--slots", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=512)
-    ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -92,26 +88,24 @@ def main(argv=None) -> int:
                    dtype="bfloat16")
     model = GPTForCausalLM(cfg, device="cuda", generator=torch.Generator(
         "cuda").manual_seed(args.seed)).eval()
-    engine = ContinuousBatchingEngine(model, slots=args.slots, max_length=2048)
+    engine = ContinuousBatchingEngine(model, slots=SLOTS, max_length=2048)
     rng = np.random.default_rng(args.seed)
-    for s in range(args.slots):
-        engine.admit(Request(prompt=rng.integers(0, cfg.vocab_size,
-                                                 args.prompt_len),
-                             max_new_tokens=2048 - args.prompt_len), s)
+    for s in range(SLOTS):
+        engine.admit(Request(prompt=rng.integers(0, cfg.vocab_size, PROMPT_LEN),
+                             max_new_tokens=2048 - PROMPT_LEN), s)
     for _ in range(3):  # warm-up
         engine.step()
     times = []
-    for _ in range(args.steps):
+    for _ in range(STEPS):
         t0 = time.perf_counter()
         engine.step()
         times.append((time.perf_counter() - t0) * 1e3)
-    _emit(measure="decode_step_ms", slots=args.slots, steps=args.steps,
+    _emit(measure="decode_step_ms", slots=SLOTS, steps=STEPS,
           median=float(np.median(times)), p25=float(np.percentile(times, 25)),
           p75=float(np.percentile(times, 75)), all=times)
-    _profile(lambda: [engine.step() for _ in range(5)], "decode_step", 5,
-             args.trace_dir)
+    _profile(lambda: [engine.step() for _ in range(5)], "decode_step", 5)
 
-    for s in range(args.slots):
+    for s in range(SLOTS):
         engine.release(s)
     prefill = {}
     for L in (64, 512, 1024, 2048):
@@ -126,7 +120,7 @@ def main(argv=None) -> int:
     _emit(measure="prefill_ms_by_bucket", **{str(k): v for k, v in prefill.items()})
     req = Request(prompt=rng.integers(0, cfg.vocab_size, 2047), max_new_tokens=1)
     _profile(lambda: (engine.admit(req, 0), engine.release(0)),
-             "prefill_2048", 1, args.trace_dir)
+             "prefill_2048", 1)
     return 0
 
 
