@@ -3,25 +3,38 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases, each printing one JSON line; any failure raises and the script
+Phases, each printing JSON lines; any failure raises and the script
 exits non-zero:
 
-1. device   - the card (nvidia-smi name and power limit), torch and CUDA.
-2. build    - compiles every CUDA kernel of the port from the sources in
-              this checkout (nvcc, one library per source).
-3. kernels  - calls each kernel's wrapper on the card at the shapes the
-              serving path gives it, and holds the result against its plain
-              PyTorch version on the same inputs (stated tolerance). Times
-              the kernel, the plain version and one PyTorch library call
-              computing the same function (a yardstick the port never
-              calls), beside the least time the card could take.
-4. serving  - a gpt_1p3b model (full width, random weights from a seed)
-              behind InferenceServer(slots=4, max_length=2048) serves six
-              requests; every stream must equal a solo generate() with the
-              same arguments, no request may be requeued or failed, the
-              flash kernel must launch exactly once per layer per prefill
-              over the served run, and the kernel-path
-              prefill logits must agree with the plain-attention path.
+1. device    - the card (nvidia-smi name and power limit), torch and CUDA.
+2. build     - compiles every CUDA source of the port from this checkout
+               (nvcc, one library per source, all started together).
+3. kernels   - calls each kernel's wrapper on the card at the shapes the
+               serving and training paths give it, and holds the result
+               against its plain PyTorch version on the same inputs (stated
+               tolerance): the forward kernel, the dQ and dK/dV backward
+               kernels, and dropout (the CUDA Philox mask against the plain
+               one bit for bit, its keep rate, replay of a fixed seed, and
+               forward and backward at p = 0.1 given the same mask). Times
+               the kernel, the plain version and one PyTorch library call
+               computing the same function (a yardstick the port never
+               calls), beside the least time the card could take.
+4. serving   - a gpt_1p3b model (full width, random weights from a seed)
+               behind InferenceServer(slots=4, max_length=2048) serves six
+               requests; every stream must equal a solo generate() with the
+               same arguments, no request may be requeued or failed, the
+               flash kernel must launch exactly once per layer per prefill
+               over the served run, and the kernel-path prefill logits must
+               agree with the plain-attention path.
+5. training  - the bench's GPT-3 1.3B pretrain step (bf16 O2 AdamW,
+               recompute, chunked loss, batch 2 x 1024) through TrainStep:
+               5 warm-up and 8 timed steps; finite losses that fall, and
+               exactly 48 forward, 24 dQ and 24 dK/dV launches per step.
+               Then one float32 forward and backward of the same
+               configuration with the kernels and with plain attention
+               (loss and per-parameter gradients within tolerance), and a
+               2-layer full-width dropout run that replays bit for bit from
+               its seed.
 
 Then a line with the kernels' summary, a line with the card's name and
 power limit, and the last line {"ok": true, "device": {...}}.
@@ -32,6 +45,7 @@ present, and imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -48,7 +62,21 @@ F32_TOL = 1e-4   # float32 kernel vs float32 einsum: summation order only
 # ~1e-6) to bf16, so they differ by at most one bf16 ulp of the element;
 # the limit is two ulps of each element's own size, plus 1e-6 near zero
 BF16_ULPS = 2
+# backward, float32: the reference's backward tolerance, elementwise
+# |x - y| <= BWD_ATOL + BWD_RTOL * |y|
+BWD_RTOL, BWD_ATOL = 2e-4, 2e-5
+# backward, bf16 outputs: BF16_ULPS ulps of each reference element plus
+# 1e-5 of the tensor's largest magnitude (an element near zero is a
+# float32 sum with cancellation; two summation orders differ there by
+# about 1e-6 of the tensor's scale)
+BWD_BF16_FLOOR = 1e-5
 PREFILL_LOGITS_TOL = 2e-3  # 24 layers of f32 rounding between two attention paths
+# training, float32, kernels vs plain attention through 24 layers: loss
+# relative 1e-4, each parameter's gradient relative L2 error 1e-3
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_L2 = 1e-4, 1e-3
+DROPOUT_P = 0.1
+TRAIN_BATCH, TRAIN_SEQ = 2, 1024     # bench.py bench_gpt_1p3b
+TRAIN_WARMUP, TRAIN_TIMED = 5, 8
 
 
 def bf16_ulp(x):
@@ -61,13 +89,40 @@ def bf16_ulp(x):
 
 
 def output_tolerance(o_ref, tol):
-    """The elementwise limit on |o - o_ref|: ``tol`` for float32 outputs,
-    BF16_ULPS ulps of o_ref plus 1e-6 for bfloat16 ones."""
+    """The elementwise limit on |o - o_ref| of a forward output: ``tol``
+    for float32, BF16_ULPS ulps of o_ref plus 1e-6 for bfloat16."""
     import torch
 
     if o_ref.dtype == torch.bfloat16:
         return BF16_ULPS * bf16_ulp(o_ref) + 1e-6
     return torch.full_like(o_ref, tol, dtype=torch.float32)
+
+
+def bwd_tolerance(ref):
+    """The elementwise limit on a backward output's error: BWD_ATOL +
+    BWD_RTOL |ref| for float32; BF16_ULPS ulps plus BWD_BF16_FLOOR of the
+    largest magnitude for bfloat16."""
+    import torch
+
+    if ref.dtype == torch.bfloat16:
+        return (BF16_ULPS * bf16_ulp(ref)
+                + BWD_BF16_FLOOR * ref.float().abs().max())
+    return BWD_ATOL + BWD_RTOL * ref.abs()
+
+
+def check_close(name, got, ref, limit) -> dict:
+    """Max |got - ref| and its largest share of ``limit``; raises when an
+    element is past its limit or not finite, or when the reference is all
+    zeros (a check that could not fail)."""
+    if not ref.abs().max().item() > 0:
+        raise AssertionError(f"{name}: the plain version is all zeros")
+    diff = (got.float() - ref.float()).abs()
+    err = diff.max().item()
+    share = (diff / limit).max().item()
+    if not (math.isfinite(err) and share <= 1.0):
+        raise AssertionError(f"{name}: kernel vs plain max|err| {err} at "
+                             f"{share} of its limit")
+    return {"max_abs_err": err, "err_share_of_tol": share}
 
 
 def emit(phase: str, **fields) -> None:
@@ -100,6 +155,19 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kept_pairs(Lq, Lk, causal):
+    """The (query, key) pairs a top-left causal mask keeps (all without)."""
+    if causal:  # row i keeps min(i + 1, Lk) keys
+        return sum(min(i + 1, Lk) for i in range(Lq))
+    return Lq * Lk
+
+
+def _bound(flops, nbytes, tensor_cores):
+    ops_ms = flops / (PEAK_BF16_TC_FLOPS if tensor_cores else PEAK_F32_FLOPS) * 1e3
+    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
 def attention_bound_ms(B, H, Lq, Lk, D, causal, dtype_bytes, bias_bytes,
                        tensor_cores: bool):
     """The least time an H100 could take for one attention forward: the
@@ -107,20 +175,46 @@ def attention_bound_ms(B, H, Lq, Lk, D, causal, dtype_bytes, bias_bytes,
     HBM bandwidth and (FLOPs of the pairs this run's mask keeps: 2*D for
     QK^T and 2*D for PV per pair) over the peak rate of the input type.
     Exponentials are not counted."""
-    if causal:  # top-left: row i keeps min(i + 1, Lk) keys
-        kept = sum(min(i + 1, Lk) for i in range(Lq))
-    else:
-        kept = Lq * Lk
-    flops = 4.0 * D * kept * B * H
+    flops = 4.0 * D * kept_pairs(Lq, Lk, causal) * B * H
     nbytes = (B * H * (Lq + 2 * Lk) * D * dtype_bytes      # q, k, v
               + B * H * Lq * D * dtype_bytes + B * H * Lq * 4  # o, lse
               + bias_bytes)
-    ops_ms = flops / (PEAK_BF16_TC_FLOPS if tensor_cores else PEAK_F32_FLOPS) * 1e3
-    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    return _bound(flops, nbytes, tensor_cores)
+
+
+def bwd_bound_ms(kernel, B, H, Lq, Lk, D, causal, dtype_bytes, bias_bytes,
+                 ds_bytes, tensor_cores: bool):
+    """The least time an H100 could take for one backward kernel: the
+    larger of its bytes (q, k, v, dO, lse, delta and bias read once; dQ
+    and dS, or dK and dV, written once) over HBM bandwidth and its FLOPs
+    (per kept pair 6D for dQ: Q K^T, dO V^T, dS K; 8D for dK/dV: those two
+    again, P^T dO and dS^T Q) over the peak of the input type."""
+    per_pair = 6 if kernel == "dq" else 8
+    flops = per_pair * D * kept_pairs(Lq, Lk, causal) * B * H
+    nbytes = (B * H * (2 * Lq + 2 * Lk) * D * dtype_bytes   # q, do, k, v
+              + 2 * B * H * Lq * 4 + bias_bytes)              # lse, delta
+    if kernel == "dq":
+        nbytes += B * H * Lq * D * dtype_bytes + ds_bytes
+    else:
+        nbytes += 2 * B * H * Lk * D * dtype_bytes
+    return _bound(flops, nbytes, tensor_cores)
+
+
+def _views(g, B, L, H, D, dtype, n=3):
+    """``n`` [B, H, L, D] tensors as the GPT path hands them to the
+    kernels: strided views of one fused [B, L, n, H, D] tensor."""
+    import torch
+
+    t = torch.randn(B, L, n, H, D, generator=g, device="cuda").to(dtype)
+    return tuple(t[:, :, i].transpose(1, 2) for i in range(n))
+
+
+def _dtype_name(t):
+    return str(t.dtype).replace("torch.", "")
 
 
 def phase_kernels(seed: int) -> dict:
+    """The forward kernel against its plain version."""
     import torch
     import torch.nn.functional as F
 
@@ -128,25 +222,21 @@ def phase_kernels(seed: int) -> dict:
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-
-    def blhd_views(L, H, D, dtype):
-        # q, k, v as the GPT prefill hands them to the kernel: strided
-        # [B, H, L, D] views of one fused [B, L, 3, H, D] projection
-        qkv = torch.randn(1, L, 3, H, D, generator=g, device="cuda").to(dtype)
-        return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
-
     cases = []
     for L in (64, 512, 1024, 2048):  # the serving path's prefill buckets
-        cases.append((f"prefill_f32_L{L}", *blhd_views(L, 16, 128, torch.float32),
+        cases.append((f"prefill_f32_L{L}", *_views(g, 1, L, 16, 128, torch.float32),
                       True, None, F32_TOL))
-    cases.append(("causal_bf16_L2048", *blhd_views(2048, 16, 128, torch.bfloat16),
+    cases.append(("causal_bf16_L2048", *_views(g, 1, 2048, 16, 128, torch.bfloat16),
+                  True, None, f"{BF16_ULPS} bf16 ulps + 1e-6"))
+    # the training step's attention: [2, 16, 1024, 128] bf16, causal
+    cases.append(("train_bf16_B2_L1024", *_views(g, 2, 1024, 16, 128, torch.bfloat16),
                   True, None, f"{BF16_ULPS} bf16 ulps + 1e-6"))
     q = torch.randn(1, 16, 384, 128, generator=g, device="cuda")
     k = torch.randn(1, 16, 640, 128, generator=g, device="cuda")
     v = torch.randn(1, 16, 640, 128, generator=g, device="cuda")
     bias = torch.randn(1, 16, 384, 640, generator=g, device="cuda")
     cases.append(("bias_noncausal_f32_Lq384_Lk640", q, k, v, False, bias, F32_TOL))
-    cases.append(("ragged_causal_f32_L1500", *blhd_views(1500, 16, 128, torch.float32),
+    cases.append(("ragged_causal_f32_L1500", *_views(g, 1, 1500, 16, 128, torch.float32),
                   True, None, F32_TOL))
 
     results = {}
@@ -155,16 +245,10 @@ def phase_kernels(seed: int) -> dict:
         torch.cuda.synchronize()
         o_ref, lse_ref = fa.reference_attention_fwd(q, k, v, causal=causal,
                                                     bias=bias)
-        diff = (o.float() - o_ref.float()).abs()
-        err = diff.max().item()
-        # the largest error as a share of its element's limit (<= 1 passes)
-        err_share = (diff / output_tolerance(o_ref, tol)).max().item()
+        num = check_close(name, o, o_ref, output_tolerance(o_ref, tol))
         lse_err = (lse - lse_ref).abs().max().item()
-        if not (math.isfinite(err) and err_share <= 1.0
-                and lse_err <= F32_TOL * 10):
-            raise AssertionError(f"{name}: kernel vs plain max|err| {err} "
-                                 f"at {err_share} of its limit (tol {tol}), "
-                                 f"lse {lse_err}")
+        if not lse_err <= F32_TOL * 10:
+            raise AssertionError(f"{name}: lse max|err| {lse_err}")
         ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
                                                     bias=bias))
         plain_ms = cuda_ms(lambda: fa.reference_attention_fwd(
@@ -177,15 +261,196 @@ def phase_kernels(seed: int) -> dict:
             0 if bias is None else bias.numel() * bias.element_size(),
             tensor_cores=q.dtype == torch.bfloat16)
         results[name] = dict(shape=[B, H, Lq, k.shape[2], D],
-                             dtype=str(q.dtype).replace("torch.", ""),
-                             causal=causal, bias=bias is not None,
-                             max_abs_err=err, err_share_of_tol=err_share,
+                             dtype=_dtype_name(q), causal=causal,
+                             bias=bias is not None, **num,
                              lse_max_abs_err=lse_err, tol=tol,
                              ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              roofline_share=bound_ms / ms)
         emit("kernels", case=name, **results[name])
     return results
+
+
+def _sdpa_backward_ms(q, k, v, do, bias, causal):
+    """The library yardstick of the backward: F.scaled_dot_product_attention
+    forward plus backward through autograd, minus its forward alone."""
+    import torch
+    import torch.nn.functional as F
+
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias,
+                                           is_causal=causal)
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias,
+                                           is_causal=causal)
+        o.backward(do)
+
+    return cuda_ms(fwd_bwd) - cuda_ms(fwd)
+
+
+def phase_backward(seed: int) -> dict:
+    """The dQ and dK/dV kernels against the plain backward."""
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 1)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        # the training step's shape; q/k/v views of the fused qkv and dO a
+        # view of the [B, L, H, D] gradient, as autograd hands them over
+        q, k, v = _views(g, 2, 1024, 16, 128, dtype)
+        do = rn(2, 1024, 16, 128).to(dtype).transpose(1, 2)
+        cases.append((f"train_{_dtype_name(q)}_B2_L1024", q, k, v, do, True, None))
+    cases.append(("bias_noncausal_f32_Lq384_Lk640", rn(1, 16, 384, 128),
+                  rn(1, 16, 640, 128), rn(1, 16, 640, 128), rn(1, 16, 384, 128),
+                  False, rn(1, 16, 384, 640)))
+    q, k, v = _views(g, 1, 1500, 16, 128, torch.float32)
+    cases.append(("ragged_causal_f32_L1500", q, k, v,
+                  rn(1, 1500, 16, 128).transpose(1, 2), True, None))
+    for D, H in ((64, 16), (256, 8)):
+        cases.append((f"d{D}_causal_f32_L1024", rn(1, H, 1024, D),
+                      rn(1, H, 1024, D), rn(1, H, 1024, D), rn(1, H, 1024, D),
+                      True, None))
+
+    results = {}
+    for name, q, k, v, do, causal, bias in cases:
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, bias=bias)
+        got = fa.flash_attention_bwd(q, k, v, bias, o, lse, do, causal)
+        torch.cuda.synchronize()
+        dq, dk, dv, ds = fa.reference_attention_bwd(q, k, v, bias, o, lse, do,
+                                                    causal)
+        refs = {"dq": dq, "dk": dk, "dv": dv}
+        if bias is not None:
+            refs["dbias"] = ds.sum(0, keepdim=True)
+        errs = {}
+        for (key, ref), x in zip(refs.items(), got):
+            errs[key] = check_close(f"{name} {key}", x, ref,
+                                    bwd_tolerance(ref))
+        delta = (do.float() * o.float()).sum(-1).contiguous()
+        emit_ds = bias is not None
+        dq_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, bias, do, lse, delta, causal, emit_ds=emit_ds))
+        dkv_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, bias, do, lse, delta, causal))
+        plain_ms = cuda_ms(lambda: fa.reference_attention_bwd(
+            q, k, v, bias, o, lse, do, causal), iters=5)
+        library_ms = _sdpa_backward_ms(q, k, v, do, bias, causal)
+        B, H, Lq, D = q.shape
+        Lk = k.shape[2]
+        common = (B, H, Lq, Lk, D, causal, q.element_size(),
+                  0 if bias is None else bias.numel() * 4)
+        tc = q.dtype == torch.bfloat16
+        dq_bound, dq_by = bwd_bound_ms("dq", *common,
+                                       B * H * Lq * Lk * 4 if emit_ds else 0,
+                                       tensor_cores=tc)
+        dkv_bound, dkv_by = bwd_bound_ms("dkv", *common, 0, tensor_cores=tc)
+        results[name] = dict(
+            shape=[B, H, Lq, Lk, D], dtype=_dtype_name(q), causal=causal,
+            bias=bias is not None, errors=errs,
+            tol=("2 bf16 ulps + 1e-5 of max" if tc else
+                 f"rtol {BWD_RTOL} atol {BWD_ATOL}"),
+            dq_ms=dq_ms, dkv_ms=dkv_ms, dq_bound_ms=dq_bound, dq_bound_by=dq_by,
+            dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
+            plain_ms=plain_ms, library_ms=library_ms,
+            dq_roofline_share=dq_bound / dq_ms,
+            dkv_roofline_share=dkv_bound / dkv_ms)
+        emit("kernels_bwd", case=name, **results[name])
+    return results
+
+
+def _plain_bits(fa, seed, B, H, L):
+    import torch
+
+    def ar(n, dim):
+        shape = [1, 1, 1, 1]
+        shape[dim] = n
+        return torch.arange(n, device="cuda").view(shape)
+
+    return fa.philox_bits(seed, ar(L, 3), ar(L, 2), ar(H, 1),
+                          ar(B, 0)).expand(B, H, L, L)
+
+
+def phase_dropout(seed: int) -> dict:
+    """The CUDA Philox mask against the plain one, its keep rate, replay,
+    and forward/backward at p = DROPOUT_P against the plain versions given
+    the same mask."""
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    B, H, L, D = 2, 16, 1024, 128
+    mseed = 1234 + seed
+    bits = fa.dropout_bits(mseed, B, H, L, L, device="cuda")
+    if not torch.equal(bits, _plain_bits(fa, mseed, B, H, L)):
+        raise AssertionError("CUDA dropout bits differ from the plain Philox")
+    window = fa.dropout_bits(mseed, B, H, 100, 300, device="cuda",
+                             row0=517, col0=211)
+    if not torch.equal(window, bits[:, :, 517:617, 211:511]):
+        raise AssertionError("a window of the CUDA mask differs from the "
+                             "same window of the full mask")
+    if not torch.equal(bits, fa.dropout_bits(mseed, B, H, L, L, device="cuda")):
+        raise AssertionError("the CUDA mask does not replay its seed")
+    threshold = min(int(DROPOUT_P * 2 ** 32), 2 ** 32 - 1)
+    n = bits.numel()
+    kept = int((bits >= threshold).sum())
+    sigma = math.sqrt(n * DROPOUT_P * (1 - DROPOUT_P))
+    if abs(kept - n * (1 - DROPOUT_P)) > 5 * sigma:
+        raise AssertionError(f"keep rate {kept / n} outside 5 sigma of "
+                             f"{1 - DROPOUT_P}")
+    del bits, window
+    keep = fa.dropout_mask(mseed, B, H, L, L, DROPOUT_P, "cuda")
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 2)
+    out = dict(mask_bits_equal_plain=True, keep_rate=kept / n,
+               keep_rate_sigma=sigma / n)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _views(g, B, L, H, D, dtype)
+        do = torch.randn(B, L, H, D, generator=g, device="cuda").to(dtype) \
+            .transpose(1, 2)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True,
+                                        dropout_p=DROPOUT_P, seed=mseed)
+        o2, _ = fa.flash_attention_fwd(q, k, v, causal=True,
+                                       dropout_p=DROPOUT_P, seed=mseed)
+        got = fa.flash_attention_bwd(q, k, v, None, o, lse, do, True,
+                                     DROPOUT_P, mseed)
+        got2 = fa.flash_attention_bwd(q, k, v, None, o, lse, do, True,
+                                      DROPOUT_P, mseed)
+        torch.cuda.synchronize()
+        if not (torch.equal(o, o2)
+                and all(torch.equal(a, b) for a, b in zip(got[:3], got2[:3]))):
+            raise AssertionError("dropout kernels do not replay a fixed seed")
+        o_ref, lse_ref = fa.reference_attention_fwd(q, k, v, causal=True,
+                                                    keep_mask=keep)
+        name = f"dropout_{_dtype_name(q)}_B2_L1024"
+        errs = {"o": check_close(f"{name} o", o, o_ref,
+                                 output_tolerance(o_ref, F32_TOL))}
+        if (lse - lse_ref).abs().max().item() > F32_TOL * 10:
+            raise AssertionError(f"{name}: lse differs")
+        ref = fa.reference_attention_bwd(q, k, v, None, o, lse, do, True, keep)
+        for key, x, y in zip(("dq", "dk", "dv"), got, ref):
+            errs[key] = check_close(f"{name} {key}", x, y, bwd_tolerance(y))
+        delta = (do.float() * o.float()).sum(-1).contiguous()
+        out[name] = dict(
+            errors=errs,
+            fwd_ms=cuda_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, causal=True, dropout_p=DROPOUT_P, seed=mseed)),
+            dq_ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(
+                q, k, v, None, do, lse, delta, True, DROPOUT_P, mseed)),
+            dkv_ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, None, do, lse, delta, True, DROPOUT_P, mseed)))
+    emit("dropout", p=DROPOUT_P, shape=[B, H, L, L, D], **out)
+    return out
 
 
 def phase_serving(seed: int) -> dict:
@@ -288,6 +553,187 @@ def phase_serving(seed: int) -> dict:
     return out
 
 
+def _counts(fa):
+    return (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches)
+
+
+def _reset_counts(fa):
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd_dq.launches = 0
+    fa.flash_attention_bwd_dkv.launches = 0
+
+
+def _train_config(**overrides):
+    """bench.py bench_gpt_1p3b's configuration (hidden 2048, 24 layers,
+    16 heads, vocab 50304, 1024 positions, recompute, flash attention,
+    chunked loss of 256, dropout 0)."""
+    from paddle_tpu_torch.models.gpt import gpt_1p3b
+
+    cfg = dict(max_position_embeddings=TRAIN_SEQ, hidden_dropout_prob=0.0,
+               attention_dropout_prob=0.0, use_recompute=True,
+               use_flash_attention=True, loss_chunk=256, dtype="bfloat16")
+    cfg.update(overrides)
+    return gpt_1p3b(**cfg)
+
+
+def _o2_step(cfg, seed: int, global_seed: int):
+    """A TrainStep over a seeded model, AdamW(1e-4, wd 0.01) and
+    amp.decorate O2 bf16, as the bench builds it."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework import random as framework_random
+    from paddle_tpu_torch.framework.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    framework_random.seed(global_seed)
+    model = GPTForCausalLM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(seed)).train()
+    model, opt = amp.decorate(model, AdamW(learning_rate=1e-4,
+                                           weight_decay=0.01),
+                              level="O2", dtype="bfloat16")
+    return TrainStep(model, opt, loss_fn=None)
+
+
+def _free():
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_training(seed: int) -> dict:
+    """The GPT-3 1.3B bf16 (O2) pretrain step, 5 warm-up and 8 timed."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.gpt import gpt_flops_per_token
+
+    cfg = _train_config()
+    t0 = time.perf_counter()
+    step = _o2_step(cfg, seed, seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    need = (2 * cfg.num_layers, cfg.num_layers, cfg.num_layers)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step = [], [], []
+    _reset_counts(fa)
+    for _ in range(TRAIN_WARMUP + TRAIN_TIMED):
+        before = _counts(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step((ids, ids))
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(tuple(a - b for a, b in zip(_counts(fa), before)))
+    launches = _counts(fa)
+    if any(c != need for c in per_step):
+        raise AssertionError(f"launches per step (fwd, dq, dkv) {per_step}, "
+                             f"expected {need} every step")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses}: not finite or not "
+                             f"falling")
+    timed = step_ms[TRAIN_WARMUP:]
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_TIMED / (sum(timed) / 1e3)
+    flops_per_token = gpt_flops_per_token(cfg, TRAIN_SEQ)
+    out = dict(model="gpt_1p3b O2 bf16", batch=[TRAIN_BATCH, TRAIN_SEQ],
+               params=sum(p.numel() for p in step.params.values()),
+               model_build_s=build_s, losses=losses,
+               launches={"fwd": launches[0], "dq": launches[1],
+                         "dkv": launches[2]},
+               launches_per_step=dict(zip(("fwd", "dq", "dkv"), need)),
+               step_ms=step_ms, step_ms_median=float(np.median(timed)),
+               tokens_per_s=tokens_per_s,
+               mfu=tokens_per_s * flops_per_token / PEAK_BF16_TC_FLOPS,
+               flops_per_token=flops_per_token,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               card=nvidia_smi_line())
+    emit("training", **out)
+    return out
+
+
+def phase_train_parity(seed: int) -> dict:
+    """One float32 forward and backward of the training configuration,
+    with the flash kernels and with plain attention, no update."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+
+    cfg = _train_config()
+    model = GPTForCausalLM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(seed)).train()
+    params = list(model.parameters())
+    ids = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)), device="cuda")
+
+    def run(flash: bool):
+        model.cfg.use_flash_attention = flash
+        loss = model(ids, ids)
+        return loss.item(), torch.autograd.grad(loss, params)
+
+    _reset_counts(fa)
+    loss_k, grads_k = run(True)
+    launches = _counts(fa)
+    loss_p, grads_p = run(False)
+    model.cfg.use_flash_attention = True
+    if launches != (2 * cfg.num_layers, cfg.num_layers, cfg.num_layers):
+        raise AssertionError(f"float32 kernel run launched {launches}")
+    rel = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+           for a, b in zip(grads_k, grads_p)]
+    worst = max(rel)
+    if not (abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p)
+            and worst <= TRAIN_GRAD_REL_L2):
+        raise AssertionError(f"float32 training, kernels vs plain: loss "
+                             f"{loss_k} vs {loss_p}, worst grad rel L2 {worst}")
+    names = [n for n, _ in model.named_parameters()]
+    out = dict(dtype="float32", loss_kernel=loss_k, loss_plain=loss_p,
+               grad_rel_l2_max=worst, grad_rel_l2_worst_param=names[rel.index(worst)],
+               tol=dict(loss_rtol=TRAIN_LOSS_RTOL, grad_rel_l2=TRAIN_GRAD_REL_L2),
+               launches=dict(zip(("fwd", "dq", "dkv"), launches)))
+    emit("train_parity", **out)
+    return out
+
+
+def phase_dropout_replay(seed: int) -> dict:
+    """Full width, 2 layers, dropout 0.1: two TrainSteps from the same seed
+    give bit-identical losses over 2 steps; another seed does not."""
+    import numpy as np
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    cfg = _train_config(num_layers=2, hidden_dropout_prob=DROPOUT_P,
+                        attention_dropout_prob=DROPOUT_P)
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+
+    def losses(global_seed):
+        step = _o2_step(cfg, seed, global_seed)
+        return [float(step((ids, ids))) for _ in range(2)]
+
+    _reset_counts(fa)
+    a, b = losses(seed), losses(seed)
+    launches = _counts(fa)
+    other = losses(seed + 1)
+    need = (16, 8, 8)  # 2 runs x 2 steps x 2 layers x (forward + recompute)
+    if a != b or launches != need or other == a:
+        raise AssertionError(f"dropout replay: {a} vs {b} (other seed "
+                             f"{other}), launches {launches} != {need}")
+    out = dict(layers=2, p=DROPOUT_P, losses=a, replay_losses=b,
+               other_seed_losses=other,
+               launches=dict(zip(("fwd", "dq", "dkv"), launches)))
+    emit("dropout_replay", **out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -308,28 +754,54 @@ def main(argv=None) -> int:
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    libs = {s: _build.build(s).name for s in _build.SOURCES}
+    libs = {s: p.name for s, p in _build.build_all().items()}
     emit("build", seconds=time.perf_counter() - t0, libraries=libs,
          ptxas=[ln.strip() for s in libs for ln in _build.build_log(s).splitlines()
                 if "Used" in ln or "spill" in ln])
 
-    kern = phase_kernels(args.seed)
+    fwd = phase_kernels(args.seed)
+    bwd = phase_backward(args.seed)
+    phase_dropout(args.seed)
     serve = phase_serving(args.seed)
+    _free()
+    train = phase_training(args.seed)
+    _free()
+    phase_train_parity(args.seed)
+    _free()
+    phase_dropout_replay(args.seed)
 
-    main_case = kern["prefill_f32_L2048"]
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "paddle_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
-        "replaces": "paddle_tpu/kernels/flash_attention.py:131",
-        "launches": serve["flash_launches"],
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-    }]}), flush=True)
+    f_case = fwd["train_bf16_B2_L1024"]
+    b_case = bwd["train_bfloat16_B2_L1024"]
+    src = "paddle_tpu_torch/kernels/csrc/"
+    ref = "paddle_tpu/kernels/flash_attention.py:"
+    shape = dict(shape=[TRAIN_BATCH, 16, TRAIN_SEQ, TRAIN_SEQ, 128],
+                 dtype="bfloat16", causal=True)
+    kernels = [
+        dict(name="flash_attention_fwd", route="cuda",
+             source=src + "flash_attention_fwd.cu", replaces=ref + "131",
+             launches=train["launches"]["fwd"],
+             launches_serving=serve["flash_launches"],
+             max_abs_err=f_case["max_abs_err"], ms=f_case["ms"],
+             plain_ms=f_case["plain_ms"], bound_ms=f_case["bound_ms"],
+             bound_by=f_case["bound_by"], library_ms=f_case["library_ms"],
+             **shape),
+        dict(name="flash_attention_bwd_dq", route="cuda",
+             source=src + "flash_attention_bwd.cu", replaces=ref + "198",
+             launches=train["launches"]["dq"],
+             max_abs_err=b_case["errors"]["dq"]["max_abs_err"],
+             ms=b_case["dq_ms"], plain_ms=b_case["plain_ms"],
+             bound_ms=b_case["dq_bound_ms"], bound_by=b_case["dq_bound_by"],
+             library_ms=b_case["library_ms"], **shape),
+        dict(name="flash_attention_bwd_dkv", route="cuda",
+             source=src + "flash_attention_bwd.cu", replaces=ref + "269",
+             launches=train["launches"]["dkv"],
+             max_abs_err=max(b_case["errors"][k]["max_abs_err"]
+                             for k in ("dk", "dv")),
+             ms=b_case["dkv_ms"], plain_ms=b_case["plain_ms"],
+             bound_ms=b_case["dkv_bound_ms"], bound_by=b_case["dkv_bound_by"],
+             library_ms=b_case["library_ms"], **shape),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

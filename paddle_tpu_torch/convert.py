@@ -5,7 +5,11 @@ port's parameters, with the same layouts (linear weights ``[in, out]``,
 the word embeddings ``[vocab, hidden]``), so conversion is a copy by
 name. The caller passes the state as numpy arrays
 (``{k: np.asarray(v) for k, v in jax_model.state_dict().items()}``);
-this module imports nothing of JAX.
+this module imports nothing of JAX. Arrays in bfloat16 (``ml_dtypes``,
+the state of a model after ``amp.decorate(level="O2")``) load into
+bfloat16 parameters, float32 arrays into float32 ones. The config's
+training fields (recompute, ``loss_chunk``, dropout) carry over with
+``cfg``.
 """
 from __future__ import annotations
 
@@ -22,8 +26,9 @@ __all__ = ["gpt_from_jax"]
 def gpt_from_jax(state: Dict[str, np.ndarray], cfg: GPTConfig,
                  device=None) -> GPTForCausalLM:
     """A port ``GPTForCausalLM`` for ``cfg`` on ``device`` carrying the
-    weights in ``state``. Raises ``KeyError`` on a missing or an extra
-    name and ``ValueError`` on a wrong shape."""
+    weights in ``state``, in eval mode (call ``.train()`` to train it).
+    Raises ``KeyError`` on a missing or an extra name and ``ValueError``
+    on a wrong shape."""
     model = GPTForCausalLM(cfg, device=device)
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(state))
@@ -33,10 +38,13 @@ def gpt_from_jax(state: Dict[str, np.ndarray], cfg: GPTConfig,
                        f"{missing}, unexpected {extra}")
     with torch.no_grad():
         for name, p in params.items():
-            value = np.array(state[name], dtype=np.float32)  # a copy
+            value = np.asarray(state[name])
+            dtype = (torch.bfloat16 if value.dtype.name == "bfloat16"
+                     else torch.float32)
+            value = np.array(value, dtype=np.float32)  # a copy
             if tuple(value.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {tuple(value.shape)}, the "
                                  f"port expects {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(value))
+            p.data = torch.from_numpy(value).to(device=p.device, dtype=dtype)
     model.eval()
     return model

@@ -3,8 +3,10 @@
 Each source under ``csrc/`` compiles with ``nvcc`` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds, not minutes), under ``build/kernels/`` at the repository root.
-The library's file name carries a digest of its source and flags, so an
-edited source rebuilds and an unchanged one is reused.
+The library's file name carries a digest of its source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one is reused. :func:`build_all` starts one
+``nvcc`` per source at once.
 
 Nothing here runs at import time; this module is safe to import on a
 machine without ``nvcc`` or a GPU.
@@ -18,15 +20,15 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build",
-           "load", "build_log"]
+           "build_all", "load", "build_log"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 #: every kernel source of the port
-SOURCES = ("flash_attention_fwd.cu",)
+SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,9 +50,11 @@ def _nvcc() -> str:
 
 
 def _library_path(source: str) -> Path:
-    src = (CSRC_DIR / source).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC_DIR / source).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_log(source: str) -> str:
@@ -61,25 +65,54 @@ def build_log(source: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _start(source: str):
+    """Start ``nvcc`` on ``source`` unless an up-to-date library exists:
+    ``(library path, running process or None, temporary output)``."""
+    out = _library_path(source)
+    if out.exists():
+        return out, None, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+    proc = subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return out, proc, tmp
+
+
+def _finish(source: str, out: Path, proc, tmp: Path) -> Path:
+    if proc is None:
+        return out
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"kernel build failed: {source}: nvcc exited "
+                           f"{proc.returncode}\n{log}")
+    out.with_suffix(".log").write_text(log)
+    os.replace(tmp, out)  # atomic: a reader never sees half a library
+    return out
+
+
 def build(source: str) -> Path:
     """Compile ``source`` unless an up-to-date library exists, and return
     the library's path. Raises ``RuntimeError`` with the compiler's output
     if the build fails."""
-    out = _library_path(source)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"kernel build failed: {source}: nvcc exited "
-                           f"{proc.returncode}\n{proc.stdout}")
-    out.with_suffix(".log").write_text(proc.stdout)
-    os.replace(tmp, out)  # atomic: a reader never sees half a library
-    return out
+    return _finish(source, *_start(source))
+
+
+def build_all(sources: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Build every source with one ``nvcc`` each, all started together;
+    ``{source: library path}``. Raises on the first failed build, after
+    every compiler has exited."""
+    started = {s: _start(s) for s in sources}
+    done, errors = {}, []
+    for source, job in started.items():
+        try:
+            done[source] = _finish(source, *job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return done
 
 
 def load(source: str) -> ctypes.CDLL:

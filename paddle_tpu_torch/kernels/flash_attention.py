@@ -1,16 +1,30 @@
-"""Flash-attention forward: a hand-written sm_90a CUDA kernel and its plain
-PyTorch version (port of ``paddle_tpu/kernels/flash_attention.py``).
+"""Flash attention, forward and backward: hand-written sm_90a CUDA kernels
+and their plain PyTorch versions (port of
+``paddle_tpu/kernels/flash_attention.py``).
 
-The kernel (``csrc/flash_attention_fwd.cu``) replaces the Pallas
-``_fwd_kernel`` (``flash_attention.py:131``): online-softmax attention
-that emits O and the per-row log-sum-exp, with a top-left-aligned causal
-mask (query i sees key j iff i >= j), an optional additive bias broadcast
-from ``[B|1, H|1, Lq, Lk]``, float32 or bfloat16 inputs with float32
-statistics, and head dims 64, 128 and 256.
+The kernels replace the three Pallas kernels of the reference:
+
+- ``csrc/flash_attention_fwd.cu`` replaces ``_fwd_kernel`` (``:131``):
+  online-softmax attention that emits O and the per-row log-sum-exp;
+- ``csrc/flash_attention_bwd.cu`` replaces ``_bwd_dq_kernel`` (``:198``)
+  and ``_bwd_dkv_kernel`` (``:269``): dQ (and dS, the bias gradient before
+  its reduction) over query tiles, dK/dV over key tiles;
+- ``csrc/philox.cuh`` replaces the in-kernel dropout ``_dropout_mask``
+  (``:120``): Philox4x32-10 bits keyed per element by (seed, b, h, row,
+  col), so the three kernels regenerate one mask although they tile
+  differently. :func:`philox_bits` computes the same bits with torch
+  integer ops.
+
+All take a top-left-aligned causal mask (query i sees key j iff i >= j),
+an optional additive bias broadcast from ``[B|1, H|1, Lq, Lk]``, float32
+or bfloat16 inputs with float32 arithmetic, any length, and head dims 64,
+128 and 256. :class:`FlashAttention` (the counterpart of the reference's
+``_flash_diff`` ``custom_vjp``, ``:539-565``) wires them into autograd.
 
 Dispatch is by device, never by a fallback: a wrapper given CPU tensors
 runs the plain version (that is what the CPU tests exercise), and given
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches the kernel or raises. Each wrapper counts its
+launches in ``<wrapper>.launches``.
 
 The gate :func:`should_use_flash` keeps the JAX gate's shape rules (head
 dim in {64, 128, 256}; a bias that broadcasts to ``[B, H, Lq, Lk]``) and
@@ -21,13 +35,7 @@ drops its two TPU-only rules:
   about an H100, and on the card the only alternative to the kernel is
   the plain version, which materialises the ``[Lq, Lk]`` scores;
 - ``L % 128 == 0`` came from Mosaic's (8, 128) block tiling. The CUDA
-  kernel masks its own ragged edge, so any length runs.
-
-So on the card every prefill bucket goes through the kernel.
-
-In-kernel attention dropout (the TPU PRNG in ``_dropout_mask``) is not
-ported yet; it comes with the backward kernels, and until then
-``dropout_p > 0`` raises ``NotImplementedError``.
+  kernels mask their own ragged edge, so any length runs.
 """
 from __future__ import annotations
 
@@ -36,24 +44,29 @@ import functools
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
 
-__all__ = ["SUPPORTED_HEAD_DIMS", "should_use_flash", "flash_attention_fwd",
-           "flash_attention_bhld", "flash_attention_blhd",
-           "reference_attention_bhld", "reference_attention_fwd"]
+__all__ = ["SUPPORTED_HEAD_DIMS", "should_use_flash", "philox_bits",
+           "dropout_bits", "dropout_mask", "flash_attention_fwd",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "flash_attention_bwd", "FlashAttention", "flash_attention_bhld",
+           "flash_attention_blhd", "reference_attention_bhld",
+           "reference_attention_fwd", "reference_attention_bwd"]
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
-_SOURCE = "flash_attention_fwd.cu"
+_FWD_SOURCE = "flash_attention_fwd.cu"
+_BWD_SOURCE = "flash_attention_bwd.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def should_use_flash(q, k, attn_mask, dropout_p) -> bool:
     """Kernel gate on ``[B, L, H, D]`` tensors: CUDA tensors whose shapes
-    the kernel takes. CPU tensors always answer False (they run the plain
-    path)."""
-    del dropout_p  # dropout > 0 reaches the wrapper, which raises for now
+    the kernels take. CPU tensors always answer False (they run the plain
+    path). Dropout runs inside the kernels, so it does not gate."""
+    del dropout_p
     if not q.is_cuda:
         return False
     Lq, Lk = q.shape[1], k.shape[1]
@@ -69,25 +82,161 @@ def should_use_flash(q, k, attn_mask, dropout_p) -> bool:
     return q.shape[-1] in SUPPORTED_HEAD_DIMS
 
 
+# ---------------------------------------------------------------- dropout
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """``(hi, lo)`` 32-bit halves of ``m * x`` for a 32-bit constant ``m``
+    and an int64 tensor ``x`` of 32-bit values, without overflowing int64:
+    ``x`` is split into 16-bit halves."""
+    t = m * (x & 0xFFFF)                  # < 2^48
+    u = m * (x >> 16) + (t >> 16)         # < 2^48 + 2^32
+    return u >> 16, ((u & 0xFFFF) << 16) | (t & 0xFFFF)
+
+
+def philox_bits(seed: int, c0, c1, c2, c3) -> torch.Tensor:
+    """The first output word of Philox4x32-10 for counters ``(c0, c1, c2,
+    c3)`` (int64 tensors of 32-bit values, broadcast together) and key
+    ``(seed & 0xFFFFFFFF, seed >> 32)``: the plain version of
+    ``csrc/philox.cuh``, equal to it bit for bit. Returns int64 values in
+    ``[0, 2^32)``."""
+    seed = int(seed)
+    k0, k1 = seed & _U32, (seed >> 32) & _U32
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W0) & _U32, (k1 + _PHILOX_W1) & _U32
+    return c0
+
+
+def _plain_dropout_bits(seed, B, H, rows, cols, row0, col0, device):
+    def ar(n, start, dims):
+        shape = [1, 1, 1, 1]
+        shape[dims] = n
+        return (torch.arange(n, device=device, dtype=torch.int64)
+                + start).view(shape)
+
+    c0, c1 = ar(cols, col0, 3), ar(rows, row0, 2)
+    c2, c3 = ar(H, 0, 1), ar(B, 0, 0)
+    zero = torch.zeros((B, H, rows, cols), device=device, dtype=torch.int64)
+    return philox_bits(seed, c0 + zero, c1, c2, c3)
+
+
+@functools.lru_cache(maxsize=None)
+def _mask_fn():
+    fn = _build.load(_FWD_SOURCE).pt_dropout_mask
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_uint64] + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def dropout_bits(seed: int, B: int, H: int, rows: int, cols: int,
+                 device=None, row0: int = 0, col0: int = 0) -> torch.Tensor:
+    """The uint32 Philox words behind the dropout mask of the window
+    ``[B, H, row0:row0+rows, col0:col0+cols]``, as int64 ``[B, H, rows,
+    cols]``. On a CUDA device the kernel (``pt_dropout_mask``) writes
+    them (``dropout_bits.launches`` counts it); on the CPU
+    :func:`philox_bits` computes them."""
+    device = torch.device("cpu" if device is None else device)
+    if device.type != "cuda":
+        return _plain_dropout_bits(seed, B, H, rows, cols, row0, col0, device)
+    out = torch.empty((B, H, rows, cols), device=device, dtype=torch.int32)
+    with torch.cuda.device(device):
+        err = _mask_fn()(out.data_ptr(), int(seed) & (2 ** 64 - 1), B, H,
+                         row0, rows, col0, cols,
+                         torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dropout mask launch failed: CUDA error {err}")
+    dropout_bits.launches += 1
+    return out.to(torch.int64) & _U32
+
+
+dropout_bits.launches = 0
+
+
+def _dropout_params(dropout_p: float):
+    """``(threshold, scale)`` as the reference computes them (``:126-128``):
+    keep iff bits >= min(int(p * 2^32), 2^32 - 1), kept values times
+    float32 ``1 / (1 - p)``."""
+    threshold = min(int(dropout_p * (2 ** 32)), 2 ** 32 - 1)
+    scale = float(np.float32(1.0) / np.float32(1.0 - dropout_p))
+    return threshold, scale
+
+
+def dropout_mask(seed: int, B: int, H: int, Lq: int, Lk: int,
+                 dropout_p: float, device=None) -> torch.Tensor:
+    """The float32 ``[B, H, Lq, Lk]`` multiplier the kernels apply to P: 0
+    where dropped, ``1 / (1 - p)`` where kept (plain version, from
+    :func:`philox_bits`)."""
+    threshold, scale = _dropout_params(dropout_p)
+    bits = _plain_dropout_bits(seed, B, H, Lq, Lk, 0, 0, device)
+    return (bits >= threshold).to(torch.float32) * scale
+
+
 # ----------------------------------------------------------- plain version
-def reference_attention_fwd(q, k, v, causal: bool = False,
-                            bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version of the kernel on ``[B, H, L, D]``: returns
-    ``(o, lse)``, o in q's dtype, lse float32 ``[B, H, Lq]``. Causal is
-    top-left aligned (``q_pos >= k_pos``), as in the kernel, also when
-    ``Lq != Lk``."""
+def _scores(q, k, bias):
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if bias is not None:
         s = s + bias.float()
+    return s
+
+
+def _causal_keep(Lq: int, Lk: int, device) -> torch.Tensor:
+    return torch.ones(Lq, Lk, dtype=torch.bool, device=device).tril()
+
+
+def reference_attention_fwd(q, k, v, causal: bool = False, bias=None,
+                            keep_mask=None) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """The plain version of the forward kernel on ``[B, H, L, D]``:
+    returns ``(o, lse)``, o in q's dtype, lse float32 ``[B, H, Lq]``.
+    Causal is top-left aligned (``q_pos >= k_pos``), as in the kernel,
+    also when ``Lq != Lk``. ``keep_mask`` (optional, float32, broadcast to
+    ``[B, H, Lq, Lk]``, e.g. :func:`dropout_mask`) multiplies the
+    normalised probabilities before ``P V``; the LSE ignores it."""
+    s = _scores(q, k, bias)
     if causal:
-        Lq, Lk = s.shape[-2], s.shape[-1]
-        mask = torch.ones(Lq, Lk, dtype=torch.bool, device=s.device).tril()
-        s = s.masked_fill(~mask, float("-inf"))
+        s = s.masked_fill(~_causal_keep(s.shape[-2], s.shape[-1], s.device),
+                          float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
+    if keep_mask is not None:
+        p = p * keep_mask
     o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
     return o, lse
+
+
+def reference_attention_bwd(q, k, v, bias, o, lse, do, causal: bool = False,
+                            keep_mask=None):
+    """The plain version of the two backward kernels, written out (not
+    through autograd) on ``[B, H, L, D]``. With ``P = exp(S - LSE)`` (0
+    above the top-left causal diagonal), M = ``keep_mask`` (1 when None)
+    and ``Delta = rowsum(dO * O)``: ``dP = (dO V^T) M``,
+    ``dS = P (dP - Delta)``, ``dQ = dS K scale``, ``dK = dS^T Q scale``,
+    ``dV = (P M)^T dO``. Returns ``(dq, dk, dv, ds)``: the gradients in
+    the inputs' dtypes and dS float32 ``[B, H, Lq, Lk]``."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(_scores(q, k, bias) - lse.float()[..., None])
+    if causal:
+        p = p * _causal_keep(p.shape[-2], p.shape[-1], p.device)
+    dof = do.float()
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
+    pd = p
+    if keep_mask is not None:
+        dp = dp * keep_mask
+        pd = p * keep_mask
+    delta = (dof * o.float()).sum(-1)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", pd, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds
 
 
 def reference_attention_bhld(q, k, v, causal: bool = False, bias=None):
@@ -97,15 +246,27 @@ def reference_attention_bhld(q, k, v, causal: bool = False, bias=None):
     return reference_attention_fwd(q, k, v, causal=causal, bias=bias)[0]
 
 
-# ---------------------------------------------------------------- kernel
+# ---------------------------------------------------------------- kernels
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    """The typed ctypes entry of the kernel library (built and loaded on
+def _fwd_fn():
+    """The typed ctypes entry of the forward kernel (built and loaded on
     the first call, then reused)."""
-    fn = _build.load(_SOURCE).pt_flash_attention_fwd
+    fn = _build.load(_FWD_SOURCE).pt_flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_uint64, ctypes.c_uint32,
+                      ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_fn(name: str):
+    fn = getattr(_build.load(_BWD_SOURCE), name)
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_uint64, ctypes.c_uint32,
+                      ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -118,16 +279,38 @@ def _check_operand(name: str, t: torch.Tensor, device, dtype, shape) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    # the kernel reads rows with 16-byte (f32) / 8-byte (bf16) vector loads
-    if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:3]) \
-            or t.data_ptr() % 16:
+    # the kernels read rows with 16-byte (f32) / 8-byte (bf16) vector loads
+    if not _rows_ok(t):
         raise ValueError(
             f"{name} needs a contiguous last dimension, 16-byte aligned "
             f"storage and (batch, head, row) strides that are multiples of "
             f"4 elements; got strides {t.stride()}")
 
 
-def _launch(q, k, v, causal: bool, bias, out):
+def _rows_ok(t: torch.Tensor) -> bool:
+    return (t.stride(-1) == 1 and not any(s % 4 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
+def _kernel_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if the kernels can read it through its strides, else a
+    contiguous copy (an incoming gradient may be any view)."""
+    return t if _rows_ok(t) else t.contiguous()
+
+
+def _empty_like_rows(t: torch.Tensor) -> torch.Tensor:
+    """An uninitialised ``[B, H, L, D]`` tensor in ``t``'s layout: a
+    transposed view of a ``[B, L, H, D]`` buffer when ``t``'s heads lie
+    inside its rows (the GPT path's q/k/v, views of the fused qkv), else
+    contiguous."""
+    B, H, L, D = t.shape
+    if t.stride(1) < t.stride(2):
+        return torch.empty((B, L, H, D), device=t.device,
+                           dtype=t.dtype).transpose(1, 2)
+    return torch.empty(t.shape, device=t.device, dtype=t.dtype)
+
+
+def _check_shapes(q, k, v):
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"flash kernel takes float32 or bfloat16, got "
                          f"{q.dtype}")
@@ -140,35 +323,54 @@ def _launch(q, k, v, causal: bool, bias, out):
     if Lq < 1 or Lk < 1 or B > 65535 or H > 65535:
         raise ValueError(f"unsupported shape q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
+    _check_operand("q", q, q.device, q.dtype, (B, H, Lq, D))
     _check_operand("k", k, q.device, q.dtype, (B, H, Lk, D))
     _check_operand("v", v, q.device, q.dtype, (B, H, Lk, D))
-    _check_operand("q", q, q.device, q.dtype, (B, H, Lq, D))
+    return B, H, Lq, Lk, D
+
+
+def _kernel_bias(bias, B, H, Lq, Lk, device):
+    """The bias as the kernels read it (float32, broadcast dims with stride
+    0) and its (batch, head, row) strides; ``(None, (0, 0, 0))`` without."""
+    if bias is None:
+        return None, (0, 0, 0)
+    if bias.ndim != 4 or tuple(bias.shape[2:]) != (Lq, Lk) \
+            or bias.shape[0] not in (1, B) or bias.shape[1] not in (1, H):
+        raise ValueError(f"bias {tuple(bias.shape)} does not broadcast "
+                         f"to {(B, H, Lq, Lk)}")
+    if bias.device != device:
+        raise ValueError(f"bias is on {bias.device}, q on {device}")
+    bias = bias.to(torch.float32).contiguous().expand(B, H, Lq, Lk)
+    return bias, bias.stride()[:3]
+
+
+def _dropout_args(dropout_p: float, seed: int):
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
+    if dropout_p == 0.0:
+        return 0, 0, 0, 1.0
+    threshold, scale = _dropout_params(dropout_p)
+    return 1, int(seed) & (2 ** 64 - 1), threshold, scale
+
+
+def _launch_fwd(q, k, v, causal: bool, bias, out, dropout_p, seed):
+    B, H, Lq, Lk, D = _check_shapes(q, k, v)
     if out is None:
-        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+        out = _empty_like_rows(q)
     _check_operand("out", out, q.device, q.dtype, (B, H, Lq, D))
     lse = torch.empty((B, H, Lq), device=q.device, dtype=torch.float32)
-    bias_strides = (0, 0, 0)
-    if bias is not None:
-        if bias.ndim != 4 or tuple(bias.shape[2:]) != (Lq, Lk) \
-                or bias.shape[0] not in (1, B) or bias.shape[1] not in (1, H):
-            raise ValueError(f"bias {tuple(bias.shape)} does not broadcast "
-                             f"to {(B, H, Lq, Lk)}")
-        if bias.device != q.device:
-            raise ValueError(f"bias is on {bias.device}, q on {q.device}")
-        # broadcast dims get stride 0 from expand(); the kernel reads f32
-        bias = bias.to(torch.float32).contiguous().expand(B, H, Lq, Lk)
-        bias_strides = bias.stride()[:3]
+    bias, bias_strides = _kernel_bias(bias, B, H, Lq, Lk, q.device)
     strides = (ctypes.c_longlong * 15)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         *bias_strides)
-    fn = _kernel_fn()
+    fn = _fwd_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if bias is None else bias.data_ptr(),
                  out.data_ptr(), lse.data_ptr(), _DTYPE_CODES[q.dtype],
                  B, H, Lq, Lk, D, strides, int(bool(causal)),
-                 1.0 / math.sqrt(D), stream)
+                 1.0 / math.sqrt(D), *_dropout_args(dropout_p, seed), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
                            f"{err}")
@@ -177,19 +379,27 @@ def _launch(q, k, v, causal: bool, bias, out):
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False, bias=None,
-                        out: Optional[torch.Tensor] = None):
+                        out: Optional[torch.Tensor] = None,
+                        dropout_p: float = 0.0, seed: int = 0):
     """``(o, lse)`` of attention on ``[B, H, L, D]`` tensors.
 
     CUDA tensors launch the kernel (which raises on what it does not take:
     dtype other than float32/bfloat16, head dim outside {64, 128, 256},
     a last dimension that is not contiguous); CPU tensors run
-    :func:`reference_attention_fwd`. ``out`` (optional, ``[B, H, Lq, D]``,
-    any strides with a contiguous last dimension) receives O in place,
-    e.g. a transposed view of a ``[B, L, H, D]`` buffer.
-    ``flash_attention_fwd.launches`` counts kernel launches."""
+    :func:`reference_attention_fwd` with the plain :func:`dropout_mask`.
+    ``out`` (optional, ``[B, H, Lq, D]``, any strides with a contiguous
+    last dimension) receives O in place, e.g. a transposed view of a
+    ``[B, L, H, D]`` buffer. ``dropout_p > 0`` drops probabilities with
+    the Philox mask of ``seed``. ``flash_attention_fwd.launches`` counts
+    kernel launches."""
     if q.is_cuda:
-        return _launch(q, k, v, causal, bias, out)
-    o, lse = reference_attention_fwd(q, k, v, causal=causal, bias=bias)
+        return _launch_fwd(q, k, v, causal, bias, out, dropout_p, seed)
+    keep = None
+    if dropout_p > 0.0:
+        B, H, Lq, _ = q.shape
+        keep = dropout_mask(seed, B, H, Lq, k.shape[2], dropout_p, q.device)
+    o, lse = reference_attention_fwd(q, k, v, causal=causal, bias=bias,
+                                     keep_mask=keep)
     if out is not None:
         out.copy_(o)
         o = out
@@ -199,30 +409,171 @@ def flash_attention_fwd(q, k, v, causal: bool = False, bias=None,
 flash_attention_fwd.launches = 0
 
 
-def _reject_dropout(dropout_p: float) -> None:
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            "attention dropout inside the flash kernel is not ported yet "
-            "(it arrives with the backward kernels); run with dropout_p=0")
+def _launch_bwd(which: str, q, k, v, bias, do, lse, delta, outs, ds,
+                causal, dropout_p, seed):
+    B, H, Lq, Lk, D = _check_shapes(q, k, v)
+    _check_operand("do", do, q.device, q.dtype, (B, H, Lq, D))
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, H, Lq) \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be contiguous float32 "
+                             f"{(B, H, Lq)} on {q.device}")
+    bias, bias_strides = _kernel_bias(bias, B, H, Lq, Lk, q.device)
+    grads = {"dq": (0, 0, 0), "dk": (0, 0, 0), "dv": (0, 0, 0)}
+    for name, t in outs.items():
+        src = q if name == "dq" else k
+        _check_operand(name, t, q.device, q.dtype, src.shape)
+        grads[name] = t.stride()[:3]
+    strides = (ctypes.c_longlong * 24)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        *grads["dq"], *grads["dk"], *grads["dv"], *bias_strides)
+    out0, out1 = (outs["dq"], ds) if which == "dq" else (outs["dk"],
+                                                         outs["dv"])
+    fn = _bwd_fn(f"pt_flash_attention_bwd_{which}")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 None if bias is None else bias.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), out0.data_ptr(),
+                 None if out1 is None else out1.data_ptr(),
+                 _DTYPE_CODES[q.dtype], B, H, Lq, Lk, D, strides,
+                 int(bool(causal)), 1.0 / math.sqrt(D),
+                 *_dropout_args(dropout_p, seed), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_{which} launch failed: "
+                           f"CUDA error {err}")
+
+
+def flash_attention_bwd_dq(q, k, v, bias, do, lse, delta,
+                           causal: bool = False, dropout_p: float = 0.0,
+                           seed: int = 0, emit_ds: bool = False):
+    """Launch the dQ kernel on CUDA ``[B, H, L, D]`` tensors (``lse`` and
+    ``delta = rowsum(dO * O)`` float32 ``[B, H, Lq]``): returns ``(dq,
+    ds)``, with ``ds`` the float32 ``[B, H, Lq, Lk]`` score gradient when
+    ``emit_ds`` else None. ``flash_attention_bwd_dq.launches`` counts
+    launches. CUDA only: the plain version is
+    :func:`reference_attention_bwd`."""
+    dq = _empty_like_rows(q)
+    ds = None
+    if emit_ds:
+        ds = torch.empty((q.shape[0], q.shape[1], q.shape[2], k.shape[2]),
+                         device=q.device, dtype=torch.float32)
+    _launch_bwd("dq", q, k, v, bias, do, lse, delta, {"dq": dq}, ds, causal,
+                dropout_p, seed)
+    flash_attention_bwd_dq.launches += 1
+    return dq, ds
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta,
+                            causal: bool = False, dropout_p: float = 0.0,
+                            seed: int = 0):
+    """Launch the dK/dV kernel on CUDA tensors (arguments as
+    :func:`flash_attention_bwd_dq`): returns ``(dk, dv)``.
+    ``flash_attention_bwd_dkv.launches`` counts launches."""
+    dk, dv = _empty_like_rows(k), _empty_like_rows(v)
+    _launch_bwd("dkv", q, k, v, bias, do, lse, delta, {"dk": dk, "dv": dv},
+                None, causal, dropout_p, seed)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def _reduce_dbias(ds, bias):
+    """Sum dS over the bias's broadcast dims (``:480-485``)."""
+    if bias.shape[0] == 1:
+        ds = ds.sum(0, keepdim=True)
+    if bias.shape[1] == 1:
+        ds = ds.sum(1, keepdim=True)
+    return ds.to(bias.dtype)
+
+
+def flash_attention_bwd(q, k, v, bias, o, lse, do, causal: bool = False,
+                        dropout_p: float = 0.0, seed: int = 0,
+                        bias_grad: bool = True):
+    """Backward of attention on ``[B, H, L, D]`` (port of
+    ``_flash_bwd_impl``, ``:411``): ``(dq, dk, dv, dbias_or_None)``.
+
+    ``Delta = rowsum(dO * O)`` is a torch op in float32 (an XLA op outside
+    the kernels in the reference, ``:429``); CUDA tensors then launch the
+    dQ and dK/dV kernels, CPU tensors run :func:`reference_attention_bwd`
+    with the plain mask. ``bias_grad=False`` skips the ``[B, H, Lq, Lk]``
+    dS output and returns a zero dbias."""
+    want_dbias = bias is not None and bias_grad
+    if q.is_cuda:
+        do = _kernel_rows(do)
+        delta = (do.float() * o.float()).sum(-1).contiguous()
+        dq, ds = flash_attention_bwd_dq(q, k, v, bias, do, lse, delta,
+                                        causal, dropout_p, seed,
+                                        emit_ds=want_dbias)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta,
+                                         causal, dropout_p, seed)
+    else:
+        keep = None
+        if dropout_p > 0.0:
+            B, H, Lq, _ = q.shape
+            keep = dropout_mask(seed, B, H, Lq, k.shape[2], dropout_p,
+                                q.device)
+        dq, dk, dv, ds = reference_attention_bwd(q, k, v, bias, o, lse, do,
+                                                 causal, keep)
+    if bias is None:
+        return dq, dk, dv, None
+    if not want_dbias:
+        return dq, dk, dv, torch.zeros_like(bias)
+    return dq, dk, dv, _reduce_dbias(ds, bias)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention on ``[B, H, L, D]`` (the counterpart
+    of ``_flash_diff``'s ``custom_vjp``, ``:539-565``): the forward saves
+    ``(q, k, v, bias, o, lse)`` and the seed, the backward launches the two
+    backward kernels, which regenerate the forward's dropout mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal: bool, dropout_p: float,
+                seed: int, bias_grad: bool):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, bias=bias,
+                                     dropout_p=dropout_p, seed=seed)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.causal, ctx.dropout_p, ctx.seed = causal, dropout_p, seed
+        ctx.bias_grad = bias_grad
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        dq, dk, dv, dbias = flash_attention_bwd(
+            q, k, v, bias, o, lse, do, ctx.causal, ctx.dropout_p, ctx.seed,
+            bias_grad=ctx.bias_grad and ctx.needs_input_grad[3])
+        if not ctx.needs_input_grad[3]:
+            dbias = None
+        return dq, dk, dv, dbias, None, None, None, None
 
 
 def flash_attention_bhld(q, k, v, causal: bool = False, bias=None,
-                         dropout_p: float = 0.0, seed: int = 0):
-    """Flash attention on ``[B, H, L, D]`` tensors (forward only)."""
-    del seed  # consumed by the in-kernel dropout, which is not ported yet
-    _reject_dropout(dropout_p)
-    return flash_attention_fwd(q, k, v, causal=causal, bias=bias)[0]
+                         dropout_p: float = 0.0, seed: int = 0,
+                         bias_grad: bool = True):
+    """Differentiable flash attention on ``[B, H, L, D]`` tensors, with an
+    optional additive bias and in-kernel dropout (``seed`` picks the
+    mask). ``bias_grad=False`` skips the O(L^2) dbias pass for masks that
+    are not trained."""
+    return FlashAttention.apply(q, k, v, bias, bool(causal),
+                                float(dropout_p), int(seed), bool(bias_grad))
 
 
 def flash_attention_blhd(q, k, v, causal: bool = False, bias=None,
-                         dropout_p: float = 0.0, seed: int = 0):
-    """Public entry on paddle-layout ``[B, L, H, D]`` tensors. The kernel
-    reads the inputs through their strides and writes O straight into a
-    ``[B, L, H, D]`` buffer, so neither side is transposed in memory."""
-    del seed
-    _reject_dropout(dropout_p)
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=causal, bias=bias,
-                        out=out.transpose(1, 2))
-    return out
+                         dropout_p: float = 0.0, seed: int = 0,
+                         bias_grad: bool = True):
+    """Public entry on paddle-layout ``[B, L, H, D]`` tensors. The kernels
+    read the inputs through their strides and write O and the gradients
+    straight into ``[B, L, H, D]`` buffers, so nothing is transposed in
+    memory."""
+    out = flash_attention_bhld(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=causal, bias=bias,
+                               dropout_p=dropout_p, seed=seed,
+                               bias_grad=bias_grad)
+    return out.transpose(1, 2)

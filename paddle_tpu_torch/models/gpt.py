@@ -1,12 +1,16 @@
-"""GPT decoder-only language model, forward and cached inference (port of
-``paddle_tpu/models/gpt.py:41-300``).
+"""GPT decoder-only language model: forward, the pretrain loss (plain and
+chunked), recompute, and cached inference (port of
+``paddle_tpu/models/gpt.py``).
 
 Parameter paths and layouts are the reference's (``gpt.h.{i}.attn.
 qkv_proj.weight`` is ``[hidden, 3*hidden]``, ...), so a JAX
 ``state_dict()`` loads by name (see :mod:`paddle_tpu_torch.convert`).
-Parameters are float32; ``cfg.dtype`` is the KV cache's storage type,
-as in the reference. Weights are drawn from an explicit
-``torch.Generator`` on the model's device.
+Parameters are built in float32 (``amp.decorate`` casts them for O2);
+``cfg.dtype`` is the KV cache's storage type, as in the reference.
+Weights are drawn from an explicit ``torch.Generator`` on the model's
+device; dropout draws from the "dropout" stream of
+:mod:`paddle_tpu_torch.nn.layer`. ``sequence_parallel`` is not ported
+(there is no mesh yet).
 """
 from __future__ import annotations
 
@@ -18,15 +22,18 @@ import torch
 from torch import nn
 
 from .. import default_device
+from ..distributed.parallel.recompute import recompute_wrap
 from ..nn import functional as F
-from ..nn.layers.common import (ColumnParallelLinear, RowParallelLinear,
-                                VocabParallelEmbedding)
+from ..nn.layers.common import (ColumnParallelLinear, Dropout,
+                                ParallelCrossEntropy, RowParallelLinear,
+                                VocabParallelEmbedding, parallel_matmul)
 from ..nn.layers.norm import LayerNorm
 from .lm_utils import (DecoderBlockList, attend_with_cache, causal_attention,
-                       cached_lm_forward)
+                       cached_lm_forward, chunked_lm_loss)
 
 __all__ = ["GPTConfig", "gpt_tiny", "gpt_1p3b", "GPTAttention", "GPTMLP",
-           "GPTBlock", "GPTEmbeddings", "GPTModel", "GPTForCausalLM"]
+           "GPTBlock", "GPTEmbeddings", "GPTModel", "GPTForCausalLM",
+           "gpt_loss_fn", "gpt_flops_per_token"]
 
 
 @dataclass
@@ -42,7 +49,15 @@ class GPTConfig:
     layer_norm_epsilon: float = 1e-5
     initializer_range: float = 0.02
     tie_word_embeddings: bool = True
+    use_recompute: bool = False
+    # recompute only the attention sublayer of each block
+    recompute_attn_only: bool = False
+    # recompute policy (only None / "full" are ported)
+    recompute_policy: Optional[str] = None
     use_flash_attention: bool = True
+    # fused head + CE over sequence chunks of this size (0 = off): the full
+    # [B, L, vocab] logits never exist (see lm_utils.chunked_lm_loss)
+    loss_chunk: int = 0
     dtype: str = "float32"
 
     def __post_init__(self):
@@ -128,7 +143,7 @@ class GPTBlock(nn.Module):
         self.ln_2 = LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_epsilon,
                               device=device)
         self.mlp = GPTMLP(cfg, device=device, generator=generator)
-        self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, x, cache=None, position_offset=0):
         if cache is not None:
@@ -137,7 +152,10 @@ class GPTBlock(nn.Module):
             x = x + self.dropout(a)
             x = x + self.dropout(self.mlp(self.ln_2(x)))
             return x, cache
-        x = x + self.dropout(self.attn(self.ln_1(x)))
+        attn = self.attn
+        if self.cfg.recompute_attn_only and not self.cfg.use_recompute:
+            attn = recompute_wrap(self.attn)
+        x = x + self.dropout(attn(self.ln_1(x)))
         return x + self.dropout(self.mlp(self.ln_2(x)))
 
 
@@ -151,7 +169,7 @@ class GPTEmbeddings(nn.Module):
             torch.empty(cfg.max_position_embeddings, cfg.hidden_size,
                         device=device).normal_(0.0, cfg.initializer_range,
                                                generator=generator))
-        self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, input_ids, position_offset=0):
         L = input_ids.shape[1]
@@ -190,8 +208,8 @@ class GPTModel(nn.Module):
 
 
 class GPTForCausalLM(nn.Module):
-    """LM head model: ``forward`` returns logits, or ``(logits, cache)``
-    on the cached path.
+    """LM head model: ``forward`` returns logits, the LM loss when given
+    labels, or ``(logits, cache)`` on the cached path.
 
     ``device=None`` builds on ``cuda`` (``RuntimeError`` without a GPU;
     pass ``device="cpu"`` for the CPU). ``generator`` draws the initial
@@ -210,6 +228,7 @@ class GPTForCausalLM(nn.Module):
             generator.manual_seed(0)
         self.cfg = cfg
         self.gpt = GPTModel(cfg, device=device, generator=generator)
+        self.parallel_ce = ParallelCrossEntropy()
 
     @property
     def device(self) -> torch.device:
@@ -217,7 +236,8 @@ class GPTForCausalLM(nn.Module):
 
     def _logits(self, h):
         # tied head: h @ word_embeddings^T
-        return torch.matmul(h, self.gpt.embeddings.word_embeddings.weight.t())
+        return parallel_matmul(h, self.gpt.embeddings.word_embeddings.weight,
+                               transpose_y=True)
 
     def cache_spec(self) -> dict:
         """Static KV-cache geometry for ``models.generation.init_cache``."""
@@ -227,16 +247,37 @@ class GPTForCausalLM(nn.Module):
                 "max_length": self.cfg.max_position_embeddings,
                 "dtype": self.cfg.dtype}
 
-    def forward(self, input_ids, cache=None, position_offset=0,
+    def forward(self, input_ids, labels=None, cache=None, position_offset=0,
                 gather_last=None):
-        """Logits ``[B, L, vocab]``. With ``cache`` (per-layer ``(k, v)``
-        pairs from ``models.generation.init_cache``) runs the cached path
-        and returns ``(logits, cache)``; ``gather_last`` keeps only that
-        position before the head projection."""
+        """Logits ``[B, L, vocab]`` when ``labels`` is None; otherwise the
+        LM loss, through :meth:`chunked_lm_loss` when ``cfg.loss_chunk >
+        0`` (the full logits never exist). With ``cache`` (per-layer
+        ``(k, v)`` pairs from ``models.generation.init_cache``) runs the
+        cached path and returns ``(logits, cache)``; ``gather_last`` keeps
+        only that position before the head projection."""
         if cache is not None or gather_last is not None:
             return cached_lm_forward(self.gpt, self._logits, input_ids,
                                      cache, position_offset, gather_last)
-        return self._logits(self.gpt(input_ids))
+        if labels is not None and self.cfg.loss_chunk:
+            return self.chunked_lm_loss(self.gpt(input_ids), labels,
+                                        chunk=self.cfg.loss_chunk)
+        logits = self._logits(self.gpt(input_ids))
+        if labels is None:
+            return logits
+        return self.loss(logits, labels)
+
+    def loss(self, logits, labels):
+        """Shifted LM loss: predict token t+1 from the prefix up to t; the
+        mean over every position, in the logits' dtype."""
+        labels = torch.as_tensor(labels, device=logits.device)
+        per_tok = self.parallel_ce(logits[:, :-1, :], labels[:, 1:])
+        return per_tok.mean()
+
+    def chunked_lm_loss(self, h, labels, chunk: int = 256):
+        """Head projection and softmax-CE fused over sequence chunks (see
+        :func:`paddle_tpu_torch.models.lm_utils.chunked_lm_loss`)."""
+        return chunked_lm_loss(h, labels, self._logits, self.parallel_ce,
+                               chunk=chunk)
 
     def generate(self, input_ids, max_new_tokens: int = 32, **kwargs):
         """KV-cache generation — see
@@ -244,3 +285,26 @@ class GPTForCausalLM(nn.Module):
         from .generation import generate
 
         return generate(self, input_ids, max_new_tokens, **kwargs)
+
+
+def gpt_loss_fn(model: GPTForCausalLM):
+    """``loss_fn`` for ``TrainStep`` on ``(input_ids, labels)`` batches."""
+
+    def loss_fn(outputs, batch):
+        return model.loss(outputs, batch[1])
+
+    return loss_fn
+
+
+def gpt_flops_per_token(cfg: GPTConfig, seq_len: int) -> float:
+    """Model FLOPs per token for MFU accounting (forward and backward,
+    6N plus the attention term, as the reference counts them)."""
+    n_params = (
+        cfg.vocab_size * cfg.hidden_size  # embeddings (tied head reused)
+        + cfg.max_position_embeddings * cfg.hidden_size
+        + cfg.num_layers * (
+            4 * cfg.hidden_size * cfg.hidden_size  # qkv + out
+            + 2 * cfg.hidden_size * cfg.intermediate_size  # mlp
+            + 4 * cfg.hidden_size))  # ln/bias approx
+    attn = 12 * cfg.num_layers * cfg.hidden_size * seq_len
+    return 6.0 * n_params + attn

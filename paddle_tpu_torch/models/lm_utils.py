@@ -1,5 +1,6 @@
-"""Shared decoder plumbing for the serving path (port of
-``paddle_tpu/models/lm_utils.py:41-226``).
+"""Shared decoder plumbing for the serving and training paths (port of
+``paddle_tpu/models/lm_utils.py``): attention, the KV cache, the block
+stack with recompute, and the chunked LM loss.
 
 The KV cache is a tuple (one entry per layer) of ``(k, v)`` tensors,
 each ``[B, max_length, n_kv_heads, head_dim]``. Where the JAX package
@@ -13,27 +14,35 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as _F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..distributed.parallel.recompute import recompute_wrap
 from ..kernels import flash_attention as fa
+from ..nn import functional as F
+from ..nn.layer import take_rng_key
 
-__all__ = ["causal_attention", "repeat_kv", "update_kv_cache",
-           "cached_attention", "attend_with_cache", "cached_lm_forward",
-           "DecoderBlockList"]
+__all__ = ["chunked_lm_loss", "causal_attention", "repeat_kv",
+           "update_kv_cache", "cached_attention", "attend_with_cache",
+           "cached_lm_forward", "DecoderBlockList"]
 
 
 def causal_attention(q, k, v, dropout_p: float = 0.0, training: bool = True,
                      use_flash: bool = True):
-    """Causal self-attention on ``[B, L, H, D]``: the flash kernel when the
-    gate allows (CUDA tensors), the plain softmax otherwise.
+    """Causal self-attention on ``[B, L, H, D]``: the flash kernels when
+    the gate allows (CUDA tensors), the plain softmax otherwise. With
+    dropout, the kernel's Philox seed is drawn from the "dropout" stream
+    (``lm_utils.py:47-51``); the plain path draws its mask there too.
 
     The plain path masks bottom-right aligned (``tril(k=Lk-Lq)``) with
     ``finfo.min``, exactly as the reference; the kernel is top-left
-    aligned. The two agree when ``Lq == Lk``, which is the prefill case."""
+    aligned. The two agree when ``Lq == Lk`` (prefill and training)."""
     p_drop = dropout_p if training else 0.0
     if use_flash and fa.should_use_flash(q, k, None, p_drop):
-        return fa.flash_attention_blhd(q, k, v, causal=True, dropout_p=p_drop)
+        # the reference draws randint(key, (), 0, 2**31 - 1)
+        seed = take_rng_key("dropout") % (2 ** 31 - 1) if p_drop > 0.0 else 0
+        return fa.flash_attention_blhd(q, k, v, causal=True,
+                                       dropout_p=p_drop, seed=seed)
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
     scale = 1.0 / math.sqrt(D)
@@ -42,7 +51,7 @@ def causal_attention(q, k, v, dropout_p: float = 0.0, training: bool = True,
     s = s.masked_fill(~mask, torch.finfo(s.dtype).min)
     p = torch.softmax(s.float(), dim=-1).to(q.dtype)
     if p_drop > 0.0:
-        p = _F.dropout(p, p=p_drop, training=True)
+        p = F.dropout(p, p=p_drop, training=True)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
@@ -149,9 +158,10 @@ def cached_lm_forward(backbone, logits_fn, input_ids, cache,
 
 class DecoderBlockList(nn.Module):
     """N decoder blocks named ``"0" .. "N-1"`` (the reference's
-    parameter paths). With ``caches`` (a per-layer tuple of ``(k, v)``
-    pairs) each block runs its cached path and the caches ride back
-    alongside the activations."""
+    parameter paths). With ``cfg.use_recompute`` each block's activations
+    are recomputed in the backward pass (``cfg.recompute_policy``). With
+    ``caches`` (a per-layer tuple of ``(k, v)`` pairs) each block runs its
+    cached path and the caches ride back alongside the activations."""
 
     def __init__(self, cfg, block_cls, **block_kwargs):
         super().__init__()
@@ -161,11 +171,46 @@ class DecoderBlockList(nn.Module):
 
     def forward(self, x, caches=None, position_offset=0):
         if caches is None:
+            recompute = getattr(self.cfg, "use_recompute", False)
+            policy = getattr(self.cfg, "recompute_policy", None)
             for blk in self.children():
-                x = blk(x)
+                x = (recompute_wrap(blk, policy=policy) if recompute
+                     else blk)(x)
             return x
         new_caches = []
         for blk, cache in zip(self.children(), caches):
             x, cache = blk(x, cache=cache, position_offset=position_offset)
             new_caches.append(cache)
         return x, tuple(new_caches)
+
+
+def chunked_lm_loss(h, labels, logits_fn, ce, chunk: int = 256):
+    """Shifted next-token loss over ``h`` ``[B, L, hidden]`` without the
+    full ``[B, L, vocab]`` logits (``lm_utils.py:229``).
+
+    ``logits_fn(h_chunk)`` is the head projection and ``ce(logits,
+    labels)`` the per-token loss; labels are shifted here and label -100
+    is ignored. Each sequence chunk's head and loss run under
+    ``torch.utils.checkpoint``, so only one chunk's logits exist at a time
+    in the forward and again in the backward. The reference pads the last
+    chunk with ignored labels; the port runs it short, which sums the same
+    per-token losses. Returns the float32 mean over the counted tokens."""
+    hs = h[:, :-1]
+    ys = torch.as_tensor(labels, device=h.device)[:, 1:]
+
+    def chunk_losses(h_c, y_c):
+        per_tok = ce(logits_fn(h_c), y_c)
+        valid = (y_c != -100).to(torch.float32)
+        return (per_tok * valid).sum(), valid.sum()
+
+    total = torch.zeros((), device=h.device, dtype=torch.float32)
+    count = torch.zeros((), device=h.device, dtype=torch.float32)
+    for start in range(0, hs.shape[1], chunk):
+        h_c, y_c = hs[:, start:start + chunk], ys[:, start:start + chunk]
+        if torch.is_grad_enabled():
+            s, c = checkpoint(chunk_losses, h_c, y_c, use_reentrant=False)
+        else:
+            s, c = chunk_losses(h_c, y_c)
+        total = total + s
+        count = count + c
+    return total / torch.clamp(count, min=1.0)

@@ -1,5 +1,5 @@
-"""The subset of ``paddle_tpu/nn/functional.py`` that the GPT serving path
-uses, in PyTorch.
+"""The subset of ``paddle_tpu/nn/functional.py`` that the GPT serving and
+training paths use, in PyTorch.
 
 Weights keep the JAX package's layout: a linear weight is ``[in, out]``
 (paddle's convention), not torch's ``[out, in]``, so converted
@@ -10,7 +10,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as _F
 
-__all__ = ["linear", "gelu", "layer_norm"]
+from .layer import take_rng_key
+
+__all__ = ["linear", "gelu", "layer_norm", "dropout", "cross_entropy"]
 
 
 def linear(x, weight, bias=None):
@@ -41,3 +43,68 @@ def layer_norm(x, normalized_shape, weight=None, bias=None,
     if bias is not None:
         out = out + bias
     return out
+
+
+def dropout(x, p: float = 0.5, axis=None, training: bool = True,
+            mode: str = "upscale_in_train"):
+    """Dropout (``functional.py:318``): keep each element with probability
+    ``1 - p``; ``upscale_in_train`` divides kept values by ``1 - p``. The
+    mask comes from a ``torch.Generator`` seeded with a draw from the
+    "dropout" stream (:func:`~paddle_tpu_torch.nn.layer.take_rng_key`), so
+    it replays under recompute and on a resumed step. ``axis`` draws one
+    mask value per index of those axes, broadcast over the others."""
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * (1.0 - p)
+        return x
+    if p == 1.0:
+        return torch.zeros_like(x)
+    if axis is not None:
+        axes = [axis] if isinstance(axis, int) else list(axis)
+        axes = [a % x.ndim for a in axes]
+        mask_shape = tuple(x.shape[i] if i in axes else 1
+                           for i in range(x.ndim))
+    else:
+        mask_shape = tuple(x.shape)
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(take_rng_key("dropout"))
+    keep = torch.rand(mask_shape, generator=gen, device=x.device) < 1.0 - p
+    kept = x / (1.0 - p) if mode == "upscale_in_train" else x
+    return torch.where(keep, kept, torch.zeros_like(x))
+
+
+def cross_entropy(input, label, weight=None, ignore_index: int = -100,  # noqa: A002
+                  reduction: str = "mean", soft_label: bool = False,
+                  axis: int = -1, use_softmax: bool = True,
+                  label_smoothing: float = 0.0):
+    """Softmax cross entropy with hard labels (``functional.py:732``),
+    computed in the logits' dtype as the reference does (bf16 logits under
+    O2 give bf16 losses). ``ignore_index`` labels contribute 0 and, for
+    ``reduction="mean"``, are left out of the count. Soft labels, class
+    weights, label smoothing and ``use_softmax=False`` are not ported and
+    raise ``NotImplementedError``."""
+    label = torch.as_tensor(label, device=input.device)
+    if (soft_label or weight is not None or label_smoothing
+            or not use_softmax or (label.ndim == input.ndim
+                                   and label.shape == input.shape)):
+        raise NotImplementedError(
+            "cross_entropy: only hard labels with softmax, no class weights "
+            "and no label smoothing are ported")
+    axis = axis % input.ndim
+    logp = torch.log_softmax(input, dim=axis)
+    if label.ndim == input.ndim and label.shape[axis] == 1:
+        label = label.squeeze(axis)
+    label = label.long()
+    valid = label != ignore_index
+    safe = torch.where(valid, label, torch.zeros_like(label))
+    picked = torch.gather(logp, axis, safe.unsqueeze(axis)).squeeze(axis)
+    loss = torch.where(valid, -picked, torch.zeros_like(picked))
+    if reduction == "mean":
+        n_valid = torch.clamp(valid.sum().to(loss.dtype), min=1.0)
+        return loss.sum() / n_valid
+    if reduction == "sum":
+        return loss.sum()
+    if reduction == "none":
+        return loss
+    raise ValueError(f"reduction must be 'mean', 'sum' or 'none', got "
+                     f"{reduction!r}")

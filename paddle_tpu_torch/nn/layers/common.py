@@ -1,10 +1,14 @@
-"""Single-device ``Linear`` and ``Embedding`` with the reference's weight
-layout (``paddle_tpu/distributed/parallel/mp_layers.py:51-126``).
+"""Single-device ``Linear``, ``Embedding`` and ``Dropout`` with the
+reference's weight layout and randomness
+(``paddle_tpu/distributed/parallel/mp_layers.py:51-150``,
+``paddle_tpu/nn/layers/common.py:56``).
 
 ``Linear.weight`` is ``[in, out]`` and ``Embedding.weight`` is
 ``[vocab, hidden]``, exactly as the JAX package stores them, so loading a
 converted checkpoint is a copy, never a transpose. The tensor-parallel
-names alias these: on one card there is nothing to shard.
+names alias these: on one card there is nothing to shard, and
+``ParallelCrossEntropy``/``parallel_matmul`` are the plain loss and
+product.
 """
 from __future__ import annotations
 
@@ -15,8 +19,9 @@ from torch import nn
 
 from .. import functional as F
 
-__all__ = ["Linear", "Embedding", "ColumnParallelLinear",
-           "RowParallelLinear", "VocabParallelEmbedding"]
+__all__ = ["Linear", "Embedding", "Dropout", "ColumnParallelLinear",
+           "RowParallelLinear", "VocabParallelEmbedding",
+           "ParallelCrossEntropy", "parallel_matmul"]
 
 
 def _normal(shape, std: float, device, generator: Optional[torch.Generator]):
@@ -61,3 +66,44 @@ class Embedding(nn.Module):
 ColumnParallelLinear = Linear
 RowParallelLinear = Linear
 VocabParallelEmbedding = Embedding
+
+
+class Dropout(nn.Module):
+    """``F.dropout`` as a layer, active in training mode only; its masks
+    come from the "dropout" random stream (not torch's global RNG)."""
+
+    def __init__(self, p: float = 0.5, axis=None,
+                 mode: str = "upscale_in_train"):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+
+    def forward(self, x):
+        return F.dropout(x, p=self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
+class ParallelCrossEntropy(nn.Module):
+    """Per-token softmax cross entropy (``mp_layers.py:129``); on one card
+    the vocab dimension is whole, so it is ``cross_entropy`` with
+    ``reduction="none"``."""
+
+    def __init__(self, ignore_index: int = -100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, input, label):  # noqa: A002
+        return F.cross_entropy(input, label, reduction="none",
+                               ignore_index=self.ignore_index)
+
+
+def parallel_matmul(x, weight, transpose_y: bool = False,
+                    tensor_parallel_output: bool = True):
+    """The logit projection with a (tied) embedding weight
+    (``mp_layers.py:145``): ``x @ weight`` or ``x @ weight^T``."""
+    del tensor_parallel_output  # one card: nothing is sharded
+    return torch.matmul(x, weight.t() if transpose_y else weight)

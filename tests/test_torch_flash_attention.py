@@ -141,19 +141,6 @@ def test_gate_shape_rules_match_jax_where_tpu_rules_do_not_apply():
                                 FakeCuda((1, 37, 4, 64)), None, 0.0)
 
 
-def test_dropout_raises_on_cpu():
-    q = torch.zeros(1, 2, 16, 64)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention_bhld(q, q, q, dropout_p=0.1)
-
-
-@pytest.mark.cuda
-def test_dropout_raises_on_cuda(cuda_device):
-    q = torch.zeros(1, 2, 16, 64, device=cuda_device)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention_bhld(q, q, q, dropout_p=0.1)
-
-
 def _bf16_ulp(x):
     """bf16 spacing at |x| (8 significant bits), elementwise; 0 at 0."""
     _, e = torch.frexp(x.float().abs())

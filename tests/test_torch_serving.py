@@ -216,7 +216,17 @@ def _imported_modules(path: Path):
 def test_port_imports_no_jax_or_reference_package():
     files = sorted((REPO / "paddle_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files += sorted((REPO / "tools").glob("torch_*.py"))
     assert len(files) > 10
+    scanned = {f.relative_to(REPO).as_posix() for f in files}
+    for path in ("paddle_tpu_torch/framework/jit.py",
+                 "paddle_tpu_torch/framework/random.py",
+                 "paddle_tpu_torch/nn/layer.py",
+                 "paddle_tpu_torch/optimizer/optimizer.py",
+                 "paddle_tpu_torch/amp/auto_cast.py",
+                 "paddle_tpu_torch/distributed/parallel/recompute.py",
+                 "tools/torch_train_profile.py"):
+        assert path in scanned
     bad = [(f.relative_to(REPO).as_posix(), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu", "flax")]
