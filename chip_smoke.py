@@ -8,33 +8,41 @@ exits non-zero:
 
 1. device    - the card (nvidia-smi name and power limit), torch and CUDA.
 2. build     - compiles every CUDA source of the port from this checkout
-               (nvcc, one library per source, all started together).
+               (nvcc, one library per source, all started together), fails
+               on a register spill in the wgmma kernels, and holds the
+               wgmma/TMA self-check (a 64 x 64 x D product through each
+               descriptor form) against torch.matmul in float32.
 3. kernels   - calls each kernel's wrapper on the card at the shapes the
                serving and training paths give it, and holds the result
                against its plain PyTorch version on the same inputs (stated
-               tolerance): the forward kernel, the dQ and dK/dV backward
-               kernels, and dropout (the CUDA Philox mask against the plain
-               one bit for bit, its keep rate, replay of a fixed seed, and
-               forward and backward at p = 0.1 given the same mask). Times
-               the kernel, the plain version and one PyTorch library call
-               computing the same function (a yardstick the port never
-               calls), beside the least time the card could take.
+               tolerance): the forward kernels (FMA for float32 and for bf16
+               at D = 256, wgmma for bf16 at D = 64 and 128, each case
+               checked for its route), the dQ and dK/dV backward kernels,
+               and dropout (the CUDA Philox mask against the plain one bit
+               for bit, its keep rate, replay of a fixed seed, and forward
+               and backward at p = 0.1 given the same mask). Times the
+               kernel and one PyTorch library call computing the same
+               function (a yardstick the port never calls) in turns, as the
+               median and range of 6 loops of 20 calls each, the plain
+               version once, beside the least time the card could take.
 4. serving   - a gpt_1p3b model (full width, random weights from a seed)
                behind InferenceServer(slots=4, max_length=2048) serves six
                requests; every stream must equal a solo generate() with the
                same arguments, no request may be requeued or failed, the
-               flash kernel must launch exactly once per layer per prefill
-               over the served run, and the kernel-path prefill logits must
-               agree with the plain-attention path.
+               FMA flash forward (float32 prefill) must launch exactly once
+               per layer per prefill over the served run, and the
+               kernel-path prefill logits must agree with the
+               plain-attention path.
 5. training  - the bench's GPT-3 1.3B pretrain step (bf16 O2 AdamW,
                recompute, chunked loss, batch 2 x 1024) through TrainStep:
                5 warm-up and 8 timed steps; finite losses that fall, and
-               exactly 48 forward, 24 dQ and 24 dK/dV launches per step.
-               Then one float32 forward and backward of the same
-               configuration with the kernels and with plain attention
-               (loss and per-parameter gradients within tolerance), and a
-               2-layer full-width dropout run that replays bit for bit from
-               its seed.
+               exactly 48 wgmma forward, 24 FMA dQ and 24 wgmma dK/dV
+               launches per step, none on the FMA forward or dK/dV. Then
+               one float32 forward and backward of the same configuration
+               with the (FMA) kernels and with plain attention (loss and
+               per-parameter gradients within tolerance), and a 2-layer
+               full-width bf16 dropout run on the wgmma kernels that
+               replays bit for bit from its seed.
 
 Then a line with the kernels' summary, a line with the card's name and
 power limit, and the last line {"ok": true, "device": {...}}.
@@ -137,22 +145,64 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls,
-    between two CUDA events, after ``warmup`` calls."""
+# A spin kernel of this many cycles (about 10 ms) runs ahead of each timed
+# loop, so the host has queued the whole loop before its first launch
+# starts: the events then time the device's work back to back, not the
+# host's launch rate (a Python wrapper takes tens of microseconds a call,
+# more than a 0.05 ms kernel).
+HOST_LEAD_CYCLES = 20_000_000
+
+
+def _timed_loop(fn, iters: int) -> float:
     import torch
 
-    for _ in range(warmup):
-        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOST_LEAD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls,
+    between two CUDA events, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    return _timed_loop(fn, iters)
+
+
+def timed_in_turns(fns, loops: int = 20, rounds: int = 3) -> dict:
+    """Device ms per call of each of ``fns`` (name -> callable), taken in
+    turns so that drift of the card's clock falls on all alike: after one
+    warm-up loop each, every round runs each callable's loop of ``loops``
+    calls in order and then in reverse (A, B, B, A), so each gets
+    ``2 * rounds`` loops. Returns ``{name: {"median", "min", "max"}}``."""
+    import statistics
+
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    samples = {name: [] for name in fns}
+    order = list(fns)
+    for _ in range(rounds):
+        for name in order + order[::-1]:
+            samples[name].append(_timed_loop(fns[name], loops))
+    return {name: {"median": statistics.median(v), "min": min(v),
+                   "max": max(v)} for name, v in samples.items()}
+
+
+def _route_of(fa, which: str) -> str:
+    """The one route of wrapper ``which`` launched since the last reset."""
+    used = [r for r, n in fa.launch_counts()[which].items() if n]
+    if len(used) != 1:
+        raise AssertionError(f"{which}: launches by route "
+                             f"{fa.launch_counts()[which]}, expected one route")
+    return used[0]
 
 
 def kept_pairs(Lq, Lk, causal):
@@ -213,8 +263,81 @@ def _dtype_name(t):
     return str(t.dtype).replace("torch.", "")
 
 
+def phase_build(seed: int) -> None:
+    """Build every kernel source, fail on a spill in the wgmma kernels, and
+    hold the wgmma/TMA self-check against torch.matmul."""
+    import re
+
+    import torch
+
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    libs = {s: p.name for s, p in _build.build_all().items()}
+    ptxas = {s: [ln.strip() for ln in _build.build_log(s).splitlines()
+                 if "Used" in ln or "spill" in ln] for s in libs}
+    emit("build", seconds=time.perf_counter() - t0, libraries=libs,
+         ptxas=[ln for lines in ptxas.values() for ln in lines])
+    spills = [ln for s in (fa._FWD_SM90_SOURCE, fa._DKV_SM90_SOURCE)
+              for ln in ptxas[s]
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+    if spills:
+        raise AssertionError(f"register spills in the wgmma kernels: {spills}")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    out = {}
+    for D in fa.WGMMA_HEAD_DIMS:
+        a, b, c1, c2 = fa.wgmma_selfcheck(D, "cuda", g)
+        torch.cuda.synchronize()
+        for name, got, x, y in (("kmajor", c1, a, b.T), ("transposed_b", c2,
+                                                        a[:, :64], b)):
+            # bf16 products are exact in float32; two summation orders of K
+            # terms differ by at most 2 K 2^-24 of sum |x y|
+            limit = 2 * x.shape[1] * 2.0 ** -24 * (x.float().abs()
+                                                    @ y.float().abs())
+            out[f"{name}_d{D}"] = check_close(f"wgmma self-check {name} D={D}",
+                                              got, x.float() @ y.float(),
+                                              limit + 1e-30)
+    emit("selfcheck", **out)
+
+
+def _fwd_cases(g):
+    """(name, q, k, v, causal, bias, route, tol) of the forward checks."""
+    import torch
+
+    bf16_tol = f"{BF16_ULPS} bf16 ulps + 1e-6"
+    cases = []
+    for L in (64, 512, 1024, 2048):  # the serving path's prefill buckets
+        cases.append((f"prefill_f32_L{L}", *_views(g, 1, L, 16, 128, torch.float32),
+                      True, None, "fma", F32_TOL))
+    cases.append(("causal_bf16_L2048", *_views(g, 1, 2048, 16, 128, torch.bfloat16),
+                  True, None, "wgmma", bf16_tol))
+    # the training step's attention: [2, 16, 1024, 128] bf16, causal
+    cases.append(("train_bf16_B2_L1024", *_views(g, 2, 1024, 16, 128, torch.bfloat16),
+                  True, None, "wgmma", bf16_tol))
+    cases.append(("d64_causal_bf16_B2_L1024", *_views(g, 2, 1024, 16, 64, torch.bfloat16),
+                  True, None, "wgmma", bf16_tol))
+    cases.append(("d256_causal_bf16_L1024", *_views(g, 1, 1024, 8, 256, torch.bfloat16),
+                  True, None, "fma", bf16_tol))
+    for dtype, D, route, tol in ((torch.float32, 128, "fma", F32_TOL),
+                                 (torch.bfloat16, 64, "wgmma", bf16_tol)):
+        q = torch.randn(1, 16, 384, D, generator=g, device="cuda").to(dtype)
+        k = torch.randn(1, 16, 640, D, generator=g, device="cuda").to(dtype)
+        v = torch.randn(1, 16, 640, D, generator=g, device="cuda").to(dtype)
+        bias = torch.randn(1, 16, 384, 640, generator=g, device="cuda")
+        cases.append((f"bias_noncausal_{_dtype_name(q)}_d{D}_Lq384_Lk640",
+                      q, k, v, False, bias, route, tol))
+    for dtype, route, tol in ((torch.float32, "fma", F32_TOL),
+                              (torch.bfloat16, "wgmma", bf16_tol)):
+        q, k, v = _views(g, 1, 1500, 16, 128, dtype)
+        cases.append((f"ragged_causal_{_dtype_name(q)}_L1500", q, k, v, True,
+                      None, route, tol))
+    return cases
+
+
 def phase_kernels(seed: int) -> dict:
-    """The forward kernel against its plain version."""
+    """The forward kernels against their plain version."""
     import torch
     import torch.nn.functional as F
 
@@ -222,58 +345,54 @@ def phase_kernels(seed: int) -> dict:
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    cases = []
-    for L in (64, 512, 1024, 2048):  # the serving path's prefill buckets
-        cases.append((f"prefill_f32_L{L}", *_views(g, 1, L, 16, 128, torch.float32),
-                      True, None, F32_TOL))
-    cases.append(("causal_bf16_L2048", *_views(g, 1, 2048, 16, 128, torch.bfloat16),
-                  True, None, f"{BF16_ULPS} bf16 ulps + 1e-6"))
-    # the training step's attention: [2, 16, 1024, 128] bf16, causal
-    cases.append(("train_bf16_B2_L1024", *_views(g, 2, 1024, 16, 128, torch.bfloat16),
-                  True, None, f"{BF16_ULPS} bf16 ulps + 1e-6"))
-    q = torch.randn(1, 16, 384, 128, generator=g, device="cuda")
-    k = torch.randn(1, 16, 640, 128, generator=g, device="cuda")
-    v = torch.randn(1, 16, 640, 128, generator=g, device="cuda")
-    bias = torch.randn(1, 16, 384, 640, generator=g, device="cuda")
-    cases.append(("bias_noncausal_f32_Lq384_Lk640", q, k, v, False, bias, F32_TOL))
-    cases.append(("ragged_causal_f32_L1500", *_views(g, 1, 1500, 16, 128, torch.float32),
-                  True, None, F32_TOL))
-
     results = {}
-    for name, q, k, v, causal, bias, tol in cases:
+    for name, q, k, v, causal, bias, want, tol in _fwd_cases(g):
+        fa.reset_launch_counts()
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, bias=bias)
         torch.cuda.synchronize()
+        route = _route_of(fa, "fwd")
+        if route != want:
+            raise AssertionError(f"{name}: forward took the {route} kernel, "
+                                 f"expected {want}")
         o_ref, lse_ref = fa.reference_attention_fwd(q, k, v, causal=causal,
                                                     bias=bias)
-        num = check_close(name, o, o_ref, output_tolerance(o_ref, tol))
+        num = check_close(name, o, o_ref, output_tolerance(o_ref, F32_TOL))
         lse_err = (lse - lse_ref).abs().max().item()
         if not lse_err <= F32_TOL * 10:
             raise AssertionError(f"{name}: lse max|err| {lse_err}")
-        ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
-                                                    bias=bias))
+        t = timed_in_turns({
+            "kernel": lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
+                                                     bias=bias),
+            "library": lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias, is_causal=causal)})
         plain_ms = cuda_ms(lambda: fa.reference_attention_fwd(
             q, k, v, causal=causal, bias=bias), iters=5)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=bias, is_causal=causal))
         B, H, Lq, D = q.shape
         bound_ms, bound_by = attention_bound_ms(
             B, H, Lq, k.shape[2], D, causal, q.element_size(),
             0 if bias is None else bias.numel() * bias.element_size(),
             tensor_cores=q.dtype == torch.bfloat16)
+        ms = t["kernel"]["median"]
         results[name] = dict(shape=[B, H, Lq, k.shape[2], D],
                              dtype=_dtype_name(q), causal=causal,
-                             bias=bias is not None, **num,
+                             bias=bias is not None, route=route, **num,
                              lse_max_abs_err=lse_err, tol=tol,
-                             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             ms=ms, ms_range=[t["kernel"]["min"], t["kernel"]["max"]],
+                             plain_ms=plain_ms,
+                             library_ms=t["library"]["median"],
+                             library_ms_range=[t["library"]["min"],
+                                               t["library"]["max"]],
                              bound_ms=bound_ms, bound_by=bound_by,
                              roofline_share=bound_ms / ms)
         emit("kernels", case=name, **results[name])
     return results
 
 
-def _sdpa_backward_ms(q, k, v, do, bias, causal):
-    """The library yardstick of the backward: F.scaled_dot_product_attention
-    forward plus backward through autograd, minus its forward alone."""
+def _sdpa_fns(q, k, v, do, bias, causal):
+    """The library yardstick of the backward, as two callables: the
+    forward of F.scaled_dot_product_attention, and its forward plus
+    backward through ``torch.autograd.grad`` (nothing accumulates into
+    ``.grad``). The backward's time is the difference of their medians."""
     import torch
     import torch.nn.functional as F
 
@@ -287,9 +406,46 @@ def _sdpa_backward_ms(q, k, v, do, bias, causal):
     def fwd_bwd():
         o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=bias,
                                            is_causal=causal)
-        o.backward(do)
+        torch.autograd.grad(o, (qg, kg, vg), do)
 
-    return cuda_ms(fwd_bwd) - cuda_ms(fwd)
+    return fwd, fwd_bwd
+
+
+def _bwd_cases(g):
+    """(name, q, k, v, dO, causal, bias, dK/dV route) of the backward
+    checks."""
+    import torch
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    cases = []
+    for dtype, route in ((torch.bfloat16, "wgmma"), (torch.float32, "fma")):
+        # the training step's shape; q/k/v views of the fused qkv and dO a
+        # view of the [B, L, H, D] gradient, as autograd hands them over
+        q, k, v = _views(g, 2, 1024, 16, 128, dtype)
+        do = rn(2, 1024, 16, 128).to(dtype).transpose(1, 2)
+        cases.append((f"train_{_dtype_name(q)}_B2_L1024", q, k, v, do, True,
+                      None, route))
+    for dtype, D, route in ((torch.float32, 128, "fma"),
+                            (torch.bfloat16, 64, "wgmma")):
+        q, k, v = (rn(1, 16, n, D).to(dtype) for n in (384, 640, 640))
+        cases.append((f"bias_noncausal_{_dtype_name(q)}_d{D}_Lq384_Lk640", q,
+                      k, v, rn(1, 16, 384, D).to(dtype), False,
+                      rn(1, 16, 384, 640), route))
+    for dtype, route in ((torch.float32, "fma"), (torch.bfloat16, "wgmma")):
+        q, k, v = _views(g, 1, 1500, 16, 128, dtype)
+        cases.append((f"ragged_causal_{_dtype_name(q)}_L1500", q, k, v,
+                      rn(1, 1500, 16, 128).to(dtype).transpose(1, 2), True,
+                      None, route))
+    for dtype, D, H, route in ((torch.float32, 64, 16, "fma"),
+                               (torch.float32, 256, 8, "fma"),
+                               (torch.bfloat16, 64, 16, "wgmma"),
+                               (torch.bfloat16, 256, 8, "fma")):
+        q, k, v, do = (rn(1, H, 1024, D).to(dtype) for _ in range(4))
+        cases.append((f"d{D}_causal_{_dtype_name(q)}_L1024", q, k, v, do, True,
+                      None, route))
+    return cases
 
 
 def phase_backward(seed: int) -> dict:
@@ -300,33 +456,16 @@ def phase_backward(seed: int) -> dict:
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed + 1)
-
-    def rn(*shape):
-        return torch.randn(*shape, generator=g, device="cuda")
-
-    cases = []
-    for dtype in (torch.bfloat16, torch.float32):
-        # the training step's shape; q/k/v views of the fused qkv and dO a
-        # view of the [B, L, H, D] gradient, as autograd hands them over
-        q, k, v = _views(g, 2, 1024, 16, 128, dtype)
-        do = rn(2, 1024, 16, 128).to(dtype).transpose(1, 2)
-        cases.append((f"train_{_dtype_name(q)}_B2_L1024", q, k, v, do, True, None))
-    cases.append(("bias_noncausal_f32_Lq384_Lk640", rn(1, 16, 384, 128),
-                  rn(1, 16, 640, 128), rn(1, 16, 640, 128), rn(1, 16, 384, 128),
-                  False, rn(1, 16, 384, 640)))
-    q, k, v = _views(g, 1, 1500, 16, 128, torch.float32)
-    cases.append(("ragged_causal_f32_L1500", q, k, v,
-                  rn(1, 1500, 16, 128).transpose(1, 2), True, None))
-    for D, H in ((64, 16), (256, 8)):
-        cases.append((f"d{D}_causal_f32_L1024", rn(1, H, 1024, D),
-                      rn(1, H, 1024, D), rn(1, H, 1024, D), rn(1, H, 1024, D),
-                      True, None))
-
     results = {}
-    for name, q, k, v, do, causal, bias in cases:
+    for name, q, k, v, do, causal, bias, want in _bwd_cases(g):
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, bias=bias)
+        fa.reset_launch_counts()
         got = fa.flash_attention_bwd(q, k, v, bias, o, lse, do, causal)
         torch.cuda.synchronize()
+        route = _route_of(fa, "dkv")
+        if route != want or _route_of(fa, "dq") != "fma":
+            raise AssertionError(f"{name}: backward took {fa.launch_counts()}"
+                                 f", expected dK/dV {want} and dQ fma")
         dq, dk, dv, ds = fa.reference_attention_bwd(q, k, v, bias, o, lse, do,
                                                     causal)
         refs = {"dq": dq, "dk": dk, "dv": dv}
@@ -338,13 +477,17 @@ def phase_backward(seed: int) -> dict:
                                     bwd_tolerance(ref))
         delta = (do.float() * o.float()).sum(-1).contiguous()
         emit_ds = bias is not None
-        dq_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq(
-            q, k, v, bias, do, lse, delta, causal, emit_ds=emit_ds))
-        dkv_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv(
-            q, k, v, bias, do, lse, delta, causal))
+        do_k = do if route == "fma" or fa._tma_ok(do) else do.contiguous()
+        sdpa_fwd, sdpa_fwd_bwd = _sdpa_fns(q, k, v, do, bias, causal)
+        t = timed_in_turns({
+            "dq": lambda: fa.flash_attention_bwd_dq(
+                q, k, v, bias, do, lse, delta, causal, emit_ds=emit_ds),
+            "dkv": lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, bias, do_k, lse, delta, causal),
+            "sdpa_fwd": sdpa_fwd, "sdpa_fwd_bwd": sdpa_fwd_bwd})
         plain_ms = cuda_ms(lambda: fa.reference_attention_bwd(
             q, k, v, bias, o, lse, do, causal), iters=5)
-        library_ms = _sdpa_backward_ms(q, k, v, do, bias, causal)
+        library_ms = t["sdpa_fwd_bwd"]["median"] - t["sdpa_fwd"]["median"]
         B, H, Lq, D = q.shape
         Lk = k.shape[2]
         common = (B, H, Lq, Lk, D, causal, q.element_size(),
@@ -354,14 +497,20 @@ def phase_backward(seed: int) -> dict:
                                        B * H * Lq * Lk * 4 if emit_ds else 0,
                                        tensor_cores=tc)
         dkv_bound, dkv_by = bwd_bound_ms("dkv", *common, 0, tensor_cores=tc)
+        dq_ms, dkv_ms = t["dq"]["median"], t["dkv"]["median"]
         results[name] = dict(
             shape=[B, H, Lq, Lk, D], dtype=_dtype_name(q), causal=causal,
-            bias=bias is not None, errors=errs,
+            bias=bias is not None, dkv_route=route, errors=errs,
             tol=("2 bf16 ulps + 1e-5 of max" if tc else
                  f"rtol {BWD_RTOL} atol {BWD_ATOL}"),
-            dq_ms=dq_ms, dkv_ms=dkv_ms, dq_bound_ms=dq_bound, dq_bound_by=dq_by,
+            dq_ms=dq_ms, dq_ms_range=[t["dq"]["min"], t["dq"]["max"]],
+            dkv_ms=dkv_ms, dkv_ms_range=[t["dkv"]["min"], t["dkv"]["max"]],
+            dq_bound_ms=dq_bound, dq_bound_by=dq_by,
             dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
             plain_ms=plain_ms, library_ms=library_ms,
+            library_fwd_bwd_ms_range=[t["sdpa_fwd_bwd"]["min"],
+                                      t["sdpa_fwd_bwd"]["max"]],
+            library_fwd_ms_range=[t["sdpa_fwd"]["min"], t["sdpa_fwd"]["max"]],
             dq_roofline_share=dq_bound / dq_ms,
             dkv_roofline_share=dkv_bound / dkv_ms)
         emit("kernels_bwd", case=name, **results[name])
@@ -418,6 +567,7 @@ def phase_dropout(seed: int) -> dict:
         q, k, v = _views(g, B, L, H, D, dtype)
         do = torch.randn(B, L, H, D, generator=g, device="cuda").to(dtype) \
             .transpose(1, 2)
+        fa.reset_launch_counts()
         o, lse = fa.flash_attention_fwd(q, k, v, causal=True,
                                         dropout_p=DROPOUT_P, seed=mseed)
         o2, _ = fa.flash_attention_fwd(q, k, v, causal=True,
@@ -427,6 +577,10 @@ def phase_dropout(seed: int) -> dict:
         got2 = fa.flash_attention_bwd(q, k, v, None, o, lse, do, True,
                                       DROPOUT_P, mseed)
         torch.cuda.synchronize()
+        route = fa.kernel_route(dtype, D)
+        if (_route_of(fa, "fwd"), _route_of(fa, "dkv")) != (route, route):
+            raise AssertionError(f"dropout {dtype}: launches "
+                                 f"{fa.launch_counts()}, expected {route}")
         if not (torch.equal(o, o2)
                 and all(torch.equal(a, b) for a, b in zip(got[:3], got2[:3]))):
             raise AssertionError("dropout kernels do not replay a fixed seed")
@@ -441,14 +595,15 @@ def phase_dropout(seed: int) -> dict:
         for key, x, y in zip(("dq", "dk", "dv"), got, ref):
             errs[key] = check_close(f"{name} {key}", x, y, bwd_tolerance(y))
         delta = (do.float() * o.float()).sum(-1).contiguous()
+        do_k = do if route == "fma" or fa._tma_ok(do) else do.contiguous()
         out[name] = dict(
-            errors=errs,
+            errors=errs, route=route,
             fwd_ms=cuda_ms(lambda: fa.flash_attention_fwd(
                 q, k, v, causal=True, dropout_p=DROPOUT_P, seed=mseed)),
             dq_ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(
                 q, k, v, None, do, lse, delta, True, DROPOUT_P, mseed)),
             dkv_ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv(
-                q, k, v, None, do, lse, delta, True, DROPOUT_P, mseed)))
+                q, k, v, None, do_k, lse, delta, True, DROPOUT_P, mseed)))
     emit("dropout", p=DROPOUT_P, shape=[B, H, L, L, D], **out)
     return out
 
@@ -482,12 +637,15 @@ def phase_serving(seed: int) -> dict:
     torch.cuda.synchronize()
 
     server = InferenceServer(model, slots=4, device="cuda", **geo)
-    fa.flash_attention_fwd.launches = 0
+    fa.reset_launch_counts()
     t0 = time.perf_counter()
     handles = [server.submit(**r) for r in requests]
     streams = [h.result(timeout=900) for h in handles]
     wall_s = time.perf_counter() - t0
-    launches = fa.flash_attention_fwd.launches
+    launches = fa.launch_counts()["fwd"]["fma"]
+    if fa.launch_counts()["fwd"]["wgmma"]:
+        raise AssertionError(f"float32 prefill launched the wgmma forward: "
+                             f"{fa.launch_counts()}")
     server.shutdown(timeout=60)
     snap = server.snapshot()
 
@@ -501,7 +659,7 @@ def phase_serving(seed: int) -> dict:
                              f"{snap['requests_failed']} failed")
     need = cfg.num_layers * len(requests)
     if snap["prefills"] != len(requests) or launches != need:
-        raise AssertionError(f"flash kernel launched {launches} times over "
+        raise AssertionError(f"FMA forward launched {launches} times over "
                              f"{snap['prefills']} prefills in the served run, "
                              f"expected exactly {need} ({cfg.num_layers} "
                              f"layers x {len(requests)} requests)")
@@ -554,15 +712,14 @@ def phase_serving(seed: int) -> dict:
 
 
 def _counts(fa):
-    return (fa.flash_attention_fwd.launches,
-            fa.flash_attention_bwd_dq.launches,
-            fa.flash_attention_bwd_dkv.launches)
+    """Launches since the last reset, as (forward FMA, forward wgmma, dQ
+    FMA, dK/dV FMA, dK/dV wgmma)."""
+    c = fa.launch_counts()
+    return (c["fwd"]["fma"], c["fwd"]["wgmma"], c["dq"]["fma"],
+            c["dkv"]["fma"], c["dkv"]["wgmma"])
 
 
-def _reset_counts(fa):
-    fa.flash_attention_fwd.launches = 0
-    fa.flash_attention_bwd_dq.launches = 0
-    fa.flash_attention_bwd_dkv.launches = 0
+_COUNT_NAMES = ("fwd_fma", "fwd_wgmma", "dq_fma", "dkv_fma", "dkv_wgmma")
 
 
 def _train_config(**overrides):
@@ -620,10 +777,11 @@ def phase_training(seed: int) -> dict:
     build_s = time.perf_counter() - t0
     ids = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
-    need = (2 * cfg.num_layers, cfg.num_layers, cfg.num_layers)
+    # bf16 at D = 128: the wgmma forward and dK/dV, the FMA dQ
+    need = (0, 2 * cfg.num_layers, cfg.num_layers, 0, cfg.num_layers)
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms, per_step = [], [], []
-    _reset_counts(fa)
+    fa.reset_launch_counts()
     for _ in range(TRAIN_WARMUP + TRAIN_TIMED):
         before = _counts(fa)
         torch.cuda.synchronize()
@@ -635,7 +793,7 @@ def phase_training(seed: int) -> dict:
         per_step.append(tuple(a - b for a, b in zip(_counts(fa), before)))
     launches = _counts(fa)
     if any(c != need for c in per_step):
-        raise AssertionError(f"launches per step (fwd, dq, dkv) {per_step}, "
+        raise AssertionError(f"launches per step {_COUNT_NAMES} {per_step}, "
                              f"expected {need} every step")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"training losses {losses}: not finite or not "
@@ -646,9 +804,8 @@ def phase_training(seed: int) -> dict:
     out = dict(model="gpt_1p3b O2 bf16", batch=[TRAIN_BATCH, TRAIN_SEQ],
                params=sum(p.numel() for p in step.params.values()),
                model_build_s=build_s, losses=losses,
-               launches={"fwd": launches[0], "dq": launches[1],
-                         "dkv": launches[2]},
-               launches_per_step=dict(zip(("fwd", "dq", "dkv"), need)),
+               launches=dict(zip(_COUNT_NAMES, launches)),
+               launches_per_step=dict(zip(_COUNT_NAMES, need)),
                step_ms=step_ms, step_ms_median=float(np.median(timed)),
                tokens_per_s=tokens_per_s,
                mfu=tokens_per_s * flops_per_token / PEAK_BF16_TC_FLOPS,
@@ -680,13 +837,15 @@ def phase_train_parity(seed: int) -> dict:
         loss = model(ids, ids)
         return loss.item(), torch.autograd.grad(loss, params)
 
-    _reset_counts(fa)
+    fa.reset_launch_counts()
     loss_k, grads_k = run(True)
     launches = _counts(fa)
     loss_p, grads_p = run(False)
     model.cfg.use_flash_attention = True
-    if launches != (2 * cfg.num_layers, cfg.num_layers, cfg.num_layers):
-        raise AssertionError(f"float32 kernel run launched {launches}")
+    # float32: the FMA kernels only
+    if launches != (2 * cfg.num_layers, 0, cfg.num_layers, cfg.num_layers, 0):
+        raise AssertionError(f"float32 kernel run launched "
+                             f"{dict(zip(_COUNT_NAMES, launches))}")
     rel = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
            for a, b in zip(grads_k, grads_p)]
     worst = max(rel)
@@ -698,7 +857,7 @@ def phase_train_parity(seed: int) -> dict:
     out = dict(dtype="float32", loss_kernel=loss_k, loss_plain=loss_p,
                grad_rel_l2_max=worst, grad_rel_l2_worst_param=names[rel.index(worst)],
                tol=dict(loss_rtol=TRAIN_LOSS_RTOL, grad_rel_l2=TRAIN_GRAD_REL_L2),
-               launches=dict(zip(("fwd", "dq", "dkv"), launches)))
+               launches=dict(zip(_COUNT_NAMES, launches)))
     emit("train_parity", **out)
     return out
 
@@ -719,17 +878,18 @@ def phase_dropout_replay(seed: int) -> dict:
         step = _o2_step(cfg, seed, global_seed)
         return [float(step((ids, ids))) for _ in range(2)]
 
-    _reset_counts(fa)
+    fa.reset_launch_counts()
     a, b = losses(seed), losses(seed)
     launches = _counts(fa)
     other = losses(seed + 1)
-    need = (16, 8, 8)  # 2 runs x 2 steps x 2 layers x (forward + recompute)
+    # 2 runs x 2 steps x 2 layers x (forward + recompute), bf16: wgmma
+    need = (0, 16, 8, 0, 8)
     if a != b or launches != need or other == a:
         raise AssertionError(f"dropout replay: {a} vs {b} (other seed "
                              f"{other}), launches {launches} != {need}")
     out = dict(layers=2, p=DROPOUT_P, losses=a, replay_losses=b,
                other_seed_losses=other,
-               launches=dict(zip(("fwd", "dq", "dkv"), launches)))
+               launches=dict(zip(_COUNT_NAMES, launches)))
     emit("dropout_replay", **out)
     return out
 
@@ -746,19 +906,13 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     from paddle_tpu_torch import default_device
-    from paddle_tpu_torch.kernels import _build
 
     default_device("cuda")  # pins float32 matmul precision (no TF32)
     card = nvidia_smi_line()
     emit("device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
-    t0 = time.perf_counter()
-    libs = {s: p.name for s, p in _build.build_all().items()}
-    emit("build", seconds=time.perf_counter() - t0, libraries=libs,
-         ptxas=[ln.strip() for s in libs for ln in _build.build_log(s).splitlines()
-                if "Used" in ln or "spill" in ln])
-
+    phase_build(args.seed)
     fwd = phase_kernels(args.seed)
     bwd = phase_backward(args.seed)
     phase_dropout(args.seed)
@@ -766,40 +920,53 @@ def main(argv=None) -> int:
     _free()
     train = phase_training(args.seed)
     _free()
-    phase_train_parity(args.seed)
+    parity = phase_train_parity(args.seed)
     _free()
     phase_dropout_replay(args.seed)
 
-    f_case = fwd["train_bf16_B2_L1024"]
-    b_case = bwd["train_bfloat16_B2_L1024"]
     src = "paddle_tpu_torch/kernels/csrc/"
     ref = "paddle_tpu/kernels/flash_attention.py:"
-    shape = dict(shape=[TRAIN_BATCH, 16, TRAIN_SEQ, TRAIN_SEQ, 128],
-                 dtype="bfloat16", causal=True)
+
+    def fwd_row(name, source, case, launches, path):
+        c = fwd[case]
+        return dict(name=name, route="cuda", source=src + source,
+                    replaces=ref + "131", launches=launches, main_path=path,
+                    max_abs_err=c["max_abs_err"], ms=c["ms"],
+                    ms_range=c["ms_range"], plain_ms=c["plain_ms"],
+                    bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                    library_ms=c["library_ms"],
+                    library_ms_range=c["library_ms_range"],
+                    shape=c["shape"], dtype=c["dtype"], causal=c["causal"])
+
+    def bwd_row(name, source, which, case, launches, path):
+        c = bwd[case]
+        keys = ("dq",) if which == "dq" else ("dk", "dv")
+        return dict(name=name, route="cuda", source=src + source,
+                    replaces=ref + ("198" if which == "dq" else "269"),
+                    launches=launches, main_path=path,
+                    max_abs_err=max(c["errors"][k]["max_abs_err"] for k in keys),
+                    ms=c[f"{which}_ms"], ms_range=c[f"{which}_ms_range"],
+                    plain_ms=c["plain_ms"], bound_ms=c[f"{which}_bound_ms"],
+                    bound_by=c[f"{which}_bound_by"],
+                    library_ms=c["library_ms"], shape=c["shape"],
+                    dtype=c["dtype"], causal=c["causal"])
+
+    step = "training (bf16 O2 step)"
     kernels = [
-        dict(name="flash_attention_fwd", route="cuda",
-             source=src + "flash_attention_fwd.cu", replaces=ref + "131",
-             launches=train["launches"]["fwd"],
-             launches_serving=serve["flash_launches"],
-             max_abs_err=f_case["max_abs_err"], ms=f_case["ms"],
-             plain_ms=f_case["plain_ms"], bound_ms=f_case["bound_ms"],
-             bound_by=f_case["bound_by"], library_ms=f_case["library_ms"],
-             **shape),
-        dict(name="flash_attention_bwd_dq", route="cuda",
-             source=src + "flash_attention_bwd.cu", replaces=ref + "198",
-             launches=train["launches"]["dq"],
-             max_abs_err=b_case["errors"]["dq"]["max_abs_err"],
-             ms=b_case["dq_ms"], plain_ms=b_case["plain_ms"],
-             bound_ms=b_case["dq_bound_ms"], bound_by=b_case["dq_bound_by"],
-             library_ms=b_case["library_ms"], **shape),
-        dict(name="flash_attention_bwd_dkv", route="cuda",
-             source=src + "flash_attention_bwd.cu", replaces=ref + "269",
-             launches=train["launches"]["dkv"],
-             max_abs_err=max(b_case["errors"][k]["max_abs_err"]
-                             for k in ("dk", "dv")),
-             ms=b_case["dkv_ms"], plain_ms=b_case["plain_ms"],
-             bound_ms=b_case["dkv_bound_ms"], bound_by=b_case["dkv_bound_by"],
-             library_ms=b_case["library_ms"], **shape),
+        fwd_row("flash_attention_fwd", "flash_attention_fwd.cu",
+                "prefill_f32_L2048", serve["flash_launches"],
+                "serving (float32 prefill)"),
+        fwd_row("flash_attention_fwd_sm90", "flash_attention_fwd_sm90.cu",
+                "train_bf16_B2_L1024", train["launches"]["fwd_wgmma"], step),
+        bwd_row("flash_attention_bwd_dq", "flash_attention_bwd.cu", "dq",
+                "train_bfloat16_B2_L1024", train["launches"]["dq_fma"], step),
+        bwd_row("flash_attention_bwd_dkv", "flash_attention_bwd.cu", "dkv",
+                "train_float32_B2_L1024", parity["launches"]["dkv_fma"],
+                "float32 training parity"),
+        bwd_row("flash_attention_bwd_dkv_sm90",
+                "flash_attention_bwd_dkv_sm90.cu", "dkv",
+                "train_bfloat16_B2_L1024", train["launches"]["dkv_wgmma"],
+                step),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -1,0 +1,388 @@
+// Flash-attention backward, dK and dV, for bf16 inputs on Hopper tensor
+// cores (sm_90a): wgmma fed by TMA, CUDA C++ with a plain C entry.
+//
+// Replaces: paddle_tpu/kernels/flash_attention.py `_bwd_dkv_kernel` (:269,
+// pallas_call at :513 in `_flash_bwd_impl`, :411), for bf16 q/k/v/dO at
+// head dims 64 and 128. float32 inputs and D = 256 keep the FMA kernel of
+// flash_attention_bwd.cu, and so does dQ for every input; the Python
+// wrapper routes by (dtype, D).
+//
+// Computes what the FMA dK/dV kernel computes, per (b, h) and key tile: with
+// P = exp(S * scale + bias - LSE) (0 above the top-left causal diagonal and
+// past the ragged edge), M the dropout multiplier (philox.cuh; 1 without
+// dropout) and Delta = rowsum(dO * O) from the caller,
+//   dV = (P * M)^T dO,   dK = (P * (dO V^T * M - Delta))^T Q * scale,
+// written in bf16 through their strides.
+//
+// Numerics: as in flash_attention_fwd_sm90.cu, the reference's default
+// float32 operands (:316-327) are kept. S^T = K Q^T and dP^T = V dO^T are
+// bf16 x bf16 products, exact in the float32 accumulator; the float32
+// matrices the kernel makes, (P * M)^T and dS^T, enter their products as
+// three bf16 terms each (sm90.cuh split_slice), which is the
+// float32-operand product to 2^-24 of sum |x y|, float32's own rounding.
+//
+// Bound on an H100: per kept (query, key) pair 8 D FLOP (K Q^T, V dO^T,
+// P^T dO, dS^T Q; 16 D on the tensor cores with the three-term split)
+// against a few bytes per row: at the training shape [2, 16, 1024, 128]
+// causal it is bound by operations, about 17 us of bf16 tensor-core work
+// (35 us with the split), where the FMA kernel took 0.87 ms on the CUDA
+// cores.
+//
+// Design:
+// - one CTA per (b, h, 128-key tile), the tile index the slowest grid
+//   dimension so the early (heaviest causal) tiles of every (b, h) start
+//   first; 384 threads: two consumer warpgroups (warps 0-7), each owning 64
+//   key rows and their dK and dV accumulators (2 x D / 2 floats a thread),
+//   and a producer warpgroup (warps 8-11) of which warp 8 works. The CTA
+//   launches with 168 registers a thread; setmaxnreg takes the producer
+//   warpgroup down to 40 and the consumers up to 232, which is what lets
+//   two warpgroups of this size share an SM (1.9 times faster than one
+//   warpgroup per CTA at the training shape);
+// - the producer loads both warpgroups' K and V once, then streams the
+//   query tiles from the diagonal on: Q and dO by TMA into a 2-stage ring
+//   shared by the two warpgroups, and the 64 rows of LSE and Delta, which
+//   its 32 lanes copy into the same stage; the stage's `full` barrier
+//   completes on the TMA bytes and the 33 arrivals, its `empty` barrier on
+//   the 256 consumer threads (a warpgroup whose keys a causal query tile
+//   cannot see arrives without computing);
+// - per query tile: the thread's 32 dropout keep bits (one register), drawn
+//   while the tile is in flight; S^T = K Q^T (m64n64k16 wgmmas, both
+//   operands K-major in shared memory) and P^T on the accumulator fragment;
+//   dV += (P M)^T dO with (P M)^T as register A fragments, made 16 columns
+//   at a time (m64nDk16, dO the transposed B operand); then dP^T = V dO^T,
+//   dS^T = P^T (dP^T M - Delta) and dK += dS^T Q the same way. P^T and the
+//   keep bits wait in shared memory while dP^T is made, so at most 32 score
+//   values and one slice of fragments are live beside dK and dV: no spills
+//   within the 232 registers;
+// - dK is scaled once at the end; no atomics, so a run replays bit for bit;
+// - the dropout bits are the per-element Philox words of (seed, b, h, query,
+//   key), the same the forward and the FMA dQ kernel draw.
+//
+// The kernel allocates nothing and does not synchronise.
+
+#include "philox.cuh"
+#include "sm90.cuh"
+
+namespace {
+
+using namespace pt_sm90;
+
+constexpr int kStages = 2;
+constexpr int kGroups = 2;  // consumer warpgroups, 64 key rows each
+constexpr int kConsumers = 128 * kGroups;
+constexpr int kThreads = kConsumers + 128;  // + one producer warpgroup
+// Registers a thread: a CTA of 384 threads launches with 168 each (65536 /
+// 384); the producer warpgroup gives 128 of them back (setmaxnreg), which
+// is exactly what lets the 256 consumer threads, holding dK, dV, a score
+// tile and split fragments, grow to 232.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+static_assert((168 - kProducerRegs) * 128 >= (kConsumerRegs - 168) * kConsumers,
+              "the producer must free what the consumers take");
+
+struct DkvParams {
+  __nv_bfloat16 *dk, *dv;
+  const float *bias, *lse, *delta;
+  long long dk_st[3], dv_st[3], bias_st[3];  // (batch, head, row) strides
+  int H, Lq, Lk, causal;
+  float scale;
+  DropoutParams drop;
+  TmaPos pos_q, pos_k, pos_v, pos_do;
+};
+
+template <int D>
+struct DkvLayout {
+  static constexpr uint32_t kTile = 64 * D * 2;
+  // K and V of warpgroup g's 64 keys
+  __host__ __device__ static constexpr uint32_t k(int g) { return kTile * g; }
+  __host__ __device__ static constexpr uint32_t v(int g) {
+    return kTile * (kGroups + g);
+  }
+  __host__ __device__ static constexpr uint32_t q(int s) {
+    return kTile * (2 * kGroups + 2 * s);
+  }
+  __host__ __device__ static constexpr uint32_t dout(int s) {
+    return kTile * (2 * kGroups + 2 * s + 1);
+  }
+  // per stage: 64 floats of LSE, then 64 of Delta
+  static constexpr uint32_t kRing = kTile * (2 * kGroups + 2 * kStages);
+  __host__ __device__ static constexpr uint32_t stats(int s) {
+    return kRing + 512 * s;
+  }
+  // each consumer thread's 32 values of P^T and its dropout keep bits,
+  // parked while dP^T is made (word e of thread tid at e * kConsumers + tid)
+  static constexpr uint32_t stash = kRing + 512 * kStages;
+  static constexpr uint32_t bars = stash + 4 * 33 * kConsumers;
+  static constexpr uint32_t kv_full = bars;
+  __host__ __device__ static constexpr uint32_t full(int s) {
+    return bars + 8 * (1 + s);
+  }
+  __host__ __device__ static constexpr uint32_t empty(int s) {
+    return bars + 8 * (1 + kStages + s);
+  }
+  static constexpr size_t kBytes = bars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// kDropout: the dropout draws are compiled only into the instantiation that
+// uses them.
+template <int D, bool kDropout>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const DkvParams p) {
+  using L = DkvLayout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const smem = smem_raw + (base - smem_u32(smem_raw));
+  const float* stats_ptr = reinterpret_cast<const float*>(smem);
+
+  // The key tile is the slowest grid dimension, so the early (heaviest
+  // causal) tiles of every (b, h) start first.
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * 64 * kGroups;
+  // causal (top-left): query tile qt holds a kept pair of these keys iff its
+  // last row reaches k0
+  const int n_qt = (p.Lq + 63) / 64;
+  const int qt0 = p.causal ? k0 / 64 : 0;
+  const int n_iter = max(0, n_qt - qt0);
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(base + L::kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(base + L::full(s), 1 + 32);
+      mbar_init(base + L::empty(s), kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // ---- producer warpgroup: its first warp works (lane 0 issues the TMA
+    // copies, all 32 lanes copy the tile's LSE and Delta rows); the other
+    // three only give their registers back
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int lane = tid - kConsumers;
+    if (lane >= 32) return;
+    const long long row_base = ((long long)b * p.H + h) * p.Lq;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(base + L::kv_full, 2 * kGroups * L::kTile);
+      for (int g = 0; g < kGroups; ++g) {
+        tma_load_tile<D>(base + L::k(g), &map_k, base + L::kv_full,
+                         k0 + 64 * g, h, b, p.pos_k);
+        tma_load_tile<D>(base + L::v(g), &map_v, base + L::kv_full,
+                         k0 + 64 * g, h, b, p.pos_v);
+      }
+    }
+    for (int i = 0; i < n_iter; ++i) {
+      const int s = i % kStages;
+      const int q0 = (qt0 + i) * 64;
+      mbar_wait(base + L::empty(s), ((i / kStages) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(base + L::full(s), 2 * L::kTile);
+        tma_load_tile<D>(base + L::q(s), &map_q, base + L::full(s), q0, h, b,
+                         p.pos_q);
+        tma_load_tile<D>(base + L::dout(s), &map_do, base + L::full(s), q0, h,
+                         b, p.pos_do);
+      }
+      float* st = const_cast<float*>(stats_ptr) + (L::stats(s) / 4);
+#pragma unroll
+      for (int r = lane; r < 64; r += 32) {
+        const int qi = q0 + r;
+        st[r] = qi < p.Lq ? p.lse[row_base + qi] : 0.f;
+        st[64 + r] = qi < p.Lq ? p.delta[row_base + qi] : 0.f;
+      }
+      mbar_arrive(base + L::full(s));
+    }
+  } else {
+    // ---- consumer warpgroups: warpgroup wg owns keys kw0 .. kw0 + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = tid / 128;
+    const int kw0 = k0 + 64 * wg;
+    const uint32_t tile_k = base + L::k(wg), tile_v = base + L::v(wg);
+    const int w = (tid % 128) / 32, g = (tid % 32) / 4, t = tid % 4;
+    const int kj0 = kw0 + 16 * w + g;  // this thread's two key rows
+    const int kj1 = kj0 + 8;
+    const float* biasb =
+        p.bias == nullptr ? nullptr
+                          : p.bias + b * p.bias_st[0] + h * p.bias_st[1];
+
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      dk[i] = 0.f;
+      dv[i] = 0.f;
+    }
+
+    mbar_wait(base + L::kv_full, 0);
+    for (int i = 0; i < n_iter; ++i) {
+      const int s = i % kStages;
+      const int q0 = (qt0 + i) * 64;
+      if (p.causal && q0 + 63 < kw0) {
+        // every pair of this query tile is masked for these keys
+        mbar_arrive(base + L::empty(s));
+        continue;
+      }
+      // the dropout keep bits of this thread's 32 elements (one register, so
+      // the Philox words are drawn once and no float mask stays live),
+      // drawn before the tile is waited for
+      uint32_t keep = 0xffffffffu;
+      if constexpr (kDropout) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = q0 + 8 * j + 2 * t + (e & 1);
+            const int kj = e < 2 ? kj0 : kj1;
+            if (qi < p.Lq && kj < p.Lk &&
+                dropout_multiplier(p.drop, b, h, qi, kj) == 0.f)
+              keep &= ~(1u << (4 * j + e));
+          }
+      }
+      mbar_wait(base + L::full(s), (i / kStages) & 1);
+      __syncwarp();
+
+      // ---- P^T = exp(K Q^T * scale + bias - LSE), 0 where masked
+      const float* lse_s = stats_ptr + L::stats(s) / 4;
+      const float* delta_s = lse_s + 64;
+      float st[32];
+      wgmma_kmajor_product<D>(st, tile_k, base + L::q(s));
+      // Only the diagonal tile and ragged tiles need the masks; the test is
+      // uniform over the CTA, so the other tiles take a branch without them.
+      const bool edge = q0 + 64 > p.Lq || kw0 + 64 > p.Lk ||
+                        (p.causal && q0 < kw0 + 63);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1);
+          const int qi = q0 + c;
+          const int kj = e < 2 ? kj0 : kj1;
+          float pr = 0.f;
+          if (!edge || !(qi >= p.Lq || kj >= p.Lk || (p.causal && qi < kj))) {
+            float x = st[4 * j + e] * p.scale;
+            if (biasb != nullptr) x += biasb[(long long)qi * p.bias_st[2] + kj];
+            pr = expf(x - lse_s[c]);
+          }
+          st[4 * j + e] = pr;
+        }
+      const float kept = kDropout ? p.drop.scale : 1.f;
+
+      // ---- dV += (P M)^T dO, (P M)^T made slice by slice
+      const auto mul = [&](int e) { return (keep >> e) & 1u ? kept : 0.f; };
+      wgmma_split_product<D, true>(
+          dv, [&](int e) { return st[e] * mul(e); }, base + L::dout(s));
+      // P^T waits in shared memory while dP^T takes its registers: with dK
+      // and dV live, holding both score tiles would spill
+      float* stash = reinterpret_cast<float*>(smem + L::stash) + tid;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) stash[e * kConsumers] = st[e];
+      if constexpr (kDropout)
+        reinterpret_cast<uint32_t*>(stash)[32 * kConsumers] = keep;
+
+      // ---- dS^T = P^T (V dO^T M - Delta);  dK += dS^T Q
+      float dpt[32];
+      wgmma_kmajor_product<D>(dpt, tile_v, base + L::dout(s));
+      if constexpr (kDropout)
+        keep = reinterpret_cast<const uint32_t*>(stash)[32 * kConsumers];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          dpt[i] = stash[i * kConsumers] *
+                   (dpt[i] * mul(i) - delta_s[8 * j + 2 * t + (e & 1)]);
+        }
+      wgmma_split_product<D, true>(dk, [&](int e) { return dpt[e]; },
+                                   base + L::q(s));
+      mbar_arrive(base + L::empty(s));
+    }
+
+    // ---- dK * scale and dV, bf16, through their strides
+    __nv_bfloat16* dkb = p.dk + b * p.dk_st[0] + h * p.dk_st[1];
+    __nv_bfloat16* dvb = p.dv + b * p.dv_st[0] + h * p.dv_st[1];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kj = r == 0 ? kj0 : kj1;
+      if (kj >= p.Lk) continue;
+      __nv_bfloat16* krow = dkb + (long long)kj * p.dk_st[2];
+      __nv_bfloat16* vrow = dvb + (long long)kj * p.dv_st[2];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(krow + c) = __floats2bfloat162_rn(
+            dk[4 * j + 2 * r] * p.scale, dk[4 * j + 2 * r + 1] * p.scale);
+        *reinterpret_cast<__nv_bfloat162*>(vrow + c) = __floats2bfloat162_rn(
+            dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int D, bool kDropout>
+cudaError_t launch(const CUtensorMap (&maps)[4], const DkvParams& p, int B,
+                   cudaStream_t stream) {
+  auto kernel = flash_bwd_dkv_sm90_kernel<D, kDropout>;
+  static unsigned smem_set = 0;
+  cudaError_t err = allow_smem(kernel, DkvLayout<D>::kBytes, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.H, B, (p.Lk + 64 * kGroups - 1) / (64 * kGroups));
+  kernel<<<grid, kThreads, DkvLayout<D>::kBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v, dout: bf16 [B, H, L, D] tensors read by TMA through the 14
+// geometry words each in `geo` (q, k, v, dout in that order; sm90.cuh).
+// lse and delta: float32 [B, H, Lq], contiguous. dk, dv: bf16, written
+// through (batch, head, row) element strides strides[0..2] and [3..5];
+// bias (may be null): float32, strides[6..8] (0 where broadcast). D: 64 or
+// 128. Dropout as in pt_flash_attention_fwd. Returns the cudaError_t of the
+// launch.
+extern "C" int pt_flash_attention_bwd_dkv_sm90(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+    int B, int H, int Lq, int Lk, int D, const unsigned long long* geo,
+    const long long* strides, int causal, float scale, int dropout_enabled,
+    unsigned long long seed, unsigned int threshold, float drop_scale,
+    void* stream) {
+  DkvParams p;
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.bias = static_cast<const float*>(bias);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  for (int i = 0; i < 3; ++i) {
+    p.dk_st[i] = strides[i];
+    p.dv_st[i] = strides[3 + i];
+    p.bias_st[i] = strides[6 + i];
+  }
+  p.H = H;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.causal = causal;
+  p.scale = scale;
+  p.drop = DropoutParams{seed, threshold, drop_scale, dropout_enabled};
+  CUtensorMap maps[4];
+  TmaPos* pos[4] = {&p.pos_q, &p.pos_k, &p.pos_v, &p.pos_do};
+  const void* ptrs[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err =
+        encode_tensor_map(&maps[i], pos[i], ptrs[i], geo + i * kGeoWords);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool drop = dropout_enabled != 0;
+  if (D == 64)
+    return (int)(drop ? launch<64, true>(maps, p, B, s)
+                      : launch<64, false>(maps, p, B, s));
+  if (D == 128)
+    return (int)(drop ? launch<128, true>(maps, p, B, s)
+                      : launch<128, false>(maps, p, B, s));
+  return (int)cudaErrorInvalidValue;
+}

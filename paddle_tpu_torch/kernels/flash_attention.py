@@ -9,6 +9,11 @@ The kernels replace the three Pallas kernels of the reference:
 - ``csrc/flash_attention_bwd.cu`` replaces ``_bwd_dq_kernel`` (``:198``)
   and ``_bwd_dkv_kernel`` (``:269``): dQ (and dS, the bias gradient before
   its reduction) over query tiles, dK/dV over key tiles;
+- ``csrc/flash_attention_fwd_sm90.cu`` and
+  ``csrc/flash_attention_bwd_dkv_sm90.cu`` replace ``_fwd_kernel`` and
+  ``_bwd_dkv_kernel`` again for bf16 inputs at head dims 64 and 128, on
+  the tensor cores (wgmma fed by TMA, ``csrc/sm90.cuh``), with the
+  reference's float32-operand numerics kept by a hi/lo bf16 split;
 - ``csrc/philox.cuh`` replaces the in-kernel dropout ``_dropout_mask``
   (``:120``): Philox4x32-10 bits keyed per element by (seed, b, h, row,
   col), so the three kernels regenerate one mask although they tile
@@ -23,8 +28,12 @@ or bfloat16 inputs with float32 arithmetic, any length, and head dims 64,
 
 Dispatch is by device, never by a fallback: a wrapper given CPU tensors
 runs the plain version (that is what the CPU tests exercise), and given
-CUDA tensors it launches the kernel or raises. Each wrapper counts its
-launches in ``<wrapper>.launches``.
+CUDA tensors it launches the kernel or raises. Among the kernels the
+route is picked by (dtype, head dim) alone (:func:`kernel_route`): bf16
+at D in {64, 128} takes the ``wgmma`` forward and dK/dV kernels, every
+other input the ``fma`` ones; dQ is ``fma`` for every input. Each wrapper
+counts its launches in ``<wrapper>.launches`` and per route in
+``<wrapper>.routes`` (:func:`launch_counts`).
 
 The gate :func:`should_use_flash` keeps the JAX gate's shape rules (head
 dim in {64, 128, 256}; a bias that broadcasts to ``[B, H, Lq, Lk]``) and
@@ -49,7 +58,9 @@ import torch
 
 from . import _build
 
-__all__ = ["SUPPORTED_HEAD_DIMS", "should_use_flash", "philox_bits",
+__all__ = ["SUPPORTED_HEAD_DIMS", "WGMMA_HEAD_DIMS", "kernel_route",
+           "tma_geometry", "launch_counts", "reset_launch_counts",
+           "wgmma_selfcheck", "should_use_flash", "philox_bits",
            "dropout_bits", "dropout_mask", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_bwd", "FlashAttention", "flash_attention_bhld",
@@ -57,9 +68,81 @@ __all__ = ["SUPPORTED_HEAD_DIMS", "should_use_flash", "philox_bits",
            "reference_attention_fwd", "reference_attention_bwd"]
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128)
 _FWD_SOURCE = "flash_attention_fwd.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
+_FWD_SM90_SOURCE = "flash_attention_fwd_sm90.cu"
+_DKV_SM90_SOURCE = "flash_attention_bwd_dkv_sm90.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_TILE_ROWS = 64  # rows of every TMA box (csrc/sm90.cuh)
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel a CUDA input of ``dtype`` and ``head_dim`` takes for the
+    forward and dK/dV: ``"wgmma"`` (the sm_90a tensor-core kernels) for
+    bf16 at D in :data:`WGMMA_HEAD_DIMS`, else ``"fma"``. dQ is ``"fma"``
+    for every input."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "fma"
+
+
+def tma_geometry(t: torch.Tensor) -> Tuple[int, ...]:
+    """The 14 tensor-map words through which the wgmma kernels read a bf16
+    ``[B, H, L, D]`` tensor by TMA (``csrc/sm90.cuh``): 4 dims (D, then the
+    row, head and batch dims ordered by stride, size-1 dims last), the byte
+    strides of dims 1..3, the box (64 columns of 128 bytes by 64 rows), and
+    the map positions (1..3) of the row, head and batch dims.
+
+    A TMA map needs a 16-byte-aligned base and byte strides that are
+    multiples of 16 (below 2^40); a tensor that breaks either, or whose
+    last dimension is not contiguous, raises ``ValueError``. The stride of
+    a size-1 dim is never stepped and is replaced by a packed one."""
+    if t.ndim != 4 or t.stride(-1) != 1:
+        raise ValueError(f"TMA needs a [B, H, L, D] tensor with a "
+                         f"contiguous last dim; got shape {tuple(t.shape)} "
+                         f"strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError("TMA needs a 16-byte-aligned base address")
+    return _layout_geometry(tuple(t.shape), t.stride(), t.element_size())
+
+
+@functools.lru_cache(maxsize=256)
+def _layout_geometry(shape, strides, es):
+    """:func:`tma_geometry` of a layout (cached: a training step asks for
+    the same few layouts a hundred times)."""
+    B, H, L, D = shape
+    if (D * es) % 128:
+        raise ValueError(f"TMA boxes are 128-byte columns; D = {D} of "
+                         f"{es}-byte elements is not a multiple of them")
+    outer = [(L, strides[2], "row"), (H, strides[1], "head"),
+             (B, strides[0], "batch")]
+    for n, stride, name in outer:
+        if n > 1 and (stride <= 0 or (stride * es) % 16
+                      or stride * es >= 2 ** 40):
+            raise ValueError(f"TMA needs byte strides that are positive "
+                             f"multiples of 16; the {name} stride is "
+                             f"{stride * es} bytes")
+    order = sorted(range(3), key=lambda i: (outer[i][0] == 1, outer[i][1]))
+    dims, strides, box, pos = [D], [], [128 // es], {}
+    prev = D * es
+    for place, i in enumerate(order, 1):
+        n, stride, name = outer[i]
+        sb = stride * es if n > 1 else prev
+        dims.append(n)
+        strides.append(sb)
+        box.append(_TILE_ROWS if name == "row" else 1)
+        pos[name] = place
+        prev = sb * n
+    return (*dims, *strides, *box, pos["row"], pos["head"], pos["batch"])
+
+
+def _tma_ok(t: torch.Tensor) -> bool:
+    try:
+        tma_geometry(t)
+    except ValueError:
+        return False
+    return True
 
 
 def should_use_flash(q, k, attn_mask, dropout_p) -> bool:
@@ -271,6 +354,61 @@ def _bwd_fn(name: str):
     return fn
 
 
+_SM90_TAIL = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+              ctypes.c_int, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float,
+              ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_sm90_fn():
+    fn = _build.load(_FWD_SM90_SOURCE).pt_flash_attention_fwd_sm90
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + _SM90_TAIL
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _dkv_sm90_fn():
+    fn = _build.load(_DKV_SM90_SOURCE).pt_flash_attention_bwd_dkv_sm90
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + _SM90_TAIL
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _geometry_words(*tensors):
+    return _words_array(tuple(w for t in tensors for w in tma_geometry(t)))
+
+
+@functools.lru_cache(maxsize=256)
+def _words_array(words):
+    """The ctypes array of ``words`` (cached; the kernels only read it)."""
+    return (ctypes.c_ulonglong * len(words))(*words)
+
+
+def wgmma_selfcheck(D: int, device, generator=None):
+    """Run ``pt_sm90_selfcheck`` (``csrc/sm90.cuh``) on random bf16 ``a``,
+    ``b`` of ``[64, D]``: returns ``(a, b, c1, c2)`` with ``c1 = a b^T``
+    through the K-major descriptors and ``c2 = a[:, :64] b`` through the
+    register-A, transposed-B form, both float32 from the card's wgmma, for
+    the caller to hold against ``torch.matmul``."""
+    fn = _build.load(_FWD_SM90_SOURCE).pt_sm90_selfcheck
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    a, b = (torch.randn(64, D, generator=generator, device=device)
+            .to(torch.bfloat16) for _ in range(2))
+    c1 = torch.empty(64, 64, device=device)
+    c2 = torch.empty(64, D, device=device)
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), b.data_ptr(),
+                 _geometry_words(a.view(1, 1, 64, D)),
+                 _geometry_words(b.view(1, 1, 64, D)), c1.data_ptr(),
+                 c2.data_ptr(), D,
+                 torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wgmma self-check launch failed: CUDA error {err}")
+    return a, b, c1, c2
+
+
 def _check_operand(name: str, t: torch.Tensor, device, dtype, shape) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, q on {device}")
@@ -355,26 +493,37 @@ def _dropout_args(dropout_p: float, seed: int):
 
 def _launch_fwd(q, k, v, causal: bool, bias, out, dropout_p, seed):
     B, H, Lq, Lk, D = _check_shapes(q, k, v)
+    route = kernel_route(q.dtype, D)
     if out is None:
         out = _empty_like_rows(q)
     _check_operand("out", out, q.device, q.dtype, (B, H, Lq, D))
     lse = torch.empty((B, H, Lq), device=q.device, dtype=torch.float32)
     bias, bias_strides = _kernel_bias(bias, B, H, Lq, Lk, q.device)
-    strides = (ctypes.c_longlong * 15)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        *bias_strides)
-    fn = _fwd_fn()
+    bias_ptr = None if bias is None else bias.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 None if bias is None else bias.data_ptr(),
-                 out.data_ptr(), lse.data_ptr(), _DTYPE_CODES[q.dtype],
-                 B, H, Lq, Lk, D, strides, int(bool(causal)),
-                 1.0 / math.sqrt(D), *_dropout_args(dropout_p, seed), stream)
+        if route == "wgmma":
+            err = _fwd_sm90_fn()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+                out.data_ptr(), lse.data_ptr(), B, H, Lq, Lk, D,
+                _geometry_words(q, k, v),
+                (ctypes.c_longlong * 6)(*out.stride()[:3], *bias_strides),
+                int(bool(causal)), 1.0 / math.sqrt(D),
+                *_dropout_args(dropout_p, seed), stream)
+        else:
+            strides = (ctypes.c_longlong * 15)(
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *out.stride()[:3], *bias_strides)
+            err = _fwd_fn()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+                out.data_ptr(), lse.data_ptr(), _DTYPE_CODES[q.dtype],
+                B, H, Lq, Lk, D, strides, int(bool(causal)),
+                1.0 / math.sqrt(D), *_dropout_args(dropout_p, seed), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"flash_attention_fwd ({route}) launch failed: "
+                           f"CUDA error {err}")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.routes[route] += 1
     return out, lse
 
 
@@ -383,9 +532,11 @@ def flash_attention_fwd(q, k, v, causal: bool = False, bias=None,
                         dropout_p: float = 0.0, seed: int = 0):
     """``(o, lse)`` of attention on ``[B, H, L, D]`` tensors.
 
-    CUDA tensors launch the kernel (which raises on what it does not take:
-    dtype other than float32/bfloat16, head dim outside {64, 128, 256},
-    a last dimension that is not contiguous); CPU tensors run
+    CUDA tensors launch the kernel of :func:`kernel_route` (which raises on
+    what it does not take: dtype other than float32/bfloat16, head dim
+    outside {64, 128, 256}, a last dimension that is not contiguous, and
+    on the wgmma route q/k/v that TMA cannot read, :func:`tma_geometry`);
+    CPU tensors run
     :func:`reference_attention_fwd` with the plain :func:`dropout_mask`.
     ``out`` (optional, ``[B, H, Lq, D]``, any strides with a contiguous
     last dimension) receives O in place, e.g. a transposed view of a
@@ -407,17 +558,22 @@ def flash_attention_fwd(q, k, v, causal: bool = False, bias=None,
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.routes = {"fma": 0, "wgmma": 0}
+
+
+def _check_stats(lse, delta, shape, device):
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.device != device:
+            raise ValueError(f"{name} must be contiguous float32 {shape} "
+                             f"on {device}")
 
 
 def _launch_bwd(which: str, q, k, v, bias, do, lse, delta, outs, ds,
                 causal, dropout_p, seed):
     B, H, Lq, Lk, D = _check_shapes(q, k, v)
     _check_operand("do", do, q.device, q.dtype, (B, H, Lq, D))
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (B, H, Lq) \
-                or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"{name} must be contiguous float32 "
-                             f"{(B, H, Lq)} on {q.device}")
+    _check_stats(lse, delta, (B, H, Lq), q.device)
     bias, bias_strides = _kernel_bias(bias, B, H, Lq, Lk, q.device)
     grads = {"dq": (0, 0, 0), "dk": (0, 0, 0), "dv": (0, 0, 0)}
     for name, t in outs.items():
@@ -461,26 +617,74 @@ def flash_attention_bwd_dq(q, k, v, bias, do, lse, delta,
     _launch_bwd("dq", q, k, v, bias, do, lse, delta, {"dq": dq}, ds, causal,
                 dropout_p, seed)
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.routes["fma"] += 1
     return dq, ds
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.routes = {"fma": 0}
+
+
+def _launch_dkv_sm90(q, k, v, bias, do, lse, delta, dk, dv, causal,
+                     dropout_p, seed):
+    B, H, Lq, Lk, D = _check_shapes(q, k, v)
+    _check_operand("do", do, q.device, q.dtype, (B, H, Lq, D))
+    _check_stats(lse, delta, (B, H, Lq), q.device)
+    bias, bias_strides = _kernel_bias(bias, B, H, Lq, Lk, q.device)
+    with torch.cuda.device(q.device):
+        err = _dkv_sm90_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, H, Lq, Lk, D, _geometry_words(q, k, v, do),
+            (ctypes.c_longlong * 9)(*dk.stride()[:3], *dv.stride()[:3],
+                                    *bias_strides),
+            int(bool(causal)), 1.0 / math.sqrt(D),
+            *_dropout_args(dropout_p, seed),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_dkv (wgmma) launch failed: "
+                           f"CUDA error {err}")
 
 
 def flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta,
                             causal: bool = False, dropout_p: float = 0.0,
                             seed: int = 0):
-    """Launch the dK/dV kernel on CUDA tensors (arguments as
-    :func:`flash_attention_bwd_dq`): returns ``(dk, dv)``.
-    ``flash_attention_bwd_dkv.launches`` counts launches."""
+    """Launch the dK/dV kernel of :func:`kernel_route` on CUDA tensors
+    (arguments as :func:`flash_attention_bwd_dq`; on the wgmma route ``do``
+    too must be readable by TMA): returns ``(dk, dv)``.
+    ``flash_attention_bwd_dkv.launches`` counts launches, ``.routes`` them
+    per route."""
     dk, dv = _empty_like_rows(k), _empty_like_rows(v)
-    _launch_bwd("dkv", q, k, v, bias, do, lse, delta, {"dk": dk, "dv": dv},
-                None, causal, dropout_p, seed)
+    route = kernel_route(q.dtype, q.shape[-1])
+    if route == "wgmma":
+        _launch_dkv_sm90(q, k, v, bias, do, lse, delta, dk, dv, causal,
+                         dropout_p, seed)
+    else:
+        _launch_bwd("dkv", q, k, v, bias, do, lse, delta,
+                    {"dk": dk, "dv": dv}, None, causal, dropout_p, seed)
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.routes[route] += 1
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.routes = {"fma": 0, "wgmma": 0}
+_WRAPPERS = {"fwd": flash_attention_fwd, "dq": flash_attention_bwd_dq,
+             "dkv": flash_attention_bwd_dkv}
+
+
+def launch_counts() -> dict:
+    """``{"fwd" | "dq" | "dkv": {route: launches}}`` since the last
+    :func:`reset_launch_counts`."""
+    return {k: dict(w.routes) for k, w in _WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's ``launches`` and per-route counts to 0."""
+    for w in _WRAPPERS.values():
+        w.launches = 0
+        w.routes = dict.fromkeys(w.routes, 0)
 
 
 def _reduce_dbias(ds, bias):
@@ -506,6 +710,8 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, causal: bool = False,
     want_dbias = bias is not None and bias_grad
     if q.is_cuda:
         do = _kernel_rows(do)
+        if kernel_route(q.dtype, q.shape[-1]) == "wgmma" and not _tma_ok(do):
+            do = do.contiguous()
         delta = (do.float() * o.float()).sum(-1).contiguous()
         dq, ds = flash_attention_bwd_dq(q, k, v, bias, do, lse, delta,
                                         causal, dropout_p, seed,

@@ -68,12 +68,13 @@ def _profile(fn, calls: int):
 def _group(name: str) -> str:
     """A coarse class of a GPU kernel, by its name."""
     n = name.lower()
+    route = "wgmma" if "sm90" in n else "FMA"
     if "flash_fwd" in n:
-        return "flash forward (ours)"
+        return f"flash forward (ours, {route})"
     if "flash_bwd_dq" in n:
-        return "flash dQ (ours)"
+        return f"flash dQ (ours, {route})"
     if "flash_bwd_dkv" in n:
-        return "flash dK/dV (ours)"
+        return f"flash dK/dV (ours, {route})"
     if any(w in n for w in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
         return "matmul (cuBLAS)"
     if "foreach" in n or "multi_tensor" in n:
