@@ -9,15 +9,18 @@ exits non-zero:
 1. device    - the card (nvidia-smi name and power limit), torch and CUDA.
 2. build     - compiles every CUDA source of the port from this checkout
                (nvcc, one library per source, all started together), fails
-               on a register spill in the three wgmma kernels, and holds the
+               on a register spill in the four wgmma kernels, and holds the
                wgmma/TMA self-check (a 64 x 64 x D product through each
-               descriptor form) against torch.matmul in float32.
+               descriptor form, in bf16 and through the float32 forward's
+               three-term products) against a float64 product.
 3. kernels   - calls each kernel's wrapper on the card at the shapes the
                serving and training paths give it, and holds the result
                against its plain PyTorch version on the same inputs (stated
-               tolerance): the forward kernels (FMA for float32 and for bf16
-               at D = 256, wgmma for bf16 at D = 64 and 128, each case
-               checked for its route), the dQ and dK/dV backward kernels
+               tolerance): the forward kernels (wgmma_f32 for float32 at
+               D = 64 and 128 with its bf16-term split pre-pass, which must
+               equal its plain version bit for bit; wgmma for bf16 at D = 64
+               and 128; FMA at D = 256; each case checked for its route),
+               the dQ and dK/dV backward kernels
                (FMA for float32 and D = 256, wgmma for bf16 at D = 64 and
                128, each case checked for both routes; dS as the bias
                gradient, also causal; the wgmma dQ replayed bit for bit),
@@ -32,8 +35,9 @@ exits non-zero:
                behind InferenceServer(slots=4, max_length=2048) serves six
                requests; every stream must equal a solo generate() with the
                same arguments, no request may be requeued or failed, the
-               FMA flash forward (float32 prefill) must launch exactly once
-               per layer per prefill over the served run, and the
+               wgmma_f32 flash forward and its split (float32 prefill) must
+               launch exactly once per layer per prefill over the served
+               run, no other forward at all, and the
                kernel-path prefill logits must agree with the
                plain-attention path.
 5. training  - the bench's GPT-3 1.3B pretrain step (bf16 O2 AdamW,
@@ -42,7 +46,8 @@ exits non-zero:
                exactly 48 wgmma forward, 24 wgmma dQ and 24 wgmma dK/dV
                launches per step, none on an FMA kernel. Then
                one float32 forward and backward of the same configuration
-               with the (FMA) kernels and with plain attention (loss and
+               with the kernels (wgmma_f32 forward, FMA dQ and dK/dV) and
+               with plain attention (loss and
                per-parameter gradients within tolerance), and a 2-layer
                full-width bf16 dropout run on the wgmma kernels that
                replays bit for bit from its seed.
@@ -230,13 +235,16 @@ def _bound(flops, nbytes, tensor_cores):
 
 
 def attention_bound_ms(B, H, Lq, Lk, D, causal, dtype_bytes, bias_bytes,
-                       tensor_cores: bool):
+                       tensor_cores: bool, term_pairs: int = 1):
     """The least time an H100 could take for one attention forward: the
     larger of (bytes moved once: q, k, v, bias read; o, lse written) over
     HBM bandwidth and (FLOPs of the pairs this run's mask keeps: 2*D for
-    QK^T and 2*D for PV per pair) over the peak rate of the input type.
-    Exponentials are not counted."""
-    flops = 4.0 * D * kept_pairs(Lq, Lk, causal) * B * H
+    QK^T and 2*D for PV per pair, times ``term_pairs``) over the peak rate
+    of the units that do them. Float32 operands on the bf16 tensor cores
+    need 6 term pairs per product (``wgmma_f32``: three bf16 terms of each
+    operand, pairs i + j <= 2), the least work that keeps float32 accuracy
+    there. Exponentials are not counted."""
+    flops = 4.0 * D * kept_pairs(Lq, Lk, causal) * B * H * term_pairs
     nbytes = (B * H * (Lq + 2 * Lk) * D * dtype_bytes      # q, k, v
               + B * H * Lq * D * dtype_bytes + B * H * Lq * 4  # o, lse
               + bias_bytes)
@@ -290,8 +298,8 @@ def phase_build(seed: int) -> None:
                  if "Used" in ln or "spill" in ln] for s in libs}
     emit("build", seconds=time.perf_counter() - t0, libraries=libs,
          ptxas=[ln for lines in ptxas.values() for ln in lines])
-    spills = [ln for s in (fa._FWD_SM90_SOURCE, fa._DQ_SM90_SOURCE,
-                           fa._DKV_SM90_SOURCE)
+    spills = [ln for s in (fa._FWD_SM90_SOURCE, fa._FWD_F32_SM90_SOURCE,
+                           fa._DQ_SM90_SOURCE, fa._DKV_SM90_SOURCE)
               for ln in ptxas[s]
               if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
     if spills:
@@ -299,18 +307,20 @@ def phase_build(seed: int) -> None:
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     out = {}
-    for D in fa.WGMMA_HEAD_DIMS:
-        a, b, c1, c2 = fa.wgmma_selfcheck(D, "cuda", g)
+    for dtype, D in ((dt, D) for dt in (torch.bfloat16, torch.float32)
+                     for D in fa.WGMMA_HEAD_DIMS):
+        a, b, c1, c2 = fa.wgmma_selfcheck(D, "cuda", g, dtype=dtype)
         torch.cuda.synchronize()
         for name, got, x, y in (("kmajor", c1, a, b.T), ("transposed_b", c2,
                                                         a[:, :64], b)):
-            # bf16 products are exact in float32; two summation orders of K
-            # terms differ by at most 2 K 2^-24 of sum |x y|
-            limit = 2 * x.shape[1] * 2.0 ** -24 * (x.float().abs()
-                                                    @ y.float().abs())
-            out[f"{name}_d{D}"] = check_close(f"wgmma self-check {name} D={D}",
-                                              got, x.float() @ y.float(),
-                                              limit + 1e-30)
+            # bf16 products are exact in float32; a float32 sum of K terms
+            # is within K 2^-24 of sum |x y| of the exact one. float32
+            # operands as six bf16 term pairs drop a few 2^-24 more.
+            k = x.shape[1] + (4 if dtype == torch.float32 else 0)
+            limit = 2 * k * 2.0 ** -24 * (x.double().abs() @ y.double().abs())
+            key = f"{name}_{_dtype_name(a)}_d{D}"
+            out[key] = check_close(f"wgmma self-check {key}", got,
+                                   x.double() @ y.double(), limit + 1e-30)
     emit("selfcheck", **out)
 
 
@@ -322,7 +332,11 @@ def _fwd_cases(g):
     cases = []
     for L in (64, 512, 1024, 2048):  # the serving path's prefill buckets
         cases.append((f"prefill_f32_L{L}", *_views(g, 1, L, 16, 128, torch.float32),
-                      True, None, "fma", F32_TOL))
+                      True, None, "wgmma_f32", F32_TOL))
+    cases.append(("d64_causal_f32_B2_L1024", *_views(g, 2, 1024, 16, 64, torch.float32),
+                  True, None, "wgmma_f32", F32_TOL))
+    cases.append(("d256_causal_f32_L1024", *_views(g, 1, 1024, 8, 256, torch.float32),
+                  True, None, "fma", F32_TOL))
     cases.append(("causal_bf16_L2048", *_views(g, 1, 2048, 16, 128, torch.bfloat16),
                   True, None, "wgmma", bf16_tol))
     # the training step's attention: [2, 16, 1024, 128] bf16, causal
@@ -332,7 +346,7 @@ def _fwd_cases(g):
                   True, None, "wgmma", bf16_tol))
     cases.append(("d256_causal_bf16_L1024", *_views(g, 1, 1024, 8, 256, torch.bfloat16),
                   True, None, "fma", bf16_tol))
-    for dtype, D, route, tol in ((torch.float32, 128, "fma", F32_TOL),
+    for dtype, D, route, tol in ((torch.float32, 128, "wgmma_f32", F32_TOL),
                                  (torch.bfloat16, 64, "wgmma", bf16_tol)):
         q = torch.randn(1, 16, 384, D, generator=g, device="cuda").to(dtype)
         k = torch.randn(1, 16, 640, D, generator=g, device="cuda").to(dtype)
@@ -340,12 +354,36 @@ def _fwd_cases(g):
         bias = torch.randn(1, 16, 384, 640, generator=g, device="cuda")
         cases.append((f"bias_noncausal_{_dtype_name(q)}_d{D}_Lq384_Lk640",
                       q, k, v, False, bias, route, tol))
-    for dtype, route, tol in ((torch.float32, "fma", F32_TOL),
+    for dtype, route, tol in ((torch.float32, "wgmma_f32", F32_TOL),
                               (torch.bfloat16, "wgmma", bf16_tol)):
         q, k, v = _views(g, 1, 1500, 16, 128, dtype)
         cases.append((f"ragged_causal_{_dtype_name(q)}_L1500", q, k, v, True,
                       None, route, tol))
     return cases
+
+
+def split_case(fa, name, q, k, v) -> dict:
+    """The wgmma_f32 route's pre-pass (``split_bf16_terms``) on q, k, v
+    against its plain version, bit for bit, and timed: its bound is its
+    bytes (float32 read once, three bf16 terms written once)."""
+    import torch
+
+    got = fa.split_bf16_terms(q, k, v)
+    torch.cuda.synchronize()
+    if not all(torch.equal(t, fa._plain_split(x)) for t, x in zip(got, (q, k, v))):
+        raise AssertionError(f"{name}: the split kernel differs from its "
+                             f"plain version")
+    t = timed_in_turns({"kernel": lambda: fa.split_bf16_terms(q, k, v)})
+    nbytes = sum(x.numel() * (4 + 3 * 2) for x in (q, k, v))
+    out = dict(shape=list(q.shape), max_abs_err=0.0, bit_exact=True,
+               ms=t["kernel"]["median"],
+               ms_range=[t["kernel"]["min"], t["kernel"]["max"]],
+               plain_ms=cuda_ms(lambda: [fa._plain_split(x) for x in (q, k, v)],
+                                iters=5),
+               bound_ms=nbytes / PEAK_HBM_BYTES * 1e3, bound_by="bytes",
+               library_ms=None)
+    emit("kernels_split", case=name, **out)
+    return out
 
 
 def phase_kernels(seed: int) -> dict:
@@ -359,6 +397,8 @@ def phase_kernels(seed: int) -> dict:
     g.manual_seed(seed)
     results = {}
     for name, q, k, v, causal, bias, want, tol in _fwd_cases(g):
+        if want == "wgmma_f32" and bias is None:
+            results[f"split_{name}"] = split_case(fa, name, q, k, v)
         fa.reset_launch_counts()
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, bias=bias)
         torch.cuda.synchronize()
@@ -383,7 +423,8 @@ def phase_kernels(seed: int) -> dict:
         bound_ms, bound_by = attention_bound_ms(
             B, H, Lq, k.shape[2], D, causal, q.element_size(),
             0 if bias is None else bias.numel() * bias.element_size(),
-            tensor_cores=q.dtype == torch.bfloat16)
+            tensor_cores=route != "fma",
+            term_pairs=6 if route == "wgmma_f32" else 1)
         ms = t["kernel"]["median"]
         results[name] = dict(shape=[B, H, Lq, k.shape[2], D],
                              dtype=_dtype_name(q), causal=causal,
@@ -610,10 +651,10 @@ def phase_dropout(seed: int) -> dict:
         got2 = fa.flash_attention_bwd(q, k, v, None, o, lse, do, True,
                                       DROPOUT_P, mseed)
         torch.cuda.synchronize()
-        route = fa.kernel_route(dtype, D)
-        if tuple(_route_of(fa, w) for w in ("fwd", "dq", "dkv")) != (route,) * 3:
+        routes = {w: fa.kernel_route(dtype, D, w) for w in ("fwd", "dq", "dkv")}
+        if {w: _route_of(fa, w) for w in routes} != routes:
             raise AssertionError(f"dropout {dtype}: launches "
-                                 f"{fa.launch_counts()}, expected {route}")
+                                 f"{fa.launch_counts()}, expected {routes}")
         if not (torch.equal(o, o2)
                 and all(torch.equal(a, b) for a, b in zip(got[:3], got2[:3]))):
             raise AssertionError("dropout kernels do not replay a fixed seed")
@@ -628,9 +669,9 @@ def phase_dropout(seed: int) -> dict:
         for key, x, y in zip(("dq", "dk", "dv"), got, ref):
             errs[key] = check_close(f"{name} {key}", x, y, bwd_tolerance(y))
         delta = (do.float() * o.float()).sum(-1).contiguous()
-        do_k = do if route == "fma" or fa._tma_ok(do) else do.contiguous()
+        do_k = do if routes["dq"] == "fma" or fa._tma_ok(do) else do.contiguous()
         out[name] = dict(
-            errors=errs, route=route,
+            errors=errs, routes=routes,
             fwd_ms=cuda_ms(lambda: fa.flash_attention_fwd(
                 q, k, v, causal=True, dropout_p=DROPOUT_P, seed=mseed)),
             dq_ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(
@@ -675,10 +716,11 @@ def phase_serving(seed: int) -> dict:
     handles = [server.submit(**r) for r in requests]
     streams = [h.result(timeout=900) for h in handles]
     wall_s = time.perf_counter() - t0
-    launches = fa.launch_counts()["fwd"]["fma"]
-    if fa.launch_counts()["fwd"]["wgmma"]:
-        raise AssertionError(f"float32 prefill launched the wgmma forward: "
-                             f"{fa.launch_counts()}")
+    counts = fa.launch_counts()["fwd"]
+    launches, split_launches = counts["wgmma_f32"], fa.split_bf16_terms.launches
+    if counts["fma"] or counts["wgmma"]:
+        raise AssertionError(f"float32 prefill launched a forward other than "
+                             f"wgmma_f32: {fa.launch_counts()}")
     server.shutdown(timeout=60)
     snap = server.snapshot()
 
@@ -691,10 +733,11 @@ def phase_serving(seed: int) -> dict:
         raise AssertionError(f"{snap['requests_requeued']} requests requeued, "
                              f"{snap['requests_failed']} failed")
     need = cfg.num_layers * len(requests)
-    if snap["prefills"] != len(requests) or launches != need:
-        raise AssertionError(f"FMA forward launched {launches} times over "
+    if snap["prefills"] != len(requests) or (launches, split_launches) != (need, need):
+        raise AssertionError(f"wgmma_f32 forward launched {launches} times "
+                             f"and its split {split_launches} over "
                              f"{snap['prefills']} prefills in the served run, "
-                             f"expected exactly {need} ({cfg.num_layers} "
+                             f"expected exactly {need} each ({cfg.num_layers} "
                              f"layers x {len(requests)} requests)")
     for r, got in zip(requests, streams):
         solo = model.generate(r["prompt"][None], **{k: v for k, v in r.items()
@@ -731,6 +774,7 @@ def phase_serving(seed: int) -> dict:
                model_build_s=build_s, requests=len(requests),
                prompt_lens=[len(r["prompt"]) for r in requests],
                streams_equal_solo=True, flash_launches=launches,
+               split_launches=split_launches,
                prefills=snap["prefills"], decode_steps=snap["decode_steps"],
                wall_s=wall_s, tokens=snap["tokens_emitted"],
                tokens_per_s=snap["tokens_emitted"] / wall_s,
@@ -744,14 +788,15 @@ def phase_serving(seed: int) -> dict:
     return out
 
 
-_COUNT_NAMES = ("fwd_fma", "fwd_wgmma", "dq_fma", "dq_wgmma", "dkv_fma",
-                "dkv_wgmma")
+_COUNT_NAMES = ("fwd_fma", "fwd_wgmma", "fwd_wgmma_f32", "dq_fma",
+                "dq_wgmma", "dkv_fma", "dkv_wgmma")
 
 
 def _counts(fa):
     """Launches since the last reset, in the order of _COUNT_NAMES."""
     c = fa.launch_counts()
-    return tuple(c[n.split("_")[0]][n.split("_")[1]] for n in _COUNT_NAMES)
+    return tuple(c[kernel][route] for kernel, route in
+                 (n.split("_", 1) for n in _COUNT_NAMES))
 
 
 def _train_config(**overrides):
@@ -810,7 +855,7 @@ def phase_training(seed: int) -> dict:
     ids = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
     # bf16 at D = 128: the wgmma forward (and its recompute), dQ and dK/dV
-    need = (0, 2 * cfg.num_layers, 0, cfg.num_layers, 0, cfg.num_layers)
+    need = (0, 2 * cfg.num_layers, 0, 0, cfg.num_layers, 0, cfg.num_layers)
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms, per_step = [], [], []
     fa.reset_launch_counts()
@@ -874,8 +919,8 @@ def phase_train_parity(seed: int) -> dict:
     launches = _counts(fa)
     loss_p, grads_p = run(False)
     model.cfg.use_flash_attention = True
-    # float32: the FMA kernels only
-    if launches != (2 * cfg.num_layers, 0, cfg.num_layers, 0,
+    # float32: the wgmma_f32 forward (and its recompute), FMA dQ and dK/dV
+    if launches != (0, 0, 2 * cfg.num_layers, cfg.num_layers, 0,
                     cfg.num_layers, 0):
         raise AssertionError(f"float32 kernel run launched "
                              f"{dict(zip(_COUNT_NAMES, launches))}")
@@ -916,7 +961,7 @@ def phase_dropout_replay(seed: int) -> dict:
     launches = _counts(fa)
     other = losses(seed + 1)
     # 2 runs x 2 steps x 2 layers x (forward + recompute), bf16: wgmma
-    need = (0, 16, 0, 8, 0, 8)
+    need = (0, 16, 0, 0, 8, 0, 8)
     if a != b or launches != need or other == a:
         raise AssertionError(f"dropout replay: {a} vs {b} (other seed "
                              f"{other}), launches {launches} != {need}")
@@ -963,13 +1008,15 @@ def main(argv=None) -> int:
     def fwd_row(name, source, case, launches, path):
         c = fwd[case]
         return dict(name=name, route="cuda", source=src + source,
+                    kernel_route=c.get("route"),
                     replaces=ref + "131", launches=launches, main_path=path,
                     max_abs_err=c["max_abs_err"], ms=c["ms"],
                     ms_range=c["ms_range"], plain_ms=c["plain_ms"],
                     bound_ms=c["bound_ms"], bound_by=c["bound_by"],
                     library_ms=c["library_ms"],
-                    library_ms_range=c["library_ms_range"],
-                    shape=c["shape"], dtype=c["dtype"], causal=c["causal"])
+                    library_ms_range=c.get("library_ms_range"),
+                    shape=c["shape"], dtype=c.get("dtype", "float32"),
+                    causal=c.get("causal"))
 
     def bwd_row(name, source, which, case, launches, path):
         c = bwd[case]
@@ -985,10 +1032,17 @@ def main(argv=None) -> int:
                     dtype=c["dtype"], causal=c["causal"])
 
     step = "training (bf16 O2 step)"
+    prefill = "serving (float32 prefill)"
     kernels = [
+        fwd_row("flash_attention_fwd_f32_sm90",
+                "flash_attention_fwd_f32_sm90.cu", "prefill_f32_L2048",
+                serve["flash_launches"], prefill),
+        fwd_row("split_bf16_terms", "flash_attention_fwd_f32_sm90.cu",
+                "split_prefill_f32_L2048", serve["split_launches"], prefill),
+        # no main path runs a forward at D = 256 since float32 prefill
+        # moved to wgmma_f32: 0 launches there, timed at its own case
         fwd_row("flash_attention_fwd", "flash_attention_fwd.cu",
-                "prefill_f32_L2048", serve["flash_launches"],
-                "serving (float32 prefill)"),
+                "d256_causal_f32_L1024", 0, None),
         fwd_row("flash_attention_fwd_sm90", "flash_attention_fwd_sm90.cu",
                 "train_bf16_B2_L1024", train["launches"]["fwd_wgmma"], step),
         bwd_row("flash_attention_bwd_dq", "flash_attention_bwd.cu", "dq",

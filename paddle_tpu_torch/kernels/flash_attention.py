@@ -16,6 +16,11 @@ The kernels replace the three Pallas kernels of the reference:
   by TMA, ``csrc/sm90.cuh``), with the reference's float32-operand
   numerics kept by splitting the float32 operands they make (P, dS) into
   three bf16 terms;
+- ``csrc/flash_attention_fwd_f32_sm90.cu`` replaces the forward again for
+  float32 inputs at head dims 64 and 128 (serving prefill), on the same
+  tensor cores: a pre-pass (:func:`split_bf16_terms`) splits Q, K and V
+  into three bf16 terms each, P is split in registers, and each product
+  keeps the six term pairs ``i + j <= 2``;
 - ``csrc/philox.cuh`` replaces the in-kernel dropout ``_dropout_mask``
   (``:120``): Philox4x32-10 bits keyed per element by (seed, b, h, row,
   col), so the three kernels regenerate one mask although they tile
@@ -31,9 +36,10 @@ or bfloat16 inputs with float32 arithmetic, any length, and head dims 64,
 Dispatch is by device, never by a fallback: a wrapper given CPU tensors
 runs the plain version (that is what the CPU tests exercise), and given
 CUDA tensors it launches the kernel or raises. Among the kernels the
-route is picked by (dtype, head dim) alone (:func:`kernel_route`): bf16
-at D in {64, 128} takes the ``wgmma`` forward, dQ and dK/dV kernels,
-every other input the ``fma`` ones. Each wrapper
+route is picked by (dtype, head dim, kernel) alone (:func:`kernel_route`):
+bf16 at D in {64, 128} takes the ``wgmma`` forward, dQ and dK/dV kernels,
+float32 at D in {64, 128} the ``wgmma_f32`` forward and the ``fma`` dQ and
+dK/dV, every other input the ``fma`` ones. Each wrapper
 counts its launches in ``<wrapper>.launches`` and per route in
 ``<wrapper>.routes`` (:func:`launch_counts`).
 
@@ -62,7 +68,7 @@ from . import _build
 
 __all__ = ["SUPPORTED_HEAD_DIMS", "WGMMA_HEAD_DIMS", "kernel_route",
            "tma_geometry", "launch_counts", "reset_launch_counts",
-           "wgmma_selfcheck", "should_use_flash", "philox_bits",
+           "wgmma_selfcheck", "split_bf16_terms", "should_use_flash", "philox_bits",
            "dropout_bits", "dropout_mask", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_bwd", "FlashAttention", "flash_attention_bhld",
@@ -74,18 +80,26 @@ WGMMA_HEAD_DIMS = (64, 128)
 _FWD_SOURCE = "flash_attention_fwd.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
 _FWD_SM90_SOURCE = "flash_attention_fwd_sm90.cu"
+_FWD_F32_SM90_SOURCE = "flash_attention_fwd_f32_sm90.cu"
 _DQ_SM90_SOURCE = "flash_attention_bwd_dq_sm90.cu"
 _DKV_SM90_SOURCE = "flash_attention_bwd_dkv_sm90.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE_ROWS = 64  # rows of every TMA box (csrc/sm90.cuh)
 
 
-def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
-    """Which kernel a CUDA input of ``dtype`` and ``head_dim`` takes, for
-    the forward, dQ and dK/dV alike: ``"wgmma"`` (the sm_90a tensor-core
-    kernels) for bf16 at D in :data:`WGMMA_HEAD_DIMS`, else ``"fma"``."""
-    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
-        return "wgmma"
+def kernel_route(dtype: torch.dtype, head_dim: int, kernel: str) -> str:
+    """Which kernel a CUDA input of ``dtype`` and ``head_dim`` takes for
+    ``kernel`` ("fwd", "dq" or "dkv"): at D in :data:`WGMMA_HEAD_DIMS`,
+    ``"wgmma"`` (the sm_90a tensor-core kernels) for bf16 and, for the
+    float32 forward, ``"wgmma_f32"`` (its operands as three bf16 terms
+    each); ``"fma"`` for everything else."""
+    if kernel not in ("fwd", "dq", "dkv"):
+        raise ValueError(f"kernel must be fwd, dq or dkv, got {kernel!r}")
+    if head_dim in WGMMA_HEAD_DIMS:
+        if dtype == torch.bfloat16:
+            return "wgmma"
+        if dtype == torch.float32 and kernel == "fwd":
+            return "wgmma_f32"
     return "fma"
 
 
@@ -370,6 +384,23 @@ def _fwd_sm90_fn():
 
 
 @functools.lru_cache(maxsize=None)
+def _fwd_f32_sm90_fn():
+    fn = _build.load(_FWD_F32_SM90_SOURCE).pt_flash_attention_fwd_f32_sm90
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + _SM90_TAIL
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _split_fn():
+    fn = _build.load(_FWD_F32_SM90_SOURCE).pt_split_bf16_terms
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
 def _bwd_sm90_fn(which: str):
     """The typed entry ``pt_flash_attention_bwd_{which}_sm90`` ("dq" or
     "dkv")."""
@@ -390,28 +421,99 @@ def _words_array(words):
     return (ctypes.c_ulonglong * len(words))(*words)
 
 
-def wgmma_selfcheck(D: int, device, generator=None):
-    """Run ``pt_sm90_selfcheck`` (``csrc/sm90.cuh``) on random bf16 ``a``,
-    ``b`` of ``[64, D]``: returns ``(a, b, c1, c2)`` with ``c1 = a b^T``
-    through the K-major descriptors and ``c2 = a[:, :64] b`` through the
-    register-A, transposed-B form, both float32 from the card's wgmma, for
-    the caller to hold against ``torch.matmul``."""
-    fn = _build.load(_FWD_SM90_SOURCE).pt_sm90_selfcheck
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    a, b = (torch.randn(64, D, generator=generator, device=device)
-            .to(torch.bfloat16) for _ in range(2))
+def wgmma_selfcheck(D: int, device, generator=None,
+                    dtype: torch.dtype = torch.bfloat16):
+    """Run the wgmma descriptor self-check on random ``a``, ``b`` of
+    ``[64, D]`` in ``dtype``: returns ``(a, b, c1, c2)`` with ``c1 = a
+    b^T`` through the K-major descriptors and ``c2 = a[:, :64] b`` through
+    the register-A, transposed-B form, both float32 from the card's wgmma,
+    for the caller to hold against a float64 product.
+
+    bf16 runs ``pt_sm90_selfcheck`` (``csrc/sm90.cuh``): one bf16 product
+    of each form. float32 runs ``pt_sm90_selfcheck_f32``
+    (``csrc/flash_attention_fwd_f32_sm90.cu``): a and b split by
+    :func:`split_bf16_terms`, b's terms loaded by TMA, and the six term
+    pairs of each product through the float32 forward's own product
+    functions (a's register fragments split in registers for ``c2``)."""
+    a, b = (torch.randn(64, D, generator=generator, device=device).to(dtype)
+            for _ in range(2))
     c1 = torch.empty(64, 64, device=device)
     c2 = torch.empty(64, D, device=device)
-    with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), b.data_ptr(),
-                 _geometry_words(a.view(1, 1, 64, D)),
-                 _geometry_words(b.view(1, 1, 64, D)), c1.data_ptr(),
-                 c2.data_ptr(), D,
-                 torch.cuda.current_stream(a.device).cuda_stream)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if dtype == torch.float32:
+        a3, b3 = split_bf16_terms(a.view(1, 1, 64, D), b.view(1, 1, 64, D))
+        fn = _build.load(_FWD_F32_SM90_SOURCE).pt_sm90_selfcheck_f32
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(a.device):
+            err = fn(a.data_ptr(), a3.data_ptr(), b3.data_ptr(),
+                     _geometry_words(a3), _geometry_words(b3), c1.data_ptr(),
+                     c2.data_ptr(), D, stream)
+    else:
+        fn = _build.load(_FWD_SM90_SOURCE).pt_sm90_selfcheck
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(a.device):
+            err = fn(a.data_ptr(), b.data_ptr(),
+                     _geometry_words(a.view(1, 1, 64, D)),
+                     _geometry_words(b.view(1, 1, 64, D)), c1.data_ptr(),
+                     c2.data_ptr(), D, stream)
     if err != 0:
         raise RuntimeError(f"wgmma self-check launch failed: CUDA error {err}")
     return a, b, c1, c2
+
+
+def _plain_split(x: torch.Tensor) -> torch.Tensor:
+    """The plain version of the split pre-pass for one float32 ``[B, H, L,
+    D]`` tensor: its three bf16 terms ``t0 = bf16(x)``, ``t1 = bf16(x -
+    t0)``, ``t2 = bf16(x - t0 - t1)`` as one ``[3 B, H, L, D]`` tensor
+    (term t at batch ``t B + b``)."""
+    terms = []
+    x = x.float()
+    for _ in range(3):
+        t = x.to(torch.bfloat16)
+        terms.append(t)
+        x = x - t.float()
+    return torch.cat(terms, dim=0)
+
+
+def split_bf16_terms(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Split one to three float32 ``[B, H, L_i, D]`` tensors (same B, H and
+    D; any strides with a contiguous last dimension and 16-byte rows) into
+    their three bf16 terms each, as contiguous ``[3 B, H, L_i, D]`` tensors
+    (term t of batch b at batch ``t B + b``): the operands of the float32
+    tensor-core forward, whose sum is x to within 2^-24 |x|.
+
+    CUDA tensors launch ``pt_split_bf16_terms`` once for all of them
+    (``split_bf16_terms.launches`` counts it); CPU tensors run
+    :func:`_plain_split`, which equals the kernel bit for bit."""
+    if not 1 <= len(xs) <= 3:
+        raise ValueError(f"split_bf16_terms takes 1 to 3 tensors, got "
+                         f"{len(xs)}")
+    if not xs[0].is_cuda:
+        return tuple(_plain_split(x) for x in xs)
+    B, H, _, D = xs[0].shape
+    for i, x in enumerate(xs):
+        _check_operand(f"operand {i}", x, xs[0].device, torch.float32,
+                       (B, H, x.shape[2], D))
+    outs = tuple(torch.empty((3 * B, H, x.shape[2], D), device=x.device,
+                             dtype=torch.bfloat16) for x in xs)
+    n = len(xs)
+    with torch.cuda.device(xs[0].device):
+        err = _split_fn()(
+            n, (ctypes.c_void_p * n)(*(x.data_ptr() for x in xs)),
+            (ctypes.c_void_p * n)(*(t.data_ptr() for t in outs)),
+            (ctypes.c_int * n)(*(x.shape[2] for x in xs)),
+            (ctypes.c_longlong * (3 * n))(*(s for x in xs
+                                            for s in x.stride()[:3])),
+            B, H, D, torch.cuda.current_stream(xs[0].device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"split_bf16_terms launch failed: CUDA error {err}")
+    split_bf16_terms.launches += 1
+    return outs
+
+
+split_bf16_terms.launches = 0
 
 
 def _check_operand(name: str, t: torch.Tensor, device, dtype, shape) -> None:
@@ -498,7 +600,7 @@ def _dropout_args(dropout_p: float, seed: int):
 
 def _launch_fwd(q, k, v, causal: bool, bias, out, dropout_p, seed):
     B, H, Lq, Lk, D = _check_shapes(q, k, v)
-    route = kernel_route(q.dtype, D)
+    route = kernel_route(q.dtype, D, "fwd")
     if out is None:
         out = _empty_like_rows(q)
     _check_operand("out", out, q.device, q.dtype, (B, H, Lq, D))
@@ -507,14 +609,16 @@ def _launch_fwd(q, k, v, causal: bool, bias, out, dropout_p, seed):
     bias_ptr = None if bias is None else bias.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if route == "wgmma":
-            err = _fwd_sm90_fn()(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
-                out.data_ptr(), lse.data_ptr(), B, H, Lq, Lk, D,
-                _geometry_words(q, k, v),
-                (ctypes.c_longlong * 6)(*out.stride()[:3], *bias_strides),
-                int(bool(causal)), 1.0 / math.sqrt(D),
-                *_dropout_args(dropout_p, seed), stream)
+        if route in ("wgmma", "wgmma_f32"):
+            fn, ops = _fwd_sm90_fn(), (q, k, v)
+            if route == "wgmma_f32":  # the tensor cores read bf16 terms
+                fn, ops = _fwd_f32_sm90_fn(), split_bf16_terms(q, k, v)
+            err = fn(*(t.data_ptr() for t in ops), bias_ptr,
+                     out.data_ptr(), lse.data_ptr(), B, H, Lq, Lk, D,
+                     _geometry_words(*ops),
+                     (ctypes.c_longlong * 6)(*out.stride()[:3], *bias_strides),
+                     int(bool(causal)), 1.0 / math.sqrt(D),
+                     *_dropout_args(dropout_p, seed), stream)
         else:
             strides = (ctypes.c_longlong * 15)(
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -540,7 +644,8 @@ def flash_attention_fwd(q, k, v, causal: bool = False, bias=None,
     CUDA tensors launch the kernel of :func:`kernel_route` (which raises on
     what it does not take: dtype other than float32/bfloat16, head dim
     outside {64, 128, 256}, a last dimension that is not contiguous, and
-    on the wgmma route q/k/v that TMA cannot read, :func:`tma_geometry`);
+    on the wgmma route q/k/v that TMA cannot read, :func:`tma_geometry`;
+    the ``wgmma_f32`` route first launches :func:`split_bf16_terms`);
     CPU tensors run
     :func:`reference_attention_fwd` with the plain :func:`dropout_mask`.
     ``out`` (optional, ``[B, H, Lq, D]``, any strides with a contiguous
@@ -563,7 +668,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False, bias=None,
 
 
 flash_attention_fwd.launches = 0
-flash_attention_fwd.routes = {"fma": 0, "wgmma": 0}
+flash_attention_fwd.routes = {"fma": 0, "wgmma": 0, "wgmma_f32": 0}
 
 
 def _check_stats(lse, delta, shape, device):
@@ -647,7 +752,7 @@ def flash_attention_bwd_dq(q, k, v, bias, do, lse, delta,
     if emit_ds:
         ds = torch.empty((q.shape[0], q.shape[1], q.shape[2], k.shape[2]),
                          device=q.device, dtype=torch.float32)
-    route = kernel_route(q.dtype, q.shape[-1])
+    route = kernel_route(q.dtype, q.shape[-1], "dq")
     if route == "wgmma":
         _launch_bwd_sm90("dq", q, k, v, bias, do, lse, delta, dq, ds,
                          dq.stride()[:3], causal, dropout_p, seed)
@@ -671,7 +776,7 @@ def flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta,
     ``flash_attention_bwd_dkv.launches`` counts launches, ``.routes`` them
     per route."""
     dk, dv = _empty_like_rows(k), _empty_like_rows(v)
-    route = kernel_route(q.dtype, q.shape[-1])
+    route = kernel_route(q.dtype, q.shape[-1], "dkv")
     if route == "wgmma":
         _launch_bwd_sm90("dkv", q, k, v, bias, do, lse, delta, dk, dv,
                          (*dk.stride()[:3], *dv.stride()[:3]), causal,
@@ -697,10 +802,12 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's ``launches`` and per-route counts to 0."""
+    """Set every kernel wrapper's ``launches`` and per-route counts, and
+    :func:`split_bf16_terms`'s launches, to 0."""
     for w in _WRAPPERS.values():
         w.launches = 0
         w.routes = dict.fromkeys(w.routes, 0)
+    split_bf16_terms.launches = 0
 
 
 def _reduce_dbias(ds, bias):
@@ -726,7 +833,8 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, causal: bool = False,
     want_dbias = bias is not None and bias_grad
     if q.is_cuda:
         do = _kernel_rows(do)
-        if kernel_route(q.dtype, q.shape[-1]) == "wgmma" and not _tma_ok(do):
+        if kernel_route(q.dtype, q.shape[-1], "dq") == "wgmma" \
+                and not _tma_ok(do):
             do = do.contiguous()
         delta = (do.float() * o.float()).sum(-1).contiguous()
         dq, ds = flash_attention_bwd_dq(q, k, v, bias, do, lse, delta,

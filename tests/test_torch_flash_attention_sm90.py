@@ -252,13 +252,18 @@ def test_split_is_closer_to_float32_than_bf16_p():
 
 
 # ------------------------------------------------------------ routing
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 256, "fma"), (torch.float32, 64, "fma"),
-    (torch.float32, 128, "fma"), (torch.float32, 256, "fma"),
+    (torch.bfloat16, 256, "fma"), (torch.float32, 64, "wgmma_f32"),
+    (torch.float32, 128, "wgmma_f32"), (torch.float32, 256, "fma"),
     (torch.float16, 128, "fma")])
-def test_route_is_picked_by_dtype_and_head_dim(dtype, d, route):
-    assert tfa.kernel_route(dtype, d) == route
+def test_route_is_picked_by_dtype_and_head_dim(dtype, d, route, kernel):
+    """bf16 at D 64/128 takes the wgmma kernels; float32 at D 64/128 the
+    wgmma_f32 forward but the FMA dQ and dK/dV; the rest FMA."""
+    if route == "wgmma_f32" and kernel != "fwd":
+        route = "fma"
+    assert tfa.kernel_route(dtype, d, kernel) == route
 
 
 def test_cpu_tensors_launch_nothing():
@@ -268,7 +273,8 @@ def test_cpu_tensors_launch_nothing():
                for a in _qkv(1, 2, 40, 40, 64))
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
     tfa.flash_attention_bwd(q, k, v, None, o, lse, torch.ones_like(o), True)
-    assert tfa.launch_counts() == {"fwd": {"fma": 0, "wgmma": 0},
+    assert tfa.launch_counts() == {"fwd": {"fma": 0, "wgmma": 0,
+                                           "wgmma_f32": 0},
                                    "dq": {"fma": 0, "wgmma": 0},
                                    "dkv": {"fma": 0, "wgmma": 0}}
 
@@ -301,6 +307,7 @@ def test_backward_wrappers_launch_the_route_of_dtype_and_head_dim(
 
 def test_wgmma_sources_are_built_with_the_rest():
     for source in ("flash_attention_fwd_sm90.cu",
+                   "flash_attention_fwd_f32_sm90.cu",
                    "flash_attention_bwd_dq_sm90.cu",
                    "flash_attention_bwd_dkv_sm90.cu"):
         assert source in _build.SOURCES
