@@ -133,15 +133,15 @@ split_terms_kernel(const SplitParams p) {
 }
 
 // ------------------------------------------------------------ the products
-// Issue S (+)= sum over a <= 2 - j of Q_a K_j^T as one committed wgmma group,
-// for the K term tile `tk` (term j) and the resident Q terms (term a at
-// tq + a kTile); the first product of term 0 overwrites S. The caller waits.
-// All products of S have one shape, so a chain of groups on S needs no fence
-// between them.
+// S (+)= sum over a <= 2 - j of Q_a K_j^T, for the K term tile `tk` (term j)
+// and the resident Q terms (term a at tq + a kTile); the first product of
+// the first term overwrites S. Committed and waited for.
 template <int D>
-__device__ __forceinline__ void qk_issue(float (&s)[32], uint32_t tq,
+__device__ __forceinline__ void qk_terms(float (&s)[32], uint32_t tq,
                                          uint32_t tk, int j) {
   constexpr uint32_t kTile = 64 * D * 2;
+  fence_operand(s);
+  wgmma_fence();
 #pragma unroll
   for (int a = 0; a < kSplit; ++a) {
     if (a + j >= kSplit) continue;
@@ -151,16 +151,19 @@ __device__ __forceinline__ void qk_issue(float (&s)[32], uint32_t tq,
                    (j | a | kk) != 0);
   }
   wgmma_commit();
+  wgmma_wait_all();
+  fence_operand(s);
 }
 
-// Issue O += sum over a <= 2 - j of P_a V_j as one committed wgmma group,
-// for the V term tile `tv` (term j) and P's terms as A fragments, f[kk][a]
-// of P's kk-th 16-column slice. The caller waits, and keeps f unchanged
-// until then.
+// O += sum over a <= 2 - j of P_a V_j, for the V term tile `tv` (term j)
+// and P's terms as A fragments, f[kk][a] of P's kk-th 16-column slice.
+// Committed and waited for.
 template <int D>
-__device__ __forceinline__ void pv_issue(float (&o)[D / 2],
+__device__ __forceinline__ void pv_terms(float (&o)[D / 2],
                                          uint32_t (&f)[4][kSplit][4],
                                          uint32_t tv, int j) {
+  fence_operand(o);
+  wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t desc = mnmajor_desc(tv, kk);
@@ -169,6 +172,10 @@ __device__ __forceinline__ void pv_issue(float (&o)[D / 2],
       if (a + j < kSplit) wgmma_rs_tb<D>(o, f[kk][a], desc);
   }
   wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) fence_fragments(f[kk]);
+  fence_operand(o);
 }
 
 // ------------------------------------------------------------ the kernel
@@ -372,31 +379,20 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     // tile addresses are made opaque once per key tile, so the compiler
     // builds each wgmma descriptor where it is used instead of hoisting all
     // of them (Q's three terms alone are 24) out of the loop.
-    // Each term's group is issued before the previous one is waited for,
-    // so the tensor cores do not drain at every ring wait; a ring entry is
-    // released once its group has completed.
     uint32_t tq = base + L::q(0);
     asm volatile("" : "+r"(tq));
-    const int n0 = i * kLoadsPerKeyTile;
     // ---- S = sum of Q_a K_j^T over a + j <= 2
-    fence_operand(sc);
-    wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kSplit; ++j) {
-      const int n = n0 + j;
-      uint32_t tk = base + L::slot(n % kRing);
+      const int n = i * kLoadsPerKeyTile + j;
+      const int s = n % kRing;
+      uint32_t tk = base + L::slot(s);
       asm volatile("" : "+r"(tk));
-      mbar_wait(base + L::full(n % kRing), (n / kRing) & 1);
+      mbar_wait(base + L::full(s), (n / kRing) & 1);
       __syncwarp();
-      qk_issue<D>(sc, tq, tk, j);
-      if (j > 0) {
-        wgmma_wait<1>();
-        mbar_arrive(base + L::empty((n - 1) % kRing));
-      }
+      qk_terms<D>(sc, tq, tk, j);
+      mbar_arrive(base + L::empty(s));
     }
-    wgmma_wait<0>();
-    fence_operand(sc);
-    mbar_arrive(base + L::empty((n0 + kSplit - 1) % kRing));
     softmax(sc, i * 64, alpha0, alpha1);
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj) {
@@ -410,26 +406,17 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       split_slice([&](int e) { return sc[e]; }, kk, f[kk]);
-    fence_operand(o);
-    wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kSplit; ++j) {
-      const int n = n0 + kSplit + j;
-      uint32_t tv = base + L::slot(n % kRing);
+      const int n = i * kLoadsPerKeyTile + kSplit + j;
+      const int s = n % kRing;
+      uint32_t tv = base + L::slot(s);
       asm volatile("" : "+r"(tv));
-      mbar_wait(base + L::full(n % kRing), (n / kRing) & 1);
+      mbar_wait(base + L::full(s), (n / kRing) & 1);
       __syncwarp();
-      pv_issue<D>(o, f, tv, j);
-      if (j > 0) {
-        wgmma_wait<1>();
-        mbar_arrive(base + L::empty((n - 1) % kRing));
-      }
+      pv_terms<D>(o, f, tv, j);
+      mbar_arrive(base + L::empty(s));
     }
-    wgmma_wait<0>();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) fence_fragments(f[kk]);
-    fence_operand(o);
-    mbar_arrive(base + L::empty((n0 + kLoadsPerKeyTile - 1) % kRing));
   }
 
   // ---- epilogue: O = acc / l, LSE = m + log(l)
@@ -468,9 +455,9 @@ cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
 // ------------------------------------------------------------ self-check
 // One warpgroup, the two products of the kernel on float32 A, B of [64, D]
 // given as their bf16 terms ([3, 1, 64, D], from split_terms_kernel):
-//   c1 [64, 64] = A B^T        (qk_issue over the three B terms)
+//   c1 [64, 64] = A B^T        (qk_terms over the three B terms)
 //   c2 [64, D]  = A[:, :64] B  (A's float32 fragments split in registers,
-//                               pv_issue over the three B terms)
+//                               pv_terms over the three B terms)
 // through the same TMA loads of term tiles, descriptors and term pairs as
 // the attention kernel. a: float32 [64, D], contiguous.
 template <int D>
@@ -503,12 +490,8 @@ selfcheck_f32_kernel(const __grid_constant__ CUtensorMap map_a,
   const int r0 = 16 * w + g, r1 = r0 + 8;
 
   float d1[32];
-  fence_operand(d1);
-  wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < kSplit; ++j) qk_issue<D>(d1, tile_a, tile_b + j * kTile, j);
-  wgmma_wait<0>();
-  fence_operand(d1);
+  for (int j = 0; j < kSplit; ++j) qk_terms<D>(d1, tile_a, tile_b + j * kTile, j);
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -526,14 +509,8 @@ selfcheck_f32_kernel(const __grid_constant__ CUtensorMap map_a,
   float d2[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) d2[i] = 0.f;
-  fence_operand(d2);
-  wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < kSplit; ++j) pv_issue<D>(d2, f, tile_b + j * kTile, j);
-  wgmma_wait<0>();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) fence_fragments(f[kk]);
-  fence_operand(d2);
+  for (int j = 0; j < kSplit; ++j) pv_terms<D>(d2, f, tile_b + j * kTile, j);
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
