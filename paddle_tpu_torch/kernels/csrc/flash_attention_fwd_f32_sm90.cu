@@ -193,7 +193,7 @@ struct FwdParams {
 template <int D>
 struct FwdLayout {
   static constexpr uint32_t kTile = 64 * D * 2;  // bytes of one [64, D] tile
-  static constexpr int kRing = D == 64 ? kLoadsPerKeyTile : 3;
+  static constexpr int kRing = D == 64 ? kLoadsPerKeyTile : 4;
   __host__ __device__ static constexpr uint32_t q(int term) {
     return kTile * term;
   }
@@ -208,8 +208,14 @@ struct FwdLayout {
   __host__ __device__ static constexpr uint32_t empty(int s) {
     return bars + 8 * (1 + kRing + s);
   }
-  // + 1024: the base is aligned up to the swizzle atom
-  static constexpr size_t kBytes = bars + 8 * (1 + 2 * kRing) + 1024;
+  static constexpr uint32_t kUsed = bars + 8 * (1 + 2 * kRing);
+  // The base is aligned up to the swizzle atom (1024 bytes). A CTA without
+  // static shared memory gets a dynamic base that is already aligned, so
+  // 896 bytes of slack, not 1024, are set aside for that: it is what lets
+  // two CTAs of 4 ring entries share an SM at D = 128 (2 x (114760 + 896 +
+  // 1024 reserved) of its 233472 bytes). The kernel traps if a base ever
+  // needs more.
+  static constexpr size_t kBytes = kUsed + 896;
 };
 
 // kDropout: the dropout draws are compiled only into the instantiation that
@@ -224,6 +230,7 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   constexpr int kRing = L::kRing;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  if (base + L::kUsed > smem_u32(smem_raw) + L::kBytes) __trap();
 
   // The query tile is the slowest grid dimension, walked from the last:
   // the heaviest causal tiles of every (b, h) start first.
