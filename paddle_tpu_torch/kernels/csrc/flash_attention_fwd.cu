@@ -2,7 +2,10 @@
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py `_fwd_kernel` (:131),
 // launched by `_flash_fwd_impl` (:352, pallas_call at :383), with its
-// in-kernel dropout (`_dropout_mask`, :120; here philox.cuh).
+// in-kernel dropout (`_dropout_mask`, :120; here philox.cuh), at head dim
+// 256. Head dims 64 and 128 run on the tensor cores:
+// flash_attention_fwd_sm90.cu (bf16) and flash_attention_fwd_f32_sm90.cu
+// (float32); the Python wrapper routes by (dtype, D).
 //
 // Computes, per (b, h):  S = Q K^T * scale (+ bias),  causal mask top-left
 // aligned (query i sees key j iff i >= j, masked scores = -1e30 as in the
@@ -14,10 +17,9 @@
 // float32 [B, H, Lq] (the TPU kernel's 128-lane broadcast of LSE was a
 // Mosaic tiling artifact and is not carried over).
 //
-// Bound on an H100: at the serving and training shapes (L = 1024 .. 2048,
-// D = 128, causal) the kernel does 2*Lq*Lk*D*H FLOP on about 4*L*D*H*4
-// bytes, i.e. hundreds of FLOP per byte: it is bound by operations, not by
-// HBM. The operations run on the CUDA cores (67 TFLOP/s float32 peak); bf16
+// Bound on an H100: at L = 1024, D = 256, causal the kernel does
+// 2*Lq*Lk*D*H FLOP on about 4*L*D*H*4 bytes, i.e. hundreds of FLOP per
+// byte: it is bound by operations, not by HBM. The operations run on the CUDA cores (67 TFLOP/s float32 peak); bf16
 // inputs are widened to float32 on load, so they too run at the CUDA-core
 // rate, far from the 989 TFLOP/s bf16 tensor-core bound.
 //
@@ -195,19 +197,9 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                        int Lq, int Lk, const Strides& st, int causal,
                        float scale, const DropoutParams& drop,
                        cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch<T, 64>(q, k, v, bias, o, lse, B, H, Lq, Lk, st, causal,
-                           scale, drop, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, bias, o, lse, B, H, Lq, Lk, st, causal,
-                            scale, drop, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, bias, o, lse, B, H, Lq, Lk, st, causal,
-                            scale, drop, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (D != 256) return cudaErrorInvalidValue;  // 64, 128: the wgmma kernels
+  return launch<T, 256>(q, k, v, bias, o, lse, B, H, Lq, Lk, st, causal,
+                        scale, drop, stream);
 }
 
 // The dropout bits of a window [B, H, rows, cols] (rows from row0, columns
@@ -234,8 +226,8 @@ __global__ void dropout_bits_kernel(uint32_t* out, unsigned long long seed,
 // dtype: 0 = float32, 1 = bfloat16. strides: 15 element strides, the
 // (batch, head, row) strides of q, k, v, o and bias in that order. bias may
 // be null (float32 when given). lse is float32 [B, H, Lq], contiguous.
-// Dropout is on when dropout_enabled is non-zero: keep iff Philox bits >=
-// threshold, kept probabilities times drop_scale.
+// D: 256. Dropout is on when dropout_enabled is non-zero: keep iff Philox
+// bits >= threshold, kept probabilities times drop_scale.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, const void* bias,

@@ -4,8 +4,9 @@ and their plain PyTorch versions (port of
 
 The kernels replace the three Pallas kernels of the reference:
 
-- ``csrc/flash_attention_fwd.cu`` replaces ``_fwd_kernel`` (``:131``):
-  online-softmax attention that emits O and the per-row log-sum-exp;
+- ``csrc/flash_attention_fwd.cu`` replaces ``_fwd_kernel`` (``:131``),
+  now at head dim 256 only: online-softmax attention that emits O and the
+  per-row log-sum-exp;
 - ``csrc/flash_attention_bwd.cu`` replaces ``_bwd_dq_kernel`` (``:198``)
   and ``_bwd_dkv_kernel`` (``:269``): dQ (and dS, the bias gradient before
   its reduction) over query tiles, dK/dV over key tiles;
