@@ -1008,7 +1008,6 @@ def main(argv=None) -> int:
     def fwd_row(name, source, case, launches, path):
         c = fwd[case]
         return dict(name=name, route="cuda", source=src + source,
-                    kernel_route=c.get("route"),
                     replaces=ref + "131", launches=launches, main_path=path,
                     max_abs_err=c["max_abs_err"], ms=c["ms"],
                     ms_range=c["ms_range"], plain_ms=c["plain_ms"],

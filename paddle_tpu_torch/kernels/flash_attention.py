@@ -69,8 +69,8 @@ from . import _build
 
 __all__ = ["SUPPORTED_HEAD_DIMS", "WGMMA_HEAD_DIMS", "kernel_route",
            "tma_geometry", "launch_counts", "reset_launch_counts",
-           "wgmma_selfcheck", "split_bf16_terms", "should_use_flash", "philox_bits",
-           "dropout_bits", "dropout_mask", "flash_attention_fwd",
+           "wgmma_selfcheck", "split_bf16_terms", "should_use_flash",
+           "philox_bits", "dropout_bits", "dropout_mask", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_bwd", "FlashAttention", "flash_attention_bhld",
            "flash_attention_blhd", "reference_attention_bhld",
