@@ -60,7 +60,7 @@ def main(argv=None) -> int:
         q, k, v = cs._views(g, B, L, H, D, torch.float32)
         o, _ = fa.flash_attention_fwd(q, k, v, causal=True)
         o_ref, _ = fa.reference_attention_fwd(q, k, v, causal=True)
-        err = (o - o_ref).abs().max().item()
+        err = float((o - o_ref).abs().max())
         if not err < 1e-4:
             raise AssertionError(f"{name}: max|err| {err} against plain")
         t = cs.timed_in_turns({
