@@ -48,14 +48,19 @@
 // the products use them, K0 K1 K2 V0 V1 V2 for each key tile:
 //   3 entries: 48 + 48 KB (+ 1 KB alignment) = 97 KB, two CTAs per SM
 //              (2 x 98 KB of the SM's 228 KB);
-//   4 entries: 113 KB; two CTAs would need 230 KB: one CTA per SM;
+//   4 entries: 112 KB + 72 bytes of barriers; with the usual 1 KB of
+//              alignment slack two CTAs would need 230 KB, with 896 bytes
+//              (FwdLayout) they fit in 228 KB;
 //   6 entries (a whole key tile in flight): 145 KB, one CTA per SM.
-// Three entries at two CTAs per SM is the choice: the two CTAs interleave, so
-// one's softmax and barrier waits overlap the other's products, the overlap
-// PR 3 measured as the forward's main one. At D = 64 (8 KB tiles) the ring
-// holds a whole key tile: 24 + 48 KB. Registers: O (64 floats a thread at
-// D = 128) and S (32) as in the bf16 kernel, then O and P's terms (48) in
-// the P V phase, within the 168 that two CTAs of 160 threads leave.
+// Two CTAs per SM keep the overlap PR 3 measured as the forward's main one:
+// the two interleave, so one's softmax and barrier waits overlap the other's
+// products. Four entries let the producer run three term tiles ahead; they
+// measured 2 % faster than three (A/B in turns on an H100), and a consumer
+// that held two entries at a time (its next group issued before the last
+// one's wait) 14 % slower. At D = 64 (8 KB tiles) the ring holds a whole
+// key tile: 24 + 48 KB. Registers: O (64 floats a thread at D = 128) and S
+// (32) as in the bf16 kernel, then O and P's terms (48) in the P V phase,
+// within the 168 that two CTAs of 160 threads leave.
 //
 // Design otherwise as flash_attention_fwd_sm90.cu: one CTA per (b, h, 64-row
 // query tile), query tiles walked from the last so the heaviest causal tiles
