@@ -54,32 +54,23 @@
 //   for bit. Dropout draws the same per-element Philox bits as every other
 //   kernel (philox.cuh), so the FMA dQ kernel sees this kernel's mask.
 //
+// The softmax, the epilogue and the launch are shared with the float32
+// forward (flash_fwd_sm90.cuh).
+//
 // The kernel allocates nothing and does not synchronise: the caller passes
 // outputs and PyTorch's current stream.
 
 #define PT_SM90_SELFCHECK
 #include "philox.cuh"
 #include "sm90.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
-using namespace pt_sm90;
+using namespace pt_fwd_sm90;
+using Params = FwdParams<__nv_bfloat16>;
 
 constexpr int kStages = 2;
-constexpr int kConsumers = 128;  // one warpgroup
-constexpr int kThreads = kConsumers + 32;
-constexpr float kMaskValue = -1e30f;  // the TPU kernels' _NEG_INF
-
-struct FwdParams {
-  __nv_bfloat16* o;
-  float* lse;
-  const float* bias;
-  long long o_st[3], bias_st[3];  // element strides of (batch, head, row)
-  int H, Lq, Lk, causal;
-  float scale;
-  DropoutParams drop;
-  TmaPos pos_q, pos_k, pos_v;
-};
 
 template <int D>
 struct FwdLayout {
@@ -118,20 +109,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v,
-                      const FwdParams p) {
+                      const Params p) {
   using L = FwdLayout<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
 
-  // The query tile is the slowest grid dimension, walked from the last:
-  // the heaviest causal tiles of every (b, h) start first.
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int qt = gridDim.z - 1 - blockIdx.z;
-  const int q0 = qt * 64;
-  // causal: keys past the tile's last query row are masked for every row
-  const int k_end = p.causal ? min(p.Lk, q0 + 64) : p.Lk;
-  const int n_kt = (k_end + 63) / 64;
+  const FwdTile c = fwd_tile(p.Lk, p.causal);
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -150,135 +133,29 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     // ---- producer warp: one lane issues every copy
     if (tid == kConsumers) {
       mbar_arrive_expect_tx(base + L::q_full, L::kTile);
-      tma_load_tile<D>(base + L::q, &map_q, base + L::q_full, q0, h, b,
+      tma_load_tile<D>(base + L::q, &map_q, base + L::q_full, c.q0, c.h, c.b,
                        p.pos_q);
-      for (int i = 0; i < n_kt; ++i) {
+      for (int i = 0; i < c.n_kt; ++i) {
         const int s = i % kStages;
         const uint32_t free_phase = ((i / kStages) & 1) ^ 1;
         mbar_wait(base + L::k_empty(s), free_phase);
         mbar_arrive_expect_tx(base + L::k_full(s), L::kTile);
         tma_load_tile<D>(base + L::k(s), &map_k, base + L::k_full(s), i * 64,
-                         h, b, p.pos_k);
+                         c.h, c.b, p.pos_k);
         mbar_wait(base + L::v_empty(s), free_phase);
         mbar_arrive_expect_tx(base + L::v_full(s), L::kTile);
         tma_load_tile<D>(base + L::v(s), &map_v, base + L::v_full(s), i * 64,
-                         h, b, p.pos_v);
+                         c.h, c.b, p.pos_v);
       }
     }
     return;
   }
 
   // ---- consumer warpgroup
-  const int w = tid / 32, g = (tid % 32) / 4, t = tid % 4;
-  const int qi0 = q0 + 16 * w + g;  // this thread's two query rows
-  const int qi1 = qi0 + 8;
-  const float* bias0 = nullptr;
-  const float* bias1 = nullptr;
-  if (p.bias != nullptr) {
-    const float* bb = p.bias + b * p.bias_st[0] + h * p.bias_st[1];
-    bias0 = bb + (long long)min(qi0, p.Lq - 1) * p.bias_st[2];
-    bias1 = bb + (long long)min(qi1, p.Lq - 1) * p.bias_st[2];
-  }
-
+  FwdRows rows(p, c, tid);
   float o[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-  float m0 = kMaskValue, m1 = kMaskValue, l0 = 0.f, l1 = 0.f;
-
-  // Scale, bias, masks, dropout and the online-softmax statistics of the
-  // score tile `x` of keys k0 .. k0 + 63, in place (x becomes P); returns
-  // the factors exp(m_old - m_new) by which O must be rescaled.
-  auto softmax = [&](float (&x)[32], int k0, float& alpha0, float& alpha1) {
-    // Only the diagonal tile and the ragged last tile need the masks: the
-    // test is uniform over the CTA, so the other tiles skip them.
-    const bool edge = k0 + 64 > p.Lk || (p.causal && k0 + 63 > q0);
-    if (edge) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = e < 2 ? qi0 : qi1;
-          const int kj = k0 + 8 * j + 2 * t + (e & 1);
-          float v = x[4 * j + e] * p.scale;
-          if (kj >= p.Lk) {
-            v = -INFINITY;  // ragged edge: probability exactly 0
-          } else {
-            if (bias0 != nullptr && qi < p.Lq)
-              v += (e < 2 ? bias0 : bias1)[kj];
-            if (p.causal && qi < kj) v = kMaskValue;
-          }
-          x[4 * j + e] = v;
-        }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float v = x[4 * j + e] * p.scale;
-          if (bias0 != nullptr && (e < 2 ? qi0 : qi1) < p.Lq)
-            v += (e < 2 ? bias0 : bias1)[k0 + 8 * j + 2 * t + (e & 1)];
-          x[4 * j + e] = v;
-        }
-    }
-    // row maxima over the 4 lanes that hold a row
-    float mx0 = kMaskValue, mx1 = kMaskValue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(x[4 * j], x[4 * j + 1]));
-      mx1 = fmaxf(mx1, fmaxf(x[4 * j + 2], x[4 * j + 3]));
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    alpha0 = expf(m0 - mn0);
-    alpha1 = expf(m1 - mn1);
-    // P = exp(S - m); l takes the undropped probabilities
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pr = expf(x[4 * j + e] - (e < 2 ? mn0 : mn1));
-        if (e < 2)
-          ps0 += pr;
-        else
-          ps1 += pr;
-        x[4 * j + e] = pr;
-      }
-    if constexpr (kDropout) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = e < 2 ? qi0 : qi1;
-          const int kj = k0 + 8 * j + 2 * t + (e & 1);
-          if (qi < p.Lq && kj < p.Lk)
-            x[4 * j + e] *= dropout_multiplier(p.drop, b, h, qi, kj);
-        }
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      ps0 += __shfl_xor_sync(0xffffffffu, ps0, off);
-      ps1 += __shfl_xor_sync(0xffffffffu, ps1, off);
-    }
-    l0 = alpha0 * l0 + ps0;
-    l1 = alpha1 * l1 + ps1;
-    m0 = mn0;
-    m1 = mn1;
-  };
-
-  auto rescale = [&](float alpha0, float alpha1) {
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[4 * j] *= alpha0;
-      o[4 * j + 1] *= alpha0;
-      o[4 * j + 2] *= alpha1;
-      o[4 * j + 3] *= alpha1;
-    }
-  };
 
   // One key tile at a time: S = Q K^T, softmax, O += P V. The two CTAs an
   // SM holds (168 registers a thread) interleave, so one's softmax overlaps
@@ -288,15 +165,15 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   float sc[32];
   float alpha0, alpha1;
   mbar_wait(base + L::q_full, 0);
-  for (int i = 0; i < n_kt; ++i) {
+  for (int i = 0; i < c.n_kt; ++i) {
     const int s = i % kStages;
     const uint32_t phase = (i / kStages) & 1;
     mbar_wait(base + L::k_full(s), phase);
     __syncwarp();
     wgmma_kmajor_product<D>(sc, base + L::q, base + L::k(s));
     mbar_arrive(base + L::k_empty(s));
-    softmax(sc, i * 64, alpha0, alpha1);
-    rescale(alpha0, alpha1);
+    rows.softmax<kDropout>(p, c, sc, i * 64, alpha0, alpha1);
+    rescale<D>(o, alpha0, alpha1);
     // ---- O += P V, P as its three bf16 terms
     mbar_wait(base + L::v_full(s), phase);
     __syncwarp();
@@ -304,39 +181,15 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                                   base + L::v(s));
     mbar_arrive(base + L::v_empty(s));
   }
-
-  // ---- epilogue: O = acc / l, LSE = m + log(l)
-  const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
-  const float inv0 = 1.f / lc0, inv1 = 1.f / lc1;
-  __nv_bfloat16* ob = p.o + b * p.o_st[0] + h * p.o_st[1];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = r == 0 ? qi0 : qi1;
-    if (qi >= p.Lq) continue;
-    const float inv = r == 0 ? inv0 : inv1;
-    __nv_bfloat16* orow = ob + (long long)qi * p.o_st[2];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
-          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
-                                o[4 * j + 2 * r + 1] * inv);
-    if (t == 0)
-      p.lse[((long long)b * p.H + h) * p.Lq + qi] =
-          (r == 0 ? m0 : m1) + logf(r == 0 ? lc0 : lc1);
-  }
+  rows.store<D>(p, c, o);
 }
 
 template <int D, bool kDropout>
-cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk,
-                   const CUtensorMap& mv, const FwdParams& p, int B,
+cudaError_t launch(const CUtensorMap (&m)[3], const Params& p,
                    cudaStream_t stream) {
-  auto kernel = flash_fwd_sm90_kernel<D, kDropout>;
   static unsigned smem_set = 0;
-  cudaError_t err = allow_smem(kernel, FwdLayout<D>::kBytes, smem_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(p.H, B, (p.Lq + 63) / 64);
-  kernel<<<grid, kThreads, FwdLayout<D>::kBytes, stream>>>(mq, mk, mv, p);
-  return cudaGetLastError();
+  return launch_fwd(flash_fwd_sm90_kernel<D, kDropout>, FwdLayout<D>::kBytes,
+                    smem_set, m, p, stream);
 }
 
 }  // namespace
@@ -353,34 +206,18 @@ extern "C" int pt_flash_attention_fwd_sm90(
     const unsigned long long* geo, const long long* strides, int causal,
     float scale, int dropout_enabled, unsigned long long seed,
     unsigned int threshold, float drop_scale, void* stream) {
-  FwdParams p;
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.lse = static_cast<float*>(lse);
-  p.bias = static_cast<const float*>(bias);
-  for (int i = 0; i < 3; ++i) {
-    p.o_st[i] = strides[i];
-    p.bias_st[i] = strides[3 + i];
-  }
-  p.H = H;
-  p.Lq = Lq;
-  p.Lk = Lk;
-  p.causal = causal;
-  p.scale = scale;
-  p.drop = DropoutParams{seed, threshold, drop_scale, dropout_enabled};
-  CUtensorMap mq, mk, mv;
-  cudaError_t err = encode_tensor_map(&mq, &p.pos_q, q, geo);
-  if (err == cudaSuccess)
-    err = encode_tensor_map(&mk, &p.pos_k, k, geo + kGeoWords);
-  if (err == cudaSuccess)
-    err = encode_tensor_map(&mv, &p.pos_v, v, geo + 2 * kGeoWords);
+  Params p;
+  CUtensorMap m[3];
+  const cudaError_t err = make_fwd_params(
+      p, m, q, k, v, bias, o, lse, B, H, Lq, Lk, geo, strides, causal, scale,
+      dropout_enabled, seed, threshold, drop_scale);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = dropout_enabled != 0;
   if (D == 64)
-    return (int)(drop ? launch<64, true>(mq, mk, mv, p, B, s)
-                      : launch<64, false>(mq, mk, mv, p, B, s));
+    return (int)(drop ? launch<64, true>(m, p, s) : launch<64, false>(m, p, s));
   if (D == 128)
-    return (int)(drop ? launch<128, true>(mq, mk, mv, p, B, s)
-                      : launch<128, false>(mq, mk, mv, p, B, s));
+    return (int)(drop ? launch<128, true>(m, p, s)
+                      : launch<128, false>(m, p, s));
   return (int)cudaErrorInvalidValue;
 }

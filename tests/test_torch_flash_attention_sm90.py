@@ -410,7 +410,8 @@ def test_cuda_wgmma_forward_matches_plain(cuda_device, d, causal, lq, lk,
     tfa.reset_launch_counts()
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, bias=b)
     torch.cuda.synchronize()
-    assert tfa.launch_counts()["fwd"] == {"fma": 0, "wgmma": 1}
+    assert tfa.launch_counts()["fwd"] == {"fma": 0, "wgmma": 1,
+                                           "wgmma_f32": 0}
     o_ref, lse_ref = tfa.reference_attention_fwd(q, k, v, causal=causal,
                                                  bias=b)
     limit = 2 * _bf16_ulp(o_ref) + 1e-6
