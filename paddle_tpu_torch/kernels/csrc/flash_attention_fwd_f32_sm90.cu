@@ -73,9 +73,7 @@
 // replays bit for bit, and dropout draws the per-element Philox bits every
 // kernel draws (philox.cuh), so the FMA backward sees this kernel's mask.
 // The two kernels share the softmax, the epilogue and the launch
-// (flash_fwd_sm90.cuh); this one is a kernel of its own, not a term-count
-// parameter of the bf16 one, because its ring, producer and product loops
-// differ from the bf16 kernel's in every line.
+// (flash_fwd_sm90.cuh, which says why they stay two kernels).
 //
 // The kernels allocate nothing and do not synchronise: the caller passes the
 // term buffers, the outputs and PyTorch's current stream.
