@@ -9,7 +9,7 @@ exits non-zero:
 1. device    - the card (nvidia-smi name and power limit), torch and CUDA.
 2. build     - compiles every CUDA source of the port from this checkout
                (nvcc, one library per source, all started together), fails
-               on a register spill in the four wgmma kernels, and holds the
+               on a register spill in the five wgmma sources, and holds the
                wgmma/TMA self-check (a 64 x 64 x D product through each
                descriptor form, in bf16 and through the float32 forward's
                three-term products) against a float64 product.
@@ -21,9 +21,11 @@ exits non-zero:
                equal its plain version bit for bit; wgmma for bf16 at D = 64
                and 128; FMA at D = 256; each case checked for its route),
                the dQ and dK/dV backward kernels
-               (FMA for float32 and D = 256, wgmma for bf16 at D = 64 and
-               128, each case checked for both routes; dS as the bias
-               gradient, also causal; the wgmma dQ replayed bit for bit),
+               (wgmma for bf16 and wgmma_f32 for float32 at D = 64 and 128,
+               FMA at D = 256, each case checked for both routes; dS as the
+               bias gradient, also causal; the wgmma dQ and the wgmma_f32
+               dQ and dK/dV replayed bit for bit; the whole backward wrapper,
+               with Delta and the split pre-pass, timed beside SDPA's),
                and dropout (the CUDA Philox mask against the plain one bit
                for bit, its keep rate, replay of a fixed seed, and forward
                and backward at p = 0.1 given the same mask). Times the
@@ -46,8 +48,9 @@ exits non-zero:
                exactly 48 wgmma forward, 24 wgmma dQ and 24 wgmma dK/dV
                launches per step, none on an FMA kernel. Then
                one float32 forward and backward of the same configuration
-               with the kernels (wgmma_f32 forward, FMA dQ and dK/dV) and
-               with plain attention (loss and
+               with the kernels (exactly 48 wgmma_f32 forward, 24 dQ and 24
+               dK/dV launches, and 96 of the split, none on an FMA kernel)
+               and with plain attention (loss and
                per-parameter gradients within tolerance), and a 2-layer
                full-width bf16 dropout run on the wgmma kernels that
                replays bit for bit from its seed.
@@ -268,16 +271,21 @@ def attention_bound_ms(B, H, Lq, Lk, D, causal, dtype_bytes, bias_bytes,
 
 
 def bwd_bound_ms(kernel, B, H, Lq, Lk, D, causal, dtype_bytes, bias_bytes,
-                 ds_bytes, tensor_cores: bool):
+                 ds_bytes, tensor_cores: bool, term_pairs: int = 1):
     """The least time an H100 could take for one backward kernel: the
     larger of its bytes (q, k, v, dO, lse, delta and bias read once; dQ
     and dS, or dK and dV, written once) over HBM bandwidth and its FLOPs
     (per kept pair 6D for dQ: Q K^T, dO V^T, dS K; 8D for dK/dV: those two
-    again, P^T dO and dS^T Q) over the peak of the input type."""
+    again, P^T dO and dS^T Q; times ``term_pairs``) over the peak of the
+    units that do them. Float32 operands on the bf16 tensor cores
+    (``wgmma_f32``) take 6 term pairs per product and read q, k, v and dO
+    as their three bf16 terms too (6 bytes an element)."""
     per_pair = 6 if kernel == "dq" else 8
-    flops = per_pair * D * kept_pairs(Lq, Lk, causal) * B * H
+    flops = per_pair * D * kept_pairs(Lq, Lk, causal) * B * H * term_pairs
     nbytes = (B * H * (2 * Lq + 2 * Lk) * D * dtype_bytes   # q, do, k, v
               + 2 * B * H * Lq * 4 + bias_bytes)              # lse, delta
+    if term_pairs > 1:
+        nbytes += B * H * (2 * Lq + 2 * Lk) * D * 3 * 2     # their terms
     if kernel == "dq":
         nbytes += B * H * Lq * D * dtype_bytes + ds_bytes
     else:
@@ -315,7 +323,8 @@ def phase_build(seed: int) -> None:
     emit("build", seconds=time.perf_counter() - t0, libraries=libs,
          ptxas=[ln for lines in ptxas.values() for ln in lines])
     spills = [ln for s in (fa._FWD_SM90_SOURCE, fa._FWD_F32_SM90_SOURCE,
-                           fa._DQ_SM90_SOURCE, fa._DKV_SM90_SOURCE)
+                           fa._DQ_SM90_SOURCE, fa._DKV_SM90_SOURCE,
+                           fa._BWD_F32_SM90_SOURCE)
               for ln in ptxas[s]
               if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
     if spills:
@@ -489,14 +498,15 @@ def _bwd_cases(g):
         return torch.randn(*shape, generator=g, device="cuda")
 
     cases = []
-    for dtype, route in ((torch.bfloat16, "wgmma"), (torch.float32, "fma")):
+    for dtype, route in ((torch.bfloat16, "wgmma"),
+                         (torch.float32, "wgmma_f32")):
         # the training step's shape; q/k/v views of the fused qkv and dO a
         # view of the [B, L, H, D] gradient, as autograd hands them over
         q, k, v = _views(g, 2, 1024, 16, 128, dtype)
         do = rn(2, 1024, 16, 128).to(dtype).transpose(1, 2)
         cases.append((f"train_{_dtype_name(q)}_B2_L1024", q, k, v, do, True,
                       None, route))
-    for dtype, D, route in ((torch.float32, 128, "fma"),
+    for dtype, D, route in ((torch.float32, 128, "wgmma_f32"),
                             (torch.bfloat16, 64, "wgmma")):
         q, k, v = (rn(1, 16, n, D).to(dtype) for n in (384, 640, 640))
         cases.append((f"bias_noncausal_{_dtype_name(q)}_d{D}_Lq384_Lk640", q,
@@ -504,27 +514,56 @@ def _bwd_cases(g):
                       rn(1, 16, 384, 640), route))
     # a trained bias under the causal mask: dS of the key tiles no row of a
     # query tile sees must come back as zeros
-    q, k, v, do = (rn(1, 16, 1024, 128).to(torch.bfloat16) for _ in range(4))
-    cases.append(("causal_bias_bfloat16_L1024", q, k, v, do, True,
-                  rn(1, 16, 1024, 1024), "wgmma"))
-    for dtype, route in ((torch.float32, "fma"), (torch.bfloat16, "wgmma")):
+    for dtype, route in ((torch.bfloat16, "wgmma"),
+                         (torch.float32, "wgmma_f32")):
+        q, k, v, do = (rn(1, 16, 1024, 128).to(dtype) for _ in range(4))
+        cases.append((f"causal_bias_{_dtype_name(q)}_L1024", q, k, v, do,
+                      True, rn(1, 16, 1024, 1024), route))
+    for dtype, route in ((torch.float32, "wgmma_f32"),
+                         (torch.bfloat16, "wgmma")):
         q, k, v = _views(g, 1, 1500, 16, 128, dtype)
         cases.append((f"ragged_causal_{_dtype_name(q)}_L1500", q, k, v,
                       rn(1, 1500, 16, 128).to(dtype).transpose(1, 2), True,
                       None, route))
-    for dtype, D, H, route in ((torch.float32, 64, 16, "fma"),
-                               (torch.float32, 256, 8, "fma"),
-                               (torch.bfloat16, 64, 16, "wgmma"),
-                               (torch.bfloat16, 256, 8, "fma")):
-        q, k, v, do = (rn(1, H, 1024, D).to(dtype) for _ in range(4))
-        cases.append((f"d{D}_causal_{_dtype_name(q)}_L1024", q, k, v, do, True,
-                      None, route))
+    # D = 64 at the training batch (bench_gpt_primary's head dim), and D = 256
+    for dtype, D, B, H, route in ((torch.float32, 64, 2, 16, "wgmma_f32"),
+                                  (torch.float32, 256, 1, 8, "fma"),
+                                  (torch.bfloat16, 64, 2, 16, "wgmma"),
+                                  (torch.bfloat16, 256, 1, 8, "fma")):
+        q, k, v, do = (rn(B, H, 1024, D).to(dtype) for _ in range(4))
+        cases.append((f"d{D}_causal_{_dtype_name(q)}_B{B}_L1024", q, k, v, do,
+                      True, None, route))
     return cases
 
 
+# the float32 cases at which the FMA dQ and dK/dV kernels, which the
+# wgmma_f32 ones replace at D = 64 and 128, are timed beside them
+FMA_COMPARED = ("train_float32_B2_L1024", "d64_causal_float32_B2_L1024")
+
+
+def _fma_bwd_fns(fa, q, k, v, bias, do, lse, delta, causal, emit_ds):
+    """The FMA dQ and dK/dV kernels on the same inputs, launched directly
+    (the route sends float32 at D = 64 and 128 elsewhere): timing only."""
+    import torch
+
+    def dq_fma():
+        ds = (torch.empty(*q.shape[:3], k.shape[2], device=q.device)
+              if emit_ds else None)
+        fa._launch_bwd("dq", q, k, v, bias, do, lse, delta,
+                       {"dq": fa._empty_like_rows(q)}, ds, causal, 0.0, 0)
+
+    def dkv_fma():
+        fa._launch_bwd("dkv", q, k, v, bias, do, lse, delta,
+                       {"dk": fa._empty_like_rows(k),
+                        "dv": fa._empty_like_rows(v)}, None, causal, 0.0, 0)
+
+    return {"dq_fma": dq_fma, "dkv_fma": dkv_fma}
+
+
 def phase_backward(seed: int) -> dict:
-    """The dQ and dK/dV kernels against the plain backward, and the wgmma
-    dQ replayed bit for bit."""
+    """The dQ and dK/dV kernels against the plain backward, the
+    tensor-core kernels replayed bit for bit, and each kernel, the split
+    pre-pass and the whole backward wrapper timed beside SDPA's backward."""
     import torch
 
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -552,23 +591,39 @@ def phase_backward(seed: int) -> dict:
                                     bwd_tolerance(ref))
         delta = (do.float() * o.float()).sum(-1).contiguous()
         emit_ds = bias is not None
-        do_k = do if route == "fma" or fa._tma_ok(do) else do.contiguous()
-        if route == "wgmma":
-            # no atomics: the same inputs give the same dQ (and dS)
-            first, again = (
-                [x for x in fa.flash_attention_bwd_dq(
-                    q, k, v, bias, do_k, lse, delta, causal, emit_ds=emit_ds)
-                 if x is not None] for _ in range(2))
+        do_k = do if route != "wgmma" or fa._tma_ok(do) else do.contiguous()
+        # the wgmma_f32 kernels read the split's terms: timed apart from it
+        terms = fa._backward_terms(q, k, v, do_k) if route == "wgmma_f32" \
+            else None
+
+        def dq_call():
+            return fa.flash_attention_bwd_dq(q, k, v, bias, do_k, lse, delta,
+                                             causal, emit_ds=emit_ds,
+                                             terms=terms)
+
+        def dkv_call():
+            return fa.flash_attention_bwd_dkv(q, k, v, bias, do_k, lse, delta,
+                                              causal, terms=terms)
+
+        if route != "fma":
+            # no atomics: the same inputs give the same dQ (and dS), dK, dV
+            calls = (dq_call, dkv_call) if route == "wgmma_f32" else (dq_call,)
+            first, again = ([x for c in calls for x in c() if x is not None]
+                            for _ in range(2))
             if not all(torch.equal(a, b) for a, b in zip(first, again)):
-                raise AssertionError(f"{name}: the wgmma dQ does not replay "
-                                     f"bit for bit")
+                raise AssertionError(f"{name}: the {route} backward does not "
+                                     f"replay bit for bit")
         sdpa_fwd, sdpa_fwd_bwd = _sdpa_fns(q, k, v, do, bias, causal)
-        t = timed_in_turns({
-            "dq": lambda: fa.flash_attention_bwd_dq(
-                q, k, v, bias, do_k, lse, delta, causal, emit_ds=emit_ds),
-            "dkv": lambda: fa.flash_attention_bwd_dkv(
-                q, k, v, bias, do_k, lse, delta, causal),
-            "sdpa_fwd": sdpa_fwd, "sdpa_fwd_bwd": sdpa_fwd_bwd})
+        fns = {"dq": dq_call, "dkv": dkv_call,
+               "bwd": lambda: fa.flash_attention_bwd(q, k, v, bias, o, lse,
+                                                     do, causal),
+               "sdpa_fwd": sdpa_fwd, "sdpa_fwd_bwd": sdpa_fwd_bwd}
+        if route == "wgmma_f32":
+            fns["split"] = lambda: fa._backward_terms(q, k, v, do_k)
+        if name in FMA_COMPARED:
+            fns.update(_fma_bwd_fns(fa, q, k, v, bias, do_k, lse, delta,
+                                    causal, emit_ds))
+        t = timed_in_turns(fns)
         plain_ms = cuda_ms(lambda: fa.reference_attention_bwd(
             q, k, v, bias, o, lse, do, causal), iters=5)
         library_ms = t["sdpa_fwd_bwd"]["median"] - t["sdpa_fwd"]["median"]
@@ -576,20 +631,27 @@ def phase_backward(seed: int) -> dict:
         Lk = k.shape[2]
         common = (B, H, Lq, Lk, D, causal, q.element_size(),
                   0 if bias is None else bias.numel() * 4)
-        tc = q.dtype == torch.bfloat16
+        tc = route != "fma"
+        pairs = 6 if route == "wgmma_f32" else 1
         dq_bound, dq_by = bwd_bound_ms("dq", *common,
                                        B * H * Lq * Lk * 4 if emit_ds else 0,
-                                       tensor_cores=tc)
-        dkv_bound, dkv_by = bwd_bound_ms("dkv", *common, 0, tensor_cores=tc)
+                                       tensor_cores=tc, term_pairs=pairs)
+        dkv_bound, dkv_by = bwd_bound_ms("dkv", *common, 0, tensor_cores=tc,
+                                         term_pairs=pairs)
         dq_ms, dkv_ms = t["dq"]["median"], t["dkv"]["median"]
         results[name] = dict(
             shape=[B, H, Lq, Lk, D], dtype=_dtype_name(q), causal=causal,
             bias=bias is not None, route=route, errors=errs,
-            dq_replay_bit_exact=route == "wgmma" or None,
-            tol=("2 bf16 ulps + 1e-5 of max" if tc else
-                 f"rtol {BWD_RTOL} atol {BWD_ATOL}"),
+            replay_bit_exact=route != "fma" or None,
+            tol=("2 bf16 ulps + 1e-5 of max" if q.dtype == torch.bfloat16
+                 else f"rtol {BWD_RTOL} atol {BWD_ATOL}"),
             dq_ms=dq_ms, dq_ms_range=[t["dq"]["min"], t["dq"]["max"]],
             dkv_ms=dkv_ms, dkv_ms_range=[t["dkv"]["min"], t["dkv"]["max"]],
+            bwd_ms=t["bwd"]["median"],
+            bwd_ms_range=[t["bwd"]["min"], t["bwd"]["max"]],
+            split_ms=t["split"]["median"] if "split" in t else None,
+            **{f"{w}_fma_ms": t[f"{w}_fma"]["median"] for w in ("dq", "dkv")
+               if f"{w}_fma" in t},
             dq_bound_ms=dq_bound, dq_bound_by=dq_by,
             dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
             plain_ms=plain_ms, library_ms=library_ms,
@@ -685,7 +747,7 @@ def phase_dropout(seed: int) -> dict:
         for key, x, y in zip(("dq", "dk", "dv"), got, ref):
             errs[key] = check_close(f"{name} {key}", x, y, bwd_tolerance(y))
         delta = (do.float() * o.float()).sum(-1).contiguous()
-        do_k = do if routes["dq"] == "fma" or fa._tma_ok(do) else do.contiguous()
+        do_k = do if routes["dq"] != "wgmma" or fa._tma_ok(do) else do.contiguous()
         out[name] = dict(
             errors=errs, routes=routes,
             fwd_ms=cuda_ms(lambda: fa.flash_attention_fwd(
@@ -805,7 +867,8 @@ def phase_serving(seed: int) -> dict:
 
 
 _COUNT_NAMES = ("fwd_fma", "fwd_wgmma", "fwd_wgmma_f32", "dq_fma",
-                "dq_wgmma", "dkv_fma", "dkv_wgmma")
+                "dq_wgmma", "dq_wgmma_f32", "dkv_fma", "dkv_wgmma",
+                "dkv_wgmma_f32")
 
 
 def _counts(fa):
@@ -871,7 +934,8 @@ def phase_training(seed: int) -> dict:
     ids = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
     # bf16 at D = 128: the wgmma forward (and its recompute), dQ and dK/dV
-    need = (0, 2 * cfg.num_layers, 0, 0, cfg.num_layers, 0, cfg.num_layers)
+    need = (0, 2 * cfg.num_layers, 0, 0, cfg.num_layers, 0, 0,
+            cfg.num_layers, 0)
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms, per_step = [], [], []
     fa.reset_launch_counts()
@@ -932,14 +996,17 @@ def phase_train_parity(seed: int) -> dict:
 
     fa.reset_launch_counts()
     loss_k, grads_k = run(True)
-    launches = _counts(fa)
+    launches, split_launches = _counts(fa), fa.split_bf16_terms.launches
     loss_p, grads_p = run(False)
     model.cfg.use_flash_attention = True
-    # float32: the wgmma_f32 forward (and its recompute), FMA dQ and dK/dV
-    if launches != (0, 0, 2 * cfg.num_layers, cfg.num_layers, 0,
-                    cfg.num_layers, 0):
+    # float32 at D = 128: the wgmma_f32 forward (and its recompute), dQ and
+    # dK/dV; the split once per forward and twice per backward (q, k, v;
+    # dO)
+    n = cfg.num_layers
+    if launches != (0, 0, 2 * n, 0, 0, n, 0, 0, n) or split_launches != 4 * n:
         raise AssertionError(f"float32 kernel run launched "
-                             f"{dict(zip(_COUNT_NAMES, launches))}")
+                             f"{dict(zip(_COUNT_NAMES, launches))} and the "
+                             f"split {split_launches} times")
     rel = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
            for a, b in zip(grads_k, grads_p)]
     worst = max(rel)
@@ -951,7 +1018,8 @@ def phase_train_parity(seed: int) -> dict:
     out = dict(dtype="float32", loss_kernel=loss_k, loss_plain=loss_p,
                grad_rel_l2_max=worst, grad_rel_l2_worst_param=names[rel.index(worst)],
                tol=dict(loss_rtol=TRAIN_LOSS_RTOL, grad_rel_l2=TRAIN_GRAD_REL_L2),
-               launches=dict(zip(_COUNT_NAMES, launches)))
+               launches=dict(zip(_COUNT_NAMES, launches)),
+               split_launches=split_launches)
     emit("train_parity", **out)
     return out
 
@@ -977,7 +1045,7 @@ def phase_dropout_replay(seed: int) -> dict:
     launches = _counts(fa)
     other = losses(seed + 1)
     # 2 runs x 2 steps x 2 layers x (forward + recompute), bf16: wgmma
-    need = (0, 16, 0, 0, 8, 0, 8)
+    need = (0, 16, 0, 0, 8, 0, 0, 8, 0)
     if a != b or launches != need or other == a:
         raise AssertionError(f"dropout replay: {a} vs {b} (other seed "
                              f"{other}), launches {launches} != {need}")
@@ -1047,6 +1115,7 @@ def main(argv=None) -> int:
                     dtype=c["dtype"], causal=c["causal"])
 
     step = "training (bf16 O2 step)"
+    f32_step = "training (float32 parity run)"
     prefill = "serving (float32 prefill)"
     kernels = [
         fwd_row("flash_attention_fwd_f32_sm90",
@@ -1060,20 +1129,28 @@ def main(argv=None) -> int:
                 "d256_causal_f32_L1024", 0, None),
         fwd_row("flash_attention_fwd_sm90", "flash_attention_fwd_sm90.cu",
                 "train_bf16_B2_L1024", train["launches"]["fwd_wgmma"], step),
+        # no main path runs a backward at D = 256 since float32 training
+        # moved to wgmma_f32: 0 launches there, timed at its own case
         bwd_row("flash_attention_bwd_dq", "flash_attention_bwd.cu", "dq",
-                "train_float32_B2_L1024", parity["launches"]["dq_fma"],
-                "float32 training parity"),
+                "d256_causal_float32_B1_L1024", 0, None),
         bwd_row("flash_attention_bwd_dq_sm90",
                 "flash_attention_bwd_dq_sm90.cu", "dq",
                 "train_bfloat16_B2_L1024", train["launches"]["dq_wgmma"],
                 step),
+        bwd_row("flash_attention_bwd_dq_f32_sm90",
+                "flash_attention_bwd_f32_sm90.cu", "dq",
+                "train_float32_B2_L1024", parity["launches"]["dq_wgmma_f32"],
+                f32_step),
         bwd_row("flash_attention_bwd_dkv", "flash_attention_bwd.cu", "dkv",
-                "train_float32_B2_L1024", parity["launches"]["dkv_fma"],
-                "float32 training parity"),
+                "d256_causal_float32_B1_L1024", 0, None),
         bwd_row("flash_attention_bwd_dkv_sm90",
                 "flash_attention_bwd_dkv_sm90.cu", "dkv",
                 "train_bfloat16_B2_L1024", train["launches"]["dkv_wgmma"],
                 step),
+        bwd_row("flash_attention_bwd_dkv_f32_sm90",
+                "flash_attention_bwd_f32_sm90.cu", "dkv",
+                "train_float32_B2_L1024", parity["launches"]["dkv_wgmma_f32"],
+                f32_step),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

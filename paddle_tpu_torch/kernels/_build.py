@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
            "flash_attention_fwd_sm90.cu", "flash_attention_fwd_f32_sm90.cu",
            "flash_attention_bwd_dq_sm90.cu",
-           "flash_attention_bwd_dkv_sm90.cu")
+           "flash_attention_bwd_dkv_sm90.cu", "flash_attention_bwd_f32_sm90.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

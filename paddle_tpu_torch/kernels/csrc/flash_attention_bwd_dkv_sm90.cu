@@ -62,33 +62,25 @@
 
 #include "philox.cuh"
 #include "sm90.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
-using namespace pt_sm90;
+using namespace pt_bwd_sm90;
+using DkvParams = BwdParams<__nv_bfloat16>;
 
 constexpr int kStages = 2;
 constexpr int kGroups = 2;  // consumer warpgroups, 64 key rows each
-constexpr int kConsumers = 128 * kGroups;
-constexpr int kThreads = kConsumers + 128;  // + one producer warpgroup
+constexpr int kDkvConsumers = 128 * kGroups;
+constexpr int kThreads = kDkvConsumers + 128;  // + one producer warpgroup
 // Registers a thread: a CTA of 384 threads launches with 168 each (65536 /
 // 384); the producer warpgroup gives 128 of them back (setmaxnreg), which
 // is exactly what lets the 256 consumer threads, holding dK, dV, a score
 // tile and split fragments, grow to 232.
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
-static_assert((168 - kProducerRegs) * 128 >= (kConsumerRegs - 168) * kConsumers,
+static_assert((168 - kProducerRegs) * 128 >= (kConsumerRegs - 168) * kDkvConsumers,
               "the producer must free what the consumers take");
-
-struct DkvParams {
-  __nv_bfloat16 *dk, *dv;
-  const float *bias, *lse, *delta;
-  long long dk_st[3], dv_st[3], bias_st[3];  // (batch, head, row) strides
-  int H, Lq, Lk, causal;
-  float scale;
-  DropoutParams drop;
-  TmaPos pos_q, pos_k, pos_v, pos_do;
-};
 
 template <int D>
 struct DkvLayout {
@@ -110,9 +102,9 @@ struct DkvLayout {
     return kRing + 512 * s;
   }
   // each consumer thread's 32 values of P^T and its dropout keep bits,
-  // parked while dP^T is made (word e of thread tid at e * kConsumers + tid)
+  // parked while dP^T is made (word e of thread tid at e * kDkvConsumers + tid)
   static constexpr uint32_t stash = kRing + 512 * kStages;
-  static constexpr uint32_t bars = stash + 4 * 33 * kConsumers;
+  static constexpr uint32_t bars = stash + 4 * 33 * kDkvConsumers;
   static constexpr uint32_t kv_full = bars;
   __host__ __device__ static constexpr uint32_t full(int s) {
     return bars + 8 * (1 + s);
@@ -154,18 +146,18 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_init(base + L::kv_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(base + L::full(s), 1 + 32);
-      mbar_init(base + L::empty(s), kConsumers);
+      mbar_init(base + L::empty(s), kDkvConsumers);
     }
     fence_barrier_init();
   }
   __syncthreads();
 
-  if (tid >= kConsumers) {
+  if (tid >= kDkvConsumers) {
     // ---- producer warpgroup: its first warp works (lane 0 issues the TMA
     // copies, all 32 lanes copy the tile's LSE and Delta rows); the other
     // three only give their registers back
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    const int lane = tid - kConsumers;
+    const int lane = tid - kDkvConsumers;
     if (lane >= 32) return;
     const long long row_base = ((long long)b * p.H + h) * p.Lq;
     if (lane == 0) {
@@ -203,12 +195,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     const int wg = tid / 128;
     const int kw0 = k0 + 64 * wg;
     const uint32_t tile_k = base + L::k(wg), tile_v = base + L::v(wg);
-    const int w = (tid % 128) / 32, g = (tid % 32) / 4, t = tid % 4;
-    const int kj0 = kw0 + 16 * w + g;  // this thread's two key rows
-    const int kj1 = kj0 + 8;
-    const float* biasb =
-        p.bias == nullptr ? nullptr
-                          : p.bias + b * p.bias_st[0] + h * p.bias_st[1];
+    const DkvRows rows(p, b, h, kw0, tid);
 
     float dk[D / 2], dv[D / 2];
 #pragma unroll
@@ -230,45 +217,15 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       // the Philox words are drawn once and no float mask stays live),
       // drawn before the tile is waited for
       uint32_t keep = 0xffffffffu;
-      if constexpr (kDropout) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qi = q0 + 8 * j + 2 * t + (e & 1);
-            const int kj = e < 2 ? kj0 : kj1;
-            if (qi < p.Lq && kj < p.Lk &&
-                dropout_multiplier(p.drop, b, h, qi, kj) == 0.f)
-              keep &= ~(1u << (4 * j + e));
-          }
-      }
+      if constexpr (kDropout) keep = rows.keep_bits(p, b, h, q0);
       mbar_wait(base + L::full(s), (i / kStages) & 1);
       __syncwarp();
 
       // ---- P^T = exp(K Q^T * scale + bias - LSE), 0 where masked
       const float* lse_s = stats_ptr + L::stats(s) / 4;
-      const float* delta_s = lse_s + 64;
       float st[32];
       wgmma_kmajor_product<D>(st, tile_k, base + L::q(s));
-      // Only the diagonal tile and ragged tiles need the masks; the test is
-      // uniform over the CTA, so the other tiles take a branch without them.
-      const bool edge = q0 + 64 > p.Lq || kw0 + 64 > p.Lk ||
-                        (p.causal && q0 < kw0 + 63);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 8 * j + 2 * t + (e & 1);
-          const int qi = q0 + c;
-          const int kj = e < 2 ? kj0 : kj1;
-          float pr = 0.f;
-          if (!edge || !(qi >= p.Lq || kj >= p.Lk || (p.causal && qi < kj))) {
-            float x = st[4 * j + e] * p.scale;
-            if (biasb != nullptr) x += biasb[(long long)qi * p.bias_st[2] + kj];
-            pr = expf(x - lse_s[c]);
-          }
-          st[4 * j + e] = pr;
-        }
+      rows.probabilities(p, st, q0, kw0, lse_s);
       const float kept = kDropout ? p.drop.scale : 1.f;
 
       // ---- dV += (P M)^T dO, (P M)^T made slice by slice
@@ -279,60 +236,34 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       // and dV live, holding both score tiles would spill
       float* stash = reinterpret_cast<float*>(smem + L::stash) + tid;
 #pragma unroll
-      for (int e = 0; e < 32; ++e) stash[e * kConsumers] = st[e];
+      for (int e = 0; e < 32; ++e) stash[e * kDkvConsumers] = st[e];
       if constexpr (kDropout)
-        reinterpret_cast<uint32_t*>(stash)[32 * kConsumers] = keep;
+        reinterpret_cast<uint32_t*>(stash)[32 * kDkvConsumers] = keep;
 
       // ---- dS^T = P^T (V dO^T M - Delta);  dK += dS^T Q
       float dpt[32];
       wgmma_kmajor_product<D>(dpt, tile_v, base + L::dout(s));
       if constexpr (kDropout)
-        keep = reinterpret_cast<const uint32_t*>(stash)[32 * kConsumers];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * j + e;
-          dpt[i] = stash[i * kConsumers] *
-                   (dpt[i] * mul(i) - delta_s[8 * j + 2 * t + (e & 1)]);
-        }
+        keep = reinterpret_cast<const uint32_t*>(stash)[32 * kDkvConsumers];
+      rows.grad_scores([&](int e) { return stash[e * kDkvConsumers]; }, dpt,
+                       keep, kept, lse_s + 64);
       wgmma_split_product<D, true>(dk, [&](int e) { return dpt[e]; },
                                    base + L::q(s));
       mbar_arrive(base + L::empty(s));
     }
 
     // ---- dK * scale and dV, bf16, through their strides
-    __nv_bfloat16* dkb = p.dk + b * p.dk_st[0] + h * p.dk_st[1];
-    __nv_bfloat16* dvb = p.dv + b * p.dv_st[0] + h * p.dv_st[1];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int kj = r == 0 ? kj0 : kj1;
-      if (kj >= p.Lk) continue;
-      __nv_bfloat16* krow = dkb + (long long)kj * p.dk_st[2];
-      __nv_bfloat16* vrow = dvb + (long long)kj * p.dv_st[2];
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const int c = 8 * j + 2 * t;
-        *reinterpret_cast<__nv_bfloat162*>(krow + c) = __floats2bfloat162_rn(
-            dk[4 * j + 2 * r] * p.scale, dk[4 * j + 2 * r + 1] * p.scale);
-        *reinterpret_cast<__nv_bfloat162*>(vrow + c) = __floats2bfloat162_rn(
-            dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
-      }
-    }
+    rows.store<D>(p, b, h, dk, dv);
   }
 }
 
 template <int D, bool kDropout>
-cudaError_t launch(const CUtensorMap (&maps)[4], const DkvParams& p, int B,
+cudaError_t launch(const CUtensorMap (&maps)[4], const DkvParams& p,
                    cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_sm90_kernel<D, kDropout>;
   static unsigned smem_set = 0;
-  cudaError_t err = allow_smem(kernel, DkvLayout<D>::kBytes, smem_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(p.H, B, (p.Lk + 64 * kGroups - 1) / (64 * kGroups));
-  kernel<<<grid, kThreads, DkvLayout<D>::kBytes, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], p);
-  return cudaGetLastError();
+  return launch_bwd(flash_bwd_dkv_sm90_kernel<D, kDropout>, kThreads,
+                    DkvLayout<D>::kBytes, smem_set, maps, p,
+                    (p.Lk + 64 * kGroups - 1) / (64 * kGroups), stream);
 }
 
 }  // namespace
@@ -352,37 +283,18 @@ extern "C" int pt_flash_attention_bwd_dkv_sm90(
     unsigned long long seed, unsigned int threshold, float drop_scale,
     void* stream) {
   DkvParams p;
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  p.bias = static_cast<const float*>(bias);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  for (int i = 0; i < 3; ++i) {
-    p.dk_st[i] = strides[i];
-    p.dv_st[i] = strides[3 + i];
-    p.bias_st[i] = strides[6 + i];
-  }
-  p.H = H;
-  p.Lq = Lq;
-  p.Lk = Lk;
-  p.causal = causal;
-  p.scale = scale;
-  p.drop = DropoutParams{seed, threshold, drop_scale, dropout_enabled};
   CUtensorMap maps[4];
-  TmaPos* pos[4] = {&p.pos_q, &p.pos_k, &p.pos_v, &p.pos_do};
-  const void* ptrs[4] = {q, k, v, dout};
-  for (int i = 0; i < 4; ++i) {
-    const cudaError_t err =
-        encode_tensor_map(&maps[i], pos[i], ptrs[i], geo + i * kGeoWords);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = make_bwd_params(
+      p, maps, 2, q, k, v, bias, dout, lse, delta, dk, dv, B, H, Lq, Lk, geo,
+      strides, causal, scale, dropout_enabled, seed, threshold, drop_scale);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = dropout_enabled != 0;
   if (D == 64)
-    return (int)(drop ? launch<64, true>(maps, p, B, s)
-                      : launch<64, false>(maps, p, B, s));
+    return (int)(drop ? launch<64, true>(maps, p, s)
+                      : launch<64, false>(maps, p, s));
   if (D == 128)
-    return (int)(drop ? launch<128, true>(maps, p, B, s)
-                      : launch<128, false>(maps, p, B, s));
+    return (int)(drop ? launch<128, true>(maps, p, s)
+                      : launch<128, false>(maps, p, s));
   return (int)cudaErrorInvalidValue;
 }

@@ -66,25 +66,15 @@
 
 #include "philox.cuh"
 #include "sm90.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
-using namespace pt_sm90;
+using namespace pt_bwd_sm90;
+using DqParams = BwdParams<__nv_bfloat16>;
 
 constexpr int kStages = 2;
-constexpr int kConsumers = 128;              // one warpgroup, 64 query rows
-constexpr int kThreads = kConsumers + 32;    // and a producer warp
-
-struct DqParams {
-  __nv_bfloat16* dq;
-  float* ds;  // null unless dS is asked for
-  const float *bias, *lse, *delta;
-  long long dq_st[3], bias_st[3];  // (batch, head, row) element strides
-  int H, Lq, Lk, causal;
-  float scale;
-  DropoutParams drop;
-  TmaPos pos_q, pos_k, pos_v, pos_do;
-};
+constexpr int kThreads = kConsumers + 32;  // one warpgroup and a producer warp
 
 template <int D>
 struct DqLayout {
@@ -174,22 +164,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 
   // ---- consumer warpgroup: query rows q0 .. q0 + 63
   const uint32_t tile_q = base + L::q, tile_do = base + L::dout;
-  const int w = tid / 32, g = (tid % 32) / 4, t = tid % 4;
-  const int qi0 = q0 + 16 * w + g;  // this thread's two query rows
-  const int qi1 = qi0 + 8;
-  const long long row_base = ((long long)b * p.H + h) * p.Lq;
-  const float lse0 = qi0 < p.Lq ? p.lse[row_base + qi0] : 0.f;
-  const float lse1 = qi1 < p.Lq ? p.lse[row_base + qi1] : 0.f;
-  const float dl0 = qi0 < p.Lq ? p.delta[row_base + qi0] : 0.f;
-  const float dl1 = qi1 < p.Lq ? p.delta[row_base + qi1] : 0.f;
-  const float* bias0 = nullptr;
-  const float* bias1 = nullptr;
-  if (p.bias != nullptr) {
-    const float* bb = p.bias + b * p.bias_st[0] + h * p.bias_st[1];
-    bias0 = bb + (long long)min(qi0, p.Lq - 1) * p.bias_st[2];
-    bias1 = bb + (long long)min(qi1, p.Lq - 1) * p.bias_st[2];
-  }
-  float* const dsb = p.ds == nullptr ? nullptr : p.ds + row_base * p.Lk;
+  const DqRows rows(p, b, h, q0, tid);
 
   float dq[D / 2];
 #pragma unroll
@@ -203,16 +178,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     // the dropout keep bits of this thread's 32 elements (one register),
     // drawn before the tile is waited for
     uint32_t keep = 0xffffffffu;
-    if constexpr (kDropout) {
-#pragma unroll
-      for (int e = 0; e < 32; ++e) {
-        const int qi = (e & 3) < 2 ? qi0 : qi1;
-        const int kj = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
-        if (qi < p.Lq && kj < p.Lk &&
-            dropout_multiplier(p.drop, b, h, qi, kj) == 0.f)
-          keep &= ~(1u << e);
-      }
-    }
+    if constexpr (kDropout) keep = rows.keep_bits(p, b, h, k0);
     // The tiles' addresses, made opaque to the compiler once per key tile:
     // otherwise it builds every wgmma descriptor of Q, dO and both ring
     // stages once, ahead of the loop, and holds them (about 100 registers,
@@ -222,43 +188,12 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
              tv = base + L::v(s);
     asm volatile("" : "+r"(tq), "+r"(tdo), "+r"(tk), "+r"(tv));
 
-    // ---- S = Q K^T
+    // ---- S = Q K^T, then P
     mbar_wait(base + L::k_full(s), phase);
     __syncwarp();
     float sc[32], dp[32];
     wgmma_kmajor_product<D>(sc, tq, tk);
-
-    // ---- P = exp(S * scale + bias - LSE), 0 where masked. Only the
-    // diagonal tile and the ragged last tile take the mask tests: the test
-    // is uniform over the CTA. Rows past Lq need none: a row of dS reaches
-    // only its own row of dQ, and neither is stored for them.
-    const bool edge = k0 + 64 > p.Lk || (p.causal && k0 + 63 > q0);
-    if (edge) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = e < 2 ? qi0 : qi1;
-          const int kj = k0 + 8 * j + 2 * t + (e & 1);
-          float pr = 0.f;
-          if (!(qi >= p.Lq || kj >= p.Lk || (p.causal && qi < kj))) {
-            float x = sc[4 * j + e] * p.scale;
-            if (bias0 != nullptr) x += (e < 2 ? bias0 : bias1)[kj];
-            pr = expf(x - (e < 2 ? lse0 : lse1));
-          }
-          sc[4 * j + e] = pr;
-        }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kj = k0 + 8 * j + 2 * t + (e & 1);
-          float x = sc[4 * j + e] * p.scale;
-          if (bias0 != nullptr) x += (e < 2 ? bias0 : bias1)[kj];
-          sc[4 * j + e] = expf(x - (e < 2 ? lse0 : lse1));
-        }
-    }
+    rows.probabilities(p, sc, q0, k0);
 
     // ---- dP = dO V^T, after P: S and dP in flight together would hold 32
     // more registers while P is made, and measured slower
@@ -268,88 +203,28 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_arrive(base + L::v_empty(s));
 
     // ---- dS = P (dP M - Delta), in place of dP
-    const float kept = kDropout ? p.drop.scale : 1.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i2 = 4 * j + e;
-        const float mul = (keep >> i2) & 1u ? kept : 0.f;
-        dp[i2] = sc[i2] * (dp[i2] * mul - (e < 2 ? dl0 : dl1));
-      }
-    if (dsb != nullptr) {
-      // float32 dS: each row's 8 pairs of this thread, masked at the edges
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int qi = r == 0 ? qi0 : qi1;
-        if (qi >= p.Lq) continue;
-        float* row = dsb + (long long)qi * p.Lk;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = k0 + 8 * j + 2 * t;
-          const float x0 = dp[4 * j + 2 * r], x1 = dp[4 * j + 2 * r + 1];
-          if ((p.Lk & 1) == 0) {
-            if (c < p.Lk) *reinterpret_cast<float2*>(row + c) = make_float2(x0, x1);
-          } else {
-            if (c < p.Lk) row[c] = x0;
-            if (c + 1 < p.Lk) row[c + 1] = x1;
-          }
-        }
-      }
-    }
+    rows.grad_scores(sc, dp, keep, kDropout ? p.drop.scale : 1.f);
+    if (rows.dsb != nullptr) rows.store_ds(dp, k0, p.Lq, p.Lk);
 
     // ---- dQ += dS K, dS as its three bf16 terms
     wgmma_split_product<D, true>(dq, [&](int e) { return dp[e]; }, tk);
     mbar_arrive(base + L::k_empty(s));
   }
 
-  // ---- causal dS: the key tiles no row of this tile sees are zeros
-  if (dsb != nullptr && p.causal && n_kt * 64 < p.Lk) {
-    const int c0 = n_kt * 64;
-    const int rows = min(64, p.Lq - q0);
-    if ((p.Lk & 3) == 0) {
-      const int n4 = (p.Lk - c0) / 4;
-      for (int idx = tid; idx < rows * n4; idx += 128) {
-        const int r = idx / n4;
-        *reinterpret_cast<float4*>(dsb + (long long)(q0 + r) * p.Lk + c0 +
-                                   4 * (idx - r * n4)) =
-            make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    } else {
-      const int n = p.Lk - c0;
-      for (int idx = tid; idx < rows * n; idx += 128) {
-        const int r = idx / n;
-        dsb[(long long)(q0 + r) * p.Lk + c0 + idx - r * n] = 0.f;
-      }
-    }
-  }
-
+  if (rows.dsb != nullptr && p.causal && n_kt * 64 < p.Lk)
+    rows.zero_unseen_ds(q0, n_kt, p.Lq, p.Lk, tid);
   // ---- dQ * scale, bf16, through its strides
-  __nv_bfloat16* dqb = p.dq + b * p.dq_st[0] + h * p.dq_st[1];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = r == 0 ? qi0 : qi1;
-    if (qi >= p.Lq) continue;
-    __nv_bfloat16* row = dqb + (long long)qi * p.dq_st[2];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * t) =
-          __floats2bfloat162_rn(dq[4 * j + 2 * r] * p.scale,
-                                dq[4 * j + 2 * r + 1] * p.scale);
-  }
+  store_rows<D>(p.out0 + b * p.out0_st[0] + h * p.out0_st[1], p.out0_st[2],
+                rows.qi0, rows.qi1, p.Lq, rows.t, dq, p.scale);
 }
 
 template <int D, bool kDropout>
-cudaError_t launch(const CUtensorMap (&maps)[4], const DqParams& p, int B,
+cudaError_t launch(const CUtensorMap (&maps)[4], const DqParams& p,
                    cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_sm90_kernel<D, kDropout>;
   static unsigned smem_set = 0;
-  cudaError_t err = allow_smem(kernel, DqLayout<D>::kBytes, smem_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(p.H, B, (p.Lq + 63) / 64);
-  kernel<<<grid, kThreads, DqLayout<D>::kBytes, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], p);
-  return cudaGetLastError();
+  return launch_bwd(flash_bwd_dq_sm90_kernel<D, kDropout>, kThreads,
+                    DqLayout<D>::kBytes, smem_set, maps, p, (p.Lq + 63) / 64,
+                    stream);
 }
 
 }  // namespace
@@ -369,36 +244,18 @@ extern "C" int pt_flash_attention_bwd_dq_sm90(
     unsigned long long seed, unsigned int threshold, float drop_scale,
     void* stream) {
   DqParams p;
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.ds = static_cast<float*>(ds);
-  p.bias = static_cast<const float*>(bias);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  for (int i = 0; i < 3; ++i) {
-    p.dq_st[i] = strides[i];
-    p.bias_st[i] = strides[3 + i];
-  }
-  p.H = H;
-  p.Lq = Lq;
-  p.Lk = Lk;
-  p.causal = causal;
-  p.scale = scale;
-  p.drop = DropoutParams{seed, threshold, drop_scale, dropout_enabled};
   CUtensorMap maps[4];
-  TmaPos* pos[4] = {&p.pos_q, &p.pos_k, &p.pos_v, &p.pos_do};
-  const void* ptrs[4] = {q, k, v, dout};
-  for (int i = 0; i < 4; ++i) {
-    const cudaError_t err =
-        encode_tensor_map(&maps[i], pos[i], ptrs[i], geo + i * kGeoWords);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = make_bwd_params(
+      p, maps, 1, q, k, v, bias, dout, lse, delta, dq, ds, B, H, Lq, Lk, geo,
+      strides, causal, scale, dropout_enabled, seed, threshold, drop_scale);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = dropout_enabled != 0;
   if (D == 64)
-    return (int)(drop ? launch<64, true>(maps, p, B, s)
-                      : launch<64, false>(maps, p, B, s));
+    return (int)(drop ? launch<64, true>(maps, p, s)
+                      : launch<64, false>(maps, p, s));
   if (D == 128)
-    return (int)(drop ? launch<128, true>(maps, p, B, s)
-                      : launch<128, false>(maps, p, B, s));
+    return (int)(drop ? launch<128, true>(maps, p, s)
+                      : launch<128, false>(maps, p, s));
   return (int)cudaErrorInvalidValue;
 }

@@ -138,52 +138,6 @@ split_terms_kernel(const SplitParams p) {
   }
 }
 
-// ------------------------------------------------------------ the products
-// S (+)= sum over a <= 2 - j of Q_a K_j^T, for the K term tile `tk` (term j)
-// and the resident Q terms (term a at tq + a kTile); the first product of
-// the first term overwrites S. Committed and waited for.
-template <int D>
-__device__ __forceinline__ void qk_terms(float (&s)[32], uint32_t tq,
-                                         uint32_t tk, int j) {
-  constexpr uint32_t kTile = 64 * D * 2;
-  fence_operand(s);
-  wgmma_fence();
-#pragma unroll
-  for (int a = 0; a < kSplit; ++a) {
-    if (a + j >= kSplit) continue;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(s, kmajor_desc(tq + a * kTile, kk), kmajor_desc(tk, kk),
-                   (j | a | kk) != 0);
-  }
-  wgmma_commit();
-  wgmma_wait_all();
-  fence_operand(s);
-}
-
-// O += sum over a <= 2 - j of P_a V_j, for the V term tile `tv` (term j)
-// and P's terms as A fragments, f[kk][a] of P's kk-th 16-column slice.
-// Committed and waited for.
-template <int D>
-__device__ __forceinline__ void pv_terms(float (&o)[D / 2],
-                                         uint32_t (&f)[4][kSplit][4],
-                                         uint32_t tv, int j) {
-  fence_operand(o);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t desc = mnmajor_desc(tv, kk);
-#pragma unroll
-    for (int a = 0; a < kSplit; ++a)
-      if (a + j < kSplit) wgmma_rs_tb<D>(o, f[kk][a], desc);
-  }
-  wgmma_commit();
-  wgmma_wait_all();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) fence_fragments(f[kk]);
-  fence_operand(o);
-}
-
 // ------------------------------------------------------------ the kernel
 template <int D>
 struct FwdLayout {
@@ -287,16 +241,14 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       asm volatile("" : "+r"(tk));
       mbar_wait(base + L::full(s), (n / kRing) & 1);
       __syncwarp();
-      qk_terms<D>(sc, tq, tk, j);
+      terms_abt<D, false>(sc, tq, tk, j, j == 0);
       mbar_arrive(base + L::empty(s));
     }
     rows.softmax<kDropout>(p, c, sc, i * 64, alpha0, alpha1);
     rescale<D>(o, alpha0, alpha1);
     // ---- O += sum of P_a V_j over a + j <= 2, P's terms made once
     uint32_t f[4][kSplit][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      split_slice([&](int e) { return sc[e]; }, kk, f[kk]);
+    split_all([&](int e) { return sc[e]; }, f);
 #pragma unroll
     for (int j = 0; j < kSplit; ++j) {
       const int n = i * kLoadsPerKeyTile + kSplit + j;
@@ -305,7 +257,7 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       asm volatile("" : "+r"(tv));
       mbar_wait(base + L::full(s), (n / kRing) & 1);
       __syncwarp();
-      pv_terms<D>(o, f, tv, j);
+      terms_fb<D, false>(o, f, tv, j);
       mbar_arrive(base + L::empty(s));
     }
   }
@@ -324,9 +276,9 @@ cudaError_t launch(const CUtensorMap (&m)[3], const Params& p,
 // ------------------------------------------------------------ self-check
 // One warpgroup, the two products of the kernel on float32 A, B of [64, D]
 // given as their bf16 terms ([3, 1, 64, D], from split_terms_kernel):
-//   c1 [64, 64] = A B^T        (qk_terms over the three B terms)
+//   c1 [64, 64] = A B^T        (terms_abt over the three B terms)
 //   c2 [64, D]  = A[:, :64] B  (A's float32 fragments split in registers,
-//                               pv_terms over the three B terms)
+//                               terms_fb over the three B terms)
 // through the same TMA loads of term tiles, descriptors and term pairs as
 // the attention kernel. a: float32 [64, D], contiguous.
 template <int D>
@@ -360,7 +312,8 @@ selfcheck_f32_kernel(const __grid_constant__ CUtensorMap map_a,
 
   float d1[32];
 #pragma unroll
-  for (int j = 0; j < kSplit; ++j) qk_terms<D>(d1, tile_a, tile_b + j * kTile, j);
+  for (int j = 0; j < kSplit; ++j)
+    terms_abt<D, false>(d1, tile_a, tile_b + j * kTile, j, j == 0);
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -373,13 +326,13 @@ selfcheck_f32_kernel(const __grid_constant__ CUtensorMap map_a,
     return a[((i & 2) ? r1 : r0) * D + 8 * (i / 4) + 2 * t + (i & 1)];
   };
   uint32_t f[4][kSplit][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) split_slice(elem, kk, f[kk]);
+  split_all(elem, f);
   float d2[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) d2[i] = 0.f;
 #pragma unroll
-  for (int j = 0; j < kSplit; ++j) pv_terms<D>(d2, f, tile_b + j * kTile, j);
+  for (int j = 0; j < kSplit; ++j)
+    terms_fb<D, false>(d2, f, tile_b + j * kTile, j);
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll

@@ -228,16 +228,6 @@ struct FwdRows {
             (r == 0 ? m0 : m1) + logf(r == 0 ? lc0 : lc1);
     }
   }
-
- private:
-  __device__ __forceinline__ static void store_pair(__nv_bfloat16* dst,
-                                                    float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-  }
-  __device__ __forceinline__ static void store_pair(float* dst, float a,
-                                                    float b) {
-    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-  }
 };
 
 // O *= exp(m_old - m_new), row by row, in the accumulator layout.

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks for the bf16 tensor-core kernels: TMA tile
+// Hopper (sm_90a) building blocks for the tensor-core kernels: TMA tile
 // loads completed on mbarriers, wgmma shared-memory descriptors, the three
 // wgmma forms the attention kernels use, the split of a float32
-// fragment, and the host-side encoding of a tensor map. All device code is
-// inline PTX (no CUTLASS/CuTe).
+// fragment, the term-pair products of the float32 (wgmma_f32) kernels, and
+// the host-side encoding of a tensor map. All device code is inline PTX (no
+// CUTLASS/CuTe).
 //
 // Shared-memory tile layout. Every operand tile is 64 rows of a [rows, D]
 // bf16 matrix (D = 64 or 128), loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B.
@@ -268,6 +269,15 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Two adjacent output values, as bf16 or float32.
+__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+
 // The float32 operands the kernels make (P, dS) enter bf16 wgmmas as the
 // sum of kSplit bf16 terms: x = t0 + t1 + t2 + e with t0 = bf16(x),
 // t1 = bf16(x - t0), t2 = bf16(x - t0 - t1). Each difference is exact in
@@ -371,6 +381,116 @@ __device__ __forceinline__ void wgmma_kmajor_product(float (&d)[32],
   wgmma_commit();
   wgmma_wait_all();
   fence_operand(d);
+}
+
+// ------------------------------------------------------------ term pairs
+// The float32-operand products of the wgmma_f32 kernels. Each float32
+// operand enters as its kSplit bf16 terms: the resident operand's as
+// consecutive [64, D] tiles (term a at ta + a * 64 * D * 2), the streamed
+// operand's one term tile at a time (term j at tb), and a float32 matrix a
+// kernel makes as register fragments split by split_slice. A product keeps
+// the term pairs a + j <= 2 (six of nine): the dropped pairs are of order
+// 2^-24 |x| |y|, float32's own rounding.
+//
+// Order. The tensor cores' float32 accumulation truncates each partial sum
+// to the accumulator's magnitude, so every product added to a large
+// accumulator loses up to an ulp of it. Where a product cancels (dP against
+// Delta in the backward: a row that sees few keys gives dP - Delta near 0),
+// adding the five small pairs after the main one cost 48 such ulps (2.9e-5
+// on dS; the reference's atol is 2e-5). The backward kernels therefore
+// stream the terms j = 2, 1, 0, and every product issues a = 2 - j down to
+// 0: the small pairs accumulate first, at their own magnitude, and only the
+// main pair's D / 16 steps see the full one. The forward keeps the order it
+// was measured with (kSmallFirst = false: j = 0, 1, 2 and a = 0 up), which
+// holds the reference's forward tolerance at half its limit.
+
+// Issue S (+)= sum over a <= 2 - j of A_a B_j^T (K-major [64, D] tiles,
+// m64n64k16 wgmmas), the largest a first (kSmallFirst) or a = 0 first;
+// with `first` the first product overwrites S. Neither fences nor waits.
+template <int D, bool kSmallFirst = true>
+__device__ __forceinline__ void issue_terms_abt(float (&s)[32], uint32_t ta,
+                                                uint32_t tb, int j,
+                                                bool first) {
+  constexpr uint32_t kTile = 64 * D * 2;
+#pragma unroll
+  for (int i = 0; i < kSplit; ++i) {
+    const int a = kSmallFirst ? kSplit - 1 - i : i;
+    if (a + j >= kSplit) continue;
+    const int a_first = kSmallFirst ? kSplit - 1 - j : 0;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, kmajor_desc(ta + a * kTile, kk), kmajor_desc(tb, kk),
+                   !(first && a == a_first && kk == 0));
+  }
+}
+
+// Issue O += sum over a <= 2 - j of F_a B_j over the 16-column slices
+// K0 .. K0 + NK - 1 of F, whose terms are A fragments (f[i][a]: term a of
+// slice K0 + i), B_j the transposed (MN-major) [64, D] term tile at tb.
+// Neither fences nor waits.
+template <int D, int K0 = 0, int NK = 4, bool kSmallFirst = true>
+__device__ __forceinline__ void issue_terms_fb(
+    float (&o)[D / 2], const uint32_t (&f)[NK][kSplit][4], uint32_t tb,
+    int j) {
+#pragma unroll
+  for (int i = 0; i < NK; ++i) {
+    const uint64_t desc = mnmajor_desc(tb, K0 + i);
+#pragma unroll
+    for (int n = 0; n < kSplit; ++n) {
+      const int a = kSmallFirst ? kSplit - 1 - n : n;
+      if (a + j < kSplit) wgmma_rs_tb<D>(o, f[i][a], desc);
+    }
+  }
+}
+
+// Keep the fragments of the terms a <= 2 - j live (and unchanged) until the
+// wgmmas that read them have been waited for (see fence_fragments).
+template <int NK>
+__device__ __forceinline__ void fence_terms(uint32_t (&f)[NK][kSplit][4],
+                                            int j) {
+#pragma unroll
+  for (int i = 0; i < NK; ++i)
+#pragma unroll
+    for (int a = 0; a < kSplit; ++a)
+      if (a + j < kSplit)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(f[i][a][r])::"memory");
+}
+
+// issue_terms_abt, committed and waited for.
+template <int D, bool kSmallFirst = true>
+__device__ __forceinline__ void terms_abt(float (&s)[32], uint32_t ta,
+                                          uint32_t tb, int j, bool first) {
+  fence_operand(s);
+  wgmma_fence();
+  issue_terms_abt<D, kSmallFirst>(s, ta, tb, j, first);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_operand(s);
+}
+
+// issue_terms_fb over all four slices, committed and waited for.
+template <int D, bool kSmallFirst = true>
+__device__ __forceinline__ void terms_fb(float (&o)[D / 2],
+                                         uint32_t (&f)[4][kSplit][4],
+                                         uint32_t tb, int j) {
+  fence_operand(o);
+  wgmma_fence();
+  issue_terms_fb<D, 0, 4, kSmallFirst>(o, f, tb, j);
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) fence_fragments(f[kk]);
+  fence_operand(o);
+}
+
+// The A fragments f[i][a] of the 16-column slices K0 .. K0 + NK - 1 of a
+// float32 64 x 64 matrix whose element i is `a(i)` (split_slice per slice).
+template <int K0 = 0, int NK = 4, typename Elem>
+__device__ __forceinline__ void split_all(Elem a,
+                                          uint32_t (&f)[NK][kSplit][4]) {
+#pragma unroll
+  for (int i = 0; i < NK; ++i) split_slice(a, K0 + i, f[i]);
 }
 
 // ------------------------------------------------------------ host side

@@ -22,6 +22,10 @@ The kernels replace the three Pallas kernels of the reference:
   tensor cores: a pre-pass (:func:`split_bf16_terms`) splits Q, K and V
   into three bf16 terms each, P is split in registers, and each product
   keeps the six term pairs ``i + j <= 2``;
+- ``csrc/flash_attention_bwd_f32_sm90.cu`` replaces dQ and dK/dV again
+  for float32 inputs at head dims 64 and 128 (float32 training) in the
+  same way: Q, K, V and dO arrive as their three bf16 terms, P M and dS
+  are split in registers, six term pairs per product;
 - ``csrc/philox.cuh`` replaces the in-kernel dropout ``_dropout_mask``
   (``:120``): Philox4x32-10 bits keyed per element by (seed, b, h, row,
   col), so the three kernels regenerate one mask although they tile
@@ -39,8 +43,8 @@ runs the plain version (that is what the CPU tests exercise), and given
 CUDA tensors it launches the kernel or raises. Among the kernels the
 route is picked by (dtype, head dim, kernel) alone (:func:`kernel_route`):
 bf16 at D in {64, 128} takes the ``wgmma`` forward, dQ and dK/dV kernels,
-float32 at D in {64, 128} the ``wgmma_f32`` forward and the ``fma`` dQ and
-dK/dV, every other input the ``fma`` ones. Each wrapper
+float32 at D in {64, 128} the ``wgmma_f32`` ones, every other input (D =
+256) the ``fma`` ones. Each wrapper
 counts its launches in ``<wrapper>.launches`` and per route in
 ``<wrapper>.routes`` (:func:`launch_counts`).
 
@@ -84,6 +88,7 @@ _FWD_SM90_SOURCE = "flash_attention_fwd_sm90.cu"
 _FWD_F32_SM90_SOURCE = "flash_attention_fwd_f32_sm90.cu"
 _DQ_SM90_SOURCE = "flash_attention_bwd_dq_sm90.cu"
 _DKV_SM90_SOURCE = "flash_attention_bwd_dkv_sm90.cu"
+_BWD_F32_SM90_SOURCE = "flash_attention_bwd_f32_sm90.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE_ROWS = 64  # rows of every TMA box (csrc/sm90.cuh)
 
@@ -91,15 +96,15 @@ _TILE_ROWS = 64  # rows of every TMA box (csrc/sm90.cuh)
 def kernel_route(dtype: torch.dtype, head_dim: int, kernel: str) -> str:
     """Which kernel a CUDA input of ``dtype`` and ``head_dim`` takes for
     ``kernel`` ("fwd", "dq" or "dkv"): at D in :data:`WGMMA_HEAD_DIMS`,
-    ``"wgmma"`` (the sm_90a tensor-core kernels) for bf16 and, for the
-    float32 forward, ``"wgmma_f32"`` (its operands as three bf16 terms
-    each); ``"fma"`` for everything else."""
+    ``"wgmma"`` (the sm_90a tensor-core kernels) for bf16 and
+    ``"wgmma_f32"`` (the same tensor cores, each float32 operand as three
+    bf16 terms) for float32; ``"fma"`` for everything else."""
     if kernel not in ("fwd", "dq", "dkv"):
         raise ValueError(f"kernel must be fwd, dq or dkv, got {kernel!r}")
     if head_dim in WGMMA_HEAD_DIMS:
         if dtype == torch.bfloat16:
             return "wgmma"
-        if dtype == torch.float32 and kernel == "fwd":
+        if dtype == torch.float32:
             return "wgmma_f32"
     return "fma"
 
@@ -402,11 +407,15 @@ def _split_fn():
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_sm90_fn(which: str):
-    """The typed entry ``pt_flash_attention_bwd_{which}_sm90`` ("dq" or
-    "dkv")."""
-    source = _DQ_SM90_SOURCE if which == "dq" else _DKV_SM90_SOURCE
-    fn = getattr(_build.load(source), f"pt_flash_attention_bwd_{which}_sm90")
+def _bwd_sm90_fn(which: str, route: str):
+    """The typed entry of the ``route`` ("wgmma" or "wgmma_f32") backward
+    kernel ``which`` ("dq" or "dkv")."""
+    if route == "wgmma_f32":
+        source, name = _BWD_F32_SM90_SOURCE, f"bwd_{which}_f32_sm90"
+    else:
+        source = _DQ_SM90_SOURCE if which == "dq" else _DKV_SM90_SOURCE
+        name = f"bwd_{which}_sm90"
+    fn = getattr(_build.load(source), f"pt_flash_attention_{name}")
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + _SM90_TAIL
     fn.restype = ctypes.c_int
     return fn
@@ -711,41 +720,53 @@ def _launch_bwd(which: str, q, k, v, bias, do, lse, delta, outs, ds,
                            f"CUDA error {err}")
 
 
-def _launch_bwd_sm90(which: str, q, k, v, bias, do, lse, delta, out0, out1,
-                     out_strides, causal, dropout_p, seed):
-    """Launch a wgmma backward kernel: ``which`` "dq" writes dQ (``out0``)
-    and, when ``out1`` is not None, dS; "dkv" writes dK and dV.
-    ``out_strides`` are the (batch, head, row) strides of the bf16
-    outputs."""
+def _launch_bwd_sm90(which: str, route: str, q, k, v, bias, do, lse, delta,
+                     out0, out1, out_strides, causal, dropout_p, seed,
+                     terms=None):
+    """Launch a tensor-core backward kernel of ``route``: ``which`` "dq"
+    writes dQ (``out0``) and, when ``out1`` is not None, dS; "dkv" writes
+    dK and dV. ``out_strides`` are the (batch, head, row) strides of the
+    gradients. The ``wgmma_f32`` kernels read q, k, v and do as their bf16
+    ``terms`` (:func:`split_bf16_terms`), the ``wgmma`` ones as they are."""
     B, H, Lq, Lk, D = _check_shapes(q, k, v)
     _check_operand("do", do, q.device, q.dtype, (B, H, Lq, D))
     _check_stats(lse, delta, (B, H, Lq), q.device)
     bias, bias_strides = _kernel_bias(bias, B, H, Lq, Lk, q.device)
+    ops = (q, k, v, do) if route == "wgmma" else terms
     strides = (*out_strides, *bias_strides)
     with torch.cuda.device(q.device):
-        err = _bwd_sm90_fn(which)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if bias is None else bias.data_ptr(), do.data_ptr(),
+        err = _bwd_sm90_fn(which, route)(
+            ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
+            None if bias is None else bias.data_ptr(), ops[3].data_ptr(),
             lse.data_ptr(), delta.data_ptr(), out0.data_ptr(),
             None if out1 is None else out1.data_ptr(), B, H, Lq, Lk, D,
-            _geometry_words(q, k, v, do),
+            _geometry_words(*ops),
             (ctypes.c_longlong * len(strides))(*strides),
             int(bool(causal)), 1.0 / math.sqrt(D),
             *_dropout_args(dropout_p, seed),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd_{which} (wgmma) launch "
+        raise RuntimeError(f"flash_attention_bwd_{which} ({route}) launch "
                            f"failed: CUDA error {err}")
+
+
+def _backward_terms(q, k, v, do):
+    """The bf16 terms of float32 q, k, v and do, as the ``wgmma_f32``
+    backward kernels read them: two launches of :func:`split_bf16_terms`
+    (which takes up to three tensors)."""
+    return (*split_bf16_terms(q, k, v), *split_bf16_terms(do))
 
 
 def flash_attention_bwd_dq(q, k, v, bias, do, lse, delta,
                            causal: bool = False, dropout_p: float = 0.0,
-                           seed: int = 0, emit_ds: bool = False):
+                           seed: int = 0, emit_ds: bool = False, terms=None):
     """Launch the dQ kernel of :func:`kernel_route` on CUDA ``[B, H, L,
     D]`` tensors (``lse`` and ``delta = rowsum(dO * O)`` float32 ``[B, H,
     Lq]``; on the wgmma route ``do`` too must be readable by TMA): returns
     ``(dq, ds)``, with ``ds`` the float32 ``[B, H, Lq, Lk]`` score gradient
-    when ``emit_ds`` else None. ``flash_attention_bwd_dq.launches`` counts
+    when ``emit_ds`` else None. On the ``wgmma_f32`` route ``terms`` are
+    the bf16 terms of ``(q, k, v, do)`` (:func:`split_bf16_terms`), split
+    here when not given. ``flash_attention_bwd_dq.launches`` counts
     launches, ``.routes`` them per route. CUDA only: the plain version is
     :func:`reference_attention_bwd`."""
     dq = _empty_like_rows(q)
@@ -754,44 +775,48 @@ def flash_attention_bwd_dq(q, k, v, bias, do, lse, delta,
         ds = torch.empty((q.shape[0], q.shape[1], q.shape[2], k.shape[2]),
                          device=q.device, dtype=torch.float32)
     route = kernel_route(q.dtype, q.shape[-1], "dq")
-    if route == "wgmma":
-        _launch_bwd_sm90("dq", q, k, v, bias, do, lse, delta, dq, ds,
-                         dq.stride()[:3], causal, dropout_p, seed)
-    else:
+    if route == "wgmma_f32" and terms is None:
+        terms = _backward_terms(q, k, v, do)
+    if route == "fma":
         _launch_bwd("dq", q, k, v, bias, do, lse, delta, {"dq": dq}, ds,
                     causal, dropout_p, seed)
+    else:
+        _launch_bwd_sm90("dq", route, q, k, v, bias, do, lse, delta, dq, ds,
+                         dq.stride()[:3], causal, dropout_p, seed, terms)
     flash_attention_bwd_dq.launches += 1
     flash_attention_bwd_dq.routes[route] += 1
     return dq, ds
 
 
 flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dq.routes = {"fma": 0, "wgmma": 0}
+flash_attention_bwd_dq.routes = {"fma": 0, "wgmma": 0, "wgmma_f32": 0}
 
 
 def flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta,
                             causal: bool = False, dropout_p: float = 0.0,
-                            seed: int = 0):
+                            seed: int = 0, terms=None):
     """Launch the dK/dV kernel of :func:`kernel_route` on CUDA tensors
     (arguments as :func:`flash_attention_bwd_dq`): returns ``(dk, dv)``.
     ``flash_attention_bwd_dkv.launches`` counts launches, ``.routes`` them
     per route."""
     dk, dv = _empty_like_rows(k), _empty_like_rows(v)
     route = kernel_route(q.dtype, q.shape[-1], "dkv")
-    if route == "wgmma":
-        _launch_bwd_sm90("dkv", q, k, v, bias, do, lse, delta, dk, dv,
-                         (*dk.stride()[:3], *dv.stride()[:3]), causal,
-                         dropout_p, seed)
-    else:
+    if route == "wgmma_f32" and terms is None:
+        terms = _backward_terms(q, k, v, do)
+    if route == "fma":
         _launch_bwd("dkv", q, k, v, bias, do, lse, delta,
                     {"dk": dk, "dv": dv}, None, causal, dropout_p, seed)
+    else:
+        _launch_bwd_sm90("dkv", route, q, k, v, bias, do, lse, delta, dk, dv,
+                         (*dk.stride()[:3], *dv.stride()[:3]), causal,
+                         dropout_p, seed, terms)
     flash_attention_bwd_dkv.launches += 1
     flash_attention_bwd_dkv.routes[route] += 1
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
-flash_attention_bwd_dkv.routes = {"fma": 0, "wgmma": 0}
+flash_attention_bwd_dkv.routes = {"fma": 0, "wgmma": 0, "wgmma_f32": 0}
 _WRAPPERS = {"fwd": flash_attention_fwd, "dq": flash_attention_bwd_dq,
              "dkv": flash_attention_bwd_dkv}
 
@@ -828,21 +853,24 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, causal: bool = False,
 
     ``Delta = rowsum(dO * O)`` is a torch op in float32 (an XLA op outside
     the kernels in the reference, ``:429``); CUDA tensors then launch the
-    dQ and dK/dV kernels, CPU tensors run :func:`reference_attention_bwd`
-    with the plain mask. ``bias_grad=False`` skips the ``[B, H, Lq, Lk]``
-    dS output and returns a zero dbias."""
+    dQ and dK/dV kernels (on the ``wgmma_f32`` route after splitting q, k,
+    v and dO into the bf16 terms both read), CPU tensors run
+    :func:`reference_attention_bwd` with the plain mask.
+    ``bias_grad=False`` skips the ``[B, H, Lq, Lk]`` dS output and returns
+    a zero dbias."""
     want_dbias = bias is not None and bias_grad
     if q.is_cuda:
         do = _kernel_rows(do)
-        if kernel_route(q.dtype, q.shape[-1], "dq") == "wgmma" \
-                and not _tma_ok(do):
+        route = kernel_route(q.dtype, q.shape[-1], "dq")
+        if route == "wgmma" and not _tma_ok(do):
             do = do.contiguous()
         delta = (do.float() * o.float()).sum(-1).contiguous()
+        terms = _backward_terms(q, k, v, do) if route == "wgmma_f32" else None
         dq, ds = flash_attention_bwd_dq(q, k, v, bias, do, lse, delta,
                                         causal, dropout_p, seed,
-                                        emit_ds=want_dbias)
+                                        emit_ds=want_dbias, terms=terms)
         dk, dv = flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta,
-                                         causal, dropout_p, seed)
+                                         causal, dropout_p, seed, terms=terms)
     else:
         keep = None
         if dropout_p > 0.0:

@@ -1,20 +1,22 @@
-"""The float32 tensor-core forward of the port's flash attention
-(``csrc/flash_attention_fwd_f32_sm90.cu``, route ``wgmma_f32``): its
-arithmetic emulated in plain torch against the JAX forward, its split
-pre-pass, its routing, and, on the card, the kernel against its plain
-version.
+"""The float32 tensor-core kernels of the port's flash attention (route
+``wgmma_f32``): the forward (``csrc/flash_attention_fwd_f32_sm90.cu``) and
+the dQ and dK/dV backward (``csrc/flash_attention_bwd_f32_sm90.cu``). Their
+arithmetic emulated in plain torch against the JAX kernels, their split
+pre-pass, their routing, and, on the card, the kernels against their plain
+versions.
 
-The kernel keeps the reference's float32-operand numerics on bf16 tensor
-cores: each float32 operand x of the two products (Q, K, V, and the P it
-makes) enters as three bf16 terms ``x0 = bf16(x)``, ``x1 = bf16(x - x0)``,
-``x2 = bf16(x - x0 - x1)``, and each product keeps the six term pairs with
-``i + j <= 2``. The CPU tests emulate that in float32 torch (products of
-bf16 values are exact in float32) and hold it against the Pallas forward in
-interpret mode at the reference's float32 forward tolerance, 1e-5, on
-float32 inputs that are not bf16 values. The dropped pairs and the
-truncation of each operand are of order 2^-24 of the products, float32's
-own rounding, so the emulation is also within 1e-6 of a float64 forward,
-which one bf16 term per operand is not.
+The kernels keep the reference's float32-operand numerics on bf16 tensor
+cores: each float32 operand x of every product (Q, K, V and dO, and the P,
+P M and dS the kernels make) enters as three bf16 terms ``x0 = bf16(x)``,
+``x1 = bf16(x - x0)``, ``x2 = bf16(x - x0 - x1)``, and each product keeps
+the six term pairs with ``i + j <= 2``. The CPU tests emulate that in
+float32 torch (products of bf16 values are exact in float32) and hold it
+against the Pallas kernels in interpret mode at the reference's float32
+tolerances (forward 1e-5; backward rtol 2e-4, atol 2e-5) on float32 inputs
+that are not bf16 values. The dropped pairs and the truncation of each
+operand are of order 2^-24 of the products, float32's own rounding, so the
+emulation is also close to a float64 computation, which one bf16 term per
+operand is not.
 
 The tests marked ``cuda`` run the kernels on the card and skip without one:
 ``python -m pytest --noconftest -m cuda tests/test_torch_flash_attention_f32_sm90.py``.
@@ -29,6 +31,7 @@ import torch
 from paddle_tpu_torch.kernels import flash_attention as tfa
 
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
+BWD_TOL = dict(rtol=2e-4, atol=2e-5)
 
 
 @pytest.fixture()
@@ -95,6 +98,26 @@ def emulated_fwd(q, k, v, causal, bias, terms=3):
     return pair_product(p, v, "bhqk,bhkd->bhqd", terms), lse
 
 
+def emulated_bwd(q, k, v, bias, o, lse, do, causal, terms=3):
+    """``(dq, dk, dv, ds)`` as the wgmma_f32 dQ and dK/dV kernels take them:
+    S = Q K^T, dP = dO V^T, dQ = dS K, dK = dS^T Q and dV = P^T dO each as
+    :func:`pair_product`; ``ds`` float32, what the dQ kernel writes as the
+    bias gradient before its reduction."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = pair_product(q, k, "bhqd,bhkd->bhqk", terms) * scale
+    if bias is not None:
+        s = s + bias
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        p = p * torch.ones(s.shape[-2:], dtype=torch.bool).tril()
+    dp = pair_product(do, v, "bhqd,bhkd->bhqk", terms)
+    ds = p * (dp - (do * o).sum(-1)[..., None])
+    dq = pair_product(ds, k, "bhqk,bhkd->bhqd", terms) * scale
+    dk = pair_product(ds, q, "bhqk,bhqd->bhkd", terms) * scale
+    dv = pair_product(p, do, "bhqk,bhqd->bhkd", terms)
+    return dq, dk, dv, ds
+
+
 # (causal, D, Lq, Lk, bias): causal and not, D 64 and 128, Lq != Lk both
 # ways, a bias broadcast over the batch
 _JAX_CASES = [(True, 64, 256, 256, False), (False, 64, 256, 256, False),
@@ -122,6 +145,64 @@ def test_six_product_forward_matches_jax(jfa, interpret_pallas, causal, d,
     np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **FWD_TOL)
     np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j)[..., 0],
                                **FWD_TOL)
+
+
+@pytest.mark.parametrize("causal,d,lq,lk,bias", _JAX_CASES)
+def test_six_product_backward_matches_jax(jfa, interpret_pallas, causal, d,
+                                          lq, lk, bias):
+    """The backward kernels' arithmetic on float32 inputs against
+    ``_flash_bwd_impl`` on the forward's own (o, lse), at the reference's
+    float32 backward tolerance: dQ, dK, dV, and dbias, the emulated dS summed
+    over the batch the bias broadcasts over."""
+    import jax.numpy as jnp
+
+    q, k, v = _f32((2, 2, lq, d), 10), _f32((2, 2, lk, d), 11), \
+        _f32((2, 2, lk, d), 12)
+    do = _f32((2, 2, lq, d), 13)
+    b = _f32((1, 2, lq, lk), 14) if bias else None
+    jb = None if b is None else jnp.asarray(b)
+    o, lse = jfa._flash_fwd_impl(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), jb, jnp.int32(0), causal,
+                                 0.0, block_q=128, block_k=128)
+    dq_j, dk_j, dv_j, dbias_j = jfa._flash_bwd_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jb, jnp.int32(0), o,
+        lse[..., 0], jnp.asarray(do), causal, 0.0, block_q=128, block_k=128)
+    dq, dk, dv, ds = emulated_bwd(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        None if b is None else torch.from_numpy(b),
+        torch.from_numpy(np.array(o)),
+        torch.from_numpy(np.asarray(lse)[..., 0].copy()),
+        torch.from_numpy(do), causal)
+    for got, want in ((dq, dq_j), (dk, dk_j), (dv, dv_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **BWD_TOL)
+    if bias:
+        np.testing.assert_allclose(ds.sum(0, keepdim=True).numpy(),
+                                   np.asarray(dbias_j), **BWD_TOL)
+    else:
+        assert dbias_j is None
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_six_product_backward_keeps_float32_accuracy(d):
+    """The backward's six term pairs against a float64 backward: within
+    a few 1e-6 of the gradients' scale, where bf16 operands (one term
+    each) are off by more than 1e-3 of it."""
+    q, k, v, do = (torch.from_numpy(_f32((1, 2, 128, d), s))
+                   for s in (15, 16, 17, 18))
+    o, lse = emulated_fwd(q, k, v, True, None)
+    q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+    p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", q64, k64) / math.sqrt(d)
+                  - lse.double()[..., None]).tril()
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do64, v64)
+              - (do64 * o.double()).sum(-1)[..., None])
+    want = (torch.einsum("bhqk,bhkd->bhqd", ds, k64) / math.sqrt(d),
+            torch.einsum("bhqk,bhqd->bhkd", ds, q64) / math.sqrt(d),
+            torch.einsum("bhqk,bhqd->bhkd", p, do64))
+    for terms, low, high in ((3, 0.0, 4e-6), (1, 1e-3, float("inf"))):
+        got = emulated_bwd(q, k, v, None, o, lse, do, True, terms)
+        for x, y in zip(got[:3], want[:3]):
+            rel = ((x.double() - y).abs().max() / y.abs().max()).item()
+            assert low < rel < high, (terms, rel)
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -224,12 +305,14 @@ def test_forward_launches_the_route_of_dtype_and_head_dim(dtype, d, route):
     tfa.reset_launch_counts()
 
 
+@pytest.mark.parametrize("d,route", [(64, "wgmma_f32"), (128, "wgmma_f32"),
+                                     (256, "fma")])
 @pytest.mark.parametrize("which", ["dq", "dkv"])
-def test_float32_backward_stays_on_fma(which):
-    """The float32 forward's new route leaves dQ and dK/dV on the FMA
-    kernels, which read its LSE unchanged."""
-    assert tfa.kernel_route(torch.float32, 128, which) == "fma"
-    assert tfa.kernel_route(torch.float32, 64, which) == "fma"
+def test_float32_backward_takes_the_tensor_cores_at_64_and_128(which, d,
+                                                               route):
+    """float32 dQ and dK/dV take the wgmma_f32 kernels at D 64 and 128, as
+    the forward does, and the FMA kernels at D = 256."""
+    assert tfa.kernel_route(torch.float32, d, which) == route
 
 
 def test_kernel_route_refuses_an_unknown_kernel():
@@ -337,3 +420,116 @@ def test_cuda_f32_selfcheck(cuda_device, d):
                                                       @ y.double().abs())
         assert bool(((got.double() - x.double() @ y.double()).abs()
                      <= limit).all())
+
+
+# ------------------------------------------- the backward on the card
+def _bwd_case(device, d, causal, lq, lk, bias, seed):
+    """float32 (q, k, v, do, bias): at Lq == Lk q/k/v are views of a fused
+    qkv and dO a transposed [B, L, H, D] gradient, as the GPT path hands
+    them over; otherwise contiguous."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    B, H = 2, 3
+    if lq == lk:
+        q, k, v = _views(device, B, lq, H, d, seed)
+        do = rn(B, lq, H, d).transpose(1, 2)
+    else:
+        q, k, v, do = rn(B, H, lq, d), rn(B, H, lk, d), rn(B, H, lk, d), \
+            rn(B, H, lq, d)
+    return q, k, v, do, rn(1, H, lq, lk) if bias else None
+
+
+# (d, causal, lq, lk, bias): D 64 and 128, causal and not, the training
+# length, ragged lengths, Lq != Lk, a trained bias under the causal mask
+_BWD_CUDA_CASES = [(64, True, 1024, 1024, False),
+                   (128, True, 1024, 1024, False),
+                   (128, True, 1500, 1500, False),
+                   (64, False, 1500, 1500, False),
+                   (128, False, 384, 640, True),
+                   (64, True, 1000, 1000, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,causal,lq,lk,bias", _BWD_CUDA_CASES)
+def test_cuda_f32_backward_matches_plain(cuda_device, d, causal, lq, lk,
+                                         bias):
+    """dQ, dK, dV (and dbias, from the dS the dQ kernel writes) of the
+    wgmma_f32 kernels against the plain backward, at the reference's
+    float32 backward tolerance; one split launch for q, k, v and one for
+    dO, shared by both kernels."""
+    q, k, v, do, b = _bwd_case(cuda_device, d, causal, lq, lk, bias, 6)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, bias=b)
+    tfa.reset_launch_counts()
+    got = tfa.flash_attention_bwd(q, k, v, b, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for which in ("dq", "dkv"):
+        assert tfa.launch_counts()[which] == {"fma": 0, "wgmma": 0,
+                                              "wgmma_f32": 1}
+    assert tfa.split_bf16_terms.launches == 2
+    want = tfa.reference_attention_bwd(q, k, v, b, o, lse, do, causal)
+    for x, y in zip(got[:3], want[:3]):
+        torch.testing.assert_close(x, y, **BWD_TOL)
+    if bias:
+        torch.testing.assert_close(got[3], want[3].sum(0, keepdim=True),
+                                   **BWD_TOL)
+    else:
+        assert got[3] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_f32_dq_writes_ds_with_zeros_above_the_diagonal(cuda_device, d):
+    """The dQ kernel's float32 dS (the bias gradient before its reduction)
+    against the plain dS, causal and ragged: every element above the
+    diagonal, in the diagonal tiles and in the tiles the kernel skips, is
+    written as 0."""
+    q, k, v, do, b = _bwd_case(cuda_device, d, True, 700, 700, True, 7)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True, bias=b)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    _, ds = tfa.flash_attention_bwd_dq(q, k, v, b, do, lse, delta, True,
+                                       emit_ds=True)
+    want = tfa.reference_attention_bwd(q, k, v, b, o, lse, do, True)[3]
+    torch.testing.assert_close(ds, want, **BWD_TOL)
+    assert bool((ds.triu(1) == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_f32_backward_replays_bit_for_bit(cuda_device, d):
+    """No atomics: the same inputs give the same dQ, dS, dK and dV."""
+    q, k, v, do, b = _bwd_case(cuda_device, d, True, 1500, 1500, True, 8)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True, bias=b)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+
+    def run():
+        return (*tfa.flash_attention_bwd_dq(q, k, v, b, do, lse, delta, True,
+                                            emit_ds=True),
+                *tfa.flash_attention_bwd_dkv(q, k, v, b, do, lse, delta,
+                                             True))
+
+    first, second = run(), run()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_f32_backward_dropout_matches_plain_with_the_same_mask(
+        cuda_device, d):
+    """p = 0.1: dQ, dK and dV against the plain backward given the plain
+    Philox mask, at the reference's backward tolerance, and a fixed seed
+    replays bit for bit."""
+    q, k, v, do, _ = _bwd_case(cuda_device, d, True, 320, 320, False, 9)
+    keep = tfa.dropout_mask(42, 2, 3, 320, 320, 0.1, cuda_device)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True, dropout_p=0.1,
+                                     seed=42)
+    tfa.reset_launch_counts()
+    got = tfa.flash_attention_bwd(q, k, v, None, o, lse, do, True, 0.1, 42)
+    again = tfa.flash_attention_bwd(q, k, v, None, o, lse, do, True, 0.1, 42)
+    assert tfa.launch_counts()["dkv"]["wgmma_f32"] == 2
+    want = tfa.reference_attention_bwd(q, k, v, None, o, lse, do, True, keep)
+    for x, y, z in zip(got[:3], again[:3], want[:3]):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x, z, **BWD_TOL)

@@ -259,10 +259,8 @@ def test_split_is_closer_to_float32_than_bf16_p():
     (torch.float32, 128, "wgmma_f32"), (torch.float32, 256, "fma"),
     (torch.float16, 128, "fma")])
 def test_route_is_picked_by_dtype_and_head_dim(dtype, d, route, kernel):
-    """bf16 at D 64/128 takes the wgmma kernels; float32 at D 64/128 the
-    wgmma_f32 forward but the FMA dQ and dK/dV; the rest FMA."""
-    if route == "wgmma_f32" and kernel != "fwd":
-        route = "fma"
+    """bf16 at D 64/128 takes the wgmma kernels, float32 at D 64/128 the
+    wgmma_f32 ones (forward, dQ and dK/dV alike); the rest FMA."""
     assert tfa.kernel_route(dtype, d, kernel) == route
 
 
@@ -275,33 +273,45 @@ def test_cpu_tensors_launch_nothing():
     tfa.flash_attention_bwd(q, k, v, None, o, lse, torch.ones_like(o), True)
     assert tfa.launch_counts() == {"fwd": {"fma": 0, "wgmma": 0,
                                            "wgmma_f32": 0},
-                                   "dq": {"fma": 0, "wgmma": 0},
-                                   "dkv": {"fma": 0, "wgmma": 0}}
+                                   "dq": {"fma": 0, "wgmma": 0,
+                                          "wgmma_f32": 0},
+                                   "dkv": {"fma": 0, "wgmma": 0,
+                                           "wgmma_f32": 0}}
 
 
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 256, "fma"), (torch.float32, 128, "fma")])
+    (torch.bfloat16, 256, "fma"), (torch.float32, 64, "wgmma_f32"),
+    (torch.float32, 128, "wgmma_f32"), (torch.float32, 256, "fma")])
 @pytest.mark.parametrize("which", ["dq", "dkv"])
 def test_backward_wrappers_launch_the_route_of_dtype_and_head_dim(
         which, dtype, d, route):
     """The dQ and dK/dV wrappers hand a (dtype, D) input to the launcher of
-    its :func:`kernel_route` and count the launch under that route. The
-    launchers are stubbed (the kernels need a card); the wrapper's own
-    logic runs as it does on one."""
+    its :func:`kernel_route` and count the launch under that route; the
+    wgmma_f32 launcher gets the four operands' bf16 terms. The launchers
+    are stubbed (the kernels need a card); the wrapper's own logic runs as
+    it does on one."""
     calls = []
     q = torch.zeros(1, 2, 64, d, dtype=dtype)
     stats = torch.zeros(1, 2, 64)
     wrapper = getattr(tfa, f"flash_attention_bwd_{which}")
-    with mock.patch.object(tfa, "_launch_bwd_sm90",
-                           lambda *a: calls.append(("wgmma", a[0]))), \
+
+    def sm90(*a):
+        calls.append((a[1], a[0]))
+        terms = a[-1]
+        assert (terms is None) == (a[1] == "wgmma")
+        if terms is not None:
+            assert [t.shape for t in terms] == [(3, 2, 64, d)] * 4
+            assert all(t.dtype == torch.bfloat16 for t in terms)
+
+    with mock.patch.object(tfa, "_launch_bwd_sm90", sm90), \
             mock.patch.object(tfa, "_launch_bwd",
                               lambda *a: calls.append(("fma", a[0]))):
         tfa.reset_launch_counts()
         wrapper(q, q, q, None, q, stats, stats, True)
     assert calls == [(route, which)]
-    assert tfa.launch_counts()[which] == {"fma": int(route == "fma"),
-                                          "wgmma": int(route == "wgmma")}
+    assert tfa.launch_counts()[which] == {
+        r: int(r == route) for r in ("fma", "wgmma", "wgmma_f32")}
     tfa.reset_launch_counts()
 
 
@@ -309,7 +319,8 @@ def test_wgmma_sources_are_built_with_the_rest():
     for source in ("flash_attention_fwd_sm90.cu",
                    "flash_attention_fwd_f32_sm90.cu",
                    "flash_attention_bwd_dq_sm90.cu",
-                   "flash_attention_bwd_dkv_sm90.cu"):
+                   "flash_attention_bwd_dkv_sm90.cu",
+                   "flash_attention_bwd_f32_sm90.cu"):
         assert source in _build.SOURCES
         text = (_build.CSRC_DIR / source).read_text()
         assert "Replaces: paddle_tpu/kernels/flash_attention.py" in text
@@ -432,8 +443,10 @@ def test_cuda_wgmma_backward_matches_plain(cuda_device, d, causal, lq, lk,
     tfa.reset_launch_counts()
     got = tfa.flash_attention_bwd(q, k, v, b, o, lse, do, causal)
     torch.cuda.synchronize()
-    assert tfa.launch_counts()["dkv"] == {"fma": 0, "wgmma": 1}
-    assert tfa.launch_counts()["dq"] == {"fma": 0, "wgmma": 1}
+    assert tfa.launch_counts()["dkv"] == {"fma": 0, "wgmma": 1,
+                                          "wgmma_f32": 0}
+    assert tfa.launch_counts()["dq"] == {"fma": 0, "wgmma": 1,
+                                         "wgmma_f32": 0}
     want = tfa.reference_attention_bwd(q, k, v, b, o, lse, do, causal)
     for x, y in zip(got[:3], want[:3]):
         limit = 2 * _bf16_ulp(y) + 1e-5 * y.float().abs().max()
