@@ -99,7 +99,7 @@ __host__ __device__ constexpr int streamed_term(int n) {
 template <int D, bool kDkv>
 struct Layout {
   static constexpr uint32_t kTile = 64 * D * 2;  // one bf16 [64, D] tile
-  static constexpr int kRing = D == 64 && kDkv ? 4 : 6;
+  static constexpr int kRing = D == 64 && kDkv ? 5 : 6;
   // resident term tile i: the first own operand's terms 0..2, the second's
   // 3..5
   __host__ __device__ static constexpr uint32_t res(int i) {
@@ -138,23 +138,25 @@ struct Layout {
 template <class L>
 struct RingReader {
   uint32_t base;
-  int n;
+  int n;  // the first entry not yet released
 
-  // Wait for the next entry; its tile address, opaque to the compiler so
-  // that each wgmma descriptor is built where it is used.
-  __device__ __forceinline__ uint32_t acquire() {
-    const int s = n % L::kRing;
-    mbar_wait(base + L::full(s), (n / L::kRing) & 1);
+  // Wait for entry n + i; its tile address, opaque to the compiler so that
+  // each wgmma descriptor is built where it is used.
+  __device__ __forceinline__ uint32_t wait(int i) {
+    const int s = (n + i) % L::kRing;
+    mbar_wait(base + L::full(s), ((n + i) / L::kRing) & 1);
     __syncwarp();
     uint32_t tile = base + L::slot(s);
     asm volatile("" : "+r"(tile));
     return tile;
   }
 
-  // The entry's products have completed: hand its slot back.
-  __device__ __forceinline__ void release() {
-    mbar_arrive(base + L::empty(n % L::kRing));
-    ++n;
+  // The products of entries n .. n + k - 1 have completed: hand their
+  // slots back.
+  __device__ __forceinline__ void release(int k) {
+#pragma unroll
+    for (int i = 0; i < k; ++i) mbar_arrive(base + L::empty((n + i) % L::kRing));
+    n += k;
   }
 };
 
@@ -190,16 +192,32 @@ __device__ __forceinline__ void produce(uint32_t base, const Params& p,
   }
 }
 
-// Three ring entries of an operand's terms j = 2, 1, 0, each passed to
-// `use(tile, j, first)` (first: the first of the three) and released.
-template <class L, typename Use>
-__device__ __forceinline__ void each_term(RingReader<L>& ring, Use use) {
+// One phase of a tile: the next three ring entries, an operand's terms
+// j = 2, 1, 0, each waited for and handed to `issue(tile, j, first)`
+// (first: the first of the three), which issues its products into the
+// phase's one wgmma group: it waits once, not once per term, and the
+// tensor cores take the next term's products while the last ones run. The
+// ring holds the three entries until release(3), with its other entries
+// (three at D = 128) loading the next phase.
+template <class L, typename Issue>
+__device__ __forceinline__ void issue_phase(RingReader<L>& ring,
+                                            Issue issue) {
 #pragma unroll
-  for (int i = 0; i < kSplit; ++i) {
-    const uint32_t tile = ring.acquire();
-    use(tile, streamed_term(i), i == 0);
-    ring.release();
-  }
+  for (int i = 0; i < kSplit; ++i)
+    issue(ring.wait(i), streamed_term(i), i == 0);
+}
+
+// issue_phase for one accumulator, committed, waited for and released.
+template <class L, int N, typename Issue>
+__device__ __forceinline__ void phase(RingReader<L>& ring, float (&acc)[N],
+                                      Issue issue) {
+  fence_operand(acc);
+  wgmma_fence();
+  issue_phase(ring, issue);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_operand(acc);
+  ring.release(kSplit);
 }
 
 // ------------------------------------------------------------ dQ
@@ -257,22 +275,24 @@ flash_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 
     // ---- S = sum of Q_a K_j^T over a + j <= 2, then P
     float sc[32], dp[32];
-    each_term(ring, [&](uint32_t tk, int j, bool first) {
-      terms_abt<D>(sc, tq, tk, j, first);
+    phase(ring, sc, [&](uint32_t tk, int j, bool first) {
+      issue_terms_abt<D>(sc, tq, tk, j, first);
     });
     rows.probabilities(p, sc, q0, k0);
     // ---- dP = sum of dO_a V_j^T, then dS = P (dP M - Delta) in its place
-    each_term(ring, [&](uint32_t tv, int j, bool first) {
-      terms_abt<D>(dp, tdo, tv, j, first);
+    phase(ring, dp, [&](uint32_t tv, int j, bool first) {
+      issue_terms_abt<D>(dp, tdo, tv, j, first);
     });
     rows.grad_scores(sc, dp, keep, kDropout ? p.drop.scale : 1.f);
     if (rows.dsb != nullptr) rows.store_ds(dp, k0, p.Lq, p.Lk);
     // ---- dQ += sum of dS_a K_j, dS's terms made once
     uint32_t f[4][kSplit][4];
     split_all([&](int e) { return dp[e]; }, f);
-    each_term(ring, [&](uint32_t tk, int j, bool) {
-      terms_fb<D>(dq, f, tk, j);
+    phase(ring, dq, [&](uint32_t tk, int j, bool) {
+      issue_terms_fb<D>(dq, f, tk, j);
     });
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_fragments(f[kk]);
   }
 
   if (rows.dsb != nullptr && p.causal && n_kt * 64 < p.Lk)
@@ -368,8 +388,8 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 
     // ---- S^T = sum of K_a Q_j^T, then P^T, which waits in shared memory
     float st[32];
-    each_term(ring, [&](uint32_t tq, int j, bool first) {
-      terms_abt<D>(st, tk, tq, j, first);
+    phase(ring, st, [&](uint32_t tq, int j, bool first) {
+      issue_terms_abt<D>(st, tk, tq, j, first);
     });
     mbar_wait(base + L::stats_full(i & 1), (i >> 1) & 1);
     const float* lse_s = reinterpret_cast<const float*>(smem + L::stats(i & 1));
@@ -377,33 +397,38 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int e = 0; e < 32; ++e) stash[e * kConsumers] = st[e];
 
-    // ---- per dO term: dP^T += V_a dO_j^T and dV += (P M)^T_a dO_j. (P M)^T
-    // is split from the stash twice per term, 32 columns at a time, so
-    // that only half its fragments are live beside dK, dV and dP^T.
+    // ---- the dO terms: dP^T = sum of V_a dO_j^T and dV += (P M)^T_a dO_j.
+    // (P M)^T is split from the stash 32 columns at a time, so that only
+    // half its fragments are live beside dK, dV and dP^T: two wgmma groups.
     const auto pm = [&](int e) {
       return (keep >> e) & 1u ? stash[e * kConsumers] * kept : 0.f;
     };
     float dpt[32];
-    each_term(ring, [&](uint32_t tdo, int j, bool first) {
-      uint32_t h[2][kSplit][4];
-      split_all<0, 2>(pm, h);
-      fence_operand(dpt);
-      fence_operand(dv);
-      wgmma_fence();
-      issue_terms_abt<D>(dpt, tv, tdo, j, first);
-      issue_terms_fb<D, 0, 2>(dv, h, tdo, j);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_terms(h, j);
-      fence_operand(dpt);
-      split_all<2, 2>(pm, h);
-      wgmma_fence();
-      issue_terms_fb<D, 2, 2>(dv, h, tdo, j);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_terms(h, j);
-      fence_operand(dv);
+    uint32_t tdo[kSplit];
+    uint32_t h[2][kSplit][4];
+    split_all<0, 2>(pm, h);
+    fence_operand(dpt);
+    fence_operand(dv);
+    wgmma_fence();
+    issue_phase(ring, [&](uint32_t tile, int j, bool first) {
+      tdo[kSplit - 1 - j] = tile;
+      issue_terms_abt<D>(dpt, tv, tile, j, first);
+      issue_terms_fb<D, 0, 2>(dv, h, tile, j);
     });
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_terms(h, 0);
+    fence_operand(dpt);
+    split_all<2, 2>(pm, h);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < kSplit; ++i)
+      issue_terms_fb<D, 2, 2>(dv, h, tdo[i], streamed_term(i));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_terms(h, 0);
+    fence_operand(dv);
+    ring.release(kSplit);
 
     // ---- dS^T = P^T (dP^T M - Delta);  dK += sum of dS^T_a Q_j
     rows.grad_scores([&](int e) { return stash[e * kConsumers]; }, dpt, keep,
@@ -411,9 +436,11 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_arrive(base + L::stats_empty(i & 1));
     uint32_t f[4][kSplit][4];
     split_all([&](int e) { return dpt[e]; }, f);
-    each_term(ring, [&](uint32_t tq, int j, bool) {
-      terms_fb<D>(dk, f, tq, j);
+    phase(ring, dk, [&](uint32_t tq, int j, bool) {
+      issue_terms_fb<D>(dk, f, tq, j);
     });
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_fragments(f[kk]);
   }
 
   rows.store<D>(p, b, h, dk, dv);
