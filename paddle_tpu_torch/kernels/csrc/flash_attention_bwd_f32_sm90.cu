@@ -140,15 +140,19 @@ struct RingReader {
   uint32_t base;
   int n;  // the first entry not yet released
 
-  // Wait for entry n + i; its tile address, opaque to the compiler so that
-  // each wgmma descriptor is built where it is used.
+  // The tile address of entry n + i, opaque to the compiler so that each
+  // wgmma descriptor is built where it is used.
+  __device__ __forceinline__ uint32_t tile(int i) const {
+    uint32_t t = base + L::slot((n + i) % L::kRing);
+    asm volatile("" : "+r"(t));
+    return t;
+  }
+
+  // Wait for entry n + i; its tile address.
   __device__ __forceinline__ uint32_t wait(int i) {
-    const int s = (n + i) % L::kRing;
-    mbar_wait(base + L::full(s), ((n + i) / L::kRing) & 1);
+    mbar_wait(base + L::full((n + i) % L::kRing), ((n + i) / L::kRing) & 1);
     __syncwarp();
-    uint32_t tile = base + L::slot(s);
-    asm volatile("" : "+r"(tile));
-    return tile;
+    return tile(i);
   }
 
   // The products of entries n .. n + k - 1 have completed: hand their
@@ -404,14 +408,12 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       return (keep >> e) & 1u ? stash[e * kConsumers] * kept : 0.f;
     };
     float dpt[32];
-    uint32_t tdo[kSplit];
     uint32_t h[2][kSplit][4];
     split_all<0, 2>(pm, h);
     fence_operand(dpt);
     fence_operand(dv);
     wgmma_fence();
     issue_phase(ring, [&](uint32_t tile, int j, bool first) {
-      tdo[kSplit - 1 - j] = tile;
       issue_terms_abt<D>(dpt, tv, tile, j, first);
       issue_terms_fb<D, 0, 2>(dv, h, tile, j);
     });
@@ -423,7 +425,7 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_fence();
 #pragma unroll
     for (int i = 0; i < kSplit; ++i)
-      issue_terms_fb<D, 2, 2>(dv, h, tdo[i], streamed_term(i));
+      issue_terms_fb<D, 2, 2>(dv, h, ring.tile(i), streamed_term(i));
     wgmma_commit();
     wgmma_wait_all();
     fence_terms(h, 0);
