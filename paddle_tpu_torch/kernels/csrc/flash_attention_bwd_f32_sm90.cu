@@ -371,6 +371,10 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   // ---- consumer warpgroup: keys k0 .. k0 + 63
+  // 16-column slices of (P M)^T split at a time: two (24 fragment
+  // registers); one in the D = 128 dropout instantiation, which spilled
+  // with two beside its keep bits
+  constexpr int kPart = kDropout && D == 128 ? 1 : 2;
   const DkvRows rows(p, b, h, k0, tid);
   RingReader<L> ring{base, 0};
   float* const stash = reinterpret_cast<float*>(smem + L::stash) + tid;
@@ -402,33 +406,37 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int e = 0; e < 32; ++e) stash[e * kConsumers] = st[e];
 
     // ---- the dO terms: dP^T = sum of V_a dO_j^T and dV += (P M)^T_a dO_j.
-    // (P M)^T is split from the stash 32 columns at a time, so that only
-    // half its fragments are live beside dK, dV and dP^T: two wgmma groups.
+    // (P M)^T is split from the stash kPart slices at a time, so that only
+    // part of its fragments is live beside dK, dV and dP^T: 4 / kPart wgmma
+    // groups, the first with dP^T's products.
     const auto pm = [&](int e) {
       return (keep >> e) & 1u ? stash[e * kConsumers] * kept : 0.f;
     };
     float dpt[32];
-    uint32_t h[2][kSplit][4];
-    split_all<0, 2>(pm, h);
-    fence_operand(dpt);
-    fence_operand(dv);
-    wgmma_fence();
-    issue_phase(ring, [&](uint32_t tile, int j, bool first) {
-      issue_terms_abt<D>(dpt, tv, tile, j, first);
-      issue_terms_fb<D, 0, 2>(dv, h, tile, j);
-    });
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_terms(h, 0);
-    fence_operand(dpt);
-    split_all<2, 2>(pm, h);
-    wgmma_fence();
+    uint32_t fpm[kPart][kSplit][4];
 #pragma unroll
-    for (int i = 0; i < kSplit; ++i)
-      issue_terms_fb<D, 2, 2>(dv, h, ring.tile(i), streamed_term(i));
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_terms(h, 0);
+    for (int g = 0; g < 4 / kPart; ++g) {
+      split_all(pm, fpm, g * kPart);
+      if (g == 0) {
+        fence_operand(dpt);
+        fence_operand(dv);
+        wgmma_fence();
+        issue_phase(ring, [&](uint32_t tile, int j, bool first) {
+          issue_terms_abt<D>(dpt, tv, tile, j, first);
+          issue_terms_fb<D, kPart>(dv, fpm, tile, j);
+        });
+      } else {
+        wgmma_fence();
+#pragma unroll
+        for (int i = 0; i < kSplit; ++i)
+          issue_terms_fb<D, kPart>(dv, fpm, ring.tile(i), streamed_term(i),
+                                   g * kPart);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_terms(fpm, 0);
+      if (g == 0) fence_operand(dpt);
+    }
     fence_operand(dv);
     ring.release(kSplit);
 
