@@ -99,7 +99,7 @@ __host__ __device__ constexpr int streamed_term(int n) {
 template <int D, bool kDkv>
 struct Layout {
   static constexpr uint32_t kTile = 64 * D * 2;  // one bf16 [64, D] tile
-  static constexpr int kRing = D == 64 && kDkv ? 5 : 6;
+  static constexpr int kRing = D == 64 && kDkv ? 4 : 6;
   // resident term tile i: the first own operand's terms 0..2, the second's
   // 3..5
   __host__ __device__ static constexpr uint32_t res(int i) {
@@ -138,29 +138,23 @@ struct Layout {
 template <class L>
 struct RingReader {
   uint32_t base;
-  int n;  // the first entry not yet released
+  int n;
 
-  // The tile address of entry n + i, opaque to the compiler so that each
-  // wgmma descriptor is built where it is used.
-  __device__ __forceinline__ uint32_t tile(int i) const {
-    uint32_t t = base + L::slot((n + i) % L::kRing);
-    asm volatile("" : "+r"(t));
-    return t;
-  }
-
-  // Wait for entry n + i; its tile address.
-  __device__ __forceinline__ uint32_t wait(int i) {
-    mbar_wait(base + L::full((n + i) % L::kRing), ((n + i) / L::kRing) & 1);
+  // Wait for the next entry; its tile address, opaque to the compiler so
+  // that each wgmma descriptor is built where it is used.
+  __device__ __forceinline__ uint32_t acquire() {
+    const int s = n % L::kRing;
+    mbar_wait(base + L::full(s), (n / L::kRing) & 1);
     __syncwarp();
-    return tile(i);
+    uint32_t tile = base + L::slot(s);
+    asm volatile("" : "+r"(tile));
+    return tile;
   }
 
-  // The products of entries n .. n + k - 1 have completed: hand their
-  // slots back.
-  __device__ __forceinline__ void release(int k) {
-#pragma unroll
-    for (int i = 0; i < k; ++i) mbar_arrive(base + L::empty((n + i) % L::kRing));
-    n += k;
+  // The entry's products have completed: hand its slot back.
+  __device__ __forceinline__ void release() {
+    mbar_arrive(base + L::empty(n % L::kRing));
+    ++n;
   }
 };
 
@@ -196,32 +190,16 @@ __device__ __forceinline__ void produce(uint32_t base, const Params& p,
   }
 }
 
-// One phase of a tile: the next three ring entries, an operand's terms
-// j = 2, 1, 0, each waited for and handed to `issue(tile, j, first)`
-// (first: the first of the three), which issues its products into the
-// phase's one wgmma group: it waits once, not once per term, and the
-// tensor cores take the next term's products while the last ones run. The
-// ring holds the three entries until release(3), with its other entries
-// (three at D = 128) loading the next phase.
-template <class L, typename Issue>
-__device__ __forceinline__ void issue_phase(RingReader<L>& ring,
-                                            Issue issue) {
+// Three ring entries of an operand's terms j = 2, 1, 0, each passed to
+// `use(tile, j, first)` (first: the first of the three) and released.
+template <class L, typename Use>
+__device__ __forceinline__ void each_term(RingReader<L>& ring, Use use) {
 #pragma unroll
-  for (int i = 0; i < kSplit; ++i)
-    issue(ring.wait(i), streamed_term(i), i == 0);
-}
-
-// issue_phase for one accumulator, committed, waited for and released.
-template <class L, int N, typename Issue>
-__device__ __forceinline__ void phase(RingReader<L>& ring, float (&acc)[N],
-                                      Issue issue) {
-  fence_operand(acc);
-  wgmma_fence();
-  issue_phase(ring, issue);
-  wgmma_commit();
-  wgmma_wait_all();
-  fence_operand(acc);
-  ring.release(kSplit);
+  for (int i = 0; i < kSplit; ++i) {
+    const uint32_t tile = ring.acquire();
+    use(tile, streamed_term(i), i == 0);
+    ring.release();
+  }
 }
 
 // ------------------------------------------------------------ dQ
@@ -279,24 +257,22 @@ flash_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 
     // ---- S = sum of Q_a K_j^T over a + j <= 2, then P
     float sc[32], dp[32];
-    phase(ring, sc, [&](uint32_t tk, int j, bool first) {
-      issue_terms_abt<D>(sc, tq, tk, j, first);
+    each_term(ring, [&](uint32_t tk, int j, bool first) {
+      terms_abt<D>(sc, tq, tk, j, first);
     });
     rows.probabilities(p, sc, q0, k0);
     // ---- dP = sum of dO_a V_j^T, then dS = P (dP M - Delta) in its place
-    phase(ring, dp, [&](uint32_t tv, int j, bool first) {
-      issue_terms_abt<D>(dp, tdo, tv, j, first);
+    each_term(ring, [&](uint32_t tv, int j, bool first) {
+      terms_abt<D>(dp, tdo, tv, j, first);
     });
     rows.grad_scores(sc, dp, keep, kDropout ? p.drop.scale : 1.f);
     if (rows.dsb != nullptr) rows.store_ds(dp, k0, p.Lq, p.Lk);
     // ---- dQ += sum of dS_a K_j, dS's terms made once
     uint32_t f[4][kSplit][4];
     split_all([&](int e) { return dp[e]; }, f);
-    phase(ring, dq, [&](uint32_t tk, int j, bool) {
-      issue_terms_fb<D>(dq, f, tk, j);
+    each_term(ring, [&](uint32_t tk, int j, bool) {
+      terms_fb<D>(dq, f, tk, j);
     });
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) fence_fragments(f[kk]);
   }
 
   if (rows.dsb != nullptr && p.causal && n_kt * 64 < p.Lk)
@@ -371,10 +347,6 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   // ---- consumer warpgroup: keys k0 .. k0 + 63
-  // 16-column slices of (P M)^T split at a time: two (24 fragment
-  // registers); one in the D = 128 dropout instantiation, which spilled
-  // with two beside its keep bits
-  constexpr int kPart = kDropout && D == 128 ? 1 : 2;
   const DkvRows rows(p, b, h, k0, tid);
   RingReader<L> ring{base, 0};
   float* const stash = reinterpret_cast<float*>(smem + L::stash) + tid;
@@ -396,8 +368,8 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 
     // ---- S^T = sum of K_a Q_j^T, then P^T, which waits in shared memory
     float st[32];
-    phase(ring, st, [&](uint32_t tq, int j, bool first) {
-      issue_terms_abt<D>(st, tk, tq, j, first);
+    each_term(ring, [&](uint32_t tq, int j, bool first) {
+      terms_abt<D>(st, tk, tq, j, first);
     });
     mbar_wait(base + L::stats_full(i & 1), (i >> 1) & 1);
     const float* lse_s = reinterpret_cast<const float*>(smem + L::stats(i & 1));
@@ -405,40 +377,33 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int e = 0; e < 32; ++e) stash[e * kConsumers] = st[e];
 
-    // ---- the dO terms: dP^T = sum of V_a dO_j^T and dV += (P M)^T_a dO_j.
-    // (P M)^T is split from the stash kPart slices at a time, so that only
-    // part of its fragments is live beside dK, dV and dP^T: 4 / kPart wgmma
-    // groups, the first with dP^T's products.
+    // ---- per dO term: dP^T += V_a dO_j^T and dV += (P M)^T_a dO_j. (P M)^T
+    // is split from the stash twice per term, 32 columns at a time, so
+    // that only half its fragments are live beside dK, dV and dP^T.
     const auto pm = [&](int e) {
       return (keep >> e) & 1u ? stash[e * kConsumers] * kept : 0.f;
     };
     float dpt[32];
-    uint32_t fpm[kPart][kSplit][4];
-#pragma unroll
-    for (int g = 0; g < 4 / kPart; ++g) {
-      split_all(pm, fpm, g * kPart);
-      if (g == 0) {
-        fence_operand(dpt);
-        fence_operand(dv);
-        wgmma_fence();
-        issue_phase(ring, [&](uint32_t tile, int j, bool first) {
-          issue_terms_abt<D>(dpt, tv, tile, j, first);
-          issue_terms_fb<D, kPart>(dv, fpm, tile, j);
-        });
-      } else {
-        wgmma_fence();
-#pragma unroll
-        for (int i = 0; i < kSplit; ++i)
-          issue_terms_fb<D, kPart>(dv, fpm, ring.tile(i), streamed_term(i),
-                                   g * kPart);
-      }
+    each_term(ring, [&](uint32_t tdo, int j, bool first) {
+      uint32_t h[2][kSplit][4];
+      split_all<0, 2>(pm, h);
+      fence_operand(dpt);
+      fence_operand(dv);
+      wgmma_fence();
+      issue_terms_abt<D>(dpt, tv, tdo, j, first);
+      issue_terms_fb<D, 0, 2>(dv, h, tdo, j);
       wgmma_commit();
       wgmma_wait_all();
-      fence_terms(fpm, 0);
-      if (g == 0) fence_operand(dpt);
-    }
-    fence_operand(dv);
-    ring.release(kSplit);
+      fence_terms(h, j);
+      fence_operand(dpt);
+      split_all<2, 2>(pm, h);
+      wgmma_fence();
+      issue_terms_fb<D, 2, 2>(dv, h, tdo, j);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_terms(h, j);
+      fence_operand(dv);
+    });
 
     // ---- dS^T = P^T (dP^T M - Delta);  dK += sum of dS^T_a Q_j
     rows.grad_scores([&](int e) { return stash[e * kConsumers]; }, dpt, keep,
@@ -446,11 +411,9 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_arrive(base + L::stats_empty(i & 1));
     uint32_t f[4][kSplit][4];
     split_all([&](int e) { return dpt[e]; }, f);
-    phase(ring, dk, [&](uint32_t tq, int j, bool) {
-      issue_terms_fb<D>(dk, f, tq, j);
+    each_term(ring, [&](uint32_t tq, int j, bool) {
+      terms_fb<D>(dk, f, tq, j);
     });
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) fence_fragments(f[kk]);
   }
 
   rows.store<D>(p, b, h, dk, dv);
