@@ -190,6 +190,62 @@ __device__ __forceinline__ void produce(uint32_t base, const Params& p,
   }
 }
 
+// Two banks of three term tiles (ring slots 0-2 and 3-5) that take turns:
+// tile i's twice-used operand A in bank i & 1, its other operand B in the
+// other bank. A stays until its second product, and the next tile's A loads
+// into B's bank as soon as B's product is done, so each operand is read
+// once per tile (six loads, not nine). Every slot is filled once per tile:
+// its k-th fill belongs to tile k, phase k & 1 of its barriers.
+template <class L>
+struct TermBanks {
+  uint32_t base;
+
+  __device__ __forceinline__ static int slot(int bank, int idx) {
+    return kSplit * bank + idx;
+  }
+  // Term tile idx (term 2 - idx) of `bank`, opaque to the compiler so that
+  // each wgmma descriptor is built where it is used.
+  __device__ __forceinline__ uint32_t tile(int bank, int idx) const {
+    uint32_t t = base + L::slot(slot(bank, idx));
+    asm volatile("" : "+r"(t));
+    return t;
+  }
+  __device__ __forceinline__ uint32_t wait(int bank, int idx, int i) const {
+    mbar_wait(base + L::full(slot(bank, idx)), i & 1);
+    __syncwarp();
+    return tile(bank, idx);
+  }
+  __device__ __forceinline__ void release(int bank, int idx) const {
+    mbar_arrive(base + L::empty(slot(bank, idx)));
+  }
+};
+
+// The producer lane's loads into TermBanks: the resident operands as in
+// produce, then per tile i of n0 .. n1 - 1 the terms 2, 1, 0 of A into bank
+// i & 1 and of B into the other, at rows row_of(i).
+template <int D, class L, typename RowOf>
+__device__ __forceinline__ void produce_banks(
+    uint32_t base, const Params& p, const CUtensorMap* res0, TmaPos pos0,
+    const CUtensorMap* res1, TmaPos pos1, int row0, const CUtensorMap* map_a,
+    TmaPos pos_a, const CUtensorMap* map_b, TmaPos pos_b, int h, int b,
+    int n0, int n1, RowOf row_of) {
+  produce<D, L>(base, p, res0, pos0, res1, pos1, row0, map_a, pos_a, map_b,
+                pos_b, h, b, 0, 0, row_of);
+  for (int i = n0; i < n1; ++i) {
+    for (int op = 0; op < 2; ++op) {
+      const int bank = (i + op) & 1;
+      for (int idx = 0; idx < kSplit; ++idx) {
+        const int s = TermBanks<L>::slot(bank, idx);
+        mbar_wait(base + L::empty(s), (i & 1) ^ 1);
+        mbar_arrive_expect_tx(base + L::full(s), L::kTile);
+        tma_load_tile<D>(base + L::slot(s), op == 0 ? map_a : map_b,
+                         base + L::full(s), row_of(i), h,
+                         (kSplit - 1 - idx) * p.B + b, op == 0 ? pos_a : pos_b);
+      }
+    }
+  }
+}
+
 // Three ring entries of an operand's terms j = 2, 1, 0, each passed to
 // `use(tile, j, first)` (first: the first of the three) and released.
 template <class L, typename Use>
@@ -234,15 +290,15 @@ flash_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   if (tid >= kConsumers) {
     // ---- producer: one lane issues every copy
     if (tid == kConsumers)
-      produce<D, L>(base, p, &map_q, p.pos_q, &map_do, p.pos_do, q0, &map_k,
-                    p.pos_k, &map_v, p.pos_v, h, b, 0,
-                    n_kt * kLoadsPerTile, [](int i) { return 64 * i; });
+      produce_banks<D, L>(base, p, &map_q, p.pos_q, &map_do, p.pos_do, q0,
+                          &map_k, p.pos_k, &map_v, p.pos_v, h, b, 0, n_kt,
+                          [](int i) { return 64 * i; });
     return;
   }
 
   // ---- consumer warpgroup: query rows q0 .. q0 + 63
   const DqRows rows(p, b, h, q0, tid);
-  RingReader<L> ring{base, 0};
+  const TermBanks<L> banks{base};
   float dq[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
@@ -257,22 +313,29 @@ flash_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 
     // ---- S = sum of Q_a K_j^T over a + j <= 2, then P
     float sc[32], dp[32];
-    each_term(ring, [&](uint32_t tk, int j, bool first) {
-      terms_abt<D>(sc, tq, tk, j, first);
-    });
+    const int bank_k = i & 1, bank_v = bank_k ^ 1;
+#pragma unroll
+    for (int idx = 0; idx < kSplit; ++idx)
+      terms_abt<D>(sc, tq, banks.wait(bank_k, idx, i), kSplit - 1 - idx,
+                   idx == 0);
     rows.probabilities(p, sc, q0, k0);
     // ---- dP = sum of dO_a V_j^T, then dS = P (dP M - Delta) in its place
-    each_term(ring, [&](uint32_t tv, int j, bool first) {
-      terms_abt<D>(dp, tdo, tv, j, first);
-    });
+#pragma unroll
+    for (int idx = 0; idx < kSplit; ++idx) {
+      terms_abt<D>(dp, tdo, banks.wait(bank_v, idx, i), kSplit - 1 - idx,
+                   idx == 0);
+      banks.release(bank_v, idx);
+    }
     rows.grad_scores(sc, dp, keep, kDropout ? p.drop.scale : 1.f);
     if (rows.dsb != nullptr) rows.store_ds(dp, k0, p.Lq, p.Lk);
     // ---- dQ += sum of dS_a K_j, dS's terms made once
     uint32_t f[4][kSplit][4];
     split_all([&](int e) { return dp[e]; }, f);
-    each_term(ring, [&](uint32_t tk, int j, bool) {
-      terms_fb<D>(dq, f, tk, j);
-    });
+#pragma unroll
+    for (int idx = 0; idx < kSplit; ++idx) {
+      terms_fb<D>(dq, f, banks.tile(bank_k, idx), kSplit - 1 - idx);
+      banks.release(bank_k, idx);
+    }
   }
 
   if (rows.dsb != nullptr && p.causal && n_kt * 64 < p.Lk)
