@@ -81,14 +81,25 @@ using namespace pt_bwd_sm90;
 using Params = BwdParams<float>;
 
 constexpr int kThreads = kConsumers + 32;  // a warpgroup and a producer warp
+constexpr int kLoadsPerTile = 3 * kSplit;  // A2 A1 A0 B2 B1 B0 A2 A1 A0
 
-// Shared memory of one CTA: the six resident term tiles, two banks of three
-// streamed ones (TermBanks), for dK/dV two buffers of 64 LSE and 64 Delta
-// values and the P^T stash, then the mbarriers.
+// The streamed tile n of the ring sequence: the twice-used operand ("A": K
+// for dQ, Q for dK/dV) or the other ("B": V; dO), and its term, smallest
+// first (sm90.cuh says why).
+__host__ __device__ constexpr bool streams_a(int n) {
+  return n % kLoadsPerTile < kSplit || n % kLoadsPerTile >= 2 * kSplit;
+}
+__host__ __device__ constexpr int streamed_term(int n) {
+  return kSplit - 1 - n % kSplit;
+}
+
+// Shared memory of one CTA: the six resident term tiles, the ring, for
+// dK/dV two buffers of 64 LSE and 64 Delta values and the P^T stash, then
+// the mbarriers.
 template <int D, bool kDkv>
 struct Layout {
   static constexpr uint32_t kTile = 64 * D * 2;  // one bf16 [64, D] tile
-  static constexpr int kSlots = 2 * kSplit;
+  static constexpr int kRing = D == 64 && kDkv ? 4 : 6;
   // resident term tile i: the first own operand's terms 0..2, the second's
   // 3..5
   __host__ __device__ static constexpr uint32_t res(int i) {
@@ -97,7 +108,7 @@ struct Layout {
   __host__ __device__ static constexpr uint32_t slot(int s) {
     return kTile * (2 * kSplit + s);
   }
-  static constexpr uint32_t kTiles = kTile * (2 * kSplit + kSlots);
+  static constexpr uint32_t kTiles = kTile * (2 * kSplit + kRing);
   __host__ __device__ static constexpr uint32_t stats(int i) {
     return kTiles + 512 * i;
   }
@@ -110,62 +121,54 @@ struct Layout {
     return bars + 8 * (1 + s);
   }
   __host__ __device__ static constexpr uint32_t empty(int s) {
-    return bars + 8 * (1 + kSlots + s);
+    return bars + 8 * (1 + kRing + s);
   }
   __host__ __device__ static constexpr uint32_t stats_full(int i) {
-    return bars + 8 * (1 + 2 * kSlots + i);
+    return bars + 8 * (1 + 2 * kRing + i);
   }
   __host__ __device__ static constexpr uint32_t stats_empty(int i) {
-    return bars + 8 * (3 + 2 * kSlots + i);
+    return bars + 8 * (3 + 2 * kRing + i);
   }
   // + 1024: the base is aligned up to the swizzle atom
-  static constexpr size_t kBytes = bars + 8 * (5 + 2 * kSlots) + 1024;
+  static constexpr size_t kBytes = bars + 8 * (5 + 2 * kRing) + 1024;
 };
 
-// The streamed operands: two banks of three term tiles (slots 0-2 and 3-5)
-// that take turns. Tile i's twice-used operand A (K for dQ, Q for dK/dV) is
-// in bank i & 1, its other operand B (V; dO) in the other bank, slot idx of
-// a bank holding term 2 - idx (smallest first, sm90.cuh says why). A stays
-// until its second product, and the next tile's A loads into B's bank as
-// soon as B's products are done, so each operand is read once per tile.
-// Every slot is filled once per tile: its k-th fill belongs to tile k,
-// phase k & 1 of its barriers.
+// The consumer's side of the ring: entry n in slot n % kRing, its k-th fill
+// completing phase k & 1 of the slot's `full` barrier.
 template <class L>
-struct TermBanks {
+struct RingReader {
   uint32_t base;
+  int n;
 
-  __host__ __device__ static constexpr int slot(int bank, int idx) {
-    return kSplit * bank + idx;
-  }
-  // The tile address, opaque to the compiler so that each wgmma descriptor
-  // is built where it is used.
-  __device__ __forceinline__ uint32_t tile(int bank, int idx) const {
-    uint32_t t = base + L::slot(slot(bank, idx));
-    asm volatile("" : "+r"(t));
-    return t;
-  }
-  // Wait for tile i's fill of the slot.
-  __device__ __forceinline__ uint32_t wait(int bank, int idx, int i) const {
-    mbar_wait(base + L::full(slot(bank, idx)), i & 1);
+  // Wait for the next entry; its tile address, opaque to the compiler so
+  // that each wgmma descriptor is built where it is used.
+  __device__ __forceinline__ uint32_t acquire() {
+    const int s = n % L::kRing;
+    mbar_wait(base + L::full(s), (n / L::kRing) & 1);
     __syncwarp();
-    return tile(bank, idx);
+    uint32_t tile = base + L::slot(s);
+    asm volatile("" : "+r"(tile));
+    return tile;
   }
-  // The slot's products have completed: hand it back.
-  __device__ __forceinline__ void release(int bank, int idx) const {
-    mbar_arrive(base + L::empty(slot(bank, idx)));
+
+  // The entry's products have completed: hand its slot back.
+  __device__ __forceinline__ void release() {
+    mbar_arrive(base + L::empty(n % L::kRing));
+    ++n;
   }
 };
 
-// The producer lane's loads: with n0 = 0 first the two resident operands'
-// terms at rows row0 of (b, h); then, for each tile i of n0 .. n1 - 1, the
-// terms 2, 1, 0 of A into bank i & 1 and of B into the other, at rows
-// row_of(i).
+// The producer lane's loads: the two resident operands' terms at rows
+// row0 of (b, h), then ring entries n0 .. n1 - 1, entry n at rows
+// row_of(n / kLoadsPerTile) of A or B.
 template <int D, class L, typename RowOf>
-__device__ __forceinline__ void produce(
-    uint32_t base, const Params& p, const CUtensorMap* res0, TmaPos pos0,
-    const CUtensorMap* res1, TmaPos pos1, int row0, const CUtensorMap* map_a,
-    TmaPos pos_a, const CUtensorMap* map_b, TmaPos pos_b, int h, int b,
-    int n0, int n1, RowOf row_of) {
+__device__ __forceinline__ void produce(uint32_t base, const Params& p,
+                                        const CUtensorMap* res0, TmaPos pos0,
+                                        const CUtensorMap* res1, TmaPos pos1,
+                                        int row0, const CUtensorMap* map_a,
+                                        TmaPos pos_a, const CUtensorMap* map_b,
+                                        TmaPos pos_b, int h, int b, int n0,
+                                        int n1, RowOf row_of) {
   if (n0 == 0) {
     mbar_arrive_expect_tx(base + L::res_full, 2 * kSplit * L::kTile);
     for (int a = 0; a < kSplit; ++a) {
@@ -175,6 +178,59 @@ __device__ __forceinline__ void produce(
                        row0, h, a * p.B + b, pos1);
     }
   }
+  for (int n = n0; n < n1; ++n) {
+    const int s = n % L::kRing;
+    const bool is_a = streams_a(n);
+    const int term = streamed_term(n);
+    mbar_wait(base + L::empty(s), ((n / L::kRing) & 1) ^ 1);
+    mbar_arrive_expect_tx(base + L::full(s), L::kTile);
+    tma_load_tile<D>(base + L::slot(s), is_a ? map_a : map_b, base + L::full(s),
+                     row_of(n / kLoadsPerTile), h, term * p.B + b,
+                     is_a ? pos_a : pos_b);
+  }
+}
+
+// Two banks of three term tiles (ring slots 0-2 and 3-5) that take turns:
+// tile i's twice-used operand A in bank i & 1, its other operand B in the
+// other bank. A stays until its second product, and the next tile's A loads
+// into B's bank as soon as B's product is done, so each operand is read
+// once per tile (six loads, not nine). Every slot is filled once per tile:
+// its k-th fill belongs to tile k, phase k & 1 of its barriers.
+template <class L>
+struct TermBanks {
+  uint32_t base;
+
+  __device__ __forceinline__ static int slot(int bank, int idx) {
+    return kSplit * bank + idx;
+  }
+  // Term tile idx (term 2 - idx) of `bank`, opaque to the compiler so that
+  // each wgmma descriptor is built where it is used.
+  __device__ __forceinline__ uint32_t tile(int bank, int idx) const {
+    uint32_t t = base + L::slot(slot(bank, idx));
+    asm volatile("" : "+r"(t));
+    return t;
+  }
+  __device__ __forceinline__ uint32_t wait(int bank, int idx, int i) const {
+    mbar_wait(base + L::full(slot(bank, idx)), i & 1);
+    __syncwarp();
+    return tile(bank, idx);
+  }
+  __device__ __forceinline__ void release(int bank, int idx) const {
+    mbar_arrive(base + L::empty(slot(bank, idx)));
+  }
+};
+
+// The producer lane's loads into TermBanks: the resident operands as in
+// produce, then per tile i of n0 .. n1 - 1 the terms 2, 1, 0 of A into bank
+// i & 1 and of B into the other, at rows row_of(i).
+template <int D, class L, typename RowOf>
+__device__ __forceinline__ void produce_banks(
+    uint32_t base, const Params& p, const CUtensorMap* res0, TmaPos pos0,
+    const CUtensorMap* res1, TmaPos pos1, int row0, const CUtensorMap* map_a,
+    TmaPos pos_a, const CUtensorMap* map_b, TmaPos pos_b, int h, int b,
+    int n0, int n1, RowOf row_of) {
+  produce<D, L>(base, p, res0, pos0, res1, pos1, row0, map_a, pos_a, map_b,
+                pos_b, h, b, 0, 0, row_of);
   for (int i = n0; i < n1; ++i) {
     for (int op = 0; op < 2; ++op) {
       const int bank = (i + op) & 1;
@@ -187,6 +243,18 @@ __device__ __forceinline__ void produce(
                          (kSplit - 1 - idx) * p.B + b, op == 0 ? pos_a : pos_b);
       }
     }
+  }
+}
+
+// Three ring entries of an operand's terms j = 2, 1, 0, each passed to
+// `use(tile, j, first)` (first: the first of the three) and released.
+template <class L, typename Use>
+__device__ __forceinline__ void each_term(RingReader<L>& ring, Use use) {
+#pragma unroll
+  for (int i = 0; i < kSplit; ++i) {
+    const uint32_t tile = ring.acquire();
+    use(tile, streamed_term(i), i == 0);
+    ring.release();
   }
 }
 
@@ -211,7 +279,7 @@ flash_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (tid == 0) {
     mbar_init(base + L::res_full, 1);
-    for (int s = 0; s < L::kSlots; ++s) {
+    for (int s = 0; s < L::kRing; ++s) {
       mbar_init(base + L::full(s), 1);
       mbar_init(base + L::empty(s), kConsumers);
     }
@@ -222,9 +290,9 @@ flash_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   if (tid >= kConsumers) {
     // ---- producer: one lane issues every copy
     if (tid == kConsumers)
-      produce<D, L>(base, p, &map_q, p.pos_q, &map_do, p.pos_do, q0, &map_k,
-                    p.pos_k, &map_v, p.pos_v, h, b, 0, n_kt,
-                    [](int i) { return 64 * i; });
+      produce_banks<D, L>(base, p, &map_q, p.pos_q, &map_do, p.pos_do, q0,
+                          &map_k, p.pos_k, &map_v, p.pos_v, h, b, 0, n_kt,
+                          [](int i) { return 64 * i; });
     return;
   }
 
@@ -280,7 +348,7 @@ flash_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 // One CTA per (b, h, 64 keys), the key tile the slowest grid dimension so
 // the early (heaviest causal) tiles of every (b, h) start first.
 template <int D, bool kDropout>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, D == 64 && !kDropout ? 2 : 1)
 flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                               const __grid_constant__ CUtensorMap map_k,
                               const __grid_constant__ CUtensorMap map_v,
@@ -301,7 +369,7 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (tid == 0) {
     mbar_init(base + L::res_full, 1);
-    for (int s = 0; s < L::kSlots; ++s) {
+    for (int s = 0; s < L::kRing; ++s) {
       mbar_init(base + L::full(s), 1);
       mbar_init(base + L::empty(s), kConsumers);
     }
@@ -331,7 +399,8 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_arrive(base + L::stats_full(i & 1));
       if (lane == 0)
         produce<D, L>(base, p, &map_k, p.pos_k, &map_v, p.pos_v, k0, &map_q,
-                      p.pos_q, &map_do, p.pos_do, h, b, i, i + 1, q_row);
+                      p.pos_q, &map_do, p.pos_do, h, b, i * kLoadsPerTile,
+                      (i + 1) * kLoadsPerTile, q_row);
       __syncwarp();
     }
     if (lane == 0 && n_iter == 0)  // the resident loads the consumers wait for
@@ -342,7 +411,7 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 
   // ---- consumer warpgroup: keys k0 .. k0 + 63
   const DkvRows rows(p, b, h, k0, tid);
-  const TermBanks<L> banks{base};
+  RingReader<L> ring{base, 0};
   float* const stash = reinterpret_cast<float*>(smem + L::stash) + tid;
   float dk[D / 2], dv[D / 2];
 #pragma unroll
@@ -361,12 +430,10 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     asm volatile("" : "+r"(tk), "+r"(tv));
 
     // ---- S^T = sum of K_a Q_j^T, then P^T, which waits in shared memory
-    const int bank_q = i & 1, bank_do = bank_q ^ 1;
     float st[32];
-#pragma unroll
-    for (int idx = 0; idx < kSplit; ++idx)
-      terms_abt<D>(st, tk, banks.wait(bank_q, idx, i), kSplit - 1 - idx,
-                   idx == 0);
+    each_term(ring, [&](uint32_t tq, int j, bool first) {
+      terms_abt<D>(st, tk, tq, j, first);
+    });
     mbar_wait(base + L::stats_full(i & 1), (i >> 1) & 1);
     const float* lse_s = reinterpret_cast<const float*>(smem + L::stats(i & 1));
     rows.probabilities(p, st, q0, k0, lse_s);
@@ -380,30 +447,26 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       return (keep >> e) & 1u ? stash[e * kConsumers] * kept : 0.f;
     };
     float dpt[32];
-#pragma unroll
-    for (int idx = 0; idx < kSplit; ++idx) {
-      const uint32_t tdo = banks.wait(bank_do, idx, i);
-      const int j = kSplit - 1 - idx;
-      uint32_t fpm[2][kSplit][4];
-      split_all<0, 2>(pm, fpm);
+    each_term(ring, [&](uint32_t tdo, int j, bool first) {
+      uint32_t h[2][kSplit][4];
+      split_all<0, 2>(pm, h);
       fence_operand(dpt);
       fence_operand(dv);
       wgmma_fence();
-      issue_terms_abt<D>(dpt, tv, tdo, j, idx == 0);
-      issue_terms_fb<D, 0, 2>(dv, fpm, tdo, j);
+      issue_terms_abt<D>(dpt, tv, tdo, j, first);
+      issue_terms_fb<D, 0, 2>(dv, h, tdo, j);
       wgmma_commit();
       wgmma_wait_all();
-      fence_terms(fpm, j);
+      fence_terms(h, j);
       fence_operand(dpt);
-      split_all<2, 2>(pm, fpm);
+      split_all<2, 2>(pm, h);
       wgmma_fence();
-      issue_terms_fb<D, 2, 2>(dv, fpm, tdo, j);
+      issue_terms_fb<D, 2, 2>(dv, h, tdo, j);
       wgmma_commit();
       wgmma_wait_all();
-      fence_terms(fpm, j);
+      fence_terms(h, j);
       fence_operand(dv);
-      banks.release(bank_do, idx);
-    }
+    });
 
     // ---- dS^T = P^T (dP^T M - Delta);  dK += sum of dS^T_a Q_j
     rows.grad_scores([&](int e) { return stash[e * kConsumers]; }, dpt, keep,
@@ -411,11 +474,9 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_arrive(base + L::stats_empty(i & 1));
     uint32_t f[4][kSplit][4];
     split_all([&](int e) { return dpt[e]; }, f);
-#pragma unroll
-    for (int idx = 0; idx < kSplit; ++idx) {
-      terms_fb<D>(dk, f, banks.tile(bank_q, idx), kSplit - 1 - idx);
-      banks.release(bank_q, idx);
-    }
+    each_term(ring, [&](uint32_t tq, int j, bool) {
+      terms_fb<D>(dk, f, tq, j);
+    });
   }
 
   rows.store<D>(p, b, h, dk, dv);
