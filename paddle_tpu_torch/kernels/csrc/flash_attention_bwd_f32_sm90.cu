@@ -36,23 +36,26 @@
 // (dQ: D / 2 floats a thread; dK and dV: 2 x D / 2) and one producer warp.
 // The tile's two own operands stay resident as their three terms each (Q
 // and dO for dQ, K and V for dK/dV: six [64, D] tiles, 96 KB at D = 128).
-// The other two stream through one ring of single term tiles in the order
-// the products use them, smallest term first (sm90.cuh says why), each
-// released as soon as its products completed:
-//   dQ,    per key tile:   K2 K1 K0 (S), V2 V1 V0 (dP), K2 K1 K0 (dS K)
-//   dK/dV, per query tile: Q2 Q1 Q0 (S^T), dO2 dO1 dO0 (dP^T and dV),
-//                          Q2 Q1 Q0 (dK)
-// The operand used twice (K; Q) is loaded twice, not held: holding its
-// three terms from the first product to the last would take 48 KB more of
-// the ring at D = 128 for a tile that is in L2 anyway, and nine loads of
-// 16 KB per 18 (dQ) or 24 (dK/dV) products of 64 x 64 x D are no more bytes
-// per FLOP than the float32 forward's six per twelve. Shared memory at
-// D = 128: 96 KB resident + 6 ring entries of 16 KB (+ for dK/dV the
-// query tiles' LSE and Delta and P^T's 16 KB stash), one CTA per SM with up
-// to 255 registers a thread. At D = 64 every tile is half as large: dQ
-// keeps 6 entries and dK/dV 4, two CTAs per SM (168 registers), as the
-// float32 forward runs, so that one CTA's exponentials and splits overlap
-// the other's products.
+// The other two stream by TMA as single term tiles, smallest term first
+// (sm90.cuh says why), each released as soon as its products completed.
+// One of them is used twice (K for S and for dS K; Q for S^T and for dS^T
+// Q), the other once (V; dO for dP^T and dV in the same pass):
+// - dQ holds K: two banks of three term tiles take turns (TermBanks), K's
+//   terms in one (K2 K1 K0: S, then dS K), V's in the other (V2 V1 V0:
+//   dP), and the next key tile's K loads into V's bank while dS K runs.
+//   Six loads per key tile; with K loaded twice (nine) dQ measured 8 %
+//   slower at D = 128 and 12 % at D = 64.
+// - dK/dV loads Q twice, through a ring of six entries (four at D = 64) in
+//   the order Q2 Q1 Q0 (S^T), dO2 dO1 dO0, Q2 Q1 Q0 (dK): at D = 64 it has
+//   no room for a second bank set beside its P^T stash at two CTAs per SM,
+//   and at one CTA per SM it measured 50 % slower (at D = 128 the banks
+//   were 4 % faster).
+// Shared memory at D = 128: 96 KB resident + 6 streamed tiles of 16 KB
+// (+ for dK/dV the query tiles' LSE and Delta and P^T's 16 KB stash), one
+// CTA per SM with up to 255 registers a thread. At D = 64 every tile is
+// half as large: two CTAs per SM (168 registers), as the float32 forward
+// runs, so that one CTA's exponentials and splits overlap the other's
+// products.
 //
 // Per tile, dQ: S (the K terms), P, dP (the V terms), dS in place of dP
 // (stored as float32 when asked for), dS's terms made once (48 registers),
@@ -81,11 +84,10 @@ using namespace pt_bwd_sm90;
 using Params = BwdParams<float>;
 
 constexpr int kThreads = kConsumers + 32;  // a warpgroup and a producer warp
-constexpr int kLoadsPerTile = 3 * kSplit;  // A2 A1 A0 B2 B1 B0 A2 A1 A0
+constexpr int kLoadsPerTile = 3 * kSplit;  // Q2 Q1 Q0 dO2 dO1 dO0 Q2 Q1 Q0
 
-// The streamed tile n of the ring sequence: the twice-used operand ("A": K
-// for dQ, Q for dK/dV) or the other ("B": V; dO), and its term, smallest
-// first (sm90.cuh says why).
+// Entry n of the dK/dV ring: the twice-used operand ("A": Q) or the other
+// ("B": dO), and its term, smallest first.
 __host__ __device__ constexpr bool streams_a(int n) {
   return n % kLoadsPerTile < kSplit || n % kLoadsPerTile >= 2 * kSplit;
 }
@@ -93,9 +95,9 @@ __host__ __device__ constexpr int streamed_term(int n) {
   return kSplit - 1 - n % kSplit;
 }
 
-// Shared memory of one CTA: the six resident term tiles, the ring, for
-// dK/dV two buffers of 64 LSE and 64 Delta values and the P^T stash, then
-// the mbarriers.
+// Shared memory of one CTA: the six resident term tiles, the streamed ones
+// (dQ: TermBanks; dK/dV: the ring), for dK/dV two buffers of 64 LSE and 64
+// Delta values and the P^T stash, then the mbarriers.
 template <int D, bool kDkv>
 struct Layout {
   static constexpr uint32_t kTile = 64 * D * 2;  // one bf16 [64, D] tile
@@ -133,8 +135,8 @@ struct Layout {
   static constexpr size_t kBytes = bars + 8 * (5 + 2 * kRing) + 1024;
 };
 
-// The consumer's side of the ring: entry n in slot n % kRing, its k-th fill
-// completing phase k & 1 of the slot's `full` barrier.
+// The consumer's side of the dK/dV ring: entry n in slot n % kRing, its k-th
+// fill completing phase k & 1 of the slot's `full` barrier.
 template <class L>
 struct RingReader {
   uint32_t base;
@@ -158,9 +160,9 @@ struct RingReader {
   }
 };
 
-// The producer lane's loads: the two resident operands' terms at rows
-// row0 of (b, h), then ring entries n0 .. n1 - 1, entry n at rows
-// row_of(n / kLoadsPerTile) of A or B.
+// The producer lane's loads: with n0 = 0 first the two resident operands'
+// terms at rows row0 of (b, h); then ring entries n0 .. n1 - 1, entry n at
+// rows row_of(n / kLoadsPerTile) of A or B.
 template <int D, class L, typename RowOf>
 __device__ __forceinline__ void produce(uint32_t base, const Params& p,
                                         const CUtensorMap* res0, TmaPos pos0,
@@ -190,12 +192,12 @@ __device__ __forceinline__ void produce(uint32_t base, const Params& p,
   }
 }
 
-// Two banks of three term tiles (ring slots 0-2 and 3-5) that take turns:
-// tile i's twice-used operand A in bank i & 1, its other operand B in the
-// other bank. A stays until its second product, and the next tile's A loads
-// into B's bank as soon as B's product is done, so each operand is read
-// once per tile (six loads, not nine). Every slot is filled once per tile:
-// its k-th fill belongs to tile k, phase k & 1 of its barriers.
+// The dQ kernel's streamed tiles: two banks of three term tiles (ring slots
+// 0-2 and 3-5) that take turns. Tile i's K terms are in bank i & 1, its V
+// terms in the other, slot idx of a bank holding term 2 - idx. K stays
+// until dS K, and the next tile's K loads into V's bank as soon as dP is
+// done, so each operand is read once per tile. Every slot is filled once
+// per tile: its k-th fill belongs to tile k, phase k & 1 of its barriers.
 template <class L>
 struct TermBanks {
   uint32_t base;
@@ -221,8 +223,8 @@ struct TermBanks {
 };
 
 // The producer lane's loads into TermBanks: the resident operands as in
-// produce, then per tile i of n0 .. n1 - 1 the terms 2, 1, 0 of A into bank
-// i & 1 and of B into the other, at rows row_of(i).
+// produce, then per tile i of n0 .. n1 - 1 the terms 2, 1, 0 of A (K) into
+// bank i & 1 and of B (V) into the other, at rows row_of(i).
 template <int D, class L, typename RowOf>
 __device__ __forceinline__ void produce_banks(
     uint32_t base, const Params& p, const CUtensorMap* res0, TmaPos pos0,
@@ -246,8 +248,8 @@ __device__ __forceinline__ void produce_banks(
   }
 }
 
-// Three ring entries of an operand's terms j = 2, 1, 0, each passed to
-// `use(tile, j, first)` (first: the first of the three) and released.
+// Three dK/dV ring entries of an operand's terms j = 2, 1, 0, each passed
+// to `use(tile, j, first)` (first: the first of the three) and released.
 template <class L, typename Use>
 __device__ __forceinline__ void each_term(RingReader<L>& ring, Use use) {
 #pragma unroll
