@@ -23,7 +23,9 @@
 // (K Q^T, V dO^T, P^T dO, dS^T Q): 6D and 8D FLOP, against a few bytes per
 // row of HBM traffic, so both are bound by operations (the dS output, when
 // asked for, adds 4 bytes per pair). They run on the CUDA cores in FMA,
-// like the forward kernel; tensor cores are later work.
+// like the forward kernel. Only D = 256 is routed here: at D = 64 and 128
+// bf16 takes flash_attention_bwd_{dq,dkv}_sm90.cu and float32
+// flash_attention_bwd_f32_sm90.cu, on the tensor cores.
 //
 // Design:
 // - dQ: one 256-thread block per (b, h, 64-row query tile), looping over

@@ -3,9 +3,10 @@
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py `_bwd_dkv_kernel` (:269,
 // pallas_call at :513 in `_flash_bwd_impl`, :411), for bf16 q/k/v/dO at
-// head dims 64 and 128. float32 inputs and D = 256 keep the FMA kernel of
-// flash_attention_bwd.cu, and so does dQ for every input; the Python
-// wrapper routes by (dtype, D).
+// head dims 64 and 128. float32 inputs take flash_attention_bwd_f32_sm90.cu,
+// D = 256 the FMA kernel of flash_attention_bwd.cu; the Python wrapper
+// routes by (dtype, D). The score-tile code is shared with the other
+// Hopper backward kernels (flash_bwd_sm90.cuh).
 //
 // Computes what the FMA dK/dV kernel computes, per (b, h) and key tile: with
 // P = exp(S * scale + bias - LSE) (0 above the top-left causal diagonal and

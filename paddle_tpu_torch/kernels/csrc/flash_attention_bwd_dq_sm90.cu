@@ -3,8 +3,10 @@
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py `_bwd_dq_kernel` (:198,
 // pallas_call at :466 in `_flash_bwd_impl`, :411), for bf16 q/k/v/dO at
-// head dims 64 and 128. float32 inputs and D = 256 keep the FMA dQ kernel of
-// flash_attention_bwd.cu; the Python wrapper routes by (dtype, D).
+// head dims 64 and 128. float32 inputs take flash_attention_bwd_f32_sm90.cu,
+// D = 256 the FMA dQ kernel of flash_attention_bwd.cu; the Python wrapper
+// routes by (dtype, D). The score-tile code is shared with the other
+// Hopper backward kernels (flash_bwd_sm90.cuh).
 //
 // Computes what the FMA dQ kernel computes, per (b, h) and query tile: with
 // P = exp(S * scale + bias - LSE) (0 above the top-left causal diagonal and
