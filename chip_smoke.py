@@ -370,6 +370,9 @@ def _fwd_cases(g):
                   True, None, "wgmma", bf16_tol))
     cases.append(("d64_causal_bf16_B2_L1024", *_views(g, 2, 1024, 16, 64, torch.bfloat16),
                   True, None, "wgmma", bf16_tol))
+    # bench.py bench_gpt_primary's attention: [8, 16, 1024, 64] bf16, causal
+    cases.append(("primary_bf16_B8_L1024", *_views(g, 8, 1024, 16, 64, torch.bfloat16),
+                  True, None, "wgmma", bf16_tol))
     cases.append(("d256_causal_bf16_L1024", *_views(g, 1, 1024, 8, 256, torch.bfloat16),
                   True, None, "fma", bf16_tol))
     for dtype, D, route, tol in ((torch.float32, 128, "wgmma_f32", f32_tol),
@@ -525,10 +528,12 @@ def _bwd_cases(g):
         cases.append((f"ragged_causal_{_dtype_name(q)}_L1500", q, k, v,
                       rn(1, 1500, 16, 128).to(dtype).transpose(1, 2), True,
                       None, route))
-    # D = 64 at the training batch (bench_gpt_primary's head dim), and D = 256
+    # D = 64 at the training batch and at bench_gpt_primary's batch of 8,
+    # and D = 256
     for dtype, D, B, H, route in ((torch.float32, 64, 2, 16, "wgmma_f32"),
                                   (torch.float32, 256, 1, 8, "fma"),
                                   (torch.bfloat16, 64, 2, 16, "wgmma"),
+                                  (torch.bfloat16, 64, 8, 16, "wgmma"),
                                   (torch.bfloat16, 256, 1, 8, "fma")):
         q, k, v, do = (rn(B, H, 1024, D).to(dtype) for _ in range(4))
         cases.append((f"d{D}_causal_{_dtype_name(q)}_B{B}_L1024", q, k, v, do,

@@ -734,6 +734,15 @@ def _launch_bwd_sm90(which: str, route: str, q, k, v, bias, do, lse, delta,
     _check_stats(lse, delta, (B, H, Lq), q.device)
     bias, bias_strides = _kernel_bias(bias, B, H, Lq, Lk, q.device)
     ops = (q, k, v, do) if route == "wgmma" else terms
+    if route == "wgmma_f32":
+        # TMA reads past a tensor's end as zeros: a wrong shape would be a
+        # wrong gradient, not a fault
+        for name, t, x in zip(("q", "k", "v", "do"), terms, (q, k, v, do)):
+            want = (3 * B, *x.shape[1:])
+            if t.dtype != torch.bfloat16 or tuple(t.shape) != want \
+                    or not t.is_contiguous() or t.device != q.device:
+                raise ValueError(f"the terms of {name} must be contiguous "
+                                 f"bf16 {want} on {q.device}")
     strides = (*out_strides, *bias_strides)
     with torch.cuda.device(q.device):
         err = _bwd_sm90_fn(which, route)(

@@ -315,6 +315,23 @@ def test_float32_backward_takes_the_tensor_cores_at_64_and_128(which, d,
     assert tfa.kernel_route(torch.float32, d, which) == route
 
 
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+def test_backward_refuses_terms_of_another_shape(which):
+    """The wgmma_f32 kernels read the given terms by TMA, which reads past a
+    tensor's end as zeros: terms that are not [3 B, H, L, D] bf16 raise
+    before any launch."""
+    q = torch.zeros(2, 2, 64, 64)
+    stats = torch.zeros(2, 2, 64)
+    good = tfa._backward_terms(q, q, q, q)
+    wrapper = getattr(tfa, f"flash_attention_bwd_{which}")
+    for bad in ((good[0][:3], *good[1:]),
+                (*good[:3], good[3].float()),
+                (good[0], good[1].transpose(2, 3).contiguous()
+                 .transpose(2, 3), *good[2:])):
+        with pytest.raises(ValueError, match="terms of"):
+            wrapper(q, q, q, None, q, stats, stats, True, terms=bad)
+
+
 def test_kernel_route_refuses_an_unknown_kernel():
     with pytest.raises(ValueError, match="fwd, dq or dkv"):
         tfa.kernel_route(torch.float32, 128, "bwd")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's training step, on one GPU.
 
-    python3 tools/torch_train_profile.py [--seed N]
+    python3 tools/torch_train_profile.py [--seed N] [--dtype float32]
 
 Builds the GPT-3 1.3B pretrain step of ``bench.py``'s ``bench_gpt_1p3b``
 on ``cuda`` (hidden 2048, 24 layers, 16 heads, vocab 50304, 1024
@@ -15,6 +15,10 @@ weight decay 0.01) under ``amp.decorate`` O2 bf16; random weights from
   GPU-kernel time by kernel and the launch count, per step, and the
   device's busy share (kernel time over the untraced step time) and idle
   share (one minus it).
+
+``--dtype float32`` trains the same model in float32 instead (no
+``amp.decorate``: float32 parameters, as the reference keeps them, and
+the float32 attention kernels, route ``wgmma_f32``).
 
 One JSON line per measurement; the card's name and power limit first.
 Needs a CUDA device (exits 1 without one). Imports nothing of JAX.
@@ -68,7 +72,10 @@ def _profile(fn, calls: int):
 def _group(name: str) -> str:
     """A coarse class of a GPU kernel, by its name."""
     n = name.lower()
-    route = "wgmma" if "sm90" in n else "FMA"
+    route = "wgmma_f32" if "f32_sm90" in n else "wgmma" if "sm90" in n \
+        else "FMA"
+    if "split_terms" in n:
+        return "flash operand split (ours)"
     if "flash_fwd" in n:
         return f"flash forward (ours, {route})"
     if "flash_bwd_dq" in n:
@@ -91,6 +98,9 @@ def _group(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16",
+                    help="bfloat16: O2 (bench_gpt_1p3b); float32: no amp")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -110,16 +120,16 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    _emit(card=card, torch=torch.__version__)
+    _emit(card=card, torch=torch.__version__, dtype=args.dtype)
     cfg = gpt_1p3b(max_position_embeddings=SEQ, hidden_dropout_prob=0.0,
                    attention_dropout_prob=0.0, use_recompute=True,
                    use_flash_attention=True, loss_chunk=256, dtype="bfloat16")
     framework_random.seed(args.seed)
     model = GPTForCausalLM(cfg, device="cuda", generator=torch.Generator(
         "cuda").manual_seed(args.seed)).train()
-    model, opt = amp.decorate(model, AdamW(learning_rate=1e-4,
-                                           weight_decay=0.01),
-                              level="O2", dtype="bfloat16")
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01)
+    if args.dtype == "bfloat16":
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
     step = TrainStep(model, opt, loss_fn=None)
     ids = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32)
