@@ -396,8 +396,9 @@ __device__ __forceinline__ void wgmma_kmajor_product(float (&d)[32],
 // to the accumulator's magnitude, so every product added to a large
 // accumulator loses up to an ulp of it. Where a product cancels (dP against
 // Delta in the backward: a row that sees few keys gives dP - Delta near 0),
-// adding the five small pairs after the main one cost 48 such ulps (2.9e-5
-// on dS; the reference's atol is 2e-5). The backward kernels therefore
+// adding the five small pairs after the main one cost up to 48 such ulps,
+// more than the reference's atol (2e-5) on dS, and the backward's tests
+// failed at rows that see one to three keys. The backward kernels therefore
 // stream the terms j = 2, 1, 0, and every product issues a = 2 - j down to
 // 0: the small pairs accumulate first, at their own magnitude, and only the
 // main pair's D / 16 steps see the full one. The forward keeps the order it
