@@ -412,11 +412,6 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   // ---- consumer warpgroup: keys k0 .. k0 + 63
-  // 16-column slices of (P M)^T per dV wgmma group: all four where the
-  // registers hold their 48 fragments beside dK, dV and dP^T (D = 128
-  // without dropout), two elsewhere (all four spilled at D = 64 with two
-  // CTAs per SM, and at D = 128 with dropout)
-  constexpr int kPart = D == 128 && !kDropout ? 4 : 2;
   const DkvRows rows(p, b, h, k0, tid);
   RingReader<L> ring{base, 0};
   float* const stash = reinterpret_cast<float*>(smem + L::stash) + tid;
@@ -448,30 +443,30 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int e = 0; e < 32; ++e) stash[e * kConsumers] = st[e];
 
     // ---- per dO term: dP^T += V_a dO_j^T and dV += (P M)^T_a dO_j. (P M)^T
-    // is split from the stash kPart 16-column slices at a time, so that
-    // only those fragments are live beside dK, dV and dP^T: 4 / kPart wgmma
-    // groups per term, the first with dP^T's products.
+    // is split from the stash twice per term, 32 columns at a time, so
+    // that only half its fragments are live beside dK, dV and dP^T.
     const auto pm = [&](int e) {
       return (keep >> e) & 1u ? stash[e * kConsumers] * kept : 0.f;
     };
     float dpt[32];
     each_term(ring, [&](uint32_t tdo, int j, bool first) {
-      uint32_t fpm[kPart][kSplit][4];
-#pragma unroll
-      for (int g = 0; g < 4 / kPart; ++g) {
-        split_all(pm, fpm, g * kPart);
-        if (g == 0) {
-          fence_operand(dpt);
-          fence_operand(dv);
-        }
-        wgmma_fence();
-        if (g == 0) issue_terms_abt<D>(dpt, tv, tdo, j, first);
-        issue_terms_fb<D, kPart>(dv, fpm, tdo, j, g * kPart);
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_terms(fpm, j);
-        if (g == 0) fence_operand(dpt);
-      }
+      uint32_t h[2][kSplit][4];
+      split_all<0, 2>(pm, h);
+      fence_operand(dpt);
+      fence_operand(dv);
+      wgmma_fence();
+      issue_terms_abt<D>(dpt, tv, tdo, j, first);
+      issue_terms_fb<D, 0, 2>(dv, h, tdo, j);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_terms(h, j);
+      fence_operand(dpt);
+      split_all<2, 2>(pm, h);
+      wgmma_fence();
+      issue_terms_fb<D, 2, 2>(dv, h, tdo, j);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_terms(h, j);
       fence_operand(dv);
     });
 

@@ -426,16 +426,16 @@ __device__ __forceinline__ void issue_terms_abt(float (&s)[32], uint32_t ta,
 }
 
 // Issue O += sum over a <= 2 - j of F_a B_j over the 16-column slices
-// k0 .. k0 + NK - 1 of F, whose terms are A fragments (f[i][a]: term a of
-// slice k0 + i), B_j the transposed (MN-major) [64, D] term tile at tb.
+// K0 .. K0 + NK - 1 of F, whose terms are A fragments (f[i][a]: term a of
+// slice K0 + i), B_j the transposed (MN-major) [64, D] term tile at tb.
 // Neither fences nor waits.
-template <int D, int NK = 4, bool kSmallFirst = true>
+template <int D, int K0 = 0, int NK = 4, bool kSmallFirst = true>
 __device__ __forceinline__ void issue_terms_fb(
     float (&o)[D / 2], const uint32_t (&f)[NK][kSplit][4], uint32_t tb,
-    int j, int k0 = 0) {
+    int j) {
 #pragma unroll
   for (int i = 0; i < NK; ++i) {
-    const uint64_t desc = mnmajor_desc(tb, k0 + i);
+    const uint64_t desc = mnmajor_desc(tb, K0 + i);
 #pragma unroll
     for (int n = 0; n < kSplit; ++n) {
       const int a = kSmallFirst ? kSplit - 1 - n : n;
@@ -477,7 +477,7 @@ __device__ __forceinline__ void terms_fb(float (&o)[D / 2],
                                          uint32_t tb, int j) {
   fence_operand(o);
   wgmma_fence();
-  issue_terms_fb<D, 4, kSmallFirst>(o, f, tb, j);
+  issue_terms_fb<D, 0, 4, kSmallFirst>(o, f, tb, j);
   wgmma_commit();
   wgmma_wait_all();
 #pragma unroll
@@ -485,13 +485,13 @@ __device__ __forceinline__ void terms_fb(float (&o)[D / 2],
   fence_operand(o);
 }
 
-// The A fragments f[i][a] of the 16-column slices k0 .. k0 + NK - 1 of a
+// The A fragments f[i][a] of the 16-column slices K0 .. K0 + NK - 1 of a
 // float32 64 x 64 matrix whose element i is `a(i)` (split_slice per slice).
-template <int NK, typename Elem>
-__device__ __forceinline__ void split_all(Elem a, uint32_t (&f)[NK][kSplit][4],
-                                          int k0 = 0) {
+template <int K0 = 0, int NK = 4, typename Elem>
+__device__ __forceinline__ void split_all(Elem a,
+                                          uint32_t (&f)[NK][kSplit][4]) {
 #pragma unroll
-  for (int i = 0; i < NK; ++i) split_slice(a, k0 + i, f[i]);
+  for (int i = 0; i < NK; ++i) split_slice(a, K0 + i, f[i]);
 }
 
 // ------------------------------------------------------------ host side
