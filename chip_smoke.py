@@ -25,7 +25,9 @@ exits non-zero:
                FMA at D = 256, each case checked for both routes; dS as the
                bias gradient, also causal; the wgmma dQ and the wgmma_f32
                dQ and dK/dV replayed bit for bit; the whole backward wrapper,
-               with Delta and the split pre-pass, timed beside SDPA's),
+               with Delta and the split pre-pass, timed beside SDPA's; the
+               FMA dQ and dK/dV, which the wgmma_f32 ones replace, timed
+               beside them at [2,16,1024,128] and [2,16,1024,64]),
                and dropout (the CUDA Philox mask against the plain one bit
                for bit, its keep rate, replay of a fixed seed, and forward
                and backward at p = 0.1 given the same mask). Times the

@@ -232,7 +232,7 @@ __device__ __forceinline__ void produce_banks(
     TmaPos pos_a, const CUtensorMap* map_b, TmaPos pos_b, int h, int b,
     int n0, int n1, RowOf row_of) {
   produce<D, L>(base, p, res0, pos0, res1, pos1, row0, map_a, pos_a, map_b,
-                pos_b, h, b, 0, 0, row_of);
+                pos_b, h, b, n0, n0, row_of);
   for (int i = n0; i < n1; ++i) {
     for (int op = 0; op < 2; ++op) {
       const int bank = (i + op) & 1;
