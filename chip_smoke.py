@@ -754,7 +754,8 @@ def phase_dropout(seed: int) -> dict:
         for key, x, y in zip(("dq", "dk", "dv"), got, ref):
             errs[key] = check_close(f"{name} {key}", x, y, bwd_tolerance(y))
         delta = (do.float() * o.float()).sum(-1).contiguous()
-        do_k = do if routes["dq"] != "wgmma" or fa._tma_ok(do) else do.contiguous()
+        do_k = (do if routes["dq"] != "wgmma" or fa._tma_ok(do)
+                else do.contiguous())
         out[name] = dict(
             errors=errs, routes=routes,
             fwd_ms=cuda_ms(lambda: fa.flash_attention_fwd(

@@ -80,7 +80,8 @@ constexpr int kThreads = kDkvConsumers + 128;  // + one producer warpgroup
 // tile and split fragments, grow to 232.
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
-static_assert((168 - kProducerRegs) * 128 >= (kConsumerRegs - 168) * kDkvConsumers,
+static_assert((168 - kProducerRegs) * 128 >=
+                  (kConsumerRegs - 168) * kDkvConsumers,
               "the producer must free what the consumers take");
 
 template <int D>

@@ -455,7 +455,8 @@ __device__ __forceinline__ void fence_terms(uint32_t (&f)[NK][kSplit][4],
     for (int a = 0; a < kSplit; ++a)
       if (a + j < kSplit)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(f[i][a][r])::"memory");
+        for (int r = 0; r < 4; ++r)
+          asm volatile("" : "+r"(f[i][a][r])::"memory");
 }
 
 // issue_terms_abt, committed and waited for.
