@@ -11,26 +11,31 @@ exits non-zero:
                (nvcc, one library per source, all started together), fails
                on a register spill in the five wgmma sources, and holds the
                wgmma/TMA self-check (a 64 x 64 x D product through each
-               descriptor form, in bf16 and through the float32 forward's
-               three-term products) against a float64 product.
+               descriptor form, in bf16 at D = 64, 128 and 256 and through
+               the float32 forward's three-term products at 64 and 128)
+               against a float64 product.
 3. kernels   - calls each kernel's wrapper on the card at the shapes the
                serving and training paths give it, and holds the result
                against its plain PyTorch version on the same inputs (stated
                tolerance): the forward kernels (wgmma_f32 for float32 at
                D = 64 and 128 with its bf16-term split pre-pass, which must
                equal its plain version bit for bit; wgmma for bf16 at D = 64
-               and 128; FMA at D = 256; each case checked for its route),
-               the dQ and dK/dV backward kernels
-               (wgmma for bf16 and wgmma_f32 for float32 at D = 64 and 128,
-               FMA at D = 256, each case checked for both routes; dS as the
-               bias gradient, also causal; the wgmma dQ and the wgmma_f32
-               dQ and dK/dV replayed bit for bit; the whole backward wrapper,
-               with Delta and the split pre-pass, timed beside SDPA's; the
-               FMA dQ and dK/dV, which the wgmma_f32 ones replace, timed
-               beside them at [2,16,1024,128] and [2,16,1024,64]),
-               and dropout (the CUDA Philox mask against the plain one bit
-               for bit, its keep rate, replay of a fixed seed, and forward
-               and backward at p = 0.1 given the same mask). Times the
+               and 128, and at 256 for bf16; FMA for float32 at D = 256;
+               each case checked for its route; the FMA forward timed
+               beside the wgmma one at bf16 D = 256), the dQ and dK/dV
+               backward kernels (wgmma for bf16 and wgmma_f32 for float32
+               at D = 64 and 128; at bf16 D = 256 the wgmma dK/dV and the
+               FMA dQ; FMA for float32 at D = 256; each case checked for
+               the route of each kernel; dS as the bias gradient, also
+               causal; every tensor-core kernel replayed bit for bit; the
+               whole backward wrapper, with Delta and the split pre-pass,
+               timed beside SDPA's; the FMA dQ and dK/dV, which the
+               tensor-core ones replace, timed beside them at
+               [2,16,1024,128] and [2,16,1024,64] float32 and at
+               [1,8,1024,256] and [2,16,1024,256] bf16), and dropout (the
+               CUDA Philox mask against the plain one bit for bit, its keep
+               rate, replay of a fixed seed, and forward and backward at
+               p = 0.1 given the same mask, also at bf16 D = 256). Times the
                kernel and one PyTorch library call computing the same
                function (a yardstick the port never calls) in turns, as the
                median and range of 6 loops of 20 calls each, the plain
@@ -56,6 +61,10 @@ exits non-zero:
                per-parameter gradients within tolerance), and a 2-layer
                full-width bf16 dropout run on the wgmma kernels that
                replays bit for bit from its seed.
+6. d256      - the same bf16 O2 step at gpt_1p3b width with 8 heads of 256
+               and 2 layers: one step with the kernels (exactly 4 wgmma
+               forward, 2 wgmma dK/dV and 2 FMA dQ launches) and one with
+               plain attention, the losses equal within two bf16 ulps.
 
 Then a line with the kernels' summary, a line with the card's name and
 power limit, and the last line {"ok": true, "device": {...}}.
@@ -334,8 +343,8 @@ def phase_build(seed: int) -> None:
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     out = {}
-    for dtype, D in ((dt, D) for dt in (torch.bfloat16, torch.float32)
-                     for D in fa.WGMMA_HEAD_DIMS):
+    for dtype, D in ([(torch.bfloat16, D) for D in fa.WGMMA_BF16_HEAD_DIMS["fwd"]]
+                     + [(torch.float32, D) for D in fa.WGMMA_HEAD_DIMS]):
         a, b, c1, c2 = fa.wgmma_selfcheck(D, "cuda", g, dtype=dtype)
         torch.cuda.synchronize()
         for name, got, x, y in (("kmajor", c1, a, b.T), ("transposed_b", c2,
@@ -375,8 +384,11 @@ def _fwd_cases(g):
     # bench.py bench_gpt_primary's attention: [8, 16, 1024, 64] bf16, causal
     cases.append(("primary_bf16_B8_L1024", *_views(g, 8, 1024, 16, 64, torch.bfloat16),
                   True, None, "wgmma", bf16_tol))
+    # D = 256: no model on a path; the wgmma forward at two sizes
     cases.append(("d256_causal_bf16_L1024", *_views(g, 1, 1024, 8, 256, torch.bfloat16),
-                  True, None, "fma", bf16_tol))
+                  True, None, "wgmma", bf16_tol))
+    cases.append(("d256_causal_bf16_B2_L1024", *_views(g, 2, 1024, 16, 256, torch.bfloat16),
+                  True, None, "wgmma", bf16_tol))
     for dtype, D, route, tol in ((torch.float32, 128, "wgmma_f32", f32_tol),
                                  (torch.bfloat16, 64, "wgmma", bf16_tol)):
         q = torch.randn(1, 16, 384, D, generator=g, device="cuda").to(dtype)
@@ -417,6 +429,11 @@ def split_case(fa, name, q, k, v) -> dict:
     return out
 
 
+# the bf16 cases at which the FMA forward, which the wgmma one replaces at
+# D = 256, is timed beside it
+FWD_FMA_COMPARED = ("d256_causal_bf16_L1024", "d256_causal_bf16_B2_L1024")
+
+
 def phase_kernels(seed: int) -> dict:
     """The forward kernels against their plain version."""
     import torch
@@ -442,11 +459,16 @@ def phase_kernels(seed: int) -> dict:
         num = check_close(name, o, o_ref, output_tolerance(o_ref, route))
         lse_err = check_close(f"{name} lse", lse, lse_ref,
                               lse_tolerance(lse_ref, route))["max_abs_err"]
-        t = timed_in_turns({
-            "kernel": lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
-                                                     bias=bias),
-            "library": lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=bias, is_causal=causal)})
+        fns = {"kernel": lambda: fa.flash_attention_fwd(q, k, v,
+                                                        causal=causal,
+                                                        bias=bias),
+               "library": lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=bias, is_causal=causal)}
+        if name in FWD_FMA_COMPARED:
+            # the FMA forward on the same inputs, launched directly: timing
+            fns["fma"] = lambda: fa._launch_fwd(q, k, v, causal, bias, None,
+                                                0.0, 0, route="fma")
+        t = timed_in_turns(fns)
         plain_ms = cuda_ms(lambda: fa.reference_attention_fwd(
             q, k, v, causal=causal, bias=bias), iters=5)
         B, H, Lq, D = q.shape
@@ -467,6 +489,10 @@ def phase_kernels(seed: int) -> dict:
                                                t["library"]["max"]],
                              bound_ms=bound_ms, bound_by=bound_by,
                              roofline_share=bound_ms / ms)
+        if "fma" in t:
+            results[name].update(fma_ms=t["fma"]["median"],
+                                 fma_ms_range=[t["fma"]["min"],
+                                               t["fma"]["max"]])
         emit("kernels", case=name, **results[name])
     return results
 
@@ -494,9 +520,14 @@ def _sdpa_fns(q, k, v, do, bias, causal):
     return fwd, fwd_bwd
 
 
+def _both(route):
+    """The routes of a backward case whose dQ and dK/dV take one route."""
+    return {"dq": route, "dkv": route}
+
+
 def _bwd_cases(g):
-    """(name, q, k, v, dO, causal, bias, route) of the backward checks; the
-    route is that of both the dQ and the dK/dV kernel."""
+    """(name, q, k, v, dO, causal, bias, routes) of the backward checks;
+    ``routes`` holds the route of the dQ and of the dK/dV kernel."""
     import torch
 
     def rn(*shape):
@@ -510,47 +541,54 @@ def _bwd_cases(g):
         q, k, v = _views(g, 2, 1024, 16, 128, dtype)
         do = rn(2, 1024, 16, 128).to(dtype).transpose(1, 2)
         cases.append((f"train_{_dtype_name(q)}_B2_L1024", q, k, v, do, True,
-                      None, route))
+                      None, _both(route)))
     for dtype, D, route in ((torch.float32, 128, "wgmma_f32"),
                             (torch.bfloat16, 64, "wgmma")):
         q, k, v = (rn(1, 16, n, D).to(dtype) for n in (384, 640, 640))
         cases.append((f"bias_noncausal_{_dtype_name(q)}_d{D}_Lq384_Lk640", q,
                       k, v, rn(1, 16, 384, D).to(dtype), False,
-                      rn(1, 16, 384, 640), route))
+                      rn(1, 16, 384, 640), _both(route)))
     # a trained bias under the causal mask: dS of the key tiles no row of a
     # query tile sees must come back as zeros
     for dtype, route in ((torch.bfloat16, "wgmma"),
                          (torch.float32, "wgmma_f32")):
         q, k, v, do = (rn(1, 16, 1024, 128).to(dtype) for _ in range(4))
         cases.append((f"causal_bias_{_dtype_name(q)}_L1024", q, k, v, do,
-                      True, rn(1, 16, 1024, 1024), route))
+                      True, rn(1, 16, 1024, 1024), _both(route)))
     for dtype, route in ((torch.float32, "wgmma_f32"),
                          (torch.bfloat16, "wgmma")):
         q, k, v = _views(g, 1, 1500, 16, 128, dtype)
         cases.append((f"ragged_causal_{_dtype_name(q)}_L1500", q, k, v,
                       rn(1, 1500, 16, 128).to(dtype).transpose(1, 2), True,
-                      None, route))
+                      None, _both(route)))
     # D = 64 at the training batch and at bench_gpt_primary's batch of 8,
-    # and D = 256
-    for dtype, D, B, H, route in ((torch.float32, 64, 2, 16, "wgmma_f32"),
-                                  (torch.float32, 256, 1, 8, "fma"),
-                                  (torch.bfloat16, 64, 2, 16, "wgmma"),
-                                  (torch.bfloat16, 64, 8, 16, "wgmma"),
-                                  (torch.bfloat16, 256, 1, 8, "fma")):
+    # and D = 256 (bf16: the wgmma dK/dV beside the FMA dQ)
+    d256_bf16 = {"dq": "fma", "dkv": "wgmma"}
+    for dtype, D, B, H, routes in (
+            (torch.float32, 64, 2, 16, _both("wgmma_f32")),
+            (torch.float32, 256, 1, 8, _both("fma")),
+            (torch.bfloat16, 64, 2, 16, _both("wgmma")),
+            (torch.bfloat16, 64, 8, 16, _both("wgmma")),
+            (torch.bfloat16, 256, 1, 8, d256_bf16),
+            (torch.bfloat16, 256, 2, 16, d256_bf16)):
         q, k, v, do = (rn(B, H, 1024, D).to(dtype) for _ in range(4))
         cases.append((f"d{D}_causal_{_dtype_name(q)}_B{B}_L1024", q, k, v, do,
-                      True, None, route))
+                      True, None, routes))
     return cases
 
 
-# the float32 cases at which the FMA dQ and dK/dV kernels, which the
-# wgmma_f32 ones replace at D = 64 and 128, are timed beside them
-FMA_COMPARED = ("train_float32_B2_L1024", "d64_causal_float32_B2_L1024")
+# the cases at which the FMA dQ and dK/dV kernels, which the tensor-core ones
+# replace (the wgmma_f32 pair at float32 D = 64 and 128, the wgmma dK/dV at
+# bf16 D = 256), are timed beside them
+FMA_COMPARED = ("train_float32_B2_L1024", "d64_causal_float32_B2_L1024",
+                "d256_causal_bfloat16_B1_L1024",
+                "d256_causal_bfloat16_B2_L1024")
 
 
 def _fma_bwd_fns(fa, q, k, v, bias, do, lse, delta, causal, emit_ds):
     """The FMA dQ and dK/dV kernels on the same inputs, launched directly
-    (the route sends float32 at D = 64 and 128 elsewhere): timing only."""
+    (the route sends float32 at D = 64 and 128, and the bf16 dK/dV at
+    D = 256, elsewhere): timing only."""
     import torch
 
     def dq_fma():
@@ -583,10 +621,10 @@ def phase_backward(seed: int) -> dict:
         fa.reset_launch_counts()
         got = fa.flash_attention_bwd(q, k, v, bias, o, lse, do, causal)
         torch.cuda.synchronize()
-        route = _route_of(fa, "dkv")
-        if (route, _route_of(fa, "dq")) != (want, want):
+        routes = {w: _route_of(fa, w) for w in ("dq", "dkv")}
+        if routes != want:
             raise AssertionError(f"{name}: backward took {fa.launch_counts()}"
-                                 f", expected dQ and dK/dV {want}")
+                                 f", expected {want}")
         dq, dk, dv, ds = fa.reference_attention_bwd(q, k, v, bias, o, lse, do,
                                                     causal)
         refs = {"dq": dq, "dk": dk, "dv": dv}
@@ -598,9 +636,10 @@ def phase_backward(seed: int) -> dict:
                                     bwd_tolerance(ref))
         delta = (do.float() * o.float()).sum(-1).contiguous()
         emit_ds = bias is not None
-        do_k = do if route != "wgmma" or fa._tma_ok(do) else do.contiguous()
+        used = set(routes.values())
+        do_k = do if "wgmma" not in used or fa._tma_ok(do) else do.contiguous()
         # the wgmma_f32 kernels read the split's terms: timed apart from it
-        terms = fa._backward_terms(q, k, v, do_k) if route == "wgmma_f32" \
+        terms = fa._backward_terms(q, k, v, do_k) if "wgmma_f32" in used \
             else None
 
         def dq_call():
@@ -612,20 +651,22 @@ def phase_backward(seed: int) -> dict:
             return fa.flash_attention_bwd_dkv(q, k, v, bias, do_k, lse, delta,
                                               causal, terms=terms)
 
-        if route != "fma":
-            # no atomics: the same inputs give the same dQ (and dS), dK, dV
-            calls = (dq_call, dkv_call) if route == "wgmma_f32" else (dq_call,)
+        # no atomics: the same inputs give the same dQ (and dS), dK, dV from
+        # every tensor-core kernel
+        calls = [c for w, c in (("dq", dq_call), ("dkv", dkv_call))
+                 if routes[w] != "fma"]
+        if calls:
             first, again = ([x for c in calls for x in c() if x is not None]
                             for _ in range(2))
             if not all(torch.equal(a, b) for a, b in zip(first, again)):
-                raise AssertionError(f"{name}: the {route} backward does not "
-                                     f"replay bit for bit")
+                raise AssertionError(f"{name}: the {routes} backward does "
+                                     f"not replay bit for bit")
         sdpa_fwd, sdpa_fwd_bwd = _sdpa_fns(q, k, v, do, bias, causal)
         fns = {"dq": dq_call, "dkv": dkv_call,
                "bwd": lambda: fa.flash_attention_bwd(q, k, v, bias, o, lse,
                                                      do, causal),
                "sdpa_fwd": sdpa_fwd, "sdpa_fwd_bwd": sdpa_fwd_bwd}
-        if route == "wgmma_f32":
+        if terms is not None:
             fns["split"] = lambda: fa._backward_terms(q, k, v, do_k)
         if name in FMA_COMPARED:
             fns.update(_fma_bwd_fns(fa, q, k, v, bias, do_k, lse, delta,
@@ -638,18 +679,18 @@ def phase_backward(seed: int) -> dict:
         Lk = k.shape[2]
         common = (B, H, Lq, Lk, D, causal, q.element_size(),
                   0 if bias is None else bias.numel() * 4)
-        tc = route != "fma"
-        pairs = 6 if route == "wgmma_f32" else 1
-        dq_bound, dq_by = bwd_bound_ms("dq", *common,
-                                       B * H * Lq * Lk * 4 if emit_ds else 0,
-                                       tensor_cores=tc, term_pairs=pairs)
-        dkv_bound, dkv_by = bwd_bound_ms("dkv", *common, 0, tensor_cores=tc,
-                                         term_pairs=pairs)
+        dq_bound, dq_by = bwd_bound_ms(
+            "dq", *common, B * H * Lq * Lk * 4 if emit_ds else 0,
+            tensor_cores=routes["dq"] != "fma",
+            term_pairs=6 if routes["dq"] == "wgmma_f32" else 1)
+        dkv_bound, dkv_by = bwd_bound_ms(
+            "dkv", *common, 0, tensor_cores=routes["dkv"] != "fma",
+            term_pairs=6 if routes["dkv"] == "wgmma_f32" else 1)
         dq_ms, dkv_ms = t["dq"]["median"], t["dkv"]["median"]
         results[name] = dict(
             shape=[B, H, Lq, Lk, D], dtype=_dtype_name(q), causal=causal,
-            bias=bias is not None, route=route, errors=errs,
-            replay_bit_exact=route != "fma" or None,
+            bias=bias is not None, routes=routes, errors=errs,
+            replay_bit_exact=bool(calls) or None,
             tol=("2 bf16 ulps + 1e-5 of max" if q.dtype == torch.bfloat16
                  else f"rtol {BWD_RTOL} atol {BWD_ATOL}"),
             dq_ms=dq_ms, dq_ms_range=[t["dq"]["min"], t["dq"]["max"]],
@@ -722,7 +763,8 @@ def phase_dropout(seed: int) -> dict:
     out = dict(mask_bits_equal_plain=True, keep_rate=kept / n,
                keep_rate_sigma=sigma / n, mask_bound_ms=mask_bound_ms,
                mask_bound_by="operations")
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, D in ((torch.float32, D), (torch.bfloat16, D),
+                     (torch.bfloat16, 256)):
         q, k, v = _views(g, B, L, H, D, dtype)
         do = torch.randn(B, L, H, D, generator=g, device="cuda").to(dtype) \
             .transpose(1, 2)
@@ -745,7 +787,7 @@ def phase_dropout(seed: int) -> dict:
             raise AssertionError("dropout kernels do not replay a fixed seed")
         o_ref, lse_ref = fa.reference_attention_fwd(q, k, v, causal=True,
                                                     keep_mask=keep)
-        name = f"dropout_{_dtype_name(q)}_B2_L1024"
+        name = f"dropout_{_dtype_name(q)}{'_d256' if D == 256 else ''}_B2_L1024"
         errs = {"o": check_close(f"{name} o", o, o_ref,
                                  output_tolerance(o_ref, routes["fwd"]))}
         errs["lse"] = check_close(f"{name} lse", lse, lse_ref,
@@ -754,17 +796,17 @@ def phase_dropout(seed: int) -> dict:
         for key, x, y in zip(("dq", "dk", "dv"), got, ref):
             errs[key] = check_close(f"{name} {key}", x, y, bwd_tolerance(y))
         delta = (do.float() * o.float()).sum(-1).contiguous()
-        do_k = (do if routes["dq"] != "wgmma" or fa._tma_ok(do)
+        do_k = (do if "wgmma" not in routes.values() or fa._tma_ok(do)
                 else do.contiguous())
         out[name] = dict(
-            errors=errs, routes=routes,
+            head_dim=D, errors=errs, routes=routes,
             fwd_ms=cuda_ms(lambda: fa.flash_attention_fwd(
                 q, k, v, causal=True, dropout_p=DROPOUT_P, seed=mseed)),
             dq_ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(
                 q, k, v, None, do_k, lse, delta, True, DROPOUT_P, mseed)),
             dkv_ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv(
                 q, k, v, None, do_k, lse, delta, True, DROPOUT_P, mseed)))
-    emit("dropout", p=DROPOUT_P, shape=[B, H, L, L, D], **out)
+    emit("dropout", p=DROPOUT_P, shape=[B, H, L, L], **out)
     return out
 
 
@@ -1064,6 +1106,49 @@ def phase_dropout_replay(seed: int) -> dict:
     return out
 
 
+def phase_d256_step(seed: int) -> dict:
+    """The bf16 O2 step at gpt_1p3b width with 8 heads of 256 (D = 256) and
+    2 layers: one step with the flash kernels and one from the same seed
+    with plain attention; the losses agree within BF16_ULPS bf16 ulps, and
+    the kernel step launches exactly 2 forwards per layer (recompute
+    included) on the wgmma route, and one dK/dV (wgmma) and one dQ (FMA)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    cfg = _train_config(num_layers=2, num_heads=8)
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    n = cfg.num_layers
+    need = (0, 2 * n, 0, n, 0, 0, 0, n, 0)
+
+    def one_step(flash: bool):
+        step = _o2_step(_train_config(num_layers=2, num_heads=8,
+                                      use_flash_attention=flash), seed, seed)
+        fa.reset_launch_counts()
+        loss = float(step((ids, ids)))
+        return loss, _counts(fa)
+
+    loss_k, launches = one_step(True)
+    _free()
+    loss_p, plain_launches = one_step(False)
+    if launches != need or any(plain_launches):
+        raise AssertionError(f"D = 256 step launches {_COUNT_NAMES} "
+                             f"{launches}, expected {need}; the plain step "
+                             f"{plain_launches}")
+    tol = BF16_ULPS * bf16_ulp(torch.tensor(loss_p)).item()
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= tol):
+        raise AssertionError(f"D = 256 step: loss {loss_k} with the kernels, "
+                             f"{loss_p} with plain attention (limit {tol})")
+    out = dict(model="gpt_1p3b width, 8 heads of 256, 2 layers, O2 bf16",
+               head_dim=cfg.hidden_size // cfg.num_heads, layers=n,
+               loss_kernel=loss_k, loss_plain=loss_p, tol=tol,
+               launches=dict(zip(_COUNT_NAMES, launches)))
+    emit("d256_step", **out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1093,6 +1178,8 @@ def main(argv=None) -> int:
     parity = phase_train_parity(args.seed)
     _free()
     phase_dropout_replay(args.seed)
+    _free()
+    d256 = phase_d256_step(args.seed)
 
     src = "paddle_tpu_torch/kernels/csrc/"
     ref = "paddle_tpu/kernels/flash_attention.py:"
@@ -1125,22 +1212,29 @@ def main(argv=None) -> int:
     step = "training (bf16 O2 step)"
     f32_step = "training (float32 parity run)"
     prefill = "serving (float32 prefill)"
+    d256_step = "training (bf16 O2 step, D = 256, 2 layers)"
+    d256_counts = d256["launches"]
     kernels = [
         fwd_row("flash_attention_fwd_f32_sm90",
                 "flash_attention_fwd_f32_sm90.cu", "prefill_f32_L2048",
                 serve["flash_launches"], prefill),
         fwd_row("split_bf16_terms", "flash_attention_fwd_f32_sm90.cu",
                 "split_prefill_f32_L2048", serve["split_launches"], prefill),
-        # no main path runs a forward at D = 256 since float32 prefill
+        # no path runs a float32 forward at D = 256 since float32 prefill
         # moved to wgmma_f32: 0 launches there, timed at its own case
         fwd_row("flash_attention_fwd", "flash_attention_fwd.cu",
                 "d256_causal_f32_L1024", 0, None),
         fwd_row("flash_attention_fwd_sm90", "flash_attention_fwd_sm90.cu",
                 "train_bf16_B2_L1024", train["launches"]["fwd_wgmma"], step),
-        # no main path runs a backward at D = 256 since float32 training
+        fwd_row("flash_attention_fwd_sm90_d256", "flash_attention_fwd_sm90.cu",
+                "d256_causal_bf16_L1024", d256_counts["fwd_wgmma"], d256_step),
+        # no path runs a float32 backward at D = 256 since float32 training
         # moved to wgmma_f32: 0 launches there, timed at its own case
         bwd_row("flash_attention_bwd_dq", "flash_attention_bwd.cu", "dq",
                 "d256_causal_float32_B1_L1024", 0, None),
+        bwd_row("flash_attention_bwd_dq_bf16_d256", "flash_attention_bwd.cu",
+                "dq", "d256_causal_bfloat16_B1_L1024", d256_counts["dq_fma"],
+                d256_step),
         bwd_row("flash_attention_bwd_dq_sm90",
                 "flash_attention_bwd_dq_sm90.cu", "dq",
                 "train_bfloat16_B2_L1024", train["launches"]["dq_wgmma"],
@@ -1155,6 +1249,10 @@ def main(argv=None) -> int:
                 "flash_attention_bwd_dkv_sm90.cu", "dkv",
                 "train_bfloat16_B2_L1024", train["launches"]["dkv_wgmma"],
                 step),
+        bwd_row("flash_attention_bwd_dkv_sm90_d256",
+                "flash_attention_bwd_dkv_sm90.cu", "dkv",
+                "d256_causal_bfloat16_B1_L1024", d256_counts["dkv_wgmma"],
+                d256_step),
         bwd_row("flash_attention_bwd_dkv_f32_sm90",
                 "flash_attention_bwd_f32_sm90.cu", "dkv",
                 "train_float32_B2_L1024", parity["launches"]["dkv_wgmma_f32"],

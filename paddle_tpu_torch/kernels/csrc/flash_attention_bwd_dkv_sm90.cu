@@ -3,10 +3,11 @@
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py `_bwd_dkv_kernel` (:269,
 // pallas_call at :513 in `_flash_bwd_impl`, :411), for bf16 q/k/v/dO at
-// head dims 64 and 128. float32 inputs take flash_attention_bwd_f32_sm90.cu,
-// D = 256 the FMA kernel of flash_attention_bwd.cu; the Python wrapper
-// routes by (dtype, D). The score-tile code is shared with the other
-// Hopper backward kernels (flash_bwd_sm90.cuh).
+// head dims 64, 128 and 256. float32 inputs take
+// flash_attention_bwd_f32_sm90.cu (D 64/128) or the FMA kernel of
+// flash_attention_bwd.cu (D = 256); the Python wrapper routes by (dtype, D,
+// kernel). The score-tile code is shared with the other Hopper backward
+// kernels (flash_bwd_sm90.cuh).
 //
 // Computes what the FMA dK/dV kernel computes, per (b, h) and key tile: with
 // P = exp(S * scale + bias - LSE) (0 above the top-left causal diagonal and
@@ -50,11 +51,21 @@
 //   while the tile is in flight; S^T = K Q^T (m64n64k16 wgmmas, both
 //   operands K-major in shared memory) and P^T on the accumulator fragment;
 //   dV += (P M)^T dO with (P M)^T as register A fragments, made 16 columns
-//   at a time (m64nDk16, dO the transposed B operand); then dP^T = V dO^T,
-//   dS^T = P^T (dP^T M - Delta) and dK += dS^T Q the same way. P^T and the
-//   keep bits wait in shared memory while dP^T is made, so at most 32 score
-//   values and one slice of fragments are live beside dK and dV: no spills
-//   within the 232 registers;
+//   at a time (m64nNk16, dO the transposed B operand); then dP^T = V dO^T,
+//   dS^T = P^T (dP^T M - Delta) and dK += dS^T Q the same way. P^T waits
+//   in shared memory while dP^T is made (a dropped element with its sign
+//   bit set, so the keep bits need no word of their own), so at most 32
+//   score values and one slice of fragments are live beside dK and dV: no
+//   spills within the 168 registers that this toolkit's ptxas gives the
+//   consumers (it does not raise their allocation past the launch's after
+//   setmaxnreg);
+// - D = 256 (DkvShape<256>): dK and dV of 64 keys are 256 floats a thread,
+//   more than a thread can hold, so a warpgroup owns N = 128 of their
+//   columns: its dV and dK products read the 128-column half of the dO and
+//   Q tiles (the descriptor starts two atoms in, sm90.cuh), while S^T and
+//   dP^T still contract over all 256. See DkvShape<256> for how the halves
+//   are laid out over warpgroups and CTAs, and the layouts measured against
+//   it;
 // - dK is scaled once at the end; no atomics, so a run replays bit for bit;
 // - the dropout bits are the per-element Philox words of (seed, b, h, query,
 //   key), the same the forward and the FMA dQ kernel draw.
@@ -70,43 +81,75 @@ namespace {
 using namespace pt_bwd_sm90;
 using DkvParams = BwdParams<__nv_bfloat16>;
 
-constexpr int kStages = 2;
-constexpr int kGroups = 2;  // consumer warpgroups, 64 key rows each
-constexpr int kDkvConsumers = 128 * kGroups;
-constexpr int kThreads = kDkvConsumers + 128;  // + one producer warpgroup
-// Registers a thread: a CTA of 384 threads launches with 168 each (65536 /
-// 384); the producer warpgroup gives 128 of them back (setmaxnreg), which
-// is exactly what lets the 256 consumer threads, holding dK, dV, a score
-// tile and split fragments, grow to 232.
+// The CTA's shape per head dim: kGroups consumer warpgroups, each owning kN
+// columns of dK and dV for 64 keys; with kShareKeys the warpgroups own one
+// 64-key tile and a column range each, else a 64-key tile each; kStages
+// entries in the Q/dO ring. A CTA covers kKeyTiles 64-key tiles and kN
+// columns per warpgroup; the D / (kN x column ranges per CTA) CTAs that
+// share its keys (kHalves) are adjacent in the grid.
+template <int D>
+struct DkvShape {
+  static constexpr int kN = D;
+  static constexpr int kGroups = 2;
+  static constexpr bool kShareKeys = false;
+  static constexpr int kStages = 2;
+};
+
+// D = 256: each warpgroup holds dK and dV for 128 of the columns.
+template <>
+struct DkvShape<256> {
+  static constexpr int kN = 128;
+  static constexpr int kGroups = 2;
+  static constexpr bool kShareKeys = true;
+  static constexpr int kStages = 2;
+};
+
+template <int D>
+struct DkvDerived {
+  using S = DkvShape<D>;
+  static constexpr int kKeyTiles = S::kShareKeys ? 1 : S::kGroups;
+  static constexpr int kHalves = D / S::kN / (S::kShareKeys ? S::kGroups : 1);
+  static constexpr int kConsumerThreads = 128 * S::kGroups;
+  // two consumer warpgroups and a producer warpgroup (setmaxnreg), or one
+  // consumer warpgroup and a producer warp
+  static constexpr int kThreads =
+      S::kGroups == 2 ? kConsumerThreads + 128 : kConsumerThreads + 32;
+};
+
+// Registers a thread of a two-warpgroup CTA: it launches with 168 each
+// (65536 / 384); the producer warpgroup gives 128 of them back (setmaxnreg)
+// for the consumers' 232.
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
-static_assert((168 - kProducerRegs) * 128 >=
-                  (kConsumerRegs - 168) * kDkvConsumers,
+static_assert((168 - kProducerRegs) * 128 >= (kConsumerRegs - 168) * 256,
               "the producer must free what the consumers take");
 
 template <int D>
 struct DkvLayout {
+  using S = DkvShape<D>;
+  using X = DkvDerived<D>;
+  static constexpr int kStages = S::kStages;
   static constexpr uint32_t kTile = 64 * D * 2;
-  // K and V of warpgroup g's 64 keys
+  // K and V of 64-key tile g
   __host__ __device__ static constexpr uint32_t k(int g) { return kTile * g; }
   __host__ __device__ static constexpr uint32_t v(int g) {
-    return kTile * (kGroups + g);
+    return kTile * (X::kKeyTiles + g);
   }
   __host__ __device__ static constexpr uint32_t q(int s) {
-    return kTile * (2 * kGroups + 2 * s);
+    return kTile * (2 * X::kKeyTiles + 2 * s);
   }
   __host__ __device__ static constexpr uint32_t dout(int s) {
-    return kTile * (2 * kGroups + 2 * s + 1);
+    return kTile * (2 * X::kKeyTiles + 2 * s + 1);
   }
   // per stage: 64 floats of LSE, then 64 of Delta
-  static constexpr uint32_t kRing = kTile * (2 * kGroups + 2 * kStages);
+  static constexpr uint32_t kRing = kTile * (2 * X::kKeyTiles + 2 * kStages);
   __host__ __device__ static constexpr uint32_t stats(int s) {
     return kRing + 512 * s;
   }
-  // each consumer thread's 32 values of P^T and its dropout keep bits,
-  // parked while dP^T is made (word e of thread tid at e * kDkvConsumers + tid)
+  // each consumer thread's 32 values of P^T, parked while dP^T is made
+  // (word e of thread tid at e * kConsumerThreads + tid)
   static constexpr uint32_t stash = kRing + 512 * kStages;
-  static constexpr uint32_t bars = stash + 4 * 33 * kDkvConsumers;
+  static constexpr uint32_t bars = stash + 4 * 32 * X::kConsumerThreads;
   static constexpr uint32_t kv_full = bars;
   __host__ __device__ static constexpr uint32_t full(int s) {
     return bars + 8 * (1 + s);
@@ -120,23 +163,30 @@ struct DkvLayout {
 // kDropout: the dropout draws are compiled only into the instantiation that
 // uses them.
 template <int D, bool kDropout>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(DkvDerived<D>::kThreads, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
                           const __grid_constant__ CUtensorMap map_do,
                           const DkvParams p) {
+  using S = DkvShape<D>;
+  using X = DkvDerived<D>;
   using L = DkvLayout<D>;
+  constexpr int kStages = S::kStages;
+  constexpr int kN = S::kN;
+  constexpr int kConsumerThreads = X::kConsumerThreads;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* const smem = smem_raw + (base - smem_u32(smem_raw));
   const float* stats_ptr = reinterpret_cast<const float*>(smem);
 
   // The key tile is the slowest grid dimension, so the early (heaviest
-  // causal) tiles of every (b, h) start first.
+  // causal) tiles of every (b, h) start first; the CTAs that share its keys
+  // (column ranges) follow each other.
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int k0 = blockIdx.z * 64 * kGroups;
+  const int k0 = (blockIdx.z / X::kHalves) * 64 * X::kKeyTiles;
+  const int half = blockIdx.z % X::kHalves;
   // causal (top-left): query tile qt holds a kept pair of these keys iff its
   // last row reaches k0
   const int n_qt = (p.Lq + 63) / 64;
@@ -148,23 +198,24 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_init(base + L::kv_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(base + L::full(s), 1 + 32);
-      mbar_init(base + L::empty(s), kDkvConsumers);
+      mbar_init(base + L::empty(s), kConsumerThreads);
     }
     fence_barrier_init();
   }
   __syncthreads();
 
-  if (tid >= kDkvConsumers) {
-    // ---- producer warpgroup: its first warp works (lane 0 issues the TMA
-    // copies, all 32 lanes copy the tile's LSE and Delta rows); the other
-    // three only give their registers back
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    const int lane = tid - kDkvConsumers;
+  if (tid >= kConsumerThreads) {
+    // ---- producer: its first warp works (lane 0 issues the TMA copies, all
+    // 32 lanes copy the tile's LSE and Delta rows); the other three warps of
+    // a producer warpgroup only give their registers back
+    if constexpr (S::kGroups == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int lane = tid - kConsumerThreads;
     if (lane >= 32) return;
     const long long row_base = ((long long)b * p.H + h) * p.Lq;
     if (lane == 0) {
-      mbar_arrive_expect_tx(base + L::kv_full, 2 * kGroups * L::kTile);
-      for (int g = 0; g < kGroups; ++g) {
+      mbar_arrive_expect_tx(base + L::kv_full, 2 * X::kKeyTiles * L::kTile);
+      for (int g = 0; g < X::kKeyTiles; ++g) {
         tma_load_tile<D>(base + L::k(g), &map_k, base + L::kv_full,
                          k0 + 64 * g, h, b, p.pos_k);
         tma_load_tile<D>(base + L::v(g), &map_v, base + L::kv_full,
@@ -192,16 +243,23 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_arrive(base + L::full(s));
     }
   } else {
-    // ---- consumer warpgroups: warpgroup wg owns keys kw0 .. kw0 + 63
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    // ---- consumer warpgroup wg: keys kw0 .. kw0 + 63, dK and dV columns
+    // col0 .. col0 + kN - 1
+    if constexpr (S::kGroups == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     const int wg = tid / 128;
-    const int kw0 = k0 + 64 * wg;
-    const uint32_t tile_k = base + L::k(wg), tile_v = base + L::v(wg);
+    const int key_tile = S::kShareKeys ? 0 : wg;
+    const int kw0 = k0 + 64 * key_tile;
+    const int col0 = kN * (S::kShareKeys ? wg : half);
+    const uint32_t tile_k = base + L::k(key_tile),
+                   tile_v = base + L::v(key_tile);
+    // the dO and Q columns the dV and dK products read: col0 / 64 atoms in
+    const uint32_t cols = (col0 / 64) * kAtomBytes;
     const DkvRows rows(p, b, h, kw0, tid);
 
-    float dk[D / 2], dv[D / 2];
+    float dk[kN / 2], dv[kN / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) {
+    for (int i = 0; i < kN / 2; ++i) {
       dk[i] = 0.f;
       dv[i] = 0.f;
     }
@@ -210,17 +268,21 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int i = 0; i < n_iter; ++i) {
       const int s = i % kStages;
       const int q0 = (qt0 + i) * 64;
-      if (p.causal && q0 + 63 < kw0) {
-        // every pair of this query tile is masked for these keys
-        mbar_arrive(base + L::empty(s));
-        continue;
-      }
+      // causal: every pair of this query tile is masked for these keys
+      const bool skip = p.causal && q0 + 63 < kw0;
       // the dropout keep bits of this thread's 32 elements (one register, so
       // the Philox words are drawn once and no float mask stays live),
       // drawn before the tile is waited for
       uint32_t keep = 0xffffffffu;
-      if constexpr (kDropout) keep = rows.keep_bits(p, b, h, q0);
+      if (kDropout && !skip) keep = rows.keep_bits(p, b, h, q0);
       mbar_wait(base + L::full(s), (i / kStages) & 1);
+      if (skip) {
+        // released only once it has arrived: an early release could count
+        // toward the stage's previous tile, and a skipped wait would leave
+        // the next wait on this stage a phase behind
+        mbar_arrive(base + L::empty(s));
+        continue;
+      }
       __syncwarp();
 
       // ---- P^T = exp(K Q^T * scale + bias - LSE), 0 where masked
@@ -232,40 +294,52 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 
       // ---- dV += (P M)^T dO, (P M)^T made slice by slice
       const auto mul = [&](int e) { return (keep >> e) & 1u ? kept : 0.f; };
-      wgmma_split_product<D, true>(
-          dv, [&](int e) { return st[e] * mul(e); }, base + L::dout(s));
+      wgmma_split_product<kN, 1>(
+          dv, [&](int e) { return st[e] * mul(e); }, base + L::dout(s) + cols);
       // P^T waits in shared memory while dP^T takes its registers: with dK
-      // and dV live, holding both score tiles would spill
+      // and dV live, holding both score tiles would spill. A dropped
+      // element is parked negated (P^T >= 0, so its sign bit is the mask).
       float* stash = reinterpret_cast<float*>(smem + L::stash) + tid;
 #pragma unroll
-      for (int e = 0; e < 32; ++e) stash[e * kDkvConsumers] = st[e];
-      if constexpr (kDropout)
-        reinterpret_cast<uint32_t*>(stash)[32 * kDkvConsumers] = keep;
+      for (int e = 0; e < 32; ++e)
+        stash[e * kConsumerThreads] =
+            kDropout && !((keep >> e) & 1u) ? -st[e] : st[e];
 
       // ---- dS^T = P^T (V dO^T M - Delta);  dK += dS^T Q
       float dpt[32];
       wgmma_kmajor_product<D>(dpt, tile_v, base + L::dout(s));
-      if constexpr (kDropout)
-        keep = reinterpret_cast<const uint32_t*>(stash)[32 * kDkvConsumers];
-      rows.grad_scores([&](int e) { return stash[e * kDkvConsumers]; }, dpt,
-                       keep, kept, lse_s + 64);
-      wgmma_split_product<D, true>(dk, [&](int e) { return dpt[e]; },
-                                   base + L::q(s));
+      if constexpr (kDropout) {
+        keep = 0u;
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          keep |= ((__float_as_uint(stash[e * kConsumerThreads]) >> 31) ^ 1u)
+                  << e;
+      }
+      rows.grad_scores(
+          [&](int e) {
+            const float x = stash[e * kConsumerThreads];
+            return kDropout ? fabsf(x) : x;
+          },
+          dpt, keep, kept, lse_s + 64);
+      wgmma_split_product<kN, 1>(dk, [&](int e) { return dpt[e]; },
+                                 base + L::q(s) + cols);
       mbar_arrive(base + L::empty(s));
     }
 
     // ---- dK * scale and dV, bf16, through their strides
-    rows.store<D>(p, b, h, dk, dv);
+    rows.store<kN>(p, b, h, dk, dv, col0);
   }
 }
 
 template <int D, bool kDropout>
 cudaError_t launch(const CUtensorMap (&maps)[4], const DkvParams& p,
                    cudaStream_t stream) {
+  using X = DkvDerived<D>;
   static unsigned smem_set = 0;
-  return launch_bwd(flash_bwd_dkv_sm90_kernel<D, kDropout>, kThreads,
+  const int key_ctas = (p.Lk + 64 * X::kKeyTiles - 1) / (64 * X::kKeyTiles);
+  return launch_bwd(flash_bwd_dkv_sm90_kernel<D, kDropout>, X::kThreads,
                     DkvLayout<D>::kBytes, smem_set, maps, p,
-                    (p.Lk + 64 * kGroups - 1) / (64 * kGroups), stream);
+                    key_ctas * X::kHalves, stream);
 }
 
 }  // namespace
@@ -274,9 +348,9 @@ cudaError_t launch(const CUtensorMap (&maps)[4], const DkvParams& p,
 // geometry words each in `geo` (q, k, v, dout in that order; sm90.cuh).
 // lse and delta: float32 [B, H, Lq], contiguous. dk, dv: bf16, written
 // through (batch, head, row) element strides strides[0..2] and [3..5];
-// bias (may be null): float32, strides[6..8] (0 where broadcast). D: 64 or
-// 128. Dropout as in pt_flash_attention_fwd. Returns the cudaError_t of the
-// launch.
+// bias (may be null): float32, strides[6..8] (0 where broadcast). D: 64,
+// 128 or 256. Dropout as in pt_flash_attention_fwd. Returns the cudaError_t
+// of the launch.
 extern "C" int pt_flash_attention_bwd_dkv_sm90(
     const void* q, const void* k, const void* v, const void* bias,
     const void* dout, const void* lse, const void* delta, void* dk, void* dv,
@@ -298,5 +372,8 @@ extern "C" int pt_flash_attention_bwd_dkv_sm90(
   if (D == 128)
     return (int)(drop ? launch<128, true>(maps, p, s)
                       : launch<128, false>(maps, p, s));
+  if (D == 256)
+    return (int)(drop ? launch<256, true>(maps, p, s)
+                      : launch<256, false>(maps, p, s));
   return (int)cudaErrorInvalidValue;
 }

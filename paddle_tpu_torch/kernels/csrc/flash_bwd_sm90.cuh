@@ -331,15 +331,16 @@ struct DkvRows {
       }
   }
 
-  // dK * scale and dV through their strides.
-  template <int D, typename Out>
+  // dK * scale and dV through their strides: N columns from column col0.
+  template <int N, typename Out>
   __device__ __forceinline__ void store(const BwdParams<Out>& p, int b, int h,
-                                        const float (&dk)[D / 2],
-                                        const float (&dv)[D / 2]) const {
-    store_rows<D>(p.out0 + b * p.out0_st[0] + h * p.out0_st[1], p.out0_st[2],
-                  kj0, kj1, p.Lk, t, dk, p.scale);
-    store_rows<D>(p.out1 + b * p.out1_st[0] + h * p.out1_st[1], p.out1_st[2],
-                  kj0, kj1, p.Lk, t, dv, 1.f);
+                                        const float (&dk)[N / 2],
+                                        const float (&dv)[N / 2],
+                                        int col0 = 0) const {
+    store_rows<N>(p.out0 + b * p.out0_st[0] + h * p.out0_st[1] + col0,
+                  p.out0_st[2], kj0, kj1, p.Lk, t, dk, p.scale);
+    store_rows<N>(p.out1 + b * p.out1_st[0] + h * p.out1_st[1] + col0,
+                  p.out1_st[2], kj0, kj1, p.Lk, t, dv, 1.f);
   }
 };
 

@@ -6,9 +6,10 @@
 // CUTLASS/CuTe).
 //
 // Shared-memory tile layout. Every operand tile is 64 rows of a [rows, D]
-// bf16 matrix (D = 64 or 128), loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B.
-// That swizzle caps a box's inner extent at 128 bytes, so a row of D = 128 is
-// two boxes: the tile is stored as D / 64 "atoms", atom a holding columns
+// bf16 matrix (D = 64, 128 or 256), loaded by TMA with
+// CU_TENSOR_MAP_SWIZZLE_128B. That swizzle caps a box's inner extent at 128
+// bytes, so a row of D = 128 is two boxes and one of D = 256 four: the tile
+// is stored as D / 64 "atoms", atom a holding columns
 // 64a .. 64a + 63 of all 64 rows (64 x 128 B = 8 KB), each atom 1024-byte
 // aligned, rows 128 B apart and XOR-swizzled in groups of 8 rows (1024 B).
 //
@@ -22,6 +23,8 @@
 //   dimension: V in P V, dO and Q in the dK/dV products): the k-th 16-row
 //   slice starts 16 rows (2048 B) further on; SBO = 1024 B steps 8 rows
 //   along K, LBO = 8 KB steps from one 64-column atom to the next along N.
+//   A product over the columns 128 h .. 128 h + 127 of a D = 256 tile (the
+//   dK/dV kernel's halves) starts its descriptor 2 h atoms in.
 // A wrong descriptor gives a plausible wrong answer, not a fault; the
 // exported pt_sm90_selfcheck runs both forms against torch.matmul.
 //
@@ -251,6 +254,68 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// D[64 x 256] (+)= A[64 x 16] B[16 x 256], A in registers (the fragment of
+// `a`), B MN-major (transposed) in shared memory: the four 64-column atoms
+// of a D = 256 tile, LBO apart.
+__device__ __forceinline__ void wgmma_rs_n256_tb(float (&d)[128],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 // D[64 x N] += A B for an A fragment in registers and a transposed B tile.
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
@@ -258,9 +323,11 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
                                             uint64_t desc_b) {
   if constexpr (N == 64) {
     wgmma_rs_n64_tb(d, a, desc_b, 1);
-  } else {
-    static_assert(N == 128, "wgmma_rs_tb: N must be 64 or 128");
+  } else if constexpr (N == 128) {
     wgmma_rs_n128_tb(d, a, desc_b, 1);
+  } else {
+    static_assert(N == 256, "wgmma_rs_tb: N must be 64, 128 or 256");
+    wgmma_rs_n256_tb(d, a, desc_b, 1);
   }
 }
 
@@ -322,46 +389,34 @@ __device__ __forceinline__ void fence_fragments(uint32_t (&f)[M][4]) {
 }
 
 // D[64 x N] += A B for a float32 64 x 64 matrix A with element i `a(i)`,
-// taken as its kSplit bf16 terms, waited for. kSliceWait commits and waits
-// per 16-column slice, so only that slice's values and fragments are live:
-// fewer registers (the dK/dV kernel needs that beside its two
-// accumulators), at the price of three more waits.
-template <int N, bool kSliceWait, typename Elem>
+// taken as its kSplit bf16 terms, waited for. The four 16-column slices go
+// in groups of kSlices (1, 2 or 4), each group committed and waited for, so
+// only that group's values and fragments are live: fewer registers (the
+// dK/dV kernel needs that beside its two accumulators, the D = 256 forward
+// beside its 128-float O), at the price of more waits.
+template <int N, int kSlices, typename Elem>
 __device__ __forceinline__ void wgmma_split_product(float (&d)[N / 2], Elem a,
                                                     uint32_t tile_b) {
-  if constexpr (kSliceWait) {
+  static_assert(kSlices == 1 || kSlices == 2 || kSlices == 4,
+                "wgmma_split_product: 1, 2 or 4 slices per wait");
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t f[kSplit][4];
-      split_slice(a, kk, f);
-      fence_operand(d);
-      wgmma_fence();
-      const uint64_t desc = mnmajor_desc(tile_b, kk);
+  for (int k0 = 0; k0 < 4; k0 += kSlices) {
+    uint32_t f[kSlices][kSplit][4];
 #pragma unroll
-      for (int term = 0; term < kSplit; ++term)
-        wgmma_rs_tb<N>(d, f[term], desc);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_fragments(f);
-      fence_operand(d);
-    }
-  } else {
-    uint32_t f[4][kSplit][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) split_slice(a, kk, f[kk]);
+    for (int i = 0; i < kSlices; ++i) split_slice(a, k0 + i, f[i]);
     fence_operand(d);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t desc = mnmajor_desc(tile_b, kk);
+    for (int i = 0; i < kSlices; ++i) {
+      const uint64_t desc = mnmajor_desc(tile_b, k0 + i);
 #pragma unroll
       for (int term = 0; term < kSplit; ++term)
-        wgmma_rs_tb<N>(d, f[kk][term], desc);
+        wgmma_rs_tb<N>(d, f[i][term], desc);
     }
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) fence_fragments(f[kk]);
+    for (int i = 0; i < kSlices; ++i) fence_fragments(f[i]);
     fence_operand(d);
   }
 }
@@ -666,7 +721,11 @@ inline cudaError_t launch_selfcheck(const void* a, const void* b,
   cudaError_t err = encode_tensor_map(&map_a, &pos_a, a, geo_a);
   if (err == cudaSuccess) err = encode_tensor_map(&map_b, &pos_b, b, geo_b);
   if (err != cudaSuccess) return err;
+  // above 48 KB at D = 256: the opt-in first
   const size_t smem = 2 * D * 128 + 8 + 1024;
+  static unsigned smem_set = 0;
+  err = allow_smem(sm90_selfcheck_kernel<D>, smem, smem_set);
+  if (err != cudaSuccess) return err;
   sm90_selfcheck_kernel<D><<<1, 128, smem, stream>>>(
       map_a, map_b, pos_a, pos_b, static_cast<const __nv_bfloat16*>(a), c1,
       c2);
@@ -675,7 +734,7 @@ inline cudaError_t launch_selfcheck(const void* a, const void* b,
 
 }  // namespace pt_sm90
 
-// The descriptor self-check above for D = 64 or 128: a and b contiguous
+// The descriptor self-check above for D = 64, 128 or 256: a and b contiguous
 // bf16 [64, D] (16-byte aligned), geo_a / geo_b their 14 tensor-map
 // geometry words, c1 float32 [64, 64], c2 float32 [64, D]. Returns the
 // launch's cudaError_t.
@@ -690,6 +749,8 @@ extern "C" int pt_sm90_selfcheck(const void* a, const void* b,
     return (int)pt_sm90::launch_selfcheck<64>(a, b, geo_a, geo_b, f1, f2, s);
   if (D == 128)
     return (int)pt_sm90::launch_selfcheck<128>(a, b, geo_a, geo_b, f1, f2, s);
+  if (D == 256)
+    return (int)pt_sm90::launch_selfcheck<256>(a, b, geo_a, geo_b, f1, f2, s);
   return (int)cudaErrorInvalidValue;
 }
 #endif  // PT_SM90_SELFCHECK

@@ -4,19 +4,21 @@ and their plain PyTorch versions (port of
 
 The kernels replace the three Pallas kernels of the reference:
 
-- ``csrc/flash_attention_fwd.cu`` replaces ``_fwd_kernel`` (``:131``),
-  now at head dim 256 only: online-softmax attention that emits O and the
-  per-row log-sum-exp;
+- ``csrc/flash_attention_fwd.cu`` replaces ``_fwd_kernel`` (``:131``):
+  online-softmax attention that emits O and the per-row log-sum-exp; the
+  route takes it for float32 at head dim 256 only;
 - ``csrc/flash_attention_bwd.cu`` replaces ``_bwd_dq_kernel`` (``:198``)
   and ``_bwd_dkv_kernel`` (``:269``): dQ (and dS, the bias gradient before
-  its reduction) over query tiles, dK/dV over key tiles;
+  its reduction) over query tiles, dK/dV over key tiles; the route takes
+  them at head dim 256 only (dK/dV for float32 only);
 - ``csrc/flash_attention_fwd_sm90.cu``,
   ``csrc/flash_attention_bwd_dq_sm90.cu`` and
   ``csrc/flash_attention_bwd_dkv_sm90.cu`` replace the three kernels again
-  for bf16 inputs at head dims 64 and 128, on the tensor cores (wgmma fed
-  by TMA, ``csrc/sm90.cuh``), with the reference's float32-operand
-  numerics kept by splitting the float32 operands they make (P, dS) into
-  three bf16 terms;
+  for bf16 inputs, on the tensor cores (wgmma fed by TMA,
+  ``csrc/sm90.cuh``), with the reference's float32-operand numerics kept
+  by splitting the float32 operands they make (P, dS) into three bf16
+  terms: the forward and dK/dV at head dims 64, 128 and 256, dQ at 64 and
+  128;
 - ``csrc/flash_attention_fwd_f32_sm90.cu`` replaces the forward again for
   float32 inputs at head dims 64 and 128 (serving prefill), on the same
   tensor cores: a pre-pass (:func:`split_bf16_terms`) splits Q, K and V
@@ -43,8 +45,9 @@ runs the plain version (that is what the CPU tests exercise), and given
 CUDA tensors it launches the kernel or raises. Among the kernels the
 route is picked by (dtype, head dim, kernel) alone (:func:`kernel_route`):
 bf16 at D in {64, 128} takes the ``wgmma`` forward, dQ and dK/dV kernels,
-float32 at D in {64, 128} the ``wgmma_f32`` ones, every other input (D =
-256) the ``fma`` ones. Each wrapper
+and at D = 256 the ``wgmma`` forward and dK/dV with the ``fma`` dQ;
+float32 at D in {64, 128} the ``wgmma_f32`` ones, at D = 256 the ``fma``
+ones. Each wrapper
 counts its launches in ``<wrapper>.launches`` and per route in
 ``<wrapper>.routes`` (:func:`launch_counts`).
 
@@ -71,7 +74,8 @@ import torch
 
 from . import _build
 
-__all__ = ["SUPPORTED_HEAD_DIMS", "WGMMA_HEAD_DIMS", "kernel_route",
+__all__ = ["SUPPORTED_HEAD_DIMS", "WGMMA_HEAD_DIMS", "WGMMA_BF16_HEAD_DIMS",
+           "kernel_route",
            "tma_geometry", "launch_counts", "reset_launch_counts",
            "wgmma_selfcheck", "split_bf16_terms", "should_use_flash",
            "philox_bits", "dropout_bits", "dropout_mask", "flash_attention_fwd",
@@ -81,7 +85,11 @@ __all__ = ["SUPPORTED_HEAD_DIMS", "WGMMA_HEAD_DIMS", "kernel_route",
            "reference_attention_fwd", "reference_attention_bwd"]
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
+#: head dims at which every kernel of both dtypes runs on the tensor cores
 WGMMA_HEAD_DIMS = (64, 128)
+#: head dims of each bf16 ``wgmma`` kernel (the bf16 dQ at D = 256 is FMA)
+WGMMA_BF16_HEAD_DIMS = {"fwd": (64, 128, 256), "dq": (64, 128),
+                        "dkv": (64, 128, 256)}
 _FWD_SOURCE = "flash_attention_fwd.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
 _FWD_SM90_SOURCE = "flash_attention_fwd_sm90.cu"
@@ -95,17 +103,18 @@ _TILE_ROWS = 64  # rows of every TMA box (csrc/sm90.cuh)
 
 def kernel_route(dtype: torch.dtype, head_dim: int, kernel: str) -> str:
     """Which kernel a CUDA input of ``dtype`` and ``head_dim`` takes for
-    ``kernel`` ("fwd", "dq" or "dkv"): at D in :data:`WGMMA_HEAD_DIMS`,
-    ``"wgmma"`` (the sm_90a tensor-core kernels) for bf16 and
+    ``kernel`` ("fwd", "dq" or "dkv"): ``"wgmma"`` (the sm_90a tensor-core
+    kernels) for bf16 at the head dims of :data:`WGMMA_BF16_HEAD_DIMS`
+    (all three at D 64/128; the forward and dK/dV also at D = 256),
     ``"wgmma_f32"`` (the same tensor cores, each float32 operand as three
-    bf16 terms) for float32; ``"fma"`` for everything else."""
+    bf16 terms) for float32 at D in :data:`WGMMA_HEAD_DIMS`; ``"fma"`` for
+    everything else."""
     if kernel not in ("fwd", "dq", "dkv"):
         raise ValueError(f"kernel must be fwd, dq or dkv, got {kernel!r}")
-    if head_dim in WGMMA_HEAD_DIMS:
-        if dtype == torch.bfloat16:
-            return "wgmma"
-        if dtype == torch.float32:
-            return "wgmma_f32"
+    if dtype == torch.bfloat16 and head_dim in WGMMA_BF16_HEAD_DIMS[kernel]:
+        return "wgmma"
+    if dtype == torch.float32 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma_f32"
     return "fma"
 
 
@@ -439,8 +448,8 @@ def wgmma_selfcheck(D: int, device, generator=None,
     the register-A, transposed-B form, both float32 from the card's wgmma,
     for the caller to hold against a float64 product.
 
-    bf16 runs ``pt_sm90_selfcheck`` (``csrc/sm90.cuh``): one bf16 product
-    of each form. float32 runs ``pt_sm90_selfcheck_f32``
+    bf16 runs ``pt_sm90_selfcheck`` (``csrc/sm90.cuh``; D 64, 128 or 256):
+    one bf16 product of each form. float32 (D 64 or 128) runs ``pt_sm90_selfcheck_f32``
     (``csrc/flash_attention_fwd_f32_sm90.cu``): a and b split by
     :func:`split_bf16_terms`, b's terms loaded by TMA, and the six term
     pairs of each product through the term-pair products every float32
@@ -609,9 +618,13 @@ def _dropout_args(dropout_p: float, seed: int):
     return 1, int(seed) & (2 ** 64 - 1), threshold, scale
 
 
-def _launch_fwd(q, k, v, causal: bool, bias, out, dropout_p, seed):
+def _launch_fwd(q, k, v, causal: bool, bias, out, dropout_p, seed,
+                route: Optional[str] = None):
+    """Launch the forward kernel of :func:`kernel_route`, or of ``route``
+    when given (a yardstick: the FMA kernel of an input the route sends
+    elsewhere)."""
     B, H, Lq, Lk, D = _check_shapes(q, k, v)
-    route = kernel_route(q.dtype, D, "fwd")
+    route = route or kernel_route(q.dtype, D, "fwd")
     if out is None:
         out = _empty_like_rows(q)
     _check_operand("out", out, q.device, q.dtype, (B, H, Lq, D))
@@ -871,11 +884,12 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, causal: bool = False,
     want_dbias = bias is not None and bias_grad
     if q.is_cuda:
         do = _kernel_rows(do)
-        route = kernel_route(q.dtype, q.shape[-1], "dq")
-        if route == "wgmma" and not _tma_ok(do):
+        routes = {kernel_route(q.dtype, q.shape[-1], w) for w in ("dq", "dkv")}
+        if "wgmma" in routes and not _tma_ok(do):
             do = do.contiguous()
         delta = (do.float() * o.float()).sum(-1).contiguous()
-        terms = _backward_terms(q, k, v, do) if route == "wgmma_f32" else None
+        terms = _backward_terms(q, k, v, do) if "wgmma_f32" in routes \
+            else None
         dq, ds = flash_attention_bwd_dq(q, k, v, bias, do, lse, delta,
                                         causal, dropout_p, seed,
                                         emit_ds=want_dbias, terms=terms)

@@ -268,7 +268,7 @@ class _FakeStream:
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.float32, 64, "wgmma_f32"), (torch.float32, 128, "wgmma_f32"),
     (torch.float32, 256, "fma"), (torch.bfloat16, 64, "wgmma"),
-    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "fma")])
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "wgmma")])
 def test_forward_launches_the_route_of_dtype_and_head_dim(dtype, d, route):
     """``_launch_fwd`` hands a (dtype, D) input to the C entry of its
     route, and only to it, and counts the launch there. The C entries are

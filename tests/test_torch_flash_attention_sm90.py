@@ -1,7 +1,8 @@
 """The bf16 tensor-core route of the port's flash attention: the wgmma
 forward, dQ and dK/dV kernels (``csrc/flash_attention_fwd_sm90.cu``,
 ``csrc/flash_attention_bwd_dq_sm90.cu``,
-``csrc/flash_attention_bwd_dkv_sm90.cu``), their routing and the TMA
+``csrc/flash_attention_bwd_dkv_sm90.cu``; the forward and dK/dV at head
+dims 64, 128 and 256, dQ at 64 and 128), their routing and the TMA
 geometry their wrappers compute.
 
 The kernels keep the reference's default numerics (``_operand_dtype``:
@@ -189,6 +190,39 @@ def test_split_backward_matches_jax(jfa, interpret_pallas, causal, terms):
     np.testing.assert_allclose(dv.numpy(), np.asarray(dv_j), **BWD_TOL)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_split_forward_matches_jax_at_d256(jfa, interpret_pallas, causal):
+    """D = 256, as the forward kernel takes it there: the three-term P V
+    against ``flash_attention_bhld`` in interpret mode."""
+    import jax.numpy as jnp
+
+    q, k, v = _qkv(1, 2, 256, 256, 256)
+    o_j = jfa.flash_attention_bhld(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=causal,
+                                   block_q=128, block_k=128)
+    o_t, _ = emulated_fwd(*(torch.from_numpy(a) for a in (q, k, v)), causal,
+                          None, 3)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **FWD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_split_backward_matches_jax_at_d256(jfa, interpret_pallas, causal):
+    """D = 256: dK and dV of the split against ``_flash_bwd_impl`` on the
+    same (o, lse, dO). The kernel's warpgroups each own 128 of the columns
+    (``dS^T Q[:, half]``, ``(P M)^T dO[:, half]``, S^T and dP^T over all
+    256), which changes no element's sum: each output column is its own
+    product."""
+    q, k, v = _qkv(1, 2, 256, 256, 256)
+    do = _bf16_values((1, 2, 256, 256), 4)
+    o, lse, _, dk_j, dv_j, _ = _jax_bwd(jfa, q, k, v, None, do, causal)
+    _, dk, dv, _ = emulated_bwd(*(torch.from_numpy(a) for a in (q, k, v)),
+                                None, torch.from_numpy(o),
+                                torch.from_numpy(lse), torch.from_numpy(do),
+                                causal, 3)
+    np.testing.assert_allclose(dk.numpy(), dk_j, **BWD_TOL)
+    np.testing.assert_allclose(dv.numpy(), dv_j, **BWD_TOL)
+
+
 def _jax_bwd(jfa, q, k, v, bias, do, causal):
     """``_flash_bwd_impl`` on the forward's own (o, lse): returns numpy
     ``(o, lse, dq, dk, dv, dbias)``."""
@@ -252,16 +286,26 @@ def test_split_is_closer_to_float32_than_bf16_p():
 
 
 # ------------------------------------------------------------ routing
+def _route(dtype, d, route, kernel):
+    """The expected route: ``route``, except the bf16 dQ at D = 256, which
+    stays on the FMA kernel while the forward and dK/dV take wgmma."""
+    if (dtype, d, kernel) == (torch.bfloat16, 256, "dq"):
+        return "fma"
+    return route
+
+
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 256, "fma"), (torch.float32, 64, "wgmma_f32"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "wgmma_f32"),
     (torch.float32, 128, "wgmma_f32"), (torch.float32, 256, "fma"),
     (torch.float16, 128, "fma")])
 def test_route_is_picked_by_dtype_and_head_dim(dtype, d, route, kernel):
     """bf16 at D 64/128 takes the wgmma kernels, float32 at D 64/128 the
-    wgmma_f32 ones (forward, dQ and dK/dV alike); the rest FMA."""
-    assert tfa.kernel_route(dtype, d, kernel) == route
+    wgmma_f32 ones (forward, dQ and dK/dV alike); bf16 at D = 256 the wgmma
+    forward and dK/dV and the FMA dQ; the rest FMA."""
+    assert tfa.kernel_route(dtype, d, kernel) == _route(dtype, d, route,
+                                                        kernel)
 
 
 def test_cpu_tensors_launch_nothing():
@@ -281,16 +325,17 @@ def test_cpu_tensors_launch_nothing():
 
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 256, "fma"), (torch.float32, 64, "wgmma_f32"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "wgmma_f32"),
     (torch.float32, 128, "wgmma_f32"), (torch.float32, 256, "fma")])
 @pytest.mark.parametrize("which", ["dq", "dkv"])
 def test_backward_wrappers_launch_the_route_of_dtype_and_head_dim(
         which, dtype, d, route):
     """The dQ and dK/dV wrappers hand a (dtype, D) input to the launcher of
-    its :func:`kernel_route` and count the launch under that route; the
-    wgmma_f32 launcher gets the four operands' bf16 terms. The launchers
-    are stubbed (the kernels need a card); the wrapper's own logic runs as
-    it does on one."""
+    its :func:`kernel_route` and count the launch under that route (bf16
+    at D = 256: wgmma dK/dV, FMA dQ); the wgmma_f32 launcher gets the four
+    operands' bf16 terms. The launchers are stubbed (the kernels need a
+    card); the wrapper's own logic runs as it does on one."""
+    route = _route(dtype, d, route, which)
     calls = []
     q = torch.zeros(1, 2, 64, d, dtype=dtype)
     stats = torch.zeros(1, 2, 64)
@@ -344,6 +389,20 @@ def test_tma_geometry_of_fused_qkv_views(i):
                                    2 * D, 2 * 3 * H * D, 2 * 3 * H * D * L,
                                    64, 1, 64, 1,
                                    2, 1, 3)
+
+
+@pytest.mark.parametrize("i", [0, 1, 2])
+def test_tma_geometry_of_fused_qkv_views_at_d256(i):
+    """D = 256: the same views; a row is four 64-column (128-byte) boxes,
+    which the kernels load as the tile's four swizzle atoms."""
+    B, L, H, D = 1, 1024, 8, 256
+    x = _fused_qkv(B, L, H, D)[i]
+    geo = tfa.tma_geometry(x)
+    assert geo == (D, H, L, B,
+                   2 * D, 2 * 3 * H * D, 2 * 3 * H * D * L,
+                   64, 1, 64, 1,
+                   2, 1, 3)
+    assert geo[0] // geo[7] == 4
 
 
 def test_tma_geometry_of_a_transposed_gradient():
@@ -407,8 +466,12 @@ def _cuda_case(device, d, causal, lq, lk, bias):
     return q, k, v, do, b
 
 
+# D = 256: the ragged edge (L 1000), a trained bias under the causal mask,
+# and Lq != Lk without it
 _CUDA_CASES = [(64, True, 1500, 1500, False), (128, True, 1500, 1500, True),
-               (64, False, 384, 640, True), (128, False, 256, 256, False)]
+               (64, False, 384, 640, True), (128, False, 256, 256, False),
+               (256, True, 1000, 1000, False), (256, True, 1000, 1000, True),
+               (256, False, 384, 640, True)]
 
 
 @pytest.mark.cuda
@@ -435,9 +498,10 @@ def test_cuda_wgmma_forward_matches_plain(cuda_device, d, causal, lq, lk,
 def test_cuda_wgmma_backward_matches_plain(cuda_device, d, causal, lq, lk,
                                            bias):
     """dQ (with dS as the bias gradient where there is a bias), dK and dV
-    from the wgmma kernels. Tolerance: two bf16 ulps of each reference
-    element plus 1e-5 of the gradient's largest magnitude; dbias (float32)
-    the reference's backward tolerance, rtol 2e-4 and atol 2e-5."""
+    from the wgmma kernels (at D = 256 dQ from the FMA kernel). Tolerance:
+    two bf16 ulps of each reference element plus 1e-5 of the gradient's
+    largest magnitude; dbias (float32) the reference's backward tolerance,
+    rtol 2e-4 and atol 2e-5."""
     q, k, v, do, b = _cuda_case(cuda_device, d, causal, lq, lk, bias)
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, bias=b)
     tfa.reset_launch_counts()
@@ -445,8 +509,9 @@ def test_cuda_wgmma_backward_matches_plain(cuda_device, d, causal, lq, lk,
     torch.cuda.synchronize()
     assert tfa.launch_counts()["dkv"] == {"fma": 0, "wgmma": 1,
                                           "wgmma_f32": 0}
-    assert tfa.launch_counts()["dq"] == {"fma": 0, "wgmma": 1,
-                                         "wgmma_f32": 0}
+    dq_route = tfa.kernel_route(torch.bfloat16, d, "dq")
+    assert tfa.launch_counts()["dq"] == {
+        r: int(r == dq_route) for r in ("fma", "wgmma", "wgmma_f32")}
     want = tfa.reference_attention_bwd(q, k, v, b, o, lse, do, causal)
     for x, y in zip(got[:3], want[:3]):
         limit = 2 * _bf16_ulp(y) + 1e-5 * y.float().abs().max()
@@ -471,7 +536,26 @@ def test_cuda_wgmma_dq_replays_bit_for_bit(cuda_device, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_cuda_wgmma_forward_and_dkv_replay_bit_for_bit(cuda_device, d):
+    """No atomics: two calls on the same inputs give the same O, LSE, dK
+    and dV, with a trained bias under the causal mask and at the ragged
+    edge."""
+    q, k, v, do, b = _cuda_case(cuda_device, d, True, 1000, 1000, True)
+    first, second = (tfa.flash_attention_fwd(q, k, v, causal=True, bias=b)
+                     for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    o, lse = first
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    tfa.reset_launch_counts()
+    first, second = (tfa.flash_attention_bwd_dkv(q, k, v, b, do, lse, delta,
+                                                 True) for _ in range(2))
+    assert tfa.launch_counts()["dkv"]["wgmma"] == 2
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_cuda_wgmma_dropout_matches_plain_with_the_same_mask(cuda_device, d):
     """p = 0.1: the wgmma kernels against the plain versions given the
     plain Philox mask, and a fixed seed replays bit for bit."""
@@ -493,7 +577,7 @@ def test_cuda_wgmma_dropout_matches_plain_with_the_same_mask(cuda_device, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_cuda_wgmma_selfcheck(cuda_device, d):
     """The descriptor self-check: both wgmma forms against torch.matmul in
     float32 (bf16 products are exact; summation order only)."""
