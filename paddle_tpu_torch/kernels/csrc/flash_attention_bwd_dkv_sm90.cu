@@ -268,21 +268,19 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int i = 0; i < n_iter; ++i) {
       const int s = i % kStages;
       const int q0 = (qt0 + i) * 64;
-      // causal: every pair of this query tile is masked for these keys
-      const bool skip = p.causal && q0 + 63 < kw0;
+      if (p.causal && q0 + 63 < kw0) {
+        // every pair of this query tile is masked for these keys (only the
+        // first tile, of the second warpgroup: see the release note at
+        // DkvShape)
+        mbar_arrive(base + L::empty(s));
+        continue;
+      }
       // the dropout keep bits of this thread's 32 elements (one register, so
       // the Philox words are drawn once and no float mask stays live),
       // drawn before the tile is waited for
       uint32_t keep = 0xffffffffu;
-      if (kDropout && !skip) keep = rows.keep_bits(p, b, h, q0);
+      if constexpr (kDropout) keep = rows.keep_bits(p, b, h, q0);
       mbar_wait(base + L::full(s), (i / kStages) & 1);
-      if (skip) {
-        // released only once it has arrived: an early release could count
-        // toward the stage's previous tile, and a skipped wait would leave
-        // the next wait on this stage a phase behind
-        mbar_arrive(base + L::empty(s));
-        continue;
-      }
       __syncwarp();
 
       // ---- P^T = exp(K Q^T * scale + bias - LSE), 0 where masked

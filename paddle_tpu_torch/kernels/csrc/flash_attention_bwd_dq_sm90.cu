@@ -209,7 +209,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     if (rows.dsb != nullptr) rows.store_ds(dp, k0, p.Lq, p.Lk);
 
     // ---- dQ += dS K, dS as its three bf16 terms
-    wgmma_split_product<D, 1>(dq, [&](int e) { return dp[e]; }, tk);
+    wgmma_split_product<D, true>(dq, [&](int e) { return dp[e]; }, tk);
     mbar_arrive(base + L::k_empty(s));
   }
 

@@ -48,11 +48,15 @@
 //   of the P V wgmmas (m64nDk16, V as the transposed B operand);
 // - two CTAs per SM (168 registers a thread, 81 KB of shared memory at
 //   D = 128), so one CTA's softmax overlaps the other's products;
-// - D = 256 (FwdShape<256>): O is 128 floats a thread and P V one
-//   m64n256k16 wgmma per slice and term (V's four 64-column atoms, sm90.cuh);
-//   a tile of K or V is 32 KB, so the D 64/128 shape (two CTAs, two-stage
-//   rings) no longer fits: see FwdShape<256> for the shape kept and the
-//   ones measured against it;
+// - D = 256: O is 128 floats a thread and P V one m64n256k16 wgmma per
+//   slice and term (V's four 64-column atoms, sm90.cuh); K and V tiles are
+//   32 KB, so the CTA keeps the same shape at one CTA per SM (160 KB, up to
+//   255 registers: 238, 253 with dropout). Two CTAs per SM, with one-stage
+//   rings, or two consumer warpgroups per CTA (128 query rows, or 64 rows
+//   and a 128-column half of O each) measured 1.07-3.0 times slower at
+//   [1, 8, 1024, 256] and [2, 16, 1024, 256] causal; the first two spill,
+//   as this toolkit's ptxas gives a CTA of 288 threads, or two of 160, no
+//   more than 168 registers a thread (PERF.md, PR 7);
 // - the masks run only on the diagonal and ragged tiles, and the dropout
 //   draws only in the kernel instantiated with them;
 // - rows past Lq and keys past Lk arrive as zeros from TMA (the ragged edge),
@@ -77,56 +81,19 @@ namespace {
 using namespace pt_fwd_sm90;
 using Params = FwdParams<__nv_bfloat16>;
 
-// The CTA's shape per head dim: kGroups consumer warpgroups that share the
-// K and V rings; with kShareRows they own the same 64 query rows and a
-// D / kGroups column range of O each (each makes S and P whole), else 64
-// query rows each; kStages entries in each ring; kCtasPerSm CTAs resident
-// per SM (the register budget: 65536 / (threads x CTAs), threads counted
-// in whole warpgroups); kSlices 16-column slices of P per P V wait
-// (sm90.cuh wgmma_split_product: fewer live fragments for more waits).
-template <int D>
-struct FwdShape {
-  static constexpr int kGroups = 1;
-  static constexpr bool kShareRows = false;
-  static constexpr int kStages = 2;
-  static constexpr int kCtasPerSm = 2;
-  static constexpr int kSlices = 4;
-};
-
-// D = 256: 32 KB tiles. Two CTAs of the D 64/128 shape would need 320 KB of
-// shared memory and O alone takes 128 of a thread's registers.
-template <>
-struct FwdShape<256> {
-  static constexpr int kGroups = 1;
-  static constexpr bool kShareRows = false;
-  static constexpr int kStages = 2;
-  static constexpr int kCtasPerSm = 1;
-  static constexpr int kSlices = 4;
-};
-
-template <int D>
-struct FwdDerived {
-  using S = FwdShape<D>;
-  static constexpr int kN = S::kShareRows ? D / S::kGroups : D;  // O columns
-  static constexpr int kQTiles = S::kShareRows ? 1 : S::kGroups;
-  static constexpr int kThreads = kConsumers * S::kGroups + 32;
-};
+constexpr int kStages = 2;
 
 template <int D>
 struct FwdLayout {
-  using S = FwdShape<D>;
-  static constexpr int kStages = S::kStages;
-  static constexpr int kQTiles = FwdDerived<D>::kQTiles;
   static constexpr uint32_t kTile = 64 * D * 2;  // bytes of one [64, D] tile
-  // Q of query rows 64 g .. 64 g + 63 of the CTA's tile
-  __host__ __device__ static constexpr uint32_t q(int g) { return kTile * g; }
+  static constexpr uint32_t q = 0;
   __host__ __device__ static constexpr uint32_t k(int s) {
-    return kTile * (kQTiles + s);
+    return kTile * (1 + s);
   }
   __host__ __device__ static constexpr uint32_t v(int s) {
-    return kTile * (kQTiles + kStages + s);
+    return kTile * (1 + kStages + s);
   }
-  static constexpr uint32_t bars = kTile * (kQTiles + 2 * kStages);
+  static constexpr uint32_t bars = kTile * (1 + 2 * kStages);
   static constexpr uint32_t q_full = bars;
   __host__ __device__ static constexpr uint32_t k_full(int s) {
     return bars + 8 * (1 + s);
@@ -144,27 +111,24 @@ struct FwdLayout {
   static constexpr size_t kBytes = bars + 8 * (1 + 4 * kStages) + 1024;
 };
 
+// CTAs per SM: two at D 64/128, where the register budget that leaves (168)
+// holds without spills; one at D = 256.
+template <int D>
+constexpr int kCtasPerSm = D == 256 ? 1 : 2;
+
 // kDropout: the dropout draws are compiled only into the instantiation that
 // uses them (present but skipped, they cost the other one half its speed).
-// At D 64/128 two CTAs per SM: the register budget that leaves (168) holds
-// without spills.
 template <int D, bool kDropout>
-__global__ void __launch_bounds__(FwdDerived<D>::kThreads,
-                                  FwdShape<D>::kCtasPerSm)
+__global__ void __launch_bounds__(kThreads, kCtasPerSm<D>)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v,
                       const Params p) {
-  using S = FwdShape<D>;
-  using X = FwdDerived<D>;
   using L = FwdLayout<D>;
-  constexpr int kStages = S::kStages;
-  constexpr int kN = X::kN;
-  constexpr int kConsumerThreads = kConsumers * S::kGroups;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
 
-  const FwdTile c = fwd_tile(p.Lk, p.causal, 64 * X::kQTiles);
+  const FwdTile c = fwd_tile(p.Lk, p.causal);
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -172,20 +136,19 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int s = 0; s < kStages; ++s) {
       mbar_init(base + L::k_full(s), 1);
       mbar_init(base + L::v_full(s), 1);
-      mbar_init(base + L::k_empty(s), kConsumerThreads);
-      mbar_init(base + L::v_empty(s), kConsumerThreads);
+      mbar_init(base + L::k_empty(s), kConsumers);
+      mbar_init(base + L::v_empty(s), kConsumers);
     }
     fence_barrier_init();
   }
   __syncthreads();
 
-  if (tid >= kConsumerThreads) {
+  if (tid >= kConsumers) {
     // ---- producer warp: one lane issues every copy
-    if (tid == kConsumerThreads) {
-      mbar_arrive_expect_tx(base + L::q_full, X::kQTiles * L::kTile);
-      for (int g = 0; g < X::kQTiles; ++g)
-        tma_load_tile<D>(base + L::q(g), &map_q, base + L::q_full,
-                         c.q0 + 64 * g, c.h, c.b, p.pos_q);
+    if (tid == kConsumers) {
+      mbar_arrive_expect_tx(base + L::q_full, L::kTile);
+      tma_load_tile<D>(base + L::q, &map_q, base + L::q_full, c.q0, c.h, c.b,
+                       p.pos_q);
       for (int i = 0; i < c.n_kt; ++i) {
         const int s = i % kStages;
         const uint32_t free_phase = ((i / kStages) & 1) ^ 1;
@@ -202,26 +165,17 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     return;
   }
 
-  // ---- consumer warpgroup wg: query rows cw.q0 .. cw.q0 + 63, O columns
-  // col0 .. col0 + kN - 1
-  const int wg = S::kGroups > 1 ? tid / kConsumers : 0;
-  const int qt = S::kShareRows ? 0 : wg;
-  const int col0 = S::kShareRows ? kN * wg : 0;
-  const FwdTile cw =
-      X::kQTiles > 1 ? fwd_group_tile(c, p.Lk, p.causal, qt) : c;
-  const uint32_t tile_q = base + L::q(qt);
-  // the V columns of the P V product: col0 / 64 atoms in (sm90.cuh)
-  const uint32_t cols = (col0 / 64) * kAtomBytes;
-  FwdRows rows(p, cw, S::kGroups > 1 ? tid % kConsumers : tid);
-  float o[kN / 2];
+  // ---- consumer warpgroup
+  FwdRows rows(p, c, tid);
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < kN / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 
   // One key tile at a time: S = Q K^T, softmax, O += P V. The two CTAs an
   // SM holds at D 64/128 (168 registers a thread) interleave, so one's
-  // softmax overlaps the other's products. (Overlapping S_{i+1} with the
-  // softmax inside one warpgroup needs 230 registers, one CTA per SM, and
-  // measured 1.5 times slower.)
+  // softmax overlaps the other's products. (Overlapping S_{i+1} with the softmax inside one
+  // warpgroup needs 230 registers, one CTA per SM, and measured 1.5 times
+  // slower.)
   float sc[32];
   float alpha0, alpha1;
   mbar_wait(base + L::q_full, 0);
@@ -229,28 +183,19 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     const int s = i % kStages;
     const uint32_t phase = (i / kStages) & 1;
     mbar_wait(base + L::k_full(s), phase);
-    if (X::kQTiles > 1 && i >= cw.n_kt) {
-      // causal: every key of this tile is past the warpgroup's last row.
-      // It releases the tile only once it has arrived (an early arrival
-      // would count toward the release of the stage's previous tile).
-      mbar_arrive(base + L::k_empty(s));
-      mbar_wait(base + L::v_full(s), phase);
-      mbar_arrive(base + L::v_empty(s));
-      continue;
-    }
     __syncwarp();
-    wgmma_kmajor_product<D>(sc, tile_q, base + L::k(s));
+    wgmma_kmajor_product<D>(sc, base + L::q, base + L::k(s));
     mbar_arrive(base + L::k_empty(s));
-    rows.softmax<kDropout>(p, cw, sc, i * 64, alpha0, alpha1);
-    rescale<kN>(o, alpha0, alpha1);
+    rows.softmax<kDropout>(p, c, sc, i * 64, alpha0, alpha1);
+    rescale<D>(o, alpha0, alpha1);
     // ---- O += P V, P as its three bf16 terms
     mbar_wait(base + L::v_full(s), phase);
     __syncwarp();
-    wgmma_split_product<kN, S::kSlices>(o, [&](int e) { return sc[e]; },
-                                        base + L::v(s) + cols);
+    wgmma_split_product<D, false>(o, [&](int e) { return sc[e]; },
+                                  base + L::v(s));
     mbar_arrive(base + L::v_empty(s));
   }
-  rows.store<kN>(p, cw, o, col0);
+  rows.store<D>(p, c, o);
 }
 
 template <int D, bool kDropout>
@@ -258,8 +203,7 @@ cudaError_t launch(const CUtensorMap (&m)[3], const Params& p,
                    cudaStream_t stream) {
   static unsigned smem_set = 0;
   return launch_fwd(flash_fwd_sm90_kernel<D, kDropout>, FwdLayout<D>::kBytes,
-                    smem_set, m, p, stream, FwdDerived<D>::kThreads,
-                    64 * FwdDerived<D>::kQTiles);
+                    smem_set, m, p, stream);
 }
 
 }  // namespace

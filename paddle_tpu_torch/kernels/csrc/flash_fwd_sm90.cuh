@@ -22,7 +22,7 @@ namespace pt_fwd_sm90 {
 using namespace pt_sm90;
 
 constexpr int kConsumers = 128;  // one warpgroup
-constexpr int kThreads = kConsumers + 32;  // and a producer warp
+constexpr int kThreads = kConsumers + 32;
 constexpr float kMaskValue = -1e30f;  // the TPU kernels' _NEG_INF
 
 // Out: the element type of O (__nv_bfloat16 or float).
@@ -70,35 +70,23 @@ inline cudaError_t make_fwd_params(
   return err;
 }
 
-// One CTA per (b, h, query tile of `rows` rows: 64 per consumer
-// warpgroup). The query tile is the slowest grid dimension, walked from the
-// last: the heaviest causal tiles of every (b, h) start first.
+// One CTA per (b, h, 64-row query tile). The query tile is the slowest grid
+// dimension, walked from the last: the heaviest causal tiles of every (b, h)
+// start first.
 struct FwdTile {
   int h, b, q0;
   int n_kt;  // key tiles to visit
 };
 
-__device__ __forceinline__ FwdTile fwd_tile(int Lk, int causal,
-                                            int rows = 64) {
+__device__ __forceinline__ FwdTile fwd_tile(int Lk, int causal) {
   FwdTile c;
   c.h = blockIdx.x;
   c.b = blockIdx.y;
-  c.q0 = (gridDim.z - 1 - blockIdx.z) * rows;
+  c.q0 = (gridDim.z - 1 - blockIdx.z) * 64;
   // causal: keys past the tile's last query row are masked for every row
-  const int k_end = causal ? min(Lk, c.q0 + rows) : Lk;
+  const int k_end = causal ? min(Lk, c.q0 + 64) : Lk;
   c.n_kt = (k_end + 63) / 64;
   return c;
-}
-
-// The 64-row slice of a CTA's query tile that consumer warpgroup `wg` owns,
-// and the key tiles it visits (no more than the CTA's).
-__device__ __forceinline__ FwdTile fwd_group_tile(const FwdTile& c, int Lk,
-                                                  int causal, int wg) {
-  FwdTile w = c;
-  w.q0 = c.q0 + 64 * wg;
-  const int k_end = causal ? min(Lk, w.q0 + 64) : Lk;
-  w.n_kt = min(c.n_kt, (k_end + 63) / 64);
-  return w;
 }
 
 // A consumer thread's two query rows (accumulator rows g and g + 8 of its
@@ -217,16 +205,14 @@ struct FwdRows {
     m1 = mn1;
   }
 
-  // Epilogue: O = acc / l written through its strides (N columns from
-  // column col0), and, by the thread that holds column 0, LSE = m + log(l).
-  template <int N, typename Out>
+  // Epilogue: O = acc / l written through its strides, LSE = m + log(l).
+  template <int D, typename Out>
   __device__ __forceinline__ void store(const FwdParams<Out>& p,
                                         const FwdTile& c,
-                                        const float (&o)[N / 2],
-                                        int col0 = 0) const {
+                                        const float (&o)[D / 2]) const {
     const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
     const float inv0 = 1.f / lc0, inv1 = 1.f / lc1;
-    Out* ob = p.o + c.b * p.o_st[0] + c.h * p.o_st[1] + col0;
+    Out* ob = p.o + c.b * p.o_st[0] + c.h * p.o_st[1];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qi = r == 0 ? qi0 : qi1;
@@ -234,10 +220,10 @@ struct FwdRows {
       const float inv = r == 0 ? inv0 : inv1;
       Out* orow = ob + (long long)qi * p.o_st[2];
 #pragma unroll
-      for (int j = 0; j < N / 8; ++j)
+      for (int j = 0; j < D / 8; ++j)
         store_pair(orow + 8 * j + 2 * t, o[4 * j + 2 * r] * inv,
                    o[4 * j + 2 * r + 1] * inv);
-      if (t == 0 && col0 == 0)
+      if (t == 0)
         p.lse[((long long)c.b * p.H + c.h) * p.Lq + qi] =
             (r == 0 ? m0 : m1) + logf(r == 0 ? lc0 : lc1);
     }
@@ -257,18 +243,16 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2], float alpha0,
   }
 }
 
-// The launch of one instantiation, `threads` a CTA and `rows` query rows per
-// CTA: `smem_set` is that instantiation's own record of the shared-memory
-// opt-in (sm90.cuh allow_smem).
+// The launch of one instantiation: `smem_set` is that instantiation's own
+// record of the shared-memory opt-in (sm90.cuh allow_smem).
 template <typename Kernel, typename Out>
 inline cudaError_t launch_fwd(Kernel kernel, size_t smem_bytes,
                               unsigned& smem_set, const CUtensorMap (&m)[3],
-                              const FwdParams<Out>& p, cudaStream_t stream,
-                              int threads = kThreads, int rows = 64) {
+                              const FwdParams<Out>& p, cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem_bytes, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.H, p.B, (p.Lq + rows - 1) / rows);
-  kernel<<<grid, threads, smem_bytes, stream>>>(m[0], m[1], m[2], p);
+  const dim3 grid(p.H, p.B, (p.Lq + 63) / 64);
+  kernel<<<grid, kThreads, smem_bytes, stream>>>(m[0], m[1], m[2], p);
   return cudaGetLastError();
 }
 

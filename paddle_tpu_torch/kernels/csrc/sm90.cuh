@@ -389,34 +389,46 @@ __device__ __forceinline__ void fence_fragments(uint32_t (&f)[M][4]) {
 }
 
 // D[64 x N] += A B for a float32 64 x 64 matrix A with element i `a(i)`,
-// taken as its kSplit bf16 terms, waited for. The four 16-column slices go
-// in groups of kSlices (1, 2 or 4), each group committed and waited for, so
-// only that group's values and fragments are live: fewer registers (the
-// dK/dV kernel needs that beside its two accumulators, the D = 256 forward
-// beside its 128-float O), at the price of more waits.
-template <int N, int kSlices, typename Elem>
+// taken as its kSplit bf16 terms, waited for. kSliceWait commits and waits
+// per 16-column slice, so only that slice's values and fragments are live:
+// fewer registers (the dK/dV kernel needs that beside its two
+// accumulators), at the price of three more waits.
+template <int N, bool kSliceWait, typename Elem>
 __device__ __forceinline__ void wgmma_split_product(float (&d)[N / 2], Elem a,
                                                     uint32_t tile_b) {
-  static_assert(kSlices == 1 || kSlices == 2 || kSlices == 4,
-                "wgmma_split_product: 1, 2 or 4 slices per wait");
+  if constexpr (kSliceWait) {
 #pragma unroll
-  for (int k0 = 0; k0 < 4; k0 += kSlices) {
-    uint32_t f[kSlices][kSplit][4];
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t f[kSplit][4];
+      split_slice(a, kk, f);
+      fence_operand(d);
+      wgmma_fence();
+      const uint64_t desc = mnmajor_desc(tile_b, kk);
 #pragma unroll
-    for (int i = 0; i < kSlices; ++i) split_slice(a, k0 + i, f[i]);
+      for (int term = 0; term < kSplit; ++term)
+        wgmma_rs_tb<N>(d, f[term], desc);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_fragments(f);
+      fence_operand(d);
+    }
+  } else {
+    uint32_t f[4][kSplit][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) split_slice(a, kk, f[kk]);
     fence_operand(d);
     wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < kSlices; ++i) {
-      const uint64_t desc = mnmajor_desc(tile_b, k0 + i);
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t desc = mnmajor_desc(tile_b, kk);
 #pragma unroll
       for (int term = 0; term < kSplit; ++term)
-        wgmma_rs_tb<N>(d, f[i][term], desc);
+        wgmma_rs_tb<N>(d, f[kk][term], desc);
     }
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
-    for (int i = 0; i < kSlices; ++i) fence_fragments(f[i]);
+    for (int kk = 0; kk < 4; ++kk) fence_fragments(f[kk]);
     fence_operand(d);
   }
 }
