@@ -343,7 +343,8 @@ def phase_build(seed: int) -> None:
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     out = {}
-    for dtype, D in ([(torch.bfloat16, D) for D in fa.WGMMA_BF16_HEAD_DIMS["fwd"]]
+    for dtype, D in ([(torch.bfloat16, D)
+                      for D in fa.WGMMA_BF16_HEAD_DIMS["fwd"]]
                      + [(torch.float32, D) for D in fa.WGMMA_HEAD_DIMS]):
         a, b, c1, c2 = fa.wgmma_selfcheck(D, "cuda", g, dtype=dtype)
         torch.cuda.synchronize()
@@ -787,7 +788,8 @@ def phase_dropout(seed: int) -> dict:
             raise AssertionError("dropout kernels do not replay a fixed seed")
         o_ref, lse_ref = fa.reference_attention_fwd(q, k, v, causal=True,
                                                     keep_mask=keep)
-        name = f"dropout_{_dtype_name(q)}{'_d256' if D == 256 else ''}_B2_L1024"
+        d256 = "_d256" if D == 256 else ""
+        name = f"dropout_{_dtype_name(q)}{d256}_B2_L1024"
         errs = {"o": check_close(f"{name} o", o, o_ref,
                                  output_tolerance(o_ref, routes["fwd"]))}
         errs["lse"] = check_close(f"{name} lse", lse, lse_ref,

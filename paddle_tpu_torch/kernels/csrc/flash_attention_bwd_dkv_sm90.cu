@@ -36,10 +36,12 @@
 //   first; 384 threads: two consumer warpgroups (warps 0-7), each owning 64
 //   key rows and their dK and dV accumulators (2 x D / 2 floats a thread),
 //   and a producer warpgroup (warps 8-11) of which warp 8 works. The CTA
-//   launches with 168 registers a thread; setmaxnreg takes the producer
-//   warpgroup down to 40 and the consumers up to 232, which is what lets
-//   two warpgroups of this size share an SM (1.9 times faster than one
-//   warpgroup per CTA at the training shape);
+//   launches with 168 registers a thread; setmaxnreg asks to take the
+//   producer warpgroup down to 40 and the consumers up to 232, but this
+//   toolkit's ptxas allocates no more than the launch's 168 to either, so
+//   the kernel is written to fit 168 (two warpgroups of this size on an SM
+//   measured 1.9 times faster than one warpgroup per CTA at the training
+//   shape);
 // - the producer loads both warpgroups' K and V once, then streams the
 //   query tiles from the diagonal on: Q and dO by TMA into a 2-stage ring
 //   shared by the two warpgroups, and the 64 rows of LSE and Delta, which
@@ -51,21 +53,23 @@
 //   while the tile is in flight; S^T = K Q^T (m64n64k16 wgmmas, both
 //   operands K-major in shared memory) and P^T on the accumulator fragment;
 //   dV += (P M)^T dO with (P M)^T as register A fragments, made 16 columns
-//   at a time (m64nNk16, dO the transposed B operand); then dP^T = V dO^T,
-//   dS^T = P^T (dP^T M - Delta) and dK += dS^T Q the same way. P^T waits
-//   in shared memory while dP^T is made (a dropped element with its sign
-//   bit set, so the keep bits need no word of their own), so at most 32
-//   score values and one slice of fragments are live beside dK and dV: no
-//   spills within the 168 registers that this toolkit's ptxas gives the
-//   consumers (it does not raise their allocation past the launch's after
-//   setmaxnreg);
-// - D = 256 (DkvShape<256>): dK and dV of 64 keys are 256 floats a thread,
-//   more than a thread can hold, so a warpgroup owns N = 128 of their
-//   columns: its dV and dK products read the 128-column half of the dO and
-//   Q tiles (the descriptor starts two atoms in, sm90.cuh), while S^T and
-//   dP^T still contract over all 256. See DkvShape<256> for how the halves
-//   are laid out over warpgroups and CTAs, and the layouts measured against
-//   it;
+//   at a time (m64nDk16, dO the transposed B operand); then dP^T = V dO^T,
+//   dS^T = P^T (dP^T M - Delta) and dK += dS^T Q the same way. P^T and the
+//   keep bits wait in shared memory while dP^T is made, so at most 32 score
+//   values and one slice of fragments are live beside dK and dV: no spills
+//   within the 168 registers;
+// - D = 256 (DkvShape): dK and dV of 64 keys would be 256 floats a thread,
+//   so the two warpgroups own the same 64 keys (a CTA per 64-key tile) and
+//   a 128-column half of dK and dV each: the dV and dK products read that
+//   half of the dO and Q tiles (the descriptor starts two atoms in,
+//   sm90.cuh), while each warpgroup makes S^T and dP^T whole (1.25 times
+//   the tensor work of one pass). K, V and the two-stage ring take 192 KB,
+//   which leaves no room for the keep bits' word beside P^T: a dropped
+//   element is parked negated instead (P^T >= 0, so its sign bit is the
+//   mask). A CTA per key tile and D half with one warpgroup and a producer
+//   warp (255 registers) measured 6 % faster at [1, 8, 1024, 256] and 1.6
+//   times slower at [2, 16, 1024, 256] causal, and with two warpgroups and
+//   a one-stage ring it spilled (PERF.md, PR 7);
 // - dK is scaled once at the end; no atomics, so a run replays bit for bit;
 // - the dropout bits are the per-element Philox words of (seed, b, h, query,
 //   key), the same the forward and the FMA dQ kernel draw.
@@ -81,75 +85,59 @@ namespace {
 using namespace pt_bwd_sm90;
 using DkvParams = BwdParams<__nv_bfloat16>;
 
-// The CTA's shape per head dim: kGroups consumer warpgroups, each owning kN
-// columns of dK and dV for 64 keys; with kShareKeys the warpgroups own one
-// 64-key tile and a column range each, else a 64-key tile each; kStages
-// entries in the Q/dO ring. A CTA covers kKeyTiles 64-key tiles and kN
-// columns per warpgroup; the D / (kN x column ranges per CTA) CTAs that
-// share its keys (kHalves) are adjacent in the grid.
-template <int D>
-struct DkvShape {
-  static constexpr int kN = D;
-  static constexpr int kGroups = 2;
-  static constexpr bool kShareKeys = false;
-  static constexpr int kStages = 2;
-};
-
-// D = 256: each warpgroup holds dK and dV for 128 of the columns.
-template <>
-struct DkvShape<256> {
-  static constexpr int kN = 128;
-  static constexpr int kGroups = 2;
-  static constexpr bool kShareKeys = true;
-  static constexpr int kStages = 2;
-};
-
-template <int D>
-struct DkvDerived {
-  using S = DkvShape<D>;
-  static constexpr int kKeyTiles = S::kShareKeys ? 1 : S::kGroups;
-  static constexpr int kHalves = D / S::kN / (S::kShareKeys ? S::kGroups : 1);
-  static constexpr int kConsumerThreads = 128 * S::kGroups;
-  // two consumer warpgroups and a producer warpgroup (setmaxnreg), or one
-  // consumer warpgroup and a producer warp
-  static constexpr int kThreads =
-      S::kGroups == 2 ? kConsumerThreads + 128 : kConsumerThreads + 32;
-};
-
-// Registers a thread of a two-warpgroup CTA: it launches with 168 each
-// (65536 / 384); the producer warpgroup gives 128 of them back (setmaxnreg)
-// for the consumers' 232.
+constexpr int kStages = 2;
+constexpr int kGroups = 2;  // consumer warpgroups
+constexpr int kDkvConsumers = 128 * kGroups;
+constexpr int kThreads = kDkvConsumers + 128;  // + one producer warpgroup
+// Registers a thread: a CTA of 384 threads launches with 168 each (65536 /
+// 384); the producer warpgroup gives 128 of them back (setmaxnreg) for
+// the 256 consumer threads to grow to 232 (which this toolkit's ptxas does
+// not use; see the design note).
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
-static_assert((168 - kProducerRegs) * 128 >= (kConsumerRegs - 168) * 256,
+static_assert((168 - kProducerRegs) * 128 >=
+                  (kConsumerRegs - 168) * kDkvConsumers,
               "the producer must free what the consumers take");
+
+// Per head dim: at D 64/128 each consumer warpgroup owns a 64-key tile and
+// all D columns of its dK and dV; at D = 256 (kSplitD) both own one 64-key
+// tile and kN = 128 columns each.
+template <int D>
+struct DkvShape {
+  static constexpr bool kSplitD = D == 256;
+  static constexpr int kN = kSplitD ? D / 2 : D;  // dK, dV columns owned
+  static constexpr int kKeyTiles = kSplitD ? 1 : kGroups;  // per CTA
+  // words a consumer thread parks: P^T, and the keep bits unless they
+  // travel in P^T's sign bits
+  static constexpr int kStashWords = kSplitD ? 32 : 33;
+};
 
 template <int D>
 struct DkvLayout {
   using S = DkvShape<D>;
-  using X = DkvDerived<D>;
-  static constexpr int kStages = S::kStages;
   static constexpr uint32_t kTile = 64 * D * 2;
   // K and V of 64-key tile g
   __host__ __device__ static constexpr uint32_t k(int g) { return kTile * g; }
   __host__ __device__ static constexpr uint32_t v(int g) {
-    return kTile * (X::kKeyTiles + g);
+    return kTile * (S::kKeyTiles + g);
   }
   __host__ __device__ static constexpr uint32_t q(int s) {
-    return kTile * (2 * X::kKeyTiles + 2 * s);
+    return kTile * (2 * S::kKeyTiles + 2 * s);
   }
   __host__ __device__ static constexpr uint32_t dout(int s) {
-    return kTile * (2 * X::kKeyTiles + 2 * s + 1);
+    return kTile * (2 * S::kKeyTiles + 2 * s + 1);
   }
   // per stage: 64 floats of LSE, then 64 of Delta
-  static constexpr uint32_t kRing = kTile * (2 * X::kKeyTiles + 2 * kStages);
+  static constexpr uint32_t kRing = kTile * (2 * S::kKeyTiles + 2 * kStages);
   __host__ __device__ static constexpr uint32_t stats(int s) {
     return kRing + 512 * s;
   }
-  // each consumer thread's 32 values of P^T, parked while dP^T is made
-  // (word e of thread tid at e * kConsumerThreads + tid)
+  // each consumer thread's 32 values of P^T and (D 64/128) its dropout
+  // keep bits, parked while dP^T is made (word e of thread tid at
+  // e * kDkvConsumers + tid)
   static constexpr uint32_t stash = kRing + 512 * kStages;
-  static constexpr uint32_t bars = stash + 4 * 32 * X::kConsumerThreads;
+  static constexpr uint32_t bars =
+      stash + 4 * S::kStashWords * kDkvConsumers;
   static constexpr uint32_t kv_full = bars;
   __host__ __device__ static constexpr uint32_t full(int s) {
     return bars + 8 * (1 + s);
@@ -163,30 +151,25 @@ struct DkvLayout {
 // kDropout: the dropout draws are compiled only into the instantiation that
 // uses them.
 template <int D, bool kDropout>
-__global__ void __launch_bounds__(DkvDerived<D>::kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
                           const __grid_constant__ CUtensorMap map_do,
                           const DkvParams p) {
   using S = DkvShape<D>;
-  using X = DkvDerived<D>;
   using L = DkvLayout<D>;
-  constexpr int kStages = S::kStages;
   constexpr int kN = S::kN;
-  constexpr int kConsumerThreads = X::kConsumerThreads;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* const smem = smem_raw + (base - smem_u32(smem_raw));
   const float* stats_ptr = reinterpret_cast<const float*>(smem);
 
   // The key tile is the slowest grid dimension, so the early (heaviest
-  // causal) tiles of every (b, h) start first; the CTAs that share its keys
-  // (column ranges) follow each other.
+  // causal) tiles of every (b, h) start first.
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int k0 = (blockIdx.z / X::kHalves) * 64 * X::kKeyTiles;
-  const int half = blockIdx.z % X::kHalves;
+  const int k0 = blockIdx.z * 64 * S::kKeyTiles;
   // causal (top-left): query tile qt holds a kept pair of these keys iff its
   // last row reaches k0
   const int n_qt = (p.Lq + 63) / 64;
@@ -198,24 +181,23 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_init(base + L::kv_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(base + L::full(s), 1 + 32);
-      mbar_init(base + L::empty(s), kConsumerThreads);
+      mbar_init(base + L::empty(s), kDkvConsumers);
     }
     fence_barrier_init();
   }
   __syncthreads();
 
-  if (tid >= kConsumerThreads) {
-    // ---- producer: its first warp works (lane 0 issues the TMA copies, all
-    // 32 lanes copy the tile's LSE and Delta rows); the other three warps of
-    // a producer warpgroup only give their registers back
-    if constexpr (S::kGroups == 2)
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    const int lane = tid - kConsumerThreads;
+  if (tid >= kDkvConsumers) {
+    // ---- producer warpgroup: its first warp works (lane 0 issues the TMA
+    // copies, all 32 lanes copy the tile's LSE and Delta rows); the other
+    // three only give their registers back
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int lane = tid - kDkvConsumers;
     if (lane >= 32) return;
     const long long row_base = ((long long)b * p.H + h) * p.Lq;
     if (lane == 0) {
-      mbar_arrive_expect_tx(base + L::kv_full, 2 * X::kKeyTiles * L::kTile);
-      for (int g = 0; g < X::kKeyTiles; ++g) {
+      mbar_arrive_expect_tx(base + L::kv_full, 2 * S::kKeyTiles * L::kTile);
+      for (int g = 0; g < S::kKeyTiles; ++g) {
         tma_load_tile<D>(base + L::k(g), &map_k, base + L::kv_full,
                          k0 + 64 * g, h, b, p.pos_k);
         tma_load_tile<D>(base + L::v(g), &map_v, base + L::kv_full,
@@ -243,17 +225,16 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_arrive(base + L::full(s));
     }
   } else {
-    // ---- consumer warpgroup wg: keys kw0 .. kw0 + 63, dK and dV columns
-    // col0 .. col0 + kN - 1
-    if constexpr (S::kGroups == 2)
-      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    // ---- consumer warpgroups: warpgroup wg owns keys kw0 .. kw0 + 63 and
+    // columns col0 .. col0 + kN - 1 of their dK and dV
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     const int wg = tid / 128;
-    const int key_tile = S::kShareKeys ? 0 : wg;
+    const int key_tile = S::kSplitD ? 0 : wg;
     const int kw0 = k0 + 64 * key_tile;
-    const int col0 = kN * (S::kShareKeys ? wg : half);
+    const int col0 = S::kSplitD ? kN * wg : 0;
     const uint32_t tile_k = base + L::k(key_tile),
                    tile_v = base + L::v(key_tile);
-    // the dO and Q columns the dV and dK products read: col0 / 64 atoms in
+    // the dO and Q columns its dV and dK products read: col0 / 64 atoms in
     const uint32_t cols = (col0 / 64) * kAtomBytes;
     const DkvRows rows(p, b, h, kw0, tid);
 
@@ -269,9 +250,14 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       const int s = i % kStages;
       const int q0 = (qt0 + i) * 64;
       if (p.causal && q0 + 63 < kw0) {
-        // every pair of this query tile is masked for these keys (only the
-        // first tile, of the second warpgroup: see the release note at
-        // DkvShape)
+        // every pair of this query tile is masked for these keys. Only the
+        // second warpgroup at D 64/128 skips, and only the first tile: its
+        // early release is its stage's first phase. It does not wait for
+        // the tile, so its next wait on the stage would pass early if the
+        // first tile's copies completed after the second tile had been
+        // waited for and computed on, which copies issued in order do not
+        // do in practice. A wait here (a second wait call site in the
+        // loop) spills the D 64/128 kernels.
         mbar_arrive(base + L::empty(s));
         continue;
       }
@@ -292,35 +278,40 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 
       // ---- dV += (P M)^T dO, (P M)^T made slice by slice
       const auto mul = [&](int e) { return (keep >> e) & 1u ? kept : 0.f; };
-      wgmma_split_product<kN, 1>(
+      wgmma_split_product<kN, true>(
           dv, [&](int e) { return st[e] * mul(e); }, base + L::dout(s) + cols);
       // P^T waits in shared memory while dP^T takes its registers: with dK
-      // and dV live, holding both score tiles would spill. A dropped
-      // element is parked negated (P^T >= 0, so its sign bit is the mask).
+      // and dV live, holding both score tiles would spill. At D = 256 a
+      // dropped element is parked negated (its sign bit is the mask).
+      constexpr bool kSigned = kDropout && S::kSplitD;
       float* stash = reinterpret_cast<float*>(smem + L::stash) + tid;
 #pragma unroll
       for (int e = 0; e < 32; ++e)
-        stash[e * kConsumerThreads] =
-            kDropout && !((keep >> e) & 1u) ? -st[e] : st[e];
+        stash[e * kDkvConsumers] =
+            kSigned && !((keep >> e) & 1u) ? -st[e] : st[e];
+      if constexpr (kDropout && !S::kSplitD)
+        reinterpret_cast<uint32_t*>(stash)[32 * kDkvConsumers] = keep;
 
       // ---- dS^T = P^T (V dO^T M - Delta);  dK += dS^T Q
       float dpt[32];
       wgmma_kmajor_product<D>(dpt, tile_v, base + L::dout(s));
-      if constexpr (kDropout) {
+      if constexpr (kSigned) {
         keep = 0u;
 #pragma unroll
         for (int e = 0; e < 32; ++e)
-          keep |= ((__float_as_uint(stash[e * kConsumerThreads]) >> 31) ^ 1u)
+          keep |= ((__float_as_uint(stash[e * kDkvConsumers]) >> 31) ^ 1u)
                   << e;
+      } else if constexpr (kDropout) {
+        keep = reinterpret_cast<const uint32_t*>(stash)[32 * kDkvConsumers];
       }
       rows.grad_scores(
           [&](int e) {
-            const float x = stash[e * kConsumerThreads];
-            return kDropout ? fabsf(x) : x;
+            const float x = stash[e * kDkvConsumers];
+            return kSigned ? fabsf(x) : x;
           },
           dpt, keep, kept, lse_s + 64);
-      wgmma_split_product<kN, 1>(dk, [&](int e) { return dpt[e]; },
-                                 base + L::q(s) + cols);
+      wgmma_split_product<kN, true>(dk, [&](int e) { return dpt[e]; },
+                                    base + L::q(s) + cols);
       mbar_arrive(base + L::empty(s));
     }
 
@@ -332,12 +323,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 template <int D, bool kDropout>
 cudaError_t launch(const CUtensorMap (&maps)[4], const DkvParams& p,
                    cudaStream_t stream) {
-  using X = DkvDerived<D>;
   static unsigned smem_set = 0;
-  const int key_ctas = (p.Lk + 64 * X::kKeyTiles - 1) / (64 * X::kKeyTiles);
-  return launch_bwd(flash_bwd_dkv_sm90_kernel<D, kDropout>, X::kThreads,
+  constexpr int kKeys = 64 * DkvShape<D>::kKeyTiles;  // per CTA
+  return launch_bwd(flash_bwd_dkv_sm90_kernel<D, kDropout>, kThreads,
                     DkvLayout<D>::kBytes, smem_set, maps, p,
-                    key_ctas * X::kHalves, stream);
+                    (p.Lk + kKeys - 1) / kKeys, stream);
 }
 
 }  // namespace

@@ -173,9 +173,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 
   // One key tile at a time: S = Q K^T, softmax, O += P V. The two CTAs an
   // SM holds at D 64/128 (168 registers a thread) interleave, so one's
-  // softmax overlaps the other's products. (Overlapping S_{i+1} with the softmax inside one
-  // warpgroup needs 230 registers, one CTA per SM, and measured 1.5 times
-  // slower.)
+  // softmax overlaps the other's products. (Overlapping S_{i+1} with the
+  // softmax inside one warpgroup needs 230 registers, one CTA per SM, and
+  // measured 1.5 times slower.)
   float sc[32];
   float alpha0, alpha1;
   mbar_wait(base + L::q_full, 0);
