@@ -1119,14 +1119,14 @@ def phase_d256_step(seed: int) -> dict:
 
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    cfg = _train_config(num_layers=2, num_heads=8)
+    n = 2  # layers
+    vocab = _train_config().vocab_size
     ids = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
-    n = cfg.num_layers
+        0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
     need = (0, 2 * n, 0, n, 0, 0, 0, n, 0)
 
     def one_step(flash: bool):
-        step = _o2_step(_train_config(num_layers=2, num_heads=8,
+        step = _o2_step(_train_config(num_layers=n, num_heads=8,
                                       use_flash_attention=flash), seed, seed)
         fa.reset_launch_counts()
         loss = float(step((ids, ids)))
@@ -1144,7 +1144,7 @@ def phase_d256_step(seed: int) -> dict:
         raise AssertionError(f"D = 256 step: loss {loss_k} with the kernels, "
                              f"{loss_p} with plain attention (limit {tol})")
     out = dict(model="gpt_1p3b width, 8 heads of 256, 2 layers, O2 bf16",
-               head_dim=cfg.hidden_size // cfg.num_heads, layers=n,
+               head_dim=256, layers=n,
                loss_kernel=loss_k, loss_plain=loss_p, tol=tol,
                launches=dict(zip(_COUNT_NAMES, launches)))
     emit("d256_step", **out)
