@@ -35,7 +35,8 @@ exits non-zero:
                [1,8,1024,256] and [2,16,1024,256] bf16), and dropout (the
                CUDA Philox mask against the plain one bit for bit, its keep
                rate, replay of a fixed seed, and forward and backward at
-               p = 0.1 given the same mask, also at bf16 D = 256). Times the
+               p = 0.1 given the same mask, also at bf16 D = 256 at both
+               of its shapes). Times the
                kernel and one PyTorch library call computing the same
                function (a yardstick the port never calls) in turns, as the
                median and range of 6 loops of 20 calls each, the plain
@@ -764,11 +765,17 @@ def phase_dropout(seed: int) -> dict:
     out = dict(mask_bits_equal_plain=True, keep_rate=kept / n,
                keep_rate_sigma=sigma / n, mask_bound_ms=mask_bound_ms,
                mask_bound_by="operations")
-    for dtype, D in ((torch.float32, D), (torch.bfloat16, D),
-                     (torch.bfloat16, 256)):
-        q, k, v = _views(g, B, L, H, D, dtype)
-        do = torch.randn(B, L, H, D, generator=g, device="cuda").to(dtype) \
-            .transpose(1, 2)
+    # D = 256 at both of its timed shapes: the mask of the first Bc
+    # batches and Hc heads is the corner of the full one (Philox keys by
+    # (b, h, row, col))
+    for dtype, D, Bc, Hc in ((torch.float32, D, B, H),
+                             (torch.bfloat16, D, B, H),
+                             (torch.bfloat16, 256, B, H),
+                             (torch.bfloat16, 256, 1, 8)):
+        kp = keep[:Bc, :Hc]
+        q, k, v = _views(g, Bc, L, Hc, D, dtype)
+        do = torch.randn(Bc, L, Hc, D, generator=g, device="cuda") \
+            .to(dtype).transpose(1, 2)
         fa.reset_launch_counts()
         o, lse = fa.flash_attention_fwd(q, k, v, causal=True,
                                         dropout_p=DROPOUT_P, seed=mseed)
@@ -787,21 +794,21 @@ def phase_dropout(seed: int) -> dict:
                 and all(torch.equal(a, b) for a, b in zip(got[:3], got2[:3]))):
             raise AssertionError("dropout kernels do not replay a fixed seed")
         o_ref, lse_ref = fa.reference_attention_fwd(q, k, v, causal=True,
-                                                    keep_mask=keep)
+                                                    keep_mask=kp)
         d256 = "_d256" if D == 256 else ""
-        name = f"dropout_{_dtype_name(q)}{d256}_B2_L1024"
+        name = f"dropout_{_dtype_name(q)}{d256}_B{Bc}_L1024"
         errs = {"o": check_close(f"{name} o", o, o_ref,
                                  output_tolerance(o_ref, routes["fwd"]))}
         errs["lse"] = check_close(f"{name} lse", lse, lse_ref,
                                   lse_tolerance(lse_ref, routes["fwd"]))
-        ref = fa.reference_attention_bwd(q, k, v, None, o, lse, do, True, keep)
+        ref = fa.reference_attention_bwd(q, k, v, None, o, lse, do, True, kp)
         for key, x, y in zip(("dq", "dk", "dv"), got, ref):
             errs[key] = check_close(f"{name} {key}", x, y, bwd_tolerance(y))
         delta = (do.float() * o.float()).sum(-1).contiguous()
         do_k = (do if "wgmma" not in routes.values() or fa._tma_ok(do)
                 else do.contiguous())
         out[name] = dict(
-            head_dim=D, errors=errs, routes=routes,
+            shape=[Bc, Hc, L, L, D], errors=errs, routes=routes,
             fwd_ms=cuda_ms(lambda: fa.flash_attention_fwd(
                 q, k, v, causal=True, dropout_p=DROPOUT_P, seed=mseed)),
             dq_ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(
