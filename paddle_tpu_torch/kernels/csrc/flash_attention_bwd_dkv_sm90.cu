@@ -69,7 +69,7 @@
 //   mask). A CTA per key tile and D half with one warpgroup and a producer
 //   warp (255 registers) measured 6 % faster at [1, 8, 1024, 256] and 1.6
 //   times slower at [2, 16, 1024, 256] causal, and with two warpgroups and
-//   a one-stage ring it spilled (PERF.md, PR 7);
+//   a one-stage ring it spilled (PERF.md, section 6);
 // - dK is scaled once at the end; no atomics, so a run replays bit for bit;
 // - the dropout bits are the per-element Philox words of (seed, b, h, query,
 //   key), the same the forward and the FMA dQ kernel draw.

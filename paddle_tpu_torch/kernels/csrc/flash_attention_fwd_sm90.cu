@@ -56,7 +56,7 @@
 //   and a 128-column half of O each) measured 1.07-3.0 times slower at
 //   [1, 8, 1024, 256] and [2, 16, 1024, 256] causal; the first two spill,
 //   as this toolkit's ptxas gives a CTA of 288 threads, or two of 160, no
-//   more than 168 registers a thread (PERF.md, PR 7);
+//   more than 168 registers a thread (PERF.md, section 6);
 // - the masks run only on the diagonal and ragged tiles, and the dropout
 //   draws only in the kernel instantiated with them;
 // - rows past Lq and keys past Lk arrive as zeros from TMA (the ragged edge),
