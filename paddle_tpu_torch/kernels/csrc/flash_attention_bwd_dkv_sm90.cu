@@ -222,6 +222,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
         st[r] = qi < p.Lq ? p.lse[row_base + qi] : 0.f;
         st[64 + r] = qi < p.Lq ? p.delta[row_base + qi] : 0.f;
       }
+      // the full barriers complete in tile order: a consumer that has
+      // waited for tile i knows that tile i - 1 has landed too (see the
+      // causal skip below)
+      if (i > 0)
+        mbar_wait(base + L::full((i - 1) % kStages), ((i - 1) / kStages) & 1);
       mbar_arrive(base + L::full(s));
     }
   } else {
@@ -251,13 +256,13 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       const int q0 = (qt0 + i) * 64;
       if (p.causal && q0 + 63 < kw0) {
         // every pair of this query tile is masked for these keys. Only the
-        // second warpgroup at D 64/128 skips, and only the first tile: its
-        // early release is its stage's first phase. It does not wait for
-        // the tile, so its next wait on the stage would pass early if the
-        // first tile's copies completed after the second tile had been
-        // waited for and computed on, which copies issued in order do not
-        // do in practice. A wait here (a second wait call site in the
-        // loop) spills the D 64/128 kernels.
+        // second warpgroup at D 64/128 skips, and only the first tile: it
+        // releases the stage without waiting for the tile (a wait here, or
+        // any other reshaping of this loop tried so far, spills the D 128
+        // and 256 kernels). Its next wait on the stage is for the phase
+        // after this one; it cannot pass early, since the wait for tile 1
+        // before it returns only once tile 0 has landed (the producer
+        // completes the full barriers in tile order).
         mbar_arrive(base + L::empty(s));
         continue;
       }
