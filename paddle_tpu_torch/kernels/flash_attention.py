@@ -74,8 +74,7 @@ import torch
 
 from . import _build
 
-__all__ = ["SUPPORTED_HEAD_DIMS", "WGMMA_HEAD_DIMS", "WGMMA_BF16_HEAD_DIMS",
-           "kernel_route",
+__all__ = ["SUPPORTED_HEAD_DIMS", "TENSOR_CORE_HEAD_DIMS", "kernel_route",
            "tma_geometry", "launch_counts", "reset_launch_counts",
            "wgmma_selfcheck", "split_bf16_terms", "should_use_flash",
            "philox_bits", "dropout_bits", "dropout_mask", "flash_attention_fwd",
@@ -85,11 +84,14 @@ __all__ = ["SUPPORTED_HEAD_DIMS", "WGMMA_HEAD_DIMS", "WGMMA_BF16_HEAD_DIMS",
            "reference_attention_fwd", "reference_attention_bwd"]
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
-#: head dims at which every kernel of both dtypes runs on the tensor cores
-WGMMA_HEAD_DIMS = (64, 128)
-#: head dims of each bf16 ``wgmma`` kernel (the bf16 dQ at D = 256 is FMA)
-WGMMA_BF16_HEAD_DIMS = {"fwd": (64, 128, 256), "dq": (64, 128),
-                        "dkv": (64, 128, 256)}
+#: head dims at which each (dtype, kernel) runs on the tensor cores: route
+#: ``"wgmma"`` for bf16, ``"wgmma_f32"`` for float32; the rest is ``"fma"``
+TENSOR_CORE_HEAD_DIMS = {
+    (torch.bfloat16, "fwd"): (64, 128, 256), (torch.bfloat16, "dq"): (64, 128),
+    (torch.bfloat16, "dkv"): (64, 128, 256),
+    (torch.float32, "fwd"): (64, 128), (torch.float32, "dq"): (64, 128),
+    (torch.float32, "dkv"): (64, 128)}
+_TENSOR_CORE_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "wgmma_f32"}
 _FWD_SOURCE = "flash_attention_fwd.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
 _FWD_SM90_SOURCE = "flash_attention_fwd_sm90.cu"
@@ -103,18 +105,16 @@ _TILE_ROWS = 64  # rows of every TMA box (csrc/sm90.cuh)
 
 def kernel_route(dtype: torch.dtype, head_dim: int, kernel: str) -> str:
     """Which kernel a CUDA input of ``dtype`` and ``head_dim`` takes for
-    ``kernel`` ("fwd", "dq" or "dkv"): ``"wgmma"`` (the sm_90a tensor-core
-    kernels) for bf16 at the head dims of :data:`WGMMA_BF16_HEAD_DIMS`
-    (all three at D 64/128; the forward and dK/dV also at D = 256),
-    ``"wgmma_f32"`` (the same tensor cores, each float32 operand as three
-    bf16 terms) for float32 at D in :data:`WGMMA_HEAD_DIMS`; ``"fma"`` for
-    everything else."""
+    ``kernel`` ("fwd", "dq" or "dkv"): at the head dims of
+    :data:`TENSOR_CORE_HEAD_DIMS` (all three kernels at D 64/128; the bf16
+    forward and dK/dV also at D = 256) ``"wgmma"`` (the sm_90a
+    tensor-core kernels) for bf16 and ``"wgmma_f32"`` (the same tensor
+    cores, each float32 operand as three bf16 terms) for float32;
+    ``"fma"`` for everything else."""
     if kernel not in ("fwd", "dq", "dkv"):
         raise ValueError(f"kernel must be fwd, dq or dkv, got {kernel!r}")
-    if dtype == torch.bfloat16 and head_dim in WGMMA_BF16_HEAD_DIMS[kernel]:
-        return "wgmma"
-    if dtype == torch.float32 and head_dim in WGMMA_HEAD_DIMS:
-        return "wgmma_f32"
+    if head_dim in TENSOR_CORE_HEAD_DIMS.get((dtype, kernel), ()):
+        return _TENSOR_CORE_ROUTES[dtype]
     return "fma"
 
 
@@ -618,43 +618,74 @@ def _dropout_args(dropout_p: float, seed: int):
     return 1, int(seed) & (2 ** 64 - 1), threshold, scale
 
 
-def _launch_fwd(q, k, v, causal: bool, bias, out, dropout_p, seed,
-                route: Optional[str] = None):
-    """Launch the forward kernel of :func:`kernel_route`, or of ``route``
-    when given (a yardstick: the FMA kernel of an input the route sends
-    elsewhere)."""
+def _fwd_buffers(q, k, v, bias, out):
+    """The checked shape ``(B, H, Lq, Lk, D)``, O (``out`` or a new tensor
+    in q's layout), an empty LSE, and the bias as the kernels read it with
+    its strides (:func:`_kernel_bias`)."""
     B, H, Lq, Lk, D = _check_shapes(q, k, v)
-    route = route or kernel_route(q.dtype, D, "fwd")
     if out is None:
         out = _empty_like_rows(q)
     _check_operand("out", out, q.device, q.dtype, (B, H, Lq, D))
     lse = torch.empty((B, H, Lq), device=q.device, dtype=torch.float32)
-    bias, bias_strides = _kernel_bias(bias, B, H, Lq, Lk, q.device)
-    bias_ptr = None if bias is None else bias.data_ptr()
+    return ((B, H, Lq, Lk, D), out, lse,
+            *_kernel_bias(bias, B, H, Lq, Lk, q.device))
+
+
+def _launch_fwd_fma(q, k, v, causal: bool, bias, out, dropout_p, seed):
+    """Launch the FMA forward kernel (``csrc/flash_attention_fwd.cu``):
+    float32 at D = 256, and the yardstick the tensor-core forwards are
+    timed against. Counts nothing."""
+    (B, H, Lq, Lk, D), out, lse, bias, bias_strides = _fwd_buffers(
+        q, k, v, bias, out)
+    strides = (ctypes.c_longlong * 15)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], *bias_strides)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        if route in ("wgmma", "wgmma_f32"):
-            fn, ops = _fwd_sm90_fn(), (q, k, v)
-            if route == "wgmma_f32":  # the tensor cores read bf16 terms
-                fn, ops = _fwd_f32_sm90_fn(), split_bf16_terms(q, k, v)
-            err = fn(*(t.data_ptr() for t in ops), bias_ptr,
-                     out.data_ptr(), lse.data_ptr(), B, H, Lq, Lk, D,
-                     _geometry_words(*ops),
-                     (ctypes.c_longlong * 6)(*out.stride()[:3], *bias_strides),
-                     int(bool(causal)), 1.0 / math.sqrt(D),
-                     *_dropout_args(dropout_p, seed), stream)
-        else:
-            strides = (ctypes.c_longlong * 15)(
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                *out.stride()[:3], *bias_strides)
-            err = _fwd_fn()(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
-                out.data_ptr(), lse.data_ptr(), _DTYPE_CODES[q.dtype],
-                B, H, Lq, Lk, D, strides, int(bool(causal)),
-                1.0 / math.sqrt(D), *_dropout_args(dropout_p, seed), stream)
+        err = _fwd_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), _DTYPE_CODES[q.dtype], B, H, Lq, Lk, D, strides,
+            int(bool(causal)), 1.0 / math.sqrt(D),
+            *_dropout_args(dropout_p, seed),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd (fma) launch failed: "
+                           f"CUDA error {err}")
+    return out, lse
+
+
+def _launch_fwd_sm90(route: str, q, k, v, causal: bool, bias, out,
+                     dropout_p, seed):
+    """Launch the tensor-core forward kernel of ``route`` ("wgmma", or
+    "wgmma_f32", which first splits q, k, v into their bf16 terms)."""
+    (B, H, Lq, Lk, D), out, lse, bias, bias_strides = _fwd_buffers(
+        q, k, v, bias, out)
+    fn, ops = _fwd_sm90_fn(), (q, k, v)
+    if route == "wgmma_f32":  # the tensor cores read bf16 terms
+        fn, ops = _fwd_f32_sm90_fn(), split_bf16_terms(q, k, v)
+    with torch.cuda.device(q.device):
+        err = fn(*(t.data_ptr() for t in ops),
+                 None if bias is None else bias.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), B, H, Lq, Lk, D, _geometry_words(*ops),
+                 (ctypes.c_longlong * 6)(*out.stride()[:3], *bias_strides),
+                 int(bool(causal)), 1.0 / math.sqrt(D),
+                 *_dropout_args(dropout_p, seed),
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd ({route}) launch failed: "
                            f"CUDA error {err}")
+    return out, lse
+
+
+def _launch_fwd(q, k, v, causal: bool, bias, out, dropout_p, seed):
+    """Launch the forward kernel of :func:`kernel_route` and count it."""
+    route = kernel_route(q.dtype, q.shape[-1], "fwd")
+    if route == "fma":
+        out, lse = _launch_fwd_fma(q, k, v, causal, bias, out, dropout_p,
+                                   seed)
+    else:
+        out, lse = _launch_fwd_sm90(route, q, k, v, causal, bias, out,
+                                    dropout_p, seed)
     flash_attention_fwd.launches += 1
     flash_attention_fwd.routes[route] += 1
     return out, lse

@@ -305,6 +305,36 @@ def test_forward_launches_the_route_of_dtype_and_head_dim(dtype, d, route):
     tfa.reset_launch_counts()
 
 
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 256),
+                                     (torch.float32, 128)])
+def test_fma_forward_launcher_takes_any_input_and_counts_nothing(dtype, d):
+    """``_launch_fwd_fma``, the yardstick the tensor-core forwards are
+    timed against, hands an input that routes to the tensor cores to the
+    FMA entry, and to it only, and moves no launch count. The C entries
+    are stubbed, as above."""
+    B, H, L = 2, 3, 64
+    calls = []
+
+    def entry(name):
+        return lambda: lambda *a: calls.append(name) or 0
+
+    q, k, v = (torch.zeros(B, H, L, d, dtype=dtype) for _ in range(3))
+    with mock.patch.object(tfa, "_fwd_fn", entry("fma")), \
+            mock.patch.object(tfa, "_fwd_sm90_fn", entry("wgmma")), \
+            mock.patch.object(tfa, "_fwd_f32_sm90_fn", entry("wgmma_f32")), \
+            mock.patch.object(torch.cuda, "device",
+                              lambda dev: mock.MagicMock()), \
+            mock.patch.object(torch.cuda, "current_stream",
+                              lambda dev: _FakeStream()):
+        tfa.reset_launch_counts()
+        o, lse = tfa._launch_fwd_fma(q, k, v, True, None, None, 0.0, 0)
+    assert tfa.kernel_route(dtype, d, "fwd") != "fma"
+    assert calls == ["fma"]
+    assert all(n == 0 for c in tfa.launch_counts().values()
+               for n in c.values())
+    assert o.shape == (B, H, L, d) and lse.shape == (B, H, L)
+
+
 @pytest.mark.parametrize("d,route", [(64, "wgmma_f32"), (128, "wgmma_f32"),
                                      (256, "fma")])
 @pytest.mark.parametrize("which", ["dq", "dkv"])
