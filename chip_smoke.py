@@ -22,7 +22,8 @@ exits non-zero:
                equal its plain version bit for bit; wgmma for bf16 at D = 64
                and 128, and at 256 for bf16; FMA for float32 at D = 256;
                each case checked for its route; the FMA forward timed
-               beside the wgmma one at bf16 D = 256), the dQ and dK/dV
+               beside the wgmma one at bf16 D = 256, also at the D = 256
+               step's [2,8,1024,256]), the dQ and dK/dV
                backward kernels (wgmma for bf16 and wgmma_f32 for float32
                at D = 64 and 128; at bf16 D = 256 the wgmma dK/dV and the
                FMA dQ; FMA for float32 at D = 256; each case checked for
@@ -32,11 +33,12 @@ exits non-zero:
                timed beside SDPA's; the FMA dQ and dK/dV, which the
                tensor-core ones replace, timed beside them at
                [2,16,1024,128] and [2,16,1024,64] float32 and at
-               [1,8,1024,256] and [2,16,1024,256] bf16), and dropout (the
+               [1,8,1024,256], [2,16,1024,256] and the D = 256 step's
+               [2,8,1024,256] bf16), and dropout (the
                CUDA Philox mask against the plain one bit for bit, its keep
                rate, replay of a fixed seed, and forward and backward at
-               p = 0.1 given the same mask, also at bf16 D = 256 at both
-               of its shapes). Times the
+               p = 0.1 given the same mask, also at bf16 D = 256 at its
+               three shapes). Times the
                kernel and one PyTorch library call computing the same
                function (a yardstick the port never calls) in turns, as the
                median and range of 6 loops of 20 calls each, the plain
@@ -63,7 +65,10 @@ exits non-zero:
                full-width bf16 dropout run on the wgmma kernels that
                replays bit for bit from its seed.
 6. d256      - the same bf16 O2 step at gpt_1p3b width with 8 heads of 256
-               and 2 layers: one step with the kernels (exactly 4 wgmma
+               and 2 layers: the gradients of the first loss with the
+               kernels against plain attention's, each parameter within
+               twice plain attention's own distance from a float32
+               reference; one step with the kernels (exactly 4 wgmma
                forward, 2 wgmma dK/dV and 2 FMA dQ launches) and one with
                plain attention, the losses equal within two bf16 ulps.
 
@@ -117,9 +122,20 @@ PREFILL_LOGITS_TOL = 2e-3  # 24 layers of f32 rounding between two attention pat
 # training, float32, kernels vs plain attention through 24 layers: loss
 # relative 1e-4, each parameter's gradient relative L2 error 1e-3
 TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_L2 = 1e-4, 1e-3
+# training, bf16: the kernels' gradients and plain attention's may differ by
+# twice what bf16 puts between plain attention's and float32's (each
+# parameter, relative L2): the bound two paths that are each as close to
+# float32 as plain attention could reach (triangle inequality)
+BF16_GRAD_SLACK = 2
 DROPOUT_P = 0.1
 TRAIN_BATCH, TRAIN_SEQ = 2, 1024     # bench.py bench_gpt_1p3b
 TRAIN_WARMUP, TRAIN_TIMED = 5, 8
+# the D = 256 step (phase_d256_step): gpt_1p3b width with 8 heads of 256;
+# its attention, [TRAIN_BATCH, 8, TRAIN_SEQ, 256] bf16 causal, is also a
+# case of the forward, backward and dropout phases
+D256_STEP_HEADS = 8
+D256_STEP_FWD = f"d256_step_bf16_B{TRAIN_BATCH}_H{D256_STEP_HEADS}_L{TRAIN_SEQ}"
+D256_STEP_BWD = f"d256_step_bfloat16_B{TRAIN_BATCH}_H{D256_STEP_HEADS}_L{TRAIN_SEQ}"
 
 
 def bf16_ulp(x):
@@ -344,9 +360,10 @@ def phase_build(seed: int) -> None:
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     out = {}
-    for dtype, D in ([(torch.bfloat16, D)
-                      for D in fa.WGMMA_BF16_HEAD_DIMS["fwd"]]
-                     + [(torch.float32, D) for D in fa.WGMMA_HEAD_DIMS]):
+    # the head dims of each dtype's tensor-core forward
+    for dtype, D in [(dtype, D) for (dtype, kernel), dims
+                     in fa.TENSOR_CORE_HEAD_DIMS.items() if kernel == "fwd"
+                     for D in dims]:
         a, b, c1, c2 = fa.wgmma_selfcheck(D, "cuda", g, dtype=dtype)
         torch.cuda.synchronize()
         for name, got, x, y in (("kmajor", c1, a, b.T), ("transposed_b", c2,
@@ -386,10 +403,14 @@ def _fwd_cases(g):
     # bench.py bench_gpt_primary's attention: [8, 16, 1024, 64] bf16, causal
     cases.append(("primary_bf16_B8_L1024", *_views(g, 8, 1024, 16, 64, torch.bfloat16),
                   True, None, "wgmma", bf16_tol))
-    # D = 256: no model on a path; the wgmma forward at two sizes
+    # D = 256: the wgmma forward at two sizes, and at the D = 256 step's
+    # own [2, 8, 1024, 256] (phase_d256_step)
     cases.append(("d256_causal_bf16_L1024", *_views(g, 1, 1024, 8, 256, torch.bfloat16),
                   True, None, "wgmma", bf16_tol))
     cases.append(("d256_causal_bf16_B2_L1024", *_views(g, 2, 1024, 16, 256, torch.bfloat16),
+                  True, None, "wgmma", bf16_tol))
+    cases.append((D256_STEP_FWD, *_views(g, TRAIN_BATCH, TRAIN_SEQ, D256_STEP_HEADS,
+                                         256, torch.bfloat16),
                   True, None, "wgmma", bf16_tol))
     for dtype, D, route, tol in ((torch.float32, 128, "wgmma_f32", f32_tol),
                                  (torch.bfloat16, 64, "wgmma", bf16_tol)):
@@ -433,7 +454,8 @@ def split_case(fa, name, q, k, v) -> dict:
 
 # the bf16 cases at which the FMA forward, which the wgmma one replaces at
 # D = 256, is timed beside it
-FWD_FMA_COMPARED = ("d256_causal_bf16_L1024", "d256_causal_bf16_B2_L1024")
+FWD_FMA_COMPARED = ("d256_causal_bf16_L1024", "d256_causal_bf16_B2_L1024",
+                    D256_STEP_FWD)
 
 
 def phase_kernels(seed: int) -> dict:
@@ -468,8 +490,8 @@ def phase_kernels(seed: int) -> dict:
                    q, k, v, attn_mask=bias, is_causal=causal)}
         if name in FWD_FMA_COMPARED:
             # the FMA forward on the same inputs, launched directly: timing
-            fns["fma"] = lambda: fa._launch_fwd(q, k, v, causal, bias, None,
-                                                0.0, 0, route="fma")
+            fns["fma"] = lambda: fa._launch_fwd_fma(q, k, v, causal, bias,
+                                                    None, 0.0, 0)
         t = timed_in_turns(fns)
         plain_ms = cuda_ms(lambda: fa.reference_attention_fwd(
             q, k, v, causal=causal, bias=bias), iters=5)
@@ -576,6 +598,12 @@ def _bwd_cases(g):
         q, k, v, do = (rn(B, H, 1024, D).to(dtype) for _ in range(4))
         cases.append((f"d{D}_causal_{_dtype_name(q)}_B{B}_L1024", q, k, v, do,
                       True, None, routes))
+    # the D = 256 step's attention, as its autograd hands it over
+    q, k, v = _views(g, TRAIN_BATCH, TRAIN_SEQ, D256_STEP_HEADS, 256,
+                     torch.bfloat16)
+    do = rn(TRAIN_BATCH, TRAIN_SEQ, D256_STEP_HEADS, 256).to(
+        torch.bfloat16).transpose(1, 2)
+    cases.append((D256_STEP_BWD, q, k, v, do, True, None, d256_bf16))
     return cases
 
 
@@ -584,7 +612,7 @@ def _bwd_cases(g):
 # bf16 D = 256), are timed beside them
 FMA_COMPARED = ("train_float32_B2_L1024", "d64_causal_float32_B2_L1024",
                 "d256_causal_bfloat16_B1_L1024",
-                "d256_causal_bfloat16_B2_L1024")
+                "d256_causal_bfloat16_B2_L1024", D256_STEP_BWD)
 
 
 def _fma_bwd_fns(fa, q, k, v, bias, do, lse, delta, causal, emit_ds):
@@ -765,13 +793,15 @@ def phase_dropout(seed: int) -> dict:
     out = dict(mask_bits_equal_plain=True, keep_rate=kept / n,
                keep_rate_sigma=sigma / n, mask_bound_ms=mask_bound_ms,
                mask_bound_by="operations")
-    # D = 256 at both of its timed shapes: the mask of the first Bc
-    # batches and Hc heads is the corner of the full one (Philox keys by
-    # (b, h, row, col))
+    # D = 256 at both of its timed shapes and at the D = 256 step's: the
+    # mask of the first Bc batches and Hc heads is the corner of the full
+    # one (Philox keys by (b, h, row, col))
     for dtype, D, Bc, Hc in ((torch.float32, D, B, H),
                              (torch.bfloat16, D, B, H),
                              (torch.bfloat16, 256, B, H),
-                             (torch.bfloat16, 256, 1, 8)):
+                             (torch.bfloat16, 256, 1, 8),
+                             (torch.bfloat16, 256, TRAIN_BATCH,
+                              D256_STEP_HEADS)):
         kp = keep[:Bc, :Hc]
         q, k, v = _views(g, Bc, L, Hc, D, dtype)
         do = torch.randn(Bc, L, Hc, D, generator=g, device="cuda") \
@@ -796,7 +826,7 @@ def phase_dropout(seed: int) -> dict:
         o_ref, lse_ref = fa.reference_attention_fwd(q, k, v, causal=True,
                                                     keep_mask=kp)
         d256 = "_d256" if D == 256 else ""
-        name = f"dropout_{_dtype_name(q)}{d256}_B{Bc}_L1024"
+        name = f"dropout_{_dtype_name(q)}{d256}_B{Bc}_H{Hc}_L1024"
         errs = {"o": check_close(f"{name} o", o, o_ref,
                                  output_tolerance(o_ref, routes["fwd"]))}
         errs["lse"] = check_close(f"{name} lse", lse, lse_ref,
@@ -1115,12 +1145,28 @@ def phase_dropout_replay(seed: int) -> dict:
     return out
 
 
+def _loss_and_grads(model, ids):
+    """The loss of ``model(ids, ids)`` and its gradient for every
+    parameter, in ``named_parameters`` order; no update."""
+    import torch
+
+    loss = model(ids, ids).float()
+    return loss.item(), torch.autograd.grad(loss, list(model.parameters()))
+
+
 def phase_d256_step(seed: int) -> dict:
     """The bf16 O2 step at gpt_1p3b width with 8 heads of 256 (D = 256) and
-    2 layers: one step with the flash kernels and one from the same seed
-    with plain attention; the losses agree within BF16_ULPS bf16 ulps, and
-    the kernel step launches exactly 2 forwards per layer (recompute
-    included) on the wgmma route, and one dK/dV (wgmma) and one dQ (FMA)."""
+    2 layers, from one seed with the flash kernels and with plain
+    attention. Before each step, the gradients of its loss: the kernels'
+    may differ from plain attention's by at most BF16_GRAD_SLACK times
+    what bf16 puts between plain attention's and a float32 reference
+    (the same weights, plain attention, float32), parameter by parameter
+    in relative L2. Then one step each: the losses agree within BF16_ULPS
+    bf16 ulps, and the kernel step launches exactly 2 forwards per layer
+    (recompute included) on the wgmma route, and one dK/dV (wgmma) and
+    one dQ (FMA)."""
+    import copy
+
     import numpy as np
     import torch
 
@@ -1130,18 +1176,28 @@ def phase_d256_step(seed: int) -> dict:
     vocab = _train_config().vocab_size
     ids = np.random.default_rng(seed).integers(
         0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    ids_t = torch.as_tensor(ids, device="cuda")
     need = (0, 2 * n, 0, n, 0, 0, 0, n, 0)
 
     def one_step(flash: bool):
-        step = _o2_step(_train_config(num_layers=n, num_heads=8,
+        step = _o2_step(_train_config(num_layers=n, num_heads=D256_STEP_HEADS,
                                       use_flash_attention=flash), seed, seed)
+        _, grads = _loss_and_grads(step.model, ids_t)
+        ref_grads = None
+        if not flash:
+            # the float32 reference: the same weights (bf16, exact in
+            # float32) before the update, plain attention
+            ref = copy.deepcopy(step.model).float()
+            _, ref_grads = _loss_and_grads(ref, ids_t)
+            del ref
         fa.reset_launch_counts()
         loss = float(step((ids, ids)))
-        return loss, _counts(fa)
+        names = [name for name, _ in step.model.named_parameters()]
+        return loss, _counts(fa), grads, ref_grads, names
 
-    loss_k, launches = one_step(True)
+    loss_k, launches, grads_k, _, names = one_step(True)
     _free()
-    loss_p, plain_launches = one_step(False)
+    loss_p, plain_launches, grads_p, grads_ref, _ = one_step(False)
     if launches != need or any(plain_launches):
         raise AssertionError(f"D = 256 step launches {_COUNT_NAMES} "
                              f"{launches}, expected {need}; the plain step "
@@ -1150,9 +1206,30 @@ def phase_d256_step(seed: int) -> dict:
     if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= tol):
         raise AssertionError(f"D = 256 step: loss {loss_k} with the kernels, "
                              f"{loss_p} with plain attention (limit {tol})")
+    # per parameter, relative to the reference's norm: kernels vs plain
+    # attention, plain attention vs the float32 reference, and the share of
+    # the limit BF16_GRAD_SLACK * (plain vs reference) + 2^-24
+    rel_kp, rel_pr, share = [], [], []
+    for gk, gp, gr in zip(grads_k, grads_p, grads_ref):
+        gk, gp, gr = gk.double(), gp.double(), gr.double()
+        ref_norm = gr.norm().clamp_min(1e-30)
+        rel_kp.append(((gk - gp).norm() / ref_norm).item())
+        rel_pr.append(((gp - gr).norm() / ref_norm).item())
+        share.append(rel_kp[-1] / (BF16_GRAD_SLACK * rel_pr[-1] + 2.0 ** -24))
+    worst = max(range(len(share)), key=share.__getitem__)
+    if not all(math.isfinite(x) for x in rel_kp) or share[worst] > 1.0:
+        raise AssertionError(
+            f"D = 256 gradients, kernels vs plain attention: {names[worst]} "
+            f"at relative L2 {rel_kp[worst]}, {share[worst]} of its limit "
+            f"({BF16_GRAD_SLACK} x plain attention's {rel_pr[worst]} from "
+            f"the float32 reference)")
     out = dict(model="gpt_1p3b width, 8 heads of 256, 2 layers, O2 bf16",
                head_dim=256, layers=n,
                loss_kernel=loss_k, loss_plain=loss_p, tol=tol,
+               grad_rel_l2_kernel_vs_plain_max=max(rel_kp),
+               grad_rel_l2_plain_vs_f32_max=max(rel_pr),
+               grad_worst_param=names[worst],
+               grad_worst_share_of_tol=share[worst],
                launches=dict(zip(_COUNT_NAMES, launches)))
     emit("d256_step", **out)
     return out
@@ -1236,14 +1313,13 @@ def main(argv=None) -> int:
         fwd_row("flash_attention_fwd_sm90", "flash_attention_fwd_sm90.cu",
                 "train_bf16_B2_L1024", train["launches"]["fwd_wgmma"], step),
         fwd_row("flash_attention_fwd_sm90_d256", "flash_attention_fwd_sm90.cu",
-                "d256_causal_bf16_L1024", d256_counts["fwd_wgmma"], d256_step),
+                D256_STEP_FWD, d256_counts["fwd_wgmma"], d256_step),
         # no path runs a float32 backward at D = 256 since float32 training
         # moved to wgmma_f32: 0 launches there, timed at its own case
         bwd_row("flash_attention_bwd_dq", "flash_attention_bwd.cu", "dq",
                 "d256_causal_float32_B1_L1024", 0, None),
         bwd_row("flash_attention_bwd_dq_bf16_d256", "flash_attention_bwd.cu",
-                "dq", "d256_causal_bfloat16_B1_L1024", d256_counts["dq_fma"],
-                d256_step),
+                "dq", D256_STEP_BWD, d256_counts["dq_fma"], d256_step),
         bwd_row("flash_attention_bwd_dq_sm90",
                 "flash_attention_bwd_dq_sm90.cu", "dq",
                 "train_bfloat16_B2_L1024", train["launches"]["dq_wgmma"],
@@ -1260,8 +1336,7 @@ def main(argv=None) -> int:
                 step),
         bwd_row("flash_attention_bwd_dkv_sm90_d256",
                 "flash_attention_bwd_dkv_sm90.cu", "dkv",
-                "d256_causal_bfloat16_B1_L1024", d256_counts["dkv_wgmma"],
-                d256_step),
+                D256_STEP_BWD, d256_counts["dkv_wgmma"], d256_step),
         bwd_row("flash_attention_bwd_dkv_f32_sm90",
                 "flash_attention_bwd_f32_sm90.cu", "dkv",
                 "train_float32_B2_L1024", parity["launches"]["dkv_wgmma_f32"],
