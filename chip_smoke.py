@@ -11,24 +11,24 @@ exits non-zero:
                (nvcc, one library per source, all started together), fails
                on a register spill in the five wgmma sources, and holds the
                wgmma/TMA self-check (a 64 x 64 x D product through each
-               descriptor form, in bf16 at D = 64, 128 and 256 and through
-               the float32 forward's three-term products at 64 and 128)
-               against a float64 product.
+               descriptor form, in bf16 and through the float32 forward's
+               three-term products, at D = 64, 128 and 256) against a
+               float64 product.
 3. kernels   - calls each kernel's wrapper on the card at the shapes the
                serving and training paths give it, and holds the result
                against its plain PyTorch version on the same inputs (stated
-               tolerance): the forward kernels (wgmma_f32 for float32 at
-               D = 64 and 128 with its bf16-term split pre-pass, which must
-               equal its plain version bit for bit; wgmma for bf16 at D = 64
-               and 128, and at 256 for bf16; FMA for float32 at D = 256;
-               each case checked for its route; the FMA forward timed
-               beside the wgmma one at bf16 D = 256, also at the D = 256
-               step's [2,8,1024,256]), the dQ and dK/dV
-               backward kernels (wgmma for bf16 and wgmma_f32 for float32
-               at D = 64 and 128; at bf16 D = 256 the wgmma dK/dV and the
-               FMA dQ; FMA for float32 at D = 256; each case checked for
-               the route of each kernel; dS as the bias gradient, also
-               causal; every tensor-core kernel replayed bit for bit; the
+               tolerance): the forward kernels (wgmma_f32 for float32 with
+               its bf16-term split pre-pass, which must equal its plain
+               version bit for bit; wgmma for bf16; at D = 64, 128 and 256;
+               each case checked for its route and replayed bit for bit;
+               the FMA forward timed beside the tensor-core ones at
+               D = 256, also at the D = 256 step's [2,8,1024,256] and at
+               the D = 256 prefill's [1,8,2048,256]), the dQ and dK/dV
+               backward kernels (wgmma for bf16 at D = 64, 128 and 256 and
+               wgmma_f32 for float32 at D = 64 and 128; FMA for float32 at
+               D = 256; each case checked for the route of each kernel; dS
+               as the bias gradient, also causal with zeros above the
+               diagonal; every tensor-core kernel replayed bit for bit; the
                whole backward wrapper, with Delta and the split pre-pass,
                timed beside SDPA's; the FMA dQ and dK/dV, which the
                tensor-core ones replace, timed beside them at
@@ -38,7 +38,7 @@ exits non-zero:
                CUDA Philox mask against the plain one bit for bit, its keep
                rate, replay of a fixed seed, and forward and backward at
                p = 0.1 given the same mask, also at bf16 D = 256 at its
-               three shapes). Times the
+               three shapes and at float32 D = 256). Times the
                kernel and one PyTorch library call computing the same
                function (a yardstick the port never calls) in turns, as the
                median and range of 6 loops of 20 calls each, the plain
@@ -69,11 +69,19 @@ exits non-zero:
                kernels against plain attention's, each parameter within
                twice plain attention's own distance from a float32
                reference; one step with the kernels (exactly 4 wgmma
-               forward, 2 wgmma dK/dV and 2 FMA dQ launches) and one with
-               plain attention, the losses equal within two bf16 ulps.
+               forward, 2 wgmma dQ and 2 wgmma dK/dV launches, none on an
+               FMA kernel) and one with plain attention, the losses equal
+               within two bf16 ulps. Then gpt_1p3b width with 8 heads of
+               256 and 2 layers behind InferenceServer(slots=2,
+               max_length=2048) serves two greedy prompts of 900 and 1900
+               tokens: the checks of phase 4, with the wgmma_f32 forward
+               at D = 256 (exactly one launch and one split per layer per
+               prefill, no other forward).
 
 Then a line with the kernels' summary, a line with the card's name and
 power limit, and the last line {"ok": true, "device": {...}}.
+``--kernels-only`` stops after phase 3 and prints none of those three
+lines: a partial run, to compare kernel builds in turns.
 
 It exits non-zero without printing a result when no CUDA device is
 present, and imports nothing of JAX.
@@ -136,6 +144,10 @@ TRAIN_WARMUP, TRAIN_TIMED = 5, 8
 D256_STEP_HEADS = 8
 D256_STEP_FWD = f"d256_step_bf16_B{TRAIN_BATCH}_H{D256_STEP_HEADS}_L{TRAIN_SEQ}"
 D256_STEP_BWD = f"d256_step_bfloat16_B{TRAIN_BATCH}_H{D256_STEP_HEADS}_L{TRAIN_SEQ}"
+# the D = 256 prefill (phase_d256_prefill): its longest prompt's bucket,
+# [1, 8, 2048, 256] float32 causal, is a case of the forward phase
+D256_PREFILL_LENGTHS = (900, 1900)
+D256_PREFILL_FWD = "prefill_f32_d256_L2048"
 
 
 def bf16_ulp(x):
@@ -391,8 +403,13 @@ def _fwd_cases(g):
                       True, None, "wgmma_f32", f32_tol))
     cases.append(("d64_causal_f32_B2_L1024", *_views(g, 2, 1024, 16, 64, torch.float32),
                   True, None, "wgmma_f32", f32_tol))
+    # D = 256, float32: the wgmma_f32 forward at [1, 8, 1024, 256] and at
+    # the D = 256 prefill's longest bucket (phase_d256_prefill)
     cases.append(("d256_causal_f32_L1024", *_views(g, 1, 1024, 8, 256, torch.float32),
-                  True, None, "fma", F32_TOL))
+                  True, None, "wgmma_f32", f32_tol))
+    cases.append((D256_PREFILL_FWD, *_views(g, 1, 2048, D256_STEP_HEADS, 256,
+                                            torch.float32),
+                  True, None, "wgmma_f32", f32_tol))
     cases.append(("causal_bf16_L2048", *_views(g, 1, 2048, 16, 128, torch.bfloat16),
                   True, None, "wgmma", bf16_tol))
     # the training step's attention: [2, 16, 1024, 128] bf16, causal
@@ -412,12 +429,14 @@ def _fwd_cases(g):
     cases.append((D256_STEP_FWD, *_views(g, TRAIN_BATCH, TRAIN_SEQ, D256_STEP_HEADS,
                                          256, torch.bfloat16),
                   True, None, "wgmma", bf16_tol))
-    for dtype, D, route, tol in ((torch.float32, 128, "wgmma_f32", f32_tol),
-                                 (torch.bfloat16, 64, "wgmma", bf16_tol)):
-        q = torch.randn(1, 16, 384, D, generator=g, device="cuda").to(dtype)
-        k = torch.randn(1, 16, 640, D, generator=g, device="cuda").to(dtype)
-        v = torch.randn(1, 16, 640, D, generator=g, device="cuda").to(dtype)
-        bias = torch.randn(1, 16, 384, 640, generator=g, device="cuda")
+    for dtype, D, H, route, tol in (
+            (torch.float32, 128, 16, "wgmma_f32", f32_tol),
+            (torch.float32, 256, 8, "wgmma_f32", f32_tol),
+            (torch.bfloat16, 64, 16, "wgmma", bf16_tol)):
+        q = torch.randn(1, H, 384, D, generator=g, device="cuda").to(dtype)
+        k = torch.randn(1, H, 640, D, generator=g, device="cuda").to(dtype)
+        v = torch.randn(1, H, 640, D, generator=g, device="cuda").to(dtype)
+        bias = torch.randn(1, H, 384, 640, generator=g, device="cuda")
         cases.append((f"bias_noncausal_{_dtype_name(q)}_d{D}_Lq384_Lk640",
                       q, k, v, False, bias, route, tol))
     for dtype, route, tol in ((torch.float32, "wgmma_f32", f32_tol),
@@ -452,9 +471,10 @@ def split_case(fa, name, q, k, v) -> dict:
     return out
 
 
-# the bf16 cases at which the FMA forward, which the wgmma one replaces at
-# D = 256, is timed beside it
-FWD_FMA_COMPARED = ("d256_causal_bf16_L1024", "d256_causal_bf16_B2_L1024",
+# the D = 256 cases at which the FMA forward, which the tensor-core ones
+# replace there, is timed beside them
+FWD_FMA_COMPARED = ("d256_causal_f32_L1024", D256_PREFILL_FWD,
+                    "d256_causal_bf16_L1024", "d256_causal_bf16_B2_L1024",
                     D256_STEP_FWD)
 
 
@@ -473,11 +493,16 @@ def phase_kernels(seed: int) -> dict:
             results[f"split_{name}"] = split_case(fa, name, q, k, v)
         fa.reset_launch_counts()
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, bias=bias)
+        again = fa.flash_attention_fwd(q, k, v, causal=causal, bias=bias)
         torch.cuda.synchronize()
         route = _route_of(fa, "fwd")
         if route != want:
             raise AssertionError(f"{name}: forward took the {route} kernel, "
                                  f"expected {want}")
+        # no atomics: the same inputs give the same O and LSE
+        if not (torch.equal(o, again[0]) and torch.equal(lse, again[1])):
+            raise AssertionError(f"{name}: the {route} forward does not "
+                                 f"replay bit for bit")
         o_ref, lse_ref = fa.reference_attention_fwd(q, k, v, causal=causal,
                                                     bias=bias)
         num = check_close(name, o, o_ref, output_tolerance(o_ref, route))
@@ -506,6 +531,7 @@ def phase_kernels(seed: int) -> dict:
                              dtype=_dtype_name(q), causal=causal,
                              bias=bias is not None, route=route, **num,
                              lse_max_abs_err=lse_err, tol=tol,
+                             replay_bit_exact=True,
                              ms=ms, ms_range=[t["kernel"]["min"], t["kernel"]["max"]],
                              plain_ms=plain_ms,
                              library_ms=t["library"]["median"],
@@ -514,9 +540,19 @@ def phase_kernels(seed: int) -> dict:
                              bound_ms=bound_ms, bound_by=bound_by,
                              roofline_share=bound_ms / ms)
         if "fma" in t:
+            # the FMA forward is on no path; held to its own tolerance here
+            o_fma, _ = fa._launch_fwd_fma(q, k, v, causal, bias, None, 0.0, 0)
+            fma_err = check_close(f"{name} fma", o_fma, o_ref,
+                                  output_tolerance(o_ref, "fma"))
+            fma_bound, fma_by = attention_bound_ms(
+                B, H, Lq, k.shape[2], D, causal, q.element_size(),
+                0 if bias is None else bias.numel() * bias.element_size(),
+                tensor_cores=False)
             results[name].update(fma_ms=t["fma"]["median"],
                                  fma_ms_range=[t["fma"]["min"],
-                                               t["fma"]["max"]])
+                                               t["fma"]["max"]],
+                                 fma_max_abs_err=fma_err["max_abs_err"],
+                                 fma_bound_ms=fma_bound, fma_bound_by=fma_by)
         emit("kernels", case=name, **results[name])
     return results
 
@@ -573,12 +609,15 @@ def _bwd_cases(g):
                       k, v, rn(1, 16, 384, D).to(dtype), False,
                       rn(1, 16, 384, 640), _both(route)))
     # a trained bias under the causal mask: dS of the key tiles no row of a
-    # query tile sees must come back as zeros
-    for dtype, route in ((torch.bfloat16, "wgmma"),
-                         (torch.float32, "wgmma_f32")):
-        q, k, v, do = (rn(1, 16, 1024, 128).to(dtype) for _ in range(4))
-        cases.append((f"causal_bias_{_dtype_name(q)}_L1024", q, k, v, do,
-                      True, rn(1, 16, 1024, 1024), _both(route)))
+    # query tile sees must come back as zeros (also at bf16 D = 256, where
+    # two warpgroups share the zeroing)
+    for dtype, D, H, route in ((torch.bfloat16, 128, 16, "wgmma"),
+                               (torch.float32, 128, 16, "wgmma_f32"),
+                               (torch.bfloat16, 256, 8, "wgmma")):
+        q, k, v, do = (rn(1, H, 1024, D).to(dtype) for _ in range(4))
+        d256 = "_d256" if D == 256 else ""
+        cases.append((f"causal_bias_{_dtype_name(q)}{d256}_L1024", q, k, v,
+                      do, True, rn(1, H, 1024, 1024), _both(route)))
     for dtype, route in ((torch.float32, "wgmma_f32"),
                          (torch.bfloat16, "wgmma")):
         q, k, v = _views(g, 1, 1500, 16, 128, dtype)
@@ -586,15 +625,14 @@ def _bwd_cases(g):
                       rn(1, 1500, 16, 128).to(dtype).transpose(1, 2), True,
                       None, _both(route)))
     # D = 64 at the training batch and at bench_gpt_primary's batch of 8,
-    # and D = 256 (bf16: the wgmma dK/dV beside the FMA dQ)
-    d256_bf16 = {"dq": "fma", "dkv": "wgmma"}
+    # and D = 256
     for dtype, D, B, H, routes in (
             (torch.float32, 64, 2, 16, _both("wgmma_f32")),
             (torch.float32, 256, 1, 8, _both("fma")),
             (torch.bfloat16, 64, 2, 16, _both("wgmma")),
             (torch.bfloat16, 64, 8, 16, _both("wgmma")),
-            (torch.bfloat16, 256, 1, 8, d256_bf16),
-            (torch.bfloat16, 256, 2, 16, d256_bf16)):
+            (torch.bfloat16, 256, 1, 8, _both("wgmma")),
+            (torch.bfloat16, 256, 2, 16, _both("wgmma"))):
         q, k, v, do = (rn(B, H, 1024, D).to(dtype) for _ in range(4))
         cases.append((f"d{D}_causal_{_dtype_name(q)}_B{B}_L1024", q, k, v, do,
                       True, None, routes))
@@ -603,12 +641,12 @@ def _bwd_cases(g):
                      torch.bfloat16)
     do = rn(TRAIN_BATCH, TRAIN_SEQ, D256_STEP_HEADS, 256).to(
         torch.bfloat16).transpose(1, 2)
-    cases.append((D256_STEP_BWD, q, k, v, do, True, None, d256_bf16))
+    cases.append((D256_STEP_BWD, q, k, v, do, True, None, _both("wgmma")))
     return cases
 
 
 # the cases at which the FMA dQ and dK/dV kernels, which the tensor-core ones
-# replace (the wgmma_f32 pair at float32 D = 64 and 128, the wgmma dK/dV at
+# replace (the wgmma_f32 pair at float32 D = 64 and 128, the wgmma pair at
 # bf16 D = 256), are timed beside them
 FMA_COMPARED = ("train_float32_B2_L1024", "d64_causal_float32_B2_L1024",
                 "d256_causal_bfloat16_B1_L1024",
@@ -617,8 +655,8 @@ FMA_COMPARED = ("train_float32_B2_L1024", "d64_causal_float32_B2_L1024",
 
 def _fma_bwd_fns(fa, q, k, v, bias, do, lse, delta, causal, emit_ds):
     """The FMA dQ and dK/dV kernels on the same inputs, launched directly
-    (the route sends float32 at D = 64 and 128, and the bf16 dK/dV at
-    D = 256, elsewhere): timing only."""
+    (the route sends float32 at D = 64 and 128, and bf16 at D = 256,
+    elsewhere): timing only."""
     import torch
 
     def dq_fma():
@@ -664,6 +702,8 @@ def phase_backward(seed: int) -> dict:
         for (key, ref), x in zip(refs.items(), got):
             errs[key] = check_close(f"{name} {key}", x, ref,
                                     bwd_tolerance(ref))
+        if bias is not None and causal and not bool((got[3].triu(1) == 0).all()):
+            raise AssertionError(f"{name}: dS is not zero above the diagonal")
         delta = (do.float() * o.float()).sum(-1).contiguous()
         emit_ds = bias is not None
         used = set(routes.values())
@@ -793,15 +833,16 @@ def phase_dropout(seed: int) -> dict:
     out = dict(mask_bits_equal_plain=True, keep_rate=kept / n,
                keep_rate_sigma=sigma / n, mask_bound_ms=mask_bound_ms,
                mask_bound_by="operations")
-    # D = 256 at both of its timed shapes and at the D = 256 step's: the
-    # mask of the first Bc batches and Hc heads is the corner of the full
-    # one (Philox keys by (b, h, row, col))
+    # D = 256 at both of its timed shapes and at the D = 256 step's, and
+    # float32 at D = 256: the mask of the first Bc batches and Hc heads is
+    # the corner of the full one (Philox keys by (b, h, row, col))
     for dtype, D, Bc, Hc in ((torch.float32, D, B, H),
                              (torch.bfloat16, D, B, H),
                              (torch.bfloat16, 256, B, H),
                              (torch.bfloat16, 256, 1, 8),
                              (torch.bfloat16, 256, TRAIN_BATCH,
-                              D256_STEP_HEADS)):
+                              D256_STEP_HEADS),
+                             (torch.float32, 256, 1, 8)):
         kp = keep[:Bc, :Hc]
         q, k, v = _views(g, Bc, L, Hc, D, dtype)
         do = torch.randn(Bc, L, Hc, D, generator=g, device="cuda") \
@@ -837,8 +878,22 @@ def phase_dropout(seed: int) -> dict:
         delta = (do.float() * o.float()).sum(-1).contiguous()
         do_k = (do if "wgmma" not in routes.values() or fa._tma_ok(do)
                 else do.contiguous())
+        # each kernel's least time: its products at p = 0 or this case's
+        # mask draws, whichever is larger (they run on different units)
+        mask_ms = (kept_pairs(L, L, True) * Bc * Hc * PHILOX_OPS
+                   / PEAK_INT32_OPS * 1e3)
+        tc = {w: r != "fma" for w, r in routes.items()}
+        pairs = {w: 6 if r == "wgmma_f32" else 1 for w, r in routes.items()}
+        common = (Bc, Hc, L, L, D, True, q.element_size(), 0)
+        bounds = {"fwd": attention_bound_ms(*common, tensor_cores=tc["fwd"],
+                                            term_pairs=pairs["fwd"])[0],
+                  **{w: bwd_bound_ms(w, *common, 0, tensor_cores=tc[w],
+                                     term_pairs=pairs[w])[0]
+                     for w in ("dq", "dkv")}}
         out[name] = dict(
             shape=[Bc, Hc, L, L, D], errors=errs, routes=routes,
+            mask_bound_ms=mask_ms,
+            **{f"{w}_bound_ms": max(t, mask_ms) for w, t in bounds.items()},
             fwd_ms=cuda_ms(lambda: fa.flash_attention_fwd(
                 q, k, v, causal=True, dropout_p=DROPOUT_P, seed=mseed)),
             dq_ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(
@@ -849,35 +904,20 @@ def phase_dropout(seed: int) -> dict:
     return out
 
 
-def phase_serving(seed: int) -> dict:
+def _serve_and_check(model, requests, slots: int, geo: dict):
+    """Serve ``requests`` behind ``InferenceServer(model, slots)`` and hold
+    the run to the serving checks: every request completed, none requeued
+    or failed, one prefill each, the flash forward launched on the
+    wgmma_f32 route only (float32 prefill), it and its split exactly once
+    per layer per prefill, and every stream equal to a solo generate()
+    with the same arguments. Returns ``(handles, snapshot, launches,
+    split launches, wall seconds)``."""
     import numpy as np
-    import torch
 
     from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_1p3b
     from paddle_tpu_torch.serving import InferenceServer
 
-    cfg = gpt_1p3b(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
-                   dtype="bfloat16")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    t0 = time.perf_counter()
-    model = GPTForCausalLM(cfg, device="cuda", generator=gen).eval()
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    rng = np.random.default_rng(seed)
-    requests = [dict(prompt=rng.integers(0, cfg.vocab_size, n), max_new_tokens=16)
-                for n in (40, 300, 900, 1500, 1900)]
-    requests.append(dict(prompt=rng.integers(0, cfg.vocab_size, 700),
-                         max_new_tokens=16, do_sample=True, seed=7,
-                         temperature=0.8, top_p=0.9))
-    geo = dict(max_length=2048)
-
-    # warm-up outside the measured run: cuBLAS handles, allocator pools
-    model.generate(requests[0]["prompt"][None, :8], max_new_tokens=2, **geo)
-    torch.cuda.synchronize()
-
-    server = InferenceServer(model, slots=4, device="cuda", **geo)
+    server = InferenceServer(model, slots=slots, device="cuda", **geo)
     fa.reset_launch_counts()
     t0 = time.perf_counter()
     handles = [server.submit(**r) for r in requests]
@@ -899,29 +939,36 @@ def phase_serving(seed: int) -> dict:
     if snap["requests_requeued"] or snap["requests_failed"]:
         raise AssertionError(f"{snap['requests_requeued']} requests requeued, "
                              f"{snap['requests_failed']} failed")
-    need = cfg.num_layers * len(requests)
+    layers = model.cfg.num_layers
+    need = layers * len(requests)
     if snap["prefills"] != len(requests) or (launches, split_launches) != (need, need):
         raise AssertionError(f"wgmma_f32 forward launched {launches} times "
                              f"and its split {split_launches} over "
                              f"{snap['prefills']} prefills in the served run, "
-                             f"expected exactly {need} each ({cfg.num_layers} "
+                             f"expected exactly {need} each ({layers} "
                              f"layers x {len(requests)} requests)")
     for r, got in zip(requests, streams):
         solo = model.generate(r["prompt"][None], **{k: v for k, v in r.items()
                                                      if k != "prompt"}, **geo)[0]
-        if got.shape != (16,) or not np.array_equal(got, solo):
+        if got.shape != (r["max_new_tokens"],) or not np.array_equal(got, solo):
             raise AssertionError(f"served stream {got.tolist()} != solo "
                                  f"generate {solo.tolist()} (prompt "
                                  f"{len(r['prompt'])})")
+    return handles, snap, launches, split_launches, wall_s
 
-    # the kernel path against the plain-attention path, end to end: the
-    # prefill logits of one full-width prompt through all 24 layers
-    ids = torch.as_tensor(requests[1]["prompt"][None], device="cuda")
+
+def _prefill_logits_err(model, prompt, cache_len: int) -> float:
+    """The kernel path against the plain-attention path, end to end: the
+    largest difference of one prompt's prefill logits through every layer
+    (raises past PREFILL_LOGITS_TOL or on a non-finite logit)."""
+    import torch
+
+    from paddle_tpu_torch.models.generation import init_cache
+
+    ids = torch.as_tensor(prompt[None], device="cuda")
     with torch.inference_mode():
-        from paddle_tpu_torch.models.generation import init_cache
-
         def prefill_logits():
-            return model(ids, cache=init_cache(model, 1, 512),
+            return model(ids, cache=init_cache(model, 1, cache_len),
                          position_offset=0)[0]
 
         flash_logits = prefill_logits()
@@ -932,10 +979,57 @@ def phase_serving(seed: int) -> dict:
             model.cfg.use_flash_attention = True
     if not bool(torch.isfinite(flash_logits).all()):
         raise AssertionError("non-finite prefill logits")
-    logit_err = (flash_logits - plain_logits).abs().max().item()
-    if logit_err > PREFILL_LOGITS_TOL:
+    err = (flash_logits - plain_logits).abs().max().item()
+    if err > PREFILL_LOGITS_TOL:
         raise AssertionError(f"prefill logits, kernel vs plain attention: "
-                             f"max|err| {logit_err} > {PREFILL_LOGITS_TOL}")
+                             f"max|err| {err} > {PREFILL_LOGITS_TOL}")
+    return err
+
+
+def _serving_model(seed: int, **overrides):
+    """A gpt_1p3b-width GPTForCausalLM for serving (float32 parameters,
+    bf16 KV cache, random weights from ``seed``), warmed up outside any
+    measured run (cuBLAS handles, allocator pools); ``(model, build s)``."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_1p3b
+
+    cfg = gpt_1p3b(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                   dtype="bfloat16", **overrides)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device="cuda", generator=gen).eval()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model.generate(np.zeros((1, 8), np.int64), max_new_tokens=2,
+                   max_length=2048)
+    torch.cuda.synchronize()
+    return model, build_s
+
+
+def phase_serving(seed: int) -> dict:
+    """gpt_1p3b (full width, random weights from ``seed``) behind
+    InferenceServer(slots=4, max_length=2048): six requests held to the
+    serving checks (_serve_and_check), and one prompt's prefill logits
+    through all 24 layers against plain attention's."""
+    import numpy as np
+    import torch
+
+    model, build_s = _serving_model(seed)
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    requests = [dict(prompt=rng.integers(0, cfg.vocab_size, n), max_new_tokens=16)
+                for n in (40, 300, 900, 1500, 1900)]
+    requests.append(dict(prompt=rng.integers(0, cfg.vocab_size, 700),
+                         max_new_tokens=16, do_sample=True, seed=7,
+                         temperature=0.8, top_p=0.9))
+    geo = dict(max_length=2048)
+    handles, snap, launches, split_launches, wall_s = _serve_and_check(
+        model, requests, 4, geo)
+    # the prefill logits of one full-width prompt through all 24 layers
+    logit_err = _prefill_logits_err(model, requests[1]["prompt"], 512)
 
     out = dict(model="gpt_1p3b", params=sum(p.numel() for p in model.parameters()),
                model_build_s=build_s, requests=len(requests),
@@ -952,6 +1046,35 @@ def phase_serving(seed: int) -> dict:
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                card=nvidia_smi_line())
     emit("serving", **out)
+    return out
+
+
+def phase_d256_prefill(seed: int) -> dict:
+    """gpt_1p3b width with 8 heads of 256 (D = 256) and 2 layers, random
+    weights from ``seed``, behind InferenceServer(slots=2,
+    max_length=2048): two greedy prompts of D256_PREFILL_LENGTHS tokens, 8
+    new tokens each, held to the serving checks (_serve_and_check: the
+    wgmma_f32 forward at D = 256 once per layer per prefill), and the
+    kernel path's prefill logits against plain attention's."""
+    import numpy as np
+
+    n = 2  # layers
+    model, build_s = _serving_model(seed, num_layers=n,
+                                    num_heads=D256_STEP_HEADS)
+    rng = np.random.default_rng(seed + 3)
+    requests = [dict(prompt=rng.integers(0, model.cfg.vocab_size, length),
+                     max_new_tokens=8) for length in D256_PREFILL_LENGTHS]
+    handles, snap, launches, split_launches, wall_s = _serve_and_check(
+        model, requests, 2, dict(max_length=2048))
+    logit_err = _prefill_logits_err(model, requests[0]["prompt"], 1024)
+    out = dict(model="gpt_1p3b width, 8 heads of 256, 2 layers",
+               head_dim=256, layers=n, model_build_s=build_s,
+               prompt_lens=list(D256_PREFILL_LENGTHS), streams_equal_solo=True,
+               flash_launches=launches, split_launches=split_launches,
+               prefills=snap["prefills"], wall_s=wall_s,
+               ttft_ms=[h.ttft_s * 1e3 for h in handles],
+               prefill_logits_max_abs_err=logit_err)
+    emit("d256_prefill", **out)
     return out
 
 
@@ -1163,8 +1286,7 @@ def phase_d256_step(seed: int) -> dict:
     (the same weights, plain attention, float32), parameter by parameter
     in relative L2. Then one step each: the losses agree within BF16_ULPS
     bf16 ulps, and the kernel step launches exactly 2 forwards per layer
-    (recompute included) on the wgmma route, and one dK/dV (wgmma) and
-    one dQ (FMA)."""
+    (recompute included), one dQ and one dK/dV, all on the wgmma route."""
     import copy
 
     import numpy as np
@@ -1177,7 +1299,7 @@ def phase_d256_step(seed: int) -> dict:
     ids = np.random.default_rng(seed).integers(
         0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
     ids_t = torch.as_tensor(ids, device="cuda")
-    need = (0, 2 * n, 0, n, 0, 0, 0, n, 0)
+    need = (0, 2 * n, 0, 0, n, 0, 0, n, 0)
 
     def one_step(flash: bool):
         step = _o2_step(_train_config(num_layers=n, num_heads=D256_STEP_HEADS,
@@ -1238,6 +1360,10 @@ def phase_d256_step(seed: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="run phases 1-3 and stop, printing no result "
+                         "line: to compare kernel builds in turns, each "
+                         "from its own checkout")
     args = ap.parse_args(argv)
 
     import torch
@@ -1257,6 +1383,8 @@ def main(argv=None) -> int:
     fwd = phase_kernels(args.seed)
     bwd = phase_backward(args.seed)
     phase_dropout(args.seed)
+    if args.kernels_only:
+        return 0
     serve = phase_serving(args.seed)
     _free()
     train = phase_training(args.seed)
@@ -1266,17 +1394,20 @@ def main(argv=None) -> int:
     phase_dropout_replay(args.seed)
     _free()
     d256 = phase_d256_step(args.seed)
+    _free()
+    d256_prefill = phase_d256_prefill(args.seed)
 
     src = "paddle_tpu_torch/kernels/csrc/"
     ref = "paddle_tpu/kernels/flash_attention.py:"
 
-    def fwd_row(name, source, case, launches, path):
+    def fwd_row(name, source, case, launches, path, fma=False):
         c = fwd[case]
+        f = "fma_" if fma else ""  # the FMA forward timed beside the case's
         return dict(name=name, route="cuda", source=src + source,
                     replaces=ref + "131", launches=launches, main_path=path,
-                    max_abs_err=c["max_abs_err"], ms=c["ms"],
-                    ms_range=c["ms_range"], plain_ms=c["plain_ms"],
-                    bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                    max_abs_err=c[f + "max_abs_err"], ms=c[f + "ms"],
+                    ms_range=c[f + "ms_range"], plain_ms=c["plain_ms"],
+                    bound_ms=c[f + "bound_ms"], bound_by=c[f + "bound_by"],
                     library_ms=c["library_ms"],
                     library_ms_range=c.get("library_ms_range"),
                     shape=c["shape"], dtype=c.get("dtype", "float32"),
@@ -1299,6 +1430,7 @@ def main(argv=None) -> int:
     f32_step = "training (float32 parity run)"
     prefill = "serving (float32 prefill)"
     d256_step = "training (bf16 O2 step, D = 256, 2 layers)"
+    d256_prefill_path = "serving (float32 prefill, D = 256, 2 layers)"
     d256_counts = d256["launches"]
     kernels = [
         fwd_row("flash_attention_fwd_f32_sm90",
@@ -1306,10 +1438,14 @@ def main(argv=None) -> int:
                 serve["flash_launches"], prefill),
         fwd_row("split_bf16_terms", "flash_attention_fwd_f32_sm90.cu",
                 "split_prefill_f32_L2048", serve["split_launches"], prefill),
-        # no path runs a float32 forward at D = 256 since float32 prefill
-        # moved to wgmma_f32: 0 launches there, timed at its own case
+        fwd_row("flash_attention_fwd_f32_sm90_d256",
+                "flash_attention_fwd_f32_sm90.cu", D256_PREFILL_FWD,
+                d256_prefill["flash_launches"], d256_prefill_path),
+        # no route takes the FMA forward since every head dim runs on the
+        # tensor cores: 0 launches on a path, checked and timed beside the
+        # wgmma_f32 forward at [1, 8, 1024, 256]
         fwd_row("flash_attention_fwd", "flash_attention_fwd.cu",
-                "d256_causal_f32_L1024", 0, None),
+                "d256_causal_f32_L1024", 0, None, fma=True),
         fwd_row("flash_attention_fwd_sm90", "flash_attention_fwd_sm90.cu",
                 "train_bf16_B2_L1024", train["launches"]["fwd_wgmma"], step),
         fwd_row("flash_attention_fwd_sm90_d256", "flash_attention_fwd_sm90.cu",
@@ -1318,8 +1454,9 @@ def main(argv=None) -> int:
         # moved to wgmma_f32: 0 launches there, timed at its own case
         bwd_row("flash_attention_bwd_dq", "flash_attention_bwd.cu", "dq",
                 "d256_causal_float32_B1_L1024", 0, None),
-        bwd_row("flash_attention_bwd_dq_bf16_d256", "flash_attention_bwd.cu",
-                "dq", D256_STEP_BWD, d256_counts["dq_fma"], d256_step),
+        bwd_row("flash_attention_bwd_dq_bf16_d256",
+                "flash_attention_bwd_dq_sm90.cu", "dq", D256_STEP_BWD,
+                d256_counts["dq_wgmma"], d256_step),
         bwd_row("flash_attention_bwd_dq_sm90",
                 "flash_attention_bwd_dq_sm90.cu", "dq",
                 "train_bfloat16_B2_L1024", train["launches"]["dq_wgmma"],

@@ -3,10 +3,11 @@
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py `_bwd_dq_kernel` (:198,
 // pallas_call at :466 in `_flash_bwd_impl`, :411), for bf16 q/k/v/dO at
-// head dims 64 and 128. float32 inputs take flash_attention_bwd_f32_sm90.cu,
-// D = 256 the FMA dQ kernel of flash_attention_bwd.cu; the Python wrapper
-// routes by (dtype, D). The score-tile code is shared with the other
-// Hopper backward kernels (flash_bwd_sm90.cuh).
+// head dims 64, 128 and 256. float32 inputs take
+// flash_attention_bwd_f32_sm90.cu (D 64/128) or the FMA dQ kernel of
+// flash_attention_bwd.cu (D = 256); the Python wrapper routes by (dtype, D,
+// kernel). The score-tile code is shared with the other Hopper backward
+// kernels (flash_bwd_sm90.cuh).
 //
 // Computes what the FMA dQ kernel computes, per (b, h) and query tile: with
 // P = exp(S * scale + bias - LSE) (0 above the top-left causal diagonal and
@@ -30,6 +31,8 @@
 // HBM traffic at the training shape [2, 16, 1024, 128] causal: 13 us of
 // bf16 tensor-core work (22 us with the split) against 13 us of bytes, so
 // it sits on the ridge. The FMA kernel took 0.80 ms on the CUDA cores.
+// At D = 256 ([1, 8, 1024, 256] causal) the tensor-core work is 6.5 us,
+// where the FMA kernel, still the float32 D = 256 dQ, took 0.48 ms.
 //
 // Design:
 // - one CTA per (b, h, 64 query rows); the query tile is the slowest grid
@@ -60,6 +63,15 @@
 //   kernel instantiated with them;
 // - rows past Lq and keys past Lk arrive as zeros from TMA; keys past Lk
 //   get P = 0, and rows past Lq get dS = 0 and are not stored;
+// - D = 256 (flash_bwd_dq_sm90_d256_kernel, below): dQ alone would be 128
+//   floats a thread, and a CTA of two warpgroups gets 168 registers a
+//   thread on this toolkit (PERF.md, section 6). Two consumer warpgroups
+//   share the query tile and split the keys for S and dP (32 each) and the
+//   columns for dQ (128 each); dS meets in shared memory as its three bf16
+//   terms, in the A-operand layout of dS K, between two named barriers.
+//   Each dQ column is its own sum, so the split changes no element's sum,
+//   and no product is made twice. Q, dO, the K and V rings and dS take
+//   216 KB: one CTA per SM;
 // - no atomics: every dQ and dS element has one writer, so a run replays
 //   bit for bit. Dropout draws the same per-element Philox bits as the
 //   forward and dK/dV kernels.
@@ -88,7 +100,11 @@ struct DqLayout {
   __host__ __device__ static constexpr uint32_t v(int s) {
     return kTile * (2 + kStages + s);
   }
-  static constexpr uint32_t bars = kTile * (2 + 2 * kStages);
+  // D = 256: dS's three bf16 terms, one [64, 64] tile (one swizzle atom)
+  // each, as the A operand of dS K
+  static constexpr uint32_t ds = kTile * (2 + 2 * kStages);
+  static constexpr uint32_t kDsBytes = D == 256 ? kSplit * kAtomBytes : 0;
+  static constexpr uint32_t bars = ds + kDsBytes;
   static constexpr uint32_t qd_full = bars;
   __host__ __device__ static constexpr uint32_t k_full(int s) {
     return bars + 8 * (1 + s);
@@ -220,13 +236,182 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                 rows.qi0, rows.qi1, p.Lq, rows.t, dq, p.scale);
 }
 
+// ---- D = 256: dQ of 64 rows would be 128 floats a thread beside S and
+// dP, more than the 168 registers a CTA of two warpgroups gets. So two
+// consumer warpgroups share the query tile: each makes S and dP for 32 of
+// the key tile's 64 keys (m64n32k16 wgmmas over all 256 columns), forms
+// dS there and stores its three bf16 terms into shared [64, 64] tiles in
+// the layout wgmma reads an A operand from; after a named barrier each
+// adds dS K[:, 128 wg .. 128 wg + 127] into its half of dQ (m64n128k16,
+// both operands in shared memory). No product is made twice.
+constexpr int kGroups256 = 2;
+constexpr int kConsumers256 = kConsumers * kGroups256;
+constexpr int kThreads256 = kConsumers256 + 32;  // + a producer warp
+constexpr int kDsBarrier = 1;  // named barrier of the 256 consumer threads
+
+template <bool kDropout>
+__global__ void __launch_bounds__(kThreads256, 1)
+flash_bwd_dq_sm90_d256_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              const __grid_constant__ CUtensorMap map_do,
+                              const DqParams p) {
+  constexpr int D = 256;
+  constexpr int kN = D / kGroups256;     // dQ columns a warpgroup owns
+  constexpr int kKeys = 64 / kGroups256;  // keys it makes S and dP for
+  using L = DqLayout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const smem = smem_raw + (base - smem_u32(smem_raw));
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * 64;
+  const int n_kt = ((p.causal ? min(p.Lk, q0 + 64) : p.Lk) + 63) / 64;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(base + L::qd_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(base + L::k_full(s), 1);
+      mbar_init(base + L::v_full(s), 1);
+      mbar_init(base + L::k_empty(s), kConsumers256);
+      mbar_init(base + L::v_empty(s), kConsumers256);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers256) {
+    // ---- producer: one lane issues every copy
+    if (tid != kConsumers256) return;
+    mbar_arrive_expect_tx(base + L::qd_full, 2 * L::kTile);
+    tma_load_tile<D>(base + L::q, &map_q, base + L::qd_full, q0, h, b,
+                     p.pos_q);
+    tma_load_tile<D>(base + L::dout, &map_do, base + L::qd_full, q0, h, b,
+                     p.pos_do);
+    for (int i = 0; i < n_kt; ++i) {
+      const int s = i % kStages;
+      const uint32_t free_phase = ((i / kStages) & 1) ^ 1;
+      mbar_wait(base + L::k_empty(s), free_phase);
+      mbar_arrive_expect_tx(base + L::k_full(s), L::kTile);
+      tma_load_tile<D>(base + L::k(s), &map_k, base + L::k_full(s), i * 64, h,
+                       b, p.pos_k);
+      mbar_wait(base + L::v_empty(s), free_phase);
+      mbar_arrive_expect_tx(base + L::v_full(s), L::kTile);
+      tma_load_tile<D>(base + L::v(s), &map_v, base + L::v_full(s), i * 64, h,
+                       b, p.pos_v);
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup wg: S and dP of keys kh .. kh + 31 of each key
+  // tile, dQ columns col0 .. col0 + 127 of the 64 query rows
+  const int wg = tid / kConsumers;
+  const int kh = kKeys * wg, col0 = kN * wg;
+  const DqRows rows(p, b, h, q0, tid % kConsumers);
+  // where this thread's dS pairs go in a [64, 64] term tile: row r of the
+  // 128-byte-swizzled atom at 128 r, its 16-byte chunk c at (c ^ r % 8) * 16
+  // (rows 16 w + g and + 8 share r % 8 = g; chunk 4 wg + j holds keys
+  // kh + 8 j .. kh + 8 j + 7, the thread's pair at byte 4 t of it)
+  const int w = (tid % kConsumers) / 32, g = (tid % 32) / 4;
+  uint32_t* const ds_row0 = reinterpret_cast<uint32_t*>(
+      smem + L::ds + (16 * w + g) * 128 + 4 * rows.t);
+  uint32_t* const ds_row1 = ds_row0 + 8 * 128 / 4;
+
+  float dq[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) dq[i] = 0.f;
+
+  mbar_wait(base + L::qd_full, 0);
+  for (int i = 0; i < n_kt; ++i) {
+    const int s = i % kStages;
+    const uint32_t phase = (i / kStages) & 1;
+    const int k0 = i * 64 + kh;  // the warpgroup's first key
+    uint32_t keep = 0xffffffffu;
+    if constexpr (kDropout) keep = rows.keep_bits<kKeys / 2>(p, b, h, k0);
+    uint32_t tq = base + L::q, tdo = base + L::dout, tk = base + L::k(s),
+             tv = base + L::v(s);
+    asm volatile("" : "+r"(tq), "+r"(tdo), "+r"(tk), "+r"(tv));
+
+    // ---- S = Q K[kh ..]^T, then P (the K rows kh .. start kh / 8 row
+    // groups, 1024 bytes each, into every atom)
+    mbar_wait(base + L::k_full(s), phase);
+    __syncwarp();
+    float sc[kKeys / 2], dp[kKeys / 2];
+    wgmma_kmajor_product<D>(sc, tq, tk + kh * 128);
+    rows.probabilities(p, sc, q0, k0);
+
+    // ---- dP = dO V[kh ..]^T
+    mbar_wait(base + L::v_full(s), phase);
+    __syncwarp();
+    wgmma_kmajor_product<D>(dp, tdo, tv + kh * 128);
+    mbar_arrive(base + L::v_empty(s));
+
+    // ---- dS = P (dP M - Delta), in place of dP
+    rows.grad_scores(sc, dp, keep, kDropout ? p.drop.scale : 1.f);
+    if (rows.dsb != nullptr) rows.store_ds(dp, k0, p.Lq, p.Lk);
+
+    // ---- dS's three bf16 terms into the shared tiles, once the other
+    // warpgroup's dS K of the last key tile has read them
+    named_barrier_sync(kDsBarrier, kConsumers256);
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+      const int chunk = ((4 * wg + j) ^ g) * 4;  // in words
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float x0 = dp[4 * j + 2 * r], x1 = dp[4 * j + 2 * r + 1];
+        uint32_t* const dst = (r == 0 ? ds_row0 : ds_row1) + chunk;
+#pragma unroll
+        for (int term = 0; term < kSplit; ++term) {
+          const __nv_bfloat162 hb = __floats2bfloat162_rn(x0, x1);
+          const float2 hf = __bfloat1622float2(hb);
+          dst[term * kAtomBytes / 4] = bf16x2_bits(hb);
+          x0 -= hf.x;
+          x1 -= hf.y;
+        }
+      }
+    }
+    fence_proxy_async_smem();
+    named_barrier_sync(kDsBarrier, kConsumers256);
+
+    // ---- dQ[:, col0 ..] += dS K[:, col0 ..], the K columns 2 wg atoms in
+    const uint32_t tk_cols = tk + (col0 / 64) * kAtomBytes;
+    fence_operand(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t desc_k = mnmajor_desc(tk_cols, kk);
+#pragma unroll
+      for (int term = 0; term < kSplit; ++term)
+        wgmma_ss_n128_tb(dq, kmajor_desc(base + L::ds + term * kAtomBytes, kk),
+                         desc_k, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operand(dq);
+    mbar_arrive(base + L::k_empty(s));
+  }
+
+  if (rows.dsb != nullptr && p.causal && n_kt * 64 < p.Lk)
+    rows.zero_unseen_ds(q0, n_kt, p.Lq, p.Lk, tid, kConsumers256);
+  // ---- dQ[:, col0 ..] * scale, bf16, through its strides
+  store_rows<kN>(p.out0 + b * p.out0_st[0] + h * p.out0_st[1] + col0,
+                 p.out0_st[2], rows.qi0, rows.qi1, p.Lq, rows.t, dq, p.scale);
+}
+
 template <int D, bool kDropout>
 cudaError_t launch(const CUtensorMap (&maps)[4], const DqParams& p,
                    cudaStream_t stream) {
   static unsigned smem_set = 0;
-  return launch_bwd(flash_bwd_dq_sm90_kernel<D, kDropout>, kThreads,
-                    DqLayout<D>::kBytes, smem_set, maps, p, (p.Lq + 63) / 64,
-                    stream);
+  if constexpr (D == 256)
+    return launch_bwd(flash_bwd_dq_sm90_d256_kernel<kDropout>, kThreads256,
+                      DqLayout<D>::kBytes, smem_set, maps, p,
+                      (p.Lq + 63) / 64, stream);
+  else
+    return launch_bwd(flash_bwd_dq_sm90_kernel<D, kDropout>, kThreads,
+                      DqLayout<D>::kBytes, smem_set, maps, p,
+                      (p.Lq + 63) / 64, stream);
 }
 
 }  // namespace
@@ -236,7 +421,7 @@ cudaError_t launch(const CUtensorMap (&maps)[4], const DqParams& p,
 // lse and delta: float32 [B, H, Lq], contiguous. dq: bf16, written through
 // its (batch, head, row) element strides strides[0..2]; ds (may be null):
 // float32 [B, H, Lq, Lk], contiguous; bias (may be null): float32,
-// strides[3..5] (0 where broadcast). D: 64 or 128. Dropout as in
+// strides[3..5] (0 where broadcast). D: 64, 128 or 256. Dropout as in
 // pt_flash_attention_fwd. Returns the cudaError_t of the launch.
 extern "C" int pt_flash_attention_bwd_dq_sm90(
     const void* q, const void* k, const void* v, const void* bias,
@@ -259,5 +444,8 @@ extern "C" int pt_flash_attention_bwd_dq_sm90(
   if (D == 128)
     return (int)(drop ? launch<128, true>(maps, p, s)
                       : launch<128, false>(maps, p, s));
+  if (D == 256)
+    return (int)(drop ? launch<256, true>(maps, p, s)
+                      : launch<256, false>(maps, p, s));
   return (int)cudaErrorInvalidValue;
 }

@@ -3,9 +3,11 @@
 // Replaces: paddle_tpu/kernels/flash_attention.py `_fwd_kernel` (:131),
 // launched by `_flash_fwd_impl` (:352, pallas_call at :383), with its
 // in-kernel dropout (`_dropout_mask`, :120; here philox.cuh), at head dim
-// 256. Head dims 64 and 128 run on the tensor cores:
-// flash_attention_fwd_sm90.cu (bf16) and flash_attention_fwd_f32_sm90.cu
-// (float32); the Python wrapper routes by (dtype, D).
+// 256. No route takes it any longer: every head dim runs on the tensor
+// cores, flash_attention_fwd_sm90.cu (bf16) and
+// flash_attention_fwd_f32_sm90.cu (float32). It stays as the yardstick
+// chip_smoke.py times those kernels against at D = 256, and this file
+// holds the dropout-mask kernel (pt_dropout_mask).
 //
 // Computes, per (b, h):  S = Q K^T * scale (+ bias),  causal mask top-left
 // aligned (query i sees key j iff i >= j, masked scores = -1e30 as in the
@@ -19,9 +21,10 @@
 //
 // Bound on an H100: at L = 1024, D = 256, causal the kernel does
 // 2*Lq*Lk*D*H FLOP on about 4*L*D*H*4 bytes, i.e. hundreds of FLOP per
-// byte: it is bound by operations, not by HBM. The operations run on the CUDA cores (67 TFLOP/s float32 peak); bf16
-// inputs are widened to float32 on load, so they too run at the CUDA-core
-// rate, far from the 989 TFLOP/s bf16 tensor-core bound.
+// byte: it is bound by operations, not by HBM. The operations run on the
+// CUDA cores (67 TFLOP/s float32 peak); bf16 inputs are widened to float32
+// on load, so they too run at the CUDA-core rate, far from the
+// 989 TFLOP/s bf16 tensor-core bound.
 //
 // Design (GPU, not a block-by-block copy of the Pallas grid):
 // - one thread block per (b, h, 64-row query tile); the TPU's sequential 4th

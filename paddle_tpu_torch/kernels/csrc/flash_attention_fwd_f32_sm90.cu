@@ -5,10 +5,9 @@
 // Replaces: paddle_tpu/kernels/flash_attention.py `_fwd_kernel` (:131),
 // launched by `_flash_fwd_impl` (:352, pallas_call at :383), with its
 // in-kernel dropout (`_dropout_mask`, :120; here philox.cuh), for float32
-// q/k/v at head dims 64 and 128: the attention of every serving prefill
-// (float32 parameters). bf16 inputs take flash_attention_fwd_sm90.cu, D = 256
-// the FMA kernel of flash_attention_fwd.cu; the Python wrapper routes by
-// (dtype, D).
+// q/k/v at head dims 64, 128 and 256: the attention of every serving
+// prefill (float32 parameters). bf16 inputs take flash_attention_fwd_sm90.cu;
+// the Python wrapper routes by (dtype, D, kernel).
 //
 // Computes what flash_attention_fwd.cu computes, per (b, h): S = Q K^T *
 // scale (+ float32 bias), the top-left causal mask (masked scores -1e30, keys
@@ -61,6 +60,16 @@
 // key tile: 24 + 48 KB. Registers: O (64 floats a thread at D = 128) and S
 // (32) as in the bf16 kernel, then O and P's terms (48) in the P V phase,
 // within the 168 that two CTAs of 160 threads leave.
+//
+// D = 256 keeps this shape at one CTA per SM: Q's three terms take 96 KB
+// and four ring entries of 32 KB another 128 KB (225 KB with the barriers
+// and the alignment slack), and the CTA gets up to 255 registers a thread.
+// O is 128 floats a thread, so P's twelve fragments cannot all be live
+// beside it: the P V phase waits for the key tile's three V terms at once
+// and splits P one 16-column slice at a time, right before that slice's
+// six m64n256k16 wgmmas (pv_by_slice). Bound at [1, 8, 1024, 256] causal:
+// 12 bf16 products of 2 D FLOP per kept pair, 0.026 ms at 989 TFLOP/s,
+// against 0.332 ms for the FMA kernel that took it before.
 //
 // Design otherwise as flash_attention_fwd_sm90.cu: one CTA per (b, h, 64-row
 // query tile), query tiles walked from the last so the heaviest causal tiles
@@ -167,10 +176,65 @@ struct FwdLayout {
   static constexpr size_t kBytes = kUsed + 896;
 };
 
+// O += sum of P_a V_j over a + j <= 2 for key tile i at D = 256: O is 128
+// floats a thread, so P's 48 fragment registers (four slices of three
+// terms) beside it would spill. The three V term tiles of the key tile are
+// waited for together (ring entries 6 i + 3 .. 6 i + 5, the ring holds
+// four); then P is split one 16-column slice at a time, right before that
+// slice's six m64n256k16 wgmmas, each slice a commit group of its own: the
+// next slice is split while the last one's products run, and only two
+// slices' terms (24 registers) are live.
+__device__ __forceinline__ void pv_by_slice(float (&o)[128],
+                                            const float (&sc)[32],
+                                            uint32_t base, int i) {
+  using L = FwdLayout<256>;
+  uint32_t tv[kSplit];
+#pragma unroll
+  for (int j = 0; j < kSplit; ++j) {
+    const int n = i * kLoadsPerKeyTile + kSplit + j;
+    tv[j] = base + L::slot(n % L::kRing);
+    asm volatile("" : "+r"(tv[j]));
+    mbar_wait(base + L::full(n % L::kRing), (n / L::kRing) & 1);
+  }
+  __syncwarp();
+  uint32_t f[2][kSplit][4];
+  fence_operand(o);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    split_slice([&](int e) { return sc[e]; }, kk, f[kk & 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kSplit; ++j) {
+      const uint64_t desc = mnmajor_desc(tv[j], kk);
+#pragma unroll
+      for (int a = 0; a + j < kSplit; ++a)
+        wgmma_rs_n256_tb(o, f[kk & 1][a], desc, 1);
+    }
+    wgmma_commit();
+    if (kk > 0) {
+      wgmma_wait_pending<1>();
+      fence_fragments(f[(kk - 1) & 1]);
+    }
+  }
+  wgmma_wait_all();
+  fence_fragments(f[1]);
+  fence_operand(o);
+#pragma unroll
+  for (int j = 0; j < kSplit; ++j) {
+    const int n = i * kLoadsPerKeyTile + kSplit + j;
+    mbar_arrive(base + L::empty(n % L::kRing));
+  }
+}
+
+// CTAs per SM: two at D 64/128 (168 registers a thread); one at D = 256,
+// where Q's terms and the ring take 224 KB and O is 128 floats a thread.
+template <int D>
+constexpr int kCtasPerSm = D == 256 ? 1 : 2;
+
 // kDropout: the dropout draws are compiled only into the instantiation that
-// uses them. Two CTAs per SM (168 registers a thread).
+// uses them.
 template <int D, bool kDropout>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kCtasPerSm<D>)
 flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
@@ -239,6 +303,9 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
       const int s = n % kRing;
       uint32_t tk = base + L::slot(s);
       asm volatile("" : "+r"(tk));
+      // D = 256: Q's descriptors (3 terms x 16 slices) would be kept from
+      // one K term to the next; made anew per term they need no registers
+      if constexpr (D == 256) asm volatile("" : "+r"(tq));
       mbar_wait(base + L::full(s), (n / kRing) & 1);
       __syncwarp();
       terms_abt<D, false>(sc, tq, tk, j, j == 0);
@@ -247,18 +314,22 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
     rows.softmax<kDropout>(p, c, sc, i * 64, alpha0, alpha1);
     rescale<D>(o, alpha0, alpha1);
     // ---- O += sum of P_a V_j over a + j <= 2, P's terms made once
-    uint32_t f[4][kSplit][4];
-    split_all([&](int e) { return sc[e]; }, f);
+    if constexpr (D == 256) {
+      pv_by_slice(o, sc, base, i);
+    } else {
+      uint32_t f[4][kSplit][4];
+      split_all([&](int e) { return sc[e]; }, f);
 #pragma unroll
-    for (int j = 0; j < kSplit; ++j) {
-      const int n = i * kLoadsPerKeyTile + kSplit + j;
-      const int s = n % kRing;
-      uint32_t tv = base + L::slot(s);
-      asm volatile("" : "+r"(tv));
-      mbar_wait(base + L::full(s), (n / kRing) & 1);
-      __syncwarp();
-      terms_fb<D, false>(o, f, tv, j);
-      mbar_arrive(base + L::empty(s));
+      for (int j = 0; j < kSplit; ++j) {
+        const int n = i * kLoadsPerKeyTile + kSplit + j;
+        const int s = n % kRing;
+        uint32_t tv = base + L::slot(s);
+        asm volatile("" : "+r"(tv));
+        mbar_wait(base + L::full(s), (n / kRing) & 1);
+        __syncwarp();
+        terms_fb<D, false>(o, f, tv, j);
+        mbar_arrive(base + L::empty(s));
+      }
     }
   }
 
@@ -397,7 +468,7 @@ extern "C" int pt_split_bf16_terms(int n_ops, const void* const* src,
 // each in `geo` (q3, then k3, then v3; see sm90.cuh). o: float32, written
 // through its (batch, head, row) element strides, strides[0..2]; bias (may
 // be null): float32 with strides[3..5] (0 where broadcast). lse: float32
-// [B, H, Lq], contiguous. D: 64 or 128. Dropout as in
+// [B, H, Lq], contiguous. D: 64, 128 or 256. Dropout as in
 // pt_flash_attention_fwd. Returns the cudaError_t of the launch.
 extern "C" int pt_flash_attention_fwd_f32_sm90(
     const void* q3, const void* k3, const void* v3, const void* bias, void* o,
@@ -418,10 +489,13 @@ extern "C" int pt_flash_attention_fwd_f32_sm90(
   if (D == 128)
     return (int)(drop ? launch<128, true>(m, p, s)
                       : launch<128, false>(m, p, s));
+  if (D == 256)
+    return (int)(drop ? launch<256, true>(m, p, s)
+                      : launch<256, false>(m, p, s));
   return (int)cudaErrorInvalidValue;
 }
 
-// The float32 self-check above for D = 64 or 128: a float32 [64, D]
+// The float32 self-check above for D = 64, 128 or 256: a float32 [64, D]
 // contiguous; a3, b3 the bf16 terms of a and b ([3, 1, 64, D]) with their
 // 14 tensor-map geometry words; c1 float32 [64, 64], c2 float32 [64, D].
 // Returns the launch's cudaError_t.
@@ -437,5 +511,7 @@ extern "C" int pt_sm90_selfcheck_f32(const void* a, const void* a3,
     return (int)launch_selfcheck<64>(a, a3, b3, geo_a, geo_b, f1, f2, s);
   if (D == 128)
     return (int)launch_selfcheck<128>(a, a3, b3, geo_a, geo_b, f1, f2, s);
+  if (D == 256)
+    return (int)launch_selfcheck<256>(a, a3, b3, geo_a, geo_b, f1, f2, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,8 +5,7 @@
 // launched by `_flash_fwd_impl` (:352, pallas_call at :383), with its
 // in-kernel dropout (`_dropout_mask`, :120; here philox.cuh), for bf16
 // q/k/v at head dims 64, 128 and 256. float32 inputs take
-// flash_attention_fwd_f32_sm90.cu (D 64/128) or the FMA kernel of
-// flash_attention_fwd.cu (D = 256); the Python wrapper routes by (dtype, D,
+// flash_attention_fwd_f32_sm90.cu; the Python wrapper routes by (dtype, D,
 // kernel).
 //
 // Computes what flash_attention_fwd.cu computes, per (b, h): S = Q K^T *
@@ -63,7 +62,7 @@
 //   and keys past Lk get probability 0;
 // - no atomics: each output element has one writer, so a run replays bit
 //   for bit. Dropout draws the same per-element Philox bits as every other
-//   kernel (philox.cuh), so the FMA dQ kernel sees this kernel's mask.
+//   kernel (philox.cuh), so the backward kernels see this kernel's mask.
 //
 // The softmax, the epilogue and the launch are shared with the float32
 // forward (flash_fwd_sm90.cuh).

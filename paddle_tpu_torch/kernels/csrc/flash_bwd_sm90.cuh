@@ -106,7 +106,8 @@ __device__ __forceinline__ void store_rows(Out* base, long long row_stride,
 // ------------------------------------------------------------ dQ view
 // A consumer thread of a dQ kernel: query rows qi0 and qi1 (accumulator rows
 // g and g + 8 of its warp's 16), their LSE, Delta and bias rows. Element
-// 4 j + e of a tile of keys k0 .. k0 + 63 is (qi0 if e < 2 else qi1,
+// 4 j + e of a tile of keys k0 .. k0 + 2 M - 1, M elements a thread (32 for
+// a tile of 64 keys, 16 for one of 32), is (qi0 if e < 2 else qi1,
 // k0 + 8 j + 2 t + e % 2).
 struct DqRows {
   int t, qi0, qi1;
@@ -137,13 +138,13 @@ struct DqRows {
     dsb = p.ds == nullptr ? nullptr : p.ds + row_base * p.Lk;
   }
 
-  // The dropout keep bits of the thread's 32 elements (one register).
-  template <typename Out>
+  // The dropout keep bits of the thread's M elements (one register).
+  template <int M = 32, typename Out>
   __device__ __forceinline__ uint32_t keep_bits(const BwdParams<Out>& p,
                                                 int b, int h, int k0) const {
     uint32_t keep = 0xffffffffu;
 #pragma unroll
-    for (int e = 0; e < 32; ++e) {
+    for (int e = 0; e < M; ++e) {
       const int qi = (e & 3) < 2 ? qi0 : qi1;
       const int kj = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
       if (qi < p.Lq && kj < p.Lk &&
@@ -157,14 +158,14 @@ struct DqRows {
   // diagonal tile and the ragged last tile take the mask tests (uniform over
   // the CTA). Rows past Lq need none: a row of dS reaches only its own row
   // of dQ, and neither is stored for them.
-  template <typename Out>
+  template <int M, typename Out>
   __device__ __forceinline__ void probabilities(const BwdParams<Out>& p,
-                                                float (&x)[32], int q0,
+                                                float (&x)[M], int q0,
                                                 int k0) const {
-    const bool edge = k0 + 64 > p.Lk || (p.causal && k0 + 63 > q0);
+    const bool edge = k0 + 2 * M > p.Lk || (p.causal && k0 + 2 * M - 1 > q0);
     if (edge) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < M / 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = e < 2 ? qi0 : qi1;
@@ -179,7 +180,7 @@ struct DqRows {
         }
     } else {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < M / 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kj = k0 + 8 * j + 2 * t + (e & 1);
@@ -192,11 +193,12 @@ struct DqRows {
 
   // dS = P (dP M - Delta), in place of dP; M from the keep bits, each kept
   // element times `kept`.
-  __device__ __forceinline__ void grad_scores(const float (&pr)[32],
-                                              float (&dp)[32], uint32_t keep,
+  template <int M>
+  __device__ __forceinline__ void grad_scores(const float (&pr)[M],
+                                              float (&dp)[M], uint32_t keep,
                                               float kept) const {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < M / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = 4 * j + e;
@@ -205,8 +207,10 @@ struct DqRows {
       }
   }
 
-  // The float32 dS of the tile at keys k0 .. k0 + 63, masked at the edges.
-  __device__ __forceinline__ void store_ds(const float (&ds)[32], int k0,
+  // The float32 dS of the tile at keys k0 .. k0 + 2 M - 1, masked at the
+  // edges.
+  template <int M>
+  __device__ __forceinline__ void store_ds(const float (&ds)[M], int k0,
                                            int Lq, int Lk) const {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -214,7 +218,7 @@ struct DqRows {
       if (qi >= Lq) continue;
       float* row = dsb + (long long)qi * Lk;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < M / 4; ++j) {
         const int c = k0 + 8 * j + 2 * t;
         const float x0 = ds[4 * j + 2 * r], x1 = ds[4 * j + 2 * r + 1];
         if ((Lk & 1) == 0) {
@@ -229,14 +233,15 @@ struct DqRows {
 
   // Causal dS: the key tiles from n_kt on, which no row of the query tile
   // at q0 sees, are zeros (the reference's :259-262; the caller's buffer is
-  // uninitialised). `tid` counts the 128 consumer threads.
+  // uninitialised). `tid` counts the `threads` consumer threads.
   __device__ __forceinline__ void zero_unseen_ds(int q0, int n_kt, int Lq,
-                                                 int Lk, int tid) const {
+                                                 int Lk, int tid,
+                                                 int threads = 128) const {
     const int c0 = n_kt * 64;
     const int rows = min(64, Lq - q0);
     if ((Lk & 3) == 0) {
       const int n4 = (Lk - c0) / 4;
-      for (int idx = tid; idx < rows * n4; idx += 128) {
+      for (int idx = tid; idx < rows * n4; idx += threads) {
         const int r = idx / n4;
         *reinterpret_cast<float4*>(dsb + (long long)(q0 + r) * Lk + c0 +
                                    4 * (idx - r * n4)) =
@@ -244,7 +249,7 @@ struct DqRows {
       }
     } else {
       const int n = Lk - c0;
-      for (int idx = tid; idx < rows * n; idx += 128) {
+      for (int idx = tid; idx < rows * n; idx += threads) {
         const int r = idx / n;
         dsb[(long long)(q0 + r) * Lk + c0 + idx - r * n] = 0.f;
       }

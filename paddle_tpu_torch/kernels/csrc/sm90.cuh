@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks for the tensor-core kernels: TMA tile
-// loads completed on mbarriers, wgmma shared-memory descriptors, the three
-// wgmma forms the attention kernels use, the split of a float32
-// fragment, the term-pair products of the float32 (wgmma_f32) kernels, and
-// the host-side encoding of a tensor map. All device code is inline PTX (no
-// CUTLASS/CuTe).
+// loads completed on mbarriers, named barriers, wgmma shared-memory
+// descriptors, the wgmma forms the attention kernels use, the split of a
+// float32 fragment, the term-pair products of the float32 (wgmma_f32)
+// kernels, and the host-side encoding of a tensor map. All device code is
+// inline PTX (no CUTLASS/CuTe).
 //
 // Shared-memory tile layout. Every operand tile is 64 rows of a [rows, D]
 // bf16 matrix (D = 64, 128 or 256), loaded by TMA with
@@ -97,6 +97,19 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// ------------------------------------------------------------ named barriers
+// Wait until `count` threads (whole warps) have reached hardware barrier `id`
+// (1 to 15; 0 is __syncthreads).
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Order this thread's ordinary stores to shared memory before the reads of
+// the async proxy (wgmma operands) that a following barrier lets through.
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ------------------------------------------------------------ TMA
 // Where the (row, head, batch) coordinates of a [B, H, L, D] tensor sit in
 // its 4-D tensor map (dimension 0 is always D): the map orders the three
@@ -164,6 +177,12 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Wait until at most N of the committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait_pending() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
 // Keep the compiler from moving reads or writes of an accumulator across a
 // wgmma fence or wait (the asynchronous product owns the registers between).
 template <int N>
@@ -191,6 +210,59 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A K-major and B MN-major
+// (transposed) in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128_tb(float (&d)[64],
+                                                 uint64_t desc_a,
+                                                 uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -444,6 +516,23 @@ __device__ __forceinline__ void wgmma_kmajor_product(float (&d)[32],
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
     wgmma_ss_n64(d, kmajor_desc(tile_a, kk), kmajor_desc(tile_b, kk),
+                 kk > 0 ? 1 : 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_operand(d);
+}
+
+// D[64 x 32] = A B^T for a K-major [64, K] tile and 32 rows of another
+// (tile_b points at the first of them, a multiple of 8 rows in).
+template <int K>
+__device__ __forceinline__ void wgmma_kmajor_product(float (&d)[16],
+                                                     uint32_t tile_a,
+                                                     uint32_t tile_b) {
+  fence_operand(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_ss_n32(d, kmajor_desc(tile_a, kk), kmajor_desc(tile_b, kk),
                  kk > 0 ? 1 : 0);
   wgmma_commit();
   wgmma_wait_all();

@@ -5,24 +5,24 @@ and their plain PyTorch versions (port of
 The kernels replace the three Pallas kernels of the reference:
 
 - ``csrc/flash_attention_fwd.cu`` replaces ``_fwd_kernel`` (``:131``):
-  online-softmax attention that emits O and the per-row log-sum-exp; the
-  route takes it for float32 at head dim 256 only;
+  online-softmax attention that emits O and the per-row log-sum-exp on the
+  CUDA cores; no route takes it any longer (it is the yardstick the
+  tensor-core forwards are timed against at head dim 256);
 - ``csrc/flash_attention_bwd.cu`` replaces ``_bwd_dq_kernel`` (``:198``)
   and ``_bwd_dkv_kernel`` (``:269``): dQ (and dS, the bias gradient before
   its reduction) over query tiles, dK/dV over key tiles; the route takes
-  them at head dim 256 only (dK/dV for float32 only);
+  them for float32 at head dim 256 only;
 - ``csrc/flash_attention_fwd_sm90.cu``,
   ``csrc/flash_attention_bwd_dq_sm90.cu`` and
   ``csrc/flash_attention_bwd_dkv_sm90.cu`` replace the three kernels again
-  for bf16 inputs, on the tensor cores (wgmma fed by TMA,
-  ``csrc/sm90.cuh``), with the reference's float32-operand numerics kept
-  by splitting the float32 operands they make (P, dS) into three bf16
-  terms: the forward and dK/dV at head dims 64, 128 and 256, dQ at 64 and
-  128;
+  for bf16 inputs at head dims 64, 128 and 256, on the tensor cores (wgmma
+  fed by TMA, ``csrc/sm90.cuh``), with the reference's float32-operand
+  numerics kept by splitting the float32 operands they make (P, dS) into
+  three bf16 terms;
 - ``csrc/flash_attention_fwd_f32_sm90.cu`` replaces the forward again for
-  float32 inputs at head dims 64 and 128 (serving prefill), on the same
-  tensor cores: a pre-pass (:func:`split_bf16_terms`) splits Q, K and V
-  into three bf16 terms each, P is split in registers, and each product
+  float32 inputs at head dims 64, 128 and 256 (serving prefill), on the
+  same tensor cores: a pre-pass (:func:`split_bf16_terms`) splits Q, K and
+  V into three bf16 terms each, P is split in registers, and each product
   keeps the six term pairs ``i + j <= 2``;
 - ``csrc/flash_attention_bwd_f32_sm90.cu`` replaces dQ and dK/dV again
   for float32 inputs at head dims 64 and 128 (float32 training) in the
@@ -44,10 +44,9 @@ Dispatch is by device, never by a fallback: a wrapper given CPU tensors
 runs the plain version (that is what the CPU tests exercise), and given
 CUDA tensors it launches the kernel or raises. Among the kernels the
 route is picked by (dtype, head dim, kernel) alone (:func:`kernel_route`):
-bf16 at D in {64, 128} takes the ``wgmma`` forward, dQ and dK/dV kernels,
-and at D = 256 the ``wgmma`` forward and dK/dV with the ``fma`` dQ;
-float32 at D in {64, 128} the ``wgmma_f32`` ones, at D = 256 the ``fma``
-ones. Each wrapper
+bf16 takes the ``wgmma`` forward, dQ and dK/dV kernels at every head dim;
+float32 the ``wgmma_f32`` forward at every head dim and the ``wgmma_f32``
+dQ and dK/dV at D in {64, 128}, the ``fma`` ones at D = 256. Each wrapper
 counts its launches in ``<wrapper>.launches`` and per route in
 ``<wrapper>.routes`` (:func:`launch_counts`).
 
@@ -87,9 +86,10 @@ SUPPORTED_HEAD_DIMS = (64, 128, 256)
 #: head dims at which each (dtype, kernel) runs on the tensor cores: route
 #: ``"wgmma"`` for bf16, ``"wgmma_f32"`` for float32; the rest is ``"fma"``
 TENSOR_CORE_HEAD_DIMS = {
-    (torch.bfloat16, "fwd"): (64, 128, 256), (torch.bfloat16, "dq"): (64, 128),
+    (torch.bfloat16, "fwd"): (64, 128, 256),
+    (torch.bfloat16, "dq"): (64, 128, 256),
     (torch.bfloat16, "dkv"): (64, 128, 256),
-    (torch.float32, "fwd"): (64, 128), (torch.float32, "dq"): (64, 128),
+    (torch.float32, "fwd"): (64, 128, 256), (torch.float32, "dq"): (64, 128),
     (torch.float32, "dkv"): (64, 128)}
 _TENSOR_CORE_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "wgmma_f32"}
 _FWD_SOURCE = "flash_attention_fwd.cu"
@@ -106,11 +106,11 @@ _TILE_ROWS = 64  # rows of every TMA box (csrc/sm90.cuh)
 def kernel_route(dtype: torch.dtype, head_dim: int, kernel: str) -> str:
     """Which kernel a CUDA input of ``dtype`` and ``head_dim`` takes for
     ``kernel`` ("fwd", "dq" or "dkv"): at the head dims of
-    :data:`TENSOR_CORE_HEAD_DIMS` (all three kernels at D 64/128; the bf16
-    forward and dK/dV also at D = 256) ``"wgmma"`` (the sm_90a
-    tensor-core kernels) for bf16 and ``"wgmma_f32"`` (the same tensor
-    cores, each float32 operand as three bf16 terms) for float32;
-    ``"fma"`` for everything else."""
+    :data:`TENSOR_CORE_HEAD_DIMS` (every kernel at D 64/128, and at
+    D = 256 all bf16 kernels and the float32 forward) ``"wgmma"`` (the
+    sm_90a tensor-core kernels) for bf16 and ``"wgmma_f32"`` (the same
+    tensor cores, each float32 operand as three bf16 terms) for float32;
+    ``"fma"`` for everything else (the float32 dQ and dK/dV at D = 256)."""
     if kernel not in ("fwd", "dq", "dkv"):
         raise ValueError(f"kernel must be fwd, dq or dkv, got {kernel!r}")
     if head_dim in TENSOR_CORE_HEAD_DIMS.get((dtype, kernel), ()):
@@ -449,7 +449,8 @@ def wgmma_selfcheck(D: int, device, generator=None,
     for the caller to hold against a float64 product.
 
     bf16 runs ``pt_sm90_selfcheck`` (``csrc/sm90.cuh``; D 64, 128 or 256):
-    one bf16 product of each form. float32 (D 64 or 128) runs ``pt_sm90_selfcheck_f32``
+    one bf16 product of each form. float32 (the same head dims) runs
+    ``pt_sm90_selfcheck_f32``
     (``csrc/flash_attention_fwd_f32_sm90.cu``): a and b split by
     :func:`split_bf16_terms`, b's terms loaded by TMA, and the six term
     pairs of each product through the term-pair products every float32
@@ -632,9 +633,9 @@ def _fwd_buffers(q, k, v, bias, out):
 
 
 def _launch_fwd_fma(q, k, v, causal: bool, bias, out, dropout_p, seed):
-    """Launch the FMA forward kernel (``csrc/flash_attention_fwd.cu``):
-    float32 at D = 256, and the yardstick the tensor-core forwards are
-    timed against. Counts nothing."""
+    """Launch the FMA forward kernel (``csrc/flash_attention_fwd.cu``,
+    D = 256 only): the yardstick the tensor-core forwards are timed
+    against; no route takes it. Counts nothing."""
     (B, H, Lq, Lk, D), out, lse, bias, bias_strides = _fwd_buffers(
         q, k, v, bias, out)
     strides = (ctypes.c_longlong * 15)(

@@ -18,6 +18,10 @@ operand are of order 2^-24 of the products, float32's own rounding, so the
 emulation is also close to a float64 computation, which one bf16 term per
 operand is not.
 
+The forward runs at head dims 64, 128 and 256, the backward at 64 and 128
+(float32 at D = 256 takes the FMA backward); the emulation covers all
+three head dims.
+
 The tests marked ``cuda`` run the kernels on the card and skip without one:
 ``python -m pytest --noconftest -m cuda tests/test_torch_flash_attention_f32_sm90.py``.
 """
@@ -118,11 +122,12 @@ def emulated_bwd(q, k, v, bias, o, lse, do, causal, terms=3):
     return dq, dk, dv, ds
 
 
-# (causal, D, Lq, Lk, bias): causal and not, D 64 and 128, Lq != Lk both
-# ways, a bias broadcast over the batch
+# (causal, D, Lq, Lk, bias): causal and not, D 64, 128 and 256, Lq != Lk
+# both ways, a bias broadcast over the batch
 _JAX_CASES = [(True, 64, 256, 256, False), (False, 64, 256, 256, False),
               (True, 128, 256, 256, False), (False, 128, 128, 256, True),
-              (True, 128, 128, 256, True), (False, 64, 256, 128, True)]
+              (True, 128, 128, 256, True), (False, 64, 256, 128, True),
+              (True, 256, 256, 256, False), (False, 256, 128, 256, True)]
 
 
 @pytest.mark.parametrize("causal,d,lq,lk,bias", _JAX_CASES)
@@ -182,7 +187,7 @@ def test_six_product_backward_matches_jax(jfa, interpret_pallas, causal, d,
         assert dbias_j is None
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_six_product_backward_keeps_float32_accuracy(d):
     """The backward's six term pairs against a float64 backward: within
     a few 1e-6 of the gradients' scale, where bf16 operands (one term
@@ -205,10 +210,12 @@ def test_six_product_backward_keeps_float32_accuracy(d):
             assert low < rel < high, (terms, rel)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_six_products_keep_float32_accuracy_and_one_term_does_not(d):
     """What the split buys: six term pairs are within 1e-6 of a float64
-    forward; bf16 operands (one term each) are far from it."""
+    forward, or (at D = 256, where float32 itself is further off) as close
+    as the plain float32 forward is; bf16 operands (one term each) are far
+    from it."""
     q, k, v = (torch.from_numpy(_f32((1, 2, 128, d), s)) for s in (4, 5, 6))
     scale = 1.0 / math.sqrt(d)
     s64 = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) * scale
@@ -217,7 +224,9 @@ def test_six_products_keep_float32_accuracy_and_one_term_does_not(d):
     want = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s64, -1), v.double())
     six, _ = emulated_fwd(q, k, v, True, None, terms=3)
     one, _ = emulated_fwd(q, k, v, True, None, terms=1)
-    assert (six.double() - want).abs().max() < 1e-6
+    f32 = tfa.reference_attention_fwd(q, k, v, causal=True)[0]
+    limit = max(1e-6, (f32.double() - want).abs().max().item())
+    assert (six.double() - want).abs().max() < limit
     assert (one.double() - want).abs().max() > 1e-4
 
 
@@ -267,7 +276,7 @@ class _FakeStream:
 
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.float32, 64, "wgmma_f32"), (torch.float32, 128, "wgmma_f32"),
-    (torch.float32, 256, "fma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.float32, 256, "wgmma_f32"), (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "wgmma")])
 def test_forward_launches_the_route_of_dtype_and_head_dim(dtype, d, route):
     """``_launch_fwd`` hands a (dtype, D) input to the C entry of its
@@ -341,7 +350,8 @@ def test_fma_forward_launcher_takes_any_input_and_counts_nothing(dtype, d):
 def test_float32_backward_takes_the_tensor_cores_at_64_and_128(which, d,
                                                                route):
     """float32 dQ and dK/dV take the wgmma_f32 kernels at D 64 and 128, as
-    the forward does, and the FMA kernels at D = 256."""
+    the forward does, and the FMA kernels at D = 256, where the forward
+    takes wgmma_f32 too."""
     assert tfa.kernel_route(torch.float32, d, which) == route
 
 
@@ -399,8 +409,17 @@ def test_cuda_f32_forward_matches_plain_at_the_prefill_buckets(cuda_device,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("L", [1024, 2048])
+def test_cuda_f32_forward_matches_plain_at_d256(cuda_device, L):
+    """D = 256 at the D = 256 prefill's buckets: [1, 8, L, 256] views of
+    a fused qkv. Tolerance: the reference's float32 forward tolerance."""
+    _check_fwd(*_views(cuda_device, 1, L, 8, 256, L), causal=True)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d,causal,lq,lk", [(128, False, 384, 640),
-                                            (64, True, 640, 384)])
+                                            (64, True, 640, 384),
+                                            (256, False, 384, 640)])
 def test_cuda_f32_forward_with_bias_matches_plain(cuda_device, d, causal, lq,
                                                   lk):
     g = torch.Generator(device=cuda_device).manual_seed(1)
@@ -411,7 +430,7 @@ def test_cuda_f32_forward_with_bias_matches_plain(cuda_device, d, causal, lq,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_cuda_f32_forward_ragged_matches_plain(cuda_device, d):
     _check_fwd(*_views(cuda_device, 2, 1500, 4, d, 2), causal=True)
 
@@ -426,7 +445,17 @@ def test_cuda_f32_forward_replays_bit_for_bit(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_f32_forward_replays_bit_for_bit_at_d256(cuda_device):
+    """No atomics at D = 256 either, with a bias and at the ragged edge."""
+    q, k, v = _views(cuda_device, 1, 1500, 8, 256, 3)
+    bias = torch.randn(1, 8, 1500, 1500, device=cuda_device)
+    first = tfa.flash_attention_fwd(q, k, v, causal=True, bias=bias)
+    second = tfa.flash_attention_fwd(q, k, v, causal=True, bias=bias)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_cuda_f32_dropout_matches_plain_with_the_same_mask(cuda_device, d):
     """p = 0.1: the kernel against the plain version given the plain
     Philox mask, and a fixed seed replays bit for bit."""
@@ -455,7 +484,7 @@ def test_cuda_split_kernel_equals_plain_bit_for_bit(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_cuda_f32_selfcheck(cuda_device, d):
     """Both products of the float32 path on [64, D] float32 operands
     against float64: the six term pairs leave a few 2^-24 of sum |a b|,

@@ -1,9 +1,8 @@
 """The bf16 tensor-core route of the port's flash attention: the wgmma
 forward, dQ and dK/dV kernels (``csrc/flash_attention_fwd_sm90.cu``,
 ``csrc/flash_attention_bwd_dq_sm90.cu``,
-``csrc/flash_attention_bwd_dkv_sm90.cu``; the forward and dK/dV at head
-dims 64, 128 and 256, dQ at 64 and 128), their routing and the TMA
-geometry their wrappers compute.
+``csrc/flash_attention_bwd_dkv_sm90.cu``; all three at head dims 64, 128
+and 256), their routing and the TMA geometry their wrappers compute.
 
 The kernels keep the reference's default numerics (``_operand_dtype``:
 float32 operands for both probability products, also for bf16 inputs) by
@@ -254,6 +253,60 @@ def test_split_dq_matches_jax(jfa, interpret_pallas, causal, terms):
     np.testing.assert_allclose(dq.numpy(), dq_j, **BWD_TOL)
 
 
+def emulated_dq_d256(q, k, v, bias, o, lse, do, causal):
+    """``(dq, ds)`` as the D = 256 dQ kernel forms them: per 64-key tile,
+    each of the two warpgroups makes S and dP for its 32 keys (over all 256
+    columns) and dS there; dS meets in shared memory as three bf16 terms,
+    and each warpgroup adds dS K[:, its 128 columns] into its half of dQ,
+    16 keys and one term at a time, in float32."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    Lq, Lk = q.shape[2], k.shape[2]
+    delta = (do * o).sum(-1)
+    dq = torch.zeros_like(q)
+    ds = torch.zeros(*q.shape[:3], Lk)
+    rows = torch.arange(Lq)[:, None]
+    for k0 in range(0, Lk, 64):
+        tile = torch.zeros(*q.shape[:3], 64)
+        for kh in (0, 32):                      # the two warpgroups' keys
+            keys = slice(k0 + kh, min(k0 + kh + 32, Lk))
+            s = torch.einsum("bhqd,bhkd->bhqk", q, k[:, :, keys]) * scale
+            if bias is not None:
+                s = s + bias[..., keys]
+            p = torch.exp(s - lse[..., None])
+            if causal:
+                p = p * (rows >= torch.arange(keys.start, keys.stop))
+            dp = torch.einsum("bhqd,bhkd->bhqk", do, v[:, :, keys])
+            part = p * (dp - delta[..., None])
+            tile[..., kh:kh + part.shape[-1]] = part
+            ds[..., keys] = part
+        for col0 in (0, 128):                   # the two warpgroups' columns
+            cols = slice(col0, col0 + 128)
+            for kk in range(0, min(64, Lk - k0), 16):
+                kt = k[:, :, k0 + kk:k0 + kk + 16, cols]
+                for term in split_terms(tile[..., kk:kk + kt.shape[2]], 3):
+                    dq[..., cols] += torch.einsum("bhqk,bhkd->bhqd", term, kt)
+    return dq * scale, ds
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_split_dq_matches_jax_at_d256(jfa, interpret_pallas, causal):
+    """D = 256: dQ and dS of the dQ kernel's layout (key halves for S and
+    dP, column halves for dQ, dS as three bf16 terms) against
+    ``_flash_bwd_impl``'s dq and dbias (a bias of one batch, so dbias is
+    dS itself) on the same (o, lse, dO), at the reference's float32
+    backward tolerance."""
+    q, k, v = _qkv(1, 2, 256, 256, 256)
+    bias = _bf16_values((1, 2, 256, 256), 8)
+    do = _bf16_values((1, 2, 256, 256), 4)
+    o, lse, dq_j, _, _, dbias_j = _jax_bwd(jfa, q, k, v, bias, do, causal)
+    dq, ds = emulated_dq_d256(*(torch.from_numpy(a) for a in (q, k, v)),
+                              torch.from_numpy(bias), torch.from_numpy(o),
+                              torch.from_numpy(lse), torch.from_numpy(do),
+                              causal)
+    np.testing.assert_allclose(dq.numpy(), dq_j, **BWD_TOL)
+    np.testing.assert_allclose(ds.numpy(), dbias_j, **BWD_TOL)
+
+
 @pytest.mark.parametrize("terms", [2, 3])
 def test_split_dq_and_dbias_with_a_trained_bias_match_jax(
         jfa, interpret_pallas, terms):
@@ -287,10 +340,11 @@ def test_split_is_closer_to_float32_than_bf16_p():
 
 # ------------------------------------------------------------ routing
 def _route(dtype, d, route, kernel):
-    """The expected route: ``route``, except the bf16 dQ at D = 256, which
-    stays on the FMA kernel while the forward and dK/dV take wgmma."""
-    if (dtype, d, kernel) == (torch.bfloat16, 256, "dq"):
-        return "fma"
+    """The expected route: ``route``, except the float32 forward at
+    D = 256, which takes wgmma_f32 while the float32 dQ and dK/dV there
+    stay on the FMA kernels."""
+    if (dtype, d, kernel) == (torch.float32, 256, "fwd"):
+        return "wgmma_f32"
     return route
 
 
@@ -301,9 +355,9 @@ def _route(dtype, d, route, kernel):
     (torch.float32, 128, "wgmma_f32"), (torch.float32, 256, "fma"),
     (torch.float16, 128, "fma")])
 def test_route_is_picked_by_dtype_and_head_dim(dtype, d, route, kernel):
-    """bf16 at D 64/128 takes the wgmma kernels, float32 at D 64/128 the
-    wgmma_f32 ones (forward, dQ and dK/dV alike); bf16 at D = 256 the wgmma
-    forward and dK/dV and the FMA dQ; the rest FMA."""
+    """bf16 takes the wgmma kernels at every head dim, float32 at D 64/128
+    the wgmma_f32 ones (forward, dQ and dK/dV alike); float32 at D = 256
+    the wgmma_f32 forward and the FMA dQ and dK/dV; the rest FMA."""
     assert tfa.kernel_route(dtype, d, kernel) == _route(dtype, d, route,
                                                         kernel)
 
@@ -331,8 +385,8 @@ def test_cpu_tensors_launch_nothing():
 def test_backward_wrappers_launch_the_route_of_dtype_and_head_dim(
         which, dtype, d, route):
     """The dQ and dK/dV wrappers hand a (dtype, D) input to the launcher of
-    its :func:`kernel_route` and count the launch under that route (bf16
-    at D = 256: wgmma dK/dV, FMA dQ); the wgmma_f32 launcher gets the four
+    its :func:`kernel_route` and count the launch under that route (float32
+    at D = 256: the FMA dQ and dK/dV); the wgmma_f32 launcher gets the four
     operands' bf16 terms. The launchers are stubbed (the kernels need a
     card); the wrapper's own logic runs as it does on one."""
     route = _route(dtype, d, route, which)
@@ -498,7 +552,7 @@ def test_cuda_wgmma_forward_matches_plain(cuda_device, d, causal, lq, lk,
 def test_cuda_wgmma_backward_matches_plain(cuda_device, d, causal, lq, lk,
                                            bias):
     """dQ (with dS as the bias gradient where there is a bias), dK and dV
-    from the wgmma kernels (at D = 256 dQ from the FMA kernel). Tolerance:
+    from the wgmma kernels. Tolerance:
     two bf16 ulps of each reference element plus 1e-5 of the gradient's
     largest magnitude; dbias (float32) the reference's backward tolerance,
     rtol 2e-4 and atol 2e-5."""
@@ -522,7 +576,7 @@ def test_cuda_wgmma_backward_matches_plain(cuda_device, d, causal, lq, lk,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_cuda_wgmma_dq_replays_bit_for_bit(cuda_device, d):
     """No atomics: two calls on the same inputs give the same dQ and dS."""
     q, k, v, do, b = _cuda_case(cuda_device, d, True, 1500, 1500, True)
@@ -533,6 +587,26 @@ def test_cuda_wgmma_dq_replays_bit_for_bit(cuda_device, d):
     second = tfa.flash_attention_bwd_dq(q, k, v, b, do, lse, delta, True,
                                         emit_ds=True)
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_cuda_wgmma_dq_writes_ds_with_zeros_above_the_diagonal(cuda_device,
+                                                               d):
+    """The dQ kernel's float32 dS (the bias gradient before its reduction)
+    against the plain dS, causal and ragged: every element above the
+    diagonal, in the diagonal tiles and in the tiles the kernel skips, is
+    written as 0. Tolerance: the reference's backward tolerance."""
+    q, k, v, do, b = _cuda_case(cuda_device, d, True, 700, 700, True)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True, bias=b)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    tfa.reset_launch_counts()
+    _, ds = tfa.flash_attention_bwd_dq(q, k, v, b, do, lse, delta, True,
+                                       emit_ds=True)
+    assert tfa.launch_counts()["dq"]["wgmma"] == 1
+    want = tfa.reference_attention_bwd(q, k, v, b, o, lse, do, True)[3]
+    torch.testing.assert_close(ds, want, **BWD_TOL)
+    assert bool((ds.triu(1) == 0).all())
 
 
 @pytest.mark.cuda

@@ -134,6 +134,54 @@ def test_worker_fault_requeues_and_recovers(pair):
     assert snap["requests_requeued"] == 1 and snap["prefills"] == 2
 
 
+@pytest.fixture(scope="module")
+def pair_d256():
+    """gpt_tiny at head dim 256 (hidden 512, 2 heads of 256, 2 layers),
+    seeded in JAX and converted by name."""
+    over = dict(hidden_size=512, num_heads=2, hidden_dropout_prob=0.0,
+                attention_dropout_prob=0.0)
+    pt.seed(31)
+    jm = JaxGPT(jax_gpt_tiny(**over))
+    jm.eval()
+    state = {k: np.asarray(v) for k, v in jm.state_dict().items()}
+    return jm, gpt_from_jax(state, gpt_tiny(**over), device="cpu")
+
+
+def test_d256_prefill_logits_and_greedy_stream_match_jax(pair_d256):
+    """Head dim 256, the shape of the D = 256 prefill that runs the
+    float32 tensor-core forward on the card: the bucketed prefill's
+    last-token logits agree with the JAX model's within 1e-4 absolute
+    (float32, two frameworks' summation orders through two layers), and
+    the port's served greedy stream equals the JAX server's."""
+    import jax.numpy as jnp
+    from paddle_tpu.models import generation as jgen
+    from paddle_tpu_torch.models import generation as tgen
+
+    jm, tm = pair_d256
+    assert tm.cfg.hidden_size // tm.cfg.num_heads == 256
+    P = 21
+    prompt = _prompt(P, 12)
+    ids = np.zeros((1, 32), np.int32)
+    ids[0, :P] = prompt
+    lj, _ = jm(jnp.asarray(ids), cache=jgen.init_cache(jm, 1, 64),
+               position_offset=0, gather_last=P - 1)
+    with torch.no_grad():
+        lt, _ = tm(torch.as_tensor(ids, dtype=torch.long),
+                   cache=tgen.init_cache(tm, 1, 64), position_offset=0,
+                   gather_last=P - 1)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4, rtol=0)
+    jsrv = JaxServer(jm, slots=2, **GEO)
+    tsrv = InferenceServer(tm, slots=2, device="cpu", **GEO)
+    try:
+        want = jsrv.submit(prompt, max_new_tokens=8).result(timeout=300)
+        got = tsrv.submit(prompt, max_new_tokens=8).result(timeout=300)
+    finally:
+        jsrv.shutdown(drain=False, timeout=60)
+        tsrv.shutdown(drain=False, timeout=60)
+    assert got.shape == (8,)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_server_without_device_needs_cuda(pair):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device works")
