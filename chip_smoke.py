@@ -81,7 +81,8 @@ exits non-zero:
 Then a line with the kernels' summary, a line with the card's name and
 power limit, and the last line {"ok": true, "device": {...}}.
 ``--kernels-only`` stops after phase 3 and prints none of those three
-lines: a partial run, to compare kernel builds in turns.
+lines, and reports a register spill without failing on it: a partial
+run, to compare kernel builds (a layout that spills among them) in turns.
 
 It exits non-zero without printing a result when no CUDA device is
 present, and imports nothing of JAX.
@@ -346,11 +347,40 @@ def _dtype_name(t):
     return str(t.dtype).replace("torch.", "")
 
 
-def phase_build(seed: int) -> None:
-    """Build every kernel source, fail on a spill in the wgmma kernels, and
-    hold the wgmma/TMA self-check against torch.matmul."""
+def ptxas_report(log: str) -> list:
+    """Per kernel of one source's build log (``-Xptxas -v``): its name and
+    template arguments, registers, and spill stores and loads in bytes."""
     import re
 
+    out = []
+    for entry in log.split("Compiling entry function")[1:]:
+        # the mangled name: length-prefixed nested names, the last one the
+        # kernel's, then its integer and bool template arguments
+        mangled = entry.split("'")[1]
+        i = 3 if mangled.startswith("_ZN") else 2
+        name = mangled
+        while i < len(mangled) and mangled[i].isdigit():
+            j = i
+            while mangled[j].isdigit():
+                j += 1
+            name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+        args = [v if k == "i" else ("false", "true")[int(v)]
+                for k, v in re.findall(r"L([ib])(\d+)E",
+                                       mangled[i:].split("Ev")[0])]
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          entry)
+        out.append(dict(kernel=f"{name}<{', '.join(args)}>" if args else name,
+                        registers=int(re.search(r"Used (\d+) registers",
+                                                entry).group(1)),
+                        spill_stores=int(spill.group(1)) if spill else 0,
+                        spill_loads=int(spill.group(2)) if spill else 0))
+    return out
+
+
+def phase_build(seed: int, fail_on_spill: bool = True) -> None:
+    """Build every kernel source, fail on a spill in the wgmma kernels
+    (unless ``fail_on_spill`` is False: a spill is then only reported),
+    and hold the wgmma/TMA self-check against torch.matmul."""
     import torch
 
     from paddle_tpu_torch.kernels import _build
@@ -358,16 +388,14 @@ def phase_build(seed: int) -> None:
 
     t0 = time.perf_counter()
     libs = {s: p.name for s, p in _build.build_all().items()}
-    ptxas = {s: [ln.strip() for ln in _build.build_log(s).splitlines()
-                 if "Used" in ln or "spill" in ln] for s in libs}
+    ptxas = {s: ptxas_report(_build.build_log(s)) for s in libs}
     emit("build", seconds=time.perf_counter() - t0, libraries=libs,
-         ptxas=[ln for lines in ptxas.values() for ln in lines])
-    spills = [ln for s in (fa._FWD_SM90_SOURCE, fa._FWD_F32_SM90_SOURCE,
-                           fa._DQ_SM90_SOURCE, fa._DKV_SM90_SOURCE,
-                           fa._BWD_F32_SM90_SOURCE)
-              for ln in ptxas[s]
-              if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
-    if spills:
+         ptxas=ptxas)
+    spills = [(s, k) for s in (fa._FWD_SM90_SOURCE, fa._FWD_F32_SM90_SOURCE,
+                               fa._DQ_SM90_SOURCE, fa._DKV_SM90_SOURCE,
+                               fa._BWD_F32_SM90_SOURCE)
+              for k in ptxas[s] if k["spill_stores"] or k["spill_loads"]]
+    if spills and fail_on_spill:
         raise AssertionError(f"register spills in the wgmma kernels: {spills}")
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
@@ -1362,7 +1390,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
                     help="run phases 1-3 and stop, printing no result "
-                         "line: to compare kernel builds in turns, each "
+                         "line, with a register spill reported but not "
+                         "fatal: to compare kernel builds in turns, each "
                          "from its own checkout")
     args = ap.parse_args(argv)
 
@@ -1379,7 +1408,7 @@ def main(argv=None) -> int:
     emit("device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
-    phase_build(args.seed)
+    phase_build(args.seed, fail_on_spill=not args.kernels_only)
     fwd = phase_kernels(args.seed)
     bwd = phase_backward(args.seed)
     phase_dropout(args.seed)
