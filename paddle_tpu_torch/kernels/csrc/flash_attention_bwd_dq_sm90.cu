@@ -103,7 +103,7 @@ struct DqLayout {
   // D = 256: dS's three bf16 terms, one [64, 64] tile (one swizzle atom)
   // each, as the A operand of dS K
   static constexpr uint32_t ds = kTile * (2 + 2 * kStages);
-  static constexpr uint32_t kDsBytes = 0;
+  static constexpr uint32_t kDsBytes = D == 256 ? kSplit * kAtomBytes : 0;
   static constexpr uint32_t bars = ds + kDsBytes;
   static constexpr uint32_t qd_full = bars;
   __host__ __device__ static constexpr uint32_t k_full(int s) {
@@ -305,11 +305,19 @@ flash_bwd_dq_sm90_d256_kernel(const __grid_constant__ CUtensorMap map_q,
     return;
   }
 
-  // ---- consumer warpgroup wg: S and dP of the whole key tile (made by
-  // both warpgroups), dQ columns col0 .. col0 + 127 of the 64 query rows
+  // ---- consumer warpgroup wg: S and dP of keys kh .. kh + 31 of each key
+  // tile, dQ columns col0 .. col0 + 127 of the 64 query rows
   const int wg = tid / kConsumers;
-  const int col0 = kN * wg;
+  const int kh = kKeys * wg, col0 = kN * wg;
   const DqRows rows(p, b, h, q0, tid % kConsumers);
+  // where this thread's dS pairs go in a [64, 64] term tile: row r of the
+  // 128-byte-swizzled atom at 128 r, its 16-byte chunk c at (c ^ r % 8) * 16
+  // (rows 16 w + g and + 8 share r % 8 = g; chunk 4 wg + j holds keys
+  // kh + 8 j .. kh + 8 j + 7, the thread's pair at byte 4 t of it)
+  const int w = (tid % kConsumers) / 32, g = (tid % 32) / 4;
+  uint32_t* const ds_row0 = reinterpret_cast<uint32_t*>(
+      smem + L::ds + (16 * w + g) * 128 + 4 * rows.t);
+  uint32_t* const ds_row1 = ds_row0 + 8 * 128 / 4;
 
   float dq[kN / 2];
 #pragma unroll
@@ -319,34 +327,71 @@ flash_bwd_dq_sm90_d256_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int i = 0; i < n_kt; ++i) {
     const int s = i % kStages;
     const uint32_t phase = (i / kStages) & 1;
-    const int k0 = i * 64;
+    const int k0 = i * 64 + kh;  // the warpgroup's first key
     uint32_t keep = 0xffffffffu;
-    if constexpr (kDropout) keep = rows.keep_bits(p, b, h, k0);
+    if constexpr (kDropout) keep = rows.keep_bits<kKeys / 2>(p, b, h, k0);
     uint32_t tq = base + L::q, tdo = base + L::dout, tk = base + L::k(s),
              tv = base + L::v(s);
     asm volatile("" : "+r"(tq), "+r"(tdo), "+r"(tk), "+r"(tv));
 
+    // ---- S = Q K[kh ..]^T, then P (the K rows kh .. start kh / 8 row
+    // groups, 1024 bytes each, into every atom)
     mbar_wait(base + L::k_full(s), phase);
     __syncwarp();
-    float sc[32], dp[32];
-    wgmma_kmajor_product<D>(sc, tq, tk);
+    float sc[kKeys / 2], dp[kKeys / 2];
+    wgmma_kmajor_product<D>(sc, tq, tk + kh * 128);
     rows.probabilities(p, sc, q0, k0);
 
+    // ---- dP = dO V[kh ..]^T
     mbar_wait(base + L::v_full(s), phase);
     __syncwarp();
-    wgmma_kmajor_product<D>(dp, tdo, tv);
+    wgmma_kmajor_product<D>(dp, tdo, tv + kh * 128);
     mbar_arrive(base + L::v_empty(s));
 
+    // ---- dS = P (dP M - Delta), in place of dP
     rows.grad_scores(sc, dp, keep, kDropout ? p.drop.scale : 1.f);
-    if (wg == 0 && rows.dsb != nullptr) rows.store_ds(dp, k0, p.Lq, p.Lk);
+    if (rows.dsb != nullptr) rows.store_ds(dp, k0, p.Lq, p.Lk);
 
-    // ---- dQ[:, col0 ..] += dS K[:, col0 ..], dS as its three bf16 terms
-    wgmma_split_product<kN, true>(dq, [&](int e) { return dp[e]; },
-                                  tk + (col0 / 64) * kAtomBytes);
+    // ---- dS's three bf16 terms into the shared tiles, once the other
+    // warpgroup's dS K of the last key tile has read them
+    named_barrier_sync(kDsBarrier, kConsumers256);
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+      const int chunk = ((4 * wg + j) ^ g) * 4;  // in words
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float x0 = dp[4 * j + 2 * r], x1 = dp[4 * j + 2 * r + 1];
+        uint32_t* const dst = (r == 0 ? ds_row0 : ds_row1) + chunk;
+#pragma unroll
+        for (int term = 0; term < kSplit; ++term) {
+          const __nv_bfloat162 hb = __floats2bfloat162_rn(x0, x1);
+          const float2 hf = __bfloat1622float2(hb);
+          dst[term * kAtomBytes / 4] = bf16x2_bits(hb);
+          x0 -= hf.x;
+          x1 -= hf.y;
+        }
+      }
+    }
+    fence_proxy_async_smem();
+    named_barrier_sync(kDsBarrier, kConsumers256);
+
+    // ---- dQ[:, col0 ..] += dS K[:, col0 ..], the K columns 2 wg atoms in
+    const uint32_t tk_cols = tk + (col0 / 64) * kAtomBytes;
+    fence_operand(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t desc_k = mnmajor_desc(tk_cols, kk);
+#pragma unroll
+      for (int term = 0; term < kSplit; ++term)
+        wgmma_ss_n128_tb(dq, kmajor_desc(base + L::ds + term * kAtomBytes, kk),
+                         desc_k, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operand(dq);
     mbar_arrive(base + L::k_empty(s));
   }
-  (void)smem;
-  (void)kKeys;
 
   if (rows.dsb != nullptr && p.causal && n_kt * 64 < p.Lk)
     rows.zero_unseen_ds(q0, n_kt, p.Lq, p.Lk, tid, kConsumers256);

@@ -336,130 +336,12 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   rows.store<D>(p, c, o);
 }
 
-// D = 256, layout (b): two consumer warpgroups on the 64 rows, each making
-// S whole and a 128-column half of O (1.5 times the tensor work).
-constexpr int kThreads256 = 2 * kConsumers + 32;
-
-template <bool kDropout>
-__global__ void __launch_bounds__(kThreads256, 1)
-flash_fwd_f32_sm90_d256_kernel(const __grid_constant__ CUtensorMap map_q,
-                               const __grid_constant__ CUtensorMap map_k,
-                               const __grid_constant__ CUtensorMap map_v,
-                               const Params p) {
-  constexpr int D = 256, kN = 128;
-  using L = FwdLayout<D>;
-  constexpr int kRing = L::kRing;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  if (base + L::kUsed > smem_u32(smem_raw) + L::kBytes) __trap();
-
-  const FwdTile c = fwd_tile(p.Lk, p.causal);
-  const int tid = threadIdx.x;
-
-  if (tid == 0) {
-    mbar_init(base + L::q_full, 1);
-    for (int s = 0; s < kRing; ++s) {
-      mbar_init(base + L::full(s), 1);
-      mbar_init(base + L::empty(s), 2 * kConsumers);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (tid >= 2 * kConsumers) {
-    if (tid == 2 * kConsumers) {
-      mbar_arrive_expect_tx(base + L::q_full, kSplit * L::kTile);
-      for (int a = 0; a < kSplit; ++a)
-        tma_load_tile<D>(base + L::q(a), &map_q, base + L::q_full, c.q0, c.h,
-                         a * p.B + c.b, p.pos_q);
-      for (int n = 0; n < c.n_kt * kLoadsPerKeyTile; ++n) {
-        const int s = n % kRing;
-        const int j = n % kLoadsPerKeyTile;
-        const bool is_k = j < kSplit;
-        mbar_wait(base + L::empty(s), ((n / kRing) & 1) ^ 1);
-        mbar_arrive_expect_tx(base + L::full(s), L::kTile);
-        tma_load_tile<D>(base + L::slot(s), is_k ? &map_k : &map_v,
-                         base + L::full(s), (n / kLoadsPerKeyTile) * 64, c.h,
-                         (j % kSplit) * p.B + c.b, is_k ? p.pos_k : p.pos_v);
-      }
-    }
-    return;
-  }
-
-  const int wg = tid / kConsumers;
-  const uint32_t cols = 2 * wg * kAtomBytes;
-  FwdRows rows(p, c, tid % kConsumers);
-  float o[kN / 2];
-#pragma unroll
-  for (int i = 0; i < kN / 2; ++i) o[i] = 0.f;
-
-  float sc[32];
-  float alpha0, alpha1;
-  mbar_wait(base + L::q_full, 0);
-  for (int i = 0; i < c.n_kt; ++i) {
-    uint32_t tq = base + L::q(0);
-#pragma unroll
-    for (int j = 0; j < kSplit; ++j) {
-      const int n = i * kLoadsPerKeyTile + j;
-      const int s = n % kRing;
-      uint32_t tk = base + L::slot(s);
-      asm volatile("" : "+r"(tk), "+r"(tq));
-      mbar_wait(base + L::full(s), (n / kRing) & 1);
-      __syncwarp();
-      terms_abt<D, false>(sc, tq, tk, j, j == 0);
-      mbar_arrive(base + L::empty(s));
-    }
-    rows.softmax<kDropout>(p, c, sc, i * 64, alpha0, alpha1);
-    rescale<kN>(o, alpha0, alpha1);
-    uint32_t f[4][kSplit][4];
-    split_all([&](int e) { return sc[e]; }, f);
-#pragma unroll
-    for (int j = 0; j < kSplit; ++j) {
-      const int n = i * kLoadsPerKeyTile + kSplit + j;
-      const int s = n % kRing;
-      uint32_t tv = base + L::slot(s);
-      asm volatile("" : "+r"(tv));
-      mbar_wait(base + L::full(s), (n / kRing) & 1);
-      __syncwarp();
-      terms_fb<kN, false>(o, f, tv + cols, j);
-      mbar_arrive(base + L::empty(s));
-    }
-  }
-  // ---- epilogue: this warpgroup's 128 columns of O; LSE from the first
-  const float lc0 = fmaxf(rows.l0, 1e-30f), lc1 = fmaxf(rows.l1, 1e-30f);
-  float* ob = p.o + c.b * p.o_st[0] + c.h * p.o_st[1] + kN * wg;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = r == 0 ? rows.qi0 : rows.qi1;
-    if (qi >= p.Lq) continue;
-    const float inv = 1.f / (r == 0 ? lc0 : lc1);
-    float* orow = ob + (long long)qi * p.o_st[2];
-#pragma unroll
-    for (int j = 0; j < kN / 8; ++j)
-      store_pair(orow + 8 * j + 2 * rows.t, o[4 * j + 2 * r] * inv,
-                 o[4 * j + 2 * r + 1] * inv);
-    if (wg == 0 && rows.t == 0)
-      p.lse[((long long)c.b * p.H + c.h) * p.Lq + qi] =
-          (r == 0 ? rows.m0 : rows.m1) + logf(r == 0 ? lc0 : lc1);
-  }
-}
-
 template <int D, bool kDropout>
 cudaError_t launch(const CUtensorMap (&m)[3], const Params& p,
                    cudaStream_t stream) {
   static unsigned smem_set = 0;
-  if constexpr (D == 256) {
-    auto kernel = flash_fwd_f32_sm90_d256_kernel<kDropout>;
-    cudaError_t err = allow_smem(kernel, FwdLayout<D>::kBytes, smem_set);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(p.H, p.B, (p.Lq + 63) / 64);
-    kernel<<<grid, kThreads256, FwdLayout<D>::kBytes, stream>>>(m[0], m[1],
-                                                                 m[2], p);
-    return cudaGetLastError();
-  } else {
-    return launch_fwd(flash_fwd_f32_sm90_kernel<D, kDropout>,
-                      FwdLayout<D>::kBytes, smem_set, m, p, stream);
-  }
+  return launch_fwd(flash_fwd_f32_sm90_kernel<D, kDropout>,
+                    FwdLayout<D>::kBytes, smem_set, m, p, stream);
 }
 
 // ------------------------------------------------------------ self-check
