@@ -209,8 +209,14 @@ def check_close(name, got, ref, limit) -> dict:
     return {"max_abs_err": err, "err_share_of_tol": share}
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``elapsed_s`` is the host time since the script
+    started (to budget its time limit)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - _START}), flush=True)
 
 
 def nvidia_smi_line() -> str:

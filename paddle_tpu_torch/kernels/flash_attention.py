@@ -679,14 +679,12 @@ def _launch_fwd_sm90(route: str, q, k, v, causal: bool, bias, out,
 
 
 def _launch_fwd(q, k, v, causal: bool, bias, out, dropout_p, seed):
-    """Launch the forward kernel of :func:`kernel_route` and count it."""
+    """Launch the forward kernel of :func:`kernel_route` (a tensor-core
+    one at every head dim; an input no route takes raises in
+    :func:`_check_shapes`) and count it."""
     route = kernel_route(q.dtype, q.shape[-1], "fwd")
-    if route == "fma":
-        out, lse = _launch_fwd_fma(q, k, v, causal, bias, out, dropout_p,
-                                   seed)
-    else:
-        out, lse = _launch_fwd_sm90(route, q, k, v, causal, bias, out,
-                                    dropout_p, seed)
+    out, lse = _launch_fwd_sm90(route, q, k, v, causal, bias, out, dropout_p,
+                                seed)
     flash_attention_fwd.launches += 1
     flash_attention_fwd.routes[route] += 1
     return out, lse
