@@ -106,7 +106,7 @@ __device__ __forceinline__ void store_rows(Out* base, long long row_stride,
 // ------------------------------------------------------------ dQ view
 // A consumer thread of a dQ kernel: query rows qi0 and qi1 (accumulator rows
 // g and g + 8 of its warp's 16), their LSE, Delta and bias rows. Element
-// 4 j + e of a tile of keys k0 .. k0 + 2 M - 1, M elements a thread (32 for
+// 4 j + e of a tile of keys k0 .. k0 + 2 E - 1, E elements a thread (32 for
 // a tile of 64 keys, 16 for one of 32), is (qi0 if e < 2 else qi1,
 // k0 + 8 j + 2 t + e % 2).
 struct DqRows {
@@ -138,13 +138,13 @@ struct DqRows {
     dsb = p.ds == nullptr ? nullptr : p.ds + row_base * p.Lk;
   }
 
-  // The dropout keep bits of the thread's M elements (one register).
-  template <int M = 32, typename Out>
+  // The dropout keep bits of the thread's E elements (one register).
+  template <int E = 32, typename Out>
   __device__ __forceinline__ uint32_t keep_bits(const BwdParams<Out>& p,
                                                 int b, int h, int k0) const {
     uint32_t keep = 0xffffffffu;
 #pragma unroll
-    for (int e = 0; e < M; ++e) {
+    for (int e = 0; e < E; ++e) {
       const int qi = (e & 3) < 2 ? qi0 : qi1;
       const int kj = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
       if (qi < p.Lq && kj < p.Lk &&
@@ -158,14 +158,14 @@ struct DqRows {
   // diagonal tile and the ragged last tile take the mask tests (uniform over
   // the CTA). Rows past Lq need none: a row of dS reaches only its own row
   // of dQ, and neither is stored for them.
-  template <int M, typename Out>
+  template <int E, typename Out>
   __device__ __forceinline__ void probabilities(const BwdParams<Out>& p,
-                                                float (&x)[M], int q0,
+                                                float (&x)[E], int q0,
                                                 int k0) const {
-    const bool edge = k0 + 2 * M > p.Lk || (p.causal && k0 + 2 * M - 1 > q0);
+    const bool edge = k0 + 2 * E > p.Lk || (p.causal && k0 + 2 * E - 1 > q0);
     if (edge) {
 #pragma unroll
-      for (int j = 0; j < M / 4; ++j)
+      for (int j = 0; j < E / 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = e < 2 ? qi0 : qi1;
@@ -180,7 +180,7 @@ struct DqRows {
         }
     } else {
 #pragma unroll
-      for (int j = 0; j < M / 4; ++j)
+      for (int j = 0; j < E / 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kj = k0 + 8 * j + 2 * t + (e & 1);
@@ -193,12 +193,12 @@ struct DqRows {
 
   // dS = P (dP M - Delta), in place of dP; M from the keep bits, each kept
   // element times `kept`.
-  template <int M>
-  __device__ __forceinline__ void grad_scores(const float (&pr)[M],
-                                              float (&dp)[M], uint32_t keep,
+  template <int E>
+  __device__ __forceinline__ void grad_scores(const float (&pr)[E],
+                                              float (&dp)[E], uint32_t keep,
                                               float kept) const {
 #pragma unroll
-    for (int j = 0; j < M / 4; ++j)
+    for (int j = 0; j < E / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = 4 * j + e;
@@ -207,10 +207,10 @@ struct DqRows {
       }
   }
 
-  // The float32 dS of the tile at keys k0 .. k0 + 2 M - 1, masked at the
+  // The float32 dS of the tile at keys k0 .. k0 + 2 E - 1, masked at the
   // edges.
-  template <int M>
-  __device__ __forceinline__ void store_ds(const float (&ds)[M], int k0,
+  template <int E>
+  __device__ __forceinline__ void store_ds(const float (&ds)[E], int k0,
                                            int Lq, int Lk) const {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -218,7 +218,7 @@ struct DqRows {
       if (qi >= Lq) continue;
       float* row = dsb + (long long)qi * Lk;
 #pragma unroll
-      for (int j = 0; j < M / 4; ++j) {
+      for (int j = 0; j < E / 4; ++j) {
         const int c = k0 + 8 * j + 2 * t;
         const float x0 = ds[4 * j + 2 * r], x1 = ds[4 * j + 2 * r + 1];
         if ((Lk & 1) == 0) {

@@ -450,12 +450,11 @@ def wgmma_selfcheck(D: int, device, generator=None,
 
     bf16 runs ``pt_sm90_selfcheck`` (``csrc/sm90.cuh``; D 64, 128 or 256):
     one bf16 product of each form. float32 (the same head dims) runs
-    ``pt_sm90_selfcheck_f32``
-    (``csrc/flash_attention_fwd_f32_sm90.cu``): a and b split by
-    :func:`split_bf16_terms`, b's terms loaded by TMA, and the six term
-    pairs of each product through the term-pair products every float32
-    kernel uses (``csrc/sm90.cuh``; a's register fragments split in
-    registers for ``c2``)."""
+    ``pt_sm90_selfcheck_f32`` (``csrc/flash_attention_fwd_f32_sm90.cu``):
+    a and b split by :func:`split_bf16_terms`, b's terms loaded by TMA,
+    and the six term pairs of each product through the term-pair products
+    every float32 kernel uses (``csrc/sm90.cuh``; a's register fragments
+    split in registers for ``c2``)."""
     a, b = (torch.randn(64, D, generator=generator, device=device).to(dtype)
             for _ in range(2))
     c1 = torch.empty(64, 64, device=device)
