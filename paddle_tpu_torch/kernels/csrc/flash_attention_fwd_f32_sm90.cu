@@ -336,164 +336,12 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   rows.store<D>(p, c, o);
 }
 
-// D = 256, candidate (c): Q's terms streamed through the ring beside K's
-// and V's (Q0 Q1 Q2 K0 K1 K2 V0 V1 V2 per key tile), which frees the 96 KB
-// Q held for a ring of seven entries.
-struct RingLayout256 {
-  static constexpr uint32_t kTile = 64 * 256 * 2;
-  static constexpr int kRing = 7, kLoads = 9;
-  __host__ __device__ static constexpr uint32_t slot(int s) {
-    return kTile * s;
-  }
-  static constexpr uint32_t bars = kTile * kRing;
-  __host__ __device__ static constexpr uint32_t full(int s) {
-    return bars + 8 * s;
-  }
-  __host__ __device__ static constexpr uint32_t empty(int s) {
-    return bars + 8 * (kRing + s);
-  }
-  static constexpr uint32_t kUsed = bars + 8 * 2 * kRing;
-  static constexpr size_t kBytes = kUsed + 896;
-};
-
-template <bool kDropout>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_f32_sm90_d256c_kernel(const __grid_constant__ CUtensorMap map_q,
-                                const __grid_constant__ CUtensorMap map_k,
-                                const __grid_constant__ CUtensorMap map_v,
-                                const Params p) {
-  constexpr int D = 256;
-  using L = RingLayout256;
-  constexpr int kRing = L::kRing, kLoads = L::kLoads;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  if (base + L::kUsed > smem_u32(smem_raw) + L::kBytes) __trap();
-
-  const FwdTile c = fwd_tile(p.Lk, p.causal);
-  const int tid = threadIdx.x;
-
-  if (tid == 0) {
-    for (int s = 0; s < kRing; ++s) {
-      mbar_init(base + L::full(s), 1);
-      mbar_init(base + L::empty(s), kConsumers);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (tid >= kConsumers) {
-    if (tid == kConsumers) {
-      for (int n = 0; n < c.n_kt * kLoads; ++n) {
-        const int s = n % kRing;
-        const int idx = n % kLoads;  // Q0 Q1 Q2 K0 K1 K2 V0 V1 V2
-        const int term = idx % kSplit;
-        mbar_wait(base + L::empty(s), ((n / kRing) & 1) ^ 1);
-        mbar_arrive_expect_tx(base + L::full(s), L::kTile);
-        if (idx < kSplit)
-          tma_load_tile<D>(base + L::slot(s), &map_q, base + L::full(s), c.q0,
-                           c.h, term * p.B + c.b, p.pos_q);
-        else
-          tma_load_tile<D>(base + L::slot(s), idx < 2 * kSplit ? &map_k : &map_v,
-                           base + L::full(s), (n / kLoads) * 64, c.h,
-                           term * p.B + c.b,
-                           idx < 2 * kSplit ? p.pos_k : p.pos_v);
-      }
-    }
-    return;
-  }
-
-  FwdRows rows(p, c, tid);
-  float o[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-
-  float sc[32];
-  float alpha0, alpha1;
-  for (int i = 0; i < c.n_kt; ++i) {
-    const int n0 = i * kLoads;
-#pragma unroll
-    for (int a = 0; a < kSplit; ++a)
-      mbar_wait(base + L::full((n0 + a) % kRing), ((n0 + a) / kRing) & 1);
-#pragma unroll
-    for (int j = 0; j < kSplit; ++j) {
-      const int n = n0 + kSplit + j;
-      uint32_t tk = base + L::slot(n % kRing);
-      uint32_t tq[kSplit];
-#pragma unroll
-      for (int a = 0; a < kSplit; ++a) {
-        tq[a] = base + L::slot((n0 + a) % kRing);
-        asm volatile("" : "+r"(tq[a]));
-      }
-      asm volatile("" : "+r"(tk));
-      mbar_wait(base + L::full(n % kRing), (n / kRing) & 1);
-      __syncwarp();
-      fence_operand(sc);
-      wgmma_fence();
-#pragma unroll
-      for (int a = 0; a + j < kSplit; ++a)
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n64(sc, kmajor_desc(tq[a], kk), kmajor_desc(tk, kk),
-                       !(j == 0 && a == 0 && kk == 0));
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_operand(sc);
-      mbar_arrive(base + L::empty(n % kRing));
-    }
-#pragma unroll
-    for (int a = 0; a < kSplit; ++a)
-      mbar_arrive(base + L::empty((n0 + a) % kRing));
-    rows.softmax<kDropout>(p, c, sc, i * 64, alpha0, alpha1);
-    rescale<D>(o, alpha0, alpha1);
-    // ---- O += sum of P_a V_j, P split per slice
-    uint32_t tv[kSplit];
-#pragma unroll
-    for (int j = 0; j < kSplit; ++j) {
-      const int n = n0 + 2 * kSplit + j;
-      tv[j] = base + L::slot(n % kRing);
-      asm volatile("" : "+r"(tv[j]));
-      mbar_wait(base + L::full(n % kRing), (n / kRing) & 1);
-    }
-    __syncwarp();
-    uint32_t f[2][kSplit][4];
-    fence_operand(o);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      split_slice([&](int e) { return sc[e]; }, kk, f[kk & 1]);
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < kSplit; ++j) {
-        const uint64_t desc = mnmajor_desc(tv[j], kk);
-#pragma unroll
-        for (int a = 0; a + j < kSplit; ++a)
-          wgmma_rs_n256_tb(o, f[kk & 1][a], desc, 1);
-      }
-      wgmma_commit();
-      if (kk > 0) {
-        wgmma_wait_pending<1>();
-        fence_fragments(f[(kk - 1) & 1]);
-      }
-    }
-    wgmma_wait_all();
-    fence_fragments(f[1]);
-    fence_operand(o);
-#pragma unroll
-    for (int j = 0; j < kSplit; ++j)
-      mbar_arrive(base + L::empty((n0 + 2 * kSplit + j) % kRing));
-  }
-  rows.store<D>(p, c, o);
-}
-
 template <int D, bool kDropout>
 cudaError_t launch(const CUtensorMap (&m)[3], const Params& p,
                    cudaStream_t stream) {
   static unsigned smem_set = 0;
-  if constexpr (D == 256)
-    return launch_fwd(flash_fwd_f32_sm90_d256c_kernel<kDropout>,
-                      RingLayout256::kBytes, smem_set, m, p, stream);
-  else
-    return launch_fwd(flash_fwd_f32_sm90_kernel<D, kDropout>,
-                      FwdLayout<D>::kBytes, smem_set, m, p, stream);
+  return launch_fwd(flash_fwd_f32_sm90_kernel<D, kDropout>,
+                    FwdLayout<D>::kBytes, smem_set, m, p, stream);
 }
 
 // ------------------------------------------------------------ self-check
