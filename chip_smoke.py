@@ -9,7 +9,7 @@ exits non-zero:
 1. device    - the card (nvidia-smi name and power limit), torch and CUDA.
 2. build     - compiles every CUDA source of the port from this checkout
                (nvcc, one library per source, all started together), fails
-               on a register spill in the five wgmma sources, and holds the
+               on a register spill in the six wgmma sources, and holds the
                wgmma/TMA self-check (a 64 x 64 x D product through each
                descriptor form, in bf16 and through the float32 forward's
                three-term products, at D = 64, 128 and 256) against a
@@ -24,17 +24,18 @@ exits non-zero:
                the FMA forward timed beside the tensor-core ones at
                D = 256, also at the D = 256 step's [2,8,1024,256] and at
                the D = 256 prefill's [1,8,2048,256]), the dQ and dK/dV
-               backward kernels (wgmma for bf16 at D = 64, 128 and 256 and
-               wgmma_f32 for float32 at D = 64 and 128; FMA for float32 at
-               D = 256; each case checked for the route of each kernel; dS
-               as the bias gradient, also causal with zeros above the
-               diagonal; every tensor-core kernel replayed bit for bit; the
-               whole backward wrapper, with Delta and the split pre-pass,
-               timed beside SDPA's; the FMA dQ and dK/dV, which the
-               tensor-core ones replace, timed beside them at
-               [2,16,1024,128] and [2,16,1024,64] float32 and at
-               [1,8,1024,256], [2,16,1024,256] and the D = 256 step's
-               [2,8,1024,256] bf16), and dropout (the
+               backward kernels (wgmma for bf16 and wgmma_f32 for float32,
+               each at D = 64, 128 and 256; each case checked for the
+               route of each kernel; dS as the bias gradient, also causal
+               with zeros above the diagonal; every kernel replayed bit
+               for bit; the whole backward wrapper, with Delta and the
+               split pre-pass, timed beside SDPA's; the FMA dQ and dK/dV,
+               on no route, timed beside the tensor-core ones at
+               [2,16,1024,128] and [2,16,1024,64] float32, at
+               [1,8,1024,256] and the float32 D = 256 run's [2,8,1024,256]
+               float32 (at these four also held to the float32
+               tolerance), and at [1,8,1024,256], [2,16,1024,256] and the
+               D = 256 step's [2,8,1024,256] bf16), and dropout (the
                CUDA Philox mask against the plain one bit for bit, its keep
                rate, replay of a fixed seed, and forward and backward at
                p = 0.1 given the same mask, also at bf16 D = 256 at its
@@ -71,8 +72,13 @@ exits non-zero:
                reference; one step with the kernels (exactly 4 wgmma
                forward, 2 wgmma dQ and 2 wgmma dK/dV launches, none on an
                FMA kernel) and one with plain attention, the losses equal
-               within two bf16 ulps. Then gpt_1p3b width with 8 heads of
-               256 and 2 layers behind InferenceServer(slots=2,
+               within two bf16 ulps. Then the float32 check of phase 5 at
+               that width and depth (d256_f32: exactly 4 wgmma_f32
+               forward, 2 dQ and 2 dK/dV launches and 8 of the split, none
+               on an FMA kernel; its attention shape [2,8,1024,256]
+               float32 is also a case of the backward phase). Then
+               gpt_1p3b width with 8 heads of 256 and 2 layers behind
+               InferenceServer(slots=2,
                max_length=2048) serves two greedy prompts of 900 and 1900
                tokens: the checks of phase 4, with the wgmma_f32 forward
                at D = 256 (exactly one launch and one split per layer per
@@ -145,6 +151,10 @@ TRAIN_WARMUP, TRAIN_TIMED = 5, 8
 D256_STEP_HEADS = 8
 D256_STEP_FWD = f"d256_step_bf16_B{TRAIN_BATCH}_H{D256_STEP_HEADS}_L{TRAIN_SEQ}"
 D256_STEP_BWD = f"d256_step_bfloat16_B{TRAIN_BATCH}_H{D256_STEP_HEADS}_L{TRAIN_SEQ}"
+# the float32 D = 256 run (phase_d256_f32): the D = 256 step's
+# configuration in float32; its attention, [TRAIN_BATCH, 8, TRAIN_SEQ, 256]
+# float32 causal, is also a case of the backward phase
+D256_F32_BWD = f"d256_f32_float32_B{TRAIN_BATCH}_H{D256_STEP_HEADS}_L{TRAIN_SEQ}"
 # the D = 256 prefill (phase_d256_prefill): its longest prompt's bucket,
 # [1, 8, 2048, 256] float32 causal, is a case of the forward phase
 D256_PREFILL_LENGTHS = (900, 1900)
@@ -399,7 +409,8 @@ def phase_build(seed: int, fail_on_spill: bool = True) -> None:
          ptxas=ptxas)
     spills = [(s, k) for s in (fa._FWD_SM90_SOURCE, fa._FWD_F32_SM90_SOURCE,
                                fa._DQ_SM90_SOURCE, fa._DKV_SM90_SOURCE,
-                               fa._BWD_F32_SM90_SOURCE)
+                               fa._BWD_F32_SM90_SOURCE,
+                               fa._BWD_F32_D256_SM90_SOURCE)
               for k in ptxas[s] if k["spill_stores"] or k["spill_loads"]]
     if spills and fail_on_spill:
         raise AssertionError(f"register spills in the wgmma kernels: {spills}")
@@ -636,33 +647,37 @@ def _bwd_cases(g):
         do = rn(2, 1024, 16, 128).to(dtype).transpose(1, 2)
         cases.append((f"train_{_dtype_name(q)}_B2_L1024", q, k, v, do, True,
                       None, _both(route)))
-    for dtype, D, route in ((torch.float32, 128, "wgmma_f32"),
-                            (torch.bfloat16, 64, "wgmma")):
-        q, k, v = (rn(1, 16, n, D).to(dtype) for n in (384, 640, 640))
+    for dtype, D, H, route in ((torch.float32, 128, 16, "wgmma_f32"),
+                               (torch.bfloat16, 64, 16, "wgmma"),
+                               (torch.float32, 256, 8, "wgmma_f32")):
+        q, k, v = (rn(1, H, n, D).to(dtype) for n in (384, 640, 640))
         cases.append((f"bias_noncausal_{_dtype_name(q)}_d{D}_Lq384_Lk640", q,
-                      k, v, rn(1, 16, 384, D).to(dtype), False,
-                      rn(1, 16, 384, 640), _both(route)))
+                      k, v, rn(1, H, 384, D).to(dtype), False,
+                      rn(1, H, 384, 640), _both(route)))
     # a trained bias under the causal mask: dS of the key tiles no row of a
-    # query tile sees must come back as zeros (also at bf16 D = 256, where
-    # two warpgroups share the zeroing)
+    # query tile sees must come back as zeros (also at D = 256: bf16, where
+    # two warpgroups share the zeroing, and float32)
     for dtype, D, H, route in ((torch.bfloat16, 128, 16, "wgmma"),
                                (torch.float32, 128, 16, "wgmma_f32"),
-                               (torch.bfloat16, 256, 8, "wgmma")):
+                               (torch.bfloat16, 256, 8, "wgmma"),
+                               (torch.float32, 256, 8, "wgmma_f32")):
         q, k, v, do = (rn(1, H, 1024, D).to(dtype) for _ in range(4))
         d256 = "_d256" if D == 256 else ""
         cases.append((f"causal_bias_{_dtype_name(q)}{d256}_L1024", q, k, v,
                       do, True, rn(1, H, 1024, 1024), _both(route)))
-    for dtype, route in ((torch.float32, "wgmma_f32"),
-                         (torch.bfloat16, "wgmma")):
-        q, k, v = _views(g, 1, 1500, 16, 128, dtype)
-        cases.append((f"ragged_causal_{_dtype_name(q)}_L1500", q, k, v,
-                      rn(1, 1500, 16, 128).to(dtype).transpose(1, 2), True,
+    for dtype, D, H, route in ((torch.float32, 128, 16, "wgmma_f32"),
+                               (torch.bfloat16, 128, 16, "wgmma"),
+                               (torch.float32, 256, 8, "wgmma_f32")):
+        q, k, v = _views(g, 1, 1500, H, D, dtype)
+        d256 = "_d256" if D == 256 else ""
+        cases.append((f"ragged_causal_{_dtype_name(q)}{d256}_L1500", q, k, v,
+                      rn(1, 1500, H, D).to(dtype).transpose(1, 2), True,
                       None, _both(route)))
     # D = 64 at the training batch and at bench_gpt_primary's batch of 8,
     # and D = 256
     for dtype, D, B, H, routes in (
             (torch.float32, 64, 2, 16, _both("wgmma_f32")),
-            (torch.float32, 256, 1, 8, _both("fma")),
+            (torch.float32, 256, 1, 8, _both("wgmma_f32")),
             (torch.bfloat16, 64, 2, 16, _both("wgmma")),
             (torch.bfloat16, 64, 8, 16, _both("wgmma")),
             (torch.bfloat16, 256, 1, 8, _both("wgmma")),
@@ -670,39 +685,47 @@ def _bwd_cases(g):
         q, k, v, do = (rn(B, H, 1024, D).to(dtype) for _ in range(4))
         cases.append((f"d{D}_causal_{_dtype_name(q)}_B{B}_L1024", q, k, v, do,
                       True, None, routes))
-    # the D = 256 step's attention, as its autograd hands it over
-    q, k, v = _views(g, TRAIN_BATCH, TRAIN_SEQ, D256_STEP_HEADS, 256,
-                     torch.bfloat16)
-    do = rn(TRAIN_BATCH, TRAIN_SEQ, D256_STEP_HEADS, 256).to(
-        torch.bfloat16).transpose(1, 2)
-    cases.append((D256_STEP_BWD, q, k, v, do, True, None, _both("wgmma")))
+    # the attention of the D = 256 step (bf16) and of the float32 D = 256
+    # run, as their autograd hands it over
+    for name, dtype, route in ((D256_STEP_BWD, torch.bfloat16, "wgmma"),
+                               (D256_F32_BWD, torch.float32, "wgmma_f32")):
+        q, k, v = _views(g, TRAIN_BATCH, TRAIN_SEQ, D256_STEP_HEADS, 256,
+                         dtype)
+        do = rn(TRAIN_BATCH, TRAIN_SEQ, D256_STEP_HEADS, 256).to(
+            dtype).transpose(1, 2)
+        cases.append((name, q, k, v, do, True, None, _both(route)))
     return cases
 
 
 # the cases at which the FMA dQ and dK/dV kernels, which the tensor-core ones
-# replace (the wgmma_f32 pair at float32 D = 64 and 128, the wgmma pair at
-# bf16 D = 256), are timed beside them
+# replace (the wgmma_f32 pair at float32 D = 64, 128 and 256, the wgmma pair
+# at bf16 D = 256), are timed beside them; at the float32 ones they are also
+# held to the backward's tolerance
 FMA_COMPARED = ("train_float32_B2_L1024", "d64_causal_float32_B2_L1024",
+                "d256_causal_float32_B1_L1024", D256_F32_BWD,
                 "d256_causal_bfloat16_B1_L1024",
                 "d256_causal_bfloat16_B2_L1024", D256_STEP_BWD)
 
 
 def _fma_bwd_fns(fa, q, k, v, bias, do, lse, delta, causal, emit_ds):
     """The FMA dQ and dK/dV kernels on the same inputs, launched directly
-    (the route sends float32 at D = 64 and 128, and bf16 at D = 256,
-    elsewhere): timing only."""
+    (no route takes them); ``{"dq_fma", "dkv_fma"}``, each returning its
+    gradients."""
     import torch
 
     def dq_fma():
         ds = (torch.empty(*q.shape[:3], k.shape[2], device=q.device)
               if emit_ds else None)
-        fa._launch_bwd("dq", q, k, v, bias, do, lse, delta,
-                       {"dq": fa._empty_like_rows(q)}, ds, causal, 0.0, 0)
+        dq = fa._empty_like_rows(q)
+        fa._launch_bwd("dq", q, k, v, bias, do, lse, delta, {"dq": dq}, ds,
+                       causal, 0.0, 0)
+        return {"dq": dq}
 
     def dkv_fma():
+        dk, dv = fa._empty_like_rows(k), fa._empty_like_rows(v)
         fa._launch_bwd("dkv", q, k, v, bias, do, lse, delta,
-                       {"dk": fa._empty_like_rows(k),
-                        "dv": fa._empty_like_rows(v)}, None, causal, 0.0, 0)
+                       {"dk": dk, "dv": dv}, None, causal, 0.0, 0)
+        return {"dk": dk, "dv": dv}
 
     return {"dq_fma": dq_fma, "dkv_fma": dkv_fma}
 
@@ -772,9 +795,17 @@ def phase_backward(seed: int) -> dict:
                "sdpa_fwd": sdpa_fwd, "sdpa_fwd_bwd": sdpa_fwd_bwd}
         if terms is not None:
             fns["split"] = lambda: fa._backward_terms(q, k, v, do_k)
+        fma_errs = {}
         if name in FMA_COMPARED:
             fns.update(_fma_bwd_fns(fa, q, k, v, bias, do_k, lse, delta,
                                     causal, emit_ds))
+            if q.dtype == torch.float32:
+                # on no route: held to the float32 tolerance here
+                fma_out = {**fns["dq_fma"](), **fns["dkv_fma"]()}
+                torch.cuda.synchronize()
+                fma_errs = {key: check_close(f"{name} fma {key}", x,
+                                             refs[key], bwd_tolerance(refs[key]))
+                            for key, x in fma_out.items()}
         t = timed_in_turns(fns)
         plain_ms = cuda_ms(lambda: fa.reference_attention_bwd(
             q, k, v, bias, o, lse, do, causal), iters=5)
@@ -791,6 +822,18 @@ def phase_backward(seed: int) -> dict:
             "dkv", *common, 0, tensor_cores=routes["dkv"] != "fma",
             term_pairs=6 if routes["dkv"] == "wgmma_f32" else 1)
         dq_ms, dkv_ms = t["dq"]["median"], t["dkv"]["median"]
+        fma = {}
+        for w in ("dq", "dkv"):
+            if f"{w}_fma" not in t:
+                continue
+            bound, by = bwd_bound_ms(
+                w, *common, B * H * Lq * Lk * 4 if emit_ds and w == "dq"
+                else 0, tensor_cores=False)
+            fma.update({f"{w}_fma_ms": t[f"{w}_fma"]["median"],
+                        f"{w}_fma_ms_range": [t[f"{w}_fma"]["min"],
+                                              t[f"{w}_fma"]["max"]],
+                        f"{w}_fma_bound_ms": bound,
+                        f"{w}_fma_bound_by": by})
         results[name] = dict(
             shape=[B, H, Lq, Lk, D], dtype=_dtype_name(q), causal=causal,
             bias=bias is not None, routes=routes, errors=errs,
@@ -802,8 +845,7 @@ def phase_backward(seed: int) -> dict:
             bwd_ms=t["bwd"]["median"],
             bwd_ms_range=[t["bwd"]["min"], t["bwd"]["max"]],
             split_ms=t["split"]["median"] if "split" in t else None,
-            **{f"{w}_fma_ms": t[f"{w}_fma"]["median"] for w in ("dq", "dkv")
-               if f"{w}_fma" in t},
+            **fma, fma_errors=fma_errs or None,
             dq_bound_ms=dq_bound, dq_bound_by=dq_by,
             dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
             plain_ms=plain_ms, library_ms=library_ms,
@@ -1222,13 +1264,32 @@ def phase_training(seed: int) -> dict:
 def phase_train_parity(seed: int) -> dict:
     """One float32 forward and backward of the training configuration,
     with the flash kernels and with plain attention, no update."""
+    return _float32_parity(seed, "train_parity")
+
+
+def phase_d256_f32(seed: int) -> dict:
+    """phase_train_parity at gpt_1p3b width with 8 heads of 256 (D = 256),
+    cut to 2 layers: the float32 forward and backward through the
+    wgmma_f32 kernels at D = 256 against plain attention."""
+    return _float32_parity(seed, "d256_f32", num_layers=2,
+                           num_heads=D256_STEP_HEADS)
+
+
+def _float32_parity(seed: int, phase: str, **overrides) -> dict:
+    """One float32 forward and backward (no ``amp.decorate``, no update) of
+    the training configuration with ``overrides``, with the flash kernels
+    and with plain attention: the loss within TRAIN_LOSS_RTOL and every
+    parameter's gradient within TRAIN_GRAD_REL_L2 (relative L2), and the
+    kernel run's launches exactly 2 wgmma_f32 forwards (recompute
+    included), one dQ and one dK/dV per layer and 4 of the split, no FMA
+    kernel."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.models.gpt import GPTForCausalLM
 
-    cfg = _train_config()
+    cfg = _train_config(**overrides)
     model = GPTForCausalLM(cfg, device="cuda", generator=torch.Generator(
         device="cuda").manual_seed(seed)).train()
     params = list(model.parameters())
@@ -1245,9 +1306,8 @@ def phase_train_parity(seed: int) -> dict:
     launches, split_launches = _counts(fa), fa.split_bf16_terms.launches
     loss_p, grads_p = run(False)
     model.cfg.use_flash_attention = True
-    # float32 at D = 128: the wgmma_f32 forward (and its recompute), dQ and
-    # dK/dV; the split once per forward and twice per backward (q, k, v;
-    # dO)
+    # float32: the wgmma_f32 forward (and its recompute), dQ and dK/dV; the
+    # split once per forward and twice per backward (q, k, v; dO)
     n = cfg.num_layers
     if launches != (0, 0, 2 * n, 0, 0, n, 0, 0, n) or split_launches != 4 * n:
         raise AssertionError(f"float32 kernel run launched "
@@ -1261,12 +1321,13 @@ def phase_train_parity(seed: int) -> dict:
         raise AssertionError(f"float32 training, kernels vs plain: loss "
                              f"{loss_k} vs {loss_p}, worst grad rel L2 {worst}")
     names = [n for n, _ in model.named_parameters()]
-    out = dict(dtype="float32", loss_kernel=loss_k, loss_plain=loss_p,
+    out = dict(dtype="float32", layers=n, head_dim=cfg.hidden_size // cfg.num_heads,
+               loss_kernel=loss_k, loss_plain=loss_p,
                grad_rel_l2_max=worst, grad_rel_l2_worst_param=names[rel.index(worst)],
                tol=dict(loss_rtol=TRAIN_LOSS_RTOL, grad_rel_l2=TRAIN_GRAD_REL_L2),
                launches=dict(zip(_COUNT_NAMES, launches)),
                split_launches=split_launches)
-    emit("train_parity", **out)
+    emit(phase, **out)
     return out
 
 
@@ -1430,6 +1491,8 @@ def main(argv=None) -> int:
     _free()
     d256 = phase_d256_step(args.seed)
     _free()
+    d256_f32 = phase_d256_f32(args.seed)
+    _free()
     d256_prefill = phase_d256_prefill(args.seed)
 
     src = "paddle_tpu_torch/kernels/csrc/"
@@ -1448,16 +1511,18 @@ def main(argv=None) -> int:
                     shape=c["shape"], dtype=c.get("dtype", "float32"),
                     causal=c.get("causal"))
 
-    def bwd_row(name, source, which, case, launches, path):
+    def bwd_row(name, source, which, case, launches, path, fma=False):
         c = bwd[case]
         keys = ("dq",) if which == "dq" else ("dk", "dv")
+        errs = c["fma_errors"] if fma else c["errors"]
+        f = f"{which}_fma" if fma else which  # the FMA kernel timed beside
         return dict(name=name, route="cuda", source=src + source,
                     replaces=ref + ("198" if which == "dq" else "269"),
                     launches=launches, main_path=path,
-                    max_abs_err=max(c["errors"][k]["max_abs_err"] for k in keys),
-                    ms=c[f"{which}_ms"], ms_range=c[f"{which}_ms_range"],
-                    plain_ms=c["plain_ms"], bound_ms=c[f"{which}_bound_ms"],
-                    bound_by=c[f"{which}_bound_by"],
+                    max_abs_err=max(errs[k]["max_abs_err"] for k in keys),
+                    ms=c[f"{f}_ms"], ms_range=c[f"{f}_ms_range"],
+                    plain_ms=c["plain_ms"], bound_ms=c[f"{f}_bound_ms"],
+                    bound_by=c[f"{f}_bound_by"],
                     library_ms=c["library_ms"], shape=c["shape"],
                     dtype=c["dtype"], causal=c["causal"])
 
@@ -1466,6 +1531,7 @@ def main(argv=None) -> int:
     prefill = "serving (float32 prefill)"
     d256_step = "training (bf16 O2 step, D = 256, 2 layers)"
     d256_prefill_path = "serving (float32 prefill, D = 256, 2 layers)"
+    d256_f32_path = "training (float32 parity run, D = 256, 2 layers)"
     d256_counts = d256["launches"]
     kernels = [
         fwd_row("flash_attention_fwd_f32_sm90",
@@ -1485,10 +1551,11 @@ def main(argv=None) -> int:
                 "train_bf16_B2_L1024", train["launches"]["fwd_wgmma"], step),
         fwd_row("flash_attention_fwd_sm90_d256", "flash_attention_fwd_sm90.cu",
                 D256_STEP_FWD, d256_counts["fwd_wgmma"], d256_step),
-        # no path runs a float32 backward at D = 256 since float32 training
-        # moved to wgmma_f32: 0 launches there, timed at its own case
+        # no route takes the FMA dQ and dK/dV since every head dim runs on
+        # the tensor cores: 0 launches on a path, checked and timed beside
+        # the wgmma_f32 pair at [1, 8, 1024, 256]
         bwd_row("flash_attention_bwd_dq", "flash_attention_bwd.cu", "dq",
-                "d256_causal_float32_B1_L1024", 0, None),
+                "d256_causal_float32_B1_L1024", 0, None, fma=True),
         bwd_row("flash_attention_bwd_dq_bf16_d256",
                 "flash_attention_bwd_dq_sm90.cu", "dq", D256_STEP_BWD,
                 d256_counts["dq_wgmma"], d256_step),
@@ -1501,7 +1568,7 @@ def main(argv=None) -> int:
                 "train_float32_B2_L1024", parity["launches"]["dq_wgmma_f32"],
                 f32_step),
         bwd_row("flash_attention_bwd_dkv", "flash_attention_bwd.cu", "dkv",
-                "d256_causal_float32_B1_L1024", 0, None),
+                "d256_causal_float32_B1_L1024", 0, None, fma=True),
         bwd_row("flash_attention_bwd_dkv_sm90",
                 "flash_attention_bwd_dkv_sm90.cu", "dkv",
                 "train_bfloat16_B2_L1024", train["launches"]["dkv_wgmma"],
@@ -1513,6 +1580,12 @@ def main(argv=None) -> int:
                 "flash_attention_bwd_f32_sm90.cu", "dkv",
                 "train_float32_B2_L1024", parity["launches"]["dkv_wgmma_f32"],
                 f32_step),
+        bwd_row("flash_attention_bwd_dq_f32_sm90_d256",
+                "flash_attention_bwd_f32_d256_sm90.cu", "dq", D256_F32_BWD,
+                d256_f32["launches"]["dq_wgmma_f32"], d256_f32_path),
+        bwd_row("flash_attention_bwd_dkv_f32_sm90_d256",
+                "flash_attention_bwd_f32_d256_sm90.cu", "dkv", D256_F32_BWD,
+                d256_f32["launches"]["dkv_wgmma_f32"], d256_f32_path),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -23,11 +23,11 @@
 // (K Q^T, V dO^T, P^T dO, dS^T Q): 6D and 8D FLOP, against a few bytes per
 // row of HBM traffic, so both are bound by operations (the dS output, when
 // asked for, adds 4 bytes per pair). They run on the CUDA cores in FMA,
-// like the forward kernel. Only float32 at D = 256 is routed here: bf16
-// takes flash_attention_bwd_{dq,dkv}_sm90.cu at every head dim, and float32
-// at D = 64 and 128 flash_attention_bwd_f32_sm90.cu, on the tensor cores.
-// The other instantiations stay as the yardstick chip_smoke.py times those
-// kernels against.
+// like the forward kernel. No route takes them any longer: bf16 takes
+// flash_attention_bwd_{dq,dkv}_sm90.cu at every head dim, float32
+// flash_attention_bwd_f32_sm90.cu (D 64/128) and
+// flash_attention_bwd_f32_d256_sm90.cu (D = 256), on the tensor cores.
+// They stay as the yardstick chip_smoke.py times those kernels against.
 //
 // Design:
 // - dQ: one 256-thread block per (b, h, 64-row query tile), looping over

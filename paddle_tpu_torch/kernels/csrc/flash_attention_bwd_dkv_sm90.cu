@@ -4,9 +4,9 @@
 // Replaces: paddle_tpu/kernels/flash_attention.py `_bwd_dkv_kernel` (:269,
 // pallas_call at :513 in `_flash_bwd_impl`, :411), for bf16 q/k/v/dO at
 // head dims 64, 128 and 256. float32 inputs take
-// flash_attention_bwd_f32_sm90.cu (D 64/128) or the FMA kernel of
-// flash_attention_bwd.cu (D = 256); the Python wrapper routes by (dtype, D,
-// kernel). The score-tile code is shared with the other Hopper backward
+// flash_attention_bwd_f32_sm90.cu (D 64/128) or
+// flash_attention_bwd_f32_d256_sm90.cu (D = 256); the Python wrapper routes
+// by (dtype, D, kernel). The score-tile code is shared with the other Hopper backward
 // kernels (flash_bwd_sm90.cuh).
 //
 // Computes what the FMA dK/dV kernel computes, per (b, h) and key tile: with

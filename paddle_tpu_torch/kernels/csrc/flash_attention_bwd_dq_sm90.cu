@@ -4,9 +4,9 @@
 // Replaces: paddle_tpu/kernels/flash_attention.py `_bwd_dq_kernel` (:198,
 // pallas_call at :466 in `_flash_bwd_impl`, :411), for bf16 q/k/v/dO at
 // head dims 64, 128 and 256. float32 inputs take
-// flash_attention_bwd_f32_sm90.cu (D 64/128) or the FMA dQ kernel of
-// flash_attention_bwd.cu (D = 256); the Python wrapper routes by (dtype, D,
-// kernel). The score-tile code is shared with the other Hopper backward
+// flash_attention_bwd_f32_sm90.cu (D 64/128) or
+// flash_attention_bwd_f32_d256_sm90.cu (D = 256); the Python wrapper routes
+// by (dtype, D, kernel). The score-tile code is shared with the other Hopper backward
 // kernels (flash_bwd_sm90.cuh).
 //
 // Computes what the FMA dQ kernel computes, per (b, h) and query tile: with
@@ -32,7 +32,7 @@
 // bf16 tensor-core work (22 us with the split) against 13 us of bytes, so
 // it sits on the ridge. The FMA kernel took 0.80 ms on the CUDA cores.
 // At D = 256 ([1, 8, 1024, 256] causal) the tensor-core work is 6.5 us,
-// where the FMA kernel, still the float32 D = 256 dQ, took 0.48 ms.
+// where the FMA kernel took 0.48 ms.
 //
 // Design:
 // - one CTA per (b, h, 64 query rows); the query tile is the slowest grid

@@ -7,8 +7,9 @@
 // both launched by `_flash_bwd_impl` (:411), with their in-kernel dropout
 // (`_dropout_mask`, :120; here philox.cuh), for float32 q/k/v/dO at head
 // dims 64 and 128: the attention backward of float32 training. bf16 inputs
-// take flash_attention_bwd_{dq,dkv}_sm90.cu, D = 256 the FMA kernels of
-// flash_attention_bwd.cu; the Python wrapper routes by (dtype, D).
+// take flash_attention_bwd_{dq,dkv}_sm90.cu, D = 256
+// flash_attention_bwd_f32_d256_sm90.cu; the Python wrapper routes by
+// (dtype, D).
 //
 // Computes what those kernels compute (flash_bwd_sm90.cuh): dQ and, when
 // asked for, dS as float32 [B, H, Lq, Lk] with zeros on the tiles the

@@ -10,8 +10,9 @@ The kernels replace the three Pallas kernels of the reference:
   tensor-core forwards are timed against at head dim 256);
 - ``csrc/flash_attention_bwd.cu`` replaces ``_bwd_dq_kernel`` (``:198``)
   and ``_bwd_dkv_kernel`` (``:269``): dQ (and dS, the bias gradient before
-  its reduction) over query tiles, dK/dV over key tiles; the route takes
-  them for float32 at head dim 256 only;
+  its reduction) over query tiles, dK/dV over key tiles, on the CUDA
+  cores; no route takes them any longer (they are the yardstick the
+  float32 tensor-core backward is timed against at head dim 256);
 - ``csrc/flash_attention_fwd_sm90.cu``,
   ``csrc/flash_attention_bwd_dq_sm90.cu`` and
   ``csrc/flash_attention_bwd_dkv_sm90.cu`` replace the three kernels again
@@ -24,10 +25,11 @@ The kernels replace the three Pallas kernels of the reference:
   same tensor cores: a pre-pass (:func:`split_bf16_terms`) splits Q, K and
   V into three bf16 terms each, P is split in registers, and each product
   keeps the six term pairs ``i + j <= 2``;
-- ``csrc/flash_attention_bwd_f32_sm90.cu`` replaces dQ and dK/dV again
-  for float32 inputs at head dims 64 and 128 (float32 training) in the
-  same way: Q, K, V and dO arrive as their three bf16 terms, P M and dS
-  are split in registers, six term pairs per product;
+- ``csrc/flash_attention_bwd_f32_sm90.cu`` (head dims 64 and 128) and
+  ``csrc/flash_attention_bwd_f32_d256_sm90.cu`` (head dim 256) replace dQ
+  and dK/dV again for float32 inputs (float32 training) in the same way:
+  Q, K, V and dO arrive as their three bf16 terms, P M and dS are split
+  in registers, six term pairs per product;
 - ``csrc/philox.cuh`` replaces the in-kernel dropout ``_dropout_mask``
   (``:120``): Philox4x32-10 bits keyed per element by (seed, b, h, row,
   col), so the three kernels regenerate one mask although they tile
@@ -44,9 +46,9 @@ Dispatch is by device, never by a fallback: a wrapper given CPU tensors
 runs the plain version (that is what the CPU tests exercise), and given
 CUDA tensors it launches the kernel or raises. Among the kernels the
 route is picked by (dtype, head dim, kernel) alone (:func:`kernel_route`):
-bf16 takes the ``wgmma`` forward, dQ and dK/dV kernels at every head dim;
-float32 the ``wgmma_f32`` forward at every head dim and the ``wgmma_f32``
-dQ and dK/dV at D in {64, 128}, the ``fma`` ones at D = 256. Each wrapper
+bf16 takes the ``wgmma`` forward, dQ and dK/dV kernels at every head dim,
+float32 the ``wgmma_f32`` ones; no route takes the ``fma`` kernels. Each
+wrapper
 counts its launches in ``<wrapper>.launches`` and per route in
 ``<wrapper>.routes`` (:func:`launch_counts`).
 
@@ -84,13 +86,12 @@ __all__ = ["SUPPORTED_HEAD_DIMS", "TENSOR_CORE_HEAD_DIMS", "kernel_route",
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 #: head dims at which each (dtype, kernel) runs on the tensor cores: route
-#: ``"wgmma"`` for bf16, ``"wgmma_f32"`` for float32; the rest is ``"fma"``
+#: ``"wgmma"`` for bf16, ``"wgmma_f32"`` for float32 (every kernel at every
+#: head dim); the rest is ``"fma"``, which no wrapper launches
 TENSOR_CORE_HEAD_DIMS = {
-    (torch.bfloat16, "fwd"): (64, 128, 256),
-    (torch.bfloat16, "dq"): (64, 128, 256),
-    (torch.bfloat16, "dkv"): (64, 128, 256),
-    (torch.float32, "fwd"): (64, 128, 256), (torch.float32, "dq"): (64, 128),
-    (torch.float32, "dkv"): (64, 128)}
+    (dtype, kernel): SUPPORTED_HEAD_DIMS
+    for dtype in (torch.bfloat16, torch.float32)
+    for kernel in ("fwd", "dq", "dkv")}
 _TENSOR_CORE_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "wgmma_f32"}
 _FWD_SOURCE = "flash_attention_fwd.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
@@ -99,6 +100,7 @@ _FWD_F32_SM90_SOURCE = "flash_attention_fwd_f32_sm90.cu"
 _DQ_SM90_SOURCE = "flash_attention_bwd_dq_sm90.cu"
 _DKV_SM90_SOURCE = "flash_attention_bwd_dkv_sm90.cu"
 _BWD_F32_SM90_SOURCE = "flash_attention_bwd_f32_sm90.cu"
+_BWD_F32_D256_SM90_SOURCE = "flash_attention_bwd_f32_d256_sm90.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE_ROWS = 64  # rows of every TMA box (csrc/sm90.cuh)
 
@@ -106,11 +108,11 @@ _TILE_ROWS = 64  # rows of every TMA box (csrc/sm90.cuh)
 def kernel_route(dtype: torch.dtype, head_dim: int, kernel: str) -> str:
     """Which kernel a CUDA input of ``dtype`` and ``head_dim`` takes for
     ``kernel`` ("fwd", "dq" or "dkv"): at the head dims of
-    :data:`TENSOR_CORE_HEAD_DIMS` (every kernel at D 64/128, and at
-    D = 256 all bf16 kernels and the float32 forward) ``"wgmma"`` (the
-    sm_90a tensor-core kernels) for bf16 and ``"wgmma_f32"`` (the same
-    tensor cores, each float32 operand as three bf16 terms) for float32;
-    ``"fma"`` for everything else (the float32 dQ and dK/dV at D = 256)."""
+    :data:`TENSOR_CORE_HEAD_DIMS` (every kernel at D 64, 128 and 256)
+    ``"wgmma"`` (the sm_90a tensor-core kernels) for bf16 and
+    ``"wgmma_f32"`` (the same tensor cores, each float32 operand as three
+    bf16 terms) for float32; ``"fma"`` for everything else, which the
+    wrappers refuse (another dtype or head dim)."""
     if kernel not in ("fwd", "dq", "dkv"):
         raise ValueError(f"kernel must be fwd, dq or dkv, got {kernel!r}")
     if head_dim in TENSOR_CORE_HEAD_DIMS.get((dtype, kernel), ()):
@@ -416,10 +418,12 @@ def _split_fn():
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_sm90_fn(which: str, route: str):
+def _bwd_sm90_fn(which: str, route: str, head_dim: int):
     """The typed entry of the ``route`` ("wgmma" or "wgmma_f32") backward
-    kernel ``which`` ("dq" or "dkv")."""
-    if route == "wgmma_f32":
+    kernel ``which`` ("dq" or "dkv") at ``head_dim``."""
+    if route == "wgmma_f32" and head_dim == 256:
+        source, name = _BWD_F32_D256_SM90_SOURCE, f"bwd_{which}_f32_d256_sm90"
+    elif route == "wgmma_f32":
         source, name = _BWD_F32_SM90_SOURCE, f"bwd_{which}_f32_sm90"
     else:
         source = _DQ_SM90_SOURCE if which == "dq" else _DKV_SM90_SOURCE
@@ -734,6 +738,9 @@ def _check_stats(lse, delta, shape, device):
 
 def _launch_bwd(which: str, q, k, v, bias, do, lse, delta, outs, ds,
                 causal, dropout_p, seed):
+    """Launch the FMA backward kernel ``which`` (``csrc/flash_attention_
+    bwd.cu``): the yardstick the tensor-core dQ and dK/dV are timed
+    against; no route takes it. Counts nothing."""
     B, H, Lq, Lk, D = _check_shapes(q, k, v)
     _check_operand("do", do, q.device, q.dtype, (B, H, Lq, D))
     _check_stats(lse, delta, (B, H, Lq), q.device)
@@ -787,7 +794,7 @@ def _launch_bwd_sm90(which: str, route: str, q, k, v, bias, do, lse, delta,
                                  f"bf16 {want} on {q.device}")
     strides = (*out_strides, *bias_strides)
     with torch.cuda.device(q.device):
-        err = _bwd_sm90_fn(which, route)(
+        err = _bwd_sm90_fn(which, route, D)(
             ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
             None if bias is None else bias.data_ptr(), ops[3].data_ptr(),
             lse.data_ptr(), delta.data_ptr(), out0.data_ptr(),
@@ -829,12 +836,8 @@ def flash_attention_bwd_dq(q, k, v, bias, do, lse, delta,
     route = kernel_route(q.dtype, q.shape[-1], "dq")
     if route == "wgmma_f32" and terms is None:
         terms = _backward_terms(q, k, v, do)
-    if route == "fma":
-        _launch_bwd("dq", q, k, v, bias, do, lse, delta, {"dq": dq}, ds,
-                    causal, dropout_p, seed)
-    else:
-        _launch_bwd_sm90("dq", route, q, k, v, bias, do, lse, delta, dq, ds,
-                         dq.stride()[:3], causal, dropout_p, seed, terms)
+    _launch_bwd_sm90("dq", route, q, k, v, bias, do, lse, delta, dq, ds,
+                     dq.stride()[:3], causal, dropout_p, seed, terms)
     flash_attention_bwd_dq.launches += 1
     flash_attention_bwd_dq.routes[route] += 1
     return dq, ds
@@ -855,13 +858,9 @@ def flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta,
     route = kernel_route(q.dtype, q.shape[-1], "dkv")
     if route == "wgmma_f32" and terms is None:
         terms = _backward_terms(q, k, v, do)
-    if route == "fma":
-        _launch_bwd("dkv", q, k, v, bias, do, lse, delta,
-                    {"dk": dk, "dv": dv}, None, causal, dropout_p, seed)
-    else:
-        _launch_bwd_sm90("dkv", route, q, k, v, bias, do, lse, delta, dk, dv,
-                         (*dk.stride()[:3], *dv.stride()[:3]), causal,
-                         dropout_p, seed, terms)
+    _launch_bwd_sm90("dkv", route, q, k, v, bias, do, lse, delta, dk, dv,
+                     (*dk.stride()[:3], *dv.stride()[:3]), causal, dropout_p,
+                     seed, terms)
     flash_attention_bwd_dkv.launches += 1
     flash_attention_bwd_dkv.routes[route] += 1
     return dk, dv

@@ -1,6 +1,7 @@
 """The float32 tensor-core kernels of the port's flash attention (route
 ``wgmma_f32``): the forward (``csrc/flash_attention_fwd_f32_sm90.cu``) and
-the dQ and dK/dV backward (``csrc/flash_attention_bwd_f32_sm90.cu``). Their
+the dQ and dK/dV backward (``csrc/flash_attention_bwd_f32_sm90.cu`` at head
+dims 64 and 128, ``csrc/flash_attention_bwd_f32_d256_sm90.cu`` at 256). Their
 arithmetic emulated in plain torch against the JAX kernels, their split
 pre-pass, their routing, and, on the card, the kernels against their plain
 versions.
@@ -18,9 +19,8 @@ operand are of order 2^-24 of the products, float32's own rounding, so the
 emulation is also close to a float64 computation, which one bf16 term per
 operand is not.
 
-The forward runs at head dims 64, 128 and 256, the backward at 64 and 128
-(float32 at D = 256 takes the FMA backward); the emulation covers all
-three head dims.
+The forward and the backward run at head dims 64, 128 and 256; the
+emulation covers all three.
 
 The tests marked ``cuda`` run the kernels on the card and skip without one:
 ``python -m pytest --noconftest -m cuda tests/test_torch_flash_attention_f32_sm90.py``.
@@ -345,22 +345,22 @@ def test_fma_forward_launcher_takes_any_input_and_counts_nothing(dtype, d):
 
 
 @pytest.mark.parametrize("d,route", [(64, "wgmma_f32"), (128, "wgmma_f32"),
-                                     (256, "fma")])
+                                     (256, "wgmma_f32")])
 @pytest.mark.parametrize("which", ["dq", "dkv"])
-def test_float32_backward_takes_the_tensor_cores_at_64_and_128(which, d,
-                                                               route):
-    """float32 dQ and dK/dV take the wgmma_f32 kernels at D 64 and 128, as
-    the forward does, and the FMA kernels at D = 256, where the forward
-    takes wgmma_f32 too."""
+def test_float32_backward_takes_the_tensor_cores_at_every_head_dim(which, d,
+                                                                   route):
+    """float32 dQ and dK/dV take the wgmma_f32 kernels at every head dim,
+    as the forward does (D = 256: flash_attention_bwd_f32_d256_sm90.cu)."""
     assert tfa.kernel_route(torch.float32, d, which) == route
 
 
+@pytest.mark.parametrize("d", [64, 256])
 @pytest.mark.parametrize("which", ["dq", "dkv"])
-def test_backward_refuses_terms_of_another_shape(which):
+def test_backward_refuses_terms_of_another_shape(which, d):
     """The wgmma_f32 kernels read the given terms by TMA, which reads past a
     tensor's end as zeros: terms that are not [3 B, H, L, D] bf16 raise
-    before any launch."""
-    q = torch.zeros(2, 2, 64, 64)
+    before any launch, at D = 64 and at D = 256 (its own kernels)."""
+    q = torch.zeros(2, 2, 64, d)
     stats = torch.zeros(2, 2, 64)
     good = tfa._backward_terms(q, q, q, q)
     wrapper = getattr(tfa, f"flash_attention_bwd_{which}")
@@ -500,15 +500,16 @@ def test_cuda_f32_selfcheck(cuda_device, d):
 
 # ------------------------------------------- the backward on the card
 def _bwd_case(device, d, causal, lq, lk, bias, seed):
-    """float32 (q, k, v, do, bias): at Lq == Lk q/k/v are views of a fused
-    qkv and dO a transposed [B, L, H, D] gradient, as the GPT path hands
-    them over; otherwise contiguous."""
+    """float32 (q, k, v, do, bias) of 2 batches and 3 heads (D = 256: 8
+    heads, the D = 256 model's): at Lq == Lk q/k/v are views of a fused qkv
+    and dO a transposed [B, L, H, D] gradient, as the GPT path hands them
+    over; otherwise contiguous."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def rn(*shape):
         return torch.randn(*shape, generator=g, device=device)
 
-    B, H = 2, 3
+    B, H = 2, 8 if d == 256 else 3
     if lq == lk:
         q, k, v = _views(device, B, lq, H, d, seed)
         do = rn(B, lq, H, d).transpose(1, 2)
@@ -518,14 +519,18 @@ def _bwd_case(device, d, causal, lq, lk, bias, seed):
     return q, k, v, do, rn(1, H, lq, lk) if bias else None
 
 
-# (d, causal, lq, lk, bias): D 64 and 128, causal and not, the training
-# length, ragged lengths, Lq != Lk, a trained bias under the causal mask
+# (d, causal, lq, lk, bias): D 64, 128 and 256, causal and not, the
+# training length, ragged lengths, Lq != Lk, a trained bias under the
+# causal mask; D = 256 at the float32 D = 256 run's [2, 8, 1024, 256]
 _BWD_CUDA_CASES = [(64, True, 1024, 1024, False),
                    (128, True, 1024, 1024, False),
                    (128, True, 1500, 1500, False),
                    (64, False, 1500, 1500, False),
                    (128, False, 384, 640, True),
-                   (64, True, 1000, 1000, True)]
+                   (64, True, 1000, 1000, True),
+                   (256, True, 1024, 1024, False),
+                   (256, True, 1500, 1500, False),
+                   (256, False, 384, 640, True)]
 
 
 @pytest.mark.cuda
@@ -555,8 +560,17 @@ def test_cuda_f32_backward_matches_plain(cuda_device, d, causal, lq, lk,
         assert got[3] is None
 
 
+def _assert_f32_route(*which, splits):
+    """Every kernel in ``which`` launched once per call on wgmma_f32, the
+    split ``splits`` times (two per operand set: q, k, v, then dO)."""
+    for w in which:
+        assert tfa.launch_counts()[w] == {"fma": 0, "wgmma": 0,
+                                          "wgmma_f32": 1}
+    assert tfa.split_bf16_terms.launches == splits
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_cuda_f32_dq_writes_ds_with_zeros_above_the_diagonal(cuda_device, d):
     """The dQ kernel's float32 dS (the bias gradient before its reduction)
     against the plain dS, causal and ragged: every element above the
@@ -565,44 +579,55 @@ def test_cuda_f32_dq_writes_ds_with_zeros_above_the_diagonal(cuda_device, d):
     q, k, v, do, b = _bwd_case(cuda_device, d, True, 700, 700, True, 7)
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=True, bias=b)
     delta = (do.float() * o.float()).sum(-1).contiguous()
+    tfa.reset_launch_counts()
     _, ds = tfa.flash_attention_bwd_dq(q, k, v, b, do, lse, delta, True,
                                        emit_ds=True)
+    torch.cuda.synchronize()
+    _assert_f32_route("dq", splits=2)
     want = tfa.reference_attention_bwd(q, k, v, b, o, lse, do, True)[3]
     torch.testing.assert_close(ds, want, **BWD_TOL)
     assert bool((ds.triu(1) == 0).all())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_cuda_f32_backward_replays_bit_for_bit(cuda_device, d):
     """No atomics: the same inputs give the same dQ, dS, dK and dV."""
     q, k, v, do, b = _bwd_case(cuda_device, d, True, 1500, 1500, True, 8)
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=True, bias=b)
     delta = (do.float() * o.float()).sum(-1).contiguous()
+    terms = tfa._backward_terms(q, k, v, do)
 
     def run():
         return (*tfa.flash_attention_bwd_dq(q, k, v, b, do, lse, delta, True,
-                                            emit_ds=True),
+                                            emit_ds=True, terms=terms),
                 *tfa.flash_attention_bwd_dkv(q, k, v, b, do, lse, delta,
-                                             True))
+                                             True, terms=terms))
 
-    first, second = run(), run()
+    tfa.reset_launch_counts()
+    first = run()
+    torch.cuda.synchronize()
+    _assert_f32_route("dq", "dkv", splits=0)
+    second = run()
     assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_cuda_f32_backward_dropout_matches_plain_with_the_same_mask(
         cuda_device, d):
     """p = 0.1: dQ, dK and dV against the plain backward given the plain
     Philox mask, at the reference's backward tolerance, and a fixed seed
     replays bit for bit."""
     q, k, v, do, _ = _bwd_case(cuda_device, d, True, 320, 320, False, 9)
-    keep = tfa.dropout_mask(42, 2, 3, 320, 320, 0.1, cuda_device)
+    B, H = q.shape[:2]
+    keep = tfa.dropout_mask(42, B, H, 320, 320, 0.1, cuda_device)
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=True, dropout_p=0.1,
                                      seed=42)
     tfa.reset_launch_counts()
     got = tfa.flash_attention_bwd(q, k, v, None, o, lse, do, True, 0.1, 42)
+    torch.cuda.synchronize()
+    _assert_f32_route("dq", "dkv", splits=2)
     again = tfa.flash_attention_bwd(q, k, v, None, o, lse, do, True, 0.1, 42)
     assert tfa.launch_counts()["dkv"]["wgmma_f32"] == 2
     want = tfa.reference_attention_bwd(q, k, v, None, o, lse, do, True, keep)

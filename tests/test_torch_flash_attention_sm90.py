@@ -339,27 +339,17 @@ def test_split_is_closer_to_float32_than_bf16_p():
 
 
 # ------------------------------------------------------------ routing
-def _route(dtype, d, route, kernel):
-    """The expected route: ``route``, except the float32 forward at
-    D = 256, which takes wgmma_f32 while the float32 dQ and dK/dV there
-    stay on the FMA kernels."""
-    if (dtype, d, kernel) == (torch.float32, 256, "fwd"):
-        return "wgmma_f32"
-    return route
-
-
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "wgmma_f32"),
-    (torch.float32, 128, "wgmma_f32"), (torch.float32, 256, "fma"),
+    (torch.float32, 128, "wgmma_f32"), (torch.float32, 256, "wgmma_f32"),
     (torch.float16, 128, "fma")])
 def test_route_is_picked_by_dtype_and_head_dim(dtype, d, route, kernel):
-    """bf16 takes the wgmma kernels at every head dim, float32 at D 64/128
-    the wgmma_f32 ones (forward, dQ and dK/dV alike); float32 at D = 256
-    the wgmma_f32 forward and the FMA dQ and dK/dV; the rest FMA."""
-    assert tfa.kernel_route(dtype, d, kernel) == _route(dtype, d, route,
-                                                        kernel)
+    """bf16 takes the wgmma kernels at every head dim, float32 the
+    wgmma_f32 ones (forward, dQ and dK/dV alike); what no tensor-core
+    kernel takes (float16) answers fma, which the wrappers refuse."""
+    assert tfa.kernel_route(dtype, d, kernel) == route
 
 
 def test_cpu_tensors_launch_nothing():
@@ -380,16 +370,15 @@ def test_cpu_tensors_launch_nothing():
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "wgmma_f32"),
-    (torch.float32, 128, "wgmma_f32"), (torch.float32, 256, "fma")])
+    (torch.float32, 128, "wgmma_f32"), (torch.float32, 256, "wgmma_f32")])
 @pytest.mark.parametrize("which", ["dq", "dkv"])
 def test_backward_wrappers_launch_the_route_of_dtype_and_head_dim(
         which, dtype, d, route):
     """The dQ and dK/dV wrappers hand a (dtype, D) input to the launcher of
-    its :func:`kernel_route` and count the launch under that route (float32
-    at D = 256: the FMA dQ and dK/dV); the wgmma_f32 launcher gets the four
-    operands' bf16 terms. The launchers are stubbed (the kernels need a
-    card); the wrapper's own logic runs as it does on one."""
-    route = _route(dtype, d, route, which)
+    its :func:`kernel_route` and count the launch under that route, never
+    the FMA launcher (no route takes it); the wgmma_f32 launcher gets the
+    four operands' bf16 terms. The launchers are stubbed (the kernels need
+    a card); the wrapper's own logic runs as it does on one."""
     calls = []
     q = torch.zeros(1, 2, 64, d, dtype=dtype)
     stats = torch.zeros(1, 2, 64)
@@ -419,7 +408,8 @@ def test_wgmma_sources_are_built_with_the_rest():
                    "flash_attention_fwd_f32_sm90.cu",
                    "flash_attention_bwd_dq_sm90.cu",
                    "flash_attention_bwd_dkv_sm90.cu",
-                   "flash_attention_bwd_f32_sm90.cu"):
+                   "flash_attention_bwd_f32_sm90.cu",
+                   "flash_attention_bwd_f32_d256_sm90.cu"):
         assert source in _build.SOURCES
         text = (_build.CSRC_DIR / source).read_text()
         assert "Replaces: paddle_tpu/kernels/flash_attention.py" in text

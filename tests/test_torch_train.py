@@ -111,6 +111,23 @@ def test_loss_and_every_grad_match_jax(loss_chunk):
                                    err_msg=k)
 
 
+def test_loss_and_every_grad_match_jax_at_head_dim_256():
+    """Two heads of 256 (hidden 512, 2 layers): the head dim of the float32
+    D = 256 backward kernels, whose plain path this is on the CPU; the loss
+    and every gradient at the tolerance of the test above."""
+    jm, tm = _pair(hidden_size=512, num_heads=2)
+    assert tm.cfg.hidden_size // tm.cfg.num_heads == 256
+    ids = _ids()
+    lj, gj = _jax_loss_and_grads(jm, ids)
+    lt, gt = _torch_loss_and_grads(tm, ids)
+    assert lt == pytest.approx(lj, rel=1e-5)
+    assert set(gt) == set(gj) and len(gt) == 28
+    for k in gj:
+        scale = np.abs(gj[k]).max()
+        np.testing.assert_allclose(gt[k], gj[k], rtol=0, atol=2e-4 * scale,
+                                   err_msg=k)
+
+
 def test_chunked_loss_equals_plain_loss():
     _, tm = _pair()
     ids = torch.as_tensor(_ids(), dtype=torch.long)
