@@ -1,6 +1,3 @@
-// A/B candidate (layout c): dK and dV split by columns, two CTAs per key
-// tile each making S^T and dP^T whole and a 128-column half of dK and dV.
-//
 // Flash-attention backward, dQ (and dS) and dK/dV, for float32 inputs at
 // head dim 256 on Hopper tensor cores (sm_90a): every float32 operand split
 // into three bf16 terms, wgmma fed by TMA, CUDA C++ with plain C entries.
@@ -40,26 +37,30 @@
 // gets more than 168 registers a thread on this toolkit (up to 255), so:
 // - dQ: one CTA per (b, h, 64 query rows), one consumer warpgroup owning
 //   all 256 columns of its rows' dQ, and a producer warp;
-// - dK/dV: one CTA per (b, h, 64 keys, 128-column half of dK and dV), one
-//   consumer warpgroup and a producer warp. Each CTA makes S^T and dP^T
-//   whole, so the two halves repeat 2/3 of the work (1.5 times the tensor
-//   work of one pass), and the longest causal CTA is two thirds as long as
-//   that of one CTA per key tile would be.
+// - dK/dV: two CTAs per (b, h, 64 keys), each one consumer warpgroup and a
+//   producer warp: one makes dK (S^T, dP^T, dS^T, dK += dS^T Q), the other
+//   dV (S^T, dV += (P M)^T dO), so each holds one 128-float accumulator
+//   and S^T is the only product made twice (1.25 times the tensor work of
+//   one pass; the dK CTA does 3/5 of it). Splitting dK and dV by columns
+//   instead (two CTAs each making S^T and dP^T whole and half of both
+//   accumulators: 1.5 times the work) spilled (12 bytes, 124 with
+//   dropout) at 255 registers, P^T, dP^T and both halves being live
+//   together, and ran 14-19 % slower (PERF.md, section 6).
 //
 // The ring. Per loop tile (a key tile of dQ, a query tile of dK/dV) twelve
 // term tiles stream, in the order they are used:
 //   A2 A1 A0 | X2 X1 Y0 Y1 X0 Y2 | A2 A1 A0
-// with dQ: A = K, X = V, Y = dO; dK/dV: A = Q, X = V, Y = dO. A's terms
-// make S (S^T) against the resident operand, smallest term first, and come
-// again for dQ += dS K (dK += dS^T Q). The middle six make dP = Y X^T (dP^T
-// = X Y^T) from their six term pairs, (Y0 X2), (Y0 X1), (Y1 X1), (Y1 X0),
+// with dQ: A = K, X = V, Y = dO; dK: A = Q, X = V, Y = dO. A's terms make
+// S (S^T) against the resident operand, smallest term first, and come again
+// for dQ += dS K (dK += dS^T Q). The middle six make dP = Y X^T (dP^T =
+// X Y^T) from their six term pairs, (Y0 X2), (Y0 X1), (Y1 X1), (Y1 X0),
 // (Y2 X0) and the main pair (Y0 X0) last, holding at most four entries at a
-// time; dK/dV adds dV += (P M)^T Y_j once each Y_j has made its last dP
-// pair. Entries are released out of order, so each entry has a fixed slot
+// time. Entries are released out of order, so each entry has a fixed slot
 // (kSlotOf below), chosen so that every entry's slot is freed at least one
 // product before the entry is used: a ring filled in order (entry n in
 // slot n % 4) would load the next tile's first A term only after the main
-// dP pair.
+// dP pair. The dV CTA streams six, A2 A1 A0 (S^T) and dO2 dO1 dO0 (dV),
+// in order.
 //
 // Per tile otherwise as the D 64/128 kernels: P on S's fragment, dS = P (dP
 // M - Delta) in place of dP, stored as float32 when asked for; every split
@@ -149,33 +150,49 @@ struct Layout {
 };
 static_assert(Layout::kBytes <= 232448, "more than a CTA's shared memory");
 
-// Entry e of loop tile i: its slot and its fill of the slot (fill k
-// completes phase k & 1 of the slot's barriers).
-struct Fill {
-  int slot, k;
+// Which schedule a CTA's ring follows: kFull, the twelve entries above in
+// the slots of kSlotOf (dQ, and dK/dV's dK CTAs); otherwise the six
+// entries A2 A1 A0 Y2 Y1 Y0 of the dV CTAs, each released as soon as it is
+// used, entry n of the CTA in slot n % 4.
+struct Schedule {
+  bool full;
+
+  __device__ __forceinline__ int entries() const { return full ? kEntries : 6; }
+  __device__ __forceinline__ int slot(int i, int e) const {
+    return full ? field(kSlotOf, e) : (6 * i + e) % kRing;
+  }
+  // the fill of the slot that entry e of loop tile i is (fill k completes
+  // phase k & 1 of the slot's barriers)
+  __device__ __forceinline__ int fill(int i, int e) const {
+    return full ? i * field(kFillsOf, field(kSlotOf, e)) + field(kPlaceOf, e)
+                : (6 * i + e) / kRing;
+  }
+  __device__ __forceinline__ int operand(int e) const {
+    return full ? field(kOperandOf, e) : e < kSplit ? kA : kY;
+  }
+  __device__ __forceinline__ int term(int e) const {
+    return full ? field(kTermOf, e) : kSplit - 1 - e % kSplit;
+  }
 };
-__device__ __forceinline__ Fill fill_of(int i, int e) {
-  const int s = field(kSlotOf, e);
-  return Fill{s, i * field(kFillsOf, s) + field(kPlaceOf, e)};
-}
 
 // The consumer's side of the ring.
 struct Ring {
   uint32_t base;
+  Schedule sched;
 
   // Wait for entry e of loop tile i; its tile address, opaque to the
   // compiler so that each wgmma descriptor is built where it is used.
   __device__ __forceinline__ uint32_t wait(int i, int e) const {
-    const Fill f = fill_of(i, e);
-    mbar_wait(base + Layout::full(f.slot), f.k & 1);
+    const int s = sched.slot(i, e);
+    mbar_wait(base + Layout::full(s), sched.fill(i, e) & 1);
     __syncwarp();
-    uint32_t tile = base + Layout::slot(f.slot);
+    uint32_t tile = base + Layout::slot(s);
     asm volatile("" : "+r"(tile));
     return tile;
   }
   // Entry e's products have completed: hand its slot back.
-  __device__ __forceinline__ void release(int e) const {
-    mbar_arrive(base + Layout::empty(field(kSlotOf, e)));
+  __device__ __forceinline__ void release(int i, int e) const {
+    mbar_arrive(base + Layout::empty(sched.slot(i, e)));
   }
 };
 
@@ -190,7 +207,7 @@ struct Source {
 // three terms at rows res_row, then the entries of loop tiles i0 .. i1 - 1
 // in order, operand op of tile i from src(op, i).
 template <typename Src>
-__device__ __forceinline__ void produce(uint32_t base, int B,
+__device__ __forceinline__ void produce(uint32_t base, Schedule sched, int B,
                                         const CUtensorMap* res, TmaPos res_pos,
                                         int res_row, int h, int b, int i0,
                                         int i1, Src src) {
@@ -201,83 +218,74 @@ __device__ __forceinline__ void produce(uint32_t base, int B,
                         res_row, h, a * B + b, res_pos);
   }
   for (int i = i0; i < i1; ++i)
-    for (int e = 0; e < kEntries; ++e) {
-      const Fill f = fill_of(i, e);
-      const Source x = src(field(kOperandOf, e), i);
-      mbar_wait(base + Layout::empty(f.slot), (f.k & 1) ^ 1);
-      mbar_arrive_expect_tx(base + Layout::full(f.slot), kTile);
-      tma_load_tile<kD>(base + Layout::slot(f.slot), x.map,
-                        base + Layout::full(f.slot), x.row, h,
-                        field(kTermOf, e) * B + b, x.pos);
+    for (int e = 0; e < sched.entries(); ++e) {
+      const int s = sched.slot(i, e);
+      const Source x = src(sched.operand(e), i);
+      mbar_wait(base + Layout::empty(s), (sched.fill(i, e) & 1) ^ 1);
+      mbar_arrive_expect_tx(base + Layout::full(s), kTile);
+      tma_load_tile<kD>(base + Layout::slot(s), x.map, base + Layout::full(s),
+                        x.row, h, sched.term(e) * B + b, x.pos);
     }
 }
 
 // ------------------------------------------------------------ products
 // acc (+)= A B^T for two K-major [64, 256] term tiles (one term pair, 16
-// m64n64k16 wgmmas), committed and waited for; `first` overwrites acc. The
-// tile addresses are made opaque once per swizzle atom, so the compiler
-// builds each atom's four descriptors of a tile just ahead of their wgmmas
-// instead of all sixteen at once.
+// m64n64k16 wgmmas), committed and waited for; `first` overwrites acc.
 __device__ __forceinline__ void pair_abt(float (&acc)[32], uint32_t ta,
                                          uint32_t tb, bool first) {
   fence_operand(acc);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
+  for (int kk = 0; kk < kD / 16; ++kk)
     wgmma_ss_n64(acc, kmajor_desc(ta, kk), kmajor_desc(tb, kk),
                  !(first && kk == 0));
-  }
   wgmma_commit();
   wgmma_wait_all();
   fence_operand(acc);
 }
 
 // O += sum over a <= 2 - j of F_a B_j, waited for: F the float32 64 x 64
-// matrix whose element e is `f(e)`, B_j the transposed (MN-major) term tile
-// whose N columns start at tb. F is split one 16-column slice at a time,
-// right before that slice's wgmmas (the largest a first), each slice a
-// commit group: the next slice is split while the last one's products run,
-// and only two slices' terms (24 registers) are live.
-template <int N, typename Elem>
-__device__ __forceinline__ void fb_by_slice(float (&o)[N / 2], Elem f,
+// matrix whose element e is `f(e)`, B_j the transposed (MN-major) [64, 256]
+// term tile at tb. F is split one 16-column slice at a time, right before
+// that slice's m64n256k16 wgmmas (the largest a first), each slice a commit
+// group: the next slice is split while the last one's products run, and
+// only two slices' terms (24 registers) are live. (One slice's terms at a
+// time, with a wait per slice, measured 2 % slower.)
+template <typename Elem>
+__device__ __forceinline__ void fb_by_slice(float (&o)[kD / 2], Elem f,
                                             uint32_t tb, int j) {
-  constexpr int kBufs = 2;
-  uint32_t fr[kBufs][kSplit][4];
+  uint32_t fr[2][kSplit][4];
   fence_operand(o);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    split_slice(f, kk, fr[kk % kBufs]);
+    split_slice(f, kk, fr[kk & 1]);
     wgmma_fence();
     const uint64_t desc = mnmajor_desc(tb, kk);
 #pragma unroll
     for (int n = 0; n < kSplit; ++n) {
       const int a = kSplit - 1 - n;
-      if (a + j < kSplit) wgmma_rs_tb<N>(o, fr[kk % kBufs][a], desc);
+      if (a + j < kSplit) wgmma_rs_n256_tb(o, fr[kk & 1][a], desc, 1);
     }
     wgmma_commit();
-    if (kBufs == 1) {
-      wgmma_wait_all();
-      fence_fragments(fr[0]);
-    } else if (kk > 0) {
+    if (kk > 0) {
       wgmma_wait_pending<1>();
-      fence_fragments(fr[(kk - 1) % kBufs]);
+      fence_fragments(fr[(kk - 1) & 1]);
     }
   }
   wgmma_wait_all();
-  fence_fragments(fr[(3) % kBufs]);
+  fence_fragments(fr[1]);
   fence_operand(o);
 }
 
-// dP (+)= the six term pairs of Y X^T (kYxT: dQ's dO V^T) or X Y^T (dK/dV's
-// V dO^T) from entries 3 .. 8 of loop tile i (X2 X1 Y0 Y1 X0 Y2), the main
-// pair Y0 X0 last. Once Y_j has made its last dP pair, `after_y(tile, j)`
-// runs (dK/dV: its dV pairs) and its entry is released.
-template <bool kYxT, typename AfterY>
+// dP (+)= the six term pairs of Y X^T (kYxT: dQ's dO V^T) or X Y^T (the dK
+// CTAs' V dO^T) from entries 3 .. 8 of loop tile i (X2 X1 Y0 Y1 X0 Y2),
+// the main pair Y0 X0 last, each entry released after its last pair.
+template <bool kYxT>
 __device__ __forceinline__ void dp_pairs(float (&dp)[32], const Ring& ring,
-                                         int i, AfterY after_y) {
+                                         int i) {
   const auto pair = [&](uint32_t ty, uint32_t tx, bool first) {
     // made opaque per pair: the compiler would otherwise keep a twice-used
-    // tile's sixteen descriptors from one pair to the next
+    // tile's sixteen descriptors from one pair to the next (which spilled)
     asm volatile("" : "+r"(ty), "+r"(tx));
     if constexpr (kYxT)
       pair_abt(dp, ty, tx, first);
@@ -289,28 +297,27 @@ __device__ __forceinline__ void dp_pairs(float (&dp)[32], const Ring& ring,
   const uint32_t y0 = ring.wait(i, 5);
   pair(y0, x2, true);
   pair(y0, x1, false);
-  ring.release(3);
+  ring.release(i, 3);
   const uint32_t y1 = ring.wait(i, 6);
   pair(y1, x1, false);
-  ring.release(4);
+  ring.release(i, 4);
   const uint32_t x0 = ring.wait(i, 7);
   pair(y1, x0, false);
-  after_y(y1, 1);
-  ring.release(6);
+  ring.release(i, 6);
   const uint32_t y2 = ring.wait(i, 8);
   pair(y2, x0, false);
-  after_y(y2, 2);
-  ring.release(8);
+  ring.release(i, 8);
   pair(y0, x0, false);
-  ring.release(7);
-  after_y(y0, 0);
-  ring.release(5);
+  ring.release(i, 7);
+  ring.release(i, 5);
 }
 
 // The dropout keep bits of a consumer thread's 32 score elements, element e
 // at (query, key) = at(e), out-of-range elements kept. The seed is made
 // opaque first, so that Philox's key schedule (20 words) is derived here,
-// where few registers are live, and not hoisted out of the tile loop.
+// where few registers are live, and not hoisted out of the tile loop; the
+// elements are drawn two at a time (four or eight at a time spilled the
+// dropout dQ at 255 registers, one at a time was 10 % slower).
 template <typename At>
 __device__ __forceinline__ uint32_t keep_bits(const Params& p, int b, int h,
                                               At at) {
@@ -321,9 +328,9 @@ __device__ __forceinline__ uint32_t keep_bits(const Params& p, int b, int h,
   d.seed = (static_cast<unsigned long long>(hi) << 32) | lo;
   uint32_t keep = 0xffffffffu;
 #pragma unroll 1
-  for (int e0 = 0; e0 < 32; e0 += 2)
+  for (int e0 = 0; e0 < 32; e0 += 8)
 #pragma unroll
-    for (int e = e0; e < e0 + 2; ++e) {
+    for (int e = e0; e < e0 + 8; ++e) {
       const int2 qk = at(e);
       if (qk.x < p.Lq && qk.y < p.Lk &&
           dropout_multiplier(d, b, h, qk.x, qk.y) == 0.f)
@@ -364,6 +371,7 @@ flash_bwd_dq_f32_d256_kernel(const __grid_constant__ CUtensorMap map_q,
   // causal: keys past the tile's last query row are masked for every row
   const int n_kt = ((p.causal ? min(p.Lk, q0 + 64) : p.Lk) + 63) / 64;
   const int tid = threadIdx.x;
+  constexpr Schedule kSched{true};
 
   if (tid == 0) init_barriers(base, false);
   __syncthreads();
@@ -371,7 +379,7 @@ flash_bwd_dq_f32_d256_kernel(const __grid_constant__ CUtensorMap map_q,
   if (tid >= kConsumers) {
     // ---- producer: one lane issues every copy
     if (tid == kConsumers)
-      produce(base, p.B, &map_q, p.pos_q, q0, h, b, 0, n_kt,
+      produce(base, kSched, p.B, &map_q, p.pos_q, q0, h, b, 0, n_kt,
               [&](int op, int i) {
                 return op == kA   ? Source{&map_k, p.pos_k, 64 * i}
                        : op == kX ? Source{&map_v, p.pos_v, 64 * i}
@@ -382,7 +390,7 @@ flash_bwd_dq_f32_d256_kernel(const __grid_constant__ CUtensorMap map_q,
 
   // ---- consumer warpgroup: query rows q0 .. q0 + 63
   const DqRows rows(p, b, h, q0, tid);
-  const Ring ring{base};
+  const Ring ring{base, kSched};
   float dq[kD / 2];
 #pragma unroll
   for (int i = 0; i < kD / 2; ++i) dq[i] = 0.f;
@@ -405,19 +413,19 @@ flash_bwd_dq_f32_d256_kernel(const __grid_constant__ CUtensorMap map_q,
       uint32_t tq = base + Layout::res(0);
       asm volatile("" : "+r"(tq));
       terms_abt<kD>(sc, tq, ring.wait(i, e), kSplit - 1 - e, e == 0);
-      ring.release(e);
+      ring.release(i, e);
     }
     rows.probabilities(p, sc, q0, k0);
     // ---- dP = sum of dO_a V_j^T, then dS = P (dP M - Delta) in its place
-    dp_pairs<true>(dp, ring, i, [](uint32_t, int) {});
+    dp_pairs<true>(dp, ring, i);
     rows.grad_scores(sc, dp, keep, kDropout ? p.drop.scale : 1.f);
     if (rows.dsb != nullptr) rows.store_ds(dp, k0, p.Lq, p.Lk);
     // ---- dQ += sum of dS_a K_j, K's terms 2, 1, 0 again
 #pragma unroll
     for (int e = 9; e < kEntries; ++e) {
-      fb_by_slice<kD>(dq, [&](int x) { return dp[x]; }, ring.wait(i, e),
-                      kEntries - 1 - e);
-      ring.release(e);
+      fb_by_slice(dq, [&](int x) { return dp[x]; }, ring.wait(i, e),
+                  kEntries - 1 - e);
+      ring.release(i, e);
     }
   }
 
@@ -428,10 +436,11 @@ flash_bwd_dq_f32_d256_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // ------------------------------------------------------------ dK/dV
-// One CTA per (b, h, 64 keys, 128-column half of dK and dV): the key tile
-// is blockIdx.z / 2, the slowest grid dimension, so the early (heaviest
-// causal) tiles start first. K's terms resident; per query tile A = Q, X =
-// V (the tile's own rows), Y = dO.
+// Two CTAs per (b, h, 64 keys), blockIdx.z = 2 * key tile + role, the key
+// tile the slowest grid dimension so the early (heaviest causal) tiles
+// start first. Both make S^T against K's resident terms (A = Q); role 0
+// then dP^T (X = V, the tile's own rows; Y = dO), dS^T and dK += dS^T Q,
+// role 1 dV += (P M)^T dO (the six entries A2 A1 A0 Y2 Y1 Y0).
 template <bool kDropout>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_f32_d256_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -439,13 +448,13 @@ flash_bwd_dkv_f32_d256_kernel(const __grid_constant__ CUtensorMap map_q,
                               const __grid_constant__ CUtensorMap map_v,
                               const __grid_constant__ CUtensorMap map_do,
                               const Params p) {
-  constexpr int kN = kD / 2;  // the dK and dV columns a CTA owns
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* const smem = smem_raw + (base - smem_u32(smem_raw));
   const int h = blockIdx.x, b = blockIdx.y;
   const int k0 = (blockIdx.z >> 1) * 64;
-  const int col0 = (blockIdx.z & 1) * kN;
+  const bool dv_cta = blockIdx.z & 1;
+  const Schedule sched{!dv_cta};
   // causal (top-left): query tile qt holds a kept pair of these keys iff
   // its last row reaches k0
   const int n_qt = (p.Lq + 63) / 64;
@@ -478,23 +487,19 @@ flash_bwd_dkv_f32_d256_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       mbar_arrive(base + Layout::stats_full(i & 1));
       if (lane == 0)
-        produce(base, p.B, &map_k, p.pos_k, k0, h, b, i, i + 1, src);
+        produce(base, sched, p.B, &map_k, p.pos_k, k0, h, b, i, i + 1, src);
       __syncwarp();
     }
     return;
   }
 
-  // ---- consumer warpgroup: keys k0 .. k0 + 63, columns col0 .. col0 + 127
+  // ---- consumer warpgroup: keys k0 .. k0 + 63, all 256 columns of their
+  // dK (role 0) or dV (role 1)
   const DkvRows rows(p, b, h, k0, tid);
-  const Ring ring{base};
-  // the dO and Q columns the dV and dK products read: col0 / 64 atoms in
-  const uint32_t cols = (col0 / 64) * kAtomBytes;
-  float dk[kN / 2], dv[kN / 2];
+  const Ring ring{base, sched};
+  float acc[kD / 2];
 #pragma unroll
-  for (int i = 0; i < kN / 2; ++i) {
-    dk[i] = 0.f;
-    dv[i] = 0.f;
-  }
+  for (int i = 0; i < kD / 2; ++i) acc[i] = 0.f;
 
   if (n_iter > 0) mbar_wait(base + Layout::res_full, 0);
   for (int i = 0; i < n_iter; ++i) {
@@ -514,35 +519,48 @@ flash_bwd_dkv_f32_d256_kernel(const __grid_constant__ CUtensorMap map_q,
       uint32_t tk = base + Layout::res(0);
       asm volatile("" : "+r"(tk));
       terms_abt<kD>(st, tk, ring.wait(i, e), kSplit - 1 - e, e == 0);
-      ring.release(e);
+      ring.release(i, e);
     }
     mbar_wait(base + Layout::stats_full(i & 1), (i >> 1) & 1);
     const float* lse_s =
         reinterpret_cast<const float*>(smem + Layout::stats(i & 1));
     rows.probabilities(p, st, q0, k0, lse_s);
 
-    // ---- dP^T = sum of V_a dO_j^T; dV += (P M)^T_a dO_j[:, col0 ..] once
-    // dO_j has made its last dP^T pair
+    if (dv_cta) {
+      // ---- dV += sum of (P M)^T_a dO_j, dO's terms 2, 1, 0
+      mbar_arrive(base + Layout::stats_empty(i & 1));
+#pragma unroll
+      for (int e = kSplit; e < 2 * kSplit; ++e) {
+        fb_by_slice(
+            acc, [&](int x) { return (keep >> x) & 1u ? st[x] * kept : 0.f; },
+            ring.wait(i, e), 2 * kSplit - 1 - e);
+        ring.release(i, e);
+      }
+      continue;
+    }
+    // ---- dP^T = sum of V_a dO_j^T, then dS^T = P^T (dP^T M - Delta)
     float dpt[32];
-    dp_pairs<false>(dpt, ring, i, [&](uint32_t tdo, int j) {
-      fb_by_slice<kN>(
-          dv, [&](int e) { return (keep >> e) & 1u ? st[e] * kept : 0.f; },
-          tdo + cols, j);
-    });
-
-    // ---- dS^T = P^T (dP^T M - Delta);  dK += sum of dS^T_a Q_j[:, col0 ..]
-    rows.grad_scores([&](int e) { return st[e]; }, dpt, keep, kept,
+    dp_pairs<false>(dpt, ring, i);
+    rows.grad_scores([&](int x) { return st[x]; }, dpt, keep, kept,
                      lse_s + 64);
     mbar_arrive(base + Layout::stats_empty(i & 1));
+    // ---- dK += sum of dS^T_a Q_j, Q's terms 2, 1, 0 again
 #pragma unroll
     for (int e = 9; e < kEntries; ++e) {
-      fb_by_slice<kN>(dk, [&](int x) { return dpt[x]; },
-                      ring.wait(i, e) + cols, kEntries - 1 - e);
-      ring.release(e);
+      fb_by_slice(acc, [&](int x) { return dpt[x]; }, ring.wait(i, e),
+                  kEntries - 1 - e);
+      ring.release(i, e);
     }
   }
 
-  rows.store<kN>(p, b, h, dk, dv, col0);
+  // ---- dK * scale or dV, through its strides
+  if (dv_cta)
+    store_rows<kD>(p.out1 + b * p.out1_st[0] + h * p.out1_st[1],
+                   p.out1_st[2], rows.kj0, rows.kj1, p.Lk, rows.t, acc, 1.f);
+  else
+    store_rows<kD>(p.out0 + b * p.out0_st[0] + h * p.out0_st[1],
+                   p.out0_st[2], rows.kj0, rows.kj1, p.Lk, rows.t, acc,
+                   p.scale);
 }
 
 template <bool kDropout>
