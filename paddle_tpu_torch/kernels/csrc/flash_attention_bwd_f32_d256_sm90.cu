@@ -254,26 +254,22 @@ __device__ __forceinline__ void pair_abt(float (&acc)[32], uint32_t ta,
 template <typename Elem>
 __device__ __forceinline__ void fb_by_slice(float (&o)[kD / 2], Elem f,
                                             uint32_t tb, int j) {
-  uint32_t fr[2][kSplit][4];
+  uint32_t fr[kSplit][4];
   fence_operand(o);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    split_slice(f, kk, fr[kk & 1]);
+    split_slice(f, kk, fr);
     wgmma_fence();
     const uint64_t desc = mnmajor_desc(tb, kk);
 #pragma unroll
     for (int n = 0; n < kSplit; ++n) {
       const int a = kSplit - 1 - n;
-      if (a + j < kSplit) wgmma_rs_n256_tb(o, fr[kk & 1][a], desc, 1);
+      if (a + j < kSplit) wgmma_rs_n256_tb(o, fr[a], desc, 1);
     }
     wgmma_commit();
-    if (kk > 0) {
-      wgmma_wait_pending<1>();
-      fence_fragments(fr[(kk - 1) & 1]);
-    }
+    wgmma_wait_all();
+    fence_fragments(fr);
   }
-  wgmma_wait_all();
-  fence_fragments(fr[1]);
   fence_operand(o);
 }
 
@@ -328,9 +324,9 @@ __device__ __forceinline__ uint32_t keep_bits(const Params& p, int b, int h,
   d.seed = (static_cast<unsigned long long>(hi) << 32) | lo;
   uint32_t keep = 0xffffffffu;
 #pragma unroll 1
-  for (int e0 = 0; e0 < 32; e0 += 8)
+  for (int e0 = 0; e0 < 32; e0 += 2)
 #pragma unroll
-    for (int e = e0; e < e0 + 8; ++e) {
+    for (int e = e0; e < e0 + 2; ++e) {
       const int2 qk = at(e);
       if (qk.x < p.Lq && qk.y < p.Lk &&
           dropout_multiplier(d, b, h, qk.x, qk.y) == 0.f)
