@@ -254,22 +254,26 @@ __device__ __forceinline__ void pair_abt(float (&acc)[32], uint32_t ta,
 template <typename Elem>
 __device__ __forceinline__ void fb_by_slice(float (&o)[kD / 2], Elem f,
                                             uint32_t tb, int j) {
-  uint32_t fr[kSplit][4];
+  uint32_t fr[2][kSplit][4];
   fence_operand(o);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    split_slice(f, kk, fr);
+    split_slice(f, kk, fr[kk & 1]);
     wgmma_fence();
     const uint64_t desc = mnmajor_desc(tb, kk);
 #pragma unroll
     for (int n = 0; n < kSplit; ++n) {
       const int a = kSplit - 1 - n;
-      if (a + j < kSplit) wgmma_rs_n256_tb(o, fr[a], desc, 1);
+      if (a + j < kSplit) wgmma_rs_n256_tb(o, fr[kk & 1][a], desc, 1);
     }
     wgmma_commit();
-    wgmma_wait_all();
-    fence_fragments(fr);
+    if (kk > 0) {
+      wgmma_wait_pending<1>();
+      fence_fragments(fr[(kk - 1) & 1]);
+    }
   }
+  wgmma_wait_all();
+  fence_fragments(fr[1]);
   fence_operand(o);
 }
 
@@ -280,9 +284,6 @@ template <bool kYxT>
 __device__ __forceinline__ void dp_pairs(float (&dp)[32], const Ring& ring,
                                          int i) {
   const auto pair = [&](uint32_t ty, uint32_t tx, bool first) {
-    // made opaque per pair: the compiler would otherwise keep a twice-used
-    // tile's sixteen descriptors from one pair to the next (which spilled)
-    asm volatile("" : "+r"(ty), "+r"(tx));
     if constexpr (kYxT)
       pair_abt(dp, ty, tx, first);
     else
