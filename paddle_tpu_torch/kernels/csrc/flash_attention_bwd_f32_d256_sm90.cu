@@ -284,6 +284,9 @@ template <bool kYxT>
 __device__ __forceinline__ void dp_pairs(float (&dp)[32], const Ring& ring,
                                          int i) {
   const auto pair = [&](uint32_t ty, uint32_t tx, bool first) {
+    // made opaque per pair: the compiler would otherwise keep a twice-used
+    // tile's sixteen descriptors from one pair to the next (which spilled)
+    asm volatile("" : "+r"(ty), "+r"(tx));
     if constexpr (kYxT)
       pair_abt(dp, ty, tx, first);
     else
