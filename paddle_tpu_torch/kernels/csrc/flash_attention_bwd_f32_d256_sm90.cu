@@ -45,7 +45,8 @@
 //   instead (two CTAs each making S^T and dP^T whole and half of both
 //   accumulators: 1.5 times the work) spilled (12 bytes, 124 with
 //   dropout) at 255 registers, P^T, dP^T and both halves being live
-//   together, and ran 14-19 % slower (PERF.md, section 6).
+//   together, and ran 16 % slower at [1, 8, 1024, 256] and 23 % at
+//   [2, 8, 1024, 256] (PERF.md, section 6).
 //
 // The ring. Per loop tile (a key tile of dQ, a query tile of dK/dV) twelve
 // term tiles stream, in the order they are used:
@@ -250,7 +251,7 @@ __device__ __forceinline__ void pair_abt(float (&acc)[32], uint32_t ta,
 // that slice's m64n256k16 wgmmas (the largest a first), each slice a commit
 // group: the next slice is split while the last one's products run, and
 // only two slices' terms (24 registers) are live. (One slice's terms at a
-// time, with a wait per slice, measured 2 % slower.)
+// time, with a wait per slice, measured 2-3 % slower.)
 template <typename Elem>
 __device__ __forceinline__ void fb_by_slice(float (&o)[kD / 2], Elem f,
                                             uint32_t tb, int j) {
@@ -316,8 +317,8 @@ __device__ __forceinline__ void dp_pairs(float (&dp)[32], const Ring& ring,
 // at (query, key) = at(e), out-of-range elements kept. The seed is made
 // opaque first, so that Philox's key schedule (20 words) is derived here,
 // where few registers are live, and not hoisted out of the tile loop; the
-// elements are drawn two at a time (four or eight at a time spilled the
-// dropout dQ at 255 registers, one at a time was 10 % slower).
+// elements are drawn two at a time (eight at a time spilled the dropout
+// dQ at 255 registers).
 template <typename At>
 __device__ __forceinline__ uint32_t keep_bits(const Params& p, int b, int h,
                                               At at) {
