@@ -78,11 +78,11 @@ exits non-zero:
                on an FMA kernel; its attention shape [2,8,1024,256]
                float32 is also a case of the backward phase). Then
                gpt_1p3b width with 8 heads of 256 and 2 layers behind
-               InferenceServer(slots=2,
-               max_length=2048) serves two greedy prompts of 900 and 1900
-               tokens: the checks of phase 4, with the wgmma_f32 forward
-               at D = 256 (exactly one launch and one split per layer per
-               prefill, no other forward).
+               InferenceServer(slots=2, max_length=2048) serves two
+               greedy prompts of 900 and 1900 tokens: the checks of
+               phase 4, with the wgmma_f32 forward at D = 256 (exactly one
+               launch and one split per layer per prefill, no other
+               forward).
 
 Then a line with the kernels' summary, a line with the card's name and
 power limit, and the last line {"ok": true, "device": {...}}.

@@ -48,8 +48,7 @@ CUDA tensors it launches the kernel or raises. Among the kernels the
 route is picked by (dtype, head dim, kernel) alone (:func:`kernel_route`):
 bf16 takes the ``wgmma`` forward, dQ and dK/dV kernels at every head dim,
 float32 the ``wgmma_f32`` ones; no route takes the ``fma`` kernels. Each
-wrapper
-counts its launches in ``<wrapper>.launches`` and per route in
+wrapper counts its launches in ``<wrapper>.launches`` and per route in
 ``<wrapper>.routes`` (:func:`launch_counts`).
 
 The gate :func:`should_use_flash` keeps the JAX gate's shape rules (head

@@ -1,12 +1,11 @@
 #!/usr/bin/env python3
-"""Compare builds of one tensor-core backward source in turns, on one GPU.
+"""Compare builds of the float32 D = 256 backward in turns, on one GPU.
 
     python3 tools/torch_flash_variants.py LABEL=SOURCE.cu [LABEL=SOURCE.cu ...]
-        [--route wgmma_f32] [--head-dim 256] [--rounds 3] [--seed N]
+        [--seed N]
 
-Each SOURCE is a variant of the backward kernel source the wrappers load
-for (``--route``, ``--head-dim``) (for wgmma_f32 at D = 256:
-``paddle_tpu_torch/kernels/csrc/flash_attention_bwd_f32_d256_sm90.cu``),
+Each SOURCE is a variant of
+``paddle_tpu_torch/kernels/csrc/flash_attention_bwd_f32_d256_sm90.cu``
 with the same C entries: a candidate layout or a tuning of it, e.g. the
 file as it stands in another commit (``git show REV:PATH > FILE``).
 
@@ -16,11 +15,11 @@ the ``-Xptxas -v`` report gives each kernel's registers and spill bytes.
 Then, in one process, the dQ and dK/dV wrappers are pointed at each
 variant's entries in turn: each variant is held against the plain
 backward (``chip_smoke.bwd_tolerance``: the reference's rtol 2e-4 / atol
-2e-5 for float32) at p = 0 and p = 0.1, and the two kernels are timed at
-``[1, 8, 1024, 256]`` and ``[2, 8, 1024, 256]`` causal (the head count
-and batch of the D = 256 model's runs), at p = 0 and p = 0.1, as device
-medians of ``2 * --rounds`` loops of 20 calls taken in turns (A B ... B
-A), so that drift of the card's clock falls on all alike.
+2e-5) at p = 0 and p = 0.1, and the two kernels are timed at
+``[1, 8, 1024, 256]`` and ``[2, 8, 1024, 256]`` float32 causal (the head
+count and batch of the D = 256 model's runs), at p = 0 and p = 0.1, as
+device medians of 6 loops of 20 calls taken in turns (A B ... B A, three
+times), so that drift of the card's clock falls on all alike.
 
 One JSON line per measurement, the card's name and power limit first.
 Needs a CUDA device and nvcc (exits 1 without a device); imports nothing
@@ -39,8 +38,10 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-SHAPES = {"B1": (1, 8, 1024), "B2": (2, 8, 1024)}  # (B, H, L), D = --head-dim
+SHAPES = {"B1": (1, 8, 1024), "B2": (2, 8, 1024)}  # (B, H, L)
+HEAD_DIM = 256
 DROPOUT_P = 0.1
+ROUNDS = 3
 
 
 def _emit(**fields) -> None:
@@ -71,15 +72,12 @@ def build(variants: dict) -> dict:
     return built
 
 
-def entries(fa, lib: str, route: str, head_dim: int) -> dict:
-    """The typed dQ and dK/dV entries of one variant's library, named as
-    the wrappers name them for (route, head dim)."""
+def entries(fa, lib: str) -> dict:
+    """The typed dQ and dK/dV entries of one variant's library."""
     handle = ctypes.CDLL(lib)
-    suffix = {("wgmma_f32", 256): "f32_d256_sm90", ("wgmma_f32", 128): "f32_sm90",
-              ("wgmma_f32", 64): "f32_sm90"}.get((route, head_dim), "sm90")
     fns = {}
     for which in ("dq", "dkv"):
-        fn = getattr(handle, f"pt_flash_attention_bwd_{which}_{suffix}")
+        fn = getattr(handle, f"pt_flash_attention_bwd_{which}_f32_d256_sm90")
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + fa._SM90_TAIL
         fn.restype = ctypes.c_int
         fns[which] = fn
@@ -89,9 +87,6 @@ def entries(fa, lib: str, route: str, head_dim: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("variants", nargs="+", metavar="LABEL=SOURCE.cu")
-    ap.add_argument("--route", default="wgmma_f32", choices=("wgmma", "wgmma_f32"))
-    ap.add_argument("--head-dim", type=int, default=256, choices=(64, 128, 256))
-    ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -110,27 +105,24 @@ def main(argv=None) -> int:
     built = build(variants)
     for label, (lib, report) in built.items():
         _emit(variant=label, source=variants[label], ptxas=report)
-    fns = {label: entries(fa, str(lib), args.route, args.head_dim)
-           for label, (lib, _) in built.items()}
+    fns = {label: entries(fa, str(lib)) for label, (lib, _) in built.items()}
 
     # the wrappers look their entries up per call: point them at a variant
-    wanted = (args.route, args.head_dim)
     default_fn = fa._bwd_sm90_fn
     current = {}
 
     def lookup(which, route, head_dim):
-        if (route, head_dim) == wanted:
+        if (route, head_dim) == ("wgmma_f32", HEAD_DIM):
             return current[which]
         return default_fn(which, route, head_dim)
 
     fa._bwd_sm90_fn = lookup
-    dtype = torch.float32 if args.route == "wgmma_f32" else torch.bfloat16
     g = torch.Generator(device="cuda")
     g.manual_seed(args.seed)
     cases = {}
     for name, (B, H, L) in SHAPES.items():
-        q, k, v, do = (torch.randn(B, H, L, args.head_dim, generator=g,
-                                   device="cuda").to(dtype) for _ in range(4))
+        q, k, v, do = (torch.randn(B, H, L, HEAD_DIM, generator=g,
+                                   device="cuda") for _ in range(4))
         for p in (0.0, DROPOUT_P):
             o, lse = fa.flash_attention_fwd(q, k, v, causal=True, dropout_p=p,
                                             seed=args.seed)
@@ -138,9 +130,8 @@ def main(argv=None) -> int:
                     else None)
             ref = fa.reference_attention_bwd(q, k, v, None, o, lse, do, True,
                                              keep)
-            delta = (do.float() * o.float()).sum(-1).contiguous()
-            terms = (fa._backward_terms(q, k, v, do)
-                     if args.route == "wgmma_f32" else None)
+            delta = (do * o).sum(-1).contiguous()
+            terms = fa._backward_terms(q, k, v, do)
             cases[(name, p)] = (q, k, v, do, o, lse, delta, terms, ref)
 
     for label in fns:
@@ -163,7 +154,7 @@ def main(argv=None) -> int:
 
     samples = {}
     order = list(fns)
-    for _ in range(args.rounds):
+    for _ in range(ROUNDS):
         for label in order + order[::-1]:
             current.update(fns[label])
             for (name, p), case in cases.items():
@@ -175,7 +166,7 @@ def main(argv=None) -> int:
                         chip_smoke._timed_loop(fn, 20))
     for (label, name, p, which), ms in samples.items():
         B, H, L = SHAPES[name]
-        _emit(variant=label, kernel=which, shape=[B, H, L, args.head_dim],
+        _emit(variant=label, kernel=which, shape=[B, H, L, HEAD_DIM],
               p=p, ms=statistics.median(ms), ms_range=[min(ms), max(ms)])
     fa._bwd_sm90_fn = default_fn
     return 0
