@@ -151,8 +151,8 @@ struct Layout {
 };
 static_assert(Layout::kBytes <= 232448, "more than a CTA's shared memory");
 
-// Which schedule a CTA's ring follows: kFull, the twelve entries above in
-// the slots of kSlotOf (dQ, and dK/dV's dK CTAs); otherwise the six
+// Which schedule a CTA's ring follows: with `full`, the twelve entries
+// above in the slots of kSlotOf (dQ, and dK/dV's dK CTAs); else the six
 // entries A2 A1 A0 Y2 Y1 Y0 of the dV CTAs, each released as soon as it is
 // used, entry n of the CTA in slot n % 4.
 struct Schedule {
