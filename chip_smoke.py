@@ -134,6 +134,14 @@ BWD_RTOL, BWD_ATOL = 2e-4, 2e-5
 # about 1e-6 of the tensor's scale)
 BWD_BF16_FLOOR = 1e-5
 PREFILL_LOGITS_TOL = 2e-3  # 24 layers of f32 rounding between two attention paths
+# Llama's prefill logits (32 layers) are held against a float64-attention
+# reference: the kernels' distance from it may be this many times plain
+# float32 attention's distance, measured in the same run. Each kernel
+# output is held to F32_FWD_RTOL relative of the plain one, 168 float32
+# unit roundoffs (2^-24): a perturbation that many times float32's
+# rounding, carried through the same 32 layers, moves the logits at most
+# about that many times as far.
+LLAMA_LOGITS_FACTOR = F32_FWD_RTOL / 2.0 ** -24
 # training, float32, kernels vs plain attention through 24 layers: loss
 # relative 1e-4, each parameter's gradient relative L2 error 1e-3
 TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_L2 = 1e-4, 1e-3
@@ -159,6 +167,19 @@ D256_F32_BWD = f"d256_f32_float32_B{TRAIN_BATCH}_H{D256_STEP_HEADS}_L{TRAIN_SEQ}
 # [1, 8, 2048, 256] float32 causal, is a case of the forward phase
 D256_PREFILL_LENGTHS = (900, 1900)
 D256_PREFILL_FWD = "prefill_f32_d256_L2048"
+# Llama-2-7B (phase 7): its attention, [1, 32, 4096, 128] causal, from
+# separate q/k/v projections, is a case of the forward phase in float32
+# (serving prefill's 4096 bucket) and bf16 (training), and of the
+# backward phase in bf16
+LLAMA_SEQ, LLAMA_HEADS = 4096, 32
+LLAMA_PREFILL_FWD = f"llama_prefill_f32_L{LLAMA_SEQ}"
+LLAMA_TRAIN_FWD = f"llama_train_bf16_L{LLAMA_SEQ}"
+LLAMA_TRAIN_BWD = f"llama_train_bfloat16_L{LLAMA_SEQ}"
+LLAMA_TRAIN_LAYERS = 8  # of 32: AdamW's state at 16 bytes a parameter
+LLAMA_GQA_KV_HEADS, LLAMA_GQA_LAYERS = 8, 2
+LLAMA_PROMPT_LENGTHS = (60, 700, 1500, 3000, 4000)
+LLAMA_SAMPLED_LENGTH = 1200
+LLAMA_LOGITS_PROMPT = 3000
 
 
 def bf16_ulp(x):
@@ -359,6 +380,16 @@ def _views(g, B, L, H, D, dtype, n=3):
     return tuple(t[:, :, i].transpose(1, 2) for i in range(n))
 
 
+def _blhd_views(g, B, L, H, D, dtype, n=3):
+    """``n`` [B, H, L, D] tensors as the Llama path hands them to the
+    kernels: transposed views of separate [B, L, H, D] tensors (the
+    rotated q and k, v; K and V repeated for GQA)."""
+    import torch
+
+    return tuple(torch.randn(B, L, H, D, generator=g, device="cuda")
+                 .to(dtype).transpose(1, 2) for _ in range(n))
+
+
 def _dtype_name(t):
     return str(t.dtype).replace("torch.", "")
 
@@ -473,6 +504,14 @@ def _fwd_cases(g):
                   True, None, "wgmma", bf16_tol))
     cases.append((D256_STEP_FWD, *_views(g, TRAIN_BATCH, TRAIN_SEQ, D256_STEP_HEADS,
                                          256, torch.bfloat16),
+                  True, None, "wgmma", bf16_tol))
+    # Llama-2-7B's attention: serving prefill's 4096 bucket (float32) and
+    # the training step's (bf16)
+    cases.append((LLAMA_PREFILL_FWD, *_blhd_views(g, 1, LLAMA_SEQ, LLAMA_HEADS,
+                                                  128, torch.float32),
+                  True, None, "wgmma_f32", f32_tol))
+    cases.append((LLAMA_TRAIN_FWD, *_blhd_views(g, 1, LLAMA_SEQ, LLAMA_HEADS,
+                                                128, torch.bfloat16),
                   True, None, "wgmma", bf16_tol))
     for dtype, D, H, route, tol in (
             (torch.float32, 128, 16, "wgmma_f32", f32_tol),
@@ -694,6 +733,10 @@ def _bwd_cases(g):
         do = rn(TRAIN_BATCH, TRAIN_SEQ, D256_STEP_HEADS, 256).to(
             dtype).transpose(1, 2)
         cases.append((name, q, k, v, do, True, None, _both(route)))
+    # Llama-2-7B's training attention, as its autograd hands it over
+    q, k, v = _blhd_views(g, 1, LLAMA_SEQ, LLAMA_HEADS, 128, torch.bfloat16)
+    do = rn(1, LLAMA_SEQ, LLAMA_HEADS, 128).to(torch.bfloat16).transpose(1, 2)
+    cases.append((LLAMA_TRAIN_BWD, q, k, v, do, True, None, _both("wgmma")))
     return cases
 
 
@@ -1062,25 +1105,37 @@ def _prefill_logits_err(model, prompt, cache_len: int) -> float:
     return err
 
 
-def _serving_model(seed: int, **overrides):
-    """A gpt_1p3b-width GPTForCausalLM for serving (float32 parameters,
-    bf16 KV cache, random weights from ``seed``), warmed up outside any
-    measured run (cuBLAS handles, allocator pools); ``(model, build s)``."""
+def _model_cls(cfg):
+    """The port's causal-LM class of ``cfg``'s family."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    return LlamaForCausalLM if isinstance(cfg, LlamaConfig) else GPTForCausalLM
+
+
+def _gpt_serving_config(**overrides):
+    """gpt_1p3b for serving: dropout 0, bf16 KV cache."""
+    from paddle_tpu_torch.models.gpt import gpt_1p3b
+
+    return gpt_1p3b(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                    dtype="bfloat16", **overrides)
+
+
+def _serving_model(seed: int, cfg):
+    """A model of ``cfg`` for serving (float32 parameters, random weights
+    from ``seed``), warmed up outside any measured run (cuBLAS handles,
+    allocator pools); ``(model, build s)``."""
     import numpy as np
     import torch
 
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_1p3b
-
-    cfg = gpt_1p3b(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
-                   dtype="bfloat16", **overrides)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     t0 = time.perf_counter()
-    model = GPTForCausalLM(cfg, device="cuda", generator=gen).eval()
+    model = _model_cls(cfg)(cfg, device="cuda", generator=gen).eval()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     model.generate(np.zeros((1, 8), np.int64), max_new_tokens=2,
-                   max_length=2048)
+                   max_length=cfg.max_position_embeddings)
     torch.cuda.synchronize()
     return model, build_s
 
@@ -1093,7 +1148,8 @@ def phase_serving(seed: int) -> dict:
     import numpy as np
     import torch
 
-    model, build_s = _serving_model(seed)
+    torch.cuda.reset_peak_memory_stats()
+    model, build_s = _serving_model(seed, _gpt_serving_config())
     cfg = model.cfg
     rng = np.random.default_rng(seed)
     requests = [dict(prompt=rng.integers(0, cfg.vocab_size, n), max_new_tokens=16)
@@ -1135,8 +1191,8 @@ def phase_d256_prefill(seed: int) -> dict:
     import numpy as np
 
     n = 2  # layers
-    model, build_s = _serving_model(seed, num_layers=n,
-                                    num_heads=D256_STEP_HEADS)
+    model, build_s = _serving_model(seed, _gpt_serving_config(
+        num_layers=n, num_heads=D256_STEP_HEADS))
     rng = np.random.default_rng(seed + 3)
     requests = [dict(prompt=rng.integers(0, model.cfg.vocab_size, length),
                      max_new_tokens=8) for length in D256_PREFILL_LENGTHS]
@@ -1187,11 +1243,10 @@ def _o2_step(cfg, seed: int, global_seed: int):
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.framework import random as framework_random
     from paddle_tpu_torch.framework.jit import TrainStep
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
 
     framework_random.seed(global_seed)
-    model = GPTForCausalLM(cfg, device="cuda", generator=torch.Generator(
+    model = _model_cls(cfg)(cfg, device="cuda", generator=torch.Generator(
         device="cuda").manual_seed(seed)).train()
     model, opt = amp.decorate(model, AdamW(learning_rate=1e-4,
                                            weight_decay=0.01),
@@ -1206,24 +1261,36 @@ def _free():
     torch.cuda.empty_cache()
 
 
-def phase_training(seed: int) -> dict:
-    """The GPT-3 1.3B bf16 (O2) pretrain step, 5 warm-up and 8 timed."""
+# what may stay allocated on the card between phases (the RoPE tables,
+# cuBLAS workspaces): a phase that finds more was left a model
+LEFTOVER_GIB = 2.0
+
+
+def _check_freed(phase: str) -> float:
+    """GiB allocated on the card as ``phase`` starts; raises past
+    LEFTOVER_GIB."""
+    import torch
+
+    gib = torch.cuda.memory_allocated() / 2 ** 30
+    if gib > LEFTOVER_GIB:
+        raise AssertionError(f"{phase}: {gib} GiB still allocated from the "
+                             f"phases before it")
+    return gib
+
+
+def _train_run(phase: str, label: str, step, ids, need, flops_per_token,
+               build_s: float, **report) -> dict:
+    """TRAIN_WARMUP + TRAIN_TIMED steps of ``step`` on ``(ids, ids)``:
+    finite losses that fall, exactly ``need`` launches (in the order of
+    _COUNT_NAMES) every step, and a fresh batch's loss afterwards above
+    half the first loss (no step saw the tokens it predicts); reports the
+    median of the timed steps (host clock, synchronised), tokens/s, MFU
+    against the bf16 peak and peak memory."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.models.gpt import gpt_flops_per_token
 
-    cfg = _train_config()
-    t0 = time.perf_counter()
-    step = _o2_step(cfg, seed, seed)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    ids = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
-    # bf16 at D = 128: the wgmma forward (and its recompute), dQ and dK/dV
-    need = (0, 2 * cfg.num_layers, 0, 0, cfg.num_layers, 0, 0,
-            cfg.num_layers, 0)
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms, per_step = [], [], []
     fa.reset_launch_counts()
@@ -1238,17 +1305,31 @@ def phase_training(seed: int) -> dict:
         per_step.append(tuple(a - b for a, b in zip(_counts(fa), before)))
     launches = _counts(fa)
     if any(c != need for c in per_step):
-        raise AssertionError(f"launches per step {_COUNT_NAMES} {per_step}, "
-                             f"expected {need} every step")
+        raise AssertionError(f"{phase}: launches per step {_COUNT_NAMES} "
+                             f"{per_step}, expected {need} every step")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"training losses {losses}: not finite or not "
+        raise AssertionError(f"{phase}: losses {losses}: not finite or not "
                              f"falling")
+    # the steps repeat one batch, and a model that can see only earlier
+    # tokens learns nothing from it about a fresh batch, whose loss stays
+    # high however far the trained batch's falls; an attention mask that
+    # let a position see the token it predicts would let the model copy
+    # it, and the fresh batch's loss fall as well
+    fresh = torch.as_tensor(np.random.default_rng(ids.size).integers(
+        0, step.model.cfg.vocab_size, ids.shape), device="cuda")
+    with torch.no_grad():
+        fresh_loss = float(step.model(fresh, fresh))
+    if not fresh_loss > losses[0] / 2:
+        raise AssertionError(f"{phase}: a fresh batch's loss {fresh_loss} "
+                             f"after training on one batch (first loss "
+                             f"{losses[0]}): the model may see the tokens "
+                             f"it predicts")
     timed = step_ms[TRAIN_WARMUP:]
-    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_TIMED / (sum(timed) / 1e3)
-    flops_per_token = gpt_flops_per_token(cfg, TRAIN_SEQ)
-    out = dict(model="gpt_1p3b O2 bf16", batch=[TRAIN_BATCH, TRAIN_SEQ],
+    tokens_per_s = ids.size * TRAIN_TIMED / (sum(timed) / 1e3)
+    out = dict(model=label, **report, batch=list(ids.shape),
                params=sum(p.numel() for p in step.params.values()),
                model_build_s=build_s, losses=losses,
+               fresh_batch_loss=fresh_loss,
                launches=dict(zip(_COUNT_NAMES, launches)),
                launches_per_step=dict(zip(_COUNT_NAMES, need)),
                step_ms=step_ms, step_ms_median=float(np.median(timed)),
@@ -1257,8 +1338,29 @@ def phase_training(seed: int) -> dict:
                flops_per_token=flops_per_token,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                card=nvidia_smi_line())
-    emit("training", **out)
+    emit(phase, **out)
     return out
+
+
+def phase_training(seed: int) -> dict:
+    """The GPT-3 1.3B bf16 (O2) pretrain step, 5 warm-up and 8 timed."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models.gpt import gpt_flops_per_token
+
+    cfg = _train_config()
+    t0 = time.perf_counter()
+    step = _o2_step(cfg, seed, seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    # bf16 at D = 128: the wgmma forward (and its recompute), dQ and dK/dV
+    need = (0, 2 * cfg.num_layers, 0, 0, cfg.num_layers, 0, 0,
+            cfg.num_layers, 0)
+    return _train_run("training", "gpt_1p3b O2 bf16", step, ids, need,
+                      gpt_flops_per_token(cfg, TRAIN_SEQ), build_s)
 
 
 def phase_train_parity(seed: int) -> dict:
@@ -1372,33 +1474,28 @@ def _loss_and_grads(model, ids):
     return loss.item(), torch.autograd.grad(loss, list(model.parameters()))
 
 
-def phase_d256_step(seed: int) -> dict:
-    """The bf16 O2 step at gpt_1p3b width with 8 heads of 256 (D = 256) and
-    2 layers, from one seed with the flash kernels and with plain
-    attention. Before each step, the gradients of its loss: the kernels'
-    may differ from plain attention's by at most BF16_GRAD_SLACK times
-    what bf16 puts between plain attention's and a float32 reference
-    (the same weights, plain attention, float32), parameter by parameter
-    in relative L2. Then one step each: the losses agree within BF16_ULPS
-    bf16 ulps, and the kernel step launches exactly 2 forwards per layer
-    (recompute included), one dQ and one dK/dV, all on the wgmma route."""
+def _bf16_step_vs_plain(seed: int, phase: str, make_cfg, ids, **report):
+    """The bf16 O2 step of ``make_cfg(flash)`` from one seed with the
+    flash kernels and with plain attention. Before each step, the
+    gradients of its loss: the kernels' may differ from plain attention's
+    by at most BF16_GRAD_SLACK times what bf16 puts between plain
+    attention's and a float32 reference (the same weights, plain
+    attention, float32), parameter by parameter in relative L2. Then one
+    step each: the losses agree within BF16_ULPS bf16 ulps, and the kernel
+    step launches exactly 2 forwards per layer (recompute included), one
+    dQ and one dK/dV, all on the wgmma route, the plain step none."""
     import copy
 
-    import numpy as np
     import torch
 
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    n = 2  # layers
-    vocab = _train_config().vocab_size
-    ids = np.random.default_rng(seed).integers(
-        0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    n = make_cfg(True).num_layers
     ids_t = torch.as_tensor(ids, device="cuda")
     need = (0, 2 * n, 0, 0, n, 0, 0, n, 0)
 
     def one_step(flash: bool):
-        step = _o2_step(_train_config(num_layers=n, num_heads=D256_STEP_HEADS,
-                                      use_flash_attention=flash), seed, seed)
+        step = _o2_step(make_cfg(flash), seed, seed)
         _, grads = _loss_and_grads(step.model, ids_t)
         ref_grads = None
         if not flash:
@@ -1416,12 +1513,12 @@ def phase_d256_step(seed: int) -> dict:
     _free()
     loss_p, plain_launches, grads_p, grads_ref, _ = one_step(False)
     if launches != need or any(plain_launches):
-        raise AssertionError(f"D = 256 step launches {_COUNT_NAMES} "
+        raise AssertionError(f"{phase}: step launches {_COUNT_NAMES} "
                              f"{launches}, expected {need}; the plain step "
                              f"{plain_launches}")
     tol = BF16_ULPS * bf16_ulp(torch.tensor(loss_p)).item()
     if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= tol):
-        raise AssertionError(f"D = 256 step: loss {loss_k} with the kernels, "
+        raise AssertionError(f"{phase}: loss {loss_k} with the kernels, "
                              f"{loss_p} with plain attention (limit {tol})")
     # per parameter, relative to the reference's norm: kernels vs plain
     # attention, plain attention vs the float32 reference, and the share of
@@ -1436,20 +1533,198 @@ def phase_d256_step(seed: int) -> dict:
     worst = max(range(len(share)), key=share.__getitem__)
     if not all(math.isfinite(x) for x in rel_kp) or share[worst] > 1.0:
         raise AssertionError(
-            f"D = 256 gradients, kernels vs plain attention: {names[worst]} "
+            f"{phase}: gradients, kernels vs plain attention: {names[worst]} "
             f"at relative L2 {rel_kp[worst]}, {share[worst]} of its limit "
             f"({BF16_GRAD_SLACK} x plain attention's {rel_pr[worst]} from "
             f"the float32 reference)")
-    out = dict(model="gpt_1p3b width, 8 heads of 256, 2 layers, O2 bf16",
-               head_dim=256, layers=n,
+    out = dict(**report, layers=n, batch=list(ids.shape),
                loss_kernel=loss_k, loss_plain=loss_p, tol=tol,
                grad_rel_l2_kernel_vs_plain_max=max(rel_kp),
                grad_rel_l2_plain_vs_f32_max=max(rel_pr),
                grad_worst_param=names[worst],
                grad_worst_share_of_tol=share[worst],
                launches=dict(zip(_COUNT_NAMES, launches)))
-    emit("d256_step", **out)
+    emit(phase, **out)
     return out
+
+
+def phase_d256_step(seed: int) -> dict:
+    """_bf16_step_vs_plain at gpt_1p3b width with 8 heads of 256 (D = 256)
+    and 2 layers, batch TRAIN_BATCH x TRAIN_SEQ."""
+    import numpy as np
+
+    vocab = _train_config().vocab_size
+    ids = np.random.default_rng(seed).integers(
+        0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    return _bf16_step_vs_plain(
+        seed, "d256_step",
+        lambda flash: _train_config(num_layers=2, num_heads=D256_STEP_HEADS,
+                                    use_flash_attention=flash), ids,
+        model="gpt_1p3b width, 8 heads of 256, 2 layers, O2 bf16",
+        head_dim=256)
+
+
+def _llama_config(**overrides):
+    """llama2_7b at full width (bf16 KV cache: serving's storage type)."""
+    from paddle_tpu_torch.models.llama import llama2_7b
+
+    return llama2_7b(dtype="bfloat16", **overrides)
+
+
+def _attention_f64(q, k, v, dropout_p=0.0, training=True, use_flash=True):
+    """Causal attention on [B, L, H, D] in float64, cast back to q's
+    dtype: the reference of the Llama prefill logits check."""
+    import torch
+
+    del dropout_p, training, use_flash  # prefill: no dropout, no kernel
+    L, D = q.shape[1], q.shape[3]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) / math.sqrt(D)
+    s.masked_fill_(torch.ones(L, L, dtype=torch.bool,
+                              device=q.device).triu(1), -math.inf)
+    p = torch.softmax(s, dim=-1)
+    del s
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.double()).to(q.dtype)
+
+
+def _prefill_logits_vs_f64(model, prompt, cache_len: int) -> dict:
+    """One prompt's prefill logits through every layer with the kernels,
+    with plain float32 attention and with float64 attention (the rest of
+    the model float32 in all three): the kernels' distance from the
+    float64 logits may be LLAMA_LOGITS_FACTOR times plain attention's."""
+    import torch
+
+    from paddle_tpu_torch.models import lm_utils
+    from paddle_tpu_torch.models.generation import init_cache
+
+    ids = torch.as_tensor(prompt[None], device="cuda")
+
+    def prefill_logits():
+        with torch.inference_mode():
+            return model(ids, cache=init_cache(model, 1, cache_len),
+                         position_offset=0)[0]
+
+    flash = prefill_logits()
+    plain_attention = lm_utils.causal_attention
+    model.cfg.use_flash_attention = False
+    try:
+        plain = prefill_logits()
+        lm_utils.causal_attention = _attention_f64
+        ref = prefill_logits()
+    finally:
+        lm_utils.causal_attention = plain_attention
+        model.cfg.use_flash_attention = True
+    if not bool(torch.isfinite(flash).all()):
+        raise AssertionError("non-finite prefill logits")
+    err_kernel = (flash - ref).abs().max().item()
+    err_plain = (plain - ref).abs().max().item()
+    limit = LLAMA_LOGITS_FACTOR * err_plain
+    if not err_kernel <= limit:
+        raise AssertionError(f"prefill logits, kernels vs float64 attention: "
+                             f"max|err| {err_kernel} > {limit} "
+                             f"({LLAMA_LOGITS_FACTOR} x plain float32 "
+                             f"attention's {err_plain})")
+    return dict(prompt_len=len(prompt), logits_max_abs=ref.abs().max().item(),
+                kernel_vs_f64_max_abs_err=err_kernel,
+                plain_vs_f64_max_abs_err=err_plain,
+                kernel_vs_plain_max_abs_err=(flash - plain).abs().max().item(),
+                limit=limit, share_of_limit=err_kernel / limit)
+
+
+def phase_llama_serving(seed: int) -> dict:
+    """llama2_7b at full width and depth (random float32 weights from
+    ``seed``, bf16 KV cache) behind InferenceServer(slots=4,
+    max_length=4096): six requests held to the serving checks
+    (_serve_and_check: the wgmma_f32 forward and its split 32 times per
+    prefill), and the 3000-token prompt's prefill logits against float64
+    attention (_prefill_logits_vs_f64)."""
+    import numpy as np
+    import torch
+
+    mem_before = _check_freed("llama_serving")
+    torch.cuda.reset_peak_memory_stats()
+    model, build_s = _serving_model(seed, _llama_config())
+    cfg = model.cfg
+    rng = np.random.default_rng(seed + 5)
+    requests = [dict(prompt=rng.integers(0, cfg.vocab_size, n),
+                     max_new_tokens=16) for n in LLAMA_PROMPT_LENGTHS]
+    requests.append(dict(prompt=rng.integers(0, cfg.vocab_size,
+                                             LLAMA_SAMPLED_LENGTH),
+                         max_new_tokens=16, do_sample=True, seed=7,
+                         temperature=0.8, top_p=0.9))
+    handles, snap, launches, split_launches, wall_s = _serve_and_check(
+        model, requests, 4, dict(max_length=LLAMA_SEQ))
+    logits = _prefill_logits_vs_f64(
+        model, requests[LLAMA_PROMPT_LENGTHS.index(LLAMA_LOGITS_PROMPT)]["prompt"],
+        LLAMA_SEQ)
+    out = dict(model="llama2_7b", layers=cfg.num_layers, heads=cfg.num_heads,
+               kv_heads=cfg.num_kv_heads,
+               params=sum(p.numel() for p in model.parameters()),
+               model_build_s=build_s, mem_before_gib=mem_before,
+               requests=len(requests),
+               prompt_lens=[len(r["prompt"]) for r in requests],
+               streams_equal_solo=True, flash_launches=launches,
+               split_launches=split_launches,
+               prefills=snap["prefills"], decode_steps=snap["decode_steps"],
+               wall_s=wall_s, tokens=snap["tokens_emitted"],
+               tokens_per_s=snap["tokens_emitted"] / wall_s,
+               ttft_ms=[h.ttft_s * 1e3 for h in handles],
+               decode_ms_per_token=snap["inter_token"]["mean_ms"],
+               decode_ms_per_token_p50=snap["inter_token"]["p50_ms"],
+               prefill_logits=logits,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               card=nvidia_smi_line())
+    emit("llama_serving", **out)
+    return out
+
+
+def phase_llama_training(seed: int) -> dict:
+    """The bf16 O2 step of llama2_7b at full width, cut to
+    LLAMA_TRAIN_LAYERS layers (recompute, chunked loss of 256, AdamW(1e-4,
+    wd 0.01), batch 1 x 4096): 5 warm-up and 8 timed steps, exactly 16
+    wgmma forward, 8 dQ and 8 dK/dV launches per step."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models.llama import llama_flops_per_token
+
+    mem_before = _check_freed("llama_training")
+    cfg = _llama_config(num_layers=LLAMA_TRAIN_LAYERS, use_recompute=True,
+                        loss_chunk=256)
+    t0 = time.perf_counter()
+    step = _o2_step(cfg, seed, seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, LLAMA_SEQ)).astype(np.int32)
+    n = cfg.num_layers
+    need = (0, 2 * n, 0, 0, n, 0, 0, n, 0)
+    return _train_run("llama_training",
+                      f"llama2_7b, {n} of 32 layers, O2 bf16", step, ids,
+                      need, llama_flops_per_token(cfg, LLAMA_SEQ), build_s,
+                      reduced=f"num_layers 32 -> {n} (optimizer state)",
+                      mem_before_gib=mem_before)
+
+
+def phase_llama_gqa_grads(seed: int) -> dict:
+    """_bf16_step_vs_plain on llama2_7b with LLAMA_GQA_KV_HEADS KV heads
+    (4 query heads each) and LLAMA_GQA_LAYERS layers at [1, 4096]: GQA's
+    repeat of K and V (a sum over each group in the backward) feeds the
+    kernels' dK and dV."""
+    import numpy as np
+
+    mem_before = _check_freed("llama_gqa_grads")
+    ids = np.random.default_rng(seed + 6).integers(
+        0, _llama_config().vocab_size, (1, LLAMA_SEQ)).astype(np.int32)
+    return _bf16_step_vs_plain(
+        seed, "llama_gqa_grads",
+        lambda flash: _llama_config(
+            num_layers=LLAMA_GQA_LAYERS, num_kv_heads=LLAMA_GQA_KV_HEADS,
+            use_recompute=True, loss_chunk=256, use_flash_attention=flash),
+        ids, model=f"llama2_7b width, {LLAMA_GQA_KV_HEADS} KV heads, "
+                   f"{LLAMA_GQA_LAYERS} layers, O2 bf16",
+        kv_heads=LLAMA_GQA_KV_HEADS, head_dim=128,
+        reduced=f"num_layers 32 -> {LLAMA_GQA_LAYERS}, num_kv_heads 32 -> "
+                f"{LLAMA_GQA_KV_HEADS}", mem_before_gib=mem_before)
 
 
 def main(argv=None) -> int:
@@ -1494,6 +1769,12 @@ def main(argv=None) -> int:
     d256_f32 = phase_d256_f32(args.seed)
     _free()
     d256_prefill = phase_d256_prefill(args.seed)
+    _free()
+    llama_serve = phase_llama_serving(args.seed)
+    _free()
+    llama_train = phase_llama_training(args.seed)
+    _free()
+    llama_gqa = phase_llama_gqa_grads(args.seed)
 
     src = "paddle_tpu_torch/kernels/csrc/"
     ref = "paddle_tpu/kernels/flash_attention.py:"
@@ -1587,6 +1868,31 @@ def main(argv=None) -> int:
                 "flash_attention_bwd_f32_d256_sm90.cu", "dkv", D256_F32_BWD,
                 d256_f32["launches"]["dkv_wgmma_f32"], d256_f32_path),
     ]
+    # Llama-2-7B's attention, [1, 32, 4096, 128] causal, per Llama path
+    llama_prefill = "serving (llama2_7b float32 prefill)"
+    kernels += [
+        fwd_row("flash_attention_fwd_f32_sm90_llama",
+                "flash_attention_fwd_f32_sm90.cu", LLAMA_PREFILL_FWD,
+                llama_serve["flash_launches"], llama_prefill),
+        fwd_row("split_bf16_terms_llama", "flash_attention_fwd_f32_sm90.cu",
+                "split_" + LLAMA_PREFILL_FWD, llama_serve["split_launches"],
+                llama_prefill)]
+    for suffix, run, path in (
+            ("llama", llama_train,
+             f"training (llama2_7b bf16 O2 step, {LLAMA_TRAIN_LAYERS} layers)"),
+            ("llama_gqa", llama_gqa,
+             f"training (llama2_7b GQA gradients, {LLAMA_GQA_LAYERS} layers)")):
+        counts = run["launches"]
+        kernels += [
+            fwd_row(f"flash_attention_fwd_sm90_{suffix}",
+                    "flash_attention_fwd_sm90.cu", LLAMA_TRAIN_FWD,
+                    counts["fwd_wgmma"], path),
+            bwd_row(f"flash_attention_bwd_dq_sm90_{suffix}",
+                    "flash_attention_bwd_dq_sm90.cu", "dq", LLAMA_TRAIN_BWD,
+                    counts["dq_wgmma"], path),
+            bwd_row(f"flash_attention_bwd_dkv_sm90_{suffix}",
+                    "flash_attention_bwd_dkv_sm90.cu", "dkv", LLAMA_TRAIN_BWD,
+                    counts["dkv_wgmma"], path)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""The subset of ``paddle_tpu/nn/functional.py`` that the GPT serving and
-training paths use, in PyTorch.
+"""The subset of ``paddle_tpu/nn/functional.py`` that the GPT and Llama
+serving and training paths use, in PyTorch.
 
 Weights keep the JAX package's layout: a linear weight is ``[in, out]``
 (paddle's convention), not torch's ``[out, in]``, so converted
@@ -12,7 +12,8 @@ import torch.nn.functional as _F
 
 from .layer import take_rng_key
 
-__all__ = ["linear", "gelu", "layer_norm", "dropout", "cross_entropy"]
+__all__ = ["linear", "gelu", "silu", "layer_norm", "rms_norm", "dropout",
+           "cross_entropy"]
 
 
 def linear(x, weight, bias=None):
@@ -29,6 +30,12 @@ def gelu(x, approximate: bool = False):
     return _F.gelu(x, approximate="tanh" if approximate else "none")
 
 
+def silu(x):
+    """``x * sigmoid(x)`` (``jax.nn.silu``, ``functional.py:29``): the gate
+    of Llama's SwiGLU MLP."""
+    return _F.silu(x)
+
+
 def layer_norm(x, normalized_shape, weight=None, bias=None,
                epsilon: float = 1e-5):
     """LayerNorm with the reference's numerics: statistics in float32 for
@@ -42,6 +49,20 @@ def layer_norm(x, normalized_shape, weight=None, bias=None,
         out = out * weight
     if bias is not None:
         out = out + bias
+    return out
+
+
+def rms_norm(x, weight=None, epsilon: float = 1e-6):
+    """RMSNorm with the reference's numerics (``functional.py:207-216``):
+    ``x * rsqrt(mean(x^2) + eps)`` in float32 for half-precision inputs,
+    cast back to x's dtype, and only then times ``weight``. Under O2 that
+    order decides the bf16 rounding."""
+    half = x.dtype in (torch.bfloat16, torch.float16)
+    xf = x.float() if half else x
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = (xf * torch.rsqrt(var + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight
     return out
 
 

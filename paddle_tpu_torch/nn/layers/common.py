@@ -31,17 +31,20 @@ def _normal(shape, std: float, device, generator: Optional[torch.Generator]):
 
 class Linear(nn.Module):
     """``y = x @ weight + bias``; weight ``[in, out]`` drawn from
-    ``Normal(0, std)``, bias zeros."""
+    ``Normal(0, std)``, bias zeros. ``has_bias=False`` registers no bias
+    parameter at all (``bias`` is None), as the reference's Llama
+    projections (``mp_layers.py:87-91``)."""
 
     def __init__(self, in_features: int, out_features: int, *,
-                 std: float = 0.02, device=None,
+                 std: float = 0.02, has_bias: bool = True, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
         self.weight = nn.Parameter(
             _normal((in_features, out_features), std, device, generator))
-        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
+                     if has_bias else None)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)

@@ -1,4 +1,5 @@
-"""``LayerNorm`` (port of ``paddle_tpu/nn/layers/norm.py:136``)."""
+"""``LayerNorm`` and ``RMSNorm`` (port of ``paddle_tpu/nn/layers/norm.py:136,
+161``)."""
 from __future__ import annotations
 
 import torch
@@ -6,7 +7,7 @@ from torch import nn
 
 from .. import functional as F
 
-__all__ = ["LayerNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]
 
 
 class LayerNorm(nn.Module):
@@ -31,3 +32,19 @@ class LayerNorm(nn.Module):
 
     def extra_repr(self) -> str:
         return f"normalized_shape={self.normalized_shape}, epsilon={self.epsilon}"
+
+
+class RMSNorm(nn.Module):
+    """The Llama family's norm: one parameter, ``weight`` (ones)."""
+
+    def __init__(self, hidden_size: int, epsilon: float = 1e-6, *,
+                 device=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(hidden_size, device=device))
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self.epsilon)
+
+    def extra_repr(self) -> str:
+        return f"{self.weight.shape[0]}, epsilon={self.epsilon}"

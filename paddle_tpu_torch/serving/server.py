@@ -133,7 +133,7 @@ class RequestHandle:
 
 class InferenceServer:
     """Continuous-batching server around a causal LM exposing
-    ``cache_spec()`` and the cached forward (the GPT family here).
+    ``cache_spec()`` and the cached forward (the GPT and Llama families).
 
     ``slots`` fixes the decode batch geometry; ``top_k``/``allow_top_p``
     are server-wide sampling settings; every other sampling knob is per

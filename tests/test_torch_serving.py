@@ -273,6 +273,8 @@ def test_port_imports_no_jax_or_reference_package():
                  "paddle_tpu_torch/optimizer/optimizer.py",
                  "paddle_tpu_torch/amp/auto_cast.py",
                  "paddle_tpu_torch/distributed/parallel/recompute.py",
+                 "paddle_tpu_torch/models/llama.py",
+                 "paddle_tpu_torch/convert.py",
                  "tools/torch_train_profile.py"):
         assert path in scanned
     bad = [(f.relative_to(REPO).as_posix(), m) for f in files

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's serving path, on one GPU.
 
-    python3 tools/torch_serve_profile.py [--seed N]
+    python3 tools/torch_serve_profile.py [--seed N] [--model llama2_7b]
 
 Builds ``gpt_1p3b`` (full width, random weights from ``--seed``, bf16 KV
 cache) on ``cuda``, fills every slot of a ``ContinuousBatchingEngine``
@@ -14,6 +14,10 @@ with a ``PROMPT_LEN``-token prompt, then:
   ``torch.profiler`` and prints the GPU-kernel time by kernel and the
   kernel launch count, per step / per prefill. Kernel time over the
   untraced host-clock time is the device's busy share.
+
+``--model llama2_7b`` does the same for Llama-2-7B at full width and
+depth (float32 weights, bf16 KV cache, 4096 positions): the buckets go
+up to 4096 and the traced prefill is the 4096-token one.
 
 One JSON line per measurement; the card's name and power limit first.
 Needs a CUDA device (exits 1 without one). Imports nothing of JAX.
@@ -69,6 +73,8 @@ def _profile(fn, label: str, calls: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--model", choices=("gpt_1p3b", "llama2_7b"),
+                    default="gpt_1p3b")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -78,21 +84,27 @@ def main(argv=None) -> int:
         print("torch_serve_profile: needs a CUDA device", file=sys.stderr)
         return 1
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_1p3b
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
     from paddle_tpu_torch.serving import ContinuousBatchingEngine, Request
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    _emit(card=card, torch=torch.__version__)
-    cfg = gpt_1p3b(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
-                   dtype="bfloat16")
-    model = GPTForCausalLM(cfg, device="cuda", generator=torch.Generator(
+    _emit(card=card, torch=torch.__version__, model=args.model)
+    if args.model == "llama2_7b":
+        cfg, model_cls = llama2_7b(dtype="bfloat16"), LlamaForCausalLM
+    else:
+        cfg = gpt_1p3b(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                       dtype="bfloat16")
+        model_cls = GPTForCausalLM
+    max_len = cfg.max_position_embeddings
+    model = model_cls(cfg, device="cuda", generator=torch.Generator(
         "cuda").manual_seed(args.seed)).eval()
-    engine = ContinuousBatchingEngine(model, slots=SLOTS, max_length=2048)
+    engine = ContinuousBatchingEngine(model, slots=SLOTS, max_length=max_len)
     rng = np.random.default_rng(args.seed)
     for s in range(SLOTS):
         engine.admit(Request(prompt=rng.integers(0, cfg.vocab_size, PROMPT_LEN),
-                             max_new_tokens=2048 - PROMPT_LEN), s)
+                             max_new_tokens=max_len - PROMPT_LEN), s)
     for _ in range(3):  # warm-up
         engine.step()
     times = []
@@ -108,7 +120,7 @@ def main(argv=None) -> int:
     for s in range(SLOTS):
         engine.release(s)
     prefill = {}
-    for L in (64, 512, 1024, 2048):
+    for L in (b for b in (64, 512, 1024, 2048, 4096) if b <= max_len):
         req = Request(prompt=rng.integers(0, cfg.vocab_size, L - 1),
                       max_new_tokens=1)
         engine.admit(req, 0)  # warm-up at this bucket
@@ -118,9 +130,10 @@ def main(argv=None) -> int:
         prefill[L] = (time.perf_counter() - t0) * 1e3
         engine.release(0)
     _emit(measure="prefill_ms_by_bucket", **{str(k): v for k, v in prefill.items()})
-    req = Request(prompt=rng.integers(0, cfg.vocab_size, 2047), max_new_tokens=1)
+    req = Request(prompt=rng.integers(0, cfg.vocab_size, max_len - 1),
+                  max_new_tokens=1)
     _profile(lambda: (engine.admit(req, 0), engine.release(0)),
-             "prefill_2048", 1)
+             f"prefill_{max_len}", 1)
     return 0
 
 

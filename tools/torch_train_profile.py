@@ -2,6 +2,7 @@
 """Where the time goes in the port's training step, on one GPU.
 
     python3 tools/torch_train_profile.py [--seed N] [--dtype float32]
+                                         [--model llama2_7b]
 
 Builds the GPT-3 1.3B pretrain step of ``bench.py``'s ``bench_gpt_1p3b``
 on ``cuda`` (hidden 2048, 24 layers, 16 heads, vocab 50304, 1024
@@ -18,7 +19,10 @@ weight decay 0.01) under ``amp.decorate`` O2 bf16; random weights from
 
 ``--dtype float32`` trains the same model in float32 instead (no
 ``amp.decorate``: float32 parameters, as the reference keeps them, and
-the float32 attention kernels, route ``wgmma_f32``).
+the float32 attention kernels, route ``wgmma_f32``). ``--model
+llama2_7b`` profiles ``chip_smoke.py``'s Llama step instead: Llama-2-7B
+at full width cut to 8 layers (its AdamW state at 32 layers outgrows
+one card), recompute, chunked loss of 256, on a ``[1, 4096]`` batch.
 
 One JSON line per measurement; the card's name and power limit first.
 Needs a CUDA device (exits 1 without one). Imports nothing of JAX.
@@ -35,6 +39,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 BATCH, SEQ = 2, 1024   # bench_gpt_1p3b
+LLAMA_BATCH, LLAMA_SEQ, LLAMA_LAYERS = 1, 4096, 8
 WARMUP = 5             # steps before the timed ones
 STEPS = 8              # timed steps
 TRACED = 2             # profiled steps
@@ -101,6 +106,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     default="bfloat16",
                     help="bfloat16: O2 (bench_gpt_1p3b); float32: no amp")
+    ap.add_argument("--model", choices=("gpt_1p3b", "llama2_7b"),
+                    default="gpt_1p3b")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -114,25 +121,37 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.framework.jit import TrainStep
     from paddle_tpu_torch.models.gpt import (GPTForCausalLM, gpt_1p3b,
                                              gpt_flops_per_token)
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM, llama2_7b,
+                                               llama_flops_per_token)
     from paddle_tpu_torch.optimizer import AdamW
 
     default_device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    _emit(card=card, torch=torch.__version__, dtype=args.dtype)
-    cfg = gpt_1p3b(max_position_embeddings=SEQ, hidden_dropout_prob=0.0,
-                   attention_dropout_prob=0.0, use_recompute=True,
-                   use_flash_attention=True, loss_chunk=256, dtype="bfloat16")
+    _emit(card=card, torch=torch.__version__, dtype=args.dtype,
+          model=args.model)
+    if args.model == "llama2_7b":
+        batch_size, seq = LLAMA_BATCH, LLAMA_SEQ
+        cfg = llama2_7b(num_layers=LLAMA_LAYERS, use_recompute=True,
+                        loss_chunk=256, dtype="bfloat16")
+        model_cls, flops_per_token = LlamaForCausalLM, llama_flops_per_token
+    else:
+        batch_size, seq = BATCH, SEQ
+        cfg = gpt_1p3b(max_position_embeddings=SEQ, hidden_dropout_prob=0.0,
+                       attention_dropout_prob=0.0, use_recompute=True,
+                       use_flash_attention=True, loss_chunk=256,
+                       dtype="bfloat16")
+        model_cls, flops_per_token = GPTForCausalLM, gpt_flops_per_token
     framework_random.seed(args.seed)
-    model = GPTForCausalLM(cfg, device="cuda", generator=torch.Generator(
+    model = model_cls(cfg, device="cuda", generator=torch.Generator(
         "cuda").manual_seed(args.seed)).train()
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01)
     if args.dtype == "bfloat16":
         model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
     step = TrainStep(model, opt, loss_fn=None)
     ids = np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32)
+        0, cfg.vocab_size, (batch_size, seq)).astype(np.int32)
     batch = (ids, ids)
     for _ in range(WARMUP):
         float(step(batch))
@@ -142,12 +161,12 @@ def main(argv=None) -> int:
         float(step(batch))
         times.append((time.perf_counter() - t0) * 1e3)
     median = float(np.median(times))
-    tokens_per_s = BATCH * SEQ / (median / 1e3)
+    tokens_per_s = batch_size * seq / (median / 1e3)
     _emit(measure="train_step_ms", steps=STEPS, median=median,
           p25=float(np.percentile(times, 25)),
           p75=float(np.percentile(times, 75)), all=times,
           tokens_per_s=tokens_per_s,
-          mfu=tokens_per_s * gpt_flops_per_token(cfg, SEQ) / 989e12,
+          mfu=tokens_per_s * flops_per_token(cfg, seq) / 989e12,
           peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
     rows = _profile(lambda: [float(step(batch)) for _ in range(TRACED)],
