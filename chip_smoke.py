@@ -23,7 +23,10 @@ exits non-zero:
                each case checked for its route and replayed bit for bit;
                the FMA forward timed beside the tensor-core ones at
                D = 256, also at the D = 256 step's [2,8,1024,256] and at
-               the D = 256 prefill's [1,8,2048,256]), the dQ and dK/dV
+               the D = 256 prefill's [1,8,2048,256]; float16 on the
+               wgmma_f32 route at [2,16,1024,128] and [1,32,4096,128],
+               held to the float32 tolerance plus one float16 ulp), the
+               dQ and dK/dV
                backward kernels (wgmma for bf16 and wgmma_f32 for float32,
                each at D = 64, 128 and 256; each case checked for the
                route of each kernel; dS as the bias gradient, also causal
@@ -57,7 +60,15 @@ exits non-zero:
                recompute, chunked loss, batch 2 x 1024) through TrainStep:
                5 warm-up and 8 timed steps; finite losses that fall, and
                exactly 48 wgmma forward, 24 wgmma dQ and 24 wgmma dK/dV
-               launches per step, none on an FMA kernel. Then
+               launches per step, none on an FMA kernel. Then the same
+               model in float16 O2 (fp16_training: GradScaler, AdamW under
+               LinearWarmup(CosineAnnealingDecay), ClipGradByGlobalNorm,
+               the guarded TrainStep): 48 wgmma_f32 forward, 24 dQ, 24
+               dK/dV and 96 split launches a step, the printed overflow
+               flags replayed into the printed scales, a poisoned step
+               and a FLAGS_check_nan_inf step that leave the state
+               bit-equal; and a 2-layer float16 step against plain
+               attention (fp16_step). Then
                one float32 forward and backward of the same configuration
                with the kernels (exactly 48 wgmma_f32 forward, 24 dQ and 24
                dK/dV launches, and 96 of the split, none on an FMA kernel)
@@ -178,6 +189,13 @@ LLAMA_TRAIN_BWD = f"llama_train_bfloat16_L{LLAMA_SEQ}"
 LLAMA_TRAIN_LAYERS = 8  # of 32: AdamW's state at 16 bytes a parameter
 LLAMA_GQA_KV_HEADS, LLAMA_GQA_LAYERS = 8, 2
 LLAMA_PROMPT_LENGTHS = (60, 700, 1500, 3000, 4000)
+# float16 (phase fp16_training): the GPT step's attention [2, 16, 1024, 128]
+# and Llama's [1, 32, 4096, 128] in float16, cases of the forward and
+# backward phases on the wgmma_f32 route
+F16_TRAIN_FWD = f"train_f16_B{TRAIN_BATCH}_L{TRAIN_SEQ}"
+F16_TRAIN_BWD = f"train_float16_B{TRAIN_BATCH}_L{TRAIN_SEQ}"
+F16_LLAMA_FWD = f"llama_f16_L{LLAMA_SEQ}"
+F16_LLAMA_BWD = f"llama_float16_L{LLAMA_SEQ}"
 LLAMA_SAMPLED_LENGTH = 1200
 LLAMA_LOGITS_PROMPT = 3000
 
@@ -191,17 +209,29 @@ def bf16_ulp(x):
     return torch.where(x == 0, 0.0, torch.exp2((e - 8).float()))
 
 
+def f16_ulp(x):
+    """The float16 spacing at |x|, elementwise (11 significant bits;
+    2^-24 among the subnormals below 2^-14)."""
+    import torch
+
+    _, e = torch.frexp(x.float().abs())
+    return torch.exp2(torch.clamp(e - 11, min=-24).float())
+
+
 def output_tolerance(o_ref, route):
     """The elementwise limit on |o - o_ref| of a forward output of
     ``route``: BF16_ULPS ulps of o_ref plus 1e-6 for bfloat16, F32_FWD_ATOL
-    + F32_FWD_RTOL |o_ref| on the wgmma_f32 route, F32_TOL for the float32
-    FMA kernel."""
+    + F32_FWD_RTOL |o_ref| on the wgmma_f32 route, plus one float16 ulp of
+    o_ref for float16 (kernel and plain version each round a float32 value
+    once to float16, and two values within the float32 tolerance may round
+    to neighbours), F32_TOL for the float32 FMA kernel."""
     import torch
 
     if o_ref.dtype == torch.bfloat16:
         return BF16_ULPS * bf16_ulp(o_ref) + 1e-6
     if route == "wgmma_f32":
-        return F32_FWD_ATOL + F32_FWD_RTOL * o_ref.float().abs()
+        tol = F32_FWD_ATOL + F32_FWD_RTOL * o_ref.float().abs()
+        return tol + f16_ulp(o_ref) if o_ref.dtype == torch.float16 else tol
     return torch.full_like(o_ref, F32_TOL, dtype=torch.float32)
 
 
@@ -215,14 +245,16 @@ def lse_tolerance(lse_ref, route):
 
 def bwd_tolerance(ref):
     """The elementwise limit on a backward output's error: BWD_ATOL +
-    BWD_RTOL |ref| for float32; BF16_ULPS ulps plus BWD_BF16_FLOOR of the
-    largest magnitude for bfloat16."""
+    BWD_RTOL |ref| for float32, plus one float16 ulp of ref for float16
+    (one rounding of a float32 value on each side); BF16_ULPS ulps plus
+    BWD_BF16_FLOOR of the largest magnitude for bfloat16."""
     import torch
 
     if ref.dtype == torch.bfloat16:
         return (BF16_ULPS * bf16_ulp(ref)
                 + BWD_BF16_FLOOR * ref.float().abs().max())
-    return BWD_ATOL + BWD_RTOL * ref.abs()
+    tol = BWD_ATOL + BWD_RTOL * ref.float().abs()
+    return tol + f16_ulp(ref) if ref.dtype == torch.float16 else tol
 
 
 def check_close(name, got, ref, limit) -> dict:
@@ -325,6 +357,17 @@ def kept_pairs(Lq, Lk, causal):
     return Lq * Lk
 
 
+def _term_pairs(route, dtype) -> int:
+    """The tensor-core products a bound counts per product of the kernel:
+    6 bf16 term pairs for float32 on the wgmma_f32 route (the least work
+    that keeps float32 accuracy on those units), 1 otherwise: bf16, and
+    float16, whose least work is one float16 product at the same peak
+    (the wgmma_f32 route does 6 term pairs for it, 4 of them non-zero)."""
+    import torch
+
+    return 6 if route == "wgmma_f32" and dtype == torch.float32 else 1
+
+
 def _bound(flops, nbytes, tensor_cores):
     ops_ms = flops / (PEAK_BF16_TC_FLOPS if tensor_cores else PEAK_F32_FLOPS) * 1e3
     bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
@@ -411,9 +454,11 @@ def ptxas_report(log: str) -> list:
             while mangled[j].isdigit():
                 j += 1
             name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+        targs = mangled[i:].split("Ev")[0]
         args = [v if k == "i" else ("false", "true")[int(v)]
-                for k, v in re.findall(r"L([ib])(\d+)E",
-                                       mangled[i:].split("Ev")[0])]
+                for k, v in re.findall(r"L([ib])(\d+)E", targs)]
+        if "__half" in targs:  # the float16-output instantiations
+            args.append("__half")
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           entry)
         out.append(dict(kernel=f"{name}<{', '.join(args)}>" if args else name,
@@ -458,8 +503,9 @@ def phase_build(seed: int, fail_on_spill: bool = True) -> None:
                                                         a[:, :64], b)):
             # bf16 products are exact in float32; a float32 sum of K terms
             # is within K 2^-24 of sum |x y| of the exact one. float32
-            # operands as six bf16 term pairs drop a few 2^-24 more.
-            k = x.shape[1] + (4 if dtype == torch.float32 else 0)
+            # (and float16) operands as six bf16 term pairs drop a few
+            # 2^-24 more.
+            k = x.shape[1] + (4 if dtype != torch.bfloat16 else 0)
             limit = 2 * k * 2.0 ** -24 * (x.double().abs() @ y.double().abs())
             key = f"{name}_{_dtype_name(a)}_d{D}"
             out[key] = check_close(f"wgmma self-check {key}", got,
@@ -473,6 +519,7 @@ def _fwd_cases(g):
 
     bf16_tol = f"{BF16_ULPS} bf16 ulps + 1e-6"
     f32_tol = f"{F32_FWD_ATOL} + {F32_FWD_RTOL} |ref|"
+    f16_tol = f32_tol + " + 1 float16 ulp"
     cases = []
     for L in (64, 512, 1024, 2048):  # the serving path's prefill buckets
         cases.append((f"prefill_f32_L{L}", *_views(g, 1, L, 16, 128, torch.float32),
@@ -513,6 +560,14 @@ def _fwd_cases(g):
     cases.append((LLAMA_TRAIN_FWD, *_blhd_views(g, 1, LLAMA_SEQ, LLAMA_HEADS,
                                                 128, torch.bfloat16),
                   True, None, "wgmma", bf16_tol))
+    # float16 (float16 O2 training) on the wgmma_f32 route: the GPT step's
+    # [2, 16, 1024, 128] and Llama's [1, 32, 4096, 128]
+    cases.append((F16_TRAIN_FWD, *_views(g, TRAIN_BATCH, TRAIN_SEQ, 16, 128,
+                                         torch.float16),
+                  True, None, "wgmma_f32", f16_tol))
+    cases.append((F16_LLAMA_FWD, *_blhd_views(g, 1, LLAMA_SEQ, LLAMA_HEADS,
+                                              128, torch.float16),
+                  True, None, "wgmma_f32", f16_tol))
     for dtype, D, H, route, tol in (
             (torch.float32, 128, 16, "wgmma_f32", f32_tol),
             (torch.float32, 256, 8, "wgmma_f32", f32_tol),
@@ -534,7 +589,8 @@ def _fwd_cases(g):
 def split_case(fa, name, q, k, v) -> dict:
     """The wgmma_f32 route's pre-pass (``split_bf16_terms``) on q, k, v
     against its plain version, bit for bit, and timed: its bound is its
-    bytes (float32 read once, three bf16 terms written once)."""
+    bytes (float32 or float16 read once, three bf16 terms written
+    once)."""
     import torch
 
     got = fa.split_bf16_terms(q, k, v)
@@ -543,7 +599,8 @@ def split_case(fa, name, q, k, v) -> dict:
         raise AssertionError(f"{name}: the split kernel differs from its "
                              f"plain version")
     t = timed_in_turns({"kernel": lambda: fa.split_bf16_terms(q, k, v)})
-    nbytes = sum(x.numel() * (4 + 3 * 2) for x in (q, k, v))
+    # the input read once, three bf16 terms written once
+    nbytes = sum(x.numel() * (x.element_size() + 3 * 2) for x in (q, k, v))
     out = dict(shape=list(q.shape), max_abs_err=0.0, bit_exact=True,
                ms=t["kernel"]["median"],
                ms_range=[t["kernel"]["min"], t["kernel"]["max"]],
@@ -608,8 +665,7 @@ def phase_kernels(seed: int) -> dict:
         bound_ms, bound_by = attention_bound_ms(
             B, H, Lq, k.shape[2], D, causal, q.element_size(),
             0 if bias is None else bias.numel() * bias.element_size(),
-            tensor_cores=route != "fma",
-            term_pairs=6 if route == "wgmma_f32" else 1)
+            tensor_cores=route != "fma", term_pairs=_term_pairs(route, q.dtype))
         ms = t["kernel"]["median"]
         results[name] = dict(shape=[B, H, Lq, k.shape[2], D],
                              dtype=_dtype_name(q), causal=causal,
@@ -733,10 +789,19 @@ def _bwd_cases(g):
         do = rn(TRAIN_BATCH, TRAIN_SEQ, D256_STEP_HEADS, 256).to(
             dtype).transpose(1, 2)
         cases.append((name, q, k, v, do, True, None, _both(route)))
-    # Llama-2-7B's training attention, as its autograd hands it over
-    q, k, v = _blhd_views(g, 1, LLAMA_SEQ, LLAMA_HEADS, 128, torch.bfloat16)
-    do = rn(1, LLAMA_SEQ, LLAMA_HEADS, 128).to(torch.bfloat16).transpose(1, 2)
-    cases.append((LLAMA_TRAIN_BWD, q, k, v, do, True, None, _both("wgmma")))
+    # Llama-2-7B's training attention, as its autograd hands it over, in
+    # bf16 (wgmma) and float16 (wgmma_f32)
+    for name, dtype, route in ((LLAMA_TRAIN_BWD, torch.bfloat16, "wgmma"),
+                               (F16_LLAMA_BWD, torch.float16, "wgmma_f32")):
+        q, k, v = _blhd_views(g, 1, LLAMA_SEQ, LLAMA_HEADS, 128, dtype)
+        do = rn(1, LLAMA_SEQ, LLAMA_HEADS, 128).to(dtype).transpose(1, 2)
+        cases.append((name, q, k, v, do, True, None, _both(route)))
+    # the float16 GPT step's attention (fp16_training), as its autograd
+    # hands it over
+    q, k, v = _views(g, TRAIN_BATCH, TRAIN_SEQ, 16, 128, torch.float16)
+    do = rn(TRAIN_BATCH, TRAIN_SEQ, 16, 128).half().transpose(1, 2)
+    cases.append((F16_TRAIN_BWD, q, k, v, do, True, None,
+                  _both("wgmma_f32")))
     return cases
 
 
@@ -860,10 +925,10 @@ def phase_backward(seed: int) -> dict:
         dq_bound, dq_by = bwd_bound_ms(
             "dq", *common, B * H * Lq * Lk * 4 if emit_ds else 0,
             tensor_cores=routes["dq"] != "fma",
-            term_pairs=6 if routes["dq"] == "wgmma_f32" else 1)
+            term_pairs=_term_pairs(routes["dq"], q.dtype))
         dkv_bound, dkv_by = bwd_bound_ms(
             "dkv", *common, 0, tensor_cores=routes["dkv"] != "fma",
-            term_pairs=6 if routes["dkv"] == "wgmma_f32" else 1)
+            term_pairs=_term_pairs(routes["dkv"], q.dtype))
         dq_ms, dkv_ms = t["dq"]["median"], t["dkv"]["median"]
         fma = {}
         for w in ("dq", "dkv"):
@@ -882,7 +947,8 @@ def phase_backward(seed: int) -> dict:
             bias=bias is not None, routes=routes, errors=errs,
             replay_bit_exact=bool(calls) or None,
             tol=("2 bf16 ulps + 1e-5 of max" if q.dtype == torch.bfloat16
-                 else f"rtol {BWD_RTOL} atol {BWD_ATOL}"),
+                 else f"rtol {BWD_RTOL} atol {BWD_ATOL}"
+                 + (" + 1 float16 ulp" if q.dtype == torch.float16 else "")),
             dq_ms=dq_ms, dq_ms_range=[t["dq"]["min"], t["dq"]["max"]],
             dkv_ms=dkv_ms, dkv_ms_range=[t["dkv"]["min"], t["dkv"]["max"]],
             bwd_ms=t["bwd"]["median"],
@@ -1235,9 +1301,11 @@ def _train_config(**overrides):
     return gpt_1p3b(**cfg)
 
 
-def _o2_step(cfg, seed: int, global_seed: int):
-    """A TrainStep over a seeded model, AdamW(1e-4, wd 0.01) and
-    amp.decorate O2 bf16, as the bench builds it."""
+def _o2_step(cfg, seed: int, global_seed: int, dtype: str = "bfloat16",
+             optimizer=None, scaler=None):
+    """A TrainStep over a seeded model under amp.decorate O2 in ``dtype``,
+    with ``optimizer`` (default AdamW(1e-4, wd 0.01), as the bench builds
+    it) and ``scaler``."""
     import torch
 
     from paddle_tpu_torch import amp
@@ -1248,10 +1316,10 @@ def _o2_step(cfg, seed: int, global_seed: int):
     framework_random.seed(global_seed)
     model = _model_cls(cfg)(cfg, device="cuda", generator=torch.Generator(
         device="cuda").manual_seed(seed)).train()
-    model, opt = amp.decorate(model, AdamW(learning_rate=1e-4,
-                                           weight_decay=0.01),
-                              level="O2", dtype="bfloat16")
-    return TrainStep(model, opt, loss_fn=None)
+    if optimizer is None:
+        optimizer = AdamW(learning_rate=1e-4, weight_decay=0.01)
+    model, opt = amp.decorate(model, optimizer, level="O2", dtype=dtype)
+    return TrainStep(model, opt, loss_fn=None, scaler=scaler)
 
 
 def _free():
@@ -1279,13 +1347,14 @@ def _check_freed(phase: str) -> float:
 
 
 def _train_run(phase: str, label: str, step, ids, need, flops_per_token,
-               build_s: float, **report) -> dict:
-    """TRAIN_WARMUP + TRAIN_TIMED steps of ``step`` on ``(ids, ids)``:
-    finite losses that fall, exactly ``need`` launches (in the order of
-    _COUNT_NAMES) every step, and a fresh batch's loss afterwards above
-    half the first loss (no step saw the tokens it predicts); reports the
-    median of the timed steps (host clock, synchronised), tokens/s, MFU
-    against the bf16 peak and peak memory."""
+               build_s: float, call=None, **report) -> dict:
+    """TRAIN_WARMUP + TRAIN_TIMED steps of ``step`` on ``(ids, ids)``
+    (through ``call(batch) -> loss`` when given): finite losses that fall,
+    exactly ``need`` launches (in the order of _COUNT_NAMES) every step,
+    and a fresh batch's loss afterwards above half the first loss (no step
+    saw the tokens it predicts); reports the median of the timed steps
+    (host clock, synchronised), tokens/s, MFU against the bf16 peak and
+    peak memory."""
     import numpy as np
     import torch
 
@@ -1298,7 +1367,7 @@ def _train_run(phase: str, label: str, step, ids, need, flops_per_token,
         before = _counts(fa)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = step((ids, ids))
+        loss = (call or step)((ids, ids))
         losses.append(float(loss))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -1361,6 +1430,246 @@ def phase_training(seed: int) -> dict:
             cfg.num_layers, 0)
     return _train_run("training", "gpt_1p3b O2 bf16", step, ids, need,
                       gpt_flops_per_token(cfg, TRAIN_SEQ), build_s)
+
+
+def _bits(t):
+    """``t``'s bits as integers (``torch.equal`` on them is bit equality,
+    NaN and the sign of zero included)."""
+    import torch
+
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.view(ints[t.element_size()]) if t.is_floating_point() else t
+
+
+def _state_tensors(step) -> list:
+    """Every parameter, master, moment and the step count of a TrainStep,
+    each tensor once, in a fixed order."""
+    import torch
+
+    tensors, seen = [], set()
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k])
+        elif isinstance(tree, torch.Tensor) and id(tree) not in seen:
+            seen.add(id(tree))
+            tensors.append(tree.detach())
+
+    walk({"params": step.params, "opt": step.opt_state})
+    return tensors
+
+
+def _state_bits(step) -> list:
+    """A copy of ``step``'s state as integers (on the card: a snapshot the
+    size of the state)."""
+    return [_bits(t).clone() for t in _state_tensors(step)]
+
+
+def _same_bits(step, saved) -> bool:
+    """Whether ``step``'s state still has the bits of ``saved``
+    (_state_bits), tensor by tensor."""
+    import torch
+
+    now = _state_tensors(step)
+    return len(now) == len(saved) and all(
+        torch.equal(_bits(a), b) for a, b in zip(now, saved))
+
+
+def _fp16_recipe():
+    """The float16 pretraining recipe: AdamW(wd 0.01) under warm-up into
+    cosine decay, clipped by global norm."""
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+
+    return AdamW(learning_rate=LinearWarmup(CosineAnnealingDecay(
+        1e-4, T_max=8), 2, 0.0, 1e-4), weight_decay=0.01,
+        grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+def phase_fp16_training(seed: int, bf16: dict) -> dict:
+    """GPT-3 1.3B (bench_gpt_1p3b's configuration, full width and depth)
+    trained in float16 O2 with GradScaler (defaults), AdamW under
+    LinearWarmup(CosineAnnealingDecay) and ClipGradByGlobalNorm(1.0),
+    through TrainStep(scaler=...): TRAIN_WARMUP + TRAIN_TIMED steps held to
+    _train_run's checks with exactly 48 wgmma_f32 forward, 24 dQ, 24 dK/dV
+    and 96 split launches a step; the printed per-step overflow flags,
+    replayed through update_scale on the host, give the printed scale
+    trajectory; at least one step updates the parameters. Then a poisoned
+    step (inject_anomaly) leaves every parameter, master, moment and the
+    step count bit-equal and the scale where it was, the next step trains,
+    and under FLAGS_check_nan_inf a poisoned step raises
+    FloatingPointError with the state bit-equal. Reports the step beside
+    the bf16 step of the same run and the guarded update's cost against
+    the unguarded one's. Frees what it allocates."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.amp.grad_scaler import (init_scale_state,
+                                                  unscale_and_check,
+                                                  update_scale)
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.gpt import gpt_flops_per_token
+
+    mem_before = _check_freed("fp16_training")
+    cfg = _train_config(dtype="float16")
+    t0 = time.perf_counter()
+    step = _o2_step(cfg, seed, seed, dtype="float16",
+                    optimizer=_fp16_recipe(), scaler=amp.GradScaler())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    n = cfg.num_layers
+    # float16 at D = 128: the wgmma_f32 forward (and its recompute), dQ
+    # and dK/dV; the split once per forward and twice per backward
+    need = (0, 0, 2 * n, 0, 0, n, 0, 0, n)
+    need_splits = 4 * n
+    # a weight of std 0.02, whose float16 spacing is far below a step of lr
+    probe = "gpt.h.0.attn.qkv_proj.weight"
+    first = step.params[probe].detach().clone()
+    found, oks, scales, splits = [], [], [], []
+
+    def call(batch):
+        before = fa.split_bf16_terms.launches
+        loss, ok, found_inf = step.watchdog_call(batch)
+        splits.append(fa.split_bf16_terms.launches - before)
+        found.append(found_inf)
+        oks.append(ok)
+        scales.append(step.scaler_state["scale"].clone())
+        return loss
+
+    run = _train_run("fp16_training_steps", "gpt_1p3b O2 float16", step,
+                     ids, need, gpt_flops_per_token(cfg, TRAIN_SEQ), build_s,
+                     call=call, mem_before_gib=mem_before)
+    found = [bool(f) for f in found]
+    scales = [float(x) for x in scales]
+    if any(x != need_splits for x in splits) or not all(bool(o) for o in oks):
+        raise AssertionError(f"fp16_training: splits per step {splits} "
+                             f"(expected {need_splits}), ok {oks}")
+    # the scale trajectory, replayed on the host from the flags
+    replay, state = [], init_scale_state()
+    for f in found:
+        state = update_scale(state, f)
+        replay.append(float(state["scale"]))
+    updates = int(step.opt_state["step"])
+    if replay != scales or updates != found.count(False) or updates < 1 \
+            or torch.equal(first, step.params[probe]):
+        raise AssertionError(f"fp16_training: scales {scales}, replayed "
+                             f"{replay}, overflow flags {found}, {updates} "
+                             f"updates; {probe} changed: "
+                             f"{not torch.equal(first, step.params[probe])}")
+    # a poisoned step: an anomaly, the state bit-equal, no back-off
+    saved = _state_bits(step)
+    scale, bad_steps = (step.scaler_state["scale"].clone(),
+                        int(step.scaler_state["bad_steps"]))
+    step.inject_anomaly()
+    loss, ok, found_inf = step.watchdog_call((ids, ids))
+    if math.isfinite(float(loss)) or bool(ok) or bool(found_inf) \
+            or not _same_bits(step, saved) \
+            or not torch.equal(scale, step.scaler_state["scale"]) \
+            or int(step.scaler_state["bad_steps"]) != bad_steps:
+        raise AssertionError(f"fp16_training: the poisoned step (loss "
+                             f"{float(loss)}, ok {bool(ok)}, overflow "
+                             f"{bool(found_inf)}) changed the state or the "
+                             f"scale")
+    loss, ok, found_inf = step.watchdog_call((ids, ids))
+    after = float(loss)
+    if not (math.isfinite(after) and bool(ok)):
+        raise AssertionError(f"fp16_training: the step after the anomaly: "
+                             f"loss {after}, ok {bool(ok)}")
+    # FLAGS_check_nan_inf: a poisoned step raises, the state bit-equal
+    saved = _state_bits(step)
+    flags.set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        step.inject_anomaly()
+        step((ids, ids))
+        raised = False
+    except FloatingPointError:
+        raised = True
+    finally:
+        flags.set_flags({"FLAGS_check_nan_inf": False})
+    if not raised or not _same_bits(step, saved):
+        raise AssertionError(f"FLAGS_check_nan_inf: raised {raised}, state "
+                             f"bit-equal {_same_bits(step, saved)}")
+    del saved
+    # a fresh batch's loss after all of it
+    fresh = torch.as_tensor(np.random.default_rng(seed + 11).integers(
+        0, cfg.vocab_size, ids.shape), device="cuda")
+    with torch.no_grad():
+        fresh_loss = float(step.model(fresh, fresh))
+    if not math.isfinite(fresh_loss):
+        raise AssertionError(f"fp16_training: fresh loss {fresh_loss}")
+    # the guarded update's cost: the same gradients through the update
+    # with a guard that skips (both passes, the state kept), and through
+    # the plain one (committed: the last steps of this phase, at the
+    # schedule's rate 0)
+    model, opt = step.model, step.optimizer
+    ids_t = torch.as_tensor(ids, device="cuda")
+    with torch.enable_grad():
+        scaled = model(ids_t, ids_t).float() * step.scaler_state["scale"]
+        grads = dict(zip(step.params, torch.autograd.grad(
+            scaled, list(step.params.values()))))
+    del scaled
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    skip = torch.ones((), dtype=torch.bool, device="cuda")
+    unscaled, _ = unscale_and_check(grads, step.scaler_state)
+    fns = {"unscale": lambda: unscale_and_check(grads, step.scaler_state),
+           "guarded": lambda: opt.update(unscaled, step.opt_state,
+                                         step.params, guard=lambda ok: skip),
+           "plain": lambda: opt.update(unscaled, step.opt_state,
+                                       step.params)}
+    # in turns (A B C C B A, twice), host clock around synchronised calls
+    ms = {name: [] for name in fns}
+    for _ in range(2):
+        for name in list(fns) + list(fns)[::-1]:
+            ms[name].append(timed(fns[name]))
+    unscale_ms, guarded_ms, plain_ms = (float(np.median(ms[n]))
+                                        for n in fns)
+    del grads, unscaled, fns
+    out = dict(run, overflow_flags=found, scales=scales,
+               scale_replay_equal=True, updates=updates,
+               split_launches=sum(splits),
+               split_launches_per_step=need_splits,
+               anomaly_state_bit_equal=True, loss_after_anomaly=after,
+               check_nan_inf_raised=True, fresh_batch_loss=fresh_loss,
+               bf16_step_ms_median=bf16["step_ms_median"],
+               bf16_tokens_per_s=bf16["tokens_per_s"],
+               update_guarded_ms=guarded_ms, update_plain_ms=plain_ms,
+               unscale_check_ms=unscale_ms,
+               guard_overhead_ms=guarded_ms + unscale_ms - plain_ms,
+               card=nvidia_smi_line())
+    del step, model, opt
+    emit("fp16_training", **out)
+    return out
+
+
+def phase_fp16_step(seed: int) -> dict:
+    """_o2_step_vs_plain in float16 (GradScaler at its defaults) at
+    gpt_1p3b width, cut to 2 layers: the gradients and one guarded step
+    through the wgmma_f32 kernels against plain attention."""
+    import numpy as np
+
+    vocab = _train_config().vocab_size
+    ids = np.random.default_rng(seed + 3).integers(
+        0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    return _o2_step_vs_plain(
+        seed, "fp16_step",
+        lambda flash: _train_config(num_layers=2, dtype="float16",
+                                    use_flash_attention=flash), ids,
+        dtype="float16", model="gpt_1p3b width, 2 layers, O2 float16",
+        head_dim=128)
 
 
 def phase_train_parity(seed: int) -> dict:
@@ -1474,28 +1783,35 @@ def _loss_and_grads(model, ids):
     return loss.item(), torch.autograd.grad(loss, list(model.parameters()))
 
 
-def _bf16_step_vs_plain(seed: int, phase: str, make_cfg, ids, **report):
-    """The bf16 O2 step of ``make_cfg(flash)`` from one seed with the
-    flash kernels and with plain attention. Before each step, the
-    gradients of its loss: the kernels' may differ from plain attention's
-    by at most BF16_GRAD_SLACK times what bf16 puts between plain
-    attention's and a float32 reference (the same weights, plain
-    attention, float32), parameter by parameter in relative L2. Then one
-    step each: the losses agree within BF16_ULPS bf16 ulps, and the kernel
-    step launches exactly 2 forwards per layer (recompute included), one
-    dQ and one dK/dV, all on the wgmma route, the plain step none."""
+def _o2_step_vs_plain(seed: int, phase: str, make_cfg, ids,
+                      dtype: str = "bfloat16", **report):
+    """The O2 step in ``dtype`` (bf16; or float16, guarded by a GradScaler
+    at its defaults) of ``make_cfg(flash)`` from one seed with the flash
+    kernels and with plain attention. Before each step, the gradients of
+    its loss: the kernels' may differ from plain attention's by at most
+    BF16_GRAD_SLACK times what ``dtype`` puts between plain attention's
+    and a float32 reference (the same weights, plain attention, float32),
+    parameter by parameter in relative L2. Then one step each: the losses
+    agree within BF16_ULPS ulps of ``dtype``, and the kernel step launches
+    exactly 2 forwards per layer (recompute included), one dQ and one
+    dK/dV, all on the dtype's route (wgmma for bf16, wgmma_f32 for
+    float16), the plain step none."""
     import copy
 
     import torch
 
+    from paddle_tpu_torch import amp
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     n = make_cfg(True).num_layers
     ids_t = torch.as_tensor(ids, device="cuda")
-    need = (0, 2 * n, 0, 0, n, 0, 0, n, 0)
+    half = dtype == "float16"
+    need = ((0, 0, 2 * n, 0, 0, n, 0, 0, n) if half
+            else (0, 2 * n, 0, 0, n, 0, 0, n, 0))
 
     def one_step(flash: bool):
-        step = _o2_step(make_cfg(flash), seed, seed)
+        step = _o2_step(make_cfg(flash), seed, seed, dtype=dtype,
+                        scaler=amp.GradScaler() if half else None)
         _, grads = _loss_and_grads(step.model, ids_t)
         ref_grads = None
         if not flash:
@@ -1516,7 +1832,8 @@ def _bf16_step_vs_plain(seed: int, phase: str, make_cfg, ids, **report):
         raise AssertionError(f"{phase}: step launches {_COUNT_NAMES} "
                              f"{launches}, expected {need}; the plain step "
                              f"{plain_launches}")
-    tol = BF16_ULPS * bf16_ulp(torch.tensor(loss_p)).item()
+    ulp = f16_ulp if half else bf16_ulp
+    tol = BF16_ULPS * ulp(torch.tensor(loss_p)).item()
     if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= tol):
         raise AssertionError(f"{phase}: loss {loss_k} with the kernels, "
                              f"{loss_p} with plain attention (limit {tol})")
@@ -1537,7 +1854,7 @@ def _bf16_step_vs_plain(seed: int, phase: str, make_cfg, ids, **report):
             f"at relative L2 {rel_kp[worst]}, {share[worst]} of its limit "
             f"({BF16_GRAD_SLACK} x plain attention's {rel_pr[worst]} from "
             f"the float32 reference)")
-    out = dict(**report, layers=n, batch=list(ids.shape),
+    out = dict(**report, dtype=dtype, layers=n, batch=list(ids.shape),
                loss_kernel=loss_k, loss_plain=loss_p, tol=tol,
                grad_rel_l2_kernel_vs_plain_max=max(rel_kp),
                grad_rel_l2_plain_vs_f32_max=max(rel_pr),
@@ -1549,14 +1866,14 @@ def _bf16_step_vs_plain(seed: int, phase: str, make_cfg, ids, **report):
 
 
 def phase_d256_step(seed: int) -> dict:
-    """_bf16_step_vs_plain at gpt_1p3b width with 8 heads of 256 (D = 256)
+    """_o2_step_vs_plain at gpt_1p3b width with 8 heads of 256 (D = 256)
     and 2 layers, batch TRAIN_BATCH x TRAIN_SEQ."""
     import numpy as np
 
     vocab = _train_config().vocab_size
     ids = np.random.default_rng(seed).integers(
         0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
-    return _bf16_step_vs_plain(
+    return _o2_step_vs_plain(
         seed, "d256_step",
         lambda flash: _train_config(num_layers=2, num_heads=D256_STEP_HEADS,
                                     use_flash_attention=flash), ids,
@@ -1706,7 +2023,7 @@ def phase_llama_training(seed: int) -> dict:
 
 
 def phase_llama_gqa_grads(seed: int) -> dict:
-    """_bf16_step_vs_plain on llama2_7b with LLAMA_GQA_KV_HEADS KV heads
+    """_o2_step_vs_plain on llama2_7b with LLAMA_GQA_KV_HEADS KV heads
     (4 query heads each) and LLAMA_GQA_LAYERS layers at [1, 4096]: GQA's
     repeat of K and V (a sum over each group in the backward) feeds the
     kernels' dK and dV."""
@@ -1715,7 +2032,7 @@ def phase_llama_gqa_grads(seed: int) -> dict:
     mem_before = _check_freed("llama_gqa_grads")
     ids = np.random.default_rng(seed + 6).integers(
         0, _llama_config().vocab_size, (1, LLAMA_SEQ)).astype(np.int32)
-    return _bf16_step_vs_plain(
+    return _o2_step_vs_plain(
         seed, "llama_gqa_grads",
         lambda flash: _llama_config(
             num_layers=LLAMA_GQA_LAYERS, num_kv_heads=LLAMA_GQA_KV_HEADS,
@@ -1759,6 +2076,10 @@ def main(argv=None) -> int:
     serve = phase_serving(args.seed)
     _free()
     train = phase_training(args.seed)
+    _free()
+    fp16 = phase_fp16_training(args.seed, train)
+    _free()
+    phase_fp16_step(args.seed)
     _free()
     parity = phase_train_parity(args.seed)
     _free()
@@ -1868,6 +2189,33 @@ def main(argv=None) -> int:
                 "flash_attention_bwd_f32_d256_sm90.cu", "dkv", D256_F32_BWD,
                 d256_f32["launches"]["dkv_wgmma_f32"], d256_f32_path),
     ]
+    # float16 on the wgmma_f32 route: the GPT step's attention on the
+    # float16 O2 step's path; Llama's shape on no path (no Llama phase
+    # trains in float16)
+    fp16_path = "training (float16 O2 step, GradScaler)"
+    kernels += [
+        fwd_row("flash_attention_fwd_f32_sm90_f16",
+                "flash_attention_fwd_f32_sm90.cu", F16_TRAIN_FWD,
+                fp16["launches"]["fwd_wgmma_f32"], fp16_path),
+        fwd_row("split_bf16_terms_f16", "flash_attention_fwd_f32_sm90.cu",
+                "split_" + F16_TRAIN_FWD, fp16["split_launches"], fp16_path),
+        bwd_row("flash_attention_bwd_dq_f32_sm90_f16",
+                "flash_attention_bwd_f32_sm90.cu", "dq", F16_TRAIN_BWD,
+                fp16["launches"]["dq_wgmma_f32"], fp16_path),
+        bwd_row("flash_attention_bwd_dkv_f32_sm90_f16",
+                "flash_attention_bwd_f32_sm90.cu", "dkv", F16_TRAIN_BWD,
+                fp16["launches"]["dkv_wgmma_f32"], fp16_path),
+        fwd_row("flash_attention_fwd_f32_sm90_f16_llama_shape",
+                "flash_attention_fwd_f32_sm90.cu", F16_LLAMA_FWD, 0, None),
+        fwd_row("split_bf16_terms_f16_llama_shape",
+                "flash_attention_fwd_f32_sm90.cu", "split_" + F16_LLAMA_FWD,
+                0, None),
+        bwd_row("flash_attention_bwd_dq_f32_sm90_f16_llama_shape",
+                "flash_attention_bwd_f32_sm90.cu", "dq", F16_LLAMA_BWD, 0,
+                None),
+        bwd_row("flash_attention_bwd_dkv_f32_sm90_f16_llama_shape",
+                "flash_attention_bwd_f32_sm90.cu", "dkv", F16_LLAMA_BWD, 0,
+                None)]
     # Llama-2-7B's attention, [1, 32, 4096, 128] causal, per Llama path
     llama_prefill = "serving (llama2_7b float32 prefill)"
     kernels += [

@@ -14,11 +14,18 @@ no compile cache. Other differences, and why:
   rng_context` whose stream seeds are ``split_streams(fold_in(base seed,
   step count))``, as the reference folds the count into its base key
   (``jit.py:347``); ``state_dict`` carries the count and the base seed, so
-  a resumed run replays its dropout masks.
-
-Not ported (``ROADMAP.md``): the ``GradScaler`` path (``scaler_guard``),
-``finite_guard``/``FLAGS_check_nan_inf``, ``watchdog_call``,
-``inject_anomaly`` and ``grad_transform``.
+  a resumed run replays its dropout masks;
+- the guarded step (a ``GradScaler``, ``FLAGS_check_nan_inf`` or
+  ``watchdog_call``) cannot select between the old and the new state as
+  the reference's program does (``jnp.where`` over donated buffers), since
+  the update is in place: ``Optimizer.update(guard=...)`` first reduces
+  the finiteness of the candidate parameters to one device bool, the
+  guard classifies the step on the device (:func:`scaler_guard`,
+  :func:`finite_guard`), and the update then commits group by group with
+  ``torch.where``, so that a skipped step leaves every parameter, master,
+  slot and the step count bit-equal. Nothing is read back to the host
+  except under ``FLAGS_check_nan_inf``, which raises. Buffers a forward
+  updates in place are not rolled back (no ported layer has one).
 """
 from __future__ import annotations
 
@@ -27,11 +34,14 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from . import flags
 from . import random as framework_random
+from ..amp.grad_scaler import scale_loss, unscale_and_check, update_scale
 from ..nn.layer import rng_context
+from .debugging import tree_all_finite
 
-__all__ = ["DEFAULT_RNG_STREAMS", "resolve_inputs_fn", "TrainStep",
-           "EvalStep"]
+__all__ = ["DEFAULT_RNG_STREAMS", "resolve_inputs_fn", "finite_guard",
+           "raise_if_bad_step", "scaler_guard", "TrainStep", "EvalStep"]
 
 DEFAULT_RNG_STREAMS = ("dropout", "rrelu", "gumbel", "default")
 
@@ -68,6 +78,55 @@ def _to_device(batch, device):
     return batch
 
 
+def finite_guard(grads, params_finite, extra_ok=None) -> torch.Tensor:
+    """The ``FLAGS_check_nan_inf`` gate (``jit.py:119``): a 0-d bool
+    tensor, True iff every gradient and every parameter the update would
+    give is finite (``params_finite``, from ``Optimizer.update``'s first
+    pass), and ``extra_ok`` (e.g. a finite loss) when given. The update
+    commits only where it is True."""
+    ok = tree_all_finite(grads) & params_finite
+    if extra_ok is not None:
+        ok = ok & extra_ok
+    return ok
+
+
+def raise_if_bad_step(ok, loss) -> None:
+    """Host-side companion to :func:`finite_guard`."""
+    if not bool(ok):
+        raise FloatingPointError(
+            f"NaN/Inf detected in gradients or updated parameters "
+            f"(FLAGS_check_nan_inf); update skipped, state preserved. "
+            f"loss={float(loss)}")
+
+
+def scaler_guard(loss, found, scaler_state, params_finite):
+    """The GradScaler epilogue (``jit.py:155-191``), on the device.
+    ``found`` is ``unscale_and_check``'s non-finite-gradients flag and
+    ``params_finite`` whether every parameter the update would give (cast
+    to its dtype) is finite.
+
+    A non-finite *loss*, or non-finite updated parameters under finite
+    gradients (an optimizer-side blow-up), is an **anomaly**; non-finite
+    gradients under a finite loss are an ordinary overflow, but only
+    while ``scale > 1``: at scale 1 there is no scaling left to blame, so
+    it is an anomaly too. Both keep the old state, and only the benign
+    overflow drives the back-off, so that a poisoned batch does not walk
+    the scale down.
+
+    Returns ``(skip, new_scaler_state, ok, found_inf)``: ``skip`` whether
+    the update must not commit, ``ok = ~anomaly`` and ``found_inf`` the
+    benign overflows only."""
+    # the parameters' term applies only under finite gradients: overflowed
+    # gradients give non-finite candidates, and that case is the ordinary
+    # overflow classified before it
+    anomaly = (~torch.isfinite(loss)
+               | (found & (scaler_state["scale"] <= 1.0))
+               | (~found & ~params_finite))
+    skip = found | anomaly
+    found_inf = found & ~anomaly
+    return skip, update_scale(scaler_state, found_inf), ~anomaly, found_inf
+
+
 class TrainStep:
     """One-call training: ``loss = step(batch)``.
 
@@ -81,18 +140,33 @@ class TrainStep:
     applies one update every k-th call with their sum (mean when
     ``grad_accum_avg``). ``trainable`` (a predicate on parameter names)
     freezes the parameters it rejects: they get no gradient and no
-    optimizer state."""
+    optimizer state. ``grad_transform`` maps the gradient dict before the
+    update. ``donate`` is accepted for the reference's signature: the
+    step updates in place, so there is nothing to donate.
+
+    With ``scaler`` (a :class:`~paddle_tpu_torch.amp.GradScaler`) the loss
+    is scaled before the backward, the gradients unscaled to float32 and
+    checked, the update skipped on the device on overflow or anomaly
+    (:func:`scaler_guard`) and the scale grown or backed off there; the
+    overflow flags reach the scaler's counters lazily. Under
+    ``FLAGS_check_nan_inf`` (without a scaler) the update commits only
+    where :func:`finite_guard` allows, and a bad step raises
+    ``FloatingPointError`` with the state preserved."""
 
     def __init__(self, model: torch.nn.Module, optimizer,
                  loss_fn: Optional[Callable] = None,
                  inputs_fn: Optional[Callable] = None,
+                 grad_transform: Optional[Callable] = None,
+                 donate: bool = True,
                  rng_streams=DEFAULT_RNG_STREAMS, grad_accum_steps: int = 1,
-                 grad_accum_avg: bool = True,
+                 grad_accum_avg: bool = True, scaler=None,
                  trainable: Optional[Callable[[str], bool]] = None):
+        del donate
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.inputs_fn = resolve_inputs_fn(inputs_fn, loss_fn)
+        self.grad_transform = grad_transform
         self._trainable = trainable
         self._rng_streams = tuple(rng_streams)
         self.load_from_model()
@@ -107,6 +181,30 @@ class TrainStep:
                 k: torch.zeros(p.shape, device=p.device,
                                dtype=_grad_dtype(p.dtype))
                 for k, p in self.params.items()}
+        self.scaler = scaler if (scaler is not None
+                                 and getattr(scaler, "enable", True)) else None
+        if self.scaler is not None and self.grad_accum_steps > 1:
+            raise ValueError(
+                "GradScaler with grad_accum_steps > 1 is not supported: the "
+                "scale could change mid-accumulation window")
+        self.scaler_state = None
+        if self.scaler is not None:
+            self.scaler_state = {
+                k: v.to(self.device) if isinstance(v, torch.Tensor) else v
+                for k, v in self.scaler.state.items()}
+        # the next step's loss is multiplied by this (1.0; NaN after
+        # inject_anomaly: a poisoned batch)
+        self._pending_poison = 1.0
+
+    def inject_anomaly(self):
+        """Poison the next step's loss (and hence its gradients) with NaN:
+        the deterministic fault-injection seam. The guard keeps the state;
+        ``watchdog_call`` reports the anomaly."""
+        self._pending_poison = float("nan")
+
+    def _take_poison(self) -> float:
+        p, self._pending_poison = self._pending_poison, 1.0
+        return p
 
     @property
     def device(self) -> torch.device:
@@ -119,8 +217,10 @@ class TrainStep:
                      or self._count % self.grad_accum_steps == 0)
         return count, do_update
 
-    def __call__(self, batch):
-        count, do_update = self._next_count()
+    def _loss_and_grads(self, batch, count, poison):
+        """The forward and the loss (times ``poison``) under the step's
+        random streams, and the gradient of the loss (scaled, with a
+        scaler) for every parameter: ``(float32 loss, grads)``."""
         batch = _to_device(batch, self.device)
         seeds = framework_random.split_streams(
             framework_random.fold_in(self._base_seed, count),
@@ -132,25 +232,83 @@ class TrainStep:
                 inputs = (inputs,)
             out = self.model(*inputs)
             raw = out if self.loss_fn is None else self.loss_fn(out, batch)
-            loss = raw.float()
+            loss = raw.float() * poison
+            scaled = (loss if self.scaler_state is None
+                      else scale_loss(loss, self.scaler_state))
             grads = torch.autograd.grad(
-                loss, [self.params[k] for k in names], allow_unused=True)
+                scaled, [self.params[k] for k in names], allow_unused=True)
         # an unused parameter's gradient is zero, as jax.grad gives it
-        grads = {k: torch.zeros_like(self.params[k]) if g is None else g
-                 for k, g in zip(names, grads)}
-        if self._grad_accum is not None:
-            for k, g in grads.items():
-                self._grad_accum[k].add_(g.to(self._grad_accum[k].dtype))
-            if not do_update:
-                return loss.detach()
-            k_steps = float(self.grad_accum_steps)
-            grads = {k: (a / k_steps if self.grad_accum_avg else a)
-                     .to(grads[k].dtype)
-                     for k, a in self._grad_accum.items()}
-            for a in self._grad_accum.values():
-                a.zero_()
-        self.optimizer.update(grads, self.opt_state, self.params)
-        return loss.detach()
+        return loss.detach(), {
+            k: torch.zeros_like(self.params[k]) if g is None else g
+            for k, g in zip(names, grads)}
+
+    def _merged(self, grads, do_update):
+        """Gradient merge: the gradients of the update, or None on a call
+        that only accumulates."""
+        if self._grad_accum is None:
+            return grads
+        for k, g in grads.items():
+            self._grad_accum[k].add_(g.to(self._grad_accum[k].dtype))
+        if not do_update:
+            return None
+        k_steps = float(self.grad_accum_steps)
+        merged = {k: (a / k_steps if self.grad_accum_avg else a)
+                  .to(grads[k].dtype) for k, a in self._grad_accum.items()}
+        for a in self._grad_accum.values():
+            a.zero_()
+        return merged
+
+    def _step(self, batch, checked: bool):
+        """One call: ``(loss, ok, found_inf)``, the flags 0-d device bools
+        on a guarded update (a scaler, or ``checked``) and None otherwise
+        (no update, or an unguarded one)."""
+        count, do_update = self._next_count()
+        loss, grads = self._loss_and_grads(batch, count, self._take_poison())
+        grads = self._merged(grads, do_update)
+        if grads is None:
+            return loss, None, None
+        if self.grad_transform is not None:
+            grads = self.grad_transform(grads)
+        if self.scaler_state is None and not checked:
+            self.optimizer.update(grads, self.opt_state, self.params)
+            return loss, None, None
+        flags_out = {}
+        if self.scaler_state is not None:
+            grads, found = unscale_and_check(grads, self.scaler_state)
+
+            def guard(params_finite):
+                skip, flags_out["scaler"], flags_out["ok"], \
+                    flags_out["found"] = scaler_guard(
+                        loss, found, self.scaler_state, params_finite)
+                return skip
+        else:
+            def guard(params_finite):
+                flags_out["ok"] = finite_guard(grads, params_finite,
+                                               extra_ok=torch.isfinite(loss))
+                flags_out["found"] = torch.zeros_like(flags_out["ok"])
+                return ~flags_out["ok"]
+
+        self.optimizer.update(grads, self.opt_state, self.params, guard=guard)
+        if self.scaler_state is not None:
+            self.scaler_state = flags_out["scaler"]
+            self.scaler._note_step(flags_out["found"])
+            # mirror the (lazy) scale so the scaler's get_loss_scaling() and
+            # state_dict() stay truthful
+            self.scaler.state = dict(self.scaler_state)
+        return loss, flags_out["ok"], flags_out["found"]
+
+    def __call__(self, batch):
+        check = flags.flag("FLAGS_check_nan_inf")
+        loss, ok, _ = self._step(batch, checked=check)
+        if check and ok is not None:
+            raise_if_bad_step(ok, loss)
+        return loss
+
+    def watchdog_call(self, batch):
+        """One step through the guarded update: ``(loss, ok, found_inf)``,
+        all three lazy device tensors; ``ok``/``found_inf`` are None on
+        calls that only accumulate (no update happened to check)."""
+        return self._step(batch, checked=True)
 
     # ----------------------------------------------------------- state sync
     def sync_to_model(self):
@@ -192,6 +350,8 @@ class TrainStep:
               "base_seed": self._base_seed}
         if self._grad_accum is not None:
             sd["grad_accum"] = snap(self._grad_accum)
+        if self.scaler_state is not None:
+            sd["scaler_state"] = snap(self.scaler_state)
         return sd
 
     def set_state_dict(self, sd: dict) -> None:
@@ -216,6 +376,9 @@ class TrainStep:
             load_into(self.opt_state, sd["opt_state"])
             if "grad_accum" in sd and self._grad_accum is not None:
                 load_into(self._grad_accum, sd["grad_accum"])
+            if "scaler_state" in sd and self.scaler_state is not None:
+                load_into(self.scaler_state, sd["scaler_state"])
+                self.scaler.state = dict(self.scaler_state)
         self._count = int(sd.get("count", 0))
         if sd.get("base_seed") is not None:
             self._base_seed = int(sd["base_seed"])

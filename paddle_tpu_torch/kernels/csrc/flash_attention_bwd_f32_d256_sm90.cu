@@ -5,15 +5,17 @@
 // Replaces: paddle_tpu/kernels/flash_attention.py `_bwd_dq_kernel` (:198,
 // pallas_call at :466) and `_bwd_dkv_kernel` (:269, pallas_call at :513),
 // both launched by `_flash_bwd_impl` (:411), with their in-kernel dropout
-// (`_dropout_mask`, :120; here philox.cuh), for float32 q/k/v/dO at head
-// dim 256. D 64/128 take flash_attention_bwd_f32_sm90.cu, bf16 inputs
+// (`_dropout_mask`, :120; here philox.cuh), for float32 (and float16,
+// whose bf16 terms are exact) q/k/v/dO at head dim 256. D 64/128 take
+// flash_attention_bwd_f32_sm90.cu, bf16 inputs
 // flash_attention_bwd_{dq,dkv}_sm90.cu; the Python wrapper routes by
 // (dtype, D, kernel).
 //
 // Computes what those kernels compute (flash_bwd_sm90.cuh): dQ and, when
 // asked for, dS as float32 [B, H, Lq, Lk] with zeros on the tiles the
-// causal mask skips; dK and dV; all three float32, written through their
-// strides. Numerics as flash_attention_bwd_f32_sm90.cu: q, k, v and dO
+// causal mask skips; dK and dV; all three written through their strides
+// in the inputs' type (float32, or float16 rounded once from the float32
+// result). Numerics as flash_attention_bwd_f32_sm90.cu: q, k, v and dO
 // arrive as their three bf16 terms from the split pre-pass, P M and dS are
 // split in registers, each product keeps the six term pairs i + j <= 2, the
 // small pairs accumulated first (sm90.cuh, "Order").
@@ -81,7 +83,6 @@
 namespace {
 
 using namespace pt_bwd_sm90;
-using Params = BwdParams<float>;
 
 constexpr int kD = 256;
 constexpr int kThreads = kConsumers + 32;  // a warpgroup and a producer warp
@@ -319,7 +320,7 @@ __device__ __forceinline__ void dp_pairs(float (&dp)[32], const Ring& ring,
 // where few registers are live, and not hoisted out of the tile loop; the
 // elements are drawn two at a time (eight at a time spilled the dropout
 // dQ at 255 registers).
-template <typename At>
+template <typename At, typename Params>
 __device__ __forceinline__ uint32_t keep_bits(const Params& p, int b, int h,
                                               At at) {
   DropoutParams d = p.drop;
@@ -357,14 +358,15 @@ __device__ __forceinline__ void init_barriers(uint32_t base, bool stats) {
 // ------------------------------------------------------------ dQ
 // One CTA per (b, h, 64 query rows); Q's terms resident; per key tile A =
 // K, X = V, Y = dO (the tile's own rows). kDropout: the dropout draws are
-// compiled only into the instantiation that uses them.
-template <bool kDropout>
+// compiled only into the instantiation that uses them. Out: dQ's element
+// type, float (float32 inputs) or __half (float16 inputs).
+template <bool kDropout, typename Out>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_f32_d256_kernel(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v,
                              const __grid_constant__ CUtensorMap map_do,
-                             const Params p) {
+                             const BwdParams<Out> p) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const int h = blockIdx.x, b = blockIdx.y;
@@ -442,13 +444,13 @@ flash_bwd_dq_f32_d256_kernel(const __grid_constant__ CUtensorMap map_q,
 // start first. Both make S^T against K's resident terms (A = Q); role 0
 // then dP^T (X = V, the tile's own rows; Y = dO), dS^T and dK += dS^T Q,
 // role 1 dV += (P M)^T dO (the six entries A2 A1 A0 Y2 Y1 Y0).
-template <bool kDropout>
+template <bool kDropout, typename Out>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_f32_d256_kernel(const __grid_constant__ CUtensorMap map_q,
                               const __grid_constant__ CUtensorMap map_k,
                               const __grid_constant__ CUtensorMap map_v,
                               const __grid_constant__ CUtensorMap map_do,
-                              const Params p) {
+                              const BwdParams<Out> p) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* const smem = smem_raw + (base - smem_u32(smem_raw));
@@ -564,69 +566,109 @@ flash_bwd_dkv_f32_d256_kernel(const __grid_constant__ CUtensorMap map_q,
                    p.scale);
 }
 
-template <bool kDropout>
-cudaError_t launch_dq(const CUtensorMap (&m)[4], const Params& p,
+template <bool kDropout, typename Out>
+cudaError_t launch_dq(const CUtensorMap (&m)[4], const BwdParams<Out>& p,
                       cudaStream_t stream) {
   static unsigned smem_set = 0;
-  return launch_bwd(flash_bwd_dq_f32_d256_kernel<kDropout>, kThreads,
+  return launch_bwd(flash_bwd_dq_f32_d256_kernel<kDropout, Out>, kThreads,
                     Layout::kBytes, smem_set, m, p, (p.Lq + 63) / 64, stream);
 }
 
-template <bool kDropout>
-cudaError_t launch_dkv(const CUtensorMap (&m)[4], const Params& p,
+template <bool kDropout, typename Out>
+cudaError_t launch_dkv(const CUtensorMap (&m)[4], const BwdParams<Out>& p,
                        cudaStream_t stream) {
   static unsigned smem_set = 0;
-  return launch_bwd(flash_bwd_dkv_f32_d256_kernel<kDropout>, kThreads,
+  return launch_bwd(flash_bwd_dkv_f32_d256_kernel<kDropout, Out>, kThreads,
                     Layout::kBytes, smem_set, m, p, 2 * ((p.Lk + 63) / 64),
                     stream);
 }
 
+// The dQ (kDkv false: outputs dQ and dS) or dK/dV kernel (outputs dK and
+// dV), its gradients of type Out.
+template <bool kDkv, typename Out>
+int run_bwd(const void* q3, const void* k3, const void* v3, const void* bias,
+            const void* do3, const void* lse, const void* delta, void* out0,
+            void* out1, int B, int H, int Lq, int Lk,
+            const unsigned long long* geo, const long long* strides,
+            int causal, float scale, int dropout_enabled,
+            unsigned long long seed, unsigned int threshold, float drop_scale,
+            cudaStream_t s) {
+  BwdParams<Out> p;
+  CUtensorMap m[4];
+  const cudaError_t err = make_bwd_params(
+      p, m, kDkv ? 2 : 1, q3, k3, v3, bias, do3, lse, delta, out0, out1, B,
+      H, Lq, Lk, geo, strides, causal, scale, dropout_enabled, seed,
+      threshold, drop_scale);
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (kDkv)
+    return (int)(dropout_enabled ? launch_dkv<true>(m, p, s)
+                                 : launch_dkv<false>(m, p, s));
+  else
+    return (int)(dropout_enabled ? launch_dq<true>(m, p, s)
+                                 : launch_dq<false>(m, p, s));
+}
+
+// run_bwd with the gradients' type picked by out_dtype: 0 float32, 2
+// float16; D must be 256.
+template <bool kDkv>
+int run_bwd_as(int out_dtype, const void* q3, const void* k3, const void* v3,
+               const void* bias, const void* do3, const void* lse,
+               const void* delta, void* out0, void* out1, int B, int H,
+               int Lq, int Lk, int D, const unsigned long long* geo,
+               const long long* strides, int causal, float scale,
+               int dropout_enabled, unsigned long long seed,
+               unsigned int threshold, float drop_scale, void* stream) {
+  if (D != kD) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_dtype == 0)
+    return run_bwd<kDkv, float>(q3, k3, v3, bias, do3, lse, delta, out0, out1,
+                                B, H, Lq, Lk, geo, strides, causal, scale,
+                                dropout_enabled, seed, threshold, drop_scale,
+                                s);
+  if (out_dtype == 2)
+    return run_bwd<kDkv, __half>(q3, k3, v3, bias, do3, lse, delta, out0,
+                                 out1, B, H, Lq, Lk, geo, strides, causal,
+                                 scale, dropout_enabled, seed, threshold,
+                                 drop_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// q3, k3, v3, do3: the bf16 terms of float32 q, k, v, dO as
+// q3, k3, v3, do3: the bf16 terms of float32 (or float16) q, k, v, dO as
 // pt_split_bf16_terms writes them ([3 B, H, L, 256]), read by TMA through
 // the 14 geometry words each in `geo` (q3, k3, v3, do3 in that order;
-// sm90.cuh). lse and delta: float32 [B, H, Lq], contiguous. dq: float32,
-// written through its (batch, head, row) element strides strides[0..2]; ds
-// (may be null): float32 [B, H, Lq, Lk], contiguous; bias (may be null):
-// float32, strides[3..5] (0 where broadcast). D: 256. Dropout as in
-// pt_flash_attention_fwd. Returns the cudaError_t of the launch.
+// sm90.cuh). lse and delta: float32 [B, H, Lq], contiguous. dq: out_dtype 0
+// float32, 2 float16, written through its (batch, head, row) element
+// strides strides[0..2]; ds (may be null): float32 [B, H, Lq, Lk],
+// contiguous; bias (may be null): float32, strides[3..5] (0 where
+// broadcast). D: 256. Dropout as in pt_flash_attention_fwd. Returns the
+// cudaError_t of the launch.
 extern "C" int pt_flash_attention_bwd_dq_f32_d256_sm90(
     const void* q3, const void* k3, const void* v3, const void* bias,
     const void* do3, const void* lse, const void* delta, void* dq, void* ds,
-    int B, int H, int Lq, int Lk, int D, const unsigned long long* geo,
-    const long long* strides, int causal, float scale, int dropout_enabled,
-    unsigned long long seed, unsigned int threshold, float drop_scale,
-    void* stream) {
-  if (D != kD) return (int)cudaErrorInvalidValue;
-  Params p;
-  CUtensorMap m[4];
-  const cudaError_t err = make_bwd_params(
-      p, m, 1, q3, k3, v3, bias, do3, lse, delta, dq, ds, B, H, Lq, Lk, geo,
-      strides, causal, scale, dropout_enabled, seed, threshold, drop_scale);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dropout_enabled ? launch_dq<true>(m, p, s)
-                               : launch_dq<false>(m, p, s));
+    int B, int H, int Lq, int Lk, int D,
+    const unsigned long long* geo, const long long* strides, int causal,
+    float scale, int dropout_enabled, unsigned long long seed,
+    unsigned int threshold, float drop_scale, int out_dtype, void* stream) {
+  return run_bwd_as<false>(out_dtype, q3, k3, v3, bias, do3, lse, delta, dq,
+                           ds, B, H, Lq, Lk, D, geo, strides, causal, scale,
+                           dropout_enabled, seed, threshold, drop_scale,
+                           stream);
 }
 
-// As pt_flash_attention_bwd_dq_f32_d256_sm90, writing dK and dV (float32,
-// through strides[0..2] and [3..5]); bias strides in strides[6..8].
+// As pt_flash_attention_bwd_dq_f32_d256_sm90, writing dK and dV (of
+// out_dtype, through strides[0..2] and [3..5]); bias strides in
+// strides[6..8].
 extern "C" int pt_flash_attention_bwd_dkv_f32_d256_sm90(
     const void* q3, const void* k3, const void* v3, const void* bias,
     const void* do3, const void* lse, const void* delta, void* dk, void* dv,
-    int B, int H, int Lq, int Lk, int D, const unsigned long long* geo,
-    const long long* strides, int causal, float scale, int dropout_enabled,
-    unsigned long long seed, unsigned int threshold, float drop_scale,
-    void* stream) {
-  if (D != kD) return (int)cudaErrorInvalidValue;
-  Params p;
-  CUtensorMap m[4];
-  const cudaError_t err = make_bwd_params(
-      p, m, 2, q3, k3, v3, bias, do3, lse, delta, dk, dv, B, H, Lq, Lk, geo,
-      strides, causal, scale, dropout_enabled, seed, threshold, drop_scale);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dropout_enabled ? launch_dkv<true>(m, p, s)
-                               : launch_dkv<false>(m, p, s));
+    int B, int H, int Lq, int Lk, int D,
+    const unsigned long long* geo, const long long* strides, int causal,
+    float scale, int dropout_enabled, unsigned long long seed,
+    unsigned int threshold, float drop_scale, int out_dtype, void* stream) {
+  return run_bwd_as<true>(out_dtype, q3, k3, v3, bias, do3, lse, delta, dk,
+                          dv, B, H, Lq, Lk, D, geo, strides, causal, scale,
+                          dropout_enabled, seed, threshold, drop_scale,
+                          stream);
 }

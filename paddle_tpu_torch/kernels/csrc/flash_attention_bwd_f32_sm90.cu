@@ -6,15 +6,19 @@
 // pallas_call at :466) and `_bwd_dkv_kernel` (:269, pallas_call at :513),
 // both launched by `_flash_bwd_impl` (:411), with their in-kernel dropout
 // (`_dropout_mask`, :120; here philox.cuh), for float32 q/k/v/dO at head
-// dims 64 and 128: the attention backward of float32 training. bf16 inputs
-// take flash_attention_bwd_{dq,dkv}_sm90.cu, D = 256
+// dims 64 and 128: the attention backward of float32 training, and of
+// float16 training (the reference computes float16 inputs with float32
+// operands too; their split into bf16 terms is exact, see
+// flash_attention_fwd_f32_sm90.cu). bf16 inputs take
+// flash_attention_bwd_{dq,dkv}_sm90.cu, D = 256
 // flash_attention_bwd_f32_d256_sm90.cu; the Python wrapper routes by
 // (dtype, D).
 //
 // Computes what those kernels compute (flash_bwd_sm90.cuh): dQ and, when
 // asked for, dS as float32 [B, H, Lq, Lk] with zeros on the tiles the
-// causal mask skips; dK and dV. All three gradients are float32, written
-// through their strides.
+// causal mask skips; dK and dV. The three gradients are written through
+// their strides in the inputs' type: float32, or float16 rounded once from
+// the float32 result (Out).
 //
 // Numerics: the reference takes every product with float32 operands
 // (`_operand_dtype`, :42-59, under full float32 matmul precision). As in
@@ -82,7 +86,6 @@
 namespace {
 
 using namespace pt_bwd_sm90;
-using Params = BwdParams<float>;
 
 constexpr int kThreads = kConsumers + 32;  // a warpgroup and a producer warp
 constexpr int kLoadsPerTile = 3 * kSplit;  // Q2 Q1 Q0 dO2 dO1 dO0 Q2 Q1 Q0
@@ -164,7 +167,7 @@ struct RingReader {
 // The producer lane's loads: with n0 = 0 first the two resident operands'
 // terms at rows row0 of (b, h); then ring entries n0 .. n1 - 1, entry n at
 // rows row_of(n / kLoadsPerTile) of A or B.
-template <int D, class L, typename RowOf>
+template <int D, class L, typename RowOf, typename Params>
 __device__ __forceinline__ void produce(uint32_t base, const Params& p,
                                         const CUtensorMap* res0, TmaPos pos0,
                                         const CUtensorMap* res1, TmaPos pos1,
@@ -226,7 +229,7 @@ struct TermBanks {
 // The producer lane's loads into TermBanks: the resident operands as in
 // produce, then per tile i of n0 .. n1 - 1 the terms 2, 1, 0 of A (K) into
 // bank i & 1 and of B (V) into the other, at rows row_of(i).
-template <int D, class L, typename RowOf>
+template <int D, class L, typename RowOf, typename Params>
 __device__ __forceinline__ void produce_banks(
     uint32_t base, const Params& p, const CUtensorMap* res0, TmaPos pos0,
     const CUtensorMap* res1, TmaPos pos1, int row0, const CUtensorMap* map_a,
@@ -263,14 +266,15 @@ __device__ __forceinline__ void each_term(RingReader<L>& ring, Use use) {
 
 // ------------------------------------------------------------ dQ
 // One CTA per (b, h, 64 query rows); kDropout: the dropout draws are
-// compiled only into the instantiation that uses them.
-template <int D, bool kDropout>
+// compiled only into the instantiation that uses them. Out: dQ's element
+// type, float (float32 inputs) or __half (float16 inputs).
+template <int D, bool kDropout, typename Out>
 __global__ void __launch_bounds__(kThreads, D == 64 && !kDropout ? 2 : 1)
 flash_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v,
                              const __grid_constant__ CUtensorMap map_do,
-                             const Params p) {
+                             const BwdParams<Out> p) {
   using L = Layout<D, false>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -350,13 +354,13 @@ flash_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
 // ------------------------------------------------------------ dK/dV
 // One CTA per (b, h, 64 keys), the key tile the slowest grid dimension so
 // the early (heaviest causal) tiles of every (b, h) start first.
-template <int D, bool kDropout>
+template <int D, bool kDropout, typename Out>
 __global__ void __launch_bounds__(kThreads, D == 64 && !kDropout ? 2 : 1)
 flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                               const __grid_constant__ CUtensorMap map_k,
                               const __grid_constant__ CUtensorMap map_v,
                               const __grid_constant__ CUtensorMap map_do,
-                              const Params p) {
+                              const BwdParams<Out> p) {
   using L = Layout<D, true>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -485,80 +489,119 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   rows.store<D>(p, b, h, dk, dv);
 }
 
-template <int D, bool kDropout>
-cudaError_t launch_dq(const CUtensorMap (&m)[4], const Params& p,
+template <int D, bool kDropout, typename Out>
+cudaError_t launch_dq(const CUtensorMap (&m)[4], const BwdParams<Out>& p,
                       cudaStream_t stream) {
   static unsigned smem_set = 0;
-  return launch_bwd(flash_bwd_dq_f32_sm90_kernel<D, kDropout>, kThreads,
-                    Layout<D, false>::kBytes, smem_set, m, p,
+  return launch_bwd(flash_bwd_dq_f32_sm90_kernel<D, kDropout, Out>,
+                    kThreads, Layout<D, false>::kBytes, smem_set, m, p,
                     (p.Lq + 63) / 64, stream);
 }
 
-template <int D, bool kDropout>
-cudaError_t launch_dkv(const CUtensorMap (&m)[4], const Params& p,
+template <int D, bool kDropout, typename Out>
+cudaError_t launch_dkv(const CUtensorMap (&m)[4], const BwdParams<Out>& p,
                        cudaStream_t stream) {
   static unsigned smem_set = 0;
-  return launch_bwd(flash_bwd_dkv_f32_sm90_kernel<D, kDropout>, kThreads,
-                    Layout<D, true>::kBytes, smem_set, m, p,
+  return launch_bwd(flash_bwd_dkv_f32_sm90_kernel<D, kDropout, Out>,
+                    kThreads, Layout<D, true>::kBytes, smem_set, m, p,
                     (p.Lk + 63) / 64, stream);
+}
+
+// The dQ (kDkv false: outputs dQ and dS) or dK/dV kernel (outputs dK and
+// dV) at D 64 or 128, its gradients of type Out.
+template <bool kDkv, typename Out>
+int run_bwd(const void* q3, const void* k3, const void* v3, const void* bias,
+            const void* do3, const void* lse, const void* delta, void* out0,
+            void* out1, int B, int H, int Lq, int Lk, int D,
+            const unsigned long long* geo, const long long* strides,
+            int causal, float scale, int dropout_enabled,
+            unsigned long long seed, unsigned int threshold, float drop_scale,
+            cudaStream_t s) {
+  BwdParams<Out> p;
+  CUtensorMap m[4];
+  const cudaError_t err = make_bwd_params(
+      p, m, kDkv ? 2 : 1, q3, k3, v3, bias, do3, lse, delta, out0, out1, B,
+      H, Lq, Lk, geo, strides, causal, scale, dropout_enabled, seed,
+      threshold, drop_scale);
+  if (err != cudaSuccess) return (int)err;
+  const bool drop = dropout_enabled != 0;
+  if constexpr (kDkv) {
+    if (D == 64)
+      return (int)(drop ? launch_dkv<64, true>(m, p, s)
+                        : launch_dkv<64, false>(m, p, s));
+    if (D == 128)
+      return (int)(drop ? launch_dkv<128, true>(m, p, s)
+                        : launch_dkv<128, false>(m, p, s));
+  } else {
+    if (D == 64)
+      return (int)(drop ? launch_dq<64, true>(m, p, s)
+                        : launch_dq<64, false>(m, p, s));
+    if (D == 128)
+      return (int)(drop ? launch_dq<128, true>(m, p, s)
+                        : launch_dq<128, false>(m, p, s));
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// run_bwd with the gradients' type picked by out_dtype: 0 float32, 2
+// float16.
+template <bool kDkv>
+int run_bwd_as(int out_dtype, const void* q3, const void* k3, const void* v3,
+               const void* bias, const void* do3, const void* lse,
+               const void* delta, void* out0, void* out1, int B, int H,
+               int Lq, int Lk, int D, const unsigned long long* geo,
+               const long long* strides, int causal, float scale,
+               int dropout_enabled, unsigned long long seed,
+               unsigned int threshold, float drop_scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_dtype == 0)
+    return run_bwd<kDkv, float>(q3, k3, v3, bias, do3, lse, delta, out0, out1,
+                                B, H, Lq, Lk, D, geo, strides, causal, scale,
+                                dropout_enabled, seed, threshold, drop_scale,
+                                s);
+  if (out_dtype == 2)
+    return run_bwd<kDkv, __half>(q3, k3, v3, bias, do3, lse, delta, out0,
+                                 out1, B, H, Lq, Lk, D, geo, strides, causal,
+                                 scale, dropout_enabled, seed, threshold,
+                                 drop_scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q3, k3, v3, do3: the bf16 terms of float32 q, k, v, dO as
+// q3, k3, v3, do3: the bf16 terms of float32 (or float16) q, k, v, dO as
 // pt_split_bf16_terms writes them ([3 B, H, L, D]), read by TMA through the
 // 14 geometry words each in `geo` (q3, k3, v3, do3 in that order; sm90.cuh).
-// lse and delta: float32 [B, H, Lq], contiguous. dq: float32, written
-// through its (batch, head, row) element strides strides[0..2]; ds (may be
-// null): float32 [B, H, Lq, Lk], contiguous; bias (may be null): float32,
-// strides[3..5] (0 where broadcast). D: 64 or 128. Dropout as in
-// pt_flash_attention_fwd. Returns the cudaError_t of the launch.
+// lse and delta: float32 [B, H, Lq], contiguous. dq: out_dtype 0 float32,
+// 2 float16, written through its (batch, head, row) element strides
+// strides[0..2]; ds (may be null): float32 [B, H, Lq, Lk], contiguous; bias
+// (may be null): float32, strides[3..5] (0 where broadcast). D: 64 or 128.
+// Dropout as in pt_flash_attention_fwd. Returns the cudaError_t of the
+// launch.
 extern "C" int pt_flash_attention_bwd_dq_f32_sm90(
     const void* q3, const void* k3, const void* v3, const void* bias,
     const void* do3, const void* lse, const void* delta, void* dq, void* ds,
-    int B, int H, int Lq, int Lk, int D, const unsigned long long* geo,
-    const long long* strides, int causal, float scale, int dropout_enabled,
-    unsigned long long seed, unsigned int threshold, float drop_scale,
-    void* stream) {
-  Params p;
-  CUtensorMap m[4];
-  const cudaError_t err = make_bwd_params(
-      p, m, 1, q3, k3, v3, bias, do3, lse, delta, dq, ds, B, H, Lq, Lk, geo,
-      strides, causal, scale, dropout_enabled, seed, threshold, drop_scale);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool drop = dropout_enabled != 0;
-  if (D == 64)
-    return (int)(drop ? launch_dq<64, true>(m, p, s)
-                      : launch_dq<64, false>(m, p, s));
-  if (D == 128)
-    return (int)(drop ? launch_dq<128, true>(m, p, s)
-                      : launch_dq<128, false>(m, p, s));
-  return (int)cudaErrorInvalidValue;
+    int B, int H, int Lq, int Lk, int D,
+    const unsigned long long* geo, const long long* strides, int causal,
+    float scale, int dropout_enabled, unsigned long long seed,
+    unsigned int threshold, float drop_scale, int out_dtype, void* stream) {
+  return run_bwd_as<false>(out_dtype, q3, k3, v3, bias, do3, lse, delta, dq,
+                           ds, B, H, Lq, Lk, D, geo, strides, causal, scale,
+                           dropout_enabled, seed, threshold, drop_scale,
+                           stream);
 }
 
-// As pt_flash_attention_bwd_dq_f32_sm90, writing dK and dV (float32,
+// As pt_flash_attention_bwd_dq_f32_sm90, writing dK and dV (of out_dtype,
 // through strides[0..2] and [3..5]); bias strides in strides[6..8].
 extern "C" int pt_flash_attention_bwd_dkv_f32_sm90(
     const void* q3, const void* k3, const void* v3, const void* bias,
     const void* do3, const void* lse, const void* delta, void* dk, void* dv,
-    int B, int H, int Lq, int Lk, int D, const unsigned long long* geo,
-    const long long* strides, int causal, float scale, int dropout_enabled,
-    unsigned long long seed, unsigned int threshold, float drop_scale,
-    void* stream) {
-  Params p;
-  CUtensorMap m[4];
-  const cudaError_t err = make_bwd_params(
-      p, m, 2, q3, k3, v3, bias, do3, lse, delta, dk, dv, B, H, Lq, Lk, geo,
-      strides, causal, scale, dropout_enabled, seed, threshold, drop_scale);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool drop = dropout_enabled != 0;
-  if (D == 64)
-    return (int)(drop ? launch_dkv<64, true>(m, p, s)
-                      : launch_dkv<64, false>(m, p, s));
-  if (D == 128)
-    return (int)(drop ? launch_dkv<128, true>(m, p, s)
-                      : launch_dkv<128, false>(m, p, s));
-  return (int)cudaErrorInvalidValue;
+    int B, int H, int Lq, int Lk, int D,
+    const unsigned long long* geo, const long long* strides, int causal,
+    float scale, int dropout_enabled, unsigned long long seed,
+    unsigned int threshold, float drop_scale, int out_dtype, void* stream) {
+  return run_bwd_as<true>(out_dtype, q3, k3, v3, bias, do3, lse, delta, dk,
+                          dv, B, H, Lq, Lk, D, geo, strides, causal, scale,
+                          dropout_enabled, seed, threshold, drop_scale,
+                          stream);
 }

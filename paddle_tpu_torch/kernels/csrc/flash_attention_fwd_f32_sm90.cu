@@ -6,14 +6,19 @@
 // launched by `_flash_fwd_impl` (:352, pallas_call at :383), with its
 // in-kernel dropout (`_dropout_mask`, :120; here philox.cuh), for float32
 // q/k/v at head dims 64, 128 and 256: the attention of every serving
-// prefill (float32 parameters). bf16 inputs take flash_attention_fwd_sm90.cu;
-// the Python wrapper routes by (dtype, D, kernel).
+// prefill (float32 parameters). float16 q/k/v take this kernel too (float16
+// O2 training): the reference computes float16 inputs with float32 operands
+// as well, so only the split's input and O's element type differ. bf16
+// inputs take flash_attention_fwd_sm90.cu; the Python wrapper routes by
+// (dtype, D, kernel).
 //
 // Computes what flash_attention_fwd.cu computes, per (b, h): S = Q K^T *
 // scale (+ float32 bias), the top-left causal mask (masked scores -1e30, keys
 // past Lk -inf), O = dropout(softmax(S)) V with the row sum l over the
 // undropped probabilities, LSE = m + log(max(l, 1e-30)) as float32
-// [B, H, Lq], O written in float32 through its strides.
+// [B, H, Lq], O written through its strides in the inputs' type (float32,
+// or float16 rounded once from the float32 result, as the reference's
+// `o_ref.dtype` cast does).
 //
 // Numerics: the reference computes both products with float32 operands
 // (`_operand_dtype`, :42-59, under full float32 matmul precision), so one
@@ -29,11 +34,18 @@
 // sm90.cuh, and need no transpose of V (TF32 wgmma reads B K-major only).
 //
 // Q, K and V are split once per call by split_terms_kernel below, which reads
-// the strided float32 views of the fused qkv and writes each operand's terms
+// the strided float32 (or float16) views of the fused qkv and writes each
+// operand's terms
 // as one contiguous bf16 [3 B, H, L, D] tensor (term t of batch b at batch
 // t B + b), so one TMA map per operand reaches all three terms. P is a
 // float32 matrix the kernel makes in registers and is split there, 16
 // columns at a time, into the A fragments of the P V wgmmas.
+//
+// float16. A float16 value has 11 significant bits and bf16 has float32's
+// exponent range, so x = x0 + x1 exactly and the third term is zero: the
+// split of a float16 operand is exact, and S is the float32 product of the
+// float16 inputs. The split reads float16 directly (no float32 copy in
+// between); the kernel is the float32 one with O stored as float16.
 //
 // Bound on an H100: at [1, 16, 2048, 128] causal, 12 bf16 products of
 // 2 D FLOP per kept pair (6 for S, 6 for P V) are 1.03e11 FLOP: 0.104 ms at
@@ -94,31 +106,45 @@
 namespace {
 
 using namespace pt_fwd_sm90;
-using Params = FwdParams<float>;
 
 constexpr int kLoadsPerKeyTile = 2 * kSplit;  // K0 K1 K2 V0 V1 V2
 
 // ------------------------------------------------------------ the split
-// One float32 [B, H, L, D] operand (element strides of batch, head, row;
-// the last dim contiguous and 16-byte aligned) and its bf16 terms,
-// contiguous [3 B, H, L, D].
+// One float32 or float16 (Src) [B, H, L, D] operand (element strides of
+// batch, head, row; the last dim contiguous, rows aligned to 4 elements)
+// and its bf16 terms, contiguous [3 B, H, L, D].
+template <typename Src>
 struct SplitOperand {
-  const float* src;
+  const Src* src;
   __nv_bfloat16* dst;
   long long st[3];
   int L;
 };
 
+template <typename Src>
 struct SplitParams {
-  SplitOperand op[3];
+  SplitOperand<Src> op[3];
   int B, H, D;
 };
 
+// Four consecutive values as float32: one 16-byte load of float32, one
+// 8-byte load of float16 (converted exactly).
+__device__ __forceinline__ float4 load4(const float* src) {
+  return *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ float4 load4(const __half* src) {
+  const uint2 w = *reinterpret_cast<const uint2*>(src);
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&w.x));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&w.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
 // blockIdx.y picks the operand; each thread splits 4 values at a time: one
-// 16-byte load, three 8-byte stores (one per term).
+// load (load4), three 8-byte stores (one per term).
+template <typename Src>
 __global__ void __launch_bounds__(256)
-split_terms_kernel(const SplitParams p) {
-  const SplitOperand op = p.op[blockIdx.y];
+split_terms_kernel(const SplitParams<Src> p) {
+  const SplitOperand<Src> op = p.op[blockIdx.y];
   const int d4 = p.D / 4;
   const long long n4 = (long long)p.B * p.H * op.L * d4;
   const long long term = (long long)p.B * p.H * op.L * p.D;
@@ -129,8 +155,8 @@ split_terms_kernel(const SplitParams p) {
     const int row = (int)(r % op.L);
     const int bh = (int)(r / op.L);
     const int h = bh % p.H, b = bh / p.H;
-    float4 x = *reinterpret_cast<const float4*>(
-        op.src + b * op.st[0] + h * op.st[1] + row * op.st[2] + c);
+    float4 x =
+        load4(op.src + b * op.st[0] + h * op.st[1] + row * op.st[2] + c);
     __nv_bfloat16* dst = op.dst + r * p.D + c;
 #pragma unroll
     for (int t = 0; t < kSplit; ++t) {
@@ -232,13 +258,14 @@ template <int D>
 constexpr int kCtasPerSm = D == 256 ? 1 : 2;
 
 // kDropout: the dropout draws are compiled only into the instantiation that
-// uses them.
-template <int D, bool kDropout>
+// uses them. Out: O's element type, float (float32 inputs) or __half
+// (float16 inputs).
+template <int D, bool kDropout, typename Out>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm<D>)
 flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
-                          const Params p) {
+                          const FwdParams<Out> p) {
   using L = FwdLayout<D>;
   constexpr int kRing = L::kRing;
   extern __shared__ uint8_t smem_raw[];
@@ -336,12 +363,61 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   rows.store<D>(p, c, o);
 }
 
-template <int D, bool kDropout>
-cudaError_t launch(const CUtensorMap (&m)[3], const Params& p,
+template <int D, bool kDropout, typename Out>
+cudaError_t launch(const CUtensorMap (&m)[3], const FwdParams<Out>& p,
                    cudaStream_t stream) {
   static unsigned smem_set = 0;
-  return launch_fwd(flash_fwd_f32_sm90_kernel<D, kDropout>,
+  return launch_fwd(flash_fwd_f32_sm90_kernel<D, kDropout, Out>,
                     FwdLayout<D>::kBytes, smem_set, m, p, stream);
+}
+
+template <typename Src>
+int split_terms(int n_ops, const void* const* src, void* const* dst,
+                const int* L, const long long* strides, int B, int H, int D,
+                cudaStream_t stream) {
+  SplitParams<Src> p;
+  p.B = B;
+  p.H = H;
+  p.D = D;
+  long long most = 0;
+  for (int i = 0; i < n_ops; ++i) {
+    p.op[i].src = static_cast<const Src*>(src[i]);
+    p.op[i].dst = static_cast<__nv_bfloat16*>(dst[i]);
+    for (int k = 0; k < 3; ++k) p.op[i].st[k] = strides[3 * i + k];
+    p.op[i].L = L[i];
+    const long long n4 = (long long)B * H * L[i] * (D / 4);
+    most = n4 > most ? n4 : most;
+  }
+  if (most <= 0) return (int)cudaErrorInvalidValue;
+  const long long want = (most + 255) / 256;
+  const dim3 grid((unsigned)(want < 2048 ? want : 2048), n_ops);
+  split_terms_kernel<Src><<<grid, 256, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename Out>
+int run_fwd(const void* q3, const void* k3, const void* v3, const void* bias,
+            void* o, void* lse, int B, int H, int Lq, int Lk, int D,
+            const unsigned long long* geo, const long long* strides,
+            int causal, float scale, int dropout_enabled,
+            unsigned long long seed, unsigned int threshold, float drop_scale,
+            cudaStream_t s) {
+  FwdParams<Out> p;
+  CUtensorMap m[3];
+  const cudaError_t err = make_fwd_params(
+      p, m, q3, k3, v3, bias, o, lse, B, H, Lq, Lk, geo, strides, causal,
+      scale, dropout_enabled, seed, threshold, drop_scale);
+  if (err != cudaSuccess) return (int)err;
+  const bool drop = dropout_enabled != 0;
+  if (D == 64)
+    return (int)(drop ? launch<64, true>(m, p, s) : launch<64, false>(m, p, s));
+  if (D == 128)
+    return (int)(drop ? launch<128, true>(m, p, s)
+                      : launch<128, false>(m, p, s));
+  if (D == 256)
+    return (int)(drop ? launch<256, true>(m, p, s)
+                      : launch<256, false>(m, p, s));
+  return (int)cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------------------ self-check
@@ -433,65 +509,48 @@ cudaError_t launch_selfcheck(const void* a, const void* a3, const void* b3,
 
 }  // namespace
 
-// Split n_ops (1 to 3) float32 [B, H, L_i, D] operands into bf16 terms:
-// src[i] read through its (batch, head, row) element strides
-// strides[3 i .. 3 i + 2] (last dim contiguous, 16-byte aligned rows),
-// dst[i] contiguous bf16 [3 B, H, L_i, D], term t at batch t B + b. D a
-// multiple of 4. Returns the launch's cudaError_t.
+// Split n_ops (1 to 3) [B, H, L_i, D] operands of one type into bf16
+// terms: dtype 0 for float32 (16-byte aligned rows), 2 for float16 (8-byte
+// aligned rows); src[i] read through its (batch, head, row) element strides
+// strides[3 i .. 3 i + 2] (last dim contiguous), dst[i] contiguous bf16
+// [3 B, H, L_i, D], term t at batch t B + b. D a multiple of 4. Returns the
+// launch's cudaError_t.
 extern "C" int pt_split_bf16_terms(int n_ops, const void* const* src,
                                    void* const* dst, const int* L,
                                    const long long* strides, int B, int H,
-                                   int D, void* stream) {
+                                   int D, int dtype, void* stream) {
   if (n_ops < 1 || n_ops > 3 || D % 4) return (int)cudaErrorInvalidValue;
-  SplitParams p;
-  p.B = B;
-  p.H = H;
-  p.D = D;
-  long long most = 0;
-  for (int i = 0; i < n_ops; ++i) {
-    p.op[i].src = static_cast<const float*>(src[i]);
-    p.op[i].dst = static_cast<__nv_bfloat16*>(dst[i]);
-    for (int k = 0; k < 3; ++k) p.op[i].st[k] = strides[3 * i + k];
-    p.op[i].L = L[i];
-    const long long n4 = (long long)B * H * L[i] * (D / 4);
-    most = n4 > most ? n4 : most;
-  }
-  if (most <= 0) return (int)cudaErrorInvalidValue;
-  const long long want = (most + 255) / 256;
-  const dim3 grid((unsigned)(want < 2048 ? want : 2048), n_ops);
-  split_terms_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return split_terms<float>(n_ops, src, dst, L, strides, B, H, D, s);
+  if (dtype == 2)
+    return split_terms<__half>(n_ops, src, dst, L, strides, B, H, D, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// q3, k3, v3: the bf16 terms of float32 q, k, v as pt_split_bf16_terms
-// writes them ([3 B, H, L, D]), read by TMA through the 14 geometry words
-// each in `geo` (q3, then k3, then v3; see sm90.cuh). o: float32, written
-// through its (batch, head, row) element strides, strides[0..2]; bias (may
-// be null): float32 with strides[3..5] (0 where broadcast). lse: float32
-// [B, H, Lq], contiguous. D: 64, 128 or 256. Dropout as in
-// pt_flash_attention_fwd. Returns the cudaError_t of the launch.
+// q3, k3, v3: the bf16 terms of float32 (or float16) q, k, v as
+// pt_split_bf16_terms writes them ([3 B, H, L, D]), read by TMA through the
+// 14 geometry words each in `geo` (q3, then k3, then v3; see sm90.cuh). o:
+// out_dtype 0 float32, 2 float16, written through its (batch, head, row)
+// element strides, strides[0..2]; bias (may be null): float32 with
+// strides[3..5] (0 where broadcast). lse: float32 [B, H, Lq], contiguous.
+// D: 64, 128 or 256. Dropout as in pt_flash_attention_fwd. Returns the
+// cudaError_t of the launch.
 extern "C" int pt_flash_attention_fwd_f32_sm90(
     const void* q3, const void* k3, const void* v3, const void* bias, void* o,
     void* lse, int B, int H, int Lq, int Lk, int D,
     const unsigned long long* geo, const long long* strides, int causal,
     float scale, int dropout_enabled, unsigned long long seed,
-    unsigned int threshold, float drop_scale, void* stream) {
-  Params p;
-  CUtensorMap m[3];
-  const cudaError_t err = make_fwd_params(
-      p, m, q3, k3, v3, bias, o, lse, B, H, Lq, Lk, geo, strides, causal,
-      scale, dropout_enabled, seed, threshold, drop_scale);
-  if (err != cudaSuccess) return (int)err;
+    unsigned int threshold, float drop_scale, int out_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool drop = dropout_enabled != 0;
-  if (D == 64)
-    return (int)(drop ? launch<64, true>(m, p, s) : launch<64, false>(m, p, s));
-  if (D == 128)
-    return (int)(drop ? launch<128, true>(m, p, s)
-                      : launch<128, false>(m, p, s));
-  if (D == 256)
-    return (int)(drop ? launch<256, true>(m, p, s)
-                      : launch<256, false>(m, p, s));
+  if (out_dtype == 0)
+    return run_fwd<float>(q3, k3, v3, bias, o, lse, B, H, Lq, Lk, D, geo,
+                          strides, causal, scale, dropout_enabled, seed,
+                          threshold, drop_scale, s);
+  if (out_dtype == 2)
+    return run_fwd<__half>(q3, k3, v3, bias, o, lse, B, H, Lq, Lk, D, geo,
+                           strides, causal, scale, dropout_enabled, seed,
+                           threshold, drop_scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

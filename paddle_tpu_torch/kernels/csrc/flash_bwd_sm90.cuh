@@ -31,7 +31,8 @@ using namespace pt_sm90;
 
 constexpr int kConsumers = 128;  // threads of one consumer warpgroup
 
-// Out: the element type of the gradients (__nv_bfloat16 or float).
+// Out: the element type of the gradients (__nv_bfloat16, __half or
+// float).
 template <typename Out>
 struct BwdParams {
   Out *out0, *out1;  // dQ and (unused) in a dQ kernel; dK and dV in dK/dV

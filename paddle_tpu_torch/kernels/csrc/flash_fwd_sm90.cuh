@@ -25,7 +25,7 @@ constexpr int kConsumers = 128;  // one warpgroup
 constexpr int kThreads = kConsumers + 32;
 constexpr float kMaskValue = -1e30f;  // the TPU kernels' _NEG_INF
 
-// Out: the element type of O (__nv_bfloat16 or float).
+// Out: the element type of O (__nv_bfloat16, __half or float).
 template <typename Out>
 struct FwdParams {
   Out* o;

@@ -41,6 +41,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -408,10 +409,14 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Two adjacent output values, as bf16 or float32.
+// Two adjacent output values, as bf16, float16 or float32 (each rounded
+// once from float32, to nearest even).
 __device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a,
                                            float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(__half* dst, float a, float b) {
+  *reinterpret_cast<__half2*>(dst) = __floats2half2_rn(a, b);
 }
 __device__ __forceinline__ void store_pair(float* dst, float a, float b) {
   *reinterpret_cast<float2*>(dst) = make_float2(a, b);

@@ -30,6 +30,11 @@ The kernels replace the three Pallas kernels of the reference:
   and dK/dV again for float32 inputs (float32 training) in the same way:
   Q, K, V and dO arrive as their three bf16 terms, P M and dS are split
   in registers, six term pairs per product;
+- float16 inputs (float16 O2 training) take those float32 kernels too, as
+  the reference computes float16 with float32 operands: the split reads
+  float16 directly (a float16 value is exactly two bf16 terms, the third
+  is zero), and O, dQ, dK and dV are rounded to float16 once, from
+  float32, as they are written;
 - ``csrc/philox.cuh`` replaces the in-kernel dropout ``_dropout_mask``
   (``:120``): Philox4x32-10 bits keyed per element by (seed, b, h, row,
   col), so the three kernels regenerate one mask although they tile
@@ -37,9 +42,9 @@ The kernels replace the three Pallas kernels of the reference:
   integer ops.
 
 All take a top-left-aligned causal mask (query i sees key j iff i >= j),
-an optional additive bias broadcast from ``[B|1, H|1, Lq, Lk]``, float32
-or bfloat16 inputs with float32 arithmetic, any length, and head dims 64,
-128 and 256. :class:`FlashAttention` (the counterpart of the reference's
+an optional additive bias broadcast from ``[B|1, H|1, Lq, Lk]``, float32,
+bfloat16 or float16 inputs with float32 arithmetic, any length, and head
+dims 64, 128 and 256. :class:`FlashAttention` (the counterpart of the reference's
 ``_flash_diff`` ``custom_vjp``, ``:539-565``) wires them into autograd.
 
 Dispatch is by device, never by a fallback: a wrapper given CPU tensors
@@ -47,13 +52,15 @@ runs the plain version (that is what the CPU tests exercise), and given
 CUDA tensors it launches the kernel or raises. Among the kernels the
 route is picked by (dtype, head dim, kernel) alone (:func:`kernel_route`):
 bf16 takes the ``wgmma`` forward, dQ and dK/dV kernels at every head dim,
-float32 the ``wgmma_f32`` ones; no route takes the ``fma`` kernels. Each
+float32 and float16 the ``wgmma_f32`` ones; no route takes the ``fma``
+kernels. Each
 wrapper counts its launches in ``<wrapper>.launches`` and per route in
 ``<wrapper>.routes`` (:func:`launch_counts`).
 
 The gate :func:`should_use_flash` keeps the JAX gate's shape rules (head
-dim in {64, 128, 256}; a bias that broadcasts to ``[B, H, Lq, Lk]``) and
-drops its two TPU-only rules:
+dim in {64, 128, 256}; a bias that broadcasts to ``[B, H, Lq, Lk]``),
+admits exactly the dtypes that have a route (float32, bfloat16, float16),
+and drops the JAX gate's two TPU-only rules:
 
 - ``Lq < 2048`` went to XLA's fused softmax because that was faster on a
   TPU v5e's matrix unit below 2k tokens. That measurement says nothing
@@ -84,14 +91,17 @@ __all__ = ["SUPPORTED_HEAD_DIMS", "TENSOR_CORE_HEAD_DIMS", "kernel_route",
            "reference_attention_fwd", "reference_attention_bwd"]
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
-#: head dims at which each (dtype, kernel) runs on the tensor cores: route
-#: ``"wgmma"`` for bf16, ``"wgmma_f32"`` for float32 (every kernel at every
-#: head dim); the rest is ``"fma"``, which no wrapper launches
+#: the tensor-core route of each dtype: bf16 operands as they are
+#: (``"wgmma"``); float32 and float16 as their bf16 terms (``"wgmma_f32"``,
+#: exact for float16)
+_TENSOR_CORE_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "wgmma_f32",
+                       torch.float16: "wgmma_f32"}
+#: head dims at which each (dtype, kernel) runs on the tensor cores, on its
+#: dtype's route (every kernel at every head dim); the rest is ``"fma"``,
+#: which no wrapper launches
 TENSOR_CORE_HEAD_DIMS = {
     (dtype, kernel): SUPPORTED_HEAD_DIMS
-    for dtype in (torch.bfloat16, torch.float32)
-    for kernel in ("fwd", "dq", "dkv")}
-_TENSOR_CORE_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "wgmma_f32"}
+    for dtype in _TENSOR_CORE_ROUTES for kernel in ("fwd", "dq", "dkv")}
 _FWD_SOURCE = "flash_attention_fwd.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
 _FWD_SM90_SOURCE = "flash_attention_fwd_sm90.cu"
@@ -100,7 +110,8 @@ _DQ_SM90_SOURCE = "flash_attention_bwd_dq_sm90.cu"
 _DKV_SM90_SOURCE = "flash_attention_bwd_dkv_sm90.cu"
 _BWD_F32_SM90_SOURCE = "flash_attention_bwd_f32_sm90.cu"
 _BWD_F32_D256_SM90_SOURCE = "flash_attention_bwd_f32_d256_sm90.cu"
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: element-type codes of the C entries (the FMA kernels take 0 and 1)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TILE_ROWS = 64  # rows of every TMA box (csrc/sm90.cuh)
 
 
@@ -109,9 +120,10 @@ def kernel_route(dtype: torch.dtype, head_dim: int, kernel: str) -> str:
     ``kernel`` ("fwd", "dq" or "dkv"): at the head dims of
     :data:`TENSOR_CORE_HEAD_DIMS` (every kernel at D 64, 128 and 256)
     ``"wgmma"`` (the sm_90a tensor-core kernels) for bf16 and
-    ``"wgmma_f32"`` (the same tensor cores, each float32 operand as three
-    bf16 terms) for float32; ``"fma"`` for everything else, which the
-    wrappers refuse (another dtype or head dim)."""
+    ``"wgmma_f32"`` (the same tensor cores, each float32 or float16
+    operand as three bf16 terms) for float32 and float16; ``"fma"`` for
+    everything else, which the wrappers refuse (another dtype or head
+    dim)."""
     if kernel not in ("fwd", "dq", "dkv"):
         raise ValueError(f"kernel must be fwd, dq or dkv, got {kernel!r}")
     if head_dim in TENSOR_CORE_HEAD_DIMS.get((dtype, kernel), ()):
@@ -178,11 +190,12 @@ def _tma_ok(t: torch.Tensor) -> bool:
 
 
 def should_use_flash(q, k, attn_mask, dropout_p) -> bool:
-    """Kernel gate on ``[B, L, H, D]`` tensors: CUDA tensors whose shapes
-    the kernels take. CPU tensors always answer False (they run the plain
-    path). Dropout runs inside the kernels, so it does not gate."""
+    """Kernel gate on ``[B, L, H, D]`` tensors: CUDA tensors of a dtype
+    that has a route (float32, bfloat16, float16) whose shapes the kernels
+    take. Any other dtype, and CPU tensors, answer False (they run the
+    plain path). Dropout runs inside the kernels, so it does not gate."""
     del dropout_p
-    if not q.is_cuda:
+    if not q.is_cuda or q.dtype not in _TENSOR_CORE_ROUTES:
         return False
     Lq, Lk = q.shape[1], k.shape[1]
     if attn_mask is not None:
@@ -389,6 +402,8 @@ def _bwd_fn(name: str):
 _SM90_TAIL = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
               ctypes.c_int, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float,
               ctypes.c_void_p]
+# the wgmma_f32 entries take the outputs' element type before the stream
+_SM90_F32_TAIL = _SM90_TAIL[:-1] + [ctypes.c_int, ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -402,7 +417,7 @@ def _fwd_sm90_fn():
 @functools.lru_cache(maxsize=None)
 def _fwd_f32_sm90_fn():
     fn = _build.load(_FWD_F32_SM90_SOURCE).pt_flash_attention_fwd_f32_sm90
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + _SM90_TAIL
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + _SM90_F32_TAIL
     fn.restype = ctypes.c_int
     return fn
 
@@ -410,7 +425,7 @@ def _fwd_f32_sm90_fn():
 @functools.lru_cache(maxsize=None)
 def _split_fn():
     fn = _build.load(_FWD_F32_SM90_SOURCE).pt_split_bf16_terms
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -428,7 +443,8 @@ def _bwd_sm90_fn(which: str, route: str, head_dim: int):
         source = _DQ_SM90_SOURCE if which == "dq" else _DKV_SM90_SOURCE
         name = f"bwd_{which}_sm90"
     fn = getattr(_build.load(source), f"pt_flash_attention_{name}")
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + _SM90_TAIL
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + (
+        _SM90_F32_TAIL if route == "wgmma_f32" else _SM90_TAIL)
     fn.restype = ctypes.c_int
     return fn
 
@@ -452,24 +468,26 @@ def wgmma_selfcheck(D: int, device, generator=None,
     for the caller to hold against a float64 product.
 
     bf16 runs ``pt_sm90_selfcheck`` (``csrc/sm90.cuh``; D 64, 128 or 256):
-    one bf16 product of each form. float32 (the same head dims) runs
-    ``pt_sm90_selfcheck_f32`` (``csrc/flash_attention_fwd_f32_sm90.cu``):
-    a and b split by :func:`split_bf16_terms`, b's terms loaded by TMA,
-    and the six term pairs of each product through the term-pair products
-    every float32 kernel uses (``csrc/sm90.cuh``; a's register fragments
-    split in registers for ``c2``)."""
+    one bf16 product of each form. float32 and float16 (the same head
+    dims) run ``pt_sm90_selfcheck_f32``
+    (``csrc/flash_attention_fwd_f32_sm90.cu``): a and b split by
+    :func:`split_bf16_terms`, b's terms loaded by TMA, and the six term
+    pairs of each product through the term-pair products every
+    ``wgmma_f32`` kernel uses (``csrc/sm90.cuh``; a's register fragments,
+    from its float32 values, split in registers for ``c2``)."""
     a, b = (torch.randn(64, D, generator=generator, device=device).to(dtype)
             for _ in range(2))
     c1 = torch.empty(64, 64, device=device)
     c2 = torch.empty(64, D, device=device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    if dtype == torch.float32:
+    if _TENSOR_CORE_ROUTES.get(dtype) == "wgmma_f32":
         a3, b3 = split_bf16_terms(a.view(1, 1, 64, D), b.view(1, 1, 64, D))
+        a32 = a.float()
         fn = _build.load(_FWD_F32_SM90_SOURCE).pt_sm90_selfcheck_f32
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         with torch.cuda.device(a.device):
-            err = fn(a.data_ptr(), a3.data_ptr(), b3.data_ptr(),
+            err = fn(a32.data_ptr(), a3.data_ptr(), b3.data_ptr(),
                      _geometry_words(a3), _geometry_words(b3), c1.data_ptr(),
                      c2.data_ptr(), D, stream)
     else:
@@ -487,10 +505,12 @@ def wgmma_selfcheck(D: int, device, generator=None,
 
 
 def _plain_split(x: torch.Tensor) -> torch.Tensor:
-    """The plain version of the split pre-pass for one float32 ``[B, H, L,
-    D]`` tensor: its three bf16 terms ``t0 = bf16(x)``, ``t1 = bf16(x -
-    t0)``, ``t2 = bf16(x - t0 - t1)`` as one ``[3 B, H, L, D]`` tensor
-    (term t at batch ``t B + b``)."""
+    """The plain version of the split pre-pass for one float32 or float16
+    ``[B, H, L, D]`` tensor: its three bf16 terms ``t0 = bf16(x)``, ``t1 =
+    bf16(x - t0)``, ``t2 = bf16(x - t0 - t1)`` (in float32) as one ``[3 B,
+    H, L, D]`` tensor (term t at batch ``t B + b``). A float16 x is exactly
+    ``t0 + t1`` (11 significant bits; bf16 has float32's exponents), so its
+    ``t2`` is zero."""
     terms = []
     x = x.float()
     for _ in range(3):
@@ -501,11 +521,13 @@ def _plain_split(x: torch.Tensor) -> torch.Tensor:
 
 
 def split_bf16_terms(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Split one to three float32 ``[B, H, L_i, D]`` tensors (same B, H and
-    D; any strides with a contiguous last dimension and 16-byte rows) into
-    their three bf16 terms each, as contiguous ``[3 B, H, L_i, D]`` tensors
-    (term t of batch b at batch ``t B + b``): the operands of the float32
-    tensor-core forward, whose sum is x to within 2^-24 |x|.
+    """Split one to three float32 or float16 ``[B, H, L_i, D]`` tensors
+    (one dtype; same B, H and D; any strides with a contiguous last
+    dimension, rows aligned to 4 elements) into their three bf16 terms
+    each, as contiguous ``[3 B, H, L_i, D]`` tensors (term t of batch b at
+    batch ``t B + b``): the operands of the ``wgmma_f32`` kernels, whose
+    sum is x to within 2^-24 |x| (exactly x for float16, which the kernel
+    reads as it is).
 
     CUDA tensors launch ``pt_split_bf16_terms`` once for all of them
     (``split_bf16_terms.launches`` counts it); CPU tensors run
@@ -516,8 +538,12 @@ def split_bf16_terms(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     if not xs[0].is_cuda:
         return tuple(_plain_split(x) for x in xs)
     B, H, _, D = xs[0].shape
+    dtype = xs[0].dtype
+    if _TENSOR_CORE_ROUTES.get(dtype) != "wgmma_f32":
+        raise ValueError(f"split_bf16_terms takes float32 or float16, got "
+                         f"{dtype}")
     for i, x in enumerate(xs):
-        _check_operand(f"operand {i}", x, xs[0].device, torch.float32,
+        _check_operand(f"operand {i}", x, xs[0].device, dtype,
                        (B, H, x.shape[2], D))
     outs = tuple(torch.empty((3 * B, H, x.shape[2], D), device=x.device,
                              dtype=torch.bfloat16) for x in xs)
@@ -529,7 +555,8 @@ def split_bf16_terms(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
             (ctypes.c_int * n)(*(x.shape[2] for x in xs)),
             (ctypes.c_longlong * (3 * n))(*(s for x in xs
                                             for s in x.stride()[:3])),
-            B, H, D, torch.cuda.current_stream(xs[0].device).cuda_stream)
+            B, H, D, _DTYPE_CODES[dtype],
+            torch.cuda.current_stream(xs[0].device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"split_bf16_terms launch failed: CUDA error {err}")
     split_bf16_terms.launches += 1
@@ -547,7 +574,8 @@ def _check_operand(name: str, t: torch.Tensor, device, dtype, shape) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    # the kernels read rows with 16-byte (f32) / 8-byte (bf16) vector loads
+    # the kernels read rows with 16-byte (f32) / 8-byte (bf16, f16) vector
+    # loads
     if not _rows_ok(t):
         raise ValueError(
             f"{name} needs a contiguous last dimension, 16-byte aligned "
@@ -579,9 +607,9 @@ def _empty_like_rows(t: torch.Tensor) -> torch.Tensor:
 
 
 def _check_shapes(q, k, v):
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"flash kernel takes float32 or bfloat16, got "
-                         f"{q.dtype}")
+    if q.dtype not in _TENSOR_CORE_ROUTES:
+        raise ValueError(f"flash kernel takes float32, bfloat16 or float16, "
+                         f"got {q.dtype}")
     if q.ndim != 4:
         raise ValueError(f"q must be [B, H, L, D], got {tuple(q.shape)}")
     B, H, Lq, D = q.shape
@@ -663,16 +691,17 @@ def _launch_fwd_sm90(route: str, q, k, v, causal: bool, bias, out,
     "wgmma_f32", which first splits q, k, v into their bf16 terms)."""
     (B, H, Lq, Lk, D), out, lse, bias, bias_strides = _fwd_buffers(
         q, k, v, bias, out)
-    fn, ops = _fwd_sm90_fn(), (q, k, v)
+    fn, ops, out_type = _fwd_sm90_fn(), (q, k, v), ()
     if route == "wgmma_f32":  # the tensor cores read bf16 terms
         fn, ops = _fwd_f32_sm90_fn(), split_bf16_terms(q, k, v)
+        out_type = (_DTYPE_CODES[q.dtype],)
     with torch.cuda.device(q.device):
         err = fn(*(t.data_ptr() for t in ops),
                  None if bias is None else bias.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), B, H, Lq, Lk, D, _geometry_words(*ops),
                  (ctypes.c_longlong * 6)(*out.stride()[:3], *bias_strides),
                  int(bool(causal)), 1.0 / math.sqrt(D),
-                 *_dropout_args(dropout_p, seed),
+                 *_dropout_args(dropout_p, seed), *out_type,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd ({route}) launch failed: "
@@ -698,7 +727,8 @@ def flash_attention_fwd(q, k, v, causal: bool = False, bias=None,
     """``(o, lse)`` of attention on ``[B, H, L, D]`` tensors.
 
     CUDA tensors launch the kernel of :func:`kernel_route` (which raises on
-    what it does not take: dtype other than float32/bfloat16, head dim
+    what it does not take: dtype other than float32/bfloat16/float16, head
+    dim
     outside {64, 128, 256}, a last dimension that is not contiguous, and
     on the wgmma route q/k/v that TMA cannot read, :func:`tma_geometry`;
     the ``wgmma_f32`` route first launches :func:`split_bf16_terms`);
@@ -782,6 +812,7 @@ def _launch_bwd_sm90(which: str, route: str, q, k, v, bias, do, lse, delta,
     _check_stats(lse, delta, (B, H, Lq), q.device)
     bias, bias_strides = _kernel_bias(bias, B, H, Lq, Lk, q.device)
     ops = (q, k, v, do) if route == "wgmma" else terms
+    out_type = (_DTYPE_CODES[q.dtype],) if route == "wgmma_f32" else ()
     if route == "wgmma_f32":
         # TMA reads past a tensor's end as zeros: a wrong shape would be a
         # wrong gradient, not a fault
@@ -801,7 +832,7 @@ def _launch_bwd_sm90(which: str, route: str, q, k, v, bias, do, lse, delta,
             _geometry_words(*ops),
             (ctypes.c_longlong * len(strides))(*strides),
             int(bool(causal)), 1.0 / math.sqrt(D),
-            *_dropout_args(dropout_p, seed),
+            *_dropout_args(dropout_p, seed), *out_type,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_{which} ({route}) launch "
@@ -809,9 +840,9 @@ def _launch_bwd_sm90(which: str, route: str, q, k, v, bias, do, lse, delta,
 
 
 def _backward_terms(q, k, v, do):
-    """The bf16 terms of float32 q, k, v and do, as the ``wgmma_f32``
-    backward kernels read them: two launches of :func:`split_bf16_terms`
-    (which takes up to three tensors)."""
+    """The bf16 terms of float32 (or float16) q, k, v and do, as the
+    ``wgmma_f32`` backward kernels read them: two launches of
+    :func:`split_bf16_terms` (which takes up to three tensors)."""
     return (*split_bf16_terms(q, k, v), *split_bf16_terms(do))
 
 

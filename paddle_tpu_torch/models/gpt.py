@@ -55,6 +55,9 @@ class GPTConfig:
     # recompute policy (only None / "full" are ported)
     recompute_policy: Optional[str] = None
     use_flash_attention: bool = True
+    # shard activations over a mesh's "sp" axis between blocks: not ported
+    # (it needs a mesh), so True raises
+    sequence_parallel: bool = False
     # fused head + CE over sequence chunks of this size (0 = off): the full
     # [B, L, vocab] logits never exist (see lm_utils.chunked_lm_loss)
     loss_chunk: int = 0
@@ -222,6 +225,9 @@ class GPTForCausalLM(nn.Module):
         if not cfg.tie_word_embeddings:
             raise ValueError("only the tied LM head (tie_word_embeddings="
                              "True) is ported")
+        if cfg.sequence_parallel:
+            raise NotImplementedError("sequence_parallel is not ported (it "
+                                      "needs a mesh)")
         device = default_device(device)
         if generator is None:
             generator = torch.Generator(device=device)

@@ -66,9 +66,11 @@ class LlamaConfig:
             # 2/3 * 4h rounded up to a multiple of 256
             inter = int(8 * self.hidden_size / 3)
             self.intermediate_size = -(-inter // 256) * 256
+        # AssertionError, as the reference's assert raises
         if self.num_heads % self.num_kv_heads:
-            raise ValueError(f"num_heads {self.num_heads} is not a multiple "
-                             f"of num_kv_heads {self.num_kv_heads}")
+            raise AssertionError(f"num_heads {self.num_heads} is not a "
+                                 f"multiple of num_kv_heads "
+                                 f"{self.num_kv_heads}")
 
 
 def llama_tiny(**overrides) -> LlamaConfig:

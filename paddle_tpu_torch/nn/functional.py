@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as _F
 
+from ..amp.auto_cast import autocast_call
 from .layer import take_rng_key
 
 __all__ = ["linear", "gelu", "silu", "layer_norm", "rms_norm", "dropout",
@@ -17,7 +18,10 @@ __all__ = ["linear", "gelu", "silu", "layer_norm", "rms_norm", "dropout",
 
 
 def linear(x, weight, bias=None):
-    """``x @ weight + bias`` with ``weight`` laid out ``[in, out]``."""
+    """``x @ weight + bias`` with ``weight`` laid out ``[in, out]``. Under
+    an O1 ``amp.auto_cast`` block the product runs in the autocast dtype
+    (the white-list contract, ``functional.py:152-154``)."""
+    x, weight, bias = autocast_call("linear", x, weight, bias)
     out = torch.matmul(x, weight)
     if bias is not None:
         out = out + bias

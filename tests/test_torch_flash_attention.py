@@ -124,10 +124,12 @@ def test_gate_is_false_on_cpu():
 def test_gate_shape_rules_match_jax_where_tpu_rules_do_not_apply():
     """The port keeps the JAX gate's head-dim and bias-shape rules; only
     the device decides on the CPU, so probe the rules with a tensor that
-    claims to be on CUDA."""
+    claims to be on CUDA. The gate admits exactly the dtypes that have a
+    kernel route (float32, bfloat16, float16)."""
     class FakeCuda:
-        def __init__(self, shape):
+        def __init__(self, shape, dtype=torch.float32):
             self.shape, self.ndim, self.is_cuda = shape, len(shape), True
+            self.dtype = dtype
 
     q = FakeCuda((2, 64, 4, 128))
     assert tfa.should_use_flash(q, q, None, 0.0)
@@ -139,6 +141,11 @@ def test_gate_shape_rules_match_jax_where_tpu_rules_do_not_apply():
     # no TPU length rules: short and ragged lengths go to the kernel
     assert tfa.should_use_flash(FakeCuda((1, 37, 4, 64)),
                                 FakeCuda((1, 37, 4, 64)), None, 0.0)
+    for dtype in (torch.bfloat16, torch.float16, torch.float64):
+        x = FakeCuda((2, 64, 4, 128), dtype)
+        routed = tfa.kernel_route(dtype, 128, "fwd") != "fma"
+        assert tfa.should_use_flash(x, x, None, 0.0) == routed
+        assert routed == (dtype != torch.float64)
 
 
 def _bf16_ulp(x):
@@ -175,9 +182,23 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, tol, causal, lq, lk, d):
 
 @pytest.mark.cuda
 def test_cuda_wrapper_raises_on_unsupported_input(cuda_device):
+    """A head dim no kernel takes raises; float16, which the kernels take
+    (on the wgmma_f32 route), launches and matches the plain version
+    within the float32 tolerance plus one float16 ulp of the output."""
     q = torch.zeros(1, 2, 16, 96, device=cuda_device)
     with pytest.raises(ValueError):
         tfa.flash_attention_fwd(q, q, q)
-    q = torch.zeros(1, 2, 16, 64, device=cuda_device, dtype=torch.float16)
-    with pytest.raises(ValueError):
-        tfa.flash_attention_fwd(q, q, q)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(1, 2, 16, 64, generator=g, device=cuda_device)
+               .half() for _ in range(3))
+    before = tfa.flash_attention_fwd.routes["wgmma_f32"]
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.routes["wgmma_f32"] == before + 1
+    o_ref, lse_ref = tfa.reference_attention_fwd(q, k, v, causal=True)
+    _, e = torch.frexp(o_ref.float().abs())
+    limit = 1e-5 + 1e-5 * o_ref.float().abs() + torch.exp2(
+        torch.clamp(e - 11, min=-24).float())
+    assert o.dtype == torch.float16
+    assert bool(((o.float() - o_ref.float()).abs() <= limit).all())
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)

@@ -634,3 +634,138 @@ def test_cuda_f32_backward_dropout_matches_plain_with_the_same_mask(
     for x, y, z in zip(got[:3], again[:3], want[:3]):
         assert torch.equal(x, y)
         torch.testing.assert_close(x, z, **BWD_TOL)
+
+
+# ------------------------------------------------------------ float16
+# float16 inputs take the wgmma_f32 kernels: a float16 value is exactly two
+# bf16 terms (11 significant bits; bf16 has float32's exponent range), so
+# the split is exact and the kernels compute what the float32 ones compute
+# on the upcast inputs, the reference's float32-operand arithmetic. O and
+# the gradients are then rounded to float16 once: against the plain version
+# (the same float32 arithmetic, rounded once) they may differ by the
+# float32 tolerance plus one float16 ulp of the element, where the two
+# float32 values fall on either side of a rounding boundary.
+def _f16_ulp(x):
+    """float16 spacing at |x| (11 significant bits, subnormal spacing
+    2^-24 below 2^-14), elementwise."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.exp2(torch.clamp(e - 11, min=-24).float())
+
+
+def _assert_f16_close(got, want, tol):
+    assert got.dtype == want.dtype == torch.float16
+    limit = tol["atol"] + tol["rtol"] * want.float().abs() + _f16_ulp(want)
+    assert bool(((got.float() - want.float()).abs() <= limit).all())
+
+
+def test_plain_prepass_splits_float16_exactly():
+    """Every finite float16 value (all 63488 bit patterns that are not inf
+    or nan, subnormals included) is the sum of its first two bf16 terms,
+    and its third term is zero."""
+    bits = torch.arange(0, 2 ** 16, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.float16)
+    x = x[torch.isfinite(x)]
+    assert x.numel() == 63488
+    terms = tfa.split_bf16_terms(x.view(1, 1, -1, 1).expand(1, 1, -1, 4)
+                                 .contiguous())[0]
+    t = terms.float().view(3, -1, 4)[:, :, 0]
+    assert torch.equal(t[0] + t[1], x.float())
+    assert not bool(t[2].any())
+
+
+def test_float16_takes_the_float32_kernels_on_the_card_only():
+    """float16 routes to wgmma_f32 at every head dim and kernel; the gate
+    admits it on the card; on the CPU the wrappers run the plain version,
+    which computes in float32 and rounds O once."""
+    for d in tfa.SUPPORTED_HEAD_DIMS:
+        for kernel in ("fwd", "dq", "dkv"):
+            assert tfa.kernel_route(torch.float16, d, kernel) == "wgmma_f32"
+    q, k, v = (torch.from_numpy(_f32((1, 2, 40, 64), s)).half()
+               for s in range(3))
+    tfa.reset_launch_counts()
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    assert all(n == 0 for c in tfa.launch_counts().values()
+               for n in c.values())
+    o32, lse32 = tfa.reference_attention_fwd(q.float(), k.float(),
+                                             v.float(), causal=True)
+    assert o.dtype == torch.float16 and lse.dtype == torch.float32
+    assert torch.equal(o, o32.half()) and torch.equal(lse, lse32)
+
+
+def _f16_views(device, B, L, H, D, seed):
+    return tuple(t.half() for t in _views(device, B, L, H, D, seed))
+
+
+@pytest.mark.cuda
+def test_cuda_split_kernel_equals_plain_for_float16(cuda_device):
+    """The split kernel reads float16 views of a fused qkv as they are and
+    writes what the plain split writes, bit for bit: two exact terms and a
+    zero third."""
+    views = _f16_views(cuda_device, 2, 1500, 16, 128, 15)
+    tfa.reset_launch_counts()
+    got = tfa.split_bf16_terms(*views)
+    torch.cuda.synchronize()
+    assert tfa.split_bf16_terms.launches == 1
+    for x, t in zip(views, got):
+        assert torch.equal(t, tfa._plain_split(x))
+        assert not bool(t[2 * x.shape[0]:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_cuda_f16_selfcheck(cuda_device, d):
+    """Both products of the wgmma_f32 path on [64, D] float16 operands
+    against float64, at the float32 self-check's limit."""
+    a, b, c1, c2 = tfa.wgmma_selfcheck(d, cuda_device, dtype=torch.float16)
+    torch.cuda.synchronize()
+    for got, x, y in ((c1, a, b.T), (c2, a[:, :64], b)):
+        limit = 2 * (x.shape[1] + 4) * 2.0 ** -24 * (x.double().abs()
+                                                      @ y.double().abs())
+        assert bool(((got.double() - x.double() @ y.double()).abs()
+                     <= limit).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,causal,lq,lk,bias", [
+    (128, True, 1024, 1024, False), (64, True, 1500, 1500, False),
+    (256, True, 1024, 1024, False), (128, False, 384, 640, True)])
+def test_cuda_f16_forward_matches_plain(cuda_device, d, causal, lq, lk, bias):
+    """The wgmma_f32 forward on float16 inputs: O float16 within the
+    float32 tolerance plus one float16 ulp of the plain O, LSE float32
+    within the float32 tolerance; one forward and one split launch."""
+    q, k, v, _, b = _bwd_case(cuda_device, d, causal, lq, lk, bias, 16)
+    q, k, v = q.half(), k.half(), v.half()
+    tfa.reset_launch_counts()
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, bias=b)
+    torch.cuda.synchronize()
+    assert tfa.launch_counts()["fwd"] == {"fma": 0, "wgmma": 0,
+                                          "wgmma_f32": 1}
+    assert tfa.split_bf16_terms.launches == 1
+    o_ref, lse_ref = tfa.reference_attention_fwd(q, k, v, causal=causal,
+                                                 bias=b)
+    _assert_f16_close(o, o_ref, FWD_TOL)
+    torch.testing.assert_close(lse, lse_ref, **FWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,causal,lq,lk,bias", [
+    (128, True, 1024, 1024, False), (64, True, 1500, 1500, False),
+    (256, True, 1024, 1024, False), (128, False, 384, 640, True)])
+def test_cuda_f16_backward_matches_plain(cuda_device, d, causal, lq, lk,
+                                         bias):
+    """dQ, dK and dV of the wgmma_f32 kernels on float16 inputs, float16
+    within the float32 backward tolerance plus one float16 ulp; dbias
+    (float32, from dS) within the float32 tolerance."""
+    q, k, v, do, b = _bwd_case(cuda_device, d, causal, lq, lk, bias, 17)
+    q, k, v, do = q.half(), k.half(), v.half(), do.half()
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, bias=b)
+    tfa.reset_launch_counts()
+    got = tfa.flash_attention_bwd(q, k, v, b, o, lse, do, causal)
+    torch.cuda.synchronize()
+    _assert_f32_route("dq", "dkv", splits=2)
+    want = tfa.reference_attention_bwd(q, k, v, b, o, lse, do, causal)
+    for x, y in zip(got[:3], want[:3]):
+        _assert_f16_close(x, y, BWD_TOL)
+    if bias:
+        torch.testing.assert_close(got[3], want[3].sum(0, keepdim=True),
+                                   **BWD_TOL)

@@ -344,11 +344,14 @@ def test_split_is_closer_to_float32_than_bf16_p():
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "wgmma_f32"),
     (torch.float32, 128, "wgmma_f32"), (torch.float32, 256, "wgmma_f32"),
-    (torch.float16, 128, "fma")])
+    (torch.float16, 128, "wgmma_f32"), (torch.float16, 64, "wgmma_f32"),
+    (torch.float16, 256, "wgmma_f32"), (torch.float16, 96, "fma"),
+    (torch.float64, 128, "fma")])
 def test_route_is_picked_by_dtype_and_head_dim(dtype, d, route, kernel):
-    """bf16 takes the wgmma kernels at every head dim, float32 the
-    wgmma_f32 ones (forward, dQ and dK/dV alike); what no tensor-core
-    kernel takes (float16) answers fma, which the wrappers refuse."""
+    """bf16 takes the wgmma kernels at every head dim, float32 and float16
+    the wgmma_f32 ones (forward, dQ and dK/dV alike); what no tensor-core
+    kernel takes (float64, a head dim of 96) answers fma, which the
+    wrappers refuse."""
     assert tfa.kernel_route(dtype, d, kernel) == route
 
 

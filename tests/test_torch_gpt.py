@@ -182,3 +182,24 @@ def test_model_without_device_needs_cuda():
         pytest.skip("a CUDA device is present; the default device works")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GPTForCausalLM(gpt_tiny())
+
+
+def test_config_fields_match_jax_and_sequence_parallel_raises():
+    """The port's GPTConfig has every field of the reference's, with the
+    same defaults, so a config copied field by field builds; the field
+    the port does not implement, ``sequence_parallel``, builds when False
+    and raises NotImplementedError in the model when True, as Llama's."""
+    import dataclasses
+
+    from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    ref = {f.name: f.default for f in dataclasses.fields(JaxGPTConfig)}
+    mine = {f.name: f.default for f in dataclasses.fields(GPTConfig)}
+    assert mine == ref
+    cfg = GPTConfig(**dataclasses.asdict(jax_gpt_tiny(
+        sequence_parallel=False)))
+    assert cfg.sequence_parallel is False
+    GPTForCausalLM(gpt_tiny(sequence_parallel=False), device="cpu")
+    with pytest.raises(NotImplementedError, match="sequence_parallel"):
+        GPTForCausalLM(gpt_tiny(sequence_parallel=True), device="cpu")

@@ -73,12 +73,15 @@ def build(variants: dict) -> dict:
 
 
 def entries(fa, lib: str) -> dict:
-    """The typed dQ and dK/dV entries of one variant's library."""
+    """The typed dQ and dK/dV entries of one variant's library (the C
+    entries of the current source: the gradients' element type before
+    the stream)."""
     handle = ctypes.CDLL(lib)
     fns = {}
     for which in ("dq", "dkv"):
         fn = getattr(handle, f"pt_flash_attention_bwd_{which}_f32_d256_sm90")
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + fa._SM90_TAIL
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                       + fa._SM90_F32_TAIL)
         fn.restype = ctypes.c_int
         fns[which] = fn
     return fns
