@@ -9,7 +9,9 @@ exits non-zero:
 1. device    - the card (nvidia-smi name and power limit), torch and CUDA.
 2. build     - compiles every CUDA source of the port from this checkout
                (nvcc, one library per source, all started together), fails
-               on a register spill in the six wgmma sources, and holds the
+               on a register spill in the seven wgmma sources (registers
+               and spills of the float16 backward printed per
+               instantiation), and holds the
                wgmma/TMA self-check (a 64 x 64 x D product through each
                descriptor form, in bf16 and through the float32 forward's
                three-term products, at D = 64, 128 and 256) against a
@@ -28,7 +30,8 @@ exits non-zero:
                held to the float32 tolerance plus one float16 ulp), the
                dQ and dK/dV
                backward kernels (wgmma for bf16 and wgmma_f32 for float32,
-               each at D = 64, 128 and 256; each case checked for the
+               each at D = 64, 128 and 256, and wgmma_f16 for float16 at
+               D = 64 and 128, wgmma_f32 at 256; each case checked for the
                route of each kernel; dS as the bias gradient, also causal
                with zeros above the diagonal; every kernel replayed bit
                for bit; the whole backward wrapper, with Delta and the
@@ -38,11 +41,15 @@ exits non-zero:
                [1,8,1024,256] and the float32 D = 256 run's [2,8,1024,256]
                float32 (at these four also held to the float32
                tolerance), and at [1,8,1024,256], [2,16,1024,256] and the
-               D = 256 step's [2,8,1024,256] bf16), and dropout (the
+               D = 256 step's [2,8,1024,256] bf16; the float16 wgmma_f32
+               pair, on no route at D = 128 since the wgmma_f16 kernels
+               took its place, checked and timed beside them at the
+               float16 GPT step's [2,16,1024,128] and Llama's
+               [1,32,4096,128]), and dropout (the
                CUDA Philox mask against the plain one bit for bit, its keep
                rate, replay of a fixed seed, and forward and backward at
                p = 0.1 given the same mask, also at bf16 D = 256 at its
-               three shapes and at float32 D = 256). Times the
+               three shapes, at float32 D = 256 and at float16). Times the
                kernel and one PyTorch library call computing the same
                function (a yardstick the port never calls) in turns, as the
                median and range of 6 loops of 20 calls each, the plain
@@ -63,8 +70,9 @@ exits non-zero:
                launches per step, none on an FMA kernel. Then the same
                model in float16 O2 (fp16_training: GradScaler, AdamW under
                LinearWarmup(CosineAnnealingDecay), ClipGradByGlobalNorm,
-               the guarded TrainStep): 48 wgmma_f32 forward, 24 dQ, 24
-               dK/dV and 96 split launches a step, the printed overflow
+               the guarded TrainStep): 48 wgmma_f32 forward, 24 wgmma_f16
+               dQ, 24 wgmma_f16 dK/dV and 48 split launches a step, the
+               printed overflow
                flags replayed into the printed scales, a poisoned step
                and a FLAGS_check_nan_inf step that leave the state
                bit-equal; and a 2-layer float16 step against plain
@@ -190,8 +198,9 @@ LLAMA_TRAIN_LAYERS = 8  # of 32: AdamW's state at 16 bytes a parameter
 LLAMA_GQA_KV_HEADS, LLAMA_GQA_LAYERS = 8, 2
 LLAMA_PROMPT_LENGTHS = (60, 700, 1500, 3000, 4000)
 # float16 (phase fp16_training): the GPT step's attention [2, 16, 1024, 128]
-# and Llama's [1, 32, 4096, 128] in float16, cases of the forward and
-# backward phases on the wgmma_f32 route
+# and Llama's [1, 32, 4096, 128] in float16, cases of the forward phase on
+# the wgmma_f32 route and of the backward phase on the wgmma_f16 route,
+# where the float16 wgmma_f32 pair they replace is timed beside them
 F16_TRAIN_FWD = f"train_f16_B{TRAIN_BATCH}_L{TRAIN_SEQ}"
 F16_TRAIN_BWD = f"train_float16_B{TRAIN_BATCH}_L{TRAIN_SEQ}"
 F16_LLAMA_FWD = f"llama_f16_L{LLAMA_SEQ}"
@@ -361,8 +370,10 @@ def _term_pairs(route, dtype) -> int:
     """The tensor-core products a bound counts per product of the kernel:
     6 bf16 term pairs for float32 on the wgmma_f32 route (the least work
     that keeps float32 accuracy on those units), 1 otherwise: bf16, and
-    float16, whose least work is one float16 product at the same peak
-    (the wgmma_f32 route does 6 term pairs for it, 4 of them non-zero)."""
+    float16 on either route, whose least work is one float16 product at
+    the same peak (the wgmma_f32 route does 6 term pairs for it, 4 of them
+    non-zero; the wgmma_f16 kernels 7 products for dQ's 3 and 9 for
+    dK/dV's 4)."""
     import torch
 
     return 6 if route == "wgmma_f32" and dtype == torch.float32 else 1
@@ -472,7 +483,10 @@ def ptxas_report(log: str) -> list:
 def phase_build(seed: int, fail_on_spill: bool = True) -> None:
     """Build every kernel source, fail on a spill in the wgmma kernels
     (unless ``fail_on_spill`` is False: a spill is then only reported),
-    and hold the wgmma/TMA self-check against torch.matmul."""
+    and hold the wgmma/TMA self-check against torch.matmul (the forward
+    routes' forms: bf16, and float32 and float16 through the three-term
+    products; the wgmma_f16 kernels' native float16 products are held by
+    the backward checks)."""
     import torch
 
     from paddle_tpu_torch.kernels import _build
@@ -486,8 +500,12 @@ def phase_build(seed: int, fail_on_spill: bool = True) -> None:
     spills = [(s, k) for s in (fa._FWD_SM90_SOURCE, fa._FWD_F32_SM90_SOURCE,
                                fa._DQ_SM90_SOURCE, fa._DKV_SM90_SOURCE,
                                fa._BWD_F32_SM90_SOURCE,
-                               fa._BWD_F32_D256_SM90_SOURCE)
+                               fa._BWD_F32_D256_SM90_SOURCE,
+                               fa._BWD_F16_SM90_SOURCE)
               for k in ptxas[s] if k["spill_stores"] or k["spill_loads"]]
+    # registers and spills of each instantiation of the float16 backward
+    emit("build_wgmma_f16", source=fa._BWD_F16_SM90_SOURCE,
+         ptxas=ptxas[fa._BWD_F16_SM90_SOURCE])
     if spills and fail_on_spill:
         raise AssertionError(f"register spills in the wgmma kernels: {spills}")
     g = torch.Generator(device="cuda")
@@ -744,7 +762,8 @@ def _bwd_cases(g):
                       None, _both(route)))
     for dtype, D, H, route in ((torch.float32, 128, 16, "wgmma_f32"),
                                (torch.bfloat16, 64, 16, "wgmma"),
-                               (torch.float32, 256, 8, "wgmma_f32")):
+                               (torch.float32, 256, 8, "wgmma_f32"),
+                               (torch.float16, 128, 16, "wgmma_f16")):
         q, k, v = (rn(1, H, n, D).to(dtype) for n in (384, 640, 640))
         cases.append((f"bias_noncausal_{_dtype_name(q)}_d{D}_Lq384_Lk640", q,
                       k, v, rn(1, H, 384, D).to(dtype), False,
@@ -762,17 +781,20 @@ def _bwd_cases(g):
                       do, True, rn(1, H, 1024, 1024), _both(route)))
     for dtype, D, H, route in ((torch.float32, 128, 16, "wgmma_f32"),
                                (torch.bfloat16, 128, 16, "wgmma"),
-                               (torch.float32, 256, 8, "wgmma_f32")):
+                               (torch.float32, 256, 8, "wgmma_f32"),
+                               (torch.float16, 128, 16, "wgmma_f16")):
         q, k, v = _views(g, 1, 1500, H, D, dtype)
         d256 = "_d256" if D == 256 else ""
         cases.append((f"ragged_causal_{_dtype_name(q)}{d256}_L1500", q, k, v,
                       rn(1, 1500, H, D).to(dtype).transpose(1, 2), True,
                       None, _both(route)))
     # D = 64 at the training batch and at bench_gpt_primary's batch of 8,
-    # and D = 256
+    # and D = 256 (float16 there on the wgmma_f32 kernels)
     for dtype, D, B, H, routes in (
             (torch.float32, 64, 2, 16, _both("wgmma_f32")),
             (torch.float32, 256, 1, 8, _both("wgmma_f32")),
+            (torch.float16, 64, 2, 16, _both("wgmma_f16")),
+            (torch.float16, 256, 1, 8, _both("wgmma_f32")),
             (torch.bfloat16, 64, 2, 16, _both("wgmma")),
             (torch.bfloat16, 64, 8, 16, _both("wgmma")),
             (torch.bfloat16, 256, 1, 8, _both("wgmma")),
@@ -790,9 +812,9 @@ def _bwd_cases(g):
             dtype).transpose(1, 2)
         cases.append((name, q, k, v, do, True, None, _both(route)))
     # Llama-2-7B's training attention, as its autograd hands it over, in
-    # bf16 (wgmma) and float16 (wgmma_f32)
+    # bf16 (wgmma) and float16 (wgmma_f16)
     for name, dtype, route in ((LLAMA_TRAIN_BWD, torch.bfloat16, "wgmma"),
-                               (F16_LLAMA_BWD, torch.float16, "wgmma_f32")):
+                               (F16_LLAMA_BWD, torch.float16, "wgmma_f16")):
         q, k, v = _blhd_views(g, 1, LLAMA_SEQ, LLAMA_HEADS, 128, dtype)
         do = rn(1, LLAMA_SEQ, LLAMA_HEADS, 128).to(dtype).transpose(1, 2)
         cases.append((name, q, k, v, do, True, None, _both(route)))
@@ -801,7 +823,7 @@ def _bwd_cases(g):
     q, k, v = _views(g, TRAIN_BATCH, TRAIN_SEQ, 16, 128, torch.float16)
     do = rn(TRAIN_BATCH, TRAIN_SEQ, 16, 128).half().transpose(1, 2)
     cases.append((F16_TRAIN_BWD, q, k, v, do, True, None,
-                  _both("wgmma_f32")))
+                  _both("wgmma_f16")))
     return cases
 
 
@@ -813,6 +835,38 @@ FMA_COMPARED = ("train_float32_B2_L1024", "d64_causal_float32_B2_L1024",
                 "d256_causal_float32_B1_L1024", D256_F32_BWD,
                 "d256_causal_bfloat16_B1_L1024",
                 "d256_causal_bfloat16_B2_L1024", D256_STEP_BWD)
+
+
+# the float16 cases at which the wgmma_f32 dQ and dK/dV, which the wgmma_f16
+# kernels replace at D = 128, are checked and timed beside them
+F16_COMPARED = (F16_TRAIN_BWD, F16_LLAMA_BWD)
+
+
+def _f32_route_bwd_fns(fa, q, k, v, bias, do, lse, delta, causal, emit_ds):
+    """The float16 wgmma_f32 dQ and dK/dV on the same inputs, launched
+    directly (no route takes them at D 64 and 128), on q, k, v and dO's
+    bf16 terms split once here; ``{"dq_wgmma_f32", "dkv_wgmma_f32"}``,
+    each returning its gradients."""
+    import torch
+
+    terms = fa._backward_terms(q, k, v, do)
+
+    def dq():
+        ds = (torch.empty(*q.shape[:3], k.shape[2], device=q.device)
+              if emit_ds else None)
+        out = fa._empty_like_rows(q)
+        fa._launch_bwd_sm90("dq", "wgmma_f32", q, k, v, bias, do, lse, delta,
+                            out, ds, out.stride()[:3], causal, 0.0, 0, terms)
+        return {"dq": out}
+
+    def dkv():
+        dk, dv = fa._empty_like_rows(k), fa._empty_like_rows(v)
+        fa._launch_bwd_sm90("dkv", "wgmma_f32", q, k, v, bias, do, lse,
+                            delta, dk, dv, (*dk.stride()[:3], *dv.stride()[:3]),
+                            causal, 0.0, 0, terms)
+        return {"dk": dk, "dv": dv}
+
+    return {"dq_wgmma_f32": dq, "dkv_wgmma_f32": dkv}
 
 
 def _fma_bwd_fns(fa, q, k, v, bias, do, lse, delta, causal, emit_ds):
@@ -841,7 +895,8 @@ def _fma_bwd_fns(fa, q, k, v, bias, do, lse, delta, causal, emit_ds):
 def phase_backward(seed: int) -> dict:
     """The dQ and dK/dV kernels against the plain backward, the
     tensor-core kernels replayed bit for bit, and each kernel, the split
-    pre-pass and the whole backward wrapper timed beside SDPA's backward."""
+    pre-pass and the whole backward wrapper timed beside SDPA's backward
+    (and beside the kernels a route replaced: FMA_COMPARED, F16_COMPARED)."""
     import torch
 
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -872,7 +927,8 @@ def phase_backward(seed: int) -> dict:
         delta = (do.float() * o.float()).sum(-1).contiguous()
         emit_ds = bias is not None
         used = set(routes.values())
-        do_k = do if "wgmma" not in used or fa._tma_ok(do) else do.contiguous()
+        do_k = (do if not used & {"wgmma", "wgmma_f16"} or fa._tma_ok(do)
+                else do.contiguous())
         # the wgmma_f32 kernels read the split's terms: timed apart from it
         terms = fa._backward_terms(q, k, v, do_k) if "wgmma_f32" in used \
             else None
@@ -903,7 +959,16 @@ def phase_backward(seed: int) -> dict:
                "sdpa_fwd": sdpa_fwd, "sdpa_fwd_bwd": sdpa_fwd_bwd}
         if terms is not None:
             fns["split"] = lambda: fa._backward_terms(q, k, v, do_k)
-        fma_errs = {}
+        fma_errs, f32_errs = {}, {}
+        if name in F16_COMPARED:
+            fns.update(_f32_route_bwd_fns(fa, q, k, v, bias, do_k, lse,
+                                          delta, causal, emit_ds))
+            fns["split"] = lambda: fa._backward_terms(q, k, v, do_k)
+            f32_out = {**fns["dq_wgmma_f32"](), **fns["dkv_wgmma_f32"]()}
+            torch.cuda.synchronize()
+            f32_errs = {key: check_close(f"{name} wgmma_f32 {key}", x,
+                                         refs[key], bwd_tolerance(refs[key]))
+                        for key, x in f32_out.items()}
         if name in FMA_COMPARED:
             fns.update(_fma_bwd_fns(fa, q, k, v, bias, do_k, lse, delta,
                                     causal, emit_ds))
@@ -932,16 +997,18 @@ def phase_backward(seed: int) -> dict:
         dq_ms, dkv_ms = t["dq"]["median"], t["dkv"]["median"]
         fma = {}
         for w in ("dq", "dkv"):
-            if f"{w}_fma" not in t:
-                continue
-            bound, by = bwd_bound_ms(
-                w, *common, B * H * Lq * Lk * 4 if emit_ds and w == "dq"
-                else 0, tensor_cores=False)
-            fma.update({f"{w}_fma_ms": t[f"{w}_fma"]["median"],
-                        f"{w}_fma_ms_range": [t[f"{w}_fma"]["min"],
-                                              t[f"{w}_fma"]["max"]],
-                        f"{w}_fma_bound_ms": bound,
-                        f"{w}_fma_bound_by": by})
+            for other in ("fma", "wgmma_f32"):
+                if f"{w}_{other}" not in t:
+                    continue
+                # the float16 wgmma_f32 pair does the same work: one
+                # float16 product a pair at the least (_term_pairs)
+                bound, by = bwd_bound_ms(
+                    w, *common, B * H * Lq * Lk * 4 if emit_ds and w == "dq"
+                    else 0, tensor_cores=other != "fma")
+                f = f"{w}_{other}"
+                fma.update({f"{f}_ms": t[f]["median"],
+                            f"{f}_ms_range": [t[f]["min"], t[f]["max"]],
+                            f"{f}_bound_ms": bound, f"{f}_bound_by": by})
         results[name] = dict(
             shape=[B, H, Lq, Lk, D], dtype=_dtype_name(q), causal=causal,
             bias=bias is not None, routes=routes, errors=errs,
@@ -955,6 +1022,7 @@ def phase_backward(seed: int) -> dict:
             bwd_ms_range=[t["bwd"]["min"], t["bwd"]["max"]],
             split_ms=t["split"]["median"] if "split" in t else None,
             **fma, fma_errors=fma_errs or None,
+            wgmma_f32_errors=f32_errs or None,
             dq_bound_ms=dq_bound, dq_bound_by=dq_by,
             dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
             plain_ms=plain_ms, library_ms=library_ms,
@@ -1019,10 +1087,12 @@ def phase_dropout(seed: int) -> dict:
                keep_rate_sigma=sigma / n, mask_bound_ms=mask_bound_ms,
                mask_bound_by="operations")
     # D = 256 at both of its timed shapes and at the D = 256 step's, and
-    # float32 at D = 256: the mask of the first Bc batches and Hc heads is
-    # the corner of the full one (Philox keys by (b, h, row, col))
+    # float32 at D = 256; float16 (the wgmma_f32 forward, the wgmma_f16
+    # backward): the mask of the first Bc batches and Hc heads is the
+    # corner of the full one (Philox keys by (b, h, row, col))
     for dtype, D, Bc, Hc in ((torch.float32, D, B, H),
                              (torch.bfloat16, D, B, H),
+                             (torch.float16, D, B, H),
                              (torch.bfloat16, 256, B, H),
                              (torch.bfloat16, 256, 1, 8),
                              (torch.bfloat16, 256, TRAIN_BATCH,
@@ -1061,14 +1131,14 @@ def phase_dropout(seed: int) -> dict:
         for key, x, y in zip(("dq", "dk", "dv"), got, ref):
             errs[key] = check_close(f"{name} {key}", x, y, bwd_tolerance(y))
         delta = (do.float() * o.float()).sum(-1).contiguous()
-        do_k = (do if "wgmma" not in routes.values() or fa._tma_ok(do)
-                else do.contiguous())
+        do_k = (do if not set(routes.values()) & {"wgmma", "wgmma_f16"}
+                or fa._tma_ok(do) else do.contiguous())
         # each kernel's least time: its products at p = 0 or this case's
         # mask draws, whichever is larger (they run on different units)
         mask_ms = (kept_pairs(L, L, True) * Bc * Hc * PHILOX_OPS
                    / PEAK_INT32_OPS * 1e3)
         tc = {w: r != "fma" for w, r in routes.items()}
-        pairs = {w: 6 if r == "wgmma_f32" else 1 for w, r in routes.items()}
+        pairs = {w: _term_pairs(r, dtype) for w, r in routes.items()}
         common = (Bc, Hc, L, L, D, True, q.element_size(), 0)
         bounds = {"fwd": attention_bound_ms(*common, tensor_cores=tc["fwd"],
                                             term_pairs=pairs["fwd"])[0],
@@ -1277,8 +1347,26 @@ def phase_d256_prefill(seed: int) -> dict:
 
 
 _COUNT_NAMES = ("fwd_fma", "fwd_wgmma", "fwd_wgmma_f32", "dq_fma",
-                "dq_wgmma", "dq_wgmma_f32", "dkv_fma", "dkv_wgmma",
-                "dkv_wgmma_f32")
+                "dq_wgmma", "dq_wgmma_f32", "dq_wgmma_f16", "dkv_fma",
+                "dkv_wgmma", "dkv_wgmma_f32", "dkv_wgmma_f16")
+
+
+def _need(**launches) -> tuple:
+    """Launches by kernel and route (names of _COUNT_NAMES, the rest 0), in
+    the order of _COUNT_NAMES."""
+    unknown = set(launches) - set(_COUNT_NAMES)
+    if unknown:
+        raise ValueError(f"no such kernel and route: {sorted(unknown)}")
+    return tuple(launches.get(name, 0) for name in _COUNT_NAMES)
+
+
+def _step_need(dtype: str, n: int) -> tuple:
+    """The launches of one training step of ``n`` layers (forward and its
+    recompute, dQ, dK/dV) at D = 128 in ``dtype``: wgmma for bf16; for
+    float16 the wgmma_f32 forward and the wgmma_f16 dQ and dK/dV."""
+    if dtype == "float16":
+        return _need(fwd_wgmma_f32=2 * n, dq_wgmma_f16=n, dkv_wgmma_f16=n)
+    return _need(fwd_wgmma=2 * n, dq_wgmma=n, dkv_wgmma=n)
 
 
 def _counts(fa):
@@ -1426,8 +1514,7 @@ def phase_training(seed: int) -> dict:
     ids = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
     # bf16 at D = 128: the wgmma forward (and its recompute), dQ and dK/dV
-    need = (0, 2 * cfg.num_layers, 0, 0, cfg.num_layers, 0, 0,
-            cfg.num_layers, 0)
+    need = _step_need("bfloat16", cfg.num_layers)
     return _train_run("training", "gpt_1p3b O2 bf16", step, ids, need,
                       gpt_flops_per_token(cfg, TRAIN_SEQ), build_s)
 
@@ -1494,10 +1581,11 @@ def phase_fp16_training(seed: int, bf16: dict) -> dict:
     trained in float16 O2 with GradScaler (defaults), AdamW under
     LinearWarmup(CosineAnnealingDecay) and ClipGradByGlobalNorm(1.0),
     through TrainStep(scaler=...): TRAIN_WARMUP + TRAIN_TIMED steps held to
-    _train_run's checks with exactly 48 wgmma_f32 forward, 24 dQ, 24 dK/dV
-    and 96 split launches a step; the printed per-step overflow flags,
-    replayed through update_scale on the host, give the printed scale
-    trajectory; at least one step updates the parameters. Then a poisoned
+    _train_run's checks with exactly 48 wgmma_f32 forward, 24 wgmma_f16
+    dQ, 24 wgmma_f16 dK/dV and 48 split launches a step; the printed
+    per-step overflow flags, replayed through update_scale on the host,
+    give the printed scale trajectory; at least one step updates the
+    parameters. Then a poisoned
     step (inject_anomaly) leaves every parameter, master, moment and the
     step count bit-equal and the scale where it was, the next step trains,
     and under FLAGS_check_nan_inf a poisoned step raises
@@ -1525,10 +1613,10 @@ def phase_fp16_training(seed: int, bf16: dict) -> dict:
     ids = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
     n = cfg.num_layers
-    # float16 at D = 128: the wgmma_f32 forward (and its recompute), dQ
-    # and dK/dV; the split once per forward and twice per backward
-    need = (0, 0, 2 * n, 0, 0, n, 0, 0, n)
-    need_splits = 4 * n
+    # float16 at D = 128: the wgmma_f32 forward (and its recompute) with its
+    # split of q, k, v, the wgmma_f16 dQ and dK/dV with none
+    need = _step_need("float16", n)
+    need_splits = 2 * n
     # a weight of std 0.02, whose float16 spacing is far below a step of lr
     probe = "gpt.h.0.attn.qkv_proj.weight"
     first = step.params[probe].detach().clone()
@@ -1658,7 +1746,8 @@ def phase_fp16_training(seed: int, bf16: dict) -> dict:
 def phase_fp16_step(seed: int) -> dict:
     """_o2_step_vs_plain in float16 (GradScaler at its defaults) at
     gpt_1p3b width, cut to 2 layers: the gradients and one guarded step
-    through the wgmma_f32 kernels against plain attention."""
+    through the float16 kernels (the wgmma_f32 forward, the wgmma_f16 dQ
+    and dK/dV) against plain attention."""
     import numpy as np
 
     vocab = _train_config().vocab_size
@@ -1720,7 +1809,8 @@ def _float32_parity(seed: int, phase: str, **overrides) -> dict:
     # float32: the wgmma_f32 forward (and its recompute), dQ and dK/dV; the
     # split once per forward and twice per backward (q, k, v; dO)
     n = cfg.num_layers
-    if launches != (0, 0, 2 * n, 0, 0, n, 0, 0, n) or split_launches != 4 * n:
+    if launches != _need(fwd_wgmma_f32=2 * n, dq_wgmma_f32=n,
+                         dkv_wgmma_f32=n) or split_launches != 4 * n:
         raise AssertionError(f"float32 kernel run launched "
                              f"{dict(zip(_COUNT_NAMES, launches))} and the "
                              f"split {split_launches} times")
@@ -1763,7 +1853,7 @@ def phase_dropout_replay(seed: int) -> dict:
     launches = _counts(fa)
     other = losses(seed + 1)
     # 2 runs x 2 steps x 2 layers x (forward + recompute), bf16: wgmma
-    need = (0, 16, 0, 0, 8, 0, 0, 8, 0)
+    need = _need(fwd_wgmma=16, dq_wgmma=8, dkv_wgmma=8)
     if a != b or launches != need or other == a:
         raise AssertionError(f"dropout replay: {a} vs {b} (other seed "
                              f"{other}), launches {launches} != {need}")
@@ -1794,8 +1884,9 @@ def _o2_step_vs_plain(seed: int, phase: str, make_cfg, ids,
     parameter by parameter in relative L2. Then one step each: the losses
     agree within BF16_ULPS ulps of ``dtype``, and the kernel step launches
     exactly 2 forwards per layer (recompute included), one dQ and one
-    dK/dV, all on the dtype's route (wgmma for bf16, wgmma_f32 for
-    float16), the plain step none."""
+    dK/dV, all on the dtype's routes (wgmma for bf16; for float16 the
+    wgmma_f32 forward and the wgmma_f16 dQ and dK/dV), the plain step
+    none."""
     import copy
 
     import torch
@@ -1806,8 +1897,7 @@ def _o2_step_vs_plain(seed: int, phase: str, make_cfg, ids,
     n = make_cfg(True).num_layers
     ids_t = torch.as_tensor(ids, device="cuda")
     half = dtype == "float16"
-    need = ((0, 0, 2 * n, 0, 0, n, 0, 0, n) if half
-            else (0, 2 * n, 0, 0, n, 0, 0, n, 0))
+    need = _step_need(dtype, n)
 
     def one_step(flash: bool):
         step = _o2_step(make_cfg(flash), seed, seed, dtype=dtype,
@@ -2014,7 +2104,7 @@ def phase_llama_training(seed: int) -> dict:
     ids = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (1, LLAMA_SEQ)).astype(np.int32)
     n = cfg.num_layers
-    need = (0, 2 * n, 0, 0, n, 0, 0, n, 0)
+    need = _step_need("bfloat16", n)
     return _train_run("llama_training",
                       f"llama2_7b, {n} of 32 layers, O2 bf16", step, ids,
                       need, llama_flops_per_token(cfg, LLAMA_SEQ), build_s,
@@ -2113,11 +2203,13 @@ def main(argv=None) -> int:
                     shape=c["shape"], dtype=c.get("dtype", "float32"),
                     causal=c.get("causal"))
 
-    def bwd_row(name, source, which, case, launches, path, fma=False):
+    def bwd_row(name, source, which, case, launches, path, other=None):
         c = bwd[case]
         keys = ("dq",) if which == "dq" else ("dk", "dv")
-        errs = c["fma_errors"] if fma else c["errors"]
-        f = f"{which}_fma" if fma else which  # the FMA kernel timed beside
+        # other: a kernel the case's route replaced ("fma" or the float16
+        # "wgmma_f32"), checked and timed beside it
+        errs = c[f"{other}_errors"] if other else c["errors"]
+        f = f"{which}_{other}" if other else which
         return dict(name=name, route="cuda", source=src + source,
                     replaces=ref + ("198" if which == "dq" else "269"),
                     launches=launches, main_path=path,
@@ -2157,7 +2249,7 @@ def main(argv=None) -> int:
         # the tensor cores: 0 launches on a path, checked and timed beside
         # the wgmma_f32 pair at [1, 8, 1024, 256]
         bwd_row("flash_attention_bwd_dq", "flash_attention_bwd.cu", "dq",
-                "d256_causal_float32_B1_L1024", 0, None, fma=True),
+                "d256_causal_float32_B1_L1024", 0, None, other="fma"),
         bwd_row("flash_attention_bwd_dq_bf16_d256",
                 "flash_attention_bwd_dq_sm90.cu", "dq", D256_STEP_BWD,
                 d256_counts["dq_wgmma"], d256_step),
@@ -2170,7 +2262,7 @@ def main(argv=None) -> int:
                 "train_float32_B2_L1024", parity["launches"]["dq_wgmma_f32"],
                 f32_step),
         bwd_row("flash_attention_bwd_dkv", "flash_attention_bwd.cu", "dkv",
-                "d256_causal_float32_B1_L1024", 0, None, fma=True),
+                "d256_causal_float32_B1_L1024", 0, None, other="fma"),
         bwd_row("flash_attention_bwd_dkv_sm90",
                 "flash_attention_bwd_dkv_sm90.cu", "dkv",
                 "train_bfloat16_B2_L1024", train["launches"]["dkv_wgmma"],
@@ -2189,9 +2281,11 @@ def main(argv=None) -> int:
                 "flash_attention_bwd_f32_d256_sm90.cu", "dkv", D256_F32_BWD,
                 d256_f32["launches"]["dkv_wgmma_f32"], d256_f32_path),
     ]
-    # float16 on the wgmma_f32 route: the GPT step's attention on the
-    # float16 O2 step's path; Llama's shape on no path (no Llama phase
-    # trains in float16)
+    # float16: the wgmma_f32 forward and its split and the wgmma_f16 dQ and
+    # dK/dV at the GPT step's attention on the float16 O2 step's path;
+    # Llama's shape on no path (no Llama phase trains in float16); the
+    # float16 wgmma_f32 dQ and dK/dV the wgmma_f16 kernels replaced, on no
+    # path since, checked and timed beside them at both shapes
     fp16_path = "training (float16 O2 step, GradScaler)"
     kernels += [
         fwd_row("flash_attention_fwd_f32_sm90_f16",
@@ -2199,23 +2293,31 @@ def main(argv=None) -> int:
                 fp16["launches"]["fwd_wgmma_f32"], fp16_path),
         fwd_row("split_bf16_terms_f16", "flash_attention_fwd_f32_sm90.cu",
                 "split_" + F16_TRAIN_FWD, fp16["split_launches"], fp16_path),
+        bwd_row("flash_attention_bwd_dq_f16_sm90",
+                "flash_attention_bwd_f16_sm90.cu", "dq", F16_TRAIN_BWD,
+                fp16["launches"]["dq_wgmma_f16"], fp16_path),
+        bwd_row("flash_attention_bwd_dkv_f16_sm90",
+                "flash_attention_bwd_f16_sm90.cu", "dkv", F16_TRAIN_BWD,
+                fp16["launches"]["dkv_wgmma_f16"], fp16_path),
         bwd_row("flash_attention_bwd_dq_f32_sm90_f16",
-                "flash_attention_bwd_f32_sm90.cu", "dq", F16_TRAIN_BWD,
-                fp16["launches"]["dq_wgmma_f32"], fp16_path),
+                "flash_attention_bwd_f32_sm90.cu", "dq", F16_TRAIN_BWD, 0,
+                None, other="wgmma_f32"),
         bwd_row("flash_attention_bwd_dkv_f32_sm90_f16",
-                "flash_attention_bwd_f32_sm90.cu", "dkv", F16_TRAIN_BWD,
-                fp16["launches"]["dkv_wgmma_f32"], fp16_path),
+                "flash_attention_bwd_f32_sm90.cu", "dkv", F16_TRAIN_BWD, 0,
+                None, other="wgmma_f32"),
         fwd_row("flash_attention_fwd_f32_sm90_f16_llama_shape",
                 "flash_attention_fwd_f32_sm90.cu", F16_LLAMA_FWD, 0, None),
         fwd_row("split_bf16_terms_f16_llama_shape",
                 "flash_attention_fwd_f32_sm90.cu", "split_" + F16_LLAMA_FWD,
-                0, None),
-        bwd_row("flash_attention_bwd_dq_f32_sm90_f16_llama_shape",
-                "flash_attention_bwd_f32_sm90.cu", "dq", F16_LLAMA_BWD, 0,
-                None),
-        bwd_row("flash_attention_bwd_dkv_f32_sm90_f16_llama_shape",
-                "flash_attention_bwd_f32_sm90.cu", "dkv", F16_LLAMA_BWD, 0,
-                None)]
+                0, None)]
+    for which in ("dq", "dkv"):
+        kernels += [
+            bwd_row(f"flash_attention_bwd_{which}_f16_sm90_llama_shape",
+                    "flash_attention_bwd_f16_sm90.cu", which, F16_LLAMA_BWD,
+                    0, None),
+            bwd_row(f"flash_attention_bwd_{which}_f32_sm90_f16_llama_shape",
+                    "flash_attention_bwd_f32_sm90.cu", which, F16_LLAMA_BWD,
+                    0, None, other="wgmma_f32")]
     # Llama-2-7B's attention, [1, 32, 4096, 128] causal, per Llama path
     llama_prefill = "serving (llama2_7b float32 prefill)"
     kernels += [

@@ -1,8 +1,9 @@
 // The parts the Hopper flash-attention backward kernels share:
 // flash_attention_bwd_dq_sm90.cu and flash_attention_bwd_dkv_sm90.cu (bf16
-// operands) and flash_attention_bwd_f32_sm90.cu (float32 operands as three
-// bf16 terms). They differ in how they feed the tensor cores; what they do
-// on a score tile is here: the parameters and their host-side set-up, each
+// operands), flash_attention_bwd_f32_sm90.cu (float32 operands as three
+// bf16 terms) and flash_attention_bwd_f16_sm90.cu (float16 operands).
+// They differ in how they feed the tensor cores; what they do on a score
+// tile is here: the parameters and their host-side set-up, each
 // consumer thread's rows, dropout keep bits, the probabilities P with their
 // masks, the score gradient dS, the float32 dS output of the dQ kernels and
 // the epilogue.
@@ -46,9 +47,10 @@ struct BwdParams {
 };
 
 // The C entries' arguments as kernel parameters and the four tensor maps
-// (q, k, v, dout; 14 geometry words each in `geo`). `n_out` gradients
-// (1 for dQ, 2 for dK and dV) take strides[0..2] and [3..5]; the bias the
-// next three. `out1` is dS for a dQ kernel, dV for a dK/dV kernel.
+// (q, k, v, dout; 14 geometry words each in `geo`; elements of `map_type`).
+// `n_out` gradients (1 for dQ, 2 for dK and dV) take strides[0..2] and
+// [3..5]; the bias the next three. `out1` is dS for a dQ kernel, dV for a
+// dK/dV kernel.
 template <typename Out>
 inline cudaError_t make_bwd_params(
     BwdParams<Out>& p, CUtensorMap (&maps)[4], int n_out, const void* q,
@@ -56,7 +58,8 @@ inline cudaError_t make_bwd_params(
     const void* lse, const void* delta, void* out0, void* out1, int B, int H,
     int Lq, int Lk, const unsigned long long* geo, const long long* strides,
     int causal, float scale, int dropout_enabled, unsigned long long seed,
-    unsigned int threshold, float drop_scale) {
+    unsigned int threshold, float drop_scale,
+    CUtensorMapDataType map_type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   p.out0 = static_cast<Out*>(out0);
   p.out1 = n_out == 2 ? static_cast<Out*>(out1) : nullptr;
   p.ds = n_out == 1 ? static_cast<float*>(out1) : nullptr;
@@ -79,7 +82,8 @@ inline cudaError_t make_bwd_params(
   const void* ptrs[4] = {q, k, v, dout};
   for (int i = 0; i < 4; ++i) {
     const cudaError_t err =
-        encode_tensor_map(&maps[i], pos[i], ptrs[i], geo + i * kGeoWords);
+        encode_tensor_map(&maps[i], pos[i], ptrs[i], geo + i * kGeoWords,
+                          map_type);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;

@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace pt_sm90 {
 
 constexpr int kAtomBytes = 64 * 128;  // one 64-row x 128-byte swizzle atom
@@ -192,26 +194,70 @@ __device__ __forceinline__ void fence_operand(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory.
+// Whether a wgmma's two 2-byte operands are float16 (__half, ".f16" in the
+// instruction) rather than bf16 (__nv_bfloat16, ".bf16"). The macros below
+// spell out the instruction strings of each form once for both types.
+template <typename T>
+constexpr bool kIsF16 = std::is_same<T, __half>::value;
+
+#define PT_ACC32(d)                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+#define PT_ACC64(d)                                                          \
+  PT_ACC32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),          \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),       \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),       \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),       \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),       \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),       \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define PT_REGS32                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                                        \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                                   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                                 \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
+#define PT_REGS64                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                                        \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                                   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                                 \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "                                 \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "                                 \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "                                 \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "                                 \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+// SS m64n64k16, both operands K-major, of element type TY ("bf16", "f16")
+#define PT_WGMMA_SS_N64(TY)                                                  \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                              \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " PT_REGS32    \
+  ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+// RS m64n64k16 and m64n128k16 (A in registers, B MN-major: transposed)
+#define PT_WGMMA_RS_N64_TB(TY)                                               \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                              \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " PT_REGS32    \
+  ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+#define PT_WGMMA_RS_N128_TB(TY)                                              \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                              \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " PT_REGS64   \
+  ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory,
+// both of element type T (__nv_bfloat16 or __half).
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
-                                               uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+                                             uint64_t desc_b, int scale_d) {
+  if constexpr (kIsF16<T>)
+    asm volatile(PT_WGMMA_SS_N64("f16")
+                 : PT_ACC32(d)
+                 : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  else
+    asm volatile(PT_WGMMA_SS_N64("bf16")
+                 : PT_ACC32(d)
+                 : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B K-major in shared memory.
@@ -268,63 +314,39 @@ __device__ __forceinline__ void wgmma_ss_n128_tb(float (&d)[64],
 }
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A in registers (the fragment of
-// `a`), B MN-major (transposed) in shared memory.
+// `a`), B MN-major (transposed) in shared memory, both of element type T.
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
                                                 const uint32_t (&a)[4],
                                                 uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  if constexpr (kIsF16<T>)
+    asm volatile(PT_WGMMA_RS_N64_TB("f16")
+                 : PT_ACC32(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+                   "r"(scale_d));
+  else
+    asm volatile(PT_WGMMA_RS_N64_TB("bf16")
+                 : PT_ACC32(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+                   "r"(scale_d));
 }
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A in registers (the fragment of
-// `a`), B MN-major (transposed) in shared memory.
+// `a`), B MN-major (transposed) in shared memory, both of element type T.
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64],
                                                  const uint32_t (&a)[4],
                                                  uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  if constexpr (kIsF16<T>)
+    asm volatile(PT_WGMMA_RS_N128_TB("f16")
+                 : PT_ACC64(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+                   "r"(scale_d));
+  else
+    asm volatile(PT_WGMMA_RS_N128_TB("bf16")
+                 : PT_ACC64(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+                   "r"(scale_d));
 }
 
 // D[64 x 256] (+)= A[64 x 16] B[16 x 256], A in registers (the fragment of
@@ -389,17 +411,19 @@ __device__ __forceinline__ void wgmma_rs_n256_tb(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
-// D[64 x N] += A B for an A fragment in registers and a transposed B tile.
-template <int N>
+// D[64 x N] += A B for an A fragment in registers and a transposed B tile,
+// both of element type T (N = 256: bf16 only).
+template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
                                             const uint32_t (&a)[4],
                                             uint64_t desc_b) {
   if constexpr (N == 64) {
-    wgmma_rs_n64_tb(d, a, desc_b, 1);
+    wgmma_rs_n64_tb<T>(d, a, desc_b, 1);
   } else if constexpr (N == 128) {
-    wgmma_rs_n128_tb(d, a, desc_b, 1);
+    wgmma_rs_n128_tb<T>(d, a, desc_b, 1);
   } else {
-    static_assert(N == 256, "wgmma_rs_tb: N must be 64, 128 or 256");
+    static_assert(N == 256 && !kIsF16<T>,
+                  "wgmma_rs_tb: N must be 64, 128 or (bf16) 256");
     wgmma_rs_n256_tb(d, a, desc_b, 1);
   }
 }
@@ -510,9 +534,9 @@ __device__ __forceinline__ void wgmma_split_product(float (&d)[N / 2], Elem a,
   }
 }
 
-// D[64 x 64] = A B^T for two K-major [64, K] tiles (K / 16 wgmmas),
-// committed and waited for.
-template <int K>
+// D[64 x 64] = A B^T for two K-major [64, K] tiles of element type T (K /
+// 16 wgmmas), committed and waited for.
+template <int K, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_kmajor_product(float (&d)[32],
                                                      uint32_t tile_a,
                                                      uint32_t tile_b) {
@@ -520,8 +544,8 @@ __device__ __forceinline__ void wgmma_kmajor_product(float (&d)[32],
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
-    wgmma_ss_n64(d, kmajor_desc(tile_a, kk), kmajor_desc(tile_b, kk),
-                 kk > 0 ? 1 : 0);
+    wgmma_ss_n64<T>(d, kmajor_desc(tile_a, kk), kmajor_desc(tile_b, kk),
+                    kk > 0 ? 1 : 0);
   wgmma_commit();
   wgmma_wait_all();
   fence_operand(d);
@@ -692,11 +716,13 @@ inline EncodeTiledFn encode_tiled_fn() {
 }
 
 // Encode the tensor map of `ptr` from its 14 geometry words, and the
-// coordinate positions the kernel needs. Returns cudaErrorInvalidValue if
-// cuTensorMapEncodeTiled refuses it.
-inline cudaError_t encode_tensor_map(CUtensorMap* map, TmaPos* pos,
-                                     const void* ptr,
-                                     const unsigned long long* geo) {
+// coordinate positions the kernel needs; `type` is the elements' type
+// (bf16, or float16 for the wgmma_f16 kernels). Returns
+// cudaErrorInvalidValue if cuTensorMapEncodeTiled refuses it.
+inline cudaError_t encode_tensor_map(
+    CUtensorMap* map, TmaPos* pos, const void* ptr,
+    const unsigned long long* geo,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   cuuint64_t dims[4], strides[3];
@@ -709,7 +735,7 @@ inline cudaError_t encode_tensor_map(CUtensorMap* map, TmaPos* pos,
   pos->row = static_cast<int>(geo[11]);
   pos->head = static_cast<int>(geo[12]);
   pos->batch = static_cast<int>(geo[13]);
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const CUresult r = fn(map, type, 4,
                         const_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,

@@ -30,11 +30,17 @@ The kernels replace the three Pallas kernels of the reference:
   and dK/dV again for float32 inputs (float32 training) in the same way:
   Q, K, V and dO arrive as their three bf16 terms, P M and dS are split
   in registers, six term pairs per product;
-- float16 inputs (float16 O2 training) take those float32 kernels too, as
+- float16 inputs (float16 O2 training) take the float32 forward too, as
   the reference computes float16 with float32 operands: the split reads
   float16 directly (a float16 value is exactly two bf16 terms, the third
-  is zero), and O, dQ, dK and dV are rounded to float16 once, from
-  float32, as they are written;
+  is zero), and O is rounded to float16 once, from float32, as it is
+  written; so do dQ and dK/dV at head dim 256;
+- ``csrc/flash_attention_bwd_f16_sm90.cu`` replaces dQ and dK/dV again for
+  float16 inputs at head dims 64 and 128, with no split: Q K^T and dO V^T
+  are native float16 products (exact in float32), dS enters as three bf16
+  terms against K's or Q's two, made in shared memory from the TMA tile,
+  and P M as a float16 hi/lo pair; dQ, dK and dV are rounded to float16
+  once;
 - ``csrc/philox.cuh`` replaces the in-kernel dropout ``_dropout_mask``
   (``:120``): Philox4x32-10 bits keyed per element by (seed, b, h, row,
   col), so the three kernels regenerate one mask although they tile
@@ -52,8 +58,9 @@ runs the plain version (that is what the CPU tests exercise), and given
 CUDA tensors it launches the kernel or raises. Among the kernels the
 route is picked by (dtype, head dim, kernel) alone (:func:`kernel_route`):
 bf16 takes the ``wgmma`` forward, dQ and dK/dV kernels at every head dim,
-float32 and float16 the ``wgmma_f32`` ones; no route takes the ``fma``
-kernels. Each
+float32 the ``wgmma_f32`` ones, float16 the ``wgmma_f32`` forward and the
+``wgmma_f16`` dQ and dK/dV (``wgmma_f32`` at head dim 256); no route takes
+the ``fma`` kernels. Each
 wrapper counts its launches in ``<wrapper>.launches`` and per route in
 ``<wrapper>.routes`` (:func:`launch_counts`).
 
@@ -91,17 +98,25 @@ __all__ = ["SUPPORTED_HEAD_DIMS", "TENSOR_CORE_HEAD_DIMS", "kernel_route",
            "reference_attention_fwd", "reference_attention_bwd"]
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
-#: the tensor-core route of each dtype: bf16 operands as they are
+_KERNELS = ("fwd", "dq", "dkv")
+#: the route of each dtype's kernels: bf16 operands as they are
 #: (``"wgmma"``); float32 and float16 as their bf16 terms (``"wgmma_f32"``,
 #: exact for float16)
-_TENSOR_CORE_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "wgmma_f32",
-                       torch.float16: "wgmma_f32"}
-#: head dims at which each (dtype, kernel) runs on the tensor cores, on its
-#: dtype's route (every kernel at every head dim); the rest is ``"fma"``,
-#: which no wrapper launches
-TENSOR_CORE_HEAD_DIMS = {
-    (dtype, kernel): SUPPORTED_HEAD_DIMS
-    for dtype in _TENSOR_CORE_ROUTES for kernel in ("fwd", "dq", "dkv")}
+_DTYPE_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "wgmma_f32",
+                 torch.float16: "wgmma_f32"}
+#: the tensor-core route of each (dtype, kernel, head dim): its dtype's,
+#: but native float16 (``"wgmma_f16"``) for the float16 dQ and dK/dV at
+#: head dims 64 and 128
+_TENSOR_CORE_ROUTES = {
+    (dtype, kernel, D): ("wgmma_f16" if dtype == torch.float16
+                         and kernel != "fwd" and D != 256 else route)
+    for dtype, route in _DTYPE_ROUTES.items() for kernel in _KERNELS
+    for D in SUPPORTED_HEAD_DIMS}
+#: head dims at which each (dtype, kernel) runs on the tensor cores (every
+#: kernel at every head dim); the rest is ``"fma"``, which no wrapper
+#: launches
+TENSOR_CORE_HEAD_DIMS = {(dtype, kernel): SUPPORTED_HEAD_DIMS
+                         for dtype in _DTYPE_ROUTES for kernel in _KERNELS}
 _FWD_SOURCE = "flash_attention_fwd.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
 _FWD_SM90_SOURCE = "flash_attention_fwd_sm90.cu"
@@ -110,6 +125,7 @@ _DQ_SM90_SOURCE = "flash_attention_bwd_dq_sm90.cu"
 _DKV_SM90_SOURCE = "flash_attention_bwd_dkv_sm90.cu"
 _BWD_F32_SM90_SOURCE = "flash_attention_bwd_f32_sm90.cu"
 _BWD_F32_D256_SM90_SOURCE = "flash_attention_bwd_f32_d256_sm90.cu"
+_BWD_F16_SM90_SOURCE = "flash_attention_bwd_f16_sm90.cu"
 #: element-type codes of the C entries (the FMA kernels take 0 and 1)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TILE_ROWS = 64  # rows of every TMA box (csrc/sm90.cuh)
@@ -119,16 +135,16 @@ def kernel_route(dtype: torch.dtype, head_dim: int, kernel: str) -> str:
     """Which kernel a CUDA input of ``dtype`` and ``head_dim`` takes for
     ``kernel`` ("fwd", "dq" or "dkv"): at the head dims of
     :data:`TENSOR_CORE_HEAD_DIMS` (every kernel at D 64, 128 and 256)
-    ``"wgmma"`` (the sm_90a tensor-core kernels) for bf16 and
+    ``"wgmma"`` (the sm_90a tensor-core kernels) for bf16,
     ``"wgmma_f32"`` (the same tensor cores, each float32 or float16
-    operand as three bf16 terms) for float32 and float16; ``"fma"`` for
-    everything else, which the wrappers refuse (another dtype or head
-    dim)."""
-    if kernel not in ("fwd", "dq", "dkv"):
+    operand as three bf16 terms) for float32 and for the float16 forward
+    and the float16 dQ and dK/dV at D = 256, and ``"wgmma_f16"`` (native
+    float16 products) for the float16 dQ and dK/dV at D 64 and 128;
+    ``"fma"`` for everything else, which the wrappers refuse (another
+    dtype or head dim)."""
+    if kernel not in _KERNELS:
         raise ValueError(f"kernel must be fwd, dq or dkv, got {kernel!r}")
-    if head_dim in TENSOR_CORE_HEAD_DIMS.get((dtype, kernel), ()):
-        return _TENSOR_CORE_ROUTES[dtype]
-    return "fma"
+    return _TENSOR_CORE_ROUTES.get((dtype, kernel, head_dim), "fma")
 
 
 def tma_geometry(t: torch.Tensor) -> Tuple[int, ...]:
@@ -195,7 +211,7 @@ def should_use_flash(q, k, attn_mask, dropout_p) -> bool:
     take. Any other dtype, and CPU tensors, answer False (they run the
     plain path). Dropout runs inside the kernels, so it does not gate."""
     del dropout_p
-    if not q.is_cuda or q.dtype not in _TENSOR_CORE_ROUTES:
+    if not q.is_cuda or q.dtype not in _DTYPE_ROUTES:
         return False
     Lq, Lk = q.shape[1], k.shape[1]
     if attn_mask is not None:
@@ -433,12 +449,15 @@ def _split_fn():
 
 @functools.lru_cache(maxsize=None)
 def _bwd_sm90_fn(which: str, route: str, head_dim: int):
-    """The typed entry of the ``route`` ("wgmma" or "wgmma_f32") backward
-    kernel ``which`` ("dq" or "dkv") at ``head_dim``."""
+    """The typed entry of the ``route`` ("wgmma", "wgmma_f32" or
+    "wgmma_f16") backward kernel ``which`` ("dq" or "dkv") at
+    ``head_dim``."""
     if route == "wgmma_f32" and head_dim == 256:
         source, name = _BWD_F32_D256_SM90_SOURCE, f"bwd_{which}_f32_d256_sm90"
     elif route == "wgmma_f32":
         source, name = _BWD_F32_SM90_SOURCE, f"bwd_{which}_f32_sm90"
+    elif route == "wgmma_f16":
+        source, name = _BWD_F16_SM90_SOURCE, f"bwd_{which}_f16_sm90"
     else:
         source = _DQ_SM90_SOURCE if which == "dq" else _DKV_SM90_SOURCE
         name = f"bwd_{which}_sm90"
@@ -480,7 +499,7 @@ def wgmma_selfcheck(D: int, device, generator=None,
     c1 = torch.empty(64, 64, device=device)
     c2 = torch.empty(64, D, device=device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    if _TENSOR_CORE_ROUTES.get(dtype) == "wgmma_f32":
+    if _DTYPE_ROUTES.get(dtype) == "wgmma_f32":
         a3, b3 = split_bf16_terms(a.view(1, 1, 64, D), b.view(1, 1, 64, D))
         a32 = a.float()
         fn = _build.load(_FWD_F32_SM90_SOURCE).pt_sm90_selfcheck_f32
@@ -539,7 +558,7 @@ def split_bf16_terms(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         return tuple(_plain_split(x) for x in xs)
     B, H, _, D = xs[0].shape
     dtype = xs[0].dtype
-    if _TENSOR_CORE_ROUTES.get(dtype) != "wgmma_f32":
+    if _DTYPE_ROUTES.get(dtype) != "wgmma_f32":
         raise ValueError(f"split_bf16_terms takes float32 or float16, got "
                          f"{dtype}")
     for i, x in enumerate(xs):
@@ -607,7 +626,7 @@ def _empty_like_rows(t: torch.Tensor) -> torch.Tensor:
 
 
 def _check_shapes(q, k, v):
-    if q.dtype not in _TENSOR_CORE_ROUTES:
+    if q.dtype not in _DTYPE_ROUTES:
         raise ValueError(f"flash kernel takes float32, bfloat16 or float16, "
                          f"got {q.dtype}")
     if q.ndim != 4:
@@ -806,12 +825,13 @@ def _launch_bwd_sm90(which: str, route: str, q, k, v, bias, do, lse, delta,
     writes dQ (``out0``) and, when ``out1`` is not None, dS; "dkv" writes
     dK and dV. ``out_strides`` are the (batch, head, row) strides of the
     gradients. The ``wgmma_f32`` kernels read q, k, v and do as their bf16
-    ``terms`` (:func:`split_bf16_terms`), the ``wgmma`` ones as they are."""
+    ``terms`` (:func:`split_bf16_terms`), the ``wgmma`` and ``wgmma_f16``
+    ones as they are."""
     B, H, Lq, Lk, D = _check_shapes(q, k, v)
     _check_operand("do", do, q.device, q.dtype, (B, H, Lq, D))
     _check_stats(lse, delta, (B, H, Lq), q.device)
     bias, bias_strides = _kernel_bias(bias, B, H, Lq, Lk, q.device)
-    ops = (q, k, v, do) if route == "wgmma" else terms
+    ops = terms if route == "wgmma_f32" else (q, k, v, do)
     out_type = (_DTYPE_CODES[q.dtype],) if route == "wgmma_f32" else ()
     if route == "wgmma_f32":
         # TMA reads past a tensor's end as zeros: a wrong shape would be a
@@ -851,7 +871,8 @@ def flash_attention_bwd_dq(q, k, v, bias, do, lse, delta,
                            seed: int = 0, emit_ds: bool = False, terms=None):
     """Launch the dQ kernel of :func:`kernel_route` on CUDA ``[B, H, L,
     D]`` tensors (``lse`` and ``delta = rowsum(dO * O)`` float32 ``[B, H,
-    Lq]``; on the wgmma route ``do`` too must be readable by TMA): returns
+    Lq]``; on the wgmma and wgmma_f16 routes ``do`` too must be readable by
+    TMA): returns
     ``(dq, ds)``, with ``ds`` the float32 ``[B, H, Lq, Lk]`` score gradient
     when ``emit_ds`` else None. On the ``wgmma_f32`` route ``terms`` are
     the bf16 terms of ``(q, k, v, do)`` (:func:`split_bf16_terms`), split
@@ -874,7 +895,8 @@ def flash_attention_bwd_dq(q, k, v, bias, do, lse, delta,
 
 
 flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dq.routes = {"fma": 0, "wgmma": 0, "wgmma_f32": 0}
+flash_attention_bwd_dq.routes = {"fma": 0, "wgmma": 0, "wgmma_f32": 0,
+                                 "wgmma_f16": 0}
 
 
 def flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta,
@@ -897,7 +919,8 @@ def flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta,
 
 
 flash_attention_bwd_dkv.launches = 0
-flash_attention_bwd_dkv.routes = {"fma": 0, "wgmma": 0, "wgmma_f32": 0}
+flash_attention_bwd_dkv.routes = {"fma": 0, "wgmma": 0, "wgmma_f32": 0,
+                                  "wgmma_f16": 0}
 _WRAPPERS = {"fwd": flash_attention_fwd, "dq": flash_attention_bwd_dq,
              "dkv": flash_attention_bwd_dkv}
 
@@ -935,7 +958,8 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, causal: bool = False,
     ``Delta = rowsum(dO * O)`` is a torch op in float32 (an XLA op outside
     the kernels in the reference, ``:429``); CUDA tensors then launch the
     dQ and dK/dV kernels (on the ``wgmma_f32`` route after splitting q, k,
-    v and dO into the bf16 terms both read), CPU tensors run
+    v and dO into the bf16 terms both read; the ``wgmma`` and
+    ``wgmma_f16`` kernels read them as they are), CPU tensors run
     :func:`reference_attention_bwd` with the plain mask.
     ``bias_grad=False`` skips the ``[B, H, Lq, Lk]`` dS output and returns
     a zero dbias."""
@@ -943,7 +967,7 @@ def flash_attention_bwd(q, k, v, bias, o, lse, do, causal: bool = False,
     if q.is_cuda:
         do = _kernel_rows(do)
         routes = {kernel_route(q.dtype, q.shape[-1], w) for w in ("dq", "dkv")}
-        if "wgmma" in routes and not _tma_ok(do):
+        if routes & {"wgmma", "wgmma_f16"} and not _tma_ok(do):
             do = do.contiguous()
         delta = (do.float() * o.float()).sum(-1).contiguous()
         terms = _backward_terms(q, k, v, do) if "wgmma_f32" in routes \

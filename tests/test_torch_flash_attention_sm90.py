@@ -344,14 +344,17 @@ def test_split_is_closer_to_float32_than_bf16_p():
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "wgmma_f32"),
     (torch.float32, 128, "wgmma_f32"), (torch.float32, 256, "wgmma_f32"),
-    (torch.float16, 128, "wgmma_f32"), (torch.float16, 64, "wgmma_f32"),
+    (torch.float16, 128, "wgmma_f16"), (torch.float16, 64, "wgmma_f16"),
     (torch.float16, 256, "wgmma_f32"), (torch.float16, 96, "fma"),
     (torch.float64, 128, "fma")])
 def test_route_is_picked_by_dtype_and_head_dim(dtype, d, route, kernel):
-    """bf16 takes the wgmma kernels at every head dim, float32 and float16
-    the wgmma_f32 ones (forward, dQ and dK/dV alike); what no tensor-core
-    kernel takes (float64, a head dim of 96) answers fma, which the
-    wrappers refuse."""
+    """bf16 takes the wgmma kernels at every head dim, float32 the
+    wgmma_f32 ones (forward, dQ and dK/dV alike), float16 the wgmma_f32
+    forward and the native float16 dQ and dK/dV (wgmma_f16) at D 64 and
+    128 (wgmma_f32 at 256); what no tensor-core kernel takes (float64, a
+    head dim of 96) answers fma, which the wrappers refuse."""
+    if kernel == "fwd" and route == "wgmma_f16":
+        route = "wgmma_f32"  # the float16 forward takes the float32 kernel
     assert tfa.kernel_route(dtype, d, kernel) == route
 
 
@@ -365,23 +368,26 @@ def test_cpu_tensors_launch_nothing():
     assert tfa.launch_counts() == {"fwd": {"fma": 0, "wgmma": 0,
                                            "wgmma_f32": 0},
                                    "dq": {"fma": 0, "wgmma": 0,
-                                          "wgmma_f32": 0},
+                                          "wgmma_f32": 0, "wgmma_f16": 0},
                                    "dkv": {"fma": 0, "wgmma": 0,
-                                           "wgmma_f32": 0}}
+                                           "wgmma_f32": 0, "wgmma_f16": 0}}
 
 
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "wgmma_f32"),
-    (torch.float32, 128, "wgmma_f32"), (torch.float32, 256, "wgmma_f32")])
+    (torch.float32, 128, "wgmma_f32"), (torch.float32, 256, "wgmma_f32"),
+    (torch.float16, 64, "wgmma_f16"), (torch.float16, 128, "wgmma_f16"),
+    (torch.float16, 256, "wgmma_f32")])
 @pytest.mark.parametrize("which", ["dq", "dkv"])
 def test_backward_wrappers_launch_the_route_of_dtype_and_head_dim(
         which, dtype, d, route):
     """The dQ and dK/dV wrappers hand a (dtype, D) input to the launcher of
     its :func:`kernel_route` and count the launch under that route, never
     the FMA launcher (no route takes it); the wgmma_f32 launcher gets the
-    four operands' bf16 terms. The launchers are stubbed (the kernels need
-    a card); the wrapper's own logic runs as it does on one."""
+    four operands' bf16 terms, the wgmma and wgmma_f16 ones none. The
+    launchers are stubbed (the kernels need a card); the wrapper's own
+    logic runs as it does on one."""
     calls = []
     q = torch.zeros(1, 2, 64, d, dtype=dtype)
     stats = torch.zeros(1, 2, 64)
@@ -390,7 +396,7 @@ def test_backward_wrappers_launch_the_route_of_dtype_and_head_dim(
     def sm90(*a):
         calls.append((a[1], a[0]))
         terms = a[-1]
-        assert (terms is None) == (a[1] == "wgmma")
+        assert (terms is None) == (a[1] != "wgmma_f32")
         if terms is not None:
             assert [t.shape for t in terms] == [(3, 2, 64, d)] * 4
             assert all(t.dtype == torch.bfloat16 for t in terms)
@@ -402,7 +408,8 @@ def test_backward_wrappers_launch_the_route_of_dtype_and_head_dim(
         wrapper(q, q, q, None, q, stats, stats, True)
     assert calls == [(route, which)]
     assert tfa.launch_counts()[which] == {
-        r: int(r == route) for r in ("fma", "wgmma", "wgmma_f32")}
+        r: int(r == route) for r in ("fma", "wgmma", "wgmma_f32",
+                                     "wgmma_f16")}
     tfa.reset_launch_counts()
 
 
@@ -412,7 +419,8 @@ def test_wgmma_sources_are_built_with_the_rest():
                    "flash_attention_bwd_dq_sm90.cu",
                    "flash_attention_bwd_dkv_sm90.cu",
                    "flash_attention_bwd_f32_sm90.cu",
-                   "flash_attention_bwd_f32_d256_sm90.cu"):
+                   "flash_attention_bwd_f32_d256_sm90.cu",
+                   "flash_attention_bwd_f16_sm90.cu"):
         assert source in _build.SOURCES
         text = (_build.CSRC_DIR / source).read_text()
         assert "Replaces: paddle_tpu/kernels/flash_attention.py" in text
@@ -555,10 +563,11 @@ def test_cuda_wgmma_backward_matches_plain(cuda_device, d, causal, lq, lk,
     got = tfa.flash_attention_bwd(q, k, v, b, o, lse, do, causal)
     torch.cuda.synchronize()
     assert tfa.launch_counts()["dkv"] == {"fma": 0, "wgmma": 1,
-                                          "wgmma_f32": 0}
+                                          "wgmma_f32": 0, "wgmma_f16": 0}
     dq_route = tfa.kernel_route(torch.bfloat16, d, "dq")
     assert tfa.launch_counts()["dq"] == {
-        r: int(r == dq_route) for r in ("fma", "wgmma", "wgmma_f32")}
+        r: int(r == dq_route) for r in ("fma", "wgmma", "wgmma_f32",
+                                        "wgmma_f16")}
     want = tfa.reference_attention_bwd(q, k, v, b, o, lse, do, causal)
     for x, y in zip(got[:3], want[:3]):
         limit = 2 * _bf16_ulp(y) + 1e-5 * y.float().abs().max()

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Compare builds of the float32 D = 256 backward in turns, on one GPU.
+"""Compare builds of a tensor-core backward in turns, on one GPU.
 
     python3 tools/torch_flash_variants.py LABEL=SOURCE.cu [LABEL=SOURCE.cu ...]
-        [--seed N]
+        [--dtype float32|float16] [--head-dim D] [--seed N]
 
-Each SOURCE is a variant of
-``paddle_tpu_torch/kernels/csrc/flash_attention_bwd_f32_d256_sm90.cu``
-with the same C entries: a candidate layout or a tuning of it, e.g. the
-file as it stands in another commit (``git show REV:PATH > FILE``).
+Each SOURCE is a variant of the backward source of the route that
+(``--dtype``, ``--head-dim``) takes, with the same C entries: float32 at
+D = 256 (the default)
+``paddle_tpu_torch/kernels/csrc/flash_attention_bwd_f32_d256_sm90.cu``,
+float16 at D 64 or 128 ``flash_attention_bwd_f16_sm90.cu``. A variant is
+a candidate layout or a tuning of it, e.g. the file as it stands in
+another commit (``git show REV:PATH > FILE``).
 
 All variants compile at once with the port's nvcc flags (the headers of
 ``kernels/csrc`` on the include path) into ``build/kernels/variants/``;
@@ -15,9 +18,11 @@ the ``-Xptxas -v`` report gives each kernel's registers and spill bytes.
 Then, in one process, the dQ and dK/dV wrappers are pointed at each
 variant's entries in turn: each variant is held against the plain
 backward (``chip_smoke.bwd_tolerance``: the reference's rtol 2e-4 / atol
-2e-5) at p = 0 and p = 0.1, and the two kernels are timed at
-``[1, 8, 1024, 256]`` and ``[2, 8, 1024, 256]`` float32 causal (the head
-count and batch of the D = 256 model's runs), at p = 0 and p = 0.1, as
+2e-5, plus one float16 ulp for float16) at p = 0 and p = 0.1, and the two
+kernels are timed at the route's shapes (float32 D = 256: ``[1, 8, 1024,
+256]`` and ``[2, 8, 1024, 256]``, the head count and batch of the D = 256
+model's runs; float16: the GPT step's ``[2, 16, 1024, D]`` and, at
+D = 128, Llama's ``[1, 32, 4096, 128]``), causal, at p = 0 and p = 0.1, as
 device medians of 6 loops of 20 calls taken in turns (A B ... B A, three
 times), so that drift of the card's clock falls on all alike.
 
@@ -38,8 +43,14 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-SHAPES = {"B1": (1, 8, 1024), "B2": (2, 8, 1024)}  # (B, H, L)
-HEAD_DIM = 256
+# (dtype, head dim) -> (route, the C entries' infix, {name: (B, H, L)})
+CONFIGS = {
+    ("float32", 256): ("wgmma_f32", "f32_d256",
+                       {"B1": (1, 8, 1024), "B2": (2, 8, 1024)}),
+    ("float16", 64): ("wgmma_f16", "f16", {"gpt": (2, 16, 1024)}),
+    ("float16", 128): ("wgmma_f16", "f16",
+                       {"gpt": (2, 16, 1024), "llama": (1, 32, 4096)}),
+}
 DROPOUT_P = 0.1
 ROUNDS = 3
 
@@ -72,16 +83,17 @@ def build(variants: dict) -> dict:
     return built
 
 
-def entries(fa, lib: str) -> dict:
+def entries(fa, lib: str, route: str, infix: str) -> dict:
     """The typed dQ and dK/dV entries of one variant's library (the C
-    entries of the current source: the gradients' element type before
-    the stream)."""
+    entries of the current source; the wgmma_f32 ones take the gradients'
+    element type before the stream)."""
     handle = ctypes.CDLL(lib)
     fns = {}
     for which in ("dq", "dkv"):
-        fn = getattr(handle, f"pt_flash_attention_bwd_{which}_f32_d256_sm90")
+        fn = getattr(handle, f"pt_flash_attention_bwd_{which}_{infix}_sm90")
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                       + fa._SM90_F32_TAIL)
+                       + (fa._SM90_F32_TAIL if route == "wgmma_f32"
+                          else fa._SM90_TAIL))
         fn.restype = ctypes.c_int
         fns[which] = fn
     return fns
@@ -90,8 +102,16 @@ def entries(fa, lib: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("variants", nargs="+", metavar="LABEL=SOURCE.cu")
+    ap.add_argument("--dtype", choices=("float32", "float16"),
+                    default="float32")
+    ap.add_argument("--head-dim", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if (args.dtype, args.head_dim) not in CONFIGS:
+        ap.error(f"no variants of {args.dtype} at D = {args.head_dim}: "
+                 f"one of {sorted(CONFIGS)}")
+    route, infix, shapes = CONFIGS[(args.dtype, args.head_dim)]
+    head_dim = args.head_dim
 
     import torch
 
@@ -108,24 +128,27 @@ def main(argv=None) -> int:
     built = build(variants)
     for label, (lib, report) in built.items():
         _emit(variant=label, source=variants[label], ptxas=report)
-    fns = {label: entries(fa, str(lib)) for label, (lib, _) in built.items()}
+    fns = {label: entries(fa, str(lib), route, infix)
+           for label, (lib, _) in built.items()}
 
     # the wrappers look their entries up per call: point them at a variant
     default_fn = fa._bwd_sm90_fn
     current = {}
 
-    def lookup(which, route, head_dim):
-        if (route, head_dim) == ("wgmma_f32", HEAD_DIM):
+    def lookup(which, r, d):
+        if (r, d) == (route, head_dim):
             return current[which]
-        return default_fn(which, route, head_dim)
+        return default_fn(which, r, d)
 
     fa._bwd_sm90_fn = lookup
     g = torch.Generator(device="cuda")
     g.manual_seed(args.seed)
     cases = {}
-    for name, (B, H, L) in SHAPES.items():
-        q, k, v, do = (torch.randn(B, H, L, HEAD_DIM, generator=g,
-                                   device="cuda") for _ in range(4))
+    dtype = getattr(torch, args.dtype)
+    for name, (B, H, L) in shapes.items():
+        q, k, v, do = (torch.randn(B, H, L, head_dim, generator=g,
+                                   device="cuda").to(dtype)
+                       for _ in range(4))
         for p in (0.0, DROPOUT_P):
             o, lse = fa.flash_attention_fwd(q, k, v, causal=True, dropout_p=p,
                                             seed=args.seed)
@@ -133,8 +156,9 @@ def main(argv=None) -> int:
                     else None)
             ref = fa.reference_attention_bwd(q, k, v, None, o, lse, do, True,
                                              keep)
-            delta = (do * o).sum(-1).contiguous()
-            terms = fa._backward_terms(q, k, v, do)
+            delta = (do.float() * o.float()).sum(-1).contiguous()
+            terms = (fa._backward_terms(q, k, v, do) if route == "wgmma_f32"
+                     else None)
             cases[(name, p)] = (q, k, v, do, o, lse, delta, terms, ref)
 
     for label in fns:
@@ -168,8 +192,8 @@ def main(argv=None) -> int:
                     samples.setdefault((label, name, p, which), []).append(
                         chip_smoke._timed_loop(fn, 20))
     for (label, name, p, which), ms in samples.items():
-        B, H, L = SHAPES[name]
-        _emit(variant=label, kernel=which, shape=[B, H, L, HEAD_DIM],
+        B, H, L = shapes[name]
+        _emit(variant=label, kernel=which, shape=[B, H, L, head_dim],
               p=p, ms=statistics.median(ms), ms_range=[min(ms), max(ms)])
     fa._bwd_sm90_fn = default_fn
     return 0
