@@ -9,13 +9,13 @@ exits non-zero:
 1. device    - the card (nvidia-smi name and power limit), torch and CUDA.
 2. build     - compiles every CUDA source of the port from this checkout
                (nvcc, one library per source, all started together), fails
-               on a register spill in the seven wgmma sources (registers
-               and spills of the float16 backward printed per
+               on a register spill in the eight wgmma sources (registers
+               and spills of the float16 forward and backward printed per
                instantiation), and holds the
                wgmma/TMA self-check (a 64 x 64 x D product through each
-               descriptor form, in bf16 and through the float32 forward's
-               three-term products, at D = 64, 128 and 256) against a
-               float64 product.
+               descriptor form, in bf16, in float16 and through the float32
+               forward's three-term products, at D = 64, 128 and 256)
+               against a float64 product.
 3. kernels   - calls each kernel's wrapper on the card at the shapes the
                serving and training paths give it, and holds the result
                against its plain PyTorch version on the same inputs (stated
@@ -26,8 +26,12 @@ exits non-zero:
                the FMA forward timed beside the tensor-core ones at
                D = 256, also at the D = 256 step's [2,8,1024,256] and at
                the D = 256 prefill's [1,8,2048,256]; float16 on the
-               wgmma_f32 route at [2,16,1024,128] and [1,32,4096,128],
-               held to the float32 tolerance plus one float16 ulp), the
+               wgmma_f16 route at [2,16,1024,128], [1,32,4096,128],
+               [2,16,1024,64], [1,8,1024,256], with a bias at Lq 384 /
+               Lk 640 and ragged at L = 1500, held to the float32
+               tolerance plus one float16 ulp, with the float16 wgmma_f32
+               forward it replaced, on no route, checked and timed beside
+               it with its split at the two training shapes), the
                dQ and dK/dV
                backward kernels (wgmma for bf16 and wgmma_f32 for float32,
                each at D = 64, 128 and 256, and wgmma_f16 for float16 at
@@ -49,7 +53,8 @@ exits non-zero:
                CUDA Philox mask against the plain one bit for bit, its keep
                rate, replay of a fixed seed, and forward and backward at
                p = 0.1 given the same mask, also at bf16 D = 256 at its
-               three shapes, at float32 D = 256 and at float16). Times the
+               three shapes, at float32 D = 256 and at float16 on the
+               wgmma_f16 forward and backward). Times the
                kernel and one PyTorch library call computing the same
                function (a yardstick the port never calls) in turns, as the
                median and range of 6 loops of 20 calls each, the plain
@@ -70,8 +75,8 @@ exits non-zero:
                launches per step, none on an FMA kernel. Then the same
                model in float16 O2 (fp16_training: GradScaler, AdamW under
                LinearWarmup(CosineAnnealingDecay), ClipGradByGlobalNorm,
-               the guarded TrainStep): 48 wgmma_f32 forward, 24 wgmma_f16
-               dQ, 24 wgmma_f16 dK/dV and 48 split launches a step, the
+               the guarded TrainStep): 48 wgmma_f16 forward, 24 wgmma_f16
+               dQ, 24 wgmma_f16 dK/dV and no split launch a step, the
                printed overflow
                flags replayed into the printed scales, a poisoned step
                and a FLAGS_check_nan_inf step that leave the state
@@ -198,9 +203,9 @@ LLAMA_TRAIN_LAYERS = 8  # of 32: AdamW's state at 16 bytes a parameter
 LLAMA_GQA_KV_HEADS, LLAMA_GQA_LAYERS = 8, 2
 LLAMA_PROMPT_LENGTHS = (60, 700, 1500, 3000, 4000)
 # float16 (phase fp16_training): the GPT step's attention [2, 16, 1024, 128]
-# and Llama's [1, 32, 4096, 128] in float16, cases of the forward phase on
-# the wgmma_f32 route and of the backward phase on the wgmma_f16 route,
-# where the float16 wgmma_f32 pair they replace is timed beside them
+# and Llama's [1, 32, 4096, 128] in float16, cases of the forward and the
+# backward phase on the wgmma_f16 route, where the float16 wgmma_f32
+# kernels they replace are timed beside them
 F16_TRAIN_FWD = f"train_f16_B{TRAIN_BATCH}_L{TRAIN_SEQ}"
 F16_TRAIN_BWD = f"train_float16_B{TRAIN_BATCH}_L{TRAIN_SEQ}"
 F16_LLAMA_FWD = f"llama_f16_L{LLAMA_SEQ}"
@@ -230,15 +235,16 @@ def f16_ulp(x):
 def output_tolerance(o_ref, route):
     """The elementwise limit on |o - o_ref| of a forward output of
     ``route``: BF16_ULPS ulps of o_ref plus 1e-6 for bfloat16, F32_FWD_ATOL
-    + F32_FWD_RTOL |o_ref| on the wgmma_f32 route, plus one float16 ulp of
-    o_ref for float16 (kernel and plain version each round a float32 value
-    once to float16, and two values within the float32 tolerance may round
-    to neighbours), F32_TOL for the float32 FMA kernel."""
+    + F32_FWD_RTOL |o_ref| on the wgmma_f32 and wgmma_f16 routes, plus one
+    float16 ulp of o_ref for float16 (kernel and plain version each round a
+    float32 value once to float16, and two values within the float32
+    tolerance may round to neighbours), F32_TOL for the float32 FMA
+    kernel."""
     import torch
 
     if o_ref.dtype == torch.bfloat16:
         return BF16_ULPS * bf16_ulp(o_ref) + 1e-6
-    if route == "wgmma_f32":
+    if route in ("wgmma_f32", "wgmma_f16"):
         tol = F32_FWD_ATOL + F32_FWD_RTOL * o_ref.float().abs()
         return tol + f16_ulp(o_ref) if o_ref.dtype == torch.float16 else tol
     return torch.full_like(o_ref, F32_TOL, dtype=torch.float32)
@@ -246,8 +252,9 @@ def output_tolerance(o_ref, route):
 
 def lse_tolerance(lse_ref, route):
     """The elementwise limit on the LSE's error: as the output's on the
-    wgmma_f32 route, else 10 F32_TOL."""
-    if route == "wgmma_f32":
+    wgmma_f32 and wgmma_f16 routes (without the float16 ulp: the LSE is
+    float32), else 10 F32_TOL."""
+    if route in ("wgmma_f32", "wgmma_f16"):
         return F32_FWD_ATOL + F32_FWD_RTOL * lse_ref.abs()
     return F32_TOL * 10
 
@@ -372,8 +379,8 @@ def _term_pairs(route, dtype) -> int:
     that keeps float32 accuracy on those units), 1 otherwise: bf16, and
     float16 on either route, whose least work is one float16 product at
     the same peak (the wgmma_f32 route does 6 term pairs for it, 4 of them
-    non-zero; the wgmma_f16 kernels 7 products for dQ's 3 and 9 for
-    dK/dV's 4)."""
+    non-zero; the wgmma_f16 kernels 3 products for the forward's 2, 7 for
+    dQ's 3 and 9 for dK/dV's 4)."""
     import torch
 
     return 6 if route == "wgmma_f32" and dtype == torch.float32 else 1
@@ -484,9 +491,8 @@ def phase_build(seed: int, fail_on_spill: bool = True) -> None:
     """Build every kernel source, fail on a spill in the wgmma kernels
     (unless ``fail_on_spill`` is False: a spill is then only reported),
     and hold the wgmma/TMA self-check against torch.matmul (the forward
-    routes' forms: bf16, and float32 and float16 through the three-term
-    products; the wgmma_f16 kernels' native float16 products are held by
-    the backward checks)."""
+    routes' forms: bf16 and float16 native products, m64n256k16 included,
+    and float32 through the three-term products)."""
     import torch
 
     from paddle_tpu_torch.kernels import _build
@@ -498,14 +504,15 @@ def phase_build(seed: int, fail_on_spill: bool = True) -> None:
     emit("build", seconds=time.perf_counter() - t0, libraries=libs,
          ptxas=ptxas)
     spills = [(s, k) for s in (fa._FWD_SM90_SOURCE, fa._FWD_F32_SM90_SOURCE,
+                               fa._FWD_F16_SM90_SOURCE,
                                fa._DQ_SM90_SOURCE, fa._DKV_SM90_SOURCE,
                                fa._BWD_F32_SM90_SOURCE,
                                fa._BWD_F32_D256_SM90_SOURCE,
                                fa._BWD_F16_SM90_SOURCE)
               for k in ptxas[s] if k["spill_stores"] or k["spill_loads"]]
-    # registers and spills of each instantiation of the float16 backward
-    emit("build_wgmma_f16", source=fa._BWD_F16_SM90_SOURCE,
-         ptxas=ptxas[fa._BWD_F16_SM90_SOURCE])
+    # registers and spills of each instantiation of the float16 kernels
+    for source in (fa._FWD_F16_SM90_SOURCE, fa._BWD_F16_SM90_SOURCE):
+        emit("build_wgmma_f16", source=source, ptxas=ptxas[source])
     if spills and fail_on_spill:
         raise AssertionError(f"register spills in the wgmma kernels: {spills}")
     g = torch.Generator(device="cuda")
@@ -519,11 +526,11 @@ def phase_build(seed: int, fail_on_spill: bool = True) -> None:
         torch.cuda.synchronize()
         for name, got, x, y in (("kmajor", c1, a, b.T), ("transposed_b", c2,
                                                         a[:, :64], b)):
-            # bf16 products are exact in float32; a float32 sum of K terms
-            # is within K 2^-24 of sum |x y| of the exact one. float32
-            # (and float16) operands as six bf16 term pairs drop a few
+            # bf16 and float16 products are exact in float32; a float32
+            # sum of K terms is within K 2^-24 of sum |x y| of the exact
+            # one. float32 operands as six bf16 term pairs drop a few
             # 2^-24 more.
-            k = x.shape[1] + (4 if dtype != torch.bfloat16 else 0)
+            k = x.shape[1] + (4 if dtype == torch.float32 else 0)
             limit = 2 * k * 2.0 ** -24 * (x.double().abs() @ y.double().abs())
             key = f"{name}_{_dtype_name(a)}_d{D}"
             out[key] = check_close(f"wgmma self-check {key}", got,
@@ -578,18 +585,25 @@ def _fwd_cases(g):
     cases.append((LLAMA_TRAIN_FWD, *_blhd_views(g, 1, LLAMA_SEQ, LLAMA_HEADS,
                                                 128, torch.bfloat16),
                   True, None, "wgmma", bf16_tol))
-    # float16 (float16 O2 training) on the wgmma_f32 route: the GPT step's
-    # [2, 16, 1024, 128] and Llama's [1, 32, 4096, 128]
+    # float16 (float16 O2 training) on the wgmma_f16 route: the GPT step's
+    # [2, 16, 1024, 128], Llama's [1, 32, 4096, 128], and D 64 and 256
     cases.append((F16_TRAIN_FWD, *_views(g, TRAIN_BATCH, TRAIN_SEQ, 16, 128,
                                          torch.float16),
-                  True, None, "wgmma_f32", f16_tol))
+                  True, None, "wgmma_f16", f16_tol))
     cases.append((F16_LLAMA_FWD, *_blhd_views(g, 1, LLAMA_SEQ, LLAMA_HEADS,
                                               128, torch.float16),
-                  True, None, "wgmma_f32", f16_tol))
+                  True, None, "wgmma_f16", f16_tol))
+    cases.append(("d64_causal_f16_B2_L1024", *_views(g, 2, 1024, 16, 64,
+                                                     torch.float16),
+                  True, None, "wgmma_f16", f16_tol))
+    cases.append(("d256_causal_f16_L1024", *_views(g, 1, 1024, 8, 256,
+                                                   torch.float16),
+                  True, None, "wgmma_f16", f16_tol))
     for dtype, D, H, route, tol in (
             (torch.float32, 128, 16, "wgmma_f32", f32_tol),
             (torch.float32, 256, 8, "wgmma_f32", f32_tol),
-            (torch.bfloat16, 64, 16, "wgmma", bf16_tol)):
+            (torch.bfloat16, 64, 16, "wgmma", bf16_tol),
+            (torch.float16, 128, 16, "wgmma_f16", f16_tol)):
         q = torch.randn(1, H, 384, D, generator=g, device="cuda").to(dtype)
         k = torch.randn(1, H, 640, D, generator=g, device="cuda").to(dtype)
         v = torch.randn(1, H, 640, D, generator=g, device="cuda").to(dtype)
@@ -597,7 +611,8 @@ def _fwd_cases(g):
         cases.append((f"bias_noncausal_{_dtype_name(q)}_d{D}_Lq384_Lk640",
                       q, k, v, False, bias, route, tol))
     for dtype, route, tol in ((torch.float32, "wgmma_f32", f32_tol),
-                              (torch.bfloat16, "wgmma", bf16_tol)):
+                              (torch.bfloat16, "wgmma", bf16_tol),
+                              (torch.float16, "wgmma_f16", f16_tol)):
         q, k, v = _views(g, 1, 1500, 16, 128, dtype)
         cases.append((f"ragged_causal_{_dtype_name(q)}_L1500", q, k, v, True,
                       None, route, tol))
@@ -635,6 +650,10 @@ def split_case(fa, name, q, k, v) -> dict:
 FWD_FMA_COMPARED = ("d256_causal_f32_L1024", D256_PREFILL_FWD,
                     "d256_causal_bf16_L1024", "d256_causal_bf16_B2_L1024",
                     D256_STEP_FWD)
+# the float16 cases at which the wgmma_f32 forward, which the wgmma_f16 one
+# replaces, is checked and timed beside it, on its split's terms, with the
+# split timed in the same turns
+F16_FWD_COMPARED = (F16_TRAIN_FWD, F16_LLAMA_FWD)
 
 
 def phase_kernels(seed: int) -> dict:
@@ -648,7 +667,7 @@ def phase_kernels(seed: int) -> dict:
     g.manual_seed(seed)
     results = {}
     for name, q, k, v, causal, bias, want, tol in _fwd_cases(g):
-        if want == "wgmma_f32" and bias is None:
+        if (want == "wgmma_f32" and bias is None) or name in F16_FWD_COMPARED:
             results[f"split_{name}"] = split_case(fa, name, q, k, v)
         fa.reset_launch_counts()
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, bias=bias)
@@ -672,10 +691,19 @@ def phase_kernels(seed: int) -> dict:
                                                         bias=bias),
                "library": lambda: F.scaled_dot_product_attention(
                    q, k, v, attn_mask=bias, is_causal=causal)}
+        # a forward a route replaced, on the same inputs, launched
+        # directly: the FMA one at D = 256, the float16 wgmma_f32 one on
+        # its split's terms (and the split)
+        others = {}
         if name in FWD_FMA_COMPARED:
-            # the FMA forward on the same inputs, launched directly: timing
-            fns["fma"] = lambda: fa._launch_fwd_fma(q, k, v, causal, bias,
-                                                    None, 0.0, 0)
+            others["fma"] = lambda: fa._launch_fwd_fma(q, k, v, causal, bias,
+                                                       None, 0.0, 0)
+        if name in F16_FWD_COMPARED:
+            terms = fa.split_bf16_terms(q, k, v)
+            others["wgmma_f32"] = lambda: fa._launch_fwd_sm90(
+                "wgmma_f32", q, k, v, causal, bias, None, 0.0, 0, terms)
+            fns["wgmma_f32_split"] = lambda: fa.split_bf16_terms(q, k, v)
+        fns.update(others)
         t = timed_in_turns(fns)
         plain_ms = cuda_ms(lambda: fa.reference_attention_fwd(
             q, k, v, causal=causal, bias=bias), iters=5)
@@ -697,20 +725,26 @@ def phase_kernels(seed: int) -> dict:
                                                t["library"]["max"]],
                              bound_ms=bound_ms, bound_by=bound_by,
                              roofline_share=bound_ms / ms)
-        if "fma" in t:
-            # the FMA forward is on no path; held to its own tolerance here
-            o_fma, _ = fa._launch_fwd_fma(q, k, v, causal, bias, None, 0.0, 0)
-            fma_err = check_close(f"{name} fma", o_fma, o_ref,
-                                  output_tolerance(o_ref, "fma"))
-            fma_bound, fma_by = attention_bound_ms(
+        for other, launch in others.items():
+            # on no path; held to its own route's tolerance here
+            o_other, _ = launch()
+            err = check_close(f"{name} {other}", o_other, o_ref,
+                              output_tolerance(o_ref, other))
+            bound, by = attention_bound_ms(
                 B, H, Lq, k.shape[2], D, causal, q.element_size(),
                 0 if bias is None else bias.numel() * bias.element_size(),
-                tensor_cores=False)
-            results[name].update(fma_ms=t["fma"]["median"],
-                                 fma_ms_range=[t["fma"]["min"],
-                                               t["fma"]["max"]],
-                                 fma_max_abs_err=fma_err["max_abs_err"],
-                                 fma_bound_ms=fma_bound, fma_bound_by=fma_by)
+                tensor_cores=other != "fma",
+                term_pairs=_term_pairs(other, q.dtype))
+            results[name].update({
+                f"{other}_ms": t[other]["median"],
+                f"{other}_ms_range": [t[other]["min"], t[other]["max"]],
+                f"{other}_max_abs_err": err["max_abs_err"],
+                f"{other}_bound_ms": bound, f"{other}_bound_by": by})
+        if "wgmma_f32_split" in t:
+            s = t["wgmma_f32_split"]
+            results[name].update(wgmma_f32_split_ms=s["median"],
+                                 wgmma_f32_split_ms_range=[s["min"],
+                                                           s["max"]])
         emit("kernels", case=name, **results[name])
     return results
 
@@ -1087,12 +1121,14 @@ def phase_dropout(seed: int) -> dict:
                keep_rate_sigma=sigma / n, mask_bound_ms=mask_bound_ms,
                mask_bound_by="operations")
     # D = 256 at both of its timed shapes and at the D = 256 step's, and
-    # float32 at D = 256; float16 (the wgmma_f32 forward, the wgmma_f16
-    # backward): the mask of the first Bc batches and Hc heads is the
-    # corner of the full one (Philox keys by (b, h, row, col))
+    # float32 at D = 256; float16 (the wgmma_f16 forward and backward; at
+    # D = 256 the wgmma_f16 forward and the wgmma_f32 backward): the mask
+    # of the first Bc batches and Hc heads is the corner of the full one
+    # (Philox keys by (b, h, row, col))
     for dtype, D, Bc, Hc in ((torch.float32, D, B, H),
                              (torch.bfloat16, D, B, H),
                              (torch.float16, D, B, H),
+                             (torch.float16, 256, 1, 8),
                              (torch.bfloat16, 256, B, H),
                              (torch.bfloat16, 256, 1, 8),
                              (torch.bfloat16, 256, TRAIN_BATCH,
@@ -1346,9 +1382,9 @@ def phase_d256_prefill(seed: int) -> dict:
     return out
 
 
-_COUNT_NAMES = ("fwd_fma", "fwd_wgmma", "fwd_wgmma_f32", "dq_fma",
-                "dq_wgmma", "dq_wgmma_f32", "dq_wgmma_f16", "dkv_fma",
-                "dkv_wgmma", "dkv_wgmma_f32", "dkv_wgmma_f16")
+_COUNT_NAMES = ("fwd_fma", "fwd_wgmma", "fwd_wgmma_f32", "fwd_wgmma_f16",
+                "dq_fma", "dq_wgmma", "dq_wgmma_f32", "dq_wgmma_f16",
+                "dkv_fma", "dkv_wgmma", "dkv_wgmma_f32", "dkv_wgmma_f16")
 
 
 def _need(**launches) -> tuple:
@@ -1362,10 +1398,10 @@ def _need(**launches) -> tuple:
 
 def _step_need(dtype: str, n: int) -> tuple:
     """The launches of one training step of ``n`` layers (forward and its
-    recompute, dQ, dK/dV) at D = 128 in ``dtype``: wgmma for bf16; for
-    float16 the wgmma_f32 forward and the wgmma_f16 dQ and dK/dV."""
+    recompute, dQ, dK/dV) at D = 128 in ``dtype``: wgmma for bf16,
+    wgmma_f16 for float16."""
     if dtype == "float16":
-        return _need(fwd_wgmma_f32=2 * n, dq_wgmma_f16=n, dkv_wgmma_f16=n)
+        return _need(fwd_wgmma_f16=2 * n, dq_wgmma_f16=n, dkv_wgmma_f16=n)
     return _need(fwd_wgmma=2 * n, dq_wgmma=n, dkv_wgmma=n)
 
 
@@ -1581,8 +1617,8 @@ def phase_fp16_training(seed: int, bf16: dict) -> dict:
     trained in float16 O2 with GradScaler (defaults), AdamW under
     LinearWarmup(CosineAnnealingDecay) and ClipGradByGlobalNorm(1.0),
     through TrainStep(scaler=...): TRAIN_WARMUP + TRAIN_TIMED steps held to
-    _train_run's checks with exactly 48 wgmma_f32 forward, 24 wgmma_f16
-    dQ, 24 wgmma_f16 dK/dV and 48 split launches a step; the printed
+    _train_run's checks with exactly 48 wgmma_f16 forward, 24 wgmma_f16
+    dQ, 24 wgmma_f16 dK/dV and no split launch a step; the printed
     per-step overflow flags, replayed through update_scale on the host,
     give the printed scale trajectory; at least one step updates the
     parameters. Then a poisoned
@@ -1613,10 +1649,10 @@ def phase_fp16_training(seed: int, bf16: dict) -> dict:
     ids = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
     n = cfg.num_layers
-    # float16 at D = 128: the wgmma_f32 forward (and its recompute) with its
-    # split of q, k, v, the wgmma_f16 dQ and dK/dV with none
+    # float16 at D = 128: the wgmma_f16 forward (and its recompute), dQ and
+    # dK/dV, none with a split
     need = _step_need("float16", n)
-    need_splits = 2 * n
+    need_splits = 0
     # a weight of std 0.02, whose float16 spacing is far below a step of lr
     probe = "gpt.h.0.attn.qkv_proj.weight"
     first = step.params[probe].detach().clone()
@@ -1746,8 +1782,8 @@ def phase_fp16_training(seed: int, bf16: dict) -> dict:
 def phase_fp16_step(seed: int) -> dict:
     """_o2_step_vs_plain in float16 (GradScaler at its defaults) at
     gpt_1p3b width, cut to 2 layers: the gradients and one guarded step
-    through the float16 kernels (the wgmma_f32 forward, the wgmma_f16 dQ
-    and dK/dV) against plain attention."""
+    through the float16 kernels (the wgmma_f16 forward, dQ and dK/dV, no
+    split) against plain attention."""
     import numpy as np
 
     vocab = _train_config().vocab_size
@@ -1884,9 +1920,8 @@ def _o2_step_vs_plain(seed: int, phase: str, make_cfg, ids,
     parameter by parameter in relative L2. Then one step each: the losses
     agree within BF16_ULPS ulps of ``dtype``, and the kernel step launches
     exactly 2 forwards per layer (recompute included), one dQ and one
-    dK/dV, all on the dtype's routes (wgmma for bf16; for float16 the
-    wgmma_f32 forward and the wgmma_f16 dQ and dK/dV), the plain step
-    none."""
+    dK/dV, all on the dtype's routes (wgmma for bf16, wgmma_f16 for
+    float16), and no split, the plain step none."""
     import copy
 
     import torch
@@ -1913,15 +1948,17 @@ def _o2_step_vs_plain(seed: int, phase: str, make_cfg, ids,
         fa.reset_launch_counts()
         loss = float(step((ids, ids)))
         names = [name for name, _ in step.model.named_parameters()]
-        return loss, _counts(fa), grads, ref_grads, names
+        return (loss, _counts(fa) + (fa.split_bf16_terms.launches,), grads,
+                ref_grads, names)
 
     loss_k, launches, grads_k, _, names = one_step(True)
     _free()
     loss_p, plain_launches, grads_p, grads_ref, _ = one_step(False)
-    if launches != need or any(plain_launches):
-        raise AssertionError(f"{phase}: step launches {_COUNT_NAMES} "
-                             f"{launches}, expected {need}; the plain step "
-                             f"{plain_launches}")
+    # the kernel step's launches by route, then its splits: none
+    if launches != need + (0,) or any(plain_launches):
+        raise AssertionError(f"{phase}: step launches {_COUNT_NAMES} and "
+                             f"splits {launches}, expected {need} and 0; "
+                             f"the plain step {plain_launches}")
     ulp = f16_ulp if half else bf16_ulp
     tol = BF16_ULPS * ulp(torch.tensor(loss_p)).item()
     if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= tol):
@@ -1950,7 +1987,8 @@ def _o2_step_vs_plain(seed: int, phase: str, make_cfg, ids,
                grad_rel_l2_plain_vs_f32_max=max(rel_pr),
                grad_worst_param=names[worst],
                grad_worst_share_of_tol=share[worst],
-               launches=dict(zip(_COUNT_NAMES, launches)))
+               launches=dict(zip(_COUNT_NAMES, launches)),
+               split_launches=launches[-1])
     emit(phase, **out)
     return out
 
@@ -2190,9 +2228,11 @@ def main(argv=None) -> int:
     src = "paddle_tpu_torch/kernels/csrc/"
     ref = "paddle_tpu/kernels/flash_attention.py:"
 
-    def fwd_row(name, source, case, launches, path, fma=False):
+    def fwd_row(name, source, case, launches, path, other=None):
         c = fwd[case]
-        f = "fma_" if fma else ""  # the FMA forward timed beside the case's
+        # other: a forward the case's route replaced ("fma" or the float16
+        # "wgmma_f32"), checked and timed beside it
+        f = f"{other}_" if other else ""
         return dict(name=name, route="cuda", source=src + source,
                     replaces=ref + "131", launches=launches, main_path=path,
                     max_abs_err=c[f + "max_abs_err"], ms=c[f + "ms"],
@@ -2240,7 +2280,7 @@ def main(argv=None) -> int:
         # tensor cores: 0 launches on a path, checked and timed beside the
         # wgmma_f32 forward at [1, 8, 1024, 256]
         fwd_row("flash_attention_fwd", "flash_attention_fwd.cu",
-                "d256_causal_f32_L1024", 0, None, fma=True),
+                "d256_causal_f32_L1024", 0, None, other="fma"),
         fwd_row("flash_attention_fwd_sm90", "flash_attention_fwd_sm90.cu",
                 "train_bf16_B2_L1024", train["launches"]["fwd_wgmma"], step),
         fwd_row("flash_attention_fwd_sm90_d256", "flash_attention_fwd_sm90.cu",
@@ -2281,18 +2321,30 @@ def main(argv=None) -> int:
                 "flash_attention_bwd_f32_d256_sm90.cu", "dkv", D256_F32_BWD,
                 d256_f32["launches"]["dkv_wgmma_f32"], d256_f32_path),
     ]
-    # float16: the wgmma_f32 forward and its split and the wgmma_f16 dQ and
-    # dK/dV at the GPT step's attention on the float16 O2 step's path;
-    # Llama's shape on no path (no Llama phase trains in float16); the
-    # float16 wgmma_f32 dQ and dK/dV the wgmma_f16 kernels replaced, on no
-    # path since, checked and timed beside them at both shapes
+    # float16: the wgmma_f16 forward, dQ and dK/dV at the GPT step's
+    # attention on the float16 O2 step's path; Llama's shape, D = 64 and
+    # D = 256 on no path (no Llama phase trains in float16); the float16
+    # wgmma_f32 kernels the wgmma_f16 ones replaced, and the forward's
+    # split, on no path since, checked and timed beside them at both
+    # training shapes; the float16 wgmma_f32 dQ and dK/dV at D = 256
     fp16_path = "training (float16 O2 step, GradScaler)"
     kernels += [
+        fwd_row("flash_attention_fwd_f16_sm90",
+                "flash_attention_fwd_f16_sm90.cu", F16_TRAIN_FWD,
+                fp16["launches"]["fwd_wgmma_f16"], fp16_path),
+        fwd_row("flash_attention_fwd_f16_sm90_llama_shape",
+                "flash_attention_fwd_f16_sm90.cu", F16_LLAMA_FWD, 0, None),
+        fwd_row("flash_attention_fwd_f16_sm90_d64",
+                "flash_attention_fwd_f16_sm90.cu", "d64_causal_f16_B2_L1024",
+                0, None),
+        fwd_row("flash_attention_fwd_f16_sm90_d256",
+                "flash_attention_fwd_f16_sm90.cu", "d256_causal_f16_L1024",
+                0, None),
         fwd_row("flash_attention_fwd_f32_sm90_f16",
                 "flash_attention_fwd_f32_sm90.cu", F16_TRAIN_FWD,
-                fp16["launches"]["fwd_wgmma_f32"], fp16_path),
+                fp16["launches"]["fwd_wgmma_f32"], None, other="wgmma_f32"),
         fwd_row("split_bf16_terms_f16", "flash_attention_fwd_f32_sm90.cu",
-                "split_" + F16_TRAIN_FWD, fp16["split_launches"], fp16_path),
+                "split_" + F16_TRAIN_FWD, fp16["split_launches"], None),
         bwd_row("flash_attention_bwd_dq_f16_sm90",
                 "flash_attention_bwd_f16_sm90.cu", "dq", F16_TRAIN_BWD,
                 fp16["launches"]["dq_wgmma_f16"], fp16_path),
@@ -2306,10 +2358,17 @@ def main(argv=None) -> int:
                 "flash_attention_bwd_f32_sm90.cu", "dkv", F16_TRAIN_BWD, 0,
                 None, other="wgmma_f32"),
         fwd_row("flash_attention_fwd_f32_sm90_f16_llama_shape",
-                "flash_attention_fwd_f32_sm90.cu", F16_LLAMA_FWD, 0, None),
+                "flash_attention_fwd_f32_sm90.cu", F16_LLAMA_FWD, 0, None,
+                other="wgmma_f32"),
         fwd_row("split_bf16_terms_f16_llama_shape",
                 "flash_attention_fwd_f32_sm90.cu", "split_" + F16_LLAMA_FWD,
-                0, None)]
+                0, None),
+        bwd_row("flash_attention_bwd_dq_f32_sm90_d256_f16",
+                "flash_attention_bwd_f32_d256_sm90.cu", "dq",
+                "d256_causal_float16_B1_L1024", 0, None),
+        bwd_row("flash_attention_bwd_dkv_f32_sm90_d256_f16",
+                "flash_attention_bwd_f32_d256_sm90.cu", "dkv",
+                "d256_causal_float16_B1_L1024", 0, None)]
     for which in ("dq", "dkv"):
         kernels += [
             bwd_row(f"flash_attention_bwd_{which}_f16_sm90_llama_shape",

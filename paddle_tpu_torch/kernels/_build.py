@@ -30,6 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 #: every kernel source of the port
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
            "flash_attention_fwd_sm90.cu", "flash_attention_fwd_f32_sm90.cu",
+           "flash_attention_fwd_f16_sm90.cu",
            "flash_attention_bwd_dq_sm90.cu",
            "flash_attention_bwd_dkv_sm90.cu", "flash_attention_bwd_f32_sm90.cu",
            "flash_attention_bwd_f32_d256_sm90.cu",

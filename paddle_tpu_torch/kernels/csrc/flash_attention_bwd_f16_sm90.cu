@@ -7,10 +7,10 @@
 // both launched by `_flash_bwd_impl` (:411), with their in-kernel dropout
 // (`_dropout_mask`, :120; here philox.cuh), for float16 q/k/v/dO at head
 // dims 64 and 128: the attention backward of float16 (O2) training. The
-// float16 forward, and the float16 backward at D = 256, take the wgmma_f32
-// kernels (flash_attention_fwd_f32_sm90.cu,
-// flash_attention_bwd_f32_d256_sm90.cu); the Python wrapper routes by
-// (dtype, D, kernel).
+// float16 forward has its own native kernel
+// (flash_attention_fwd_f16_sm90.cu); the float16 backward at D = 256 takes
+// the wgmma_f32 kernels (flash_attention_bwd_f32_d256_sm90.cu). The Python
+// wrapper routes by (dtype, D, kernel).
 //
 // Computes what the other backward kernels compute (flash_bwd_sm90.cuh):
 // dQ and, when asked for, dS as float32 [B, H, Lq, Lk] with zeros on the
@@ -37,12 +37,13 @@
 //   pairs before the main one (sm90.cuh, "Order").
 // - (P M)^T dO. P M <= 1 / (1 - p) is bounded, so it enters as a float16
 //   hi/lo pair of P M s: s a power of two that keeps P M s below 2^15,
-//   hi = f16(P M s), lo = f16(P M s - hi). That is two native products, and
-//   dV is multiplied by 1 / s (exact) as it is stored. The pair is within
-//   2^-22 of each element down to P M ~ 2^-14 / s, and within 2^-25 / s
-//   absolute below (s = 2^14 without dropout and at p < 1/2). (Three bf16 terms of P M against dO's two would be five products
-//   and dO's second term, two more [64, D] tiles, which the dK/dV CTA has no
-//   room for at D = 128 beside Q's.)
+//   hi = f16(P M s), lo = f16(P M s - hi) (sm90.cuh, "float16 pair"). That
+//   is two native products, and dV is multiplied by 1 / s (exact) as it is
+//   stored. The pair is within 2^-22 of each element down to P M ~ 2^-14 /
+//   s, and within 2^-25 / s absolute below (s = 2^14 without dropout and at
+//   p < 1/2). (Three bf16 terms of P M against dO's two would be five
+//   products and dO's second term, two more [64, D] tiles, which the dK/dV
+//   CTA has no room for at D = 128 beside Q's.)
 //
 // Design, from the bf16 kernels (flash_attention_bwd_{dq,dkv}_sm90.cu):
 // - dQ: one CTA per (b, h, 64 query rows), the query tile the slowest grid
@@ -107,18 +108,6 @@ __device__ __forceinline__ float2 half2_bits_to_float2(uint32_t w) {
       __half2float(__ushort_as_half(static_cast<unsigned short>(w >> 16))));
 }
 
-__device__ __forceinline__ uint32_t half2_bits(__half2 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A tile address made opaque to the compiler where a product reads it, so
-// that the product's wgmma descriptors are built there and not computed
-// ahead and held in registers across other products.
-__device__ __forceinline__ uint32_t opaque(uint32_t tile) {
-  asm volatile("" : "+r"(tile));
-  return tile;
-}
-
 // The two bf16 terms of a float16 [64, D] tile in shared memory: term 0
 // (each element rounded to bf16) replaces the tile at `tile`, term 1 (the
 // remainder, a bf16 value: the sum is exact) goes to `lo`. Each element
@@ -173,46 +162,6 @@ __device__ __forceinline__ void wgmma_split_pairs(float (&d)[N / 2], Elem a,
     wgmma_rs_tb<N>(d, f[2], d0);
     wgmma_rs_tb<N>(d, f[1], d0);
     wgmma_rs_tb<N>(d, f[0], d0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_fragments(f);
-    fence_operand(d);
-  }
-}
-
-// The power of two s that P M is scaled by before its float16 hi/lo split:
-// with P <= 1 and M <= kept < 2^e, P M s < 2^15 (s = 2^14 without dropout
-// and at p < 1/2).
-__device__ __forceinline__ float pm_scale(float kept) {
-  int e;
-  frexpf(kept, &e);
-  return ldexpf(1.f, 15 - e);
-}
-
-// D[64 x N] += A B for a 64 x 64 matrix A with element i `a(i)` (each below
-// 2^15 in magnitude), as its float16 hi/lo pair, and a transposed float16
-// [64, N] tile B: two native products per 16-column slice of A, lo first,
-// waited for per slice.
-template <int N, typename Elem>
-__device__ __forceinline__ void wgmma_f16_pair_product(float (&d)[N / 2],
-                                                       Elem a,
-                                                       uint32_t tile_b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t f[2][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float x0 = a(8 * kk + 2 * r), x1 = a(8 * kk + 2 * r + 1);
-      const __half2 hi = __floats2half2_rn(x0, x1);
-      const float2 hf = __half22float2(hi);
-      f[0][r] = half2_bits(hi);
-      f[1][r] = half2_bits(__floats2half2_rn(x0 - hf.x, x1 - hf.y));
-    }
-    fence_operand(d);
-    wgmma_fence();
-    const uint64_t desc = mnmajor_desc(opaque(tile_b), kk);
-    wgmma_rs_tb<N, __half>(d, f[1], desc);
-    wgmma_rs_tb<N, __half>(d, f[0], desc);
     wgmma_commit();
     wgmma_wait_all();
     fence_fragments(f);

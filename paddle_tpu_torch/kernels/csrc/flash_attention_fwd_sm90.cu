@@ -64,8 +64,9 @@
 //   for bit. Dropout draws the same per-element Philox bits as every other
 //   kernel (philox.cuh), so the backward kernels see this kernel's mask.
 //
-// The softmax, the epilogue and the launch are shared with the float32
-// forward (flash_fwd_sm90.cuh).
+// The softmax, the epilogue and the launch are shared with the other
+// forwards, and the rings and their producer with the float16 one
+// (flash_fwd_sm90.cuh).
 //
 // The kernel allocates nothing and does not synchronise: the caller passes
 // outputs and PyTorch's current stream.
@@ -80,36 +81,6 @@ namespace {
 using namespace pt_fwd_sm90;
 using Params = FwdParams<__nv_bfloat16>;
 
-constexpr int kStages = 2;
-
-template <int D>
-struct FwdLayout {
-  static constexpr uint32_t kTile = 64 * D * 2;  // bytes of one [64, D] tile
-  static constexpr uint32_t q = 0;
-  __host__ __device__ static constexpr uint32_t k(int s) {
-    return kTile * (1 + s);
-  }
-  __host__ __device__ static constexpr uint32_t v(int s) {
-    return kTile * (1 + kStages + s);
-  }
-  static constexpr uint32_t bars = kTile * (1 + 2 * kStages);
-  static constexpr uint32_t q_full = bars;
-  __host__ __device__ static constexpr uint32_t k_full(int s) {
-    return bars + 8 * (1 + s);
-  }
-  __host__ __device__ static constexpr uint32_t v_full(int s) {
-    return bars + 8 * (1 + kStages + s);
-  }
-  __host__ __device__ static constexpr uint32_t k_empty(int s) {
-    return bars + 8 * (1 + 2 * kStages + s);
-  }
-  __host__ __device__ static constexpr uint32_t v_empty(int s) {
-    return bars + 8 * (1 + 3 * kStages + s);
-  }
-  // + 1024: the base is aligned up to the swizzle atom
-  static constexpr size_t kBytes = bars + 8 * (1 + 4 * kStages) + 1024;
-};
-
 // CTAs per SM: two at D 64/128, where the register budget that leaves (168)
 // holds without spills; one at D = 256.
 template <int D>
@@ -123,44 +94,20 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v,
                       const Params p) {
-  using L = FwdLayout<D>;
+  using L = RingLayout<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
 
   const FwdTile c = fwd_tile(p.Lk, p.causal);
   const int tid = threadIdx.x;
 
-  if (tid == 0) {
-    mbar_init(base + L::q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(base + L::k_full(s), 1);
-      mbar_init(base + L::v_full(s), 1);
-      mbar_init(base + L::k_empty(s), kConsumers);
-      mbar_init(base + L::v_empty(s), kConsumers);
-    }
-    fence_barrier_init();
-  }
+  if (tid == 0) init_rings<D>(base);
   __syncthreads();
 
   if (tid >= kConsumers) {
     // ---- producer warp: one lane issues every copy
-    if (tid == kConsumers) {
-      mbar_arrive_expect_tx(base + L::q_full, L::kTile);
-      tma_load_tile<D>(base + L::q, &map_q, base + L::q_full, c.q0, c.h, c.b,
-                       p.pos_q);
-      for (int i = 0; i < c.n_kt; ++i) {
-        const int s = i % kStages;
-        const uint32_t free_phase = ((i / kStages) & 1) ^ 1;
-        mbar_wait(base + L::k_empty(s), free_phase);
-        mbar_arrive_expect_tx(base + L::k_full(s), L::kTile);
-        tma_load_tile<D>(base + L::k(s), &map_k, base + L::k_full(s), i * 64,
-                         c.h, c.b, p.pos_k);
-        mbar_wait(base + L::v_empty(s), free_phase);
-        mbar_arrive_expect_tx(base + L::v_full(s), L::kTile);
-        tma_load_tile<D>(base + L::v(s), &map_v, base + L::v_full(s), i * 64,
-                         c.h, c.b, p.pos_v);
-      }
-    }
+    if (tid == kConsumers)
+      produce_rings<D>(base, &map_q, &map_k, &map_v, c, p);
     return;
   }
 
@@ -201,7 +148,7 @@ template <int D, bool kDropout>
 cudaError_t launch(const CUtensorMap (&m)[3], const Params& p,
                    cudaStream_t stream) {
   static unsigned smem_set = 0;
-  return launch_fwd(flash_fwd_sm90_kernel<D, kDropout>, FwdLayout<D>::kBytes,
+  return launch_fwd(flash_fwd_sm90_kernel<D, kDropout>, RingLayout<D>::kBytes,
                     smem_set, m, p, stream);
 }
 

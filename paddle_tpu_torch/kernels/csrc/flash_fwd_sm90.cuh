@@ -1,16 +1,21 @@
-// The parts the two Hopper flash-attention forwards share:
-// flash_attention_fwd_sm90.cu (bf16 operands) and
-// flash_attention_fwd_f32_sm90.cu (float32 operands as three bf16 terms).
-// They differ only in how they feed the tensor cores; everything on the
-// score tile and the output is here: the parameters and their host-side
+// The parts the three Hopper flash-attention forwards share:
+// flash_attention_fwd_sm90.cu (bf16 operands),
+// flash_attention_fwd_f16_sm90.cu (float16 operands, P as a float16 hi/lo
+// pair) and flash_attention_fwd_f32_sm90.cu (float32 operands as three bf16
+// terms). They differ only in how they feed the tensor cores; everything on
+// the score tile and the output is here: the parameters and their host-side
 // set-up, the CTA's place in the grid, each consumer thread's query rows and
 // bias, the online softmax of a 64 x 64 score tile in the wgmma accumulator
-// layout (sm90.cuh), the rescale of O, the epilogue and the launch.
+// layout (sm90.cuh), the rescale of O, the epilogue and the launch; and,
+// for the bf16 and float16 forwards, whose operands are both 2-byte tiles,
+// the shared-memory rings and their producer.
 //
 // Each forward stays a kernel of its own, not a template parameter of one
-// kernel: their shared-memory layouts, producers and product loops have
-// nothing in common, and code compiled in but skipped cost the bf16 forward
-// half its speed (the reason dropout is an instantiation of its own too).
+// kernel: the float32 forward's layout, producer and product loop have
+// nothing in common with the others, the bf16 and float16 forwards'
+// product loops differ, and code compiled in but skipped cost the bf16
+// forward half its speed (the reason dropout is an instantiation of its
+// own too).
 
 #pragma once
 
@@ -39,15 +44,17 @@ struct FwdParams {
 };
 
 // The C entries' arguments as kernel parameters and the three tensor maps
-// (q, k, v; 14 geometry words each in `geo`). strides[0..2] are O's,
-// strides[3..5] the bias's.
+// (q, k, v; 14 geometry words each in `geo`, elements of `type`: bf16, or
+// float16 for the wgmma_f16 forward). strides[0..2] are O's, strides[3..5]
+// the bias's.
 template <typename Out>
 inline cudaError_t make_fwd_params(
     FwdParams<Out>& p, CUtensorMap (&maps)[3], const void* q, const void* k,
     const void* v, const void* bias, void* o, void* lse, int B, int H, int Lq,
     int Lk, const unsigned long long* geo, const long long* strides,
     int causal, float scale, int dropout_enabled, unsigned long long seed,
-    unsigned int threshold, float drop_scale) {
+    unsigned int threshold, float drop_scale,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   p.o = static_cast<Out*>(o);
   p.lse = static_cast<float*>(lse);
   p.bias = static_cast<const float*>(bias);
@@ -62,11 +69,11 @@ inline cudaError_t make_fwd_params(
   p.causal = causal;
   p.scale = scale;
   p.drop = DropoutParams{seed, threshold, drop_scale, dropout_enabled};
-  cudaError_t err = encode_tensor_map(&maps[0], &p.pos_q, q, geo);
+  cudaError_t err = encode_tensor_map(&maps[0], &p.pos_q, q, geo, type);
   if (err == cudaSuccess)
-    err = encode_tensor_map(&maps[1], &p.pos_k, k, geo + kGeoWords);
+    err = encode_tensor_map(&maps[1], &p.pos_k, k, geo + kGeoWords, type);
   if (err == cudaSuccess)
-    err = encode_tensor_map(&maps[2], &p.pos_v, v, geo + 2 * kGeoWords);
+    err = encode_tensor_map(&maps[2], &p.pos_v, v, geo + 2 * kGeoWords, type);
   return err;
 }
 
@@ -205,13 +212,15 @@ struct FwdRows {
     m1 = mn1;
   }
 
-  // Epilogue: O = acc / l written through its strides, LSE = m + log(l).
+  // Epilogue: O = acc * out_scale / l written through its strides (a
+  // power-of-two out_scale undoes a scale of P exactly), LSE = m + log(l).
   template <int D, typename Out>
   __device__ __forceinline__ void store(const FwdParams<Out>& p,
                                         const FwdTile& c,
-                                        const float (&o)[D / 2]) const {
+                                        const float (&o)[D / 2],
+                                        float out_scale = 1.f) const {
     const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
-    const float inv0 = 1.f / lc0, inv1 = 1.f / lc1;
+    const float inv0 = out_scale / lc0, inv1 = out_scale / lc1;
     Out* ob = p.o + c.b * p.o_st[0] + c.h * p.o_st[1];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -240,6 +249,82 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2], float alpha0,
     o[4 * j + 1] *= alpha0;
     o[4 * j + 2] *= alpha1;
     o[4 * j + 3] *= alpha1;
+  }
+}
+
+// ------------------------------------------- the bf16 and float16 forwards
+constexpr int kStages = 2;
+
+// Their shared memory: Q, then 2-stage rings of K and V tiles ([64, D] of
+// 2-byte elements, 128-byte swizzle), each stage with its own `full` and
+// `empty` mbarrier: the consumers release a K tile as soon as S = Q K^T has
+// read it and a V tile once P V has.
+template <int D>
+struct RingLayout {
+  static constexpr uint32_t kTile = 64 * D * 2;  // bytes of one [64, D] tile
+  static constexpr uint32_t q = 0;
+  __host__ __device__ static constexpr uint32_t k(int s) {
+    return kTile * (1 + s);
+  }
+  __host__ __device__ static constexpr uint32_t v(int s) {
+    return kTile * (1 + kStages + s);
+  }
+  static constexpr uint32_t bars = kTile * (1 + 2 * kStages);
+  static constexpr uint32_t q_full = bars;
+  __host__ __device__ static constexpr uint32_t k_full(int s) {
+    return bars + 8 * (1 + s);
+  }
+  __host__ __device__ static constexpr uint32_t v_full(int s) {
+    return bars + 8 * (1 + kStages + s);
+  }
+  __host__ __device__ static constexpr uint32_t k_empty(int s) {
+    return bars + 8 * (1 + 2 * kStages + s);
+  }
+  __host__ __device__ static constexpr uint32_t v_empty(int s) {
+    return bars + 8 * (1 + 3 * kStages + s);
+  }
+  // + 1024: the base is aligned up to the swizzle atom
+  static constexpr size_t kBytes = bars + 8 * (1 + 4 * kStages) + 1024;
+};
+
+// The rings' mbarriers, by one thread before the CTA's first barrier.
+template <int D>
+__device__ __forceinline__ void init_rings(uint32_t base) {
+  using L = RingLayout<D>;
+  mbar_init(base + L::q_full, 1);
+  for (int s = 0; s < kStages; ++s) {
+    mbar_init(base + L::k_full(s), 1);
+    mbar_init(base + L::v_full(s), 1);
+    mbar_init(base + L::k_empty(s), kConsumers);
+    mbar_init(base + L::v_empty(s), kConsumers);
+  }
+  fence_barrier_init();
+}
+
+// The producer: one lane loads Q once and streams the K and V tiles of the
+// CTA's key tiles into their rings by TMA.
+template <int D, typename Out>
+__device__ __forceinline__ void produce_rings(uint32_t base,
+                                              const CUtensorMap* map_q,
+                                              const CUtensorMap* map_k,
+                                              const CUtensorMap* map_v,
+                                              const FwdTile& c,
+                                              const FwdParams<Out>& p) {
+  using L = RingLayout<D>;
+  mbar_arrive_expect_tx(base + L::q_full, L::kTile);
+  tma_load_tile<D>(base + L::q, map_q, base + L::q_full, c.q0, c.h, c.b,
+                   p.pos_q);
+  for (int i = 0; i < c.n_kt; ++i) {
+    const int s = i % kStages;
+    const uint32_t free_phase = ((i / kStages) & 1) ^ 1;
+    mbar_wait(base + L::k_empty(s), free_phase);
+    mbar_arrive_expect_tx(base + L::k_full(s), L::kTile);
+    tma_load_tile<D>(base + L::k(s), map_k, base + L::k_full(s), i * 64, c.h,
+                     c.b, p.pos_k);
+    mbar_wait(base + L::v_empty(s), free_phase);
+    mbar_arrive_expect_tx(base + L::v_full(s), L::kTile);
+    tma_load_tile<D>(base + L::v(s), map_v, base + L::v_full(s), i * 64, c.h,
+                     c.b, p.pos_v);
   }
 }
 

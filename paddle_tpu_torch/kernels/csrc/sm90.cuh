@@ -1,12 +1,13 @@
 // Hopper (sm_90a) building blocks for the tensor-core kernels: TMA tile
 // loads completed on mbarriers, named barriers, wgmma shared-memory
-// descriptors, the wgmma forms the attention kernels use, the split of a
-// float32 fragment, the term-pair products of the float32 (wgmma_f32)
-// kernels, and the host-side encoding of a tensor map. All device code is
+// descriptors, the wgmma forms the attention kernels use (bf16 and float16
+// operands), the split of a float32 fragment, the term-pair products of the
+// float32 (wgmma_f32) kernels, the float16 hi/lo pair of the float16
+// (wgmma_f16) kernels, and the host-side encoding of a tensor map. All device code is
 // inline PTX (no CUTLASS/CuTe).
 //
 // Shared-memory tile layout. Every operand tile is 64 rows of a [rows, D]
-// bf16 matrix (D = 64, 128 or 256), loaded by TMA with
+// bf16 (or float16) matrix (D = 64, 128 or 256), loaded by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B. That swizzle caps a box's inner extent at 128
 // bytes, so a row of D = 128 is two boxes and one of D = 256 four: the tile
 // is stored as D / 64 "atoms", atom a holding columns
@@ -216,6 +217,38 @@ constexpr bool kIsF16 = std::is_same<T, __half>::value;
       "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),       \
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),       \
       "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define PT_ACC128(d) \
+  PT_ACC64(d), \
+      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), \
+      "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), \
+      "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), \
+      "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+      "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), \
+      "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), \
+      "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), \
+      "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), \
+      "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), \
+      "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), \
+      "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), \
+      "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+#define PT_REGS128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, " \
+  "%88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, " \
+  "%104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, " \
+  "%120, %121, %122, %123, %124, %125, %126, %127}"
 #define PT_REGS32                                                            \
   "{%0, %1, %2, %3, %4, %5, %6, %7, "                                        \
   "%8, %9, %10, %11, %12, %13, %14, %15, "                                   \
@@ -244,6 +277,11 @@ constexpr bool kIsF16 = std::is_same<T, __half>::value;
   "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                              \
   "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " PT_REGS64   \
   ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+
+#define PT_WGMMA_RS_N256_TB(TY)                                              \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                             \
+  "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " " PT_REGS128  \
+  ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory,
 // both of element type T (__nv_bfloat16 or __half).
@@ -351,68 +389,25 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64],
 
 // D[64 x 256] (+)= A[64 x 16] B[16 x 256], A in registers (the fragment of
 // `a`), B MN-major (transposed) in shared memory: the four 64-column atoms
-// of a D = 256 tile, LBO apart.
+// of a D = 256 tile, LBO apart; both of element type T.
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n256_tb(float (&d)[128],
                                                  const uint32_t (&a)[4],
                                                  uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  if constexpr (kIsF16<T>)
+    asm volatile(PT_WGMMA_RS_N256_TB("f16")
+                 : PT_ACC128(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+                   "r"(scale_d));
+  else
+    asm volatile(PT_WGMMA_RS_N256_TB("bf16")
+                 : PT_ACC128(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+                   "r"(scale_d));
 }
 
 // D[64 x N] += A B for an A fragment in registers and a transposed B tile,
-// both of element type T (N = 256: bf16 only).
+// both of element type T.
 template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
                                             const uint32_t (&a)[4],
@@ -422,9 +417,8 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
   } else if constexpr (N == 128) {
     wgmma_rs_n128_tb<T>(d, a, desc_b, 1);
   } else {
-    static_assert(N == 256 && !kIsF16<T>,
-                  "wgmma_rs_tb: N must be 64, 128 or (bf16) 256");
-    wgmma_rs_n256_tb(d, a, desc_b, 1);
+    static_assert(N == 256, "wgmma_rs_tb: N must be 64, 128 or 256");
+    wgmma_rs_n256_tb<T>(d, a, desc_b, 1);
   }
 }
 
@@ -525,6 +519,98 @@ __device__ __forceinline__ void wgmma_split_product(float (&d)[N / 2], Elem a,
 #pragma unroll
       for (int term = 0; term < kSplit; ++term)
         wgmma_rs_tb<N>(d, f[kk][term], desc);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_fragments(f[kk]);
+    fence_operand(d);
+  }
+}
+
+// ------------------------------------------------------------ float16 pair
+// The float32 matrix P M (P <= 1, or P M <= 1 / (1 - p) under dropout) that
+// the wgmma_f16 kernels multiply by a float16 tile enters as a float16
+// hi/lo pair of P M s, s a power of two that keeps P M s below 2^15:
+// hi = f16(P M s), lo = f16(P M s - hi), two native products, and the
+// result is multiplied by 1 / s (exact) as it is stored. The pair is within
+// 2^-22 of each element down to P M ~ 2^-14 / s, and within 2^-25 / s
+// absolute below (s = 2^14 without dropout and at p < 1/2).
+__device__ __forceinline__ uint32_t half2_bits(__half2 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A tile address made opaque to the compiler where a product reads it, so
+// that the product's wgmma descriptors are built there and not computed
+// ahead and held in registers across other products.
+__device__ __forceinline__ uint32_t opaque(uint32_t tile) {
+  asm volatile("" : "+r"(tile));
+  return tile;
+}
+
+// The power of two s that P M is scaled by before its float16 hi/lo split:
+// with P <= 1 and M <= kept < 2^e, P M s < 2^15 (s = 2^14 without dropout
+// and at p < 1/2).
+__device__ __forceinline__ float pm_scale(float kept) {
+  int e;
+  frexpf(kept, &e);
+  return ldexpf(1.f, 15 - e);
+}
+
+// The A fragments of the float16 hi/lo pair (f[0] hi, f[1] lo) of the kk-th
+// 16-column slice of a 64 x 64 matrix whose element i is `a(i)` (each below
+// 2^15 in magnitude).
+template <typename Elem>
+__device__ __forceinline__ void f16_pair_slice(Elem a, int kk,
+                                               uint32_t (&f)[2][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float x0 = a(8 * kk + 2 * r), x1 = a(8 * kk + 2 * r + 1);
+    const __half2 hi = __floats2half2_rn(x0, x1);
+    const float2 hf = __half22float2(hi);
+    f[0][r] = half2_bits(hi);
+    f[1][r] = half2_bits(__floats2half2_rn(x0 - hf.x, x1 - hf.y));
+  }
+}
+
+// D[64 x N] += A B for a 64 x 64 matrix A with element i `a(i)` (each below
+// 2^15 in magnitude), as its float16 hi/lo pair, and a transposed float16
+// [64, N] tile B: two native products per 16-column slice of A, lo first,
+// waited for. kSliceWait commits and waits per slice, so only that slice's
+// fragments are live, and builds each slice's descriptor from an opaque
+// address (the dK/dV kernel needs both beside its two accumulators); else
+// all four slices' pairs (32 registers) are issued as one group, waited for
+// once.
+template <int N, bool kSliceWait = true, typename Elem>
+__device__ __forceinline__ void wgmma_f16_pair_product(float (&d)[N / 2],
+                                                       Elem a,
+                                                       uint32_t tile_b) {
+  if constexpr (kSliceWait) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t f[2][4];
+      f16_pair_slice(a, kk, f);
+      fence_operand(d);
+      wgmma_fence();
+      const uint64_t desc = mnmajor_desc(opaque(tile_b), kk);
+      wgmma_rs_tb<N, __half>(d, f[1], desc);
+      wgmma_rs_tb<N, __half>(d, f[0], desc);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_fragments(f);
+      fence_operand(d);
+    }
+  } else {
+    uint32_t f[4][2][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) f16_pair_slice(a, kk, f[kk]);
+    fence_operand(d);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t desc = mnmajor_desc(tile_b, kk);
+      wgmma_rs_tb<N, __half>(d, f[kk][1], desc);
+      wgmma_rs_tb<N, __half>(d, f[kk][0], desc);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -769,14 +855,16 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes, unsigned& done) {
 //   c1 [64, 64] = A B^T        (SS, both tiles K-major, k = D)
 //   c2 [64, D]  = A[:, :64] B  (RS: A fragments read from global memory,
 //                               B the transposed MN-major tile, k = 64)
-// for contiguous bf16 A, B of [64, D]; c1 and c2 float32, contiguous.
+// for contiguous A, B of [64, D] of element type T (bf16, or float16: the
+// wgmma_f16 kernels' forms, m64n256k16 included); c1 and c2 float32,
+// contiguous.
 namespace pt_sm90 {
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(128, 1)
 sm90_selfcheck_kernel(const __grid_constant__ CUtensorMap map_a,
                       const __grid_constant__ CUtensorMap map_b, TmaPos pos_a,
-                      TmaPos pos_b, const __nv_bfloat16* __restrict__ a,
+                      TmaPos pos_b, const T* __restrict__ a,
                       float* __restrict__ c1, float* __restrict__ c2) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -805,7 +893,7 @@ sm90_selfcheck_kernel(const __grid_constant__ CUtensorMap map_a,
   wgmma_fence();
 #pragma unroll
   for (int k = 0; k < D / 16; ++k)
-    wgmma_ss_n64(d1, kmajor_desc(tile_a, k), kmajor_desc(tile_b, k), 1);
+    wgmma_ss_n64<T>(d1, kmajor_desc(tile_a, k), kmajor_desc(tile_b, k), 1);
   wgmma_commit();
   wgmma_wait_all();
   fence_operand(d1);
@@ -831,7 +919,7 @@ sm90_selfcheck_kernel(const __grid_constant__ CUtensorMap map_a,
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs_tb<D>(d2, frag[kk], mnmajor_desc(tile_b, kk));
+    wgmma_rs_tb<D, T>(d2, frag[kk], mnmajor_desc(tile_b, kk));
   wgmma_commit();
   wgmma_wait_all();
   fence_fragments(frag);
@@ -843,46 +931,56 @@ sm90_selfcheck_kernel(const __grid_constant__ CUtensorMap map_a,
       c2[(e < 2 ? r0 : r1) * D + 8 * j + 2 * t + (e & 1)] = d2[4 * j + e];
 }
 
-template <int D>
+template <int D, typename T>
 inline cudaError_t launch_selfcheck(const void* a, const void* b,
                                     const unsigned long long* geo_a,
                                     const unsigned long long* geo_b, float* c1,
                                     float* c2, cudaStream_t stream) {
+  constexpr CUtensorMapDataType type = kIsF16<T>
+      ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap map_a, map_b;
   TmaPos pos_a, pos_b;
-  cudaError_t err = encode_tensor_map(&map_a, &pos_a, a, geo_a);
-  if (err == cudaSuccess) err = encode_tensor_map(&map_b, &pos_b, b, geo_b);
+  cudaError_t err = encode_tensor_map(&map_a, &pos_a, a, geo_a, type);
+  if (err == cudaSuccess)
+    err = encode_tensor_map(&map_b, &pos_b, b, geo_b, type);
   if (err != cudaSuccess) return err;
   // above 48 KB at D = 256: the opt-in first
   const size_t smem = 2 * D * 128 + 8 + 1024;
   static unsigned smem_set = 0;
-  err = allow_smem(sm90_selfcheck_kernel<D>, smem, smem_set);
+  err = allow_smem(sm90_selfcheck_kernel<D, T>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  sm90_selfcheck_kernel<D><<<1, 128, smem, stream>>>(
-      map_a, map_b, pos_a, pos_b, static_cast<const __nv_bfloat16*>(a), c1,
-      c2);
+  sm90_selfcheck_kernel<D, T><<<1, 128, smem, stream>>>(
+      map_a, map_b, pos_a, pos_b, static_cast<const T*>(a), c1, c2);
   return cudaGetLastError();
+}
+
+template <typename T>
+inline cudaError_t selfcheck(const void* a, const void* b,
+                             const unsigned long long* geo_a,
+                             const unsigned long long* geo_b, float* c1,
+                             float* c2, int D, cudaStream_t s) {
+  if (D == 64) return launch_selfcheck<64, T>(a, b, geo_a, geo_b, c1, c2, s);
+  if (D == 128) return launch_selfcheck<128, T>(a, b, geo_a, geo_b, c1, c2, s);
+  if (D == 256) return launch_selfcheck<256, T>(a, b, geo_a, geo_b, c1, c2, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace pt_sm90
 
 // The descriptor self-check above for D = 64, 128 or 256: a and b contiguous
-// bf16 [64, D] (16-byte aligned), geo_a / geo_b their 14 tensor-map
-// geometry words, c1 float32 [64, 64], c2 float32 [64, D]. Returns the
-// launch's cudaError_t.
+// [64, D] (16-byte aligned) of bf16 (f16 = 0) or float16 (f16 = 1), geo_a /
+// geo_b their 14 tensor-map geometry words, c1 float32 [64, 64], c2 float32
+// [64, D]. Returns the launch's cudaError_t.
 extern "C" int pt_sm90_selfcheck(const void* a, const void* b,
                                  const unsigned long long* geo_a,
                                  const unsigned long long* geo_b, void* c1,
-                                 void* c2, int D, void* stream) {
+                                 void* c2, int D, int f16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* f1 = static_cast<float*>(c1);
   float* f2 = static_cast<float*>(c2);
-  if (D == 64)
-    return (int)pt_sm90::launch_selfcheck<64>(a, b, geo_a, geo_b, f1, f2, s);
-  if (D == 128)
-    return (int)pt_sm90::launch_selfcheck<128>(a, b, geo_a, geo_b, f1, f2, s);
-  if (D == 256)
-    return (int)pt_sm90::launch_selfcheck<256>(a, b, geo_a, geo_b, f1, f2, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)(f16 ? pt_sm90::selfcheck<__half>(a, b, geo_a, geo_b, f1, f2,
+                                                 D, s)
+                   : pt_sm90::selfcheck<__nv_bfloat16>(a, b, geo_a, geo_b,
+                                                       f1, f2, D, s));
 }
 #endif  // PT_SM90_SELFCHECK

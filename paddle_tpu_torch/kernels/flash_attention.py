@@ -30,11 +30,15 @@ The kernels replace the three Pallas kernels of the reference:
   and dK/dV again for float32 inputs (float32 training) in the same way:
   Q, K, V and dO arrive as their three bf16 terms, P M and dS are split
   in registers, six term pairs per product;
-- float16 inputs (float16 O2 training) take the float32 forward too, as
-  the reference computes float16 with float32 operands: the split reads
+- ``csrc/flash_attention_fwd_f16_sm90.cu`` replaces the forward again for
+  float16 inputs (float16 O2 training) at head dims 64, 128 and 256, with
+  no split: Q K^T is a native float16 product (exact in float32), P M
+  enters P V as a float16 hi/lo pair of P M s (s a power of two), and O
+  is rounded to float16 once, from float32, as it is written;
+- float16 dQ and dK/dV at head dim 256 take the float32 kernels, as the
+  reference computes float16 with float32 operands: the split reads
   float16 directly (a float16 value is exactly two bf16 terms, the third
-  is zero), and O is rounded to float16 once, from float32, as it is
-  written; so do dQ and dK/dV at head dim 256;
+  is zero), and the gradients are rounded to float16 once;
 - ``csrc/flash_attention_bwd_f16_sm90.cu`` replaces dQ and dK/dV again for
   float16 inputs at head dims 64 and 128, with no split: Q K^T and dO V^T
   are native float16 products (exact in float32), dS enters as three bf16
@@ -58,9 +62,9 @@ runs the plain version (that is what the CPU tests exercise), and given
 CUDA tensors it launches the kernel or raises. Among the kernels the
 route is picked by (dtype, head dim, kernel) alone (:func:`kernel_route`):
 bf16 takes the ``wgmma`` forward, dQ and dK/dV kernels at every head dim,
-float32 the ``wgmma_f32`` ones, float16 the ``wgmma_f32`` forward and the
-``wgmma_f16`` dQ and dK/dV (``wgmma_f32`` at head dim 256); no route takes
-the ``fma`` kernels. Each
+float32 the ``wgmma_f32`` ones, float16 the ``wgmma_f16`` forward at every
+head dim and the ``wgmma_f16`` dQ and dK/dV (``wgmma_f32`` at head dim
+256); no route takes the ``fma`` kernels. Each
 wrapper counts its launches in ``<wrapper>.launches`` and per route in
 ``<wrapper>.routes`` (:func:`launch_counts`).
 
@@ -100,16 +104,16 @@ __all__ = ["SUPPORTED_HEAD_DIMS", "TENSOR_CORE_HEAD_DIMS", "kernel_route",
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 _KERNELS = ("fwd", "dq", "dkv")
 #: the route of each dtype's kernels: bf16 operands as they are
-#: (``"wgmma"``); float32 and float16 as their bf16 terms (``"wgmma_f32"``,
-#: exact for float16)
+#: (``"wgmma"``); float32 as their bf16 terms (``"wgmma_f32"``); float16
+#: as it is (``"wgmma_f16"``)
 _DTYPE_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "wgmma_f32",
-                 torch.float16: "wgmma_f32"}
+                 torch.float16: "wgmma_f16"}
 #: the tensor-core route of each (dtype, kernel, head dim): its dtype's,
-#: but native float16 (``"wgmma_f16"``) for the float16 dQ and dK/dV at
-#: head dims 64 and 128
+#: but the float32 kernels (``"wgmma_f32"``, float16 as its two exact bf16
+#: terms) for the float16 dQ and dK/dV at head dim 256
 _TENSOR_CORE_ROUTES = {
-    (dtype, kernel, D): ("wgmma_f16" if dtype == torch.float16
-                         and kernel != "fwd" and D != 256 else route)
+    (dtype, kernel, D): ("wgmma_f32" if dtype == torch.float16
+                         and kernel != "fwd" and D == 256 else route)
     for dtype, route in _DTYPE_ROUTES.items() for kernel in _KERNELS
     for D in SUPPORTED_HEAD_DIMS}
 #: head dims at which each (dtype, kernel) runs on the tensor cores (every
@@ -121,6 +125,7 @@ _FWD_SOURCE = "flash_attention_fwd.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
 _FWD_SM90_SOURCE = "flash_attention_fwd_sm90.cu"
 _FWD_F32_SM90_SOURCE = "flash_attention_fwd_f32_sm90.cu"
+_FWD_F16_SM90_SOURCE = "flash_attention_fwd_f16_sm90.cu"
 _DQ_SM90_SOURCE = "flash_attention_bwd_dq_sm90.cu"
 _DKV_SM90_SOURCE = "flash_attention_bwd_dkv_sm90.cu"
 _BWD_F32_SM90_SOURCE = "flash_attention_bwd_f32_sm90.cu"
@@ -137,11 +142,11 @@ def kernel_route(dtype: torch.dtype, head_dim: int, kernel: str) -> str:
     :data:`TENSOR_CORE_HEAD_DIMS` (every kernel at D 64, 128 and 256)
     ``"wgmma"`` (the sm_90a tensor-core kernels) for bf16,
     ``"wgmma_f32"`` (the same tensor cores, each float32 or float16
-    operand as three bf16 terms) for float32 and for the float16 forward
-    and the float16 dQ and dK/dV at D = 256, and ``"wgmma_f16"`` (native
-    float16 products) for the float16 dQ and dK/dV at D 64 and 128;
-    ``"fma"`` for everything else, which the wrappers refuse (another
-    dtype or head dim)."""
+    operand as three bf16 terms) for float32 and for the float16 dQ and
+    dK/dV at D = 256, and ``"wgmma_f16"`` (native float16 products) for
+    the float16 forward at every D and the float16 dQ and dK/dV at D 64
+    and 128; ``"fma"`` for everything else, which the wrappers refuse
+    (another dtype or head dim)."""
     if kernel not in _KERNELS:
         raise ValueError(f"kernel must be fwd, dq or dkv, got {kernel!r}")
     return _TENSOR_CORE_ROUTES.get((dtype, kernel, head_dim), "fma")
@@ -431,6 +436,14 @@ def _fwd_sm90_fn():
 
 
 @functools.lru_cache(maxsize=None)
+def _fwd_f16_sm90_fn():
+    fn = _build.load(_FWD_F16_SM90_SOURCE).pt_flash_attention_fwd_f16_sm90
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + _SM90_TAIL
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
 def _fwd_f32_sm90_fn():
     fn = _build.load(_FWD_F32_SM90_SOURCE).pt_flash_attention_fwd_f32_sm90
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + _SM90_F32_TAIL
@@ -486,9 +499,10 @@ def wgmma_selfcheck(D: int, device, generator=None,
     the register-A, transposed-B form, both float32 from the card's wgmma,
     for the caller to hold against a float64 product.
 
-    bf16 runs ``pt_sm90_selfcheck`` (``csrc/sm90.cuh``; D 64, 128 or 256):
-    one bf16 product of each form. float32 and float16 (the same head
-    dims) run ``pt_sm90_selfcheck_f32``
+    bf16 and float16 run ``pt_sm90_selfcheck`` (``csrc/sm90.cuh``; D 64,
+    128 or 256): one native product of each form in that type (the
+    ``wgmma`` and ``wgmma_f16`` kernels' forms). float32 (the same head
+    dims) runs ``pt_sm90_selfcheck_f32``
     (``csrc/flash_attention_fwd_f32_sm90.cu``): a and b split by
     :func:`split_bf16_terms`, b's terms loaded by TMA, and the six term
     pairs of each product through the term-pair products every
@@ -499,7 +513,7 @@ def wgmma_selfcheck(D: int, device, generator=None,
     c1 = torch.empty(64, 64, device=device)
     c2 = torch.empty(64, D, device=device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    if _DTYPE_ROUTES.get(dtype) == "wgmma_f32":
+    if dtype == torch.float32:
         a3, b3 = split_bf16_terms(a.view(1, 1, 64, D), b.view(1, 1, 64, D))
         a32 = a.float()
         fn = _build.load(_FWD_F32_SM90_SOURCE).pt_sm90_selfcheck_f32
@@ -511,13 +525,14 @@ def wgmma_selfcheck(D: int, device, generator=None,
                      c2.data_ptr(), D, stream)
     else:
         fn = _build.load(_FWD_SM90_SOURCE).pt_sm90_selfcheck
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         with torch.cuda.device(a.device):
             err = fn(a.data_ptr(), b.data_ptr(),
                      _geometry_words(a.view(1, 1, 64, D)),
                      _geometry_words(b.view(1, 1, 64, D)), c1.data_ptr(),
-                     c2.data_ptr(), D, stream)
+                     c2.data_ptr(), D, int(dtype == torch.float16), stream)
     if err != 0:
         raise RuntimeError(f"wgmma self-check launch failed: CUDA error {err}")
     return a, b, c1, c2
@@ -558,7 +573,7 @@ def split_bf16_terms(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         return tuple(_plain_split(x) for x in xs)
     B, H, _, D = xs[0].shape
     dtype = xs[0].dtype
-    if _DTYPE_ROUTES.get(dtype) != "wgmma_f32":
+    if dtype not in (torch.float32, torch.float16):
         raise ValueError(f"split_bf16_terms takes float32 or float16, got "
                          f"{dtype}")
     for i, x in enumerate(xs):
@@ -681,6 +696,19 @@ def _fwd_buffers(q, k, v, bias, out):
             *_kernel_bias(bias, B, H, Lq, Lk, q.device))
 
 
+def _check_terms(terms, names, xs) -> None:
+    """Raise unless ``terms`` are the contiguous bf16 ``[3 B, H, L, D]``
+    terms of ``xs`` (:func:`split_bf16_terms`) on their device: TMA reads
+    past a tensor's end as zeros, so a wrong shape would be a wrong result,
+    not a fault."""
+    for name, t, x in zip(names, terms, xs):
+        want = (3 * x.shape[0], *x.shape[1:])
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != want \
+                or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"the terms of {name} must be contiguous "
+                             f"bf16 {want} on {x.device}")
+
+
 def _launch_fwd_fma(q, k, v, causal: bool, bias, out, dropout_p, seed):
     """Launch the FMA forward kernel (``csrc/flash_attention_fwd.cu``,
     D = 256 only): the yardstick the tensor-core forwards are timed
@@ -705,14 +733,20 @@ def _launch_fwd_fma(q, k, v, causal: bool, bias, out, dropout_p, seed):
 
 
 def _launch_fwd_sm90(route: str, q, k, v, causal: bool, bias, out,
-                     dropout_p, seed):
-    """Launch the tensor-core forward kernel of ``route`` ("wgmma", or
-    "wgmma_f32", which first splits q, k, v into their bf16 terms)."""
+                     dropout_p, seed, terms=None):
+    """Launch the tensor-core forward kernel of ``route``: "wgmma" (bf16)
+    and "wgmma_f16" (float16) read q, k, v as they are; "wgmma_f32" reads
+    their bf16 ``terms`` (:func:`split_bf16_terms`), split here when not
+    given (float32, or float16 launched directly: the yardstick the
+    wgmma_f16 forward is timed against)."""
     (B, H, Lq, Lk, D), out, lse, bias, bias_strides = _fwd_buffers(
         q, k, v, bias, out)
-    fn, ops, out_type = _fwd_sm90_fn(), (q, k, v), ()
+    fn = {"wgmma": _fwd_sm90_fn, "wgmma_f16": _fwd_f16_sm90_fn,
+          "wgmma_f32": _fwd_f32_sm90_fn}[route]()
+    ops, out_type = (q, k, v), ()
     if route == "wgmma_f32":  # the tensor cores read bf16 terms
-        fn, ops = _fwd_f32_sm90_fn(), split_bf16_terms(q, k, v)
+        ops = split_bf16_terms(q, k, v) if terms is None else terms
+        _check_terms(ops, ("q", "k", "v"), (q, k, v))
         out_type = (_DTYPE_CODES[q.dtype],)
     with torch.cuda.device(q.device):
         err = fn(*(t.data_ptr() for t in ops),
@@ -747,10 +781,10 @@ def flash_attention_fwd(q, k, v, causal: bool = False, bias=None,
 
     CUDA tensors launch the kernel of :func:`kernel_route` (which raises on
     what it does not take: dtype other than float32/bfloat16/float16, head
-    dim
-    outside {64, 128, 256}, a last dimension that is not contiguous, and
-    on the wgmma route q/k/v that TMA cannot read, :func:`tma_geometry`;
-    the ``wgmma_f32`` route first launches :func:`split_bf16_terms`);
+    dim outside {64, 128, 256}, a last dimension that is not contiguous,
+    and on the wgmma and wgmma_f16 routes q/k/v that TMA cannot read,
+    :func:`tma_geometry`; the ``wgmma_f32`` route first launches
+    :func:`split_bf16_terms`);
     CPU tensors run
     :func:`reference_attention_fwd` with the plain :func:`dropout_mask`.
     ``out`` (optional, ``[B, H, Lq, D]``, any strides with a contiguous
@@ -773,7 +807,8 @@ def flash_attention_fwd(q, k, v, causal: bool = False, bias=None,
 
 
 flash_attention_fwd.launches = 0
-flash_attention_fwd.routes = {"fma": 0, "wgmma": 0, "wgmma_f32": 0}
+flash_attention_fwd.routes = {"fma": 0, "wgmma": 0, "wgmma_f32": 0,
+                              "wgmma_f16": 0}
 
 
 def _check_stats(lse, delta, shape, device):
@@ -834,14 +869,7 @@ def _launch_bwd_sm90(which: str, route: str, q, k, v, bias, do, lse, delta,
     ops = terms if route == "wgmma_f32" else (q, k, v, do)
     out_type = (_DTYPE_CODES[q.dtype],) if route == "wgmma_f32" else ()
     if route == "wgmma_f32":
-        # TMA reads past a tensor's end as zeros: a wrong shape would be a
-        # wrong gradient, not a fault
-        for name, t, x in zip(("q", "k", "v", "do"), terms, (q, k, v, do)):
-            want = (3 * B, *x.shape[1:])
-            if t.dtype != torch.bfloat16 or tuple(t.shape) != want \
-                    or not t.is_contiguous() or t.device != q.device:
-                raise ValueError(f"the terms of {name} must be contiguous "
-                                 f"bf16 {want} on {q.device}")
+        _check_terms(terms, ("q", "k", "v", "do"), (q, k, v, do))
     strides = (*out_strides, *bias_strides)
     with torch.cuda.device(q.device):
         err = _bwd_sm90_fn(which, route, D)(

@@ -183,7 +183,7 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, tol, causal, lq, lk, d):
 @pytest.mark.cuda
 def test_cuda_wrapper_raises_on_unsupported_input(cuda_device):
     """A head dim no kernel takes raises; float16, which the kernels take
-    (on the wgmma_f32 route), launches and matches the plain version
+    (on the wgmma_f16 route), launches and matches the plain version
     within the float32 tolerance plus one float16 ulp of the output."""
     q = torch.zeros(1, 2, 16, 96, device=cuda_device)
     with pytest.raises(ValueError):
@@ -191,10 +191,10 @@ def test_cuda_wrapper_raises_on_unsupported_input(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(3)
     q, k, v = (torch.randn(1, 2, 16, 64, generator=g, device=cuda_device)
                .half() for _ in range(3))
-    before = tfa.flash_attention_fwd.routes["wgmma_f32"]
+    before = tfa.flash_attention_fwd.routes["wgmma_f16"]
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert tfa.flash_attention_fwd.routes["wgmma_f32"] == before + 1
+    assert tfa.flash_attention_fwd.routes["wgmma_f16"] == before + 1
     o_ref, lse_ref = tfa.reference_attention_fwd(q, k, v, causal=True)
     _, e = torch.frexp(o_ref.float().abs())
     limit = 1e-5 + 1e-5 * o_ref.float().abs() + torch.exp2(

@@ -1,5 +1,6 @@
-"""The native float16 backward of the port's flash attention (route
-``wgmma_f16``): the dQ and dK/dV kernels of
+"""The native float16 kernels of the port's flash attention (route
+``wgmma_f16``): the forward of ``csrc/flash_attention_fwd_f16_sm90.cu`` at
+head dims 64, 128 and 256 and the dQ and dK/dV kernels of
 ``csrc/flash_attention_bwd_f16_sm90.cu`` at head dims 64 and 128, their
 arithmetic emulated in plain torch against the JAX kernels, their routing,
 and, on the card, the kernels against their plain version.
@@ -8,17 +9,21 @@ The kernels keep the reference's float32-operand numerics
 (``_operand_dtype``) with float16 tensor-core products where they are exact:
 - S = Q K^T and dP = dO V^T are one float16 product each (a product of two
   float16 values has 22 significant bits, exact in float32);
+- P V takes P M s (s a power of two, P M s < 2^15; M the dropout
+  multiplier) as a float16 hi/lo pair against V, and divides by s and by
+  the row sum l;
 - dS K and dS^T Q take dS as three bf16 terms and the float16 operand as
   its two bf16 terms (exact), keeping the five term pairs with a + j <= 2;
 - (P M)^T dO takes P M s (s a power of two, P M s < 2^15) as a float16
   hi/lo pair against dO, and divides by s.
 The CPU tests emulate that in float32 torch on float16 values and hold it
 against the Pallas kernels in interpret mode on the same float16 inputs,
-made from a seed: the gradients, float16 on both sides, within the
-reference's float32 backward tolerance (rtol 2e-4, atol 2e-5) plus one
-float16 ulp of the element (each side rounds a float32 value to float16
-once, and two values within the float32 tolerance may round to
-neighbours); dbias, float32 on both sides, within the float32 tolerance.
+made from a seed: O and the gradients, float16 on both sides, within the
+reference's float32 forward tolerance (1e-5 + 1e-5 |ref|) or backward
+tolerance (rtol 2e-4, atol 2e-5) plus one float16 ulp of the element (each
+side rounds a float32 value to float16 once, and two values within the
+float32 tolerance may round to neighbours); LSE and dbias, float32 on both
+sides, within the float32 tolerance.
 
 The tests marked ``cuda`` run the kernels on the card and skip without one:
 ``python -m pytest --noconftest -m cuda tests/test_torch_flash_attention_f16_sm90.py``.
@@ -32,6 +37,7 @@ import torch
 
 from paddle_tpu_torch.kernels import flash_attention as tfa
 
+FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 BWD_TOL = dict(rtol=2e-4, atol=2e-5)
 
 
@@ -74,14 +80,15 @@ def f16_ulp(x):
     return torch.exp2(torch.clamp(e - 11, min=-24).float())
 
 
-def assert_f16_close(got, want, do_scale=1.0):
-    """float16 ``got`` against float16 ``want``: the float32 backward
-    tolerance plus one float16 ulp of the element. The gradients are linear
-    in dO, so for a dO ``do_scale`` times the unit-scale inputs the
-    tolerance was set for, its absolute part scales with it."""
+def assert_f16_close(got, want, do_scale=1.0, tol=BWD_TOL):
+    """float16 ``got`` against float16 ``want``: the float32 tolerance
+    ``tol`` (the backward's unless given) plus one float16 ulp of the
+    element. The gradients are linear in dO, so for a dO ``do_scale`` times
+    the unit-scale inputs the tolerance was set for, its absolute part
+    scales with it."""
     got, want = torch.as_tensor(got), torch.as_tensor(want)
     assert got.dtype == want.dtype == torch.float16
-    limit = BWD_TOL["atol"] * do_scale + BWD_TOL["rtol"] * want.float().abs() \
+    limit = tol["atol"] * do_scale + tol["rtol"] * want.float().abs() \
         + f16_ulp(want)
     err = (got.float() - want.float()).abs()
     assert bool((err <= limit).all()), float((err / limit).max())
@@ -157,6 +164,53 @@ def emulated_bwd(q, k, v, bias, o, lse, do, causal, keep=None, kept=1.0):
     return dq, dk, dv, ds
 
 
+def attention_f64(q, k, v, causal):
+    """Attention computed in float64 throughout (no bias, no dropout)."""
+    q, k, v = q.double(), k.double(), v.double()
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    if causal:
+        s = s.masked_fill(~torch.ones(s.shape[-2:], dtype=torch.bool,
+                                      device=s.device).tril(), float("-inf"))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v)
+
+
+def matmul_f32(eq, a, b):
+    """``einsum(eq, a, b)`` of float32 tensors that hold float16 values,
+    summed in float64 and rounded to float32: the products are exact in
+    either type, and the float64 sum keeps the emulation independent of
+    the order and the accuracy of the CPU's float32 matrix products
+    (which need not be the card's, and need not repeat from call to
+    call)."""
+    return torch.einsum(eq, a.double(), b.double()).float()
+
+
+def emulated_fwd(q, k, v, causal, bias=None, keep=None, kept=1.0,
+                 pair=True):
+    """``(o, lse)`` as the wgmma_f16 forward takes them, on float32 tensors
+    that hold float16 values: S = Q K^T as one product (exact products),
+    P M s as a float16 hi/lo pair against V (its hi part alone with
+    ``pair=False``), divided by s and by the row sum l; o float32 before
+    its rounding to float16. ``keep`` is the dropout multiplier (0 or
+    ``kept``). The two products' sums are taken in float64 and rounded to
+    float32 (:func:`matmul_f32`)."""
+    s = matmul_f32("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    if bias is not None:
+        s = s + bias
+    if causal:
+        s = s.masked_fill(~torch.ones(s.shape[-2:], dtype=torch.bool).tril(),
+                          float("-inf"))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    pm = p if keep is None else p * keep
+    sc = pm_scale(kept)
+    hi, lo = f16_pair(pm * sc)
+    pv = matmul_f32("bhqk,bhkd->bhqd", hi, v)
+    if pair:
+        pv = matmul_f32("bhqk,bhkd->bhqd", lo, v) + pv
+    return pv / sc / l[..., None], m + torch.log(l)
+
+
 def test_float16_values_are_two_exact_bf16_terms():
     """Every finite float16 value (all 63488, subnormals included) is the
     sum of its two bf16 terms: K's and Q's terms lose nothing."""
@@ -185,6 +239,75 @@ def test_hi_lo_pair_of_pm_keeps_float32_accuracy(p):
     err = (x.double() - (hi.double() + lo.double()) / sc).abs()
     assert bool((err <= torch.clamp(2.0 ** -22 * x.double().abs(),
                                     min=2.0 ** -25 / sc)).all())
+
+
+# (D, causal, Lq, Lk, bias): D 64, 128 and 256, causal and not, a bias
+# broadcast over the batch, Lq != Lk (non-causal) both ways
+_FWD_CASES = [(64, True, 256, 256, False), (64, False, 256, 256, False),
+              (64, True, 256, 256, True), (128, True, 256, 256, False),
+              (128, False, 128, 256, True), (128, False, 256, 128, False),
+              (256, True, 256, 256, False), (256, False, 256, 128, True)]
+
+
+@pytest.mark.parametrize("d,causal,lq,lk,bias", _FWD_CASES)
+def test_f16_forward_emulation_matches_jax(jfa, interpret_pallas, d, causal,
+                                           lq, lk, bias):
+    """O and LSE of the emulated wgmma_f16 forward against
+    ``_flash_fwd_impl`` in interpret mode on the same float16 q, k, v: O
+    (float16 on both sides) within the float32 forward tolerance plus one
+    float16 ulp, LSE within the float32 forward tolerance."""
+    import jax.numpy as jnp
+
+    q, k, v = _f16((2, 2, lq, d), 0), _f16((2, 2, lk, d), 1), \
+        _f16((2, 2, lk, d), 2)
+    b = _f16((1, 2, lq, lk), 3).astype(np.float32) if bias else None
+    o_j, lse_j = jfa._flash_fwd_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if b is None else jnp.asarray(b), jnp.int32(0), causal, 0.0,
+        block_q=128, block_k=128)
+    o_j = torch.from_numpy(np.asarray(o_j))
+    assert o_j.dtype == torch.float16
+    o, lse = emulated_fwd(*(torch.from_numpy(x.astype(np.float32))
+                            for x in (q, k, v)), causal,
+                          None if b is None else torch.from_numpy(b))
+    assert_f16_close(o.half(), o_j, tol=FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[..., 0],
+                               **FWD_TOL)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_f16_forward_pair_keeps_float32_accuracy_and_its_hi_does_not(d):
+    """Before its rounding to float16, the emulated O is within a few
+    float32 roundings of a float64 forward on the same float16 inputs;
+    P's hi part alone (P as one float16 operand) is not: the hi/lo pair is
+    what keeps the reference's float32-operand accuracy."""
+    q, k, v = (torch.from_numpy(_f16((1, 2, 256, d), s).astype(np.float32))
+               for s in range(3))
+    want = attention_f64(q, k, v, True)
+    pair, _ = emulated_fwd(q, k, v, True)
+    hi, _ = emulated_fwd(q, k, v, True, pair=False)
+    assert (pair.double() - want).abs().max() < 1e-6
+    assert (hi.double() - want).abs().max() > 1e-5
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_f16_forward_emulation_with_dropout_matches_plain(d, p):
+    """Dropout with the Philox mask (the TPU's PRNG has no CPU lowering):
+    the emulated forward against the port's plain forward given the same
+    mask, O within the float32 forward tolerance plus one float16 ulp, LSE
+    (which ignores the mask) within the float32 tolerance. At p = 0.5 the
+    kept multiplier is 2 and s = 2^13."""
+    B, H, L, seed = 1, 2, 192, 98
+    q, k, v = (torch.from_numpy(_f16((B, H, L, d), s)) for s in range(3))
+    keep = tfa.dropout_mask(seed, B, H, L, L, p)
+    kept = float(keep.max())
+    want, lse_want = tfa.reference_attention_fwd(q, k, v, causal=True,
+                                                 keep_mask=keep)
+    o, lse = emulated_fwd(q.float(), k.float(), v.float(), True, None, keep,
+                          kept)
+    assert_f16_close(o.half(), want, tol=FWD_TOL)
+    torch.testing.assert_close(lse, lse_want, **FWD_TOL)
 
 
 def _jax_bwd(jfa, q, k, v, do, bias, causal):
@@ -269,10 +392,10 @@ def test_f16_backward_emulation_with_dropout_matches_plain(d):
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_float16_route_table(kernel, d):
-    """float16 dQ and dK/dV take wgmma_f16 at D 64 and 128; at D = 256 they
-    stay on wgmma_f32, and so does the float16 forward at every D. bf16
-    and float32 keep their routes."""
-    want = "wgmma_f16" if kernel != "fwd" and d != 256 else "wgmma_f32"
+    """The float16 forward takes wgmma_f16 at every D, and so do the
+    float16 dQ and dK/dV at D 64 and 128; at D = 256 they stay on
+    wgmma_f32. bf16 and float32 keep their routes."""
+    want = "wgmma_f32" if kernel != "fwd" and d == 256 else "wgmma_f16"
     assert tfa.kernel_route(torch.float16, d, kernel) == want
     assert tfa.kernel_route(torch.bfloat16, d, kernel) == "wgmma"
     assert tfa.kernel_route(torch.float32, d, kernel) == "wgmma_f32"
@@ -298,6 +421,47 @@ def test_float16_backward_wrapper_splits_nothing():
     assert calls == [("dq", "wgmma_f16", None), ("dkv", "wgmma_f16", None)]
     assert tfa.launch_counts()["dq"]["wgmma_f16"] == 1
     assert tfa.launch_counts()["dkv"]["wgmma_f16"] == 1
+    tfa.reset_launch_counts()
+
+
+class _FakeStream:
+    cuda_stream = 0
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_float16_forward_wrapper_splits_nothing(d):
+    """On the wgmma_f16 route the forward wrapper launches its kernel on q,
+    k, v as they are (the float16 views of a fused qkv, read by TMA: their
+    own pointers, maps of B batches), with no split pre-pass; the C entry
+    is stubbed (the kernel needs a card)."""
+    B, H, L = 2, 3, 64
+    calls = []
+    qkv = torch.zeros(B, L, 3, H, d, dtype=torch.float16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+    def entry(*a):
+        calls.append(a)
+        return 0
+
+    with mock.patch.object(tfa, "_fwd_f16_sm90_fn", lambda: entry), \
+            mock.patch.object(tfa, "_fwd_f32_sm90_fn",
+                              lambda: pytest.fail("wgmma_f32 launched")), \
+            mock.patch.object(tfa, "split_bf16_terms",
+                              lambda *a: pytest.fail("split launched")), \
+            mock.patch.object(torch.cuda, "device",
+                              lambda dev: mock.MagicMock()), \
+            mock.patch.object(torch.cuda, "current_stream",
+                              lambda dev: _FakeStream()):
+        tfa.reset_launch_counts()
+        o, lse = tfa._launch_fwd(q, k, v, True, None, None, 0.0, 0)
+    assert len(calls) == 1
+    assert list(calls[0][:3]) == [t.data_ptr() for t in (q, k, v)]
+    geo = list(calls[0][11])  # 3 maps of 14 words: D, then dims
+    assert [w for i in range(3) for w in geo[14 * i + 1:14 * i + 4]
+            if w not in (H, L)] == [B] * 3
+    assert tfa.launch_counts()["fwd"] == {"fma": 0, "wgmma": 0,
+                                          "wgmma_f32": 0, "wgmma_f16": 1}
+    assert o.dtype == torch.float16 and lse.dtype == torch.float32
     tfa.reset_launch_counts()
 
 
@@ -425,3 +589,139 @@ def test_cuda_f16_d256_stays_on_the_float32_kernels(cuda_device):
     want = tfa.reference_attention_bwd(q, k, v, None, o, lse, do, True)
     for x, y in zip(got[:3], want[:3]):
         assert_f16_close(x, y)
+
+
+# ---------------------------------------------- the forward on the card
+def _assert_f16_fwd_route(launches=1):
+    assert tfa.launch_counts()["fwd"] == {"fma": 0, "wgmma": 0,
+                                          "wgmma_f32": 0,
+                                          "wgmma_f16": launches}
+    assert tfa.split_bf16_terms.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,causal,lq,lk,bias", [
+    (128, True, 1024, 1024, False), (64, True, 1024, 1024, False),
+    (256, True, 1024, 1024, False), (128, False, 384, 640, True),
+    (64, False, 384, 640, True), (256, False, 384, 640, True),
+    (128, True, 1500, 1500, False), (128, True, 1024, 1024, True)])
+def test_cuda_f16_forward_matches_plain(cuda_device, d, causal, lq, lk,
+                                        bias):
+    """The wgmma_f16 forward against the plain forward: O float16 within
+    the float32 forward tolerance plus one float16 ulp, LSE within the
+    float32 forward tolerance; one launch on the route, no split."""
+    q, k, v, _, b = _case(cuda_device, d, causal, lq, lk, bias, 31)
+    tfa.reset_launch_counts()
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, bias=b)
+    torch.cuda.synchronize()
+    _assert_f16_fwd_route()
+    o_ref, lse_ref = tfa.reference_attention_fwd(q, k, v, causal=causal,
+                                                 bias=b)
+    assert_f16_close(o, o_ref, tol=FWD_TOL)
+    torch.testing.assert_close(lse, lse_ref, **FWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.1, 0.5])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_cuda_f16_forward_dropout_matches_plain_and_replays(cuda_device, d,
+                                                            p):
+    """Dropout in the wgmma_f16 forward: O against the plain forward given
+    the plain Philox mask, and a fixed seed replays bit for bit."""
+    q, k, v, _, _ = _case(cuda_device, d, True, 1024, 1024, False, 32)
+    seed = 76
+    tfa.reset_launch_counts()
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True, dropout_p=p,
+                                     seed=seed)
+    again = tfa.flash_attention_fwd(q, k, v, causal=True, dropout_p=p,
+                                    seed=seed)
+    torch.cuda.synchronize()
+    _assert_f16_fwd_route(2)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    keep = tfa.dropout_mask(seed, 1, 8, 1024, 1024, p, cuda_device)
+    o_ref, lse_ref = tfa.reference_attention_fwd(q, k, v, causal=True,
+                                                 keep_mask=keep)
+    assert_f16_close(o, o_ref, tol=FWD_TOL)
+    torch.testing.assert_close(lse, lse_ref, **FWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_cuda_f16_forward_replays_bit_for_bit(cuda_device, d):
+    """No atomics: the same inputs (a bias, a ragged length) give the same
+    O and LSE."""
+    q, k, v, _, b = _case(cuda_device, d, True, 1500, 1500, True, 33)
+    first = tfa.flash_attention_fwd(q, k, v, causal=True, bias=b)
+    second = tfa.flash_attention_fwd(q, k, v, causal=True, bias=b)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_cuda_f16_forward_at_the_d256_shape(cuda_device):
+    """[1, 8, 1024, 256] float16, the shape of the D = 256 backward's
+    case, takes the wgmma_f16 forward (one CTA per SM) and matches the
+    plain forward."""
+    g = torch.Generator(device=cuda_device).manual_seed(34)
+    q, k, v = (torch.randn(1, 8, 1024, 256, generator=g, device=cuda_device)
+               .half() for _ in range(3))
+    tfa.reset_launch_counts()
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _assert_f16_fwd_route()
+    o_ref, lse_ref = tfa.reference_attention_fwd(q, k, v, causal=True)
+    assert_f16_close(o, o_ref, tol=FWD_TOL)
+    torch.testing.assert_close(lse, lse_ref, **FWD_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_f16_self_check_covers_the_native_forms(cuda_device):
+    """The float16 self-check runs the native float16 SS form and the RS
+    forms at N = 64, 128 and 256 (m64n256k16, the forward's P V at
+    D = 256): float16 products are exact, so both results are within
+    float32 summation of a float64 product."""
+    for d in (64, 128, 256):
+        a, b, c1, c2 = tfa.wgmma_selfcheck(d, cuda_device,
+                                           dtype=torch.float16)
+        torch.cuda.synchronize()
+        for got, x, y in ((c1, a, b.T), (c2, a[:, :64], b)):
+            limit = 2 * x.shape[1] * 2.0 ** -24 * (x.double().abs()
+                                                   @ y.double().abs())
+            assert bool(((got.double() - x.double() @ y.double()).abs()
+                         <= limit).all())
+
+
+def _rel_l2(x, ref):
+    return ((x.double() - ref).norm() / ref.norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_f16_flash_attention_grads_match_plain(cuda_device, d):
+    """FlashAttention in float16 (the wgmma_f16 forward, dQ and dK/dV, no
+    split) against plain attention's autograd on the same float16 inputs:
+    each gradient within twice plain attention's own distance from a
+    float64 reference (relative L2), the output within the forward's
+    tolerance of plain attention's."""
+    q, k, v, do, _ = _case(cuda_device, d, True, 1024, 1024, False, 35)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def grads(attend, ts):
+        o = attend(*ts)
+        return o, torch.autograd.grad(o, ts, do.to(o.dtype))
+
+    tfa.reset_launch_counts()
+    o_k, g_k = grads(lambda *t: tfa.flash_attention_bhld(*t, causal=True),
+                     leaves)
+    torch.cuda.synchronize()
+    assert tfa.launch_counts() == {
+        w: {"fma": 0, "wgmma": 0, "wgmma_f32": 0, "wgmma_f16": 1}
+        for w in ("fwd", "dq", "dkv")}
+    assert tfa.split_bf16_terms.launches == 0
+    o_p, g_p = grads(
+        lambda *t: tfa.reference_attention_bhld(*t, causal=True), leaves)
+    _, g_r = grads(lambda *t: attention_f64(*t, True),
+                   [t.detach().double().requires_grad_() for t in leaves])
+    assert_f16_close(o_k, o_p, tol=FWD_TOL)
+    for gk, gp, gr in zip(g_k, g_p, g_r):
+        assert gk.dtype == torch.float16
+        assert _rel_l2(gk, gr) <= 2 * _rel_l2(gp, gr) + 2.0 ** -24

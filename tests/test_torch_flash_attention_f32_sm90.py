@@ -277,7 +277,9 @@ class _FakeStream:
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.float32, 64, "wgmma_f32"), (torch.float32, 128, "wgmma_f32"),
     (torch.float32, 256, "wgmma_f32"), (torch.bfloat16, 64, "wgmma"),
-    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "wgmma")])
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "wgmma"),
+    (torch.float16, 64, "wgmma_f16"), (torch.float16, 128, "wgmma_f16"),
+    (torch.float16, 256, "wgmma_f16")])
 def test_forward_launches_the_route_of_dtype_and_head_dim(dtype, d, route):
     """``_launch_fwd`` hands a (dtype, D) input to the C entry of its
     route, and only to it, and counts the launch there. The C entries are
@@ -295,6 +297,7 @@ def test_forward_launches_the_route_of_dtype_and_head_dim(dtype, d, route):
     with mock.patch.object(tfa, "_fwd_fn", entry("fma")), \
             mock.patch.object(tfa, "_fwd_sm90_fn", entry("wgmma")), \
             mock.patch.object(tfa, "_fwd_f32_sm90_fn", entry("wgmma_f32")), \
+            mock.patch.object(tfa, "_fwd_f16_sm90_fn", entry("wgmma_f16")), \
             mock.patch.object(torch.cuda, "device",
                               lambda dev: mock.MagicMock()), \
             mock.patch.object(torch.cuda, "current_stream",
@@ -303,7 +306,8 @@ def test_forward_launches_the_route_of_dtype_and_head_dim(dtype, d, route):
         o, lse = tfa._launch_fwd(q, k, v, True, None, None, 0.0, 0)
     assert [name for name, _ in calls] == [route]
     assert tfa.launch_counts()["fwd"] == {
-        r: int(r == route) for r in ("fma", "wgmma", "wgmma_f32")}
+        r: int(r == route) for r in ("fma", "wgmma", "wgmma_f32",
+                                     "wgmma_f16")}
     assert o.dtype == dtype and o.shape == (B, H, L, d)
     assert lse.dtype == torch.float32 and lse.shape == (B, H, L)
     if route != "fma":
@@ -331,6 +335,7 @@ def test_fma_forward_launcher_takes_any_input_and_counts_nothing(dtype, d):
     with mock.patch.object(tfa, "_fwd_fn", entry("fma")), \
             mock.patch.object(tfa, "_fwd_sm90_fn", entry("wgmma")), \
             mock.patch.object(tfa, "_fwd_f32_sm90_fn", entry("wgmma_f32")), \
+            mock.patch.object(tfa, "_fwd_f16_sm90_fn", entry("wgmma_f16")), \
             mock.patch.object(torch.cuda, "device",
                               lambda dev: mock.MagicMock()), \
             mock.patch.object(torch.cuda, "current_stream",
@@ -391,7 +396,7 @@ def _check_fwd(q, k, v, causal, bias=None):
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, bias=bias)
     torch.cuda.synchronize()
     assert tfa.launch_counts()["fwd"] == {"fma": 0, "wgmma": 0,
-                                          "wgmma_f32": 1}
+                                          "wgmma_f32": 1, "wgmma_f16": 0}
     assert tfa.split_bf16_terms.launches == 1
     o_ref, lse_ref = tfa.reference_attention_fwd(q, k, v, causal=causal,
                                                  bias=bias)
@@ -637,11 +642,13 @@ def test_cuda_f32_backward_dropout_matches_plain_with_the_same_mask(
 
 
 # ------------------------------------------------------------ float16
-# float16 inputs take the wgmma_f32 kernels: a float16 value is exactly two
-# bf16 terms (11 significant bits; bf16 has float32's exponent range), so
-# the split is exact and the kernels compute what the float32 ones compute
-# on the upcast inputs, the reference's float32-operand arithmetic. O and
-# the gradients are then rounded to float16 once: against the plain version
+# float16 inputs take the wgmma_f32 dQ and dK/dV at D = 256, and the
+# wgmma_f32 forward stays callable on them as the yardstick of the native
+# float16 forward: a float16 value is exactly two bf16 terms (11
+# significant bits; bf16 has float32's exponent range), so the split is
+# exact and the kernels compute what the float32 ones compute on the
+# upcast inputs, the reference's float32-operand arithmetic. O and the
+# gradients are then rounded to float16 once: against the plain version
 # (the same float32 arithmetic, rounded once) they may differ by the
 # float32 tolerance plus one float16 ulp of the element, where the two
 # float32 values fall on either side of a rounding boundary.
@@ -674,15 +681,15 @@ def test_plain_prepass_splits_float16_exactly():
 
 
 def test_float16_takes_the_float32_kernels_on_the_card_only():
-    """float16 routes to wgmma_f32 for the forward at every head dim and
-    for dQ and dK/dV at D = 256, and to the native float16 kernels
-    (wgmma_f16) for dQ and dK/dV at D 64 and 128; the gate admits it on the
+    """float16 routes to wgmma_f32 only for dQ and dK/dV at D = 256, and
+    to the native float16 kernels (wgmma_f16) for the forward at every head
+    dim and for dQ and dK/dV at D 64 and 128; the gate admits it on the
     card; on the CPU the wrappers run the plain version, which computes in
     float32 and rounds O once."""
     for d in tfa.SUPPORTED_HEAD_DIMS:
         for kernel in ("fwd", "dq", "dkv"):
-            want = ("wgmma_f16" if kernel != "fwd" and d != 256
-                    else "wgmma_f32")
+            want = ("wgmma_f32" if kernel != "fwd" and d == 256
+                    else "wgmma_f16")
             assert tfa.kernel_route(torch.float16, d, kernel) == want
     q, k, v = (torch.from_numpy(_f32((1, 2, 40, 64), s)).half()
                for s in range(3))
@@ -718,8 +725,9 @@ def test_cuda_split_kernel_equals_plain_for_float16(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_cuda_f16_selfcheck(cuda_device, d):
-    """Both products of the wgmma_f32 path on [64, D] float16 operands
-    against float64, at the float32 self-check's limit."""
+    """Both products of the float16 self-check (the wgmma_f16 kernels'
+    native forms) on [64, D] float16 operands against float64, within the
+    float32 self-check's limit."""
     a, b, c1, c2 = tfa.wgmma_selfcheck(d, cuda_device, dtype=torch.float16)
     torch.cuda.synchronize()
     for got, x, y in ((c1, a, b.T), (c2, a[:, :64], b)):
@@ -734,16 +742,19 @@ def test_cuda_f16_selfcheck(cuda_device, d):
     (128, True, 1024, 1024, False), (64, True, 1500, 1500, False),
     (256, True, 1024, 1024, False), (128, False, 384, 640, True)])
 def test_cuda_f16_forward_matches_plain(cuda_device, d, causal, lq, lk, bias):
-    """The wgmma_f32 forward on float16 inputs: O float16 within the
-    float32 tolerance plus one float16 ulp of the plain O, LSE float32
-    within the float32 tolerance; one forward and one split launch."""
+    """The wgmma_f32 forward on float16 inputs, launched directly (the
+    yardstick of the wgmma_f16 forward, which the route takes): O float16
+    within the float32 tolerance plus one float16 ulp of the plain O, LSE
+    float32 within the float32 tolerance; one split launch, no count on a
+    route."""
     q, k, v, _, b = _bwd_case(cuda_device, d, causal, lq, lk, bias, 16)
     q, k, v = q.half(), k.half(), v.half()
     tfa.reset_launch_counts()
-    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, bias=b)
+    o, lse = tfa._launch_fwd_sm90("wgmma_f32", q, k, v, causal, b, None,
+                                  0.0, 0)
     torch.cuda.synchronize()
     assert tfa.launch_counts()["fwd"] == {"fma": 0, "wgmma": 0,
-                                          "wgmma_f32": 1}
+                                          "wgmma_f32": 0, "wgmma_f16": 0}
     assert tfa.split_bf16_terms.launches == 1
     o_ref, lse_ref = tfa.reference_attention_fwd(q, k, v, causal=causal,
                                                  bias=b)

@@ -349,12 +349,13 @@ def test_split_is_closer_to_float32_than_bf16_p():
     (torch.float64, 128, "fma")])
 def test_route_is_picked_by_dtype_and_head_dim(dtype, d, route, kernel):
     """bf16 takes the wgmma kernels at every head dim, float32 the
-    wgmma_f32 ones (forward, dQ and dK/dV alike), float16 the wgmma_f32
-    forward and the native float16 dQ and dK/dV (wgmma_f16) at D 64 and
-    128 (wgmma_f32 at 256); what no tensor-core kernel takes (float64, a
-    head dim of 96) answers fma, which the wrappers refuse."""
-    if kernel == "fwd" and route == "wgmma_f16":
-        route = "wgmma_f32"  # the float16 forward takes the float32 kernel
+    wgmma_f32 ones (forward, dQ and dK/dV alike), float16 the native
+    float16 forward (wgmma_f16) at every head dim and the native float16
+    dQ and dK/dV at D 64 and 128 (wgmma_f32 at 256); what no tensor-core
+    kernel takes (float64, a head dim of 96) answers fma, which the
+    wrappers refuse."""
+    if kernel == "fwd" and route == "wgmma_f32" and dtype == torch.float16:
+        route = "wgmma_f16"  # the float16 forward is native at every D
     assert tfa.kernel_route(dtype, d, kernel) == route
 
 
@@ -366,7 +367,7 @@ def test_cpu_tensors_launch_nothing():
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
     tfa.flash_attention_bwd(q, k, v, None, o, lse, torch.ones_like(o), True)
     assert tfa.launch_counts() == {"fwd": {"fma": 0, "wgmma": 0,
-                                           "wgmma_f32": 0},
+                                           "wgmma_f32": 0, "wgmma_f16": 0},
                                    "dq": {"fma": 0, "wgmma": 0,
                                           "wgmma_f32": 0, "wgmma_f16": 0},
                                    "dkv": {"fma": 0, "wgmma": 0,
@@ -416,6 +417,7 @@ def test_backward_wrappers_launch_the_route_of_dtype_and_head_dim(
 def test_wgmma_sources_are_built_with_the_rest():
     for source in ("flash_attention_fwd_sm90.cu",
                    "flash_attention_fwd_f32_sm90.cu",
+                   "flash_attention_fwd_f16_sm90.cu",
                    "flash_attention_bwd_dq_sm90.cu",
                    "flash_attention_bwd_dkv_sm90.cu",
                    "flash_attention_bwd_f32_sm90.cu",
@@ -540,7 +542,7 @@ def test_cuda_wgmma_forward_matches_plain(cuda_device, d, causal, lq, lk,
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, bias=b)
     torch.cuda.synchronize()
     assert tfa.launch_counts()["fwd"] == {"fma": 0, "wgmma": 1,
-                                           "wgmma_f32": 0}
+                                           "wgmma_f32": 0, "wgmma_f16": 0}
     o_ref, lse_ref = tfa.reference_attention_fwd(q, k, v, causal=causal,
                                                  bias=b)
     limit = 2 * _bf16_ulp(o_ref) + 1e-6

@@ -77,8 +77,8 @@ def _profile(fn, calls: int):
 def _group(name: str) -> str:
     """A coarse class of a GPU kernel, by its name."""
     n = name.lower()
-    route = "wgmma_f32" if "f32_sm90" in n else "wgmma" if "sm90" in n \
-        else "FMA"
+    route = "wgmma_f32" if "f32_sm90" in n else "wgmma_f16" if "f16_sm90" \
+        in n else "wgmma" if "sm90" in n else "FMA"
     if "split_terms" in n:
         return "flash operand split (ours)"
     if "flash_fwd" in n:
