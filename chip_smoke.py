@@ -9,7 +9,7 @@ exits non-zero:
 1. device    - the card (nvidia-smi name and power limit), torch and CUDA.
 2. build     - compiles every CUDA source of the port from this checkout
                (nvcc, one library per source, all started together), fails
-               on a register spill in the eight wgmma sources (registers
+               on a register spill in the nine wgmma sources (registers
                and spills of the float16 forward and backward printed per
                instantiation), and holds the
                wgmma/TMA self-check (a 64 x 64 x D product through each
@@ -27,15 +27,20 @@ exits non-zero:
                D = 256, also at the D = 256 step's [2,8,1024,256] and at
                the D = 256 prefill's [1,8,2048,256]; float16 on the
                wgmma_f16 route at [2,16,1024,128], [1,32,4096,128],
-               [2,16,1024,64], [1,8,1024,256], with a bias at Lq 384 /
+               [2,16,1024,64], [1,8,1024,256], the float16 D = 256
+               step's [2,8,1024,256], with a bias at Lq 384 /
                Lk 640 and ragged at L = 1500, held to the float32
                tolerance plus one float16 ulp, with the float16 wgmma_f32
                forward it replaced, on no route, checked and timed beside
                it with its split at the two training shapes), the
                dQ and dK/dV
-               backward kernels (wgmma for bf16 and wgmma_f32 for float32,
-               each at D = 64, 128 and 256, and wgmma_f16 for float16 at
-               D = 64 and 128, wgmma_f32 at 256; each case checked for the
+               backward kernels (wgmma for bf16, wgmma_f32 for float32 and
+               wgmma_f16 for float16, each at D = 64, 128 and 256; float16
+               at D = 256 also at [2,16,1024,256], ragged, with a bias at
+               Lq 384 / Lk 640, at the float16 D = 256 step's attention
+               and with dO at a loss scale of 2^13, where dP passes
+               65504, with the longest CTA's floor beside the time; each
+               case checked for the
                route of each kernel; dS as the bias gradient, also causal
                with zeros above the diagonal; every kernel replayed bit
                for bit; the whole backward wrapper, with Delta and the
@@ -46,10 +51,10 @@ exits non-zero:
                float32 (at these four also held to the float32
                tolerance), and at [1,8,1024,256], [2,16,1024,256] and the
                D = 256 step's [2,8,1024,256] bf16; the float16 wgmma_f32
-               pair, on no route at D = 128 since the wgmma_f16 kernels
-               took its place, checked and timed beside them at the
-               float16 GPT step's [2,16,1024,128] and Llama's
-               [1,32,4096,128]), and dropout (the
+               pair, on no route since the wgmma_f16 kernels took its
+               place, checked and timed beside them at the float16 GPT
+               step's [2,16,1024,128], Llama's [1,32,4096,128],
+               [1,8,1024,256] and [2,16,1024,256]), and dropout (the
                CUDA Philox mask against the plain one bit for bit, its keep
                rate, replay of a fixed seed, and forward and backward at
                p = 0.1 given the same mask, also at bf16 D = 256 at its
@@ -96,8 +101,16 @@ exits non-zero:
                reference; one step with the kernels (exactly 4 wgmma
                forward, 2 wgmma dQ and 2 wgmma dK/dV launches, none on an
                FMA kernel) and one with plain attention, the losses equal
-               within two bf16 ulps. Then the float32 check of phase 5 at
-               that width and depth (d256_f32: exactly 4 wgmma_f32
+               within two bf16 ulps. Then the same in float16 O2
+               (d256_fp16_step: GradScaler, exactly 4 wgmma_f16 forward,
+               2 wgmma_f16 dQ and 2 wgmma_f16 dK/dV launches, no split,
+               none on another route; the first path that launches the
+               float16 forward and backward at D = 256; its attention
+               shape [2,8,1024,256] float16 is the kernels line's
+               flash_attention_fwd_f16_sm90_d256 and
+               flash_attention_bwd_{dq,dkv}_f16_sm90_d256 rows). Then the
+               float32 check of phase 5 at that width and depth (d256_f32:
+               exactly 4 wgmma_f32
                forward, 2 dQ and 2 dK/dV launches and 8 of the split, none
                on an FMA kernel; its attention shape [2,8,1024,256]
                float32 is also a case of the backward phase). Then
@@ -210,6 +223,23 @@ F16_TRAIN_FWD = f"train_f16_B{TRAIN_BATCH}_L{TRAIN_SEQ}"
 F16_TRAIN_BWD = f"train_float16_B{TRAIN_BATCH}_L{TRAIN_SEQ}"
 F16_LLAMA_FWD = f"llama_f16_L{LLAMA_SEQ}"
 F16_LLAMA_BWD = f"llama_float16_L{LLAMA_SEQ}"
+# the float16 D = 256 step (phase_d256_fp16_step): the D = 256 step's
+# configuration in float16 O2; its attention, [TRAIN_BATCH, 8, TRAIN_SEQ,
+# 256] float16 causal, is also a case of the forward and backward phases
+D256_FP16_STEP_FWD = (f"d256_fp16_step_f16_B{TRAIN_BATCH}"
+                      f"_H{D256_STEP_HEADS}_L{TRAIN_SEQ}")
+D256_FP16_STEP_BWD = (f"d256_fp16_step_float16_B{TRAIN_BATCH}"
+                      f"_H{D256_STEP_HEADS}_L{TRAIN_SEQ}")
+# a float16 D = 256 backward case with dO at a loss scale (dP passes
+# float16's 65504; the gradients stay inside its range): the absolute
+# part of its tolerance scales with dO
+F16_LOSS_SCALE = 2.0 ** 13
+F16_D256_LOSS_SCALE_BWD = "d256_loss_scale_float16_B1_L1024"
+# the tensor-core products per kept pair of the wgmma_f16 kernels at
+# D = 256 (csrc/flash_attention_bwd_f16_d256_sm90.cu): dQ S, dP and five
+# pairs for dS K; dK/dV S^T and dP^T in both warpgroups, two for dV and
+# five for dK
+F16_D256_PRODUCTS = {"dq": 7, "dkv": 11}
 LLAMA_SAMPLED_LENGTH = 1200
 LLAMA_LOGITS_PROMPT = 3000
 
@@ -259,17 +289,19 @@ def lse_tolerance(lse_ref, route):
     return F32_TOL * 10
 
 
-def bwd_tolerance(ref):
+def bwd_tolerance(ref, do_scale: float = 1.0):
     """The elementwise limit on a backward output's error: BWD_ATOL +
     BWD_RTOL |ref| for float32, plus one float16 ulp of ref for float16
     (one rounding of a float32 value on each side); BF16_ULPS ulps plus
-    BWD_BF16_FLOOR of the largest magnitude for bfloat16."""
+    BWD_BF16_FLOOR of the largest magnitude for bfloat16. The gradients
+    are linear in dO, so for a dO ``do_scale`` times the unit-scale inputs
+    the tolerance was set for (a loss scale), BWD_ATOL scales with it."""
     import torch
 
     if ref.dtype == torch.bfloat16:
         return (BF16_ULPS * bf16_ulp(ref)
                 + BWD_BF16_FLOOR * ref.float().abs().max())
-    tol = BWD_ATOL + BWD_RTOL * ref.float().abs()
+    tol = BWD_ATOL * do_scale + BWD_RTOL * ref.float().abs()
     return tol + f16_ulp(ref) if ref.dtype == torch.float16 else tol
 
 
@@ -380,7 +412,7 @@ def _term_pairs(route, dtype) -> int:
     float16 on either route, whose least work is one float16 product at
     the same peak (the wgmma_f32 route does 6 term pairs for it, 4 of them
     non-zero; the wgmma_f16 kernels 3 products for the forward's 2, 7 for
-    dQ's 3 and 9 for dK/dV's 4)."""
+    dQ's 3 and 9 for dK/dV's 4, 11 at D = 256: F16_D256_PRODUCTS)."""
     import torch
 
     return 6 if route == "wgmma_f32" and dtype == torch.float32 else 1
@@ -430,6 +462,23 @@ def bwd_bound_ms(kernel, B, H, Lq, Lk, D, causal, dtype_bytes, bias_bytes,
     else:
         nbytes += 2 * B * H * Lk * D * dtype_bytes
     return _bound(flops, nbytes, tensor_cores)
+
+
+def longest_cta_floor_ms(kernel, Lq, Lk, D, causal, products):
+    """The least time of the heaviest CTA of a wgmma_f16 D = 256 backward
+    kernel (one CTA per 64 query rows for dQ, per 64 keys for dK/dV): its
+    64 x 64 x D tiles (causal: dQ's last query tile sees every key tile up
+    to the diagonal, dK/dV's first key tile every query tile), times
+    ``products`` tensor-core products a tile, at one SM's share of the
+    tensor cores' peak. With no more CTAs than SMs it bounds the kernel's
+    time from below, whatever the total work's bound says."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_q, n_k = -(-Lq // 64), -(-Lk // 64)
+    tiles = (min(n_q, n_k) if causal else n_k) if kernel == "dq" else n_q
+    flops = tiles * products * 2 * 64 * 64 * D
+    return flops / (PEAK_BF16_TC_FLOPS / sms) * 1e3
 
 
 def _views(g, B, L, H, D, dtype, n=3):
@@ -487,12 +536,13 @@ def ptxas_report(log: str) -> list:
     return out
 
 
-def phase_build(seed: int, fail_on_spill: bool = True) -> None:
+def phase_build(seed: int, fail_on_spill: bool = True) -> dict:
     """Build every kernel source, fail on a spill in the wgmma kernels
     (unless ``fail_on_spill`` is False: a spill is then only reported),
     and hold the wgmma/TMA self-check against torch.matmul (the forward
     routes' forms: bf16 and float16 native products, m64n256k16 included,
-    and float32 through the three-term products)."""
+    and float32 through the three-term products). Returns each source's
+    ptxas report (:func:`ptxas_report`)."""
     import torch
 
     from paddle_tpu_torch.kernels import _build
@@ -508,10 +558,12 @@ def phase_build(seed: int, fail_on_spill: bool = True) -> None:
                                fa._DQ_SM90_SOURCE, fa._DKV_SM90_SOURCE,
                                fa._BWD_F32_SM90_SOURCE,
                                fa._BWD_F32_D256_SM90_SOURCE,
-                               fa._BWD_F16_SM90_SOURCE)
+                               fa._BWD_F16_SM90_SOURCE,
+                               fa._BWD_F16_D256_SM90_SOURCE)
               for k in ptxas[s] if k["spill_stores"] or k["spill_loads"]]
     # registers and spills of each instantiation of the float16 kernels
-    for source in (fa._FWD_F16_SM90_SOURCE, fa._BWD_F16_SM90_SOURCE):
+    for source in (fa._FWD_F16_SM90_SOURCE, fa._BWD_F16_SM90_SOURCE,
+                   fa._BWD_F16_D256_SM90_SOURCE):
         emit("build_wgmma_f16", source=source, ptxas=ptxas[source])
     if spills and fail_on_spill:
         raise AssertionError(f"register spills in the wgmma kernels: {spills}")
@@ -519,9 +571,8 @@ def phase_build(seed: int, fail_on_spill: bool = True) -> None:
     g.manual_seed(seed)
     out = {}
     # the head dims of each dtype's tensor-core forward
-    for dtype, D in [(dtype, D) for (dtype, kernel), dims
-                     in fa.TENSOR_CORE_HEAD_DIMS.items() if kernel == "fwd"
-                     for D in dims]:
+    for dtype, D in [(dtype, D) for dtype in fa._DTYPE_ROUTES
+                     for D in fa.SUPPORTED_HEAD_DIMS]:
         a, b, c1, c2 = fa.wgmma_selfcheck(D, "cuda", g, dtype=dtype)
         torch.cuda.synchronize()
         for name, got, x, y in (("kmajor", c1, a, b.T), ("transposed_b", c2,
@@ -536,6 +587,7 @@ def phase_build(seed: int, fail_on_spill: bool = True) -> None:
             out[key] = check_close(f"wgmma self-check {key}", got,
                                    x.double() @ y.double(), limit + 1e-30)
     emit("selfcheck", **out)
+    return ptxas
 
 
 def _fwd_cases(g):
@@ -598,6 +650,10 @@ def _fwd_cases(g):
                   True, None, "wgmma_f16", f16_tol))
     cases.append(("d256_causal_f16_L1024", *_views(g, 1, 1024, 8, 256,
                                                    torch.float16),
+                  True, None, "wgmma_f16", f16_tol))
+    cases.append((D256_FP16_STEP_FWD, *_views(g, TRAIN_BATCH, TRAIN_SEQ,
+                                              D256_STEP_HEADS, 256,
+                                              torch.float16),
                   True, None, "wgmma_f16", f16_tol))
     for dtype, D, H, route, tol in (
             (torch.float32, 128, 16, "wgmma_f32", f32_tol),
@@ -797,7 +853,8 @@ def _bwd_cases(g):
     for dtype, D, H, route in ((torch.float32, 128, 16, "wgmma_f32"),
                                (torch.bfloat16, 64, 16, "wgmma"),
                                (torch.float32, 256, 8, "wgmma_f32"),
-                               (torch.float16, 128, 16, "wgmma_f16")):
+                               (torch.float16, 128, 16, "wgmma_f16"),
+                               (torch.float16, 256, 8, "wgmma_f16")):
         q, k, v = (rn(1, H, n, D).to(dtype) for n in (384, 640, 640))
         cases.append((f"bias_noncausal_{_dtype_name(q)}_d{D}_Lq384_Lk640", q,
                       k, v, rn(1, H, 384, D).to(dtype), False,
@@ -816,19 +873,21 @@ def _bwd_cases(g):
     for dtype, D, H, route in ((torch.float32, 128, 16, "wgmma_f32"),
                                (torch.bfloat16, 128, 16, "wgmma"),
                                (torch.float32, 256, 8, "wgmma_f32"),
-                               (torch.float16, 128, 16, "wgmma_f16")):
+                               (torch.float16, 128, 16, "wgmma_f16"),
+                               (torch.float16, 256, 8, "wgmma_f16")):
         q, k, v = _views(g, 1, 1500, H, D, dtype)
         d256 = "_d256" if D == 256 else ""
         cases.append((f"ragged_causal_{_dtype_name(q)}{d256}_L1500", q, k, v,
                       rn(1, 1500, H, D).to(dtype).transpose(1, 2), True,
                       None, _both(route)))
     # D = 64 at the training batch and at bench_gpt_primary's batch of 8,
-    # and D = 256 (float16 there on the wgmma_f32 kernels)
+    # and D = 256 (float16 at two shapes: one wave of 128 CTAs, and 512)
     for dtype, D, B, H, routes in (
             (torch.float32, 64, 2, 16, _both("wgmma_f32")),
             (torch.float32, 256, 1, 8, _both("wgmma_f32")),
             (torch.float16, 64, 2, 16, _both("wgmma_f16")),
-            (torch.float16, 256, 1, 8, _both("wgmma_f32")),
+            (torch.float16, 256, 1, 8, _both("wgmma_f16")),
+            (torch.float16, 256, 2, 16, _both("wgmma_f16")),
             (torch.bfloat16, 64, 2, 16, _both("wgmma")),
             (torch.bfloat16, 64, 8, 16, _both("wgmma")),
             (torch.bfloat16, 256, 1, 8, _both("wgmma")),
@@ -836,15 +895,22 @@ def _bwd_cases(g):
         q, k, v, do = (rn(B, H, 1024, D).to(dtype) for _ in range(4))
         cases.append((f"d{D}_causal_{_dtype_name(q)}_B{B}_L1024", q, k, v, do,
                       True, None, routes))
-    # the attention of the D = 256 step (bf16) and of the float32 D = 256
-    # run, as their autograd hands it over
+    # the attention of the D = 256 step (bf16), of the float32 D = 256 run
+    # and of the float16 D = 256 step, as their autograd hands it over
     for name, dtype, route in ((D256_STEP_BWD, torch.bfloat16, "wgmma"),
-                               (D256_F32_BWD, torch.float32, "wgmma_f32")):
+                               (D256_F32_BWD, torch.float32, "wgmma_f32"),
+                               (D256_FP16_STEP_BWD, torch.float16,
+                                "wgmma_f16")):
         q, k, v = _views(g, TRAIN_BATCH, TRAIN_SEQ, D256_STEP_HEADS, 256,
                          dtype)
         do = rn(TRAIN_BATCH, TRAIN_SEQ, D256_STEP_HEADS, 256).to(
             dtype).transpose(1, 2)
         cases.append((name, q, k, v, do, True, None, _both(route)))
+    # float16 at D = 256 with dO at a loss scale: dP passes 65504
+    q, k, v = (rn(1, 8, 1024, 256).half() for _ in range(3))
+    do = (rn(1, 8, 1024, 256) * F16_LOSS_SCALE).half()
+    cases.append((F16_D256_LOSS_SCALE_BWD, q, k, v, do, True, None,
+                  _both("wgmma_f16")))
     # Llama-2-7B's training attention, as its autograd hands it over, in
     # bf16 (wgmma) and float16 (wgmma_f16)
     for name, dtype, route in ((LLAMA_TRAIN_BWD, torch.bfloat16, "wgmma"),
@@ -872,15 +938,17 @@ FMA_COMPARED = ("train_float32_B2_L1024", "d64_causal_float32_B2_L1024",
 
 
 # the float16 cases at which the wgmma_f32 dQ and dK/dV, which the wgmma_f16
-# kernels replace at D = 128, are checked and timed beside them
-F16_COMPARED = (F16_TRAIN_BWD, F16_LLAMA_BWD)
+# kernels replace (at D = 128 and at D = 256), are checked and timed beside
+# them
+F16_COMPARED = (F16_TRAIN_BWD, F16_LLAMA_BWD, "d256_causal_float16_B1_L1024",
+                "d256_causal_float16_B2_L1024")
 
 
 def _f32_route_bwd_fns(fa, q, k, v, bias, do, lse, delta, causal, emit_ds):
     """The float16 wgmma_f32 dQ and dK/dV on the same inputs, launched
-    directly (no route takes them at D 64 and 128), on q, k, v and dO's
-    bf16 terms split once here; ``{"dq_wgmma_f32", "dkv_wgmma_f32"}``,
-    each returning its gradients."""
+    directly (no route takes them), on q, k, v and dO's bf16 terms split
+    once here; ``{"dq_wgmma_f32", "dkv_wgmma_f32"}``, each returning its
+    gradients."""
     import torch
 
     terms = fa._backward_terms(q, k, v, do)
@@ -952,10 +1020,17 @@ def phase_backward(seed: int) -> dict:
         refs = {"dq": dq, "dk": dk, "dv": dv}
         if bias is not None:
             refs["dbias"] = ds.sum(0, keepdim=True)
+        do_scale = F16_LOSS_SCALE if name == F16_D256_LOSS_SCALE_BWD else 1.0
+        if do_scale > 1.0:
+            dp_max = torch.einsum("bhqd,bhkd->bhqk", do.float(),
+                                  v.float()).abs().max().item()
+            if not dp_max > 65504:
+                raise AssertionError(f"{name}: dP reaches {dp_max}, not past "
+                                     f"float16's range")
         errs = {}
         for (key, ref), x in zip(refs.items(), got):
             errs[key] = check_close(f"{name} {key}", x, ref,
-                                    bwd_tolerance(ref))
+                                    bwd_tolerance(ref, do_scale))
         if bias is not None and causal and not bool((got[3].triu(1) == 0).all()):
             raise AssertionError(f"{name}: dS is not zero above the diagonal")
         delta = (do.float() * o.float()).sum(-1).contiguous()
@@ -1029,6 +1104,12 @@ def phase_backward(seed: int) -> dict:
             "dkv", *common, 0, tensor_cores=routes["dkv"] != "fma",
             term_pairs=_term_pairs(routes["dkv"], q.dtype))
         dq_ms, dkv_ms = t["dq"]["median"], t["dkv"]["median"]
+        # the wgmma_f16 kernels at D = 256: the longest CTA's floor too
+        floors = {}
+        if D == 256 and set(routes.values()) == {"wgmma_f16"}:
+            floors = {f"{w}_cta_floor_ms": longest_cta_floor_ms(
+                w, Lq, Lk, D, causal, F16_D256_PRODUCTS[w])
+                for w in ("dq", "dkv")}
         fma = {}
         for w in ("dq", "dkv"):
             for other in ("fma", "wgmma_f32"):
@@ -1048,14 +1129,15 @@ def phase_backward(seed: int) -> dict:
             bias=bias is not None, routes=routes, errors=errs,
             replay_bit_exact=bool(calls) or None,
             tol=("2 bf16 ulps + 1e-5 of max" if q.dtype == torch.bfloat16
-                 else f"rtol {BWD_RTOL} atol {BWD_ATOL}"
+                 else f"rtol {BWD_RTOL} atol {BWD_ATOL * do_scale}"
                  + (" + 1 float16 ulp" if q.dtype == torch.float16 else "")),
+            do_scale=do_scale,
             dq_ms=dq_ms, dq_ms_range=[t["dq"]["min"], t["dq"]["max"]],
             dkv_ms=dkv_ms, dkv_ms_range=[t["dkv"]["min"], t["dkv"]["max"]],
             bwd_ms=t["bwd"]["median"],
             bwd_ms_range=[t["bwd"]["min"], t["bwd"]["max"]],
             split_ms=t["split"]["median"] if "split" in t else None,
-            **fma, fma_errors=fma_errs or None,
+            **floors, **fma, fma_errors=fma_errs or None,
             wgmma_f32_errors=f32_errs or None,
             dq_bound_ms=dq_bound, dq_bound_by=dq_by,
             dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
@@ -1121,8 +1203,8 @@ def phase_dropout(seed: int) -> dict:
                keep_rate_sigma=sigma / n, mask_bound_ms=mask_bound_ms,
                mask_bound_by="operations")
     # D = 256 at both of its timed shapes and at the D = 256 step's, and
-    # float32 at D = 256; float16 (the wgmma_f16 forward and backward; at
-    # D = 256 the wgmma_f16 forward and the wgmma_f32 backward): the mask
+    # float32 at D = 256; float16 (the wgmma_f16 forward and backward, at
+    # D 128 and 256): the mask
     # of the first Bc batches and Hc heads is the corner of the full one
     # (Philox keys by (b, h, row, col))
     for dtype, D, Bc, Hc in ((torch.float32, D, B, H),
@@ -1398,7 +1480,7 @@ def _need(**launches) -> tuple:
 
 def _step_need(dtype: str, n: int) -> tuple:
     """The launches of one training step of ``n`` layers (forward and its
-    recompute, dQ, dK/dV) at D = 128 in ``dtype``: wgmma for bf16,
+    recompute, dQ, dK/dV) at any head dim in ``dtype``: wgmma for bf16,
     wgmma_f16 for float16."""
     if dtype == "float16":
         return _need(fwd_wgmma_f16=2 * n, dq_wgmma_f16=n, dkv_wgmma_f16=n)
@@ -2009,6 +2091,28 @@ def phase_d256_step(seed: int) -> dict:
         head_dim=256)
 
 
+def phase_d256_fp16_step(seed: int) -> dict:
+    """_o2_step_vs_plain in float16 (GradScaler at its defaults) at
+    gpt_1p3b width with 8 heads of 256 (D = 256) and 2 layers, batch
+    TRAIN_BATCH x TRAIN_SEQ: the gradients and one guarded step through
+    the wgmma_f16 forward, dQ and dK/dV at D = 256 (exactly 4, 2 and 2
+    launches, no split, no wgmma_f32 kernel) against plain attention. The
+    first path that launches the float16 forward and backward at D = 256."""
+    import numpy as np
+
+    vocab = _train_config().vocab_size
+    ids = np.random.default_rng(seed + 4).integers(
+        0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    return _o2_step_vs_plain(
+        seed, "d256_fp16_step",
+        lambda flash: _train_config(num_layers=2, num_heads=D256_STEP_HEADS,
+                                    dtype="float16",
+                                    use_flash_attention=flash), ids,
+        dtype="float16",
+        model="gpt_1p3b width, 8 heads of 256, 2 layers, O2 float16",
+        head_dim=256)
+
+
 def _llama_config(**overrides):
     """llama2_7b at full width (bf16 KV cache: serving's storage type)."""
     from paddle_tpu_torch.models.llama import llama2_7b
@@ -2195,7 +2299,7 @@ def main(argv=None) -> int:
     emit("device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
-    phase_build(args.seed, fail_on_spill=not args.kernels_only)
+    ptxas = phase_build(args.seed, fail_on_spill=not args.kernels_only)
     fwd = phase_kernels(args.seed)
     bwd = phase_backward(args.seed)
     phase_dropout(args.seed)
@@ -2214,6 +2318,8 @@ def main(argv=None) -> int:
     phase_dropout_replay(args.seed)
     _free()
     d256 = phase_d256_step(args.seed)
+    _free()
+    d256_fp16 = phase_d256_fp16_step(args.seed)
     _free()
     d256_f32 = phase_d256_f32(args.seed)
     _free()
@@ -2250,15 +2356,23 @@ def main(argv=None) -> int:
         # "wgmma_f32"), checked and timed beside it
         errs = c[f"{other}_errors"] if other else c["errors"]
         f = f"{which}_{other}" if other else which
-        return dict(name=name, route="cuda", source=src + source,
-                    replaces=ref + ("198" if which == "dq" else "269"),
-                    launches=launches, main_path=path,
-                    max_abs_err=max(errs[k]["max_abs_err"] for k in keys),
-                    ms=c[f"{f}_ms"], ms_range=c[f"{f}_ms_range"],
-                    plain_ms=c["plain_ms"], bound_ms=c[f"{f}_bound_ms"],
-                    bound_by=c[f"{f}_bound_by"],
-                    library_ms=c["library_ms"], shape=c["shape"],
-                    dtype=c["dtype"], causal=c["causal"])
+        row = dict(name=name, route="cuda", source=src + source,
+                   replaces=ref + ("198" if which == "dq" else "269"),
+                   launches=launches, main_path=path,
+                   max_abs_err=max(errs[k]["max_abs_err"] for k in keys),
+                   ms=c[f"{f}_ms"], ms_range=c[f"{f}_ms_range"],
+                   plain_ms=c["plain_ms"], bound_ms=c[f"{f}_bound_ms"],
+                   bound_by=c[f"{f}_bound_by"],
+                   library_ms=c["library_ms"], shape=c["shape"],
+                   dtype=c["dtype"], causal=c["causal"])
+        return row
+
+    def with_ptxas(row, source, which):
+        """``row`` with the registers and spills of each instantiation of
+        ``which``'s kernel in ``source`` (with and without dropout)."""
+        row["ptxas"] = [k for k in ptxas[source]
+                        if f"_{which}_" in k["kernel"]]
+        return row
 
     step = "training (bf16 O2 step)"
     f32_step = "training (float32 parity run)"
@@ -2266,6 +2380,7 @@ def main(argv=None) -> int:
     d256_step = "training (bf16 O2 step, D = 256, 2 layers)"
     d256_prefill_path = "serving (float32 prefill, D = 256, 2 layers)"
     d256_f32_path = "training (float32 parity run, D = 256, 2 layers)"
+    d256_fp16_path = "training (float16 O2 step, D = 256, 2 layers)"
     d256_counts = d256["launches"]
     kernels = [
         fwd_row("flash_attention_fwd_f32_sm90",
@@ -2322,11 +2437,11 @@ def main(argv=None) -> int:
                 d256_f32["launches"]["dkv_wgmma_f32"], d256_f32_path),
     ]
     # float16: the wgmma_f16 forward, dQ and dK/dV at the GPT step's
-    # attention on the float16 O2 step's path; Llama's shape, D = 64 and
-    # D = 256 on no path (no Llama phase trains in float16); the float16
-    # wgmma_f32 kernels the wgmma_f16 ones replaced, and the forward's
-    # split, on no path since, checked and timed beside them at both
-    # training shapes; the float16 wgmma_f32 dQ and dK/dV at D = 256
+    # attention on the float16 O2 step's path, and at D = 256 on the
+    # float16 D = 256 step's; Llama's shape and D = 64 on no path (no Llama
+    # phase trains in float16); the float16 wgmma_f32 kernels the wgmma_f16
+    # ones replaced, and the forward's split, on no path since, checked and
+    # timed beside them at both training shapes and at D = 256
     fp16_path = "training (float16 O2 step, GradScaler)"
     kernels += [
         fwd_row("flash_attention_fwd_f16_sm90",
@@ -2338,8 +2453,8 @@ def main(argv=None) -> int:
                 "flash_attention_fwd_f16_sm90.cu", "d64_causal_f16_B2_L1024",
                 0, None),
         fwd_row("flash_attention_fwd_f16_sm90_d256",
-                "flash_attention_fwd_f16_sm90.cu", "d256_causal_f16_L1024",
-                0, None),
+                "flash_attention_fwd_f16_sm90.cu", D256_FP16_STEP_FWD,
+                d256_fp16["launches"]["fwd_wgmma_f16"], d256_fp16_path),
         fwd_row("flash_attention_fwd_f32_sm90_f16",
                 "flash_attention_fwd_f32_sm90.cu", F16_TRAIN_FWD,
                 fp16["launches"]["fwd_wgmma_f32"], None, other="wgmma_f32"),
@@ -2365,10 +2480,18 @@ def main(argv=None) -> int:
                 0, None),
         bwd_row("flash_attention_bwd_dq_f32_sm90_d256_f16",
                 "flash_attention_bwd_f32_d256_sm90.cu", "dq",
-                "d256_causal_float16_B1_L1024", 0, None),
+                "d256_causal_float16_B1_L1024", 0, None, other="wgmma_f32"),
         bwd_row("flash_attention_bwd_dkv_f32_sm90_d256_f16",
                 "flash_attention_bwd_f32_d256_sm90.cu", "dkv",
-                "d256_causal_float16_B1_L1024", 0, None)]
+                "d256_causal_float16_B1_L1024", 0, None, other="wgmma_f32")]
+    # the wgmma_f16 dQ and dK/dV at D = 256, at the float16 D = 256 step's
+    # attention on its path
+    for which in ("dq", "dkv"):
+        kernels.append(with_ptxas(bwd_row(
+            f"flash_attention_bwd_{which}_f16_sm90_d256",
+            "flash_attention_bwd_f16_d256_sm90.cu", which, D256_FP16_STEP_BWD,
+            d256_fp16["launches"][f"{which}_wgmma_f16"], d256_fp16_path),
+            "flash_attention_bwd_f16_d256_sm90.cu", which))
     for which in ("dq", "dkv"):
         kernels += [
             bwd_row(f"flash_attention_bwd_{which}_f16_sm90_llama_shape",

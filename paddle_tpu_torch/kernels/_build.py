@@ -34,7 +34,8 @@ SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
            "flash_attention_bwd_dq_sm90.cu",
            "flash_attention_bwd_dkv_sm90.cu", "flash_attention_bwd_f32_sm90.cu",
            "flash_attention_bwd_f32_d256_sm90.cu",
-           "flash_attention_bwd_f16_sm90.cu")
+           "flash_attention_bwd_f16_sm90.cu",
+           "flash_attention_bwd_f16_d256_sm90.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -8,9 +8,9 @@
 // (`_dropout_mask`, :120; here philox.cuh), for float16 q/k/v/dO at head
 // dims 64 and 128: the attention backward of float16 (O2) training. The
 // float16 forward has its own native kernel
-// (flash_attention_fwd_f16_sm90.cu); the float16 backward at D = 256 takes
-// the wgmma_f32 kernels (flash_attention_bwd_f32_d256_sm90.cu). The Python
-// wrapper routes by (dtype, D, kernel).
+// (flash_attention_fwd_f16_sm90.cu), and so has the float16 backward at
+// D = 256 (flash_attention_bwd_f16_d256_sm90.cu). The Python wrapper routes
+// by (dtype, D, kernel).
 //
 // Computes what the other backward kernels compute (flash_bwd_sm90.cuh):
 // dQ and, when asked for, dS as float32 [B, H, Lq, Lk] with zeros on the
@@ -100,74 +100,6 @@ using namespace pt_bwd_sm90;
 using Params = BwdParams<__half>;
 
 constexpr int kStages = 2;
-
-// ------------------------------------------------------------ float16 parts
-__device__ __forceinline__ float2 half2_bits_to_float2(uint32_t w) {
-  return make_float2(
-      __half2float(__ushort_as_half(static_cast<unsigned short>(w & 0xffffu))),
-      __half2float(__ushort_as_half(static_cast<unsigned short>(w >> 16))));
-}
-
-// The two bf16 terms of a float16 [64, D] tile in shared memory: term 0
-// (each element rounded to bf16) replaces the tile at `tile`, term 1 (the
-// remainder, a bf16 value: the sum is exact) goes to `lo`. Each element
-// keeps its byte offset, so both are in the layout the tile's descriptors
-// read. Thread `tid` of kThreads takes every kThreads-th 16-byte chunk; the
-// caller orders the pass after every read of the float16 tile and fences it
-// (fence_proxy_async_smem) before the wgmmas that read the terms.
-template <int D, int kThreads>
-__device__ __forceinline__ void split_f16_tile(uint8_t* tile, uint8_t* lo,
-                                               int tid) {
-  constexpr int kChunks = 64 * D * 2 / 16;
-  uint4* const hi4 = reinterpret_cast<uint4*>(tile);
-  uint4* const lo4 = reinterpret_cast<uint4*>(lo);
-#pragma unroll 1
-  for (int c = tid; c < kChunks; c += kThreads) {
-    const uint4 x = hi4[c];
-    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-    uint32_t t0[4], t1[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float2 f = half2_bits_to_float2(w[r]);
-      const __nv_bfloat162 h = __floats2bfloat162_rn(f.x, f.y);
-      const float2 hf = __bfloat1622float2(h);
-      t0[r] = bf16x2_bits(h);
-      t1[r] = bf16x2_bits(__floats2bfloat162_rn(f.x - hf.x, f.y - hf.y));
-    }
-    hi4[c] = make_uint4(t0[0], t0[1], t0[2], t0[3]);
-    lo4[c] = make_uint4(t1[0], t1[1], t1[2], t1[3]);
-  }
-}
-
-// D[64 x N] += A B for a float32 64 x 64 matrix A with element i `a(i)`,
-// as its three bf16 terms, and B as its two bf16 terms b0 + b1 (transposed
-// [64, N] tiles): the five pairs a + j <= 2 in the float32 kernels' order,
-// B's smaller term first and then A's terms from the smallest, (1, 1),
-// (0, 1), (2, 0), (1, 0), (0, 0) (so one descriptor is live at a time), one
-// 16-column slice of A at a time so that only that slice's fragments are
-// live, waited for.
-template <int N, typename Elem>
-__device__ __forceinline__ void wgmma_split_pairs(float (&d)[N / 2], Elem a,
-                                                  uint32_t b0, uint32_t b1) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t f[kSplit][4];
-    split_slice(a, kk, f);
-    fence_operand(d);
-    wgmma_fence();
-    const uint64_t d1 = mnmajor_desc(opaque(b1), kk);
-    wgmma_rs_tb<N>(d, f[1], d1);
-    wgmma_rs_tb<N>(d, f[0], d1);
-    const uint64_t d0 = mnmajor_desc(opaque(b0), kk);
-    wgmma_rs_tb<N>(d, f[2], d0);
-    wgmma_rs_tb<N>(d, f[1], d0);
-    wgmma_rs_tb<N>(d, f[0], d0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_fragments(f);
-    fence_operand(d);
-  }
-}
 
 // ------------------------------------------------------------ dQ
 constexpr int kDqThreads = kConsumers + 32;  // a warpgroup and a producer warp

@@ -5,11 +5,13 @@
 // Replaces: paddle_tpu/kernels/flash_attention.py `_bwd_dq_kernel` (:198,
 // pallas_call at :466) and `_bwd_dkv_kernel` (:269, pallas_call at :513),
 // both launched by `_flash_bwd_impl` (:411), with their in-kernel dropout
-// (`_dropout_mask`, :120; here philox.cuh), for float32 (and float16,
-// whose bf16 terms are exact) q/k/v/dO at head dim 256. D 64/128 take
-// flash_attention_bwd_f32_sm90.cu, bf16 inputs
-// flash_attention_bwd_{dq,dkv}_sm90.cu; the Python wrapper routes by
-// (dtype, D, kernel).
+// (`_dropout_mask`, :120; here philox.cuh), for float32 q/k/v/dO at head
+// dim 256. D 64/128 take flash_attention_bwd_f32_sm90.cu, bf16 inputs
+// flash_attention_bwd_{dq,dkv}_sm90.cu, float16 inputs
+// flash_attention_bwd_f16_d256_sm90.cu; the Python wrapper routes by
+// (dtype, D, kernel). The float16 instantiation (float16's bf16 terms are
+// exact) is on no route: the yardstick the float16 kernels are timed
+// against.
 //
 // Computes what those kernels compute (flash_bwd_sm90.cuh): dQ and, when
 // asked for, dS as float32 [B, H, Lq, Lk] with zeros on the tiles the

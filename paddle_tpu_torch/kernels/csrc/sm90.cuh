@@ -263,6 +263,17 @@ constexpr bool kIsF16 = std::is_same<T, __half>::value;
   "%40, %41, %42, %43, %44, %45, %46, %47, "                                 \
   "%48, %49, %50, %51, %52, %53, %54, %55, "                                 \
   "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define PT_ACC16(d)                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+// SS m64n32k16, both operands K-major, of element type TY
+#define PT_WGMMA_SS_N32(TY)                                                  \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                              \
+  "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                                        \
+  "%8, %9, %10, %11, %12, %13, %14, %15}, "                                  \
+  "%16, %17, p, 1, 1, 0, 0;\n}\n"
 // SS m64n64k16, both operands K-major, of element type TY ("bf16", "f16")
 #define PT_WGMMA_SS_N64(TY)                                                  \
   "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                              \
@@ -298,20 +309,19 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
                  : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B K-major in shared memory.
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B K-major in shared memory,
+// both of element type T (the D = 256 dQ kernels' half key tiles).
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a,
                                              uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  if constexpr (kIsF16<T>)
+    asm volatile(PT_WGMMA_SS_N32("f16")
+                 : PT_ACC16(d)
+                 : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  else
+    asm volatile(PT_WGMMA_SS_N32("bf16")
+                 : PT_ACC16(d)
+                 : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A K-major and B MN-major
@@ -638,8 +648,9 @@ __device__ __forceinline__ void wgmma_kmajor_product(float (&d)[32],
 }
 
 // D[64 x 32] = A B^T for a K-major [64, K] tile and 32 rows of another
-// (tile_b points at the first of them, a multiple of 8 rows in).
-template <int K>
+// (tile_b points at the first of them, a multiple of 8 rows in), both of
+// element type T.
+template <int K, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_kmajor_product(float (&d)[16],
                                                      uint32_t tile_a,
                                                      uint32_t tile_b) {
@@ -647,8 +658,8 @@ __device__ __forceinline__ void wgmma_kmajor_product(float (&d)[16],
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
-    wgmma_ss_n32(d, kmajor_desc(tile_a, kk), kmajor_desc(tile_b, kk),
-                 kk > 0 ? 1 : 0);
+    wgmma_ss_n32<T>(d, kmajor_desc(tile_a, kk), kmajor_desc(tile_b, kk),
+                    kk > 0 ? 1 : 0);
   wgmma_commit();
   wgmma_wait_all();
   fence_operand(d);

@@ -35,16 +35,15 @@ The kernels replace the three Pallas kernels of the reference:
   no split: Q K^T is a native float16 product (exact in float32), P M
   enters P V as a float16 hi/lo pair of P M s (s a power of two), and O
   is rounded to float16 once, from float32, as it is written;
-- float16 dQ and dK/dV at head dim 256 take the float32 kernels, as the
-  reference computes float16 with float32 operands: the split reads
-  float16 directly (a float16 value is exactly two bf16 terms, the third
-  is zero), and the gradients are rounded to float16 once;
-- ``csrc/flash_attention_bwd_f16_sm90.cu`` replaces dQ and dK/dV again for
-  float16 inputs at head dims 64 and 128, with no split: Q K^T and dO V^T
-  are native float16 products (exact in float32), dS enters as three bf16
+- ``csrc/flash_attention_bwd_f16_sm90.cu`` (head dims 64 and 128) and
+  ``csrc/flash_attention_bwd_f16_d256_sm90.cu`` (head dim 256) replace dQ
+  and dK/dV again for float16 inputs, with no split: Q K^T and dO V^T are
+  native float16 products (exact in float32), dS enters as three bf16
   terms against K's or Q's two, made in shared memory from the TMA tile,
   and P M as a float16 hi/lo pair; dQ, dK and dV are rounded to float16
-  once;
+  once. The float16 instantiations of the float32 kernels (the split
+  reads float16 as it is: a float16 value is exactly two bf16 terms) are
+  on no route; ``chip_smoke.py`` times them beside these;
 - ``csrc/philox.cuh`` replaces the in-kernel dropout ``_dropout_mask``
   (``:120``): Philox4x32-10 bits keyed per element by (seed, b, h, row,
   col), so the three kernels regenerate one mask although they tile
@@ -62,9 +61,8 @@ runs the plain version (that is what the CPU tests exercise), and given
 CUDA tensors it launches the kernel or raises. Among the kernels the
 route is picked by (dtype, head dim, kernel) alone (:func:`kernel_route`):
 bf16 takes the ``wgmma`` forward, dQ and dK/dV kernels at every head dim,
-float32 the ``wgmma_f32`` ones, float16 the ``wgmma_f16`` forward at every
-head dim and the ``wgmma_f16`` dQ and dK/dV (``wgmma_f32`` at head dim
-256); no route takes the ``fma`` kernels. Each
+float32 the ``wgmma_f32`` ones, float16 the ``wgmma_f16`` ones; no route
+takes the ``fma`` kernels. Each
 wrapper counts its launches in ``<wrapper>.launches`` and per route in
 ``<wrapper>.routes`` (:func:`launch_counts`).
 
@@ -92,8 +90,8 @@ import torch
 
 from . import _build
 
-__all__ = ["SUPPORTED_HEAD_DIMS", "TENSOR_CORE_HEAD_DIMS", "kernel_route",
-           "tma_geometry", "launch_counts", "reset_launch_counts",
+__all__ = ["SUPPORTED_HEAD_DIMS", "kernel_route", "tma_geometry",
+           "launch_counts", "reset_launch_counts",
            "wgmma_selfcheck", "split_bf16_terms", "should_use_flash",
            "philox_bits", "dropout_bits", "dropout_mask", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
@@ -108,19 +106,6 @@ _KERNELS = ("fwd", "dq", "dkv")
 #: as it is (``"wgmma_f16"``)
 _DTYPE_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "wgmma_f32",
                  torch.float16: "wgmma_f16"}
-#: the tensor-core route of each (dtype, kernel, head dim): its dtype's,
-#: but the float32 kernels (``"wgmma_f32"``, float16 as its two exact bf16
-#: terms) for the float16 dQ and dK/dV at head dim 256
-_TENSOR_CORE_ROUTES = {
-    (dtype, kernel, D): ("wgmma_f32" if dtype == torch.float16
-                         and kernel != "fwd" and D == 256 else route)
-    for dtype, route in _DTYPE_ROUTES.items() for kernel in _KERNELS
-    for D in SUPPORTED_HEAD_DIMS}
-#: head dims at which each (dtype, kernel) runs on the tensor cores (every
-#: kernel at every head dim); the rest is ``"fma"``, which no wrapper
-#: launches
-TENSOR_CORE_HEAD_DIMS = {(dtype, kernel): SUPPORTED_HEAD_DIMS
-                         for dtype in _DTYPE_ROUTES for kernel in _KERNELS}
 _FWD_SOURCE = "flash_attention_fwd.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
 _FWD_SM90_SOURCE = "flash_attention_fwd_sm90.cu"
@@ -131,6 +116,7 @@ _DKV_SM90_SOURCE = "flash_attention_bwd_dkv_sm90.cu"
 _BWD_F32_SM90_SOURCE = "flash_attention_bwd_f32_sm90.cu"
 _BWD_F32_D256_SM90_SOURCE = "flash_attention_bwd_f32_d256_sm90.cu"
 _BWD_F16_SM90_SOURCE = "flash_attention_bwd_f16_sm90.cu"
+_BWD_F16_D256_SM90_SOURCE = "flash_attention_bwd_f16_d256_sm90.cu"
 #: element-type codes of the C entries (the FMA kernels take 0 and 1)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TILE_ROWS = 64  # rows of every TMA box (csrc/sm90.cuh)
@@ -139,17 +125,17 @@ _TILE_ROWS = 64  # rows of every TMA box (csrc/sm90.cuh)
 def kernel_route(dtype: torch.dtype, head_dim: int, kernel: str) -> str:
     """Which kernel a CUDA input of ``dtype`` and ``head_dim`` takes for
     ``kernel`` ("fwd", "dq" or "dkv"): at the head dims of
-    :data:`TENSOR_CORE_HEAD_DIMS` (every kernel at D 64, 128 and 256)
+    :data:`SUPPORTED_HEAD_DIMS` (every kernel at D 64, 128 and 256)
     ``"wgmma"`` (the sm_90a tensor-core kernels) for bf16,
-    ``"wgmma_f32"`` (the same tensor cores, each float32 or float16
-    operand as three bf16 terms) for float32 and for the float16 dQ and
-    dK/dV at D = 256, and ``"wgmma_f16"`` (native float16 products) for
-    the float16 forward at every D and the float16 dQ and dK/dV at D 64
-    and 128; ``"fma"`` for everything else, which the wrappers refuse
-    (another dtype or head dim)."""
+    ``"wgmma_f32"`` (the same tensor cores, each float32 operand as three
+    bf16 terms) for float32, and ``"wgmma_f16"`` (native float16
+    products, no split) for float16; ``"fma"`` for everything else, which
+    the wrappers refuse (another dtype or head dim)."""
     if kernel not in _KERNELS:
         raise ValueError(f"kernel must be fwd, dq or dkv, got {kernel!r}")
-    return _TENSOR_CORE_ROUTES.get((dtype, kernel, head_dim), "fma")
+    if dtype not in _DTYPE_ROUTES or head_dim not in SUPPORTED_HEAD_DIMS:
+        return "fma"
+    return _DTYPE_ROUTES[dtype]
 
 
 def tma_geometry(t: torch.Tensor) -> Tuple[int, ...]:
@@ -469,6 +455,9 @@ def _bwd_sm90_fn(which: str, route: str, head_dim: int):
         source, name = _BWD_F32_D256_SM90_SOURCE, f"bwd_{which}_f32_d256_sm90"
     elif route == "wgmma_f32":
         source, name = _BWD_F32_SM90_SOURCE, f"bwd_{which}_f32_sm90"
+    elif route == "wgmma_f16" and head_dim == 256:
+        source = _BWD_F16_D256_SM90_SOURCE
+        name = f"bwd_{which}_f16_d256_sm90"
     elif route == "wgmma_f16":
         source, name = _BWD_F16_SM90_SOURCE, f"bwd_{which}_f16_sm90"
     else:

@@ -1,7 +1,8 @@
 """The native float16 kernels of the port's flash attention (route
 ``wgmma_f16``): the forward of ``csrc/flash_attention_fwd_f16_sm90.cu`` at
 head dims 64, 128 and 256 and the dQ and dK/dV kernels of
-``csrc/flash_attention_bwd_f16_sm90.cu`` at head dims 64 and 128, their
+``csrc/flash_attention_bwd_f16_sm90.cu`` (head dims 64 and 128) and
+``csrc/flash_attention_bwd_f16_d256_sm90.cu`` (head dim 256), their
 arithmetic emulated in plain torch against the JAX kernels, their routing,
 and, on the card, the kernels against their plain version.
 
@@ -327,7 +328,8 @@ def _jax_bwd(jfa, q, k, v, do, bias, causal):
 @pytest.mark.parametrize("d,causal,lq,lk,bias", [
     (64, True, 256, 256, False), (64, False, 256, 256, False),
     (128, True, 256, 256, False), (128, False, 128, 256, True),
-    (64, True, 256, 256, True)])
+    (64, True, 256, 256, True), (256, True, 256, 256, False),
+    (256, False, 128, 256, True)])
 def test_f16_backward_emulation_matches_jax(jfa, interpret_pallas, d, causal,
                                             lq, lk, bias):
     """dQ, dK and dV of the emulated wgmma_f16 kernels, rounded to float16,
@@ -371,7 +373,7 @@ def test_f16_backward_emulation_at_the_loss_scale(jfa, interpret_pallas):
                          do_scale=2.0 ** 13)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_f16_backward_emulation_with_dropout_matches_plain(d):
     """p = 0.1 with the Philox mask (the TPU's PRNG has no CPU lowering):
     the emulation against the port's plain backward given the same mask,
@@ -392,11 +394,9 @@ def test_f16_backward_emulation_with_dropout_matches_plain(d):
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_float16_route_table(kernel, d):
-    """The float16 forward takes wgmma_f16 at every D, and so do the
-    float16 dQ and dK/dV at D 64 and 128; at D = 256 they stay on
-    wgmma_f32. bf16 and float32 keep their routes."""
-    want = "wgmma_f32" if kernel != "fwd" and d == 256 else "wgmma_f16"
-    assert tfa.kernel_route(torch.float16, d, kernel) == want
+    """The float16 forward, dQ and dK/dV take wgmma_f16 at every D, D = 256
+    included; bf16 and float32 keep their routes."""
+    assert tfa.kernel_route(torch.float16, d, kernel) == "wgmma_f16"
     assert tfa.kernel_route(torch.bfloat16, d, kernel) == "wgmma"
     assert tfa.kernel_route(torch.float32, d, kernel) == "wgmma_f32"
 
@@ -426,6 +426,75 @@ def test_float16_backward_wrapper_splits_nothing():
 
 class _FakeStream:
     cuda_stream = 0
+
+
+def test_float16_backward_wrapper_at_d256_splits_nothing():
+    """At D = 256 the float16 dQ and dK/dV wrappers launch the wgmma_f16
+    kernels on q, k, v (views of a fused qkv) and dO (a view of the
+    [B, L, H, D] gradient) as they are, with no split pre-pass and no
+    wgmma_f32 kernel; the C entries are stubbed (the kernels need a
+    card)."""
+    B, H, L, d = 2, 3, 64, 256
+    calls = []
+    qkv = torch.zeros(B, L, 3, H, d, dtype=torch.float16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    do = torch.zeros(B, L, H, d, dtype=torch.float16).transpose(1, 2)
+    stats = torch.zeros(B, H, L)
+
+    def entry_of(which, route, head_dim):
+        def entry(*a):
+            calls.append((which, route, a))
+            return 0
+        return entry
+
+    with mock.patch.object(tfa, "_bwd_sm90_fn", entry_of), \
+            mock.patch.object(tfa, "split_bf16_terms",
+                              lambda *a: pytest.fail("split launched")), \
+            mock.patch.object(torch.cuda, "device",
+                              lambda dev: mock.MagicMock()), \
+            mock.patch.object(torch.cuda, "current_stream",
+                              lambda dev: _FakeStream()):
+        tfa.reset_launch_counts()
+        dq, _ = tfa.flash_attention_bwd_dq(q, k, v, None, do, stats, stats,
+                                           True)
+        dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, None, do, stats, stats,
+                                             True)
+    assert [c[:2] for c in calls] == [("dq", "wgmma_f16"),
+                                      ("dkv", "wgmma_f16")]
+    for _, _, a in calls:
+        assert list(a[:3]) + [a[4]] == [t.data_ptr() for t in (q, k, v, do)]
+        assert a[13] == d
+    for w in ("dq", "dkv"):
+        assert tfa.launch_counts()[w] == {"fma": 0, "wgmma": 0,
+                                          "wgmma_f32": 0, "wgmma_f16": 1}
+    assert all(t.dtype == torch.float16 for t in (dq, dk, dv))
+    tfa.reset_launch_counts()
+
+
+@pytest.mark.parametrize("route,d,source,name", [
+    ("wgmma_f16", 256, "flash_attention_bwd_f16_d256_sm90.cu", "f16_d256"),
+    ("wgmma_f16", 128, "flash_attention_bwd_f16_sm90.cu", "f16"),
+    ("wgmma_f16", 64, "flash_attention_bwd_f16_sm90.cu", "f16"),
+    ("wgmma_f32", 256, "flash_attention_bwd_f32_d256_sm90.cu", "f32_d256")])
+def test_backward_entries_by_route_and_head_dim(route, d, source, name):
+    """Each (route, D) loads its own source's C entries: the float16
+    D = 256 kernels their own file; the float32 D = 256 file, whose float16
+    instantiation is the yardstick on no route, stays callable directly.
+    The library loader is stubbed (the build needs nvcc)."""
+    loaded = []
+
+    class Lib:
+        def __getattr__(self, entry):
+            loaded.append(entry)
+            return mock.MagicMock()
+
+    with mock.patch.object(tfa._build, "load",
+                           lambda src: loaded.append(src) or Lib()):
+        for which in ("dq", "dkv"):
+            tfa._bwd_sm90_fn.__wrapped__(which, route, d)
+    assert loaded == [source, f"pt_flash_attention_bwd_dq_{name}_sm90",
+                      source, f"pt_flash_attention_bwd_dkv_{name}_sm90"]
+    assert source in tfa._build.SOURCES
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])
@@ -500,7 +569,9 @@ def _assert_f16_route(splits=0):
 @pytest.mark.parametrize("d,causal,lq,lk,bias", [
     (128, True, 1024, 1024, False), (64, True, 1024, 1024, False),
     (128, False, 384, 640, True), (64, False, 384, 640, True),
-    (128, True, 1500, 1500, False), (128, True, 1024, 1024, True)])
+    (128, True, 1500, 1500, False), (128, True, 1024, 1024, True),
+    (256, True, 1024, 1024, False), (256, False, 384, 640, True),
+    (256, True, 1500, 1500, False), (256, True, 1024, 1024, True)])
 def test_cuda_f16_kernels_match_plain(cuda_device, d, causal, lq, lk, bias):
     """dQ, dK and dV of the wgmma_f16 kernels against the plain backward:
     float16 within the float32 backward tolerance plus one float16 ulp;
@@ -523,7 +594,7 @@ def test_cuda_f16_kernels_match_plain(cuda_device, d, causal, lq, lk, bias):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_cuda_f16_kernels_at_the_loss_scale(cuda_device, d):
     """dO of a scaled loss (2^11 times standard normals, so that the
     gradients stay well inside float16's range): dP passes float16's
@@ -544,7 +615,7 @@ def test_cuda_f16_kernels_at_the_loss_scale(cuda_device, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_cuda_f16_dropout_matches_plain_and_replays(cuda_device, d):
     """p = 0.1: the kernels against the plain backward given the plain
     Philox mask, and a fixed seed replays bit for bit."""
@@ -575,20 +646,50 @@ def test_cuda_f16_kernels_replay_bit_for_bit(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_f16_d256_stays_on_the_float32_kernels(cuda_device):
-    """float16 at D = 256 takes the wgmma_f32 dQ and dK/dV, with the split
-    of q, k, v and of dO."""
-    q, k, v, do, _ = _case(cuda_device, 256, True, 1024, 1024, False, 25)
+def test_cuda_f16_d256_takes_the_native_kernels(cuda_device):
+    """float16 at D = 256 takes the wgmma_f16 dQ and dK/dV (one launch
+    each), with no split and no wgmma_f32 launch, at [2, 16, 1024, 256]
+    (more CTAs than SMs), and matches the plain backward."""
+    g = torch.Generator(device=cuda_device).manual_seed(25)
+    q, k, v, do = (torch.randn(2, 16, 1024, 256, generator=g,
+                               device=cuda_device).half() for _ in range(4))
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
     tfa.reset_launch_counts()
     got = tfa.flash_attention_bwd(q, k, v, None, o, lse, do, True)
     torch.cuda.synchronize()
-    for w in ("dq", "dkv"):
-        assert tfa.launch_counts()[w]["wgmma_f32"] == 1
-    assert tfa.split_bf16_terms.launches == 2
+    _assert_f16_route()
     want = tfa.reference_attention_bwd(q, k, v, None, o, lse, do, True)
     for x, y in zip(got[:3], want[:3]):
         assert_f16_close(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+def test_cuda_f16_d256_float32_kernels_still_match_plain(cuda_device, bias):
+    """The float16 instantiation of the float32 D = 256 dQ and dK/dV,
+    launched directly on the split's terms (no route takes it; the
+    yardstick the wgmma_f16 pair is timed against), against the plain
+    backward: the float32 tolerance plus one float16 ulp, dS within the
+    float32 tolerance."""
+    q, k, v, do, b = _case(cuda_device, 256, True, 1024, 1024, bias, 26)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True, bias=b)
+    do = do.contiguous()
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    terms = tfa._backward_terms(q, k, v, do)
+    dq, dk, dv = (tfa._empty_like_rows(t) for t in (q, k, v))
+    ds = torch.empty(1, 8, 1024, 1024, device=cuda_device) if bias else None
+    tfa.reset_launch_counts()
+    tfa._launch_bwd_sm90("dq", "wgmma_f32", q, k, v, b, do, lse, delta, dq,
+                         ds, dq.stride()[:3], True, 0.0, 0, terms)
+    tfa._launch_bwd_sm90("dkv", "wgmma_f32", q, k, v, b, do, lse, delta, dk,
+                         dv, (*dk.stride()[:3], *dv.stride()[:3]), True, 0.0,
+                         0, terms)
+    torch.cuda.synchronize()
+    want = tfa.reference_attention_bwd(q, k, v, b, o, lse, do, True)
+    for x, y in zip((dq, dk, dv), want[:3]):
+        assert_f16_close(x, y)
+    if bias:
+        torch.testing.assert_close(ds, want[3], **BWD_TOL)
 
 
 # ---------------------------------------------- the forward on the card
@@ -695,7 +796,7 @@ def _rel_l2(x, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_cuda_f16_flash_attention_grads_match_plain(cuda_device, d):
     """FlashAttention in float16 (the wgmma_f16 forward, dQ and dK/dV, no
     split) against plain attention's autograd on the same float16 inputs:

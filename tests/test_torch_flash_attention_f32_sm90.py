@@ -642,9 +642,10 @@ def test_cuda_f32_backward_dropout_matches_plain_with_the_same_mask(
 
 
 # ------------------------------------------------------------ float16
-# float16 inputs take the wgmma_f32 dQ and dK/dV at D = 256, and the
-# wgmma_f32 forward stays callable on them as the yardstick of the native
-# float16 forward: a float16 value is exactly two bf16 terms (11
+# float16 inputs take the native float16 kernels (wgmma_f16) at every
+# head dim, and the wgmma_f32 forward stays callable on them as the
+# yardstick of the native float16 forward: a float16 value is exactly two
+# bf16 terms (11
 # significant bits; bf16 has float32's exponent range), so the split is
 # exact and the kernels compute what the float32 ones compute on the
 # upcast inputs, the reference's float32-operand arithmetic. O and the
@@ -681,16 +682,14 @@ def test_plain_prepass_splits_float16_exactly():
 
 
 def test_float16_takes_the_float32_kernels_on_the_card_only():
-    """float16 routes to wgmma_f32 only for dQ and dK/dV at D = 256, and
-    to the native float16 kernels (wgmma_f16) for the forward at every head
-    dim and for dQ and dK/dV at D 64 and 128; the gate admits it on the
-    card; on the CPU the wrappers run the plain version, which computes in
-    float32 and rounds O once."""
+    """float16 routes to the native float16 kernels (wgmma_f16) for the
+    forward, dQ and dK/dV at every head dim, to the float32 ones
+    (wgmma_f32) nowhere; the gate admits it on the card; on the CPU the
+    wrappers run the plain version, which computes in float32 and rounds O
+    once."""
     for d in tfa.SUPPORTED_HEAD_DIMS:
         for kernel in ("fwd", "dq", "dkv"):
-            want = ("wgmma_f32" if kernel != "fwd" and d == 256
-                    else "wgmma_f16")
-            assert tfa.kernel_route(torch.float16, d, kernel) == want
+            assert tfa.kernel_route(torch.float16, d, kernel) == "wgmma_f16"
     q, k, v = (torch.from_numpy(_f32((1, 2, 40, 64), s)).half()
                for s in range(3))
     tfa.reset_launch_counts()
@@ -768,23 +767,20 @@ def test_cuda_f16_forward_matches_plain(cuda_device, d, causal, lq, lk, bias):
     (256, True, 1024, 1024, False), (128, False, 384, 640, True)])
 def test_cuda_f16_backward_matches_plain(cuda_device, d, causal, lq, lk,
                                          bias):
-    """dQ, dK and dV of the float16 kernels (wgmma_f16 at D 64 and 128, no
-    split; wgmma_f32 at D = 256) on float16 inputs, float16 within the
-    float32 backward tolerance plus one float16 ulp; dbias (float32, from
-    dS) within the float32 tolerance."""
+    """dQ, dK and dV of the float16 kernels (wgmma_f16 at every D, no
+    split) on float16 inputs, float16 within the float32 backward
+    tolerance plus one float16 ulp; dbias (float32, from dS) within the
+    float32 tolerance."""
     q, k, v, do, b = _bwd_case(cuda_device, d, causal, lq, lk, bias, 17)
     q, k, v, do = q.half(), k.half(), v.half(), do.half()
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, bias=b)
     tfa.reset_launch_counts()
     got = tfa.flash_attention_bwd(q, k, v, b, o, lse, do, causal)
     torch.cuda.synchronize()
-    if d == 256:
-        _assert_f32_route("dq", "dkv", splits=2)
-    else:
-        for w in ("dq", "dkv"):
-            assert tfa.launch_counts()[w] == {"fma": 0, "wgmma": 0,
-                                              "wgmma_f32": 0, "wgmma_f16": 1}
-        assert tfa.split_bf16_terms.launches == 0
+    for w in ("dq", "dkv"):
+        assert tfa.launch_counts()[w] == {"fma": 0, "wgmma": 0,
+                                          "wgmma_f32": 0, "wgmma_f16": 1}
+    assert tfa.split_bf16_terms.launches == 0
     want = tfa.reference_attention_bwd(q, k, v, b, o, lse, do, causal)
     for x, y in zip(got[:3], want[:3]):
         _assert_f16_close(x, y, BWD_TOL)

@@ -345,17 +345,13 @@ def test_split_is_closer_to_float32_than_bf16_p():
     (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "wgmma_f32"),
     (torch.float32, 128, "wgmma_f32"), (torch.float32, 256, "wgmma_f32"),
     (torch.float16, 128, "wgmma_f16"), (torch.float16, 64, "wgmma_f16"),
-    (torch.float16, 256, "wgmma_f32"), (torch.float16, 96, "fma"),
+    (torch.float16, 256, "wgmma_f16"), (torch.float16, 96, "fma"),
     (torch.float64, 128, "fma")])
 def test_route_is_picked_by_dtype_and_head_dim(dtype, d, route, kernel):
     """bf16 takes the wgmma kernels at every head dim, float32 the
-    wgmma_f32 ones (forward, dQ and dK/dV alike), float16 the native
-    float16 forward (wgmma_f16) at every head dim and the native float16
-    dQ and dK/dV at D 64 and 128 (wgmma_f32 at 256); what no tensor-core
-    kernel takes (float64, a head dim of 96) answers fma, which the
-    wrappers refuse."""
-    if kernel == "fwd" and route == "wgmma_f32" and dtype == torch.float16:
-        route = "wgmma_f16"  # the float16 forward is native at every D
+    wgmma_f32 ones, float16 the native float16 ones (wgmma_f16; forward,
+    dQ and dK/dV alike); what no tensor-core kernel takes (float64, a head
+    dim of 96) answers fma, which the wrappers refuse."""
     assert tfa.kernel_route(dtype, d, kernel) == route
 
 
@@ -379,7 +375,7 @@ def test_cpu_tensors_launch_nothing():
     (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "wgmma_f32"),
     (torch.float32, 128, "wgmma_f32"), (torch.float32, 256, "wgmma_f32"),
     (torch.float16, 64, "wgmma_f16"), (torch.float16, 128, "wgmma_f16"),
-    (torch.float16, 256, "wgmma_f32")])
+    (torch.float16, 256, "wgmma_f16")])
 @pytest.mark.parametrize("which", ["dq", "dkv"])
 def test_backward_wrappers_launch_the_route_of_dtype_and_head_dim(
         which, dtype, d, route):

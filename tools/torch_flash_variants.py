@@ -8,7 +8,8 @@ Each SOURCE is a variant of the backward source of the route that
 (``--dtype``, ``--head-dim``) takes, with the same C entries: float32 at
 D = 256 (the default)
 ``paddle_tpu_torch/kernels/csrc/flash_attention_bwd_f32_d256_sm90.cu``,
-float16 at D 64 or 128 ``flash_attention_bwd_f16_sm90.cu``. A variant is
+float16 at D 64 or 128 ``flash_attention_bwd_f16_sm90.cu``, float16 at
+D = 256 ``flash_attention_bwd_f16_d256_sm90.cu``. A variant is
 a candidate layout or a tuning of it, e.g. the file as it stands in
 another commit (``git show REV:PATH > FILE``).
 
@@ -22,7 +23,8 @@ backward (``chip_smoke.bwd_tolerance``: the reference's rtol 2e-4 / atol
 kernels are timed at the route's shapes (float32 D = 256: ``[1, 8, 1024,
 256]`` and ``[2, 8, 1024, 256]``, the head count and batch of the D = 256
 model's runs; float16: the GPT step's ``[2, 16, 1024, D]`` and, at
-D = 128, Llama's ``[1, 32, 4096, 128]``), causal, at p = 0 and p = 0.1, as
+D = 128, Llama's ``[1, 32, 4096, 128]``; at D = 256 ``[1, 8, 1024, 256]``
+and ``[2, 16, 1024, 256]``), causal, at p = 0 and p = 0.1, as
 device medians of 6 loops of 20 calls taken in turns (A B ... B A, three
 times), so that drift of the card's clock falls on all alike.
 
@@ -50,6 +52,8 @@ CONFIGS = {
     ("float16", 64): ("wgmma_f16", "f16", {"gpt": (2, 16, 1024)}),
     ("float16", 128): ("wgmma_f16", "f16",
                        {"gpt": (2, 16, 1024), "llama": (1, 32, 4096)}),
+    ("float16", 256): ("wgmma_f16", "f16_d256",
+                       {"B1": (1, 8, 1024), "B2": (2, 16, 1024)}),
 }
 DROPOUT_P = 0.1
 ROUNDS = 3
