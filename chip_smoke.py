@@ -73,7 +73,59 @@ exits non-zero:
                run, no other forward at all, and the
                kernel-path prefill logits must agree with the
                plain-attention path.
-5. training  - the bench's GPT-3 1.3B pretrain step (bf16 O2 AdamW,
+5. serving_options - the same model and server geometry with the
+               serving options. (a) A 512 MiB prefix pool (16-token
+               blocks): six requests sharing a 1024-token prefix (one
+               seeded-sampled) and one unrelated, served one at a time:
+               the first sharer is cold, every later sharer hits 1024
+               tokens, every stream equals the pool-less path's (a solo
+               generate()), and pooled admits launch no flash forward and
+               no split (they run the chunked continuation through
+               cached_attention); cold and hit TTFT printed. (b) The int8
+               cache: bytes per slot equal to the arithmetic (384 MiB
+               bf16, 198 MiB int8 at 2048 positions), prefill logits
+               bit-identical to the bf16 cache's, teacher-forced logit
+               drift over 16 steps under the reference's 5 %, a pool-less
+               int8 server whose streams equal solo generate(kv_dtype=
+               "int8") with one wgmma_f32 forward and split per layer per
+               prefill, and (a) again on the int8 cache and pool, each
+               stream held to the same request served alone by a fresh
+               pooled server (a pooled admit reads the dequantized
+               cache, a pool-less prefill the un-quantized block, as in
+               the reference), its agreement with the pool-less path
+               printed. (c)
+               warmup(), then two tenants under fair queueing with token
+               buckets (one sending 10x the other's requests, its last
+               ones rate-limited) submitted before the worker takes any:
+               the admission order equals the port's scheduler on the CPU
+               for the same submits and take budgets (deficit round robin,
+               the reference's), the quiet tenant is served in the first
+               round, a request predicted to miss its deadline is shed at
+               the door, and rate limits and sheds are counted, not
+               failed.
+6. speculative - SpeculativeEngine(gpt_1p3b target, a 1-layer
+               build_draft_model draft, k=4) on prompts of 300 and 900
+               tokens, 64 new tokens, with the bf16 and the int8 cache:
+               greedy output token-identical to solo greedy generate(), a
+               fixed seed replaying its tokens and acceptance trace,
+               exactly 25 wgmma_f32 forwards and splits per generate (the
+               target and draft prefills; the draft chain and the
+               [1, 5] verify run cached_attention); tokens per round,
+               acceptance rate (random weights: plumbing, not quality) and
+               ms per token against solo decode printed.
+7. serve_preset - tools/decode_bench.py's serving preset (h1024, 24
+               layers, 16 heads of 64, 1024 positions, float32
+               parameters) behind InferenceServer(slots=8,
+               max_length=1024, kv_dtype="int8"), without and with a
+               256 MiB prefix pool, on serve_bench's prefix-heavy trace
+               shape (16 requests, 90 % opening with one 512-token
+               prefix, 16-128-token suffixes, 16 new tokens): every
+               request completes, the pool-less run launches exactly 24
+               wgmma_f32 D = 64 forwards and splits per prefill and the
+               pooled run none, and every stream equals the same request
+               served alone by a fresh server of the same configuration;
+               TTFT p50/p99 and inter-token p50 printed for both runs.
+8. training  - the bench's GPT-3 1.3B pretrain step (bf16 O2 AdamW,
                recompute, chunked loss, batch 2 x 1024) through TrainStep:
                5 warm-up and 8 timed steps; finite losses that fall, and
                exactly 48 wgmma forward, 24 wgmma dQ and 24 wgmma dK/dV
@@ -94,7 +146,7 @@ exits non-zero:
                per-parameter gradients within tolerance), and a 2-layer
                full-width bf16 dropout run on the wgmma kernels that
                replays bit for bit from its seed.
-6. d256      - the same bf16 O2 step at gpt_1p3b width with 8 heads of 256
+9. d256      - the same bf16 O2 step at gpt_1p3b width with 8 heads of 256
                and 2 layers: the gradients of the first loss with the
                kernels against plain attention's, each parameter within
                twice plain attention's own distance from a float32
@@ -120,10 +172,15 @@ exits non-zero:
                phase 4, with the wgmma_f32 forward at D = 256 (exactly one
                launch and one split per layer per prefill, no other
                forward).
+10. llama    - llama2_7b served at full width and depth, its bf16 O2
+               step (8 of 32 layers) and its GQA gradients (2 layers).
 
 Then a line with the kernels' summary, a line with the card's name and
 power limit, and the last line {"ok": true, "device": {...}}.
-``--kernels-only`` stops after phase 3 and prints none of those three
+The kernels line counts each kernel's launches on the path that runs it
+(the serving options, speculative prefills and the serve preset's D = 64
+prefills have rows of their own). ``--kernels-only`` stops after phase 3
+and prints none of those three
 lines, and reports a register spill without failing on it: a partial
 run, to compare kernel builds (a layout that spills among them) in turns.
 
@@ -242,6 +299,29 @@ F16_D256_LOSS_SCALE_BWD = "d256_loss_scale_float16_B1_L1024"
 F16_D256_PRODUCTS = {"dq": 7, "dkv": 11}
 LLAMA_SAMPLED_LENGTH = 1200
 LLAMA_LOGITS_PROMPT = 3000
+# the serving options (phase_serving_options): gpt_1p3b at 2048 positions,
+# 4 slots; six requests share a 1024-token prefix (suffixes of these
+# lengths), one does not; the prefix pool's budget and block size
+OPTIONS_PREFIX, OPTIONS_SUFFIXES, OPTIONS_UNRELATED = 1024, (20, 60, 120,
+                                                             180, 240, 300), 500
+OPTIONS_POOL = dict(max_bytes=512 << 20, block_tokens=16)
+# the reference's bound on teacher-forced int8 logit drift, relative to the
+# largest logit (tests/test_kv_quant.py:190), over this many decode steps
+KV_DRIFT_LIMIT, KV_DRIFT_STEPS = 0.05, 16
+# two tenants under fair queueing: "loud" sends 10x the requests of
+# "quiet"; every tenant's bucket holds TENANT_BURST tokens and refills at
+# TENANT_RATE a second, so the loud tenant's last few are rate-limited
+FAIR_LOUD, FAIR_QUIET, TENANT_RATE, TENANT_BURST = 20, 2, 0.5, 16.0
+# speculative decoding (phase_speculative): a 1-layer draft of gpt_1p3b
+SPEC_K, SPEC_PROMPTS, SPEC_NEW = 4, (300, 900), 64
+# the serve preset (phase_serve_preset): tools/decode_bench.py:51-57's
+# model behind serve_bench's prefix-heavy trace
+PRESET_REQUESTS, PRESET_PREFIX, PRESET_PREFIX_FRAC = 16, 512, 0.9
+PRESET_SUFFIX, PRESET_NEW, PRESET_SLOTS = (16, 128), 16, 8
+PRESET_POOL_BYTES = 256 << 20
+# its pool-less prefill's attention at the 1024 bucket, [1, 16, 1024, 64]
+# float32 causal, is a case of the forward phase
+PRESET_FWD = "serve_preset_f32_d64_L1024"
 
 
 def bf16_ulp(x):
@@ -602,6 +682,10 @@ def _fwd_cases(g):
         cases.append((f"prefill_f32_L{L}", *_views(g, 1, L, 16, 128, torch.float32),
                       True, None, "wgmma_f32", f32_tol))
     cases.append(("d64_causal_f32_B2_L1024", *_views(g, 2, 1024, 16, 64, torch.float32),
+                  True, None, "wgmma_f32", f32_tol))
+    # the serve preset's pool-less prefill (phase_serve_preset), h1024 with
+    # 16 heads of 64, at its 1024 bucket
+    cases.append((PRESET_FWD, *_views(g, 1, 1024, 16, 64, torch.float32),
                   True, None, "wgmma_f32", f32_tol))
     # D = 256, float32: the wgmma_f32 forward at [1, 8, 1024, 256] and at
     # the D = 256 prefill's longest bucket (phase_d256_prefill)
@@ -1464,6 +1548,520 @@ def phase_d256_prefill(seed: int) -> dict:
     return out
 
 
+def _forward_launches(fa) -> tuple:
+    """(wgmma_f32 forwards, forwards on any other route, splits) since
+    the last reset."""
+    fwd = fa.launch_counts()["fwd"]
+    return (fwd["wgmma_f32"], sum(n for r, n in fwd.items() if r != "wgmma_f32"),
+            fa.split_bf16_terms.launches)
+
+
+def _solo_streams(model, requests, geo, kv_dtype=None) -> list:
+    """Each request's stream from a solo generate() (the pool-less,
+    batch-1 path) with the same arguments."""
+    return [model.generate(r["prompt"][None], kv_dtype=kv_dtype, **geo,
+                           **{k: v for k, v in r.items() if k != "prompt"})[0]
+            for r in requests]
+
+
+def _check_streams(label, requests, got, want) -> None:
+    import numpy as np
+
+    for r, a, b in zip(requests, got, want):
+        if a.shape != (r["max_new_tokens"],) or not np.array_equal(a, b):
+            raise AssertionError(f"{label}: stream {a.tolist()} != "
+                                 f"{b.tolist()} (prompt {len(r['prompt'])})")
+
+
+def _check_clean(label, snap, n) -> None:
+    """``n`` requests completed, none requeued, failed or expired."""
+    if (snap["requests_completed"], snap["requests_requeued"],
+            snap["requests_failed"], snap["requests_expired"]) != (n, 0, 0, 0):
+        raise AssertionError(
+            f"{label}: {snap['requests_completed']} of {n} completed, "
+            f"{snap['requests_requeued']} requeued, {snap['requests_failed']} "
+            f"failed, {snap['requests_expired']} expired")
+
+
+def _pooled_server(model, geo, kv_dtype):
+    from paddle_tpu_torch.serving import InferenceServer
+
+    return InferenceServer(model, slots=4, device=model.device,
+                           kv_dtype=kv_dtype,
+                           prefix_cache=dict(OPTIONS_POOL), **geo)
+
+
+def _pooled_run(model, requests, geo, kv_dtype, pool_less, first_shared: int):
+    """Serve ``requests`` one after another behind a pooled
+    InferenceServer (OPTIONS_POOL): the first sharer is cold, every later
+    sharer hits the whole prefix, the unrelated request misses, and no
+    flash forward or split launches. With the bf16 cache every stream
+    equals the pool-less path's (``pool_less``). With the int8 cache a
+    pooled admit's suffix attends the DEQUANTIZED cache, a miss at 0
+    included (the reference's traced offset), where a pool-less prefill
+    attends the un-quantized block: the two paths differ by design, so
+    every stream is held to the same request served alone by a fresh
+    pooled server (a cold admit through the same continuation), and the
+    streams equal to the pool-less path's are counted."""
+    import numpy as np
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    server = _pooled_server(model, geo, kv_dtype)
+    fa.reset_launch_counts()
+    handles, streams = [], []
+    for r in requests:   # one at a time: TTFT without queueing
+        h = server.submit(**r)
+        streams.append(h.result(timeout=900))
+        handles.append(h)
+    launches = _forward_launches(fa)
+    server.shutdown(timeout=60)
+    snap = server.snapshot()
+    label = f"pooled admits (kv_dtype={kv_dtype})"
+    _check_clean(label, snap, len(requests))
+    if launches != (0, 0, 0):
+        raise AssertionError(f"{label} launched flash forwards (wgmma_f32, "
+                             f"other, split) {launches}; expected none")
+    hits = [h.cache_hit_tokens for h in handles]
+    shared = len(OPTIONS_SUFFIXES)
+    need = [0] + [first_shared] * (shared - 1) + [0] * (len(requests) - shared)
+    if hits != need:
+        raise AssertionError(f"{label}: prefix hits {hits}, expected {need}")
+    equal_pool_less = int(sum(np.array_equal(a, b)
+                              for a, b in zip(streams, pool_less)))
+    if kv_dtype is None:
+        _check_streams(f"{label} vs the pool-less path", requests, streams,
+                       pool_less)
+    else:
+        alone = []
+        for r in requests:
+            solo_server = _pooled_server(model, geo, kv_dtype)
+            alone.append(solo_server.submit(**r).result(timeout=900))
+            solo_server.shutdown(timeout=60)
+            del solo_server
+        _check_streams(f"{label} vs served alone", requests, streams, alone)
+    return dict(kv_dtype=kv_dtype or "bfloat16", cache_hit_tokens=hits,
+                flash_launches=0, split_launches=0,
+                cold_ttft_ms=handles[0].ttft_s * 1e3,
+                hit_ttft_ms=[h.ttft_s * 1e3 for h in handles[1:shared]],
+                unrelated_ttft_ms=handles[-1].ttft_s * 1e3,
+                prefix_hit_rate=snap["prefix_hit_rate"],
+                pool=snap["prefix_cache"],
+                streams_equal_pool_less=equal_pool_less,
+                streams_equal_served_alone=kv_dtype is not None)
+
+
+def _int8_logits(model, prompt, cache_len: int) -> dict:
+    """Prefill logits with the int8 and the bf16 cache (bit-identical:
+    prefill attends the un-quantized block), and the teacher-forced
+    relative logit drift of the int8 cache over KV_DRIFT_STEPS decode
+    steps (the bf16 run's argmax chain fed to both)."""
+    import torch
+
+    from paddle_tpu_torch.models.generation import init_cache
+
+    ids = torch.as_tensor(prompt[None], device=model.device)
+    with torch.inference_mode():
+        full = init_cache(model, 1, cache_len)
+        quant = init_cache(model, 1, cache_len, kv_dtype="int8")
+        lf, full = model(ids, cache=full, position_offset=0)
+        lq, quant = model(ids, cache=quant, position_offset=0)
+        if not torch.equal(lf[:, -1], lq[:, -1]):
+            raise AssertionError("int8 cache: prefill logits differ from the "
+                                 "bf16 cache's")
+        worst, L = 0.0, ids.shape[1]
+        tok = torch.argmax(lf[:, -1], dim=-1)
+        for step in range(KV_DRIFT_STEPS):
+            lf, full = model(tok[:, None], cache=full, position_offset=L + step)
+            lq, quant = model(tok[:, None], cache=quant,
+                              position_offset=L + step)
+            a, b = lf[:, -1], lq[:, -1]
+            worst = max(worst, ((a - b).abs().max() / a.abs().max()).item())
+            tok = torch.argmax(a, dim=-1)
+    if not worst < KV_DRIFT_LIMIT:
+        raise AssertionError(f"int8 cache: teacher-forced logit drift {worst} "
+                             f">= {KV_DRIFT_LIMIT}")
+    return dict(prefill_logits_bit_identical=True, drift=worst,
+                drift_limit=KV_DRIFT_LIMIT, drift_steps=KV_DRIFT_STEPS)
+
+
+def _fair_run(model, seed: int) -> dict:
+    """warmup(), then two tenants under fair queueing with token buckets:
+    FAIR_LOUD requests from "loud" (its last ones rate-limited) and
+    FAIR_QUIET from "quiet", all submitted before the worker takes any.
+    The admission order must be the one the port's scheduler gives on the
+    CPU for the same submit sequence and take budgets (deficit round
+    robin, as the reference's), the quiet tenant is served within the
+    first two rounds, and a request whose predicted wait exceeds its
+    deadline is shed at the door; rate limits and sheds are counted,
+    not failed."""
+    import numpy as np
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.serving import (FifoScheduler, InferenceServer,
+                                          Overloaded, RateLimited, Request)
+
+    opts = dict(max_length=2048, fair_queueing=True, tenant_rate=TENANT_RATE,
+                tenant_burst=TENANT_BURST, shed_on_overload=True)
+    server = InferenceServer(model, slots=4, device=model.device, **opts)
+    fa.reset_launch_counts()
+    warm = server.engine.warmup()
+    warm_launches = _forward_launches(fa)
+    takes = []
+    real_take = server.scheduler.take
+
+    def logged_take(free):
+        admit, expired = real_take(free)
+        takes.append((free, [r.id for r in admit]))
+        return admit, expired
+
+    server.scheduler.take = logged_take
+    rng = np.random.default_rng(seed + 13)
+    order = (["loud"] * (FAIR_LOUD // 2) + ["quiet"]
+             + ["loud"] * (FAIR_LOUD - FAIR_LOUD // 2) + ["quiet"])
+    accepted, limited = [], 0
+    fa.reset_launch_counts()
+    with server._cv:   # the worker takes nothing until all are queued
+        for tenant in order:
+            prompt = rng.integers(0, model.cfg.vocab_size,
+                                  int(rng.integers(40, 200)))
+            try:
+                h = server.submit(prompt, max_new_tokens=8, tenant=tenant)
+            except RateLimited:
+                limited += 1
+                continue
+            accepted.append((tenant, h))
+    for _, h in accepted:
+        h.result(timeout=900)
+    launches = _forward_launches(fa)
+    fair_takes = list(takes)
+    # the shed: the queue holds work again and the cadence is known, so a
+    # request whose deadline is shorter than its predicted wait fails at
+    # the door with Overloaded
+    with server._cv:
+        extra = [server.submit(rng.integers(0, model.cfg.vocab_size, 64),
+                               max_new_tokens=4, tenant="quiet")
+                 for _ in range(3)]
+        try:
+            server.submit(rng.integers(0, model.cfg.vocab_size, 64),
+                          max_new_tokens=4, tenant="quiet", deadline=1e-3)
+            shed = 0
+        except Overloaded:
+            shed = 1
+    for h in extra:
+        h.result(timeout=900)
+    server.shutdown(timeout=60)
+    snap = server.snapshot()
+    _check_clean("fair queueing", snap, len(accepted) + len(extra))
+    if (limited, snap["requests_rate_limited"]) != (FAIR_LOUD - int(TENANT_BURST),) * 2:
+        raise AssertionError(f"fair queueing: {limited} rate-limited submits, "
+                             f"{snap['requests_rate_limited']} counted; "
+                             f"expected {FAIR_LOUD - int(TENANT_BURST)}")
+    if (shed, snap["requests_shed"]) != (1, 1):
+        raise AssertionError(f"fair queueing: {snap['requests_shed']} shed "
+                             f"counted, the door shed raised: {bool(shed)}")
+    # the same submit sequence and take budgets through the port's
+    # scheduler on the CPU
+    cpu = FifoScheduler(max_prefills_per_step=server.scheduler.max_prefills_per_step,
+                        fair_queueing=True)
+    ids = {}
+    for tenant, h in accepted:
+        r = Request(prompt=[0], tenant=tenant)
+        ids[r.id] = h.request.id
+        cpu.submit(r)
+    want = [[ids[r.id] for r in cpu.take(free)[0]] for free, _ in fair_takes]
+    got = [admitted for _, admitted in fair_takes]
+    if got != want:
+        raise AssertionError(f"fair queueing: admission order {got} != the "
+                             f"scheduler's on the CPU {want}")
+    tenant_of = {h.request.id: t for t, h in accepted}
+    admitted = [tenant_of[i] for batch in got for i in batch]
+    if "quiet" not in admitted[:4]:
+        raise AssertionError(f"fair queueing: the quiet tenant waited behind "
+                             f"the loud one: {admitted}")
+    prefills = len(accepted)
+    layers = model.cfg.num_layers
+    if launches != (layers * prefills, 0, layers * prefills):
+        raise AssertionError(f"fair queueing: forwards (wgmma_f32, other, "
+                             f"split) {launches} over {prefills} prefills")
+    return dict(warmup=warm, warmup_launches=list(warm_launches),
+                accepted=len(accepted), rate_limited=limited, shed=shed,
+                admission_tenants=admitted, takes=len(fair_takes),
+                order_equals_cpu_scheduler=True, flash_launches=launches[0],
+                split_launches=launches[2],
+                bucket_levels=server.scheduler.bucket_levels())
+
+
+def phase_serving_options(seed: int) -> dict:
+    """gpt_1p3b (full width, float32 parameters, bf16 cache, random
+    weights from ``seed``) behind InferenceServer(slots=4,
+    max_length=2048) with the serving options: (a) the prefix pool
+    (OPTIONS_POOL) on six requests sharing a 1024-token prefix and one
+    unrelated request, (b) the int8 cache (its bytes per slot, prefill
+    logits, teacher-forced drift, a pool-less int8 server, and (a) again
+    on the int8 cache and pool), (c) warmup() and fair queueing with
+    token buckets and shedding (_fair_run)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.serving import InferenceServer
+
+    mem_before = _check_freed("serving_options")
+    model, build_s = _serving_model(seed, _gpt_serving_config())
+    cfg = model.cfg
+    rng = np.random.default_rng(seed + 11)
+    prefix = rng.integers(0, cfg.vocab_size, OPTIONS_PREFIX)
+    requests = [dict(prompt=np.concatenate(
+        [prefix, rng.integers(0, cfg.vocab_size, n)]), max_new_tokens=16)
+        for n in OPTIONS_SUFFIXES]
+    requests[3].update(do_sample=True, seed=11, temperature=0.8, top_p=0.9)
+    requests.append(dict(prompt=rng.integers(0, cfg.vocab_size,
+                                             OPTIONS_UNRELATED),
+                         max_new_tokens=16))
+    geo = dict(max_length=2048)
+    out = dict(model="gpt_1p3b", model_build_s=build_s,
+               mem_before_gib=mem_before,
+               prompt_lens=[len(r["prompt"]) for r in requests])
+
+    # (a) the prefix pool, against the pool-less path's streams
+    bf16_solo = _solo_streams(model, requests, geo)
+    out["pool"] = _pooled_run(model, requests, geo, None, bf16_solo,
+                              OPTIONS_PREFIX)
+
+    # (b) the int8 cache
+    slot_bytes = {}
+    for kv_dtype in (None, "int8"):
+        server = InferenceServer(model, slots=4, device=model.device,
+                                 kv_dtype=kv_dtype, **geo)
+        slot_bytes[kv_dtype or "bfloat16"] = server.engine.cache_bytes_per_slot()
+        del server
+    D, H, S, n = cfg.hidden_size // cfg.num_heads, cfg.num_heads, 2048, cfg.num_layers
+    need = {"bfloat16": n * 2 * S * H * D * 2, "int8": n * 2 * S * H * (D + 4)}
+    if slot_bytes != need:
+        raise AssertionError(f"cache bytes per slot {slot_bytes}, the "
+                             f"arithmetic gives {need}")
+    out["cache_bytes_per_slot"] = slot_bytes
+    out["cache_bytes_ratio"] = slot_bytes["int8"] / slot_bytes["bfloat16"]
+    out["int8_logits"] = _int8_logits(model, requests[1]["prompt"], S)
+    int8_solo = _solo_streams(model, requests, geo, kv_dtype="int8")
+    server = InferenceServer(model, slots=4, device=model.device, kv_dtype="int8",
+                             **geo)
+    fa.reset_launch_counts()
+    handles = [server.submit(**r) for r in requests]
+    streams = [h.result(timeout=900) for h in handles]
+    launches = _forward_launches(fa)
+    server.shutdown(timeout=60)
+    snap = server.snapshot()
+    _check_clean("int8 server", snap, len(requests))
+    _check_streams("int8 server vs solo generate(kv_dtype='int8')", requests,
+                   streams, int8_solo)
+    need = n * len(requests)
+    if launches != (need, 0, need):
+        raise AssertionError(f"int8 server: forwards (wgmma_f32, other, "
+                             f"split) {launches}, expected ({need}, 0, {need})")
+    out["int8_server"] = dict(streams_equal_solo=True, flash_launches=need,
+                              split_launches=need,
+                              ttft_ms=[h.ttft_s * 1e3 for h in handles],
+                              decode_ms_per_token_p50=snap["inter_token"]["p50_ms"])
+    out["int8_pool"] = _pooled_run(model, requests, geo, "int8", int8_solo,
+                                   OPTIONS_PREFIX)
+
+    # (c) warmup and fair queueing
+    out["fair"] = _fair_run(model, seed)
+    out["flash_launches"] = (out["int8_server"]["flash_launches"]
+                             + out["fair"]["flash_launches"]
+                             + out["fair"]["warmup_launches"][0])
+    out["split_launches"] = (out["int8_server"]["split_launches"]
+                             + out["fair"]["split_launches"]
+                             + out["fair"]["warmup_launches"][2])
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["card"] = nvidia_smi_line()
+    emit("serving_options", **out)
+    return out
+
+
+def phase_speculative(seed: int) -> dict:
+    """SpeculativeEngine(gpt_1p3b float32 target, build_draft_model(target,
+    1), k=SPEC_K) on prompts of SPEC_PROMPTS tokens, SPEC_NEW new tokens:
+    greedy output token-identical to solo greedy generate(), a fixed seed
+    replaying its tokens and acceptance trace, both again on the int8
+    cache; each generate launches exactly one wgmma_f32 forward (and
+    split) per target and draft layer, for the two prefills; tokens per
+    round, acceptance rate and ms per token against solo decode."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.speculative import (SpeculativeEngine,
+                                                     build_draft_model)
+
+    mem_before = _check_freed("speculative")
+    model, build_s = _serving_model(seed, _gpt_serving_config())
+    draft = build_draft_model(model, 1)
+    rng = np.random.default_rng(seed + 17)
+    geo = dict(max_length=2048)
+    per_generate = model.cfg.num_layers + draft.cfg.num_layers
+    runs, launches_total = [], 0
+    for kv_dtype in (None, "int8"):
+        eng = SpeculativeEngine(model, draft, k=SPEC_K, kv_dtype=kv_dtype, **geo)
+        for L in SPEC_PROMPTS:
+            ids = rng.integers(0, model.cfg.vocab_size, (1, L))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solo = model.generate(ids, max_new_tokens=SPEC_NEW,
+                                  kv_dtype=kv_dtype, **geo)
+            torch.cuda.synchronize()
+            solo_s = time.perf_counter() - t0
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            got, stats = eng.generate(ids, max_new_tokens=SPEC_NEW,
+                                      return_stats=True)
+            torch.cuda.synchronize()
+            spec_s = time.perf_counter() - t0
+            launches = _forward_launches(fa)
+            if launches != (per_generate, 0, per_generate):
+                raise AssertionError(f"speculative generate: forwards "
+                                     f"(wgmma_f32, other, split) {launches}, "
+                                     f"expected ({per_generate}, 0, "
+                                     f"{per_generate})")
+            launches_total += per_generate
+            if not np.array_equal(got, solo):
+                raise AssertionError(f"speculative greedy (kv_dtype={kv_dtype}"
+                                     f", prompt {L}) {got.tolist()} != solo "
+                                     f"{solo.tolist()}")
+            kw = dict(max_new_tokens=SPEC_NEW, do_sample=True, temperature=0.8,
+                      top_p=0.9, seed=21, return_stats=True)
+            s1, t1 = eng.generate(ids, **kw)
+            s2, t2 = eng.generate(ids, **kw)
+            if not (np.array_equal(s1, s2) and np.array_equal(
+                    t1["acceptance_trace"], t2["acceptance_trace"])):
+                raise AssertionError(f"speculative sampling (kv_dtype="
+                                     f"{kv_dtype}, prompt {L}) does not replay "
+                                     f"from its seed")
+            runs.append(dict(
+                kv_dtype=kv_dtype or "bfloat16", prompt=L,
+                greedy_equals_solo=True, sampled_replays=True,
+                rounds=stats["rounds"],
+                tokens_per_round=(SPEC_NEW - 1) / max(stats["rounds"], 1),
+                acceptance_rate=stats["acceptance_rate"],
+                sampled_acceptance_rate=t1["acceptance_rate"],
+                spec_ms_per_token=spec_s / SPEC_NEW * 1e3,
+                solo_ms_per_token=solo_s / SPEC_NEW * 1e3,
+                flash_launches=launches[0], split_launches=launches[2]))
+    out = dict(model="gpt_1p3b", draft_layers=1, k=SPEC_K,
+               model_build_s=build_s, mem_before_gib=mem_before, runs=runs,
+               flash_launches=launches_total, split_launches=launches_total,
+               card=nvidia_smi_line())
+    emit("speculative", **out)
+    return out
+
+
+def _preset_config():
+    """tools/decode_bench.py:51-57's serving preset: GPT h1024, 24 layers,
+    16 heads of 64, vocab 50304, 1024 positions, dropout 0, bf16 cache."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    return GPTConfig(vocab_size=50304, hidden_size=1024, num_layers=24,
+                     num_heads=16, max_position_embeddings=1024,
+                     hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                     dtype="bfloat16")
+
+
+def _preset_serve(model, requests, pooled: bool, together: bool = True):
+    """Serve ``requests`` behind the preset's InferenceServer (int8
+    cache, PRESET_SLOTS slots, the pool when ``pooled``); returns
+    (streams, snapshot, forward launches)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.serving import InferenceServer
+
+    server = InferenceServer(
+        model, slots=PRESET_SLOTS, max_length=1024, kv_dtype="int8",
+        prefix_cache=PRESET_POOL_BYTES if pooled else None, device=model.device)
+    fa.reset_launch_counts()
+    handles = [server.submit(**r) for r in requests]
+    streams = [h.result(timeout=900) for h in handles]
+    launches = _forward_launches(fa)
+    server.shutdown(timeout=60)
+    return streams, server.snapshot(), launches
+
+
+def phase_serve_preset(seed: int) -> dict:
+    """The serve preset (_preset_config, float32 parameters) behind
+    InferenceServer(slots=8, max_length=1024, kv_dtype="int8") with and
+    without a 256 MiB prefix pool, on serve_bench's prefix-heavy trace
+    shape: PRESET_REQUESTS requests, PRESET_PREFIX_FRAC of them opening
+    with one shared PRESET_PREFIX-token prefix and a 16-128-token suffix,
+    PRESET_NEW new tokens each. Every request completes (none requeued or
+    failed); the pool-less run launches exactly one wgmma_f32 D = 64
+    forward (and split) per layer per prefill, the pooled run none; every
+    stream equals the same request served alone by a fresh server of the
+    same configuration."""
+    import numpy as np
+    import torch
+
+    mem_before = _check_freed("serve_preset")
+    torch.cuda.reset_peak_memory_stats()
+    model, build_s = _serving_model(seed, _preset_config())
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(seed + 19)
+    prefix = rng.integers(0, V, PRESET_PREFIX)
+    requests = []
+    for _ in range(PRESET_REQUESTS):
+        if rng.random() < PRESET_PREFIX_FRAC:
+            sfx = rng.integers(0, V, int(rng.integers(PRESET_SUFFIX[0],
+                                                      PRESET_SUFFIX[1] + 1)))
+            prompt = np.concatenate([prefix, sfx])
+        else:
+            prompt = rng.integers(0, V, int(rng.integers(
+                4, 1024 - PRESET_NEW + 1)))
+        requests.append(dict(prompt=prompt, max_new_tokens=PRESET_NEW))
+    shared = sum(len(r["prompt"]) > PRESET_PREFIX
+                 and np.array_equal(r["prompt"][:PRESET_PREFIX], prefix)
+                 for r in requests)
+    layers = model.cfg.num_layers
+    out = dict(model="serve preset (h1024, 24 layers, 16 heads of 64)",
+               params=sum(p.numel() for p in model.parameters()),
+               model_build_s=build_s, mem_before_gib=mem_before,
+               requests=len(requests), shared_prefix_requests=int(shared),
+               prompt_lens=[len(r["prompt"]) for r in requests])
+    int8_solo = _solo_streams(model, requests, dict(max_length=1024),
+                              kv_dtype="int8")
+    for pooled in (False, True):
+        label = "pooled" if pooled else "pool_less"
+        t0 = time.perf_counter()
+        streams, snap, launches = _preset_serve(model, requests, pooled)
+        wall_s = time.perf_counter() - t0
+        _check_clean(f"serve preset ({label})", snap, len(requests))
+        need = (0, 0, 0) if pooled else (layers * len(requests), 0,
+                                         layers * len(requests))
+        if launches != need:
+            raise AssertionError(f"serve preset ({label}): forwards "
+                                 f"(wgmma_f32, other, split) {launches}, "
+                                 f"expected {need}")
+        alone = [_preset_serve(model, [r], pooled)[0][0] for r in requests]
+        _check_streams(f"serve preset ({label}) vs served alone", requests,
+                       streams, alone)
+        out[label] = dict(
+            flash_launches=launches[0], split_launches=launches[2],
+            streams_equal_served_alone=True,
+            streams_equal_solo_generate=int(sum(
+                np.array_equal(a, b) for a, b in zip(streams, int8_solo))),
+            wall_s=wall_s, tokens=snap["tokens_emitted"],
+            tokens_per_s=snap["tokens_emitted"] / wall_s,
+            ttft_p50_ms=snap["ttft"]["p50_ms"],
+            ttft_p99_ms=snap["ttft"]["p99_ms"],
+            inter_token_p50_ms=snap["inter_token"]["p50_ms"],
+            prefix_hit_tokens=snap["prefix_hit_tokens"],
+            prefix_hit_rate=snap["prefix_hit_rate"],
+            card=nvidia_smi_line())
+    out["flash_launches"] = out["pool_less"]["flash_launches"]
+    out["split_launches"] = out["pool_less"]["split_launches"]
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit("serve_preset", **out)
+    return out
+
+
 _COUNT_NAMES = ("fwd_fma", "fwd_wgmma", "fwd_wgmma_f32", "fwd_wgmma_f16",
                 "dq_fma", "dq_wgmma", "dq_wgmma_f32", "dq_wgmma_f16",
                 "dkv_fma", "dkv_wgmma", "dkv_wgmma_f32", "dkv_wgmma_f16")
@@ -2307,6 +2905,12 @@ def main(argv=None) -> int:
         return 0
     serve = phase_serving(args.seed)
     _free()
+    options = phase_serving_options(args.seed)
+    _free()
+    spec = phase_speculative(args.seed)
+    _free()
+    preset = phase_serve_preset(args.seed)
+    _free()
     train = phase_training(args.seed)
     _free()
     fp16 = phase_fp16_training(args.seed, train)
@@ -2377,6 +2981,11 @@ def main(argv=None) -> int:
     step = "training (bf16 O2 step)"
     f32_step = "training (float32 parity run)"
     prefill = "serving (float32 prefill)"
+    options_path = ("serving options (gpt_1p3b float32 prefill: int8 cache, "
+                    "warmup, fair queueing)")
+    spec_path = "speculative (gpt_1p3b target and draft float32 prefills)"
+    preset_path = ("serve preset (h1024, float32 prefill at D = 64, int8 "
+                   "cache, pool-less)")
     d256_step = "training (bf16 O2 step, D = 256, 2 layers)"
     d256_prefill_path = "serving (float32 prefill, D = 256, 2 layers)"
     d256_f32_path = "training (float32 parity run, D = 256, 2 layers)"
@@ -2388,6 +2997,27 @@ def main(argv=None) -> int:
                 serve["flash_launches"], prefill),
         fwd_row("split_bf16_terms", "flash_attention_fwd_f32_sm90.cu",
                 "split_prefill_f32_L2048", serve["split_launches"], prefill),
+        # the serving options' pool-less admits (the int8 server, warmup,
+        # the fair-queueing run) and the speculative prefills, at D = 128;
+        # pooled admits and speculative rounds launch none
+        fwd_row("flash_attention_fwd_f32_sm90_serving_options",
+                "flash_attention_fwd_f32_sm90.cu", "prefill_f32_L2048",
+                options["flash_launches"], options_path),
+        fwd_row("split_bf16_terms_serving_options",
+                "flash_attention_fwd_f32_sm90.cu", "split_prefill_f32_L2048",
+                options["split_launches"], options_path),
+        fwd_row("flash_attention_fwd_f32_sm90_speculative",
+                "flash_attention_fwd_f32_sm90.cu", "prefill_f32_L1024",
+                spec["flash_launches"], spec_path),
+        fwd_row("split_bf16_terms_speculative",
+                "flash_attention_fwd_f32_sm90.cu", "split_prefill_f32_L1024",
+                spec["split_launches"], spec_path),
+        # the serve preset's pool-less prefills: float32 at D = 64
+        fwd_row("flash_attention_fwd_f32_sm90_d64",
+                "flash_attention_fwd_f32_sm90.cu", PRESET_FWD,
+                preset["flash_launches"], preset_path),
+        fwd_row("split_bf16_terms_d64", "flash_attention_fwd_f32_sm90.cu",
+                "split_" + PRESET_FWD, preset["split_launches"], preset_path),
         fwd_row("flash_attention_fwd_f32_sm90_d256",
                 "flash_attention_fwd_f32_sm90.cu", D256_PREFILL_FWD,
                 d256_prefill["flash_launches"], d256_prefill_path),

@@ -29,7 +29,9 @@ import torch
 from ..io.batching import bucket_for
 
 __all__ = ["DEFAULT_PREFILL_BUCKETS", "GenerationEngine", "generate",
-           "init_cache", "scatter_cache_rows", "filter_logits",
+           "normalize_kv_dtype", "cache_entries", "init_cache",
+           "cache_nbytes", "slice_cache_rows", "scatter_cache_rows",
+           "gather_cache_blocks", "scatter_cache_blocks", "filter_logits",
            "sample_logits", "sample_logits_rows", "per_row_generators",
            "fresh_seed", "torch_dtype"]
 
@@ -53,34 +55,148 @@ def torch_dtype(name) -> torch.dtype:
 
 
 # ----------------------------------------------------------------- cache
+def normalize_kv_dtype(kv_dtype):
+    """Canonicalize a ``kv_dtype`` knob: ``None``/``"none"`` -> None (the
+    full-precision cache), ``"int8"`` -> ``"int8"``. Anything else is an
+    error at construction time, not a quiet full-precision fallback."""
+    if kv_dtype is None or kv_dtype in ("none", "fp", "full"):
+        return None
+    if str(kv_dtype) == "int8":
+        return "int8"
+    raise ValueError(f"unsupported kv_dtype {kv_dtype!r}; expected None "
+                     f"or 'int8'")
+
+
+def _map_leaves(fn, *trees):
+    """``fn`` over the corresponding tensors of cache-shaped nested tuples
+    (layers of ``(k, v)``, each a tensor or an int8 ``(values, scales)``
+    pair), keeping the structure."""
+    if isinstance(trees[0], torch.Tensor):
+        return fn(*trees)
+    return tuple(_map_leaves(fn, *parts) for parts in zip(*trees))
+
+
+def cache_entries(spec: dict, rows: int, length: int, dtype=None,
+                  kv_dtype=None, device=None):
+    """Zeroed cache-shaped storage for ``spec`` (a ``cache_spec()``): per
+    layer a ``(k, v)`` pair of ``[rows, length, n_kv_heads, head_dim]``
+    entries in ``dtype`` (``spec["dtype"]`` by default), or of int8
+    ``(values, float32 scales [rows, length, n_kv_heads, 1])`` pairs under
+    ``kv_dtype="int8"``. The KV cache (rows = batch) and the prefix pool
+    (rows = blocks, length = block tokens) share this layout."""
+    dtype = torch_dtype(dtype or spec["dtype"])
+    shape = (rows, length, spec["num_kv_heads"], spec["head_dim"])
+
+    def entry():
+        if normalize_kv_dtype(kv_dtype) == "int8":
+            return (torch.zeros(shape, dtype=torch.int8, device=device),
+                    torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                device=device))
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return tuple((entry(), entry()) for _ in range(spec["num_layers"]))
+
+
 def init_cache(model, batch: int, max_length: Optional[int] = None,
-               dtype=None, device=None):
+               dtype=None, device=None, kv_dtype=None):
     """Preallocate the KV cache for ``model``: a tuple (one entry per
     layer) of ``(k, v)`` pairs, each ``[batch, max_length, n_kv_heads,
     head_dim]`` zeros in the cache dtype (``cfg.dtype`` by default), on
-    the model's device by default."""
+    the model's device by default.
+
+    ``kv_dtype="int8"`` allocates the quantized layout instead: each
+    ``k``/``v`` entry is an ``(int8 values, float32 scales [batch,
+    max_length, n_kv_heads, 1])`` pair (see
+    :mod:`paddle_tpu_torch.quantization`), about half the bytes of a bf16
+    cache at head_dim 64 and up."""
     spec = model.cache_spec()
     max_length = int(max_length or spec["max_length"])
-    dtype = torch_dtype(dtype or spec["dtype"])
     device = model.device if device is None else device
-    shape = (batch, max_length, spec["num_kv_heads"], spec["head_dim"])
-    return tuple((torch.zeros(shape, dtype=dtype, device=device),
-                  torch.zeros(shape, dtype=dtype, device=device))
-                 for _ in range(spec["num_layers"]))
+    return cache_entries(spec, batch, max_length, dtype, kv_dtype, device)
+
+
+def cache_nbytes(cache) -> int:
+    """Total bytes of a cache (quantized scale leaves included)."""
+    total = [0]
+
+    def add(x):
+        total[0] += x.numel() * x.element_size()
+        return x
+
+    _map_leaves(add, cache)
+    return total[0]
+
+
+def slice_cache_rows(cache, index: int, rows: int = 1):
+    """Views of ``rows`` batch rows starting at ``index`` of every cache
+    leaf: ``[B, S, Hkv, D]`` -> ``[rows, S, Hkv, D]``."""
+    return _map_leaves(lambda x: x[index:index + rows], cache)
 
 
 def scatter_cache_rows(cache, row_cache, index: int):
     """Write ``row_cache`` (``[r, S, Hkv, D]`` leaves) into ``cache``
     (``[B, S, Hkv, D]`` leaves) at batch row ``index``, in place — the
     slot scatter of continuous batching. Returns ``cache``."""
-    for live, rows in zip(cache, row_cache):
-        for dst, src in zip(live, rows):
-            n = src.shape[0]
-            if not 0 <= index <= dst.shape[0] - n:
-                raise IndexError(f"rows {index}:{index + n} outside a cache "
-                                 f"of batch {dst.shape[0]}")
-            dst[index:index + n].copy_(src)
-    return cache
+    def put(dst, src):
+        n = src.shape[0]
+        if not 0 <= index <= dst.shape[0] - n:
+            raise IndexError(f"rows {index}:{index + n} outside a cache "
+                             f"of batch {dst.shape[0]}")
+        dst[index:index + n].copy_(src)
+        return dst
+
+    return _map_leaves(put, cache, row_cache)
+
+
+def _block_index(block_indices, device):
+    return torch.as_tensor(np.asarray(block_indices, np.int64),
+                           device=device)
+
+
+def gather_cache_blocks(pool, block_indices, length: int):
+    """Assemble one cache row from a paged block pool: gather the pool's
+    ``[N, bs, Hkv, D]`` leaves at ``block_indices`` ``[n]`` and lay the
+    blocks out contiguously as ``[1, length, Hkv, D]`` (zero past
+    ``n * bs``).
+
+    The prefix-cache read: matched prompt blocks land in a slot's cache
+    rows, so a hit never re-prefills the shared prefix. Indices past the
+    matched chain point at the pool's dump block (row 0); those positions
+    hold garbage, which is safe under the invariant of slot reuse: the
+    position mask never lets a query see beyond its request's frontier,
+    and every position is rewritten before it first becomes visible."""
+    def assemble(leaf):
+        idx = _block_index(block_indices, leaf.device)
+        n, bs = idx.shape[0], leaf.shape[1]
+        flat = leaf.index_select(0, idx).reshape(1, n * bs, *leaf.shape[2:])
+        if n * bs < length:
+            flat = torch.cat([flat, flat.new_zeros(
+                (1, length - n * bs) + tuple(leaf.shape[2:]))], dim=1)
+        return flat[:, :length]
+
+    return _map_leaves(assemble, pool)
+
+
+def scatter_cache_blocks(pool, row_cache, block_indices):
+    """Write a cache row back into a paged block pool, in place: split
+    ``row_cache`` leaves ``[1, S, Hkv, D]`` into ``n`` blocks of the
+    pool's block size and write them at ``block_indices`` ``[n]``
+    (inverse of :func:`gather_cache_blocks`). Returns ``pool``.
+
+    Blocks the host chose not to store point at the dump row 0, so that
+    index repeats. ``index_copy_`` with a repeated index is
+    nondeterministic on CUDA (which duplicate lands is unspecified);
+    that is harmless only because row 0 is never read as valid: the
+    pool never allocates it, and a read that reaches it lies past the
+    reader's frontier. Keep that invariant."""
+    def store(leaf, row):
+        idx = _block_index(block_indices, leaf.device)
+        n, bs = idx.shape[0], leaf.shape[1]
+        blocks = row[0, :n * bs].reshape(n, bs, *leaf.shape[2:])
+        leaf.index_copy_(0, idx, blocks.to(leaf.dtype))
+        return leaf
+
+    return _map_leaves(store, pool, row_cache)
 
 
 # -------------------------------------------------------------- sampling
@@ -200,12 +316,16 @@ def _sync(device: torch.device) -> None:
 # ---------------------------------------------------------------- engine
 class GenerationEngine:
     """Bucketed prefill + one-token decode loop for one model and cache
-    geometry (port of ``GenerationEngine``, ``generation.py:325``)."""
+    geometry (port of ``GenerationEngine``, ``generation.py:325``).
+    ``kv_dtype="int8"`` runs it on the quantized cache."""
 
     def __init__(self, model, max_length: Optional[int] = None,
-                 prefill_buckets: Optional[Sequence[int]] = None):
+                 prefill_buckets: Optional[Sequence[int]] = None,
+                 kv_dtype=None):
         self.model = model
         spec = model.cache_spec()
+        self.kv_dtype = normalize_kv_dtype(kv_dtype)
+        self._calls = {"prefill": 0, "decode": 0}
         self.max_length = int(max_length or spec["max_length"])
         if self.max_length > spec["max_length"]:
             raise ValueError(
@@ -215,6 +335,14 @@ class GenerationEngine:
                                (prefill_buckets or DEFAULT_PREFILL_BUCKETS)
                                if int(b) <= self.max_length))
         self.prefill_buckets = buckets or (self.max_length,)
+
+    def cache_stats(self) -> dict:
+        """``{"prefill": {...}, "decode": {...}}`` with the reference's
+        ``compiles`` and ``calls`` keys. The port traces and compiles
+        nothing (PyTorch runs eagerly), so ``compiles`` is always 0;
+        ``calls`` counts the forwards of each kind."""
+        return {kind: {"compiles": 0, "calls": n}
+                for kind, n in self._calls.items()}
 
     @torch.inference_mode()
     def generate(self, input_ids, max_new_tokens: int = 32,
@@ -264,8 +392,10 @@ class GenerationEngine:
         was_training = self.model.training
         self.model.eval()
         try:
-            cache = init_cache(self.model, B, self.max_length)
+            cache = init_cache(self.model, B, self.max_length,
+                               kv_dtype=self.kv_dtype)
             t0 = time.perf_counter()
+            self._calls["prefill"] += 1
             logits, cache = self.model(
                 torch.as_tensor(ids_p, device=device), cache=cache,
                 position_offset=0, gather_last=prompt_len - 1)
@@ -281,6 +411,7 @@ class GenerationEngine:
             for i in range(max_new_tokens - 1):
                 if check_done and i % interval == 0 and bool(done.all()):
                     break
+                self._calls["decode"] += 1
                 logits, cache = self.model(tok[:, None], cache=cache,
                                            position_offset=pos)
                 nxt = pick(logits[:, -1, :], pos)
@@ -313,21 +444,26 @@ class GenerationEngine:
         }
 
 
-def _engine_for(model, max_length, prefill_buckets) -> GenerationEngine:
-    """One engine per (max_length, buckets) geometry, kept on the model."""
+def _engine_for(model, max_length, prefill_buckets,
+                kv_dtype=None) -> GenerationEngine:
+    """One engine per (max_length, buckets, kv_dtype) geometry, kept on
+    the model."""
     engines = model.__dict__.setdefault("_generation_engines", {})
-    key = (max_length, tuple(prefill_buckets) if prefill_buckets else None)
+    key = (max_length, tuple(prefill_buckets) if prefill_buckets else None,
+           normalize_kv_dtype(kv_dtype))
     if key not in engines:
         engines[key] = GenerationEngine(model, max_length=max_length,
-                                        prefill_buckets=prefill_buckets)
+                                        prefill_buckets=prefill_buckets,
+                                        kv_dtype=kv_dtype)
     return engines[key]
 
 
 def generate(model, input_ids, max_new_tokens: int = 32, *,
              max_length: Optional[int] = None,
              prefill_buckets: Optional[Sequence[int]] = None,
-             **sampling_kwargs):
+             kv_dtype=None, **sampling_kwargs):
     """Module-level entry point surfaced as ``model.generate(...)``. See
-    :meth:`GenerationEngine.generate` for the sampling knobs."""
-    engine = _engine_for(model, max_length, prefill_buckets)
+    :meth:`GenerationEngine.generate` for the sampling knobs;
+    ``kv_dtype="int8"`` decodes on the quantized cache."""
+    engine = _engine_for(model, max_length, prefill_buckets, kv_dtype)
     return engine.generate(input_ids, max_new_tokens, **sampling_kwargs)

@@ -326,7 +326,9 @@ class LlamaForCausalLM(nn.Module):
 
     def generate(self, input_ids, max_new_tokens: int = 32, **kwargs):
         """KV-cache generation — see
-        :func:`paddle_tpu_torch.models.generation.generate`."""
+        :func:`paddle_tpu_torch.models.generation.generate`;
+        ``kv_dtype="int8"`` decodes on the quantized cache (quantized per
+        kv head)."""
         from .generation import generate
 
         return generate(self, input_ids, max_new_tokens, **kwargs)

@@ -7,7 +7,9 @@ each ``[B, max_length, n_kv_heads, head_dim]``. Where the JAX package
 returned an updated copy of the cache (and donated the old buffers), the
 port writes into the preallocated tensors in place and returns the same
 tensors, so callers keep the reference's ``(out, cache)`` contract.
-The int8 cache of the reference is not ported yet.
+Under ``kv_dtype="int8"`` each ``k``/``v`` entry is an ``(int8 values,
+float32 scales)`` pair (:mod:`paddle_tpu_torch.quantization`): written
+quantized, read dequantized to the queries' dtype.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from ..distributed.parallel.recompute import recompute_wrap
 from ..kernels import flash_attention as fa
 from ..nn import functional as F
 from ..nn.layer import take_rng_key
+from ..quantization import is_quantized_kv, kv_dequantize, kv_quantize
 
 __all__ = ["chunked_lm_loss", "causal_attention", "repeat_kv",
            "update_kv_cache", "cached_attention", "attend_with_cache",
@@ -85,9 +88,19 @@ def _write_window(buf, new, pos):
 def update_kv_cache(cache, k_new, v_new, position_offset):
     """Write ``k_new``/``v_new`` ``[B, L, Hkv, D]`` into the ``(k, v)``
     cache pair at ``position_offset`` (an int, or a per-row ``[B]``
-    tensor for the continuous-batching decode step). The cache is stored
-    in its own dtype (cast on write) and updated in place."""
+    tensor for the continuous-batching decode step and the chunked
+    continuation). The cache is stored in its own dtype (cast on write)
+    and updated in place. A quantized cache (``(values, scales)``
+    entries) quantizes on write: the full-precision window never lands
+    in the cache."""
     k_cache, v_cache = cache
+    if is_quantized_kv(k_cache):
+        kq, ks = kv_quantize(k_new)
+        vq, vs = kv_quantize(v_new)
+        return ((_write_window(k_cache[0], kq, position_offset),
+                 _write_window(k_cache[1], ks, position_offset)),
+                (_write_window(v_cache[0], vq, position_offset),
+                 _write_window(v_cache[1], vs, position_offset)))
     return (_write_window(k_cache, k_new, position_offset),
             _write_window(v_cache, v_new, position_offset))
 
@@ -98,8 +111,14 @@ def cached_attention(q, k_cache, v_cache, position_offset):
     position ``position_offset + i`` sees keys at positions
     ``<= position_offset + i`` only, so stale or padded cache entries
     beyond a row's frontier never leak in. ``position_offset`` is an int
-    or a per-row ``[B]`` tensor. The cache is upcast to q's dtype on read;
-    GQA is a grouped einsum (kv heads are never repeated)."""
+    or a per-row ``[B]`` tensor, and ``L`` may be more than one token (the
+    chunked continuation: a prefix-hit suffix, a speculative verify
+    window). The cache is upcast to q's dtype on read; an int8 cache
+    dequantizes to q's dtype here, so only this call's working set pays
+    the upcast. GQA is a grouped einsum (kv heads are never repeated)."""
+    if is_quantized_kv(k_cache):
+        k_cache = kv_dequantize(*k_cache, dtype=q.dtype)
+        v_cache = kv_dequantize(*v_cache, dtype=q.dtype)
     B, L, H, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     groups = H // Hkv
@@ -123,15 +142,20 @@ def cached_attention(q, k_cache, v_cache, position_offset):
 def attend_with_cache(q, k_new, v_new, cache, position_offset,
                       use_flash: bool = True):
     """The cached-decode attention dispatch: always writes ``k_new``/
-    ``v_new`` into the cache; the PREFILL shape (several tokens at int
-    offset 0) attends block-locally through :func:`causal_attention` (the
-    flash kernel on the card); every other shape (one-token decode)
+    ``v_new`` into the cache; the PREFILL shape (several tokens at the
+    Python int offset 0) attends block-locally through
+    :func:`causal_attention` (the flash kernel on the card); every other
+    shape (one-token decode, and the chunked continuation: several tokens
+    at a tensor offset, as pooled admits and speculative verify pass it)
     attends the full cache through :func:`cached_attention`. Returns
     ``(out, (k_cache, v_cache))``."""
     cache = update_kv_cache(cache, k_new, v_new, position_offset)
     is_prefill = (q.shape[1] > 1 and isinstance(position_offset, int)
                   and position_offset == 0)
     if is_prefill:
+        # prefill attends the un-quantized k_new/v_new: the quantized
+        # values land in the cache for later reads only, so prefill
+        # logits stay bit-identical across kv_dtype settings
         groups = q.shape[2] // k_new.shape[2]
         out = causal_attention(q, repeat_kv(k_new, groups),
                                repeat_kv(v_new, groups), dropout_p=0.0,

@@ -1,12 +1,16 @@
 """Continuous-batching serving (port of ``paddle_tpu/serving``: the
-scheduler, metrics, engine and server)."""
+scheduler, metrics, prefix block pool, engine and server)."""
 from .engine import ContinuousBatchingEngine, SlotEvent
 from .metrics import LatencyHistogram, ServingMetrics
-from .scheduler import (Backpressure, Deadline, FifoScheduler, QueueFull,
-                        Request, SchedulerClosed)
+from .prefix_cache import BlockPool, PrefixHit, StorePlan, chain_digests
+from .scheduler import (BASE_TENANT, Backpressure, Deadline, FifoScheduler,
+                        Overloaded, QueueFull, RateLimited, Request,
+                        SchedulerClosed, TokenBucket)
 from .server import InferenceServer, RequestHandle
 
 __all__ = ["ContinuousBatchingEngine", "SlotEvent", "LatencyHistogram",
-           "ServingMetrics", "Backpressure", "Deadline", "FifoScheduler",
-           "QueueFull", "Request", "SchedulerClosed", "InferenceServer",
+           "ServingMetrics", "BlockPool", "PrefixHit", "StorePlan",
+           "chain_digests", "BASE_TENANT", "Backpressure", "Deadline",
+           "FifoScheduler", "Overloaded", "QueueFull", "RateLimited",
+           "Request", "SchedulerClosed", "TokenBucket", "InferenceServer",
            "RequestHandle"]

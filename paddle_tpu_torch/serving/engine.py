@@ -28,11 +28,23 @@ at decode position ``p`` is ``per_row_generators(seed, 1, p)[0]``, the
 same derivation a solo batch-1 ``generate()`` uses, so a request's
 tokens do not depend on its slot or on who shares the batch.
 
-Not ported yet: the prefix cache (``BlockPool``), LoRA adapter stores
-and the int8 KV cache.
+With ``prefix_cache`` (a :class:`~paddle_tpu_torch.serving.prefix_cache.
+BlockPool`), every admit is a *pooled* admit: the prompt's matched
+blocks are gathered out of the pool into a slot cache, only the novel
+suffix is prefilled at the matched offset, the prompt's new full blocks
+are written back, and the slot cache is scattered into the live batch.
+The suffix runs the chunked continuation (``cached_attention`` with
+several queries against the full cache) at every matched length, a miss
+at 0 included, exactly as the reference's traced offset does; a pooled
+admit launches no flash forward. ``kv_dtype="int8"`` quantizes the live
+cache and the pool.
+
+Not ported yet: LoRA adapter stores (``adapter_store=`` raises
+``NotImplementedError``), which wait for the LoRA slice.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -40,9 +52,12 @@ import numpy as np
 import torch
 
 from ..io.batching import bucket_for
-from ..models.generation import (DEFAULT_PREFILL_BUCKETS, fresh_seed,
-                                 init_cache, per_row_generators,
-                                 sample_logits_rows, scatter_cache_rows)
+from ..models.generation import (DEFAULT_PREFILL_BUCKETS, cache_nbytes,
+                                 fresh_seed, gather_cache_blocks,
+                                 init_cache, normalize_kv_dtype,
+                                 per_row_generators, sample_logits_rows,
+                                 scatter_cache_blocks, scatter_cache_rows)
+from .prefix_cache import BlockPool
 
 __all__ = ["ContinuousBatchingEngine", "SlotEvent"]
 
@@ -62,16 +77,28 @@ class ContinuousBatchingEngine:
 
     ``top_k`` is engine-wide; temperature, top_p, greedy-vs-sample, eos
     id and seed are per request. ``allow_top_p=False`` makes requests
-    with ``top_p < 1`` an error at the server, as in the reference."""
+    with ``top_p < 1`` an error at the server, as in the reference.
+
+    ``prefix_cache`` (None | BlockPool | True | byte budget | kwargs
+    dict) switches admission to the pooled admit (see the module
+    docstring); ``kv_dtype="int8"`` stores the live cache (and a pool
+    built here) quantized."""
 
     def __init__(self, model, slots: int = 4,
                  max_length: Optional[int] = None,
                  prefill_buckets: Optional[Sequence[int]] = None,
-                 top_k: int = 0, allow_top_p: bool = True):
+                 top_k: int = 0, allow_top_p: bool = True,
+                 prefix_cache=None, adapter_store=None, kv_dtype=None):
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
+        if adapter_store is not None:
+            raise NotImplementedError(
+                "adapter_store (LoRA adapters) is not ported yet; it comes "
+                "with the LoRA slice")
         self.model = model
         spec = model.cache_spec()
+        self.spec = spec
+        self.kv_dtype = normalize_kv_dtype(kv_dtype)
         self.slots = int(slots)
         self.max_length = int(max_length or spec["max_length"])
         if self.max_length > spec["max_length"]:
@@ -84,15 +111,59 @@ class ContinuousBatchingEngine:
         self.prefill_buckets = buckets or (self.max_length,)
         self.top_k = int(top_k)
         self.allow_top_p = bool(allow_top_p)
+        self.pool = self._normalize_pool(prefix_cache)
+        self._calls = {"prefill": 0, "decode": 0}
         self.reset()
+
+    def _normalize_pool(self, prefix_cache) -> Optional[BlockPool]:
+        """Accept the serving layer's spellings of "give me a prefix
+        cache": ``None``/``False``/``0`` (off), a ready
+        :class:`BlockPool`, ``True`` (defaults), a positive int/float byte
+        budget, or a kwargs dict for :class:`BlockPool`. A zero budget
+        means OFF, not a one-block pool: configs spell "disabled" as 0."""
+        if prefix_cache is None or prefix_cache is False:
+            return None
+        if isinstance(prefix_cache, (int, float)) and not isinstance(
+                prefix_cache, bool) and prefix_cache <= 0:
+            return None
+        if isinstance(prefix_cache, BlockPool):
+            prefix_cache.compatible_with(self.spec, self.max_length,
+                                         kv_dtype=self.kv_dtype)
+            owner = getattr(prefix_cache, "_owner", None)
+            if owner is not None and owner is not self:
+                # the engine writes the pool in place across plan and
+                # commit; a second engine's admits would interleave
+                raise ValueError(
+                    "this BlockPool is already attached to another "
+                    "engine; build one pool per replica")
+            prefix_cache._owner = self
+            return prefix_cache
+        kwargs = {}
+        if isinstance(prefix_cache, dict):
+            kwargs = dict(prefix_cache)
+        elif prefix_cache is not True:
+            kwargs = {"max_bytes": int(prefix_cache)}
+        kwargs.setdefault("max_length", self.max_length)
+        kwargs.setdefault("kv_dtype", self.kv_dtype)
+        pool = BlockPool(self.model, **kwargs)
+        # the same geometry gate as a ready pool: an explicit max_length
+        # larger than the engine cache would otherwise fail mid-admit
+        pool.compatible_with(self.spec, self.max_length,
+                             kv_dtype=self.kv_dtype)
+        pool._owner = self
+        return pool
 
     # ------------------------------------------------------------- state
     @torch.inference_mode()
     def reset(self) -> None:
-        """(Re)build the live batch: fresh cache, all slots free. Also the
-        crash-recovery path — a fault mid-step may leave the cache
-        half-written, so recovery starts clean."""
-        self.live_cache = init_cache(self.model, self.slots, self.max_length)
+        """(Re)build the live batch: fresh cache, all slots free, and a
+        wiped pool. Also the crash-recovery path — a fault mid-step may
+        leave the cache or pool rows half-written, so recovery starts
+        clean."""
+        self.live_cache = init_cache(self.model, self.slots, self.max_length,
+                                     kv_dtype=self.kv_dtype)
+        if self.pool is not None:
+            self.pool.reset()
         B = self.slots
         self._positions = np.zeros(B, np.int64)
         self._tokens = np.zeros(B, np.int64)
@@ -104,12 +175,45 @@ class ContinuousBatchingEngine:
         self._greedy = np.ones(B, bool)
         self.requests: List[Optional[object]] = [None] * B
 
+    def sync_weights(self) -> None:
+        """The reference re-snapshots parameters for its compiled
+        programs here. The port's forwards read the model's live
+        parameters at every call, so there is nothing to refresh; kept
+        for the reference's API."""
+
     def free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.requests) if r is None]
 
     @property
     def active_count(self) -> int:
         return sum(r is not None for r in self.requests)
+
+    def occupancy(self) -> float:
+        return self.active_count / self.slots
+
+    def cache_bytes_per_slot(self) -> int:
+        """Device bytes one slot's KV occupies in the live batch — the
+        number the ``kv_dtype="int8"`` halving is held to."""
+        return cache_nbytes(self.live_cache) // self.slots
+
+    def cache_stats(self) -> dict:
+        """The reference's ``{"prefill": {...}, "decode": {...}}``
+        counters. The port traces and compiles nothing, so ``compiles``
+        is always 0; ``calls`` counts admits and decode steps."""
+        return {kind: {"compiles": 0, "calls": n}
+                for kind, n in self._calls.items()}
+
+    @contextlib.contextmanager
+    def _eval_mode(self):
+        """Serving runs the eval graph (dropout off) even when the model
+        is mid-fit; the mode is restored afterwards."""
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            yield
+        finally:
+            if was_training:
+                self.model.train()
 
     # -------------------------------------------------------- host API
     def bucket_for_prompt(self, prompt_len: int) -> int:
@@ -126,10 +230,119 @@ class ContinuousBatchingEngine:
                 f"prompt_len {prompt_len} + max_new_tokens {max_new_tokens} "
                 f"exceeds the engine's max_length {self.max_length}")
 
+    def warmup(self, max_new_tokens: int = 2) -> dict:
+        """Push one dummy greedy request per prefill bucket through
+        :meth:`admit` (and one :meth:`step` unless ``max_new_tokens`` is
+        1) on an idle engine, then reset the pool so the dummy prompts'
+        blocks never match real traffic. On the card this builds the
+        kernels and the library handles before the first real request.
+        Returns the reference's keys; the compile counts are 0 because
+        the port traces and compiles nothing."""
+        from .scheduler import Request
+
+        if self.requests[0] is not None:
+            raise RuntimeError("warmup() needs an idle engine — run it "
+                               "before admitting traffic")
+        mnt = max(1, int(max_new_tokens))
+        seen = set()
+        for b in self.prefill_buckets:
+            L = max(1, min(int(b), self.max_length - mnt))
+            bucket = self.bucket_for_prompt(L)
+            if bucket in seen:
+                continue
+            seen.add(bucket)
+            prompt = (np.arange(L, dtype=np.int64) % 97) + 1
+            self.admit(Request(prompt=prompt, max_new_tokens=mnt,
+                               greedy=True, seed=0), 0)
+            if mnt > 1:
+                self.step()
+            self.release(0)
+        if self.pool is not None:
+            self.pool.reset()
+        return {"buckets": sorted(seen), "prefill_compiles": 0,
+                "decode_compiles": 0}
+
+    def _plan_hit(self, prompt: np.ndarray, L: int, salt: bytes = b""):
+        """Pin the longest usable pool match for ``prompt`` and plan the
+        block writes. The match shrinks (block granularity) until
+        ``matched + suffix_bucket`` fits the cache — the suffix write
+        window must never clamp against the cache end."""
+        hit = self.pool.lookup(prompt, salt=salt)
+        # everything between the lookup (which PINS the matched blocks)
+        # and handing (hit, plan) to the caller runs under an abort
+        # guard: a raise out of trim/plan_store would otherwise leak the
+        # pins forever (the pool would become unevictable)
+        try:
+            matched = hit.tokens
+            while (matched > 0
+                   and matched + self.bucket_for_prompt(L - matched)
+                   > self.max_length):
+                matched -= self.pool.block_tokens
+            if matched != hit.tokens:
+                hit = self.pool.trim(hit, matched)
+            plan = self.pool.plan_store(prompt, matched,
+                                        digests=hit.digests, salt=salt)
+        except Exception:
+            self.pool.abort(hit)
+            raise
+        return hit, plan
+
+    def _first_token(self, logits, request, seed: int):
+        """The request's first token from its prefill logits ``[1, 1,
+        V]``: row 0's prefill generator, as a solo ``generate()``."""
+        gens = [None if request.greedy else
+                per_row_generators(seed, 1, None, self.model.device)[0]]
+        return sample_logits_rows(
+            logits[:, 0, :], gens, request.temperature, self.top_k,
+            request.top_p, greedy_mask=[request.greedy])
+
+    def _padded(self, tokens: np.ndarray, bucket: int):
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :tokens.shape[0]] = tokens
+        return torch.as_tensor(ids, device=self.model.device)
+
+    def _admit_pooled(self, prompt: np.ndarray, L: int, request,
+                      seed: int, slot: int):
+        """The pooled admit: gather the matched blocks into a slot cache,
+        prefill only the suffix at the matched offset, write the prompt's
+        new full blocks back, scatter the slot. The offset goes in as a
+        ``[1]`` tensor, never the int 0, so every pooled admit (a miss at
+        0 included) runs the chunked continuation through
+        ``cached_attention``, as the reference's traced offset does, and
+        launches no flash forward. Returns ``(token, matched tokens)``."""
+        pool = self.pool
+        with pool.device_lock:
+            hit, plan = self._plan_hit(prompt, L)
+            # the abort guard starts right after the pins land: a raise
+            # anywhere before the commit must release them and free the
+            # plan's rows
+            try:
+                matched = hit.tokens
+                suffix = L - matched
+                ids = self._padded(prompt[matched:],
+                                   self.bucket_for_prompt(suffix))
+                slot_cache = gather_cache_blocks(pool.tensors, hit.read_idx,
+                                                 self.max_length)
+                offset = torch.tensor([matched], device=self.model.device)
+                logits, slot_cache = self.model(
+                    ids, cache=slot_cache, position_offset=offset,
+                    gather_last=suffix - 1)
+                tok = self._first_token(logits, request, seed)
+                scatter_cache_blocks(pool.tensors, slot_cache,
+                                     plan.write_idx)
+                scatter_cache_rows(self.live_cache, slot_cache, slot)
+            except Exception:
+                pool.abort(hit, plan)
+                raise
+            pool.commit(hit, plan, pool.tensors)
+        return tok, matched
+
     @torch.inference_mode()
-    def admit(self, request, slot: int) -> Tuple[int, bool]:
-        """Prefill ``request`` into free ``slot``; returns the first token
-        and whether the request finished at prefill (eos first)."""
+    def admit(self, request, slot: int) -> Tuple[int, bool, int]:
+        """Prefill ``request`` into free ``slot``; returns the first
+        token, whether the request finished at prefill (eos first), and
+        how many prompt tokens the prefix cache served (0 without a
+        pool)."""
         if self.requests[slot] is not None:
             raise RuntimeError(f"slot {slot} is occupied")
         prompt = np.asarray(request.prompt, np.int64).ravel()
@@ -137,26 +350,20 @@ class ContinuousBatchingEngine:
         self.validate(L, int(request.max_new_tokens))
         seed = fresh_seed() if request.seed is None else int(request.seed)
         eos = -1 if request.eos_token_id is None else int(request.eos_token_id)
-        device = self.model.device
-        bucket = self.bucket_for_prompt(L)
-        ids_p = np.zeros((1, bucket), np.int64)
-        ids_p[0, :L] = prompt
-        was_training = self.model.training
-        self.model.eval()  # serving runs the eval graph (dropout off)
-        try:
-            slot_cache = init_cache(self.model, 1, self.max_length)
-            logits, slot_cache = self.model(
-                torch.as_tensor(ids_p, device=device), cache=slot_cache,
-                position_offset=0, gather_last=L - 1)
-            gens = [None if request.greedy else
-                    per_row_generators(seed, 1, None, device)[0]]
-            tok = sample_logits_rows(
-                logits[:, 0, :], gens, request.temperature, self.top_k,
-                request.top_p, greedy_mask=[request.greedy])
-            scatter_cache_rows(self.live_cache, slot_cache, slot)
-        finally:
-            if was_training:
-                self.model.train()
+        hit_tokens = 0
+        self._calls["prefill"] += 1
+        with self._eval_mode():  # serving runs the eval graph (dropout off)
+            if self.pool is None:
+                slot_cache = init_cache(self.model, 1, self.max_length,
+                                        kv_dtype=self.kv_dtype)
+                logits, slot_cache = self.model(
+                    self._padded(prompt, self.bucket_for_prompt(L)),
+                    cache=slot_cache, position_offset=0, gather_last=L - 1)
+                tok = self._first_token(logits, request, seed)
+                scatter_cache_rows(self.live_cache, slot_cache, slot)
+            else:
+                tok, hit_tokens = self._admit_pooled(prompt, L, request,
+                                                     seed, slot)
         first = int(tok[0])  # the admission's one device read
         fin = first == eos
         self.requests[slot] = request
@@ -168,7 +375,7 @@ class ContinuousBatchingEngine:
         self._temp[slot] = request.temperature
         self._top_p[slot] = request.top_p
         self._greedy[slot] = request.greedy
-        return first, fin
+        return first, fin, hit_tokens
 
     @torch.inference_mode()
     def step(self) -> List[SlotEvent]:
@@ -180,9 +387,8 @@ class ContinuousBatchingEngine:
                 else per_row_generators(int(self._seeds[i]), 1,
                                         int(self._positions[i]), device)[0]
                 for i, req in enumerate(self.requests)]
-        was_training = self.model.training
-        self.model.eval()
-        try:
+        self._calls["decode"] += 1
+        with self._eval_mode():
             logits, self.live_cache = self.model(
                 torch.as_tensor(self._tokens[:, None], device=device),
                 cache=self.live_cache,
@@ -191,9 +397,6 @@ class ContinuousBatchingEngine:
             nxt = sample_logits_rows(logits[:, -1, :], gens, self._temp,
                                      self.top_k, self._top_p,
                                      greedy_mask=self._greedy)
-        finally:
-            if was_training:
-                self.model.train()
         # the per-step [B] read-back IS the streaming output
         toks = nxt.cpu().numpy()
         toks = np.where(self._done, np.maximum(self._eos, 0), toks)

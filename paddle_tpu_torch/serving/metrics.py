@@ -6,7 +6,10 @@
 - **TTFT** (time to first token: queue wait + prefill),
 - **inter-token latency** (the decode-loop heartbeat users feel),
 - **goodput** (tokens/s, requests/s, and the reject/expire/requeue counts
-  that explain the gap from offered load).
+  that explain the gap from offered load; overload sheds and per-tenant
+  rate-limit rejects apart from failures),
+- **prefix reuse** (prompt tokens served from the block pool against
+  tokens prefilled, and their hit rate).
 
 Histograms keep a bounded reservoir sample with exact count, sum and max.
 Export to the reference's observability registry is not ported yet.
@@ -17,7 +20,7 @@ import math
 import random
 import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 __all__ = ["LatencyHistogram", "ServingMetrics"]
 
@@ -68,10 +71,17 @@ class LatencyHistogram:
 class ServingMetrics:
     """Thread-safe counters/gauges/histograms for one serving loop."""
 
+    # requests_shed: deadline-aware overload sheds (Overloaded,
+    # retryable), apart from expiries (TimeoutError) and failures;
+    # requests_rate_limited: per-tenant token-bucket rejects
+    # (RateLimited), apart from sheds: one tenant over its allowance, not
+    # the server over capacity; prefix_*_tokens: prompt tokens served
+    # from the block pool / prefilled (both 0 without a pool)
     COUNTERS = ("requests_submitted", "requests_completed",
-                "requests_rejected", "requests_expired", "requests_failed",
+                "requests_rejected", "requests_expired", "requests_shed",
+                "requests_rate_limited", "requests_failed",
                 "requests_requeued", "tokens_emitted", "prefills",
-                "decode_steps")
+                "decode_steps", "prefix_hit_tokens", "prefix_miss_tokens")
 
     def __init__(self, slots: int):
         self.slots = int(slots)
@@ -122,12 +132,17 @@ class ServingMetrics:
         with self._lock:
             self.queue_wait.observe(seconds)
 
-    def snapshot(self) -> dict:
-        """One plain dict of everything (times in ms, rates per second)."""
+    def snapshot(self, compile_stats: Optional[dict] = None,
+                 prefix_cache: Optional[dict] = None) -> dict:
+        """One plain dict of everything (times in ms, rates per second).
+        ``compile_stats`` (the engine's ``cache_stats()``) and
+        ``prefix_cache`` (a ``BlockPool.stats()`` dict) ride along under
+        their own keys when given."""
         with self._lock:
             now = time.monotonic()
             self._advance_occupancy(now)
             elapsed = max(now - self._t0, 1e-9)
+            seen = self.prefix_hit_tokens + self.prefix_miss_tokens
             out = {"elapsed_s": elapsed,
                    "slots": self.slots,
                    "queue_depth": self.queue_depth,
@@ -136,10 +151,16 @@ class ServingMetrics:
                        self._occ_integral / (elapsed * self.slots)}
             out.update({name: getattr(self, name) for name in self.COUNTERS})
             out.update({
+                "prefix_hit_rate": (round(self.prefix_hit_tokens / seen, 4)
+                                    if seen else 0.0),
                 "tokens_per_sec": self.tokens_emitted / elapsed,
                 "requests_per_sec": self.requests_completed / elapsed,
                 "ttft": self.ttft.summary(),
                 "inter_token": self.inter_token.summary(),
                 "queue_wait": self.queue_wait.summary(),
             })
+            if compile_stats is not None:
+                out["compile_stats"] = compile_stats
+            if prefix_cache is not None:
+                out["prefix_cache"] = prefix_cache
             return out

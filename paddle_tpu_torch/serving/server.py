@@ -14,7 +14,11 @@ Failure story:
 
 - **backpressure**: an over-depth queue rejects at ``submit`` with
   :class:`~paddle_tpu_torch.serving.scheduler.QueueFull` (a
-  ``ConnectionError``);
+  ``ConnectionError``), an over-rate tenant with ``RateLimited``
+  (``tenant_rate``/``tenant_burst``/``tenant_limits``), and, with
+  ``shed_on_overload``, a request predicted to miss its deadline with
+  ``Overloaded``, at submit or later from the queue body; sheds and
+  rate-limit rejects are counted apart from failures;
 - **deadlines**: a per-request deadline expires requests still in the
   queue (their handles raise ``TimeoutError``);
 - **worker faults**: any exception in the serve loop resets the engine
@@ -26,9 +30,14 @@ Failure story:
   the loop finish every accepted request, then joins the worker;
   ``drain=False`` fails the backlog with ``SchedulerClosed``.
 
-Not ported yet: overload shedding, per-tenant rate limits and fair
-queueing, LoRA adapters, the prefix cache, the observability hooks
-(registry, flight recorder, tracing) and fault-injection points.
+``prefix_cache=`` and ``kv_dtype=`` go to the engine (block-pool
+prefix reuse, the int8 cache; ``handle.cache_hit_tokens`` reports the
+reuse), ``fair_queueing``/``fair_weights`` to the scheduler (deficit
+round-robin over tenants, named with ``submit(tenant=...)``).
+
+Not ported yet: LoRA adapters (``adapter_store=`` raises
+``NotImplementedError``), the observability hooks (registry, flight
+recorder, tracing) and fault-injection points.
 """
 from __future__ import annotations
 
@@ -43,8 +52,8 @@ import numpy as np
 from .. import default_device
 from .engine import ContinuousBatchingEngine
 from .metrics import ServingMetrics
-from .scheduler import (Deadline, FifoScheduler, QueueFull, Request,
-                        SchedulerClosed)
+from .scheduler import (Deadline, FifoScheduler, Overloaded, QueueFull,
+                        RateLimited, Request, SchedulerClosed)
 
 __all__ = ["InferenceServer", "RequestHandle"]
 
@@ -64,6 +73,9 @@ class RequestHandle:
         self._done_evt = threading.Event()
         self.error: Optional[BaseException] = None
         self.ttft_s: Optional[float] = None
+        #: prompt tokens served from the prefix cache at admission (0
+        #: without a pool)
+        self.cache_hit_tokens: int = 0
         self._submit_t = time.monotonic()
         self._last_token_t: Optional[float] = None
 
@@ -137,7 +149,8 @@ class InferenceServer:
 
     ``slots`` fixes the decode batch geometry; ``top_k``/``allow_top_p``
     are server-wide sampling settings; every other sampling knob is per
-    request. ``device=None`` means ``cuda`` (``RuntimeError`` without a
+    request. The serving options take the reference's defaults (all
+    off). ``device=None`` means ``cuda`` (``RuntimeError`` without a
     GPU); the model's parameters must already live on that device."""
 
     def __init__(self, network, slots: int = 4,
@@ -146,7 +159,14 @@ class InferenceServer:
                  max_queue_depth: int = 64,
                  max_prefills_per_step: int = 2,
                  top_k: int = 0, allow_top_p: bool = True,
-                 max_request_retries: int = 1, device=None):
+                 max_request_retries: int = 1,
+                 prefix_cache=None, adapter_store=None,
+                 shed_on_overload: bool = False,
+                 tenant_rate: Optional[float] = None,
+                 tenant_burst: Optional[float] = None,
+                 tenant_limits=None,
+                 fair_queueing: bool = False,
+                 fair_weights=None, kv_dtype=None, device=None):
         device = default_device(device)
         if network.device.type != device.type or (
                 device.index is not None and network.device != device):
@@ -156,10 +176,15 @@ class InferenceServer:
         self.engine = ContinuousBatchingEngine(
             network, slots=slots, max_length=max_length,
             prefill_buckets=prefill_buckets, top_k=top_k,
-            allow_top_p=allow_top_p)
+            allow_top_p=allow_top_p, prefix_cache=prefix_cache,
+            adapter_store=adapter_store, kv_dtype=kv_dtype)
         self.scheduler = FifoScheduler(
             max_queue_depth=max_queue_depth,
-            max_prefills_per_step=max_prefills_per_step)
+            max_prefills_per_step=max_prefills_per_step,
+            shed_on_overload=shed_on_overload,
+            tenant_rate=tenant_rate, tenant_burst=tenant_burst,
+            tenant_limits=tenant_limits, fair_queueing=fair_queueing,
+            fair_weights=fair_weights)
         self.metrics = ServingMetrics(slots)
         self.max_request_retries = int(max_request_retries)
         self._cv = threading.Condition()
@@ -180,18 +205,22 @@ class InferenceServer:
                do_sample: bool = False, temperature: float = 1.0,
                top_p: float = 1.0, eos_token_id: Optional[int] = None,
                seed: Optional[int] = None,
-               deadline: Optional[float] = None) -> RequestHandle:
+               deadline: Optional[float] = None,
+               tenant: Optional[str] = None) -> RequestHandle:
         """Queue one generation request; returns at once with a
         :class:`RequestHandle`. Raises ``ValueError`` on an impossible
         request (too long for the cache), :class:`QueueFull` when the
-        admission queue is at depth (retryable backpressure), and
+        admission queue is at depth, ``RateLimited`` when ``tenant`` is
+        over its admission rate, ``Overloaded`` when shedding predicts a
+        missed deadline (all retryable backpressure), and
         :class:`SchedulerClosed` after shutdown.
 
         A ``seed`` makes the request's sampled stream deterministic and
         equal to a solo ``generate(..., seed=s)`` run; ``seed=None``
         draws fresh randomness per request. ``deadline`` (seconds) bounds
         QUEUE WAIT: a request that cannot start in time fails with
-        ``TimeoutError``."""
+        ``TimeoutError``. ``tenant`` names the request's tenant for the
+        rate limits and fair queueing (``None``: the base tenant)."""
         prompt = np.asarray(prompt, np.int64).ravel()
         self.engine.validate(int(prompt.shape[0]), int(max_new_tokens))
         if top_p < 1.0 and not self.engine.allow_top_p:
@@ -204,12 +233,23 @@ class InferenceServer:
             greedy=not do_sample, temperature=float(temperature),
             top_p=float(top_p), eos_token_id=eos_token_id,
             seed=None if seed is None else int(seed),
-            deadline=Deadline(deadline) if deadline is not None else None)
+            deadline=Deadline(deadline) if deadline is not None else None,
+            tenant=tenant)
         handle = RequestHandle(req)
         req.handle = handle
         self.start()
         try:
             self.scheduler.submit(req)
+        except Overloaded:
+            # the fast-fail half of overload control: the request learns
+            # now, not after its whole deadline
+            self.metrics.inc("requests_shed")
+            raise
+        except RateLimited:
+            # one tenant over ITS rate: the server working as designed,
+            # counted apart from sheds and failures
+            self.metrics.inc("requests_rate_limited")
+            raise
         except QueueFull:
             self.metrics.inc("requests_rejected")
             raise
@@ -247,8 +287,13 @@ class InferenceServer:
         return False
 
     def snapshot(self) -> dict:
-        """Metrics snapshot (see ``ServingMetrics.snapshot``)."""
-        return self.metrics.snapshot()
+        """Metrics snapshot (see ``ServingMetrics.snapshot``) with the
+        engine's call counters and, when a prefix cache is attached, the
+        block pool's occupancy and eviction numbers."""
+        pool = self.engine.pool
+        return self.metrics.snapshot(
+            self.engine.cache_stats(),
+            prefix_cache=None if pool is None else pool.stats())
 
     # ------------------------------------------------------------ worker
     def _loop(self) -> None:
@@ -289,6 +334,8 @@ class InferenceServer:
     def _tick(self) -> None:
         for req in self.scheduler.pop_expired():
             self._expire(req)
+        for req in self.scheduler.pop_predicted_misses():
+            self._shed(req)
         free = self.engine.free_slots()
         if free:
             admits, expired = self.scheduler.take(len(free))
@@ -324,8 +371,13 @@ class InferenceServer:
         req.attempts += 1   # count BEFORE any fault: a failed admission
         self.metrics.observe_queue_wait(  # spends retry budget
             time.monotonic() - req.handle._submit_t)
-        first, fin = self.engine.admit(req, slot)
+        first, fin, hit_tokens = self.engine.admit(req, slot)
         self.metrics.inc("prefills")
+        if self.engine.pool is not None:
+            req.handle.cache_hit_tokens = hit_tokens
+            self.metrics.inc("prefix_hit_tokens", hit_tokens)
+            self.metrics.inc("prefix_miss_tokens",
+                             len(req.prompt) - hit_tokens)
         h = req.handle
         h._push(first)
         self.metrics.inc("tokens_emitted")
@@ -348,6 +400,17 @@ class InferenceServer:
         req.handle._fail(TimeoutError(
             f"request {req.id} expired in queue after "
             f"{req.deadline.total:.3f}s deadline"))
+
+    def _shed(self, req: Request) -> None:
+        """Post-admission shed: service degraded after this request was
+        queued and its predicted wait now exceeds its deadline, so it
+        fails retryably now (``Overloaded``, a ``ConnectionError``)
+        instead of riding the queue into a certain ``TimeoutError``."""
+        self.metrics.inc("requests_shed")
+        req.handle._fail(Overloaded(
+            f"request {req.id} shed from queue: predicted wait exceeds "
+            f"its {req.deadline.total:.3f}s deadline; retry against "
+            f"another replica"))
 
     def _recover(self, exc: BaseException, extra=()) -> None:
         """Crash-safe worker: reset the engine (the cache may be

@@ -17,7 +17,18 @@ with a ``PROMPT_LEN``-token prompt, then:
 
 ``--model llama2_7b`` does the same for Llama-2-7B at full width and
 depth (float32 weights, bf16 KV cache, 4096 positions): the buckets go
-up to 4096 and the traced prefill is the 4096-token one.
+up to 4096 and the traced prefill is the 4096-token one. ``--model
+serve_preset`` takes ``tools/decode_bench.py``'s serving preset (h1024,
+24 layers, 16 heads of 64, 1024 positions). ``--kv-dtype int8`` runs
+every engine on the int8 cache.
+
+``--admits`` measures the prefix pool's admit instead: a prompt of a
+shared prefix (half the positions) and a 64-token suffix admitted by a
+pool-less engine (the flash prefill), by a pooled engine on a miss (the
+whole prompt through ``cached_attention``) and on a hit (the suffix
+only, after the matched blocks are gathered); each timed on the host
+clock (median of 5, each ending in the first token's read-back) and
+traced once.
 
 One JSON line per measurement; the card's name and power limit first.
 Needs a CUDA device (exits 1 without one). Imports nothing of JAX.
@@ -70,11 +81,60 @@ def _profile(fn, label: str, calls: int):
                for k, ms, n in rows[:12]])
 
 
+def _admits(model, cfg, kv_dtype, rng) -> None:
+    """Pool-less, pooled-miss and pooled-hit admits of one prompt (see
+    the module docstring)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine, Request
+
+    max_len = cfg.max_position_embeddings
+    prefix = rng.integers(0, cfg.vocab_size, max_len // 2)
+
+    def prompt():
+        return np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 64)])
+
+    plain = ContinuousBatchingEngine(model, slots=SLOTS, max_length=max_len,
+                                     kv_dtype=kv_dtype)
+    pooled = ContinuousBatchingEngine(model, slots=SLOTS, max_length=max_len,
+                                      kv_dtype=kv_dtype,
+                                      prefix_cache=256 << 20)
+
+    def admit(engine, reset_pool: bool):
+        if reset_pool:
+            engine.pool.reset()
+        _, _, hit = engine.admit(Request(prompt=prompt(), max_new_tokens=1), 0)
+        engine.release(0)
+        return hit
+
+    cases = {"pool_less": lambda: admit(plain, False),
+             "pooled_miss": lambda: admit(pooled, True),
+             "pooled_hit": lambda: admit(pooled, False)}
+    for name, fn in cases.items():
+        fn()   # warm-up (and, for the hit, the store it matches)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hit = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        _emit(measure=f"admit_ms_{name}", kv_dtype=kv_dtype or "bfloat16",
+              prompt=len(prefix) + 64, hit_tokens=hit,
+              median=float(np.median(times)), all=times)
+        _profile(fn, f"admit_{name}", 1)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--model", choices=("gpt_1p3b", "llama2_7b"),
+    ap.add_argument("--model", choices=("gpt_1p3b", "llama2_7b",
+                                        "serve_preset"),
                     default="gpt_1p3b")
+    ap.add_argument("--kv-dtype", choices=("none", "int8"), default="none")
+    ap.add_argument("--admits", action="store_true",
+                    help="time and trace pool-less, pooled-miss and "
+                         "pooled-hit admits")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -83,7 +143,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_serve_profile: needs a CUDA device", file=sys.stderr)
         return 1
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_1p3b
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM, gpt_1p3b
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama2_7b
     from paddle_tpu_torch.serving import ContinuousBatchingEngine, Request
 
@@ -93,6 +153,12 @@ def main(argv=None) -> int:
     _emit(card=card, torch=torch.__version__, model=args.model)
     if args.model == "llama2_7b":
         cfg, model_cls = llama2_7b(dtype="bfloat16"), LlamaForCausalLM
+    elif args.model == "serve_preset":
+        cfg = GPTConfig(vocab_size=50304, hidden_size=1024, num_layers=24,
+                        num_heads=16, max_position_embeddings=1024,
+                        hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                        dtype="bfloat16")
+        model_cls = GPTForCausalLM
     else:
         cfg = gpt_1p3b(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
                        dtype="bfloat16")
@@ -100,8 +166,13 @@ def main(argv=None) -> int:
     max_len = cfg.max_position_embeddings
     model = model_cls(cfg, device="cuda", generator=torch.Generator(
         "cuda").manual_seed(args.seed)).eval()
-    engine = ContinuousBatchingEngine(model, slots=SLOTS, max_length=max_len)
+    kv_dtype = None if args.kv_dtype == "none" else args.kv_dtype
     rng = np.random.default_rng(args.seed)
+    if args.admits:
+        _admits(model, cfg, kv_dtype, rng)
+        return 0
+    engine = ContinuousBatchingEngine(model, slots=SLOTS, max_length=max_len,
+                                      kv_dtype=kv_dtype)
     for s in range(SLOTS):
         engine.admit(Request(prompt=rng.integers(0, cfg.vocab_size, PROMPT_LEN),
                              max_new_tokens=max_len - PROMPT_LEN), s)
