@@ -172,14 +172,44 @@ exits non-zero:
                phase 4, with the wgmma_f32 forward at D = 256 (exactly one
                launch and one split per layer per prefill, no other
                forward).
-10. llama    - llama2_7b served at full width and depth, its bf16 O2
+10. encoder  - transformer_base: nn.Transformer() at its defaults
+               (Transformer-base: d_model 512, 8 heads of 64, 6 + 6
+               layers, FFN 2048, ReLU, dropout 0.1) between a shared
+               37000-word embedding with learned positions and a tied
+               output projection, label smoothing 0.1, bf16 O2 AdamW
+               through TrainStep on a seeded batch of 32 x source 256 /
+               target 200 with per-row lengths (source 128-256, target
+               100-200) and masks as the models pass them (bool key
+               padding [32,1,256,256], float causal -inf plus padding
+               [32,1,200,200], bool [32,1,200,256] for cross-attention):
+               5 warm-up and 8 timed steps, falling losses, exactly 18
+               wgmma forward, 18 dQ and 18 dK/dV launches a step (6 at each
+               attention shape) and no dS output; step ms, tokens/s, peak
+               memory. sdpa_routes: the port's SDPA at those three calls
+               (and a left-padded float -inf mask) in bf16 and float32
+               against its plain branch (float32: the kernels' stated
+               tolerances; bf16: the output within 2 bf16 ulps of the
+               float32 plain branch, gradients within twice the bf16 plain
+               branch's distance from it), trained float masks [1,8,L,L]
+               and [32,1,L,L] (dS and its reduction), the bf16 kernels at
+               p = 0.1 against their plain versions given the same mask,
+               causal Lq != Lk (no launch, bottom-right), and each kernel
+               at each call timed against torch's SDPA with the same mask.
+               bert_base: BertForSequenceClassification(bert_base()) bf16
+               O2 AdamW at [32, 128] with padded rows (falling loss, no
+               flash launch: its attention is plain by design),
+               BertForPretraining forward and backward at [8, 512] with 76
+               masked positions a row, ERNIE-3.0-base forward at [8, 512],
+               and a float32 BertModel against float64 on the card.
+11. llama    - llama2_7b served at full width and depth, its bf16 O2
                step (8 of 32 layers) and its GQA gradients (2 layers).
 
 Then a line with the kernels' summary, a line with the card's name and
 power limit, and the last line {"ok": true, "device": {...}}.
 The kernels line counts each kernel's launches on the path that runs it
-(the serving options, speculative prefills and the serve preset's D = 64
-prefills have rows of their own). ``--kernels-only`` stops after phase 3
+(the serving options, speculative prefills, the serve preset's D = 64
+prefills and each attention call of Transformer-base have rows of their
+own). ``--kernels-only`` stops after phase 3
 and prints none of those three
 lines, and reports a register spill without failing on it: a partial
 run, to compare kernel builds (a layout that spills among them) in turns.
@@ -2874,6 +2904,784 @@ def phase_llama_gqa_grads(seed: int) -> dict:
                 f"{LLAMA_GQA_KV_HEADS}", mem_before_gib=mem_before)
 
 
+# ------------------------------------------------------------ encoder path
+# Transformer-base (phase_transformer_base): the port's nn.Transformer() at
+# its defaults (d_model 512, 8 heads of 64, 6 + 6 layers, FFN 2048, ReLU,
+# dropout 0.1) between a shared source/target embedding of TB_VOCAB words
+# (the WMT14 en-de joint BPE vocabulary of the Transformer paper) and a tied
+# output projection, label smoothing 0.1; batch TB_BATCH x source TB_SRC /
+# target TB_TGT with per-row lengths from the seed
+TB_VOCAB, TB_MODEL, TB_HEADS, TB_LAYERS = 37000, 512, 8, 6
+TB_BATCH, TB_SRC, TB_TGT = 32, 256, 200
+TB_SRC_MIN, TB_TGT_MIN, TB_PAD = 128, 100, 0
+TB_LABEL_SMOOTHING = 0.1
+TB_PATH = "training (Transformer-base bf16 O2 step, dropout 0.1)"
+# its three attention calls a layer: (name, Lq, Lk, the mask's key)
+TB_ATTENTION = (("enc_self", TB_SRC, TB_SRC, "src_mask"),
+                ("dec_self", TB_TGT, TB_TGT, "tgt_mask"),
+                ("cross", TB_TGT, TB_SRC, "memory_mask"))
+# BERT-base (phase_bert_base): sequence classification at [32, 128] with
+# rows of 32-128 tokens, BertForPretraining at [8, 512] with 76 masked
+# positions a row (15 % of 512), ERNIE-3.0-base forward at [8, 512]
+BERT_BATCH, BERT_SEQ, BERT_MIN_LEN = 32, 128, 32
+BERT_PRETRAIN_BATCH, BERT_PRETRAIN_SEQ, BERT_MASKED = 8, 512, 76
+BERT_LR, BERT_LR_WARMUP = 5e-5, 5
+# a float32 BertModel against the same module in float64 on the card:
+# max |f32 - f64| over the largest |f64| of the outputs. Each of the 12
+# post-LN layers rounds its float32 sums (contractions of 768 to 3072
+# terms) at 2^-24 relative; 1e-4 is about 1700 such roundings, far above
+# what 12 layers of them accumulate and far below what a wrong operation
+# gives (order 1 after a LayerNorm)
+BERT_F64_RTOL = 1e-4
+
+
+def _encoder_masks(seed: int):
+    """The Transformer-base batch's masks on the card, from per-row
+    lengths drawn from ``seed`` (source TB_SRC_MIN..TB_SRC, target
+    TB_TGT_MIN..TB_TGT): ``src_mask`` bool ``[B, 1, Ls, Ls]`` (key
+    padding), ``tgt_mask`` float ``[B, 1, Lt, Lt]`` (0 where kept, -inf
+    above the diagonal and on padded keys), ``memory_mask`` bool ``[B, 1,
+    Lt, Ls]`` (source key padding). Every query row keeps key 0, so no row
+    is fully masked."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    src_len = rng.integers(TB_SRC_MIN, TB_SRC + 1, TB_BATCH)
+    tgt_len = rng.integers(TB_TGT_MIN, TB_TGT + 1, TB_BATCH)
+    dev = "cuda"
+    src_keep = (torch.arange(TB_SRC, device=dev)[None, :]
+                < torch.as_tensor(src_len, device=dev)[:, None])
+    tgt_keep = (torch.arange(TB_TGT, device=dev)[None, :]
+                < torch.as_tensor(tgt_len, device=dev)[:, None])
+    causal = torch.ones(TB_TGT, TB_TGT, dtype=torch.bool, device=dev).tril()
+    tgt_keep_qk = causal[None] & tgt_keep[:, None, :]
+    tgt_mask = torch.zeros(TB_BATCH, 1, TB_TGT, TB_TGT, device=dev)
+    tgt_mask.masked_fill_(~tgt_keep_qk[:, None], float("-inf"))
+    return dict(
+        src_len=src_len, tgt_len=tgt_len,
+        src_mask=src_keep[:, None, None, :].expand(
+            TB_BATCH, 1, TB_SRC, TB_SRC).contiguous(),
+        tgt_mask=tgt_mask,
+        memory_mask=src_keep[:, None, None, :].expand(
+            TB_BATCH, 1, TB_TGT, TB_SRC).contiguous())
+
+
+def _sdpa_bias(mask):
+    """The bias SDPA hands the kernels for ``mask``: a boolean keep-mask as
+    float32 0 / -1e30, a float mask as it is."""
+    import torch
+
+    if mask.dtype != torch.bool:
+        return mask
+    return torch.zeros(mask.shape, device=mask.device).masked_fill_(
+        ~mask, -1e30)
+
+
+class _PathTally:
+    """Counts, while open, the launches of the tensor-core forward, dQ and
+    dK/dV kernels by the (Lq, Lk) of their q and k (at the launch
+    functions the wrappers call, whose counts stay the wrappers' own), and
+    the dS outputs that reach autograd (each passes through
+    ``_reduce_dbias``)."""
+
+    def __init__(self, fa):
+        self.fa = fa
+        self.calls = {"fwd": {}, "dq": {}, "dkv": {}}
+        self.ds_outputs = 0
+
+    def _note(self, kernel, q, k):
+        key = (q.shape[2], k.shape[2])
+        self.calls[kernel][key] = self.calls[kernel].get(key, 0) + 1
+
+    def __enter__(self):
+        fa = self.fa
+        self._saved = (fa._launch_fwd_sm90, fa._launch_bwd_sm90,
+                       fa._reduce_dbias)
+        launch_fwd, launch_bwd, reduce = self._saved
+
+        def fwd(route, q, k, *args, **kwargs):
+            self._note("fwd", q, k)
+            return launch_fwd(route, q, k, *args, **kwargs)
+
+        def bwd(which, route, q, k, *args, **kwargs):
+            self._note(which, q, k)
+            return launch_bwd(which, route, q, k, *args, **kwargs)
+
+        def counted_reduce(ds, bias):
+            self.ds_outputs += 1
+            return reduce(ds, bias)
+
+        fa._launch_fwd_sm90, fa._launch_bwd_sm90 = fwd, bwd
+        fa._reduce_dbias = counted_reduce
+        return self
+
+    def __exit__(self, *exc):
+        fa = self.fa
+        fa._launch_fwd_sm90, fa._launch_bwd_sm90, fa._reduce_dbias = \
+            self._saved
+        return False
+
+    def snapshot(self):
+        return ({k: dict(v) for k, v in self.calls.items()}, self.ds_outputs)
+
+
+def _transformer_base_lm(seed: int):
+    """A thin driver of ported public modules only: a shared source/target
+    ``Embedding(TB_VOCAB, 512)`` (scaled by sqrt(512)) plus a learned
+    position ``Embedding``, ``nn.Transformer()`` at its defaults, an output
+    projection tied to the shared embedding, and ``F.cross_entropy`` with
+    label smoothing, ignoring the pad id. ``forward(src, tgt_in, tgt_out,
+    src_mask, tgt_mask, memory_mask)`` returns the loss."""
+    import torch
+    from torch import nn
+
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.initializer import Normal
+    from paddle_tpu_torch.nn.layers.common import Embedding, parallel_matmul
+    from paddle_tpu_torch.nn.layers.transformer import Transformer
+
+    class TransformerBaseLM(nn.Module):
+        def __init__(self):
+            super().__init__()
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            self.embed = Embedding(TB_VOCAB, TB_MODEL, padding_idx=TB_PAD,
+                                   weight_attr=Normal(0.0, TB_MODEL ** -0.5),
+                                   device="cuda", generator=g)
+            self.pos = Embedding(TB_SRC, TB_MODEL,
+                                 weight_attr=Normal(0.0, 0.02),
+                                 device="cuda", generator=g)
+            self.transformer = Transformer(device="cuda", generator=g)
+
+        def _embed(self, ids):
+            pos = torch.arange(ids.shape[1], device=ids.device)
+            return self.embed(ids) * TB_MODEL ** 0.5 + self.pos(pos)
+
+        def forward(self, src, tgt_in, tgt_out, src_mask, tgt_mask,
+                    memory_mask):
+            h = self.transformer(self._embed(src), self._embed(tgt_in),
+                                 src_mask, tgt_mask, memory_mask)
+            logits = parallel_matmul(h, self.embed.weight, transpose_y=True)
+            return F.cross_entropy(logits, tgt_out, ignore_index=TB_PAD,
+                                   label_smoothing=TB_LABEL_SMOOTHING)
+
+    return TransformerBaseLM()
+
+
+def _transformer_base_batch(seed: int):
+    """The Transformer-base step's batch on the card, ``(src, tgt_in,
+    tgt_out, src_mask, tgt_mask, memory_mask)``: seeded tokens padded
+    (TB_PAD) past each row's length, the target shifted by one, and the
+    masks of :func:`_encoder_masks` (returned too)."""
+    import numpy as np
+    import torch
+
+    masks = _encoder_masks(seed)
+    rng = np.random.default_rng(seed + 3)
+
+    def tokens(lengths, L):
+        ids = rng.integers(1, TB_VOCAB, (TB_BATCH, L))
+        ids[np.arange(L)[None, :] >= lengths[:, None]] = TB_PAD
+        return torch.as_tensor(ids, device="cuda")
+
+    src = tokens(masks["src_len"], TB_SRC)
+    # a row of length n has n + 1 target tokens: n in, n out
+    tgt = tokens(masks["tgt_len"] + 1, TB_TGT + 1)
+    return (src, tgt[:, :-1].contiguous(), tgt[:, 1:].contiguous(),
+            masks["src_mask"], masks["tgt_mask"], masks["memory_mask"]), masks
+
+
+def _encoder_train_run(phase: str, step, batch, need, tokens: int,
+                       tally=None, **report) -> dict:
+    """TRAIN_WARMUP + TRAIN_TIMED steps of ``step`` on ``batch``: finite
+    losses that fall, exactly ``need`` launches (in the order of
+    _COUNT_NAMES) every step; with ``tally`` (a :class:`_PathTally`) its
+    per-step calls by shape and dS outputs. Reports the median step
+    (host clock, synchronised), ``tokens`` a step per second and peak
+    memory."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step, per_step_shapes = [], [], [], []
+    fa.reset_launch_counts()
+    for _ in range(TRAIN_WARMUP + TRAIN_TIMED):
+        before = _counts(fa)
+        shapes_before = tally.snapshot() if tally is not None else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(tuple(a - b for a, b in zip(_counts(fa), before)))
+        if tally is not None:
+            (calls, ds), (calls0, ds0) = tally.snapshot(), shapes_before
+            per_step_shapes.append((
+                {w: {s: n - calls0[w].get(s, 0) for s, n in c.items()}
+                 for w, c in calls.items()}, ds - ds0))
+    if any(c != need for c in per_step):
+        raise AssertionError(f"{phase}: launches per step {_COUNT_NAMES} "
+                             f"{per_step}, expected {need} every step")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: losses {losses}: not finite or not "
+                             f"falling")
+    timed = step_ms[TRAIN_WARMUP:]
+    out = dict(**report, losses=losses,
+               launches=dict(zip(_COUNT_NAMES, _counts(fa))),
+               launches_per_step=dict(zip(_COUNT_NAMES, need)),
+               step_ms=step_ms, step_ms_median=float(np.median(timed)),
+               tokens_per_step=tokens,
+               tokens_per_s=tokens * TRAIN_TIMED / (sum(timed) / 1e3),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               card=nvidia_smi_line())
+    if tally is not None:
+        out["per_step_shapes"] = per_step_shapes
+    return out
+
+
+def phase_transformer_base(seed: int) -> dict:
+    """Transformer-base at full width through TrainStep, bf16 O2 AdamW:
+    every attention call on the flash kernels (non-causal with a mask as
+    a bias; Lq 200 / Lk 256 in cross-attention; dropout 0.1 in the
+    kernels): exactly 18 wgmma forward, 18 dQ and 18 dK/dV launches a step
+    (6 of each attention shape), no dS output, falling losses."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework import random as framework_random
+    from paddle_tpu_torch.framework.jit import TrainStep
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+
+    leftover = _check_freed("transformer_base")
+    framework_random.seed(seed)
+    t0 = time.perf_counter()
+    model = _transformer_base_lm(seed).train()
+    model, opt = amp.decorate(model, AdamW(learning_rate=5e-4,
+                                           weight_decay=0.01),
+                              level="O2", dtype="bfloat16")
+    step = TrainStep(model, opt, loss_fn=None)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    batch, masks = _transformer_base_batch(seed)
+    n_layers = 3 * TB_LAYERS  # self-attention x 2 stacks, cross-attention
+    need = _need(fwd_wgmma=n_layers, dq_wgmma=n_layers, dkv_wgmma=n_layers)
+    with _PathTally(fa) as tally:
+        out = _encoder_train_run(
+            "transformer_base", step, batch, need,
+            tokens=TB_BATCH * (TB_SRC + TB_TGT), tally=tally,
+            model="Transformer-base (nn.Transformer defaults)",
+            batch_shape=[TB_BATCH, TB_SRC, TB_TGT], vocab=TB_VOCAB,
+            dropout=DROPOUT_P, label_smoothing=TB_LABEL_SMOOTHING,
+            params=sum(p.numel() for p in step.params.values()),
+            model_build_s=build_s, leftover_gib_at_start=leftover,
+            source_tokens=int(masks["src_len"].sum()),
+            target_tokens=int(masks["tgt_len"].sum()))
+        calls, ds_outputs = tally.snapshot()
+    want_shape = {(Lq, Lk): TB_LAYERS for _, Lq, Lk, _ in TB_ATTENTION}
+    for shapes, ds in out.pop("per_step_shapes"):
+        if any(shapes[w] != want_shape for w in shapes) or ds:
+            raise AssertionError(f"transformer_base: calls by (Lq, Lk) "
+                                 f"{shapes} and {ds} dS outputs in a step, "
+                                 f"expected {want_shape} and 0")
+    launches = out["launches"]
+    for w in ("fwd", "dq", "dkv"):
+        if sum(calls[w].values()) != launches[f"{w}_wgmma"]:
+            raise AssertionError(f"transformer_base: {calls[w]} {w} calls "
+                                 f"against {launches[f'{w}_wgmma']} launches")
+    out["launches_by_shape"] = {
+        name: {w: calls[w].get((Lq, Lk), 0) for w in calls}
+        for name, Lq, Lk, _ in TB_ATTENTION}
+    out["ds_outputs"] = ds_outputs
+    out["target_tokens_per_s"] = (out["target_tokens"] * TRAIN_TIMED
+                                  / (sum(out["step_ms"][TRAIN_WARMUP:]) / 1e3))
+    emit("transformer_base", **out)
+    del step, model, opt, batch, masks
+    _free()
+    return out
+
+
+def _grad_rel_l2(got, ref) -> float:
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def _sdpa_check(F, fa, name, q, k, v, do, mask, dtype, want_route,
+                trained: bool = False) -> dict:
+    """The port's SDPA on the card (the kernel branch) against its plain
+    branch on the same inputs: the output and the gradients of q, k, v
+    (and of a trained float ``mask``) through autograd. float32: the
+    kernels' stated tolerances against the float32 plain branch. bf16:
+    the output within 2 bf16 ulps of the float32 plain branch's, and each
+    gradient's relative L2 distance from the float32 plain branch's
+    within BF16_GRAD_SLACK times the bf16 plain branch's own."""
+    import torch
+
+    def run(branch, xs, m):
+        xs = [x.detach().requires_grad_() for x in xs]
+        wrt = list(xs)
+        if trained:
+            m = m.detach().requires_grad_()
+            wrt.append(m)
+        o = branch(*xs, m)
+        return o, torch.autograd.grad(o, wrt, do.to(o.dtype))
+
+    fa.reset_launch_counts()
+    o, grads = run(lambda q_, k_, v_, m: F.scaled_dot_product_attention(
+        q_, k_, v_, attn_mask=m, training=False), (q, k, v), mask)
+    torch.cuda.synchronize()
+    routes = {w: _route_of(fa, w) for w in ("fwd", "dq", "dkv")}
+    if set(routes.values()) != {want_route}:
+        raise AssertionError(f"{name}: routes {fa.launch_counts()}, "
+                             f"expected {want_route}")
+    plain = F._plain_attention
+    m32 = mask if mask.dtype == torch.bool else mask.float()
+    o32, g32 = run(plain, [x.float() for x in (q, k, v)], m32)
+    keys = ("dq", "dk", "dv", "dmask")[:len(grads)]
+    out = dict(shape=list(q.shape[:1]) + [q.shape[2], q.shape[1], k.shape[1],
+                                          q.shape[3]],
+               mask=list(mask.shape), mask_dtype=_dtype_name(mask),
+               trained_mask=trained, dtype=_dtype_name(q), routes=routes)
+    if dtype == torch.float32:
+        out["errors"] = {"o": check_close(f"{name} o", o, o32,
+                                          output_tolerance(o32, want_route))}
+        for key, g, r in zip(keys, grads, g32):
+            out["errors"][key] = check_close(f"{name} {key}", g, r,
+                                             bwd_tolerance(r))
+        out["tol"] = (f"o {F32_FWD_ATOL} + {F32_FWD_RTOL} |ref|; grads rtol "
+                      f"{BWD_RTOL} atol {BWD_ATOL}")
+        return out
+    out["errors"] = {"o": check_close(f"{name} o", o, o32, output_tolerance(
+        o32.to(dtype), want_route))}
+    _, g16 = run(plain, (q, k, v), mask)
+    for key, g, r, p in zip(keys, grads, g32, g16):
+        got, bf16_plain = _grad_rel_l2(g, r), _grad_rel_l2(p, r)
+        if not (math.isfinite(got) and got <= BF16_GRAD_SLACK * bf16_plain):
+            raise AssertionError(f"{name} {key}: kernels' relative L2 "
+                                 f"distance from float32 {got}, plain "
+                                 f"bf16's {bf16_plain}")
+        out["errors"][key] = dict(
+            max_abs_err=(g.float() - r.float()).abs().max().item(),
+            rel_l2=got, plain_bf16_rel_l2=bf16_plain)
+    out["tol"] = (f"o {BF16_ULPS} bf16 ulps + 1e-6 of float32's; grads "
+                  f"relative L2 within {BF16_GRAD_SLACK} x plain bf16's")
+    return out
+
+
+def _sdpa_dropout_check(fa, name, q, k, v, do, bias, seed) -> dict:
+    """The bf16 kernels at p = DROPOUT_P, as the Transformer-base step runs
+    them, against their plain versions given the same Philox mask, at the
+    kernels' stated bf16 tolerances."""
+    import torch
+
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    B, H, Lq, _ = qt.shape
+    keep = fa.dropout_mask(seed, B, H, Lq, kt.shape[2], DROPOUT_P, "cuda")
+    o, lse = fa.flash_attention_fwd(qt, kt, vt, bias=bias,
+                                    dropout_p=DROPOUT_P, seed=seed)
+    got = fa.flash_attention_bwd(qt, kt, vt, bias, o, lse, dot, False,
+                                 DROPOUT_P, seed, bias_grad=False)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.reference_attention_fwd(qt, kt, vt, bias=bias,
+                                                keep_mask=keep)
+    errs = {"o": check_close(f"{name} o", o, o_ref,
+                             output_tolerance(o_ref, "wgmma")),
+            "lse": check_close(f"{name} lse", lse, lse_ref,
+                               lse_tolerance(lse_ref, "wgmma"))}
+    ref = fa.reference_attention_bwd(qt, kt, vt, bias, o, lse, dot, False,
+                                     keep)
+    for key, x, y in zip(("dq", "dk", "dv"), got, ref):
+        errs[key] = check_close(f"{name} {key}", x, y, bwd_tolerance(y))
+    return errs
+
+
+def _time_path_kernels(fa, q, k, v, do, mask, seed) -> dict:
+    """Device times of the forward, dQ and dK/dV kernels at one attention
+    call of the Transformer-base step (bf16, non-causal, p = DROPOUT_P, the
+    mask as SDPA hands it over, no dS), in turns with torch's SDPA on the
+    same mask and dropout rate (forward, and forward + backward: the
+    backward is the difference), beside their plain versions and bounds,
+    and the time of SDPA's mask conversion and the wrappers' bias
+    preparation (once per forward); the kernels at p = 0 as well."""
+    import torch
+
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    bias = _sdpa_bias(mask)
+    B, H, Lq, D = qt.shape
+    Lk = kt.shape[2]
+    o, lse = fa.flash_attention_fwd(qt, kt, vt, bias=bias,
+                                    dropout_p=DROPOUT_P, seed=seed)
+    do_k = dot if fa._tma_ok(dot) else dot.contiguous()
+    delta = (do_k.float() * o.float()).sum(-1).contiguous()
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    # torch's fused SDPA takes a float mask in the query's dtype only
+    lib_mask = mask if mask.dtype == torch.bool else mask.to(qt.dtype)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            torch.nn.functional.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=lib_mask, dropout_p=DROPOUT_P)
+
+    def sdpa_fwd_bwd():
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=lib_mask, dropout_p=DROPOUT_P)
+        torch.autograd.grad(out, (qg, kg, vg), dot)
+
+    t = timed_in_turns({
+        "fwd": lambda: fa.flash_attention_fwd(qt, kt, vt, bias=bias,
+                                              dropout_p=DROPOUT_P, seed=seed),
+        "dq": lambda: fa.flash_attention_bwd_dq(
+            qt, kt, vt, bias, do_k, lse, delta, False, DROPOUT_P, seed),
+        "dkv": lambda: fa.flash_attention_bwd_dkv(
+            qt, kt, vt, bias, do_k, lse, delta, False, DROPOUT_P, seed),
+        # the same kernels without dropout: what the Philox draws cost
+        "fwd_p0": lambda: fa.flash_attention_fwd(qt, kt, vt, bias=bias),
+        "dq_p0": lambda: fa.flash_attention_bwd_dq(
+            qt, kt, vt, bias, do_k, lse, delta, False),
+        "dkv_p0": lambda: fa.flash_attention_bwd_dkv(
+            qt, kt, vt, bias, do_k, lse, delta, False),
+        "sdpa_fwd": sdpa_fwd, "sdpa_fwd_bwd": sdpa_fwd_bwd,
+        "mask_bias": lambda: fa._kernel_bias(_sdpa_bias(mask), B, H, Lq, Lk,
+                                             q.device)})
+    keep = fa.dropout_mask(seed, B, H, Lq, Lk, DROPOUT_P, "cuda")
+    plain_fwd = cuda_ms(lambda: fa.reference_attention_fwd(
+        qt, kt, vt, bias=bias, keep_mask=keep), iters=5)
+    plain_bwd = cuda_ms(lambda: fa.reference_attention_bwd(
+        qt, kt, vt, bias, o, lse, dot, False, keep), iters=5)
+    # each kernel's least time: its bytes or products, or this call's mask
+    # draws on the integer units, whichever is larger
+    mask_ms = B * H * Lq * Lk * PHILOX_OPS / PEAK_INT32_OPS * 1e3
+    common = (B, H, Lq, Lk, D, False, qt.element_size(), bias.numel() * 4)
+    bounds = {"fwd": attention_bound_ms(*common, tensor_cores=True),
+              "dq": bwd_bound_ms("dq", *common, 0, tensor_cores=True),
+              "dkv": bwd_bound_ms("dkv", *common, 0, tensor_cores=True)}
+    library = {"fwd": t["sdpa_fwd"]["median"],
+               "bwd": t["sdpa_fwd_bwd"]["median"] - t["sdpa_fwd"]["median"]}
+    out = {}
+    for w in ("fwd", "dq", "dkv"):
+        bound, by = bounds[w]
+        if mask_ms > bound:
+            bound, by = mask_ms, "operations"
+        out[w] = dict(ms=t[w]["median"], ms_range=[t[w]["min"], t[w]["max"]],
+                      ms_p0=t[f"{w}_p0"]["median"],
+                      ms_p0_range=[t[f"{w}_p0"]["min"], t[f"{w}_p0"]["max"]],
+                      plain_ms=plain_fwd if w == "fwd" else plain_bwd,
+                      bound_ms=bound, bound_by=by,
+                      library_ms=library["fwd" if w == "fwd" else "bwd"],
+                      roofline_share=bound / t[w]["median"])
+    out["mask_bias_ms"] = t["mask_bias"]["median"]
+    out["library_fwd_bwd_ms"] = t["sdpa_fwd_bwd"]["median"]
+    return out
+
+
+def phase_sdpa_routes(seed: int) -> dict:
+    """The port's SDPA at the Transformer-base step's three attention
+    calls, in bf16 and float32, against its plain branch (the kernels'
+    stated tolerances; a float32 -inf mask too, and left padding whose
+    first key tile is all -inf); a trained float mask broadcast over the
+    batch and over the heads (the dQ kernel's dS and its reduction); the
+    bf16 kernels at p = DROPOUT_P against their plain versions given the
+    same mask; causal attention with Lq != Lk, which must launch no
+    kernel and mask bottom-right; and each kernel at each call timed
+    against torch's SDPA with the same mask."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.nn import functional as F
+
+    leftover = _check_freed("sdpa_routes")
+    masks = _encoder_masks(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    D = TB_MODEL // TB_HEADS
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    out = dict(leftover_gib_at_start=leftover, checks={}, timing={})
+    # left padding: every row's first pad keys (64-100, so the first key
+    # tile of a row is all -inf) masked with -inf in a float mask
+    pad = np.random.default_rng(seed + 5).integers(64, 101, TB_BATCH)
+    left = torch.zeros(TB_BATCH, 1, TB_TGT, TB_TGT, device="cuda")
+    left.masked_fill_((torch.arange(TB_TGT, device="cuda")[None, :]
+                       < torch.as_tensor(pad, device="cuda")[:, None])
+                      [:, None, None, :], float("-inf"))
+    cases = [(name, Lq, Lk, masks[key]) for name, Lq, Lk, key in TB_ATTENTION]
+    cases.append(("dec_self_left_pad", TB_TGT, TB_TGT, left))
+    for dtype, route in ((torch.bfloat16, "wgmma"),
+                         (torch.float32, "wgmma_f32")):
+        for name, Lq, Lk, mask in cases:
+            q, do = (rn(TB_BATCH, Lq, TB_HEADS, D, dtype=dtype)
+                     for _ in range(2))
+            k, v = (rn(TB_BATCH, Lk, TB_HEADS, D, dtype=dtype)
+                    for _ in range(2))
+            case = f"{name}_{_dtype_name(q)}"
+            out["checks"][case] = _sdpa_check(F, fa, case, q, k, v, do, mask,
+                                              dtype, route)
+            if dtype == torch.bfloat16 and name != "dec_self_left_pad":
+                out["checks"][case]["dropout_errors"] = _sdpa_dropout_check(
+                    fa, case, q, k, v, do, _sdpa_bias(mask), seed + 7)
+                out["timing"][name] = _time_path_kernels(
+                    fa, q, k, v, do, mask, seed + 7)
+            del q, k, v, do
+        # trained float masks at the encoder's self-attention, broadcast
+        # over the batch ([1, H, L, L]) and over the heads ([B, 1, L, L]):
+        # the dQ kernel writes dS, summed over the broadcast dimension
+        for mshape in ((1, TB_HEADS, TB_SRC, TB_SRC),
+                       (TB_BATCH, 1, TB_SRC, TB_SRC)):
+            q, k, v, do = (rn(TB_BATCH, TB_SRC, TB_HEADS, D, dtype=dtype)
+                           for _ in range(4))
+            case = f"trained_mask_{'x'.join(map(str, mshape))}_{_dtype_name(q)}"
+            with _PathTally(fa) as tally:
+                out["checks"][case] = _sdpa_check(
+                    F, fa, case, q, k, v, do, rn(*mshape), dtype, route,
+                    trained=True)
+            if tally.ds_outputs != 1:
+                raise AssertionError(f"{case}: {tally.ds_outputs} dS outputs, "
+                                     f"expected 1")
+    # the dQ kernel with its dS output at the trained [1, H, L, L] mask
+    # (bf16), and the reduction of dS over the batch, timed
+    q, k, v, do = (rn(TB_BATCH, TB_SRC, TB_HEADS, D,
+                      dtype=torch.bfloat16).transpose(1, 2) for _ in range(4))
+    bias = rn(1, TB_HEADS, TB_SRC, TB_SRC)
+    o, lse = fa.flash_attention_fwd(q, k, v, bias=bias)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    do_k = do if fa._tma_ok(do) else do.contiguous()
+    ds = fa.flash_attention_bwd_dq(q, k, v, bias, do_k, lse, delta,
+                                   emit_ds=True)[1]
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    mg = bias.detach().to(q.dtype).requires_grad_()  # torch's dtype rule
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            torch.nn.functional.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=mg)
+
+    def sdpa_fwd_bwd():
+        o_ = torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=mg)
+        torch.autograd.grad(o_, (qg, kg, vg, mg), do)
+
+    t = timed_in_turns({
+        "dq_ds": lambda: fa.flash_attention_bwd_dq(
+            q, k, v, bias, do_k, lse, delta, emit_ds=True),
+        "reduce": lambda: fa._reduce_dbias(ds, bias),
+        "sdpa_fwd": sdpa_fwd, "sdpa_fwd_bwd": sdpa_fwd_bwd})
+    B, H, L, _ = q.shape
+    bound, by = bwd_bound_ms("dq", B, H, L, L, D, False, 2, bias.numel() * 4,
+                             B * H * L * L * 4, tensor_cores=True)
+    out["timing"]["trained_mask_ds"] = dict(
+        shape=[B, H, L, L, D], mask=list(bias.shape), ms=t["dq_ds"]["median"],
+        ms_range=[t["dq_ds"]["min"], t["dq_ds"]["max"]],
+        reduce_ms=t["reduce"]["median"], bound_ms=bound, bound_by=by,
+        roofline_share=bound / t["dq_ds"]["median"],
+        library_ms=t["sdpa_fwd_bwd"]["median"] - t["sdpa_fwd"]["median"],
+        plain_ms=cuda_ms(lambda: fa.reference_attention_bwd(
+            q, k, v, bias, o, lse, do, False), iters=5))
+    del q, k, v, do, o, lse, delta, do_k, ds, qg, kg, vg, mg
+    # causal with Lq != Lk: the plain branch alone, bottom-right aligned
+    q = rn(TB_BATCH, TB_TGT, TB_HEADS, D, dtype=torch.bfloat16)
+    k, v = (rn(TB_BATCH, TB_SRC, TB_HEADS, D, dtype=torch.bfloat16)
+            for _ in range(2))
+    fa.reset_launch_counts()
+    got = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                         training=False)
+    torch.cuda.synchronize()
+    if any(n for c in fa.launch_counts().values() for n in c.values()):
+        raise AssertionError(f"causal Lq != Lk launched {fa.launch_counts()}")
+    # the same plain computation with the mask spelled out: bottom-right
+    # gives the same bits, top-left (the kernels' alignment) does not
+    ones = torch.ones(TB_TGT, TB_SRC, dtype=torch.bool, device="cuda")
+    bottom_right = F._plain_attention(q, k, v, ones.tril(TB_SRC - TB_TGT))
+    top_left = F._plain_attention(q, k, v, ones.tril())
+    if not torch.equal(got, bottom_right) or torch.equal(got, top_left):
+        raise AssertionError("causal Lq != Lk is not aligned bottom-right")
+    out["checks"]["causal_lq_ne_lk_bf16"] = dict(
+        shape=[TB_BATCH, TB_HEADS, TB_TGT, TB_SRC, D], launches=0,
+        aligned="bottom-right", equal_to_bottom_right_mask=True,
+        top_left_max_abs_diff=(got.float() - top_left.float()).abs()
+        .max().item())
+    del q, k, v, got, bottom_right, top_left, masks, left
+    emit("sdpa_routes", **out)
+    _free()
+    return out
+
+
+def _bert_optimizer():
+    """BERT fine-tuning's recipe: AdamW at BERT_LR after a linear warm-up
+    of BERT_LR_WARMUP steps from 0. At a constant 1e-4 the first updates
+    of the random post-LN encoder threw the loss from 0.67 to 1.9, and 13
+    steps on one batch ended near the start (0.66): nothing learned."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import LinearWarmup
+
+    return AdamW(learning_rate=LinearWarmup(BERT_LR, BERT_LR_WARMUP, 0.0,
+                                            BERT_LR), weight_decay=0.01)
+
+
+def _bert_classification_batch(seed: int, vocab: int):
+    """The BERT-base step's batch on the card, ``(ids, None, None,
+    labels)`` (``[BERT_BATCH, BERT_SEQ]`` seeded ids padded with 0 past
+    row lengths of BERT_MIN_LEN..BERT_SEQ, two classes), and the
+    lengths."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 12)
+    lengths = rng.integers(BERT_MIN_LEN, BERT_SEQ + 1, BERT_BATCH)
+    ids = rng.integers(1, vocab, (BERT_BATCH, BERT_SEQ))
+    ids[np.arange(BERT_SEQ)[None, :] >= lengths[:, None]] = 0
+    labels = rng.integers(0, 2, BERT_BATCH)
+    return (torch.as_tensor(ids, device="cuda"), None, None,
+            torch.as_tensor(labels, device="cuda")), lengths
+
+
+def phase_bert_base(seed: int) -> dict:
+    """BertForSequenceClassification(bert_base()) through TrainStep, bf16
+    O2 AdamW, on one padded batch: falling losses and no flash launch (its
+    attention is plain by design); BertForPretraining forward and backward
+    at [8, 512] with 76 masked positions a row; ERNIE-3.0-base's
+    classifier forward at [8, 512]; a float32 BertModel forward against
+    the same module in float64."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework import random as framework_random
+    from paddle_tpu_torch.framework.jit import TrainStep
+    from paddle_tpu_torch.models.bert import (BertForPretraining,
+                                              BertForSequenceClassification,
+                                              BertModel, bert_base)
+    from paddle_tpu_torch.models.ernie import (ErnieForSequenceClassification,
+                                               ernie_3_base)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    leftover = _check_freed("bert_base")
+    rng = np.random.default_rng(seed + 11)
+
+    def padded_ids(B, L, lo, vocab):
+        lengths = rng.integers(lo, L + 1, B)
+        ids = rng.integers(1, vocab, (B, L))
+        ids[np.arange(L)[None, :] >= lengths[:, None]] = 0  # pad_token_id
+        return torch.as_tensor(ids, device="cuda"), lengths
+
+    def gen(offset):
+        return torch.Generator(device="cuda").manual_seed(seed + offset)
+
+    cfg = bert_base()
+    framework_random.seed(seed)
+    t0 = time.perf_counter()
+    model = BertForSequenceClassification(cfg, device="cuda",
+                                          generator=gen(0)).train()
+    model, opt = amp.decorate(model, _bert_optimizer(), level="O2",
+                              dtype="bfloat16")
+    step = TrainStep(model, opt, loss_fn=None)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    batch, lengths = _bert_classification_batch(seed, cfg.vocab_size)
+    out = _encoder_train_run(
+        "bert_base", step, batch, _need(),
+        tokens=int(lengths.sum()), model="bert_base classification",
+        batch_shape=[BERT_BATCH, BERT_SEQ], params=sum(
+            p.numel() for p in step.params.values()),
+        model_build_s=build_s, leftover_gib_at_start=leftover)
+    del step, model, opt
+    _free()
+
+    # masked-LM + next-sentence pretraining, bf16 O2: one forward and
+    # backward, timed over 3 after one warm-up
+    model = amp.decorate(BertForPretraining(cfg, device="cuda",
+                                            generator=gen(1)).train(),
+                         level="O2", dtype="bfloat16")
+    pids, _ = padded_ids(BERT_PRETRAIN_BATCH, BERT_PRETRAIN_SEQ,
+                         BERT_PRETRAIN_SEQ // 2, cfg.vocab_size)
+    positions = torch.as_tensor(np.stack([
+        np.sort(rng.choice(BERT_PRETRAIN_SEQ, BERT_MASKED, replace=False))
+        for _ in range(BERT_PRETRAIN_BATCH)]), device="cuda")
+    mlm_labels = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (BERT_PRETRAIN_BATCH, BERT_MASKED)), device="cuda")
+    mlm_labels[:, -4:] = -1  # padded label slots are ignored
+    nsp = torch.as_tensor(rng.integers(0, 2, BERT_PRETRAIN_BATCH),
+                          device="cuda")
+    params = list(model.parameters())
+
+    def pretrain_step():
+        loss = model(pids, positions, mlm_labels, nsp)
+        return loss, torch.autograd.grad(loss, params)
+
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = pretrain_step()
+    loss = float(loss.detach())
+    if not (math.isfinite(loss)
+            and all(bool(torch.isfinite(g).all()) for g in grads)):
+        raise AssertionError(f"bert pretraining: loss {loss} or "
+                             f"gradients not finite")
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pretrain_step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    out["pretraining"] = dict(
+        batch=[BERT_PRETRAIN_BATCH, BERT_PRETRAIN_SEQ],
+        masked_per_row=BERT_MASKED, loss=loss, fwd_bwd_ms=ms,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del model, grads, params
+    _free()
+
+    ecfg = ernie_3_base()
+    ernie = amp.decorate(ErnieForSequenceClassification(
+        ecfg, device="cuda", generator=gen(2)).eval(), level="O2",
+        dtype="bfloat16")
+    eids, _ = padded_ids(BERT_PRETRAIN_BATCH, BERT_PRETRAIN_SEQ,
+                         BERT_PRETRAIN_SEQ // 2, ecfg.vocab_size)
+    task = torch.ones_like(eids)
+    with torch.no_grad():
+        logits = ernie(eids, task_type_ids=task)
+        torch.cuda.synchronize()
+        ernie_ms = cuda_ms(lambda: ernie(eids, task_type_ids=task), iters=3,
+                           warmup=1)
+    if tuple(logits.shape) != (BERT_PRETRAIN_BATCH, 2) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"ernie: logits {tuple(logits.shape)} not "
+                             f"finite or not [B, 2]")
+    out["ernie_3_base"] = dict(batch=[BERT_PRETRAIN_BATCH, BERT_PRETRAIN_SEQ],
+                               params=sum(p.numel() for p in ernie.parameters()),
+                               forward_ms=ernie_ms)
+    del ernie, logits
+    _free()
+
+    # float32 against float64, the same weights and inputs, dropout off
+    m32 = BertModel(bert_base(hidden_dropout_prob=0.0,
+                              attention_dropout_prob=0.0), device="cuda",
+                    generator=gen(3)).eval()
+    m64 = copy.deepcopy(m32).double()
+    fids, _ = padded_ids(8, BERT_SEQ, BERT_MIN_LEN, cfg.vocab_size)
+    with torch.no_grad():
+        seq32, pooled32 = m32(fids)
+        seq64, pooled64 = m64(fids)
+    errs = {}
+    for key, a, b in (("sequence", seq32, seq64), ("pooled", pooled32,
+                                                    pooled64)):
+        rel = ((a.double() - b).abs().max() / b.abs().max()).item()
+        if not rel <= BERT_F64_RTOL:
+            raise AssertionError(f"bert float32 {key} output {rel} of the "
+                                 f"largest float64 value from float64, "
+                                 f"limit {BERT_F64_RTOL}")
+        errs[key] = rel
+    out["float32_vs_float64"] = dict(rel_max_err=errs, limit=BERT_F64_RTOL,
+                                     batch=[8, BERT_SEQ])
+    del m32, m64
+    emit("bert_base", **out)
+    _free()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2928,6 +3736,12 @@ def main(argv=None) -> int:
     d256_f32 = phase_d256_f32(args.seed)
     _free()
     d256_prefill = phase_d256_prefill(args.seed)
+    _free()
+    tbase = phase_transformer_base(args.seed)
+    _free()
+    sdpa = phase_sdpa_routes(args.seed)
+    _free()
+    phase_bert_base(args.seed)
     _free()
     llama_serve = phase_llama_serving(args.seed)
     _free()
@@ -3155,6 +3969,42 @@ def main(argv=None) -> int:
             bwd_row(f"flash_attention_bwd_dkv_sm90_{suffix}",
                     "flash_attention_bwd_dkv_sm90.cu", "dkv", LLAMA_TRAIN_BWD,
                     counts["dkv_wgmma"], path)]
+    # the encoder path: each kernel at each of the Transformer-base step's
+    # three attention calls (bf16, p = DROPOUT_P, the mask as a bias, no
+    # dS), held against its plain version given the same dropout mask
+    kfiles = {"fwd": ("flash_attention_fwd_sm90.cu", "131", ("o",)),
+              "dq": ("flash_attention_bwd_dq_sm90.cu", "198", ("dq",)),
+              "dkv": ("flash_attention_bwd_dkv_sm90.cu", "269", ("dk", "dv"))}
+    for call, Lq, Lk, mask_key in TB_ATTENTION:
+        errs = sdpa["checks"][f"{call}_bfloat16"]["dropout_errors"]
+        for w, (source, line, keys) in kfiles.items():
+            t = sdpa["timing"][call][w]
+            kernels.append(dict(
+                name=f"flash_attention_{w}_sm90_{call}", route="cuda",
+                source=src + source, replaces=ref + line,
+                launches=tbase["launches_by_shape"][call][w],
+                main_path=TB_PATH,
+                max_abs_err=max(errs[k]["max_abs_err"] for k in keys),
+                ms=t["ms"], ms_range=t["ms_range"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                library_ms=t["library_ms"], ms_p0=t["ms_p0"],
+                shape=[TB_BATCH, TB_HEADS, Lq, Lk, TB_MODEL // TB_HEADS],
+                dtype="bfloat16", causal=False, mask=mask_key,
+                dropout_p=DROPOUT_P))
+    # the dQ kernel writing dS for a trained float mask (sdpa_routes): on
+    # no model path of this run
+    t = sdpa["timing"]["trained_mask_ds"]
+    kernels.append(dict(
+        name="flash_attention_bwd_dq_sm90_trained_mask_ds", route="cuda",
+        source=src + "flash_attention_bwd_dq_sm90.cu", replaces=ref + "198",
+        launches=0, main_path=None,
+        max_abs_err=sdpa["checks"][
+            f"trained_mask_1x{TB_HEADS}x{TB_SRC}x{TB_SRC}_bfloat16"][
+            "errors"]["dmask"]["max_abs_err"],
+        ms=t["ms"], ms_range=t["ms_range"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t["library_ms"], shape=t["shape"], dtype="bfloat16",
+        causal=False, mask=t["mask"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

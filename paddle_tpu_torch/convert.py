@@ -1,7 +1,8 @@
-"""Load the JAX package's GPT and Llama weights into the port.
+"""Load the JAX package's weights into the port: GPT, Llama, BERT,
+ERNIE, or any ported layer tree (``nn.Transformer``, ...).
 
-The JAX ``GPTForCausalLM.state_dict()`` and ``LlamaForCausalLM.
-state_dict()`` names map one to one onto the port's parameters, with the
+The JAX ``Layer.state_dict()`` names map one to one onto the port's
+parameters, with the
 same layouts (linear weights ``[in, out]``, embeddings ``[vocab,
 hidden]``), so conversion is a copy by name. The caller passes the state
 as numpy arrays (``{k: np.asarray(v) for k, v in jax_model.state_dict().
@@ -13,16 +14,19 @@ with ``cfg``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Type
 
 import numpy as np
 import torch
 from torch import nn
 
+from .models.bert import BertConfig, BertForSequenceClassification
+from .models.ernie import ErnieConfig, ErnieForSequenceClassification
 from .models.gpt import GPTConfig, GPTForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
 
-__all__ = ["gpt_from_jax", "llama_from_jax"]
+__all__ = ["gpt_from_jax", "llama_from_jax", "bert_from_jax",
+           "ernie_from_jax", "layer_from_jax"]
 
 
 def _load_state(model: nn.Module, state: Dict[str, np.ndarray],
@@ -65,3 +69,32 @@ def llama_from_jax(state: Dict[str, np.ndarray], cfg: LlamaConfig,
     Raises ``KeyError`` on a missing or an extra name and ``ValueError``
     on a wrong shape."""
     return _load_state(LlamaForCausalLM(cfg, device=device), state, "Llama")
+
+
+def bert_from_jax(state: Dict[str, np.ndarray], cfg: BertConfig,
+                  device=None, model_cls: Type[nn.Module] =
+                  BertForSequenceClassification, **kwargs) -> nn.Module:
+    """A port ``model_cls`` (``BertModel``, ``BertForSequenceClassification``
+    with ``num_classes=`` in ``kwargs``, or ``BertForPretraining``) for
+    ``cfg`` on ``device`` carrying the weights in ``state``, in eval mode.
+    Raises ``KeyError`` on a missing or an extra name and ``ValueError``
+    on a wrong shape."""
+    return _load_state(model_cls(cfg, device=device, **kwargs), state,
+                       model_cls.__name__)
+
+
+def ernie_from_jax(state: Dict[str, np.ndarray], cfg: ErnieConfig,
+                   device=None, model_cls: Type[nn.Module] =
+                   ErnieForSequenceClassification, **kwargs) -> nn.Module:
+    """:func:`bert_from_jax` for the ERNIE classes (``ErnieModel``,
+    ``ErnieForSequenceClassification``, ``ErnieForPretraining``)."""
+    return _load_state(model_cls(cfg, device=device, **kwargs), state,
+                       model_cls.__name__)
+
+
+def layer_from_jax(module: nn.Module,
+                   state: Dict[str, np.ndarray]) -> nn.Module:
+    """Load ``state`` into an already built port layer tree (e.g. an
+    ``nn.Transformer`` built with the reference's arguments) by name, in
+    place; returns ``module`` in eval mode."""
+    return _load_state(module, state, type(module).__name__)

@@ -52,7 +52,7 @@ class GPTConfig:
     use_recompute: bool = False
     # recompute only the attention sublayer of each block
     recompute_attn_only: bool = False
-    # recompute policy (only None / "full" are ported)
+    # recompute policy: None / "full" or a name of recompute.POLICIES
     recompute_policy: Optional[str] = None
     use_flash_attention: bool = True
     # shard activations over a mesh's "sp" axis between blocks: not ported

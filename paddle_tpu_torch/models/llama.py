@@ -51,7 +51,7 @@ class LlamaConfig:
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False  # llama unties
     use_recompute: bool = False
-    # recompute policy (only None / "full" are ported)
+    # recompute policy: None / "full" or a name of recompute.POLICIES
     recompute_policy: Optional[str] = None
     use_flash_attention: bool = True
     sequence_parallel: bool = False  # not ported: raises

@@ -1,7 +1,7 @@
 """Single-device ``Linear``, ``Embedding`` and ``Dropout`` with the
-reference's weight layout and randomness
+reference's weight layout, parameter creation and randomness
 (``paddle_tpu/distributed/parallel/mp_layers.py:51-150``,
-``paddle_tpu/nn/layers/common.py:56``).
+``paddle_tpu/nn/layers/common.py:13-66``).
 
 ``Linear.weight`` is ``[in, out]`` and ``Embedding.weight`` is
 ``[vocab, hidden]``, exactly as the JAX package stores them, so loading a
@@ -18,52 +18,91 @@ import torch
 from torch import nn
 
 from .. import functional as F
+from ..initializer import Normal, create_parameter
 
 __all__ = ["Linear", "Embedding", "Dropout", "ColumnParallelLinear",
            "RowParallelLinear", "VocabParallelEmbedding",
            "ParallelCrossEntropy", "parallel_matmul"]
 
 
-def _normal(shape, std: float, device, generator: Optional[torch.Generator]):
-    w = torch.empty(shape, device=device)
-    return w.normal_(0.0, std, generator=generator)
-
-
 class Linear(nn.Module):
-    """``y = x @ weight + bias``; weight ``[in, out]`` drawn from
-    ``Normal(0, std)``, bias zeros. ``has_bias=False`` registers no bias
-    parameter at all (``bias`` is None), as the reference's Llama
-    projections (``mp_layers.py:87-91``)."""
+    """``y = x @ weight + bias`` with ``weight`` ``[in, out]``
+    (``paddle_tpu/nn/layers/common.py:13``). The parameters are made as
+    the reference's ``create_parameter`` makes them
+    (:func:`~paddle_tpu_torch.nn.initializer.create_parameter`):
+    ``weight_attr``/``bias_attr`` (an initializer, or an object with an
+    ``initializer``) first, then the global initializer, then
+    ``XavierUniform`` for the weight and ``Constant(0)`` for the bias.
+    ``bias_attr=False`` or ``has_bias=False`` registers no bias at all
+    (``bias`` is None), as the reference's Llama projections
+    (``mp_layers.py:87-91``). ``std`` is the tensor-parallel linears'
+    weight attribute ``Normal(0, std)``, the draw the GPT and Llama
+    blocks ask for."""
 
-    def __init__(self, in_features: int, out_features: int, *,
-                 std: float = 0.02, has_bias: bool = True, device=None,
+    def __init__(self, in_features: int, out_features: int, weight_attr=None,
+                 bias_attr=None, name=None, *, std: Optional[float] = None,
+                 has_bias: bool = True, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        del name
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = nn.Parameter(
-            _normal((in_features, out_features), std, device, generator))
-        self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
-                     if has_bias else None)
+        if std is not None:
+            weight_attr = Normal(0.0, std)
+        self.weight = create_parameter(
+            (in_features, out_features), attr=weight_attr, device=device,
+            generator=generator)
+        self.bias = None
+        if has_bias and bias_attr is not False:
+            self.bias = create_parameter((out_features,), attr=bias_attr,
+                                         is_bias=True, device=device,
+                                         generator=generator)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
 
+    def extra_repr(self) -> str:
+        return (f"in_features={self.in_features}, "
+                f"out_features={self.out_features}")
+
 
 class Embedding(nn.Module):
-    """Row lookup into ``weight`` ``[num_embeddings, embedding_dim]``."""
+    """Row lookup into ``weight`` ``[num_embeddings, embedding_dim]``
+    (``common.py:36``): ``weight_attr`` first, then the global
+    initializer, then ``Normal(0, 1)``; ``std`` is the attribute
+    ``Normal(0, std)`` (the GPT and Llama vocab embeddings'). With
+    ``padding_idx`` that row starts at zero and every lookup of it gives
+    zeros, so it never takes a gradient."""
 
-    def __init__(self, num_embeddings: int, embedding_dim: int, *,
-                 std: float = 0.02, device=None,
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 padding_idx: Optional[int] = None, sparse: bool = False,
+                 weight_attr=None, name=None, *,
+                 std: Optional[float] = None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        del sparse, name
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
-        self.weight = nn.Parameter(
-            _normal((num_embeddings, embedding_dim), std, device, generator))
+        self.padding_idx = padding_idx
+        if std is not None:
+            weight_attr = Normal(0.0, std)
+        self.weight = create_parameter(
+            (num_embeddings, embedding_dim), attr=weight_attr,
+            default_initializer=Normal(0.0, 1.0), device=device,
+            generator=generator)
+        if padding_idx is not None:
+            with torch.no_grad():
+                self.weight[padding_idx] = 0.0
 
     def forward(self, ids):
-        return self.weight[ids]
+        out = self.weight[ids]
+        if self.padding_idx is not None:
+            out = out.masked_fill((ids == self.padding_idx)[..., None], 0.0)
+        return out
+
+    def extra_repr(self) -> str:
+        return (f"num_embeddings={self.num_embeddings}, "
+                f"embedding_dim={self.embedding_dim}")
 
 
 ColumnParallelLinear = Linear

@@ -385,3 +385,52 @@ def test_warmup_resets_pool_and_reports_zero_compiles(pair):
     assert eng.pool.stats()["blocks_in_use"] == 0
     assert eng.active_count == 0 and eng.occupancy() == 0.0
     eng.sync_weights()
+
+
+# ------------------------------------------------- GQA (llama_tiny) twins
+@pytest.fixture(scope="module")
+def llama_pair():
+    """llama_tiny (4 heads, 2 kv heads) seeded in JAX and converted by
+    name into the port."""
+    from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
+    from paddle_tpu.models.llama import llama_tiny as jax_llama_tiny
+    from paddle_tpu_torch.convert import llama_from_jax
+    from paddle_tpu_torch.models.llama import llama_tiny
+
+    pt.seed(7)
+    jm = JaxLlama(jax_llama_tiny(use_flash_attention=False))
+    jm.eval()
+    state = {k: np.asarray(v) for k, v in jm.state_dict().items()}
+    tm = llama_from_jax(state, llama_tiny(use_flash_attention=False),
+                        device="cpu")
+    assert tm.cfg.num_kv_heads < tm.cfg.num_heads
+    return jm, tm
+
+
+@pytest.mark.parametrize("kv_dtype,pooled", [(None, True), ("int8", False),
+                                             ("int8", True)])
+def test_llama_gqa_greedy_streams_match_jax_server(llama_pair, kv_dtype,
+                                                   pooled):
+    """test_greedy_streams_match_jax_server with grouped-query attention:
+    the pool's blocks and the int8 cache hold 2 kv heads for 4 query
+    heads; streams and hit tokens equal the JAX server's."""
+    jm, tm = llama_pair
+    prefix = _prompt(16, 300)
+    prompts = [np.concatenate([prefix, _prompt(n, 301 + n)])
+               for n in (5, 3, 9)] + [_prompt(11, 309)]
+    opts = dict(kv_dtype=kv_dtype,
+                prefix_cache=dict(POOL) if pooled else None)
+    jsrv = JaxServer(jm, slots=2, **opts, **GEO)
+    tsrv = InferenceServer(tm, slots=2, device="cpu", **opts, **GEO)
+    try:
+        for p in prompts:   # one at a time: hits follow the first store
+            jh = jsrv.submit(p, max_new_tokens=7)
+            th = tsrv.submit(p, max_new_tokens=7)
+            np.testing.assert_array_equal(th.result(timeout=300),
+                                          jh.result(timeout=300))
+            assert th.cache_hit_tokens == jh.cache_hit_tokens
+    finally:
+        jsrv.shutdown(drain=False, timeout=60)
+        tsrv.shutdown(drain=False, timeout=60)
+    if pooled:
+        assert tsrv.snapshot()["prefix_hit_tokens"] == 32

@@ -282,6 +282,11 @@ def test_port_imports_no_jax_or_reference_package():
                  "paddle_tpu_torch/serving/engine.py",
                  "paddle_tpu_torch/serving/server.py",
                  "paddle_tpu_torch/serving/metrics.py",
+                 "paddle_tpu_torch/nn/initializer.py",
+                 "paddle_tpu_torch/nn/layers/containers.py",
+                 "paddle_tpu_torch/nn/layers/transformer.py",
+                 "paddle_tpu_torch/models/bert.py",
+                 "paddle_tpu_torch/models/ernie.py",
                  "tools/torch_train_profile.py"):
         assert path in scanned
     bad = [(f.relative_to(REPO).as_posix(), m) for f in files

@@ -184,3 +184,46 @@ def test_rounds_never_take_causal_attention(pair, draft_model, monkeypatch):
     assert stats["rounds"] > 0
     layers = tm.cfg.num_layers + draft_model.cfg.num_layers
     assert calls == [(16, 16)] * layers
+
+
+# ------------------------------------------------- GQA (llama_tiny) twins
+@pytest.fixture(scope="module")
+def llama_pair():
+    """llama_tiny (4 heads, 2 kv heads) seeded in JAX and converted by
+    name into the port."""
+    from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
+    from paddle_tpu.models.llama import llama_tiny as jax_llama_tiny
+    from paddle_tpu_torch.convert import llama_from_jax
+    from paddle_tpu_torch.models.llama import llama_tiny
+
+    pt.seed(7)
+    jm = JaxLlama(jax_llama_tiny(use_flash_attention=False))
+    jm.eval()
+    state = {k: np.asarray(v) for k, v in jm.state_dict().items()}
+    tm = llama_from_jax(state, llama_tiny(use_flash_attention=False),
+                        device="cpu")
+    assert tm.cfg.num_kv_heads < tm.cfg.num_heads
+    return jm, tm
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_llama_gqa_speculative_equals_jax(llama_pair, kv_dtype):
+    """test_greedy_equals_jax_speculative with grouped-query attention,
+    on the bf16 and the int8 cache: greedy tokens and the per-round
+    acceptance trace equal the JAX SpeculativeEngine's, and the greedy
+    output equals solo greedy decoding."""
+    from paddle_tpu.models.speculative import SpeculativeEngine as JaxSpec
+    from paddle_tpu.models.speculative import build_draft_model as jax_draft
+
+    jm, tm = llama_pair
+    opts = dict(k=4, kv_dtype=kv_dtype, **GEO)
+    jeng = JaxSpec(jm, jax_draft(jm, num_layers=1), **opts)
+    teng = SpeculativeEngine(tm, build_draft_model(tm, num_layers=1), **opts)
+    ids = _prompt(2, 12, seed=31)
+    want, jstats = jeng.generate(ids, max_new_tokens=16, return_stats=True)
+    got, stats = teng.generate(ids, max_new_tokens=16, return_stats=True)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(stats["acceptance_trace"],
+                                  jstats["acceptance_trace"])
+    solo = GenerationEngine(tm, kv_dtype=kv_dtype, **GEO)
+    np.testing.assert_array_equal(got, solo.generate(ids, max_new_tokens=16))

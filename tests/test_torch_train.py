@@ -292,12 +292,23 @@ def test_cross_entropy_matches_jax(reduction):
 
 
 def test_cross_entropy_unported_options_raise():
-    x = torch.zeros(2, 4)
-    with pytest.raises(NotImplementedError):
-        F.cross_entropy(x, torch.zeros(2, 4), soft_label=True)
-    with pytest.raises(NotImplementedError):
-        F.cross_entropy(x, torch.zeros(2, dtype=torch.long),
-                        label_smoothing=0.1)
+    """Soft labels and label smoothing, which once raised here, now match
+    the reference (tests/test_torch_transformer.py holds every option);
+    an unknown reduction still raises."""
+    rng = np.random.default_rng(5)
+    logits = rng.standard_normal((2, 4)).astype(np.float32)
+    soft = rng.dirichlet(np.ones(4), 2).astype(np.float32)
+    hard = np.array([1, 3])
+    for label, kw in ((soft, dict(soft_label=True)),
+                      (hard, dict(label_smoothing=0.1))):
+        want = np.asarray(JF.cross_entropy(jnp.asarray(logits),
+                                           jnp.asarray(label), **kw))
+        got = F.cross_entropy(torch.from_numpy(logits),
+                              torch.from_numpy(label), **kw)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError):
+        F.cross_entropy(torch.zeros(2, 4), torch.zeros(2, dtype=torch.long),
+                        reduction="max")
 
 
 def test_dropout_function():
@@ -340,8 +351,10 @@ def test_gpt_from_jax_loads_bf16_state():
 
 
 def test_named_recompute_policy_raises():
-    with pytest.raises(NotImplementedError):
-        recompute_wrap(lambda x: x, policy="save_dots")
+    """The reference's named policies are ported
+    (tests/test_torch_recompute.py); a name it does not have raises."""
+    with pytest.raises(ValueError):
+        recompute_wrap(lambda x: x, policy="save_everything")
 
 
 def test_eval_step_equals_model_forward():

@@ -2,7 +2,8 @@
 """Where the time goes in the port's training step, on one GPU.
 
     python3 tools/torch_train_profile.py [--seed N] [--dtype float32]
-                                         [--model llama2_7b]
+                                         [--model llama2_7b |
+                                          transformer_base | bert_base]
 
 Builds the GPT-3 1.3B pretrain step of ``bench.py``'s ``bench_gpt_1p3b``
 on ``cuda`` (hidden 2048, 24 layers, 16 heads, vocab 50304, 1024
@@ -23,6 +24,13 @@ the float32 attention kernels, route ``wgmma_f32``). ``--model
 llama2_7b`` profiles ``chip_smoke.py``'s Llama step instead: Llama-2-7B
 at full width cut to 8 layers (its AdamW state at 32 layers outgrows
 one card), recompute, chunked loss of 256, on a ``[1, 4096]`` batch.
+``--model transformer_base`` and ``--model bert_base`` profile
+``chip_smoke.py``'s encoder steps (bf16 O2 only): Transformer-base
+(``nn.Transformer()`` at its defaults, dropout 0.1, a 37000-word tied
+embedding, label smoothing 0.1) on its ``[32 x 256 / 200]`` batch with
+padding masks, and ``BertForSequenceClassification(bert_base())`` on its
+padded ``[32, 128]`` batch; tokens/s counts every position, MFU is not
+reported for them.
 
 One JSON line per measurement; the card's name and power limit first.
 Needs a CUDA device (exits 1 without one). Imports nothing of JAX.
@@ -106,9 +114,13 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     default="bfloat16",
                     help="bfloat16: O2 (bench_gpt_1p3b); float32: no amp")
-    ap.add_argument("--model", choices=("gpt_1p3b", "llama2_7b"),
+    ap.add_argument("--model", choices=("gpt_1p3b", "llama2_7b",
+                                        "transformer_base", "bert_base"),
                     default="gpt_1p3b")
     args = ap.parse_args(argv)
+    if args.model in ("transformer_base", "bert_base") \
+            and args.dtype != "bfloat16":
+        ap.error(f"--model {args.model} is profiled in bf16 O2 only")
 
     import numpy as np
     import torch
@@ -131,7 +143,29 @@ def main(argv=None) -> int:
                           text=True, timeout=60).stdout.strip()
     _emit(card=card, torch=torch.__version__, dtype=args.dtype,
           model=args.model)
-    if args.model == "llama2_7b":
+    flops_per_token = None
+    if args.model in ("transformer_base", "bert_base"):
+        import chip_smoke as smoke
+        from paddle_tpu_torch.models.bert import (
+            BertForSequenceClassification, bert_base)
+
+        framework_random.seed(args.seed)
+        if args.model == "transformer_base":
+            model = smoke._transformer_base_lm(args.seed).train()
+            batch = smoke._transformer_base_batch(args.seed)[0]
+            positions = smoke.TB_BATCH * (smoke.TB_SRC + smoke.TB_TGT)
+            opt = AdamW(learning_rate=5e-4, weight_decay=0.01)
+        else:
+            cfg = bert_base()
+            model = BertForSequenceClassification(
+                cfg, device="cuda", generator=torch.Generator(
+                    "cuda").manual_seed(args.seed)).train()
+            batch = smoke._bert_classification_batch(args.seed,
+                                                     cfg.vocab_size)[0]
+            positions = smoke.BERT_BATCH * smoke.BERT_SEQ
+            opt = smoke._bert_optimizer()
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    elif args.model == "llama2_7b":
         batch_size, seq = LLAMA_BATCH, LLAMA_SEQ
         cfg = llama2_7b(num_layers=LLAMA_LAYERS, use_recompute=True,
                         loss_chunk=256, dtype="bfloat16")
@@ -143,16 +177,19 @@ def main(argv=None) -> int:
                        use_flash_attention=True, loss_chunk=256,
                        dtype="bfloat16")
         model_cls, flops_per_token = GPTForCausalLM, gpt_flops_per_token
-    framework_random.seed(args.seed)
-    model = model_cls(cfg, device="cuda", generator=torch.Generator(
-        "cuda").manual_seed(args.seed)).train()
-    opt = AdamW(learning_rate=1e-4, weight_decay=0.01)
-    if args.dtype == "bfloat16":
-        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    if flops_per_token is not None:
+        framework_random.seed(args.seed)
+        model = model_cls(cfg, device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(args.seed)).train()
+        opt = AdamW(learning_rate=1e-4, weight_decay=0.01)
+        if args.dtype == "bfloat16":
+            model, opt = amp.decorate(model, opt, level="O2",
+                                      dtype="bfloat16")
+        ids = np.random.default_rng(args.seed).integers(
+            0, cfg.vocab_size, (batch_size, seq)).astype(np.int32)
+        batch = (ids, ids)
+        positions = batch_size * seq
     step = TrainStep(model, opt, loss_fn=None)
-    ids = np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, (batch_size, seq)).astype(np.int32)
-    batch = (ids, ids)
     for _ in range(WARMUP):
         float(step(batch))
     times = []
@@ -161,12 +198,13 @@ def main(argv=None) -> int:
         float(step(batch))
         times.append((time.perf_counter() - t0) * 1e3)
     median = float(np.median(times))
-    tokens_per_s = batch_size * seq / (median / 1e3)
+    tokens_per_s = positions / (median / 1e3)
     _emit(measure="train_step_ms", steps=STEPS, median=median,
           p25=float(np.percentile(times, 25)),
           p75=float(np.percentile(times, 75)), all=times,
           tokens_per_s=tokens_per_s,
-          mfu=tokens_per_s * flops_per_token(cfg, seq) / 989e12,
+          mfu=None if flops_per_token is None
+          else tokens_per_s * flops_per_token(cfg, seq) / 989e12,
           peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
     rows = _profile(lambda: [float(step(batch)) for _ in range(TRACED)],
