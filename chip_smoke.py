@@ -201,15 +201,35 @@ exits non-zero:
                BertForPretraining forward and backward at [8, 512] with 76
                masked positions a row, ERNIE-3.0-base forward at [8, 512],
                and a float32 BertModel against float64 on the card.
-11. llama    - llama2_7b served at full width and depth, its bf16 O2
+11. fit loop - hapi_gpt_fit: bench.py bench_gpt_primary's GPT-350M (h1024,
+               24 layers, 16 heads of 64, vocab 50304, [8, 1024], bf16 O2
+               AdamW, chunked loss, no recompute, dropout 0) through
+               Model.fit with two DataLoader workers, the device prefetch
+               (depth 2) and ModelCheckpoint: 5 warm-up and 8 timed steps
+               (ms, tokens/s, MFU, peak memory), exactly 24 wgmma forward,
+               dQ and dK/dV launches a step, losses bit-equal to a bare
+               TrainStep on the same batches, bench.py's prefetch probe
+               (stall a step; every prefetched batch equal to its host
+               array), the saved final reloaded into a fresh model giving
+               the same eval loss bit for bit; then a SIGTERM after batch
+               6 of 12 under RecoveryPolicy (checkpoint and exit, resumed
+               by a fresh model) and a rollback after two poisoned batches,
+               each ending bit-identical to an uninterrupted fit, with the
+               seconds and bytes of every save, restore and crc pass.
+               hapi_bert_fit: BertForSequenceClassification(bert_base())
+               bf16 O2 through Model.fit(train, eval) with Accuracy, tail
+               padding, length buckets (64, 128), LRScheduler and
+               EarlyStopping; evaluate and predict equal to a direct
+               EvalStep over the same batches' real rows.
+12. llama    - llama2_7b served at full width and depth, its bf16 O2
                step (8 of 32 layers) and its GQA gradients (2 layers).
 
 Then a line with the kernels' summary, a line with the card's name and
 power limit, and the last line {"ok": true, "device": {...}}.
 The kernels line counts each kernel's launches on the path that runs it
 (the serving options, speculative prefills, the serve preset's D = 64
-prefills and each attention call of Transformer-base have rows of their
-own). ``--kernels-only`` stops after phase 3
+prefills, each attention call of Transformer-base and the fit loop's
+D = 64 step have rows of their own). ``--kernels-only`` stops after phase 3
 and prints none of those three
 lines, and reports a register spill without failing on it: a partial
 run, to compare kernel builds (a layout that spills among them) in turns.
@@ -3682,6 +3702,738 @@ def phase_bert_base(seed: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the fit loop: Model.fit with the DataLoader, device prefetch, callbacks,
+# crash-safe checkpoints and the training supervisor
+# --------------------------------------------------------------------------
+
+# bench.py bench_gpt_primary (bench.py:374-378): GPT h1024, 24 layers, 16
+# heads of 64, vocab 50304, batch 8 x 1024, bf16 O2 AdamW(1e-4, wd 0.01),
+# chunked loss of 256, no recompute, dropout 0
+HF_BATCH, HF_SEQ = 8, 1024
+HF_STEPS = TRAIN_WARMUP + TRAIN_TIMED    # the timed fit's batches
+HF_WORKERS, HF_PREFETCH = 2, 2
+HF_PROBE_STEPS = 8                       # bench.py's prefetch probe
+HF_RESUME_BATCHES, HF_KILL_AFTER = 12, 6
+HF_SAVE_INTERVAL, HF_KEEP_MAX = 4, 2
+HF_POISON_AFTER = 5                      # train.data drops batches 5 and 6
+# the fit loop's cost over a bare step: rounds alternating which side runs
+# first, each side warm-up + timed steps a round, both timed alike
+HF_OVH_ROUNDS, HF_OVH_WARMUP, HF_OVH_TIMED = 4, 3, 16
+HF_PATH = "training (GPT-350M bf16 O2 step through Model.fit)"
+# the fit's attention: bf16 at D = 64, one forward (no recompute), dQ and
+# dK/dV a layer
+HF_NEED = dict(fwd_wgmma=24, dq_wgmma=24, dkv_wgmma=24)
+HF_FWD_CASE = "primary_bf16_B8_L1024"
+HF_BWD_CASE = "d64_causal_bfloat16_B8_L1024"
+# BERT-base through Model.fit(train, eval): ragged rows in two buckets and a
+# padded tail batch
+HB_BATCH, HB_TRAIN, HB_EVAL, HB_EPOCHS = 32, 138, 70, 3
+HB_BUCKETS = (64, 128)
+# EarlyStopping on the eval loss with no patience and a margin no epoch of
+# this run can gain (on random labels the eval loss stays near ln 2 = 0.69
+# or above, so an epoch would have to start above 1.69): the second
+# evaluation stops the fit, one epoch short of HB_EPOCHS
+HB_STOP_DELTA = 1.0
+
+
+def _primary_config(**overrides):
+    """bench.py bench_gpt_primary's GPT (see HF_BATCH)."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = dict(vocab_size=50304, hidden_size=1024, num_layers=24,
+               num_heads=16, max_position_embeddings=HF_SEQ,
+               hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+               use_recompute=False, use_flash_attention=True,
+               loss_chunk=256, dtype="bfloat16")
+    cfg.update(overrides)
+    return GPTConfig(**cfg)
+
+
+def _primary_net(cfg, seed: int, device: str = "cuda"):
+    """A seeded GPT under bf16 O2 with the bench's AdamW; the global seed
+    (the step's base seed) is reset too, so two builds train alike."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework import random as framework_random
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    framework_random.seed(seed)
+    net = GPTForCausalLM(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(seed)).train()
+    return amp.decorate(net, AdamW(learning_rate=1e-4, weight_decay=0.01),
+                        level="O2", dtype="bfloat16")
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def _ckpt_timing(records: list):
+    """A context that times each checkpoint save (``AutoCheckpoint.save``,
+    with its bytes), each supervisor restore and each load, and each crc
+    pass (``validate_checkpoint``) into ``records``."""
+    import contextlib
+
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.framework import supervisor as sv
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = (ck.AutoCheckpoint.save, ck.load_state, ck.validate_checkpoint,
+                sv.TrainingSupervisor.restore)
+
+        def timed(kind, fn, path_of=None):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                rec = dict(kind=kind(args, kwargs) if callable(kind)
+                           else kind, s=time.perf_counter() - t0)
+                if path_of is not None:
+                    path = path_of(args, kwargs)
+                    rec.update(path=path, bytes=_dir_bytes(path))
+                records.append(rec)
+                return out
+            return run
+
+        def pass_kind(args, kwargs):
+            crc = kwargs.get("checksums", args[1] if len(args) > 1 else True)
+            return "crc_pass" if crc else "stat_pass"
+
+        ck.AutoCheckpoint.save = timed(
+            "save", orig[0], lambda a, k: f"{a[0].root}/step_{a[1]}")
+        ck.load_state = timed("load", orig[1], lambda a, k: a[0])
+        ck.validate_checkpoint = timed(pass_kind, orig[2],
+                                       lambda a, k: a[0])
+        sv.TrainingSupervisor.restore = timed("restore", orig[3])
+        try:
+            yield records
+        finally:
+            (ck.AutoCheckpoint.save, ck.load_state, ck.validate_checkpoint,
+             sv.TrainingSupervisor.restore) = orig
+
+    return ctx()
+
+
+def _fit_clock(fa):
+    """A callback recording, per train batch, the host time at its end
+    (``train_batch`` reads the loss back, so the step is done), the loss
+    and the flash launches; and the time of the epoch-end and train-end
+    hooks after it (the ModelCheckpoint saves before them)."""
+    from paddle_tpu_torch.hapi import Callback
+
+    class Clock(Callback):
+        def __init__(self):
+            super().__init__()
+            self.ends, self.losses, self.launches, self.marks = [], [], [], {}
+
+        def on_train_begin(self, logs=None):
+            self.marks["train_begin"] = time.perf_counter()
+
+        def on_train_batch_begin(self, step, logs=None):
+            self._before = _counts(fa) if fa is not None else None
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(float(logs["loss"]))
+            self.ends.append(time.perf_counter())
+            if fa is not None:
+                self.launches.append(tuple(
+                    a - b for a, b in zip(_counts(fa), self._before)))
+
+        def on_epoch_end(self, epoch, logs=None):
+            self.marks["epoch_end"] = time.perf_counter()
+
+        def on_train_end(self, logs=None):
+            self.marks["train_end"] = time.perf_counter()
+
+        def step_ms(self):
+            starts = [self.marks["train_begin"]] + self.ends[:-1]
+            return [(b - a) * 1e3 for a, b in zip(starts, self.ends)]
+
+    return Clock()
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        a, b = a.contiguous().view(torch.uint8), b.contiguous().view(
+            torch.uint8)
+    return torch.equal(a, b)
+
+
+def _host_params(model) -> dict:
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in model._train_step.params.items()}
+
+
+def _hf_timed_fit(cfg, ids, seed, tmp, device, fa):
+    """(a): Model.fit over the seeded batches with workers, the device
+    prefetch and ModelCheckpoint at epoch end; then the saved ``final``
+    loaded into a fresh model must give the trained model's eval loss."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.hapi import Model, ModelCheckpoint
+    from paddle_tpu_torch.io import TensorDataset
+
+    net, opt = _primary_net(cfg, seed, device)
+    model = Model(net, labels=[])
+    model.prepare(opt)
+    clock = _fit_clock(fa)
+    save_dir = os.path.join(tmp, "model_checkpoint")
+    if fa is not None:
+        fa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+    hist = model.fit(TensorDataset([ids, ids]), batch_size=HF_BATCH,
+                     epochs=1, shuffle=False, num_workers=HF_WORKERS,
+                     prefetch_depth=HF_PREFETCH, verbose=0,
+                     callbacks=[ModelCheckpoint(save_dir=save_dir), clock])
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if fa is not None else None)
+    launches = _counts(fa) if fa is not None else None
+    # ModelCheckpoint saves "0" at the epoch's end and "final" at the
+    # fit's, each hook just before the clock's
+    saves = {name: dict(bytes=sum(_dir_bytes(os.path.join(save_dir,
+                                                          name + ext))
+                                  for ext in (".pdparams", ".pdopt")),
+                        s=t) for name, t in (
+        ("0", clock.marks["epoch_end"] - clock.ends[-1]),
+        ("final", clock.marks["train_end"] - clock.marks["epoch_end"]))}
+    batch0 = (ids[:HF_BATCH], ids[:HF_BATCH])
+    trained_loss = model.predict_batch(batch0)
+    del model, net, opt
+    _free()
+    # a fresh model (other weights) loads the trained ``final``
+    fresh, _ = _primary_net(cfg, seed + 1, device)
+    m2 = Model(fresh, labels=[])
+    m2.prepare()
+    t0 = time.perf_counter()
+    m2.load(os.path.join(save_dir, "final"))
+    _sync(device)
+    load_s = time.perf_counter() - t0
+    loaded_loss = m2.predict_batch(batch0)
+    if np.asarray(loaded_loss).tobytes() != np.asarray(trained_loss).tobytes():
+        raise AssertionError(f"hapi_gpt_fit: Model.load of final gives eval "
+                             f"loss {loaded_loss}, the trained model "
+                             f"{trained_loss}")
+    del m2, fresh
+    _free()
+    return dict(losses=clock.losses, step_ms=clock.step_ms(),
+                history_loss=hist["loss"], launches=launches,
+                per_step=clock.launches, peak_mem_gib=peak,
+                model_checkpoint=saves, eval_loss=float(trained_loss),
+                load_final_s=load_s)
+
+
+def _hf_bare_steps(cfg, ids, seed, device):
+    """The same batches, in the same order, through a bare TrainStep from
+    the same seed; then bench.py's prefetch probe: fresh host batches
+    streamed through prefetch_to_device, each held against its host array
+    after the step that read it (the comparison queued behind the step on
+    the same stream)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.framework.jit import TrainStep
+    from paddle_tpu_torch.io import prefetch_to_device
+
+    net, opt = _primary_net(cfg, seed, device)
+    step = TrainStep(net, opt, loss_fn=None)
+    losses, step_ms = [], []
+    for k in range(HF_STEPS):
+        b = ids[k * HF_BATCH:(k + 1) * HF_BATCH]
+        _sync(device)
+        t0 = time.perf_counter()
+        losses.append(float(step((b, b))))
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    rng = np.random.default_rng(seed + 5)
+    hosts = [rng.integers(0, cfg.vocab_size, (HF_BATCH, HF_SEQ)).astype(
+        np.int32) for _ in range(HF_PROBE_STEPS)]
+    refs = [torch.as_tensor(h, device=device) for h in hosts]
+    pf = prefetch_to_device(((np.array(h), np.array(h)) for h in hosts),
+                            depth=HF_PREFETCH, device=device)
+    same = []
+    for k, b in enumerate(pf):
+        loss = step(b)
+        same.append((b[0] == refs[k]).all() & (b[1] == refs[k]).all())
+    float(loss)
+    stats = pf.stats()
+    pf.close()
+    same = [bool(s) for s in same]
+    if len(same) != HF_PROBE_STEPS or not all(same):
+        raise AssertionError(f"hapi_gpt_fit: prefetched batches equal to "
+                             f"their host arrays: {same}")
+    probe = dict(compile_count=step.cache_stats()["compiles"],
+                 step_calls=step.cache_stats()["calls"],
+                 input_stall_s=stats["consumer_stall_s"],
+                 input_stall_per_step_ms=stats["consumer_stall_s"]
+                 / max(stats["batches"], 1) * 1e3,
+                 prefetch_batches=stats["batches"],
+                 producer_busy_s=stats["producer_busy_s"],
+                 batches_equal_host=same)
+    del step, net, opt
+    _free()
+    return losses, step_ms, probe
+
+
+def _hf_fit_overhead(cfg, seed, device) -> dict:
+    """The fit loop's cost over a bare TrainStep, in HF_OVH_ROUNDS rounds
+    that alternate which side runs first. Each side takes HF_OVH_WARMUP +
+    HF_OVH_TIMED + 1 steps a round and is timed the same way: the device
+    synchronised at each step's end, a step the host time from one end to
+    the next. The fit side is ``Model.fit`` with the workers and the
+    device prefetch; the bare side calls a TrainStep of a second model from
+    the same seed on the same host arrays."""
+    import numpy as np
+
+    from paddle_tpu_torch.framework.jit import TrainStep
+    from paddle_tpu_torch.hapi import Callback, Model
+    from paddle_tpu_torch.io import TensorDataset
+
+    n = HF_OVH_WARMUP + HF_OVH_TIMED + 1
+    ids = np.random.default_rng(seed + 9).integers(
+        0, cfg.vocab_size, (n * HF_BATCH, HF_SEQ)).astype(np.int32)
+    net, opt = _primary_net(cfg, seed, device)
+    model = Model(net, labels=[])
+    model.prepare(opt)
+    bnet, bopt = _primary_net(cfg, seed, device)
+    bare = TrainStep(bnet, bopt, loss_fn=None)
+
+    class Ends(Callback):
+        def __init__(self):
+            super().__init__()
+            self.ends = []
+
+        def on_train_batch_end(self, step, logs=None):
+            _sync(device)
+            self.ends.append(time.perf_counter())
+
+    def run_fit():
+        clock = Ends()
+        model.fit(TensorDataset([ids, ids]), batch_size=HF_BATCH, epochs=1,
+                  shuffle=False, num_workers=HF_WORKERS,
+                  prefetch_depth=HF_PREFETCH, verbose=0, callbacks=[clock])
+        return clock.ends
+
+    def run_bare():
+        ends = []
+        for k in range(n):
+            b = ids[k * HF_BATCH:(k + 1) * HF_BATCH]
+            bare((b, b))
+            _sync(device)
+            ends.append(time.perf_counter())
+        return ends
+
+    def timed(ends):
+        return [(b - a) * 1e3 for a, b in zip(ends, ends[1:])][-HF_OVH_TIMED:]
+
+    fit_ms, bare_ms, rounds = [], [], []
+    for r in range(HF_OVH_ROUNDS):
+        order = ("fit", "bare") if r % 2 == 0 else ("bare", "fit")
+        got = {}
+        for side in order:
+            got[side] = timed(run_fit() if side == "fit" else run_bare())
+        fit_ms += got["fit"]
+        bare_ms += got["bare"]
+        rounds.append(dict(first=order[0],
+                           fit_median_ms=float(np.median(got["fit"])),
+                           bare_median_ms=float(np.median(got["bare"])),
+                           diff_ms=float(np.median(got["fit"])
+                                         - np.median(got["bare"]))))
+    del model, net, opt, bare, bnet, bopt
+    _free()
+    diffs = [x["diff_ms"] for x in rounds]
+
+    def spread(xs):
+        return dict(median=float(np.median(xs)),
+                    p25=float(np.percentile(xs, 25)),
+                    p75=float(np.percentile(xs, 75)),
+                    min=float(min(xs)), max=float(max(xs)), n=len(xs))
+
+    return dict(rounds=rounds, fit_ms=spread(fit_ms), bare_ms=spread(bare_ms),
+                round_diff_ms=spread(diffs),
+                overhead_ms=float(np.median(fit_ms) - np.median(bare_ms)),
+                overhead_pct=float((np.median(fit_ms) / np.median(bare_ms)
+                                    - 1) * 100))
+
+
+def _hf_supervised(cfg, ids, seed, ckdir, device, callbacks=(), plan=None,
+                   **policy):
+    """Model.fit(recovery=...) over the HF_RESUME_BATCHES batches; returns
+    the final parameters on the host and what the fit raised, if it was
+    preempted."""
+    import warnings
+
+    from paddle_tpu_torch.framework.supervisor import (RecoveryPolicy,
+                                                       TrainingPreempted)
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import TensorDataset
+
+    net, opt = _primary_net(cfg, seed, device)
+    model = Model(net, labels=[])
+    model.prepare(opt)
+    preempted = None
+    pol = dict(checkpoint_dir=ckdir, save_interval_steps=HF_SAVE_INTERVAL,
+               keep_max=HF_KEEP_MAX, async_save=False)
+    pol.update(policy)
+    if plan is not None:
+        plan.install()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            model.fit(TensorDataset([ids, ids]), batch_size=HF_BATCH,
+                      epochs=1, shuffle=False, num_workers=HF_WORKERS,
+                      verbose=0, callbacks=list(callbacks),
+                      recovery=RecoveryPolicy(**pol))
+    except TrainingPreempted as e:
+        preempted = e
+    finally:
+        if plan is not None:
+            plan.uninstall()
+    params = _host_params(model)
+    count = model._train_step._count
+    del model, net, opt
+    _free()
+    return params, preempted, count
+
+
+def _hf_recovery(cfg, ids, seed, tmp, device) -> dict:
+    """(b) SIGTERM resume and (c) rollback, each against an uninterrupted
+    fit of the same batches, bit for bit."""
+    import os
+    import shutil
+    import signal
+
+    from paddle_tpu_torch.distributed.resilience import FaultPlan
+    from paddle_tpu_torch.hapi import Callback
+
+    class KillAfter(Callback):
+        """SIGTERM to this process after the N-th batch (the real handler
+        runs, as in tests/test_self_healing.py:259-275)."""
+
+        def __init__(self, at):
+            super().__init__()
+            self.at, self.seen, self.preempted = at, 0, []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.seen += 1
+            if self.seen == self.at:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        def on_preemption(self, logs=None):
+            self.preempted.append(logs)
+
+    class Rollbacks(Callback):
+        def __init__(self):
+            super().__init__()
+            self.events = []
+
+        def on_rollback(self, logs=None):
+            self.events.append(dict(rollbacks=logs["rollbacks"],
+                                    cursor=logs["cursor"].as_state(),
+                                    skip=logs["skip"]))
+
+    def differing(a, b):
+        return [k for k in a if not _bits_equal(a[k], b[k])]
+
+    records, out = [], {}
+    handler = signal.getsignal(signal.SIGTERM)
+    with _ckpt_timing(records):
+        d = os.path.join(tmp, "uninterrupted")
+        t0 = time.perf_counter()
+        ref, _, ref_count = _hf_supervised(
+            cfg, ids, seed, d, device, save_interval_steps=10 ** 9)
+        out["uninterrupted"] = dict(s=time.perf_counter() - t0,
+                                    steps=ref_count)
+        shutil.rmtree(d)
+        # (b) SIGTERM after batch HF_KILL_AFTER, then a fresh model (other
+        # weights) resumes from the same directory
+        d = os.path.join(tmp, "sigterm")
+        kill = KillAfter(HF_KILL_AFTER)
+        _, pre, _ = _hf_supervised(cfg, ids, seed, d, device,
+                                   callbacks=[kill])
+        if pre is None or not pre.saved or not kill.preempted:
+            raise AssertionError(f"hapi_gpt_fit: SIGTERM after batch "
+                                 f"{HF_KILL_AFTER} gave {pre!r}, callbacks "
+                                 f"{kill.preempted}")
+        if signal.getsignal(signal.SIGTERM) != handler:
+            raise AssertionError("hapi_gpt_fit: the SIGTERM handler was not "
+                                 "restored after the supervised fit")
+        kept = sorted(os.listdir(d))
+        resumed, _, count = _hf_supervised(cfg, ids, seed + 7, d, device)
+        bad = differing(ref, resumed)
+        if bad or count != ref_count:
+            raise AssertionError(f"hapi_gpt_fit: the SIGTERM-resumed fit "
+                                 f"differs from the uninterrupted one in "
+                                 f"{len(bad)} parameters ({bad[:3]}), steps "
+                                 f"{count} / {ref_count}")
+        out["sigterm"] = dict(preempted_at_step=pre.global_step,
+                              saved=pre.saved, dirs_after_kill=kept,
+                              resumed_steps=count, params_bit_equal=True)
+        shutil.rmtree(d)
+        # (c) train.data dropped at two consecutive batches: both skipped,
+        # then a rollback to the last snapshot and a clean replay
+        d = os.path.join(tmp, "rollback")
+        plan = FaultPlan([{"site": "train.data", "kind": "drop", "times": 2,
+                           "after": HF_POISON_AFTER}], seed=seed)
+        rb = Rollbacks()
+        rolled, _, count = _hf_supervised(cfg, ids, seed, d, device,
+                                          callbacks=[rb], plan=plan,
+                                          max_consecutive=2)
+        bad = differing(ref, rolled)
+        if plan.fired != [2] or len(rb.events) != 1 or bad \
+                or count != ref_count:
+            raise AssertionError(f"hapi_gpt_fit: rollback run: plan fired "
+                                 f"{plan.fired}, rollbacks {rb.events}, "
+                                 f"{len(bad)} parameters differ ({bad[:3]}),"
+                                 f" steps {count} / {ref_count}")
+        out["rollback"] = dict(poisoned_batches=[HF_POISON_AFTER,
+                                                 HF_POISON_AFTER + 1],
+                               rollbacks=len(rb.events), events=rb.events,
+                               params_bit_equal=True)
+        shutil.rmtree(d)
+    out["checkpoint_io"] = records
+    return out
+
+
+def phase_hapi_gpt_fit(seed: int, device: str = "cuda", cfg=None) -> dict:
+    """bench_gpt_primary's GPT-350M through the port's fit loop: (a) the
+    timed Model.fit with workers, prefetch and ModelCheckpoint, against a
+    bare TrainStep on the same batches, the prefetch probe, and the saved
+    model reloaded; (b) a SIGTERM-resumed and (c) a rolled-back supervised
+    fit, each bit-identical to an uninterrupted one."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from paddle_tpu_torch.models.gpt import gpt_flops_per_token
+
+    cuda = device == "cuda"
+    fa = None
+    if cuda:
+        from paddle_tpu_torch.kernels import flash_attention as fa
+    leftover = _check_freed("hapi_gpt_fit") if cuda else None
+    cfg = cfg or _primary_config()
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size, (HF_STEPS * HF_BATCH, HF_SEQ)) \
+        .astype(np.int32)
+    tmp = tempfile.mkdtemp(prefix="hapi_gpt_fit-")
+    try:
+        disk_free_gib = shutil.disk_usage(tmp).free / 2 ** 30
+        fit = _hf_timed_fit(cfg, ids, seed, tmp, device, fa)
+        bare_losses, bare_ms, probe = _hf_bare_steps(cfg, ids, seed, device)
+        overhead = _hf_fit_overhead(cfg, seed, device)
+        if fit["losses"] != bare_losses:
+            raise AssertionError(f"hapi_gpt_fit: Model.fit losses "
+                                 f"{fit['losses']} differ from a bare "
+                                 f"TrainStep's {bare_losses} on the same "
+                                 f"batches")
+        if not all(math.isfinite(x) for x in fit["losses"]) \
+                or not fit["losses"][-1] < fit["losses"][0]:
+            raise AssertionError(f"hapi_gpt_fit: losses {fit['losses']}: "
+                                 f"not finite or not falling")
+        if cuda:
+            need = _need(**HF_NEED)
+            if any(c != need for c in fit["per_step"]):
+                raise AssertionError(
+                    f"hapi_gpt_fit: launches per step {_COUNT_NAMES} "
+                    f"{fit['per_step']}, expected {need} every step")
+        recovery = _hf_recovery(
+            cfg, ids[:HF_RESUME_BATCHES * HF_BATCH], seed, tmp, device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    timed = fit["step_ms"][TRAIN_WARMUP:]
+    tokens_per_s = HF_BATCH * HF_SEQ * TRAIN_TIMED / (sum(timed) / 1e3)
+    flops = gpt_flops_per_token(cfg, HF_SEQ)
+    bare_timed = bare_ms[TRAIN_WARMUP:]
+    out = dict(model="bench_gpt_primary GPT-350M bf16 O2", path=HF_PATH,
+               batch=[HF_BATCH, HF_SEQ], layers=cfg.num_layers,
+               num_workers=HF_WORKERS, prefetch_depth=HF_PREFETCH,
+               fit_losses=fit["losses"], bare_losses=bare_losses,
+               losses_bit_equal=True, fit_step_ms=fit["step_ms"],
+               fit_step_ms_median=float(np.median(timed)),
+               bare_step_ms=bare_ms,
+               bare_step_ms_median=float(np.median(bare_timed)),
+               tokens_per_s=tokens_per_s,
+               bare_tokens_per_s=HF_BATCH * HF_SEQ * TRAIN_TIMED
+               / (sum(bare_timed) / 1e3),
+               mfu=tokens_per_s * flops / PEAK_BF16_TC_FLOPS,
+               flops_per_token=flops, prefetch_probe=probe,
+               fit_overhead=overhead,
+               launches=(dict(zip(_COUNT_NAMES, fit["launches"]))
+                         if cuda else None),
+               launches_per_step=dict(zip(_COUNT_NAMES, _need(**HF_NEED))),
+               peak_mem_gib=fit["peak_mem_gib"],
+               model_checkpoint=fit["model_checkpoint"],
+               load_final_s=fit["load_final_s"],
+               eval_loss_after_load_bit_equal=True,
+               disk_free_gib=disk_free_gib, leftover_gib_at_start=leftover,
+               **recovery, card=nvidia_smi_line() if cuda else device)
+    emit("hapi_gpt_fit", **out)
+    return out
+
+
+def _hb_rows(seed: int, n: int, vocab: int):
+    """``n`` seeded classification rows: ids of lengths BERT_MIN_LEN ..
+    BERT_SEQ (no padding: the loader buckets them) and a label of 2."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(BERT_MIN_LEN, BERT_SEQ + 1, n)
+    return [(rng.integers(1, vocab, int(L)).astype(np.int64),
+             np.int64(rng.integers(0, 2))) for L in lengths]
+
+
+def phase_hapi_bert_fit(seed: int, device: str = "cuda", cfg=None) -> dict:
+    """BertForSequenceClassification(bert_base()) bf16 O2 through
+    Model.fit(train, eval) with Accuracy, tail padding and length buckets,
+    LRScheduler over the linear warm-up and EarlyStopping; then evaluate
+    and predict, held to a direct EvalStep over the same batches' real
+    rows (the loss a batch's mean, averaged over batches, as evaluate
+    takes it)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework import random as framework_random
+    from paddle_tpu_torch.framework.jit import EvalStep, _to_device
+    from paddle_tpu_torch.hapi import (EarlyStopping, InputSpec,
+                                       LRScheduler, Model)
+    from paddle_tpu_torch.io import DataLoader, Dataset
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.models.bert import (BertForSequenceClassification,
+                                              bert_base)
+    from paddle_tpu_torch.nn import functional as F
+
+    cuda = device == "cuda"
+    fa = None
+    if cuda:
+        from paddle_tpu_torch.kernels import flash_attention as fa
+    leftover = _check_freed("hapi_bert_fit") if cuda else None
+    cfg = cfg or bert_base()
+
+    class Rows(Dataset):
+        def __init__(self, rows):
+            self.rows = rows
+
+        def __len__(self):
+            return len(self.rows)
+
+        def __getitem__(self, i):
+            return self.rows[i]
+
+    train = Rows(_hb_rows(seed + 21, HB_TRAIN, cfg.vocab_size))
+    evalset = Rows(_hb_rows(seed + 22, HB_EVAL, cfg.vocab_size))
+    framework_random.seed(seed)
+    net = BertForSequenceClassification(cfg, device=device,
+                                        generator=torch.Generator(
+                                            device=device).manual_seed(seed))
+    net, opt = amp.decorate(net.train(), _bert_optimizer(), level="O2",
+                            dtype="bfloat16")
+    model = Model(net, inputs=[InputSpec((None, None), "int64")],
+                  labels=[InputSpec((None, 1), "int64")])
+    model.prepare(opt, loss=lambda logits, label: F.cross_entropy(logits,
+                                                                  label),
+                  metrics=Accuracy())
+    clock = _fit_clock(fa)
+    stop = EarlyStopping(monitor="loss", patience=0, min_delta=HB_STOP_DELTA,
+                         verbose=0, save_best_model=False)
+    kw = dict(batch_size=HB_BATCH, pad_batches=True,
+              length_buckets=HB_BUCKETS)
+    if fa is not None:
+        fa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+    hist = model.fit(train, evalset, epochs=HB_EPOCHS, shuffle=False,
+                     verbose=0, callbacks=[LRScheduler(), stop, clock],
+                     num_workers=HF_WORKERS, prefetch_depth=HF_PREFETCH,
+                     **kw)
+    launches = _counts(fa) if fa is not None else None
+    if not all(math.isfinite(x) for x in clock.losses):
+        raise AssertionError(f"hapi_bert_fit: losses {clock.losses}")
+    # EarlyStopping's decision, replayed on the eval losses it saw: each
+    # evaluation that does not beat the best by HB_STOP_DELTA stops the fit
+    evals = [float(np.asarray(x).reshape(-1)[0]) for x in hist["eval_loss"]]
+    best, want_epochs = math.inf, HB_EPOCHS
+    for e, v in enumerate(evals):
+        if v + HB_STOP_DELTA < best:
+            best = v
+        else:
+            want_epochs = e + 1
+            break
+    if not model.stop_training or len(hist["loss"]) != want_epochs \
+            or want_epochs != 2:
+        raise AssertionError(f"hapi_bert_fit: EarlyStopping: stopped "
+                             f"{model.stop_training} after "
+                             f"{len(hist['loss'])} of {HB_EPOCHS} epochs; "
+                             f"the eval losses {evals} stop it after "
+                             f"{want_epochs}, and this run expects 2")
+    # the held-out comparison runs without dropout on both sides
+    net.eval()
+    ev = model.evaluate(evalset, verbose=0, **kw)
+    pred = model.predict(DataLoader(evalset, **kw), stack_outputs=True)
+    step = EvalStep(net)
+    losses, hits, rows, direct = [], 0, 0, []
+    for ids, label, mask in DataLoader(evalset, **kw):
+        logits = step(ids)
+        keep = torch.from_numpy(mask).to(logits.device)
+        lab = _to_device(label[mask], logits.device)
+        with torch.no_grad():
+            losses.append(float(F.cross_entropy(logits[keep], lab)))
+        real = logits[keep].float()
+        # top-1 as Accuracy ranks (a stable argsort, reversed)
+        top1 = torch.argsort(real, dim=-1, stable=True)[:, -1]
+        hits += int((top1 == lab.reshape(-1)).sum())
+        rows += int(mask.sum())
+        direct.append(real.cpu().numpy())
+    want = dict(loss=sum(losses) / len(losses), acc=hits / rows)
+    direct = np.concatenate(direct)
+    if ev != want or pred.shape != direct.shape \
+            or not np.array_equal(pred.astype(np.float32), direct):
+        raise AssertionError(f"hapi_bert_fit: evaluate {ev} / predict "
+                             f"{pred.shape} against a direct EvalStep "
+                             f"{want} / {direct.shape}")
+    out = dict(model="bert_base classification bf16 O2",
+               train_rows=HB_TRAIN, eval_rows=HB_EVAL, batch=HB_BATCH,
+               buckets=list(HB_BUCKETS), epochs=HB_EPOCHS,
+               losses=clock.losses, step_ms=clock.step_ms(),
+               history={k: [float(np.asarray(x).reshape(-1)[0]) for x in v]
+                        for k, v in hist.items()},
+               evaluate=ev, direct_eval=want, predict_shape=list(pred.shape),
+               stopped_early=model.stop_training,
+               epochs_run=len(hist["loss"]),
+               launches=(dict(zip(_COUNT_NAMES, launches))
+                         if cuda else None),
+               peak_mem_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                             if cuda else None),
+               leftover_gib_at_start=leftover,
+               card=nvidia_smi_line() if cuda else device)
+    del model, net, opt, step
+    _free()
+    emit("hapi_bert_fit", **out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3742,6 +4494,10 @@ def main(argv=None) -> int:
     sdpa = phase_sdpa_routes(args.seed)
     _free()
     phase_bert_base(args.seed)
+    _free()
+    hapi_gpt = phase_hapi_gpt_fit(args.seed)
+    _free()
+    phase_hapi_bert_fit(args.seed)
     _free()
     llama_serve = phase_llama_serving(args.seed)
     _free()
@@ -3873,6 +4629,16 @@ def main(argv=None) -> int:
                 "flash_attention_bwd_f32_sm90.cu", "dkv",
                 "train_float32_B2_L1024", parity["launches"]["dkv_wgmma_f32"],
                 f32_step),
+        # bench_gpt_primary's attention, [8, 16, 1024, 64] bf16, on the fit
+        # loop's path (hapi_gpt_fit's timed fit: 24 of each a step)
+        fwd_row("flash_attention_fwd_sm90_d64", "flash_attention_fwd_sm90.cu",
+                HF_FWD_CASE, hapi_gpt["launches"]["fwd_wgmma"], HF_PATH),
+        bwd_row("flash_attention_bwd_dq_sm90_d64",
+                "flash_attention_bwd_dq_sm90.cu", "dq", HF_BWD_CASE,
+                hapi_gpt["launches"]["dq_wgmma"], HF_PATH),
+        bwd_row("flash_attention_bwd_dkv_sm90_d64",
+                "flash_attention_bwd_dkv_sm90.cu", "dkv", HF_BWD_CASE,
+                hapi_gpt["launches"]["dkv_wgmma"], HF_PATH),
         bwd_row("flash_attention_bwd_dq_f32_sm90_d256",
                 "flash_attention_bwd_f32_d256_sm90.cu", "dq", D256_F32_BWD,
                 d256_f32["launches"]["dq_wgmma_f32"], d256_f32_path),

@@ -29,7 +29,7 @@ no compile cache. Other differences, and why:
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -39,6 +39,7 @@ from . import random as framework_random
 from ..amp.grad_scaler import scale_loss, unscale_and_check, update_scale
 from ..nn.layer import rng_context
 from .debugging import tree_all_finite
+from .tree import tree_map
 
 __all__ = ["DEFAULT_RNG_STREAMS", "resolve_inputs_fn", "finite_guard",
            "raise_if_bad_step", "scaler_guard", "TrainStep", "EvalStep"]
@@ -66,16 +67,19 @@ def resolve_inputs_fn(inputs_fn, loss_fn):
 def _to_device(batch, device):
     """Arrays and tensors of a batch (nested tuples/lists/dicts) as tensors
     on ``device``; integer arrays become int64 (torch's index type)."""
-    if isinstance(batch, (tuple, list)):
-        return type(batch)(_to_device(b, device) for b in batch)
-    if isinstance(batch, dict):
-        return {k: _to_device(v, device) for k, v in batch.items()}
-    if isinstance(batch, (np.ndarray, torch.Tensor)):
-        t = torch.as_tensor(batch, device=device)
+    def leaf(x):
+        if not isinstance(x, (np.ndarray, torch.Tensor)):
+            return x
+        t = torch.as_tensor(x, device=device)
         if not t.is_floating_point() and t.dtype != torch.bool:
             t = t.long()
         return t
-    return batch
+    return tree_map(leaf, batch)
+
+
+def _detach(tree):
+    return tree_map(lambda x: x.detach() if isinstance(x, torch.Tensor)
+                    else x, tree)
 
 
 def finite_guard(grads, params_finite, extra_ok=None) -> torch.Tensor:
@@ -153,6 +157,11 @@ class TrainStep:
     where :func:`finite_guard` allows, and a bad step raises
     ``FloatingPointError`` with the state preserved."""
 
+    # hapi's step also returns the model outputs for train-time metrics;
+    # the flag keeps one step body for both (the outputs would otherwise
+    # stay alive past the step for callers that never read them)
+    _return_out = False
+
     def __init__(self, model: torch.nn.Module, optimizer,
                  loss_fn: Optional[Callable] = None,
                  inputs_fn: Optional[Callable] = None,
@@ -173,6 +182,7 @@ class TrainStep:
         self.opt_state = optimizer.init(self.params)
         self._base_seed = framework_random.next_seed()
         self._count = 0
+        self._calls = 0
         self.grad_accum_steps = int(grad_accum_steps)
         self.grad_accum_avg = grad_accum_avg
         self._grad_accum = None
@@ -213,6 +223,7 @@ class TrainStep:
     def _next_count(self):
         count = self._count
         self._count += 1
+        self._calls += 1
         do_update = (self.grad_accum_steps <= 1
                      or self._count % self.grad_accum_steps == 0)
         return count, do_update
@@ -220,7 +231,8 @@ class TrainStep:
     def _loss_and_grads(self, batch, count, poison):
         """The forward and the loss (times ``poison``) under the step's
         random streams, and the gradient of the loss (scaled, with a
-        scaler) for every parameter: ``(float32 loss, grads)``."""
+        scaler) for every parameter: ``(float32 loss, grads, out)``, the
+        model's outputs detached when ``_return_out`` (else None)."""
         batch = _to_device(batch, self.device)
         seeds = framework_random.split_streams(
             framework_random.fold_in(self._base_seed, count),
@@ -240,7 +252,8 @@ class TrainStep:
         # an unused parameter's gradient is zero, as jax.grad gives it
         return loss.detach(), {
             k: torch.zeros_like(self.params[k]) if g is None else g
-            for k, g in zip(names, grads)}
+            for k, g in zip(names, grads)}, (
+                _detach(out) if self._return_out else None)
 
     def _merged(self, grads, do_update):
         """Gradient merge: the gradients of the update, or None on a call
@@ -259,19 +272,21 @@ class TrainStep:
         return merged
 
     def _step(self, batch, checked: bool):
-        """One call: ``(loss, ok, found_inf)``, the flags 0-d device bools
-        on a guarded update (a scaler, or ``checked``) and None otherwise
-        (no update, or an unguarded one)."""
+        """One call: ``(loss, ok, found_inf, out)``, the flags 0-d device
+        bools on a guarded update (a scaler, or ``checked``) and None
+        otherwise (no update, or an unguarded one); ``out`` the model's
+        outputs when ``_return_out``."""
         count, do_update = self._next_count()
-        loss, grads = self._loss_and_grads(batch, count, self._take_poison())
+        loss, grads, out = self._loss_and_grads(batch, count,
+                                                self._take_poison())
         grads = self._merged(grads, do_update)
         if grads is None:
-            return loss, None, None
+            return loss, None, None, out
         if self.grad_transform is not None:
             grads = self.grad_transform(grads)
         if self.scaler_state is None and not checked:
             self.optimizer.update(grads, self.opt_state, self.params)
-            return loss, None, None
+            return loss, None, None, out
         flags_out = {}
         if self.scaler_state is not None:
             grads, found = unscale_and_check(grads, self.scaler_state)
@@ -295,20 +310,31 @@ class TrainStep:
             # mirror the (lazy) scale so the scaler's get_loss_scaling() and
             # state_dict() stay truthful
             self.scaler.state = dict(self.scaler_state)
-        return loss, flags_out["ok"], flags_out["found"]
+        return loss, flags_out["ok"], flags_out["found"], out
 
     def __call__(self, batch):
         check = flags.flag("FLAGS_check_nan_inf")
-        loss, ok, _ = self._step(batch, checked=check)
+        loss, ok, _, out = self._step(batch, checked=check)
         if check and ok is not None:
             raise_if_bad_step(ok, loss)
-        return loss
+        return (loss, out) if self._return_out else loss
 
     def watchdog_call(self, batch):
-        """One step through the guarded update: ``(loss, ok, found_inf)``,
-        all three lazy device tensors; ``ok``/``found_inf`` are None on
-        calls that only accumulate (no update happened to check)."""
-        return self._step(batch, checked=True)
+        """One step through the guarded update: ``(loss, ok, found_inf)``
+        (``(loss, out, ok, found_inf)`` when ``_return_out``), all lazy
+        device tensors; ``ok``/``found_inf`` are None on calls that only
+        accumulate (no update happened to check)."""
+        loss, ok, found, out = self._step(batch, checked=True)
+        return (loss, out, ok, found) if self._return_out \
+            else (loss, ok, found)
+
+    def cache_stats(self) -> dict:
+        """The reference's compile/call counters for this step. The port
+        traces and compiles nothing (``warmup`` says the same), so
+        ``compiles`` is always 0 and every call counts as a cache hit."""
+        return {"compiles": 0, "calls": self._calls,
+                "cache_hits": self._calls, "signatures": {},
+                "last_trace_signature": None}
 
     # ----------------------------------------------------------- state sync
     def sync_to_model(self):

@@ -14,7 +14,8 @@ from __future__ import annotations
 import threading
 from typing import Dict, Iterable
 
-__all__ = ["fold_in", "split_streams", "Generator", "seed", "next_seed"]
+__all__ = ["fold_in", "split_streams", "Generator", "seed", "next_seed",
+           "default_generator"]
 
 _M64 = 2 ** 64 - 1
 
@@ -62,6 +63,11 @@ _default_generator = Generator(0)
 def seed(value: int) -> Generator:
     """Set the global seed (``paddle.seed`` analogue)."""
     return _default_generator.manual_seed(value)
+
+
+def default_generator() -> Generator:
+    """The global generator (``paddle.framework.default_generator``)."""
+    return _default_generator
 
 
 def next_seed() -> int:

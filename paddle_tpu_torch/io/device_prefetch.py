@@ -1,0 +1,138 @@
+"""Async host-to-device prefetch: overlap the H2D copy with the step (port
+of ``paddle_tpu/io/device_prefetch.py``).
+
+The step consumes batch N while a background thread already copies batch
+N+1. Where the reference issues an (asynchronous) ``jax.device_put``, the
+producer thread here copies each array leaf into pinned host memory,
+issues ``.to(device, non_blocking=True)`` on a dedicated CUDA stream and
+records an event after the batch's last copy. It then waits for that
+event before it queues the batch, so a pinned buffer is never released
+while its copy still reads it (the thread blocks, the consumer does not).
+The consumer makes its current stream wait on the event and marks every
+tensor of the batch as used on that stream (``record_stream``), so the
+caching allocator does not hand a batch's memory to the side stream again
+while the step still reads it.
+
+Usage::
+
+    it = prefetch_to_device(loader, depth=2)          # the card
+    it = prefetch_to_device(loader, device="cpu")     # the tests' path
+    for batch in it:
+        loss = step(batch)
+    it.close()   # also runs on exhaustion / GC
+
+``it.stats()`` reports consumer stall seconds — the direct measure of an
+input-bound pipeline — and the batches delivered, with the reference's
+keys. Sharded landing (``sharding=`` / ``mesh=``) waits for the
+distributed port (ROADMAP A8).
+"""
+from __future__ import annotations
+
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from .. import default_device
+from ..framework.tree import tree_leaves, tree_map
+from .dataloader import _PrefetchIterator
+
+__all__ = ["DevicePrefetchIterator", "prefetch_to_device"]
+
+
+def _tensors(batch) -> list:
+    return [x for x in tree_leaves(batch) if isinstance(x, torch.Tensor)]
+
+
+def _as_host_tensor(x):
+    """An array leaf as a CPU tensor (numpy arrays and scalars, tensors);
+    None for any other leaf, which rides through as it is."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if isinstance(x, (np.ndarray, np.generic)):
+        return torch.from_numpy(np.array(x))
+    return None
+
+
+def _to_cpu(x):
+    t = _as_host_tensor(x)
+    return x if t is None else t
+
+
+def _cuda_transform(device: torch.device):
+    """The producer thread's H2D copy: ``batch -> (device batch, event)``.
+    A plain closure, not a bound method: the producer thread must not hold
+    a reference to the iterator (see dataloader._PrefetchState)."""
+    stream = torch.cuda.Stream(device=device)
+
+    def to_device(batch):
+        pinned = []
+
+        def copy(x):
+            t = _as_host_tensor(x)
+            if t is None:
+                return x
+            if t.device.type == "cuda":
+                return t
+            host = t.pin_memory()
+            pinned.append(host)
+            return host.to(device, non_blocking=True)
+
+        with torch.cuda.stream(stream):
+            out = tree_map(copy, batch)
+            event = torch.cuda.Event()
+            event.record(stream)
+        # hold the pinned buffers until their copies are done; only this
+        # thread waits
+        event.synchronize()
+        del pinned
+        return out, event
+
+    return to_device
+
+
+class DevicePrefetchIterator(_PrefetchIterator):
+    """Double-buffered device prefetch over any host-batch iterable.
+
+    ``depth`` bounds the number of batches copied ahead of the consumer
+    (2 = classic double buffering). ``device=None`` means ``cuda``, as at
+    every entry point of the port; ``device="cpu"`` turns the leaves into
+    CPU tensors in the producer thread (the tests' plain path).
+    ``close()`` (also called on exhaustion, error delivery, and GC)
+    unblocks and joins the thread.
+    """
+
+    def __init__(self, producer: Iterable, depth: int = 2, sharding=None,
+                 mesh=None, device=None, spec=None):
+        if sharding is not None or mesh is not None or spec is not None:
+            raise NotImplementedError(
+                "DevicePrefetchIterator(sharding=/mesh=/spec=): a sharded "
+                "landing is not ported yet (ROADMAP A8)")
+        self._device = default_device(device)
+        self._on_cuda = self._device.type == "cuda"
+        if self._on_cuda:
+            transform = _cuda_transform(self._device)
+        else:
+            def transform(batch):
+                return tree_map(_to_cpu, batch)
+        super().__init__(producer, depth=depth, transform=transform)
+
+    def __next__(self):
+        item = super().__next__()
+        if not self._on_cuda:
+            return item
+        batch, event = item
+        consumer = torch.cuda.current_stream(self._device)
+        consumer.wait_event(event)
+        for t in _tensors(batch):
+            if t.device.type == "cuda":
+                t.record_stream(consumer)
+        return batch
+
+
+def prefetch_to_device(data: Iterable, depth: int = 2, sharding=None,
+                       mesh=None, device=None,
+                       spec=None) -> DevicePrefetchIterator:
+    """Wrap an iterable of host batches in a :class:`DevicePrefetchIterator`."""
+    return DevicePrefetchIterator(data, depth=depth, sharding=sharding,
+                                  mesh=mesh, device=device, spec=spec)

@@ -26,6 +26,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..framework.tree import tree_map
 from ..io.batching import bucket_for
 
 __all__ = ["DEFAULT_PREFILL_BUCKETS", "GenerationEngine", "generate",
@@ -65,15 +66,6 @@ def normalize_kv_dtype(kv_dtype):
         return "int8"
     raise ValueError(f"unsupported kv_dtype {kv_dtype!r}; expected None "
                      f"or 'int8'")
-
-
-def _map_leaves(fn, *trees):
-    """``fn`` over the corresponding tensors of cache-shaped nested tuples
-    (layers of ``(k, v)``, each a tensor or an int8 ``(values, scales)``
-    pair), keeping the structure."""
-    if isinstance(trees[0], torch.Tensor):
-        return fn(*trees)
-    return tuple(_map_leaves(fn, *parts) for parts in zip(*trees))
 
 
 def cache_entries(spec: dict, rows: int, length: int, dtype=None,
@@ -123,14 +115,14 @@ def cache_nbytes(cache) -> int:
         total[0] += x.numel() * x.element_size()
         return x
 
-    _map_leaves(add, cache)
+    tree_map(add, cache)
     return total[0]
 
 
 def slice_cache_rows(cache, index: int, rows: int = 1):
     """Views of ``rows`` batch rows starting at ``index`` of every cache
     leaf: ``[B, S, Hkv, D]`` -> ``[rows, S, Hkv, D]``."""
-    return _map_leaves(lambda x: x[index:index + rows], cache)
+    return tree_map(lambda x: x[index:index + rows], cache)
 
 
 def scatter_cache_rows(cache, row_cache, index: int):
@@ -145,7 +137,7 @@ def scatter_cache_rows(cache, row_cache, index: int):
         dst[index:index + n].copy_(src)
         return dst
 
-    return _map_leaves(put, cache, row_cache)
+    return tree_map(put, cache, row_cache)
 
 
 def _block_index(block_indices, device):
@@ -174,7 +166,7 @@ def gather_cache_blocks(pool, block_indices, length: int):
                 (1, length - n * bs) + tuple(leaf.shape[2:]))], dim=1)
         return flat[:, :length]
 
-    return _map_leaves(assemble, pool)
+    return tree_map(assemble, pool)
 
 
 def scatter_cache_blocks(pool, row_cache, block_indices):
@@ -196,7 +188,7 @@ def scatter_cache_blocks(pool, row_cache, block_indices):
         leaf.index_copy_(0, idx, blocks.to(leaf.dtype))
         return leaf
 
-    return _map_leaves(store, pool, row_cache)
+    return tree_map(store, pool, row_cache)
 
 
 # -------------------------------------------------------------- sampling
