@@ -221,15 +221,31 @@ exits non-zero:
                padding, length buckets (64, 128), LRScheduler and
                EarlyStopping; evaluate and predict equal to a direct
                EvalStep over the same batches' real rows.
-12. llama    - llama2_7b served at full width and depth, its bf16 O2
+12. lora     - lora_fit: hapi_gpt_fit's GPT-350M, batches and loop
+               through Model.fit(lora=LoraConfig(rank=8, alpha=16)): 5
+               warm-up and 8 timed steps beside the full fit's, exactly 24
+               wgmma forward, dQ and dK/dV launches a step, the bf16 base
+               bitwise unchanged, only the float32 adapter leaves in the
+               step, optimizer state under a tenth of the model's bytes,
+               the adapter saved and loaded back bit-equal. lora_serving:
+               the serve preset (bf16 cache) with serve_bench's adapter
+               traffic (8 tenants of rank 4, 85 % of 24 requests, Zipf,
+               max_loaded=5), after the base model alone on the same
+               requests: pool-less streams equal solo generate() with the
+               adapter set, pooled streams the request served alone by a
+               fresh pooled server, no failure, evictions, 24 wgmma_f32
+               D = 64 forwards per pool-less prefill and none pooled, a
+               tenant's hits only on its own blocks; TTFT, ms and launches
+               per decode step with and without the adapters.
+13. llama    - llama2_7b served at full width and depth, its bf16 O2
                step (8 of 32 layers) and its GQA gradients (2 layers).
 
 Then a line with the kernels' summary, a line with the card's name and
 power limit, and the last line {"ok": true, "device": {...}}.
 The kernels line counts each kernel's launches on the path that runs it
 (the serving options, speculative prefills, the serve preset's D = 64
-prefills, each attention call of Transformer-base and the fit loop's
-D = 64 step have rows of their own). ``--kernels-only`` stops after phase 3
+prefills, each attention call of Transformer-base, the fit loop's
+D = 64 step and the two LoRA paths have rows of their own). ``--kernels-only`` stops after phase 3
 and prints none of those three
 lines, and reports a register spill without failing on it: a partial
 run, to compare kernel builds (a layout that spills among them) in turns.
@@ -2053,19 +2069,7 @@ def phase_serve_preset(seed: int) -> dict:
     mem_before = _check_freed("serve_preset")
     torch.cuda.reset_peak_memory_stats()
     model, build_s = _serving_model(seed, _preset_config())
-    V = model.cfg.vocab_size
-    rng = np.random.default_rng(seed + 19)
-    prefix = rng.integers(0, V, PRESET_PREFIX)
-    requests = []
-    for _ in range(PRESET_REQUESTS):
-        if rng.random() < PRESET_PREFIX_FRAC:
-            sfx = rng.integers(0, V, int(rng.integers(PRESET_SUFFIX[0],
-                                                      PRESET_SUFFIX[1] + 1)))
-            prompt = np.concatenate([prefix, sfx])
-        else:
-            prompt = rng.integers(0, V, int(rng.integers(
-                4, 1024 - PRESET_NEW + 1)))
-        requests.append(dict(prompt=prompt, max_new_tokens=PRESET_NEW))
+    requests, prefix = _preset_requests(seed, model.cfg.vocab_size)
     shared = sum(len(r["prompt"]) > PRESET_PREFIX
                  and np.array_equal(r["prompt"][:PRESET_PREFIX], prefix)
                  for r in requests)
@@ -4434,6 +4438,495 @@ def phase_hapi_bert_fit(seed: int, device: str = "cuda", cfg=None) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# multi-tenant LoRA: an adapter fit at bench_gpt_primary's GPT-350M and
+# adapter serving at the serve preset
+# --------------------------------------------------------------------------
+
+# the adapter fit: hapi_gpt_fit's model, batches and loop, through
+# Model.fit(lora=LoraConfig(rank=8, alpha=16)); attention as the full
+# fit's (the adapters on qkv_proj take their gradient through it)
+LORA_FIT_RANK, LORA_FIT_ALPHA = 8, 16.0
+LORA_FIT_PATH = ("training (GPT-350M bf16 O2 adapter fit through "
+                 "Model.fit(lora=...))")
+# tools/serve_bench.py's adapter traffic as tools/lora_bench_results.json
+# ran it (--adapters 8 --adapter-frac 0.85 --max-loaded 5): rank 4 (its
+# --adapter-rank), alpha 2 x rank, leaves Normal(0, 0.02) from seed + 777,
+# Zipf popularity 1 / (k + 1) ** 1.1
+LORA_TENANTS, LORA_FRAC, LORA_MAX_LOADED = 8, 0.85, 5
+LORA_SERVE_RANK, LORA_ZIPF = 4, 1.1
+# that run's --requests 24, at the serve preset's request lengths
+LORA_REQUESTS = 24
+LORA_SERVE_PATH = ("serving (serve preset, 8 LoRA tenants, float32 prefill "
+                   "at D = 64, pool-less)")
+# decode steps timed and traced per engine, all 8 slots live
+LORA_DECODE_STEPS = 16
+
+
+def _tensor_bytes(tree, skip=()) -> int:
+    """Bytes of the tensors in ``tree`` (nested dicts), ``skip`` (tensors
+    counted elsewhere, by identity) left out."""
+    import torch
+
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v, skip) for v in tree.values())
+    if isinstance(tree, torch.Tensor) and not any(tree is s for s in skip):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def phase_lora_fit(seed: int, device: str = "cuda", cfg=None,
+                   full=None) -> dict:
+    """bench_gpt_primary's GPT-350M (hapi_gpt_fit's model, batches, workers
+    and prefetch) through Model.fit(lora=LoraConfig(rank=8, alpha=16)): 5
+    warm-up and 8 timed steps; exactly 24 wgmma forward, dQ and dK/dV
+    launches a step; the base bitwise unchanged, the lora_B leaves moved,
+    only adapter leaves in the step, the optimizer state under a tenth of
+    the model's bytes; the adapter saved and loaded back bit-equal. Step
+    ms, tokens/s and peak memory beside the full fit's (``full``, the
+    hapi_gpt_fit result of the same run)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.lora import (LoraConfig, is_lora_param,
+                                       load_adapter, lora_state,
+                                       save_adapter, set_adapter)
+
+    cuda = device == "cuda"
+    fa = None
+    if cuda:
+        from paddle_tpu_torch.kernels import flash_attention as fa
+    leftover = _check_freed("lora_fit") if cuda else None
+    cfg = cfg or _primary_config()
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size, (HF_STEPS * HF_BATCH, HF_SEQ)) \
+        .astype(np.int32)
+    net, opt = _primary_net(cfg, seed, device)
+    base = {k: v.detach().clone() for k, v in net.named_parameters()}
+    model = Model(net, labels=[])
+    model.prepare(opt)
+    clock = _fit_clock(fa)
+    if cuda:
+        fa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+    model.fit(TensorDataset([ids, ids]), batch_size=HF_BATCH, epochs=1,
+              shuffle=False, num_workers=HF_WORKERS,
+              prefetch_depth=HF_PREFETCH, verbose=0, callbacks=[clock],
+              lora=LoraConfig(rank=LORA_FIT_RANK, alpha=LORA_FIT_ALPHA))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None
+    launches = _counts(fa) if cuda else None
+    step = model._train_step
+    if not all(math.isfinite(x) for x in clock.losses):
+        raise AssertionError(f"lora_fit: losses {clock.losses}")
+    if cuda:
+        need = _need(**HF_NEED)
+        if any(c != need for c in clock.launches):
+            raise AssertionError(
+                f"lora_fit: launches per step {_COUNT_NAMES} "
+                f"{clock.launches}, expected {need} every step")
+    named = dict(net.named_parameters())
+    changed = [k for k, v in base.items() if not _bits_equal(v, named[k])]
+    if changed:
+        raise AssertionError(f"lora_fit: the frozen base moved: "
+                             f"{changed[:3]} ({len(changed)} leaves)")
+    if not step.params or not all(is_lora_param(k) for k in step.params):
+        raise AssertionError(f"lora_fit: the step trains "
+                             f"{sorted(step.params)[:3]}...")
+    moved = sum(bool(v.abs().max() > 0) for k, v in step.params.items()
+                if k.endswith("lora_B"))
+    if not moved:
+        raise AssertionError("lora_fit: no lora_B leaf moved")
+    params = list(net.parameters())
+    model_bytes = _tensor_bytes({str(i): p for i, p in enumerate(params)})
+    # a float32 adapter leaf is its own master: counted with the model
+    opt_bytes = _tensor_bytes(step.opt_state, skip=params)
+    if not opt_bytes * 10 < model_bytes:
+        raise AssertionError(f"lora_fit: optimizer state {opt_bytes} bytes "
+                             f"against the model's {model_bytes}")
+    adapter = {k: v.detach().to("cpu", copy=True)
+               for k, v in lora_state(net).items()}
+    tmp = tempfile.mkdtemp(prefix="lora_fit-")
+    try:
+        t0 = time.perf_counter()
+        save_adapter(tmp, net)
+        save_s = time.perf_counter() - t0
+        adapter_bytes = _dir_bytes(tmp)
+        state, meta = load_adapter(tmp, net)
+        set_adapter(net, state)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    reloaded = lora_state(net)
+    if set(state) != set(adapter) or not all(
+            _bits_equal(adapter[k], state[k])
+            and _bits_equal(adapter[k], reloaded[k].detach().cpu())
+            for k in adapter):
+        raise AssertionError("lora_fit: save_adapter / load_adapter did not "
+                             "give the trained leaves back bit for bit")
+    timed = clock.step_ms()[TRAIN_WARMUP:]
+    tokens_per_s = HF_BATCH * HF_SEQ * TRAIN_TIMED / (sum(timed) / 1e3)
+    out = dict(model="bench_gpt_primary GPT-350M bf16 O2, LoRA",
+               path=LORA_FIT_PATH, rank=LORA_FIT_RANK, alpha=LORA_FIT_ALPHA,
+               batch=[HF_BATCH, HF_SEQ], layers=cfg.num_layers,
+               targets=len(step.params) // 2,
+               adapter_params=sum(v.numel() for v in step.params.values()),
+               model_params=sum(p.numel() for p in params),
+               adapter_dtype=str(next(iter(step.params.values())).dtype),
+               losses=clock.losses, step_ms=clock.step_ms(),
+               step_ms_median=float(np.median(timed)),
+               tokens_per_s=tokens_per_s,
+               full_fit_step_ms_median=(full or {}).get("fit_step_ms_median"),
+               full_fit_tokens_per_s=(full or {}).get("tokens_per_s"),
+               full_fit_peak_mem_gib=(full or {}).get("peak_mem_gib"),
+               optimizer_state_bytes=opt_bytes, model_bytes=model_bytes,
+               base_bit_equal=True, lora_b_moved=moved,
+               adapter_checkpoint_bytes=adapter_bytes,
+               save_adapter_s=save_s, reload_bit_equal=True,
+               base_fingerprint=meta["base_fingerprint"],
+               launches=(dict(zip(_COUNT_NAMES, launches))
+                         if cuda else None),
+               launches_per_step=dict(zip(_COUNT_NAMES, _need(**HF_NEED))),
+               peak_mem_gib=peak, leftover_gib_at_start=leftover,
+               card=nvidia_smi_line() if cuda else device)
+    del model, net, opt, step, base, named, params, reloaded
+    _free()
+    emit("lora_fit", **out)
+    return out
+
+
+def _preset_requests(seed: int, vocab: int, n: int = PRESET_REQUESTS
+                     ) -> tuple:
+    """serve_bench's prefix-heavy trace at the serve preset: ``n``
+    requests, PRESET_PREFIX_FRAC of them opening with one
+    shared PRESET_PREFIX-token prefix and a PRESET_SUFFIX-token suffix,
+    the rest random lengths; PRESET_NEW new tokens each. Returns
+    ``(requests, prefix)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 19)
+    prefix = rng.integers(0, vocab, PRESET_PREFIX)
+    requests = []
+    for _ in range(n):
+        if rng.random() < PRESET_PREFIX_FRAC:
+            sfx = rng.integers(0, vocab, int(rng.integers(
+                PRESET_SUFFIX[0], PRESET_SUFFIX[1] + 1)))
+            prompt = np.concatenate([prefix, sfx])
+        else:
+            prompt = rng.integers(0, vocab, int(rng.integers(
+                4, 1024 - PRESET_NEW + 1)))
+        requests.append(dict(prompt=prompt, max_new_tokens=PRESET_NEW))
+    return requests, prefix
+
+
+def _lora_tenants(model, seed: int):
+    """serve_bench's synthetic tenants on an injected model: names, leaves
+    (Normal(0, 0.02) from ``seed + 777``, in lora_state order) and the
+    Zipf popularity weights."""
+    import numpy as np
+
+    from paddle_tpu_torch.lora import lora_state
+
+    zero = lora_state(model)
+    arng = np.random.default_rng(seed + 777)
+    names = [f"tenant{k}" for k in range(LORA_TENANTS)]
+    trees = {n: {k: arng.normal(0.0, 0.02, tuple(v.shape)).astype(
+        np.float32) for k, v in zero.items()} for n in names}
+    w = np.array([1.0 / (k + 1) ** LORA_ZIPF for k in range(LORA_TENANTS)])
+    return names, trees, w / w.sum()
+
+
+def _lora_store(model, names, trees):
+    from paddle_tpu_torch.lora import AdapterStore
+
+    store = AdapterStore(model, max_loaded=LORA_MAX_LOADED)
+    for n in names:
+        store.register(n, trees[n])
+    return store
+
+
+def _decode_profile(model, store, tenants, prompts, device) -> dict:
+    """All PRESET_SLOTS slots live on one engine (``store`` or none),
+    ``tenants`` one per slot: LORA_DECODE_STEPS decode steps timed (host
+    clock, synchronised), then as many traced for their kernel launches
+    (CUDA kernels in the profiler's trace)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.serving import ContinuousBatchingEngine, Request
+
+    eng = ContinuousBatchingEngine(model, slots=PRESET_SLOTS, max_length=1024,
+                                   adapter_store=store)
+    for slot, (t, p) in enumerate(zip(tenants, prompts)):
+        eng.admit(Request(prompt=p, max_new_tokens=3 * LORA_DECODE_STEPS,
+                          adapter_id=t), slot)
+    eng.step()
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(LORA_DECODE_STEPS):
+        eng.step()
+    _sync(device)
+    step_ms = (time.perf_counter() - t0) * 1e3 / LORA_DECODE_STEPS
+    launches = None
+    if torch.device(device).type == "cuda":
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(LORA_DECODE_STEPS):
+                eng.step()
+            torch.cuda.synchronize()
+        launches = sum(ev.count for ev in prof.key_averages()
+                       if ev.device_type == DeviceType.CUDA) \
+            / LORA_DECODE_STEPS
+    for slot in range(PRESET_SLOTS):
+        eng.release(slot)
+    del eng
+    return dict(decode_step_ms=step_ms, launches_per_decode_step=launches,
+                rows=[0 if t is None else t for t in tenants],
+                prompt_lens=[int(len(p)) for p in prompts])
+
+
+def _lora_served(model, requests, tenants, store, pooled: bool, fa):
+    """Serve ``requests`` (``tenants[i]`` for request ``i``) behind the
+    preset's InferenceServer with ``store`` (or none), the pool when
+    ``pooled``; returns (handles, streams, snapshot, forward launches,
+    wall seconds)."""
+    from paddle_tpu_torch.serving import InferenceServer
+
+    server = InferenceServer(
+        model, slots=PRESET_SLOTS, max_length=1024, adapter_store=store,
+        prefix_cache=PRESET_POOL_BYTES if pooled else None,
+        device=model.device)
+    if fa is not None:
+        fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = [server.submit(adapter_id=t, **r)
+               for r, t in zip(requests, tenants)]
+    streams = [h.result(timeout=900) for h in handles]
+    wall_s = time.perf_counter() - t0
+    launches = _forward_launches(fa) if fa is not None else None
+    server.shutdown(timeout=60)
+    return handles, streams, server.snapshot(), launches, wall_s
+
+
+def _common_prefix(a, b) -> int:
+    import numpy as np
+
+    n = min(len(a), len(b))
+    diff = np.nonzero(np.asarray(a[:n]) != np.asarray(b[:n]))[0]
+    return int(diff[0]) if diff.size else n
+
+
+def phase_lora_serving(seed: int, device: str = "cuda", cfg=None) -> dict:
+    """The serve preset (_preset_config, float32 parameters, its bf16
+    cache) behind InferenceServer(slots=8, max_length=1024) with
+    serve_bench's adapter traffic (8 tenants, rank 4, 85 % of requests
+    carrying a Zipf-drawn tenant, max_loaded=5, so the LRU churns), on the
+    serve preset's request lengths, pool-less and with a 256 MiB pool.
+    First the base model alone (no injection) on the same requests,
+    without and with the pool. Every request completes; every pool-less
+    stream equals the request's solo generate() with its adapter set (or
+    cleared), and the base requests equal the base model's streams; every
+    pooled stream equals solo generate() or, where it parts from it, the
+    request served alone by a fresh pooled server (a pooled admit attends
+    the bf16 cache where a pool-less prefill attends its float32 block,
+    the reference's design; the base model's pooled run parts alike, and
+    both counts are printed); the pool-less run launches exactly 24 wgmma_f32 D = 64 forwards
+    and splits per prefill and the pooled run none; evictions > 0; a
+    pooled request hits only
+    blocks an earlier request of its own tenant wrote, and one prompt sent
+    by tenant A, tenant B, A again and the base hits only on A's second
+    send. Launches and ms per decode step with all 8 slots live, on the
+    base model and through the store."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.lora import (LoraConfig, apply_lora,
+                                       clear_adapter, set_adapter)
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+
+    cuda = device == "cuda"
+    fa = None
+    if cuda:
+        from paddle_tpu_torch.kernels import flash_attention as fa
+        torch.cuda.reset_peak_memory_stats()
+    leftover = _check_freed("lora_serving") if cuda else None
+    cfg = cfg or _preset_config()
+    model = GPTForCausalLM(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(seed)).eval()
+    model.generate(np.zeros((1, 8), np.int64), max_new_tokens=2,
+                   max_length=1024)   # warm: cuBLAS handles, allocator
+    requests, prefix = _preset_requests(seed, cfg.vocab_size, LORA_REQUESTS)
+    n = len(requests)
+    layers = cfg.num_layers
+    prompts8 = [r["prompt"][:64 + 8 * i] for i, r in
+                enumerate((requests * 2)[:PRESET_SLOTS])]
+    out = dict(model="serve preset (h1024, 24 layers, 16 heads of 64), "
+                     "float32 parameters, bf16 cache",
+               requests=n, prompt_lens=[len(r["prompt"]) for r in requests],
+               leftover_gib_at_start=leftover)
+    # the base model, before injection: the same traffic, no store, without
+    # and with the pool (a pooled admit attends the bf16 cache, a pool-less
+    # prefill its float32 block: their streams may part)
+    _, base_streams, snap, launches, wall = _lora_served(
+        model, requests, [None] * n, None, False, fa)
+    _check_clean("lora_serving (base)", snap, n)
+    _, base_pooled, bsnap, _, _ = _lora_served(
+        model, requests, [None] * n, None, True, None)
+    _check_clean("lora_serving (base, pooled)", bsnap, n)
+    out["base_only"] = dict(
+        pooled_streams_equal_pool_less=int(sum(
+            np.array_equal(a, b) for a, b in zip(base_pooled, base_streams))),
+        ttft_p50_ms=snap["ttft"]["p50_ms"], ttft_p99_ms=snap["ttft"]["p99_ms"],
+        inter_token_p50_ms=snap["inter_token"]["p50_ms"],
+        inter_token_p99_ms=snap["inter_token"]["p99_ms"], wall_s=wall,
+        tokens_per_s=snap["tokens_emitted"] / wall,
+        **_decode_profile(model, None, [None] * PRESET_SLOTS, prompts8,
+                          device))
+    apply_lora(model, LoraConfig(rank=LORA_SERVE_RANK,
+                                 alpha=2.0 * LORA_SERVE_RANK))
+    names, trees, zipf = _lora_tenants(model, seed)
+    trng = np.random.default_rng(seed + 23)
+    tenants = [None if trng.random() >= LORA_FRAC
+               else names[int(trng.choice(LORA_TENANTS, p=zipf))]
+               for _ in range(n)]
+    solo = [None] * n
+    for name in [None] + names:
+        if name is None:
+            clear_adapter(model)
+        else:
+            set_adapter(model, trees[name])
+        for i, r in enumerate(requests):
+            if tenants[i] == name:
+                solo[i] = model.generate(r["prompt"][None], max_length=1024,
+                                         max_new_tokens=r["max_new_tokens"])[0]
+    clear_adapter(model)
+    # the live requests are a window of at most PRESET_SLOTS consecutive
+    # ones (FIFO admission, PRESET_NEW tokens each); with more slots than
+    # rows, a window holding more than LORA_MAX_LOADED tenants would find
+    # every row pinned, and the store fails such a request (AdapterError,
+    # the reference's rule); the trace must churn the LRU without that
+    windows = max(len({t for t in tenants[i:i + PRESET_SLOTS] if t})
+                  for i in range(n))
+    if windows > LORA_MAX_LOADED or not len(set(tenants) - {None}) \
+            > LORA_MAX_LOADED:
+        raise AssertionError(
+            f"lora_serving: the trace's tenants {tenants} hold up to "
+            f"{windows} tenants in {PRESET_SLOTS} consecutive requests and "
+            f"{len(set(tenants) - {None})} in all: it must hold at most "
+            f"{LORA_MAX_LOADED} and more than {LORA_MAX_LOADED}")
+    out.update(tenants=[t or "base" for t in tenants],
+               distinct_tenants=len({t for t in tenants if t}),
+               rank=LORA_SERVE_RANK, max_loaded=LORA_MAX_LOADED)
+    for pooled in (False, True):
+        label = "pooled" if pooled else "pool_less"
+        store = _lora_store(model, names, trees)
+        handles, streams, snap, launches, wall = _lora_served(
+            model, requests, tenants, store, pooled, fa)
+        _check_clean(f"lora_serving ({label})", snap, n)
+        equal_solo = int(sum(np.array_equal(a, b)
+                             for a, b in zip(streams, solo)))
+        if pooled:
+            # a stream that parts from solo generate() must equal the
+            # request alone through a fresh pooled server and store (a
+            # cold admit through the same continuation)
+            parted = [i for i in range(n)
+                      if not np.array_equal(streams[i], solo[i])]
+            alone = [_lora_served(model, [requests[i]], [tenants[i]],
+                                  _lora_store(model, names, trees), True,
+                                  None)[1][0] for i in parted]
+            _check_streams(f"lora_serving ({label}) vs served alone",
+                           [requests[i] for i in parted],
+                           [streams[i] for i in parted], alone)
+        else:
+            _check_streams(f"lora_serving ({label}) vs solo generate",
+                           requests, streams, solo)
+            # row 0 is the base model exactly
+            _check_streams("lora_serving: base requests vs the base model",
+                           [r for r, t in zip(requests, tenants) if t is None],
+                           [a for a, t in zip(streams, tenants) if t is None],
+                           [b for b, t in zip(base_streams, tenants)
+                            if t is None])
+        if fa is not None:
+            need = (0, 0, 0) if pooled else (layers * n, 0, layers * n)
+            if launches != need:
+                raise AssertionError(
+                    f"lora_serving ({label}): forwards (wgmma_f32, other, "
+                    f"split) {launches}, expected {need}")
+        st = store.stats()
+        if not st["evictions"] > 0:
+            raise AssertionError(f"lora_serving ({label}): no eviction with "
+                                 f"max_loaded={LORA_MAX_LOADED}: {st}")
+        hits = [h.cache_hit_tokens for h in handles]
+        if pooled:
+            # admission is FIFO: a hit can only come from an earlier
+            # request of the same tenant sharing at least that prefix
+            for i, hit in enumerate(hits):
+                best = max([_common_prefix(requests[i]["prompt"],
+                                           requests[j]["prompt"])
+                            for j in range(i) if tenants[j] == tenants[i]],
+                           default=0)
+                if hit > best:
+                    raise AssertionError(
+                        f"lora_serving (pooled): request {i} "
+                        f"({tenants[i]}) hit {hit} tokens, but no earlier "
+                        f"request of its tenant shares more than {best}")
+        out[label] = dict(
+            flash_launches=None if launches is None else launches[0],
+            split_launches=None if launches is None else launches[2],
+            flash_per_prefill=(None if launches is None
+                               else launches[0] / n),
+            streams_equal_solo_generate=equal_solo,
+            parted_streams_equal_served_alone=(n - equal_solo
+                                               if pooled else None),
+            wall_s=wall,
+            tokens=snap["tokens_emitted"],
+            tokens_per_s=snap["tokens_emitted"] / wall,
+            ttft_p50_ms=snap["ttft"]["p50_ms"],
+            ttft_p99_ms=snap["ttft"]["p99_ms"],
+            inter_token_p50_ms=snap["inter_token"]["p50_ms"],
+            inter_token_p99_ms=snap["inter_token"]["p99_ms"],
+            prefix_hit_tokens=hits, store=st,
+            per_adapter=snap["per_adapter"])
+        del store, handles
+    # the salt, alone: one prompt from tenant A, B, A and the base
+    store = _lora_store(model, names, trees)
+    prompt = np.concatenate([prefix, requests[0]["prompt"][-8:]])
+    order = (names[0], names[1], names[0], None)
+    hs, got, snap, launches, _ = _lora_served(
+        model, [dict(prompt=prompt, max_new_tokens=4)] * 4, order, store,
+        True, fa)
+    salt_hits = [h.cache_hit_tokens for h in hs]
+    if salt_hits[0] or salt_hits[1] or salt_hits[3] or not salt_hits[2]:
+        raise AssertionError(f"lora_serving: one prompt from tenants "
+                             f"{order} hit {salt_hits} tokens; only the "
+                             f"third may hit (its own tenant's blocks)")
+    out["salt_check"] = dict(order=[t or "base" for t in order],
+                             hit_tokens=salt_hits)
+    # decode steps with all 8 slots live: five tenants, the base and two
+    # repeats, through a store of its own (a store serves one engine)
+    slots = [names[0], names[1], names[2], names[3], names[4], None,
+             names[0], names[1]]
+    store = _lora_store(model, names, trees)
+    out["store_decode"] = _decode_profile(model, store, slots, prompts8,
+                                          device)
+    out["page_bytes"] = store.page_bytes
+    out["flash_launches"] = out["pool_less"]["flash_launches"]
+    out["split_launches"] = out["pool_less"]["split_launches"]
+    out["peak_mem_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                           if cuda else None)
+    out["card"] = nvidia_smi_line() if cuda else device
+    del store, model, hs
+    _free()
+    emit("lora_serving", **out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4496,6 +4989,10 @@ def main(argv=None) -> int:
     phase_bert_base(args.seed)
     _free()
     hapi_gpt = phase_hapi_gpt_fit(args.seed)
+    _free()
+    lora_fit = phase_lora_fit(args.seed, full=hapi_gpt)
+    _free()
+    lora_serve = phase_lora_serving(args.seed)
     _free()
     phase_hapi_bert_fit(args.seed)
     _free()
@@ -4639,6 +5136,25 @@ def main(argv=None) -> int:
         bwd_row("flash_attention_bwd_dkv_sm90_d64",
                 "flash_attention_bwd_dkv_sm90.cu", "dkv", HF_BWD_CASE,
                 hapi_gpt["launches"]["dkv_wgmma"], HF_PATH),
+        # the same attention on the adapter fit's path (lora_fit: 24 of
+        # each a step, the gradient reaching the qkv_proj adapters)
+        fwd_row("flash_attention_fwd_sm90_d64_lora_fit",
+                "flash_attention_fwd_sm90.cu", HF_FWD_CASE,
+                lora_fit["launches"]["fwd_wgmma"], LORA_FIT_PATH),
+        bwd_row("flash_attention_bwd_dq_sm90_d64_lora_fit",
+                "flash_attention_bwd_dq_sm90.cu", "dq", HF_BWD_CASE,
+                lora_fit["launches"]["dq_wgmma"], LORA_FIT_PATH),
+        bwd_row("flash_attention_bwd_dkv_sm90_d64_lora_fit",
+                "flash_attention_bwd_dkv_sm90.cu", "dkv", HF_BWD_CASE,
+                lora_fit["launches"]["dkv_wgmma"], LORA_FIT_PATH),
+        # the serve preset's float32 D = 64 prefill with the adapters
+        # (lora_serving's pool-less run: 24 of each a prefill)
+        fwd_row("flash_attention_fwd_f32_sm90_d64_lora_serving",
+                "flash_attention_fwd_f32_sm90.cu", PRESET_FWD,
+                lora_serve["flash_launches"], LORA_SERVE_PATH),
+        fwd_row("split_bf16_terms_d64_lora_serving",
+                "flash_attention_fwd_f32_sm90.cu", "split_" + PRESET_FWD,
+                lora_serve["split_launches"], LORA_SERVE_PATH),
         bwd_row("flash_attention_bwd_dq_f32_sm90_d256",
                 "flash_attention_bwd_f32_d256_sm90.cu", "dq", D256_F32_BWD,
                 d256_f32["launches"]["dq_wgmma_f32"], d256_f32_path),

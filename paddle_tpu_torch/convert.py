@@ -10,11 +10,14 @@ items()}``); this module imports nothing of JAX. Arrays in bfloat16
 (``ml_dtypes``, the state of a model after ``amp.decorate(level="O2")``)
 load into bfloat16 parameters, float32 arrays into float32 ones. The
 config's training fields (recompute, ``loss_chunk``, dropout) carry over
-with ``cfg``.
+with ``cfg``. A reference model injected with LoRA (``paddle_tpu.lora.
+apply_lora``) converts with ``lora=`` its ``LoraConfig``'s port twin: the
+port model is injected the same way first, and its ``lora_A``/``lora_B``
+leaves load by name with the base weights.
 """
 from __future__ import annotations
 
-from typing import Dict, Type
+from typing import Dict, Optional, Type
 
 import numpy as np
 import torch
@@ -24,6 +27,7 @@ from .models.bert import BertConfig, BertForSequenceClassification
 from .models.ernie import ErnieConfig, ErnieForSequenceClassification
 from .models.gpt import GPTConfig, GPTForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
+from .lora import LoraConfig, apply_lora
 
 __all__ = ["gpt_from_jax", "llama_from_jax", "bert_from_jax",
            "ernie_from_jax", "layer_from_jax"]
@@ -53,22 +57,32 @@ def _load_state(model: nn.Module, state: Dict[str, np.ndarray],
     return model
 
 
+def _injected(model: nn.Module, lora: Optional[LoraConfig]) -> nn.Module:
+    return model if lora is None else apply_lora(model, lora)
+
+
 def gpt_from_jax(state: Dict[str, np.ndarray], cfg: GPTConfig,
-                 device=None) -> GPTForCausalLM:
+                 device=None, lora: Optional[LoraConfig] = None
+                 ) -> GPTForCausalLM:
     """A port ``GPTForCausalLM`` for ``cfg`` on ``device`` carrying the
-    weights in ``state``, in eval mode (call ``.train()`` to train it).
-    Raises ``KeyError`` on a missing or an extra name and ``ValueError``
-    on a wrong shape."""
-    return _load_state(GPTForCausalLM(cfg, device=device), state, "GPT")
+    weights in ``state``, in eval mode (call ``.train()`` to train it);
+    with ``lora``, injected with it and carrying the state's adapter
+    leaves too. Raises ``KeyError`` on a missing or an extra name and
+    ``ValueError`` on a wrong shape."""
+    return _load_state(_injected(GPTForCausalLM(cfg, device=device), lora),
+                       state, "GPT")
 
 
 def llama_from_jax(state: Dict[str, np.ndarray], cfg: LlamaConfig,
-                   device=None) -> LlamaForCausalLM:
+                   device=None, lora: Optional[LoraConfig] = None
+                   ) -> LlamaForCausalLM:
     """A port ``LlamaForCausalLM`` for ``cfg`` on ``device`` carrying the
-    weights in ``state``, in eval mode (call ``.train()`` to train it).
-    Raises ``KeyError`` on a missing or an extra name and ``ValueError``
-    on a wrong shape."""
-    return _load_state(LlamaForCausalLM(cfg, device=device), state, "Llama")
+    weights in ``state``, in eval mode (call ``.train()`` to train it);
+    with ``lora``, injected with it and carrying the state's adapter
+    leaves too. Raises ``KeyError`` on a missing or an extra name and
+    ``ValueError`` on a wrong shape."""
+    return _load_state(_injected(LlamaForCausalLM(cfg, device=device), lora),
+                       state, "Llama")
 
 
 def bert_from_jax(state: Dict[str, np.ndarray], cfg: BertConfig,

@@ -535,7 +535,8 @@ def load_state(directory: str, shardings: Optional[Dict[str, Any]] = None,
                 f"'lora_adapter'): it carries only adapter leaves and "
                 f"cannot restore a full model (template expects e.g. "
                 f"{non_lora[0]!r}). Load the base model first, then "
-                f"attach the adapter (LoRA is not ported yet: ROADMAP A4)")
+                f"attach the adapter via paddle_tpu_torch.lora."
+                f"load_adapter / AdapterStore.load")
     # merge shard lists from other processes' metadata (multi-host save);
     # files at or beyond process_count are STALE leftovers from an earlier
     # larger-world save into the same path — merging them would mix shards

@@ -14,8 +14,8 @@ Differences from the reference, and why:
   no bfloat16 without ``ml_dtypes``);
 - ``Model.load`` copies a ``.pdopt``'s optimizer state into the live step
   (the port's update runs in place on device tensors);
-- ``fit(lora=...)`` waits for the LoRA port (ROADMAP A4) and ``summary()``
-  for ``hapi/model_summary.py`` (A9); both raise ``NotImplementedError``;
+- ``summary()`` waits for ``hapi/model_summary.py`` (ROADMAP A9) and
+  raises ``NotImplementedError``;
 - the reference's tracing spans and correlation ids wait for the
   observability port (A6).
 """
@@ -212,7 +212,8 @@ class Model:
             self._train_step = _HapiTrainStep(
                 self.network, self._optimizer,
                 loss_fn=self._loss_on_batch if self._loss else None,
-                inputs_fn=inputs_fn, scaler=scaler)
+                inputs_fn=inputs_fn, scaler=scaler,
+                trainable=getattr(self, "_lora_trainable", None))
         return self._train_step
 
     # ------------------------------------------------------- batch methods
@@ -268,7 +269,8 @@ class Model:
         families exposing ``cache_spec``). Returns a started
         ``paddle_tpu_torch.serving.InferenceServer`` — ``submit()``
         requests, ``shutdown(drain=True)`` when done. Extra kwargs ride
-        through to ``InferenceServer``."""
+        through to ``InferenceServer``, ``adapter_store=`` (multi-tenant
+        LoRA serving, submit with ``adapter_id=``) among them."""
         if not hasattr(self.network, "cache_spec"):
             raise TypeError(
                 f"{type(self.network).__name__} has no cache_spec(); only "
@@ -320,10 +322,32 @@ class Model:
         optional hang watchdog, and SIGTERM checkpoint-and-exit (raises
         ``TrainingPreempted`` after the state is durably saved).
 
-        ``lora`` waits for the LoRA port (ROADMAP A4)."""
+        ``lora`` (a :class:`paddle_tpu_torch.lora.LoraConfig` or its
+        kwargs as a dict) switches to adapter fine-tuning: the network is
+        injected with ``apply_lora`` (idempotent under the same config)
+        and only the ``lora_A``/``lora_B`` leaves train; the base is
+        frozen and the optimizer state scales with the rank. Composes
+        with ``recovery=`` (the step's snapshot holds the frozen base
+        too, so a resumed adapter fit is bit-identical)."""
         if lora is not None:
-            raise NotImplementedError(
-                "Model.fit(lora=...): LoRA is not ported yet (ROADMAP A4)")
+            from ..lora import LoraConfig, apply_lora, is_lora_param
+
+            lcfg = (lora if isinstance(lora, LoraConfig)
+                    else LoraConfig(**lora))
+            apply_lora(self.network, lcfg)
+            self._lora_trainable = is_lora_param
+        else:
+            # each fit call decides: a plain fit() after an adapter fit
+            # is a full fine-tune again (a frozen base that stayed frozen
+            # would plateau with no error)
+            self._lora_trainable = None
+        if (self._train_step is not None
+                and self._train_step._trainable
+                is not self._lora_trainable):
+            # the step's trainable split does not match this call: rebuild
+            # it, with fresh optimizer state over the right set (the step
+            # trains the network's own parameters, so nothing is lost)
+            self._train_step = None
         loader = _as_loader(train_data, batch_size, shuffle, num_workers,
                             drop_last, pad_batches, length_buckets)
         eval_loader = _as_loader(eval_data, batch_size, False, num_workers,

@@ -253,6 +253,14 @@ class GPTForCausalLM(nn.Module):
                 "max_length": self.cfg.max_position_embeddings,
                 "dtype": self.cfg.dtype}
 
+    def lora_spec(self) -> dict:
+        """Default LoRA injection surface for ``paddle_tpu_torch.lora``:
+        the fused attention projection, the attention output and both MLP
+        projections of every block (``LoraConfig(target_modules=None)``
+        resolves to this)."""
+        return {"target_modules": ("qkv_proj", "out_proj",
+                                   "fc_in", "fc_out")}
+
     def forward(self, input_ids, labels=None, cache=None, position_offset=0,
                 gather_last=None):
         """Logits ``[B, L, vocab]`` when ``labels`` is None; otherwise the

@@ -299,6 +299,14 @@ class LlamaForCausalLM(nn.Module):
                 "max_length": self.cfg.max_position_embeddings,
                 "dtype": self.cfg.dtype}
 
+    def lora_spec(self) -> dict:
+        """Default LoRA injection surface for ``paddle_tpu_torch.lora``:
+        the split attention projections and the SwiGLU MLP projections of
+        every block (``LoraConfig(target_modules=None)`` resolves to
+        this)."""
+        return {"target_modules": ("q_proj", "k_proj", "v_proj", "o_proj",
+                                   "gate_proj", "up_proj", "down_proj")}
+
     def forward(self, input_ids, labels=None, cache=None, position_offset=0,
                 gather_last=None):
         """Logits ``[B, L, vocab]`` when ``labels`` is None; otherwise the

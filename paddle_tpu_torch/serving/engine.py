@@ -39,8 +39,15 @@ at 0 included, exactly as the reference's traced offset does; a pooled
 admit launches no flash forward. ``kv_dtype="int8"`` quantizes the live
 cache and the pool.
 
-Not ported yet: LoRA adapter stores (``adapter_store=`` raises
-``NotImplementedError``), which wait for the LoRA slice.
+With ``adapter_store`` (a :class:`~paddle_tpu_torch.lora.AdapterStore`
+built on this engine's model), each slot carries a row of the store's
+page stacks (0 = the zero adapter = the base model): admit pins the
+request's row and takes its digest salt before any device work, and the
+prefill, the pooled admit and the batched decode run under
+:func:`~paddle_tpu_torch.lora.adapter_rows`, so one decode step serves a
+batch that mixes tenants. With a pool, each tenant's blocks live under
+its own digest namespace (adapter-modified projections make cross-tenant
+reuse wrong).
 """
 from __future__ import annotations
 
@@ -52,6 +59,8 @@ import numpy as np
 import torch
 
 from ..io.batching import bucket_for
+from ..lora import adapter_rows
+from ..lora.store import AdapterStore, normalize_adapter_id
 from ..models.generation import (DEFAULT_PREFILL_BUCKETS, cache_nbytes,
                                  fresh_seed, gather_cache_blocks,
                                  init_cache, normalize_kv_dtype,
@@ -82,7 +91,8 @@ class ContinuousBatchingEngine:
     ``prefix_cache`` (None | BlockPool | True | byte budget | kwargs
     dict) switches admission to the pooled admit (see the module
     docstring); ``kv_dtype="int8"`` stores the live cache (and a pool
-    built here) quantized."""
+    built here) quantized; ``adapter_store`` turns on batched
+    multi-tenant LoRA decode (see the module docstring)."""
 
     def __init__(self, model, slots: int = 4,
                  max_length: Optional[int] = None,
@@ -91,10 +101,6 @@ class ContinuousBatchingEngine:
                  prefix_cache=None, adapter_store=None, kv_dtype=None):
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
-        if adapter_store is not None:
-            raise NotImplementedError(
-                "adapter_store (LoRA adapters) is not ported yet; it comes "
-                "with the LoRA slice")
         self.model = model
         spec = model.cache_spec()
         self.spec = spec
@@ -112,6 +118,7 @@ class ContinuousBatchingEngine:
         self.top_k = int(top_k)
         self.allow_top_p = bool(allow_top_p)
         self.pool = self._normalize_pool(prefix_cache)
+        self.store = self._normalize_store(adapter_store)
         self._calls = {"prefill": 0, "decode": 0}
         self.reset()
 
@@ -153,6 +160,39 @@ class ContinuousBatchingEngine:
         pool._owner = self
         return pool
 
+    def _normalize_store(self, adapter_store) -> Optional[AdapterStore]:
+        """An :class:`AdapterStore` must wrap this engine's model instance
+        (the forwards reach the adapter hooks through that model's
+        injected layers) and serve no other engine."""
+        if adapter_store is None:
+            return None
+        if not isinstance(adapter_store, AdapterStore):
+            raise TypeError(
+                f"adapter_store must be a paddle_tpu_torch.lora."
+                f"AdapterStore, got {type(adapter_store).__name__}")
+        if adapter_store.model is not self.model:
+            raise ValueError(
+                "this AdapterStore was built for a different model "
+                "instance; build the store on the engine's model "
+                "(AdapterStore(model, ...))")
+        owner = getattr(adapter_store, "_owner", None)
+        if owner is not None and owner is not self:
+            # pins are engine-lifecycle state: a shared store would let one
+            # replica's crash-recovery release_all() void another's live
+            # pins, making its rows evictable mid-stream
+            raise ValueError(
+                "this AdapterStore is already attached to another "
+                "engine; build one store per replica")
+        adapter_store._owner = self
+        return adapter_store
+
+    def _adapter_ctx(self, rows):
+        """The per-row adapter context for a forward over ``rows`` (no-op
+        without a store)."""
+        if self.store is None:
+            return contextlib.nullcontext()
+        return adapter_rows(self.store.tensors, rows)
+
     # ------------------------------------------------------------- state
     @torch.inference_mode()
     def reset(self) -> None:
@@ -164,7 +204,12 @@ class ContinuousBatchingEngine:
                                      kv_dtype=self.kv_dtype)
         if self.pool is not None:
             self.pool.reset()
+        if self.store is not None:
+            # every live request is about to be requeued: the pins this
+            # engine held are void (the pages themselves stay)
+            self.store.release_all()
         B = self.slots
+        self._adapter_slots = np.zeros(B, np.int64)
         self._positions = np.zeros(B, np.int64)
         self._tokens = np.zeros(B, np.int64)
         self._done = np.ones(B, bool)          # free slots sit "done"
@@ -302,17 +347,18 @@ class ContinuousBatchingEngine:
         return torch.as_tensor(ids, device=self.model.device)
 
     def _admit_pooled(self, prompt: np.ndarray, L: int, request,
-                      seed: int, slot: int):
+                      seed: int, slot: int, salt: bytes = b""):
         """The pooled admit: gather the matched blocks into a slot cache,
         prefill only the suffix at the matched offset, write the prompt's
         new full blocks back, scatter the slot. The offset goes in as a
         ``[1]`` tensor, never the int 0, so every pooled admit (a miss at
         0 included) runs the chunked continuation through
         ``cached_attention``, as the reference's traced offset does, and
-        launches no flash forward. Returns ``(token, matched tokens)``."""
+        launches no flash forward. ``salt`` namespaces the digest chain
+        per adapter. Returns ``(token, matched tokens)``."""
         pool = self.pool
         with pool.device_lock:
-            hit, plan = self._plan_hit(prompt, L)
+            hit, plan = self._plan_hit(prompt, L, salt=salt)
             # the abort guard starts right after the pins land: a raise
             # anywhere before the commit must release them and free the
             # plan's rows
@@ -350,23 +396,47 @@ class ContinuousBatchingEngine:
         self.validate(L, int(request.max_new_tokens))
         seed = fresh_seed() if request.seed is None else int(request.seed)
         eos = -1 if request.eos_token_id is None else int(request.eos_token_id)
+        adapter_id = normalize_adapter_id(
+            getattr(request, "adapter_id", None))
+        if adapter_id is not None and self.store is None:
+            raise ValueError(
+                f"request names adapter {adapter_id!r} but this engine "
+                f"has no adapter_store")
+        a_row, a_salt = 0, b""
+        if self.store is not None:
+            # resolved on the host before any device work: an unknown
+            # adapter or a fully pinned store fails only this request
+            # (AdapterError; the server fails it without an engine
+            # reset). The salt comes with the pin, under one lock hold,
+            # so a concurrent adapter update cannot stamp these pages'
+            # K/V into the new version's namespace
+            a_row, a_salt = self.store.acquire(adapter_id, with_salt=True)
         hit_tokens = 0
         self._calls["prefill"] += 1
-        with self._eval_mode():  # serving runs the eval graph (dropout off)
-            if self.pool is None:
-                slot_cache = init_cache(self.model, 1, self.max_length,
-                                        kv_dtype=self.kv_dtype)
-                logits, slot_cache = self.model(
-                    self._padded(prompt, self.bucket_for_prompt(L)),
-                    cache=slot_cache, position_offset=0, gather_last=L - 1)
-                tok = self._first_token(logits, request, seed)
-                scatter_cache_rows(self.live_cache, slot_cache, slot)
-            else:
-                tok, hit_tokens = self._admit_pooled(prompt, L, request,
-                                                     seed, slot)
-        first = int(tok[0])  # the admission's one device read
+        try:
+            # serving runs the eval graph (dropout off)
+            with self._eval_mode(), self._adapter_ctx([a_row]):
+                if self.pool is None:
+                    slot_cache = init_cache(self.model, 1, self.max_length,
+                                            kv_dtype=self.kv_dtype)
+                    logits, slot_cache = self.model(
+                        self._padded(prompt, self.bucket_for_prompt(L)),
+                        cache=slot_cache, position_offset=0,
+                        gather_last=L - 1)
+                    tok = self._first_token(logits, request, seed)
+                    scatter_cache_rows(self.live_cache, slot_cache, slot)
+                else:
+                    tok, hit_tokens = self._admit_pooled(
+                        prompt, L, request, seed, slot, salt=a_salt)
+            first = int(tok[0])  # the admission's one device read
+        except Exception:
+            if self.store is not None:
+                # the request never reached a slot: its pin is void
+                self.store.release(a_row)
+            raise
         fin = first == eos
         self.requests[slot] = request
+        self._adapter_slots[slot] = a_row
         self._positions[slot] = L
         self._tokens[slot] = first
         self._done[slot] = fin
@@ -388,7 +458,7 @@ class ContinuousBatchingEngine:
                                         int(self._positions[i]), device)[0]
                 for i, req in enumerate(self.requests)]
         self._calls["decode"] += 1
-        with self._eval_mode():
+        with self._eval_mode(), self._adapter_ctx(self._adapter_slots):
             logits, self.live_cache = self.model(
                 torch.as_tensor(self._tokens[:, None], device=device),
                 cache=self.live_cache,
@@ -414,8 +484,12 @@ class ContinuousBatchingEngine:
     def release(self, slot: int) -> None:
         """Free ``slot`` immediately — no batch drain. The stale cache
         rows stay; the position mask keeps them invisible to whoever is
-        admitted next."""
+        admitted next. The slot's adapter pin drops with it (the freed
+        slot decodes as the zero adapter)."""
         self.requests[slot] = None
         self._done[slot] = True
         self._positions[slot] = 0
         self._tokens[slot] = 0
+        if self.store is not None:
+            self.store.release(int(self._adapter_slots[slot]))
+            self._adapter_slots[slot] = 0

@@ -9,7 +9,10 @@
   that explain the gap from offered load; overload sheds and per-tenant
   rate-limit rejects apart from failures),
 - **prefix reuse** (prompt tokens served from the block pool against
-  tokens prefilled, and their hit rate).
+  tokens prefilled, and their hit rate),
+- **per adapter** (requests, tokens, failures and TTFT per LoRA tenant,
+  recorded when the engine serves through an ``AdapterStore``; the base
+  model books under ``"base"``).
 
 Histograms keep a bounded reservoir sample with exact count, sum and max.
 Export to the reference's observability registry is not ported yet.
@@ -100,6 +103,7 @@ class ServingMetrics:
             self.ttft = LatencyHistogram()
             self.inter_token = LatencyHistogram()
             self.queue_wait = LatencyHistogram()
+            self._per_adapter: Dict[str, dict] = {}
 
     def _advance_occupancy(self, now: float) -> None:
         self._occ_integral += self.active_slots * (now - self._occ_last_t)
@@ -132,12 +136,45 @@ class ServingMetrics:
         with self._lock:
             self.queue_wait.observe(seconds)
 
+    # ------------------------------------------------------- per adapter
+    def _adapter_locked(self, adapter_id) -> dict:
+        name = "base" if adapter_id is None else str(adapter_id)
+        e = self._per_adapter.get(name)
+        if e is None:
+            # a smaller reservoir than the global histograms: one exists
+            # per tenant, and a p50 settles long before 4096 samples
+            e = self._per_adapter[name] = {
+                "requests": 0, "tokens": 0, "failures": 0,
+                "ttft": LatencyHistogram(max_samples=512)}
+        return e
+
+    def adapter_request(self, adapter_id) -> None:
+        with self._lock:
+            self._adapter_locked(adapter_id)["requests"] += 1
+
+    def adapter_failure(self, adapter_id, n: int = 1) -> None:
+        """Book a failed, expired or shed request against its tenant."""
+        with self._lock:
+            self._adapter_locked(adapter_id)["failures"] += int(n)
+
+    def adapter_tokens(self, adapter_id, n: int = 1) -> None:
+        with self._lock:
+            self._adapter_locked(adapter_id)["tokens"] += int(n)
+
+    def observe_adapter_ttft(self, adapter_id, seconds: float) -> None:
+        with self._lock:
+            self._adapter_locked(adapter_id)["ttft"].observe(seconds)
+
     def snapshot(self, compile_stats: Optional[dict] = None,
-                 prefix_cache: Optional[dict] = None) -> dict:
+                 prefix_cache: Optional[dict] = None,
+                 adapter_store: Optional[dict] = None) -> dict:
         """One plain dict of everything (times in ms, rates per second).
-        ``compile_stats`` (the engine's ``cache_stats()``) and
-        ``prefix_cache`` (a ``BlockPool.stats()`` dict) ride along under
-        their own keys when given."""
+        ``compile_stats`` (the engine's ``cache_stats()``),
+        ``prefix_cache`` (a ``BlockPool.stats()`` dict) and
+        ``adapter_store`` (an ``AdapterStore.stats()`` dict) ride along
+        under their own keys when given; the ``per_adapter`` block
+        (requests, tokens, failures and TTFT per tenant) appears whenever
+        adapter traffic was recorded."""
         with self._lock:
             now = time.monotonic()
             self._advance_occupancy(now)
@@ -163,4 +200,18 @@ class ServingMetrics:
                 out["compile_stats"] = compile_stats
             if prefix_cache is not None:
                 out["prefix_cache"] = prefix_cache
+            if adapter_store is not None:
+                out["adapter_store"] = adapter_store
+            if self._per_adapter:
+                out["per_adapter"] = {
+                    name: {"requests": e["requests"],
+                           "tokens": e["tokens"],
+                           "failures": e["failures"],
+                           "ttft_p50_ms": round(
+                               e["ttft"].percentile(50) * 1e3, 3),
+                           # exact count and sum, so that a window's mean
+                           # TTFT can be diffed across snapshots
+                           "ttft_count": e["ttft"].count,
+                           "ttft_sum_ms": round(e["ttft"].total * 1e3, 3)}
+                    for name, e in sorted(self._per_adapter.items())}
             return out

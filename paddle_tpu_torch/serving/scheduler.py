@@ -31,9 +31,8 @@ The buckets read the injected ``clock`` (``time.monotonic`` by
 default), as in the reference.
 
 The tenant of a request is its ``tenant`` field where set (the port's
-server names tenants with ``submit(tenant=...)``, since LoRA adapters are
-not ported yet), else its ``adapter_id`` (the reference's key), else
-:data:`BASE_TENANT`.
+server also names tenants with ``submit(tenant=...)``), else its LoRA
+``adapter_id`` (the reference's key), else :data:`BASE_TENANT`.
 """
 from __future__ import annotations
 

@@ -30,14 +30,17 @@ Failure story:
   the loop finish every accepted request, then joins the worker;
   ``drain=False`` fails the backlog with ``SchedulerClosed``.
 
-``prefix_cache=`` and ``kv_dtype=`` go to the engine (block-pool
-prefix reuse, the int8 cache; ``handle.cache_hit_tokens`` reports the
-reuse), ``fair_queueing``/``fair_weights`` to the scheduler (deficit
-round-robin over tenants, named with ``submit(tenant=...)``).
+``prefix_cache=``, ``kv_dtype=`` and ``adapter_store=`` go to the
+engine (block-pool prefix reuse, the int8 cache, multi-tenant LoRA;
+``handle.cache_hit_tokens`` reports the reuse, ``submit(adapter_id=...)``
+names the request's adapter), ``fair_queueing``/``fair_weights`` to the
+scheduler (deficit round-robin over tenants: ``submit(tenant=...)``,
+else the adapter id). An unknown adapter, or a store whose every row is
+pinned, fails only that request at admission
+(:class:`~paddle_tpu_torch.lora.AdapterError`), without an engine reset.
 
-Not ported yet: LoRA adapters (``adapter_store=`` raises
-``NotImplementedError``), the observability hooks (registry, flight
-recorder, tracing) and fault-injection points.
+Not ported yet: the observability hooks (registry, flight recorder,
+tracing) and fault-injection points.
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from .. import default_device
+from ..lora.store import AdapterError, normalize_adapter_id
 from .engine import ContinuousBatchingEngine
 from .metrics import ServingMetrics
 from .scheduler import (Deadline, FifoScheduler, Overloaded, QueueFull,
@@ -108,6 +112,11 @@ class RequestHandle:
     @property
     def done(self) -> bool:
         return self._done_evt.is_set()
+
+    @property
+    def adapter_id(self):
+        """The tenant adapter this request decodes under (None = base)."""
+        return self.request.adapter_id
 
     def tokens(self) -> np.ndarray:
         """Tokens generated SO FAR (snapshot; may grow)."""
@@ -206,6 +215,7 @@ class InferenceServer:
                top_p: float = 1.0, eos_token_id: Optional[int] = None,
                seed: Optional[int] = None,
                deadline: Optional[float] = None,
+               adapter_id: Optional[str] = None,
                tenant: Optional[str] = None) -> RequestHandle:
         """Queue one generation request; returns at once with a
         :class:`RequestHandle`. Raises ``ValueError`` on an impossible
@@ -219,8 +229,14 @@ class InferenceServer:
         equal to a solo ``generate(..., seed=s)`` run; ``seed=None``
         draws fresh randomness per request. ``deadline`` (seconds) bounds
         QUEUE WAIT: a request that cannot start in time fails with
-        ``TimeoutError``. ``tenant`` names the request's tenant for the
-        rate limits and fair queueing (``None``: the base tenant)."""
+        ``TimeoutError``.
+
+        ``adapter_id`` decodes the request under that tenant's LoRA
+        adapter (the server's engine must carry an ``adapter_store`` that
+        knows the name; ``None`` or ``"base"``: the base model); mixing
+        adapters across the live batch is free. ``tenant`` names the
+        request's tenant for the rate limits and fair queueing (``None``:
+        the adapter id, else the base tenant)."""
         prompt = np.asarray(prompt, np.int64).ravel()
         self.engine.validate(int(prompt.shape[0]), int(max_new_tokens))
         if top_p < 1.0 and not self.engine.allow_top_p:
@@ -228,13 +244,26 @@ class InferenceServer:
                 "this server was built with allow_top_p=False; top_p "
                 "requests would be silently ignored — construct the "
                 "server with allow_top_p=True")
+        adapter_id = normalize_adapter_id(adapter_id)
+        if adapter_id is not None:
+            store = self.engine.store
+            if store is None:
+                raise ValueError(
+                    f"request names adapter {adapter_id!r} but this "
+                    f"server has no adapter_store; construct it with "
+                    f"InferenceServer(..., adapter_store=AdapterStore("
+                    f"model, ...))")
+            if not store.known(adapter_id):
+                raise ValueError(
+                    f"unknown adapter {adapter_id!r}; AdapterStore."
+                    f"register()/load() it before submitting")
         req = Request(
             prompt=prompt, max_new_tokens=int(max_new_tokens),
             greedy=not do_sample, temperature=float(temperature),
             top_p=float(top_p), eos_token_id=eos_token_id,
             seed=None if seed is None else int(seed),
             deadline=Deadline(deadline) if deadline is not None else None,
-            tenant=tenant)
+            adapter_id=adapter_id, tenant=tenant)
         handle = RequestHandle(req)
         req.handle = handle
         self.start()
@@ -244,6 +273,7 @@ class InferenceServer:
             # the fast-fail half of overload control: the request learns
             # now, not after its whole deadline
             self.metrics.inc("requests_shed")
+            self._adapter_fail(req)
             raise
         except RateLimited:
             # one tenant over ITS rate: the server working as designed,
@@ -288,12 +318,15 @@ class InferenceServer:
 
     def snapshot(self) -> dict:
         """Metrics snapshot (see ``ServingMetrics.snapshot``) with the
-        engine's call counters and, when a prefix cache is attached, the
-        block pool's occupancy and eviction numbers."""
+        engine's call counters and, when attached, the block pool's
+        occupancy and eviction numbers and the adapter store's residency
+        and eviction numbers."""
         pool = self.engine.pool
+        store = self.engine.store
         return self.metrics.snapshot(
             self.engine.cache_stats(),
-            prefix_cache=None if pool is None else pool.stats())
+            prefix_cache=None if pool is None else pool.stats(),
+            adapter_store=None if store is None else store.stats())
 
     # ------------------------------------------------------------ worker
     def _loop(self) -> None:
@@ -322,11 +355,13 @@ class InferenceServer:
                 self._expire(req)
             else:
                 self.metrics.inc("requests_failed")
+                self._adapter_fail(req)
                 req.handle._fail(err)
         for slot, req in enumerate(list(self.engine.requests)):
             if req is not None:
                 self.engine.release(slot)
                 self.metrics.inc("requests_failed")
+                self._adapter_fail(req)
                 req.handle._fail(err)
         self.metrics.set_active_slots(0)
         self.metrics.set_queue_depth(0)
@@ -344,6 +379,13 @@ class InferenceServer:
             for i, req in enumerate(admits):
                 try:
                     self._admit(req, self.engine.free_slots()[0])
+                except AdapterError as e:
+                    # raised on the host before any device work: the
+                    # engine is untouched, so only this request fails (no
+                    # reset, no requeue of the others)
+                    self.metrics.inc("requests_failed")
+                    self._adapter_fail(req)
+                    req.handle._fail(e)
                 except Exception as e:
                     # the failing request AND the rest of this admission
                     # batch (popped but not yet admitted) reach recovery
@@ -355,12 +397,15 @@ class InferenceServer:
             return
         events = self.engine.step()
         self.metrics.inc("decode_steps")
+        per_adapter = self.engine.store is not None
         now = time.monotonic()
         for ev in events:
             req = self.engine.requests[ev.slot]
             h = req.handle
             h._push(ev.token)
             self.metrics.inc("tokens_emitted")
+            if per_adapter:
+                self.metrics.adapter_tokens(req.adapter_id)
             if h._last_token_t is not None:
                 self.metrics.observe_inter_token(now - h._last_token_t)
             h._last_token_t = now
@@ -382,9 +427,16 @@ class InferenceServer:
         h._push(first)
         self.metrics.inc("tokens_emitted")
         t1 = time.monotonic()
+        if self.engine.store is not None:
+            self.metrics.adapter_tokens(req.adapter_id)
         if h.ttft_s is None:  # a requeued request keeps its FIRST ttft
             h.ttft_s = t1 - h._submit_t
             self.metrics.observe_ttft(h.ttft_s)
+            if self.engine.store is not None:
+                # under the first-admission guard, like TTFT: a requeued
+                # request is one request, not one per attempt
+                self.metrics.adapter_request(req.adapter_id)
+                self.metrics.observe_adapter_ttft(req.adapter_id, h.ttft_s)
         h._last_token_t = t1
         if fin or req.max_new_tokens == 1:
             self._finish(req, slot)
@@ -395,8 +447,15 @@ class InferenceServer:
         self.metrics.set_active_slots(self.engine.active_count)
         req.handle._finish()
 
+    def _adapter_fail(self, req: Request) -> None:
+        """Per-tenant failure accounting, recorded only when the engine
+        serves through an adapter store, like every per-tenant metric."""
+        if self.engine.store is not None:
+            self.metrics.adapter_failure(req.adapter_id)
+
     def _expire(self, req: Request) -> None:
         self.metrics.inc("requests_expired")
+        self._adapter_fail(req)
         req.handle._fail(TimeoutError(
             f"request {req.id} expired in queue after "
             f"{req.deadline.total:.3f}s deadline"))
@@ -407,6 +466,7 @@ class InferenceServer:
         fails retryably now (``Overloaded``, a ``ConnectionError``)
         instead of riding the queue into a certain ``TimeoutError``."""
         self.metrics.inc("requests_shed")
+        self._adapter_fail(req)
         req.handle._fail(Overloaded(
             f"request {req.id} shed from queue: predicted wait exceeds "
             f"its {req.deadline.total:.3f}s deadline; retry against "
@@ -428,6 +488,7 @@ class InferenceServer:
         except Exception as reset_exc:  # pragma: no cover
             for req in inflight:
                 self.metrics.inc("requests_failed")
+                self._adapter_fail(req)
                 req.handle._fail(reset_exc)
             return
         # requeue newest-first via appendleft so the OLDEST submission
@@ -435,6 +496,7 @@ class InferenceServer:
         for req in sorted(inflight, key=lambda r: r.id, reverse=True):
             if req.attempts > self.max_request_retries:
                 self.metrics.inc("requests_failed")
+                self._adapter_fail(req)
                 req.handle._fail(exc)
             else:
                 self.metrics.inc("requests_requeued")

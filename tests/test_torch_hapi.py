@@ -373,7 +373,8 @@ def test_early_stopping_lr_scheduler_and_scalar_logger(tmp_path):
     assert {r["tag"] for r in recs} == {"train", "eval"}
     with pytest.raises(NotImplementedError, match="A9"):
         model.summary()
-    with pytest.raises(NotImplementedError, match="A4"):
+    # fit(lora=dict) takes LoraConfig's keyword names, as the reference's
+    with pytest.raises(TypeError, match="'r'"):
         model.fit(data, lora={"r": 4})
 
 

@@ -14,7 +14,8 @@ What must hold, as in ``tests/test_kv_quant.py``:
 4. greedy tokens through the int8 cache equal the JAX package's.
 
 Resharding the cache (the reference's ``:96``) waits for the distributed
-checkpoint slice, and LoRA over QAT (``:128``) for the LoRA slice.
+checkpoint slice, and LoRA over QAT (``:128``) for the QAT half of
+``quantization`` (``QuantedLinear``'s ``in_features``, ROADMAP A9).
 """
 import numpy as np
 import pytest

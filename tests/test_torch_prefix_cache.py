@@ -267,7 +267,7 @@ def test_prefix_cache_zero_budget_means_off(pair):
     assert srv.engine.pool is None
     srv2 = InferenceServer(tm, slots=1, prefix_cache=0.0, device="cpu", **GEO)
     assert srv2.engine.pool is None
-    with pytest.raises(NotImplementedError, match="LoRA"):
+    with pytest.raises(TypeError, match="AdapterStore"):
         InferenceServer(tm, slots=1, adapter_store=object(), device="cpu",
                         **GEO)
 

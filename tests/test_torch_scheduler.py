@@ -287,6 +287,7 @@ class _StubEngine:
     active_count = 0
     slots = 4
     pool = None
+    store = None
     allow_top_p = True
 
     def validate(self, n, m):
