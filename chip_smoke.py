@@ -125,6 +125,32 @@ exits non-zero:
                pooled run none, and every stream equals the same request
                served alone by a fresh server of the same configuration;
                TTFT p50/p99 and inter-token p50 printed for both runs.
+               fleet_serving: the same model and requests through the
+               fleet. A ReplicaRouter over two pool-less preset servers
+               (both take requests, streams equal serve_preset's
+               pool-less ones, exactly 24 x 16 = 384 wgmma_f32 forwards
+               and splits); over two pooled ones (streams equal the
+               pooled ones, at most one cold shared-prefix miss per
+               replica, no forward launch). A child process on the same
+               card (subprocess, the parent's weights from a file) hosts
+               a pooled prefill server and a pool-less replica over rpc:
+               a DisaggClient migrates each shared-prefix request's KV
+               blocks from the child's pool into a pooled decode replica
+               of the parent (streams equal the pooled ones, decode hits
+               equal the migrated blocks, no fallback, no forward launch
+               in the parent); the router's
+               fleet_metrics_text carries both processes' series and
+               collect_fleet_trace one request's lane from both; the
+               router then serves the 16 requests over the parent's and
+               the child's replica, the child is SIGKILLed partway (its
+               own launch counts printed as it serves: 24 a prefill),
+               and every stream still equals the pool-less one, with a
+               replica_dead flight dump naming the rerouted ids. Last, a
+               profiler capture of one request (serve:prefill and
+               serve:decode ranges holding the kernel launches) and the
+               server's 8-slot step (per-token decode spans included)
+               with tracing on and off every other step, 8 rounds of 64
+               pairs, and one record_span call's host time.
 8. training  - the bench's GPT-3 1.3B pretrain step (bf16 O2 AdamW,
                recompute, chunked loss, batch 2 x 1024) through TrainStep:
                5 warm-up and 8 timed steps; finite losses that fall, and
@@ -244,7 +270,7 @@ Then a line with the kernels' summary, a line with the card's name and
 power limit, and the last line {"ok": true, "device": {...}}.
 The kernels line counts each kernel's launches on the path that runs it
 (the serving options, speculative prefills, the serve preset's D = 64
-prefills, each attention call of Transformer-base, the fit loop's
+prefills, the fleet's, each attention call of Transformer-base, the fit loop's
 D = 64 step and the two LoRA paths have rows of their own). ``--kernels-only`` stops after phase 3
 and prints none of those three
 lines, and reports a register spill without failing on it: a partial
@@ -259,6 +285,8 @@ import argparse
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2034,16 +2062,24 @@ def _preset_config():
                      dtype="bfloat16")
 
 
+def _preset_server(model, pooled: bool):
+    """The preset's InferenceServer (int8 cache, PRESET_SLOTS slots,
+    max_length 1024, the PRESET_POOL_BYTES pool when ``pooled``)."""
+    from paddle_tpu_torch.serving import InferenceServer
+
+    return InferenceServer(
+        model, slots=PRESET_SLOTS, max_length=1024, kv_dtype="int8",
+        prefix_cache=PRESET_POOL_BYTES if pooled else None,
+        device=model.device)
+
+
 def _preset_serve(model, requests, pooled: bool, together: bool = True):
     """Serve ``requests`` behind the preset's InferenceServer (int8
     cache, PRESET_SLOTS slots, the pool when ``pooled``); returns
     (streams, snapshot, forward launches)."""
     from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.serving import InferenceServer
 
-    server = InferenceServer(
-        model, slots=PRESET_SLOTS, max_length=1024, kv_dtype="int8",
-        prefix_cache=PRESET_POOL_BYTES if pooled else None, device=model.device)
+    server = _preset_server(model, pooled)
     fa.reset_launch_counts()
     handles = [server.submit(**r) for r in requests]
     streams = [h.result(timeout=900) for h in handles]
@@ -2062,7 +2098,9 @@ def phase_serve_preset(seed: int) -> dict:
     failed); the pool-less run launches exactly one wgmma_f32 D = 64
     forward (and split) per layer per prefill, the pooled run none; every
     stream equals the same request served alone by a fresh server of the
-    same configuration."""
+    same configuration. Returns ``(record, yardstick)``: the model, the
+    requests and both runs' streams, which fleet_serving holds the fleet
+    to."""
     import numpy as np
     import torch
 
@@ -2081,6 +2119,7 @@ def phase_serve_preset(seed: int) -> dict:
                prompt_lens=[len(r["prompt"]) for r in requests])
     int8_solo = _solo_streams(model, requests, dict(max_length=1024),
                               kv_dtype="int8")
+    yard = dict(model=model, requests=requests, prefix=prefix)
     for pooled in (False, True):
         label = "pooled" if pooled else "pool_less"
         t0 = time.perf_counter()
@@ -2096,6 +2135,7 @@ def phase_serve_preset(seed: int) -> dict:
         alone = [_preset_serve(model, [r], pooled)[0][0] for r in requests]
         _check_streams(f"serve preset ({label}) vs served alone", requests,
                        streams, alone)
+        yard[label] = streams
         out[label] = dict(
             flash_launches=launches[0], split_launches=launches[2],
             streams_equal_served_alone=True,
@@ -2113,6 +2153,586 @@ def phase_serve_preset(seed: int) -> dict:
     out["split_launches"] = out["pool_less"]["split_launches"]
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     emit("serve_preset", **out)
+    return out, yard
+
+
+# the fleet over the serve preset (phase_fleet_serving)
+FLEET_PATH = ("fleet serving (serve preset, float32 prefill at D = 64, int8 "
+              "cache, two pool-less replicas behind ReplicaRouter)")
+FLEET_HEALTH_S = 0.25      # the router's heartbeat in the child's run
+FLEET_KILL_AFTER = 3       # the child's pool-less prefills before SIGKILL
+FLEET_DECODE_STEPS = 64    # serving steps of each mode a round (alternating)
+FLEET_ROUNDS = 8           # rounds, each admitting the slots afresh
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _routed(router, requests, fa, label):
+    """Serve ``requests`` through ``router`` at once; returns (handles,
+    streams, forward launches)."""
+    if fa is not None:
+        fa.reset_launch_counts()
+    handles = [router.submit(**r) for r in requests]
+    streams = [h.result(timeout=900) for h in handles]
+    launches = _forward_launches(fa) if fa is not None else (0, 0, 0)
+    snap = router.snapshot()
+    if snap["requests_rerouted"] or snap["replicas_failed"]:
+        raise AssertionError(f"{label}: {snap['requests_rerouted']} rerouted,"
+                             f" {snap['replicas_failed']} replicas failed")
+    return handles, streams, launches
+
+
+def _fleet_child_lines(proc, lines, on_line):
+    """Reader thread body: collect the child's stdout lines."""
+    for raw in proc.stdout:
+        line = raw.rstrip("\n")
+        lines.append(line)
+        if line.startswith('{"fleet_child"'):
+            on_line(json.loads(line)["fleet_child"])
+
+
+def fleet_child(weights: str, endpoint: str, device: str) -> int:
+    """The fleet phase's child process: the parent's model (weights from
+    ``weights``) behind a pooled prefill server and a pool-less replica,
+    hosted over rpc as ``prefill`` and ``remote`` until the parent asks it
+    to stop (or kills it). After each admit it prints its own forward
+    launches and prefills, one JSON line."""
+    import torch
+
+    from paddle_tpu_torch import default_device
+    from paddle_tpu_torch.distributed import rpc
+    from paddle_tpu_torch.serving import remote
+
+    default_device(device)   # TF32 off on the card, as in the parent
+    rpc.init_rpc("child", rank=1, world_size=2, master_endpoint=endpoint)
+    blob = torch.load(weights, map_location=device, weights_only=False)
+    cfg = blob["cfg"]
+    model = _model_cls(cfg)(cfg, device=device)
+    model.load_state_dict(blob["state"])
+    model.eval()
+    del blob
+    fa = None
+    if device == "cuda":
+        from paddle_tpu_torch.kernels import flash_attention as fa
+    import numpy as np
+
+    model.generate(np.zeros((1, 8), np.int64), max_new_tokens=2,
+                   max_length=1024)   # warm: kernels loaded, cuBLAS handles
+    if fa is not None:
+        fa.reset_launch_counts()
+    prefills = {"prefill": 0, "remote": 0}
+    servers = {"prefill": _preset_server(model, True),
+               "remote": _preset_server(model, False)}
+    for name, srv in servers.items():
+        admit = srv.engine.admit
+
+        def counted(req, slot, _admit=admit, _name=name):
+            out = _admit(req, slot)
+            prefills[_name] += 1
+            got = _forward_launches(fa) if fa is not None else (0, 0, 0)
+            print(json.dumps({"fleet_child": {
+                "server": _name, "prefills": dict(prefills),
+                "fwd_wgmma_f32": got[0], "fwd_other": got[1],
+                "split": got[2]}}), flush=True)
+            return out
+
+        srv.engine.admit = counted
+        remote.host_server(srv, name)
+    print(json.dumps({"fleet_child": {"ready": True}}), flush=True)
+    remote.wait_for_stop()
+    for srv in servers.values():
+        srv.shutdown(drain=False, timeout=60)
+    rpc.shutdown(timeout=10.0)
+    return 0
+
+
+def _lane_check(spans, corr, child_names, parent_names) -> dict:
+    """One request's stitched lane: the child's spans (src "child") and
+    the parent's (no src) carry the names asked, and the lane reads in
+    time order (the prefill on the child before the decode replica's
+    admit, the parent's stream_end last)."""
+    mine = [s for s in spans if s.get("corr") == corr]
+    child = [s["name"] for s in mine if s.get("src") == "child"]
+    parent = [s["name"] for s in mine if s.get("src") is None]
+    for names, want, who in ((child, child_names, "child"),
+                             (parent, parent_names, "parent")):
+        missing = [n for n in want if n not in names]
+        if missing:
+            raise AssertionError(f"fleet trace of {corr}: the {who}'s spans "
+                                 f"{names} lack {missing}")
+    t0s = [s["t0"] for s in mine]
+    if t0s != sorted(t0s):
+        raise AssertionError(f"fleet trace of {corr} is not in time order")
+    first = {(s.get("src"), s["name"]): s["t0"] for s in reversed(mine)}
+    if not (first[("child", "prefill")] <= first[(None, "prefill")]
+            and mine[-1]["name"] in ("stream_end", "decode")):
+        raise AssertionError(f"fleet trace of {corr}: lane out of order "
+                             f"{[(s.get('src'), s['name']) for s in mine]}")
+    return dict(spans=len(mine), child=sorted(set(child)),
+                parent=sorted(set(parent)))
+
+
+def _profile_request(model, request, tmp, device) -> dict:
+    """One served request under the port's Profiler: the serve:prefill and
+    serve:decode ranges, and (on the card) the launches and kernels each
+    holds in its time span."""
+    from paddle_tpu_torch.profiler import Profiler
+
+    srv = _preset_server(model, False)
+    srv.submit(**request).result(timeout=900)   # warm, outside the capture
+    prof = Profiler(trace_dir=tmp)
+    prof.start()
+    srv.submit(**request).result(timeout=900)
+    prof.stop()
+    srv.shutdown(timeout=60)
+    with open(prof.last_trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    out = {}
+    for name in ("serve:prefill", "serve:decode"):
+        ranges = [e for e in events if e["name"] == name
+                  and e.get("cat") != "gpu_user_annotation"]
+        if not ranges:
+            raise AssertionError(f"profile: no {name} range in "
+                                 f"{prof.last_trace_path}")
+
+        def inside(e, ranges=ranges):
+            return any(r["tid"] == e["tid"] and r["ts"] <= e["ts"]
+                       and e["ts"] + e.get("dur", 0) <= r["ts"] + r["dur"]
+                       for r in ranges)
+
+        launches = [e for e in events if "LaunchKernel" in e["name"]
+                    and inside(e)]
+        corr = {e["args"].get("correlation") for e in launches
+                if e.get("args")}
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"
+                   and e.get("args", {}).get("correlation") in corr]
+        out[name] = dict(ranges=len(ranges), launches=len(launches),
+                         kernels=len(kernels),
+                         flash_kernels=sum("flash_fwd_f32_sm90" in k
+                                           for k in kernels),
+                         split_kernels=sum("split_terms" in k
+                                           for k in kernels))
+    if device == "cuda":
+        pre, dec = out["serve:prefill"], out["serve:decode"]
+        layers = model.cfg.num_layers
+        if not (pre["launches"] and dec["launches"]):
+            raise AssertionError(f"profile: kernel launches outside the "
+                                 f"serving ranges: {out}")
+        if (pre["flash_kernels"], pre["split_kernels"],
+                dec["flash_kernels"]) != (layers, layers, 0):
+            raise AssertionError(f"profile: serve:prefill holds "
+                                 f"{pre['flash_kernels']} flash forwards and "
+                                 f"{pre['split_kernels']} splits, "
+                                 f"serve:decode {dec['flash_kernels']}; "
+                                 f"expected {layers}, {layers} and 0")
+    out["trace_file_mb"] = os.path.getsize(prof.last_trace_path) / 2 ** 20
+    return out
+
+
+def _decode_tracing_cost(model, requests) -> dict:
+    """What tracing costs the preset server's serving step
+    (``InferenceServer._tick``: the engine's decode step, its read-back,
+    the metrics and the per-token ``decode`` spans) with all PRESET_SLOTS
+    slots live, on the host clock (the step reads its tokens back, so the
+    host waits for the card). The step is host-bound and the host shared,
+    so its time drifts by tens of percent over seconds: tracing is turned
+    on and off every step, and the cost is the median difference of
+    adjacent on/off pairs. Each of FLEET_ROUNDS rounds admits the slots
+    afresh and times FLEET_DECODE_STEPS steps of each mode, its first
+    step on in even rounds and off in odd ones. Besides: the spans a
+    traced step records, and one ``record_span`` call's host time."""
+    import threading
+
+    import numpy as np
+
+    from paddle_tpu_torch.observability import tracing
+
+    srv = _preset_server(model, False)
+    # the steps are driven by hand below: submit() must not start the
+    # server's own loop
+    srv._thread = threading.current_thread()
+    new = 2 * FLEET_DECODE_STEPS + 16      # admission ticks decode too
+    steps = {"on": [], "off": []}
+    rounds = {"on": [], "off": []}
+    diffs, spans = [], 0
+    was = tracing.enabled()
+    try:
+        for rnd in range(FLEET_ROUNDS):
+            handles = [srv.submit(prompt=r["prompt"][:1024 - new - 8],
+                                  max_new_tokens=new)
+                       for r in requests[:PRESET_SLOTS]]
+            while srv.engine.active_count < PRESET_SLOTS:
+                srv._tick()
+            srv._tick()   # warm
+            order = ("on", "off") if rnd % 2 == 0 else ("off", "on")
+            got = {"on": [], "off": []}
+            for i in range(2 * FLEET_DECODE_STEPS):
+                mode = order[i % 2]
+                tracing.enable(mode == "on")
+                before = tracing.stats()["recorded"]
+                t0 = time.perf_counter()
+                srv._tick()
+                got[mode].append((time.perf_counter() - t0) * 1e3)
+                if mode == "on":
+                    spans += tracing.stats()["recorded"] - before
+            diffs += [a - b for a, b in zip(got["on"], got["off"])]
+            for m in got:
+                steps[m] += got[m]
+                rounds[m].append(float(np.median(got[m])))
+            tracing.enable(was)
+            while srv.engine.active_count:
+                srv._tick()
+            for h in handles:
+                h.result(timeout=60)
+        tracing.enable(True)
+        n = 20000
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tracing.record_span("decode", 0.0, 1.0, corr="span-cost",
+                                tags={"slot": 0})
+        span_us = (time.perf_counter() - t0) * 1e6 / n
+    finally:
+        tracing.enable(was)
+        srv.shutdown(drain=False)
+    q25, q50, q75 = np.percentile(diffs, [25, 50, 75])
+    return dict(
+        decode_step_ms_tracing_on=float(np.median(steps["on"])),
+        decode_step_ms_tracing_off=float(np.median(steps["off"])),
+        tracing_cost_ms_per_step=float(q50),
+        tracing_cost_ms_quartiles=[float(q25), float(q75)],
+        pairs=len(diffs),
+        round_medians_ms_on=rounds["on"], round_medians_ms_off=rounds["off"],
+        spans_per_traced_step=spans / len(steps["on"]),
+        record_span_us=span_us)
+
+
+def phase_fleet_serving(seed: int, yard: dict, device: str = "cuda") -> dict:
+    """serve_preset's model and requests through the fleet (see the module
+    docstring, fleet_serving): ``yard`` is serve_preset's yardstick (the
+    model, the requests and both runs' streams)."""
+    import signal
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed import rpc
+    from paddle_tpu_torch.observability import (default_registry, flight,
+                                                tracing)
+    from paddle_tpu_torch.serving import (DisaggClient, RemoteReplica,
+                                          ReplicaRouter, remote)
+    from paddle_tpu_torch.serving.prefix_cache import last_migrate_stats
+
+    cuda = device == "cuda"
+    fa = None
+    if cuda:
+        from paddle_tpu_torch.kernels import flash_attention as fa
+    model, requests = yard["model"], yard["requests"]
+    prefix = yard["prefix"]
+    layers = model.cfg.num_layers
+    n = len(requests)
+    shared = [i for i, r in enumerate(requests)
+              if len(r["prompt"]) > len(prefix)
+              and np.array_equal(r["prompt"][:len(prefix)], prefix)]
+    out = dict(requests=n, shared_prefix_requests=len(shared),
+               card=nvidia_smi_line())
+    tmp = tempfile.mkdtemp(prefix="fleet_smoke_")
+    flight.configure(dump_dir=os.path.join(tmp, "flight"))
+
+    # 1. two pool-less replicas
+    router = ReplicaRouter()
+    for name in ("a", "b"):
+        router.add_replica(_preset_server(model, False), name)
+    t0 = time.perf_counter()
+    handles, streams, launches = _routed(router, requests, fa, "pool-less")
+    wall = time.perf_counter() - t0
+    placed = {name: sum(h.replica == name for h in handles)
+              for name in ("a", "b")}
+    for name, rep in router.snapshot()["replicas"].items():
+        _check_clean(f"fleet pool-less replica {name}", rep, placed[name])
+    if min(placed.values()) == 0:
+        raise AssertionError(f"fleet pool-less: placement {placed}")
+    need = (layers * n, 0, layers * n) if cuda else (0, 0, 0)
+    if launches != need:
+        raise AssertionError(f"fleet pool-less: forwards (wgmma_f32, other, "
+                             f"split) {launches}, expected {need}")
+    _check_streams("fleet pool-less vs serve_preset", requests, streams,
+                   yard["pool_less"])
+    snap = router.snapshot()
+    out["pool_less"] = dict(
+        placement=placed, flash_launches=launches[0],
+        split_launches=launches[2], wall_s=wall,
+        ttft_p50_ms=float(np.median([h.ttft_s for h in handles]) * 1e3),
+        tokens_per_s=snap["tokens_emitted"] / wall)
+    router.shutdown(timeout=60)
+    del router
+
+    # 2. two pooled replicas, prefix affinity
+    router = ReplicaRouter()
+    for name in ("a", "b"):
+        router.add_replica(_preset_server(model, True), name)
+    handles, streams, launches = _routed(router, requests, fa, "pooled")
+    if launches != (0, 0, 0):
+        raise AssertionError(f"fleet pooled: forwards {launches}, expected "
+                             f"none")
+    _check_streams("fleet pooled vs serve_preset", requests, streams,
+                   yard["pooled"])
+    placed = {name: [i for i, h in enumerate(handles) if h.replica == name]
+              for name in ("a", "b")}
+    cold = {name: sum(handles[i].cache_hit_tokens == 0 for i in idx
+                      if i in shared) for name, idx in placed.items()}
+    if max(cold.values()) > 1:
+        raise AssertionError(f"fleet pooled: cold shared-prefix misses per "
+                             f"replica {cold}, at most 1 each")
+    snap = router.snapshot()
+    out["pooled"] = dict(
+        placement={k: len(v) for k, v in placed.items()},
+        shared_by_replica={k: sum(i in shared for i in v)
+                           for k, v in placed.items()},
+        cold_shared_misses=cold,
+        hit_tokens={k: r["prefix_hit_tokens"]
+                    for k, r in snap["replicas"].items()},
+        prefix_hit_rate=snap["prefix_hit_rate"], flash_launches=0)
+    router.shutdown(timeout=60)
+    del router
+
+    # 3. one child process on the same card
+    weights = os.path.join(tmp, "weights.pt")
+    torch.save({"cfg": model.cfg, "state": model.state_dict()}, weights)
+    endpoint = f"127.0.0.1:{_free_port()}"
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+        PT_FLIGHT_DIR=os.path.join(tmp, "child_flight"))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--fleet-child", weights,
+         endpoint, device], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, cwd=here, env=env)
+    lines, child = [], {"last": None, "killed_at": None}
+    kill = {"armed": False}
+
+    def on_line(rec):
+        if "server" not in rec:
+            return
+        child["last"] = rec
+        if kill["armed"] and rec["prefills"]["remote"] >= FLEET_KILL_AFTER \
+                and child["killed_at"] is None:
+            os.kill(proc.pid, signal.SIGKILL)
+            child["killed_at"] = time.perf_counter()
+            child["at_kill"] = rec
+
+    reader = threading.Thread(target=_fleet_child_lines,
+                              args=(proc, lines, on_line), daemon=True)
+    reader.start()
+    local_servers = []
+    try:
+        t0 = time.perf_counter()
+        rpc.init_rpc("parent", rank=0, world_size=2, master_endpoint=endpoint)
+        pre = RemoteReplica("child", "prefill", rpc_timeout=120.0)
+        rem = RemoteReplica("child", "remote", rpc_timeout=30.0)
+        if not (pre.wait_ready(timeout=600) and rem.wait_ready(timeout=60)):
+            raise AssertionError("fleet child never hosted its servers: "
+                                 + "\n".join(lines[-20:]))
+        out["child_boot_s"] = time.perf_counter() - t0
+
+        # 3a. disaggregated prefill (child) and decode (parent)
+        dec_srv = _preset_server(model, True)
+        local_servers.append(dec_srv)
+        remote.host_server(dec_srv, "decode")
+        dec = RemoteReplica("parent", "decode", rpc_timeout=120.0)
+        client = DisaggClient([pre], [dec], block_tokens=16)
+        d_handles, d_streams = [], []
+        if fa is not None:
+            fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in shared:        # one at a time: migration and TTFT alone
+            h = client.submit(requests[i]["prompt"],
+                              max_new_tokens=requests[i]["max_new_tokens"])
+            d_streams.append(h.result(timeout=900))
+            d_handles.append(h)
+        d_wall = time.perf_counter() - t0
+        # the parent's launches here are the decode replica's alone (the
+        # prefill server runs in the child): migrated admits run
+        # cached_attention, never the flash forward
+        d_launches = _forward_launches(fa) if fa is not None else (0, 0, 0)
+        if d_launches != (0, 0, 0):
+            raise AssertionError(f"disagg decode replica: forwards "
+                                 f"(wgmma_f32, other, split) {d_launches}, "
+                                 f"expected none")
+        st = client.statusz()
+        if (st["migrations"], st["fallbacks"]) != (len(shared), 0):
+            raise AssertionError(f"disagg: {st}")
+        _check_streams("disagg vs serve_preset pooled",
+                       [requests[i] for i in shared], d_streams,
+                       [yard["pooled"][i] for i in shared])
+        hits = [h.cache_hit_tokens for h in d_handles]
+        pool = dec_srv.engine.pool
+        want = [pool._matchable_blocks(len(requests[i]["prompt"]))
+                * pool.block_tokens for i in shared]
+        sent = rpc.rpc_sync("child", last_migrate_stats)
+        dsnap = dec_srv.snapshot()
+        if hits != want or sum(hits) != dsnap["prefix_hit_tokens"] or \
+                sum(hits) != 16 * sent["blocks_out"]:
+            raise AssertionError(f"disagg: decode hits {hits}, prompts' "
+                                 f"blocks {want}, decode replica "
+                                 f"{dsnap['prefix_hit_tokens']}, migrated "
+                                 f"{16 * sent['blocks_out']} tokens")
+        out["disagg"] = dict(
+            requests=len(shared), migrations=st["migrations"],
+            decode_flash_launches=d_launches[0],
+            decode_split_launches=d_launches[2],
+            fallbacks=st["fallbacks"], blocks_migrated=sent["blocks_out"],
+            blocks_landed=st["migrated_tokens"] // 16,
+            bytes_migrated=st["migrated_bytes"],
+            migrate_ms_per_request=st["migrate_s"] * 1e3 / len(shared),
+            decode_hit_tokens=sum(hits), migrated_tokens=16 * sent[
+                "blocks_out"],
+            ttft_p50_ms=float(np.median([h.ttft_s for h in d_handles])
+                              * 1e3), wall_s=d_wall,
+            decode_pool=dsnap["prefix_cache"])
+
+        # 3b. observability across the two processes
+        local = _preset_server(model, False)
+        local_servers.append(local)
+        router = ReplicaRouter(health_check_interval=FLEET_HEALTH_S)
+        router.add_replica(local, "local")
+        router.add_replica(rem, "child")
+        text = router.fleet_metrics_text()
+        for rep in ("_local", "child"):
+            if f'replica="{rep}"' not in text or not any(
+                    line.startswith("serving_requests_completed{")
+                    and f'replica="{rep}"' in line
+                    for line in text.splitlines()):
+                raise AssertionError(f"fleet metrics text lacks replica "
+                                     f"{rep}'s serving series")
+        corr = d_handles[-1].correlation_id
+        spans, reports = router.collect_fleet_trace(corr=corr)
+        lane = _lane_check(spans, corr,
+                           ("submit", "queue_wait", "prefill", "stream_end"),
+                           ("submit", "queue_wait", "prefill", "decode",
+                            "stream_end"))
+        end = max(s["t1"] for s in spans if s.get("corr") == corr)
+        begin = min(s["t0"] for s in spans if s.get("corr") == corr)
+        steps = [s for s in tracing.spans(name="decode_step")
+                 if begin <= s["t0"] <= end]
+        if not steps:
+            raise AssertionError("no decode_step span in the lane's window")
+        out["observability"] = dict(
+            metrics_lines=len(text.splitlines()),
+            replicas_in_metrics=["_local", "child"], lane=lane,
+            decode_steps_in_window=len(steps),
+            clock=reports)
+
+        # 3c. the remote replica and its death
+        if fa is not None:
+            fa.reset_launch_counts()
+        kill["armed"] = True
+        done_at = {}
+        r_handles, first_placed = [], []
+
+        def wait(i, h):
+            h.result(timeout=900)
+            done_at[i] = time.perf_counter()
+
+        threads = []
+        for i, r in enumerate(requests):
+            # alternate the first placement: a remote replica's load view
+            # refreshes only at its probes, so a burst would all land on it
+            h = router.submit(**r, prefer=("local", "child")[i % 2])
+            r_handles.append(h)
+            first_placed.append(h.replica)
+            t = threading.Thread(target=wait, args=(i, h), daemon=True)
+            t.start()
+            threads.append(t)
+        for t in threads:
+            t.join(timeout=900)
+        r_streams = [h.result(timeout=1) for h in r_handles]
+        _check_streams("fleet with a killed child vs serve_preset",
+                       requests, r_streams, yard["pool_less"])
+        if child["killed_at"] is None:
+            raise AssertionError(f"the child was never killed: "
+                                 f"{child['last']}")
+        proc.wait(timeout=60)
+        at = child["at_kill"]
+        if (at["fwd_wgmma_f32"], at["fwd_other"], at["split"]) != (
+                (layers * at["prefills"]["remote"], 0,
+                 layers * at["prefills"]["remote"]) if cuda else (0, 0, 0)):
+            raise AssertionError(f"child launches at the kill: {at}")
+        rerouted = [i for i, h in enumerate(r_handles) if h.reroutes]
+        if not rerouted or router.replicas()["child"] != "dead":
+            raise AssertionError(f"no reroute after the kill: "
+                                 f"{router.replicas()}, {rerouted}")
+        dumps = sorted(f for f in os.listdir(os.path.join(tmp, "flight"))
+                       if "replica_dead" in f)
+        if not dumps:
+            raise AssertionError("no replica_dead flight dump")
+        with open(os.path.join(tmp, "flight", dumps[-1])) as f:
+            dump = json.load(f)
+        inflight = set(dump["extra"]["inflight"])
+        corrs = {r_handles[i].correlation_id for i in rerouted}
+        if not inflight or not inflight <= {h.correlation_id
+                                            for h in r_handles}:
+            raise AssertionError(f"replica_dead dump inflight {inflight} "
+                                 f"is not among the run's requests")
+        failed = {k: v for k, v in default_registry().snapshot()[
+            "counters"].items() if k.startswith("router.replicas_failed")
+            and v}
+        if not failed:
+            raise AssertionError("the registry shows no failed replica")
+        parent_prefills = local.snapshot()["prefills"]
+        got = _forward_launches(fa) if fa is not None else (0, 0, 0)
+        if got != ((layers * parent_prefills, 0, layers * parent_prefills)
+                   if cuda else (0, 0, 0)):
+            raise AssertionError(f"parent launches {got} over "
+                                 f"{parent_prefills} prefills")
+        out["death"] = dict(
+            placement={name: first_placed.count(name)
+                       for name in ("local", "child")},
+            child_prefills_at_kill=at["prefills"]["remote"],
+            child_flash_launches_at_kill=at["fwd_wgmma_f32"],
+            child_split_launches_at_kill=at["split"],
+            parent_prefills=parent_prefills, parent_flash_launches=got[0],
+            rerouted=len(rerouted), dump_inflight=len(inflight),
+            dump_names_rerouted=len(corrs & inflight),
+            registry_failed=failed,
+            kill_to_last_rerouted_ms=(max(done_at[i] for i in rerouted)
+                                      - child["killed_at"]) * 1e3)
+        router.shutdown(timeout=60)
+    finally:
+        if proc.poll() is None:
+            try:
+                rpc.rpc_sync("child", remote._host_request_stop, timeout=10)
+            except Exception:
+                pass
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+        remote.unhost_server("decode")
+        for srv in local_servers:
+            srv.shutdown(drain=False, timeout=60)
+        rpc.shutdown(timeout=4.0)
+        reader.join(timeout=30)
+        os.remove(weights)
+    out["child_exit"] = proc.returncode
+
+    # 4. one replica's own costs
+    out["profile"] = _profile_request(model, requests[shared[0]],
+                                      os.path.join(tmp, "prof"), device)
+    out["decode"] = _decode_tracing_cost(model, requests)
+    out["flash_launches"] = out["pool_less"]["flash_launches"]
+    out["split_launches"] = out["pool_less"]["split_launches"]
+    shutil.rmtree(tmp, ignore_errors=True)
+    emit("fleet_serving", **out)
     return out
 
 
@@ -4935,7 +5555,12 @@ def main(argv=None) -> int:
                          "line, with a register spill reported but not "
                          "fatal: to compare kernel builds in turns, each "
                          "from its own checkout")
+    ap.add_argument("--fleet-child", nargs=3,
+                    metavar=("WEIGHTS", "ENDPOINT", "DEVICE"),
+                    help=argparse.SUPPRESS)   # fleet_serving's child
     args = ap.parse_args(argv)
+    if args.fleet_child:
+        return fleet_child(*args.fleet_child)
 
     import torch
 
@@ -4962,7 +5587,9 @@ def main(argv=None) -> int:
     _free()
     spec = phase_speculative(args.seed)
     _free()
-    preset = phase_serve_preset(args.seed)
+    preset, yard = phase_serve_preset(args.seed)
+    fleet = phase_fleet_serving(args.seed, yard)
+    del yard
     _free()
     train = phase_training(args.seed)
     _free()
@@ -5085,6 +5712,14 @@ def main(argv=None) -> int:
                 preset["flash_launches"], preset_path),
         fwd_row("split_bf16_terms_d64", "flash_attention_fwd_f32_sm90.cu",
                 "split_" + PRESET_FWD, preset["split_launches"], preset_path),
+        # the fleet's two pool-less replicas behind ReplicaRouter (the
+        # serve preset's D = 64 prefills again, 24 a prefill)
+        fwd_row("flash_attention_fwd_f32_sm90_d64_fleet",
+                "flash_attention_fwd_f32_sm90.cu", PRESET_FWD,
+                fleet["flash_launches"], FLEET_PATH),
+        fwd_row("split_bf16_terms_d64_fleet",
+                "flash_attention_fwd_f32_sm90.cu", "split_" + PRESET_FWD,
+                fleet["split_launches"], FLEET_PATH),
         fwd_row("flash_attention_fwd_f32_sm90_d256",
                 "flash_attention_fwd_f32_sm90.cu", D256_PREFILL_FWD,
                 d256_prefill["flash_launches"], d256_prefill_path),

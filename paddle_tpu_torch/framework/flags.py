@@ -1,7 +1,7 @@
 """Global flag registry, ``set_flags``/``get_flags`` (port of
 ``paddle_tpu/framework/flags.py``): the subset of flags the training step
-reads. Flags initialise from ``FLAGS_*`` environment variables, as in the
-reference.
+reads, and the profiler's host-event switch. Flags initialise from
+``FLAGS_*`` environment variables, as in the reference.
 """
 from __future__ import annotations
 
@@ -13,6 +13,8 @@ __all__ = ["set_flags", "get_flags", "flag"]
 _DEFAULTS: Dict[str, Any] = {
     # per-step numeric checks (TrainStep raises FloatingPointError)
     "FLAGS_check_nan_inf": False,
+    # host RecordEvent capture while a Profiler records (profiler)
+    "FLAGS_profile_host_events": True,
 }
 
 _flags: Dict[str, Any] = {}

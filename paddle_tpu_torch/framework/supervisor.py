@@ -32,9 +32,11 @@ Fault sites: the loop is instrumented with ``train.step`` / ``train.ckpt``
 Not ported here: the cross-replica integrity vote
 (``integrity_check_interval``; it needs replicas, ROADMAP A8) raises
 ``NotImplementedError``, and a ``bitflip`` rule at ``train.bitflip``
-degrades to the NaN seam. The reference's flight recorder, tracing spans,
-profiler counters and ``RecordEvent`` ranges wait for the observability
-port (ROADMAP A6); the counts they keep are attributes here
+degrades to the NaN seam. The observability modules are ported
+(``observability``, ``profiler``), but the supervisor's calls into them
+(its flight-recorder dumps, tracing spans, profiler counters and
+``RecordEvent`` ranges) wait for the next slice of ROADMAP A6; the counts
+they keep are attributes here
 (``NumericsWatchdog.anomalies`` / ``scaler_skips``,
 ``HangWatchdog.hangs_detected``, ``TrainingSupervisor.rollbacks`` /
 ``skipped_batches``).

@@ -16,8 +16,9 @@ Differences from the reference, and why:
   (the port's update runs in place on device tensors);
 - ``summary()`` waits for ``hapi/model_summary.py`` (ROADMAP A9) and
   raises ``NotImplementedError``;
-- the reference's tracing spans and correlation ids wait for the
-  observability port (A6).
+- the reference's ``train:step`` tracing spans and correlation ids, and
+  the prefetch thread's ``h2d_prefetch`` range, wait for the next slice of
+  ROADMAP A6 (the observability modules themselves are ported).
 """
 from __future__ import annotations
 

@@ -48,10 +48,19 @@ prefill, the pooled admit and the batched decode run under
 batch that mixes tenants. With a pool, each tenant's blocks live under
 its own digest namespace (adapter-modified projections make cross-tenant
 reuse wrong).
+
+Each admit runs inside a ``RecordEvent("serve:prefill")`` range and each
+decode step inside ``RecordEvent("serve:decode")``, and they leave a
+``prefill`` span in the request's trace lane and a batch-level
+``decode_step`` span, as the reference does. Host timestamps mean
+something only where the host waits for the card, so the prefill range
+and span close after the first token is on the host, and the decode ones
+after the step's read-back.
 """
 from __future__ import annotations
 
 import contextlib
+import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -66,6 +75,8 @@ from ..models.generation import (DEFAULT_PREFILL_BUCKETS, cache_nbytes,
                                  init_cache, normalize_kv_dtype,
                                  per_row_generators, sample_logits_rows,
                                  scatter_cache_blocks, scatter_cache_rows)
+from ..observability import tracing as _tracing
+from ..profiler import RecordEvent
 from .prefix_cache import BlockPool
 
 __all__ = ["ContinuousBatchingEngine", "SlotEvent"]
@@ -355,7 +366,7 @@ class ContinuousBatchingEngine:
         0 included) runs the chunked continuation through
         ``cached_attention``, as the reference's traced offset does, and
         launches no flash forward. ``salt`` namespaces the digest chain
-        per adapter. Returns ``(token, matched tokens)``."""
+        per adapter. Returns ``(token, matched tokens, suffix bucket)``."""
         pool = self.pool
         with pool.device_lock:
             hit, plan = self._plan_hit(prompt, L, salt=salt)
@@ -365,8 +376,8 @@ class ContinuousBatchingEngine:
             try:
                 matched = hit.tokens
                 suffix = L - matched
-                ids = self._padded(prompt[matched:],
-                                   self.bucket_for_prompt(suffix))
+                bucket = self.bucket_for_prompt(suffix)
+                ids = self._padded(prompt[matched:], bucket)
                 slot_cache = gather_cache_blocks(pool.tensors, hit.read_idx,
                                                  self.max_length)
                 offset = torch.tensor([matched], device=self.model.device)
@@ -381,7 +392,7 @@ class ContinuousBatchingEngine:
                 pool.abort(hit, plan)
                 raise
             pool.commit(hit, plan, pool.tensors)
-        return tok, matched
+        return tok, matched, bucket
 
     @torch.inference_mode()
     def admit(self, request, slot: int) -> Tuple[int, bool, int]:
@@ -412,28 +423,44 @@ class ContinuousBatchingEngine:
             # K/V into the new version's namespace
             a_row, a_salt = self.store.acquire(adapter_id, with_salt=True)
         hit_tokens = 0
+        bucket = 0
         self._calls["prefill"] += 1
+        t_span = time.time()
         try:
-            # serving runs the eval graph (dropout off)
-            with self._eval_mode(), self._adapter_ctx([a_row]):
+            # serving runs the eval graph (dropout off); the range closes
+            # after the first token's read-back
+            with RecordEvent("serve:prefill"), self._eval_mode(), \
+                    self._adapter_ctx([a_row]):
                 if self.pool is None:
+                    bucket = self.bucket_for_prompt(L)
                     slot_cache = init_cache(self.model, 1, self.max_length,
                                             kv_dtype=self.kv_dtype)
                     logits, slot_cache = self.model(
-                        self._padded(prompt, self.bucket_for_prompt(L)),
+                        self._padded(prompt, bucket),
                         cache=slot_cache, position_offset=0,
                         gather_last=L - 1)
                     tok = self._first_token(logits, request, seed)
                     scatter_cache_rows(self.live_cache, slot_cache, slot)
                 else:
-                    tok, hit_tokens = self._admit_pooled(
+                    tok, hit_tokens, bucket = self._admit_pooled(
                         prompt, L, request, seed, slot, salt=a_salt)
-            first = int(tok[0])  # the admission's one device read
+                first = int(tok[0])  # the admission's one device read
         except Exception:
             if self.store is not None:
                 # the request never reached a slot: its pin is void
                 self.store.release(a_row)
             raise
+        # host side of the admission's one sync point: the prefill span
+        # (bucket, prefix-hit and adapter tags) lands in the request's
+        # trace lane with no extra device round-trip
+        tags = {"bucket": int(bucket), "prompt_len": L, "slot": int(slot)}
+        if self.pool is not None:
+            tags["prefix_hit_tokens"] = int(hit_tokens)
+        if adapter_id is not None:
+            tags["adapter"] = adapter_id
+        _tracing.record_span("prefill", t_span, time.time(),
+                             corr=getattr(request, "corr_id", None),
+                             tags=tags)
         fin = first == eos
         self.requests[slot] = request
         self._adapter_slots[slot] = a_row
@@ -458,7 +485,9 @@ class ContinuousBatchingEngine:
                                         int(self._positions[i]), device)[0]
                 for i, req in enumerate(self.requests)]
         self._calls["decode"] += 1
-        with self._eval_mode(), self._adapter_ctx(self._adapter_slots):
+        t_span = time.time()
+        with RecordEvent("serve:decode"), self._eval_mode(), \
+                self._adapter_ctx(self._adapter_slots):
             logits, self.live_cache = self.model(
                 torch.as_tensor(self._tokens[:, None], device=device),
                 cache=self.live_cache,
@@ -467,8 +496,12 @@ class ContinuousBatchingEngine:
             nxt = sample_logits_rows(logits[:, -1, :], gens, self._temp,
                                      self.top_k, self._top_p,
                                      greedy_mask=self._greedy)
-        # the per-step [B] read-back IS the streaming output
-        toks = nxt.cpu().numpy()
+            # the per-step [B] read-back IS the streaming output
+            toks = nxt.cpu().numpy()
+        # batch-level decode-step span (uncorrelated lane): the compute
+        # timeline behind every live request's per-token spans
+        _tracing.record_span("decode_step", t_span, time.time(), corr=None,
+                             tags={"active": int(self.active_count)})
         toks = np.where(self._done, np.maximum(self._eos, 0), toks)
         dns = self._done | (toks == self._eos)
         events: List[SlotEvent] = []

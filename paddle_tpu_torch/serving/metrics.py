@@ -1,5 +1,5 @@
-"""Serving counters, gauges and latency histograms (the part of
-``paddle_tpu/serving/metrics.py`` that ``server.py`` needs).
+"""Serving counters, gauges and latency histograms (port of
+``paddle_tpu/serving/metrics.py``).
 
 - **queue depth / slot occupancy** (gauges plus a time-weighted
   occupancy integral),
@@ -14,25 +14,26 @@
   recorded when the engine serves through an ``AdapterStore``; the base
   model books under ``"base"``).
 
-Histograms keep a bounded reservoir sample with exact count, sum and max.
-Export to the reference's observability registry is not ported yet.
+Histograms keep a bounded reservoir sample with exact count, sum and max;
+their percentiles are the registry's ``nearest_rank``, as in the
+reference. Every ``ServingMetrics`` feeds the process metrics registry
+(``observability.registry``) through a weak collector labeled
+``metrics=<m#>``, so ``prometheus_text()`` carries its counters, gauges
+and histograms beside every other layer's.
 """
 from __future__ import annotations
 
-import math
+import itertools
 import random
 import threading
 import time
 from typing import Dict, List, Optional
 
+from ..observability import registry as _obs_registry
+
 __all__ = ["LatencyHistogram", "ServingMetrics"]
 
-
-def _nearest_rank(sorted_samples: List[float], p: float) -> float:
-    if not sorted_samples:
-        return 0.0
-    rank = max(1, math.ceil(p / 100.0 * len(sorted_samples)))
-    return sorted_samples[min(rank, len(sorted_samples)) - 1]
+_metrics_serial = itertools.count()
 
 
 class LatencyHistogram:
@@ -60,7 +61,7 @@ class LatencyHistogram:
                 self._samples[j] = s
 
     def percentile(self, p: float) -> float:
-        return _nearest_rank(sorted(self._samples), p)
+        return _obs_registry.nearest_rank(sorted(self._samples), p)
 
     def summary(self) -> Dict[str, float]:
         mean = self.total / self.count if self.count else 0.0
@@ -69,6 +70,18 @@ class LatencyHistogram:
                 "p50_ms": self.percentile(50) * 1e3,
                 "p99_ms": self.percentile(99) * 1e3,
                 "max_ms": self.max * 1e3}
+
+    @classmethod
+    def merge(cls, hists: List["LatencyHistogram"]) -> "LatencyHistogram":
+        """Fleet roll-up: pool the replicas' reservoirs into one histogram
+        (exact count/sum/max; percentiles over the combined sample)."""
+        out = cls(max_samples=max([h.max_samples for h in hists] or [1]))
+        for h in hists:
+            out.count += h.count
+            out.total += h.total
+            out.max = max(out.max, h.max)
+            out._samples.extend(h._samples)
+        return out
 
 
 class ServingMetrics:
@@ -90,6 +103,33 @@ class ServingMetrics:
         self.slots = int(slots)
         self._lock = threading.Lock()
         self.reset()
+        # a weak (bound-method) collector feeds the counters/histograms
+        # into every registry scrape, labeled per instance so co-hosted
+        # replicas stay apart
+        self._obs_label = f"m{next(_metrics_serial)}"
+        _obs_registry.default_registry().register_collector(
+            self._obs_collect, labels={"metrics": self._obs_label},
+            name=f"serving_metrics.{self._obs_label}")
+
+    def _obs_collect(self) -> dict:
+        with self._lock:
+            counters = {f"serving.{name}": getattr(self, name)
+                        for name in self.COUNTERS}
+            hists = {}
+            for hname, h in (("serving.ttft_s", self.ttft),
+                             ("serving.inter_token_s", self.inter_token),
+                             ("serving.queue_wait_s", self.queue_wait)):
+                hists[hname] = {"count": h.count,
+                                "sum": round(h.total, 6),
+                                "p50": round(h.percentile(50), 6),
+                                "p99": round(h.percentile(99), 6),
+                                "max": round(h.max, 6)}
+            return {"counters": counters,
+                    "gauges": {"serving.metrics_queue_depth":
+                               self.queue_depth,
+                               "serving.metrics_active_slots":
+                               self.active_slots},
+                    "histograms": hists}
 
     def reset(self) -> None:
         with self._lock:

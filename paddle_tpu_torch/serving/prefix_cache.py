@@ -1,5 +1,5 @@
 """Paged prefix/KV-cache block pool: cross-request prompt reuse (port of
-``paddle_tpu/serving/prefix_cache.py:86-439`` and ``:674``).
+``paddle_tpu/serving/prefix_cache.py``).
 
 Requests that share a system prompt would each re-prefill tokens an
 earlier request already pushed through the model. The pool keeps those
@@ -28,26 +28,120 @@ The pool owns the metadata and the tensors; the engine's pooled admit
 does the block copies with ``models.generation.gather_cache_blocks`` /
 ``scatter_cache_blocks``. The metadata methods are thread-safe.
 
-Not ported yet: the KV wire export and import (``export_payload`` /
-``inject_payload``), which belong to the router and disaggregated
-serving slice (queue A6); they raise ``NotImplementedError``.
+**Migration** (disaggregated prefill/decode, ``serving.disagg``):
+:meth:`BlockPool.export_payload` serializes a prompt's matched blocks
+into a host-resident payload in the reference's wire format
+(``KV_WIRE_VERSION = 1``) and :meth:`BlockPool.inject_payload` installs
+one, so blocks cross between the port's and the reference's pools both
+ways. Leaves cross as host numpy, never as device tensors. A bfloat16
+leaf crosses as a float32 array of the same values (exact: every
+bfloat16 is a float32); the reference writes an ``ml_dtypes`` array
+there, which this pool reads too, by its bits, without importing
+``ml_dtypes``. int8 leaves are ``(int8 values, float32 scales)`` pairs.
 """
 from __future__ import annotations
 
 import hashlib
 import threading
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..models.generation import (cache_entries, normalize_kv_dtype,
                                  torch_dtype)
 
-__all__ = ["BlockPool", "PrefixHit", "StorePlan", "chain_digests"]
+__all__ = ["BlockPool", "PrefixHit", "StorePlan", "chain_digests",
+           "KV_WIRE_VERSION", "DEFAULT_MIGRATE_CHUNK_BYTES",
+           "last_migrate_stats"]
 
 
 _EMPTY = b"paddle_tpu.prefix_cache.root"
+
+#: Version tag on every exported KV-block payload (the reference's). Bump
+#: on ANY change to the payload layout — an importer rejects versions it
+#: does not speak, so a mixed-version fleet degrades to recompute, never
+#: to corrupt K/V.
+KV_WIRE_VERSION = 1
+
+#: Per-chunk ceiling for device->host (and host->device) staging during
+#: block export/import: the full payload is bounded by one prompt's block
+#: span, and the transfer working set on top of it is bounded by this.
+DEFAULT_MIGRATE_CHUNK_BYTES = 8 << 20
+
+# migration accounting: cumulative process-wide, read via
+# last_migrate_stats() (tests + serve_bench)
+_MIGRATE_STATS = {
+    "exports": 0, "imports": 0,
+    "bytes_out": 0, "bytes_in": 0,
+    "blocks_out": 0, "blocks_in": 0,
+    "blocks_skipped": 0,       # import found the digest already resident
+    "chunks": 0,
+    "peak_chunk_bytes": 0,     # largest single staging transfer
+}
+
+
+def last_migrate_stats() -> dict:
+    return dict(_MIGRATE_STATS)
+
+
+def _reset_migrate_stats() -> None:
+    for k in _MIGRATE_STATS:
+        _MIGRATE_STATS[k] = 0
+
+
+def _leaf_nbytes(leaf) -> int:
+    return (sum(x.nbytes for x in leaf) if isinstance(leaf, tuple)
+            else leaf.nbytes)
+
+
+def _host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype holding a device leaf's bytes on the host (bfloat16
+    as its uint16 bits)."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.uint16)
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def _wire_array(bits: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """Host bytes of a ``dtype`` leaf as its wire array: the same array,
+    except bfloat16, which crosses as float32 of the same values (exact)."""
+    if dtype == torch.bfloat16:
+        return (bits.astype(np.uint32) << 16).view(np.float32)
+    return bits
+
+
+def _host_bits(leaf, dtype: torch.dtype) -> np.ndarray:
+    """A wire array as host bytes of ``dtype``: for a bfloat16 pool a
+    float32 (or float16) array, rounded to nearest, or the reference's
+    ``ml_dtypes`` bfloat16 array, read by its bits; the pool's own dtype
+    otherwise."""
+    leaf = np.asarray(leaf)
+    if dtype == torch.bfloat16:
+        if leaf.dtype.name == "bfloat16":
+            return np.ascontiguousarray(leaf).view(np.uint16)
+        return (torch.from_numpy(np.ascontiguousarray(leaf, np.float32))
+                .to(torch.bfloat16).view(torch.int16).numpy()
+                .view(np.uint16))
+    return np.ascontiguousarray(leaf, _host_dtype(dtype))
+
+
+def _staging(layout) -> Tuple[np.ndarray, List[np.ndarray], List[int]]:
+    """One host buffer for arrays of the given ``(shape, dtype)``s, each
+    at a 16-byte aligned offset (so a device view of its slice may take
+    any dtype); returns the buffer, a writable view of each array and
+    their offsets."""
+    sizes = [int(np.prod(shape)) * np.dtype(dtype).itemsize
+             for shape, dtype in layout]
+    offsets, off = [], 0
+    for nbytes in sizes:
+        offsets.append(off)
+        off += -(-nbytes // 16) * 16
+    buf = np.empty(off, np.uint8)
+    views = [buf[o:o + nbytes].view(dtype).reshape(shape)
+             for o, nbytes, (shape, dtype) in zip(offsets, sizes, layout)]
+    return buf, views, offsets
 
 
 def chain_digests(tokens, block_tokens: int,
@@ -387,21 +481,223 @@ class BlockPool:
         with self._lock:
             return [e.digest.hex() for e in self._entries.values()]
 
+    def _chunk_rows(self, max_chunk_bytes: Optional[int]) -> int:
+        """Most pool rows a staging chunk of ``max_chunk_bytes`` holds
+        during migration (the last chunk holds the rest)."""
+        budget = int(max_chunk_bytes or DEFAULT_MIGRATE_CHUNK_BYTES)
+        return max(1, min(self.blocks_per_prompt,
+                          budget // max(self.block_bytes, 1)))
+
+    def _flat_leaves(self, tensors) -> List[torch.Tensor]:
+        """Every device leaf in wire order: layer, then k/v, then (int8)
+        values/scales."""
+        out = []
+        for k, v in tensors:
+            for t in (k, v):
+                out.extend(t if isinstance(t, tuple) else (t,))
+        return out
+
+    def _nest(self, flat: list) -> list:
+        """Inverse of :meth:`_flat_leaves` over a flat list of arrays."""
+        per = 2 if self.kv_dtype == "int8" else 1
+        it = iter(flat)
+        leaves = []
+        for _ in range(self.spec["num_layers"]):
+            kv = []
+            for _ in range(2):
+                got = tuple(next(it) for _ in range(per))
+                kv.append(got if per == 2 else got[0])
+            leaves.append(tuple(kv))
+        return leaves
+
+    @torch.inference_mode()
     def export_payload(self, tokens, salt: bytes = b"",
                        max_chunk_bytes: Optional[int] = None):
-        """Not ported yet: the KV wire export belongs to the router and
-        disaggregated-serving slice (queue A6)."""
-        raise NotImplementedError(
-            "BlockPool.export_payload is not ported yet; it comes with the "
-            "router and disaggregated serving (queue A6)")
+        """Serialize this pool's matched blocks for ``tokens`` into a
+        versioned, host-resident payload another pool (the port's or the
+        reference's) can :meth:`inject_payload`. Returns ``None`` when
+        nothing matches.
 
+        The matched entries are PINNED (via :meth:`lookup`) for the whole
+        device read and released in a ``finally``. Each staging chunk of
+        at most ``max_chunk_bytes`` is one index gather per leaf into one
+        device buffer and ONE copy to the host, taken under
+        ``device_lock``, the lock the engine's pooled admit holds while
+        it writes the pool. The gather is queued on the device's current
+        stream, the stream the engine writes on, behind those writes. The
+        payload carries the covered TOKEN IDS, not digests: the importer
+        re-derives the chain, so a mismatched payload can only miss."""
+        toks = np.asarray(tokens, np.int32).ravel()
+        hit = self.lookup(toks, salt)
+        try:
+            n = len(hit.entries)
+            if n == 0:
+                return None
+            rows = hit.read_idx[:n].astype(np.int64)
+            chunk_rows = self._chunk_rows(max_chunk_bytes)
+            parts: List[List[np.ndarray]] = []
+            chunks = 0
+            with self.device_lock:
+                flat = self._flat_leaves(self.tensors)
+                for s in range(0, n, chunk_rows):
+                    idx_d = torch.as_tensor(rows[s:s + chunk_rows],
+                                            device=self.device)
+                    got = [t.index_select(0, idx_d) for t in flat]
+                    host = torch.cat([g.reshape(-1).view(torch.uint8)
+                                      for g in got]).cpu().numpy()
+                    chunks += 1
+                    _MIGRATE_STATS["peak_chunk_bytes"] = max(
+                        _MIGRATE_STATS["peak_chunk_bytes"], host.nbytes)
+                    views, off = [], 0
+                    for g in got:
+                        nb = g.numel() * g.element_size()
+                        bits = (host[off:off + nb].view(_host_dtype(g.dtype))
+                                .reshape(tuple(g.shape)))
+                        views.append(_wire_array(bits, g.dtype))
+                        off += nb
+                    parts.append(views)
+            flat_out = [np.concatenate([p[i] for p in parts])
+                        for i in range(len(parts[0]))]
+            leaves = self._nest(flat_out)
+            payload_bytes = sum(_leaf_nbytes(x) for kv in leaves for x in kv)
+            _MIGRATE_STATS["exports"] += 1
+            _MIGRATE_STATS["bytes_out"] += payload_bytes
+            _MIGRATE_STATS["blocks_out"] += n
+            _MIGRATE_STATS["chunks"] += chunks
+            return {
+                "version": KV_WIRE_VERSION,
+                "block_tokens": self.block_tokens,
+                "kv_dtype": self.kv_dtype or "full",
+                "num_layers": self.spec["num_layers"],
+                "num_kv_heads": self.spec["num_kv_heads"],
+                "head_dim": self.spec["head_dim"],
+                "salt": salt.hex() if salt else "",
+                "tokens": toks[:n * self.block_tokens],
+                "n_blocks": n,
+                "payload_bytes": payload_bytes,
+                "leaves": leaves,
+            }
+        finally:
+            self.abort(hit)
+
+    @torch.inference_mode()
     def inject_payload(self, payload: dict,
                        max_chunk_bytes: Optional[int] = None) -> int:
-        """Not ported yet: the KV wire import belongs to the router and
-        disaggregated-serving slice (queue A6)."""
-        raise NotImplementedError(
-            "BlockPool.inject_payload is not ported yet; it comes with the "
-            "router and disaggregated serving (queue A6)")
+        """Scatter a peer's :meth:`export_payload` (the port's or the
+        reference's) into THIS pool and publish the blocks; returns
+        matchable tokens added (0 when every block was already resident —
+        import is idempotent by digest). Raises ``ValueError`` on a
+        wire-version or geometry mismatch; on any failure past row
+        allocation the pending rows go back to the free list before
+        re-raising. Each chunk crosses to the device as ONE host buffer
+        and is scattered per leaf under ``device_lock``."""
+        if not isinstance(payload, dict) or \
+                payload.get("version") != KV_WIRE_VERSION:
+            version = (payload.get("version") if isinstance(payload, dict)
+                       else None)
+            raise ValueError(
+                f"KV payload version {version!r} != "
+                f"{KV_WIRE_VERSION}; refusing cross-version import")
+        for k, want in (("block_tokens", self.block_tokens),
+                        ("kv_dtype", self.kv_dtype or "full"),
+                        ("num_layers", self.spec["num_layers"]),
+                        ("num_kv_heads", self.spec["num_kv_heads"]),
+                        ("head_dim", self.spec["head_dim"])):
+            if payload.get(k) != want:
+                raise ValueError(
+                    f"KV payload {k}={payload.get(k)!r} does not match "
+                    f"this pool's {k}={want!r}")
+        salt = bytes.fromhex(payload.get("salt") or "")
+        toks = np.asarray(payload["tokens"], np.int32).ravel()
+        n = int(payload["n_blocks"])
+        if toks.shape[0] != n * self.block_tokens:
+            raise ValueError(
+                f"KV payload covers {toks.shape[0]} tokens but declares "
+                f"{n} blocks of {self.block_tokens}")
+        n = min(n, self.blocks_per_prompt)
+        # re-derive identity from the payload's own tokens: the chain
+        # commits each block to its full left context + salt, so a
+        # payload can only ever install blocks its tokens actually name
+        digests = _chain_digests(toks, self.block_tokens, n, salt)
+        pending: List[_Entry] = []
+        write_rows: List[Tuple[int, int]] = []   # (payload block, pool row)
+        with self._lock:
+            self._tick += 1
+            for i in range(n):
+                d = digests[i]
+                existing = self._entries.get(d)
+                if existing is not None:
+                    existing.last_use = self._tick
+                    _MIGRATE_STATS["blocks_skipped"] += 1
+                    continue
+                row = self._free.pop() if self._free \
+                    else self._evict_one_locked()
+                if row is None:
+                    break      # saturated: the chain prefix still lands
+                parent = digests[i - 1] if i > 0 else None
+                e = _Entry(digest=d, index=row, parent=parent,
+                           last_use=self._tick)
+                pending.append(e)
+                write_rows.append((i, row))
+        if not write_rows:
+            _MIGRATE_STATS["imports"] += 1
+            return 0
+        try:
+            chunk_rows = self._chunk_rows(max_chunk_bytes)
+            chunks = 0
+            src_flat = []
+            for kv in payload["leaves"][:self.spec["num_layers"]]:
+                for leaf in kv:
+                    src_flat.extend(leaf if isinstance(leaf, tuple)
+                                    else (leaf,))
+            with self.device_lock:
+                flat = self._flat_leaves(self.tensors)
+                if len(src_flat) != len(flat):
+                    raise ValueError(
+                        f"KV payload has {len(src_flat)} leaves, this "
+                        f"pool {len(flat)}")
+                for s in range(0, len(write_rows), chunk_rows):
+                    batch = write_rows[s:s + chunk_rows]
+                    blocks = np.asarray([b for b, _ in batch], np.int64)
+                    idx = np.asarray([r for _, r in batch], np.int64)
+                    chunks += 1
+                    buf, views, offsets = _staging(
+                        [((len(batch),) + tuple(t.shape[1:]),
+                          _host_dtype(t.dtype)) for t in flat])
+                    for t, src, dst in zip(flat, src_flat, views):
+                        src = np.asarray(src)
+                        if src.dtype == dst.dtype:
+                            np.take(src, blocks, axis=0, out=dst)
+                        else:
+                            dst[...] = _host_bits(src[blocks], t.dtype)
+                    _MIGRATE_STATS["peak_chunk_bytes"] = max(
+                        _MIGRATE_STATS["peak_chunk_bytes"], buf.nbytes)
+                    dev = torch.from_numpy(buf).to(self.device)
+                    idx_d = torch.as_tensor(idx, device=self.device)
+                    for t, a, o in zip(flat, views, offsets):
+                        rows_t = (dev[o:o + a.nbytes].view(t.dtype)
+                                  .reshape(a.shape))
+                        t.index_copy_(0, idx_d, rows_t)
+        except BaseException:
+            with self._lock:
+                for e in pending:
+                    self._free.append(e.index)
+            raise
+        with self._lock:
+            for e in pending:
+                self._entries[e.digest] = e
+                self.blocks_stored += 1
+                if e.parent is not None:
+                    parent = self._entries.get(e.parent)
+                    if parent is not None:
+                        parent.children += 1
+        _MIGRATE_STATS["imports"] += 1
+        _MIGRATE_STATS["blocks_in"] += len(pending)
+        _MIGRATE_STATS["chunks"] += chunks
+        _MIGRATE_STATS["bytes_in"] += int(
+            payload.get("payload_bytes")
+            or sum(_leaf_nbytes(x) for kv in payload["leaves"] for x in kv))
+        return len(pending) * self.block_tokens
 
     # ------------------------------------------------------------ stats
     def stats(self) -> dict:

@@ -151,7 +151,10 @@ class Request:
     """One generation request plus its per-slot sampling state.
     ``tenant`` and ``adapter_id`` name its fairness tenant (see
     :meth:`FifoScheduler.tenant_of`); ``attempts`` counts admissions
-    (the crash-recovery requeue budget)."""
+    (the crash-recovery requeue budget). ``corr_id`` is the tracing
+    correlation id minted at the front door (router or server submit):
+    every span the request touches is keyed by it, across replicas and
+    requeues."""
 
     prompt: object
     max_new_tokens: int = 32
@@ -163,6 +166,7 @@ class Request:
     deadline: Optional[Deadline] = None
     adapter_id: Optional[str] = None
     tenant: Optional[str] = None
+    corr_id: Optional[str] = None
     id: int = field(default_factory=lambda: next(_req_serial))
     attempts: int = 0
     handle: object = None  # back-pointer set by the server

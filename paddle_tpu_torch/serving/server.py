@@ -1,5 +1,5 @@
 """Threaded serving front end: submit / stream / drain / survive faults
-(port of ``paddle_tpu/serving/server.py:59-656``).
+(port of ``paddle_tpu/serving/server.py``).
 
 One daemon worker thread owns the engine (all device work is
 single-threaded by construction); any number of client threads
@@ -21,8 +21,10 @@ Failure story:
   rate-limit rejects are counted apart from failures;
 - **deadlines**: a per-request deadline expires requests still in the
   queue (their handles raise ``TimeoutError``);
-- **worker faults**: any exception in the serve loop resets the engine
-  and requeues in-flight requests at the queue head, up to
+- **worker faults**: any exception in the serve loop (including
+  ``fault_point("serve.admit")`` / ``("serve.step")`` injections from a
+  ``FaultPlan``) resets the engine and requeues in-flight requests at the
+  queue head, up to
   ``max_request_retries`` re-admissions each. Regeneration restarts from
   the request's seed, so a recovered request's ``result()`` is identical,
   but a live ``stream()`` may re-emit its prefix (at-least-once);
@@ -39,11 +41,19 @@ else the adapter id). An unknown adapter, or a store whose every row is
 pinned, fails only that request at admission
 (:class:`~paddle_tpu_torch.lora.AdapterError`), without an engine reset.
 
-Not ported yet: the observability hooks (registry, flight recorder,
-tracing) and fault-injection points.
+Observability, as the reference places it: every request carries a
+tracing correlation id (``submit(correlation_id=...)`` or a fresh one) and
+leaves ``submit`` / ``queue_wait`` / ``prefill`` / ``decode`` /
+``stream_end`` spans and events in its lane (``shed``, ``expired``,
+``rejected``, ``rate_limited`` where it ends early); an engine reset
+notes and dumps the flight recorder with the in-flight ids; the server's
+gauges feed the process metrics registry, which ``metrics_text()``,
+``statusz()`` and ``probe()`` serve to the router and the remote host.
 """
 from __future__ import annotations
 
+import itertools
+import os
 import queue
 import threading
 import time
@@ -53,13 +63,20 @@ from typing import Iterator, Optional
 import numpy as np
 
 from .. import default_device
+from ..distributed.resilience import fault_point
 from ..lora.store import AdapterError, normalize_adapter_id
+from ..observability import flight as _flight
+from ..observability import registry as _obs_registry
+from ..observability import tracing as _tracing
+from ..profiler import RecordEvent
 from .engine import ContinuousBatchingEngine
 from .metrics import ServingMetrics
 from .scheduler import (Deadline, FifoScheduler, Overloaded, QueueFull,
                         RateLimited, Request, SchedulerClosed)
 
 __all__ = ["InferenceServer", "RequestHandle"]
+
+_server_serial = itertools.count()
 
 
 class RequestHandle:
@@ -81,7 +98,11 @@ class RequestHandle:
         #: without a pool)
         self.cache_hit_tokens: int = 0
         self._submit_t = time.monotonic()
+        # wall-clock twin of _submit_t: trace spans use time.time() so
+        # fleet replicas merge onto one timeline (tools/trace_view.py)
+        self._submit_wall = time.time()
         self._last_token_t: Optional[float] = None
+        self._last_token_wall: Optional[float] = None
 
     # ---- worker-side (single writer: the serve loop) ----
     def _push(self, tok: int) -> None:
@@ -117,6 +138,12 @@ class RequestHandle:
     def adapter_id(self):
         """The tenant adapter this request decodes under (None = base)."""
         return self.request.adapter_id
+
+    @property
+    def correlation_id(self) -> Optional[str]:
+        """The request's tracing correlation id — the key into
+        ``observability.tracing.spans()`` / flight-recorder dumps."""
+        return self.request.corr_id
 
     def tokens(self) -> np.ndarray:
         """Tokens generated SO FAR (snapshot; may grow)."""
@@ -200,6 +227,14 @@ class InferenceServer:
         self._thread: Optional[threading.Thread] = None
         self._stop = False
         self._drain = True
+        # this server's live state rides every registry scrape: queue
+        # depth, slot occupancy, call counters, and the pool/store
+        # occupancy blocks. Weak (bound-method) collector: a collected
+        # server drops out of the scrape instead of raising.
+        self._obs_label = f"srv{next(_server_serial)}"
+        _obs_registry.default_registry().register_collector(
+            self._obs_collect, labels={"server": self._obs_label},
+            name=f"serving.{self._obs_label}")
 
     # ------------------------------------------------------------ client
     def start(self) -> "InferenceServer":
@@ -216,7 +251,8 @@ class InferenceServer:
                seed: Optional[int] = None,
                deadline: Optional[float] = None,
                adapter_id: Optional[str] = None,
-               tenant: Optional[str] = None) -> RequestHandle:
+               tenant: Optional[str] = None,
+               correlation_id: Optional[str] = None) -> RequestHandle:
         """Queue one generation request; returns at once with a
         :class:`RequestHandle`. Raises ``ValueError`` on an impossible
         request (too long for the cache), :class:`QueueFull` when the
@@ -236,7 +272,12 @@ class InferenceServer:
         knows the name; ``None`` or ``"base"``: the base model); mixing
         adapters across the live batch is free. ``tenant`` names the
         request's tenant for the rate limits and fair queueing (``None``:
-        the adapter id, else the base tenant)."""
+        the adapter id, else the base tenant).
+
+        ``correlation_id`` keys the request's trace lane (queue wait →
+        prefill → per-token decode → stream end); ``None`` mints a fresh
+        one. The router passes its own id through here so a rerouted
+        request keeps ONE lane across replicas."""
         prompt = np.asarray(prompt, np.int64).ravel()
         self.engine.validate(int(prompt.shape[0]), int(max_new_tokens))
         if top_p < 1.0 and not self.engine.allow_top_p:
@@ -257,33 +298,46 @@ class InferenceServer:
                 raise ValueError(
                     f"unknown adapter {adapter_id!r}; AdapterStore."
                     f"register()/load() it before submitting")
+        corr = correlation_id or _tracing.new_correlation_id()
         req = Request(
             prompt=prompt, max_new_tokens=int(max_new_tokens),
             greedy=not do_sample, temperature=float(temperature),
             top_p=float(top_p), eos_token_id=eos_token_id,
             seed=None if seed is None else int(seed),
             deadline=Deadline(deadline) if deadline is not None else None,
-            adapter_id=adapter_id, tenant=tenant)
+            adapter_id=adapter_id, tenant=tenant, corr_id=corr)
         handle = RequestHandle(req)
         req.handle = handle
         self.start()
-        try:
-            self.scheduler.submit(req)
-        except Overloaded:
-            # the fast-fail half of overload control: the request learns
-            # now, not after its whole deadline
-            self.metrics.inc("requests_shed")
-            self._adapter_fail(req)
-            raise
-        except RateLimited:
-            # one tenant over ITS rate: the server working as designed,
-            # counted apart from sheds and failures
-            self.metrics.inc("requests_rate_limited")
-            raise
-        except QueueFull:
-            self.metrics.inc("requests_rejected")
-            raise
+        with RecordEvent("serve:admit"):
+            try:
+                self.scheduler.submit(req)
+            except Overloaded:
+                # the fast-fail half of overload control: the request
+                # learns now, not after its whole deadline
+                self.metrics.inc("requests_shed")
+                self._adapter_fail(req)
+                _tracing.record_event("shed", corr=corr,
+                                      queue_depth=self.scheduler.depth)
+                raise
+            except RateLimited as e:
+                # one tenant over ITS rate: the server working as
+                # designed, counted apart from sheds and failures; the
+                # flight note carries the tenant into every later dump
+                self.metrics.inc("requests_rate_limited")
+                _tracing.record_event("rate_limited", corr=corr,
+                                      tenant=e.tenant)
+                _flight.note("rate_limited", corr=corr, tenant=e.tenant,
+                             retry_after_s=round(e.retry_after, 3))
+                raise
+            except QueueFull:
+                self.metrics.inc("requests_rejected")
+                _tracing.record_event("rejected", corr=corr,
+                                      queue_depth=self.scheduler.depth)
+                raise
         self.metrics.inc("requests_submitted")
+        _tracing.record_event("submit", corr=corr, request_id=req.id,
+                              prompt_len=int(prompt.shape[0]))
         self.metrics.set_queue_depth(self.scheduler.depth)
         with self._cv:
             self._cv.notify_all()
@@ -327,6 +381,72 @@ class InferenceServer:
             self.engine.cache_stats(),
             prefix_cache=None if pool is None else pool.stats(),
             adapter_store=None if store is None else store.stats())
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition of the process metrics registry —
+        the ``/metrics`` handle (this server's gauges carry its
+        ``server=<label>`` labels; co-hosted replicas and the training
+        side share the same page)."""
+        return _obs_registry.default_registry().prometheus_text()
+
+    def statusz(self) -> dict:
+        """Introspection snapshot — the ``/statusz`` handle: live
+        engine/scheduler state, the full metrics snapshot, and the
+        flight-recorder/trace-buffer health."""
+        return {
+            "time": round(time.time(), 3),
+            "pid": os.getpid(),
+            "server": self._obs_label,
+            "active_slots": self.engine.active_count,
+            "slots": self.engine.slots,
+            "queue_depth": self.scheduler.depth,
+            "prefill_buckets": list(self.engine.prefill_buckets),
+            "snapshot": self.snapshot(),
+            # per-tenant token-bucket fill (empty when rate limiting is
+            # off or no tenant has submitted yet)
+            "token_buckets": self.scheduler.bucket_levels(),
+            "flight": _flight.flight_recorder().stats(),
+            "trace": _tracing.stats(),
+        }
+
+    def probe(self) -> dict:
+        """Cheap liveness/load probe — the payload the router's heartbeat
+        failure detector polls. Host-side attribute reads only (no device
+        sync, no histogram math), so a probe's latency measures the
+        REPLICA's responsiveness. The ``serve.probe`` fault site lets
+        chaos drills fail or slow the probe path in isolation."""
+        fault_point("serve.probe")
+        depth = self.scheduler.depth
+        return {
+            "time": round(time.time(), 3),
+            "pid": os.getpid(),
+            "active": self.engine.active_count,
+            "slots": self.engine.slots,
+            "queue_depth": depth,
+            "max_queue_depth": self.scheduler.max_queue_depth,
+            # what a request arriving NOW should expect to wait (None
+            # until the scheduler has cadence evidence)
+            "predicted_queue_wait": self.scheduler.predicted_wait(depth),
+        }
+
+    def _obs_collect(self) -> dict:
+        """Registry collector: the occupancy/queue/call numbers an
+        autoscaler polls, read from live state (no histogram math)."""
+        eng = self.engine
+        cc = eng.cache_stats()
+        gauges = {
+            "serving.queue_depth": self.scheduler.depth,
+            "serving.active_slots": eng.active_count,
+            "serving.slots": eng.slots,
+            "serving.prefill_compiles": cc["prefill"]["compiles"],
+            "serving.decode_compiles": cc["decode"]["compiles"],
+        }
+        out = {"gauges": gauges}
+        if eng.pool is not None:
+            gauges["serving.prefix_cache"] = eng.pool.stats()
+        if eng.store is not None:
+            gauges["serving.adapter_store"] = eng.store.stats()
+        return out
 
     # ------------------------------------------------------------ worker
     def _loop(self) -> None:
@@ -395,10 +515,12 @@ class InferenceServer:
         self.metrics.set_active_slots(self.engine.active_count)
         if self.engine.active_count == 0:
             return
+        fault_point("serve.step")
         events = self.engine.step()
         self.metrics.inc("decode_steps")
         per_adapter = self.engine.store is not None
         now = time.monotonic()
+        now_wall = time.time()
         for ev in events:
             req = self.engine.requests[ev.slot]
             h = req.handle
@@ -409,13 +531,27 @@ class InferenceServer:
             if h._last_token_t is not None:
                 self.metrics.observe_inter_token(now - h._last_token_t)
             h._last_token_t = now
+            # per-token decode span in the request's lane, bracketed by
+            # the step's read-back (no extra sync): one "decode" slice per
+            # emitted token, spanning since its previous token
+            _tracing.record_span(
+                "decode", h._last_token_wall or now_wall, now_wall,
+                corr=req.corr_id, tags={"slot": ev.slot})
+            h._last_token_wall = now_wall
             if ev.done or h._count() >= req.max_new_tokens:
                 self._finish(req, ev.slot)
 
     def _admit(self, req: Request, slot: int) -> None:
         req.attempts += 1   # count BEFORE any fault: a failed admission
-        self.metrics.observe_queue_wait(  # spends retry budget
+        fault_point("serve.admit")  # spends retry budget, never loops
+        self.metrics.observe_queue_wait(
             time.monotonic() - req.handle._submit_t)
+        # the queue-wait lane slice: submit wall-time -> this admission (a
+        # requeued request's later admissions re-enter the lane as fresh
+        # queue_wait slices after the engine_reset marker)
+        _tracing.record_span("queue_wait", req.handle._submit_wall,
+                             time.time(), corr=req.corr_id,
+                             tags={"attempt": req.attempts})
         first, fin, hit_tokens = self.engine.admit(req, slot)
         self.metrics.inc("prefills")
         if self.engine.pool is not None:
@@ -438,13 +574,17 @@ class InferenceServer:
                 self.metrics.adapter_request(req.adapter_id)
                 self.metrics.observe_adapter_ttft(req.adapter_id, h.ttft_s)
         h._last_token_t = t1
+        h._last_token_wall = time.time()
         if fin or req.max_new_tokens == 1:
+            # eos straight out of prefill: zero decode iterations
             self._finish(req, slot)
 
     def _finish(self, req: Request, slot: int) -> None:
         self.engine.release(slot)
         self.metrics.inc("requests_completed")
         self.metrics.set_active_slots(self.engine.active_count)
+        _tracing.record_event("stream_end", corr=req.corr_id,
+                              tokens=req.handle._count())
         req.handle._finish()
 
     def _adapter_fail(self, req: Request) -> None:
@@ -456,6 +596,7 @@ class InferenceServer:
     def _expire(self, req: Request) -> None:
         self.metrics.inc("requests_expired")
         self._adapter_fail(req)
+        _tracing.record_event("expired", corr=req.corr_id)
         req.handle._fail(TimeoutError(
             f"request {req.id} expired in queue after "
             f"{req.deadline.total:.3f}s deadline"))
@@ -467,6 +608,7 @@ class InferenceServer:
         instead of riding the queue into a certain ``TimeoutError``."""
         self.metrics.inc("requests_shed")
         self._adapter_fail(req)
+        _tracing.record_event("shed", corr=req.corr_id)
         req.handle._fail(Overloaded(
             f"request {req.id} shed from queue: predicted wait exceeds "
             f"its {req.deadline.total:.3f}s deadline; retry against "
@@ -483,6 +625,19 @@ class InferenceServer:
             f"serve loop fault ({type(exc).__name__}: {exc}); resetting "
             f"engine, requeueing {len(inflight)} in-flight request(s)",
             RuntimeWarning)
+        # crash artifact FIRST, while the ring still holds the lead-up:
+        # the flight dump carries the failing requests' correlation ids,
+        # their span tails, and the metric state at the moment of death
+        corrs = [r.corr_id for r in inflight]
+        for c in corrs:
+            _tracing.record_event("engine_reset", corr=c)
+        _flight.note("engine_reset", corr=corrs[0] if corrs else None,
+                     error=f"{type(exc).__name__}: {exc}",
+                     inflight=list(corrs))
+        _flight.dump("engine_reset", corr=corrs[0] if corrs else None,
+                     extra={"error": f"{type(exc).__name__}: {exc}",
+                            "inflight": list(corrs),
+                            "server": self._obs_label})
         try:
             self.engine.reset()
         except Exception as reset_exc:  # pragma: no cover

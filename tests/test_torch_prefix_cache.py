@@ -214,11 +214,17 @@ def test_hits_and_evictions_equal_jax_pool():
 
 
 def test_pool_wire_export_waits_for_router_slice():
+    """The wire export and import are ported now: a pool with nothing
+    matched exports nothing, and a payload without the wire version is
+    refused as the reference refuses it (the round trips are in
+    tests/test_torch_disagg.py)."""
     pool = BlockPool(_SpecModel(), block_tokens=4, max_bytes=1 << 20)
-    with pytest.raises(NotImplementedError, match="A6"):
-        pool.export_payload(np.arange(9))
-    with pytest.raises(NotImplementedError, match="A6"):
-        pool.inject_payload({})
+    ref = JaxPool(_SpecModel(), block_tokens=4, max_bytes=1 << 20)
+    assert pool.export_payload(np.arange(9)) is None
+    assert ref.export_payload(np.arange(9)) is None
+    for p in (pool, ref):
+        with pytest.raises(ValueError, match="version"):
+            p.inject_payload({})
 
 
 @pytest.mark.parametrize("int8", [False, True])

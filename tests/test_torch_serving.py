@@ -306,6 +306,21 @@ def test_port_imports_no_jax_or_reference_package():
                  "paddle_tpu_torch/lora/__init__.py",
                  "paddle_tpu_torch/lora/layers.py",
                  "paddle_tpu_torch/lora/store.py",
+                 "paddle_tpu_torch/observability/__init__.py",
+                 "paddle_tpu_torch/observability/registry.py",
+                 "paddle_tpu_torch/observability/tracing.py",
+                 "paddle_tpu_torch/observability/flight.py",
+                 "paddle_tpu_torch/observability/slo.py",
+                 "paddle_tpu_torch/observability/fleet.py",
+                 "paddle_tpu_torch/profiler/__init__.py",
+                 "paddle_tpu_torch/distributed/rpc/__init__.py",
+                 "paddle_tpu_torch/distributed/rpc/rpc.py",
+                 "paddle_tpu_torch/distributed/launch/__init__.py",
+                 "paddle_tpu_torch/distributed/launch/kv_server.py",
+                 "paddle_tpu_torch/serving/remote.py",
+                 "paddle_tpu_torch/serving/router.py",
+                 "paddle_tpu_torch/serving/disagg.py",
+                 "paddle_tpu_torch/serving/__init__.py",
                  "tools/torch_train_profile.py"):
         assert path in scanned
     bad = [(f.relative_to(REPO).as_posix(), m) for f in files
