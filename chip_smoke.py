@@ -145,7 +145,13 @@ exits non-zero:
                the child's replica, the child is SIGKILLed partway (its
                own launch counts printed as it serves: 24 a prefill),
                and every stream still equals the pool-less one, with a
-               replica_dead flight dump naming the rerouted ids. Last, a
+               replica_dead flight dump naming the rerouted ids. Then an
+               Autoscaler over a router of one local replica scales out on
+               a burning SLO report through a ProcessReplicaSpawner: a
+               fresh child interpreter (``--replica-child``) hosts a
+               pool-less preset replica on the card, which serves a
+               request equal to the pool-less stream with 24 wgmma_f32
+               forwards, and scale-in drains it. Last, a
                profiler capture of one request (serve:prefill and
                serve:decode ranges holding the kernel launches) and the
                server's 8-slot step (per-token decode spans included)
@@ -265,13 +271,35 @@ exits non-zero:
                per decode step with and without the adapters.
 13. llama    - llama2_7b served at full width and depth, its bf16 O2
                step (8 of 32 layers) and its GQA gradients (2 layers).
+14. distributed_training - hapi_gpt_fit's GPT-350M step (bf16 O2 AdamW,
+               global batch [8, 1024]) at world 2 on the one card: a
+               single-process TrainStep first (the yardstick), NCCL with
+               two ranks on the device meanwhile (its refusal recorded)
+               and then with a world of one (this process: the default
+               backend), then one pair of fresh rank processes
+               (``--dist-child``) over gloo with CUDA tensors running
+               three runs in turn: sdp = 2 with ZeRO-2 and the overlap
+               buckets, mp = 2, and sdp = 2 with ZeRO-3. Each
+               takes 5 warm-up and 8 timed steps (ZeRO-3 gathering each
+               decoder block on use); its losses are held to the
+               yardstick's (DIST_LOSS_RTOL) and its float32 masters too,
+               block by block on the ranks (DIST_UPDATE_RTOL,
+               DIST_UPDATE_MODEL_RTOL: the share of the yardstick's update
+               that the run got wrong, on the worst leaf and on the
+               model); each rank
+               launches exactly 24 wgmma forward, dQ and dK/dV kernels a
+               step at its own shape
+               ([4,16,1024,64] under ZeRO, [8,8,1024,64] under mp) and
+               reports its step ms, peak GiB, bytes by collective, staged
+               bytes and the backend.
 
 Then a line with the kernels' summary, a line with the card's name and
 power limit, and the last line {"ok": true, "device": {...}}.
 The kernels line counts each kernel's launches on the path that runs it
 (the serving options, speculative prefills, the serve preset's D = 64
 prefills, the fleet's, each attention call of Transformer-base, the fit loop's
-D = 64 step and the two LoRA paths have rows of their own). ``--kernels-only`` stops after phase 3
+D = 64 step, the two LoRA paths and the three world-2 runs have rows of
+their own). ``--kernels-only`` stops after phase 3
 and prints none of those three
 lines, and reports a register spill without failing on it: a partial
 run, to compare kernel builds (a layout that spills among them) in turns.
@@ -345,6 +373,13 @@ TRAIN_WARMUP, TRAIN_TIMED = 5, 8
 # its attention, [TRAIN_BATCH, 8, TRAIN_SEQ, 256] bf16 causal, is also a
 # case of the forward, backward and dropout phases
 D256_STEP_HEADS = 8
+# one rank's attention in the world-2 runs of bench_gpt_primary's GPT-350M
+# (phase_distributed_training): [4, 16, 1024, 64] with the batch split in
+# two (ZeRO over sdp = 2), [8, 8, 1024, 64] with the heads split (mp = 2)
+DIST_ZERO_FWD = "dist_zero_bf16_B4_H16_L1024"
+DIST_ZERO_BWD = "dist_zero_bfloat16_B4_H16_L1024"
+DIST_MP_FWD = "dist_mp_bf16_B8_H8_L1024"
+DIST_MP_BWD = "dist_mp_bfloat16_B8_H8_L1024"
 D256_STEP_FWD = f"d256_step_bf16_B{TRAIN_BATCH}_H{D256_STEP_HEADS}_L{TRAIN_SEQ}"
 D256_STEP_BWD = f"d256_step_bfloat16_B{TRAIN_BATCH}_H{D256_STEP_HEADS}_L{TRAIN_SEQ}"
 # the float32 D = 256 run (phase_d256_f32): the D = 256 step's
@@ -798,6 +833,13 @@ def _fwd_cases(g):
     # bench.py bench_gpt_primary's attention: [8, 16, 1024, 64] bf16, causal
     cases.append(("primary_bf16_B8_L1024", *_views(g, 8, 1024, 16, 64, torch.bfloat16),
                   True, None, "wgmma", bf16_tol))
+    # the same attention on one rank of the world-2 runs
+    # (phase_distributed_training): half the batch under ZeRO, half the
+    # heads under mp = 2
+    cases.append((DIST_ZERO_FWD, *_views(g, 4, 1024, 16, 64, torch.bfloat16),
+                  True, None, "wgmma", bf16_tol))
+    cases.append((DIST_MP_FWD, *_views(g, 8, 1024, 8, 64, torch.bfloat16),
+                  True, None, "wgmma", bf16_tol))
     # D = 256: the wgmma forward at two sizes, and at the D = 256 step's
     # own [2, 8, 1024, 256] (phase_d256_step)
     cases.append(("d256_causal_bf16_L1024", *_views(g, 1, 1024, 8, 256, torch.bfloat16),
@@ -1073,6 +1115,12 @@ def _bwd_cases(g):
         q, k, v, do = (rn(B, H, 1024, D).to(dtype) for _ in range(4))
         cases.append((f"d{D}_causal_{_dtype_name(q)}_B{B}_L1024", q, k, v, do,
                       True, None, routes))
+    # one rank's attention in the world-2 runs, as its autograd hands it
+    # over: half the batch (ZeRO) and half the heads (mp = 2)
+    for name, B, H in ((DIST_ZERO_BWD, 4, 16), (DIST_MP_BWD, 8, 8)):
+        q, k, v = _views(g, B, 1024, H, 64, torch.bfloat16)
+        do = rn(B, 1024, H, 64).to(torch.bfloat16).transpose(1, 2)
+        cases.append((name, q, k, v, do, True, None, _both("wgmma")))
     # the attention of the D = 256 step (bf16), of the float32 D = 256 run
     # and of the float16 D = 256 step, as their autograd hands it over
     for name, dtype, route in ((D256_STEP_BWD, torch.bfloat16, "wgmma"),
@@ -2252,6 +2300,116 @@ def fleet_child(weights: str, endpoint: str, device: str) -> int:
     return 0
 
 
+def replica_child(weights: str, endpoint: str, device: str,
+                  cycle: str) -> int:
+    """The replica fleet_serving's Autoscaler spawns: the parent's model
+    (weights from ``weights``) behind one pool-less preset server, hosted
+    over rpc as ``default`` (the name ProcessReplicaSpawner asks for) in
+    the parent's rpc cycle ``cycle``, until the parent asks it to stop."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import default_device
+    from paddle_tpu_torch.distributed import rpc
+    from paddle_tpu_torch.serving import remote
+
+    default_device(device)
+    rpc.rpc._cycle = int(cycle)     # the parent's rendezvous namespace
+    rpc.init_rpc("auto-replica", rank=1, world_size=2,
+                 master_endpoint=endpoint)
+    blob = torch.load(weights, map_location=device, weights_only=False)
+    cfg = blob["cfg"]
+    model = _model_cls(cfg)(cfg, device=device)
+    model.load_state_dict(blob["state"])
+    model.eval()
+    del blob
+    model.generate(np.zeros((1, 8), np.int64), max_new_tokens=2,
+                   max_length=1024)   # warm: kernels loaded, cuBLAS handles
+    srv = _preset_server(model, False)
+    remote.host_server(srv, "default")
+    remote.wait_for_stop()
+    srv.shutdown(drain=True, timeout=60)
+    rpc.shutdown(timeout=10.0)
+    return 0
+
+
+def _autoscale_out(model, requests, yard, weights, env, device, fa) -> dict:
+    """An Autoscaler over a router of one local replica scales out on a
+    burning SLO report through a ProcessReplicaSpawner; the spawned child
+    serves requests[0] (its launches read over rpc), then scale-in drains
+    it."""
+    from paddle_tpu_torch.distributed import rpc
+    from paddle_tpu_torch.serving import (Autoscaler, ProcessReplicaSpawner,
+                                          ReplicaRouter, remote)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    endpoint = f"127.0.0.1:{_free_port()}"
+    spawner = ProcessReplicaSpawner(
+        [sys.executable, os.path.abspath(__file__), "--replica-child",
+         weights, endpoint, device, str(rpc.rpc._cycle)], "auto-replica",
+        init=lambda: rpc.init_rpc("parent", rank=0, world_size=2,
+                                  master_endpoint=endpoint),
+        rpc_timeout=120.0, ready_timeout=600.0, env=env)
+    router = ReplicaRouter()
+    local = _preset_server(model, False)
+    router.add_replica(local, "local")
+    auto = Autoscaler(router, spawner, sustain_ticks=1, cooldown_s=0.0,
+                      max_replicas=2, scale_in_load=10.0)
+    burning = {"tenants": {"__fleet__": {
+        "burn_slow": 5.0, "burn_fast": 10.0, "slow_breached": True,
+        "window_slow": {"total": 10}}}}
+    quiet = {"tenants": {"__fleet__": {
+        "burn_slow": 0.0, "burn_fast": 0.0, "slow_breached": False,
+        "window_slow": {"total": 10}}}}
+    try:
+        router.slo_report = lambda: burning
+        grow = auto.tick()
+        if grow is None or grow["action"] != "scale_out":
+            raise AssertionError(f"autoscaler: no scale-out: {grow}")
+        replica = router._replicas[grow["replica"]].server
+        if fa is not None:
+            rpc.rpc_sync("auto-replica", fa.reset_launch_counts)
+        stream = replica.submit(**requests[0]).result(timeout=900)
+        _check_streams("autoscaled replica vs serve_preset", requests[:1],
+                       [stream], yard["pool_less"][:1])
+        counts = (rpc.rpc_sync("auto-replica", fa.launch_counts)
+                  if fa is not None else None)
+        want = model.cfg.num_layers if fa is not None else 0
+        got = (counts["fwd"]["wgmma_f32"] if counts is not None else 0)
+        if got != want:
+            raise AssertionError(f"autoscaled replica: {got} wgmma_f32 "
+                                 f"forwards, expected {want}")
+        router.slo_report = lambda: quiet
+        shrink = auto.tick()
+        if shrink is None or shrink["action"] != "scale_in" \
+                or router.replicas()[grow["replica"]] != "dead":
+            raise AssertionError(f"autoscaler: no drain: {shrink}, "
+                                 f"{router.replicas()}")
+        return dict(spawn_s=grow["spawn_s"], replica=grow["replica"],
+                    corr=grow["corr"], child_flash_launches=got,
+                    scale_in=shrink["action"],
+                    statusz={k: v for k, v in auto.statusz().items()
+                             if k in ("scale_outs", "scale_ins",
+                                      "spawn_failures")})
+    finally:
+        router.shutdown(timeout=60)
+        live = [p for p in spawner.procs if p.poll() is None]
+        if live:
+            try:
+                rpc.rpc_sync("auto-replica", remote._host_request_stop,
+                             timeout=10)
+            except Exception:
+                pass
+        # the child's rpc.shutdown waits at a barrier for this one
+        rpc.shutdown(timeout=10.0)
+        for proc in live:
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+
+
 def _lane_check(spans, corr, child_names, parent_names) -> dict:
     """One request's stitched lane: the child's spans (src "child") and
     the parent's (no src) carry the names asked, and the lane reads in
@@ -2722,8 +2880,14 @@ def phase_fleet_serving(seed: int, yard: dict, device: str = "cuda") -> dict:
             srv.shutdown(drain=False, timeout=60)
         rpc.shutdown(timeout=4.0)
         reader.join(timeout=30)
-        os.remove(weights)
     out["child_exit"] = proc.returncode
+
+    # 3d. an Autoscaler's scale-out through a spawned process
+    try:
+        out["autoscale"] = _autoscale_out(model, requests, yard, weights,
+                                          env, device, fa)
+    finally:
+        os.remove(weights)
 
     # 4. one replica's own costs
     out["profile"] = _profile_request(model, requests[shared[0]],
@@ -3682,7 +3846,8 @@ def _transformer_base_lm(seed: int):
 
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.nn.initializer import Normal
-    from paddle_tpu_torch.nn.layers.common import Embedding, parallel_matmul
+    from paddle_tpu_torch.distributed.parallel.mp_layers import parallel_matmul
+    from paddle_tpu_torch.nn.layers.common import Embedding
     from paddle_tpu_torch.nn.layers.transformer import Transformer
 
     class TransformerBaseLM(nn.Module):
@@ -5547,6 +5712,375 @@ def phase_lora_serving(seed: int, device: str = "cuda", cfg=None) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# hybrid-parallel training at world 2 on the one card
+# --------------------------------------------------------------------------
+
+DIST_PATH = ("training (GPT-350M bf16 O2 step at world 2 on one card, gloo "
+             "with CUDA tensors)")
+# (label, mesh, DistributedTrainStep options, the rank's attention cases)
+DIST_RUNS = (
+    ("sdp2_zero2_overlap", {"sdp": 2},
+     dict(sharding_stage=2, overlap_grad_reduce=True),
+     DIST_ZERO_FWD, DIST_ZERO_BWD),
+    ("mp2", {"mp": 2}, {}, DIST_MP_FWD, DIST_MP_BWD),
+    ("sdp2_zero3", {"sdp": 2}, dict(sharding_stage=3),
+     DIST_ZERO_FWD, DIST_ZERO_BWD),
+)
+DIST_BACKEND = "gloo"        # two ranks on one device: NCCL refuses them
+DIST_CHILD_TIMEOUT_S = 600   # one run's two ranks, start to exit
+DIST_NCCL_TIMEOUT_S = 120    # the NCCL checks (a refusal may hang a peer)
+# bf16 tolerances against the single-process step on the same batches.
+# The update error of a float32 master is ||world-2 master - yardstick's||
+# over ||yardstick's - initial||: the share of what the 13 steps learned
+# that the run got wrong (a run that never updates reads 1), gated on the
+# worst leaf and on the whole model. Each limit lies between the sound
+# runs' readings and those of runs with a planted fault, read on an H100
+# by tools/torch_dist_faults.py: worst leaf 0.42 / 0.54 / 0.42 sound
+# (ZeRO-2, mp = 2, ZeRO-3) against 1.00 / 1.04 / 1.34 (no update, no
+# gradient reduction, no input-gradient all-reduce over mp); the model
+# 0.037 / 0.070 / 0.037 against 0.999 / 0.904 / 1.011; the losses' largest
+# relative error 3.5e-5 / 9.3e-5 / 3.5e-5 against 3.5e-3 / 1.1e-3 /
+# 1.05e-3.
+DIST_UPDATE_RTOL = 0.75
+DIST_UPDATE_MODEL_RTOL = 0.25
+DIST_LOSS_RTOL = 3e-4
+DIST_LR = 1e-4
+
+
+def _dist_batches(cfg, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 20)
+    return [rng.integers(0, cfg.vocab_size, (HF_BATCH, HF_SEQ))
+            .astype(np.int64) for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
+
+
+def _dist_reference(cfg, seed: int, path: str) -> dict:
+    """The single-process TrainStep on the runs' batches: its losses,
+    float32 masters and the norm of each master's move from its initial
+    value, saved to ``path`` for the ranks to compare with."""
+    import torch
+
+    from paddle_tpu_torch.framework.jit import TrainStep
+
+    model, opt = _primary_net(cfg, seed)
+    step = TrainStep(model, opt, loss_fn=None)
+    live = step.opt_state["master_weights"]
+    init = {k: v.detach().clone() for k, v in live.items()}
+    losses = [float(step((ids, ids))) for ids in _dist_batches(cfg, seed)]
+    moved = {k: float((v.detach() - init[k]).norm()) for k, v in live.items()}
+    masters = {k: v.detach().float().cpu() for k, v in live.items()}
+    torch.save({"losses": losses, "masters": masters, "moved": moved}, path)
+    del step, model, opt, masters, init
+    _free()
+    return {"losses": losses}
+
+
+def _update_error(step, mesh, ref: dict) -> dict:
+    """The run's float32 masters against the yardstick's ``ref`` (see
+    DIST_UPDATE_RTOL), without gathering them: each rank compares its own
+    block of every master with the same block of the yardstick's (a
+    block held by several ranks counts on one), and the per-leaf sums
+    meet in two small all-reduces. The worst leaf's update error and its
+    name, the whole model's, the largest element difference and the share
+    of elements more than one lr apart."""
+    import torch
+
+    from paddle_tpu_torch.convert import shard_tensor
+    from paddle_tpu_torch.distributed import collective as C
+
+    names = list(ref["masters"])
+    sums = torch.zeros(len(names), 3, dtype=torch.float64)  # d², >lr, n
+    biggest = torch.zeros(len(names), dtype=torch.float64)
+    for i, k in enumerate(names):
+        spec = step.update_specs[k]
+        if any(mesh.coordinate[a] for a in mesh.axis_names
+               if a not in spec.axes()):
+            continue   # another rank holds the same block
+        mine = step.opt_state["master_weights"][k].float()
+        d = (mine - shard_tensor(ref["masters"][k], spec, mesh).to(
+            mine.device)).abs()
+        sums[i, 0] = float(d.double().square().sum())
+        sums[i, 1] = float((d > DIST_LR).sum())
+        sums[i, 2] = d.numel()
+        biggest[i] = float(d.max())
+    sums = C.all_reduce(sums, C.ReduceOp.SUM, mesh.axis_names, mesh)
+    biggest = C.all_reduce(biggest, C.ReduceOp.MAX, mesh.axis_names, mesh)
+    worst, worst_name, num, den = -1.0, None, 0.0, 0.0
+    for i, k in enumerate(names):
+        err, moved = math.sqrt(float(sums[i, 0])), ref["moved"][k]
+        rel = err / moved if moved else (0.0 if err == 0 else math.inf)
+        if rel > worst:
+            worst, worst_name = rel, k
+        num += err * err
+        den += moved * moved
+    return dict(update_err_worst_leaf=worst, worst_leaf=worst_name,
+                update_err_model=math.sqrt(num / den),
+                master_max_abs_err=float(biggest.max()),
+                master_frac_beyond_lr=float(sums[:, 1].sum()
+                                            / sums[:, 2].sum()))
+
+
+def dist_child(runs: str, ref_path: str) -> int:
+    """One rank of phase_distributed_training (RANK, WORLD_SIZE,
+    MASTER_ADDR and MASTER_PORT in the environment). ``runs`` is
+    "nccl_two_ranks" (two ranks on one device over NCCL, the default
+    backend) or labels of DIST_RUNS joined by commas, run one after the
+    other in this process over gloo. Prints one JSON line
+    ``{"dist_child": {...}}`` a run."""
+    import torch
+    import torch.distributed as tdist
+
+    from paddle_tpu_torch import default_device
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import env
+
+    default_device("cuda")
+    rank = int(os.environ["RANK"])
+
+    def report(run, **fields):
+        print(json.dumps({"dist_child": dict(rank=rank, run=run, **fields)}),
+              flush=True)
+
+    if runs == "nccl_two_ranks":
+        try:
+            env.init_parallel_env(timeout=60.0)   # the default: NCCL
+        except Exception as e:   # the refusal is this run's result
+            report(runs, ok=False, error=f"{type(e).__name__}: {e}"[:2000])
+            return 0
+        report(runs, ok=True, backend=env.backend(),
+               world=env.get_world_size())
+        tdist.destroy_process_group()
+        return 0
+
+    from paddle_tpu_torch.distributed.mesh import init_mesh, set_mesh
+    from paddle_tpu_torch.distributed.shard import DistributedTrainStep
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    env.init_parallel_env(backend=DIST_BACKEND)
+    cfg = _primary_config()
+    seed = int(os.environ["DIST_SEED"])
+    batches = _dist_batches(cfg, seed)
+    ref = torch.load(ref_path, weights_only=False, mmap=True)
+    for run in runs.split(","):
+        t0 = time.perf_counter()
+        leftover = torch.cuda.memory_allocated() / 2 ** 30
+        mesh_shape, options = next((r[1], r[2]) for r in DIST_RUNS
+                                   if r[0] == run)
+        mesh = init_mesh(mesh_shape)
+        model, opt = _primary_net(cfg, seed)
+        step = DistributedTrainStep(model, opt, loss_fn=None, mesh=mesh,
+                                    **options)
+        _free()
+        build_s = time.perf_counter() - t0
+        fa.reset_launch_counts()
+        C.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        losses, per_step = [], []
+        for i, ids in enumerate(batches):
+            if i == TRAIN_WARMUP:
+                torch.cuda.synchronize()
+                t_timed = time.perf_counter()
+            before = _counts(fa)
+            losses.append(float(step((ids, ids))))
+            per_step.append([a - b for a, b in zip(_counts(fa), before)])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t_timed) * 1e3 / TRAIN_TIMED
+        launches = _counts(fa)
+        stats = C.stats()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out = dict(ok=True, backend=env.backend(), mesh=mesh_shape,
+                   options=options, coordinate=mesh.coordinate,
+                   leftover_gib_at_start=leftover, build_s=build_s, losses=losses, step_ms=step_ms,
+                   tokens_per_s=HF_BATCH * HF_SEQ / (step_ms / 1e3),
+                   peak_gib=peak, launches=dict(zip(_COUNT_NAMES, launches)),
+                   per_step=per_step, collective_bytes=stats["bytes"],
+                   collective_calls=stats["calls"],
+                   staged_bytes=stats["staged_bytes"],
+                   buckets=len(step.collective_schedule()),
+                   buckets_issued_in_backward=step.buckets_issued_in_backward,
+                   zero_fallback_params=len(step.zero_fallback_params),
+                   local_param_shapes={
+                       k: list(v.shape) for k, v in step.params.items()
+                       if k in ("gpt.h.0.attn.qkv_proj.weight",
+                                "gpt.embeddings.word_embeddings.weight")},
+                   ref_losses=ref["losses"], loss_max_rel_err=max(
+                       abs(a - b) / abs(b)
+                       for a, b in zip(losses, ref["losses"])),
+                   **_update_error(step, mesh, ref))
+        del step, model, opt
+        set_mesh(None)
+        _free()
+        report(run, run_s=time.perf_counter() - t0, **out)
+    tdist.destroy_process_group()
+    return 0
+
+
+def _nccl_world_of_one() -> dict:
+    """The default backend on the card: this process alone joins a world
+    of one over NCCL (``init_parallel_env``'s default; it runs one
+    all-reduce), then leaves it."""
+    import torch.distributed as tdist
+
+    from paddle_tpu_torch.distributed import env
+
+    env.init_parallel_env(timeout=60.0)
+    try:
+        got = dict(backend=env.backend(), world=env.get_world_size())
+    finally:
+        tdist.destroy_process_group()
+    if got != dict(backend="nccl", world=1):
+        raise AssertionError(f"NCCL world of one: {got}")
+    return got
+
+
+def _start_world(runs: str, world: int, ref_path: str, seed: int, tmp: str,
+                 child=None) -> tuple:
+    """Start ``world`` fresh rank processes of ``runs`` (see dist_child);
+    ``child`` is the rank's command (default: this script's
+    ``--dist-child runs ref_path``). Returns the handle _join_world
+    takes."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    child = child or [os.path.abspath(__file__), "--dist-child", runs,
+                      ref_path]
+    procs, logs = [], []
+    for r in range(world):
+        log = open(os.path.join(tmp, f"{runs}_rank{r}.log"), "w+")
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                   WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), DIST_SEED=str(seed),
+                   NCCL_DEBUG=os.environ.get("NCCL_DEBUG", "WARN"),
+                   PYTHONPATH=os.pathsep.join(
+                       [here] + [p for p in [os.environ.get("PYTHONPATH")]
+                                 if p]))
+        procs.append(subprocess.Popen(
+            [sys.executable] + child, stdout=log, stderr=subprocess.STDOUT,
+            text=True, cwd=here, env=env))
+        logs.append(log)
+    return runs, procs, logs
+
+
+def _join_world(handle, timeout: float = DIST_CHILD_TIMEOUT_S,
+                may_hang: bool = False) -> list:
+    """Wait for the ranks of ``handle`` and collect their reports: a list
+    a run, of one report a rank. A rank that hangs past ``timeout`` is
+    killed with its peers, and the world fails unless ``may_hang`` (then
+    each rank's report is ``{"ok": False, "hung": True}``)."""
+    runs, procs, logs = handle
+    deadline = time.monotonic() + timeout
+    hung = False
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        hung = True
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    reports, tails = [[] for _ in procs], []
+    for r, log in enumerate(logs):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        for line in text.splitlines():
+            if line.startswith('{"dist_child"'):
+                reports[r].append(json.loads(line)["dist_child"])
+        tails.append(f"rank {r} (exit {procs[r].returncode}):\n"
+                     + "\n".join(text.splitlines()[-25:]))
+    nccl = [[line for line in tail.splitlines()
+             if "NCCL" in line or "Duplicate" in line][-6:] for tail in tails]
+    if hung and may_hang:
+        return [[dict(rep[0] if rep else {}, ok=False, hung=True,
+                      log_tail=log) for rep, log in zip(reports, nccl)]]
+    n_runs = len(runs.split(","))
+    if any(len(rep) != n_runs for rep in reports) or any(
+            p.returncode != 0 for p in procs):
+        raise AssertionError(f"distributed_training {runs}: a rank failed\n"
+                             + "\n".join(tails))
+    return [[dict(rep[i], log_tail=log) for rep, log in zip(reports, nccl)]
+            for i in range(n_runs)]
+
+
+def phase_distributed_training(seed: int) -> dict:
+    """See the module docstring (14)."""
+    import tempfile
+
+    from paddle_tpu_torch.models.gpt import gpt_flops_per_token
+
+    leftover = _check_freed("distributed_training")
+    cfg = _primary_config()
+    tmp = tempfile.mkdtemp(prefix="dist_smoke_")
+    out = dict(model="bench_gpt_primary GPT-350M bf16 O2", path=DIST_PATH,
+               batch=[HF_BATCH, HF_SEQ], layers=cfg.num_layers,
+               backend=DIST_BACKEND, card=nvidia_smi_line(),
+               leftover_gib_at_start=leftover,
+               tolerances=dict(loss_rtol=DIST_LOSS_RTOL,
+                               update_rtol=DIST_UPDATE_RTOL,
+                               update_model_rtol=DIST_UPDATE_MODEL_RTOL))
+    try:
+        ref_path = os.path.join(tmp, "reference.pt")
+        # the NCCL pair needs no reference: it starts while the yardstick
+        # trains
+        pair = _start_world("nccl_two_ranks", 2, ref_path, seed, tmp)
+        t0 = time.perf_counter()
+        ref = _dist_reference(cfg, seed, ref_path)
+        out["reference"] = dict(losses=ref["losses"],
+                                seconds=time.perf_counter() - t0)
+        out["nccl_world1"] = _nccl_world_of_one()
+        two = _join_world(pair, timeout=DIST_NCCL_TIMEOUT_S, may_hang=True)
+        out["nccl_two_ranks_on_one_device"] = [
+            dict(ok=r["ok"], hung=r.get("hung", False),
+                 error=r.get("error"), nccl_log=r["log_tail"])
+            for r in two[0]]
+        emit("distributed_training_nccl", world1=out["nccl_world1"],
+             two_ranks_on_one_device=out["nccl_two_ranks_on_one_device"])
+        need = _need(**HF_NEED)
+        flops = gpt_flops_per_token(cfg, HF_SEQ)
+        # one pair of rank processes runs the three, one after the other
+        labels = ",".join(r[0] for r in DIST_RUNS)
+        runs = _join_world(_start_world(labels, 2, ref_path, seed, tmp))
+        for (label, mesh, options, fwd_case, bwd_case), ranks in zip(
+                DIST_RUNS, runs):
+            for rep in ranks:
+                rep.pop("log_tail", None)
+                if any(c != list(need) for c in rep["per_step"]):
+                    raise AssertionError(
+                        f"{label} rank {rep['rank']}: launches per step "
+                        f"{_COUNT_NAMES} {rep['per_step']}, expected {need}")
+                if rep["backend"] != DIST_BACKEND:
+                    raise AssertionError(f"{label}: backend {rep['backend']}")
+            r0 = ranks[0]
+            if r0["loss_max_rel_err"] > DIST_LOSS_RTOL \
+                    or r0["update_err_worst_leaf"] > DIST_UPDATE_RTOL \
+                    or r0["update_err_model"] > DIST_UPDATE_MODEL_RTOL:
+                raise AssertionError(
+                    f"{label}: losses {r0['losses']} against "
+                    f"{r0['ref_losses']} (max rel {r0['loss_max_rel_err']}, "
+                    f"limit {DIST_LOSS_RTOL}), update error "
+                    f"{r0['update_err_worst_leaf']} at {r0['worst_leaf']} "
+                    f"(limit {DIST_UPDATE_RTOL}), the model's "
+                    f"{r0['update_err_model']} (limit "
+                    f"{DIST_UPDATE_MODEL_RTOL})")
+            for rep in ranks:
+                rep.pop("per_step")
+                # the two ranks together take the global batch a step
+                rep["mfu_of_one_card"] = (rep["tokens_per_s"] * flops
+                                          / PEAK_BF16_TC_FLOPS)
+            out[label] = dict(mesh=mesh, options=options, ranks=ranks,
+                              attention_fwd_case=fwd_case,
+                              attention_bwd_case=bwd_case,
+                              seconds=r0["run_s"])
+            emit(f"distributed_training_{label}", **out[label])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("distributed_training", **out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5558,9 +6092,18 @@ def main(argv=None) -> int:
     ap.add_argument("--fleet-child", nargs=3,
                     metavar=("WEIGHTS", "ENDPOINT", "DEVICE"),
                     help=argparse.SUPPRESS)   # fleet_serving's child
+    ap.add_argument("--replica-child", nargs=4,
+                    metavar=("WEIGHTS", "ENDPOINT", "DEVICE", "CYCLE"),
+                    help=argparse.SUPPRESS)   # fleet_serving's scale-out
+    ap.add_argument("--dist-child", nargs=2, metavar=("RUNS", "REFERENCE"),
+                    help=argparse.SUPPRESS)   # a distributed_training rank
     args = ap.parse_args(argv)
     if args.fleet_child:
         return fleet_child(*args.fleet_child)
+    if args.replica_child:
+        return replica_child(*args.replica_child)
+    if args.dist_child:
+        return dist_child(*args.dist_child)
 
     import torch
 
@@ -5622,6 +6165,8 @@ def main(argv=None) -> int:
     lora_serve = phase_lora_serving(args.seed)
     _free()
     phase_hapi_bert_fit(args.seed)
+    _free()
+    dist = phase_distributed_training(args.seed)
     _free()
     llama_serve = phase_llama_serving(args.seed)
     _free()
@@ -5782,6 +6327,22 @@ def main(argv=None) -> int:
         bwd_row("flash_attention_bwd_dkv_sm90_d64_lora_fit",
                 "flash_attention_bwd_dkv_sm90.cu", "dkv", HF_BWD_CASE,
                 lora_fit["launches"]["dkv_wgmma"], LORA_FIT_PATH),
+        # one rank's attention in each world-2 run (distributed_training:
+        # rank 0's launches over the run's 13 steps, 24 of each a step)
+        *[row for label, _, _, fwd_case, bwd_case in DIST_RUNS
+          for row in (
+              fwd_row(f"flash_attention_fwd_sm90_d64_{label}",
+                      "flash_attention_fwd_sm90.cu", fwd_case,
+                      dist[label]["ranks"][0]["launches"]["fwd_wgmma"],
+                      f"{DIST_PATH}: {label}"),
+              bwd_row(f"flash_attention_bwd_dq_sm90_d64_{label}",
+                      "flash_attention_bwd_dq_sm90.cu", "dq", bwd_case,
+                      dist[label]["ranks"][0]["launches"]["dq_wgmma"],
+                      f"{DIST_PATH}: {label}"),
+              bwd_row(f"flash_attention_bwd_dkv_sm90_d64_{label}",
+                      "flash_attention_bwd_dkv_sm90.cu", "dkv", bwd_case,
+                      dist[label]["ranks"][0]["launches"]["dkv_wgmma"],
+                      f"{DIST_PATH}: {label}"))],
         # the serve preset's float32 D = 64 prefill with the adapters
         # (lora_serving's pool-less run: 24 of each a prefill)
         fwd_row("flash_attention_fwd_f32_sm90_d64_lora_serving",

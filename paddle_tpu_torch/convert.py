@@ -14,6 +14,13 @@ with ``cfg``. A reference model injected with LoRA (``paddle_tpu.lora.
 apply_lora``) converts with ``lora=`` its ``LoraConfig``'s port twin: the
 port model is injected the same way first, and its ``lora_A``/``lora_B``
 leaves load by name with the base weights.
+
+Sharded models: :func:`shard_state` gives one rank of a mesh its shards
+of a full state (``{name: array}``) under the port's parameter specs
+(``distributed.shard.param_specs``), and :func:`gather_state` is its
+inverse, gathering every rank's shards back into the full state (a
+collective: every rank of the mesh calls it). Both follow each spec's
+dimension rule, the fused "mp" blocks of GPT's ``qkv_proj`` included.
 """
 from __future__ import annotations
 
@@ -30,7 +37,8 @@ from .models.llama import LlamaConfig, LlamaForCausalLM
 from .lora import LoraConfig, apply_lora
 
 __all__ = ["gpt_from_jax", "llama_from_jax", "bert_from_jax",
-           "ernie_from_jax", "layer_from_jax"]
+           "ernie_from_jax", "layer_from_jax", "shard_tensor",
+           "gather_tensor", "shard_state", "gather_state"]
 
 
 def _load_state(model: nn.Module, state: Dict[str, np.ndarray],
@@ -112,3 +120,83 @@ def layer_from_jax(module: nn.Module,
     ``nn.Transformer`` built with the reference's arguments) by name, in
     place; returns ``module`` in eval mode."""
     return _load_state(module, state, type(module).__name__)
+
+
+# ------------------------------------------------------------ sharding
+def _dim_axes(entry):
+    return (() if entry is None else
+            (entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def shard_tensor(full: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of ``full`` under ``spec`` (a
+    ``distributed.mesh.PartitionSpec``): each dimension split over its
+    axes, a fused dimension (``spec.blocks``) block by block. A view where
+    possible; the caller copies."""
+    out = full
+    for d, entry in enumerate(spec):
+        axes = _dim_axes(entry)
+        n = mesh.axis_size(axes)
+        if n == 1:
+            continue
+        i = mesh.axis_index(axes)
+        blocks = spec.blocks if "mp" in axes else 1
+        size = out.shape[d]
+        if size % (n * blocks):
+            raise ValueError(f"dimension {d} of {tuple(full.shape)} does not "
+                             f"split into {n} x {blocks} blocks")
+        part = size // blocks // n
+        out = out.unflatten(d, (blocks, size // blocks)).narrow(
+            d + 1, i * part, part).flatten(d, d + 1)
+    return out
+
+
+def gather_tensor(local: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The full tensor from every rank's :func:`shard_tensor` block (a
+    collective over the spec's axes)."""
+    from .distributed import collective as C
+
+    out = local.detach()
+    for d, entry in enumerate(spec):
+        axes = _dim_axes(entry)
+        if mesh.axis_size(axes) == 1:
+            continue
+        blocks = spec.blocks if "mp" in axes else 1
+        out = C.all_gather(out.unflatten(d, (blocks, out.shape[d] // blocks)),
+                           group=axes, axis=d + 1, mesh=mesh).flatten(d, d + 1)
+    return out
+
+
+def shard_state(state: Dict[str, np.ndarray], specs, mesh,
+                device=None) -> Dict[str, torch.Tensor]:
+    """One rank's shards of a full state (numpy arrays, bfloat16 as
+    ``ml_dtypes``, or tensors): ``{name: tensor}`` on ``device``, each
+    ``shard_tensor(state[name], specs[name])`` (a name without a spec is
+    whole)."""
+    out = {}
+    for name, value in state.items():
+        if isinstance(value, torch.Tensor):
+            full = value.detach()
+        else:
+            value = np.asarray(value)
+            dtype = (torch.bfloat16 if value.dtype.name == "bfloat16"
+                     else None)
+            full = torch.from_numpy(np.array(
+                value, dtype=np.float32 if dtype is not None else None))
+            if dtype is not None:
+                full = full.to(dtype)
+        spec = specs.get(name)
+        local = full if spec is None else shard_tensor(full, spec, mesh)
+        out[name] = local.to(device=device or local.device,
+                             copy=True).contiguous()
+    return out
+
+
+def gather_state(state: Dict[str, torch.Tensor], specs,
+                 mesh) -> Dict[str, torch.Tensor]:
+    """The full state from every rank's shards (every rank of the mesh
+    calls it, in the same order, and gets the whole state): ``{name: CPU
+    tensor}``."""
+    return {name: (v.detach() if specs.get(name) is None
+                   else gather_tensor(v, specs[name], mesh)).cpu().clone()
+            for name, v in state.items()}

@@ -1,1 +1,29 @@
-"""Single-card counterparts of ``paddle_tpu/distributed``."""
+"""Distributed training over ``torch.distributed`` (port of
+``paddle_tpu/distributed``): the process world (``env``), the named mesh
+(``mesh``), collectives over mesh axes (``collective``), the
+tensor-parallel layers (``parallel.mp_layers``), the bucketed gradient
+reduction (``overlap``), the hybrid-parallel ``DistributedTrainStep``
+(``shard``) and ``fleet``; plus checkpoints, fault tolerance, rpc and the
+launcher's KV store. The reference's names are kept."""
+from . import collective, env, fleet, overlap  # noqa: F401
+from .collective import (  # noqa: F401
+    ReduceOp, all_gather, all_reduce, all_reduce_buckets, alltoall,
+    broadcast, ppermute, reduce_scatter, shift_left, shift_right,
+)
+from .env import (  # noqa: F401
+    barrier, get_rank, get_world_size, init_parallel_env, is_initialized,
+)
+from .mesh import (  # noqa: F401
+    HybridCommunicateGroup, P, PartitionSpec, axis_size, get_mesh,
+    init_mesh, mesh_scope, require_mesh, set_mesh,
+)
+from .overlap import (  # noqa: F401
+    BucketedReduce, GradBucket, bucket_order, bucketed_reduce,
+    build_buckets, shard_first_free_dim, weight_update_specs,
+)
+from .parallel import DataParallel, mp_layers  # noqa: F401
+from .parallel.recompute import recompute  # noqa: F401
+from .shard import (  # noqa: F401
+    DistributedTrainStep, opt_state_specs, param_specs, shard_model,
+    shard_params,
+)

@@ -1,1 +1,5 @@
-"""Activation recompute (port of ``paddle_tpu/distributed/parallel``)."""
+"""Parallel layers and wrappers (port of
+``paddle_tpu/distributed/parallel``): activation recompute, the
+tensor-parallel layers and ``DataParallel``."""
+from . import containers_util, mp_layers, recompute  # noqa: F401
+from .data_parallel import DataParallel  # noqa: F401

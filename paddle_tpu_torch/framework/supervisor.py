@@ -29,17 +29,22 @@ Fault sites: the loop is instrumented with ``train.step`` / ``train.ckpt``
 ``train.data`` poisons the next batch through the step's NaN seam, a
 ``delay`` at ``train.step`` stalls it.
 
-Not ported here: the cross-replica integrity vote
-(``integrity_check_interval``; it needs replicas, ROADMAP A8) raises
-``NotImplementedError``, and a ``bitflip`` rule at ``train.bitflip``
-degrades to the NaN seam. The observability modules are ported
-(``observability``, ``profiler``), but the supervisor's calls into them
-(its flight-recorder dumps, tracing spans, profiler counters and
-``RecordEvent`` ranges) wait for the next slice of ROADMAP A6; the counts
-they keep are attributes here
+Observability, as the reference names it: profiler counters
+``train.scaler_skip``, ``train.anomaly``, ``train.hang``,
+``train.reshard``, ``train.batch_skip``, ``train.rollback`` and
+``train.preemption``; ``RecordEvent`` ranges ``watchdog_sync``,
+``rollback`` and ``preempt_ckpt``; tracing events ``train:anomaly`` and
+``train:rollback``; flight-recorder notes (``train_anomaly``) and dumps
+(``hang``, ``rollback``, ``preemption``). ``before_batch`` mints each
+step's correlation id (``train-<pid>-s<count>``), so the spans and dumps
+of a step carry it. The counts are also attributes
 (``NumericsWatchdog.anomalies`` / ``scaler_skips``,
 ``HangWatchdog.hangs_detected``, ``TrainingSupervisor.rollbacks`` /
 ``skipped_batches``).
+
+Not ported here: the cross-replica integrity vote
+(``integrity_check_interval``; ROADMAP A8) raises ``NotImplementedError``,
+and a ``bitflip`` rule at ``train.bitflip`` degrades to the NaN seam.
 """
 from __future__ import annotations
 
@@ -53,9 +58,13 @@ from typing import Callable, List, Optional, Set, Tuple
 
 import torch
 
+from .. import profiler
 from ..distributed.resilience import (  # noqa: F401  (EXIT_* re-exported)
     Deadline, EXIT_EVICTED, EXIT_HANG, EXIT_PREEMPTED, InjectedFault,
     fault_point)
+from ..observability import flight as _flight
+from ..observability import tracing as _tracing
+from ..profiler import RecordEvent
 
 __all__ = [
     "RecoveryPolicy", "TrainingSupervisor", "NumericsWatchdog",
@@ -193,6 +202,7 @@ class NumericsWatchdog:
         for (epoch, bi, *_), (loss, ok, found) in zip(todo, fetched):
             if bool(found):          # GradScaler inf-skip: benign dynamics —
                 self.scaler_skips += 1   # it also BREAKS an anomaly streak
+                profiler.bump_counter("train.scaler_skip")
                 self.consecutive = 0
                 self.first_bad = None
                 continue
@@ -201,6 +211,7 @@ class NumericsWatchdog:
                 self.first_bad = None
                 continue
             self.anomalies += 1
+            profiler.bump_counter("train.anomaly")
             if self.consecutive == 0:
                 self.first_bad = (epoch, bi)
             self.consecutive += 1
@@ -270,6 +281,14 @@ class HangWatchdog:
                 continue
             self._fired = True
             self.hangs_detected += 1
+            profiler.bump_counter("train.hang")
+            # flight-record the incident BEFORE any exit path: a hard
+            # os._exit leaves nothing else behind. The watcher thread has
+            # no step correlation id of its own — the dump's span tail
+            # carries the last step's.
+            _flight.dump("hang", extra={"elapsed_s": round(elapsed, 3),
+                                        "step_timeout_s": self.step_timeout,
+                                        "action": self.action})
             msg = (f"train step exceeded step_timeout={self.step_timeout}s "
                    f"(no heartbeat for {elapsed:.1f}s) — stuck H2D or hung "
                    f"collective?")
@@ -406,6 +425,10 @@ class TrainingSupervisor:
         if self.preempt is not None:
             self.preempt.uninstall()
         self.checkpoint.wait()
+        # the last step's correlation id (stamped by before_batch) must
+        # not leak past the supervised run: a later generate() on this
+        # thread would inherit the stale train-step lane
+        _tracing.set_current(None)
 
     def __enter__(self) -> "TrainingSupervisor":
         return self.start()
@@ -449,6 +472,9 @@ class TrainingSupervisor:
                 # "proactive": every recorded shard is crc-verified up
                 # front — supervisor restores must not trust lazy reads
                 flat = load_state(path, verify="proactive")
+                # only a load that SUCCEEDED counts as a reshard — skipped
+                # candidates must not bump the counter or log a resize
+                self._report_reshard(path)
                 break
             except CheckpointCorruptError as e:
                 warnings.warn(
@@ -480,6 +506,22 @@ class TrainingSupervisor:
             return None
         return DataCursor.from_state(cursor_state)
 
+    def _report_reshard(self, path: str) -> None:
+        """Log + count a cross-topology restore (checkpoint mesh != the
+        step's live mesh). Purely observational."""
+        from ..distributed.checkpoint import mesh_info
+
+        info = mesh_info(path)
+        mesh = getattr(self.step, "mesh", None)
+        if not info or mesh is None or not info.get("axes"):
+            return
+        cur = {str(k): int(v) for k, v in dict(mesh.shape).items()}
+        if cur != info["axes"]:
+            profiler.bump_counter("train.reshard")
+            print(f"[supervisor] elastic reshard: checkpoint written on "
+                  f"mesh {info['axes']} ({info.get('devices')} devices); "
+                  f"restoring onto {cur} ({mesh.size} devices)", flush=True)
+
     def save_now(self, cursor=None) -> None:
         """Cut a checkpoint at the current step, recording the cursor."""
         if self.hang is not None:
@@ -504,6 +546,7 @@ class TrainingSupervisor:
         if (epoch, batch_index) in self._skip:
             self._skip.discard((epoch, batch_index))
             self.skipped_batches += 1
+            profiler.bump_counter("train.batch_skip")
             return True
         return False
 
@@ -512,7 +555,14 @@ class TrainingSupervisor:
         ``train.step`` stalls (exercising the hang watchdog), a ``crash``
         kills the process, and a ``drop`` at ``train.data`` (or any fault
         at ``train.bitflip``, whose realiser is not ported) poisons the
-        upcoming batch through the step's NaN seam."""
+        upcoming batch through the step's NaN seam.
+
+        Also the training side's correlation-id mint: each step boundary
+        stamps the thread's tracing id, so spans and flight-recorder
+        dumps (anomaly, rollback, preemption) attribute to the step that
+        caused them."""
+        _tracing.set_current(
+            f"train-{os.getpid():x}-s{int(self.step._count)}")
         fault_point("train.step")
         for site in ("train.bitflip", "train.data"):
             try:
@@ -546,12 +596,17 @@ class TrainingSupervisor:
         self._flush_watchdog()
 
     def _flush_watchdog(self) -> None:
-        fresh = self.watchdog.flush()
+        with RecordEvent("watchdog_sync"):
+            fresh = self.watchdog.flush()
         for epoch, bi, loss in fresh:
             warnings.warn(
                 f"numerics watchdog: non-finite step at epoch {epoch} batch "
                 f"{bi} (loss={loss}); update was skipped on the device "
                 f"({self.watchdog.consecutive} consecutive)", RuntimeWarning)
+            _tracing.record_event("train:anomaly", epoch=epoch, batch=bi,
+                                  loss=loss)
+            _flight.note("train_anomaly", corr=_tracing.current(),
+                         epoch=epoch, batch=bi, loss=loss)
             if self.on_anomaly is not None:
                 self.on_anomaly({"epoch": epoch, "batch_index": bi,
                                  "loss": loss})
@@ -564,6 +619,15 @@ class TrainingSupervisor:
             # post-rollback beat() re-arms detection
             self.hang.pause()
         self.rollbacks += 1
+        profiler.bump_counter("train.rollback")
+        # crash artifact while the ring still holds the anomaly lead-up
+        # (the restore below rewinds state; the telemetry must not rewind)
+        _tracing.record_event("train:rollback", rollbacks=self.rollbacks)
+        _flight.dump("rollback", corr=_tracing.current(),
+                     extra={"rollbacks": self.rollbacks,
+                            "first_bad": list(self.watchdog.first_bad)
+                            if self.watchdog.first_bad else None,
+                            "anomalies": self.watchdog.anomalies})
         if self.rollbacks > self.policy.max_rollbacks:
             raise FloatingPointError(
                 f"numerics watchdog: {self.rollbacks} rollbacks exceeded "
@@ -574,8 +638,9 @@ class TrainingSupervisor:
         if first_bad is not None and self.policy.skip_window > 0:
             e0, b0 = first_bad
             skip = {(e0, b0 + j) for j in range(self.policy.skip_window)}
-        self.checkpoint.wait()   # an in-flight async save must land first
-        cursor = self.restore()
+        with RecordEvent("rollback"):
+            self.checkpoint.wait()   # an in-flight async save must land first
+            cursor = self.restore()
         self.watchdog.consecutive = 0
         self.watchdog.first_bad = None
         self._skip |= skip
@@ -589,13 +654,17 @@ class TrainingSupervisor:
         raise RollbackRequested(cursor, skip)
 
     def _handle_preemption(self, cursor=None) -> None:
+        profiler.bump_counter("train.preemption")
+        _flight.dump("preemption", corr=_tracing.current(),
+                     extra={"global_step": int(self.step._count)})
         if self.hang is not None:
             self.hang.pause()
         saved = False
         deadline = self.preempt.deadline
         if deadline is None or not deadline.expired():
-            self.save_now(cursor)
-            self.checkpoint.wait()
+            with RecordEvent("preempt_ckpt"):
+                self.save_now(cursor)
+                self.checkpoint.wait()
             saved = True
         if self.on_preemption is not None:
             self.on_preemption({"global_step": int(self.step._count),

@@ -35,6 +35,7 @@ from ..framework.tree import tree_map
 from ..io.dataloader import DataLoader
 from ..io.dataset import Dataset
 from ..metric import Metric
+from ..observability import tracing as _tracing
 from .callbacks import config_callbacks
 
 __all__ = ["Model", "InputSpec"]
@@ -372,31 +373,50 @@ class Model:
                                         eval_freq, num_workers, cbks,
                                         history, recovery, prefetch_depth)
         logs = None
-        for epoch in range(epochs):
-            if self.stop_training:
-                break
-            cbks.on_epoch_begin(epoch)
-            for m in self._metrics:
-                m.reset()
-            logs = {}
-            with contextlib.closing(_iter_batches(
-                    loader, prefetch_depth, self._device)) as it:
-                for step_i, batch in enumerate(it):
-                    cbks.on_train_batch_begin(step_i)
-                    batch, mask = _strip_mask(batch, loader)
-                    ins, labels = _split_batch(
-                        tuple(batch) if isinstance(batch, (tuple, list))
-                        else batch, self._n_labels)
-                    vals = self.train_batch(ins, labels, valid_mask=mask)
-                    logs = dict(zip(["loss"] + self._metrics_name(), vals))
-                    cbks.on_train_batch_end(step_i, logs)
-            if eval_loader is not None and (epoch % eval_freq == 0 or
-                                            epoch == epochs - 1):
-                eval_logs = self.evaluate(eval_loader, verbose=0,
-                                          num_workers=num_workers,
-                                          _callbacks=cbks)
-                logs.update({f"eval_{k}": v for k, v in eval_logs.items()})
-            cbks.on_epoch_end(epoch, logs)
+        try:
+            for epoch in range(epochs):
+                if self.stop_training:
+                    break
+                cbks.on_epoch_begin(epoch)
+                for m in self._metrics:
+                    m.reset()
+                logs = {}
+                with contextlib.closing(_iter_batches(
+                        loader, prefetch_depth, self._device)) as it:
+                    for step_i, batch in enumerate(it):
+                        cbks.on_train_batch_begin(step_i)
+                        batch, mask = _strip_mask(batch, loader)
+                        ins, labels = _split_batch(
+                            tuple(batch) if isinstance(batch, (tuple, list))
+                            else batch, self._n_labels)
+                        # step-boundary correlation id: host-side
+                        # bookkeeping only (two clock reads and a buffer
+                        # append per step)
+                        _tracing.set_current(
+                            f"fit-{os.getpid():x}-e{epoch}-b{step_i}")
+                        with _tracing.span("train:step", epoch=epoch,
+                                           batch=step_i):
+                            vals = self.train_batch(ins, labels,
+                                                    valid_mask=mask)
+                        logs = dict(zip(["loss"] + self._metrics_name(),
+                                        vals))
+                        cbks.on_train_batch_end(step_i, logs)
+                if eval_loader is not None and (epoch % eval_freq == 0 or
+                                                epoch == epochs - 1):
+                    # eval spans must not file into the last train
+                    # batch's lane
+                    with _tracing.correlate(None):
+                        eval_logs = self.evaluate(eval_loader, verbose=0,
+                                                  num_workers=num_workers,
+                                                  _callbacks=cbks)
+                    logs.update({f"eval_{k}": v
+                                 for k, v in eval_logs.items()})
+                cbks.on_epoch_end(epoch, logs)
+        finally:
+            # the last step's correlation id must not outlive the fit: a
+            # later generate()/evaluate() on this thread would file its
+            # spans into the stale train-step lane
+            _tracing.set_current(None)
         cbks.on_train_end(logs)
         return history.history if history is not None else None
 
@@ -471,9 +491,11 @@ class Model:
                             epoch=epoch, batch_index=step_i + 1,
                             epoch_seed=epoch_seed,
                             global_step=step._count + 1)
-                        sup.before_batch()
-                        loss, out, ok, found = step.watchdog_call(
-                            tuple(ins) + tuple(labels))
+                        sup.before_batch()  # also stamps the step's corr id
+                        with _tracing.span("train:step", epoch=epoch,
+                                           batch=step_i):
+                            loss, out, ok, found = step.watchdog_call(
+                                tuple(ins) + tuple(labels))
                         metrics = self._update_metrics(out, tuple(labels),
                                                        mask)
                         # the loss stays LAZY in the logs — forcing it every
@@ -502,9 +524,12 @@ class Model:
                 logs = {k: _host_value(v) for k, v in logs.items()}
                 if eval_loader is not None and (epoch % eval_freq == 0 or
                                                 epoch == epochs - 1):
-                    eval_logs = self.evaluate(eval_loader, verbose=0,
-                                              num_workers=num_workers,
-                                              _callbacks=cbks)
+                    # eval spans must not file into the last train batch's
+                    # lane (corr stamped by before_batch)
+                    with _tracing.correlate(None):
+                        eval_logs = self.evaluate(eval_loader, verbose=0,
+                                                  num_workers=num_workers,
+                                                  _callbacks=cbks)
                     logs.update({f"eval_{k}": v for k, v in eval_logs.items()})
                 cbks.on_epoch_end(epoch, logs)
                 epoch += 1

@@ -21,7 +21,8 @@ Usage::
         loss = step(batch)
     it.close()   # also runs on exhaustion / GC
 
-``it.stats()`` reports consumer stall seconds — the direct measure of an
+Each copy runs under the producer thread's ``h2d_prefetch`` profiler
+range. ``it.stats()`` reports consumer stall seconds — the direct measure of an
 input-bound pipeline — and the batches delivered, with the reference's
 keys. Sharded landing (``sharding=`` / ``mesh=``) waits for the
 distributed port (ROADMAP A8).
@@ -35,6 +36,7 @@ import torch
 
 from .. import default_device
 from ..framework.tree import tree_leaves, tree_map
+from ..profiler import RecordEvent
 from .dataloader import _PrefetchIterator
 
 __all__ = ["DevicePrefetchIterator", "prefetch_to_device"]
@@ -111,10 +113,17 @@ class DevicePrefetchIterator(_PrefetchIterator):
         self._device = default_device(device)
         self._on_cuda = self._device.type == "cuda"
         if self._on_cuda:
-            transform = _cuda_transform(self._device)
+            copy = _cuda_transform(self._device)
         else:
-            def transform(batch):
+            def copy(batch):
                 return tree_map(_to_cpu, batch)
+
+        # a plain closure, not a bound method (see _cuda_transform); each
+        # copy runs under the producer thread's ``h2d_prefetch`` range
+        def transform(batch):
+            with RecordEvent("h2d_prefetch"):
+                return copy(batch)
+
         super().__init__(producer, depth=depth, transform=transform)
 
     def __next__(self):

@@ -9,8 +9,10 @@ Parameters are built in float32 (``amp.decorate`` casts them for O2);
 ``cfg.dtype`` is the KV cache's storage type, as in the reference.
 Weights are drawn from an explicit ``torch.Generator`` on the model's
 device; dropout draws from the "dropout" stream of
-:mod:`paddle_tpu_torch.nn.layer`. ``sequence_parallel`` is not ported
-(there is no mesh yet).
+:mod:`paddle_tpu_torch.nn.layer`. The projections and the vocab embedding
+are the tensor-parallel layers: a ``DistributedTrainStep`` over a mesh
+with an "mp" axis splits them (whole heads per rank).
+``sequence_parallel`` is not ported.
 """
 from __future__ import annotations
 
@@ -23,10 +25,14 @@ from torch import nn
 
 from .. import default_device
 from ..distributed.parallel.recompute import recompute_wrap
+from ..distributed.parallel.mp_layers import (ColumnParallelLinear,
+                                              ParallelCrossEntropy,
+                                              RowParallelLinear,
+                                              VocabParallelEmbedding,
+                                              own_heads_rng,
+                                              parallel_matmul)
 from ..nn import functional as F
-from ..nn.layers.common import (ColumnParallelLinear, Dropout,
-                                ParallelCrossEntropy, RowParallelLinear,
-                                VocabParallelEmbedding, parallel_matmul)
+from ..nn.layers.common import Dropout
 from ..nn.layers.norm import LayerNorm
 from .lm_utils import (DecoderBlockList, attend_with_cache, causal_attention,
                        cached_lm_forward, chunked_lm_loss)
@@ -95,40 +101,46 @@ class GPTAttention(nn.Module):
         self.cfg = cfg
         self.num_heads = cfg.num_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
+        # fused qkv, column-split over mp: each rank owns whole heads of
+        # each of q, k and v (fused_blocks=3)
         self.qkv_proj = ColumnParallelLinear(
             cfg.hidden_size, 3 * cfg.hidden_size, std=cfg.initializer_range,
-            device=device, generator=generator)
+            gather_output=False, fused_blocks=3, device=device,
+            generator=generator)
         self.out_proj = RowParallelLinear(
             cfg.hidden_size, cfg.hidden_size, std=_out_std(cfg),
-            device=device, generator=generator)
+            input_is_parallel=True, device=device, generator=generator)
+        self.qkv_proj.mp_head_dim = self.head_dim
 
     def forward(self, x, cache=None, position_offset=0):
         B, L, _ = x.shape
-        # fused qkv: output features laid out (3, heads, head_dim)
-        qkv = self.qkv_proj(x).reshape(B, L, 3, self.num_heads, self.head_dim)
+        # fused qkv: output features laid out (3, heads, head_dim); under
+        # tensor parallelism "heads" is this rank's share of them
+        qkv = self.qkv_proj(x).reshape(B, L, 3, -1, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if cache is not None:
             out, cache = attend_with_cache(
                 q, k, v, cache, position_offset,
                 use_flash=self.cfg.use_flash_attention)
-            out = out.reshape(B, L, self.num_heads * self.head_dim)
-            return self.out_proj(out), cache
-        out = causal_attention(
-            q, k, v, dropout_p=self.cfg.attention_dropout_prob,
-            training=self.training, use_flash=self.cfg.use_flash_attention)
-        out = out.reshape(B, L, self.num_heads * self.head_dim)
-        return self.out_proj(out)
+            return self.out_proj(out.reshape(B, L, -1)), cache
+        p_drop = self.cfg.attention_dropout_prob
+        with own_heads_rng(self.qkv_proj, self.training and p_drop > 0.0):
+            out = causal_attention(
+                q, k, v, dropout_p=p_drop, training=self.training,
+                use_flash=self.cfg.use_flash_attention)
+        return self.out_proj(out.reshape(B, L, -1))
 
 
 class GPTMLP(nn.Module):
     def __init__(self, cfg: GPTConfig, *, device=None, generator=None):
         super().__init__()
         self.fc_in = ColumnParallelLinear(
-            cfg.hidden_size, cfg.intermediate_size, std=cfg.initializer_range,
-            device=device, generator=generator)
+            cfg.hidden_size, cfg.intermediate_size,
+            std=cfg.initializer_range, gather_output=False, device=device,
+            generator=generator)
         self.fc_out = RowParallelLinear(
             cfg.intermediate_size, cfg.hidden_size, std=_out_std(cfg),
-            device=device, generator=generator)
+            input_is_parallel=True, device=device, generator=generator)
 
     def forward(self, x):
         return self.fc_out(F.gelu(self.fc_in(x), approximate=True))

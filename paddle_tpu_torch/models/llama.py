@@ -25,9 +25,11 @@ from torch import nn
 
 from .. import default_device
 from ..nn import functional as F
-from ..nn.layers.common import (ColumnParallelLinear, ParallelCrossEntropy,
-                                RowParallelLinear, VocabParallelEmbedding,
-                                parallel_matmul)
+from ..distributed.parallel.mp_layers import (ColumnParallelLinear,
+                                              ParallelCrossEntropy,
+                                              RowParallelLinear,
+                                              VocabParallelEmbedding,
+                                              parallel_matmul)
 from ..nn.layers.norm import RMSNorm
 from .lm_utils import (DecoderBlockList, attend_with_cache, causal_attention,
                        cached_lm_forward, chunked_lm_loss, repeat_kv)
@@ -154,22 +156,25 @@ class LlamaAttention(nn.Module):
         self.head_dim = cfg.hidden_size // cfg.num_heads
         kv_out = cfg.num_kv_heads * self.head_dim
         kw = dict(has_bias=False, device=device, generator=generator)
-        std = cfg.initializer_range
+        col = dict(kw, gather_output=False, std=cfg.initializer_range)
         self.q_proj = ColumnParallelLinear(cfg.hidden_size, cfg.hidden_size,
-                                           std=std, **kw)
-        self.k_proj = ColumnParallelLinear(cfg.hidden_size, kv_out, std=std,
-                                           **kw)
-        self.v_proj = ColumnParallelLinear(cfg.hidden_size, kv_out, std=std,
-                                           **kw)
+                                           **col)
+        self.k_proj = ColumnParallelLinear(cfg.hidden_size, kv_out, **col)
+        self.v_proj = ColumnParallelLinear(cfg.hidden_size, kv_out, **col)
         self.o_proj = RowParallelLinear(cfg.hidden_size, cfg.hidden_size,
-                                        std=_out_std(cfg), **kw)
+                                        std=_out_std(cfg),
+                                        input_is_parallel=True, **kw)
+        for proj in (self.q_proj, self.k_proj, self.v_proj):
+            proj.mp_head_dim = self.head_dim
 
     def forward(self, x, cache=None, position_offset=0):
         B, L, _ = x.shape
         cfg = self.cfg
-        q = self.q_proj(x).reshape(B, L, cfg.num_heads, self.head_dim)
-        k = self.k_proj(x).reshape(B, L, cfg.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).reshape(B, L, cfg.num_kv_heads, self.head_dim)
+        # heads (and kv heads) are this rank's share under tensor
+        # parallelism; the GQA grouping is the same on every rank
+        q = self.q_proj(x).reshape(B, L, -1, self.head_dim)
+        k = self.k_proj(x).reshape(B, L, -1, self.head_dim)
+        v = self.v_proj(x).reshape(B, L, -1, self.head_dim)
         cos, sin = _rope_tables(self.head_dim, cfg.max_position_embeddings,
                                 cfg.rope_theta, x.device)
         # RoPE before the cache write: the cache stores rotated keys
@@ -178,12 +183,12 @@ class LlamaAttention(nn.Module):
             out, cache = attend_with_cache(
                 q, k, v, cache, position_offset,
                 use_flash=cfg.use_flash_attention)
-            return self.o_proj(out.reshape(B, L, cfg.hidden_size)), cache
+            return self.o_proj(out.reshape(B, L, -1)), cache
         groups = cfg.num_heads // cfg.num_kv_heads
         out = causal_attention(q, repeat_kv(k, groups), repeat_kv(v, groups),
                                dropout_p=0.0, training=self.training,
                                use_flash=cfg.use_flash_attention)
-        return self.o_proj(out.reshape(B, L, cfg.hidden_size))
+        return self.o_proj(out.reshape(B, L, -1))
 
 
 class LlamaMLP(nn.Module):
@@ -192,14 +197,14 @@ class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, device=None, generator=None):
         super().__init__()
         kw = dict(has_bias=False, device=device, generator=generator)
+        col = dict(kw, gather_output=False, std=cfg.initializer_range)
         self.gate_proj = ColumnParallelLinear(
-            cfg.hidden_size, cfg.intermediate_size,
-            std=cfg.initializer_range, **kw)
+            cfg.hidden_size, cfg.intermediate_size, **col)
         self.up_proj = ColumnParallelLinear(
-            cfg.hidden_size, cfg.intermediate_size,
-            std=cfg.initializer_range, **kw)
+            cfg.hidden_size, cfg.intermediate_size, **col)
         self.down_proj = RowParallelLinear(
-            cfg.intermediate_size, cfg.hidden_size, std=_out_std(cfg), **kw)
+            cfg.intermediate_size, cfg.hidden_size, std=_out_std(cfg),
+            input_is_parallel=True, **kw)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -277,7 +282,8 @@ class LlamaForCausalLM(nn.Module):
         if not cfg.tie_word_embeddings:
             self.lm_head = ColumnParallelLinear(
                 cfg.hidden_size, cfg.vocab_size, std=cfg.initializer_range,
-                has_bias=False, device=device, generator=generator)
+                has_bias=False, gather_output=False, device=device,
+                generator=generator)
         self.parallel_ce = ParallelCrossEntropy()
 
     @property

@@ -180,12 +180,14 @@ def cached_lm_forward(backbone, logits_fn, input_ids, cache,
     return logits if cache is None else (logits, cache)
 
 
-class DecoderBlockList(nn.Module):
+class DecoderBlockList(nn.ModuleList):
     """N decoder blocks named ``"0" .. "N-1"`` (the reference's
     parameter paths). With ``cfg.use_recompute`` each block's activations
     are recomputed in the backward pass (``cfg.recompute_policy``). With
     ``caches`` (a per-layer tuple of ``(k, v)`` pairs) each block runs its
-    cached path and the caches ride back alongside the activations."""
+    cached path and the caches ride back alongside the activations. A
+    ``ModuleList``, so that ``DistributedTrainStep`` at ZeRO-3 gathers
+    each block's parameters on use."""
 
     def __init__(self, cfg, block_cls, **block_kwargs):
         super().__init__()

@@ -1,14 +1,12 @@
 """Single-device ``Linear``, ``Embedding`` and ``Dropout`` with the
 reference's weight layout, parameter creation and randomness
-(``paddle_tpu/distributed/parallel/mp_layers.py:51-150``,
-``paddle_tpu/nn/layers/common.py:13-66``).
+(``paddle_tpu/nn/layers/common.py:13-66``).
 
 ``Linear.weight`` is ``[in, out]`` and ``Embedding.weight`` is
 ``[vocab, hidden]``, exactly as the JAX package stores them, so loading a
 converted checkpoint is a copy, never a transpose. The tensor-parallel
-names alias these: on one card there is nothing to shard, and
-``ParallelCrossEntropy``/``parallel_matmul`` are the plain loss and
-product.
+layers (``paddle_tpu_torch.distributed.parallel.mp_layers``) are these
+layers with their parameters split over a mesh's "mp" axis.
 """
 from __future__ import annotations
 
@@ -20,9 +18,7 @@ from torch import nn
 from .. import functional as F
 from ..initializer import Normal, create_parameter
 
-__all__ = ["Linear", "Embedding", "Dropout", "ColumnParallelLinear",
-           "RowParallelLinear", "VocabParallelEmbedding",
-           "ParallelCrossEntropy", "parallel_matmul"]
+__all__ = ["Linear", "Embedding", "Dropout"]
 
 
 class Linear(nn.Module):
@@ -105,11 +101,6 @@ class Embedding(nn.Module):
                 f"embedding_dim={self.embedding_dim}")
 
 
-ColumnParallelLinear = Linear
-RowParallelLinear = Linear
-VocabParallelEmbedding = Embedding
-
-
 class Dropout(nn.Module):
     """``F.dropout`` as a layer, active in training mode only; its masks
     come from the "dropout" random stream (not torch's global RNG)."""
@@ -127,25 +118,3 @@ class Dropout(nn.Module):
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
-
-
-class ParallelCrossEntropy(nn.Module):
-    """Per-token softmax cross entropy (``mp_layers.py:129``); on one card
-    the vocab dimension is whole, so it is ``cross_entropy`` with
-    ``reduction="none"``."""
-
-    def __init__(self, ignore_index: int = -100):
-        super().__init__()
-        self.ignore_index = ignore_index
-
-    def forward(self, input, label):  # noqa: A002
-        return F.cross_entropy(input, label, reduction="none",
-                               ignore_index=self.ignore_index)
-
-
-def parallel_matmul(x, weight, transpose_y: bool = False,
-                    tensor_parallel_output: bool = True):
-    """The logit projection with a (tied) embedding weight
-    (``mp_layers.py:145``): ``x @ weight`` or ``x @ weight^T``."""
-    del tensor_parallel_output  # one card: nothing is sharded
-    return torch.matmul(x, weight.t() if transpose_y else weight)

@@ -6,9 +6,10 @@ around them — ``ReplicaRouter`` over local and remote replicas
 moving KV blocks between pools in the reference's wire format.
 Multi-tenant LoRA serving takes ``adapter_store=`` on the server (or
 engine) and ``adapter_id=`` per request; see :mod:`paddle_tpu_torch.lora`.
-The reference's ``Autoscaler`` and ``ProcessReplicaSpawner`` are not
-ported yet."""
+``Autoscaler`` grows and drains a router's fleet on SLO burn, spawning
+replicas through ``ProcessReplicaSpawner``."""
 from ..lora.store import AdapterError, AdapterStore
+from .autoscaler import Autoscaler, ProcessReplicaSpawner
 from .disagg import DisaggClient, PrefixIndex, warm_boot_env
 from .engine import ContinuousBatchingEngine, SlotEvent
 from .metrics import LatencyHistogram, ServingMetrics
@@ -21,7 +22,8 @@ from .scheduler import (BASE_TENANT, Backpressure, Deadline, FifoScheduler,
                         SchedulerClosed, TokenBucket)
 from .server import InferenceServer, RequestHandle
 
-__all__ = ["AdapterError", "AdapterStore", "DisaggClient", "PrefixIndex",
+__all__ = ["AdapterError", "AdapterStore", "Autoscaler",
+           "ProcessReplicaSpawner", "DisaggClient", "PrefixIndex",
            "warm_boot_env", "ContinuousBatchingEngine", "SlotEvent",
            "LatencyHistogram", "ServingMetrics", "BlockPool", "PrefixHit", "StorePlan", "chain_digests",
            "RemoteHandle", "RemoteReplica", "ReplicaUnreachable", "ACTIVE", "DEAD", "DRAINING", "SUSPECT",

@@ -915,8 +915,8 @@ class ReplicaRouter:
     # ---------------------------------------------------- control loop
     def _attach_autoscaler(self, autoscaler) -> None:
         """Register the autoscaler driving this fleet (the reference's
-        ``serving.autoscaler.Autoscaler`` calls this from its
-        constructor; the port's autoscaler is not ported yet):
+        :class:`~paddle_tpu_torch.serving.autoscaler.Autoscaler` calls
+        this from its constructor):
         ``statusz()`` embeds its block and ``shutdown()`` stops its loop
         first."""
         self._autoscaler = autoscaler

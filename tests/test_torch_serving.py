@@ -321,6 +321,19 @@ def test_port_imports_no_jax_or_reference_package():
                  "paddle_tpu_torch/serving/router.py",
                  "paddle_tpu_torch/serving/disagg.py",
                  "paddle_tpu_torch/serving/__init__.py",
+                 "paddle_tpu_torch/serving/autoscaler.py",
+                 "paddle_tpu_torch/distributed/__init__.py",
+                 "paddle_tpu_torch/distributed/env.py",
+                 "paddle_tpu_torch/distributed/mesh.py",
+                 "paddle_tpu_torch/distributed/collective.py",
+                 "paddle_tpu_torch/distributed/overlap.py",
+                 "paddle_tpu_torch/distributed/shard.py",
+                 "paddle_tpu_torch/distributed/parallel/__init__.py",
+                 "paddle_tpu_torch/distributed/parallel/mp_layers.py",
+                 "paddle_tpu_torch/distributed/parallel/data_parallel.py",
+                 "paddle_tpu_torch/distributed/parallel/containers_util.py",
+                 "paddle_tpu_torch/distributed/fleet/__init__.py",
+                 "paddle_tpu_torch/distributed/fleet/strategy.py",
                  "tools/torch_train_profile.py"):
         assert path in scanned
     bad = [(f.relative_to(REPO).as_posix(), m) for f in files
