@@ -233,7 +233,24 @@ exits non-zero:
                BertForPretraining forward and backward at [8, 512] with 76
                masked positions a row, ERNIE-3.0-base forward at [8, 512],
                and a float32 BertModel against float64 on the card.
-11. fit loop - hapi_gpt_fit: bench.py bench_gpt_primary's GPT-350M (h1024,
+11. resnet50_training - the convolutional path (no flash kernel on it):
+               (a) one float32 Momentum(0.1, 0.9) step of ResNet-50 (1000
+               classes, batch 4 at 224 x 224) on the card against the same
+               step on the CPU from the same weights and batch (loss,
+               training-mode logits, every running statistic, the update;
+               a poisoned step skipped with the statistics bit-equal),
+               sound and with three faults planted in the card's run
+               (torch's momentum convention, a biased running variance, a
+               skipped step that keeps its statistics), each of which must
+               trip its gate; (b) bench.py bench_resnet50 at full width and
+               depth: batch 64 at 224 x 224, bf16 O2, float32 images (so
+               float32 compute, as the reference), 20 warm-up and 20 timed
+               steps on CUDA events (median ms and spread, images/s, peak,
+               MFU from the ported flops(), no flash launch, float32
+               logits, statistics moved); (c) the same model fed bf16
+               images; (d) a poisoned step and an EvalStep leaving every
+               parameter, velocity, master and statistic bit-equal.
+12. fit loop - hapi_gpt_fit: bench.py bench_gpt_primary's GPT-350M (h1024,
                24 layers, 16 heads of 64, vocab 50304, [8, 1024], bf16 O2
                AdamW, chunked loss, no recompute, dropout 0) through
                Model.fit with two DataLoader workers, the device prefetch
@@ -253,7 +270,7 @@ exits non-zero:
                padding, length buckets (64, 128), LRScheduler and
                EarlyStopping; evaluate and predict equal to a direct
                EvalStep over the same batches' real rows.
-12. lora     - lora_fit: hapi_gpt_fit's GPT-350M, batches and loop
+13. lora     - lora_fit: hapi_gpt_fit's GPT-350M, batches and loop
                through Model.fit(lora=LoraConfig(rank=8, alpha=16)): 5
                warm-up and 8 timed steps beside the full fit's, exactly 24
                wgmma forward, dQ and dK/dV launches a step, the bf16 base
@@ -269,9 +286,9 @@ exits non-zero:
                D = 64 forwards per pool-less prefill and none pooled, a
                tenant's hits only on its own blocks; TTFT, ms and launches
                per decode step with and without the adapters.
-13. llama    - llama2_7b served at full width and depth, its bf16 O2
+14. llama    - llama2_7b served at full width and depth, its bf16 O2
                step (8 of 32 layers) and its GQA gradients (2 layers).
-14. distributed_training - hapi_gpt_fit's GPT-350M step (bf16 O2 AdamW,
+15. distributed_training - hapi_gpt_fit's GPT-350M step (bf16 O2 AdamW,
                global batch [8, 1024]) at world 2 on the one card: a
                single-process TrainStep first (the yardstick), NCCL with
                two ranks on the device meanwhile (its refusal recorded)
@@ -310,6 +327,7 @@ present, and imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -4492,6 +4510,371 @@ def phase_bert_base(seed: int) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the convolutional path: ResNet-50 at bench.py's bench_resnet50
+# --------------------------------------------------------------------------
+
+# bench.py bench_resnet50 (bench.py:326-354): ResNet-50, 1000 classes,
+# batch 64 at 224 x 224, labels drawn in [0, 10), Momentum(0.1, 0.9), bf16
+# O2, float32 images from default_rng(0), 20 warm-up and 20 timed steps.
+# The reference computes this configuration in float32 (the convs cast
+# their bf16 weights to the images' dtype, and float32 activations meet
+# the bf16 BatchNorm and classifier weights with JAX's promotion); part (c)
+# feeds bf16 images, its bf16 compute path.
+RN_CLASSES, RN_LABELS = 1000, 10
+RN_BATCH, RN_SIZE = 64, 224
+RN_LR, RN_MOMENTUM = 0.1, 0.9
+RN_WARMUP, RN_TIMED = 20, 20
+RN_PATH = "training (ResNet-50 bf16 O2 Momentum step, bench_resnet50)"
+# part (a): one float32 step of ResNet-50 at batch 4 on the card, held to
+# the same step on the CPU in float64 from the same weights and batch, and
+# read by these gates (each the largest |card - cpu| over the largest
+# |cpu| unless named otherwise). The CPU's own float32 step is read against
+# the same float64 one: what float32 itself costs (the update through 53
+# batch-normalised layers moves a few percent between two float32 runs:
+# 2.4 % between an H100's step and the CPU's). The readings of a sound run
+# and of the planted faults are in PERF.md §6.
+RN_YARD_BATCH = 4
+RN_LOSS_RTOL = 1e-4     # |card - cpu| / |cpu| of the loss
+RN_LOGITS_RTOL = 1e-3   # the step's training-mode logits
+RN_STATS_RTOL = 1e-4    # every running statistic, worst buffer
+# ||card update - cpu update|| / ||cpu update|| over the model: at most
+# this many times the CPU float32 step's own, plus a floor
+RN_UPDATE_FACTOR, RN_UPDATE_FLOOR = 3.0, 1e-3
+# planted in the card's run only; each must trip its gate
+RN_FAULTS = {"torch_momentum": "stats_rel_err",
+             "biased_variance": "stats_rel_err",
+             "no_rollback": "rollback_max_change"}
+
+
+@contextlib.contextmanager
+def _rn_fault(fault):
+    """Plant ``fault`` in the port while the block runs: torch's
+    batch-norm momentum convention (``momentum`` the new value's share), a
+    biased running variance, or a skipped step that keeps the statistics
+    its forward moved."""
+    from paddle_tpu_torch.framework import jit
+    from paddle_tpu_torch.nn import functional as PF
+
+    real_bn = PF.batch_norm
+    real_rollback = jit.TrainStep.__dict__["_rollback_buffers"]
+
+    def planted(x, running_mean, running_var, weight=None, bias=None,
+                training=False, momentum=0.9, epsilon=1e-5,
+                data_format="NCHW", use_global_stats=None, name=None):
+        out, nm, nv = real_bn(x, running_mean, running_var, weight, bias,
+                              training, momentum, epsilon, data_format,
+                              use_global_stats)
+        if not training or use_global_stats:
+            return out, nm, nv
+        m = momentum
+        batch_mean = (nm - m * running_mean) / (1 - m)
+        batch_var = (nv - m * running_var) / (1 - m)   # unbiased
+        if fault == "torch_momentum":
+            return (out, (1 - m) * running_mean + m * batch_mean,
+                    (1 - m) * running_var + m * batch_var)
+        ch = 1 if data_format.startswith("NC") else x.ndim - 1
+        n = x.numel() // x.shape[ch]
+        return out, nm, m * running_var + (1 - m) * batch_var * (n - 1) / n
+
+    if fault in ("torch_momentum", "biased_variance"):
+        PF.batch_norm = planted
+    elif fault == "no_rollback":
+        jit.TrainStep._rollback_buffers = staticmethod(lambda *a: None)
+    elif fault is not None:
+        raise ValueError(f"no such fault: {fault}")
+    try:
+        yield
+    finally:
+        PF.batch_norm = real_bn
+        jit.TrainStep._rollback_buffers = real_rollback
+
+
+def _rn_loss(out, batch):
+    from paddle_tpu_torch.nn import functional as F
+
+    return F.cross_entropy(out, batch[1])
+
+
+def _rn_yard_run(model, x, y) -> dict:
+    """One Momentum(0.1, 0.9) TrainStep of ``model`` on ``(x, y)`` and
+    then a poisoned one: the step's training-mode logits (an EvalStep
+    before it: batch statistics, buffers kept), its loss, the parameters
+    and statistics after it, whether the poisoned step was skipped, and
+    how far it moved any statistic."""
+    from paddle_tpu_torch.framework.jit import EvalStep, TrainStep
+    from paddle_tpu_torch.optimizer import Momentum
+
+    step = TrainStep(model, Momentum(RN_LR, RN_MOMENTUM), loss_fn=_rn_loss)
+    logits = EvalStep(model)(x)
+    loss = float(step((x, y)))
+    params = {k: p.detach().cpu().clone() for k, p in
+              model.named_parameters()}
+    stats = {k: b.detach().cpu().clone() for k, b in model.named_buffers()}
+    step.inject_anomaly()
+    _, ok, _ = step.watchdog_call((x, y))
+    moved = max(float((b.detach().cpu() - stats[k]).abs().max())
+                for k, b in model.named_buffers())
+    return dict(logits=logits.detach().cpu(), loss=loss, params=params,
+                stats=stats, skipped=not bool(ok), moved=moved)
+
+
+def _rn_readings(run: dict, ref: dict, initial: dict) -> dict:
+    """Part (a)'s readings of a run against the float64 one."""
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max())
+
+    stats = {k: rel(v, ref["stats"][k]) for k, v in run["stats"].items()}
+    worst_stat = max(stats, key=stats.get)
+    num = den = 0.0
+    leaf = {}
+    for k, p in run["params"].items():
+        d_ref = ref["params"][k].double() - initial[k].double()
+        diff = (p.double() - initial[k].double()) - d_ref
+        num += float((diff ** 2).sum())
+        den += float((d_ref ** 2).sum())
+        leaf[k] = float(diff.norm() / max(float(d_ref.norm()), 1e-30))
+    worst_leaf = max(leaf, key=leaf.get)
+    return dict(loss_rel_err=abs(run["loss"] - ref["loss"]) / abs(ref["loss"]),
+                logits_rel_err=rel(run["logits"], ref["logits"]),
+                stats_rel_err=stats[worst_stat], worst_stat=worst_stat,
+                update_err=(num / den) ** 0.5,
+                update_err_worst_leaf=leaf[worst_leaf], worst_leaf=worst_leaf,
+                skipped=run["skipped"], rollback_max_change=run["moved"],
+                loss=run["loss"])
+
+
+def _rn_gates_pass(r: dict, update_limit: float) -> bool:
+    return (r["loss_rel_err"] <= RN_LOSS_RTOL
+            and r["logits_rel_err"] <= RN_LOGITS_RTOL
+            and r["stats_rel_err"] <= RN_STATS_RTOL
+            and r["update_err"] <= update_limit
+            and r["skipped"] and r["rollback_max_change"] == 0.0)
+
+
+def _rn_gate_trips(fault: str, r: dict) -> bool:
+    if RN_FAULTS[fault] == "stats_rel_err":
+        return r["stats_rel_err"] > RN_STATS_RTOL
+    return r["rollback_max_change"] > 0.0
+
+
+def _rn_yardstick(seed: int, device: str, ctor) -> dict:
+    """Part (a): the float32 step on ``device`` against the CPU's float64
+    one, sound and with each of RN_FAULTS planted in the ``device`` run;
+    the CPU's float32 step read against it too (float32's own cost)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    gen = torch.Generator().manual_seed(seed + 30)
+    base = ctor(num_classes=RN_CLASSES, device="cpu", generator=gen).train()
+    initial = {k: p.detach().clone() for k, p in base.named_parameters()}
+    rng = np.random.default_rng(seed + 31)
+    x = rng.standard_normal((RN_YARD_BATCH, 3, RN_SIZE, RN_SIZE)).astype(
+        np.float32)
+    y = rng.integers(0, RN_LABELS, RN_YARD_BATCH)
+    t0 = time.perf_counter()
+    ref = _rn_yard_run(copy.deepcopy(base).double(), x.astype(np.float64),
+                       y)
+    cpu64_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    floor = _rn_readings(_rn_yard_run(copy.deepcopy(base), x, y), ref,
+                         initial)
+    cpu32_s = time.perf_counter() - t0
+    update_limit = RN_UPDATE_FACTOR * floor["update_err"] + RN_UPDATE_FLOOR
+    runs = {}
+    for fault in (None,) + tuple(RN_FAULTS):
+        with _rn_fault(fault):
+            run = _rn_yard_run(copy.deepcopy(base).to(device), x, y)
+        runs[fault or "sound"] = _rn_readings(run, ref, initial)
+    out = dict(batch=[RN_YARD_BATCH, 3, RN_SIZE, RN_SIZE],
+               cpu_float64_step_s=cpu64_s, cpu_float32_step_s=cpu32_s,
+               cpu_loss_float64=ref["loss"],
+               gates=dict(loss=RN_LOSS_RTOL, logits=RN_LOGITS_RTOL,
+                          stats=RN_STATS_RTOL, update=update_limit,
+                          rollback=0.0),
+               cpu_float32=floor, readings=runs)
+    failed = [] if _rn_gates_pass(runs["sound"], update_limit) else ["sound"]
+    failed += [f for f in RN_FAULTS if not _rn_gate_trips(f, runs[f])]
+    if failed:
+        emit("resnet50_training", yardstick=out)
+        raise AssertionError(f"resnet50 (a): {failed} on the wrong side of "
+                             f"their gates (the sound run must pass every "
+                             f"gate, each planted fault trip its own)")
+    return out
+
+
+def _rn_timed_steps(step, batch, device: str) -> dict:
+    """RN_WARMUP + RN_TIMED steps of ``step`` on ``batch``: each step's ms
+    between CUDA events (host clock on the CPU), its loss, and the peak
+    memory over the timed steps."""
+    import numpy as np
+    import torch
+
+    cuda = device != "cpu"
+    losses, ms = [], []
+    for i in range(RN_WARMUP + RN_TIMED):
+        if i == RN_WARMUP and cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step(batch)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            loss = step(batch)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    timed = ms[RN_WARMUP:]
+    return dict(losses=losses, step_ms=ms,
+                step_ms_median=float(np.median(timed)),
+                step_ms_min=min(timed), step_ms_max=max(timed),
+                step_ms_p25=float(np.percentile(timed, 25)),
+                step_ms_p75=float(np.percentile(timed, 75)),
+                peak_mem_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                              if cuda else None))
+
+
+def _rn_bench_step(seed: int, device: str = "cuda", ctor=None,
+                   batch: int = RN_BATCH, size: int = RN_SIZE):
+    """bench_resnet50's model, optimizer and step on ``device``: ResNet-50
+    (1000 classes) under bf16 O2 with Momentum(0.1, 0.9), and its batch
+    (float32 images and labels in [0, 10) from default_rng(0), numpy as
+    the bench feeds them). Returns ``(step, (x, y))``."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework import random as framework_random
+    from paddle_tpu_torch.framework.jit import TrainStep
+    from paddle_tpu_torch.models.resnet import resnet50
+    from paddle_tpu_torch.optimizer import Momentum
+
+    framework_random.seed(seed)
+    model = (ctor or resnet50)(
+        num_classes=RN_CLASSES, device=device,
+        generator=torch.Generator(device).manual_seed(seed)).train()
+    model, opt = amp.decorate(model, Momentum(RN_LR, RN_MOMENTUM),
+                              level="O2", dtype="bfloat16")
+    step = TrainStep(model, opt, loss_fn=_rn_loss)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((batch, 3, size, size)).astype(np.float32)
+    y = rng.integers(0, RN_LABELS, batch)
+    return step, (x, y)
+
+
+def phase_resnet50_training(seed: int, device: str = "cuda", ctor=None,
+                            batch: int = RN_BATCH,
+                            size: int = RN_SIZE) -> dict:
+    """ResNet-50 through the port's TrainStep (no flash kernel on this
+    path: convolutions, pooling and batch norm are torch ops, cuDNN on the
+    card). (a) a float32 step at batch 4 on the card against the same step
+    on the CPU (loss, logits, running statistics, update), with planted
+    faults that each gate must catch; (b) bench_resnet50 at full width and
+    depth (batch 64 at 224 x 224, bf16 O2 on float32 images: float32
+    compute, as the reference): 20 warm-up and 20 timed steps, ms, images/s,
+    peak, MFU from the ported flops(); (c) the same model fed bf16 images;
+    (d) a poisoned step and an EvalStep leave every parameter, velocity
+    and statistic bit-equal. ``device="cpu"``, ``ctor`` (a smaller
+    ResNet), ``batch`` and ``size`` give a dry run on the CPU."""
+    import torch
+
+    from paddle_tpu_torch.framework.jit import EvalStep
+    from paddle_tpu_torch.hapi.dynamic_flops import count_flops
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.resnet import resnet50
+
+    ctor = ctor or resnet50
+    cuda = device != "cpu"
+    leftover = _check_freed("resnet50_training") if cuda else None
+    out = dict(path=RN_PATH, leftover_gib_at_start=leftover,
+               card=nvidia_smi_line())
+    t0 = time.perf_counter()
+    out["yardstick"] = _rn_yardstick(seed, device, ctor)
+    out["yardstick"]["seconds"] = time.perf_counter() - t0
+    if cuda:
+        _free()
+
+    # (b) the bench's configuration
+    t0 = time.perf_counter()
+    step, (x, y) = _rn_bench_step(seed, device, ctor, batch, size)
+    model = step.model
+    build_s = time.perf_counter() - t0
+    flops = count_flops(model, (1, 3, size, size))
+    fwd_flops = float(sum(flops.values()))
+    stats_before = {k: b.clone() for k, b in model.named_buffers()}
+    fa.reset_launch_counts()
+    bench = _rn_timed_steps(step, (x, y), device)
+    flash = sum(_counts(fa))
+    with torch.no_grad():
+        logits = EvalStep(model)(x[:2])
+    moved = any(not torch.equal(b, stats_before[k])
+                for k, b in model.named_buffers())
+    finite = all(bool(torch.isfinite(b).all()) for b in model.buffers())
+    if not all(math.isfinite(v) for v in bench["losses"]) or not moved \
+            or not finite or flash or logits.dtype != torch.float32:
+        raise AssertionError(
+            f"resnet50 (b): losses {bench['losses']}, statistics moved "
+            f"{moved} and finite {finite}, {flash} flash launches (0 "
+            f"expected), logits {logits.dtype} (float32 expected)")
+    images_per_s = batch / (bench["step_ms_median"] / 1e3)
+    out["bench"] = dict(
+        **bench, batch=[batch, 3, size, size], classes=RN_CLASSES,
+        images="float32", compute_dtype=str(logits.dtype).split(".")[-1],
+        images_per_s=images_per_s, flops_forward_per_image=flops,
+        mfu=images_per_s * 3 * fwd_flops / PEAK_BF16_TC_FLOPS,
+        flash_launches=flash, model_build_s=build_s,
+        params=sum(p.numel() for p in model.parameters()))
+
+    # (c) the same model fed bf16 images: the reference's bf16 path
+    xb = torch.as_tensor(x, device=device).to(torch.bfloat16)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    bf16 = _rn_timed_steps(step, (xb, y), device)
+    with torch.no_grad():
+        logits_b = EvalStep(model)(xb[:2])
+    if not all(math.isfinite(v) for v in bf16["losses"]):
+        raise AssertionError(f"resnet50 (c): losses {bf16['losses']}")
+    images_per_s = batch / (bf16["step_ms_median"] / 1e3)
+    out["bf16_images"] = dict(
+        **bf16, compute_dtype=str(logits_b.dtype).split(".")[-1],
+        images_per_s=images_per_s,
+        mfu=images_per_s * 3 * fwd_flops / PEAK_BF16_TC_FLOPS)
+
+    # (d) a poisoned step and an EvalStep on the bench's step
+    def state():
+        return ([p.detach().clone() for p in model.parameters()]
+                + [t.clone() for slot in ("velocity", "master_weights")
+                   for t in step.opt_state[slot].values()]
+                + [b.clone() for b in model.buffers()])
+
+    saved = state()
+    step.inject_anomaly()
+    _, ok, _ = step.watchdog_call((x, y))
+    skipped_equal = all(torch.equal(a, b) for a, b in zip(state(), saved))
+    with torch.no_grad():
+        EvalStep(model)(x)
+    eval_equal = all(torch.equal(a, b) for a, b in zip(state(), saved))
+    if bool(ok) or not skipped_equal or not eval_equal:
+        raise AssertionError(f"resnet50 (d): poisoned step ok={bool(ok)}, "
+                             f"state bit-equal after it {skipped_equal}, "
+                             f"after an EvalStep {eval_equal}")
+    out["guards"] = dict(poisoned_step_skipped=not bool(ok),
+                         state_bit_equal_after_skip=skipped_equal,
+                         state_bit_equal_after_eval_step=eval_equal,
+                         tensors=len(saved))
+    del step, model, x, xb
+    emit("resnet50_training", **out)
+    return out
+
+
+# --------------------------------------------------------------------------
 # the fit loop: Model.fit with the DataLoader, device prefetch, callbacks,
 # crash-safe checkpoints and the training supervisor
 # --------------------------------------------------------------------------
@@ -6157,6 +6540,8 @@ def main(argv=None) -> int:
     sdpa = phase_sdpa_routes(args.seed)
     _free()
     phase_bert_base(args.seed)
+    _free()
+    phase_resnet50_training(args.seed)
     _free()
     hapi_gpt = phase_hapi_gpt_fit(args.seed)
     _free()

@@ -1,10 +1,11 @@
 """Load the JAX package's weights into the port: GPT, Llama, BERT,
-ERNIE, or any ported layer tree (``nn.Transformer``, ...).
+ERNIE, ResNet, or any ported layer tree (``nn.Transformer``, ...).
 
 The JAX ``Layer.state_dict()`` names map one to one onto the port's
-parameters, with the
-same layouts (linear weights ``[in, out]``, embeddings ``[vocab,
-hidden]``), so conversion is a copy by name. The caller passes the state
+parameters and persistable buffers (BatchNorm's ``_mean`` and
+``_variance``), with the same layouts (linear weights ``[in, out]``,
+embeddings ``[vocab, hidden]``, conv kernels ``[out, in / groups, *k]``),
+so conversion is a copy by name. The caller passes the state
 as numpy arrays (``{k: np.asarray(v) for k, v in jax_model.state_dict().
 items()}``); this module imports nothing of JAX. Arrays in bfloat16
 (``ml_dtypes``, the state of a model after ``amp.decorate(level="O2")``)
@@ -34,33 +35,44 @@ from .models.bert import BertConfig, BertForSequenceClassification
 from .models.ernie import ErnieConfig, ErnieForSequenceClassification
 from .models.gpt import GPTConfig, GPTForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
+from .models import resnet as _resnet
 from .lora import LoraConfig, apply_lora
 
 __all__ = ["gpt_from_jax", "llama_from_jax", "bert_from_jax",
-           "ernie_from_jax", "layer_from_jax", "shard_tensor",
+           "ernie_from_jax", "resnet_from_jax", "layer_from_jax",
+           "shard_tensor",
            "gather_tensor", "shard_state", "gather_state"]
 
 
 def _load_state(model: nn.Module, state: Dict[str, np.ndarray],
                 family: str) -> nn.Module:
-    """Copy ``state`` into ``model``'s parameters by name and put the
-    model in eval mode."""
+    """Copy ``state`` into ``model``'s parameters and persistent buffers
+    by name and put the model in eval mode. A parameter takes the array's
+    type (bfloat16 or float32); a buffer keeps its own (BatchNorm's
+    running statistics stay float32)."""
     params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(state))
-    extra = sorted(set(state) - set(params))
+    buffers = dict(model.state_dict(keep_vars=True))
+    buffers = {k: v for k, v in buffers.items() if k not in params}
+    missing = sorted((set(params) | set(buffers)) - set(state))
+    extra = sorted(set(state) - set(params) - set(buffers))
     if missing or extra:
         raise KeyError(f"state does not match the port's {family}: missing "
                        f"{missing}, unexpected {extra}")
     with torch.no_grad():
-        for name, p in params.items():
+        for name, t in {**params, **buffers}.items():
             value = np.asarray(state[name])
+            if tuple(value.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: shape {tuple(value.shape)}, the "
+                                 f"port expects {tuple(t.shape)}")
+            if name in buffers:
+                t.copy_(torch.from_numpy(np.array(
+                    value, dtype=np.float32 if value.dtype.name == "bfloat16"
+                    else value.dtype)))
+                continue
             dtype = (torch.bfloat16 if value.dtype.name == "bfloat16"
                      else torch.float32)
             value = np.array(value, dtype=np.float32)  # a copy
-            if tuple(value.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(value.shape)}, the "
-                                 f"port expects {tuple(p.shape)}")
-            p.data = torch.from_numpy(value).to(device=p.device, dtype=dtype)
+            t.data = torch.from_numpy(value).to(device=t.device, dtype=dtype)
     model.eval()
     return model
 
@@ -112,6 +124,24 @@ def ernie_from_jax(state: Dict[str, np.ndarray], cfg: ErnieConfig,
     ``ErnieForSequenceClassification``, ``ErnieForPretraining``)."""
     return _load_state(model_cls(cfg, device=device, **kwargs), state,
                        model_cls.__name__)
+
+
+def resnet_from_jax(state: Dict[str, np.ndarray], depth_or_ctor="resnet50",
+                    device=None, **kwargs) -> nn.Module:
+    """A port ResNet carrying a reference ResNet's ``state_dict()``
+    (parameters and BatchNorm statistics), in eval mode.
+    ``depth_or_ctor`` is a constructor of
+    :mod:`paddle_tpu_torch.models.resnet` (or its name, e.g.
+    ``"resnext50_32x4d"``), or a depth (18, 34, 50, 101, 152) for the
+    plain ResNet; ``kwargs`` (``num_classes``, ``with_pool``, ...) go to
+    it as they went to the reference's. Raises ``KeyError`` on a missing
+    or an extra name and ``ValueError`` on a wrong shape."""
+    ctor = depth_or_ctor
+    if isinstance(ctor, int):
+        ctor = f"resnet{ctor}"
+    if isinstance(ctor, str):
+        ctor = getattr(_resnet, ctor)
+    return _load_state(ctor(device=device, **kwargs), state, "ResNet")
 
 
 def layer_from_jax(module: nn.Module,

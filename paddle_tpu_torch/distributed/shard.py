@@ -50,6 +50,7 @@ from ..framework.jit import (DEFAULT_RNG_STREAMS, _grad_dtype, _to_device,
 from ..framework.tree import tree_leaves, tree_map
 from ..amp.grad_scaler import scale_loss, unscale_and_check
 from ..nn.layer import rng_context
+from ..nn.layers.norm import _BatchNormBase
 from . import collective as C
 from .mesh import Mesh, PartitionSpec, require_mesh
 from .overlap import (BucketedReduce, GradBucket, bucketed_reduce,
@@ -334,6 +335,15 @@ class DistributedTrainStep:
         sharding_stage = max(sharding_stage,
                              getattr(optimizer, "_group_sharded_stage", 0))
         self.sharding_stage = int(sharding_stage)
+        if (self._n_batch > 1 or self.sharding_stage >= 1) and any(
+                isinstance(mod, _BatchNormBase) and mod.training
+                for mod in model.modules()):
+            # the reference's statistics cover the global batch (GSPMD);
+            # each rank here would take its own shard's
+            raise NotImplementedError(
+                "DistributedTrainStep: a training-mode BatchNorm under data "
+                "parallelism or ZeRO needs batch statistics over the global "
+                "batch (SyncBatchNorm), not ported yet (ROADMAP A8)")
         zero3 = SDP if sharding_stage >= 3 else None
         shard_axis = SDP if sharding_stage >= 1 else None
         self.specs = param_specs(model, m, zero3_axis=zero3)

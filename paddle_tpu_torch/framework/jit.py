@@ -24,8 +24,14 @@ no compile cache. Other differences, and why:
   :func:`finite_guard`), and the update then commits group by group with
   ``torch.where``, so that a skipped step leaves every parameter, master,
   slot and the step count bit-equal. Nothing is read back to the host
-  except under ``FLAGS_check_nan_inf``, which raises. Buffers a forward
-  updates in place are not rolled back (no ported layer has one).
+  except under ``FLAGS_check_nan_inf``, which raises;
+- buffers a forward updates in place (BatchNorm's running statistics)
+  follow the reference's ``(params, buffers, opt_state)`` selection
+  (``jit.py:364-389``): a guarded step snapshots them before the forward
+  and selects the snapshot back on the device when it skips; a
+  gradient-merge micro-step keeps the updated ones; :class:`EvalStep`
+  restores them after its forward, as the reference's ``EvalStep``
+  drops the new buffers of its functional call (``jit.py:527-529``).
 """
 from __future__ import annotations
 
@@ -42,7 +48,8 @@ from .debugging import tree_all_finite
 from .tree import tree_map
 
 __all__ = ["DEFAULT_RNG_STREAMS", "resolve_inputs_fn", "finite_guard",
-           "raise_if_bad_step", "scaler_guard", "TrainStep", "EvalStep"]
+           "raise_if_bad_step", "scaler_guard", "snapshot_buffers",
+           "TrainStep", "EvalStep"]
 
 DEFAULT_RNG_STREAMS = ("dropout", "rrelu", "gumbel", "default")
 
@@ -277,6 +284,8 @@ class TrainStep:
         otherwise (no update, or an unguarded one); ``out`` the model's
         outputs when ``_return_out``."""
         count, do_update = self._next_count()
+        guarded = do_update and (self.scaler_state is not None or checked)
+        buffers_before = snapshot_buffers(self.model) if guarded else None
         loss, grads, out = self._loss_and_grads(batch, count,
                                                 self._take_poison())
         grads = self._merged(grads, do_update)
@@ -284,7 +293,7 @@ class TrainStep:
             return loss, None, None, out
         if self.grad_transform is not None:
             grads = self.grad_transform(grads)
-        if self.scaler_state is None and not checked:
+        if not guarded:
             self.optimizer.update(grads, self.opt_state, self.params)
             return loss, None, None, out
         flags_out = {}
@@ -292,18 +301,20 @@ class TrainStep:
             grads, found = unscale_and_check(grads, self.scaler_state)
 
             def guard(params_finite):
-                skip, flags_out["scaler"], flags_out["ok"], \
+                flags_out["skip"], flags_out["scaler"], flags_out["ok"], \
                     flags_out["found"] = scaler_guard(
                         loss, found, self.scaler_state, params_finite)
-                return skip
+                return flags_out["skip"]
         else:
             def guard(params_finite):
                 flags_out["ok"] = finite_guard(grads, params_finite,
                                                extra_ok=torch.isfinite(loss))
                 flags_out["found"] = torch.zeros_like(flags_out["ok"])
-                return ~flags_out["ok"]
+                flags_out["skip"] = ~flags_out["ok"]
+                return flags_out["skip"]
 
         self.optimizer.update(grads, self.opt_state, self.params, guard=guard)
+        self._rollback_buffers(buffers_before, flags_out["skip"])
         if self.scaler_state is not None:
             self.scaler_state = flags_out["scaler"]
             self.scaler._note_step(flags_out["found"])
@@ -311,6 +322,14 @@ class TrainStep:
             # state_dict() stay truthful
             self.scaler.state = dict(self.scaler_state)
         return loss, flags_out["ok"], flags_out["found"], out
+
+    @staticmethod
+    def _rollback_buffers(before, skip) -> None:
+        """Each snapshotted buffer back to its value before the step where
+        the device bool ``skip`` is set (no read-back)."""
+        with torch.no_grad():
+            for live, saved in before:
+                live.copy_(torch.where(skip, saved, live))
 
     def __call__(self, batch):
         check = flags.flag("FLAGS_check_nan_inf")
@@ -410,13 +429,28 @@ class TrainStep:
             self._base_seed = int(sd["base_seed"])
 
 
+def snapshot_buffers(model: torch.nn.Module) -> list:
+    """``(buffer, copy)`` pairs of the buffers a forward of ``model`` may
+    update in place: every floating buffer of a module in training mode
+    (BatchNorm's running statistics; an eval-mode forward writes none)."""
+    return [(b, b.detach().clone()) for m in model.modules() if m.training
+            for b in m.buffers(recurse=False) if b.is_floating_point()]
+
+
 class EvalStep:
-    """Inference step: ``model(*args)`` without autograd."""
+    """Inference step: ``model(*args)`` without autograd, in the model's
+    own mode (a training-mode BatchNorm normalises by the batch, as the
+    reference's does), leaving every buffer as it was."""
 
     def __init__(self, model: torch.nn.Module):
         self.model = model
 
     def __call__(self, *args):
         device = next(self.model.parameters()).device
+        before = snapshot_buffers(self.model)
         with torch.no_grad():
-            return self.model(*_to_device(args, device))
+            try:
+                return self.model(*_to_device(args, device))
+            finally:
+                for live, saved in before:
+                    live.copy_(saved)

@@ -14,8 +14,6 @@ Differences from the reference, and why:
   no bfloat16 without ``ml_dtypes``);
 - ``Model.load`` copies a ``.pdopt``'s optimizer state into the live step
   (the port's update runs in place on device tensors);
-- ``summary()`` waits for ``hapi/model_summary.py`` (ROADMAP A9) and
-  raises ``NotImplementedError``;
 - the reference's ``train:step`` tracing spans and correlation ids, and
   the prefetch thread's ``h2d_prefetch`` range, wait for the next slice of
   ROADMAP A6 (the observability modules themselves are ported).
@@ -642,6 +640,8 @@ class Model:
         return self.network.parameters()
 
     def summary(self, input_size=None, dtype=None):
-        raise NotImplementedError(
-            "Model.summary(): hapi/model_summary.py is not ported yet "
-            "(ROADMAP A9)")
+        from .model_summary import summary
+
+        if input_size is None and self._inputs:
+            input_size = [tuple(s.shape) for s in self._inputs]
+        return summary(self.network, input_size, dtypes=dtype)

@@ -1,10 +1,21 @@
-"""The subset of ``paddle_tpu/nn/functional.py`` that the GPT and Llama
-serving and training paths and the encoder path (``nn.Transformer``,
-BERT, ERNIE) use, in PyTorch.
+"""``paddle_tpu/nn/functional.py`` in PyTorch: the functions that the
+GPT and Llama paths, the encoder path (``nn.Transformer``, BERT, ERNIE)
+and the convolutional path (the conv, pooling, norm, activation and loss
+layers, ResNet) call.
 
 Weights keep the JAX package's layout: a linear weight is ``[in, out]``
-(paddle's convention), not torch's ``[out, in]``, so converted
-checkpoints copy straight across.
+(paddle's convention), not torch's ``[out, in]``, and a conv kernel
+``[out_c, in_c / groups, *k]`` (``[in_c, out_c / groups, *k]`` for a
+transposed conv), so converted checkpoints copy straight across.
+
+The reference lowers convolutions, pools and batch norm through XLA
+(``lax.conv_general_dilated``, ``lax.reduce_window``, plain ``jnp``);
+here they are ordinary torch ops (cuDNN on the card) with the
+reference's semantics kept where torch's differ: explicit (possibly
+asymmetric) padding for ``'SAME'`` with a stride and for ``ceil_mode``,
+paddle's batch-norm momentum, and JAX's dtype promotion, cast by hand
+where torch would raise on mixed operands (a conv casts its weight to the
+input's dtype, ``functional.py:403``).
 """
 from __future__ import annotations
 
@@ -16,9 +27,32 @@ import torch.nn.functional as _F
 from ..amp.auto_cast import autocast_call
 from .layer import take_rng_key
 
-__all__ = ["linear", "relu", "tanh", "gelu", "silu", "layer_norm",
-           "rms_norm", "dropout", "cross_entropy",
-           "scaled_dot_product_attention"]
+__all__ = [
+    # activations
+    "relu", "relu6", "sigmoid", "silu", "swish", "elu", "selu", "celu",
+    "glu", "tanh", "gelu", "leaky_relu", "prelu", "rrelu", "hardtanh",
+    "hardshrink", "softshrink", "tanhshrink", "thresholded_relu",
+    "hardsigmoid", "hardswish", "mish", "softplus", "softsign", "maxout",
+    "softmax", "log_softmax", "log_sigmoid",
+    # linear, norms, dropout
+    "linear", "layer_norm", "rms_norm", "batch_norm", "group_norm",
+    "instance_norm", "local_response_norm", "dropout",
+    # conv and pooling
+    "conv1d", "conv2d", "conv3d", "conv1d_transpose", "conv2d_transpose",
+    "conv3d_transpose", "max_pool1d", "max_pool2d", "max_pool3d",
+    "avg_pool1d", "avg_pool2d", "avg_pool3d", "adaptive_avg_pool1d",
+    "adaptive_avg_pool2d", "adaptive_avg_pool3d", "adaptive_max_pool1d",
+    "adaptive_max_pool2d", "adaptive_max_pool3d", "max_unpool1d",
+    "max_unpool2d", "max_unpool3d",
+    # losses
+    "cross_entropy", "mse_loss", "l1_loss", "smooth_l1_loss", "nll_loss",
+    "binary_cross_entropy", "binary_cross_entropy_with_logits", "kl_div",
+    "margin_ranking_loss", "hinge_embedding_loss", "cosine_similarity",
+    "cosine_embedding_loss", "triplet_margin_loss", "soft_margin_loss",
+    "multi_label_soft_margin_loss", "multi_margin_loss",
+    "triplet_margin_with_distance_loss",
+    # attention
+    "scaled_dot_product_attention"]
 
 
 def linear(x, weight, bias=None):
@@ -60,6 +94,143 @@ def silu(x):
     return _F.silu(x)
 
 
+swish = silu
+
+
+def relu6(x):
+    return torch.clamp(x, 0.0, 6.0)
+
+
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+def elu(x, alpha: float = 1.0):
+    return _F.elu(x, alpha)
+
+
+def selu(x):
+    """``jax.nn.selu`` at its fixed scale and alpha (the ``SELU`` layer
+    accepts others and, as in the reference, does not read them)."""
+    return _F.selu(x)
+
+
+def celu(x, alpha: float = 1.0):
+    return _F.celu(x, alpha)
+
+
+def glu(x, axis: int = -1):
+    return _F.glu(x, dim=axis)
+
+
+def leaky_relu(x, negative_slope: float = 0.01, name=None):
+    return _F.leaky_relu(x, negative_slope)
+
+
+def prelu(x, weight, data_format: str = "NCHW", name=None):
+    """``x`` where ``x >= 0``, else ``weight * x``; a weight of more than
+    one element is per channel (axis 1, or the last for channels-last)."""
+    if weight.numel() > 1:
+        shape = [1] * x.ndim
+        shape[1 if data_format.startswith("NC") else x.ndim - 1] = \
+            weight.numel()
+        weight = weight.reshape(shape)
+    return torch.where(x >= 0, x, weight * x)
+
+
+def rrelu(x, lower: float = 1.0 / 8.0, upper: float = 1.0 / 3.0,
+          training: bool = True, name=None):
+    """Randomised leaky ReLU: in training each negative element's slope is
+    uniform on ``[lower, upper]``, drawn from a generator seeded from the
+    "rrelu" stream (jax's draws and torch's differ; the distribution is
+    the reference's); in eval the slope is their mean."""
+    if training:
+        gen = torch.Generator(device=x.device)
+        gen.manual_seed(take_rng_key("rrelu"))
+        a = torch.empty(x.shape, dtype=x.dtype, device=x.device).uniform_(
+            lower, upper, generator=gen)
+    else:
+        a = (lower + upper) / 2.0
+    return torch.where(x >= 0, x, a * x)
+
+
+def hardtanh(x, min: float = -1.0, max: float = 1.0, name=None):  # noqa: A002
+    return torch.clamp(x, min, max)
+
+
+def hardshrink(x, threshold: float = 0.5, name=None):
+    return torch.where(x.abs() > threshold, x, torch.zeros_like(x))
+
+
+def softshrink(x, threshold: float = 0.5, name=None):
+    zero = torch.zeros_like(x)
+    return torch.where(x > threshold, x - threshold,
+                       torch.where(x < -threshold, x + threshold, zero))
+
+
+def tanhshrink(x, name=None):
+    return x - torch.tanh(x)
+
+
+def thresholded_relu(x, threshold: float = 1.0, name=None):
+    return torch.where(x > threshold, x, torch.zeros_like(x))
+
+
+def hardsigmoid(x, slope: float = 0.1666667, offset: float = 0.5, name=None):
+    return torch.clamp(slope * x + offset, 0.0, 1.0)
+
+
+def hardswish(x, name=None):
+    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: ``log(1 + exp(x))`` without a threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def mish(x, name=None):
+    return x * torch.tanh(_softplus(x))
+
+
+def softplus(x, beta: float = 1.0, threshold: float = 20.0, name=None):
+    return torch.where(x * beta > threshold, x, _softplus(x * beta) / beta)
+
+
+def softsign(x, name=None):
+    return x / (1.0 + x.abs())
+
+
+def maxout(x, groups: int, axis: int = 1, name=None):
+    axis = axis % x.ndim
+    c = x.shape[axis]
+    shape = x.shape[:axis] + (c // groups, groups) + x.shape[axis + 1:]
+    return x.reshape(shape).amax(dim=axis + 1)
+
+
+def softmax(x, axis: int = -1, dtype=None, name=None):
+    if dtype is not None:
+        x = x.to(_torch_dtype(dtype))
+    return torch.softmax(x, dim=axis)
+
+
+def log_softmax(x, axis: int = -1, dtype=None, name=None):
+    if dtype is not None:
+        x = x.to(_torch_dtype(dtype))
+    return torch.log_softmax(x, dim=axis)
+
+
+def log_sigmoid(x, name=None):
+    return _F.logsigmoid(x)
+
+
+def _torch_dtype(dtype):
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return {"float32": torch.float32, "float16": torch.float16,
+            "bfloat16": torch.bfloat16, "float64": torch.float64}[str(dtype)]
+
+
 def layer_norm(x, normalized_shape, weight=None, bias=None,
                epsilon: float = 1e-5):
     """LayerNorm with the reference's numerics: statistics in float32 for
@@ -90,6 +261,116 @@ def rms_norm(x, weight=None, epsilon: float = 1e-6):
     return out
 
 
+def _channel_shape(x, data_format: str):
+    """The channel axis of ``x`` under ``data_format`` ("NC..." puts it at
+    1, anything else last) and the broadcast shape of a per-channel
+    vector."""
+    ch_axis = 1 if data_format.startswith("NC") else x.ndim - 1
+    shape = [1] * x.ndim
+    shape[ch_axis] = x.shape[ch_axis]
+    return ch_axis, shape
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training: bool = False, momentum: float = 0.9,
+               epsilon: float = 1e-05, data_format: str = "NCHW",
+               use_global_stats=None, name=None):
+    """Batch norm with the reference's numerics (``functional.py:219-254``);
+    returns ``(out, new_running_mean, new_running_var)`` and mutates
+    nothing (``nn.BatchNorm*`` copies the new statistics into its
+    buffers).
+
+    In training (and without ``use_global_stats``) the batch mean and the
+    biased variance normalise, taken in float32 for bfloat16 and float16
+    inputs; the running statistics move by paddle's convention,
+    ``momentum * running + (1 - momentum) * batch`` (torch's momentum is
+    the other share), with the unbiased variance ``var * n / (n - 1)``,
+    and keep the running buffers' dtype. They take no gradient. ``out`` is
+    ``(x - mean) * rsqrt(var + eps)`` in x's dtype, then ``* weight``,
+    then ``+ bias``, which promote as JAX does (a float32 x and bf16 O2
+    weights give float32)."""
+    ch_axis, shape = _channel_shape(x, data_format)
+    reduce_axes = tuple(i for i in range(x.ndim) if i != ch_axis)
+    if training and not use_global_stats:
+        half = x.dtype in (torch.bfloat16, torch.float16)
+        var, mean = torch.var_mean(x.float() if half else x, dim=reduce_axes,
+                                   correction=0)
+        with torch.no_grad():
+            n = x.numel() // x.shape[ch_axis]
+            unbiased = var.detach() * n / max(n - 1, 1)
+            new_mean = (momentum * running_mean + (1 - momentum)
+                        * mean.detach().to(running_mean.dtype))
+            new_var = (momentum * running_var + (1 - momentum)
+                       * unbiased.to(running_var.dtype))
+    else:
+        mean, var = running_mean, running_var
+        new_mean, new_var = running_mean, running_var
+    out = (x - mean.reshape(shape).to(x.dtype)) * torch.rsqrt(
+        var.reshape(shape).float() + epsilon).to(x.dtype)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out, new_mean, new_var
+
+
+def group_norm(x, num_groups: int, weight=None, bias=None,
+               epsilon: float = 1e-05, data_format: str = "NCHW", name=None):
+    """Group norm (``functional.py:257``): statistics per sample and group
+    of ``C / num_groups`` channels, in x's dtype."""
+    if data_format.startswith("NC"):
+        N, C = x.shape[0], x.shape[1]
+        g = x.reshape(N, num_groups, C // num_groups, *x.shape[2:])
+        axes = tuple(range(2, g.ndim))
+    else:
+        N, C = x.shape[0], x.shape[-1]
+        g = x.reshape(N, *x.shape[1:-1], num_groups, C // num_groups)
+        axes = tuple(range(1, g.ndim - 2)) + (g.ndim - 1,)
+    var, mean = torch.var_mean(g, dim=axes, keepdim=True, correction=0)
+    out = ((g - mean) * torch.rsqrt(var + epsilon)).reshape(x.shape)
+    _, shape = _channel_shape(x, data_format)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats: bool = True,
+                  momentum: float = 0.9, eps: float = 1e-05,
+                  data_format: str = "NCHW", name=None):
+    """Instance norm (``functional.py:286``): statistics per sample and
+    channel over the spatial axes. The running statistics are accepted and
+    not read, and ``bias`` applies only with a ``weight``, as in the
+    reference."""
+    ch_axis, shape = _channel_shape(x, data_format)
+    axes = tuple(range(2, x.ndim)) if ch_axis == 1 \
+        else tuple(range(1, x.ndim - 1))
+    var, mean = torch.var_mean(x, dim=axes, keepdim=True, correction=0)
+    out = (x - mean) * torch.rsqrt(var + eps)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+        if bias is not None:
+            out = out + bias.reshape(shape)
+    return out
+
+
+def local_response_norm(x, size: int, alpha: float = 1e-4,
+                        beta: float = 0.75, k: float = 1.0,
+                        data_format: str = "NCHW", name=None):
+    """``x / (k + alpha * sum of x^2 over `size` neighbouring channels) **
+    beta``, the window centred with its extra channel after
+    (``functional.py:303``)."""
+    ch_axis, _ = _channel_shape(x, data_format)
+    sq = x.square().movedim(ch_axis, -1)
+    lo = (size - 1) // 2
+    padded = _F.pad(sq, (lo, size - 1 - lo))
+    C = sq.shape[-1]
+    summed = sum(padded[..., i:i + C] for i in range(size))
+    return x / torch.pow(k + alpha * summed.movedim(-1, ch_axis), beta)
+
+
 def dropout(x, p: float = 0.5, axis=None, training: bool = True,
             mode: str = "upscale_in_train"):
     """Dropout (``functional.py:318``): keep each element with probability
@@ -116,6 +397,435 @@ def dropout(x, p: float = 0.5, axis=None, training: bool = True,
     keep = torch.rand(mask_shape, generator=gen, device=x.device) < 1.0 - p
     kept = x / (1.0 - p) if mode == "upscale_in_train" else x
     return torch.where(keep, kept, torch.zeros_like(x))
+
+
+# ------------------------------------------------------------ conv / pool
+_CONV = {1: _F.conv1d, 2: _F.conv2d, 3: _F.conv3d}
+_CONV_T = {1: _F.conv_transpose1d, 2: _F.conv_transpose2d,
+           3: _F.conv_transpose3d}
+_MAX_POOL = {2: _F.max_pool2d, 3: _F.max_pool3d}
+_AVG_POOL = {2: _F.avg_pool2d, 3: _F.avg_pool3d}
+
+
+def _pair(v, n):
+    if isinstance(v, (list, tuple)):
+        return tuple(v)
+    return (v,) * n
+
+
+def _conv_padding(padding, n_spatial, kernel, stride, dilation):
+    """paddle padding: an int, one int per spatial dimension, a (lo, hi)
+    pair per dimension (flat or nested), or 'SAME' / 'VALID'
+    (``functional.py:377``)."""
+    if isinstance(padding, str):
+        return padding.upper()
+    if isinstance(padding, int):
+        return [(padding, padding)] * n_spatial
+    padding = list(padding)
+    if len(padding) == n_spatial and all(isinstance(p, int) for p in padding):
+        return [(p, p) for p in padding]
+    if len(padding) == 2 * n_spatial:
+        return [(padding[2 * i], padding[2 * i + 1]) for i in range(n_spatial)]
+    return [tuple(p) for p in padding]
+
+
+def _padtype_pads(pad: str, sizes, windows, strides):
+    """XLA's pads for 'VALID' (none) and 'SAME' (``ceil(size / stride)``
+    outputs, the odd padding row at the high end)."""
+    if pad == "VALID":
+        return [(0, 0)] * len(sizes)
+    if pad != "SAME":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {pad!r}")
+    pads = []
+    for size, w, s in zip(sizes, windows, strides):
+        total = max((-(-size // s) - 1) * s + w - size, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _pad_spatial(x, pads, value=0.0):
+    """``x`` ``[N, C, *spatial]`` padded by ``pads`` ((lo, hi) per spatial
+    dimension; negative crops)."""
+    flat = []
+    for lo, hi in reversed(pads):
+        flat += [lo, hi]
+    return _F.pad(x, flat, value=value)
+
+
+def _symmetric(pads, limit=None):
+    """The per-dimension pad when every dimension pads both ends alike
+    (within ``limit``), else None."""
+    if all(lo == hi and lo >= 0 for lo, hi in pads) and (
+            limit is None or all(lo <= lim for (lo, _), lim in
+                                 zip(pads, limit))):
+        return [lo for lo, _ in pads]
+    return None
+
+
+def _add_bias(out, bias, channel_axis=1):
+    if bias is None:
+        return out
+    shape = [1] * out.ndim
+    shape[channel_axis] = -1
+    return out + bias.to(out.dtype).reshape(shape)
+
+
+def _convnd(x, weight, bias, stride, padding, dilation, groups, n_spatial,
+            channel_last):
+    """``lax.conv_general_dilated`` as the reference calls it
+    (``functional.py:391-410``): the weight cast to x's dtype, then the
+    bias added in the output's dtype. Channels-last inputs run
+    channels-first and are moved back."""
+    x, weight, bias = autocast_call("conv", x, weight, bias)
+    stride = _pair(stride, n_spatial)
+    dilation = _pair(dilation, n_spatial)
+    kernel = tuple(weight.shape[2:])
+    if channel_last:
+        x = x.movedim(-1, 1)
+    pads = _conv_padding(padding, n_spatial, kernel, stride, dilation)
+    if isinstance(pads, str):
+        pads = _padtype_pads(pads, x.shape[2:], [d * (k - 1) + 1 for k, d in
+                                                 zip(kernel, dilation)],
+                             stride)
+    sym = _symmetric(pads)
+    if sym is None:
+        x, sym = _pad_spatial(x, pads), 0
+    out = _add_bias(_CONV[n_spatial](x, weight.to(x.dtype), None, stride, sym,
+                                     dilation, groups), bias)
+    return out.movedim(1, -1) if channel_last else out
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCL", name=None):
+    return _convnd(x, weight, bias, stride, padding, dilation, groups, 1,
+                   data_format == "NLC")
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW", name=None):
+    return _convnd(x, weight, bias, stride, padding, dilation, groups, 2,
+                   data_format == "NHWC")
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW", name=None):
+    return _convnd(x, weight, bias, stride, padding, dilation, groups, 3,
+                   data_format == "NDHWC")
+
+
+def _convnd_transpose(x, weight, bias, stride, padding, output_padding,
+                      dilation, groups, n_spatial, channel_last):
+    """The reference's transposed conv (``functional.py:428-466``): the
+    gradient of a conv, run as a stride-1 conv of the stride-dilated input
+    padded ``(d (k - 1) - lo, d (k - 1) - hi + output_padding)``. The
+    weight is ``[in_c, out_c / groups, *k]``, torch's transposed layout.
+    Torch's transposed conv gives the full output (pads ``d (k - 1)`` each
+    side), cropped or zero-padded to those pads. A 'SAME' / 'VALID'
+    string raises, as the reference's ``lax`` call does. No autocast, as
+    in the reference."""
+    stride = _pair(stride, n_spatial)
+    dilation = _pair(dilation, n_spatial)
+    kernel = tuple(weight.shape[2:])
+    if channel_last:
+        x = x.movedim(-1, 1)
+    pad = _conv_padding(padding, n_spatial, kernel, stride, dilation)
+    if isinstance(pad, str):
+        raise ValueError("String padding is not implemented for transposed "
+                         "convolution: give the padding explicitly")
+    full = [d * (k - 1) for k, d in zip(kernel, dilation)]
+    opad = _pair(output_padding, n_spatial)
+    trans = [(f - lo, f - hi + op)
+             for f, (lo, hi), op in zip(full, pad, opad)]
+    out = _CONV_T[n_spatial](x, weight.to(x.dtype), None, stride, 0, 0,
+                             groups, dilation)
+    out = _pad_spatial(out, [(lo - f, hi - f)
+                             for (lo, hi), f in zip(trans, full)])
+    out = _add_bias(out, bias)
+    return out.movedim(1, -1) if channel_last else out
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCL", name=None):
+    return _convnd_transpose(x, weight, bias, stride, padding, output_padding,
+                             dilation, groups, 1, data_format == "NLC")
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCHW", output_size=None, name=None):
+    return _convnd_transpose(x, weight, bias, stride, padding, output_padding,
+                             dilation, groups, 2, data_format == "NHWC")
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCDHW", output_size=None, name=None):
+    return _convnd_transpose(x, weight, bias, stride, padding, output_padding,
+                             dilation, groups, 3, data_format == "NDHWC")
+
+
+def _pool_pads(x, kernel, stride, padding, ceil_mode):
+    """The reference's ``reduce_window`` pads for ``x`` ``[N, C,
+    *spatial]`` (``functional.py:487-511``): ``ceil_mode`` widens the high
+    pad until the last partial window fits; a string pad ignores it."""
+    n = len(kernel)
+    pad = _conv_padding(padding, n, kernel, stride, (1,) * n)
+    if isinstance(pad, str):
+        return _padtype_pads(pad, x.shape[2:], kernel, stride)
+    pads = list(pad)
+    if ceil_mode:
+        for i, size in enumerate(x.shape[2:]):
+            lo, hi = pads[i]
+            rem = (size + lo + hi - kernel[i]) % stride[i]
+            if rem:
+                pads[i] = (lo, hi + stride[i] - rem)
+    return pads
+
+
+def _pool_geometry(kernel_size, stride, n_spatial):
+    kernel = _pair(kernel_size, n_spatial)
+    return kernel, _pair(stride if stride is not None else kernel_size,
+                         n_spatial)
+
+
+def _max_pool(x, kernel_size, stride, padding, n_spatial, channel_last,
+              ceil_mode):
+    """Max over windows, padding with -inf (the reference's
+    ``reduce_window`` init); torch's own padding where it is the same
+    (symmetric, at most half the window)."""
+    kernel, stride = _pool_geometry(kernel_size, stride, n_spatial)
+    if channel_last:
+        x = x.movedim(-1, 1)
+    pads = _pool_pads(x, kernel, stride, padding, ceil_mode)
+    sym = _symmetric(pads, [k // 2 for k in kernel])
+    if sym is None:
+        x, sym = _pad_spatial(x, pads, float("-inf")), 0
+    out = _MAX_POOL[n_spatial](x, kernel, stride, sym)
+    return out.movedim(1, -1) if channel_last else out
+
+
+def _sum_pool(x, kernel, stride, pads):
+    """Window sums of ``x`` ``[N, C, *spatial]`` zero-padded by ``pads``
+    (2 or 3 spatial dimensions)."""
+    if any(lo or hi for lo, hi in pads):
+        x = _pad_spatial(x, pads)
+    return _AVG_POOL[len(kernel)](x, kernel, stride, 0, False, True, 1)
+
+
+def _avg_pool(x, kernel_size, stride, padding, ceil_mode, exclusive,
+              divisor_override, n_spatial, channel_last):
+    """Window sums over the reference's pads, divided by
+    ``divisor_override``, else (``exclusive``) by the count of real
+    elements in each window, else by the window's size
+    (``functional.py:545-582``)."""
+    kernel, stride = _pool_geometry(kernel_size, stride, n_spatial)
+    if channel_last:
+        x = x.movedim(-1, 1)
+    pads = _pool_pads(x, kernel, stride, padding, ceil_mode)
+    summed = _sum_pool(x, kernel, stride, pads)
+    if divisor_override:
+        out = summed / divisor_override
+    elif exclusive and any(lo or hi for lo, hi in pads):
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                          device=x.device)
+        out = summed / _sum_pool(ones, kernel, stride, pads)
+    else:
+        out = summed / math.prod(kernel)
+    return out.movedim(1, -1) if channel_last else out
+
+
+def _as_2d_pool_args(kernel_size, stride, padding):
+    """A 1-d pool's arguments for the 2-d pool over ``x[..., None]`` (the
+    reference's ``max_pool1d`` / ``avg_pool1d``)."""
+    k = _pair(kernel_size, 1) + (1,)
+    s = None if stride is None else _pair(stride, 1) + (1,)
+    p = padding if isinstance(padding, str) else _pair(padding, 1) + (0,)
+    return k, s, p
+
+
+def max_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, name=None):
+    """``max_pool2d`` over ``x[..., None]``; ``return_mask`` is not read
+    (the reference's)."""
+    k, s, p = _as_2d_pool_args(kernel_size, stride, padding)
+    return max_pool2d(x.unsqueeze(-1), k, s, p, ceil_mode=ceil_mode) \
+        .squeeze(-1)
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCHW", name=None):
+    """Max pooling; ``return_mask`` (NCHW, no ``ceil_mode``) also returns
+    each maximum's flat ``H * W`` index into the input, int32, the first
+    maximum of its window in row-major order, as ``max_unpool2d`` reads
+    it."""
+    if return_mask:
+        if data_format != "NCHW" or ceil_mode:
+            raise NotImplementedError(
+                "return_mask supports NCHW without ceil_mode")
+        return _max_pool2d_with_mask(x, kernel_size, stride, padding)
+    return _max_pool(x, kernel_size, stride, padding, 2, data_format == "NHWC",
+                     ceil_mode)
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCDHW", name=None):
+    """Max pooling over three spatial axes; ``return_mask`` is not read
+    (the reference's)."""
+    return _max_pool(x, kernel_size, stride, padding, 3,
+                     data_format == "NDHWC", ceil_mode)
+
+
+def _max_pool2d_with_mask(x, kernel_size, stride, padding):
+    kh, kw = _pair(kernel_size, 2)
+    sh, sw = _pair(stride or kernel_size, 2)
+    ph, pw = _pair(padding, 2)
+    W = x.shape[3]
+    padded = _F.pad(x, (pw, pw, ph, ph), value=float("-inf"))
+    out, idx = _F.max_pool2d(padded, (kh, kw), (sh, sw), return_indices=True)
+    wp = W + 2 * pw
+    row, col = idx // wp - ph, idx % wp - pw
+    return out, (row * W + col).to(torch.int32)
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, name=None):
+    k, s, p = _as_2d_pool_args(kernel_size, stride, padding)
+    return avg_pool2d(x.unsqueeze(-1), k, s, p, ceil_mode=ceil_mode,
+                      exclusive=exclusive).squeeze(-1)
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCHW",
+               name=None):
+    return _avg_pool(x, kernel_size, stride, padding, ceil_mode, exclusive,
+                     divisor_override, 2, data_format == "NHWC")
+
+
+def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCDHW",
+               name=None):
+    return _avg_pool(x, kernel_size, stride, padding, ceil_mode, exclusive,
+                     divisor_override, 3, data_format == "NDHWC")
+
+
+def _adaptive_pool_nd(x, output_size, axes, reduce: str):
+    """Adaptive pooling one axis at a time (``functional.py:1169-1181``):
+    output ``i`` of an axis of ``size`` covers ``[floor(i size / out),
+    ceil((i + 1) size / out))``."""
+    for axis, out in zip(axes, output_size):
+        size = x.shape[axis]
+        segs = []
+        for i in range(out):
+            start, end = (i * size) // out, ((i + 1) * size + out - 1) // out
+            seg = x.narrow(axis, start, end - start)
+            segs.append(seg.mean(dim=axis, keepdim=True) if reduce == "mean"
+                        else seg.amax(dim=axis, keepdim=True))
+        x = torch.cat(segs, dim=axis)
+    return x
+
+
+def adaptive_avg_pool1d(x, output_size, name=None):
+    return adaptive_avg_pool2d(x.unsqueeze(-1), (output_size, 1)).squeeze(-1)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
+    """An even split is ``avg_pool2d`` with the quotient as window and
+    stride, as in the reference; an uneven one the adaptive windows."""
+    out_h, out_w = _pair(output_size, 2)
+    axes = (2, 3) if data_format == "NCHW" else (1, 2)
+    H, W = x.shape[axes[0]], x.shape[axes[1]]
+    out_h = H if out_h is None else out_h
+    out_w = W if out_w is None else out_w
+    if H % out_h == 0 and W % out_w == 0:
+        kh, kw = H // out_h, W // out_w
+        return avg_pool2d(x, (kh, kw), (kh, kw), 0, data_format=data_format)
+    return _adaptive_pool_nd(x, (out_h, out_w), axes, "mean")
+
+
+def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
+    axes = (2, 3, 4) if data_format == "NCDHW" else (1, 2, 3)
+    sizes = [x.shape[a] if s is None else int(s)
+             for a, s in zip(axes, _pair(output_size, 3))]
+    return _adaptive_pool_nd(x, sizes, axes, "mean")
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
+    if return_mask:
+        raise NotImplementedError(
+            "return_mask is not supported for adaptive max pooling")
+    return adaptive_max_pool2d(x.unsqueeze(-1), (output_size, 1)).squeeze(-1)
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
+    """NCHW only; ``return_mask`` is not read (the reference's)."""
+    out_h, out_w = _pair(output_size, 2)
+    H, W = x.shape[2], x.shape[3]
+    if H % out_h == 0 and W % out_w == 0:
+        kh, kw = H // out_h, W // out_w
+        return max_pool2d(x, (kh, kw), (kh, kw), 0)
+    return _adaptive_pool_nd(x, (out_h, out_w), (2, 3), "max")
+
+
+def adaptive_max_pool3d(x, output_size, return_mask=False, name=None):
+    if return_mask:
+        raise NotImplementedError(
+            "return_mask is not supported for adaptive max pooling")
+    sizes = [x.shape[a] if s is None else int(s)
+             for a, s in zip((2, 3, 4), _pair(output_size, 3))]
+    return _adaptive_pool_nd(x, sizes, (2, 3, 4), "max")
+
+
+def _flat_unpool(x, indices, out_len):
+    """Pooled values scattered to their flat spatial indices in zeros; an
+    index outside ``[0, out_len)`` is dropped, as JAX's scatter drops it
+    (it lands in a spare slot cut off after)."""
+    N, C = x.shape[:2]
+    idx = indices.reshape(N, C, -1).long()
+    idx = torch.where((idx >= 0) & (idx < out_len), idx,
+                      torch.full_like(idx, out_len))
+    flat = x.new_zeros((N, C, out_len + 1))
+    return flat.scatter(2, idx, x.reshape(N, C, -1))[..., :out_len]
+
+
+def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
+                 output_size=None, data_format="NCHW", name=None):
+    """Pooled values back at their argmax positions, zeros elsewhere
+    (``functional.py:1248``; flat ``H * W`` indices, as ``max_pool2d``'s
+    ``return_mask`` gives them)."""
+    kh, kw = _pair(kernel_size, 2)
+    sh, sw = _pair(stride or kernel_size, 2)
+    ph, pw = _pair(padding, 2)
+    N, C, Ho, Wo = x.shape
+    if output_size is None:
+        H = (Ho - 1) * sh - 2 * ph + kh
+        W = (Wo - 1) * sw - 2 * pw + kw
+    else:
+        H, W = output_size[-2], output_size[-1]
+    return _flat_unpool(x, indices, H * W).reshape(N, C, H, W)
+
+
+def max_unpool1d(x, indices, kernel_size, stride=None, padding=0,
+                 output_size=None, data_format="NCL", name=None):
+    osz = None if output_size is None else (output_size[-1], 1)
+    return max_unpool2d(x.unsqueeze(-1), indices.unsqueeze(-1),
+                        (kernel_size, 1), (stride or kernel_size, 1),
+                        (padding, 0), osz).squeeze(-1)
+
+
+def max_unpool3d(x, indices, kernel_size, stride=None, padding=0,
+                 output_size=None, data_format="NCDHW", name=None):
+    kd, kh, kw = _pair(kernel_size, 3)
+    sd, sh, sw = _pair(stride or kernel_size, 3)
+    pd, ph, pw = _pair(padding, 3)
+    N, C, Do, Ho, Wo = x.shape
+    if output_size is None:
+        D = (Do - 1) * sd - 2 * pd + kd
+        H = (Ho - 1) * sh - 2 * ph + kh
+        W = (Wo - 1) * sw - 2 * pw + kw
+    else:
+        D, H, W = output_size[-3:]
+    return _flat_unpool(x, indices, D * H * W).reshape(N, C, D, H, W)
 
 
 def _reduce_loss(loss, reduction: str):
@@ -181,6 +891,165 @@ def cross_entropy(input, label, weight=None, ignore_index: int = -100,  # noqa: 
         n_valid = torch.clamp(valid.sum().to(loss.dtype), min=1.0)
         return loss.sum() / n_valid
     return _reduce_loss(loss, reduction)
+
+
+def _t(v, like):
+    """``v`` (a tensor, array or number) as a tensor on ``like``'s
+    device."""
+    return torch.as_tensor(v, device=like.device)
+
+
+def mse_loss(input, label, reduction="mean", name=None):  # noqa: A002
+    return _reduce_loss((input - _t(label, input)).square(), reduction)
+
+
+def l1_loss(input, label, reduction="mean", name=None):  # noqa: A002
+    return _reduce_loss((input - _t(label, input)).abs(), reduction)
+
+
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0,  # noqa: A002
+                   name=None):
+    d = input - _t(label, input)
+    ad = d.abs()
+    return _reduce_loss(torch.where(ad < delta, 0.5 * d * d / delta,
+                                    ad - 0.5 * delta), reduction)
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100,  # noqa: A002
+             reduction="mean", name=None):
+    """Negative log-likelihood of log-probabilities ``input``, the class
+    on the LAST axis (the reference's, ``functional.py:782``);
+    ``ignore_index`` labels count 0 and leave the mean's denominator."""
+    label = _t(label, input).long()
+    valid = label != ignore_index
+    safe = torch.where(valid, label, torch.zeros_like(label))
+    loss = -torch.gather(input, -1, safe.unsqueeze(-1)).squeeze(-1)
+    if weight is not None:
+        w = _t(weight, input)[safe]
+        loss = loss * w
+        if reduction == "mean":
+            zero = torch.zeros((), dtype=loss.dtype, device=loss.device)
+            return (torch.where(valid, loss, zero).sum()
+                    / torch.clamp(torch.where(valid, w, zero.to(w.dtype))
+                                  .sum(), min=1e-12))
+    loss = torch.where(valid, loss, torch.zeros_like(loss))
+    if reduction == "mean":
+        return loss.sum() / torch.clamp(valid.sum().to(loss.dtype), min=1.0)
+    return _reduce_loss(loss, reduction)
+
+
+def binary_cross_entropy(input, label, weight=None, reduction="mean",  # noqa: A002
+                         name=None):
+    p = torch.clamp(input, 1e-12, 1.0 - 1e-7)
+    label = _t(label, input)
+    loss = -(label * torch.log(p) + (1 - label) * torch.log1p(-p))
+    if weight is not None:
+        loss = loss * _t(weight, input)
+    return _reduce_loss(loss, reduction)
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None,
+                                     name=None):
+    """``max(z, 0) - z y + log(1 + exp(-|z|))``; with ``pos_weight``,
+    ``-(pos_weight y log sigmoid(z) + (1 - y) log sigmoid(-z))``."""
+    label = _t(label, logit)
+    if pos_weight is not None:
+        loss = -(_t(pos_weight, logit) * label * _F.logsigmoid(logit)
+                 + (1 - label) * _F.logsigmoid(-logit))
+    else:
+        loss = (torch.clamp(logit, min=0) - logit * label
+                + torch.log1p(torch.exp(-logit.abs())))
+    if weight is not None:
+        loss = loss * _t(weight, logit)
+    return _reduce_loss(loss, reduction)
+
+
+def kl_div(input, label, reduction="mean", name=None):  # noqa: A002
+    """``label * (log(label) - input)``, ``input`` log-probabilities;
+    ``'batchmean'`` divides the sum by the batch."""
+    target = _t(label, input)
+    loss = target * (torch.log(torch.clamp(target, min=1e-12)) - input)
+    if reduction == "batchmean":
+        return loss.sum() / loss.shape[0]
+    return _reduce_loss(loss, reduction)
+
+
+def margin_ranking_loss(input, other, label, margin=0.0,  # noqa: A002
+                        reduction="mean", name=None):
+    return _reduce_loss(torch.clamp(
+        -_t(label, input) * (input - other) + margin, min=0.0), reduction)
+
+
+def hinge_embedding_loss(input, label, margin=1.0, reduction="mean",  # noqa: A002
+                         name=None):
+    return _reduce_loss(torch.where(_t(label, input) == 1, input,
+                                    torch.clamp(margin - input, min=0.0)),
+                        reduction)
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8):
+    dot = (x1 * x2).sum(dim=axis)
+    n1 = torch.linalg.vector_norm(x1, dim=axis)
+    n2 = torch.linalg.vector_norm(x2, dim=axis)
+    return dot / torch.clamp(n1 * n2, min=eps)
+
+
+def cosine_embedding_loss(input1, input2, label, margin=0.0,
+                          reduction="mean", name=None):
+    cos = cosine_similarity(input1, input2, axis=-1)
+    return _reduce_loss(torch.where(_t(label, cos) == 1, 1 - cos,
+                                    torch.clamp(cos - margin, min=0.0)),
+                        reduction)
+
+
+def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,  # noqa: A002
+                        eps=1e-6, swap=False, reduction="mean", name=None):
+    def dist(a, b):
+        return torch.linalg.vector_norm(a - b + eps, ord=p, dim=-1)
+
+    d_pos, d_neg = dist(input, positive), dist(input, negative)
+    if swap:
+        d_neg = torch.minimum(d_neg, dist(positive, negative))
+    return _reduce_loss(torch.clamp(d_pos - d_neg + margin, min=0.0),
+                        reduction)
+
+
+def soft_margin_loss(input, label, reduction="mean", name=None):  # noqa: A002
+    return _reduce_loss(_softplus(-_t(label, input).to(input.dtype) * input),
+                        reduction)
+
+
+def multi_label_soft_margin_loss(input, label, weight=None,  # noqa: A002
+                                 reduction="mean", name=None):
+    y = _t(label, input).to(input.dtype)
+    loss = -(y * _F.logsigmoid(input) + (1 - y) * _F.logsigmoid(-input))
+    if weight is not None:
+        loss = loss * _t(weight, input)
+    return _reduce_loss(loss.mean(dim=-1), reduction)
+
+
+def multi_margin_loss(input, label, p: int = 1, margin: float = 1.0,  # noqa: A002
+                      weight=None, reduction="mean", name=None):
+    lab = _t(label, input).long()
+    target = torch.gather(input, 1, lab[:, None])
+    m = torch.clamp(margin - target + input, min=0.0) ** p
+    if weight is not None:
+        m = m * _t(weight, input)[lab][:, None]
+    m = m * (1 - _F.one_hot(lab, input.shape[1]).to(input.dtype))
+    return _reduce_loss(m.sum(dim=1) / input.shape[1], reduction)
+
+
+def triplet_margin_with_distance_loss(input, positive, negative,  # noqa: A002
+                                      distance_function=None, margin=1.0,
+                                      swap=False, reduction="mean",
+                                      name=None):
+    dist = distance_function or (
+        lambda a, b: torch.linalg.vector_norm(a - b, dim=-1))
+    dp, dn = dist(input, positive), dist(input, negative)
+    if swap:
+        dn = torch.minimum(dn, dist(positive, negative))
+    return _reduce_loss(torch.clamp(dp - dn + margin, min=0.0), reduction)
 
 
 def _plain_attention(q, k, v, attn_mask=None, dropout_p: float = 0.0,

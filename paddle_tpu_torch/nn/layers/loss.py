@@ -1,0 +1,194 @@
+"""Loss layers (port of ``paddle_tpu/nn/layers/loss.py``): each
+forwards to its function in :mod:`~paddle_tpu_torch.nn.functional`. A
+class weight is held as given (``_weight_value``), not as a parameter, as
+in the reference. ``CTCLoss`` and ``HSigmoidLoss`` wait with their
+functions for the ``rnn`` / ``decode`` slice (ROADMAP A9).
+"""
+from __future__ import annotations
+
+from torch import nn
+
+from .. import functional as F
+
+__all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "SmoothL1Loss",
+           "NLLLoss", "BCELoss", "BCEWithLogitsLoss", "KLDivLoss",
+           "MarginRankingLoss", "HingeEmbeddingLoss",
+           "CosineEmbeddingLoss", "TripletMarginLoss",
+           "SoftMarginLoss", "MultiLabelSoftMarginLoss",
+           "MultiMarginLoss", "TripletMarginWithDistanceLoss"]
+
+
+class CrossEntropyLoss(nn.Module):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 soft_label=False, axis=-1, use_softmax=True, label_smoothing=0.0, name=None):
+        super().__init__()
+        self.weight = None
+        self._weight_value = weight
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+        self.soft_label = soft_label
+        self.axis = axis
+        self.use_softmax = use_softmax
+        self.label_smoothing = label_smoothing
+
+    def forward(self, input, label):  # noqa: A002
+        return F.cross_entropy(input, label, weight=self._weight_value,
+                               ignore_index=self.ignore_index, reduction=self.reduction,
+                               soft_label=self.soft_label, axis=self.axis,
+                               use_softmax=self.use_softmax,
+                               label_smoothing=self.label_smoothing)
+
+
+class MSELoss(nn.Module):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.mse_loss(input, label, self.reduction)
+
+
+class L1Loss(nn.Module):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.l1_loss(input, label, self.reduction)
+
+
+class SmoothL1Loss(nn.Module):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self.reduction = reduction
+        self.delta = delta
+
+    def forward(self, input, label):  # noqa: A002
+        return F.smooth_l1_loss(input, label, self.reduction, self.delta)
+
+
+class NLLLoss(nn.Module):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean", name=None):
+        super().__init__()
+        self._weight_value = weight
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.nll_loss(input, label, self._weight_value, self.ignore_index, self.reduction)
+
+
+class BCELoss(nn.Module):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self._weight_value = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.binary_cross_entropy(input, label, self._weight_value, self.reduction)
+
+
+class BCEWithLogitsLoss(nn.Module):
+    def __init__(self, weight=None, reduction="mean", pos_weight=None, name=None):
+        super().__init__()
+        self._weight_value = weight
+        self.reduction = reduction
+        self.pos_weight = pos_weight
+
+    def forward(self, logit, label):
+        return F.binary_cross_entropy_with_logits(logit, label, self._weight_value,
+                                                  self.reduction, self.pos_weight)
+
+
+class KLDivLoss(nn.Module):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.kl_div(input, label, self.reduction)
+
+
+class MarginRankingLoss(nn.Module):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, other, label):  # noqa: A002
+        return F.margin_ranking_loss(input, other, label, self.margin, self.reduction)
+
+
+class HingeEmbeddingLoss(nn.Module):
+    def __init__(self, margin=1.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.hinge_embedding_loss(input, label, self.margin, self.reduction)
+
+
+class CosineEmbeddingLoss(nn.Module):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input1, input2, label):
+        return F.cosine_embedding_loss(input1, input2, label, self.margin, self.reduction)
+
+
+class TripletMarginLoss(nn.Module):
+    def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False, reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.p, self.epsilon, self.swap = margin, p, epsilon, swap
+        self.reduction = reduction
+
+    def forward(self, input, positive, negative):  # noqa: A002
+        return F.triplet_margin_loss(input, positive, negative, self.margin,
+                                     self.p, self.epsilon, self.swap, self.reduction)
+
+
+class SoftMarginLoss(nn.Module):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.soft_margin_loss(input, label, self.reduction)
+
+
+class MultiLabelSoftMarginLoss(nn.Module):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self.weight, self.reduction = weight, reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.multi_label_soft_margin_loss(input, label, self.weight,
+                                              self.reduction)
+
+
+class MultiMarginLoss(nn.Module):
+    def __init__(self, p=1, margin=1.0, weight=None, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.p, self.margin = p, margin
+        self.weight, self.reduction = weight, reduction
+
+    def forward(self, input, label):  # noqa: A002
+        return F.multi_margin_loss(input, label, self.p, self.margin,
+                                   self.weight, self.reduction)
+
+
+class TripletMarginWithDistanceLoss(nn.Module):
+    def __init__(self, distance_function=None, margin=1.0, swap=False,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.distance_function = distance_function
+        self.margin, self.swap, self.reduction = margin, swap, reduction
+
+    def forward(self, input, positive, negative):  # noqa: A002
+        return F.triplet_margin_with_distance_loss(
+            input, positive, negative, self.distance_function, self.margin,
+            self.swap, self.reduction)

@@ -371,8 +371,13 @@ def test_early_stopping_lr_scheduler_and_scalar_logger(tmp_path):
     lines = (tmp_path / "runs" / "scalars.jsonl").read_text().splitlines()
     recs = [json.loads(line) for line in lines]
     assert {r["tag"] for r in recs} == {"train", "eval"}
-    with pytest.raises(NotImplementedError, match="A9"):
+    # summary() is ported: it needs a shape (or the Model's inputs), as
+    # the reference's does
+    with pytest.raises(ValueError, match="input_size"):
         model.summary()
+    assert model.summary((2, 8)) == {
+        "total_params": 8 * 16 + 16 + 16 * 4 + 4,
+        "trainable_params": 8 * 16 + 16 + 16 * 4 + 4}
     # fit(lora=dict) takes LoraConfig's keyword names, as the reference's
     with pytest.raises(TypeError, match="'r'"):
         model.fit(data, lora={"r": 4})

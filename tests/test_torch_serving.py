@@ -328,6 +328,15 @@ def test_port_imports_no_jax_or_reference_package():
                  "paddle_tpu_torch/distributed/collective.py",
                  "paddle_tpu_torch/distributed/overlap.py",
                  "paddle_tpu_torch/distributed/shard.py",
+                 "paddle_tpu_torch/nn/functional.py",
+                 "paddle_tpu_torch/nn/layers/conv.py",
+                 "paddle_tpu_torch/nn/layers/norm.py",
+                 "paddle_tpu_torch/nn/layers/pooling.py",
+                 "paddle_tpu_torch/nn/layers/activation.py",
+                 "paddle_tpu_torch/nn/layers/loss.py",
+                 "paddle_tpu_torch/models/resnet.py",
+                 "paddle_tpu_torch/hapi/model_summary.py",
+                 "paddle_tpu_torch/hapi/dynamic_flops.py",
                  "paddle_tpu_torch/distributed/parallel/__init__.py",
                  "paddle_tpu_torch/distributed/parallel/mp_layers.py",
                  "paddle_tpu_torch/distributed/parallel/data_parallel.py",

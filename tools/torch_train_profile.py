@@ -3,7 +3,8 @@
 
     python3 tools/torch_train_profile.py [--seed N] [--dtype float32]
                                          [--model llama2_7b |
-                                          transformer_base | bert_base]
+                                          transformer_base | bert_base |
+                                          resnet50]
 
 Builds the GPT-3 1.3B pretrain step of ``bench.py``'s ``bench_gpt_1p3b``
 on ``cuda`` (hidden 2048, 24 layers, 16 heads, vocab 50304, 1024
@@ -30,7 +31,14 @@ one card), recompute, chunked loss of 256, on a ``[1, 4096]`` batch.
 embedding, label smoothing 0.1) on its ``[32 x 256 / 200]`` batch with
 padding masks, and ``BertForSequenceClassification(bert_base())`` on its
 padded ``[32, 128]`` batch; tokens/s counts every position, MFU is not
-reported for them.
+reported for them. ``--model resnet50`` profiles ``chip_smoke.py``'s
+bench_resnet50 step (ResNet-50, 1000 classes, batch 64 at 224 x 224, bf16
+O2 Momentum(0.1, 0.9) on float32 images: float32 compute, as the
+reference) and groups its kernels as a convolutional step spends them:
+convolution forward and backward (cuDNN), batch-norm statistics and the
+elementwise work, pooling, the optimizer, copies; its "tokens" are
+images, and MFU counts 3 x the ported ``flops()`` forward against the
+bf16 peak.
 
 One JSON line per measurement; the card's name and power limit first.
 Needs a CUDA device (exits 1 without one). Imports nothing of JAX.
@@ -108,6 +116,32 @@ def _group(name: str) -> str:
     return "other elementwise and reductions"
 
 
+def _conv_group(name: str) -> str:
+    """A coarse class of a GPU kernel of the convolutional step."""
+    n = name.lower()
+    if "dgrad" in n or "wgrad" in n or "bprop" in n or \
+            ("conv" in n and "backward" in n):
+        return "convolution backward (cuDNN)"
+    if "nchwtonhwc" in n or "nhwctonchw" in n or "transpose" in n:
+        return "layout transposes (cuDNN)"
+    if any(w in n for w in ("fprop", "conv", "cudnn", "xmma", "implicit",
+                            "winograd", "fft")):
+        return "convolution forward (cuDNN)"
+    if "foreach" in n or "multi_tensor" in n:
+        return "optimizer (foreach)"
+    if "welford" in n or "reduce" in n or "var_mean" in n:
+        return "batch-norm statistics (reductions)"
+    if "pool" in n:
+        return "pooling"
+    if any(w in n for w in ("gemm", "gemv", "nvjet", "cutlass")):
+        return "matmul (cuBLAS: the classifier)"
+    if "softmax" in n or "nll" in n or "cross" in n:
+        return "softmax / loss"
+    if "copy" in n or "cat" in n or "index" in n or "fill" in n:
+        return "copies / index / fill"
+    return "elementwise (batch-norm apply and its backward, ReLU, adds)"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -115,10 +149,11 @@ def main(argv=None) -> int:
                     default="bfloat16",
                     help="bfloat16: O2 (bench_gpt_1p3b); float32: no amp")
     ap.add_argument("--model", choices=("gpt_1p3b", "llama2_7b",
-                                        "transformer_base", "bert_base"),
+                                        "transformer_base", "bert_base",
+                                        "resnet50"),
                     default="gpt_1p3b")
     args = ap.parse_args(argv)
-    if args.model in ("transformer_base", "bert_base") \
+    if args.model in ("transformer_base", "bert_base", "resnet50") \
             and args.dtype != "bfloat16":
         ap.error(f"--model {args.model} is profiled in bf16 O2 only")
 
@@ -144,7 +179,18 @@ def main(argv=None) -> int:
     _emit(card=card, torch=torch.__version__, dtype=args.dtype,
           model=args.model)
     flops_per_token = None
-    if args.model in ("transformer_base", "bert_base"):
+    group = _group
+    if args.model == "resnet50":
+        import chip_smoke as smoke
+        from paddle_tpu_torch.hapi.dynamic_flops import flops
+
+        step, batch = smoke._rn_bench_step(args.seed)
+        positions = smoke.RN_BATCH
+        fwd_flops = flops(step.model, (1, 3, smoke.RN_SIZE, smoke.RN_SIZE))
+        flops_per_token = lambda cfg, seq: 3 * fwd_flops  # noqa: E731
+        cfg = seq = None
+        group = _conv_group
+    elif args.model in ("transformer_base", "bert_base"):
         import chip_smoke as smoke
         from paddle_tpu_torch.models.bert import (
             BertForSequenceClassification, bert_base)
@@ -177,7 +223,7 @@ def main(argv=None) -> int:
                        use_flash_attention=True, loss_chunk=256,
                        dtype="bfloat16")
         model_cls, flops_per_token = GPTForCausalLM, gpt_flops_per_token
-    if flops_per_token is not None:
+    if flops_per_token is not None and args.model != "resnet50":
         framework_random.seed(args.seed)
         model = model_cls(cfg, device="cuda", generator=torch.Generator(
             "cuda").manual_seed(args.seed)).train()
@@ -189,7 +235,8 @@ def main(argv=None) -> int:
             0, cfg.vocab_size, (batch_size, seq)).astype(np.int32)
         batch = (ids, ids)
         positions = batch_size * seq
-    step = TrainStep(model, opt, loss_fn=None)
+    if args.model != "resnet50":
+        step = TrainStep(model, opt, loss_fn=None)
     for _ in range(WARMUP):
         float(step(batch))
     times = []
@@ -212,7 +259,7 @@ def main(argv=None) -> int:
     kernel_ms = sum(r[1] for r in rows)
     groups = {}
     for name, ms, n in rows:
-        g = groups.setdefault(_group(name), [0.0, 0.0])
+        g = groups.setdefault(group(name), [0.0, 0.0])
         g[0] += ms
         g[1] += n
     _emit(profile="train_step", per=f"1 of {TRACED}", kernel_ms=kernel_ms,
