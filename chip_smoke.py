@@ -250,7 +250,33 @@ exits non-zero:
                logits, statistics moved); (c) the same model fed bf16
                images; (d) a poisoned step and an EvalStep leaving every
                parameter, velocity, master and statistic bit-equal.
-12. fit loop - hapi_gpt_fit: bench.py bench_gpt_primary's GPT-350M (h1024,
+12. detection_training, ocr_training - the detection and OCR path (no
+               flash kernel on it; the models' ``loss`` through TrainStep
+               and ``LossAdapter``): (a) one float32 step of ppyoloe_s and
+               of YOLOv3(80, 32) at batch 2, 320 x 320, and of CRNN(6625)
+               at [4, 3, 32, 64], on the card against the CPU's float64
+               step (loss, logits, every statistic, the update, each read
+               against the CPU float32 step's own error; the TAL
+               assignment against the CPU's on the same inputs, each
+               head's yolo_loss against the CPU's in float64, an
+               infeasible CTC label's finite loss), sound and with two
+               planted faults a model (argmax taking the last maximum, no
+               detach before the assignment; padded rows writing cell
+               (0, 0), the first of two rows in one cell winning; CTC's
+               impossible paths at -inf, a skip between equal labels),
+               each of which must trip its gate; (b) ppyoloe_s at
+               [8, 3, 640, 640] and YOLOv3 at [8, 3, 608, 608] (float32
+               Momentum(0.9), L2 5e-4, 32 gt rows an image) and CRNN at
+               [128, 3, 32, 320] (Adam), 5 warm-up and 10 timed steps on
+               CUDA events (median ms and spread, images/s, peak,
+               launches and idle share of one traced step, falling loss,
+               0 flash launches), the port's LSTM and CTC timed beside
+               cuDNN's LSTM and torch's ctc_loss; (c) serving at batch 1
+               (the fused PP-YOLOE held to the unfused one; forward,
+               decode and NMS ms; predict's rows equal to the CPU
+               matrix_nms of the same arrays) and CRNN's greedy decode
+               equal to the CPU's of the same logits.
+13. fit loop - hapi_gpt_fit: bench.py bench_gpt_primary's GPT-350M (h1024,
                24 layers, 16 heads of 64, vocab 50304, [8, 1024], bf16 O2
                AdamW, chunked loss, no recompute, dropout 0) through
                Model.fit with two DataLoader workers, the device prefetch
@@ -270,7 +296,7 @@ exits non-zero:
                padding, length buckets (64, 128), LRScheduler and
                EarlyStopping; evaluate and predict equal to a direct
                EvalStep over the same batches' real rows.
-13. lora     - lora_fit: hapi_gpt_fit's GPT-350M, batches and loop
+14. lora     - lora_fit: hapi_gpt_fit's GPT-350M, batches and loop
                through Model.fit(lora=LoraConfig(rank=8, alpha=16)): 5
                warm-up and 8 timed steps beside the full fit's, exactly 24
                wgmma forward, dQ and dK/dV launches a step, the bf16 base
@@ -286,9 +312,9 @@ exits non-zero:
                D = 64 forwards per pool-less prefill and none pooled, a
                tenant's hits only on its own blocks; TTFT, ms and launches
                per decode step with and without the adapters.
-14. llama    - llama2_7b served at full width and depth, its bf16 O2
+15. llama    - llama2_7b served at full width and depth, its bf16 O2
                step (8 of 32 layers) and its GQA gradients (2 layers).
-15. distributed_training - hapi_gpt_fit's GPT-350M step (bf16 O2 AdamW,
+16. distributed_training - hapi_gpt_fit's GPT-350M step (bf16 O2 AdamW,
                global batch [8, 1024]) at world 2 on the one card: a
                single-process TrainStep first (the yardstick), NCCL with
                two ranks on the device meanwhile (its refusal recorded)
@@ -4705,17 +4731,18 @@ def _rn_yardstick(seed: int, device: str, ctor) -> dict:
     return out
 
 
-def _rn_timed_steps(step, batch, device: str) -> dict:
-    """RN_WARMUP + RN_TIMED steps of ``step`` on ``batch``: each step's ms
-    between CUDA events (host clock on the CPU), its loss, and the peak
+def _rn_timed_steps(step, batch, device: str, warmup: int = RN_WARMUP,
+                    timed: int = RN_TIMED) -> dict:
+    """``warmup`` + ``timed`` steps of ``step`` on ``batch``: each step's
+    ms between CUDA events (host clock on the CPU), its loss, and the peak
     memory over the timed steps."""
     import numpy as np
     import torch
 
     cuda = device != "cpu"
     losses, ms = [], []
-    for i in range(RN_WARMUP + RN_TIMED):
-        if i == RN_WARMUP and cuda:
+    for i in range(warmup + timed):
+        if i == warmup and cuda:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         if cuda:
@@ -4731,7 +4758,7 @@ def _rn_timed_steps(step, batch, device: str) -> dict:
             loss = step(batch)
             ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
-    timed = ms[RN_WARMUP:]
+    timed = ms[warmup:]
     return dict(losses=losses, step_ms=ms,
                 step_ms_median=float(np.median(timed)),
                 step_ms_min=min(timed), step_ms_max=max(timed),
@@ -4871,6 +4898,696 @@ def phase_resnet50_training(seed: int, device: str = "cuda", ctor=None,
                          tensors=len(saved))
     del step, model, x, xb
     emit("resnet50_training", **out)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the detection and OCR path: PP-YOLOE-s, YOLOv3 and CRNN (no flash kernel)
+# --------------------------------------------------------------------------
+
+DET_PATH = ("training and serving (PP-YOLOE-s at 640, YOLOv3 at 608, "
+            "float32)")
+OCR_PATH = "training and decode (CRNN with CTC at 32 x 320, float32 Adam)"
+DET_CLASSES = 80
+DET_GT, DET_GT_REAL = 32, (1, 20)   # gt rows an image; real boxes in it
+# PaddleDetection's per-card batches and image sizes: PP-YOLOE 8 at 640,
+# YOLOv3 8 at 608; Momentum(0.9) with L2 decay 5e-4 for both
+PPYOLOE_BATCH, PPYOLOE_SIZE, PPYOLOE_LR = 8, 640, 0.01
+YOLO_BATCH, YOLO_SIZE, YOLO_LR, YOLO_WIDTH = 8, 608, 1e-3, 32
+DET_MOMENTUM, DET_DECAY = 0.9, 5e-4
+DET_WARMUP, DET_TIMED = 5, 10
+SERVE_REPEATS = 3
+# PP-OCR's recognition crop and per-card batch; 6623 characters of its
+# Chinese dictionary, space and blank; labels of 1-25 characters
+OCR_CLASSES, OCR_BATCH, OCR_H, OCR_W = 6625, 128, 32, 320
+OCR_MAX_LABEL, OCR_LR = 25, 1e-3
+# part (a): one float32 step on the card against the CPU's float64 step;
+# a reading passes under YARD_FACTOR times the CPU float32 step's own
+# reading (float32's cost, against the same float64 step) or its floor
+YARD_BATCH, YARD_SIZE = 2, 320
+OCR_YARD_BATCH, OCR_YARD_W = 4, 64
+YARD_FACTOR = 10.0
+YARD_FLOORS = dict(loss=1e-5, logits=1e-4, stats=1e-4, update=1e-3,
+                   target_loss=1e-5)
+# fused PP-YOLOE against unfused, eval mode: of the largest |output|
+FUSE_RTOL = 1e-4
+# planted in the card's run only; each must trip its gate
+DET_FAULTS = {"ppyoloe": {"argmax_last": "assignment",
+                          "no_detach": "update"},
+              "yolov3": {"padded_rows_write": "target_loss",
+                         "first_row_wins": "target_loss"}}
+OCR_FAULTS = {"ctc_neg_inf": "infeasible", "ctc_skip_equal": "loss"}
+
+
+class _TorchArgmaxLast:
+    """``torch`` with ``argmax`` taking the last of equal maxima (a
+    planted fault)."""
+
+    def __getattr__(self, name):
+        import torch
+
+        return getattr(torch, name)
+
+    @staticmethod
+    def argmax(x, dim):
+        import torch
+
+        return x.shape[dim] - 1 - torch.argmax(x.flip(dim), dim=dim)
+
+
+@contextlib.contextmanager
+def _path_fault(fault):
+    """Plant ``fault`` in the port while the block runs: the TAL argmax
+    taking the last maximum, the assignment reading attached scores and
+    boxes (no ``.detach()``), ``yolo_loss`` letting padded rows write
+    cell (0, 0) or the first of two rows in one cell win, CTC's impossible
+    paths at ``-inf``, or CTC skipping between equal labels."""
+    import torch
+
+    from paddle_tpu_torch.models import ppyoloe as TP
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.vision import ops as V
+
+    real_winners = V._scatter_winners
+    patches = {
+        None: [],
+        "argmax_last": [(TP, "torch", _TorchArgmaxLast())],
+        "no_detach": [(torch.Tensor, "detach", lambda self: self)],
+        "padded_rows_write": [(V, "_scatter_winners",
+                               lambda cell, resp: torch.ones_like(resp))],
+        "first_row_wins": [(V, "_scatter_winners", lambda cell, resp:
+                            real_winners(cell.flip(1), resp.flip(1)).flip(1))],
+        "ctc_neg_inf": [(PF, "_CTC_NEG", float("-inf"))],
+        "ctc_skip_equal": [(PF, "_ctc_skip_ok", lambda ext: torch.cat(
+            [torch.zeros_like(ext[:, :2], dtype=torch.bool),
+             torch.ones_like(ext[:, 2:], dtype=torch.bool)], dim=1))]}[fault]
+    saved = [(obj, name, name in vars(obj), getattr(obj, name))
+             for obj, name, _ in patches]
+    for obj, name, value in patches:
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for obj, name, own, value in reversed(saved):
+            if own:
+                setattr(obj, name, value)
+            else:
+                delattr(obj, name)
+
+
+def _det_batch(rng, batch, size, kind, duplicate=False):
+    """``(images, gt_boxes, gt_labels)`` as numpy: float32 images, 1-20
+    boxes an image padded to DET_GT rows (label -1), xyxy pixels for
+    PP-YOLOE, normalised (cx, cy, w, h) for YOLOv3 (padding zeros).
+    ``duplicate`` puts two boxes of image 0 in one stride-32 cell with the
+    same best anchor and different classes."""
+    import numpy as np
+
+    x = rng.standard_normal((batch, 3, size, size)).astype(np.float32)
+    boxes = np.zeros((batch, DET_GT, 4), np.float32)
+    labels = np.full((batch, DET_GT), -1, np.int64)
+    for b in range(batch):
+        k = int(rng.integers(DET_GT_REAL[0], DET_GT_REAL[1] + 1))
+        wh = rng.uniform(0.04, 0.6, (k, 2))
+        ctr = rng.uniform(wh / 2, 1 - wh / 2)
+        if kind == "ppyoloe":
+            boxes[b, :k] = np.concatenate([ctr - wh / 2, ctr + wh / 2],
+                                          1) * size
+        else:
+            boxes[b, :k] = np.concatenate([ctr, wh], 1)
+        labels[b, :k] = rng.integers(0, DET_CLASSES, k)
+    if kind == "ppyoloe":
+        boxes[labels < 0] = -1.0
+    if duplicate:
+        boxes[0, :2] = [[0.45, 0.55, 0.36, 0.30], [0.47, 0.57, 0.38, 0.29]]
+        labels[0, :2] = [3, 41]
+    return x, boxes, labels
+
+
+def _ppyoloe_ctor(**kw):
+    from paddle_tpu_torch.models.ppyoloe import ppyoloe_s
+
+    return ppyoloe_s(num_classes=DET_CLASSES, **kw)
+
+
+def _yolo_ctor(**kw):
+    from paddle_tpu_torch.models.yolo import YOLOv3
+
+    return YOLOv3(num_classes=DET_CLASSES, width=YOLO_WIDTH, **kw)
+
+
+def _crnn_ctor(**kw):
+    from paddle_tpu_torch.models.ocr import CRNN
+
+    return CRNN(OCR_CLASSES, **kw)
+
+
+def _det_opt(kind):
+    from paddle_tpu_torch.optimizer import Adam, Momentum
+
+    if kind == "crnn":
+        return Adam(learning_rate=OCR_LR)
+    lr = PPYOLOE_LR if kind == "ppyoloe" else YOLO_LR
+    return Momentum(lr, DET_MOMENTUM, weight_decay=DET_DECAY)
+
+
+def _outputs(kind, out) -> list:
+    """The logits of a forward: PP-YOLOE's class and box logits, YOLOv3's
+    three heads, CRNN's ``[T, B, classes]``."""
+    return list(out[:2]) if kind == "ppyoloe" else \
+        list(out) if kind == "yolov3" else [out]
+
+
+def _yard_run(kind, model, batch) -> dict:
+    """One TrainStep of ``model`` (a training-mode forward through
+    EvalStep before it: batch statistics, buffers kept): its loss, logits,
+    parameters and statistics after it, and the path's own check on the
+    forward's outputs (the TAL assignment, the per-image yolo_loss of each
+    head, CTC on an infeasible label), all read back to the host."""
+    import torch
+
+    from paddle_tpu_torch.framework.jit import EvalStep, LossAdapter, \
+        TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision import ops as V
+
+    def host(t):
+        return t.detach().cpu().clone()
+
+    step = TrainStep(LossAdapter(model), _det_opt(kind))
+    out = EvalStep(model)(batch[0])
+    dev = next(model.parameters()).device
+    check = {}
+    with torch.no_grad():
+        if kind == "ppyoloe":
+            cls, reg, pts, strs = out
+            scores, boxes = torch.sigmoid(cls), model._decode(reg, pts, strs)
+            got = model._assign(scores, boxes, pts,
+                                torch.as_tensor(batch[1], device=dev).to(
+                                    boxes.dtype),
+                                torch.as_tensor(batch[2], device=dev))
+            check = dict(inputs=[host(scores), host(boxes), host(pts)],
+                         assign=[host(t) for t in got])
+        elif kind == "yolov3":
+            check = dict(heads=[host(h) for h in out], losses=[
+                host(V.yolo_loss(h, batch[1], batch[2], model.anchors, m,
+                                 DET_CLASSES, model.ignore_thresh, ds))
+                for h, m, ds in zip(out, model.anchor_masks,
+                                    model.downsample_ratios)])
+    if kind == "crnn":
+        logits = out.detach().clone().requires_grad_()
+        labels, in_len, lab_len = _ocr_infeasible(batch, logits.shape[0])
+        loss = F.ctc_loss(logits, labels, in_len, lab_len, reduction="none")
+        loss.sum().backward()
+        check = dict(logits=host(logits), loss=host(loss),
+                     grad_finite=bool(torch.isfinite(logits.grad).all()))
+    loss = step(batch).item()
+    return dict(loss=loss, logits=[host(t) for t in _outputs(kind, out)],
+                params={k: host(p) for k, p in model.named_parameters()},
+                stats={k: host(b) for k, b in model.named_buffers()},
+                check=check)
+
+
+def _ocr_infeasible(batch, frames: int):
+    """The batch's labels with the first sequence given more labels than
+    its ``frames`` can emit (repeats need a blank between them)."""
+    import numpy as np
+
+    labels = np.array(batch[1])
+    lab_len = np.array(batch[2])
+    labels[0, :frames] = np.arange(frames) % 7 + 1
+    lab_len[0] = min(frames, labels.shape[1])
+    in_len = np.full(labels.shape[0], frames, np.int64)
+    in_len[0] = frames // 2
+    return labels, in_len, lab_len
+
+
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()
+                 / max(float(b.double().abs().max()), 1e-30))
+
+
+def _yard_readings(kind, run: dict, ref: dict, initial: dict, base,
+                   batch) -> dict:
+    """Part (a)'s readings of a run against the float64 one; the path's
+    own check is recomputed on the CPU (float32 CTC and assignment,
+    float64 yolo_loss) from the run's own inputs."""
+    import torch
+
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision import ops as V
+
+    stats = {k: _rel(v, ref["stats"][k]) for k, v in run["stats"].items()}
+    worst_stat = max(stats, key=stats.get)
+    num = den = 0.0
+    leaf = {}
+    for k, p in run["params"].items():
+        d_ref = ref["params"][k].double() - initial[k].double()
+        diff = (p.double() - initial[k].double()) - d_ref
+        num += float((diff ** 2).sum())
+        den += float((d_ref ** 2).sum())
+        leaf[k] = float(diff.norm() / max(float(d_ref.norm()), 1e-30))
+    worst_leaf = max(leaf, key=leaf.get)
+    r = dict(loss=run["loss"],
+             loss_rel_err=abs(run["loss"] - ref["loss"]) / abs(ref["loss"]),
+             logits_rel_err=max(_rel(a, b) for a, b in
+                                zip(run["logits"], ref["logits"])),
+             stats_rel_err=stats[worst_stat], worst_stat=worst_stat,
+             update_err=(num / den) ** 0.5,
+             update_err_worst_leaf=leaf[worst_leaf], worst_leaf=worst_leaf)
+    c = run["check"]
+    if kind == "ppyoloe":
+        scores, boxes, pts = c["inputs"]
+        want = base._assign(scores, boxes, pts, torch.as_tensor(batch[1]),
+                            torch.as_tensor(batch[2]))
+        got = c["assign"]
+        r["fg"] = int(got[0].sum())
+        r["assignment_equal"] = all(torch.equal(g, w) for g, w in
+                                    zip(got[:3], want[:3]))
+        r["assigned_scores_rel_err"] = _rel(got[3], want[3])
+    elif kind == "yolov3":
+        r["target_loss_rel_err"] = max(
+            _rel(got, V.yolo_loss(h.double(), batch[1], batch[2],
+                                  base.anchors, m,
+                                  DET_CLASSES, base.ignore_thresh, ds))
+            for got, h, m, ds in zip(c["losses"], c["heads"],
+                                     base.anchor_masks,
+                                     base.downsample_ratios))
+    else:
+        labels, in_len, lab_len = _ocr_infeasible(batch,
+                                                  c["logits"].shape[0])
+        want = F.ctc_loss(c["logits"], labels, in_len, lab_len,
+                          reduction="none")
+        r["infeasible_loss"] = float(c["loss"][0])
+        r["infeasible_rel_err"] = _rel(c["loss"], want) \
+            if bool(torch.isfinite(c["loss"]).all()) else float("inf")
+        r["infeasible_grad_finite"] = c["grad_finite"]
+    return r
+
+
+def _gates(kind, floor: dict) -> dict:
+    g = {k: max(YARD_FACTOR * floor[f"{k}_rel_err"], YARD_FLOORS[k])
+         for k in ("loss", "logits", "stats")}
+    g["update"] = max(YARD_FACTOR * floor["update_err"],
+                      YARD_FLOORS["update"])
+    if kind == "yolov3":
+        g["target_loss"] = max(YARD_FACTOR * floor["target_loss_rel_err"],
+                               YARD_FLOORS["target_loss"])
+    if kind == "ppyoloe":
+        g["assigned_scores"] = 1e-5
+    if kind == "crnn":
+        g["infeasible"] = 1e-5
+    return g
+
+
+def _gate_fails(kind, r: dict, g: dict) -> list:
+    """The gates reading ``r`` fails."""
+    bad = [k for k in ("loss", "logits", "stats")
+           if not r[f"{k}_rel_err"] <= g[k]]
+    if not r["update_err"] <= g["update"]:
+        bad.append("update")
+    if kind == "ppyoloe" and not (r["assignment_equal"] and
+                                  r["assigned_scores_rel_err"] <=
+                                  g["assigned_scores"]):
+        bad.append("assignment")
+    if kind == "yolov3" and not r["target_loss_rel_err"] <= g["target_loss"]:
+        bad.append("target_loss")
+    if kind == "crnn" and not (r["infeasible_rel_err"] <= g["infeasible"]
+                               and r["infeasible_grad_finite"]):
+        bad.append("infeasible")
+    return bad
+
+
+def _yardstick(kind, phase: str, seed: int, device: str, ctor, batch,
+               faults: dict) -> dict:
+    """Part (a): the float32 step on ``device`` against the CPU's float64
+    one, sound and with each planted fault in the ``device`` run; the
+    CPU's float32 step read against it too (float32's own cost)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    base = ctor(device="cpu",
+                generator=torch.Generator().manual_seed(seed)).train()
+    initial = {k: p.detach().clone() for k, p in base.named_parameters()}
+    t0 = time.perf_counter()
+    b64 = tuple(a.astype(np.float64) if a.dtype == np.float32 else a
+                for a in batch)
+    ref = _yard_run(kind, copy.deepcopy(base).double(), b64)
+    cpu64_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    floor = _yard_readings(kind, _yard_run(kind, copy.deepcopy(base), batch),
+                           ref, initial, base, batch)
+    cpu32_s = time.perf_counter() - t0
+    gates = _gates(kind, floor)
+    runs = {}
+    for fault in (None,) + tuple(faults):
+        with _path_fault(fault):
+            run = _yard_run(kind, copy.deepcopy(base).to(device), batch)
+        runs[fault or "sound"] = _yard_readings(kind, run, ref, initial, base,
+                                                batch)
+    out = dict(batch=list(batch[0].shape), cpu_float64_step_s=cpu64_s,
+               cpu_float32_step_s=cpu32_s, cpu_loss_float64=ref["loss"],
+               gates=gates, cpu_float32=floor, readings=runs,
+               faults=dict(faults))
+    failed = ["sound"] if _gate_fails(kind, runs["sound"], gates) else []
+    failed += [f for f, gate in faults.items()
+               if gate not in _gate_fails(kind, runs[f], gates)]
+    if failed:
+        emit(phase, model=kind, yardstick=out)
+        raise AssertionError(f"{phase} (a) {kind}: {failed} on the wrong "
+                             f"side of their gates (the sound run must pass "
+                             f"every gate, each planted fault trip its own)")
+    return out
+
+
+def _step_profile(fn, device: str) -> dict:
+    """Kernel launches and kernel ms of one call of ``fn`` from
+    torch.profiler (CUDA kernels of its trace); None on the CPU or when
+    the trace holds no device time."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return dict(launches=None, kernel_ms=None)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches, us = 0, 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        launches += ev.count
+        us += getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0.0))
+    return dict(launches=launches, kernel_ms=us / 1e3 if us else None)
+
+
+def _path_train_run(phase: str, kind, seed: int, device: str, ctor, batch,
+                  fa) -> tuple:
+    """Part (b): DET_WARMUP + DET_TIMED steps of ``kind`` at its
+    configuration on ``device`` on one repeated batch, and one step traced
+    for its launches and idle share. Returns ``(report, model)``."""
+    import torch
+
+    from paddle_tpu_torch.framework import random as framework_random
+    from paddle_tpu_torch.framework.jit import LossAdapter, TrainStep
+
+    framework_random.seed(seed)
+    t0 = time.perf_counter()
+    model = ctor(device=device, generator=torch.Generator(device).manual_seed(
+        seed)).train()
+    step = TrainStep(LossAdapter(model), _det_opt(kind))
+    dev_batch = tuple(torch.as_tensor(a, device=device) for a in batch)
+    build_s = time.perf_counter() - t0
+    fa.reset_launch_counts()
+    run = _rn_timed_steps(step, dev_batch, device, DET_WARMUP, DET_TIMED)
+    flash = sum(_counts(fa))
+    prof = _step_profile(lambda: step(dev_batch), device)
+    losses = run["losses"]
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0] or flash:
+        raise AssertionError(f"{phase} (b) {kind}: losses {losses}, {flash} "
+                             f"flash launches (0 expected)")
+    n = batch[0].shape[0]
+    kernel_ms = prof["kernel_ms"]
+    report = dict(
+        **run, batch=list(batch[0].shape), images_per_s=n / (
+            run["step_ms_median"] / 1e3), flash_launches=flash,
+        launches_per_step=prof["launches"], kernel_ms_per_step=kernel_ms,
+        idle_share=(None if kernel_ms is None
+                    else 1.0 - kernel_ms / run["step_ms_median"]),
+        model_build_s=build_s,
+        params=sum(p.numel() for p in model.parameters()))
+    del step
+    return report, model
+
+
+def _host_ms(fn, device: str, repeats: int = SERVE_REPEATS):
+    """``fn()``'s result and its median host ms over ``repeats`` calls
+    after one warm-up, each ended by a synchronisation."""
+    import statistics
+
+    out = fn()
+    ms = []
+    for _ in range(repeats):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(ms)
+
+
+def _serve(kind, model, size: int, seed: int, device: str) -> dict:
+    """Part (c): ``predict`` at batch 1 (PP-YOLOE fused first, held to the
+    unfused model in eval mode), each stage timed (forward, decode, NMS,
+    ms an image), its rows held to the CPU port's matrix_nms given the
+    same decoded arrays."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.vision import ops as V
+
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((1, 3, size, size)).astype(
+        np.float32), device=device)
+    model.eval()
+    out = {}
+    with torch.no_grad():
+        if kind == "ppyoloe":
+            unfused = model(x)
+            model = copy.deepcopy(model)
+            model.fuse_rep()
+            fused = model(x)
+            out["fused_rel_err"] = max(_rel(a, b) for a, b in
+                                       zip(fused[:2], unfused[:2]))
+            if not out["fused_rel_err"] <= FUSE_RTOL:
+                raise AssertionError(f"detection (c): fused PP-YOLOE off "
+                                     f"the unfused by {out['fused_rel_err']}")
+            del unfused, fused
+            heads, fwd_ms = _host_ms(lambda: model(x), device)
+
+            def decode():
+                cls, reg, pts, strs = heads
+                return (model._decode(reg, pts, strs),
+                        torch.sigmoid(cls).transpose(1, 2))
+
+            rows = model.predict(x)
+        else:
+            img = torch.tensor([[size, size]], device=device)
+            heads, fwd_ms = _host_ms(lambda: model(x), device)
+
+            def decode():
+                return model._decode(heads, img, 0.01)
+
+            rows = model.predict(x, img)
+        (boxes, scores), dec_ms = _host_ms(decode, device)
+        nms_args = (0.01, 0.01, 400, 100)
+        _, nms_ms = _host_ms(lambda: V.matrix_nms(
+            boxes, scores, *nms_args, background_label=-1), device)
+        want = V.matrix_nms(boxes.cpu(), scores.cpu(), *nms_args,
+                            background_label=-1)
+    equal = all(torch.equal(a.cpu(), b) for a, b in zip(rows, want))
+    if not equal:
+        raise AssertionError(f"detection (c) {kind}: predict's rows differ "
+                             f"from the CPU matrix_nms of the same arrays")
+    out.update(batch=[1, 3, size, size], forward_ms=fwd_ms,
+               decode_ms=dec_ms, nms_ms=nms_ms,
+               ms_per_image=fwd_ms + dec_ms + nms_ms,
+               candidates=int((scores > 0.01).sum()),
+               detections=int(rows[1].sum()), rows_equal_cpu=equal)
+    return out
+
+
+def phase_detection_training(seed: int, device: str = "cuda",
+                             sizes=None) -> dict:
+    """The detectors through the port's TrainStep (LossAdapter over each
+    model's ``loss``; no flash kernel on this path): (a) one float32 step
+    of ppyoloe_s and of YOLOv3(80, 32) at batch 2, 320 x 320, on the card
+    against the CPU's float64 step (loss, logits, every statistic, the
+    update; the TAL assignment against the CPU's on the same inputs;
+    yolo_loss of each head against the CPU's in float64), sound and with
+    two planted faults a model that must trip their gates; (b) ppyoloe_s
+    at [8, 3, 640, 640] and YOLOv3 at [8, 3, 608, 608], float32,
+    Momentum(0.9) with L2 5e-4, DET_WARMUP + DET_TIMED steps on CUDA
+    events (ms, images/s, peak, launches and idle share of one traced
+    step, falling loss, 0 flash launches); (c) serving at batch 1.
+    ``device="cpu"`` and ``sizes`` (``{kind: (batch, size)}``, with
+    "yard" the yardstick's) give a dry run on the CPU."""
+    import numpy as np
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    cuda = device != "cpu"
+    sizes = sizes or {}
+    leftover = _check_freed("detection_training") if cuda else None
+    out = dict(path=DET_PATH, leftover_gib_at_start=leftover,
+               card=nvidia_smi_line())
+    yb, ys = sizes.get("yard", (YARD_BATCH, YARD_SIZE))
+    for kind, ctor, faults, dup in (
+            ("ppyoloe", _ppyoloe_ctor, DET_FAULTS["ppyoloe"], False),
+            ("yolov3", _yolo_ctor, DET_FAULTS["yolov3"], True)):
+        t0 = time.perf_counter()
+        batch = _det_batch(np.random.default_rng(seed + 40), yb, ys, kind,
+                           duplicate=dup)
+        yard = _yardstick(kind, "detection_training", seed + 41, device,
+                          ctor, batch, faults)
+        yard["seconds"] = time.perf_counter() - t0
+        out[f"{kind}_yardstick"] = yard
+        if cuda:
+            _free()
+    for kind, ctor, (batch, size) in (
+            ("ppyoloe", _ppyoloe_ctor, sizes.get(
+                "ppyoloe", (PPYOLOE_BATCH, PPYOLOE_SIZE))),
+            ("yolov3", _yolo_ctor, sizes.get("yolov3",
+                                              (YOLO_BATCH, YOLO_SIZE)))):
+        t0 = time.perf_counter()
+        data = _det_batch(np.random.default_rng(seed + 42), batch, size,
+                          kind)
+        report, model = _path_train_run("detection_training", kind, seed + 43,
+                                      device, ctor, data, fa)
+        fa.reset_launch_counts()
+        report["serving"] = _serve(kind, model, size, seed + 44, device)
+        report["serving"]["flash_launches"] = sum(_counts(fa))
+        report["seconds"] = time.perf_counter() - t0
+        out[kind] = report
+        del model
+        if cuda:
+            _free()
+    emit("detection_training", **out)
+    return out
+
+
+def _ocr_batch(rng, batch: int, width: int, repeats: bool = False):
+    """``(images, labels, label_lengths)``: float32 crops of height 32,
+    1-OCR_MAX_LABEL ids in [1, OCR_CLASSES) an image padded with 0 (the
+    blank); ``repeats`` makes every label pair up with its neighbour (the
+    CTC skip rule's case)."""
+    import numpy as np
+
+    x = rng.standard_normal((batch, 3, OCR_H, width)).astype(np.float32)
+    frames = width // 4
+    longest = min(OCR_MAX_LABEL, frames // 2)
+    lab_len = rng.integers(1, longest + 1, batch).astype(np.int64)
+    labels = rng.integers(1, OCR_CLASSES, (batch, OCR_MAX_LABEL))
+    if repeats:
+        labels[:, 1::2] = labels[:, 0::2][:, :labels[:, 1::2].shape[1]]
+    labels[np.arange(OCR_MAX_LABEL)[None, :] >= lab_len[:, None]] = 0
+    return x, labels.astype(np.int64), lab_len
+
+
+def _lstm_and_ctc_yardsticks(device: str, seed: int) -> dict:
+    """The port's LSTM (a loop over time) and CTC (the alpha recursion),
+    forward + backward at the full configuration's shapes, beside
+    torch.nn.LSTM (cuDNN) and torch's ctc_loss on the same inputs: ms a
+    call, host clock, synchronised."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.layers.rnn import LSTM
+
+    T, B, C, H = OCR_W // 4, OCR_BATCH, 128, 64
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.randn(T, B, C, device=device, generator=g, requires_grad=True)
+    port = LSTM(C, H, direction="bidirect", time_major=True, device=device,
+                generator=g)
+    lib = torch.nn.LSTM(C, H, bidirectional=True).to(device)
+
+    def port_lstm():
+        port(x)[0].sum().backward()
+
+    def lib_lstm():
+        lib(x)[0].sum().backward()
+
+    logits = torch.randn(T, B, OCR_CLASSES, device=device, generator=g,
+                         requires_grad=True)
+    _, labels, lab_len = _ocr_batch(np.random.default_rng(seed), B, OCR_W)
+    labels_t = torch.as_tensor(labels, device=device)
+    lab_len_t = torch.as_tensor(lab_len, device=device)
+    in_len = torch.full((B,), T, dtype=torch.long, device=device)
+
+    def port_ctc():
+        F.ctc_loss(logits, labels_t, in_len, lab_len_t).backward()
+
+    def lib_ctc():
+        torch.nn.functional.ctc_loss(
+            torch.log_softmax(logits, -1), labels_t, in_len,
+            lab_len_t).backward()
+
+    out = {}
+    for name, fn in (("lstm_port_ms", port_lstm), ("lstm_cudnn_ms", lib_lstm),
+                     ("ctc_port_ms", port_ctc), ("ctc_torch_ms", lib_ctc)):
+        out[name] = _host_ms(fn, device)[1]
+    out["shapes"] = dict(lstm=[T, B, C, H, "bidirect"],
+                         ctc=[T, B, OCR_CLASSES, OCR_MAX_LABEL])
+    return out
+
+
+def phase_ocr_training(seed: int, device: str = "cuda", batch=None,
+                       width=None) -> dict:
+    """CRNN(6625) through the port's TrainStep (LossAdapter over ``loss``:
+    the conv stack, the bidirectional LSTM as a loop over time, CTC's
+    alpha recursion; no flash kernel): (a) one float32 Adam step at batch
+    4 on [4, 3, 32, 64] on the card against the CPU's float64 step (loss,
+    logits, statistics, update; an infeasible label's loss the CPU's
+    finite value), sound and with two planted faults that must trip their
+    gates; (b) [128, 3, 32, 320] (T = 80), DET_WARMUP + DET_TIMED steps
+    (ms, images/s, peak, launches and idle share of a traced step,
+    falling loss, 0 flash launches), with the port's LSTM and CTC timed
+    beside cuDNN's LSTM and torch's ctc_loss; (c) greedy decode of the
+    batch equal to the CPU's decode of the same logits. ``device="cpu"``,
+    ``batch`` and ``width`` give a dry run on the CPU."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.ocr import CRNN
+
+    cuda = device != "cpu"
+    leftover = _check_freed("ocr_training") if cuda else None
+    out = dict(path=OCR_PATH, leftover_gib_at_start=leftover,
+               card=nvidia_smi_line())
+    t0 = time.perf_counter()
+    yard_batch = _ocr_batch(np.random.default_rng(seed + 50),
+                            OCR_YARD_BATCH, OCR_YARD_W, repeats=True)
+    out["yardstick"] = _yardstick("crnn", "ocr_training", seed + 51, device,
+                                  _crnn_ctor, yard_batch, OCR_FAULTS)
+    out["yardstick"]["seconds"] = time.perf_counter() - t0
+    if cuda:
+        _free()
+    t0 = time.perf_counter()
+    data = _ocr_batch(np.random.default_rng(seed + 52), batch or OCR_BATCH,
+                      width or OCR_W)
+    report, model = _path_train_run("ocr_training", "crnn", seed + 53, device,
+                                  _crnn_ctor, data, fa)
+    model.eval()
+    x = torch.as_tensor(data[0], device=device)
+    with torch.no_grad():
+        decoded, decode_ms = _host_ms(lambda: model.decode(x), device)
+        ids = torch.argmax(model(x).cpu(), dim=-1).numpy()
+    report["decode_ms"] = decode_ms
+    report["decode_equal_cpu"] = decoded == CRNN.greedy_collapse(ids)
+    if not report["decode_equal_cpu"]:
+        raise AssertionError("ocr_training (c): the card's greedy decode "
+                             "differs from the CPU's of the same logits")
+    report["frames"] = int(ids.shape[0])
+    if cuda and batch is None:
+        report["yardsticks"] = _lstm_and_ctc_yardsticks(device, seed + 54)
+    report["seconds"] = time.perf_counter() - t0
+    out["crnn"] = report
+    del model
+    if cuda:
+        _free()
+    emit("ocr_training", **out)
     return out
 
 
@@ -6542,6 +7259,10 @@ def main(argv=None) -> int:
     phase_bert_base(args.seed)
     _free()
     phase_resnet50_training(args.seed)
+    _free()
+    phase_detection_training(args.seed)
+    _free()
+    phase_ocr_training(args.seed)
     _free()
     hapi_gpt = phase_hapi_gpt_fit(args.seed)
     _free()

@@ -1,5 +1,6 @@
 """Load the JAX package's weights into the port: GPT, Llama, BERT,
-ERNIE, ResNet, or any ported layer tree (``nn.Transformer``, ...).
+ERNIE, ResNet, PP-YOLOE, YOLOv3, CRNN, or any ported layer tree
+(``nn.Transformer``, ...).
 
 The JAX ``Layer.state_dict()`` names map one to one onto the port's
 parameters and persistable buffers (BatchNorm's ``_mean`` and
@@ -35,11 +36,15 @@ from .models.bert import BertConfig, BertForSequenceClassification
 from .models.ernie import ErnieConfig, ErnieForSequenceClassification
 from .models.gpt import GPTConfig, GPTForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
+from .models import ppyoloe as _ppyoloe
 from .models import resnet as _resnet
+from .models.ocr import CRNN
+from .models.yolo import YOLOv3
 from .lora import LoraConfig, apply_lora
 
 __all__ = ["gpt_from_jax", "llama_from_jax", "bert_from_jax",
-           "ernie_from_jax", "resnet_from_jax", "layer_from_jax",
+           "ernie_from_jax", "resnet_from_jax", "ppyoloe_from_jax",
+           "yolov3_from_jax", "crnn_from_jax", "layer_from_jax",
            "shard_tensor",
            "gather_tensor", "shard_state", "gather_state"]
 
@@ -142,6 +147,44 @@ def resnet_from_jax(state: Dict[str, np.ndarray], depth_or_ctor="resnet50",
     if isinstance(ctor, str):
         ctor = getattr(_resnet, ctor)
     return _load_state(ctor(device=device, **kwargs), state, "ResNet")
+
+
+def ppyoloe_from_jax(state: Dict[str, np.ndarray], ctor="ppyoloe_s",
+                     device=None, fused: bool = False,
+                     **kwargs) -> nn.Module:
+    """A port PP-YOLOE carrying a reference PP-YOLOE's ``state_dict()``
+    (parameters and BatchNorm statistics), in eval mode. ``ctor`` is a
+    constructor of :mod:`paddle_tpu_torch.models.ppyoloe` (or its name:
+    ``"ppyoloe_s"``, ``"ppyoloe_tiny"``, ``"PPYOLOE"``) and ``kwargs`` go
+    to it as they went to the reference's. ``fused=True`` loads the state
+    of a reference model after its ``fuse_rep()`` (each RepConv's
+    ``_fused`` conv beside its branches) into a fused port model. Raises
+    ``KeyError`` on a missing or an extra name and ``ValueError`` on a
+    wrong shape."""
+    if isinstance(ctor, str):
+        ctor = getattr(_ppyoloe, ctor)
+    model = ctor(device=device, **kwargs)
+    if fused:
+        model.eval().fuse_rep()
+    return _load_state(model, state, "PPYOLOE")
+
+
+def yolov3_from_jax(state: Dict[str, np.ndarray], device=None,
+                    **kwargs) -> nn.Module:
+    """A port ``YOLOv3(**kwargs)`` carrying a reference YOLOv3's
+    ``state_dict()``, in eval mode. Raises ``KeyError`` on a missing or an
+    extra name and ``ValueError`` on a wrong shape."""
+    return _load_state(YOLOv3(device=device, **kwargs), state, "YOLOv3")
+
+
+def crnn_from_jax(state: Dict[str, np.ndarray], num_classes: int,
+                  device=None, **kwargs) -> nn.Module:
+    """A port ``CRNN(num_classes, **kwargs)`` carrying a reference CRNN's
+    ``state_dict()`` (its LSTM's ``rnn.rnns.0.rnn_fw.cell.weight_ih``, ...),
+    in eval mode. Raises ``KeyError`` on a missing or an extra name and
+    ``ValueError`` on a wrong shape."""
+    return _load_state(CRNN(num_classes, device=device, **kwargs), state,
+                       "CRNN")
 
 
 def layer_from_jax(module: nn.Module,

@@ -49,7 +49,7 @@ from .tree import tree_map
 
 __all__ = ["DEFAULT_RNG_STREAMS", "resolve_inputs_fn", "finite_guard",
            "raise_if_bad_step", "scaler_guard", "snapshot_buffers",
-           "TrainStep", "EvalStep"]
+           "LossAdapter", "TrainStep", "EvalStep"]
 
 DEFAULT_RNG_STREAMS = ("dropout", "rrelu", "gumbel", "default")
 
@@ -427,6 +427,22 @@ class TrainStep:
         self._count = int(sd.get("count", 0))
         if sd.get("base_seed") is not None:
             self._base_seed = int(sd["base_seed"])
+
+
+class LossAdapter(torch.nn.Module):
+    """A model whose training loss is a method (the detectors' and the
+    recognizer's ``loss(images, ...)``) as a module whose forward is that
+    loss: ``TrainStep(LossAdapter(model), opt, loss_fn=None)`` trains on
+    batches ``(images, *targets)``. The model is the child ``model``, so
+    the step's parameter names are the model's with ``model.`` in
+    front."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, *args):
+        return self.model.loss(*args)
 
 
 def snapshot_buffers(model: torch.nn.Module) -> list:

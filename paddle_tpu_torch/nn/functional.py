@@ -47,7 +47,8 @@ __all__ = [
     # losses
     "cross_entropy", "mse_loss", "l1_loss", "smooth_l1_loss", "nll_loss",
     "binary_cross_entropy", "binary_cross_entropy_with_logits", "kl_div",
-    "margin_ranking_loss", "hinge_embedding_loss", "cosine_similarity",
+    "margin_ranking_loss", "ctc_loss", "hinge_embedding_loss",
+    "cosine_similarity",
     "cosine_embedding_loss", "triplet_margin_loss", "soft_margin_loss",
     "multi_label_soft_margin_loss", "multi_margin_loss",
     "triplet_margin_with_distance_loss",
@@ -979,6 +980,112 @@ def margin_ranking_loss(input, other, label, margin=0.0,  # noqa: A002
                         reduction="mean", name=None):
     return _reduce_loss(torch.clamp(
         -_t(label, input) * (input - other) + margin, min=0.0), reduction)
+
+
+class _LogAddExp(torch.autograd.Function):
+    """``torch.logaddexp`` with the reference's derivative, ``g *
+    exp(x - out)`` for each input (JAX's ``logaddexp`` rule, infinities
+    read as 0). Where both inputs are the finite ``-1e30`` of an
+    impossible CTC path, ``out`` rounds back to ``-1e30`` and each input
+    takes the whole gradient, where torch's own rule would split it in
+    halves; ``ctc_loss`` keeps the reference's."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        out = torch.logaddexp(a, b)
+        ctx.save_for_backward(a, b, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b, out = ctx.saved_tensors
+
+        def finite(t):
+            return torch.where(torch.isinf(t), torch.zeros_like(t), t)
+
+        o = finite(out)
+        return (grad * torch.exp(finite(a) - o),
+                grad * torch.exp(finite(b) - o))
+
+
+# the log-probability of an impossible path: finite, so that logaddexp's
+# gradients stay finite
+_CTC_NEG = -1e30
+
+
+def _ctc_skip_ok(ext):
+    """Where the blank-extended labels ``ext`` ``[B, L]`` allow the step
+    from ``i - 2``: between two distinct labels only."""
+    return torch.cat([torch.zeros((ext.shape[0], 2), dtype=torch.bool,
+                                  device=ext.device),
+                      ext[:, 2:] != ext[:, :-2]], dim=1)
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False, name=None):
+    """Connectionist Temporal Classification loss (``functional.py:840``,
+    paddle's warpctc semantics): the log-alpha recursion over the
+    blank-extended labels, a loop over time batched over the sequences,
+    its gradient torch's autograd through that loop.
+
+    ``log_probs``: ``[T, B, C]`` logits (time-major; the log-softmax is
+    taken here, in float32, or in float64 for float64 logits);
+    ``labels``: ``[B, S]`` padded ids. The skip from ``i -
+    2`` is allowed only between distinct labels. Impossible paths carry
+    the finite ``-1e30`` rather than ``-inf``, so ``logaddexp``'s
+    gradients stay finite and a label too long for its frames gives a
+    large finite loss (about 1e30) where ``torch.nn.functional.ctc_loss``
+    gives ``inf``. ``norm_by_times`` divides the gradient (not the value)
+    by the frame count; ``"mean"`` is ``mean(loss_i / max(label_len_i,
+    1))``."""
+    lp = torch.log_softmax(log_probs if log_probs.dtype == torch.float64
+                           else log_probs.to(torch.float32), dim=-1)
+    T, B, C = lp.shape
+    dev = lp.device
+    labels = torch.as_tensor(labels, device=dev).long()
+    S = labels.shape[1]
+    L = 2 * S + 1
+    in_len = torch.as_tensor(input_lengths, device=dev).long()
+    lab_len = torch.as_tensor(label_lengths, device=dev).long()
+    NEG = torch.tensor(_CTC_NEG, dtype=lp.dtype, device=dev)
+
+    # blank-extended sequence: [blank, l1, blank, l2, ..., blank]
+    ext = torch.full((B, L), blank, dtype=torch.long, device=dev)
+    ext[:, 1::2] = labels
+    valid_pos = torch.arange(L, device=dev)[None, :] < (
+        2 * lab_len[:, None] + 1)
+    skip_ok = _ctc_skip_ok(ext)
+    neg1 = NEG.expand(B, 1)
+    neg2 = NEG.expand(B, 2)
+
+    e0 = lp[0].gather(1, ext)
+    alpha = torch.cat([e0[:, :1], torch.where(lab_len[:, None] > 0,
+                                              e0[:, 1:2], NEG),
+                       NEG.expand(B, L - 2)], dim=1) if L > 1 else e0[:, :1]
+    alpha = torch.where(valid_pos, alpha, NEG)
+    alphas = [alpha]
+    for t in range(1, T):
+        one = torch.cat([neg1, alpha[:, :-1]], dim=1)
+        two = torch.where(skip_ok, torch.cat([neg2, alpha[:, :-2]], dim=1),
+                          NEG)
+        alpha = _LogAddExp.apply(_LogAddExp.apply(alpha, one), two) + \
+            lp[t].gather(1, ext)
+        alpha = torch.where(valid_pos, alpha, NEG)
+        alphas.append(alpha)
+    alphas = torch.stack(alphas)                       # [T, B, L]
+    a_fin = alphas[(in_len - 1).clamp_min(0), torch.arange(B, device=dev)]
+    end_blank = 2 * lab_len
+    end_label = (2 * lab_len - 1).clamp_min(0)
+    v1 = a_fin.gather(1, end_blank[:, None])[:, 0]
+    v2 = torch.where(lab_len > 0, a_fin.gather(1, end_label[:, None])[:, 0],
+                     NEG)
+    loss = -_LogAddExp.apply(v1, v2)
+    if norm_by_times:
+        scaled = loss / in_len.to(lp.dtype).clamp_min(1.0)
+        loss = (loss - scaled).detach() + scaled
+    if reduction == "mean":
+        return (loss / lab_len.to(lp.dtype).clamp_min(1.0)).mean()
+    return _reduce_loss(loss, reduction)
 
 
 def hinge_embedding_loss(input, label, margin=1.0, reduction="mean",  # noqa: A002

@@ -1,8 +1,8 @@
 """Loss layers (port of ``paddle_tpu/nn/layers/loss.py``): each
 forwards to its function in :mod:`~paddle_tpu_torch.nn.functional`. A
 class weight is held as given (``_weight_value``), not as a parameter, as
-in the reference. ``CTCLoss`` and ``HSigmoidLoss`` wait with their
-functions for the ``rnn`` / ``decode`` slice (ROADMAP A9).
+in the reference. ``HSigmoidLoss`` waits with ``hsigmoid_loss`` for
+ROADMAP A9's rest of ``nn`` (after ``nn/decode.py``).
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from .. import functional as F
 
 __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "SmoothL1Loss",
            "NLLLoss", "BCELoss", "BCEWithLogitsLoss", "KLDivLoss",
-           "MarginRankingLoss", "HingeEmbeddingLoss",
+           "MarginRankingLoss", "CTCLoss", "HingeEmbeddingLoss",
            "CosineEmbeddingLoss", "TripletMarginLoss",
            "SoftMarginLoss", "MultiLabelSoftMarginLoss",
            "MultiMarginLoss", "TripletMarginWithDistanceLoss"]
@@ -148,6 +148,20 @@ class TripletMarginLoss(nn.Module):
     def forward(self, input, positive, negative):  # noqa: A002
         return F.triplet_margin_loss(input, positive, negative, self.margin,
                                      self.p, self.epsilon, self.swap, self.reduction)
+
+
+class CTCLoss(nn.Module):
+    """:func:`~paddle_tpu_torch.nn.functional.ctc_loss` as a layer."""
+
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank, self.reduction = blank, reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          blank=self.blank, reduction=self.reduction,
+                          norm_by_times=norm_by_times)
 
 
 class SoftMarginLoss(nn.Module):

@@ -343,6 +343,13 @@ def test_port_imports_no_jax_or_reference_package():
                  "paddle_tpu_torch/distributed/parallel/containers_util.py",
                  "paddle_tpu_torch/distributed/fleet/__init__.py",
                  "paddle_tpu_torch/distributed/fleet/strategy.py",
+                 "paddle_tpu_torch/vision/__init__.py",
+                 "paddle_tpu_torch/vision/ops.py",
+                 "paddle_tpu_torch/models/__init__.py",
+                 "paddle_tpu_torch/models/ppyoloe.py",
+                 "paddle_tpu_torch/models/yolo.py",
+                 "paddle_tpu_torch/models/ocr.py",
+                 "paddle_tpu_torch/nn/layers/rnn.py",
                  "tools/torch_train_profile.py"):
         assert path in scanned
     bad = [(f.relative_to(REPO).as_posix(), m) for f in files
