@@ -335,6 +335,34 @@ exits non-zero:
                ([4,16,1024,64] under ZeRO, [8,8,1024,64] under mp) and
                reports its step ms, peak GiB, bytes by collective, staged
                bytes and the backend.
+17. ps_ctr_training, graph_training - the parameter-server and graph
+               path, after ocr_training (no flash kernel on it; the
+               native C++ runtime built by g++ on a thread during the
+               kernel phases): (a) a 2M-key adagrad table filled with
+               tools/ps_bench.py's keys, its cold pull, hot pull and push
+               rates at batch 8192; (b) examples/ps_ctr_train.py's CTR
+               model (SparseEmbedding(16), Linear(32, 32), Linear(32, 1))
+               trained 40 steps at batch 8192 on ids drawn with repeats,
+               the dense tower by TrainStep with SGD(0.05), from that
+               table's file, held against the CPU's float64 run (losses,
+               dense update, touched rows, each against float32's own
+               error), sound and with a skipped push and merged
+               duplicates that must trip the rows gate, replayed bit for
+               bit, its step split into pull, copies, kernels and push
+               and the device's idle share; (c) the same through
+               StagedPull; (d) over two PsServer processes, sync (bit-
+               equal to (b)) and through an async Communicator; (e) the
+               model served under eval() and no_grad (rows unchanged,
+               shows up by their pulls). graph_training: (a)
+               tools/graph_bench.py's 10M-edge graph built on one host
+               and over two graph-shard servers (edges/s, samples/s,
+               hops/s; samples and walks equal); (b) its DeepWalk step on
+               a [1M, 64] embedding on the card, 30 steps sequential and
+               overlapped with a producer thread, held to the CPU's
+               float64 run; (c) khop_sampler_from_store from 1024 seeds
+               at (25, 10), reindex_graph, two hops of send_u_recv (sum,
+               mean, max) on the card against the CPU, ms a hop. Each
+               prints the host's CPU count beside its host rates.
 
 Then a line with the kernels' summary, a line with the card's name and
 power limit, and the last line {"ok": true, "device": {...}}.
@@ -5264,12 +5292,13 @@ def _yardstick(kind, phase: str, seed: int, device: str, ctor, batch,
 
 def _step_profile(fn, device: str) -> dict:
     """Kernel launches and kernel ms of one call of ``fn`` from
-    torch.profiler (CUDA kernels of its trace); None on the CPU or when
-    the trace holds no device time."""
+    torch.profiler (CUDA kernels of its trace, copies included), and the
+    ms of its host-to-device and device-to-host copies alone; None on the
+    CPU or when the trace holds no device time."""
     import torch
 
     if torch.device(device).type != "cuda":
-        return dict(launches=None, kernel_ms=None)
+        return dict(launches=None, kernel_ms=None, h2d_ms=None, d2h_ms=None)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -5278,14 +5307,19 @@ def _step_profile(fn, device: str) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    launches, us = 0, 0.0
+    launches, us, copies = 0, 0.0, {"HtoD": 0.0, "DtoH": 0.0}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
         launches += ev.count
-        us += getattr(ev, "self_device_time_total",
-                      getattr(ev, "self_cuda_time_total", 0.0))
-    return dict(launches=launches, kernel_ms=us / 1e3 if us else None)
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        us += t
+        for way in copies:
+            if way in ev.key:
+                copies[way] += t
+    return dict(launches=launches, kernel_ms=us / 1e3 if us else None,
+                h2d_ms=copies["HtoD"] / 1e3, d2h_ms=copies["DtoH"] / 1e3)
 
 
 def _path_train_run(phase: str, kind, seed: int, device: str, ctor, batch,
@@ -5588,6 +5622,1088 @@ def phase_ocr_training(seed: int, device: str = "cuda", batch=None,
     if cuda:
         _free()
     emit("ocr_training", **out)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the parameter-server and graph path: host C++ tables and graph store,
+# the PS and graph services, CTR and DeepWalk training (no flash kernel)
+# --------------------------------------------------------------------------
+
+PS_PATH = ("training (CTR: SparseEmbedding over a 2M-key adagrad table, "
+           "Linear(32, 32), Linear(32, 1), batch 8192)")
+GRAPH_PATH = ("training (DeepWalk skip-gram over GraphDataGenerator on a "
+              "10M-edge graph, [1M, 64] float32; GraphSAGE message passing)")
+# tools/ps_bench.py:31-45: 2M keys drawn from [0, 2^40), dim 16, adagrad,
+# batches of 8192, 100 hot-pull and push batches
+PS_KEYS = 2_000_000
+PS_DIM = 16
+PS_BATCH = 8192
+PS_BENCH_ITERS = 100
+# examples/ps_ctr_train.py:28-60: SparseEmbedding(16, adagrad, lr 0.1,
+# seed 0), Linear(32, 32), Linear(32, 1), BCE with logits, dense SGD 0.05
+PS_LR_SPARSE = 0.1
+PS_LR_DENSE = 0.05
+PS_STEPS = 40
+PS_WARMUP = 5               # steps before the timed median
+# a reading passes under YARD_FACTOR times the CPU float32 run's own
+# distance from the CPU float64 run (at least these floors)
+PS_FLOORS = dict(loss=1e-6, update=1e-5, rows=1e-5)
+PS_FAULTS = {"skip_push": "rows", "merge_duplicates": "rows"}
+# tools/graph_bench.py:193-202: 10M edges, nodes = edges // 10, batch
+# 4096, sample size 10, walk length 20, 50 iterations (25 over the shards)
+GRAPH_EDGES = 10_000_000
+GRAPH_BATCH, GRAPH_SAMPLE, GRAPH_WALK = 4096, 10, 20
+GRAPH_ITERS = 50
+# graph_bench's bench_overlap (:111-190): GraphDataGenerator(4096, walk 8,
+# window 2, 4 negatives, seed 0), embedding [N, 64], lr 0.1, 30 steps
+DW_BATCH, DW_DIM, DW_LR, DW_STEPS = 4096, 64, 0.1, 30
+DW_FLOORS = dict(loss=1e-6, emb=1e-6)
+# GraphSAGE's published fan-outs (25, 10) from 1024 seeds, 64-wide features
+KHOP_SEEDS, KHOP_SIZES, KHOP_DIM = 1024, (25, 10), 64
+MP_RTOL = 1e-5
+
+_NATIVE: dict = {}
+
+
+def _start_native_build() -> None:
+    """Compile the port's native runtime (g++) on a thread, so it overlaps
+    the device-bound phases; :func:`_native_built` joins it."""
+    import threading
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            from paddle_tpu_torch import native
+
+            _NATIVE["library"] = native.build()
+        except BaseException as e:  # re-raised by _native_built
+            _NATIVE["error"] = e
+        _NATIVE["build_s"] = time.perf_counter() - t0
+
+    _NATIVE["thread"] = threading.Thread(target=run, daemon=True)
+    _NATIVE["thread"].start()
+
+
+def _native_built() -> dict:
+    """The native build's library and seconds (started here if no one
+    started it); raises if it failed."""
+    if "thread" not in _NATIVE:
+        _start_native_build()
+    _NATIVE["thread"].join()
+    if "error" in _NATIVE:
+        raise RuntimeError("the native runtime did not build") \
+            from _NATIVE["error"]
+    return dict(library=os.path.relpath(_NATIVE["library"]),
+                build_s=_NATIVE["build_s"])
+
+
+def _host_info() -> dict:
+    return dict(cpu_count=os.cpu_count(),
+                cpus_usable=len(os.sched_getaffinity(0)))
+
+
+def _in_background(fn, *args):
+    """``fn(*args)`` on a thread (server start-up overlapping other work):
+    ``join()`` returns its result or raises its exception. The thread
+    lives on until ``release()``: a server started with PDEATHSIG dies
+    with the thread that started it, not with the process."""
+    import threading
+
+    box, ready, done = {}, threading.Event(), threading.Event()
+
+    def run():
+        try:
+            box["out"] = fn(*args)
+        except BaseException as e:
+            box["err"] = e
+        ready.set()
+        done.wait()
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    class Job:
+        @staticmethod
+        def join():
+            ready.wait()
+            if "err" in box:
+                raise box["err"]
+            return box["out"]
+
+        @staticmethod
+        def release():
+            done.set()
+            th.join()
+
+    return Job
+
+
+def _flash_idle(fa, phase: str) -> dict:
+    counts = fa.launch_counts()
+    if any(n for routes in counts.values() for n in routes.values()):
+        raise AssertionError(f"{phase}: flash kernels launched on a path "
+                             f"that has no attention: {counts}")
+    return {k: 0 for k in counts}
+
+
+def _rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in float64 (0 for two zero arrays)."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    den = float(np.linalg.norm(b))
+    num = float(np.linalg.norm(a - b))
+    return num / den if den else num
+
+
+def _ctr_table():
+    from paddle_tpu_torch.distributed.ps import MemorySparseTable
+
+    return MemorySparseTable(embed_dim=PS_DIM, optimizer="adagrad",
+                             learning_rate=PS_LR_SPARSE, seed=0)
+
+
+def _ctr_model(table, device, dtype, state):
+    """examples/ps_ctr_train.py's CTRModel at its widths over ``table``,
+    its dense tower in ``dtype`` with the weights ``state``."""
+    import torch
+
+    from paddle_tpu_torch.distributed.ps import SparseEmbedding
+    from paddle_tpu_torch.nn.layers.common import Linear
+
+    class CTRModel(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.emb = SparseEmbedding(PS_DIM, table=table, device=device)
+            self.fc1 = Linear(2 * PS_DIM, 32, device=device)
+            self.fc2 = Linear(32, 1, device=device)
+
+        def tower(self, u, v):
+            x = torch.cat([u, v], -1).to(self.fc1.weight.dtype)
+            return self.fc2(torch.relu(self.fc1(x)))[:, 0]
+
+        def forward(self, user_ids, item_ids):
+            return self.tower(self.emb(user_ids), self.emb(item_ids))
+
+    model = CTRModel()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name in state:
+                p.data = state[name].to(device=device, dtype=dtype).clone()
+    return model.train()
+
+
+def _bce(logits, labels):
+    import torch
+
+    labels = labels.to(logits.dtype)
+    return torch.mean(torch.clamp(logits, min=0) - logits * labels
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def _ctr_batches(universe, seed: int, steps: int, batch: int):
+    """User and item ids drawn with repeats (squared-uniform positions in
+    the key universe, graph_bench's skew), labels by the example's rule."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(steps):
+        users, items = (universe[(rng.random(batch) ** 2
+                                  * universe.size).astype(np.int64)]
+                        for _ in range(2))
+        labels = ((users % 3 == 0) & (items % 2 == 0)).astype(np.float32)
+        out.append((users, items, labels))
+    return out
+
+
+class _TableClock:
+    """Host seconds spent in a table's pull and push (instance wrappers)."""
+
+    def __init__(self, table):
+        self.table, self.pull_s, self.push_s = table, 0.0, 0.0
+        self._pull, self._push = table.pull, table.push
+
+        def pull(keys):
+            t0 = time.perf_counter()
+            try:
+                return self._pull(keys)
+            finally:
+                self.pull_s += time.perf_counter() - t0
+
+        def push(keys, grads):
+            t0 = time.perf_counter()
+            try:
+                return self._push(keys, grads)
+            finally:
+                self.push_s += time.perf_counter() - t0
+
+        table.pull, table.push = pull, push
+
+    def reset(self):
+        self.pull_s = self.push_s = 0.0
+
+
+@contextlib.contextmanager
+def _ps_fault(fault):
+    """A planted fault in the lookup's backward: ``skip_push`` drops the
+    push, ``merge_duplicates`` sums duplicate ids' gradients and pushes
+    each key once (adagrad then sees one merged step, not one per
+    occurrence)."""
+    if fault is None:
+        yield
+        return
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed.ps import embedding as E
+
+    saved = E._Lookup.__dict__["backward"]
+
+    def backward(ctx, grad):
+        g = grad.detach().reshape(-1, ctx.table.embed_dim).to(
+            "cpu", torch.float32).numpy()
+        if fault == "merge_duplicates":
+            uniq, inv = np.unique(ctx.flat, return_inverse=True)
+            merged = np.zeros((uniq.size, g.shape[1]), np.float32)
+            np.add.at(merged, inv, g)
+            ctx.table.push(uniq, merged)
+        shape, dtype, device = ctx.anchor_meta
+        return None, torch.zeros(shape, dtype=dtype, device=device), None, \
+            None
+
+    E._Lookup.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        E._Lookup.backward = saved
+
+
+def _ctr_run(path, batches, state, device, dtype, *, table=None,
+             staged=False, manual=False, fault=None, timed=False) -> dict:
+    """One CTR training run from the table file ``path`` (or ``table``,
+    already loaded) and the dense weights ``state``: through the lookup
+    path (SparseEmbedding's Function; the port's TrainStep with SGD, or
+    ``manual`` SGD in the tower's dtype for the float64 reference) or
+    ``staged`` (StagedPull: one deduplicated pull and a merged push a
+    step). Returns the losses, the dense update, the touched keys and
+    their rows after the run, and with ``timed`` the step's split on the
+    card."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed.ps import StagedPull
+    from paddle_tpu_torch.framework.jit import TrainStep
+    from paddle_tpu_torch.optimizer import SGD
+
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    if table is None:
+        t0 = time.perf_counter()
+        table = _ctr_table()
+        table.load(path)
+        out["load_s"] = time.perf_counter() - t0
+    keys = np.unique(np.concatenate([np.concatenate(b[:2])
+                                     for b in batches]))
+    model = _ctr_model(table, device, dtype, state)
+    dense = [p for n, p in model.named_parameters() if n.startswith("fc")]
+    init = [p.detach().to("cpu", torch.float64).clone() for p in dense]
+    stager = StagedPull(table, device=device) if staged else None
+
+    def manual_step(b):
+        users, items, labels = b
+        lab = torch.as_tensor(labels, device=device)
+        if staged:
+            rows, inv, uniq = stager.pull(np.concatenate([users, items]))
+            rows.requires_grad_(True)
+            emb = StagedPull.lookup(rows, inv)
+            loss = _bce(model.tower(emb[:users.size], emb[users.size:]), lab)
+            grads = torch.autograd.grad(loss, [rows] + dense)
+            stager.push(uniq, grads[0])
+            grads = grads[1:]
+        else:
+            ids = [torch.as_tensor(a, device=device) for a in (users, items)]
+            loss = _bce(model(*ids), lab)
+            # the anchor among the inputs, so the lookup's backward (the
+            # push) runs
+            grads = torch.autograd.grad(
+                loss, dense + [model.emb.grad_anchor])[:-1]
+        with torch.no_grad():
+            for p, g in zip(dense, grads):
+                p.sub_(PS_LR_DENSE * g)
+        return loss.detach()
+
+    run = manual_step if (manual or staged) else TrainStep(
+        model, SGD(learning_rate=PS_LR_DENSE),
+        loss_fn=lambda o, b: _bce(o, b[2]), inputs_fn=lambda b: (b[0], b[1]))
+    clock = _TableClock(table) if timed else None
+    losses, ms, split = [], [], []
+    with _ps_fault(fault):
+        for i, b in enumerate(batches):
+            if clock is not None:
+                clock.reset()
+            t0 = time.perf_counter()
+            losses.append(run(b))
+            if cuda:
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if clock is not None:
+                split.append((clock.pull_s * 1e3, clock.push_s * 1e3))
+    out["losses"] = [float(x) for x in torch.stack(losses).cpu()]
+    out["update"] = [p.detach().to("cpu", torch.float64) - q
+                     for p, q in zip(dense, init)]
+    out["rows"] = table.pull(keys)
+    out["keys"] = keys
+    if timed and cuda:  # one more step, traced, after the readings
+        b = batches[-1]
+        clock.reset()
+        t0 = time.perf_counter()
+        prof = _step_profile(lambda: run(b), device)
+        prof["step_ms"] = (time.perf_counter() - t0) * 1e3
+        prof["pull_ms"], prof["push_ms"] = (clock.pull_s * 1e3,
+                                            clock.push_s * 1e3)
+        # kernel_ms counts the copies too: the device's busy time
+        prof["device_ms"] = (prof["kernel_ms"] - prof["h2d_ms"]
+                             - prof["d2h_ms"])
+        prof["device_idle_share"] = 1.0 - prof["kernel_ms"] / prof["step_ms"]
+        out["traced_step"] = prof
+    if timed:
+        warm = ms[PS_WARMUP:] or ms
+        out["step_ms"] = statistics.median(warm)
+        out["step_ms_range"] = [min(warm), max(warm)]
+        if split:
+            out["pull_ms"] = statistics.median(s[0] for s in split[
+                PS_WARMUP:] or split)
+            out["push_ms"] = statistics.median(s[1] for s in split[
+                PS_WARMUP:] or split)
+    out["model"], out["table"] = model, table
+    return out
+
+
+def _ctr_readings(run: dict, ref: dict, rows0) -> dict:
+    import numpy as np
+
+    l, lr = np.asarray(run["losses"]), np.asarray(ref["losses"])
+    return dict(
+        loss_rel_err=float(np.max(np.abs(l - lr) / np.maximum(np.abs(lr),
+                                                              1e-30))),
+        update_err=_rel_l2(np.concatenate([u.reshape(-1).numpy()
+                                        for u in run["update"]]),
+                        np.concatenate([u.reshape(-1).numpy()
+                                        for u in ref["update"]])),
+        rows_err=float(np.linalg.norm(
+            run["rows"].astype(np.float64) - ref["rows"]) /
+            np.linalg.norm(ref["rows"].astype(np.float64) - rows0)))
+
+
+def _ctr_gates(floor: dict) -> dict:
+    return {k: max(YARD_FACTOR * floor[f"{k}_rel_err" if k == "loss"
+                                       else f"{k}_err"], PS_FLOORS[k])
+            for k in PS_FLOORS}
+
+
+def _ctr_fails(r: dict, gates: dict) -> list:
+    return [k for k in gates
+            if not r[f"{k}_rel_err" if k == "loss" else f"{k}_err"]
+            <= gates[k]]
+
+
+def _ctr_held(label, path, subset, batches, state, device, faults=(),
+              staged=False) -> dict:
+    """The timed run on ``device`` from the whole table file ``path``,
+    held against the CPU's float64 run (the CPU float32 run read against
+    it too: float32's own cost), and each planted fault on ``device``,
+    which must trip its gate; those runs start from ``subset``, the same
+    rows of every key the batches touch."""
+    import torch
+
+    clock = {}
+
+    def timed_run(name, table_file, *a, **kw):
+        t0 = time.perf_counter()
+        r = _ctr_run(table_file, batches, state, *a, **kw)
+        clock[name] = time.perf_counter() - t0
+        return r
+
+    ref = timed_run("cpu_float64", subset, "cpu", torch.float64,
+                    staged=staged, manual=True)
+    rows0 = _table_rows(subset, ref["keys"])
+    floor = _ctr_readings(timed_run("cpu_float32", subset, "cpu",
+                                    torch.float32, staged=staged), ref, rows0)
+    gates = _ctr_gates(floor)
+    run = timed_run("sound", path, device, torch.float32, staged=staged,
+                    timed=True)
+    readings = {"sound": _ctr_readings(run, ref, rows0)}
+    for fault in faults:
+        readings[fault] = _ctr_readings(timed_run(
+            fault, subset, device, torch.float32, fault=fault), ref, rows0)
+    failed = ["sound"] if _ctr_fails(readings["sound"], gates) else []
+    failed += [f for f in faults
+               if PS_FAULTS[f] not in _ctr_fails(readings[f], gates)]
+    losses = run["losses"]
+    out = dict(gates=gates, cpu_float32=floor, readings=readings,
+               losses=[losses[0], losses[-1]],
+               cpu_float64_losses=[ref["losses"][0], ref["losses"][-1]],
+               load_s=run.get("load_s"), run_s=clock)
+    for k in ("step_ms", "step_ms_range", "pull_ms", "push_ms",
+              "traced_step"):
+        if k in run:
+            out[k] = run[k]
+    if "step_ms" in out:
+        out["examples_per_s"] = len(batches[0][0]) / out["step_ms"] * 1e3
+    if failed or not losses[-1] < losses[0]:
+        emit("ps_ctr_training", part=label, **out)
+        raise AssertionError(f"ps_ctr_training {label}: {failed} on the "
+                             f"wrong side of their gates, or the loss did "
+                             f"not fall ({losses[0]} -> {losses[-1]})")
+    out["run"] = run
+    return out
+
+
+def _table_file(path: str):
+    """A table file's rows as a numpy record array sorted by key:
+    ``key`` and ``v`` (embedding, adagrad state, show, click)."""
+    import numpy as np
+
+    with open(path, "rb") as f:
+        magic, w, count = np.frombuffer(f.read(20), np.dtype(
+            [("m", "<u8"), ("w", "<i4"), ("n", "<u8")]))[0]
+    rec = np.fromfile(path, np.dtype([("key", "<i8"), ("v", "<f4", (w,))]),
+                      offset=20)
+    assert rec.size == count
+    return rec[np.argsort(rec["key"], kind="stable")]
+
+
+def _table_subset(path: str, keys, out: str) -> None:
+    """Write the rows of ``keys`` (each present) from the table file
+    ``path`` as a table file of their own (the same format): the whole
+    state a run over those keys can read, without loading every key."""
+    import numpy as np
+
+    rec = _table_file(path)
+    at = np.searchsorted(rec["key"], keys)
+    assert (rec["key"][at] == keys).all()
+    with open(path, "rb") as f:
+        head = np.frombuffer(f.read(20), np.dtype(
+            [("m", "<u8"), ("w", "<i4"), ("n", "<u8")])).copy()
+    head["n"] = len(keys)
+    with open(out, "wb") as f:
+        f.write(head.tobytes())
+        f.write(rec[at].tobytes())
+
+
+def _table_rows(path: str, keys):
+    """The embedding rows of ``keys`` in the table file (float64)."""
+    import numpy as np
+
+    rec = _table_file(path)
+    at = np.searchsorted(rec["key"], keys)
+    assert (rec["key"][at] == keys).all()
+    return rec["v"][at, :PS_DIM].astype(np.float64)
+
+
+def phase_ps_ctr_training(seed: int, device: str = "cuda", keys=None,
+                          batch=None, steps=None, bench_iters=None) -> dict:
+    """The CTR regime of examples/ps_ctr_train.py at tools/ps_bench.py's
+    scale: (a) the native runtime's build seconds, a 2M-key adagrad table
+    filled with ps_bench's keys and its cold pull, hot pull and push rates
+    at batch 8192; (b) the example's CTRModel (SparseEmbedding(16), the
+    dense tower through TrainStep with SGD(0.05)) trained 40 steps at batch
+    8192 on ids drawn with repeats, from that table's file, held against
+    the CPU's float64 run (losses, dense update, touched rows), sound and
+    with two planted faults that must trip the rows gate, its step split
+    into pull, copies, kernels and push on the card, and replayed bit for
+    bit; (c) the same through StagedPull; (d) the same over two PsServer
+    processes, sync (rows bit-equal to (b) where (b) replays) and through
+    an async Communicator; (e) serving under eval() and no_grad: the rows
+    unchanged, each key's show count up by its occurrences. ``device="cpu"``
+    with small ``keys``, ``batch``, ``steps`` and ``bench_iters`` gives a
+    dry run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed.ps import launch_servers
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    cuda = device != "cpu"
+    keys, batch = keys or PS_KEYS, batch or PS_BATCH
+    steps, bench_iters = steps or PS_STEPS, bench_iters or PS_BENCH_ITERS
+    out = dict(path=PS_PATH, host=_host_info(), card=nvidia_smi_line(),
+               leftover_gib_at_start=_check_freed("ps_ctr_training")
+               if cuda else None)
+    fa.reset_launch_counts()
+    t_phase = time.perf_counter()
+    out["native"] = _native_built()
+    servers = _in_background(launch_servers, 2, PS_DIM, "adagrad",
+                             PS_LR_SPARSE, 0)
+    # (a) the table at ps_bench's scale
+    rng = np.random.default_rng(seed)
+    universe = rng.integers(0, 2 ** 40, keys).astype(np.int64)
+    table = _ctr_table()
+    fill = keys // PS_BATCH * PS_BATCH
+    t0 = time.perf_counter()
+    for i in range(0, fill, PS_BATCH):
+        table.pull(universe[i:i + PS_BATCH])
+    cold = fill / (time.perf_counter() - t0)
+    table.pull(universe[fill:])
+    hot_batches = [rng.choice(universe, PS_BATCH) for _ in range(bench_iters)]
+    t0 = time.perf_counter()
+    for b in hot_batches:
+        table.pull(b)
+    hot = PS_BATCH * bench_iters / (time.perf_counter() - t0)
+    grads = rng.standard_normal((PS_BATCH, PS_DIM)).astype(np.float32)
+    t0 = time.perf_counter()
+    for b in hot_batches:
+        table.push(b, grads)
+    push = PS_BATCH * bench_iters / (time.perf_counter() - t0)
+    tmp = tempfile.mkdtemp(prefix="ps_ctr_")
+    path = os.path.join(tmp, "table.bin")
+    t0 = time.perf_counter()
+    table.save(path)
+    out["tables"] = dict(
+        keys=keys, rows=len(table), dim=PS_DIM, optimizer="adagrad",
+        batch=PS_BATCH, cold_pull_keys_per_s=cold, hot_pull_keys_per_s=hot,
+        push_adagrad_keys_per_s=push,
+        save_s=time.perf_counter() - t0, file_bytes=os.path.getsize(path))
+    del table, hot_batches
+    try:
+        # (b) the lookup path
+        gen = torch.Generator().manual_seed(seed + 1)
+        from paddle_tpu_torch.nn.layers.common import Linear
+
+        state = {f"fc1.{k}": v for k, v in Linear(
+            2 * PS_DIM, 32, device="cpu", generator=gen).state_dict().items()}
+        state.update({f"fc2.{k}": v for k, v in Linear(
+            32, 1, device="cpu", generator=gen).state_dict().items()})
+        batches = _ctr_batches(universe, seed + 2, steps, batch)
+        flat = np.concatenate([np.concatenate(b[:2]) for b in batches])
+        _, counts = np.unique(flat, return_counts=True)
+        b0 = np.concatenate(batches[0][:2])
+        out["batches"] = dict(
+            steps=steps, batch=batch, distinct_keys=int(counts.size),
+            step0_ids=int(b0.size), step0_distinct=int(np.unique(b0).size),
+            max_repeats_in_a_step=int(np.unique(b0, return_counts=True)[
+                1].max()))
+        t0 = time.perf_counter()
+        subset = os.path.join(tmp, "touched.bin")
+        _table_subset(path, np.unique(flat), subset)
+        out["batches"]["subset_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        look = _ctr_held("b", path, subset, batches, state, device,
+                         faults=tuple(PS_FAULTS))
+        replay = _ctr_run(subset, batches, state, device, torch.float32)
+        run = look.pop("run")
+        look["replay_bit_equal"] = bool(
+            replay["losses"] == run["losses"]
+            and np.array_equal(replay["rows"], run["rows"])
+            and all(torch.equal(a, b) for a, b in zip(replay["update"],
+                                                      run["update"])))
+        look["seconds"] = time.perf_counter() - t0
+        out["lookup"] = look
+        # (e) serving the replayed model: eval() and no_grad, pulls only
+        t0 = time.perf_counter()
+        out["serving"] = _ctr_serving(replay, seed + 3, batch, tmp, device)
+        out["serving"]["seconds"] = time.perf_counter() - t0
+        del replay
+        # (c) StagedPull: one deduplicated pull, one merged push a step
+        t0 = time.perf_counter()
+        staged = _ctr_held("c", path, subset, batches, state, device,
+                           staged=True)
+        staged.pop("run")
+        staged["seconds"] = time.perf_counter() - t0
+        out["staged"] = staged
+        # (d) two PsServer processes, sync then async
+        t0 = time.perf_counter()
+        out["network"] = _ctr_network(servers.join(), subset, batches,
+                                      state, device, run,
+                                      look["replay_bit_equal"],
+                                      look["gates"])
+        out["network"]["seconds"] = time.perf_counter() - t0
+        del run
+    finally:
+        try:   # a phase that failed before (d) leaves its servers up
+            _reap(servers.join()[0], timeout=0)
+        finally:
+            servers.release()
+            shutil.rmtree(tmp, ignore_errors=True)
+    out["flash_launches"] = _flash_idle(fa, "ps_ctr_training")
+    out["seconds"] = time.perf_counter() - t_phase
+    if cuda:
+        _free()
+    emit("ps_ctr_training", **out)
+    return out
+
+
+def _ctr_serving(run, seed, batch, tmp, device) -> dict:
+    """The trained model under eval() and no_grad over one batch of the
+    keys it trained (drawn as the batches were): logits finite, every row
+    and adagrad state unchanged, each served key's show count up by its
+    occurrences (the reference's pull), no push."""
+    import numpy as np
+    import torch
+
+    model, table, keys = run["model"], run["table"], run["keys"]
+    rng = np.random.default_rng(seed)
+    users, items = (keys[(rng.random(batch) ** 2 * keys.size)
+                         .astype(np.int64)] for _ in range(2))
+    before, after = (os.path.join(tmp, n) for n in ("serve0.bin",
+                                                    "serve1.bin"))
+    t0 = time.perf_counter()
+    table.save(before)
+    save_s = time.perf_counter() - t0
+    model.eval()
+    clock = _TableClock(table)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = model(torch.as_tensor(users, device=device),
+                       torch.as_tensor(items, device=device))
+        finite = bool(torch.isfinite(logits).all())
+    ms = (time.perf_counter() - t0) * 1e3
+    table.save(after)
+    a, b = _table_file(before), _table_file(after)
+    show = PS_DIM * 2          # adagrad: [emb, g2sum, show, click]
+    served, occ = np.unique(np.concatenate([users, items]),
+                            return_counts=True)
+    at = np.searchsorted(a["key"], served)
+    rise = b["v"][at, show] - a["v"][at, show]
+    unchanged = bool(np.array_equal(a["key"], b["key"]) and np.array_equal(
+        np.delete(a["v"], show, axis=1), np.delete(b["v"], show, axis=1)))
+    others = np.ones(a.size, bool)
+    others[at] = False
+    out = dict(ids=int(users.size + items.size), distinct=int(served.size),
+               forward_ms=ms, pull_ms=clock.pull_s * 1e3, save_s=save_s,
+               logits_finite=finite,
+               rows_and_state_unchanged=unchanged,
+               show_rise_equals_occurrences=bool(np.array_equal(rise, occ)),
+               other_shows_unchanged=bool(np.array_equal(
+                   a["v"][others, show], b["v"][others, show])))
+    if not (finite and unchanged and out["show_rise_equals_occurrences"]
+            and out["other_shows_unchanged"]):
+        emit("ps_ctr_training", part="e", **out)
+        raise AssertionError("ps_ctr_training (e): serving changed a row or "
+                             "its shows did not rise as its pulls")
+    return out
+
+
+def _ctr_network(servers, path, batches, state, device, local,
+                 local_replays: bool, gates: dict) -> dict:
+    """(d): the lookup run over a PsClient of two PsServer processes, each
+    loaded with the table file ``path`` (the touched keys' rows; a key is
+    only ever asked of its owner): sync, then through an async
+    Communicator from the same rows, flushed."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed.ps import Communicator, PsClient
+
+    procs, endpoints = servers
+    client = PsClient(endpoints, PS_DIM)
+    out = dict(servers=len(procs))
+    try:
+        for s in range(len(procs)):
+            os.symlink(path, f"{path}.shard{s}")
+        t0 = time.perf_counter()
+        client.load(path)
+        out["load_s"] = time.perf_counter() - t0
+        sync = _ctr_run(path, batches, state, device, torch.float32,
+                        table=client, timed=True)
+        equal = bool(sync["losses"] == local["losses"]
+                     and np.array_equal(sync["rows"], local["rows"]))
+        rows_err = _rel_l2(sync["rows"], local["rows"])
+        out["sync"] = dict(step_ms=sync["step_ms"],
+                           step_ms_range=sync["step_ms_range"],
+                           pull_ms=sync.get("pull_ms"),
+                           push_ms=sync.get("push_ms"),
+                           losses=[sync["losses"][0], sync["losses"][-1]],
+                           bit_equal_to_local=equal,
+                           rows_rel_diff_to_local=rows_err)
+        del sync
+        if (local_replays and not equal) or rows_err > gates["rows"]:
+            emit("ps_ctr_training", part="d", **out)
+            raise AssertionError("ps_ctr_training (d): the sync run over "
+                                 "the servers differs from the local run")
+        client.load(path)
+        comm = Communicator(client, mode="async")
+
+        class Async:
+            embed_dim = PS_DIM
+            pull = staticmethod(comm.pull)
+            push = staticmethod(comm.push)
+
+        run = _ctr_run(path, batches, state, device, torch.float32,
+                       table=Async(), timed=True)
+        t0 = time.perf_counter()
+        comm.flush()
+        flush_ms = (time.perf_counter() - t0) * 1e3
+        comm.stop()
+        rows = client.pull(run["keys"])
+        out["async"] = dict(step_ms=run["step_ms"],
+                            step_ms_range=run["step_ms_range"],
+                            flush_ms=flush_ms,
+                            losses=[run["losses"][0], run["losses"][-1]],
+                            rows_rel_diff_to_sync_local=_rel_l2(
+                                rows, local["rows"]))
+        if not (np.isfinite(rows).all()
+                and run["losses"][-1] < run["losses"][0]):
+            emit("ps_ctr_training", part="d", **out)
+            raise AssertionError("ps_ctr_training (d): the async run's "
+                                 "rows are not finite or its loss did not "
+                                 "fall")
+    finally:
+        client.stop_servers()
+        client.close()
+        _reap(procs)
+    return out
+
+
+def _reap(procs, timeout: float = 30.0) -> None:
+    """Wait up to ``timeout`` s for each server process to exit after its
+    STOP, then kill what is left."""
+    import subprocess as sp
+
+    for p in procs:
+        try:
+            p.wait(timeout=timeout)
+        except sp.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=10)
+
+
+def _graph_build(num_nodes: int, num_edges: int, seed: int):
+    """tools/graph_bench.py build_graph: uniform sources, squared-uniform
+    destinations; ``(graph, src, dst, build seconds)``."""
+    import numpy as np
+
+    from paddle_tpu_torch.distributed.ps.graph import GraphTable
+
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, num_nodes, num_edges, dtype=np.int64)
+    dst = (rng.random(num_edges) ** 2 * num_nodes).astype(np.int64)
+    g = GraphTable()
+    t0 = time.perf_counter()
+    g.add_edges(src, dst)
+    g.build()
+    return g, src, dst, time.perf_counter() - t0
+
+
+def _graph_rates(store, ids, iters: int, keep=None):
+    """graph_bench's neighbour-sampling and walk rates: ``(samples/s,
+    hops/s, [sample results], [walks])`` over ``iters`` batches each."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    batches = [rng.choice(ids, GRAPH_BATCH) for _ in range(iters)]
+    store.sample_neighbors(batches[0], GRAPH_SAMPLE)
+    t0 = time.perf_counter()
+    samples = [store.sample_neighbors(b, GRAPH_SAMPLE) for b in batches]
+    s_rate = GRAPH_BATCH * GRAPH_SAMPLE * iters / (time.perf_counter() - t0)
+    rng = np.random.default_rng(2)
+    batches = [rng.choice(ids, GRAPH_BATCH) for _ in range(iters)]
+    store.random_walk(batches[0], GRAPH_WALK, seed=0)
+    t0 = time.perf_counter()
+    walks = [store.random_walk(b, GRAPH_WALK, seed=i)
+             for i, b in enumerate(batches)]
+    w_rate = GRAPH_BATCH * GRAPH_WALK * iters / (time.perf_counter() - t0)
+    return s_rate, w_rate, samples, walks
+
+
+def _skipgram_loss(e, c, x, negs):
+    """bench_overlap's skip-gram loss (softplus of the positive and the
+    negative dot products)."""
+    import torch
+    import torch.nn.functional as F
+
+    ce, xe, ne = e[c], e[x], e[negs]
+    pos = torch.sum(ce * xe, -1)
+    neg = torch.einsum("bd,bkd->bk", ce, ne)
+    return torch.mean(F.softplus(-pos)) + torch.mean(F.softplus(neg))
+
+
+def _dw_batches(g, steps: int, batch: int):
+    from paddle_tpu_torch.distributed.ps.graph import GraphDataGenerator
+
+    gen = GraphDataGenerator(g, batch_size=batch, walk_len=8, window=2,
+                             num_neg=4, seed=0)
+    count = 0
+    while count < steps:
+        produced = False
+        for b in gen:
+            produced = True
+            yield b
+            count += 1
+            if count >= steps:
+                return
+        if not produced:
+            raise RuntimeError("graph too small for one DeepWalk batch")
+
+
+def _dw_train(emb, batches, device) -> list:
+    """The dense skip-gram step on ``emb`` (a leaf requiring grad, updated
+    in place: ``emb - lr * grad``) over ``batches``; the losses (on the
+    device)."""
+    import torch
+
+    losses = []
+    for c, x, negs in batches:
+        ids = [torch.as_tensor(a, device=device) for a in (c, x, negs)]
+        loss = _skipgram_loss(emb, *ids)
+        (grad,) = torch.autograd.grad(loss, emb)
+        with torch.no_grad():
+            emb.sub_(DW_LR * grad)
+        losses.append(loss.detach())
+    return losses
+
+
+def _dw_reference(e0, touched, batches, dtype):
+    """The same steps on the CPU in ``dtype`` over the touched rows only
+    (the other rows get no gradient): ``(rows after, losses)``."""
+    import numpy as np
+    import torch
+
+    sub = torch.tensor(e0, dtype=dtype)
+    losses = []
+    for c, x, negs in batches:
+        flat = np.concatenate([c, x, negs.reshape(-1)])
+        uniq, inv = np.unique(np.searchsorted(touched, flat),
+                              return_inverse=True)
+        rows = sub[torch.as_tensor(uniq)].clone().requires_grad_(True)
+        inv = torch.as_tensor(inv)
+        n = c.size
+        loss = _skipgram_loss(rows, inv[:n], inv[n:2 * n],
+                              inv[2 * n:].reshape(negs.shape))
+        (grad,) = torch.autograd.grad(loss, rows)
+        with torch.no_grad():
+            sub[torch.as_tensor(uniq)] = rows - DW_LR * grad
+        losses.append(float(loss.detach()))
+    return sub.numpy(), losses
+
+
+def phase_graph_training(seed: int, device: str = "cuda", edges=None,
+                         iters=None, steps=None, dw_batch=None) -> dict:
+    """tools/graph_bench.py's regime at its defaults: (a) build_graph(1M
+    nodes, 10M edges) on a single host (edges/s), neighbour samples/s and
+    walk hops/s at batch 4096, sample size 10, walk length 20, then the
+    same over two graph-shard server processes with every sample and walk
+    equal to the single host's; (b) bench_overlap's DeepWalk skip-gram
+    step on an embedding [N, 64] on the card, 30 steps sequential and
+    overlapped with a producer thread (seconds, speed-up), each held to
+    the CPU's float64 run against float32's own error, the overlapped run
+    to the sequential one, falling loss; (c) 64-wide node features,
+    khop_sampler_from_store from 1024 seeds at fan-outs (25, 10),
+    reindex_graph against its first hop, two hops of send_u_recv (sum,
+    mean, max) on the card against the CPU (max bit-equal), ms a hop.
+    ``device="cpu"`` with small ``edges``, ``iters``, ``steps`` and
+    ``dw_batch`` gives a dry run."""
+    import queue
+    import statistics
+    import threading
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import geometric as G
+    from paddle_tpu_torch.distributed.ps.graph import (DistGraphClient,
+                                                       launch_graph_servers)
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    cuda = device != "cpu"
+    edges, iters = edges or GRAPH_EDGES, iters or GRAPH_ITERS
+    steps, dw_batch = steps or DW_STEPS, dw_batch or DW_BATCH
+    nodes = max(edges // 10, 1000)
+    out = dict(path=GRAPH_PATH, host=_host_info(), card=nvidia_smi_line(),
+               leftover_gib_at_start=_check_freed("graph_training")
+               if cuda else None)
+    fa.reset_launch_counts()
+    t_phase = time.perf_counter()
+    out["native"] = _native_built()
+    servers = _in_background(launch_graph_servers, 2)
+    # (a) the graph, single host then two shards
+    g, src, dst, build_s = _graph_build(nodes, edges, 0)
+    ids = g.node_ids()
+    s_rate, w_rate, samples, walks = _graph_rates(g, ids, iters)
+    single = dict(build_edges_per_s=edges / build_s,
+                  neighbor_samples_per_s=s_rate, walk_hops_per_s=w_rate)
+    procs, endpoints = servers.join()
+    client = None
+    try:
+        client = DistGraphClient(endpoints)
+        t0 = time.perf_counter()
+        client.add_edges(src, dst)
+        client.build()
+        shard_build_s = time.perf_counter() - t0
+        iters2 = max(iters // 2, 5)
+        # the single host's node list, so both draw the same batches
+        s2, w2, samples2, walks2 = _graph_rates(client, ids, iters2)
+        equal = (np.array_equal(client.node_ids(), np.sort(ids)) and all(
+            np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+            for a, b in zip(samples2, samples)) and all(
+            np.array_equal(a, b) for a, b in zip(walks2, walks)))
+    finally:
+        try:
+            if client is not None:
+                client.stop_servers()
+                client.close()
+            _reap(procs)
+        finally:
+            servers.release()
+    out["graph"] = dict(
+        nodes=nodes, edges=edges, nodes_with_edges=int(ids.size),
+        batch=GRAPH_BATCH, sample_size=GRAPH_SAMPLE, walk_len=GRAPH_WALK,
+        iters=iters, single_host=single,
+        two_shard=dict(build_edges_per_s=edges / shard_build_s,
+                       neighbor_samples_per_s=s2, walk_hops_per_s=w2,
+                       iters=iters2, equal_to_single_host=bool(equal)))
+    del samples, walks, samples2, walks2, src, dst
+    if not equal:
+        emit("graph_training", **out)
+        raise AssertionError("graph_training (a): samples or walks over the "
+                             "two shards differ from the single host's")
+    # (b) DeepWalk on the card
+    n = int(ids.max()) + 1
+    gen = torch.Generator(device=device).manual_seed(seed)
+    e0 = torch.randn((n, DW_DIM), generator=gen, device=device) * 0.1
+    m = min(n, 4096)
+    warm = e0[:m].clone().requires_grad_(True)   # cuBLAS, the allocator
+    rng = np.random.default_rng(seed)
+    _dw_train(warm, [tuple(rng.integers(0, m, s) for s in
+                           ((dw_batch,), (dw_batch,), (dw_batch, 4)))],
+              device)
+    del warm
+    if cuda:
+        torch.cuda.synchronize()
+    emb = e0.clone().requires_grad_(True)
+    t0 = time.perf_counter()
+    pending = list(_dw_batches(g, steps, dw_batch))
+    seq_losses = _dw_train(emb, pending, device)
+    if cuda:
+        torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+    emb_ovl = e0.clone().requires_grad_(True)
+    q: queue.Queue = queue.Queue(maxsize=4)
+
+    def producer():
+        for b in _dw_batches(g, steps, dw_batch):
+            q.put(b)
+        q.put(None)
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=producer, daemon=True)
+    th.start()
+    ovl_losses = _dw_train(emb_ovl, iter(q.get, None), device)
+    if cuda:
+        torch.cuda.synchronize()
+    th.join()
+    t_ovl = time.perf_counter() - t0
+    with torch.no_grad():   # the first batch's loss after training
+        after = float(_skipgram_loss(emb, *(
+            torch.as_tensor(a, device=device) for a in pending[0])))
+    touched = np.unique(np.concatenate([np.concatenate(
+        [c, x, negs.reshape(-1)]) for c, x, negs in pending]))
+    tt = torch.as_tensor(touched, device=device)
+    e0_rows = e0[tt].cpu().numpy()
+    seq_rows = emb.detach()[tt].cpu().numpy()
+    ovl_rows = emb_ovl.detach()[tt].cpu().numpy()
+    seq_l = [float(x) for x in torch.stack(seq_losses).cpu()]
+    ovl_l = [float(x) for x in torch.stack(ovl_losses).cpu()]
+    del emb, emb_ovl, e0, tt
+    t0 = time.perf_counter()
+    ref_rows, ref_l = _dw_reference(e0_rows, touched, pending,
+                                    torch.float64)
+    f32_rows, f32_l = _dw_reference(e0_rows, touched, pending,
+                                    torch.float32)
+    ref_s = time.perf_counter() - t0
+
+    def readings(rows, losses):
+        lr = np.asarray(ref_l)
+        return dict(loss_rel_err=float(np.max(np.abs(np.asarray(losses) - lr)
+                                              / np.abs(lr))),
+                    emb_err=float(np.linalg.norm(rows - ref_rows)
+                                  / np.linalg.norm(ref_rows - e0_rows)))
+
+    floor = readings(f32_rows, f32_l)
+    gates = dict(loss=max(YARD_FACTOR * floor["loss_rel_err"],
+                          DW_FLOORS["loss"]),
+                 emb=max(YARD_FACTOR * floor["emb_err"], DW_FLOORS["emb"]))
+    seq, ovl = readings(seq_rows, seq_l), readings(ovl_rows, ovl_l)
+    ovl_vs_seq = float(np.linalg.norm(ovl_rows - seq_rows)
+                       / np.linalg.norm(seq_rows - e0_rows))
+    out["deepwalk"] = dict(
+        embedding=[n, DW_DIM], batch=dw_batch, steps=steps, lr=DW_LR,
+        touched_rows=int(touched.size), sequential_s=t_seq,
+        overlapped_s=t_ovl, speedup=t_seq / t_ovl,
+        losses=[seq_l[0], seq_l[-1]], first_batch_loss_after=after,
+        cpu_reference_s=ref_s, gates=gates,
+        cpu_float32=floor, sequential=seq, overlapped=ovl,
+        overlapped_vs_sequential=ovl_vs_seq,
+        overlapped_bit_equal=bool(np.array_equal(ovl_rows, seq_rows)))
+    ok = all(r["loss_rel_err"] <= gates["loss"] and r["emb_err"]
+             <= gates["emb"] for r in (seq, ovl)) and \
+        ovl_vs_seq <= gates["emb"] and after < seq_l[0]
+    del seq_rows, ovl_rows, ref_rows, f32_rows, e0_rows, pending
+    if not ok:
+        emit("graph_training", **out)
+        raise AssertionError("graph_training (b): DeepWalk on the card off "
+                             "its gates, or the first batch's loss did not "
+                             "fall")
+    # (c) message passing over a khop minibatch
+    rng = np.random.default_rng(seed + 1)
+    t0 = time.perf_counter()
+    g.set_features(ids, rng.standard_normal((ids.size, KHOP_DIM),
+                                            dtype=np.float32))
+    feat_s = time.perf_counter() - t0
+    seeds = rng.choice(ids, KHOP_SEEDS, replace=False)
+    t0 = time.perf_counter()
+    es, ed, idx, feats = G.khop_sampler_from_store(
+        g, seeds, KHOP_SIZES, seed=seed, with_features=True)
+    khop_s = time.perf_counter() - t0
+    nb, cnt = g.sample_neighbors(seeds, KHOP_SIZES[0], seed=seed)
+    rs, rd, rn = G.reindex_graph(seeds, nb[nb >= 0], cnt)
+    reindex_ok = bool(np.array_equal(rs, es[:rs.size])
+                      and np.array_equal(rd, ed[:rd.size])
+                      and np.array_equal(rn, idx[:rn.size]))
+    x_dev = torch.as_tensor(feats, device=device)
+    s_dev, d_dev = (torch.as_tensor(a, device=device) for a in (es, ed))
+    x_cpu, s_cpu, d_cpu = (torch.as_tensor(a) for a in (feats, es, ed))
+    mp = dict(seeds=KHOP_SEEDS, fanouts=list(KHOP_SIZES),
+              subgraph_nodes=int(idx.size), subgraph_edges=int(es.size),
+              feature_dim=KHOP_DIM, set_features_s=feat_s, khop_s=khop_s,
+              reindex_equal_to_first_hop=reindex_ok, ops={})
+    ok = reindex_ok
+    for op in ("sum", "mean", "max"):
+        def hops(x, s, d):
+            h = G.send_u_recv(x, s, d, op, out_size=idx.size)
+            return G.send_u_recv(h, s, d, op, out_size=idx.size)
+
+        got = hops(x_dev, s_dev, d_dev).cpu().numpy()
+        want = hops(x_cpu, s_cpu, d_cpu).numpy()
+        err = float(np.max(np.abs(got - want)))
+        scale = float(np.max(np.abs(want)))
+        hop_ms = (cuda_ms(lambda: G.send_u_recv(x_dev, s_dev, d_dev, op,
+                                                out_size=idx.size))
+                  if cuda else None)
+        exact = bool(np.array_equal(got, want))
+        good = exact if op == "max" else err <= MP_RTOL * max(scale, 1.0)
+        mp["ops"][op] = dict(max_abs_err=err, max_abs=scale,
+                             bit_equal=exact, hop_ms=hop_ms, ok=good)
+        ok = ok and good
+    out["message_passing"] = mp
+    del x_dev, s_dev, d_dev, g
+    out["flash_launches"] = _flash_idle(fa, "graph_training")
+    out["seconds"] = time.perf_counter() - t_phase
+    if cuda:
+        _free()
+    emit("graph_training", **out)
+    if not ok:
+        raise AssertionError("graph_training (c): message passing on the "
+                             "card differs from the CPU, or reindex_graph "
+                             "from the khop sampler's first hop")
     return out
 
 
@@ -7219,6 +8335,9 @@ def main(argv=None) -> int:
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     ptxas = phase_build(args.seed, fail_on_spill=not args.kernels_only)
+    if not args.kernels_only:
+        # g++ on a thread while the card runs the kernel phases
+        _start_native_build()
     fwd = phase_kernels(args.seed)
     bwd = phase_backward(args.seed)
     phase_dropout(args.seed)
@@ -7263,6 +8382,10 @@ def main(argv=None) -> int:
     phase_detection_training(args.seed)
     _free()
     phase_ocr_training(args.seed)
+    _free()
+    phase_ps_ctr_training(args.seed)
+    _free()
+    phase_graph_training(args.seed)
     _free()
     hapi_gpt = phase_hapi_gpt_fit(args.seed)
     _free()

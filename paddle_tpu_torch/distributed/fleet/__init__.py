@@ -6,8 +6,10 @@ from ``strategy.hybrid_configs``; ``distributed_model`` returns a
 :class:`~paddle_tpu_torch.distributed.shard.DistributedTrainStep`
 configured from the strategy (ZeRO stage, gradient merge,
 fp16_allreduce); ``distributed_optimizer`` applies the LARS/DGC rewrites.
-The parameter-server functions raise: the parameter server is
-``distributed/ps``, ROADMAP A9.
+The parameter-server functions (``init_server``, ``run_server``,
+``init_worker``, ``stop_worker``, ``save_persistables``) drive
+:func:`~paddle_tpu_torch.distributed.ps.get_ps_context`, and
+``fleet.metrics`` reduces metrics across trainers.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Optional
 
 from .. import env as _env
 from ..mesh import HybridCommunicateGroup, get_mesh, init_mesh
+from . import metrics  # noqa: F401  (fleet.metrics.sum/auc/... namespace)
 from .strategy import DistributedStrategy
 
 __all__ = ["DistributedStrategy", "init", "get_hybrid_communicate_group",
@@ -31,12 +34,10 @@ def init(role_maker=None, is_collective: bool = True,
     """``fleet.init``: join the world (``backend``/``device`` as
     ``init_parallel_env`` takes them) and build the mesh from
     ``strategy.hybrid_configs`` (the reference builds its
-    HybridCommunicateGroup from the same dict)."""
-    del role_maker
-    if not is_collective:
-        raise NotImplementedError(
-            "fleet.init(is_collective=False): the parameter-server mode is "
-            "not ported (ROADMAP A9, distributed/ps)")
+    HybridCommunicateGroup from the same dict). ``is_collective=False``
+    (the parameter-server mode) does the same, as the reference does; the
+    PS communicator mode follows ``strategy.a_sync``."""
+    del role_maker, is_collective
     strategy = strategy or DistributedStrategy()
     _env.init_parallel_env(backend=backend, device=device)
     hc = strategy.hybrid_configs
@@ -60,6 +61,12 @@ def init(role_maker=None, is_collective: bool = True,
     mesh = init_mesh(shape)
     _fleet_state.update(strategy=strategy, hcg=HybridCommunicateGroup(mesh),
                         initialized=True)
+    # PS communicator mode (sync/async/geo), derived from
+    # a_sync/a_sync_configs the way the_one_ps.py does — applied
+    # UNCONDITIONALLY so a later plain init resets a prior async mode
+    from ..ps import get_ps_context
+
+    get_ps_context().configure_mode(strategy)
     return mesh
 
 
@@ -163,12 +170,38 @@ def distributed_optimizer(optimizer, strategy=None):
 
 
 # ------------------------------------------------------------------ PS mode
-def _ps_not_ported(*args, **kwargs):
-    raise NotImplementedError(
-        "the parameter-server mode (fleet.init_server/run_server/"
-        "init_worker/stop_worker/save_persistables) is not ported: it is "
-        "ROADMAP A9, distributed/ps")
+# Reference: fleet.init_server/init_worker/run_server/stop_worker
+# (python/paddle/distributed/fleet/fleet.py) backed by the_one_ps.py. Here
+# the PS is the in-proc local client (distributed/ps/__init__.py).
+def init_server(*model_dir, **kw):
+    from ..ps import get_ps_context
+
+    ctx = get_ps_context()
+    ctx.init_server()
+    if model_dir:
+        ctx.load_persistables(model_dir[0])
+    return ctx
 
 
-init_server = run_server = init_worker = stop_worker = save_persistables = \
-    _ps_not_ported
+def run_server():
+    from ..ps import get_ps_context
+
+    return get_ps_context()
+
+
+def init_worker():
+    from ..ps import get_ps_context
+
+    get_ps_context().init_worker()
+
+
+def stop_worker():
+    from ..ps import get_ps_context
+
+    get_ps_context().stop_server()
+
+
+def save_persistables(dirname: str, *a, **kw):
+    from ..ps import get_ps_context
+
+    get_ps_context().save_persistables(dirname)

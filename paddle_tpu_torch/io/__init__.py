@@ -11,4 +11,7 @@ from .dataset import (  # noqa: F401
 from .device_prefetch import (  # noqa: F401
     DevicePrefetchIterator, prefetch_to_device,
 )
+from .slot_dataset import (  # noqa: F401
+    BoxPSDataset, InMemoryDataset, QueueDataset,
+)
 from .worker import WorkerInfo, get_worker_info  # noqa: F401

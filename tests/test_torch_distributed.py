@@ -418,12 +418,18 @@ def test_fleet_init_and_hcg_and_gradient_merge_wiring(world):
 
 
 def test_fleet_ps_functions_raise():
+    # the parameter-server mode is ported: the five functions drive the PS
+    # context as the reference's do, and none of them raises any more
     from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.ps import get_ps_context
 
-    for fn in (fleet.init_server, fleet.run_server, fleet.init_worker,
-               fleet.stop_worker):
-        with pytest.raises(NotImplementedError, match="A9"):
-            fn()
+    ctx = get_ps_context()
+    assert fleet.init_server() is ctx and ctx._running
+    assert fleet.run_server() is ctx
+    fleet.init_worker()
+    fleet.stop_worker()
+    assert not ctx._running
+    assert not hasattr(fleet, "_ps_not_ported")
 
 
 # ------------------------------------------------------------ GPT / Llama
