@@ -342,7 +342,7 @@ exits non-zero:
                tools/ps_bench.py's keys, its cold pull, hot pull and push
                rates at batch 8192; (b) examples/ps_ctr_train.py's CTR
                model (SparseEmbedding(16), Linear(32, 32), Linear(32, 1))
-               trained 40 steps at batch 8192 on ids drawn with repeats,
+               trained 20 steps at batch 8192 on ids drawn with repeats,
                the dense tower by TrainStep with SGD(0.05), from that
                table's file, held against the CPU's float64 run (losses,
                dense update, touched rows, each against float32's own
@@ -5644,7 +5644,9 @@ PS_BENCH_ITERS = 100
 # seed 0), Linear(32, 32), Linear(32, 1), BCE with logits, dense SGD 0.05
 PS_LR_SPARSE = 0.1
 PS_LR_DENSE = 0.05
-PS_STEPS = 40
+# 40 steps cut to 20: with 40 the whole smoke took 1264.5 s of its 1200 on
+# an H100 host running slow (1072.2 s on another)
+PS_STEPS = 20
 PS_WARMUP = 5               # steps before the timed median
 # a reading passes under YARD_FACTOR times the CPU float32 run's own
 # distance from the CPU float64 run (at least these floors)
@@ -6018,7 +6020,10 @@ def _ctr_held(label, path, subset, batches, state, device, faults=(),
     it too: float32's own cost), and each planted fault on ``device``,
     which must trip its gate; those runs start from ``subset``, the same
     rows of every key the batches touch."""
+    import numpy as np
     import torch
+
+    from paddle_tpu_torch.distributed.ps.table import read_table_rows
 
     clock = {}
 
@@ -6030,7 +6035,8 @@ def _ctr_held(label, path, subset, batches, state, device, faults=(),
 
     ref = timed_run("cpu_float64", subset, "cpu", torch.float64,
                     staged=staged, manual=True)
-    rows0 = _table_rows(subset, ref["keys"])
+    rows0 = read_table_rows(subset, ref["keys"])[:, :PS_DIM].astype(
+        np.float64)
     floor = _ctr_readings(timed_run("cpu_float32", subset, "cpu",
                                     torch.float32, staged=staged), ref, rows0)
     gates = _ctr_gates(floor)
@@ -6063,55 +6069,14 @@ def _ctr_held(label, path, subset, batches, state, device, faults=(),
     return out
 
 
-def _table_file(path: str):
-    """A table file's rows as a numpy record array sorted by key:
-    ``key`` and ``v`` (embedding, adagrad state, show, click)."""
-    import numpy as np
-
-    with open(path, "rb") as f:
-        magic, w, count = np.frombuffer(f.read(20), np.dtype(
-            [("m", "<u8"), ("w", "<i4"), ("n", "<u8")]))[0]
-    rec = np.fromfile(path, np.dtype([("key", "<i8"), ("v", "<f4", (w,))]),
-                      offset=20)
-    assert rec.size == count
-    return rec[np.argsort(rec["key"], kind="stable")]
-
-
-def _table_subset(path: str, keys, out: str) -> None:
-    """Write the rows of ``keys`` (each present) from the table file
-    ``path`` as a table file of their own (the same format): the whole
-    state a run over those keys can read, without loading every key."""
-    import numpy as np
-
-    rec = _table_file(path)
-    at = np.searchsorted(rec["key"], keys)
-    assert (rec["key"][at] == keys).all()
-    with open(path, "rb") as f:
-        head = np.frombuffer(f.read(20), np.dtype(
-            [("m", "<u8"), ("w", "<i4"), ("n", "<u8")])).copy()
-    head["n"] = len(keys)
-    with open(out, "wb") as f:
-        f.write(head.tobytes())
-        f.write(rec[at].tobytes())
-
-
-def _table_rows(path: str, keys):
-    """The embedding rows of ``keys`` in the table file (float64)."""
-    import numpy as np
-
-    rec = _table_file(path)
-    at = np.searchsorted(rec["key"], keys)
-    assert (rec["key"][at] == keys).all()
-    return rec["v"][at, :PS_DIM].astype(np.float64)
-
-
 def phase_ps_ctr_training(seed: int, device: str = "cuda", keys=None,
                           batch=None, steps=None, bench_iters=None) -> dict:
     """The CTR regime of examples/ps_ctr_train.py at tools/ps_bench.py's
     scale: (a) the native runtime's build seconds, a 2M-key adagrad table
     filled with ps_bench's keys and its cold pull, hot pull and push rates
-    at batch 8192; (b) the example's CTRModel (SparseEmbedding(16), the
-    dense tower through TrainStep with SGD(0.05)) trained 40 steps at batch
+    at batch 8192 (the push's also with one key in half of each batch);
+    (b) the example's CTRModel (SparseEmbedding(16), the
+    dense tower through TrainStep with SGD(0.05)) trained 20 steps at batch
     8192 on ids drawn with repeats, from that table's file, held against
     the CPU's float64 run (losses, dense update, touched rows), sound and
     with two planted faults that must trip the rows gate, its step split
@@ -6128,6 +6093,7 @@ def phase_ps_ctr_training(seed: int, device: str = "cuda", keys=None,
     import torch
 
     from paddle_tpu_torch.distributed.ps import launch_servers
+    from paddle_tpu_torch.distributed.ps.table import write_table_subset
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     cuda = device != "cpu"
@@ -6165,11 +6131,22 @@ def phase_ps_ctr_training(seed: int, device: str = "cuda", keys=None,
     path = os.path.join(tmp, "table.bin")
     t0 = time.perf_counter()
     table.save(path)
+    save_s = time.perf_counter() - t0
+    # after the save: a CTR slot's hot value, one key in half of each batch
+    # (the C++ push applies that key's repeats in order on one thread)
+    pick = np.random.default_rng(seed + 4)
+    for b in hot_batches:
+        b[pick.random(PS_BATCH) < 0.5] = universe[0]
+    t0 = time.perf_counter()
+    for b in hot_batches:
+        table.push(b, grads)
+    push_hot = PS_BATCH * bench_iters / (time.perf_counter() - t0)
     out["tables"] = dict(
         keys=keys, rows=len(table), dim=PS_DIM, optimizer="adagrad",
         batch=PS_BATCH, cold_pull_keys_per_s=cold, hot_pull_keys_per_s=hot,
         push_adagrad_keys_per_s=push,
-        save_s=time.perf_counter() - t0, file_bytes=os.path.getsize(path))
+        push_half_one_key_keys_per_s=push_hot,
+        save_s=save_s, file_bytes=os.path.getsize(path))
     del table, hot_batches
     try:
         # (b) the lookup path
@@ -6191,7 +6168,7 @@ def phase_ps_ctr_training(seed: int, device: str = "cuda", keys=None,
                 1].max()))
         t0 = time.perf_counter()
         subset = os.path.join(tmp, "touched.bin")
-        _table_subset(path, np.unique(flat), subset)
+        write_table_subset(path, np.unique(flat), subset)
         out["batches"]["subset_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         look = _ctr_held("b", path, subset, batches, state, device,
@@ -6247,6 +6224,8 @@ def _ctr_serving(run, seed, batch, tmp, device) -> dict:
     import numpy as np
     import torch
 
+    from paddle_tpu_torch.distributed.ps.table import read_table_file
+
     model, table, keys = run["model"], run["table"], run["keys"]
     rng = np.random.default_rng(seed)
     users, items = (keys[(rng.random(batch) ** 2 * keys.size)
@@ -6267,7 +6246,7 @@ def _ctr_serving(run, seed, batch, tmp, device) -> dict:
         finite = bool(torch.isfinite(logits).all())
     ms = (time.perf_counter() - t0) * 1e3
     table.save(after)
-    a, b = _table_file(before), _table_file(after)
+    a, b = read_table_file(before), read_table_file(after)
     show = PS_DIM * 2          # adagrad: [emb, g2sum, show, click]
     served, occ = np.unique(np.concatenate([users, items]),
                             return_counts=True)

@@ -4,8 +4,9 @@
 ``python -m paddle_tpu_torch.distributed.ps.server --port 0 --embed-dim 8 ...``
 prints ``PORT <p>`` once bound, then serves until a client sends STOP
 (the reference's ``fleet.init_server(); fleet.run_server()`` loop,
-``the_one_ps.py``). It imports neither torch nor anything that touches the
-card: only the native library and numpy."""
+``the_one_ps.py``). The package's import brings torch in, but the server
+never initialises CUDA: it serves the native library's table over its
+socket."""
 from __future__ import annotations
 
 import argparse

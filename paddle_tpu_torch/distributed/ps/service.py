@@ -34,7 +34,7 @@ import numpy as np
 
 from ... import native
 from ..resilience import RetryPolicy, fault_point
-from .table import MemorySparseTable, SparseAccessorConfig, serial_rounds
+from .table import MemorySparseTable, SparseAccessorConfig
 
 __all__ = ["PsServer", "PsClient", "Communicator", "launch_servers"]
 
@@ -269,17 +269,8 @@ class PsClient:
 
     def push(self, keys, grads) -> None:
         """Apply the optimizer rule once per key occurrence on each key's
-        server, duplicates in batch order (:func:`.table.serial_rounds`:
-        one request per server and round)."""
-        keys = np.ascontiguousarray(np.asarray(keys).reshape(-1), np.int64)
-        grads = np.asarray(grads, np.float32).reshape(keys.size,
-                                                      self.embed_dim)
-        rounds = serial_rounds(keys)
-        if rounds is None:
-            self._push_rows(keys, grads, _OP_PUSH)
-            return
-        for sel in rounds:
-            self._push_rows(keys[sel], grads[sel], _OP_PUSH)
+        server, duplicates in batch order: one request per server."""
+        self._push_rows(keys, grads, _OP_PUSH)
 
     def push_raw(self, keys, deltas) -> None:
         """Additively merge parameter deltas, bypassing the optimizer rule

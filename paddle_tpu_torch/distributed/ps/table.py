@@ -20,40 +20,56 @@ from ... import native
 
 _OPTIMIZERS = {"sgd": 0, "adagrad": 1, "adam": 2}
 
-# the C++ push splits a batch over its worker threads in chunks of at least
-# this many keys (native/src/ps_table.cc Push -> common.h parallel_for)
-_PUSH_CHUNK = 256
+# A saved sparse table (MemorySparseTable.save; native/src/ps_table.cc
+# Save): a header of the magic, the value width and the row count, then one
+# record a row: the key and its value_width floats (embedding, optimizer
+# state, show, click).
+_FILE_MAGIC = 0x5054424C45303246
+_FILE_HEAD = np.dtype([("magic", "<u8"), ("width", "<i4"), ("count", "<u8")])
 
 
-def serial_rounds(keys: np.ndarray):
-    """Index sets that apply a batch's duplicate keys in batch order: round
-    r holds the r-th occurrence of every key that has one, in batch order.
+def read_table_file(path: str) -> np.ndarray:
+    """The rows of a saved table as a record array sorted by key: ``key``
+    and ``v``, each row's whole value. Unlike a pull, reading counts no
+    show."""
+    head = np.fromfile(path, _FILE_HEAD, count=1)
+    if head.size != 1 or head[0]["magic"] != _FILE_MAGIC:
+        raise IOError(f"not a saved sparse table: {path}")
+    width, count = int(head[0]["width"]), int(head[0]["count"])
+    rec = np.fromfile(path, np.dtype([("key", "<i8"), ("v", "<f4", (width,))]),
+                      offset=_FILE_HEAD.itemsize)
+    if rec.size != count:
+        raise IOError(f"saved table {path}: {rec.size} rows, header says "
+                      f"{count}")
+    return rec[np.argsort(rec["key"], kind="stable")]
 
-    The C++ push applies duplicates in order only within one worker's
-    chunk; across chunks their order is a race, and adagrad's result
-    depends on it (the reference's push does not repeat at batch 8192).
-    Keys are unique within a round, so pushing the rounds one after the
-    other applies each key's gradients exactly in batch order, as one
-    thread would. ``None`` when one push already does that (no duplicate,
-    or a batch small enough for one chunk)."""
-    n = keys.size
-    if n <= _PUSH_CHUNK:
-        return None
-    order = np.argsort(keys, kind="stable")
-    sk = keys[order]
-    new = np.ones(n, bool)
-    new[1:] = sk[1:] != sk[:-1]
-    if new.all():
-        return None
-    starts = np.flatnonzero(new)
-    rank_sorted = np.arange(n) - np.repeat(starts, np.diff(np.append(
-        starts, n)))
-    rank = np.empty(n, np.int64)
-    rank[order] = rank_sorted
-    by_rank = np.argsort(rank, kind="stable")
-    bounds = np.searchsorted(rank[by_rank], np.arange(rank_sorted.max() + 2))
-    return [by_rank[bounds[r]:bounds[r + 1]]
-            for r in range(rank_sorted.max() + 1)]
+
+def _rows_at(rec: np.ndarray, keys) -> np.ndarray:
+    keys = np.asarray(keys, np.int64).reshape(-1)
+    at = np.minimum(np.searchsorted(rec["key"], keys), max(rec.size - 1, 0))
+    if rec.size == 0 or not (rec["key"][at] == keys).all():
+        raise KeyError("a key is not in the saved table")
+    return at
+
+
+def read_table_rows(path: str, keys) -> np.ndarray:
+    """The whole values of ``keys`` (each present) in the saved table
+    ``path``, in the keys' order: ``[len(keys), value_width]`` float32."""
+    rec = read_table_file(path)
+    return rec["v"][_rows_at(rec, keys)]
+
+
+def write_table_subset(path: str, keys, out: str) -> None:
+    """Save the rows of ``keys`` (each present, unique) of the saved table
+    ``path`` as a table of their own in ``out``: the whole state a run over
+    those keys reads, loadable without loading every key."""
+    rec = read_table_file(path)
+    sub = rec[_rows_at(rec, keys)]
+    head = np.array([(_FILE_MAGIC, sub.dtype["v"].shape[0], sub.size)],
+                    _FILE_HEAD)
+    with open(out, "wb") as f:
+        f.write(head.tobytes())
+        f.write(sub.tobytes())
 
 
 @dataclass
@@ -117,19 +133,11 @@ class MemorySparseTable:
 
     def push(self, keys, grads) -> None:
         """Apply the optimizer rule once per key occurrence, duplicates in
-        batch order (:func:`serial_rounds`)."""
+        batch order (the C++ push applies each shard's keys on one thread,
+        in order)."""
         keys = np.ascontiguousarray(np.asarray(keys).reshape(-1), np.int64)
         grads = np.ascontiguousarray(
             np.asarray(grads, np.float32).reshape(keys.size, self.embed_dim))
-        rounds = serial_rounds(keys)
-        if rounds is None:
-            self._push(keys, grads)
-            return
-        for sel in rounds:
-            self._push(np.ascontiguousarray(keys[sel]),
-                       np.ascontiguousarray(grads[sel]))
-
-    def _push(self, keys, grads) -> None:
         self._lib.pt_table_push(self._h, native.as_i64_ptr(keys),
                                 native.as_f32_ptr(grads), keys.size)
 

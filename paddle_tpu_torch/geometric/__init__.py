@@ -6,8 +6,9 @@ Reference parity: ``python/paddle/geometric/`` (``message_passing/send_recv.py``
 (``python/paddle/incubate/operators/graph_send_recv.py``,
 ``graph_sample_neighbors.py:28``, ``graph_reindex.py:28``,
 ``graph_khop_sampler.py:21``). Aggregation is a scatter-reduce on the
-ids' device (differentiable); samplers run in the native C++ CSR store or
-over in-memory CSC arrays, returning padded static shapes.
+ids' device (``cuda`` when no argument is a tensor; differentiable);
+samplers run in the native C++ CSR store or over in-memory CSC arrays,
+returning padded static shapes.
 """
 from .message_passing import (segment_max, segment_mean, segment_min,
                               segment_pool, segment_sum, send_u_recv,

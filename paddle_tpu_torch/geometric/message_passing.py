@@ -7,6 +7,11 @@ Reference parity: ``python/paddle/geometric/message_passing/send_recv.py``
 scatter-reduce). Here the reduction is ``index_add`` / ``scatter_reduce``
 on the device of the ids, differentiable through autograd.
 
+Each function runs on ``device`` when it is given, else on the device of
+its first tensor argument (the ids first); with no tensor among them (numpy
+ids and features, as the samplers return) ``device=None`` means ``cuda``,
+and it raises without one unless ``device="cpu"``.
+
 The JAX reference's index rules are kept: a gather index is wrapped once
 if negative and clamped into range (XLA's gather), a segment id outside
 ``[0, num_segments)`` is dropped (XLA's scatter), an empty segment gives 0
@@ -16,6 +21,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import default_device
 
 __all__ = ["send_u_recv", "send_ue_recv", "send_uv", "segment_pool",
            "segment_sum", "segment_mean", "segment_min", "segment_max"]
@@ -28,12 +35,14 @@ _COMBINE = {
 }
 
 
-def _device_of(*vals) -> torch.device:
-    """The device of the first tensor among ``vals`` (the ids first)."""
-    for v in vals:
-        if isinstance(v, torch.Tensor):
-            return v.device
-    return torch.device("cpu")
+def _device_of(device, *vals) -> torch.device:
+    """``device`` if given, else the device of the first tensor among
+    ``vals`` (the ids first), else the default device (``cuda``)."""
+    if device is None:
+        for v in vals:
+            if isinstance(v, torch.Tensor):
+                return v.device
+    return default_device(device)
 
 
 def _tensor(v, device) -> torch.Tensor:
@@ -87,12 +96,12 @@ def _segment_reduce(msg, dst, num_segments, pool_type):
 
 
 def send_u_recv(x, src_index, dst_index, reduce_op: str = "sum",
-                out_size=None):
+                out_size=None, device=None):
     """Gather ``x[src]``, scatter-reduce onto ``dst``: one GNN hop.
 
     Empty destination segments yield 0 (the reference's ``graph_send_recv``
     semantics, for max and min too)."""
-    device = _device_of(dst_index, src_index, x)
+    device = _device_of(device, dst_index, src_index, x)
     x = _tensor(x, device)
     src_index = _tensor(src_index, device)
     dst_index = _tensor(dst_index, device)
@@ -101,10 +110,10 @@ def send_u_recv(x, src_index, dst_index, reduce_op: str = "sum",
 
 
 def send_ue_recv(x, e, src_index, dst_index, message_op: str = "add",
-                 reduce_op: str = "sum", out_size=None):
+                 reduce_op: str = "sum", out_size=None, device=None):
     """Like :func:`send_u_recv` but combines node features with edge
     features first: ``combine(x[src], e)`` then reduce onto dst."""
-    device = _device_of(dst_index, src_index, x, e)
+    device = _device_of(device, dst_index, src_index, x, e)
     x = _tensor(x, device)
     e = _tensor(e, device)
     src_index = _tensor(src_index, device)
@@ -116,10 +125,11 @@ def send_ue_recv(x, e, src_index, dst_index, message_op: str = "add",
     return _segment_reduce(msg, dst_index, n, reduce_op)
 
 
-def send_uv(x, y, src_index, dst_index, message_op: str = "add"):
+def send_uv(x, y, src_index, dst_index, message_op: str = "add",
+            device=None):
     """Edge-wise message ``combine(x[src], y[dst])`` (no reduction):
     reference ``paddle.geometric.send_uv``."""
-    device = _device_of(src_index, dst_index, x, y)
+    device = _device_of(device, src_index, dst_index, x, y)
     x = _tensor(x, device)
     y = _tensor(y, device)
     if message_op not in _COMBINE:
@@ -128,11 +138,12 @@ def send_uv(x, y, src_index, dst_index, message_op: str = "add"):
                                 _gather(y, _tensor(dst_index, device)))
 
 
-def segment_pool(x, segment_ids, pool_type: str = "sum", num_segments=None):
+def segment_pool(x, segment_ids, pool_type: str = "sum", num_segments=None,
+                 device=None):
     """Segment reduction over already-grouped rows (reference
     ``paddle.incubate.segment_sum``/``segment_mean``/...). Without
     ``num_segments`` the result has ``max(segment_ids) + 1`` rows."""
-    device = _device_of(segment_ids, x)
+    device = _device_of(device, segment_ids, x)
     x = _tensor(x, device)
     segment_ids = _tensor(segment_ids, device)
     if num_segments is not None:
@@ -142,23 +153,23 @@ def segment_pool(x, segment_ids, pool_type: str = "sum", num_segments=None):
     return _segment_reduce(x, segment_ids, n, pool_type)
 
 
-def segment_sum(data, segment_ids, name=None):
+def segment_sum(data, segment_ids, name=None, device=None):
     """``paddle.geometric.segment_sum`` (reference ``geometric/math.py:23``):
     out[i] = sum of rows whose segment id == i; result length is
     ``max(segment_ids) + 1``."""
-    return segment_pool(data, segment_ids, "sum")
+    return segment_pool(data, segment_ids, "sum", device=device)
 
 
-def segment_mean(data, segment_ids, name=None):
+def segment_mean(data, segment_ids, name=None, device=None):
     """``paddle.geometric.segment_mean``; empty segments yield 0."""
-    return segment_pool(data, segment_ids, "mean")
+    return segment_pool(data, segment_ids, "mean", device=device)
 
 
-def segment_min(data, segment_ids, name=None):
+def segment_min(data, segment_ids, name=None, device=None):
     """``paddle.geometric.segment_min``; empty segments yield 0."""
-    return segment_pool(data, segment_ids, "min")
+    return segment_pool(data, segment_ids, "min", device=device)
 
 
-def segment_max(data, segment_ids, name=None):
+def segment_max(data, segment_ids, name=None, device=None):
     """``paddle.geometric.segment_max``; empty segments yield 0."""
-    return segment_pool(data, segment_ids, "max")
+    return segment_pool(data, segment_ids, "max", device=device)

@@ -1,8 +1,11 @@
 """The host runtime in C++: sparse tables, the PS and graph services, the
 graph store and the slot feed (port of ``paddle_tpu/native/__init__.py``).
 
-The sources under ``src/`` are the reference's, byte for byte, so a table
-file, a wire frame or a sample is the same from either package. They
+The sources under ``src/`` are the reference's, byte for byte, except
+that ``ps_table.cc`` applies a push's keys shard by shard, each shard's in
+batch order on one thread (the reference splits a push into chunks over
+its threads, so duplicate keys in two chunks apply in a racing order). A
+table file, a wire frame or a sample is the same from either package. They
 compile with ``g++`` on first use into one shared library under
 ``build/native/`` at the repository root, bound with ctypes. The library's
 file name carries a digest of the sources and the flags: an edited source
@@ -24,11 +27,12 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SRC_DIR", "BUILD_DIR", "CXX_FLAGS", "library_path", "build",
+__all__ = ["SRC_DIR", "BUILD_DIR", "CXX", "CXX_FLAGS", "library_path", "build",
            "get_lib", "as_i64_ptr", "as_i32_ptr", "as_f32_ptr"]
 
 SRC_DIR = Path(__file__).resolve().parent / "src"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
+CXX = "g++"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
 
 _lock = threading.Lock()
@@ -49,13 +53,12 @@ def library_path() -> Path:
 
 
 def _compiler() -> str:
-    cxx = os.environ.get("CXX") or "g++"
-    found = shutil.which(cxx)
+    found = shutil.which(CXX)
     if found is None:
         raise RuntimeError(
-            f"native build: C++ compiler {cxx!r} not found; the runtime "
-            f"compiles on first use with `{cxx} {' '.join(CXX_FLAGS)} "
-            f"-o {library_path()} {SRC_DIR}/*.cc` (set CXX)")
+            f"native build: C++ compiler {CXX!r} not found; the runtime "
+            f"compiles on first use with `{CXX} {' '.join(CXX_FLAGS)} "
+            f"-o {library_path()} {SRC_DIR}/*.cc`")
     return found
 
 

@@ -104,50 +104,35 @@ class SparseTable {
     }, 256);
   }
 
-  // Apply grads for n keys. Duplicate keys within the batch are applied in
-  // order (shard mutex serializes). grads[n * dim].
+  // Apply grads for n keys. grads[n * dim]. Each shard's keys are applied
+  // by one thread in batch order, so duplicate keys within the batch apply
+  // serially in that order and a push is deterministic.
   void Push(const int64_t* keys, const float* grads, int64_t n) {
-    ptn::parallel_for(static_cast<size_t>(n), [&](size_t lo, size_t hi) {
-      for (size_t i = lo; i < hi; ++i) {
-        int64_t key = keys[i];
-        Shard& sh = shards_[shard_of(key)];
-        std::lock_guard<std::mutex> g(sh.mu);
-        float* v = FindOrInit(sh, key);
-        ApplyRule(v, grads + i * cfg_.dim);
-      }
-    }, 256);
+    ForEachByShard(keys, n, [&](Shard& sh, size_t i) {
+      ApplyRule(FindOrInit(sh, keys[i]), grads + i * cfg_.dim);
+    });
   }
 
   // Add raw deltas to embeddings, bypassing the optimizer rule — the geo
   // communicator ships locally-trained parameter deltas, which servers
   // merge additively (GeoCommunicator, communicator.h:596).
   void PushRaw(const int64_t* keys, const float* deltas, int64_t n) {
-    ptn::parallel_for(static_cast<size_t>(n), [&](size_t lo, size_t hi) {
-      for (size_t i = lo; i < hi; ++i) {
-        int64_t key = keys[i];
-        Shard& sh = shards_[shard_of(key)];
-        std::lock_guard<std::mutex> g(sh.mu);
-        float* v = FindOrInit(sh, key);
-        const float* d = deltas + i * cfg_.dim;
-        for (int32_t j = 0; j < cfg_.dim; ++j) v[j] += d[j];
-      }
-    }, 256);
+    ForEachByShard(keys, n, [&](Shard& sh, size_t i) {
+      float* v = FindOrInit(sh, keys[i]);
+      const float* d = deltas + i * cfg_.dim;
+      for (int32_t j = 0; j < cfg_.dim; ++j) v[j] += d[j];
+    });
   }
 
   // Accumulate CTR usage statistics: sc[2*i] shows, sc[2*i+1] clicks per
   // key (the reference pushes these alongside gradients; here they ride a
   // dedicated op).
   void PushShowClick(const int64_t* keys, const float* sc, int64_t n) {
-    ptn::parallel_for(static_cast<size_t>(n), [&](size_t lo, size_t hi) {
-      for (size_t i = lo; i < hi; ++i) {
-        int64_t key = keys[i];
-        Shard& sh = shards_[shard_of(key)];
-        std::lock_guard<std::mutex> g(sh.mu);
-        float* v = FindOrInit(sh, key);
-        v[show_offset()] += sc[2 * i];
-        v[show_offset() + 1] += sc[2 * i + 1];
-      }
-    }, 256);
+    ForEachByShard(keys, n, [&](Shard& sh, size_t i) {
+      float* v = FindOrInit(sh, keys[i]);
+      v[show_offset()] += sc[2 * i];
+      v[show_offset() + 1] += sc[2 * i + 1];
+    });
   }
 
   // Size/Keys/Save/Load/Clear take each shard's mutex: they may run from
@@ -293,6 +278,40 @@ class SparseTable {
   }
 
  private:
+  // fn(shard, i) for every i < n, under the shard's mutex. Keys are grouped
+  // by shard (a stable counting sort), and each shard's keys are visited in
+  // batch order by one worker thread, the shards spread over the workers.
+  // A batch of at most 256 keys runs on the calling thread.
+  template <class Fn>
+  void ForEachByShard(const int64_t* keys, int64_t n, Fn&& fn) {
+    if (n <= 256) {
+      for (int64_t i = 0; i < n; ++i) {
+        Shard& sh = shards_[shard_of(keys[i])];
+        std::lock_guard<std::mutex> g(sh.mu);
+        fn(sh, static_cast<size_t>(i));
+      }
+      return;
+    }
+    const size_t ns = shards_.size();
+    std::vector<uint32_t> sid(static_cast<size_t>(n));
+    std::vector<size_t> start(ns + 1, 0);
+    for (int64_t i = 0; i < n; ++i) {
+      sid[i] = static_cast<uint32_t>(shard_of(keys[i]));
+      ++start[sid[i] + 1];
+    }
+    for (size_t s = 0; s < ns; ++s) start[s + 1] += start[s];
+    std::vector<size_t> order(static_cast<size_t>(n));
+    std::vector<size_t> fill(start.begin(), start.end() - 1);
+    for (int64_t i = 0; i < n; ++i) order[fill[sid[i]]++] = static_cast<size_t>(i);
+    ptn::parallel_for(ns, [&](size_t lo, size_t hi) {
+      for (size_t s = lo; s < hi; ++s) {
+        Shard& sh = shards_[s];
+        std::lock_guard<std::mutex> g(sh.mu);
+        for (size_t j = start[s]; j < start[s + 1]; ++j) fn(sh, order[j]);
+      }
+    }, 1);
+  }
+
   // [show, click] sit at the tail, before Adam's [beta1^t, beta2^t].
   int32_t show_offset() const { return value_width() - 2 - (cfg_.optimizer == kAdam ? 2 : 0); }
 

@@ -36,7 +36,7 @@ def test_send_u_recv_sum_mean():
     out = G.send_u_recv(torch.as_tensor(x), torch.as_tensor(src),
                         torch.as_tensor(dst), "sum")
     np.testing.assert_allclose(_np(out), [[1, 2], [6, 8], [3, 4]])
-    out = G.send_u_recv(x, src, dst, "mean")
+    out = G.send_u_recv(x, src, dst, "mean", device="cpu")
     np.testing.assert_allclose(_np(out), [[1, 2], [3, 4], [3, 4]])
     np.testing.assert_array_equal(_np(out), _np(JGeo.send_u_recv(
         x, src, dst, "mean")))
@@ -77,6 +77,39 @@ def test_send_u_recv_differentiable():
                 jnp.asarray(xv))
         np.testing.assert_allclose(_np(xt.grad), np.asarray(jg), **TOL,
                                    err_msg=op)
+
+
+_NUMPY_CALLS = {
+    "send_u_recv": lambda x, i, **kw: G.send_u_recv(x, i, i, "max", **kw),
+    "send_ue_recv": lambda x, i, **kw: G.send_ue_recv(x, x, i, i, "mul",
+                                                      "mean", **kw),
+    "send_uv": lambda x, i, **kw: G.send_uv(x, x, i, i, "sub", **kw),
+    "segment_pool": lambda x, i, **kw: G.segment_pool(x, i, "min", **kw),
+    "segment_sum": lambda x, i, **kw: G.segment_sum(x, i, **kw),
+    "segment_mean": lambda x, i, **kw: G.segment_mean(x, i, **kw),
+    "segment_min": lambda x, i, **kw: G.segment_min(x, i, **kw),
+    "segment_max": lambda x, i, **kw: G.segment_max(x, i, **kw),
+}
+
+
+@pytest.mark.parametrize("fn", sorted(_NUMPY_CALLS))
+def test_numpy_inputs_run_on_the_default_device(fn):
+    """With no tensor among its arguments (numpy features and ids, as the
+    samplers return them) a function runs on ``cuda``, and without a card
+    it raises and names ``device='cpu'``; given a device it runs there; a
+    tensor argument's device wins when no device is given."""
+    call = _NUMPY_CALLS[fn]
+    x = np.asarray([[1.0, 2.0], [3.0, 4.0], [5.0, 6.0]], np.float32)
+    ids = np.asarray([0, 1, 1])
+    if torch.cuda.is_available():
+        assert call(x, ids).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call(x, ids)
+    got = call(x, ids, device="cpu")
+    assert got.device.type == "cpu"
+    np.testing.assert_array_equal(
+        _np(call(torch.as_tensor(x), torch.as_tensor(ids))), _np(got))
 
 
 def test_sample_neighbors_csc():
@@ -151,12 +184,14 @@ def test_reductions_match_reference(op):
                         torch.as_tensor(dst), op, out_size=16),
           JGeo.send_u_recv(x, src, dst, op, out_size=16), "send_u_recv")
     for mop in ("add", "sub", "mul", "div"):
-        check(G.send_ue_recv(x, e, src, dst, mop, op, out_size=16),
+        check(G.send_ue_recv(x, e, src, dst, mop, op, out_size=16,
+                             device="cpu"),
               JGeo.send_ue_recv(x, e, src, dst, mop, op, out_size=16), mop)
     ids = np.sort(rng.integers(0, 7, 20))
-    check(G.segment_pool(x, ids, op), JGeo.segment_pool(x, ids, op),
+    check(G.segment_pool(x, ids, op, device="cpu"),
+          JGeo.segment_pool(x, ids, op),
           "segment_pool")
-    check(getattr(G, f"segment_{op}")(x, ids),
+    check(getattr(G, f"segment_{op}")(x, ids, device="cpu"),
           getattr(JGeo, f"segment_{op}")(x, ids), f"segment_{op}")
     xi = rng.integers(-50, 50, (20, 3)).astype(np.int32)
     got = G.segment_pool(torch.as_tensor(xi), ids, op, num_segments=9)
@@ -165,7 +200,7 @@ def test_reductions_match_reference(op):
         np.testing.assert_allclose(_np(got), want, **TOL)
     else:
         np.testing.assert_array_equal(_np(got), want)
-    uv = G.send_uv(x, x * 2, src, src[::-1], "mul")
+    uv = G.send_uv(x, x * 2, src, src[::-1], "mul", device="cpu")
     np.testing.assert_allclose(_np(uv), np.asarray(JGeo.send_uv(
         x, x * 2, src, src[::-1], "mul")), **TOL)
 

@@ -26,7 +26,11 @@ import pytest
 import torch
 
 from paddle_tpu.distributed import ps as J
+from paddle_tpu_torch import native
 from paddle_tpu_torch.distributed import ps as P
+from paddle_tpu_torch.distributed.ps.table import (read_table_file,
+                                                   read_table_rows,
+                                                   write_table_subset)
 
 TOL = dict(rtol=1e-5, atol=1e-7)
 
@@ -135,6 +139,93 @@ def test_large_push_applies_duplicates_in_batch_order():
         serial.push([k], row[None])
     np.testing.assert_array_equal(got[0], got[1])
     np.testing.assert_array_equal(got[0], serial.pull(np.arange(500)))
+
+
+class _CountedLib:
+    """The native library seen through one table: counts its push calls."""
+
+    def __init__(self, lib):
+        self.lib, self.pushes = lib, 0
+
+    def __getattr__(self, name):
+        if name.startswith("pt_table_push"):
+            self.pushes += 1
+        return getattr(self.lib, name)
+
+
+@pytest.mark.parametrize("op", ["push", "push_raw"])
+def test_hot_key_push_is_one_call_in_batch_order(op):
+    """A CTR slot's hot value: one key in half of a batch of 65536 (large
+    enough that the reference's chunks, racing over its threads, apply the
+    hot key in another order on most runs on an 8-core host). The port's
+    push is one call into the C++ table, which applies each shard's keys on
+    one thread in batch order: it repeats bit for bit and equals the
+    reference's table fed one row at a time (adagrad's rule, and the
+    additive delta merge of ``push_raw``, depend on that order)."""
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 2 ** 40, 65536)
+    keys[rng.random(65536) < 0.5] = 12345
+    g = rng.standard_normal((65536, 4)).astype(np.float32)
+    uniq = np.unique(keys)
+    got = []
+    for _ in range(3):
+        t = P.MemorySparseTable(_cfg(P, "adagrad"))
+        t._lib = lib = _CountedLib(t._lib)
+        getattr(t, op)(keys, g)
+        assert lib.pushes == 1
+        got.append(t.pull(uniq))
+    serial = J.MemorySparseTable(_cfg(J, "adagrad"))
+    for k, row in zip(keys, g):
+        getattr(serial, op)([k], row[None])
+    for other in got[1:]:
+        np.testing.assert_array_equal(got[0], other)
+    np.testing.assert_array_equal(got[0], serial.pull(uniq))
+
+
+def test_table_file_helpers(tmp_path):
+    """``read_table_file``, ``read_table_rows`` and ``write_table_subset``
+    read the file both packages save (counting no show, as a pull would),
+    and a subset loads in either package as exactly the rows it names."""
+    tabs = make_tables("adagrad")
+    keys = np.arange(50, dtype=np.int64) * 3
+    g = np.random.default_rng(2).normal(size=(50, 4)).astype(np.float32)
+    for t in tabs:
+        t.push(keys, g)
+    path = str(tmp_path / "ref.bin")
+    tabs[1].save(path)
+    rec = read_table_file(path)
+    assert rec["key"].tolist() == keys.tolist()
+    assert rec["v"].shape == (50, 2 * 4 + 2)
+    ask = np.asarray([147, 0, 9], np.int64)
+    rows = read_table_rows(path, ask)
+    np.testing.assert_array_equal(rows, read_table_rows(path, ask))
+    np.testing.assert_array_equal(rows[:, :4], tabs[0].pull(ask))
+    assert (rows[:, 8] == 0).all()              # pushes count no show
+    with pytest.raises(KeyError):
+        read_table_rows(path, [1])
+    sub = str(tmp_path / "sub.bin")
+    write_table_subset(path, ask, sub)
+    for mod in (P, J):
+        t = mod.MemorySparseTable(_cfg(mod, "adagrad"))
+        t.load(sub)
+        assert len(t) == 3
+        np.testing.assert_array_equal(t.pull(ask), rows[:, :4])
+    again = str(tmp_path / "again.bin")
+    tabs[0].save(again)                         # after the pull above
+    np.testing.assert_array_equal(read_table_rows(again, ask)[:, 8], 1)
+    with pytest.raises(IOError):
+        read_table_file(str(tmp_path / "sub.bin.missing"))
+
+
+def test_native_build_names_the_command_without_a_compiler(monkeypatch,
+                                                           tmp_path):
+    """No compiler: the build raises and names the command it would run,
+    and publishes nothing."""
+    monkeypatch.setattr(native, "CXX", "no-such-cxx")
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="no-such-cxx -O3 -std=c"):
+        native.build()
+    assert not list(tmp_path.glob("*.so"))
 
 
 def test_save_load_roundtrip(tmp_path):

@@ -88,6 +88,30 @@ def test_push_parity_and_routing(cluster):
     assert 0 < sid.sum() < sid.size
 
 
+def test_hot_key_push_is_one_request_per_server(cluster, monkeypatch):
+    """One key in half of a batch of 65536: the client's push is one
+    request per server, and each server's table applies its keys in batch
+    order, so the rows equal the reference's table fed one row at a
+    time."""
+    rng = np.random.default_rng(6)
+    keys = rng.integers(2 ** 41, 2 ** 42, 65536)
+    keys[rng.random(65536) < 0.5] = 2 ** 41 + 7
+    g = rng.normal(size=(65536, DIM)).astype(np.float32)
+    sent = []
+    real = cluster._request
+    monkeypatch.setattr(cluster, "_request",
+                        lambda s, op, *a, **kw: (sent.append(s),
+                                                 real(s, op, *a, **kw))[1])
+    cluster.push(keys, g)
+    monkeypatch.undo()
+    assert sorted(sent) == [0, 1]
+    serial = make_local(J)
+    for k, row in zip(keys, g):
+        serial.push([k], row[None])
+    uniq = np.unique(keys)
+    np.testing.assert_array_equal(cluster.pull(uniq), serial.pull(uniq))
+
+
 def test_size_keys_save_load(cluster, tmp_path):
     before = len(cluster)
     cluster.pull(np.arange(5000, 5010))
