@@ -6734,9 +6734,11 @@ def _primary_config(**overrides):
     return GPTConfig(**cfg)
 
 
-def _primary_net(cfg, seed: int, device: str = "cuda"):
+def _primary_net(cfg, seed: int, device: str = "cuda", bind: bool = False):
     """A seeded GPT under bf16 O2 with the bench's AdamW; the global seed
-    (the step's base seed) is reset too, so two builds train alike."""
+    (the step's base seed) is reset too, so two builds train alike. With
+    ``bind`` the optimizer is bound to the model (``parameters=net``), for
+    the stateful ``opt.step()`` of the dygraph loop."""
     import torch
 
     from paddle_tpu_torch import amp
@@ -6747,7 +6749,8 @@ def _primary_net(cfg, seed: int, device: str = "cuda"):
     framework_random.seed(seed)
     net = GPTForCausalLM(cfg, device=device, generator=torch.Generator(
         device=device).manual_seed(seed)).train()
-    return amp.decorate(net, AdamW(learning_rate=1e-4, weight_decay=0.01),
+    return amp.decorate(net, AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                   parameters=net if bind else None),
                         level="O2", dtype="bfloat16")
 
 
@@ -7287,6 +7290,259 @@ def _hb_rows(seed: int, n: int, vocab: int):
     lengths = rng.integers(BERT_MIN_LEN, BERT_SEQ + 1, n)
     return [(rng.integers(1, vocab, int(L)).astype(np.int64),
              np.int64(rng.integers(0, 2))) for L in lengths]
+
+
+# --------------------------------------------------------------------------
+# the dygraph front door: GPT-350M trained by loss.backward(), the ops, the
+# eager tape
+# --------------------------------------------------------------------------
+
+# four steps, not six: the whole smoke passed 1100 s with six (1112.1 s on
+# a slow host, the phase 16.3 s of it), and this phase's steps go first
+EAGER_STEPS = 4
+EAGER_PATH = ("training (GPT-350M bf16 O2 through the dygraph loop: "
+              "to_tensor, loss.backward(), opt.step(), opt.clear_grad())")
+# bf16 O2: the losses of the eager loop and TrainStep at the distributed
+# tests' rtol; parameters (when not bit-equal) within what EAGER_STEPS
+# AdamW steps of lr 1e-4 taken the other way could part them (2 lr a step)
+# plus a bf16 ulp of a weight near 0.1
+EAGER_LOSS_RTOL = 2e-2
+EAGER_PARAM_ATOL = 2 * EAGER_STEPS * 1e-4 + 2 ** -10
+
+
+def _eager_gpt_run(cfg, batches, seed, device, fa, eager_loop: bool):
+    """EAGER_STEPS steps of a seeded bf16 O2 GPT on ``batches``: the dygraph
+    loop (``loss = net(paddle.to_tensor(ids), ...)``, ``loss.backward()``,
+    ``opt.step()``, ``opt.clear_grad()``, the optimizer bound to the
+    model) or a TrainStep. Returns losses, step times, launches per step,
+    attention calls, peak memory and the final parameters."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework.jit import TrainStep
+    from paddle_tpu_torch.models import gpt as gpt_mod
+
+    net, opt = _primary_net(cfg, seed, device, bind=eager_loop)
+    step = None if eager_loop else TrainStep(net, opt, loss_fn=None)
+    calls = [0]
+    attend = gpt_mod.causal_attention
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return attend(*args, **kwargs)
+
+    cuda = device == "cuda"
+    losses, ms, per_step = [], [], []
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+    gpt_mod.causal_attention = counted
+    try:
+        for ids in batches:
+            before = _counts(fa) if cuda else None
+            _sync(device)
+            t0 = time.perf_counter()
+            if eager_loop:
+                x = paddle.to_tensor(ids)
+                loss = net(x, x)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+            else:
+                loss = step((ids, ids))
+            losses.append(float(loss.detach()))
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if cuda:
+                per_step.append(tuple(a - b for a, b in
+                                      zip(_counts(fa), before)))
+    finally:
+        gpt_mod.causal_attention = attend
+    if eager_loop and any(p.grad is not None for p in net.parameters()):
+        raise AssertionError("eager_training: opt.clear_grad() left a "
+                             "gradient")
+    params = {k: p.detach().clone() for k, p in net.named_parameters()}
+    out = dict(losses=losses, step_ms=ms,
+               step_ms_median=float(np.median(ms[1:])), per_step=per_step,
+               launches=_counts(fa) if cuda else None,
+               attention_calls=calls[0],
+               peak_mem_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                             if cuda else None))
+    del net, opt, step
+    _free() if cuda else gc.collect()
+    return out, params
+
+
+def _eager_ops_on_card(device: str) -> dict:
+    """Every case of the ops' CPU parity table on ``device`` against the
+    port's CPU result at the per-dtype tolerance (factorizations by their
+    reconstructions), and every random op's seeded replay, range and
+    moments on ``device``."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import torch_op_cases as C
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import ops as P
+
+    checked = 0
+    try:
+        for name, spec in C.CASES:
+            args, kw = spec(C.G(name))
+            if name in C.FACTORS:
+                paddle.set_device(device)
+                got = C.call_port_factors(name, args, kw, device)
+                paddle.set_device("cpu")
+                C.factors_check(name, args, got,
+                                C.call_port_factors(name, args, kw, "cpu"))
+            else:
+                paddle.set_device(device)
+                got = getattr(P, name)(*C.to_torch(args, device), **kw)
+                paddle.set_device("cpu")
+                want = getattr(P, name)(*C.to_torch(args, "cpu"), **kw)
+                C.compare(got, want, f"{name} on {device}")
+            checked += 1
+        paddle.set_device(device)
+        for name in C.RANDOM:
+            C.check_random(name, device)
+    finally:
+        paddle.set_device(device)
+    return dict(op_cases=checked, random_ops=len(C.RANDOM))
+
+
+def _eager_tape_on_card(device: str) -> dict:
+    """PyLayer, paddle.grad and a tensor hook on ``device`` tensors."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import eager
+
+    class Cube(eager.PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return x * x * x
+
+        @staticmethod
+        def backward(ctx, dy):
+            (x,) = ctx.saved_tensor()
+            return dy * 3 * x * x
+
+    data = [0.5, -1.0, 2.0]
+    x = paddle.to_tensor(data, stop_gradient=False)
+    y = Cube.apply(x)
+    seen = []
+    y.register_hook(lambda g: (seen.append(g.numpy().copy()), g * 2)[1])
+    (y * 3).sum().backward()
+    want = torch.tensor([2 * 3 * 3 * v * v for v in data])
+    if x.grad.device.type != torch.device(device).type or len(seen) != 1 \
+            or not torch.allclose(x.grad.cpu(), want):
+        raise AssertionError(f"eager_training: PyLayer and hook on "
+                             f"{device}: grad {x.grad}, hook calls {seen}")
+    z = paddle.to_tensor(data, stop_gradient=False)
+    (gz,) = paddle.grad([(z * z).sum()], [z])
+    if not torch.allclose(gz._data.cpu(),
+                          torch.tensor([2 * v for v in data])) \
+            or z.grad is not None:
+        raise AssertionError(f"eager_training: paddle.grad on {device}: "
+                             f"{gz}")
+    return dict(pylayer_grad=x.grad.cpu().tolist(), hook_calls=len(seen),
+                partial_grad=gz._data.cpu().tolist())
+
+
+def phase_eager_training(seed: int, device: str = "cuda", cfg=None,
+                         steps: int = EAGER_STEPS) -> dict:
+    """The dygraph front door on the card: (a) bench_gpt_primary's
+    GPT-350M trained by ``loss.backward()`` against TrainStep on the same
+    seeded weights and batches (losses, parameters, the bf16 D = 64
+    kernels' launches a step, no plain attention, the eager step's time
+    against TrainStep's, peak memory); (b) the ops' parity table on the
+    card against the port's CPU results, and the random ops' replay and
+    moments there; (c) PyLayer, paddle.grad and a hook on card tensors."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as paddle
+
+    t_start = time.perf_counter()
+    cuda = device == "cuda"
+    fa = None
+    if cuda:
+        from paddle_tpu_torch.kernels import flash_attention as fa
+    leftover = _check_freed("eager_training") if cuda else None
+    paddle.set_device(device)
+    cfg = cfg or _primary_config()
+    # one batch repeated, so that the losses fall within a few steps
+    ids = np.random.default_rng(seed + 24).integers(
+        0, cfg.vocab_size, (HF_BATCH, HF_SEQ))
+    batches = [ids] * steps
+    eager_run, eager_params = _eager_gpt_run(cfg, batches, seed, device, fa,
+                                             eager_loop=True)
+    step_run, step_params = _eager_gpt_run(cfg, batches, seed, device, fa,
+                                           eager_loop=False)
+    losses, ref = eager_run["losses"], step_run["losses"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    bit_equal = losses == ref and all(
+        torch.equal(eager_params[k], step_params[k]) for k in step_params)
+    param_err = max(float((eager_params[k].float() - step_params[k].float())
+                          .abs().max()) for k in step_params)
+    del eager_params, step_params
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"eager_training: losses {losses}: not finite "
+                             f"or not falling")
+    if loss_err > EAGER_LOSS_RTOL or param_err > EAGER_PARAM_ATOL:
+        raise AssertionError(
+            f"eager_training: the dygraph loop against TrainStep: loss "
+            f"rel err {loss_err} (limit {EAGER_LOSS_RTOL}), parameter abs "
+            f"err {param_err} (limit {EAGER_PARAM_ATOL}); losses {losses} "
+            f"vs {ref}")
+    layers = cfg.num_layers
+    for run in (eager_run, step_run):
+        if run["attention_calls"] != layers * steps:
+            raise AssertionError(f"eager_training: {run['attention_calls']}"
+                                 f" attention calls in {steps} steps of "
+                                 f"{layers} layers")
+    if cuda:
+        need = _need(fwd_wgmma=layers, dq_wgmma=layers, dkv_wgmma=layers)
+        for label, run in (("eager", eager_run), ("TrainStep", step_run)):
+            if any(c != need for c in run["per_step"]):
+                raise AssertionError(
+                    f"eager_training ({label}): launches per step "
+                    f"{_COUNT_NAMES} {run['per_step']}, expected {need} "
+                    f"every step")
+    plain = eager_run["attention_calls"] - (
+        dict(zip(_COUNT_NAMES, eager_run["launches"]))["fwd_wgmma"]
+        if cuda else 0)
+    ops = _eager_ops_on_card(device)
+    tape = _eager_tape_on_card(device)
+    seconds = time.perf_counter() - t_start
+    out = dict(model="bench_gpt_primary GPT-350M bf16 O2", path=EAGER_PATH,
+               batch=[HF_BATCH, HF_SEQ], layers=layers, steps=steps,
+               eager_losses=losses, trainstep_losses=ref,
+               losses_rel_err=loss_err, params_max_abs_err=param_err,
+               bit_equal=bit_equal, loss_rtol=EAGER_LOSS_RTOL,
+               param_atol=EAGER_PARAM_ATOL,
+               eager_step_ms=eager_run["step_ms"],
+               eager_step_ms_median=eager_run["step_ms_median"],
+               trainstep_step_ms=step_run["step_ms"],
+               trainstep_step_ms_median=step_run["step_ms_median"],
+               eager_peak_mem_gib=eager_run["peak_mem_gib"],
+               trainstep_peak_mem_gib=step_run["peak_mem_gib"],
+               launches=(dict(zip(_COUNT_NAMES, eager_run["launches"]))
+                         if cuda else None),
+               launches_per_step=dict(zip(_COUNT_NAMES, _need(
+                   fwd_wgmma=layers, dq_wgmma=layers, dkv_wgmma=layers))),
+               attention_calls=eager_run["attention_calls"],
+               plain_attention_calls=plain, **ops, **tape,
+               leftover_gib_at_start=leftover, phase_s=seconds,
+               card=nvidia_smi_line() if cuda else device)
+    if cuda and plain:
+        raise AssertionError(f"eager_training: {plain} attention calls took "
+                             f"the plain path")
+    emit("eager_training", **out)
+    return out
 
 
 def phase_hapi_bert_fit(seed: int, device: str = "cuda", cfg=None) -> dict:
@@ -8374,6 +8630,8 @@ def main(argv=None) -> int:
     _free()
     phase_hapi_bert_fit(args.seed)
     _free()
+    eager_gpt = phase_eager_training(args.seed)
+    _free()
     dist = phase_distributed_training(args.seed)
     _free()
     llama_serve = phase_llama_serving(args.seed)
@@ -8524,6 +8782,17 @@ def main(argv=None) -> int:
         bwd_row("flash_attention_bwd_dkv_sm90_d64",
                 "flash_attention_bwd_dkv_sm90.cu", "dkv", HF_BWD_CASE,
                 hapi_gpt["launches"]["dkv_wgmma"], HF_PATH),
+        # the same attention on the dygraph loop's path (eager_training:
+        # 24 of each an eager step)
+        fwd_row("flash_attention_fwd_sm90_d64_eager",
+                "flash_attention_fwd_sm90.cu", HF_FWD_CASE,
+                eager_gpt["launches"]["fwd_wgmma"], EAGER_PATH),
+        bwd_row("flash_attention_bwd_dq_sm90_d64_eager",
+                "flash_attention_bwd_dq_sm90.cu", "dq", HF_BWD_CASE,
+                eager_gpt["launches"]["dq_wgmma"], EAGER_PATH),
+        bwd_row("flash_attention_bwd_dkv_sm90_d64_eager",
+                "flash_attention_bwd_dkv_sm90.cu", "dkv", HF_BWD_CASE,
+                eager_gpt["launches"]["dkv_wgmma"], EAGER_PATH),
         # the same attention on the adapter fit's path (lora_fit: 24 of
         # each a step, the gradient reaching the qkv_proj adapters)
         fwd_row("flash_attention_fwd_sm90_d64_lora_fit",

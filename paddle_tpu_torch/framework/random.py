@@ -15,7 +15,8 @@ import threading
 from typing import Dict, Iterable
 
 __all__ = ["fold_in", "split_streams", "Generator", "seed", "next_seed",
-           "default_generator"]
+           "default_generator", "next_key", "get_rng_state",
+           "set_rng_state"]
 
 _M64 = 2 ** 64 - 1
 
@@ -56,6 +57,16 @@ class Generator:
             n, self._count = self._count, self._count + 1
         return fold_in(self._seed, n)
 
+    def get_state(self):
+        """``(seed, count)``: the generator's whole state."""
+        with self._lock:
+            return (self._seed, self._count)
+
+    def set_state(self, state) -> None:
+        seed_value, count = state
+        with self._lock:
+            self._seed, self._count = int(seed_value), int(count)
+
 
 _default_generator = Generator(0)
 
@@ -74,3 +85,23 @@ def next_seed() -> int:
     """A fresh seed from the global generator (eager-mode randomness)."""
     return _default_generator.next_seed()
 
+
+
+def next_key(device=None):
+    """A ``torch.Generator`` on ``device`` (default the CPU) seeded from
+    the global generator: the counterpart of the reference's fresh PRNG
+    key for one eager draw."""
+    import torch
+
+    g = torch.Generator(device=torch.device("cpu" if device is None
+                                            else device))
+    g.manual_seed(next_seed())
+    return g
+
+
+def get_rng_state():
+    return _default_generator.get_state()
+
+
+def set_rng_state(state) -> None:
+    _default_generator.set_state(state)

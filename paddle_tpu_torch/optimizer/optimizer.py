@@ -276,7 +276,15 @@ class Optimizer:
         return self
 
     def step(self, params=None, grads=None):
-        """Stateful step over the bound parameters. Returns them."""
+        """Stateful step over the bound parameters. Returns them. Bound
+        to a module (``parameters=model``), the step reads each
+        parameter's ``.grad`` (:func:`paddle_tpu_torch.eager.module_step`:
+        the dygraph loop's ``loss.backward(); opt.step()``)."""
+        if params is None and grads is None and \
+                isinstance(self._parameters, torch.nn.Module):
+            from ..eager import module_step
+
+            return module_step(self, self._parameters)
         if params is None:
             params = self._parameters
         if grads is None:
@@ -289,6 +297,10 @@ class Optimizer:
         return params
 
     def clear_grad(self, set_to_zero=True):
+        if isinstance(self._parameters, torch.nn.Module):
+            from ..eager import clear_grads
+
+            clear_grads(self._parameters)
         self._accumulated_grads = None
 
     # ------------------------------------------------------------ state dict

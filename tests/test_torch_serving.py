@@ -367,6 +367,25 @@ def test_port_imports_no_jax_or_reference_package():
                  "paddle_tpu_torch/geometric/__init__.py",
                  "paddle_tpu_torch/geometric/message_passing.py",
                  "paddle_tpu_torch/geometric/sampling.py",
+                 "paddle_tpu_torch/__init__.py",
+                 "paddle_tpu_torch/framework/dtype.py",
+                 "paddle_tpu_torch/framework/compat.py",
+                 "paddle_tpu_torch/framework/debugging.py",
+                 "paddle_tpu_torch/ops/__init__.py",
+                 "paddle_tpu_torch/ops/_common.py",
+                 "paddle_tpu_torch/ops/creation.py",
+                 "paddle_tpu_torch/ops/math.py",
+                 "paddle_tpu_torch/ops/manipulation.py",
+                 "paddle_tpu_torch/ops/linalg.py",
+                 "paddle_tpu_torch/ops/logic.py",
+                 "paddle_tpu_torch/ops/search.py",
+                 "paddle_tpu_torch/ops/stat.py",
+                 "paddle_tpu_torch/ops/random.py",
+                 "paddle_tpu_torch/ops/sequence.py",
+                 "paddle_tpu_torch/nn/__init__.py",
+                 "paddle_tpu_torch/eager/__init__.py",
+                 "paddle_tpu_torch/eager/py_layer.py",
+                 "paddle_tpu_torch/autograd/__init__.py",
                  "tools/torch_train_profile.py"):
         assert path in scanned
     bad = [(f.relative_to(REPO).as_posix(), m) for f in files
