@@ -155,7 +155,7 @@ exits non-zero:
                profiler capture of one request (serve:prefill and
                serve:decode ranges holding the kernel launches) and the
                server's 8-slot step (per-token decode spans included)
-               with tracing on and off every other step, 8 rounds of 64
+               with tracing on and off every other step, 4 rounds of 64
                pairs, and one record_span call's host time.
 8. training  - the bench's GPT-3 1.3B pretrain step (bf16 O2 AdamW,
                recompute, chunked loss, batch 2 x 1024) through TrainStep:
@@ -303,12 +303,13 @@ exits non-zero:
                bitwise unchanged, only the float32 adapter leaves in the
                step, optimizer state under a tenth of the model's bytes,
                the adapter saved and loaded back bit-equal. lora_serving:
-               the serve preset (bf16 cache) with serve_bench's adapter
+               the serve preset at 12 of its 24 layers, full width (bf16
+               cache), with serve_bench's adapter
                traffic (8 tenants of rank 4, 85 % of 24 requests, Zipf,
                max_loaded=5), after the base model alone on the same
                requests: pool-less streams equal solo generate() with the
                adapter set, pooled streams the request served alone by a
-               fresh pooled server, no failure, evictions, 24 wgmma_f32
+               fresh pooled server, no failure, evictions, 12 wgmma_f32
                D = 64 forwards per pool-less prefill and none pooled, a
                tenant's hits only on its own blocks; TTFT, ms and launches
                per decode step with and without the adapters.
@@ -363,14 +364,33 @@ exits non-zero:
                at (25, 10), reindex_graph, two hops of send_u_recv (sum,
                mean, max) on the card against the CPU, ms a hop. Each
                prints the host's CPU count beside its host rates.
+18. inference_export - the deployment path, after eager_training: (a)
+               bench_gpt_primary's GPT-350M (bf16, seeded, eval) saved
+               by jit.save with InputSpec([None, None], "int64"), loaded
+               by inference.create_predictor and run at [1, 1024] and
+               [4, 512] from one artifact: logits equal to the eager
+               model's, 24 wgmma forward launches a run from the loaded
+               program (24 operator nodes, no softmax), set_state_dict
+               changing the output; capture, write, load, first and
+               median run times and the artifact's bytes; a 2-layer
+               GPT-350M saved on the CPU and served on the card launching
+               the wgmma forward once a layer, equal to its eager model
+               on the card. (b) ResNet-50
+               float32 saved as one DistModel stage: the plain-C consumer
+               (tools/torch_infer_demo.c over the C API) at batch 1 and
+               DistModel at batch 4 in two micro-batches, each equal to
+               the Python predictor at rtol 1e-5 / atol 1e-6, and the
+               card's program moved to the CPU by Config.disable_gpu().
+               ``--only inference_export`` builds the kernels and runs
+               this phase alone (no result line).
 
 Then a line with the kernels' summary, a line with the card's name and
 power limit, and the last line {"ok": true, "device": {...}}.
 The kernels line counts each kernel's launches on the path that runs it
 (the serving options, speculative prefills, the serve preset's D = 64
 prefills, the fleet's, each attention call of Transformer-base, the fit loop's
-D = 64 step, the two LoRA paths and the three world-2 runs have rows of
-their own). ``--kernels-only`` stops after phase 3
+D = 64 step, the two LoRA paths, the three world-2 runs and the saved
+GPT-350M's two served shapes have rows of their own). ``--kernels-only`` stops after phase 3
 and prints none of those three
 lines, and reports a register spill without failing on it: a partial
 run, to compare kernel builds (a layout that spills among them) in turns.
@@ -905,6 +925,11 @@ def _fwd_cases(g):
     # bench.py bench_gpt_primary's attention: [8, 16, 1024, 64] bf16, causal
     cases.append(("primary_bf16_B8_L1024", *_views(g, 8, 1024, 16, 64, torch.bfloat16),
                   True, None, "wgmma", bf16_tol))
+    # GPT-350M's attention as its saved program serves it
+    # (phase_inference_export): [1, 1024] and [4, 512] from one artifact
+    for (B, L), name in INFER_FWD_CASES.items():
+        cases.append((name, *_views(g, B, L, 16, 64, torch.bfloat16),
+                      True, None, "wgmma", bf16_tol))
     # the same attention on one rank of the world-2 runs
     # (phase_distributed_training): half the batch under ZeRO, half the
     # heads under mp = 2
@@ -2171,15 +2196,15 @@ def phase_speculative(seed: int) -> dict:
     return out
 
 
-def _preset_config():
+def _preset_config(num_layers: int = 24):
     """tools/decode_bench.py:51-57's serving preset: GPT h1024, 24 layers,
     16 heads of 64, vocab 50304, 1024 positions, dropout 0, bf16 cache."""
     from paddle_tpu_torch.models.gpt import GPTConfig
 
-    return GPTConfig(vocab_size=50304, hidden_size=1024, num_layers=24,
-                     num_heads=16, max_position_embeddings=1024,
-                     hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
-                     dtype="bfloat16")
+    return GPTConfig(vocab_size=50304, hidden_size=1024,
+                     num_layers=num_layers, num_heads=16,
+                     max_position_embeddings=1024, hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0, dtype="bfloat16")
 
 
 def _preset_server(model, pooled: bool):
@@ -2282,7 +2307,8 @@ FLEET_PATH = ("fleet serving (serve preset, float32 prefill at D = 64, int8 "
 FLEET_HEALTH_S = 0.25      # the router's heartbeat in the child's run
 FLEET_KILL_AFTER = 3       # the child's pool-less prefills before SIGKILL
 FLEET_DECODE_STEPS = 64    # serving steps of each mode a round (alternating)
-FLEET_ROUNDS = 8           # rounds, each admitting the slots afresh
+FLEET_ROUNDS = 4           # rounds, each admitting the slots afresh; few,
+                           # for the whole smoke's 1200 s
 
 
 def _free_port() -> int:
@@ -6703,7 +6729,8 @@ HF_SAVE_INTERVAL, HF_KEEP_MAX = 4, 2
 HF_POISON_AFTER = 5                      # train.data drops batches 5 and 6
 # the fit loop's cost over a bare step: rounds alternating which side runs
 # first, each side warm-up + timed steps a round, both timed alike
-HF_OVH_ROUNDS, HF_OVH_WARMUP, HF_OVH_TIMED = 4, 3, 16
+# two rounds, one of each order: the whole smoke's 1200 s allow no more
+HF_OVH_ROUNDS, HF_OVH_WARMUP, HF_OVH_TIMED = 2, 3, 16
 HF_PATH = "training (GPT-350M bf16 O2 step through Model.fit)"
 # the fit's attention: bf16 at D = 64, one forward (no recompute), dQ and
 # dK/dV a layer
@@ -7545,6 +7572,411 @@ def phase_eager_training(seed: int, device: str = "cuda", cfg=None,
     return out
 
 
+# ------------------------------------------------------ inference_export
+INFER_PATH = ("serving (GPT-350M bf16 saved by jit.save, served by "
+              "inference.create_predictor from its artifact)")
+INFER_SHAPES = ((1, 1024), (4, 512))   # [batch, length] from one artifact
+INFER_FWD_CASES = {(1, 1024): "infer_bf16_B1_L1024",
+                   (4, 512): "infer_bf16_B4_L512"}
+INFER_RUNS = 5              # timed runs a shape, after the first
+INFER_CPU_SAVED_LAYERS = 2  # the GPT-350M saved on the CPU, full width
+INFER_RN_SIZE = 224         # ResNet-50's image side
+INFER_DM_BATCH, INFER_DM_MICRO = 4, 2
+INFER_C_RTOL, INFER_C_ATOL = 1e-5, 1e-6   # tests/test_jit_export.py:221
+# the card's ResNet-50 program moved to the CPU, of max|ref|: 1.7e-6 read
+# (my chip runs, 4092 the largest logit); TF32 or a batch-norm statistic
+# off on one side moves it by 1e-4 or more
+INFER_CPU_RTOL = 1e-5
+INFER_C_TIMEOUT_S = 300
+INFER_DISPATCH_CALLS = 200   # host-timed calls of the operator, a sample
+
+
+def _flash_nodes(program) -> tuple:
+    """(flash-attention operator nodes, softmax nodes) of a program."""
+    import torch
+
+    op = torch.ops.paddle_tpu_torch.flash_attention_fwd.default
+    nodes = list(program.graph.nodes)
+    flash = sum(n.target is op for n in nodes)
+    soft = sum("softmax" in str(n.target) for n in nodes
+               if n.op == "call_function")
+    return flash, soft
+
+
+def _c_consumer(lib: str, demo: str, prefix: str, x, tmp: str,
+                device: str):
+    """Start tools/torch_infer_demo.c on ``prefix`` with input ``x``
+    (float32); returns the process, its input path and its start time."""
+    import site
+
+    path = os.path.join(tmp, "c_input.bin")
+    with open(path, "wb") as f:
+        f.write(x.astype("float32").tobytes())
+    pkgs = [p for p in sys.path if "site-packages" in p] + site.getsitepackages()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))] + pkgs))
+    if device == "cpu":
+        env["PT_INFER_DEVICE"] = "cpu"
+    proc = subprocess.Popen([demo, lib, prefix, path, *map(str, x.shape)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+    return proc, time.perf_counter()
+
+
+def _c_result(proc, started: float, shape):
+    import numpy as np
+
+    try:
+        out, err = proc.communicate(timeout=INFER_C_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"inference_export: the C consumer exited "
+                             f"{proc.returncode}: {err[-2000:]}")
+    lines = out.strip().splitlines()
+    if lines[0].split() != ["shape", *map(str, shape)]:
+        raise AssertionError(f"inference_export: the C consumer's output "
+                             f"{lines[0]!r}, expected shape {shape}")
+    got = np.asarray([float(v) for v in lines[1:]], np.float32)
+    return got.reshape(shape), time.perf_counter() - started
+
+
+def phase_inference_export(seed: int, device: str = "cuda", cfg=None,
+                           rn_ctor=None, rn_size: int = INFER_RN_SIZE,
+                           shapes=INFER_SHAPES) -> dict:
+    """The deployment path on the card: (a) bench_gpt_primary's GPT-350M,
+    bf16, seeded, saved by ``jit.save`` with ``InputSpec([None, None],
+    "int64")``, loaded by ``inference.create_predictor`` and run at
+    ``[1, 1024]`` and ``[4, 512]`` from one artifact: logits against the
+    eager model's, the wgmma forward launched 24 times a run by the loaded
+    program (24 operator nodes, no softmax), ``set_state_dict`` changing
+    the output; capture, write, load, first and median run times, the
+    artifact's bytes; then the same model at INFER_CPU_SAVED_LAYERS layers
+    saved on the CPU and served on the card, which must launch the kernel
+    (the gate admits CPU tensors while ``torch.export`` captures) and equal
+    its eager model there. (b) ResNet-50, float32, saved as one DistModel
+    stage:
+    the plain-C consumer (``tools/torch_infer_demo.c`` over the C API) at
+    batch 1 against the Python predictor, ``DistModel`` at batch 4 in two
+    micro-batches against it, and the card's program moved to the CPU by
+    ``Config.disable_gpu()``."""
+    import copy
+    import dataclasses
+    import shutil
+    import statistics
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.distributed.launch.kv_server import KVServer
+    from paddle_tpu_torch.hapi import InputSpec
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.models.resnet import resnet50
+
+    t_start = time.perf_counter()
+    cuda = device == "cuda"
+    fa = None
+    if cuda:
+        from paddle_tpu_torch.kernels import flash_attention as fa
+    leftover = _check_freed("inference_export") if cuda else None
+    built = {}
+
+    def build():
+        try:
+            built["lib"] = inference.build_capi()
+            built["demo"] = inference.build_demo()
+        except Exception as exc:  # raised below, in the phase's thread
+            built["error"] = exc
+
+    capi_build = threading.Thread(target=build, daemon=True)
+    capi_build.start()
+    tmp = tempfile.mkdtemp(prefix="inference_export_")
+    consumer = None
+    try:
+        # ------------- (b) first: ResNet-50 float32 saved as one stage, and
+        # the C consumer started on it, to run beside the GPT part
+        rng = np.random.default_rng(seed + 25)
+        gen = torch.Generator(device=device).manual_seed(seed + 26)
+        rn = (rn_ctor or resnet50)(device=device, generator=gen).eval()
+        dm_prefix = os.path.join(tmp, "resnet50")
+        spec = [InputSpec([None, 3, rn_size, rn_size], "float32")]
+        inference.save_dist_model([rn], dm_prefix, input_spec=spec)
+        rn_save_s = dict(jit.save.seconds)
+        stage = f"{dm_prefix}.stage0"
+        rn_bytes = {ext: os.path.getsize(stage + ext)
+                    for ext in (".pdmodel", ".pdiparams")}
+        x1 = rng.standard_normal((1, 3, rn_size, rn_size)).astype(np.float32)
+        capi_build.join()
+        if "error" in built:
+            raise built["error"]
+        consumer, c_start = _c_consumer(built["lib"], built["demo"], stage,
+                                        x1, tmp, device)
+
+        # ---------------------------------------------- (a) GPT-350M bf16
+        cfg = cfg or _primary_config()
+        gen = torch.Generator(device=device).manual_seed(seed + 25)
+        model = GPTForCausalLM(cfg, device=device, generator=gen)
+        model = model.to(torch.bfloat16).eval()
+        prefix = os.path.join(tmp, "gpt")
+        jit.save(model, prefix, input_spec=[InputSpec([None, None], "int64")])
+        save_s = dict(jit.save.seconds)
+        nbytes = {ext: os.path.getsize(prefix + ext)
+                  for ext in (".pdmodel", ".pdiparams")}
+        t0 = time.perf_counter()
+        cfg_pred = inference.Config(prefix)
+        if not cuda:
+            cfg_pred.disable_gpu()
+        pred = inference.create_predictor(cfg_pred)
+        load_s = time.perf_counter() - t0
+        flash_nodes, softmax_nodes = _flash_nodes(pred._layer.program)
+        layers = cfg.num_layers
+        if cuda and (flash_nodes != layers or softmax_nodes):
+            raise AssertionError(
+                f"inference_export: the loaded program has {flash_nodes} "
+                f"flash-attention nodes and {softmax_nodes} softmax nodes; "
+                f"expected {layers} and 0")
+
+        def timed(fn):
+            t0 = time.perf_counter()
+            out = fn()
+            if cuda:
+                torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        runs, max_err = {}, 0.0
+        for B, L in shapes:
+            ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, L)),
+                                  device=device)
+            with torch.no_grad():
+                want = model(ids)
+                eager_ms = [timed(lambda: model(ids))[1]
+                            for _ in range(INFER_RUNS)]
+            if fa is not None:
+                torch.cuda.synchronize()
+                fa.reset_launch_counts()
+            got, first_ms = timed(lambda: pred.run_tensors([ids])[0])
+            times = []
+            for _ in range(INFER_RUNS):
+                again, ms = timed(lambda: pred.run_tensors([ids])[0])
+                times.append(ms)
+            counts = _counts(fa) if fa is not None else None
+            err = float((got.float() - want.float()).abs().max())
+            max_err = max(max_err, err)
+            if tuple(got.shape) != (B, L, cfg.vocab_size) or \
+                    not torch.isfinite(got).all():
+                raise AssertionError(f"inference_export: logits "
+                                     f"{tuple(got.shape)} at [{B}, {L}], "
+                                     f"finite {bool(torch.isfinite(got).all())}")
+            if err > 0.0 or not torch.equal(got, again):
+                raise AssertionError(
+                    f"inference_export: the loaded program's logits at "
+                    f"[{B}, {L}] differ from the eager model's by {err} "
+                    f"(replay equal: {torch.equal(got, again)})")
+            need = _need(fwd_wgmma=layers * (1 + INFER_RUNS))
+            if cuda and counts != need:
+                raise AssertionError(
+                    f"inference_export: [{B}, {L}]: launches {_COUNT_NAMES} "
+                    f"{counts} over {1 + INFER_RUNS} runs, expected {need}")
+            runs[f"B{B}_L{L}"] = dict(
+                first_ms=first_ms, median_ms=statistics.median(times),
+                ms=times, eager_median_ms=statistics.median(eager_ms),
+                launches=(dict(zip(_COUNT_NAMES, counts))
+                          if counts else None),
+                max_abs_err=err)
+            del want, got, again
+        # the handle API with host copies, once, at the first shape
+        B, L = shapes[0]
+        ids_np = rng.integers(0, cfg.vocab_size, (B, L))
+        handle = pred.get_input_handle(pred.get_input_names()[0])
+        handle.copy_from_cpu(ids_np)
+        t0 = time.perf_counter()
+        host_out = pred.run()[0]
+        host_run_ms = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            want = model(torch.as_tensor(ids_np, device=device)).float()
+        host_err = float(np.abs(host_out - want.cpu().numpy()).max())
+        if host_err > 0.0:
+            raise AssertionError(f"inference_export: Predictor.run's host "
+                                 f"output differs by {host_err}")
+        # the host's cost of the operator's dispatch: one call of the
+        # registered operator against the direct launch it wraps, both
+        # launching the kernel, at a shape small enough that the host is
+        # the bound (medians of INFER_DISPATCH_CALLS calls each, in turns)
+        dispatch_us = None
+        if fa is not None:
+            q, k, v = _views(torch.Generator(device=device).manual_seed(seed),
+                             1, 128, 2, 64, torch.bfloat16)
+            calls = {"operator": lambda: fa.flash_attention_fwd(
+                         q, k, v, causal=True),
+                     "direct": lambda: fa._launch_fwd(q, k, v, True, None,
+                                                      None, 0.0, 0)}
+            samples = {name: [] for name in calls}
+            for _ in range(3):
+                for name, fn in list(calls.items()) + list(
+                        reversed(calls.items())):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(INFER_DISPATCH_CALLS):
+                        fn()
+                    samples[name].append((time.perf_counter() - t0) * 1e6
+                                         / INFER_DISPATCH_CALLS)
+            torch.cuda.synchronize()
+            dispatch_us = {name: statistics.median(v)
+                           for name, v in samples.items()}
+        # TranslatedLayer's state changes what the program computes
+        loaded = pred._layer
+        sd = loaded.state_dict()
+        key = "p_gpt__ln_f__weight"
+        ids = torch.as_tensor(ids_np, device=device)
+        base = pred.run_tensors([ids])[0]
+        loaded.set_state_dict({key: sd[key] * 2})
+        changed = pred.run_tensors([ids])[0]
+        loaded.set_state_dict({key: sd[key]})
+        restored = pred.run_tensors([ids])[0]
+        state_moves = not torch.equal(base, changed)
+        if not state_moves or not torch.equal(base, restored):
+            raise AssertionError(
+                f"inference_export: set_state_dict({key}): output changed "
+                f"{state_moves}, restored {torch.equal(base, restored)}")
+        del model, pred, loaded, sd, base, changed, restored, want, host_out
+        if cuda:
+            _free()
+
+        # ---- (a') a program saved on the CPU launches the kernel on the card
+        small_cfg = dataclasses.replace(cfg, num_layers=min(
+            cfg.num_layers, INFER_CPU_SAVED_LAYERS))
+        gen = torch.Generator(device=device).manual_seed(seed + 27)
+        small = GPTForCausalLM(small_cfg, device=device, generator=gen)
+        small = small.to(torch.bfloat16).eval()
+        cpu_prefix = os.path.join(tmp, "gpt_cpu")
+        jit.save(copy.deepcopy(small).cpu(), cpu_prefix,
+                 input_spec=[InputSpec([None, None], "int64")])
+        cpu_saved_capture_s = jit.save.seconds.get("capture")
+        small_cfg_pred = inference.Config(cpu_prefix)
+        if not cuda:
+            small_cfg_pred.disable_gpu()
+        small_pred = inference.create_predictor(small_cfg_pred)
+        cpu_saved_nodes = _flash_nodes(small_pred._layer.program)
+        B, L = shapes[0]
+        ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, L)),
+                              device=device)
+        if fa is not None:
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+        got = small_pred.run_tensors([ids])[0]
+        cpu_saved_counts = _counts(fa) if fa is not None else None
+        with torch.no_grad():
+            want = small(ids)
+        cpu_saved_err = float((got.float() - want.float()).abs().max())
+        need = _need(fwd_wgmma=small_cfg.num_layers)
+        if cpu_saved_err > 0.0 or (cuda and (
+                cpu_saved_nodes != (small_cfg.num_layers, 0)
+                or cpu_saved_counts != need)):
+            raise AssertionError(
+                f"inference_export: the program saved on the CPU: "
+                f"(flash, softmax) nodes {cpu_saved_nodes}, launches "
+                f"{_COUNT_NAMES} {cpu_saved_counts} (expected {need}), "
+                f"logits {cpu_saved_err} from its eager model")
+        del small, small_pred, got, want
+        if cuda:
+            _free()
+
+        # --------- (b) the Python predictor, the CPU, DistModel, the consumer
+        rn_cfg = inference.Config(stage)
+        if not cuda:
+            rn_cfg.disable_gpu()
+        rn_pred = inference.create_predictor(rn_cfg)
+        ref1 = rn_pred.run([x1])[0]
+        with torch.no_grad():
+            eager1 = rn(torch.as_tensor(x1, device=device)).cpu().numpy()
+        eager_err = float(np.abs(ref1 - eager1).max())
+        # DistModel: one stage, two micro-batches of a batch of 4
+        x4 = rng.standard_normal((INFER_DM_BATCH, 3, rn_size,
+                                  rn_size)).astype(np.float32)
+        ref4 = rn_pred.run([x4])[0]
+        kv = KVServer(0).start()
+        try:
+            dm = inference.DistModel(inference.DistModelConfig(
+                model_prefix=dm_prefix, rank=0, nranks=1,
+                master_endpoint=f"127.0.0.1:{kv.port}",
+                num_micro=INFER_DM_MICRO, device=device))
+            try:
+                t0 = time.perf_counter()
+                dm_out = dm.run([x4])[0]
+                dm_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                dm.shutdown()
+        finally:
+            kv.stop()
+        c_out, c_s = _c_result(consumer, c_start, ref1.shape)
+        consumer = None
+        # the card's program on the CPU (Config.disable_gpu)
+        cpu_cfg = inference.Config(stage)
+        cpu_cfg.disable_gpu()
+        t0 = time.perf_counter()
+        cpu_out = inference.create_predictor(cpu_cfg).run([x1])[0]
+        cpu_s = time.perf_counter() - t0
+        cpu_err = float(np.abs(cpu_out - ref1).max())
+        scale = float(np.abs(ref1).max())
+        c_err = float(np.abs(c_out - ref1).max())
+        dm_err = float(np.abs(dm_out - ref4).max())
+        checks = {"c_consumer": (c_out, ref1), "dist_model": (dm_out, ref4)}
+        for name, (got, want) in checks.items():
+            if not np.allclose(got, want, rtol=INFER_C_RTOL,
+                               atol=INFER_C_ATOL):
+                raise AssertionError(
+                    f"inference_export: {name} against the Python "
+                    f"predictor: max abs err "
+                    f"{float(np.abs(got - want).max())} beyond rtol "
+                    f"{INFER_C_RTOL} / atol {INFER_C_ATOL}")
+        if not np.isfinite(ref1).all() or eager_err > 0.0 or \
+                cpu_err > INFER_CPU_RTOL * scale:
+            raise AssertionError(
+                f"inference_export: ResNet-50's predictor against its eager "
+                f"model {eager_err}, on the CPU {cpu_err} (limit "
+                f"{INFER_CPU_RTOL} x {scale})")
+        del rn, rn_pred
+    finally:
+        if consumer is not None and consumer.poll() is None:
+            consumer.kill()
+            consumer.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = dict(
+        path=INFER_PATH, model="bench_gpt_primary GPT-350M bf16", layers=layers,
+        shapes=[list(s) for s in shapes], capture_s=save_s.get("capture"),
+        write_s=save_s.get("write"), load_s=load_s, artifact_bytes=nbytes,
+        flash_nodes=flash_nodes, softmax_nodes=softmax_nodes, runs=runs,
+        logits_max_abs_err=max_err, host_run_ms=host_run_ms,
+        host_run_max_abs_err=host_err, set_state_dict_changes_output=True,
+        dispatch_us_per_call=dispatch_us,
+        cpu_saved=dict(layers=small_cfg.num_layers,
+                       capture_s=cpu_saved_capture_s,
+                       flash_nodes=cpu_saved_nodes[0],
+                       softmax_nodes=cpu_saved_nodes[1],
+                       launches=(dict(zip(_COUNT_NAMES, cpu_saved_counts))
+                                 if cpu_saved_counts else None),
+                       max_abs_err=cpu_saved_err),
+        launches_per_run=dict(zip(_COUNT_NAMES, _need(fwd_wgmma=layers))),
+        resnet50=dict(batch=1, size=rn_size, capture_s=rn_save_s.get(
+            "capture"), write_s=rn_save_s.get("write"),
+            artifact_bytes=rn_bytes, c_consumer_max_abs_err=c_err,
+            c_consumer_s=c_s, eager_max_abs_err=eager_err,
+            cpu_max_abs_err=cpu_err, cpu_scale=scale, cpu_s=cpu_s,
+            dist_model_batch=INFER_DM_BATCH, dist_model_micro=INFER_DM_MICRO,
+            dist_model_max_abs_err=dm_err, dist_model_ms=dm_ms,
+            rtol=INFER_C_RTOL, atol=INFER_C_ATOL),
+        leftover_gib_at_start=leftover,
+        phase_s=time.perf_counter() - t_start,
+        card=nvidia_smi_line() if cuda else device)
+    emit("inference_export", **out)
+    return out
+
+
 def phase_hapi_bert_fit(seed: int, device: str = "cuda", cfg=None) -> dict:
     """BertForSequenceClassification(bert_base()) bf16 O2 through
     Model.fit(train, eval) with Accuracy, tail padding and length buckets,
@@ -7697,6 +8129,9 @@ LORA_SERVE_PATH = ("serving (serve preset, 8 LoRA tenants, float32 prefill "
                    "at D = 64, pool-less)")
 # decode steps timed and traced per engine, all 8 slots live
 LORA_DECODE_STEPS = 16
+# the serve preset's depth here: 12 of its 24 layers, width kept (the
+# whole smoke ran 1177.7 s of its 1200 once inference_export joined it)
+LORA_SERVE_LAYERS = 12
 
 
 def _tensor_bytes(tree, skip=()) -> int:
@@ -7972,7 +8407,8 @@ def phase_lora_serving(seed: int, device: str = "cuda", cfg=None) -> dict:
     request served alone by a fresh pooled server (a pooled admit attends
     the bf16 cache where a pool-less prefill attends its float32 block,
     the reference's design; the base model's pooled run parts alike, and
-    both counts are printed); the pool-less run launches exactly 24 wgmma_f32 D = 64 forwards
+    both counts are printed); the pool-less run launches exactly one
+    wgmma_f32 D = 64 forward a layer (LORA_SERVE_LAYERS)
     and splits per prefill and the pooled run none; evictions > 0; a
     pooled request hits only
     blocks an earlier request of its own tenant wrote, and one prompt sent
@@ -7992,7 +8428,7 @@ def phase_lora_serving(seed: int, device: str = "cuda", cfg=None) -> dict:
         from paddle_tpu_torch.kernels import flash_attention as fa
         torch.cuda.reset_peak_memory_stats()
     leftover = _check_freed("lora_serving") if cuda else None
-    cfg = cfg or _preset_config()
+    cfg = cfg or _preset_config(num_layers=LORA_SERVE_LAYERS)
     model = GPTForCausalLM(cfg, device=device, generator=torch.Generator(
         device=device).manual_seed(seed)).eval()
     model.generate(np.zeros((1, 8), np.int64), max_new_tokens=2,
@@ -8002,8 +8438,8 @@ def phase_lora_serving(seed: int, device: str = "cuda", cfg=None) -> dict:
     layers = cfg.num_layers
     prompts8 = [r["prompt"][:64 + 8 * i] for i, r in
                 enumerate((requests * 2)[:PRESET_SLOTS])]
-    out = dict(model="serve preset (h1024, 24 layers, 16 heads of 64), "
-                     "float32 parameters, bf16 cache",
+    out = dict(model=f"serve preset (h1024, {layers} of its 24 layers, "
+                     "16 heads of 64), float32 parameters, bf16 cache",
                requests=n, prompt_lens=[len(r["prompt"]) for r in requests],
                leftover_gib_at_start=leftover)
     # the base model, before injection: the same traffic, no store, without
@@ -8540,6 +8976,9 @@ def main(argv=None) -> int:
                          "line, with a register spill reported but not "
                          "fatal: to compare kernel builds in turns, each "
                          "from its own checkout")
+    ap.add_argument("--only", choices=("inference_export",),
+                    help="build the kernels and run this phase alone, "
+                         "printing its line and no result line")
     ap.add_argument("--fleet-child", nargs=3,
                     metavar=("WEIGHTS", "ENDPOINT", "DEVICE"),
                     help=argparse.SUPPRESS)   # fleet_serving's child
@@ -8570,6 +9009,9 @@ def main(argv=None) -> int:
          name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     ptxas = phase_build(args.seed, fail_on_spill=not args.kernels_only)
+    if args.only:
+        globals()[f"phase_{args.only}"](args.seed)
+        return 0
     if not args.kernels_only:
         # g++ on a thread while the card runs the kernel phases
         _start_native_build()
@@ -8631,6 +9073,8 @@ def main(argv=None) -> int:
     phase_hapi_bert_fit(args.seed)
     _free()
     eager_gpt = phase_eager_training(args.seed)
+    _free()
+    infer = phase_inference_export(args.seed)
     _free()
     dist = phase_distributed_training(args.seed)
     _free()
@@ -8793,6 +9237,13 @@ def main(argv=None) -> int:
         bwd_row("flash_attention_bwd_dkv_sm90_d64_eager",
                 "flash_attention_bwd_dkv_sm90.cu", "dkv", HF_BWD_CASE,
                 eager_gpt["launches"]["dkv_wgmma"], EAGER_PATH),
+        # the same attention served from GPT-350M's saved program
+        # (inference_export: 24 a run at each shape)
+        *[fwd_row(f"flash_attention_fwd_sm90_d64_infer_B{B}_L{L}",
+                  "flash_attention_fwd_sm90.cu", INFER_FWD_CASES[(B, L)],
+                  infer["runs"][f"B{B}_L{L}"]["launches"]["fwd_wgmma"],
+                  INFER_PATH)
+          for B, L in INFER_SHAPES],
         # the same attention on the adapter fit's path (lora_fit: 24 of
         # each a step, the gradient reaching the qkv_proj adapters)
         fwd_row("flash_attention_fwd_sm90_d64_lora_fit",
@@ -8821,7 +9272,8 @@ def main(argv=None) -> int:
                       dist[label]["ranks"][0]["launches"]["dkv_wgmma"],
                       f"{DIST_PATH}: {label}"))],
         # the serve preset's float32 D = 64 prefill with the adapters
-        # (lora_serving's pool-less run: 24 of each a prefill)
+        # (lora_serving's pool-less run, 12 of the 24 layers: 12 of each a
+        # prefill)
         fwd_row("flash_attention_fwd_f32_sm90_d64_lora_serving",
                 "flash_attention_fwd_f32_sm90.cu", PRESET_FWD,
                 lora_serve["flash_launches"], LORA_SERVE_PATH),

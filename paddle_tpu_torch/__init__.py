@@ -91,6 +91,9 @@ from .hapi import InputSpec, Model, flops, summary  # noqa: F401,E402
 from . import profiler  # noqa: F401,E402
 from . import eager  # noqa: F401,E402
 from . import autograd  # noqa: F401,E402
+from . import jit  # noqa: F401,E402
+from . import static  # noqa: F401,E402
+from . import inference  # noqa: F401,E402
 from .framework.supervisor import (  # noqa: F401,E402
     RecoveryPolicy, TrainingPreempted, TrainingSupervisor,
 )

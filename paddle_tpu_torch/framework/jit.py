@@ -1,10 +1,14 @@
 """One-call training and evaluation steps (port of ``TrainStep`` and
-``EvalStep`` in ``paddle_tpu/framework/jit.py:243,521``).
+``EvalStep`` in ``paddle_tpu/framework/jit.py:243,521``), and
+:func:`jit`, ``paddle.jit.to_static``'s compile step (``:70-118``).
 
 The JAX package compiles forward, loss, backward and update into one XLA
 program with donated buffers. PyTorch runs eagerly, so a
 :class:`TrainStep` call does the same four things in order and there is
-no compile cache. Other differences, and why:
+no compile cache. :func:`jit` runs eagerly for the same reason: the
+port's compile happens once, in ``paddle_tpu_torch.jit.save``'s capture
+(``torch.export``), and ``torch.compile`` is not brought in. Other
+differences, and why:
 
 - the step trains the model's own parameters in place (the optimizer
   updates them under ``torch.no_grad``) instead of donated copies, so
@@ -35,6 +39,8 @@ no compile cache. Other differences, and why:
 """
 from __future__ import annotations
 
+import functools
+import itertools
 from typing import Callable, Optional
 
 import numpy as np
@@ -43,11 +49,11 @@ import torch
 from . import flags
 from . import random as framework_random
 from ..amp.grad_scaler import scale_loss, unscale_and_check, update_scale
-from ..nn.layer import rng_context
+from ..nn.layer import buffer_state, functional_call, param_state, rng_context
 from .debugging import tree_all_finite
 from .tree import tree_map
 
-__all__ = ["DEFAULT_RNG_STREAMS", "resolve_inputs_fn", "finite_guard",
+__all__ = ["DEFAULT_RNG_STREAMS", "jit", "resolve_inputs_fn", "finite_guard",
            "raise_if_bad_step", "scaler_guard", "snapshot_buffers",
            "LossAdapter", "TrainStep", "EvalStep"]
 
@@ -87,6 +93,62 @@ def _to_device(batch, device):
 def _detach(tree):
     return tree_map(lambda x: x.detach() if isinstance(x, torch.Tensor)
                     else x, tree)
+
+
+_JIT_IDS = itertools.count()
+
+
+def _jit_stats(name: str):
+    """A wrapper's name and its ``cache_stats()``: the calls it took.
+    Nothing is traced or cached, so the reference's compile and hit
+    counters have nothing to count and are left out."""
+    name = f"{name}#{next(_JIT_IDS)}"
+    stats = {"calls": 0}
+
+    def record():
+        stats["calls"] += 1
+
+    return name, record, lambda: dict(stats)
+
+
+def jit(fn=None, *, static_argnums=(), static_argnames=(), donate_argnums=()):
+    """``paddle.jit.to_static``'s compile step for a function or a Layer.
+
+    It runs eagerly: PyTorch traces nothing at call time, so there is no
+    argument to make static and no buffer to donate, and the three options
+    are taken only so that code written for the reference's signature
+    runs. A Layer is called with its current parameters and buffers
+    through :func:`~paddle_tpu_torch.nn.layer.functional_call`, as the
+    reference's compiled callable is; the wrapper keeps the reference's
+    ``__wrapped_layer__`` and ``__cc_name__``, and ``cache_stats()``
+    counts its calls."""
+    del static_argnums, static_argnames, donate_argnums
+    if fn is None:
+        return jit
+    if isinstance(fn, torch.nn.Module):
+        layer = fn
+        name, record, stats = _jit_stats(f"jit:{type(layer).__name__}")
+
+        def wrapped(*args, **kwargs):
+            record()
+            out, _ = functional_call(layer, param_state(layer),
+                                     buffer_state(layer), *args, **kwargs)
+            return out
+
+        wrapped.__wrapped_layer__ = layer
+        wrapped.__cc_name__ = name
+        wrapped.cache_stats = stats
+        return wrapped
+    name, record, stats = _jit_stats(f"jit:{getattr(fn, '__name__', 'fn')}")
+
+    @functools.wraps(fn)
+    def dispatch(*args, **kwargs):
+        record()
+        return fn(*args, **kwargs)
+
+    dispatch.__cc_name__ = name
+    dispatch.cache_stats = stats
+    return dispatch
 
 
 def finite_guard(grads, params_finite, extra_ok=None) -> torch.Tensor:

@@ -83,7 +83,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -200,9 +200,16 @@ def should_use_flash(q, k, attn_mask, dropout_p) -> bool:
     """Kernel gate on ``[B, L, H, D]`` tensors: CUDA tensors of a dtype
     that has a route (float32, bfloat16, float16) whose shapes the kernels
     take. Any other dtype, and CPU tensors, answer False (they run the
-    plain path). Dropout runs inside the kernels, so it does not gate."""
+    plain path). Dropout runs inside the kernels, so it does not gate.
+
+    While ``torch.export`` captures, the device does not gate: a program
+    captured on the CPU records the operator ``flash_attention_fwd``
+    (whose CPU implementation is the plain version), so the same program
+    launches the kernel once it is moved to the card."""
     del dropout_p
-    if not q.is_cuda or q.dtype not in _DTYPE_ROUTES:
+    if q.dtype not in _DTYPE_ROUTES:
+        return False
+    if not q.is_cuda and not torch.compiler.is_exporting():
         return False
     Lq, Lk = q.shape[1], k.shape[1]
     if attn_mask is not None:
@@ -763,10 +770,68 @@ def _launch_fwd(q, k, v, causal: bool, bias, out, dropout_p, seed):
     return out, lse
 
 
+def _int64_seed(seed: int) -> int:
+    """``seed`` (a Philox key of up to 64 bits) as the two's-complement
+    int64 an operator's ``int`` argument holds; ``_dropout_args`` and
+    :func:`_uint64_seed` turn it back."""
+    seed = int(seed) & (2 ** 64 - 1)
+    return seed - 2 ** 64 if seed >= 2 ** 63 else seed
+
+
+def _uint64_seed(seed: int) -> int:
+    return int(seed) & (2 ** 64 - 1)
+
+
+def _plain_fwd(q, k, v, causal, bias, dropout_p, seed):
+    keep = None
+    if dropout_p > 0.0:
+        B, H, Lq, _ = q.shape
+        keep = dropout_mask(_uint64_seed(seed), B, H, Lq, k.shape[2],
+                            dropout_p, q.device)
+    return reference_attention_fwd(q, k, v, causal=causal, bias=bias,
+                                   keep_mask=keep)
+
+
+# The forward as a registered operator, so that a captured program
+# (``torch.export``, ``jit.save``) keeps it as one node and a reloaded
+# program launches the kernel. ``torch.library.Library`` defines it: its
+# dispatch costs less host time a call than ``torch.library.custom_op``'s
+# Python wrappers (``tools/torch_op_dispatch.py``).
+_LIB = torch.library.Library("paddle_tpu_torch", "DEF")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, Tensor? bias, "
+            "bool causal, float dropout_p, int seed) -> (Tensor, Tensor)")
+
+
+def _fwd_op_cpu(q, k, v, bias, causal, dropout_p, seed):
+    # the plain version, O written in q's row layout as the kernel writes it
+    o, lse = _plain_fwd(q, k, v, causal, bias, dropout_p, seed)
+    out = _empty_like_rows(q)
+    out.copy_(o)
+    return out, lse
+
+
+def _fwd_op_cuda(q, k, v, bias, causal, dropout_p, seed):
+    # the shape checks run here, on concrete sizes; the launch counts
+    # itself, so a reloaded program's runs are counted, not its capture
+    return _launch_fwd(q, k, v, causal, bias, None, dropout_p, seed)
+
+
+def _fwd_op_fake(q, k, v, bias, causal, dropout_p, seed):
+    B, H, Lq, _ = q.shape
+    return _empty_like_rows(q), q.new_empty((B, H, Lq), dtype=torch.float32)
+
+
+_LIB.impl("flash_attention_fwd", _fwd_op_cpu, "CPU")
+_LIB.impl("flash_attention_fwd", _fwd_op_cuda, "CUDA")
+torch.library.register_fake("paddle_tpu_torch::flash_attention_fwd",
+                            _fwd_op_fake, lib=_LIB)
+_FWD_OP = torch.ops.paddle_tpu_torch.flash_attention_fwd.default
+
+
 def flash_attention_fwd(q, k, v, causal: bool = False, bias=None,
-                        out: Optional[torch.Tensor] = None,
                         dropout_p: float = 0.0, seed: int = 0):
-    """``(o, lse)`` of attention on ``[B, H, L, D]`` tensors.
+    """``(o, lse)`` of attention on ``[B, H, L, D]`` tensors, through the
+    registered operator ``torch.ops.paddle_tpu_torch.flash_attention_fwd``.
 
     CUDA tensors launch the kernel of :func:`kernel_route` (which raises on
     what it does not take: dtype other than float32/bfloat16/float16, head
@@ -776,24 +841,12 @@ def flash_attention_fwd(q, k, v, causal: bool = False, bias=None,
     :func:`split_bf16_terms`);
     CPU tensors run
     :func:`reference_attention_fwd` with the plain :func:`dropout_mask`.
-    ``out`` (optional, ``[B, H, Lq, D]``, any strides with a contiguous
-    last dimension) receives O in place, e.g. a transposed view of a
-    ``[B, L, H, D]`` buffer. ``dropout_p > 0`` drops probabilities with
-    the Philox mask of ``seed``. ``flash_attention_fwd.launches`` counts
-    kernel launches."""
-    if q.is_cuda:
-        return _launch_fwd(q, k, v, causal, bias, out, dropout_p, seed)
-    keep = None
-    if dropout_p > 0.0:
-        B, H, Lq, _ = q.shape
-        keep = dropout_mask(seed, B, H, Lq, k.shape[2], dropout_p, q.device)
-    o, lse = reference_attention_fwd(q, k, v, causal=causal, bias=bias,
-                                     keep_mask=keep)
-    if out is not None:
-        out.copy_(o)
-        o = out
-    return o, lse
-
+    O is in q's row layout (a transposed view of a ``[B, L, H, D]`` buffer
+    when q is one). ``dropout_p > 0`` drops probabilities with the Philox
+    mask of ``seed`` (up to 64 bits). ``flash_attention_fwd.launches``
+    counts kernel launches."""
+    return _FWD_OP(q, k, v, bias, bool(causal), float(dropout_p),
+                   _int64_seed(seed))
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.routes = {"fma": 0, "wgmma": 0, "wgmma_f32": 0,

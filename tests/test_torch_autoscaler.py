@@ -13,7 +13,6 @@ equal to the local model's greedy stream.
 """
 import json
 import os
-import socket
 import sys
 import textwrap
 import types
@@ -299,10 +298,16 @@ CHILD = textwrap.dedent("""
 """)
 
 
-def _endpoint():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return f"127.0.0.1:{s.getsockname()[1]}"
+def _store():
+    """The rpc store, bound by this process before anyone is told its
+    port: a probed free port, closed and handed on, can be taken by
+    another test process before ``init_rpc`` binds it, and rank 0 then
+    takes the squatter for an external store and its rendezvous fails.
+    Rank 0's ``init_rpc`` finds this port in use and joins the store."""
+    from paddle_tpu_torch.distributed.launch.kv_server import KVServer
+
+    kv = KVServer(0).start()
+    return kv, f"127.0.0.1:{kv.port}"
 
 
 def test_process_replica_spawner_scales_out_a_fresh_interpreter(tmp_path):
@@ -323,7 +328,7 @@ def test_process_replica_spawner_scales_out_a_fresh_interpreter(tmp_path):
     torch.save({"cfg": cfg, "state": model.state_dict()}, weights)
     script = tmp_path / "child.py"
     script.write_text(CHILD)
-    ep = _endpoint()
+    kv, ep = _store()
     spawner = ProcessReplicaSpawner(
         [sys.executable, str(script), str(weights), ep], "auto-child",
         init=lambda: rpc.init_rpc("parent", rank=0, world_size=2,
@@ -363,3 +368,4 @@ def test_process_replica_spawner_scales_out_a_fresh_interpreter(tmp_path):
                     proc.kill()
                     proc.wait(timeout=30)
         rpc.shutdown(timeout=4.0)
+        kv.stop()
