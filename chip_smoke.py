@@ -250,6 +250,28 @@ exits non-zero:
                logits, statistics moved); (c) the same model fed bf16
                images; (d) a poisoned step and an EvalStep leaving every
                parameter, velocity, master and statistic bit-equal.
+11b. vision_zoo - the vision zoo, nn and beam search (no flash kernel):
+               (a) every constructor of vision.models at full width (30:
+               LeNet at 28 x 28, InceptionV3 at 299, the rest at 224)
+               runs a batch-2 float32 eval forward on the card, logits
+               finite and [2, classes], and one of each family also on the
+               CPU from the same seed, the card within 1e-3 of the
+               largest CPU logit; (b) MobileNetV3-Large and ShuffleNetV2
+               x1.0 trained through hapi.Model.fit on bench_resnet50's
+               recipe (1000 classes, batch 64 at 224 x 224, Momentum(0.1,
+               0.9), bf16 O2) from a vision.datasets.ImageFolder of JPEG
+               files the phase writes, through RandomResizedCrop,
+               RandomHorizontalFlip, ToTensor and Normalize in DataLoader
+               worker processes and the device prefetch: 3 warm-up and
+               10 timed steps (median and range, images/s, peak, the
+               prefetcher's consumer stall), one step on a device batch
+               traced for its launches and idle share, and each model's
+               float32 batch-4 step held to the CPU by resnet50_training's
+               yardstick (running means read in units of their feature's
+               std); (c) BeamSearchDecoder over LSTMCell(512, 512) with a
+               32000-word embedding and output layer, beam 4, batch 32,
+               64 steps: sequences equal to the CPU's, log-probabilities
+               within 1e-5.
 12. detection_training, ocr_training - the detection and OCR path (no
                flash kernel on it; the models' ``loss`` through TrainStep
                and ``LossAdapter``): (a) one float32 step of ppyoloe_s and
@@ -316,7 +338,8 @@ exits non-zero:
 15. llama    - llama2_7b served at full width and depth, its bf16 O2
                step (8 of 32 layers) and its GQA gradients (2 layers).
 16. distributed_training - hapi_gpt_fit's GPT-350M step (bf16 O2 AdamW,
-               global batch [8, 1024]) at world 2 on the one card: a
+               global batch [8, 1024]) at 12 of its 24 layers
+               (DIST_LAYERS) at world 2 on the one card: a
                single-process TrainStep first (the yardstick), NCCL with
                two ranks on the device meanwhile (its refusal recorded)
                and then with a world of one (this process: the default
@@ -4698,13 +4721,26 @@ def _rn_yard_run(model, x, y) -> dict:
                 stats=stats, skipped=not bool(ok), moved=moved)
 
 
-def _rn_readings(run: dict, ref: dict, initial: dict) -> dict:
-    """Part (a)'s readings of a run against the float64 one."""
+def _rn_readings(run: dict, ref: dict, initial: dict,
+                 mean_in_std: bool = False) -> dict:
+    """Part (a)'s readings of a run against the float64 one. With
+    ``mean_in_std`` a running mean's error is read in units of its
+    feature's running standard deviation rather than of its own largest
+    value: a BatchNorm fed by a linear conv of another BatchNorm's
+    zero-mean output (MobileNet's projections) has batch means of rounding
+    size, which no relative reading can hold."""
     def rel(a, b):
         return float((a.double() - b.double()).abs().max()
                      / b.double().abs().max())
 
-    stats = {k: rel(v, ref["stats"][k]) for k, v in run["stats"].items()}
+    def stat_err(k, v):
+        if mean_in_std and k.endswith("_mean"):
+            std = ref["stats"][k[:-len("_mean")] + "_variance"].double()
+            return float(((v.double() - ref["stats"][k].double()).abs()
+                          / std.sqrt()).max())
+        return rel(v, ref["stats"][k])
+
+    stats = {k: stat_err(k, v) for k, v in run["stats"].items()}
     worst_stat = max(stats, key=stats.get)
     num = den = 0.0
     leaf = {}
@@ -4738,10 +4774,14 @@ def _rn_gate_trips(fault: str, r: dict) -> bool:
     return r["rollback_max_change"] > 0.0
 
 
-def _rn_yardstick(seed: int, device: str, ctor) -> dict:
+def _rn_yardstick(seed: int, device: str, ctor,
+                  phase: str = "resnet50_training",
+                  mean_in_std: bool = False) -> dict:
     """Part (a): the float32 step on ``device`` against the CPU's float64
     one, sound and with each of RN_FAULTS planted in the ``device`` run;
-    the CPU's float32 step read against it too (float32's own cost)."""
+    the CPU's float32 step read against it too (float32's own cost).
+    ``phase`` names the phase that reports a failure; ``mean_in_std`` as
+    :func:`_rn_readings`."""
     import copy
 
     import numpy as np
@@ -4760,14 +4800,15 @@ def _rn_yardstick(seed: int, device: str, ctor) -> dict:
     cpu64_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     floor = _rn_readings(_rn_yard_run(copy.deepcopy(base), x, y), ref,
-                         initial)
+                         initial, mean_in_std)
     cpu32_s = time.perf_counter() - t0
     update_limit = RN_UPDATE_FACTOR * floor["update_err"] + RN_UPDATE_FLOOR
     runs = {}
     for fault in (None,) + tuple(RN_FAULTS):
         with _rn_fault(fault):
             run = _rn_yard_run(copy.deepcopy(base).to(device), x, y)
-        runs[fault or "sound"] = _rn_readings(run, ref, initial)
+        runs[fault or "sound"] = _rn_readings(run, ref, initial,
+                                              mean_in_std)
     out = dict(batch=[RN_YARD_BATCH, 3, RN_SIZE, RN_SIZE],
                cpu_float64_step_s=cpu64_s, cpu_float32_step_s=cpu32_s,
                cpu_loss_float64=ref["loss"],
@@ -4778,8 +4819,8 @@ def _rn_yardstick(seed: int, device: str, ctor) -> dict:
     failed = [] if _rn_gates_pass(runs["sound"], update_limit) else ["sound"]
     failed += [f for f in RN_FAULTS if not _rn_gate_trips(f, runs[f])]
     if failed:
-        emit("resnet50_training", yardstick=out)
-        raise AssertionError(f"resnet50 (a): {failed} on the wrong side of "
+        emit(phase, yardstick=out)
+        raise AssertionError(f"{phase} (a): {failed} on the wrong side of "
                              f"their gates (the sound run must pass every "
                              f"gate, each planted fault trip its own)")
     return out
@@ -4952,6 +4993,416 @@ def phase_resnet50_training(seed: int, device: str = "cuda", ctor=None,
                          tensors=len(saved))
     del step, model, x, xb
     emit("resnet50_training", **out)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the vision zoo: every constructor at full width, MobileNetV3-Large and
+# ShuffleNetV2 trained from an ImageFolder, beam search (no flash kernel)
+# --------------------------------------------------------------------------
+
+ZOO_PATH = ("training (MobileNetV3-Large and ShuffleNetV2 x1.0 bf16 O2 "
+            "Momentum through Model.fit from an ImageFolder)")
+# (a): every constructor of vision.models but the re-exported ResNet
+# family (models/resnet.py's, which resnet50_training runs), its native
+# input side and channels, and whether it is its family's one run on the
+# CPU too
+ZOO_CTORS = (
+    ("LeNet", 28, 1, True), ("vgg11", 224, 3, True), ("vgg13", 224, 3, False),
+    ("vgg16", 224, 3, False), ("vgg19", 224, 3, False),
+    ("vgg11_bn", 224, 3, False), ("vgg13_bn", 224, 3, False),
+    ("vgg16_bn", 224, 3, False), ("vgg19_bn", 224, 3, False),
+    ("mobilenet_v1", 224, 3, True), ("mobilenet_v2", 224, 3, True),
+    ("mobilenet_v3_small", 224, 3, True), ("mobilenet_v3_large", 224, 3, True),
+    ("alexnet", 224, 3, True), ("squeezenet1_0", 224, 3, True),
+    ("squeezenet1_1", 224, 3, False), ("shufflenet_v2_x1_0", 224, 3, True),
+    ("shufflenet_v2_x0_25", 224, 3, False),
+    ("shufflenet_v2_x0_33", 224, 3, False),
+    ("shufflenet_v2_x0_5", 224, 3, False),
+    ("shufflenet_v2_x1_5", 224, 3, False),
+    ("shufflenet_v2_x2_0", 224, 3, False),
+    ("shufflenet_v2_swish", 224, 3, False), ("densenet121", 224, 3, True),
+    ("densenet161", 224, 3, False), ("densenet169", 224, 3, False),
+    ("densenet201", 224, 3, False), ("densenet264", 224, 3, False),
+    ("googlenet", 224, 3, True), ("inception_v3", 299, 3, True))
+ZOO_FWD_RTOL = 1e-3     # |card - cpu| over the largest |cpu logit|, float32
+# (b): bench_resnet50's recipe (RN_*) on an ImageFolder of JPEG files
+ZOO_TRAINED = ("mobilenet_v3_large", "shufflenet_v2_x1_0")
+ZOO_WARMUP, ZOO_TIMED = 3, 10
+ZOO_IMAGE_SIDE = 256    # the JPEG files' side, cropped to RN_SIZE
+ZOO_CLASS_DIRS = 16     # class subdirectories written (labels < 1000)
+# the card's host makes about 110 such images a second whatever the
+# worker count (tools/torch_image_pipeline.py there: 8.2 ms an image in one
+# process; 13 batches of 64 in 7.31 s with four workers, 7.68 s with
+# seven), so four leave the main process more of the host
+ZOO_WORKERS, ZOO_PREFETCH = 4, 2
+ZOO_MEAN, ZOO_STD = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+# (c): beam search over an LSTM cell
+BEAM_VOCAB, BEAM_HIDDEN, BEAM_WIDTH, BEAM_BATCH, BEAM_STEPS = \
+    32000, 512, 4, 32, 64
+BEAM_LP_RTOL = 1e-5     # final log-probabilities, card against the CPU
+
+
+def _zoo_ctor(name):
+    """A constructor of vision.models by name; ``<vgg>_bn`` is
+    ``<vgg>(batch_norm=True)``."""
+    import functools
+
+    from paddle_tpu_torch.vision import models
+
+    if name.endswith("_bn"):
+        return functools.partial(getattr(models, name[:-3]), batch_norm=True)
+    return getattr(models, name)
+
+
+def _zoo_forwards(seed: int, device: str = "cuda",
+                  ctors=ZOO_CTORS) -> dict:
+    """(a): each constructor built on ``device`` from a seeded generator
+    and run once on a batch-2 float32 image in eval mode: logits finite
+    and [2, classes]; the first of each family also built on the CPU from
+    the same seed, run there, moved to ``device`` and held to the CPU's
+    logits. Each model is freed (its last reference dropped, so the
+    allocator reuses its memory) before the next is built."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for i, (name, side, chans, held) in enumerate(ctors):
+        ctor = _zoo_ctor(name)
+        classes = 10 if name == "LeNet" else RN_CLASSES
+        x = np.random.default_rng(seed + 40 + i).standard_normal(
+            (2, chans, side, side)).astype(np.float32)
+        t0 = time.perf_counter()
+        row = {}
+        if held:
+            model = ctor(device="cpu", generator=torch.Generator().manual_seed(
+                seed + i)).eval()
+            with torch.no_grad():
+                ref = model(torch.from_numpy(x))
+            row["cpu_s"] = time.perf_counter() - t0
+            model.to(device)
+        else:
+            model = ctor(device=device, generator=torch.Generator(
+                device).manual_seed(seed + i)).eval()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            logits = model(torch.from_numpy(x).to(device))
+        _sync(device)
+        row["card_s"] = time.perf_counter() - t1
+        row["params"] = sum(p.numel() for p in model.parameters())
+        if tuple(logits.shape) != (2, classes) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"vision_zoo (a) {name}: logits "
+                                 f"{tuple(logits.shape)}, finite "
+                                 f"{bool(torch.isfinite(logits).all())}")
+        if held:
+            scale = float(ref.abs().max())
+            err = float((logits.cpu() - ref).abs().max()) / scale
+            row.update(max_abs_logit=scale, rel_err=err)
+            if not err <= ZOO_FWD_RTOL:
+                raise AssertionError(f"vision_zoo (a) {name}: card logits "
+                                     f"{err} of the largest CPU logit off "
+                                     f"(limit {ZOO_FWD_RTOL})")
+        out[name] = row
+        del model, logits
+    _free()
+    return out
+
+
+class _LabelledFolder:
+    """``vision.datasets.ImageFolder`` (unlabelled, as the reference's)
+    read with each image's class directory as its label: ``(image,
+    int64 label)``. Decoding and the transforms run in the loader's
+    worker processes, on the host only."""
+
+    def __init__(self, root, transform):
+        from paddle_tpu_torch.vision.datasets import ImageFolder
+
+        self.folder = ImageFolder(root, loader=_pil_rgb, transform=transform)
+
+    def __len__(self):
+        return len(self.folder)
+
+    def __getitem__(self, i):
+        import numpy as np
+
+        (img,) = self.folder[i]
+        label = os.path.basename(os.path.dirname(self.folder.samples[i]))
+        return img, np.int64(int(label))
+
+
+def _pil_rgb(path):
+    import numpy as np
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def _write_jpegs(root: str, n: int, seed: int) -> float:
+    """``n`` JPEG files of ZOO_IMAGE_SIDE squares (smooth seeded colour
+    fields, quality 90) in ZOO_CLASS_DIRS class directories; returns the
+    seconds taken (encoded on threads)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, RN_CLASSES, ZOO_CLASS_DIRS)
+    for c in labels:
+        os.makedirs(os.path.join(root, f"{c:04d}"), exist_ok=True)
+    coarse = rng.integers(0, 256, (n, 16, 16, 3)).astype(np.uint8)
+
+    def write(k):
+        img = Image.fromarray(coarse[k]).resize(
+            (ZOO_IMAGE_SIDE, ZOO_IMAGE_SIDE), Image.BILINEAR)
+        img.save(os.path.join(root, f"{labels[k % ZOO_CLASS_DIRS]:04d}",
+                              f"{k:05d}.jpg"), quality=90)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(n)))
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _captured_prefetchers():
+    """Every ``prefetch_to_device`` iterator made while the block runs
+    (Model.fit makes one an epoch), so their ``stats()`` can be read
+    after the fit has closed them."""
+    from paddle_tpu_torch.io import device_prefetch
+
+    real = device_prefetch.prefetch_to_device
+    made = []
+
+    def recording(*a, **k):
+        it = real(*a, **k)
+        made.append(it)
+        return it
+
+    device_prefetch.prefetch_to_device = recording
+    try:
+        yield made
+    finally:
+        device_prefetch.prefetch_to_device = real
+
+
+def _no_dropout(ctor):
+    """``ctor`` with its Dropout layers at p = 0: the card's generator and
+    the CPU's draw different masks, and (b)'s yardstick holds one step's
+    arithmetic."""
+    from paddle_tpu_torch.nn.layers.common import Dropout
+
+    def build(**kw):
+        model = ctor(**kw)
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+        return model
+
+    return build
+
+
+def _zoo_fit(name: str, root: str, seed: int, device: str = "cuda",
+             batch: int = RN_BATCH, size: int = RN_SIZE) -> dict:
+    """(b) for one model: bench_resnet50's recipe through Model.fit over
+    the ImageFolder, ZOO_WARMUP + ZOO_TIMED steps (host clock per batch,
+    the loss read back), then one step on a device batch traced for its
+    launches and the card's idle share."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework import random as framework_random
+    from paddle_tpu_torch.framework.jit import EvalStep
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import transforms as T
+
+    framework_random.seed(seed)
+    t0 = time.perf_counter()
+    cuda = device != "cpu"
+    net = _zoo_ctor(name)(num_classes=RN_CLASSES, device=device,
+                          generator=torch.Generator(device).manual_seed(seed))
+    net, opt = amp.decorate(net.train(), Momentum(RN_LR, RN_MOMENTUM),
+                            level="O2", dtype="bfloat16")
+    model = Model(net)
+    model.prepare(opt, loss=CrossEntropyLoss())
+    build_s = time.perf_counter() - t0
+    data = _LabelledFolder(root, T.Compose([
+        T.RandomResizedCrop(size), T.RandomHorizontalFlip(),
+        T.ToTensor(), T.Normalize(ZOO_MEAN, ZOO_STD)]))
+    loader = DataLoader(data, batch_size=batch, shuffle=True,
+                        drop_last=True, num_workers=ZOO_WORKERS, seed=seed)
+    clock = _fit_clock(None)
+    np.random.seed(seed)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with _captured_prefetchers() as made:
+        model.fit(loader, epochs=1, prefetch_depth=ZOO_PREFETCH, verbose=0,
+                  callbacks=[clock])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None
+    ms = clock.step_ms()
+    timed = ms[ZOO_WARMUP:]
+    if len(ms) != ZOO_WARMUP + ZOO_TIMED or \
+            not all(math.isfinite(v) for v in clock.losses):
+        raise AssertionError(f"vision_zoo (b) {name}: {len(ms)} steps, "
+                             f"losses {clock.losses}")
+    stats = made[0].stats()
+    # one step on a batch already on the card: its launches, kernel time
+    # and idle share, beside the same step untraced
+    x = torch.from_numpy(np.stack([data[k][0] for k in range(batch)])
+                         ).to(device)
+    y = torch.from_numpy(np.stack([data[k][1] for k in range(batch)])
+                         ).to(device)
+    bare = []
+    for _ in range(3):
+        _sync(device)
+        t1 = time.perf_counter()
+        model.train_batch([x], [y])
+        _sync(device)
+        bare.append((time.perf_counter() - t1) * 1e3)
+    prof = _step_profile(lambda: model.train_batch([x], [y]), device)
+    bare_ms = float(np.median(bare))
+    with torch.no_grad():
+        logits = EvalStep(net)(x[:2])
+    out = dict(
+        losses=clock.losses, step_ms=ms,
+        step_ms_median=float(np.median(timed)), step_ms_min=min(timed),
+        step_ms_max=max(timed),
+        images_per_s=batch / (float(np.median(timed)) / 1e3),
+        images_per_s_over_timed=batch * len(timed) / (sum(timed) / 1e3),
+        peak_mem_gib=peak, batch=[batch, 3, size, size],
+        compute_dtype=str(logits.dtype).split(".")[-1],
+        model_build_s=build_s,
+        params=sum(p.numel() for p in net.parameters()),
+        input_stall_s=stats["consumer_stall_s"],
+        input_stall_per_step_ms=stats["consumer_stall_s"]
+        / max(stats["batches"], 1) * 1e3,
+        prefetch_batches=stats["batches"],
+        producer_busy_s=stats["producer_busy_s"],
+        bare_step_ms=bare_ms, launches_per_step=prof["launches"],
+        kernel_ms_per_step=prof["kernel_ms"],
+        idle_share=(None if prof["kernel_ms"] is None
+                    else 1.0 - prof["kernel_ms"] / bare_ms),
+        card=nvidia_smi_line() if cuda else None)
+    del model, net, opt, x, y
+    _free()
+    return out
+
+
+def _beam_modules(seed: int, device: str):
+    """The decoder's LSTM cell, embedding and output layer, seeded on the
+    CPU and moved to ``device`` (the card's and the CPU's runs hold the
+    same weights)."""
+    import torch
+
+    from paddle_tpu_torch import nn
+
+    g = torch.Generator().manual_seed(seed)
+    cell = nn.LSTMCell(BEAM_HIDDEN, BEAM_HIDDEN, device="cpu", generator=g)
+    emb = torch.randn(BEAM_VOCAB, BEAM_HIDDEN, generator=g) * 0.1
+    head = nn.Linear(BEAM_HIDDEN, BEAM_VOCAB, device="cpu", generator=g)
+    h0 = torch.randn(BEAM_BATCH, BEAM_HIDDEN, generator=g) * 0.5
+    return cell.to(device), emb.to(device), head.to(device), h0.to(device)
+
+
+def _beam_decode(seed: int, device: str) -> tuple:
+    """(c)'s decode on ``device``: ``(sequences, log-probs, seconds)``."""
+    import torch
+
+    from paddle_tpu_torch import nn
+
+    cell, emb, head, h0 = _beam_modules(seed, device)
+    dec = nn.BeamSearchDecoder(cell, start_token=0, end_token=1,
+                               beam_size=BEAM_WIDTH,
+                               embedding_fn=lambda ids: emb[ids],
+                               output_fn=head)
+    _sync(device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        seq, lp = nn.dynamic_decode(dec, (h0, torch.zeros_like(h0)),
+                                    max_step_num=BEAM_STEPS)
+    _sync(device)
+    return seq.cpu(), lp.cpu(), time.perf_counter() - t0
+
+
+def _zoo_beam(seed: int, device: str = "cuda") -> dict:
+    """(c): the card's beam search against the CPU's, same weights."""
+    import torch
+
+    _beam_decode(seed, device)   # builds cuBLAS's plans
+    seq, lp, card_s = _beam_decode(seed, device)
+    seq_c, lp_c, cpu_s = _beam_decode(seed, "cpu")
+    equal = bool(torch.equal(seq, seq_c))
+    err = float((lp - lp_c).abs().max() / lp_c.abs().max())
+    if not equal or not err <= BEAM_LP_RTOL:
+        raise AssertionError(f"vision_zoo (c): sequences equal {equal}, "
+                             f"log-probs {err} relative (limit "
+                             f"{BEAM_LP_RTOL})")
+    _free()
+    return dict(sequences=list(seq.shape), steps=seq.shape[-1],
+                card_ms=card_s * 1e3, card_ms_per_step=card_s * 1e3
+                / seq.shape[-1], cpu_s=cpu_s, lp_rel_err=err,
+                sequences_equal=equal)
+
+
+def phase_vision_zoo(seed: int, device: str = "cuda", ctors=ZOO_CTORS,
+                     batch: int = RN_BATCH, size: int = RN_SIZE) -> dict:
+    """The vision zoo (no flash kernel on its paths). (a) every
+    constructor of vision.models at full width on the card, one family
+    member each also held to the CPU; (b) MobileNetV3-Large and
+    ShuffleNetV2 x1.0 trained through Model.fit on bench_resnet50's recipe
+    from an ImageFolder of JPEG files, each also held with a batch-4
+    float32 step against the CPU (resnet50_training's yardstick); (c)
+    beam search over an LSTM cell, the card against the CPU.
+    ``device="cpu"``, ``ctors`` (fewer constructors), ``batch`` and
+    ``size`` give a dry run on the CPU."""
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    cuda = device != "cpu"
+    leftover = _check_freed("vision_zoo") if cuda else None
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = dict(path=ZOO_PATH, leftover_gib_at_start=leftover,
+               card=nvidia_smi_line() if cuda else None)
+    out["forwards"] = _zoo_forwards(seed, device, ctors)
+    out["forwards_s"] = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="vision_zoo_")
+    try:
+        n = batch * (ZOO_WARMUP + ZOO_TIMED)
+        out["jpeg_write_s"] = _write_jpegs(tmp, n, seed)
+        out["images"] = n
+        for i, name in enumerate(ZOO_TRAINED):
+            t1 = time.perf_counter()
+            run = _zoo_fit(name, tmp, seed + i, device, batch, size)
+            ctor = _zoo_ctor(name)
+            run["yardstick"] = _rn_yardstick(
+                seed + i, device, _no_dropout(ctor), phase="vision_zoo",
+                mean_in_std=True)
+            _free()
+            run["seconds"] = time.perf_counter() - t1
+            out[name] = run
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t1 = time.perf_counter()
+    out["beam_search"] = _zoo_beam(seed, device)
+    out["beam_search"]["seconds"] = time.perf_counter() - t1
+    out["flash_launches"] = sum(_counts(fa))
+    if out["flash_launches"]:
+        raise AssertionError(f"vision_zoo: {out['flash_launches']} flash "
+                             f"launches (0 expected)")
+    out["seconds"] = time.perf_counter() - t0
+    out["leftover_gib_at_end"] = (torch.cuda.memory_allocated() / 2 ** 30
+                                  if cuda else None)
+    emit("vision_zoo", **out)
     return out
 
 
@@ -8615,6 +9066,10 @@ DIST_RUNS = (
      DIST_ZERO_FWD, DIST_ZERO_BWD),
 )
 DIST_BACKEND = "gloo"        # two ranks on one device: NCCL refuses them
+# GPT-350M's width at 12 of its 24 layers: the three world-2 runs took
+# 121-133 s of the smoke's 1200 at 24 (gloo's loopback, a few s a step),
+# and the vision zoo's phase needed the room
+DIST_LAYERS = 12
 DIST_CHILD_TIMEOUT_S = 600   # one run's two ranks, start to exit
 DIST_NCCL_TIMEOUT_S = 120    # the NCCL checks (a refusal may hang a peer)
 # bf16 tolerances against the single-process step on the same batches.
@@ -8746,7 +9201,7 @@ def dist_child(runs: str, ref_path: str) -> int:
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     env.init_parallel_env(backend=DIST_BACKEND)
-    cfg = _primary_config()
+    cfg = _primary_config(num_layers=DIST_LAYERS)
     seed = int(os.environ["DIST_SEED"])
     batches = _dist_batches(cfg, seed)
     ref = torch.load(ref_path, weights_only=False, mmap=True)
@@ -8899,10 +9354,11 @@ def phase_distributed_training(seed: int) -> dict:
     from paddle_tpu_torch.models.gpt import gpt_flops_per_token
 
     leftover = _check_freed("distributed_training")
-    cfg = _primary_config()
+    cfg = _primary_config(num_layers=DIST_LAYERS)
     tmp = tempfile.mkdtemp(prefix="dist_smoke_")
     out = dict(model="bench_gpt_primary GPT-350M bf16 O2", path=DIST_PATH,
                batch=[HF_BATCH, HF_SEQ], layers=cfg.num_layers,
+               reduced=f"num_layers 24 -> {DIST_LAYERS} (time)",
                backend=DIST_BACKEND, card=nvidia_smi_line(),
                leftover_gib_at_start=leftover,
                tolerances=dict(loss_rtol=DIST_LOSS_RTOL,
@@ -8925,7 +9381,7 @@ def phase_distributed_training(seed: int) -> dict:
             for r in two[0]]
         emit("distributed_training_nccl", world1=out["nccl_world1"],
              two_ranks_on_one_device=out["nccl_two_ranks_on_one_device"])
-        need = _need(**HF_NEED)
+        need = _need(**{k: DIST_LAYERS for k in HF_NEED})
         flops = gpt_flops_per_token(cfg, HF_SEQ)
         # one pair of rank processes runs the three, one after the other
         labels = ",".join(r[0] for r in DIST_RUNS)
@@ -9055,6 +9511,8 @@ def main(argv=None) -> int:
     phase_bert_base(args.seed)
     _free()
     phase_resnet50_training(args.seed)
+    _free()
+    phase_vision_zoo(args.seed)
     _free()
     phase_detection_training(args.seed)
     _free()

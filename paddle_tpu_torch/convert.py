@@ -1,6 +1,7 @@
 """Load the JAX package's weights into the port: GPT, Llama, BERT,
-ERNIE, ResNet, PP-YOLOE, YOLOv3, CRNN, or any ported layer tree
-(``nn.Transformer``, ...).
+ERNIE, ResNet, the vision zoo (LeNet, VGG, MobileNet, AlexNet,
+SqueezeNet, ShuffleNetV2, DenseNet, GoogLeNet, InceptionV3), PP-YOLOE,
+YOLOv3, CRNN, or any ported layer tree (``nn.Transformer``, ...).
 
 The JAX ``Layer.state_dict()`` names map one to one onto the port's
 parameters and persistable buffers (BatchNorm's ``_mean`` and
@@ -40,11 +41,13 @@ from .models import ppyoloe as _ppyoloe
 from .models import resnet as _resnet
 from .models.ocr import CRNN
 from .models.yolo import YOLOv3
+from .vision import models as _zoo
 from .lora import LoraConfig, apply_lora
 
 __all__ = ["gpt_from_jax", "llama_from_jax", "bert_from_jax",
-           "ernie_from_jax", "resnet_from_jax", "ppyoloe_from_jax",
-           "yolov3_from_jax", "crnn_from_jax", "layer_from_jax",
+           "ernie_from_jax", "resnet_from_jax", "zoo_from_jax",
+           "ppyoloe_from_jax", "yolov3_from_jax", "crnn_from_jax",
+           "layer_from_jax",
            "shard_tensor",
            "gather_tensor", "shard_state", "gather_state"]
 
@@ -147,6 +150,22 @@ def resnet_from_jax(state: Dict[str, np.ndarray], depth_or_ctor="resnet50",
     if isinstance(ctor, str):
         ctor = getattr(_resnet, ctor)
     return _load_state(ctor(device=device, **kwargs), state, "ResNet")
+
+
+def zoo_from_jax(state: Dict[str, np.ndarray], ctor, device=None,
+                 **kwargs) -> nn.Module:
+    """A port vision model carrying a reference zoo model's
+    ``state_dict()`` (parameters and BatchNorm statistics), in eval mode.
+    ``ctor`` is any constructor or class of
+    :mod:`paddle_tpu_torch.vision.models` (or its name, e.g.
+    ``"mobilenet_v3_large"``, ``"shufflenet_v2_x1_0"``, ``"vgg16"``), and
+    ``kwargs`` (``num_classes``, ``scale``, ``batch_norm``, ``with_pool``,
+    ...) go to it as they went to the reference's. Raises ``KeyError`` on
+    a missing or an extra name and ``ValueError`` on a wrong shape."""
+    if isinstance(ctor, str):
+        ctor = getattr(_zoo, ctor)
+    model = ctor(device=device, **kwargs)
+    return _load_state(model, state, type(model).__name__)
 
 
 def ppyoloe_from_jax(state: Dict[str, np.ndarray], ctor="ppyoloe_s",

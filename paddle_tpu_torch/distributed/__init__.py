@@ -3,9 +3,20 @@
 (``mesh``), collectives over mesh axes (``collective``), the
 tensor-parallel layers (``parallel.mp_layers``), the bucketed gradient
 reduction (``overlap``), the hybrid-parallel ``DistributedTrainStep``
-(``shard``) and ``fleet``; plus checkpoints, fault tolerance, rpc and the
-launcher's KV store. The reference's names are kept."""
-from . import collective, env, fleet, overlap  # noqa: F401
+(``shard``) and ``fleet``; plus checkpoints, fault tolerance, rpc, the
+parameter-server and graph services and the launcher's KV store. The
+reference's names are kept, and its submodules ``checkpoint``, ``ps``,
+``resilience`` and ``rpc`` are bound here as they are there. Importing
+this package builds and loads nothing: the native runtime is built by
+its first use."""
+from . import checkpoint, collective, env, fleet, overlap  # noqa: F401
+from . import ps, resilience, rpc  # noqa: F401
+from ..io.slot_dataset import BoxPSDataset, QueueDataset  # noqa: F401
+from .checkpoint import (  # noqa: F401
+    AsyncSaver, AutoCheckpoint, CheckpointCorruptError, last_load_stats,
+    latest_checkpoint, load_state, mesh_info, save_state,
+    validate_checkpoint,
+)
 from .collective import (  # noqa: F401
     ReduceOp, all_gather, all_reduce, all_reduce_buckets, alltoall,
     broadcast, ppermute, reduce_scatter, shift_left, shift_right,
@@ -22,7 +33,13 @@ from .overlap import (  # noqa: F401
     build_buckets, shard_first_free_dim, weight_update_specs,
 )
 from .parallel import DataParallel, mp_layers  # noqa: F401
+from .parallel import recompute as recompute_mod  # noqa: F401
+from .ps.graph import GraphDataGenerator, GraphTable  # noqa: F401
 from .parallel.recompute import recompute  # noqa: F401
+from .resilience import (  # noqa: F401
+    FaultPlan, FaultRule, InjectedFault, RetryPolicy, fault_point,
+    with_timeout,
+)
 from .shard import (  # noqa: F401
     DistributedTrainStep, opt_state_specs, param_specs, shard_model,
     shard_params,

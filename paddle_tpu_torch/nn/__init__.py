@@ -1,7 +1,7 @@
 """``paddle.nn`` (port of ``paddle_tpu/nn/__init__.py``): the layers,
-``Layer``, ``functional`` and ``initializer``. The names of the
-reference's namespace that the port does not have yet are listed in
-ROADMAP.md (A9)."""
+``Layer``, ``functional``, ``initializer``, beam search (``decode``) and
+the parameter reparametrizations (``utils``), under the reference's
+names."""
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
 from .layer import (  # noqa: F401
@@ -19,7 +19,12 @@ from .layers.activation import (  # noqa: F401
     RReLU, Sigmoid, Silu, Softmax, Softmax2D, Softplus, Softshrink,
     Softsign, Swish, Tanh, Tanhshrink, ThresholdedReLU,
 )
-from .layers.common import Dropout, Embedding, Linear  # noqa: F401
+from .layers.common import (  # noqa: F401
+    AlphaDropout, Bilinear, ChannelShuffle, CosineSimilarity, Dropout,
+    Dropout2D, Dropout3D, Embedding, Flatten, Fold, Identity, Linear, Pad1D,
+    Pad2D, Pad3D, PairwiseDistance, PixelShuffle, PixelUnshuffle, Unfold,
+    Upsample, UpsamplingBilinear2D, UpsamplingNearest2D, ZeroPad2D,
+)
 from .layers.containers import (  # noqa: F401
     LayerDict, LayerList, ParameterList, Sequential,
 )
@@ -28,9 +33,9 @@ from .layers.conv import (  # noqa: F401
 )
 from .layers.loss import (  # noqa: F401
     BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss, CrossEntropyLoss,
-    CTCLoss, HingeEmbeddingLoss, KLDivLoss, L1Loss, MarginRankingLoss,
-    MSELoss, MultiLabelSoftMarginLoss, MultiMarginLoss, NLLLoss,
-    SmoothL1Loss, SoftMarginLoss, TripletMarginLoss,
+    CTCLoss, HingeEmbeddingLoss, HSigmoidLoss, KLDivLoss, L1Loss,
+    MarginRankingLoss, MSELoss, MultiLabelSoftMarginLoss, MultiMarginLoss,
+    NLLLoss, SmoothL1Loss, SoftMarginLoss, TripletMarginLoss,
     TripletMarginWithDistanceLoss,
 )
 from .layers.norm import (  # noqa: F401
@@ -49,7 +54,10 @@ from .layers.rnn import (  # noqa: F401
     SimpleRNNCell,
 )
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue  # noqa: F401
+from . import decode  # noqa: F401
+from .decode import BeamSearchDecoder, dynamic_decode  # noqa: F401
 from .layers.transformer import (  # noqa: F401
     MultiHeadAttention, Transformer, TransformerDecoder, TransformerDecoderLayer,
     TransformerEncoder, TransformerEncoderLayer,
 )
+from . import utils  # noqa: F401

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as _F
 
 from ..amp.auto_cast import autocast_call
+from ..ops.math import _out_of_place
 from .layer import take_rng_key
 
 __all__ = [
@@ -139,6 +140,14 @@ def prelu(x, weight, data_format: str = "NCHW", name=None):
     return torch.where(x >= 0, x, weight * x)
 
 
+def _seeded(x, stream: str) -> torch.Generator:
+    """A generator on ``x``'s device seeded from the named stream (see
+    :func:`~paddle_tpu_torch.nn.layer.take_rng_key`)."""
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(take_rng_key(stream))
+    return gen
+
+
 def rrelu(x, lower: float = 1.0 / 8.0, upper: float = 1.0 / 3.0,
           training: bool = True, name=None):
     """Randomised leaky ReLU: in training each negative element's slope is
@@ -146,10 +155,8 @@ def rrelu(x, lower: float = 1.0 / 8.0, upper: float = 1.0 / 3.0,
     "rrelu" stream (jax's draws and torch's differ; the distribution is
     the reference's); in eval the slope is their mean."""
     if training:
-        gen = torch.Generator(device=x.device)
-        gen.manual_seed(take_rng_key("rrelu"))
         a = torch.empty(x.shape, dtype=x.dtype, device=x.device).uniform_(
-            lower, upper, generator=gen)
+            lower, upper, generator=_seeded(x, "rrelu"))
     else:
         a = (lower + upper) / 2.0
     return torch.where(x >= 0, x, a * x)
@@ -393,9 +400,8 @@ def dropout(x, p: float = 0.5, axis=None, training: bool = True,
                            for i in range(x.ndim))
     else:
         mask_shape = tuple(x.shape)
-    gen = torch.Generator(device=x.device)
-    gen.manual_seed(take_rng_key("dropout"))
-    keep = torch.rand(mask_shape, generator=gen, device=x.device) < 1.0 - p
+    keep = torch.rand(mask_shape, generator=_seeded(x, "dropout"),
+                      device=x.device) < 1.0 - p
     kept = x / (1.0 - p) if mode == "upscale_in_train" else x
     return torch.where(keep, kept, torch.zeros_like(x))
 
@@ -1233,3 +1239,659 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                        dropout_p=p_drop, seed=seed,
                                        bias_grad=bias_grad)
     return _plain_attention(q, k, v, attn_mask, p_drop, is_causal)
+
+
+# ------------------------------------------------------------- the long tail
+# The rest of the reference's namespace (``functional.py:136-1579``): the
+# in-place aliases, embedding and label helpers, the spatial and vision
+# functions, the remaining losses, beam search's backtrace and sparse
+# attention. Each is plain torch with the reference's semantics; where
+# the reference calls a JAX primitive whose numerics torch does not share
+# (``jax.image.resize``, ``jnp.linspace``), the primitive's arithmetic is
+# written out here.
+
+relu_ = _out_of_place(relu)
+tanh_ = _out_of_place(tanh)
+softmax_ = _out_of_place(softmax)
+elu_ = _out_of_place(elu)
+
+
+def softplus_(x, name=None):
+    """``jax.nn.softplus`` (no beta, no threshold), the reference's
+    ``softplus_``: returns the result, the input unchanged."""
+    return _softplus(x)
+
+
+def _on(x, device=None):
+    """``x`` as a tensor: a tensor stays where it is, anything else goes
+    to ``device`` (None: the card)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    from .. import default_device
+
+    return torch.as_tensor(x, device=default_device(device))
+
+
+def gumbel_softmax(x, temperature: float = 1.0, hard: bool = False,
+                   axis: int = -1, name=None):
+    """``softmax((x + g) / temperature)`` with Gumbel noise ``g =
+    -log(-log(u))``, ``u`` uniform on ``[tiny, 1)`` from the "gumbel"
+    stream (``functional.py:136``). ``hard=True`` returns the one-hot of
+    the argmax with the soft sample's gradient (straight-through)."""
+    u = torch.rand(x.shape, generator=_seeded(x, "gumbel"), dtype=x.dtype,
+                   device=x.device).clamp_min(torch.finfo(x.dtype).tiny)
+    y = torch.softmax((x - torch.log(-torch.log(u))) / temperature, dim=axis)
+    if hard:
+        onehot = torch.zeros_like(y).scatter_(
+            axis, y.argmax(dim=axis, keepdim=True), 1.0)
+        y = (onehot - y).detach() + y
+    return y
+
+
+def embedding(x, weight, padding_idx=None, sparse: bool = False, name=None):
+    """Rows of ``weight`` at the ids ``x``; rows looked up by
+    ``padding_idx`` are zeros (``functional.py:161``)."""
+    ids = _t(x, weight).long()
+    out = weight[ids]
+    if padding_idx is not None:
+        out = out.masked_fill((ids == padding_idx)[..., None], 0.0)
+    return out
+
+
+def one_hot(x, num_classes: int, name=None):
+    """float32 one-hot rows (``jax.nn.one_hot``, ``functional.py:170``):
+    an id outside ``[0, num_classes)``, -1 say, gives a row of zeros
+    where ``torch.nn.functional.one_hot`` would raise."""
+    x = _on(x)
+    classes = torch.arange(num_classes, device=x.device)
+    return (x[..., None] == classes).to(torch.float32)
+
+
+def label_smooth(label, prior_dist=None, epsilon: float = 0.1, name=None):
+    """``(1 - eps) * label + eps / classes``, or ``+ eps * prior_dist``."""
+    if prior_dist is not None:
+        return (1 - epsilon) * label + epsilon * _t(prior_dist, label)
+    return (1 - epsilon) * label + epsilon / label.shape[-1]
+
+
+def normalize(x, p=2, axis: int = 1, epsilon: float = 1e-12, name=None):
+    """``x / max(||x||_p, epsilon)`` along ``axis``, the norm as
+    ``sum(|x| ** p) ** (1 / p)``."""
+    nrm = (x.abs() ** p).sum(dim=axis, keepdim=True) ** (1.0 / p)
+    return x / torch.clamp(nrm, min=epsilon)
+
+
+def dropout2d(x, p: float = 0.5, training: bool = True,
+              data_format: str = "NCHW", name=None):
+    """Whole channels dropped: one mask value per (sample, channel)."""
+    axis = [0, 1] if data_format == "NCHW" else [0, 3]
+    return dropout(x, p=p, axis=axis, training=training)
+
+
+def dropout3d(x, p: float = 0.5, training: bool = True,
+              data_format: str = "NCDHW", name=None):
+    axis = [0, 1] if data_format == "NCDHW" else [0, 4]
+    return dropout(x, p=p, axis=axis, training=training)
+
+
+_SELU_ALPHA = 1.6732632423543772
+_SELU_SCALE = 1.0507009873554805
+
+
+def alpha_dropout(x, p: float = 0.5, training: bool = True, name=None):
+    """SELU-preserving dropout (``functional.py:348``): a dropped element
+    becomes ``-alpha * scale``, then ``a * x + b`` restores the mean and
+    variance. The mask comes from the "dropout" stream."""
+    if not training or p == 0.0:
+        return x
+    alpha_p = -_SELU_ALPHA * _SELU_SCALE
+    keep = torch.rand(x.shape, generator=_seeded(x, "dropout"),
+                      device=x.device) < 1.0 - p
+    a = 1.0 / math.sqrt((1.0 - p) * (1.0 + p * alpha_p ** 2))
+    b = -a * alpha_p * p
+    return a * torch.where(keep, x, torch.full_like(x, alpha_p)) + b
+
+
+# ------------------------------------------------------------- resizing
+def _jnp_linspace(start: float, stop: float, num: int, device):
+    """``jnp.linspace(start, stop, num)`` in float32, its arithmetic:
+    ``start * (1 - i / div) + stop * (i / div)`` and the end point itself
+    (torch's linspace rounds otherwise)."""
+    start_t = torch.tensor(start, dtype=torch.float32, device=device)
+    if num == 1:
+        return start_t.reshape(1)
+    stop_t = torch.tensor(stop, dtype=torch.float32, device=device)
+    div = num - 1
+    step = torch.arange(div, dtype=torch.float32, device=device) / div
+    return torch.cat([start_t * (1 - step) + stop_t * step, stop_t[None]])
+
+
+def _keys_cubic(x):
+    """Keys' cubic kernel with a = -0.5 (``jax.image``'s, not torch's
+    a = -0.75)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _triangle(x):
+    return torch.clamp(1 - x.abs(), min=0)
+
+
+def _resize_weights(m: int, n: int, kernel, device):
+    """``jax.image``'s ``compute_weight_mat`` for an axis of ``m`` to
+    ``n`` samples (scale ``n / m``, no translation, antialiased):
+    ``[m, n]`` weights, each column normalised, the kernel widened by
+    ``m / n`` when it shrinks the axis."""
+    inv_scale = 1.0 / (n / m)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = ((torch.arange(n, dtype=torch.float32, device=device) + 0.5)
+              * inv_scale - 0.5)
+    src = torch.arange(m, dtype=torch.float32, device=device)
+    w = kernel((sample[None, :] - src[:, None]).abs() / kernel_scale)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(torch.finfo(
+        torch.float32).eps), w / torch.where(total != 0, total,
+                                             torch.ones_like(total)),
+        torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def _image_resize(x, axes, size, method: str):
+    """``jax.image.resize(x, ..., method)`` over the spatial ``axes``: an
+    axis whose size does not change is left alone. "nearest" takes input
+    ``floor((i + 0.5) * m / n)`` (half-pixel centres); "linear" and
+    "cubic" contract each axis with :func:`_resize_weights` (antialiased
+    when shrinking)."""
+    if method != "nearest" and not x.is_floating_point():
+        x = x.to(torch.float32)
+    for axis, n in zip(axes, size):
+        m = x.shape[axis]
+        if m == n:
+            continue
+        if method == "nearest":
+            src = ((torch.arange(n, dtype=torch.float32, device=x.device)
+                    + 0.5) * m / n).floor().long()
+            x = x.index_select(axis, src)
+            continue
+        w = _resize_weights(m, n, _keys_cubic if method == "cubic"
+                            else _triangle, x.device).to(x.dtype)
+        x = torch.matmul(x.movedim(axis, -1), w).movedim(-1, axis)
+    return x
+
+
+def _separable_linear_resize(x, positions, axes):
+    """Linear interpolation at the given source ``positions`` along each
+    axis (``functional.py:657-672``): the align-corners path."""
+    for axis, pos in zip(axes, positions):
+        size = x.shape[axis]
+        lo = pos.floor().long()
+        hi = (lo + 1).clamp(0, size - 1)
+        w = (pos - lo).to(x.dtype)
+        lo = lo.clamp(0, size - 1)
+        shape = [1] * x.ndim
+        shape[axis] = -1
+        w = w.reshape(shape)
+        x = (x.index_select(axis, lo) * (1 - w)
+             + x.index_select(axis, hi) * w)
+    return x
+
+
+_RESIZE_METHOD = {"nearest": "nearest", "bilinear": "linear",
+                  "trilinear": "linear", "linear": "linear",
+                  "bicubic": "cubic", "area": "linear"}
+
+
+def interpolate(x, size=None, scale_factor=None, mode: str = "nearest",
+                align_corners: bool = False, align_mode: int = 0,
+                data_format: str = "NCHW", name=None):
+    """Resize the spatial axes (``functional.py:622-654``), the
+    reference's semantics, which are not ``torch.nn.functional.
+    interpolate``'s:
+
+    - ``size`` or ``int(side * scale_factor)`` per axis;
+    - "nearest" samples half-pixel centres, whatever ``align_corners``;
+    - "bilinear", "trilinear", "linear" and "area" are linear, "bicubic"
+      Keys' cubic at a = -0.5, both as ``jax.image.resize`` computes them:
+      antialiased when an axis shrinks;
+    - with ``align_corners=True`` every mode but "nearest" is linear
+      interpolation between the corner-aligned source positions;
+    - ``align_mode`` is not read."""
+    channel_last = not data_format.startswith("NC")
+    n_spatial = x.ndim - 2
+    axes = list(range(1, 1 + n_spatial)) if channel_last \
+        else list(range(2, 2 + n_spatial))
+    spatial = [x.shape[a] for a in axes]
+    if size is None:
+        size = tuple(int(s * f) for s, f in
+                     zip(spatial, _pair(scale_factor, n_spatial)))
+    else:
+        size = tuple(int(s) for s in _pair(size, n_spatial))
+    method = _RESIZE_METHOD[mode]
+    if method == "nearest" or not align_corners:
+        return _image_resize(x, axes, size, method)
+    positions = [torch.zeros(1, dtype=torch.float32, device=x.device)
+                 if n == 1 else _jnp_linspace(0.0, m - 1.0, n, x.device)
+                 for m, n in zip(spatial, size)]
+    return _separable_linear_resize(x, positions, axes)
+
+
+def upsample(x, size=None, scale_factor=None, mode: str = "nearest",
+             align_corners: bool = False, align_mode: int = 0,
+             data_format: str = "NCHW", name=None):
+    return interpolate(x, size, scale_factor, mode, align_corners,
+                       align_mode, data_format)
+
+
+# ------------------------------------------------------------- rearranging
+def pixel_shuffle(x, upscale_factor: int, data_format: str = "NCHW",
+                  name=None):
+    """``[N, C r^2, H, W]`` to ``[N, C, H r, W r]`` (channels-last:
+    ``[N, H, W, r, r, C]`` order)."""
+    r = upscale_factor
+    if data_format == "NCHW":
+        N, C, H, W = x.shape
+        return x.reshape(N, C // (r * r), r, r, H, W).permute(
+            0, 1, 4, 2, 5, 3).reshape(N, C // (r * r), H * r, W * r)
+    N, H, W, C = x.shape
+    return x.reshape(N, H, W, r, r, C // (r * r)).permute(
+        0, 1, 3, 2, 4, 5).reshape(N, H * r, W * r, C // (r * r))
+
+
+def pixel_unshuffle(x, downscale_factor: int, data_format: str = "NCHW",
+                    name=None):
+    r = downscale_factor
+    if data_format == "NCHW":
+        N, C, H, W = x.shape
+        return x.reshape(N, C, H // r, r, W // r, r).permute(
+            0, 1, 3, 5, 2, 4).reshape(N, C * r * r, H // r, W // r)
+    N, H, W, C = x.shape
+    return x.reshape(N, H // r, r, W // r, r, C).permute(
+        0, 1, 3, 5, 2, 4).reshape(N, H // r, W // r, C * r * r)
+
+
+def channel_shuffle(x, groups: int, data_format: str = "NCHW", name=None):
+    """The channels as ``[groups, C / groups]`` transposed: ShuffleNetV2's
+    mixing step."""
+    if data_format == "NCHW":
+        N, C, H, W = x.shape
+        return x.reshape(N, groups, C // groups, H, W).transpose(1, 2) \
+            .reshape(N, C, H, W)
+    N, H, W, C = x.shape
+    return x.reshape(N, H, W, groups, C // groups).transpose(3, 4) \
+        .reshape(N, H, W, C)
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """Sliding ``[kh, kw]`` patches of ``[N, C, H, W]`` as ``[N, C kh kw,
+    L]``, channel-major (im2col); the padding is one (h, w) pair."""
+    ph, pw = _pair(paddings, 2)
+    return _F.unfold(x, _pair(kernel_sizes, 2), _pair(dilations, 2),
+                     (ph, pw), _pair(strides, 2))
+
+
+def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0, dilations=1,
+         name=None):
+    """The inverse of :func:`unfold`: patches summed back into ``[N, C,
+    H, W]`` where they overlap (col2im, ``functional.py:1295``)."""
+    ph, pw = _pair(paddings, 2)
+    return _F.fold(x, _pair(output_sizes, 2), _pair(kernel_sizes, 2),
+                   _pair(dilations, 2), (ph, pw), _pair(strides, 2))
+
+
+def zeropad2d(x, padding, data_format: str = "NCHW", name=None):
+    """Zeros around the spatial axes, ``padding`` (left, right, top,
+    bottom) or one int for all four."""
+    left, right, top, bottom = _pair(padding, 4)
+    if data_format == "NCHW":
+        return _F.pad(x, (left, right, top, bottom))
+    return _F.pad(x, (0, 0, left, right, top, bottom))
+
+
+def pad(x, pad, mode: str = "constant", value: float = 0.0,  # noqa: A002
+        data_format: str = "NCHW", name=None):
+    """``paddle.pad`` (:func:`paddle_tpu_torch.ops.manipulation.pad`)."""
+    from ..ops.manipulation import pad as _pad
+
+    return _pad(x, pad, mode=mode, value=value, data_format=data_format)
+
+
+def temporal_shift(x, seg_num: int, shift_ratio: float = 0.25,
+                   data_format: str = "NCHW", name=None):
+    """TSM's shift over ``[N T, C, H, W]``: the first ``C * shift_ratio``
+    channels move one segment back, the next as many one segment ahead,
+    zeros where they leave; the rest stay."""
+    NT, C, H, W = x.shape
+    x = x.reshape(NT // seg_num, seg_num, C, H, W)
+    f = int(C * shift_ratio)
+    left = torch.cat([x[:, 1:, :f], torch.zeros_like(x[:, :1, :f])], dim=1)
+    right = torch.cat([torch.zeros_like(x[:, :1, f:2 * f]),
+                       x[:, :-1, f:2 * f]], dim=1)
+    return torch.cat([left, right, x[:, :, 2 * f:]], dim=2).reshape(
+        NT, C, H, W)
+
+
+def diag_embed(input, offset: int = 0, dim1: int = -2, dim2: int = -1,  # noqa: A002
+               name=None):
+    """Each last-axis vector on a diagonal (``offset`` above the main one)
+    of a new ``[n, n]`` pair of axes placed at ``dim1`` (rows) and
+    ``dim2`` (columns)."""
+    n = input.shape[-1] + abs(offset)
+    out = input.new_zeros(tuple(input.shape[:-1]) + (n, n))
+    idx = torch.arange(input.shape[-1], device=input.device)
+    out[..., idx + max(-offset, 0), idx + max(offset, 0)] = input
+    nd = out.ndim
+    d1, d2 = dim1 % nd, dim2 % nd
+    if (d1, d2) != (nd - 2, nd - 1):
+        perm = [i for i in range(nd) if i not in (nd - 2, nd - 1)]
+        for dst, src in sorted([(d1, nd - 2), (d2, nd - 1)]):
+            perm.insert(dst, src)
+        out = out.permute(perm)
+    return out
+
+
+def pairwise_distance(x, y, p: float = 2.0, epsilon: float = 1e-6,
+                      keepdim: bool = False, name=None):
+    """``||x - y + epsilon||_p`` over the last axis."""
+    return torch.linalg.vector_norm(x - y + epsilon, ord=p, dim=-1,
+                                    keepdim=keepdim)
+
+
+def bilinear(x1, x2, weight, bias=None, name=None):
+    """``out[b, o] = x1[b] @ weight[o] @ x2[b] (+ bias)``, ``weight``
+    ``[out, in1, in2]``."""
+    out = torch.einsum("bi,oij,bj->bo", x1, weight, x2)
+    return out if bias is None else out + bias
+
+
+def sequence_mask(lengths, maxlen=None, dtype="bool"):
+    """``mask[..., j] = j < lengths[...]`` over ``maxlen`` columns; the
+    reference needs ``maxlen`` given (it raises without one)."""
+    from ..framework.dtype import convert_dtype
+
+    if maxlen is None:
+        raise ValueError("sequence_mask: pass maxlen explicitly (the "
+                         "reference needs a static width)")
+    lengths = _on(lengths)
+    row = torch.arange(int(maxlen), device=lengths.device)
+    return (row < lengths[..., None]).to(convert_dtype(dtype))
+
+
+# ------------------------------------------------------------- losses
+def square_error_cost(input, label):  # noqa: A002
+    return (input - _t(label, input)).square()
+
+
+def log_loss(input, label, epsilon: float = 1e-4, name=None):  # noqa: A002
+    y = _t(label, input).to(input.dtype)
+    return -(y * torch.log(input + epsilon)
+             + (1 - y) * torch.log(1 - input + epsilon))
+
+
+def dice_loss(input, label, epsilon: float = 1e-5, name=None):  # noqa: A002
+    """``mean(1 - (2 |X∩Y| + eps) / (|X| + |Y| + eps))`` per sample:
+    ``input`` ``[N, ..., C]`` probabilities, ``label`` ``[N, ..., 1]``
+    class ids."""
+    lab = _t(label, input)
+    if lab.shape[-1] == 1:
+        lab = lab[..., 0]
+    onehot = one_hot(lab, input.shape[-1]).to(input.dtype)
+    axes = tuple(range(1, input.ndim))
+    inter = 2.0 * (input * onehot).sum(dim=axes)
+    denom = input.sum(dim=axes) + onehot.sum(dim=axes)
+    return (1.0 - (inter + epsilon) / (denom + epsilon)).mean()
+
+
+def npair_loss(anchor, positive, labels, l2_reg: float = 0.002, name=None):
+    """Cross entropy of the anchor-positive similarities against the
+    same-label rows (each row's targets summing to 1), plus ``l2_reg / 4``
+    of the two embeddings' mean squared norms."""
+    lab = _t(labels, anchor).reshape(-1)
+    sim = anchor @ positive.T
+    tgt = (lab[:, None] == lab[None, :]).to(sim.dtype)
+    tgt = tgt / tgt.sum(dim=1, keepdim=True)
+    xent = (-tgt * torch.log_softmax(sim, dim=1)).sum(dim=1).mean()
+    reg = l2_reg * ((anchor * anchor).sum(1).mean()
+                    + (positive * positive).sum(1).mean()) * 0.25
+    return xent + reg
+
+
+def sigmoid_focal_loss(logit, label, normalizer=None, alpha: float = 0.25,
+                       gamma: float = 2.0, reduction: str = "sum",
+                       name=None):
+    """``alpha_t (1 - p_t) ** gamma`` times the logits' binary cross
+    entropy, divided by ``normalizer`` when given."""
+    y = _t(label, logit)
+    p = torch.sigmoid(logit)
+    ce = (torch.clamp(logit, min=0) - logit * y
+          + torch.log1p(torch.exp(-logit.abs())))
+    p_t = p * y + (1 - p) * (1 - y)
+    a_t = alpha * y + (1 - alpha) * (1 - y)
+    loss = a_t * ((1 - p_t) ** gamma) * ce
+    if normalizer is not None:
+        loss = loss / _t(normalizer, logit)
+    return _reduce_loss(loss, reduction)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label: bool = False,
+                               ignore_index: int = -100,
+                               numeric_stable_mode: bool = True,
+                               return_softmax: bool = False, axis: int = -1):
+    """Unreduced :func:`cross_entropy` with a trailing axis of 1 (and the
+    softmax with ``return_softmax``)."""
+    loss = cross_entropy(logits, label, soft_label=soft_label,
+                         ignore_index=ignore_index, reduction="none",
+                         axis=axis)[..., None]
+    if return_softmax:
+        return loss, torch.softmax(logits, dim=axis)
+    return loss
+
+
+def margin_cross_entropy(logits, label, margin1: float = 1.0,
+                         margin2: float = 0.5, margin3: float = 0.0,
+                         scale: float = 64.0, group=None,
+                         return_softmax: bool = False,
+                         reduction: str = "mean", name=None):
+    """ArcFace's combined margin (``functional.py:1434``): the target
+    class's cosine becomes ``cos(m1 theta + m2) - m3``, every logit is
+    scaled by ``scale``, then softmax cross entropy. ``group`` is not
+    read (one device)."""
+    cos = torch.clamp(logits, -1.0, 1.0)
+    lab = _t(label, logits).reshape(-1).long()
+    onehot = one_hot(lab, cos.shape[-1])
+    theta = torch.arccos(torch.clamp(cos, -1 + 1e-7, 1 - 1e-7))
+    target = torch.cos(margin1 * theta + margin2) - margin3
+    adj = torch.where(onehot > 0, target, cos) * scale
+    logp = torch.log_softmax(adj, dim=-1)
+    loss = _reduce_loss(-logp.gather(1, lab[:, None])[:, 0], reduction)
+    if return_softmax:
+        return loss, torch.softmax(adj, dim=-1)
+    return loss
+
+
+def hsigmoid_loss(input, label, num_classes: int, weight, bias=None,  # noqa: A002
+                  path_table=None, path_code=None, is_sparse: bool = False,
+                  name=None):
+    """Hierarchical sigmoid (``functional.py:1396``), ``[N, 1]`` losses.
+
+    The default tree is the word2vec heap: leaf ``c`` is node
+    ``num_classes + c``, its ancestors ``node // 2`` down to node 1, each
+    internal node's weight row ``node - 1`` and its code the child's
+    parity. A custom tree gives ``path_table`` (weight rows, -1 past a
+    path's end) and ``path_code``. A step with code 1 costs
+    ``softplus(-logit)``, code 0 ``softplus(logit)``."""
+    lab = _t(label, input).reshape(-1).long()
+    if path_table is None:
+        depth = int(math.ceil(math.log2(max(num_classes, 2)))) + 1
+        nodes, codes, masks = [], [], []
+        node = lab + num_classes
+        for _ in range(depth):
+            parent = node // 2
+            codes.append((node % 2).to(torch.float32))
+            live = parent >= 1
+            masks.append(live.to(torch.float32))
+            nodes.append(torch.where(live, parent, torch.ones_like(parent)))
+            node = parent
+        table = torch.stack(nodes, 1) - 1
+        code = torch.stack(codes, 1)
+        mask = torch.stack(masks, 1)
+    else:
+        table = _t(path_table, input).long()
+        code = _t(path_code, input).to(torch.float32)
+        mask = (table >= 0).to(torch.float32)
+        table = table.clamp_min(0)
+    logits = torch.einsum("bd,bkd->bk", input, weight[table])
+    if bias is not None:
+        logits = logits + bias.reshape(-1)[table]
+    nll = _softplus(-(2.0 * code - 1.0) * logits) * mask
+    return nll.sum(dim=1, keepdim=True)
+
+
+def class_center_sample(label, num_classes: int, num_samples: int,
+                        group=None):
+    """Partial FC's class centres (``functional.py:1454``): every positive
+    class of ``label``, then negatives drawn without replacement from a
+    seeded ``numpy`` generator (its seed from the framework's stream) up
+    to ``num_samples``, sorted. Returns ``(label remapped into the sampled
+    classes, the sampled classes)`` as int64 tensors on the label's
+    device."""
+    import numpy as np
+
+    from ..framework import random as framework_random
+
+    lab_t = _on(label)
+    lab = lab_t.detach().cpu().numpy().reshape(-1)
+    pos = np.unique(lab)
+    rest = np.setdiff1d(np.arange(num_classes), pos)
+    n_extra = max(0, num_samples - pos.size)
+    rng = np.random.default_rng(framework_random.next_seed() % (2 ** 31 - 1))
+    extra = rng.choice(rest, size=min(n_extra, rest.size), replace=False)
+    sampled = np.concatenate([pos, np.sort(extra)]).astype(np.int64)
+    remapped = np.searchsorted(pos, lab).astype(np.int64)
+    return (torch.from_numpy(remapped).to(lab_t.device),
+            torch.from_numpy(sampled).to(lab_t.device))
+
+
+# ------------------------------------------------------------- warps
+def affine_grid(theta, out_shape, align_corners: bool = True, name=None):
+    """``[N, 2, 3]`` affine parameters to an ``[N, H, W, 2]`` grid of
+    normalised (x, y) sampling positions (``functional.py:1478``)."""
+    H, W = int(out_shape[2]), int(out_shape[3])
+
+    def coords(n):
+        if align_corners:
+            return _jnp_linspace(-1.0, 1.0, n, theta.device)
+        step = 2.0 / n
+        return _jnp_linspace(-1.0 + step / 2, 1.0 - step / 2, n,
+                             theta.device)
+
+    gy, gx = torch.meshgrid(coords(H), coords(W), indexing="ij")
+    base = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1).to(theta.dtype)
+    return torch.einsum("hwk,nik->nhwi", base, theta)
+
+
+def grid_sample(x, grid, mode: str = "bilinear",
+                padding_mode: str = "zeros", align_corners: bool = True,
+                name=None):
+    """``[N, C, H, W]`` sampled at the normalised ``[N, Ho, Wo, 2]`` grid
+    (``functional.py:1496-1550``): bilinear or nearest (rounding half to
+    even), padding by zeros, the border, or reflection about ``[0, s -
+    1]`` (``align_corners``) or ``[-0.5, s - 0.5]`` then clipped."""
+    N, C, H, W = x.shape
+
+    def unnorm(g, size):
+        if align_corners:
+            return (g + 1) * (size - 1) / 2
+        return ((g + 1) * size - 1) / 2
+
+    gx = unnorm(grid[..., 0], W)
+    gy = unnorm(grid[..., 1], H)
+
+    def reflect(v, lo, hi):
+        span = hi - lo
+        if span <= 0:
+            return torch.full_like(v, max(lo, 0.0))
+        v = ((v - lo) % (2 * span)).abs()
+        return torch.where(v > span, 2 * span - v, v) + lo
+
+    if padding_mode == "reflection":
+        if align_corners:
+            gx, gy = reflect(gx, 0.0, W - 1.0), reflect(gy, 0.0, H - 1.0)
+        else:
+            gx = reflect(gx, -0.5, W - 0.5).clamp(0, W - 1)
+            gy = reflect(gy, -0.5, H - 0.5).clamp(0, H - 1)
+    batch = torch.arange(N, device=x.device)[:, None, None]
+
+    def gather(ix, iy):
+        vals = x[batch, :, iy.clamp(0, H - 1), ix.clamp(0, W - 1)]
+        if padding_mode == "zeros":
+            inb = (ix >= 0) & (ix < W) & (iy >= 0) & (iy < H)
+            vals = vals * inb[..., None]
+        return vals
+
+    if mode == "nearest":
+        return gather(gx.round().long(), gy.round().long()).movedim(-1, 1)
+    x0, y0 = gx.floor().long(), gy.floor().long()
+    wx = (gx - x0)[..., None]
+    wy = (gy - y0)[..., None]
+    out = (gather(x0, y0) * (1 - wx) * (1 - wy)
+           + gather(x0 + 1, y0) * wx * (1 - wy)
+           + gather(x0, y0 + 1) * (1 - wx) * wy
+           + gather(x0 + 1, y0 + 1) * wx * wy)
+    return out.movedim(-1, 1)
+
+
+# ------------------------------------------------------------- decoding
+def gather_tree(ids, parents):
+    """Beam search's backtrace (``functional.py:1139``): from ``ids`` and
+    ``parents`` ``[T, B, beam]``, each final beam's tokens along its chain
+    of parents, ``[T, B, beam]``."""
+    T, B, K = ids.shape
+    rows = torch.arange(B, device=ids.device)[:, None]
+    beam = torch.arange(K, device=ids.device).expand(B, K)
+    toks = []
+    for t in range(T - 1, -1, -1):
+        toks.append(ids[t][rows, beam])
+        beam = parents[t][rows, beam]
+    return torch.stack(toks[::-1])
+
+
+def sparse_attention(query, key, value, sparse_csr_offset,
+                     sparse_csr_columns, key_padding_mask=None,
+                     attn_mask=None, name=None):
+    """Block-sparse attention from CSR rows (``functional.py:1553``),
+    ``[B, H, L, D]``: the CSR layout becomes a dense keep-mask on the
+    host, masked scores are -1e30 (a row that keeps nothing averages V),
+    ``attn_mask`` is added; ``key_padding_mask`` is not read, as in the
+    reference. Plain torch, as the reference is plain code."""
+    import numpy as np
+
+    B, H, L, D = query.shape
+    offs = np.asarray(torch.as_tensor(sparse_csr_offset).cpu())
+    cols = np.asarray(torch.as_tensor(sparse_csr_columns).cpu())
+    mask = np.zeros((B, H, L, L), bool)
+    for b in range(B):
+        for h in range(H):
+            o, c = offs[b, h], cols[b, h]
+            for r in range(L):
+                mask[b, h, r, c[o[r]:o[r + 1]]] = True
+    s = torch.einsum("bhld,bhmd->bhlm", query, key) / math.sqrt(D)
+    s = torch.where(torch.from_numpy(mask).to(s.device), s,
+                    torch.full_like(s, -1e30))
+    if attn_mask is not None:
+        s = s + _t(attn_mask, s)
+    return torch.einsum("bhlm,bhmd->bhld", torch.softmax(s, dim=-1), value)
+
+
+__all__ += [
+    "relu_", "tanh_", "softmax_", "elu_", "softplus_", "gumbel_softmax",
+    "embedding", "one_hot", "label_smooth", "normalize", "dropout2d",
+    "dropout3d", "alpha_dropout", "interpolate", "upsample",
+    "pixel_shuffle", "pixel_unshuffle", "channel_shuffle", "unfold", "fold",
+    "zeropad2d", "pad", "temporal_shift", "diag_embed", "pairwise_distance",
+    "bilinear", "sequence_mask", "square_error_cost", "log_loss",
+    "dice_loss", "npair_loss", "sigmoid_focal_loss",
+    "softmax_with_cross_entropy", "margin_cross_entropy", "hsigmoid_loss",
+    "class_center_sample", "affine_grid", "grid_sample", "gather_tree",
+    "sparse_attention"]

@@ -1,21 +1,25 @@
 """Loss layers (port of ``paddle_tpu/nn/layers/loss.py``): each
 forwards to its function in :mod:`~paddle_tpu_torch.nn.functional`. A
 class weight is held as given (``_weight_value``), not as a parameter, as
-in the reference. ``HSigmoidLoss`` waits with ``hsigmoid_loss`` for
-ROADMAP A9's rest of ``nn`` (after ``nn/decode.py``).
+in the reference. ``HSigmoidLoss`` owns the tree's internal-node
+parameters.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
 from torch import nn
 
 from .. import functional as F
+from ..initializer import XavierUniform, create_parameter
 
 __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "SmoothL1Loss",
            "NLLLoss", "BCELoss", "BCEWithLogitsLoss", "KLDivLoss",
            "MarginRankingLoss", "CTCLoss", "HingeEmbeddingLoss",
            "CosineEmbeddingLoss", "TripletMarginLoss",
            "SoftMarginLoss", "MultiLabelSoftMarginLoss",
-           "MultiMarginLoss", "TripletMarginWithDistanceLoss"]
+           "MultiMarginLoss", "TripletMarginWithDistanceLoss", "HSigmoidLoss"]
 
 
 class CrossEntropyLoss(nn.Module):
@@ -206,3 +210,31 @@ class TripletMarginWithDistanceLoss(nn.Module):
         return F.triplet_margin_with_distance_loss(
             input, positive, negative, self.distance_function, self.margin,
             self.swap, self.reduction)
+
+
+class HSigmoidLoss(nn.Module):
+    """``F.hsigmoid_loss`` over its own parameters (``loss.py:198``):
+    ``weight`` ``[num_classes - 1, feature_size]``, one row per internal
+    node of the default tree, drawn ``XavierUniform``, and ``bias``
+    ``[num_classes - 1]`` unless ``bias_attr=False``."""
+
+    def __init__(self, feature_size: int, num_classes: int, weight_attr=None,
+                 bias_attr=None, is_custom: bool = False,
+                 is_sparse: bool = False, name=None, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_classes = num_classes
+        rows = num_classes - 1
+        self.weight = create_parameter(
+            (rows, feature_size), attr=weight_attr,
+            default_initializer=XavierUniform(), device=device,
+            generator=generator)
+        self.bias = None
+        if bias_attr is not False:
+            self.bias = create_parameter((rows,), attr=bias_attr,
+                                         is_bias=True, device=device,
+                                         generator=generator)
+
+    def forward(self, input, label, path_table=None, path_code=None):  # noqa: A002
+        return F.hsigmoid_loss(input, label, self.num_classes, self.weight,
+                               self.bias, path_table, path_code)

@@ -1,15 +1,16 @@
-"""paddle_tpu_torch.vision: the detection and region ops (:mod:`.ops`)
-and the image backend switch (port of ``paddle_tpu/vision/__init__.py``).
+"""paddle_tpu_torch.vision (port of ``paddle_tpu/vision/__init__.py``):
+the model zoo (:mod:`.models`), the host-side image transforms
+(:mod:`.transforms`), the dataset readers (:mod:`.datasets`), the
+detection and region ops (:mod:`.ops`) and the image backend switch.
 
-``models``, ``transforms`` and ``datasets`` are not ported yet: they are
-queued in ROADMAP A9. The detectors and the recognizer live in
-:mod:`paddle_tpu_torch.models` (``ppyoloe``, ``yolo``, ``ocr``), as in
-the reference. PIL (and opencv for the "cv2" backend) is imported only
-when an image is loaded.
+The detectors and the recognizer live in :mod:`paddle_tpu_torch.models`
+(``ppyoloe``, ``yolo``, ``ocr``), as in the reference. PIL (and opencv
+for the "cv2" backend) is imported only when an image is loaded.
 """
-from . import ops
+from . import datasets, models, ops, transforms
 
-__all__ = ["ops", "get_image_backend", "set_image_backend", "image_load"]
+__all__ = ["models", "transforms", "datasets", "ops",
+           "get_image_backend", "set_image_backend", "image_load"]
 
 _image_backend = "pil"
 

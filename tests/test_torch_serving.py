@@ -345,6 +345,12 @@ def test_port_imports_no_jax_or_reference_package():
                  "paddle_tpu_torch/distributed/fleet/strategy.py",
                  "paddle_tpu_torch/vision/__init__.py",
                  "paddle_tpu_torch/vision/ops.py",
+                 "paddle_tpu_torch/vision/models.py",
+                 "paddle_tpu_torch/vision/transforms.py",
+                 "paddle_tpu_torch/vision/datasets.py",
+                 "paddle_tpu_torch/nn/layers/common.py",
+                 "paddle_tpu_torch/nn/decode.py",
+                 "paddle_tpu_torch/nn/utils/__init__.py",
                  "paddle_tpu_torch/models/__init__.py",
                  "paddle_tpu_torch/models/ppyoloe.py",
                  "paddle_tpu_torch/models/yolo.py",
