@@ -358,7 +358,35 @@ exits non-zero:
                step at its own shape
                ([4,16,1024,64] under ZeRO, [8,8,1024,64] under mp) and
                reports its step ms, peak GiB, bytes by collective, staged
-               bytes and the backend.
+               bytes and the backend. Then the same model launched
+               (``distributed_training_launch``): two elastic launchers
+               (``python -m paddle_tpu_torch.distributed.launch --nnodes
+               1:2 --elastic_ttl 2``, a KV store this process binds
+               first) as two nodes, each running one rank of
+               tools/torch_launch_train.py on the card over gloo: the
+               collective checks (new_group, send/recv with and without a
+               buffer, isend/irecv, batch_isend_irecv, reduce, scatter,
+               alltoall_single, all_gather_object on CUDA tensors, exact),
+               LAUNCH_LOCALSGD_STEPS steps of fleet's LocalSGD (k_steps 2:
+               the ranks' checksums differ before the first sync and are
+               bit-equal after each; rank 0 replays the segment in one
+               process, two TrainSteps on the halves with their masters
+               averaged, and holds the losses within DIST_LOSS_RTOL and
+               the masters within the update limits of the replay's),
+               then group_sharded_parallel "os_g"
+               at sdp = 2 saving one checkpoint from both ranks every
+               LAUNCH_SAVE_EVERY steps; once step LAUNCH_KILL_AFTER's is
+               published, node B's process group is SIGKILLed, node A's
+               launcher must log "membership changed; resizing" and its
+               new rank (world 1, mesh through reshaped_mesh, batch
+               through rescale_batch) restores that checkpoint resharded,
+               bit-equal to the shard files' crc32, and finishes the 13
+               steps. Every step's loss at both worlds within
+               DIST_LOSS_RTOL of the yardstick's, the final masters within
+               its update limits, 12 wgmma forward, dQ and dK/dV launches
+               every step at [4,16,1024,64] then [8,16,1024,64]; boot,
+               save and restore seconds and bytes, the resize's wall time
+               from the kill to the first resumed step, the peak a rank.
 17. ps_ctr_training, graph_training - the parameter-server and graph
                path, after ocr_training (no flash kernel on it; the
                native C++ runtime built by g++ on a thread during the
@@ -405,7 +433,8 @@ exits non-zero:
                the Python predictor at rtol 1e-5 / atol 1e-6, and the
                card's program moved to the CPU by Config.disable_gpu().
                ``--only inference_export`` builds the kernels and runs
-               this phase alone (no result line).
+               this phase alone (no result line); ``--only
+               distributed_training`` does the same for phase 16.
 
 Then a line with the kernels' summary, a line with the card's name and
 power limit, and the last line {"ok": true, "device": {...}}.
@@ -2421,12 +2450,12 @@ def fleet_child(weights: str, endpoint: str, device: str) -> int:
     return 0
 
 
-def replica_child(weights: str, endpoint: str, device: str,
-                  cycle: str) -> int:
+def replica_child(weights: str, endpoint: str, device: str) -> int:
     """The replica fleet_serving's Autoscaler spawns: the parent's model
     (weights from ``weights``) behind one pool-less preset server, hosted
-    over rpc as ``default`` (the name ProcessReplicaSpawner asks for) in
-    the parent's rpc cycle ``cycle``, until the parent asks it to stop."""
+    over rpc as ``default`` (the name ProcessReplicaSpawner asks for) at
+    the parent's fresh store ``endpoint``, until the parent asks it to
+    stop."""
     import numpy as np
     import torch
 
@@ -2435,7 +2464,6 @@ def replica_child(weights: str, endpoint: str, device: str,
     from paddle_tpu_torch.serving import remote
 
     default_device(device)
-    rpc.rpc._cycle = int(cycle)     # the parent's rendezvous namespace
     rpc.init_rpc("auto-replica", rank=1, world_size=2,
                  master_endpoint=endpoint)
     blob = torch.load(weights, map_location=device, weights_only=False)
@@ -2467,7 +2495,7 @@ def _autoscale_out(model, requests, yard, weights, env, device, fa) -> dict:
     endpoint = f"127.0.0.1:{_free_port()}"
     spawner = ProcessReplicaSpawner(
         [sys.executable, os.path.abspath(__file__), "--replica-child",
-         weights, endpoint, device, str(rpc.rpc._cycle)], "auto-replica",
+         weights, endpoint, device], "auto-replica",
         init=lambda: rpc.init_rpc("parent", rank=0, world_size=2,
                                   master_endpoint=endpoint),
         rpc_timeout=120.0, ready_timeout=600.0, env=env)
@@ -9347,6 +9375,200 @@ def _join_world(handle, timeout: float = DIST_CHILD_TIMEOUT_S,
             for i in range(n_runs)]
 
 
+# the launched job (distributed_training_launch): two elastic launcher
+# processes as two nodes, each running one rank of
+# tools/torch_launch_train.py on the card over gloo; node B is SIGKILLed
+# once the checkpoint of step LAUNCH_KILL_AFTER is published, and node A
+# resumes it at world 1. One save before the kill and none after it: a
+# save every 4 steps cost the run a second world-2 save and a world-1 one
+# at step 12, about 7 s on the H100
+LAUNCH_SAVE_EVERY = 8
+LAUNCH_KILL_AFTER = 8
+LAUNCH_LOCALSGD_STEPS = 4
+LAUNCH_TTL_S = 2.0
+LAUNCH_TIMEOUT_S = 420       # the job, start to node A's exit
+LAUNCH_PATH = ("training launched by distributed.launch (GPT-350M bf16 "
+               "O2, ZeRO-2 at sdp = 2 over gloo, a node killed, resumed "
+               "at world 1)")
+
+
+def _launch_reports(out_dir: str) -> list:
+    rows = []
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name)) as f:
+            rows += [json.loads(line) for line in f]
+    return rows
+
+
+def _launch_run(cfg, seed: int, ref_path: str, ref_losses, need,
+                tmp: str) -> dict:
+    """The elastic job of LAUNCH_PATH: its gates (see the module
+    docstring, 16) and what it measured."""
+    import signal
+    import statistics
+
+    from paddle_tpu_torch.distributed.launch import KVServer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(tmp, "launch_out")
+    root = os.path.join(tmp, "launch_ckpt")
+    tool = os.path.join(here, "tools", "torch_launch_train.py")
+    args = [tool, "--out", out_dir, "--ckpt", root, "--ref", ref_path,
+            "--seed", str(seed), "--steps", str(len(ref_losses)),
+            "--save-every", str(LAUNCH_SAVE_EVERY), "--layers",
+            str(cfg.num_layers), "--batch", str(HF_BATCH), "--seq",
+            str(HF_SEQ), "--localsgd-steps", str(LAUNCH_LOCALSGD_STEPS)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t_start = time.time()
+    procs, logs = [], []
+    with KVServer(0, host="127.0.0.1") as server:
+        common = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+                  "--nnodes", "1:2", "--nproc_per_node", "1", "--master",
+                  f"127.0.0.1:{server.port}", "--job_id", "smoke",
+                  "--elastic_ttl", str(LAUNCH_TTL_S)]
+        try:
+            for node in ("a", "b"):
+                log = open(os.path.join(tmp, f"launcher_{node}.log"), "w+")
+                logs.append(log)
+                procs.append(subprocess.Popen(
+                    common + ["--node_rank", "1" if node == "a" else "2",
+                              "--log_dir", os.path.join(tmp, f"logs_{node}")]
+                    + args, stdout=log, stderr=subprocess.STDOUT, text=True,
+                    cwd=here, env=env, start_new_session=True))
+            deadline = time.monotonic() + LAUNCH_TIMEOUT_S
+            published = os.path.join(root, f"step_{LAUNCH_KILL_AFTER}")
+            while not os.path.isdir(published):
+                if time.monotonic() > deadline or any(
+                        p.poll() is not None for p in procs):
+                    raise AssertionError(
+                        f"{LAUNCH_PATH}: step_{LAUNCH_KILL_AFTER} was never "
+                        f"published at world 2")
+                time.sleep(0.05)
+            t_kill = time.time()
+            os.killpg(procs[1].pid, signal.SIGKILL)   # node B: lost
+            procs[0].wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                p.wait(timeout=60)
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    if procs[0].returncode != 0:
+        raise AssertionError(f"{LAUNCH_PATH}: node A exited "
+                             f"{procs[0].returncode}\n{texts[0][-4000:]}")
+    if "membership changed; resizing" not in texts[0]:
+        raise AssertionError(f"{LAUNCH_PATH}: node A never resized\n"
+                             f"{texts[0][-4000:]}")
+    rows = _launch_reports(out_dir)
+    two = [r for r in rows if r["world"] == 2]
+    one = [r for r in rows if r["world"] == 1]
+
+    def event(rs, name, rank=None):
+        got = [r for r in rs if r["event"] == name
+               and (rank is None or r["rank"] == rank)]
+        if not got:
+            raise AssertionError(f"{LAUNCH_PATH}: no {name!r} event"
+                                 + (f" from rank {rank}" if rank is not None
+                                    else ""))
+        return got
+
+    checks = [event(two, "collectives", r)[0]["checks"] for r in (0, 1)]
+    sgd = [event(two, "localsgd", r)[0]["rows"] for r in (0, 1)]
+    if [x["equal"] for x in sgd[0]] != [False, True, False, True]:
+        raise AssertionError(f"{LAUNCH_PATH}: LocalSGD checksums {sgd[0]}")
+    # rank 0's single-process replay of the segment (the tool gates on it)
+    replay = event(two, "localsgd_reference", 0)[0]
+    sgd_launches = [event(two, "localsgd_done", r)[0]["launches"]
+                    for r in (0, 1)]
+    want_sgd = [LAUNCH_LOCALSGD_STEPS * n for n in need]
+    if any(got != want_sgd for got in sgd_launches):
+        raise AssertionError(f"{LAUNCH_PATH}: LocalSGD launches "
+                             f"{sgd_launches}, expected {want_sgd}")
+    restore = event(one, "restore")[0]
+    if not restore["bit_equal"] or restore["step"] != LAUNCH_KILL_AFTER \
+            or restore["written_on"]["axes"] != {"sdp": 2} \
+            or restore["mesh"] != {"sdp": 1}:
+        raise AssertionError(f"{LAUNCH_PATH}: restore {restore}")
+    steps = event(two, "step") + event(one, "step")
+    for r in steps:
+        if r["launches"] != list(need):
+            raise AssertionError(f"{LAUNCH_PATH}: rank {r['rank']} world "
+                                 f"{r['world']} step {r['step']}: launches "
+                                 f"{r['launches']}, expected {list(need)}")
+    loss_err = max(abs(r["loss"] - ref_losses[r["step"]])
+                   / abs(ref_losses[r["step"]]) for r in steps)
+    done = event(one, "done")[0]
+    resumed = event(one, "step")
+    if [r["step"] for r in resumed] != list(range(LAUNCH_KILL_AFTER,
+                                                  len(ref_losses))):
+        raise AssertionError(f"{LAUNCH_PATH}: world-1 steps "
+                             f"{[r['step'] for r in resumed]}")
+    if loss_err > DIST_LOSS_RTOL \
+            or done["update_err_worst_leaf"] > DIST_UPDATE_RTOL \
+            or done["update_err_model"] > DIST_UPDATE_MODEL_RTOL:
+        raise AssertionError(
+            f"{LAUNCH_PATH}: losses' max rel error {loss_err} (limit "
+            f"{DIST_LOSS_RTOL}), update error {done['update_err_worst_leaf']}"
+            f" at {done['worst_leaf']} (limit {DIST_UPDATE_RTOL}), the "
+            f"model's {done['update_err_model']} (limit "
+            f"{DIST_UPDATE_MODEL_RTOL})")
+    saves = event(two, "save")
+    boots = event(rows, "boot")
+    return dict(
+        path=LAUNCH_PATH, seconds=time.time() - t_start,
+        collective_checks=checks, localsgd=sgd[0],
+        localsgd_launches=sgd_launches[0],
+        localsgd_seconds=event(two, "localsgd_done", 0)[0]["seconds"],
+        localsgd_replay={k: replay[k] for k in (
+            "loss_max_rel_err", "update_err_worst_leaf", "worst_leaf",
+            "update_err_model", "master_max_abs_err", "seconds")},
+        boot_seconds={f"w{r['world']}_r{r['rank']}": r["seconds"]
+                      for r in boots},
+        built_seconds={f"w{r['world']}_r{r['rank']}": r["seconds"]
+                       for r in event(rows, "built")},
+        # seconds the step waited (the host copies); the files are
+        # written on the save's thread, joined at the end (final_wait_s)
+        saves=[dict(step=r["step"], rank=r["rank"], seconds=r["seconds"],
+                    bytes=r["bytes"]) for r in saves],
+        final_wait_s=event(one, "done")[0]["wait_seconds"],
+        restore=dict(step=restore["step"], seconds=restore["seconds"],
+                     verify_seconds=restore["verify_seconds"],
+                     bytes_read=restore["bytes_read"],
+                     peak_resident_bytes=restore["peak_resident_bytes"],
+                     shard_files_checked=restore["shard_files_checked"],
+                     bit_equal=restore["bit_equal"],
+                     written_on=restore["written_on"], mesh=restore["mesh"]),
+        resize_s=resumed[0]["wall"] - t_kill,
+        # the launcher's part (lease, resize, a new worker) and the new
+        # worker's (boot, build, restore, checks) of resize_s
+        relaunch_s=event(one, "boot")[0]["started"] - t_kill,
+        worker_to_first_step_s=resumed[0]["wall"]
+        - event(one, "boot")[0]["started"],
+        # each incarnation's events, seconds after its worker started
+        timelines={f"w{b['world']}_r{b['rank']}": {
+            r["event"] + (str(r["step"]) if r["event"] == "step" else ""):
+            r["time"] - b["started"] for r in rows
+            if (r["world"], r["rank"]) == (b["world"], b["rank"])}
+            for b in boots},
+        losses={f"w{r['world']}_r{r['rank']}_s{r['step']}": r["loss"]
+                for r in steps},
+        loss_max_rel_err=loss_err,
+        step_ms_median={f"w{w}": 1e3 * statistics.median(
+            r["seconds"] for r in steps if r["world"] == w) for w in (1, 2)},
+        launches_per_step=list(need),
+        peak_gib={f"w{r['world']}_r{r['rank']}": r["peak_gib"]
+                  for r in steps},
+        update_err_worst_leaf=done["update_err_worst_leaf"],
+        worst_leaf=done["worst_leaf"],
+        update_err_model=done["update_err_model"],
+        launcher_a_tail=texts[0].splitlines()[-6:])
+
+
 def phase_distributed_training(seed: int) -> dict:
     """See the module docstring (14)."""
     import tempfile
@@ -9418,6 +9640,11 @@ def phase_distributed_training(seed: int) -> dict:
                               attention_bwd_case=bwd_case,
                               seconds=r0["run_s"])
             emit(f"distributed_training_{label}", **out[label])
+        # the same model launched as an elastic job, a node lost mid-run
+        out["launch"] = _launch_run(cfg, seed, ref_path, ref["losses"], need,
+                                    tmp)
+        emit("distributed_training_launch", card=nvidia_smi_line(),
+             **out["launch"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("distributed_training", **out)
@@ -9432,14 +9659,15 @@ def main(argv=None) -> int:
                          "line, with a register spill reported but not "
                          "fatal: to compare kernel builds in turns, each "
                          "from its own checkout")
-    ap.add_argument("--only", choices=("inference_export",),
+    ap.add_argument("--only", choices=("inference_export",
+                                       "distributed_training"),
                     help="build the kernels and run this phase alone, "
                          "printing its line and no result line")
     ap.add_argument("--fleet-child", nargs=3,
                     metavar=("WEIGHTS", "ENDPOINT", "DEVICE"),
                     help=argparse.SUPPRESS)   # fleet_serving's child
-    ap.add_argument("--replica-child", nargs=4,
-                    metavar=("WEIGHTS", "ENDPOINT", "DEVICE", "CYCLE"),
+    ap.add_argument("--replica-child", nargs=3,
+                    metavar=("WEIGHTS", "ENDPOINT", "DEVICE"),
                     help=argparse.SUPPRESS)   # fleet_serving's scale-out
     ap.add_argument("--dist-child", nargs=2, metavar=("RUNS", "REFERENCE"),
                     help=argparse.SUPPRESS)   # a distributed_training rank

@@ -4,13 +4,27 @@
 tensor-parallel layers (``parallel.mp_layers``), the bucketed gradient
 reduction (``overlap``), the hybrid-parallel ``DistributedTrainStep``
 (``shard``) and ``fleet``; plus checkpoints, fault tolerance, rpc, the
-parameter-server and graph services and the launcher's KV store. The
-reference's names are kept, and its submodules ``checkpoint``, ``ps``,
-``resilience`` and ``rpc`` are bound here as they are there. Importing
-this package builds and loads nothing: the native runtime is built by
-its first use."""
+parameter-server and graph services, the launcher (``launch``), the
+elastic mesh (``elastic_mesh``), LocalSGD (``parallel.localsgd``) and the
+API's long tail (``api_compat``: groups, P2P, ``group_sharded_parallel``;
+``stream``). The reference's names are kept, and its submodules
+``checkpoint``, ``elastic_mesh``, ``ps``, ``resilience``, ``rpc`` and
+``stream`` are bound here as they are there. Importing this package
+builds and loads nothing: the native runtime is built by its first
+use."""
 from . import checkpoint, collective, env, fleet, overlap  # noqa: F401
 from . import ps, resilience, rpc  # noqa: F401
+from . import api_compat, elastic_mesh, stream  # noqa: F401
+from .api_compat import (  # noqa: F401
+    CountFilterEntry, Group, P2POp, ParallelEnv, ParallelMode,
+    ProbabilityEntry, ShowClickEntry, all_gather_object, alltoall_single,
+    batch_isend_irecv, destroy_process_group, get_group,
+    group_sharded_parallel, irecv, isend, new_group, recv, reduce,
+    save_group_sharded_model, scatter, send, split, wait,
+)
+from .elastic_mesh import (  # noqa: F401
+    plan_mesh_shape, rescale_batch, reshaped_mesh,
+)
 from ..io.slot_dataset import BoxPSDataset, QueueDataset  # noqa: F401
 from .checkpoint import (  # noqa: F401
     AsyncSaver, AutoCheckpoint, CheckpointCorruptError, last_load_stats,

@@ -1,5 +1,4 @@
-"""Crash-safe checkpoints (port of ``paddle_tpu/distributed/checkpoint.py``),
-single process.
+"""Crash-safe checkpoints (port of ``paddle_tpu/distributed/checkpoint.py``).
 
 A checkpoint is a directory of raw ``.npy`` files, one per array leaf of a
 state tree, and one ``metadata.json`` describing the tree (shape, dtype and
@@ -24,6 +23,18 @@ checkpoint written by either loads in the other:
 :func:`load_state` returns arrays as CPU tensors (bfloat16 has no numpy
 dtype without ``ml_dtypes``).
 
+Sharded state. The reference's leaves carry their sharding; the port's
+tensors are each rank's local slice, so ``save_state`` and ``load_state``
+take ``shardings``: ``{flat key: Sharding(mesh, spec)}``, the mesh and the
+per-leaf ``PartitionSpec`` a ``DistributedTrainStep`` keeps
+(``DistributedTrainStep.sharded_state_dict()`` gives both). A save records
+each leaf at its global shape, each rank writing the boxes of its slice
+(one rank of each set holding the same box writes it); a load returns,
+for each sharded key, only the slice the rank's NEW layout needs, read
+box by box with bounded host memory — a checkpoint written by 2
+processes restores on 1, and one written by 1 restores on 2. The mesh
+the save was written on goes into ``metadata.json`` (``mesh_info``).
+
 Crash safety: a checkpoint directory is either COMPLETE or INVISIBLE. A
 save stages everything in a ``<dir>.tmp-pt<pid>`` sibling (shards fsync'd,
 every shard crc32-checksummed into ``metadata.json``, the metadata fsync'd
@@ -35,11 +46,17 @@ only the staging dir, which :class:`AutoCheckpoint` sweeps on startup.
 incomplete or corrupt step dirs so restore falls back to the newest GOOD
 checkpoint.
 
-Not ported yet (ROADMAP A8): the multi-process writer (processes sharing a
-target directory, each committing its own ``metadata.<rank>.json``) and
-loading with ``shardings=`` onto another topology; both raise
-``NotImplementedError``. Reading a checkpoint that several processes wrote
-(their metadata files merged) works.
+Several processes (a ``torch.distributed`` world of more than one) write
+one checkpoint together: process 0 makes a fresh staging directory, every
+process writes its shard files and its own metadata
+(``metadata.json`` for 0, ``metadata.<rank>.json`` otherwise, each with
+``process_count``) into it, and a publish barrier lets process 0 rename
+the directory into place only when every peer has written. The barrier
+runs over the world's rendezvous store (safe from the async save's IO
+thread while the training thread runs collectives). A directory published
+by the reference's per-file protocol whose peer never committed is named
+by :func:`validate_checkpoint` (the missing rank) and skipped by
+:func:`latest_checkpoint`.
 """
 from __future__ import annotations
 
@@ -61,7 +78,7 @@ from .resilience import fault_point
 __all__ = [
     "save_state", "load_state", "AsyncSaver", "AutoCheckpoint",
     "latest_checkpoint", "validate_checkpoint", "CheckpointCorruptError",
-    "mesh_info", "last_load_stats",
+    "mesh_info", "last_load_stats", "Sharding",
 ]
 
 _METADATA = "metadata.json"
@@ -171,6 +188,157 @@ def _process_count() -> int:
     return 1
 
 
+def _process_index() -> int:
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        return torch.distributed.get_rank()
+    return 0
+
+
+class Sharding:
+    """A rank's slice of a leaf: ``spec`` (a ``distributed.mesh.
+    PartitionSpec``, ``blocks`` included) over ``mesh``, as
+    ``convert.shard_tensor`` cuts it. :meth:`boxes` gives the slice as
+    boxes of the global array (several when a fused dimension is split
+    block by block; the local tensor is their concatenation along that
+    dimension), :attr:`writer` whether this rank writes them."""
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = spec
+
+    def __repr__(self) -> str:
+        return f"Sharding({self.mesh}, {self.spec!r})"
+
+    def _dims(self, ndim: int):
+        from ..convert import _dim_axes
+
+        spec = list(self.spec) + [None] * (ndim - len(self.spec))
+        for entry in spec[:ndim]:
+            axes = _dim_axes(entry)
+            n = self.mesh.axis_size(axes)
+            blocks = getattr(self.spec, "blocks", 1) if "mp" in axes else 1
+            yield (n, self.mesh.axis_index(axes) if n > 1 else 0,
+                   blocks if n > 1 else 1)
+
+    def global_shape(self, local_shape) -> tuple:
+        return tuple(int(d) * n for d, (n, _, _) in
+                     zip(local_shape, self._dims(len(local_shape))))
+
+    def boxes(self, shape):
+        """``(blocked dim or None, [(start, size) per box])`` of this
+        rank's slice of a leaf of global ``shape``."""
+        ranges, blocked = [], None
+        for d, (size, (n, i, blocks)) in enumerate(
+                zip(shape, self._dims(len(shape)))):
+            if size % (n * blocks):
+                raise ValueError(f"dimension {d} of {tuple(shape)} does not "
+                                 f"split into {n} x {blocks} blocks")
+            part = size // blocks // n
+            ranges.append([(b * (size // blocks) + i * part, part)
+                           for b in range(blocks)])
+            if blocks > 1:
+                blocked = d
+        boxes = [((), ())]
+        for rs in ranges:
+            boxes = [(st + (a,), sz + (b,)) for st, sz in boxes
+                     for a, b in rs]
+        return blocked, boxes
+
+    @property
+    def writer(self) -> bool:
+        """True on the one rank of each set that holds the same slice
+        (coordinate 0 on every axis the spec does not split)."""
+        if not self.mesh.member:
+            return False
+        used = set(self.spec.axes())
+        return all(self.mesh.coordinate[a] == 0
+                   for a in self.mesh.axis_names
+                   if a not in used and self.mesh.shape[a] > 1)
+
+
+def _mesh_record(mesh) -> Dict[str, Any]:
+    return {"axes": {str(k): int(v) for k, v in dict(mesh.shape).items()},
+            "devices": int(mesh.size)}
+
+
+# ----------------------------------------------- the multi-process barrier
+_SAVE_SEQ = [0]
+# seconds each wait of a multi-process save's publish barrier may take
+_PUBLISH_TIMEOUT_S = 600.0
+
+
+def _world_store():
+    """The world's rendezvous store (thread-safe; independent of the
+    collectives the training thread runs)."""
+    from torch.distributed import distributed_c10d
+
+    return distributed_c10d._get_default_store()
+
+
+class _PublishBarrier:
+    """The protocol of one multi-process save (every process of the world
+    saves, in the same order): process 0 announces a fresh staging
+    directory, every process reports its files written, process 0
+    publishes and announces it. Each wait is bounded by
+    ``_PUBLISH_TIMEOUT_S``."""
+
+    def __init__(self, directory: str):
+        self.seq = _SAVE_SEQ[0]
+        _SAVE_SEQ[0] += 1
+        self.key = f"ckpt/{self.seq}"
+        self.timeout = _PUBLISH_TIMEOUT_S
+        self.store = _world_store()
+        self.nprocs = _process_count()
+        self.proc = _process_index()
+        self.directory = directory
+
+    def _get(self, name: str) -> str:
+        import datetime
+
+        key = f"{self.key}/{name}"
+        try:
+            self.store.wait([key], datetime.timedelta(seconds=self.timeout))
+        except RuntimeError as e:
+            raise TimeoutError(
+                f"checkpoint {self.directory}: no {name!r} from process 0 "
+                f"within {self.timeout}s (a peer lost?)") from e
+        return self.store.get(key).decode()
+
+    def staging(self) -> str:
+        """The shared staging directory (process 0 makes it fresh)."""
+        if self.proc == 0:
+            stage = f"{self.directory}{_TMP_MARK}{os.getpid()}"
+            if os.path.exists(stage):
+                shutil.rmtree(stage)
+            os.makedirs(stage)
+            self.store.set(f"{self.key}/stage", stage)
+            return stage
+        return self._get("stage")
+
+    def written(self) -> None:
+        """Report this process's files written; process 0 waits for every
+        process's report."""
+        self.store.add(f"{self.key}/written", 1)
+        if self.proc != 0:
+            return
+        deadline = time.monotonic() + self.timeout
+        while self.store.add(f"{self.key}/written", 0) < self.nprocs:
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"checkpoint {self.directory}: only "
+                    f"{self.store.add(f'{self.key}/written', 0)} of "
+                    f"{self.nprocs} processes wrote within {self.timeout}s; "
+                    f"not published")
+            time.sleep(0.02)
+
+    def published(self, ok: bool = True) -> None:
+        if self.proc == 0:
+            self.store.set(f"{self.key}/published", "1" if ok else "0")
+        elif self._get("published") != "1":
+            raise RuntimeError(f"checkpoint {self.directory}: process 0 "
+                               f"failed to publish it")
+
+
 def _fsync_dir(path: str) -> None:
     fd = os.open(path, os.O_RDONLY)
     try:
@@ -194,7 +362,8 @@ def save_state(state: Any, directory: str, *, async_=False,
                io_threads: int = 8,
                extra_meta: Optional[Dict[str, Any]] = None,
                extra_files: Optional[Dict[str, bytes]] = None,
-               ) -> Optional["_PendingSave"]:
+               shardings: Optional[Dict[str, Sharding]] = None,
+               mesh=None) -> Optional["_PendingSave"]:
     """Save a tree of tensors, arrays, scalars and strings as a checkpoint
     directory.
 
@@ -216,22 +385,33 @@ def save_state(state: Any, directory: str, *, async_=False,
     ``extra_meta`` merges additional records into ``metadata.json`` —
     including overriding ``format``. The structural keys
     (``leaves``/``process_count``/``mesh``) cannot be overridden.
-    ``extra_files`` are sidecar records (name -> raw bytes) written inside
-    the staging directory before the metadata, so they appear atomically
-    with the checkpoint.
+    ``extra_files`` are sidecar records (name -> raw bytes) written by
+    process 0 inside the staging directory before the metadata, so they
+    appear atomically with the checkpoint.
+
+    ``shardings`` (flat key -> :class:`Sharding`) marks leaves that are
+    this rank's slice of a larger array (see the module docstring);
+    ``mesh`` (or the shardings' mesh) is recorded as the topology the
+    checkpoint was written on. In a world of several processes every
+    process calls ``save_state`` for the same directory, in the same
+    order: a leaf without a sharding is written by process 0, and the
+    checkpoint is published (on every process, by the time the call or
+    the handle's ``wait()`` returns) once all have written; each wait of
+    that barrier is bounded by ``_PUBLISH_TIMEOUT_S`` seconds.
     """
     nprocs = _process_count()
-    if nprocs > 1:
-        raise NotImplementedError(
-            "save_state from several processes (the shared-directory "
-            "multi-writer) is not ported yet (ROADMAP A8)")
+    proc = _process_index()
+    shardings = shardings or {}
     flat, _ = _flatten(state)
-    proc = 0
     directory = directory.rstrip(os.sep)
-    stage_dir = f"{directory}{_TMP_MARK}{os.getpid()}"
-    if os.path.exists(stage_dir):
-        shutil.rmtree(stage_dir)
-    os.makedirs(stage_dir, exist_ok=True)
+    barrier = _PublishBarrier(directory) if nprocs > 1 else None
+    if barrier is None:
+        stage_dir = f"{directory}{_TMP_MARK}{os.getpid()}"
+        if os.path.exists(stage_dir):
+            shutil.rmtree(stage_dir)
+        os.makedirs(stage_dir, exist_ok=True)
+    else:
+        stage_dir = barrier.staging()
     meta: Dict[str, Any] = {"format": "paddle_tpu.ckpt.v1",
                             "process_count": nprocs, "leaves": {}}
     if extra_meta:
@@ -242,19 +422,44 @@ def save_state(state: Any, directory: str, *, async_=False,
                 f"extra_meta may not override structural metadata keys "
                 f"{sorted(bad)}")
         meta.update(extra_meta)
+    written_on = mesh if mesh is not None else next(
+        (sh.mesh for sh in shardings.values()), None)
+    if written_on is not None:
+        meta["mesh"] = _mesh_record(written_on)
+    unknown = set(shardings) - set(flat)
+    if unknown:
+        raise KeyError(f"save_state: shardings name leaves the state lacks: "
+                       f"{sorted(unknown)[:4]}")
     jobs = []  # (filename, host copy, is bf16, shard record to patch)
     for leaf_i, (key, leaf) in enumerate(flat.items()):
         rec = _leaf_record(key, leaf)
         meta["leaves"][key] = rec
         if rec["kind"] != "array":
             continue
-        data, bf16 = _host_copy(leaf)
-        fname = (f"L{leaf_i:04d}_{_safe(key)}__"
-                 + "_".join(["0"] * data.ndim) + ".npy")
-        srec = {"file": fname, "start": [0] * data.ndim,
-                "shape": list(data.shape), "process": proc}
-        rec["shards"] = [srec]
-        jobs.append((fname, data, bf16, srec))
+        sh = shardings.get(key)
+        prefix = f"L{leaf_i:04d}_{_safe(key)}__"
+        rec["shards"] = []
+        if sh is None:
+            if proc != 0:
+                continue   # a whole leaf: process 0 writes it
+            data, bf16 = _host_copy(leaf)
+            boxes, parts = [((0,) * data.ndim, data.shape)], [data]
+        else:
+            rec["shape"] = list(sh.global_shape(tuple(leaf.shape)))
+            if not sh.writer:
+                continue
+            data, bf16 = _host_copy(leaf)
+            blocked, boxes = sh.boxes(rec["shape"])
+            parts = ([data] if blocked is None
+                     else np.split(data, len(boxes), axis=blocked))
+        for (start, _), part in zip(boxes, parts):
+            fname = prefix + "_".join(map(str, start)) + ".npy"
+            srec = {"file": fname, "start": list(start),
+                    "shape": list(part.shape), "process": proc}
+            rec["shards"].append(srec)
+            jobs.append((fname, np.require(part, requirements="C"), bf16,
+                         srec))
+    meta_name = _METADATA if proc == 0 else f"metadata.{proc}.json"
 
     def do_io():
         import concurrent.futures as cf
@@ -274,14 +479,29 @@ def save_state(state: Any, directory: str, *, async_=False,
         else:
             for job in jobs:
                 write(job)
-        for name, raw in (extra_files or {}).items():
-            _write_file_durable(os.path.join(stage_dir, name), bytes(raw))
-        # metadata written last, then the directory rename: the publish
-        # barrier
+        if proc == 0:
+            for name, raw in (extra_files or {}).items():
+                _write_file_durable(os.path.join(stage_dir, name),
+                                    bytes(raw))
+        # metadata written last (this process's commit), then the barrier
+        # and the directory rename: the publish
         fault_point("ckpt.publish")
-        _write_file_durable(os.path.join(stage_dir, _METADATA),
+        _write_file_durable(os.path.join(stage_dir, meta_name),
                             json.dumps(meta, indent=1).encode())
         _fsync_dir(stage_dir)
+        if barrier is None:
+            publish()
+            return
+        barrier.written()
+        if proc == 0:
+            try:
+                publish()
+            except BaseException:
+                barrier.published(False)
+                raise
+        barrier.published()
+
+    def publish():
         trash = None
         if os.path.exists(directory):
             # same-name overwrite: POSIX replaces only EMPTY target dirs,
@@ -489,8 +709,13 @@ def load_state(directory: str, shardings: Optional[Dict[str, Any]] = None,
       tensors (bfloat16 included), scalars and strings as recorded.
     - with ``template`` (a tree): the result is unflattened into that
       structure.
-    - ``shardings`` (re-slicing onto another topology) is not ported yet
-      (ROADMAP A8) and raises ``NotImplementedError``.
+    - with ``shardings`` (flat ``{key: Sharding}``): each of those leaves
+      comes back as this rank's slice under its sharding (the local
+      tensor a ``DistributedTrainStep`` on that mesh holds), read box by
+      box from the shard files it overlaps, whatever topology wrote them
+      — the elastic shrink/grow restore. Host memory per leaf is bounded
+      by ``max_shard_cache_bytes`` of decoded source shards (LRU; an
+      evicted shard needed again is re-read) plus the slice itself.
 
     With ``verify`` (default), every shard file read is checked against the
     byte length and crc32 recorded at save time; a missing/truncated/
@@ -504,10 +729,7 @@ def load_state(directory: str, shardings: Optional[Dict[str, Any]] = None,
     the decoded shards a leaf's reader holds at once (see
     :func:`last_load_stats`).
     """
-    if shardings:
-        raise NotImplementedError(
-            "load_state(shardings=...) (re-slicing onto another topology) "
-            "is not ported yet (ROADMAP A8)")
+    shardings = shardings or {}
     _reset_load_stats()
     try:
         with open(os.path.join(directory, _METADATA)) as f:
@@ -578,10 +800,24 @@ def load_state(directory: str, shardings: Optional[Dict[str, Any]] = None,
                              max_cache_bytes=max_shard_cache_bytes)
         _LOAD_STATS["leaves"] += 1
         shape = tuple(rec["shape"])
-        arr = reader.read(tuple(slice(0, d) for d in shape))
+        sh = shardings.get(key)
+        if sh is None:
+            arr = reader.read(tuple(slice(0, d) for d in shape))
+        else:
+            blocked, boxes = sh.boxes(shape)
+            parts = [reader.read(tuple(slice(a, a + n)
+                                       for a, n in zip(start, size)))
+                     for start, size in boxes]
+            arr = (parts[0] if blocked is None
+                   else np.concatenate(parts, axis=blocked))
         t = torch.from_numpy(np.require(arr, requirements="C"))
         flat_out[key] = (t.view(torch.bfloat16)
                          if rec["dtype"] == "bfloat16" else t)
+    absent = [k for k in shardings if k not in flat_out]
+    if absent:
+        raise CheckpointCorruptError(
+            f"{directory}: checkpoint lacks {len(absent)} sharded leaf/"
+            f"leaves (first: {absent[0]!r})")
     if template is not None:
         flat_t, _ = _flatten(template)
         missing = [k for k in flat_t if k not in flat_out]
@@ -734,8 +970,9 @@ def validate_checkpoint(directory: str,
 def mesh_info(directory: str) -> Optional[Dict[str, Any]]:
     """Topology a checkpoint was WRITTEN on: ``{"axes": {name: size},
     "devices": N, "process_count": M}``, as the reference records it for a
-    sharded save. ``None`` for unreadable directories, host-only state (all
-    the port writes), or checkpoints predating the elastic metadata."""
+    sharded save (the port records it for a save given ``shardings`` or
+    ``mesh``). ``None`` for unreadable directories, host-only state, or
+    checkpoints predating the elastic metadata."""
     if directory is None:
         # empty checkpoint root (no checkpoint yet) — the fresh-start path
         return None
@@ -846,7 +1083,11 @@ class AutoCheckpoint:
         long-lived trainer also heals) uses ``staging_ttl_seconds`` — a
         sibling process SIGKILLed mid-save must not leak its staging dir
         until the next restart, while a live peer's in-flight save (fresh
-        mtime) is left alone."""
+        mtime) is left alone. In a world of several processes only
+        process 0 sweeps: it alone makes staging directories, and a peer
+        starting late must not reap one in flight."""
+        if _process_index() != 0:
+            return
         now = time.time()
 
         def fresh(path: str, ttl: float = ttl) -> bool:
@@ -905,21 +1146,27 @@ class AutoCheckpoint:
             return time.monotonic() - self._last_save_time >= self.save_interval_seconds
         return step % self.save_interval_steps == 0 and step != self._last_step
 
-    def maybe_save(self, step: int, state: Any) -> bool:
+    def maybe_save(self, step: int, state: Any, shardings=None,
+                   mesh=None) -> bool:
         if not self._due(step):
             return False
-        self.save(step, state)
+        self.save(step, state, shardings=shardings, mesh=mesh)
         return True
 
     def save(self, step: int, state: Any,
-             extra_files: Optional[Dict[str, bytes]] = None):
+             extra_files: Optional[Dict[str, bytes]] = None,
+             shardings: Optional[Dict[str, Sharding]] = None, mesh=None):
+        """Snapshot ``state`` as ``step_<step>`` (``shardings`` and
+        ``mesh`` as :func:`save_state` takes them; in a world of several
+        processes every process calls it with its own slices)."""
         if self._pending is not None:
             self._pending.wait()
         directory = os.path.join(self.root, f"step_{step}")
         # save_state publishes atomically (staging dir + os.replace), so a
         # kill mid-save leaves only a .tmp-pt orphan — never a half dir
         pending = save_state(state, directory, async_=self.async_save,
-                             extra_files=extra_files)
+                             extra_files=extra_files, shardings=shardings,
+                             mesh=mesh)
 
         if pending is None:
             self._gc()
@@ -947,7 +1194,10 @@ class AutoCheckpoint:
         else they could push out the only loadable fallback — and invalid
         dirs NEWER than the kept set are left alone (a peer may still be
         committing its metadata). Cheap stat-only validation: _gc runs
-        after every save, so it must not re-read every shard byte."""
+        after every save, so it must not re-read every shard byte. In a
+        world of several processes only process 0 deletes."""
+        if _process_index() != 0:
+            return
         steps = sorted(
             (int(m.group(1)) for m in map(_STEP_DIR.match, os.listdir(self.root)) if m),
             reverse=True)

@@ -4,12 +4,12 @@
 The reference joins every host into one JAX runtime. The port joins every
 rank into one ``torch.distributed`` world: ``init_parallel_env`` reads the
 variables ``torch.distributed.run`` sets (``RANK``, ``WORLD_SIZE``,
-``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``; the reference's
-``PADDLE_*`` names are read too) and calls ``init_process_group`` with an
-explicit backend: NCCL on the card (the default), gloo with
-``device="cpu"``. A backend that fails to initialise raises; it is never
-swapped for another. A world of one needs no call at all: every
-collective over an axis of size 1 is the identity.
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) or the ``PADDLE_*``
+names the port's launcher (``distributed.launch``) sets, and calls
+``init_process_group`` with an explicit backend: NCCL on the card (the
+default), gloo with ``device="cpu"``. A backend that fails to initialise
+raises; it is never swapped for another. A world of one needs no call at
+all: every collective over an axis of size 1 is the identity.
 """
 from __future__ import annotations
 
@@ -51,7 +51,9 @@ def init_parallel_env(coordinator_address: Optional[str] = None,
       where NCCL refuses): the collectives then stage what gloo cannot do
       on CUDA tensors through pinned host memory (``collective.py``).
 
-    On the card the rank's device is ``cuda:LOCAL_RANK % device_count``.
+    On the card the rank's device is ``cuda:LOCAL % device_count``, LOCAL
+    being ``PADDLE_LOCAL_RANK`` (the launcher's), else ``LOCAL_RANK``
+    (``torch.distributed.run``'s), else the rank.
     NCCL without a card, or a failed rendezvous, raises."""
     if dist.is_initialized():
         return
@@ -76,7 +78,7 @@ def init_parallel_env(coordinator_address: Optional[str] = None,
             f"init_parallel_env: a world of {nproc} needs a coordinator "
             f"address (MASTER_ADDR/MASTER_PORT)")
     if device.type == "cuda":
-        local = _env_int("LOCAL_RANK", default=pid)
+        local = _env_int("PADDLE_LOCAL_RANK", "LOCAL_RANK", default=pid)
         device = torch.device("cuda", local % torch.cuda.device_count())
         torch.cuda.set_device(device)
     # a world of one rendezvouses with itself in memory

@@ -95,15 +95,20 @@ def distributed_model(model, optimizer=None, loss_fn=None, inputs_fn=None,
     """Wrap model + optimizer into a ``DistributedTrainStep`` configured
     from the active strategy (the reference dispatches to DataParallel /
     TensorParallel / PipelineParallel wrappers; one step covers data,
-    tensor and ZeRO parallelism here)."""
+    tensor and ZeRO parallelism here), or a ``LocalSGDStep`` under
+    ``strategy.localsgd``."""
     from ..shard import DistributedTrainStep
 
     strategy: DistributedStrategy = (_fleet_state["strategy"]
                                      or DistributedStrategy())
     if strategy.localsgd:
-        raise NotImplementedError(
-            "strategy.localsgd: LocalSGDStep is not ported (ROADMAP A8, "
-            "localsgd)")
+        from ..parallel.localsgd import LocalSGDStep
+
+        cfg = strategy.localsgd_configs or {}
+        return LocalSGDStep(model, optimizer, loss_fn=loss_fn,
+                            mesh=get_mesh(),
+                            k_steps=int(cfg.get("k_steps", 4)),
+                            inputs_fn=inputs_fn)
     if strategy.pipeline:
         raise NotImplementedError(
             "strategy.pipeline: the pipeline schedule is not ported "

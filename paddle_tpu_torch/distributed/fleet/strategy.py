@@ -7,9 +7,9 @@ Every reference strategy field is CLASSIFIED, as in the reference:
 - ``_CONSUMED`` — drives behavior (mesh axes through ``hybrid_configs``,
   the ZeRO stage through ``sharding`` / ``sharding_configs``, gradient
   merge, fp16_allreduce, LARS/DGC optimizer wrapping, ...). Of these the
-  port's ``fleet`` acts on the mesh, ZeRO, gradient merge and
-  fp16_allreduce; the pipeline, LocalSGD and parameter-server modes raise
-  where they are used (ROADMAP A8/A9);
+  port's ``fleet`` acts on the mesh, ZeRO, gradient merge,
+  fp16_allreduce and LocalSGD; the pipeline mode raises where it is used
+  (ROADMAP A8);
 - ``_COLLAPSED`` — knobs of the reference's NCCL/brpc/cuDNN runtime that
   this framework accepts and stores so ported configs keep working, with
   the reason on record;

@@ -1,5 +1,5 @@
 """Parallel layers and wrappers (port of
 ``paddle_tpu/distributed/parallel``): activation recompute, the
-tensor-parallel layers and ``DataParallel``."""
-from . import containers_util, mp_layers, recompute  # noqa: F401
+tensor-parallel layers, ``DataParallel`` and LocalSGD (``localsgd``)."""
+from . import containers_util, localsgd, mp_layers, recompute  # noqa: F401
 from .data_parallel import DataParallel  # noqa: F401

@@ -55,14 +55,16 @@ _CONNECT_RETRY = RetryPolicy(deadline=5.0, base_delay=0.1, max_delay=1.0,
 _KEY_TTL = 600.0
 
 
-def _namespace() -> str:
+def _namespace(endpoint: Optional[str] = None) -> str:
     """KV namespace scoped by job, pod incarnation (PADDLE_MASTER is unique
     per pod generation and identical across its ranks — same trick as
-    fleet.metrics), and the in-process init/shutdown cycle."""
+    fleet.metrics), and the init/shutdown cycles this process completed
+    against the same store (``endpoint``, default the live world's)."""
     job = os.environ.get("PADDLE_JOB_ID", "default")
     gen = os.environ.get("PADDLE_MASTER", "0")
     gen = gen.replace("/", "_").replace(":", "_")
-    return f"rpc/{job}/{gen}/c{_cycle}"
+    endpoint = endpoint or _state["endpoint"]
+    return f"rpc/{job}/{gen}/c{_cycles.get(endpoint, 0)}"
 
 
 @dataclass(frozen=True)
@@ -75,12 +77,16 @@ class WorkerInfo:
 
 _state: Dict[str, object] = {
     "server": None, "workers": None, "self": None, "kv": None,
-    "kv_server": None, "pool": None, "world": 0,
+    "kv_server": None, "pool": None, "world": 0, "endpoint": None,
 }
 # namespaces each incarnation's KV keys so a fast re-init never sees the
 # previous cycle's rendezvous/barrier keys; advanced in shutdown() so a
-# retry after a FAILED init stays in the same namespace as its peers
-_cycle = 0
+# retry after a FAILED init stays in the same namespace as its peers.
+# Counted per store endpoint: a process whose earlier worlds used other
+# stores must still meet a fresh process (cycle 0) at a new store, where
+# one process-wide count would put the two in different namespaces and
+# leave both waiting out the rendezvous deadline.
+_cycles: Dict[str, int] = {}
 
 
 def _kv_retry(fn, deadline, what):
@@ -122,10 +128,10 @@ class _Service(threading.Thread):
         self.sock.bind(("0.0.0.0", 0))
         self.sock.listen(64)
         self.port = self.sock.getsockname()[1]
-        self._stop = threading.Event()
+        self._stopping = threading.Event()
 
     def run(self):
-        while not self._stop.is_set():
+        while not self._stopping.is_set():
             try:
                 conn, _ = self.sock.accept()
             except OSError:
@@ -151,7 +157,7 @@ class _Service(threading.Thread):
             pass
 
     def stop(self):
-        self._stop.set()
+        self._stopping.set()
         try:
             self.sock.close()
         except OSError:
@@ -206,7 +212,7 @@ def init_rpc(name: str, rank: Optional[int] = None,
             _state["kv_server"] = None  # an external store already serves
     kv = KVClient(master_endpoint)
     service = _Service()  # bound (port known) but NOT accepting yet
-    ns = _namespace()
+    ns = _namespace(master_endpoint)
     deadline = time.time() + _DEFAULT_RPC_TIMEOUT
     # non-zero ranks commonly start BEFORE rank 0 has its store up (the
     # launch CLI spawns all pods at once), so every KV touch during
@@ -242,7 +248,7 @@ def init_rpc(name: str, rank: Optional[int] = None,
     _state.update(server=service, workers=workers,
                   self=next(w for w in workers.values() if w.rank == rank),
                   kv=kv, pool=ThreadPoolExecutor(max_workers=16),
-                  world=world_size)
+                  world=world_size, endpoint=master_endpoint)
     service.start()  # accept only now that state is fully visible
 
 
@@ -409,13 +415,13 @@ def shutdown(timeout: float = _DEFAULT_RPC_TIMEOUT) -> None:
             except TimeoutError:
                 pass  # a crashed peer shouldn't wedge the host's exit
         _state["kv_server"].stop()
+    endpoint = _state["endpoint"]
     _state.update(server=None, workers=None, self=None, kv=None,
-                  kv_server=None, pool=None, world=0)
+                  kv_server=None, pool=None, world=0, endpoint=None)
     # bump the cycle only on a COMPLETED shutdown: a rank retrying a failed
     # init must land in the same namespace as its peers, and shutdown is
     # collective (barriered), so all ranks advance together
-    global _cycle
-    _cycle += 1
+    _cycles[endpoint] = _cycles.get(endpoint, 0) + 1
 
 
 def get_worker_info(name: str) -> WorkerInfo:

@@ -36,6 +36,7 @@ the FULL parameter shapes, as the reference's; ``convert.shard_state`` /
 from __future__ import annotations
 
 import logging
+import weakref
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -266,6 +267,35 @@ def _zero3_units(model: nn.Module, stored) -> list:
     return units
 
 
+# the newest DistributedTrainStep of each optimizer (``step_of``)
+_STEPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def step_of(optimizer) -> Optional["DistributedTrainStep"]:
+    """The live ``DistributedTrainStep`` that ``optimizer`` was last given
+    to, or None."""
+    ref = _STEPS.get(optimizer)
+    return ref() if ref is not None else None
+
+
+class _SplitParts:
+    """``Optimizer._split`` for a step: the axes that split each update
+    tensor, and the sum and gather over them."""
+
+    def __init__(self, mesh: Mesh, axes: Dict[str, tuple]):
+        self.mesh = mesh
+        self._axes = {k: a for k, a in axes.items() if a}
+
+    def axes(self, name):
+        return self._axes.get(name)
+
+    def sum(self, name, t: torch.Tensor) -> torch.Tensor:
+        return C.all_reduce(t, C.ReduceOp.SUM, self._axes[name], self.mesh)
+
+    def gather(self, name, t: torch.Tensor) -> torch.Tensor:
+        return C.all_gather(t, self._axes[name], axis=0, mesh=self.mesh)
+
+
 class _Reduced:
     """The handle of one bucket's collectives (see ``_issue``)."""
 
@@ -316,15 +346,6 @@ class DistributedTrainStep:
         self.grad_transform = grad_transform
         self.mesh = mesh or require_mesh()
         m = self.mesh
-        from ..optimizer import DGCMomentum, Lamb, LarsMomentum
-
-        if isinstance(optimizer, (DGCMomentum, Lamb, LarsMomentum)) and (
-                m.axis_size("mp") > 1 or (sharding_stage >= 1
-                                          and m.axis_size(SDP) > 1)):
-            raise NotImplementedError(
-                f"{type(optimizer).__name__} takes per-parameter norms, "
-                f"which a split parameter does not have on one rank: use it "
-                f"without tensor parallelism and ZeRO")
         if not m.member:
             raise RuntimeError("DistributedTrainStep: this rank is not on "
                                f"the mesh {m}")
@@ -395,6 +416,12 @@ class DistributedTrainStep:
         self._update_params = {k: self._update_view(k)
                                for k in self.compute_params}
         self.opt_state = optimizer.init(self._update_params)
+        # per-parameter norms (Lamb, LARS) and DGC's quantile read the
+        # whole parameter: reduced over the axes that split its update
+        # (the optimizer holds this only while ``_update`` runs)
+        self._split_parts = _SplitParts(m, {
+            k: self._split_axes(k) for k in self.compute_params})
+        _STEPS[optimizer] = weakref.ref(self)
         self.opt_specs = opt_state_specs(self.opt_state, self.specs,
                                          shard_axis, m,
                                          shapes=self.full_shapes)
@@ -805,12 +832,19 @@ class DistributedTrainStep:
             out[k] = (g.float() * scale).to(g.dtype)
         return out, None
 
-    def _owner(self, name) -> bool:
-        """True on the one rank of each replica set of ``name``'s update
-        tensor (coordinate 0 on every axis it is not split over)."""
+    def _split_axes(self, name) -> tuple:
+        """The mesh axes (of size > 1) that split ``name``'s update
+        tensor."""
         used = set(self.update_specs[name].axes())
         if self._sdp_dim[name] is None:
             used.discard(SDP)
+        return tuple(a for a in self.mesh.axis_names
+                     if a in used and self.mesh.shape[a] > 1)
+
+    def _owner(self, name) -> bool:
+        """True on the one rank of each replica set of ``name``'s update
+        tensor (coordinate 0 on every axis it is not split over)."""
+        used = set(self._split_axes(name))
         return all(self.mesh.coordinate[a] == 0
                    for a in self.mesh.axis_names if a not in used)
 
@@ -818,6 +852,7 @@ class DistributedTrainStep:
         grads, clip = self._clip(grads)
         saved_clip = self.optimizer.grad_clip
         self.optimizer.grad_clip = clip
+        self.optimizer._split = self._split_parts
         try:
             if self.scaler_state is None and not checked:
                 self.optimizer.update(grads, self.opt_state,
@@ -847,6 +882,7 @@ class DistributedTrainStep:
                                   guard=guard)
         finally:
             self.optimizer.grad_clip = saved_clip
+            self.optimizer._split = None
         self._after_update()
         if self.scaler_state is not None:
             self.scaler_state = flags_out["scaler"]
@@ -1005,3 +1041,72 @@ class DistributedTrainStep:
         self._count = int(sd.get("count", 0))
         if sd.get("base_seed") is not None:
             self._base_seed = int(sd["base_seed"])
+
+    # --------------------------------------------------- sharded state
+    def _local_leaves(self):
+        """``{flat checkpoint key: (live local tensor, spec)}`` of the
+        parameters and the optimizer state (keys as ``state_dict()``'s
+        tree flattens them)."""
+        out = {}
+        for k, p in self.compute_params.items():
+            if k in self._stored:
+                out[f"params/{k}"] = (self._stored[k], self.specs[k])
+            else:
+                out[f"params/{k}"] = (p.detach(), self._compute_specs[k])
+        for slot, val in self.opt_state.items():
+            if isinstance(val, dict):
+                for k, t in val.items():
+                    out[f"opt_state/{slot}/{k}"] = (t, self.update_specs[k])
+            elif isinstance(val, torch.Tensor):
+                out[f"opt_state/{slot}"] = (val, PartitionSpec())
+        return out
+
+    def sharded_state_dict(self):
+        """``(state, shardings)``: the step's state as each rank holds it
+        (its own slices, no collective) and, per flat key, the
+        ``checkpoint.Sharding`` of each slice — what
+        ``checkpoint.save_state(state, dir, shardings=shardings)`` writes
+        from every rank as one checkpoint, and what
+        ``load_state(dir, shardings=...)`` of a step on ANY mesh reads
+        back for :meth:`set_sharded_state_dict`. The gradient
+        accumulator (this rank's unreduced sum) is left out; the scaler
+        state is whole on every rank."""
+        from .checkpoint import Sharding
+
+        tree = {"count": self._count, "base_seed": self._base_seed}
+        shardings = {}
+        for key, (t, spec) in self._local_leaves().items():
+            node = tree
+            parts = key.split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = t.detach()
+            shardings[key] = Sharding(self.mesh, spec)
+        if self.scaler_state is not None:
+            tree["scaler_state"] = {k: v.detach() if isinstance(
+                v, torch.Tensor) else v for k, v in self.scaler_state.items()}
+        return tree, shardings
+
+    def set_sharded_state_dict(self, flat: dict) -> None:
+        """Restore from ``load_state(dir, shardings=...)``'s flat result
+        (``shardings`` from this step's :meth:`sharded_state_dict`): each
+        live tensor takes its slice, bit for bit."""
+        with torch.no_grad():
+            for key, (t, _) in self._local_leaves().items():
+                if key in flat:
+                    t.copy_(torch.as_tensor(flat[key]).to(t.device, t.dtype))
+            if self.scaler_state is not None:
+                for k, v in self.scaler_state.items():
+                    got = flat.get(f"scaler_state/{k}")
+                    if got is None:
+                        continue
+                    if isinstance(v, torch.Tensor):
+                        v.copy_(torch.as_tensor(got).to(v.device, v.dtype))
+                    else:
+                        self.scaler_state[k] = got
+                self.scaler.state = dict(self.scaler_state)
+        self._count = int(flat.get("count", self._count))
+        if flat.get("base_seed") is not None:
+            self._base_seed = int(flat["base_seed"])
+        if self._stored:
+            self._free_gathered()

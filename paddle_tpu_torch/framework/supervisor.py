@@ -247,7 +247,7 @@ class HangWatchdog:
         self._last_beat = time.monotonic()
         self._fired = False
         self._paused = True
-        self._stop = threading.Event()
+        self._stopping = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
     def start(self) -> "HangWatchdog":
@@ -257,7 +257,7 @@ class HangWatchdog:
         return self
 
     def stop(self) -> None:
-        self._stop.set()
+        self._stopping.set()
         if self._thread is not None:
             self._thread.join(timeout=self.step_timeout)
 
@@ -273,7 +273,7 @@ class HangWatchdog:
 
     def _watch(self) -> None:
         poll = max(0.05, min(self.step_timeout / 4.0, 1.0))
-        while not self._stop.wait(poll):
+        while not self._stopping.wait(poll):
             if self._paused or self._fired:
                 continue
             elapsed = time.monotonic() - self._last_beat
@@ -532,7 +532,10 @@ class TrainingSupervisor:
             self.cursor_fn() if self.cursor_fn is not None else None)
         if cursor is not None:
             state["data_cursor"] = cursor.as_state()
-        self.checkpoint.save(int(self.step._count), state)
+        # the step's mesh (a DistributedTrainStep's) goes into the metadata,
+        # so that a restore onto another mesh reports the reshard
+        self.checkpoint.save(int(self.step._count), state,
+                             mesh=getattr(self.step, "mesh", None))
 
     def maybe_save(self, cursor=None) -> bool:
         if not self.checkpoint._due(int(self.step._count)):

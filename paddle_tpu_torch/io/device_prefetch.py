@@ -24,8 +24,15 @@ Usage::
 Each copy runs under the producer thread's ``h2d_prefetch`` profiler
 range. ``it.stats()`` reports consumer stall seconds — the direct measure of an
 input-bound pipeline — and the batches delivered, with the reference's
-keys. Sharded landing (``sharding=`` / ``mesh=``) waits for the
-distributed port (ROADMAP A8).
+keys. Sharded landing: with ``sharding=`` (a
+``distributed.checkpoint.Sharding``, the mesh and a ``PartitionSpec``) or
+``mesh=`` with ``spec=``, each batch is the GLOBAL batch and every rank
+lands only its slice of each leaf (the spec clipped to the leaf's rank,
+e.g. ``P(("dp", "sdp"))`` splits dim 0 over the data axes) on its own
+device, as the reference's ``make_array_from_process_local_data`` lands
+each host's part.
+
+    it = prefetch_to_device(loader, mesh=mesh, spec=P(("dp", "sdp")))
 """
 from __future__ import annotations
 
@@ -93,6 +100,26 @@ def _cuda_transform(device: torch.device):
     return to_device
 
 
+def _slice_transform(sharding):
+    """``batch -> this rank's slice of each array leaf`` under
+    ``sharding`` (its spec clipped to each leaf's rank): host tensors, so
+    only the slice is copied to the device."""
+    from ..convert import shard_tensor
+    from ..distributed.mesh import PartitionSpec
+
+    mesh, spec = sharding.mesh, sharding.spec
+
+    def leaf(x):
+        t = _as_host_tensor(x)
+        if t is None or t.ndim == 0:
+            return x if t is None else t
+        clipped = PartitionSpec(*list(spec)[:t.ndim],
+                                blocks=getattr(spec, "blocks", 1))
+        return shard_tensor(t, clipped, mesh).contiguous()
+
+    return lambda batch: tree_map(leaf, batch)
+
+
 class DevicePrefetchIterator(_PrefetchIterator):
     """Double-buffered device prefetch over any host-batch iterable.
 
@@ -101,15 +128,23 @@ class DevicePrefetchIterator(_PrefetchIterator):
     every entry point of the port; ``device="cpu"`` turns the leaves into
     CPU tensors in the producer thread (the tests' plain path).
     ``close()`` (also called on exhaustion, error delivery, and GC)
-    unblocks and joins the thread.
+    unblocks and joins the thread. ``sharding`` (or ``mesh`` with
+    ``spec``) lands each rank's slice of the global batch only (see the
+    module docstring).
     """
 
     def __init__(self, producer: Iterable, depth: int = 2, sharding=None,
                  mesh=None, device=None, spec=None):
-        if sharding is not None or mesh is not None or spec is not None:
-            raise NotImplementedError(
-                "DevicePrefetchIterator(sharding=/mesh=/spec=): a sharded "
-                "landing is not ported yet (ROADMAP A8)")
+        if sharding is None and mesh is not None:
+            if spec is None:
+                raise ValueError(
+                    "DevicePrefetchIterator(mesh=...) needs spec= (e.g. "
+                    "P(('dp', 'sdp')) for the batch axis), or pass "
+                    "sharding= directly")
+            from ..distributed.checkpoint import Sharding
+
+            sharding = Sharding(mesh, spec)
+        self._sharding = sharding
         self._device = default_device(device)
         self._on_cuda = self._device.type == "cuda"
         if self._on_cuda:
@@ -117,11 +152,14 @@ class DevicePrefetchIterator(_PrefetchIterator):
         else:
             def copy(batch):
                 return tree_map(_to_cpu, batch)
+        slicer = _slice_transform(sharding) if sharding is not None else None
 
         # a plain closure, not a bound method (see _cuda_transform); each
         # copy runs under the producer thread's ``h2d_prefetch`` range
         def transform(batch):
             with RecordEvent("h2d_prefetch"):
+                if slicer is not None:
+                    batch = slicer(batch)
                 return copy(batch)
 
         super().__init__(producer, depth=depth, transform=transform)

@@ -74,6 +74,14 @@ class Optimizer:
     #: updates between two read-backs of the step count (a scheduled
     #: learning rate is looked up from a table of this many steps)
     LR_WINDOW = 256
+    #: how a step that splits parameters over ranks reaches the whole of
+    #: one (``DistributedTrainStep`` sets it while its update runs and
+    #: clears it after): ``axes(name)`` is None for a parameter whole on
+    #: this rank; ``sum(name, t)`` sums ``t`` over the ranks holding its
+    #: parts and ``gather(name, t)`` concatenates their flattened ``t``s.
+    #: Lamb, LarsMomentum and DGCMomentum take per-parameter norms and
+    #: quantiles through it.
+    _split = None
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay: Optional[float] = None, grad_clip=None,
@@ -245,6 +253,16 @@ class Optimizer:
             size += n
         if chunk:
             yield chunk
+
+    def _split_axes(self, name):
+        return None if self._split is None else self._split.axes(name)
+
+    def _norm(self, name, t: torch.Tensor) -> torch.Tensor:
+        """The L2 norm of the whole parameter ``name`` whose part here
+        is the float32 ``t``."""
+        if self._split_axes(name) is None:
+            return torch.linalg.vector_norm(t)
+        return torch.sqrt(self._split.sum(name, torch.sum(t * t)))
 
     # subclass hooks -------------------------------------------------------
     def _init_slots(self, params) -> dict:
@@ -588,7 +606,8 @@ class Adamax(Optimizer):
 class Lamb(Optimizer):
     """Layer-wise adaptive large-batch optimizer (``optimizer.py:407``):
     the Adam direction plus decay, ``r``, scaled per tensor by the trust
-    ratio ``||p|| / ||r||``."""
+    ratio ``||p|| / ||r||`` (norms of the whole parameter when a step
+    splits it, see ``Optimizer._split``)."""
 
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-06, parameters=None,
@@ -625,8 +644,8 @@ class Lamb(Optimizer):
             p32 = p.float()
             if self.weight_decay and not excluded:
                 ri.add_(p32, alpha=self.weight_decay)
-            w_norm = torch.linalg.vector_norm(p32)
-            r_norm = torch.linalg.vector_norm(ri)
+            w_norm = self._norm(k, p32)
+            r_norm = self._norm(k, ri)
             trust = torch.where((w_norm > 0) & (r_norm > 0),
                                 w_norm / r_norm, 1.0)
             ri.mul_(lr * trust)
@@ -660,8 +679,10 @@ class LarsMomentum(Optimizer):
     def _apply(self, grads, state, work, lr, params):
         for k, p in work.items():
             p32, g32, v = p.float(), grads[k], state["velocity"][k]
-            p_norm = torch.sqrt(torch.sum(p32 * p32))
-            g_norm = torch.sqrt(torch.sum(g32 * g32))
+            p_sq, g_sq = torch.sum(p32 * p32), torch.sum(g32 * g32)
+            if self._split_axes(k) is not None:
+                p_sq, g_sq = self._split.sum(k, torch.stack([p_sq, g_sq]))
+            p_norm, g_norm = torch.sqrt(p_sq), torch.sqrt(g_sq)
             wd = 0.0 if self._excluded(k) else self.lars_weight_decay
             local_lr = torch.where(
                 (p_norm > 0) & (g_norm > 0),
@@ -720,7 +741,10 @@ class DGCMomentum(Optimizer):
             # momentum correction: accumulate momentum-corrected gradients
             u_new = self.momentum * u + g
             v_new = v + u_new
-            thr = self._quantile(torch.abs(v_new).reshape(-1), q)
+            mags = torch.abs(v_new).reshape(-1)
+            if self._split_axes(k) is not None:
+                mags = self._split.gather(k, mags)   # the whole parameter's
+            thr = self._quantile(mags, q)
             mask = (torch.abs(v_new) >= thr).to(v_new.dtype)
             # factor masking: transmitted coordinates reset their state
             p32 = p.float()

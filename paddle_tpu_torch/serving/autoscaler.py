@@ -166,7 +166,7 @@ class Autoscaler:
         self.replica_prefix = str(replica_prefix)
         self._clock = clock
         self._lock = threading.Lock()
-        self._stop: Optional[threading.Event] = None
+        self._stopping: Optional[threading.Event] = None
         self._thread: Optional[threading.Thread] = None
         self._serial = itertools.count(1)
         self._hot_ticks = 0
@@ -187,7 +187,7 @@ class Autoscaler:
             return self
         with self._lock:
             if self._thread is None:
-                self._stop = threading.Event()
+                self._stopping = threading.Event()
                 self._thread = threading.Thread(
                     target=self._loop, name="pt-autoscaler", daemon=True)
                 self._thread.start()
@@ -197,7 +197,7 @@ class Autoscaler:
         """Stop the evaluation thread (idempotent; the fleet keeps its
         current size — stopping the controller never drains anything)."""
         with self._lock:
-            stop, thread = self._stop, self._thread
+            stop, thread = self._stopping, self._thread
         if stop is not None:
             stop.set()
         if thread is not None and thread is not threading.current_thread():
@@ -205,7 +205,7 @@ class Autoscaler:
 
     def _loop(self) -> None:
         with self._lock:
-            stop = self._stop   # published by start() under this lock
+            stop = self._stopping   # published by start() under this lock
         while not stop.wait(self.interval):
             try:
                 self.tick()

@@ -188,9 +188,24 @@ def test_save_load_bfloat16(tmp_path):
 
 
 def test_sharded_load_and_multiprocess_save_wait_for_a8(tmp_path):
-    save_state({"w": torch.ones(2)}, str(tmp_path / "c"))
-    with pytest.raises(NotImplementedError, match="A8"):
-        load_state(str(tmp_path / "c"), shardings={"w": object()})
+    """The sharded load and the multi-process save have landed (their
+    worlds of two are in ``tests/test_torch_launch.py``): in one process
+    a sharded leaf on a mesh of one comes back whole, and the save
+    records the mesh it was written on."""
+    from paddle_tpu_torch.distributed.checkpoint import Sharding, mesh_info
+    from paddle_tpu_torch.distributed.mesh import P, init_mesh, set_mesh
+
+    mesh = init_mesh(sdp=1)
+    try:
+        w = torch.arange(6.0).reshape(2, 3)
+        sh = {"w": Sharding(mesh, P("sdp", None))}
+        save_state({"w": w}, str(tmp_path / "c"), shardings=sh)
+        assert mesh_info(str(tmp_path / "c")) == {
+            "axes": {"sdp": 1}, "devices": 1, "process_count": 1}
+        got = load_state(str(tmp_path / "c"), shardings=sh)
+        assert torch.equal(got["w"], w)
+    finally:
+        set_mesh(None)
 
 
 def test_async_save(tmp_path):

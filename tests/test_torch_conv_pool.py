@@ -25,6 +25,7 @@ from paddle_tpu_torch.convert import layer_from_jax
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layers import conv as TC
 from paddle_tpu_torch.nn.layers import pooling as TP
+from torch_threads import few_torch_threads  # noqa: F401
 
 FWD = dict(rtol=1e-4, atol=1e-5)
 BWD = dict(rtol=2e-4, atol=2e-5)

@@ -342,8 +342,20 @@ class TestDevicePrefetch:
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 prefetch_to_device(iter([]))
-        with pytest.raises(NotImplementedError, match="A8"):
-            prefetch_to_device(iter([]), device="cpu", sharding=object())
+        # the sharded landing has landed (its world of two is in
+        # tests/test_torch_launch.py): a mesh needs the batch's spec
+        from paddle_tpu_torch.distributed.mesh import P, init_mesh, set_mesh
+
+        mesh = init_mesh(dp=1)
+        try:
+            with pytest.raises(ValueError, match="spec="):
+                prefetch_to_device(iter([]), device="cpu", mesh=mesh)
+            it = prefetch_to_device(iter([np.arange(4)]), device="cpu",
+                                    mesh=mesh, spec=P("dp"))
+            assert next(it).tolist() == [0, 1, 2, 3]
+            it.close()
+        finally:
+            set_mesh(None)
 
 
 # ------------------------------------------ twins of test_dataloader_mp.py

@@ -27,6 +27,7 @@ from paddle_tpu.observability.slo import SloPolicy as JaxSloPolicy
 from paddle_tpu.observability.slo import SloTracker as JaxSloTracker
 from paddle_tpu_torch.observability.slo import (FLEET_TENANT, SloPolicy,
                                                 SloTracker)
+from torch_threads import few_torch_threads  # noqa: F401
 
 BS = 4
 GEO = dict(max_length=64, prefill_buckets=(32,))

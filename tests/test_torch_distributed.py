@@ -44,6 +44,7 @@ from paddle_tpu.models.llama import llama_tiny as jllama_tiny
 from paddle_tpu import optimizer as jopt
 
 from torch_world import World
+from torch_threads import few_torch_threads  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 ADAM_ATOL = 3e-4

@@ -30,6 +30,7 @@ import torch
 
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import flash_attention as tfa
+from torch_threads import few_torch_threads  # noqa: F401
 
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 BWD_TOL = dict(rtol=2e-4, atol=2e-5)

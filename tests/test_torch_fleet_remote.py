@@ -138,8 +138,6 @@ CHILD = textwrap.dedent("""
     from paddle_tpu_torch.models.gpt import GPTForCausalLM
     from paddle_tpu_torch.serving import InferenceServer, remote
 
-    # the parent's rendezvous namespace carries its init/shutdown cycle
-    rpc.rpc._cycle = int(sys.argv[3])
     rpc.init_rpc("child", rank=1, world_size=2, master_endpoint=sys.argv[2])
     blob = torch.load(sys.argv[1], weights_only=False)
     model = GPTForCausalLM(blob["cfg"], device="cpu")
@@ -188,8 +186,7 @@ def world(pair, tmp_path_factory):
     script.write_text(CHILD)
     ep = _endpoint()
     proc = subprocess.Popen(
-        [sys.executable, str(script), str(weights), ep,
-         str(rpc.rpc._cycle)],
+        [sys.executable, str(script), str(weights), ep],
         env=dict(os.environ, PYTHONPATH=REPO,
                  PT_FLIGHT_DIR=str(tmp / "child_flight")),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

@@ -38,6 +38,7 @@ from paddle_tpu_torch.models.gpt import gpt_tiny
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layers.common import Embedding, Linear
 from paddle_tpu_torch.optimizer import Adam, AdamW
+from torch_threads import few_torch_threads  # noqa: F401
 
 RTOL = 1e-5
 NO_DROP = dict(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)

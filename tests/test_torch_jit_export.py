@@ -45,6 +45,7 @@ from paddle_tpu_torch.jit import InputSpec, TranslatedLayer
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.models import resnet as TR
 from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_tiny
+from torch_threads import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-5, atol=1e-6)

@@ -31,6 +31,7 @@ from paddle_tpu_torch.models.generation import (cache_nbytes, init_cache,
                                                 slice_cache_rows)
 from paddle_tpu_torch.quantization import (is_quantized_kv, kv_dequantize,
                                            kv_quantize)
+from torch_threads import few_torch_threads  # noqa: F401
 
 GEO = dict(max_length=64, prefill_buckets=(32,))
 

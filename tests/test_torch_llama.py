@@ -37,6 +37,7 @@ from paddle_tpu_torch.nn.layers.common import Linear
 from paddle_tpu_torch.nn.layers.norm import RMSNorm
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import InferenceServer
+from torch_threads import few_torch_threads  # noqa: F401
 
 ATOL = 1e-4
 GEO = dict(max_length=64, prefill_buckets=(32,))

@@ -62,6 +62,7 @@ from paddle_tpu_torch.optimizer import Adam, AdamW
 from paddle_tpu_torch.serving import InferenceServer
 from paddle_tpu_torch.serving.metrics import ServingMetrics
 from paddle_tpu_torch.serving.prefix_cache import chain_digests
+from torch_threads import few_torch_threads  # noqa: F401
 
 GEO = dict(max_length=48, prefill_buckets=(12,))
 LCFG = LoraConfig(rank=4, alpha=8.0)

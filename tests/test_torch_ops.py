@@ -41,6 +41,7 @@ from paddle_tpu_torch.framework import compat
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
 import torch_op_cases as C  # noqa: E402
+from torch_threads import few_torch_threads  # noqa: F401
 
 CASES = C.CASES
 

@@ -24,6 +24,7 @@ from paddle_tpu_torch.models.generation import (gather_cache_blocks,
 from paddle_tpu_torch.serving import (BlockPool, InferenceServer,
                                       ServingMetrics, chain_digests)
 from paddle_tpu_torch.serving.engine import ContinuousBatchingEngine
+from torch_threads import few_torch_threads  # noqa: F401
 
 GEO = dict(max_length=64, prefill_buckets=(32,))
 POOL = dict(block_tokens=8, max_bytes=1 << 20)

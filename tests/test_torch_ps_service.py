@@ -24,6 +24,7 @@ from paddle_tpu.distributed import ps as J
 from paddle_tpu_torch.distributed import ps as P
 from paddle_tpu_torch.distributed.ps.service import (
     _splitmix64, launch_port_subprocesses)
+from torch_threads import few_torch_threads  # noqa: F401
 
 DIM = 4
 

@@ -31,6 +31,7 @@ from paddle_tpu.nn.layer import functional_call, param_state
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layers import loss as TL
 from paddle_tpu_torch.nn.layers import rnn as TR
+from torch_threads import few_torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

@@ -27,6 +27,7 @@ from paddle_tpu.nn import functional as JF
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer import rng_context
+from torch_threads import few_torch_threads  # noqa: F401
 
 FWD = dict(rtol=1e-5, atol=1e-5)
 BWD = dict(rtol=2e-4, atol=2e-5)

@@ -398,6 +398,15 @@ def test_port_imports_no_jax_or_reference_package():
                  "paddle_tpu_torch/inference/__init__.py",
                  "paddle_tpu_torch/inference/dist_model.py",
                  "paddle_tpu_torch/kernels/flash_attention.py",
+                 "paddle_tpu_torch/distributed/api_compat.py",
+                 "paddle_tpu_torch/distributed/stream.py",
+                 "paddle_tpu_torch/distributed/elastic_mesh.py",
+                 "paddle_tpu_torch/distributed/launch/main.py",
+                 "paddle_tpu_torch/distributed/launch/job.py",
+                 "paddle_tpu_torch/distributed/launch/elastic.py",
+                 "paddle_tpu_torch/distributed/launch/__main__.py",
+                 "paddle_tpu_torch/distributed/parallel/localsgd.py",
+                 "tools/torch_launch_train.py",
                  "tools/torch_train_profile.py"):
         assert path in scanned
     bad = [(f.relative_to(REPO).as_posix(), m) for f in files

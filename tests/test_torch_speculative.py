@@ -19,6 +19,7 @@ from paddle_tpu_torch.models import lm_utils
 from paddle_tpu_torch.models.generation import GenerationEngine
 from paddle_tpu_torch.models.speculative import (SpeculativeEngine,
                                                  build_draft_model)
+from torch_threads import few_torch_threads  # noqa: F401
 
 GEO = dict(max_length=64, prefill_buckets=(16, 32))
 

@@ -47,6 +47,7 @@ from paddle_tpu_torch.io import TensorDataset
 from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_tiny
 from paddle_tpu_torch.nn.layers.common import Dropout, Linear
 from paddle_tpu_torch.optimizer import AdamW
+from torch_threads import few_torch_threads  # noqa: F401
 
 
 class _Lin(torch.nn.Module):

@@ -47,6 +47,7 @@ from paddle_tpu_torch.models.gpt import (GPTForCausalLM, gpt_flops_per_token,
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer import rng_context
 from paddle_tpu_torch.optimizer import AdamW
+from torch_threads import few_torch_threads  # noqa: F401
 
 NO_DROP = dict(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
 

@@ -39,6 +39,7 @@ from paddle_tpu_torch.models.gpt import gpt_tiny
 from paddle_tpu_torch.nn import clip as tclip
 from paddle_tpu_torch.optimizer import SGD, AdamW
 from paddle_tpu_torch.optimizer import lr as tlr
+from torch_threads import few_torch_threads  # noqa: F401
 
 NO_DROP = dict(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
 LR = 1e-3

@@ -26,6 +26,7 @@ from paddle_tpu_torch.framework.jit import TrainStep
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layers import transformer as T
 from paddle_tpu_torch.optimizer import AdamW
+from torch_threads import few_torch_threads  # noqa: F401
 
 FWD = dict(rtol=1e-5, atol=1e-5)
 BWD = dict(rtol=2e-4, atol=2e-5)

@@ -22,6 +22,7 @@ from paddle_tpu import vision as jvision
 from paddle_tpu.vision import ops as J
 from paddle_tpu_torch import vision as tvision
 from paddle_tpu_torch.vision import ops as T
+from torch_threads import few_torch_threads  # noqa: F401
 
 BOX = dict(rtol=1e-6, atol=1e-6)
 REGION = dict(rtol=1e-5, atol=1e-5)

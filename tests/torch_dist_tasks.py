@@ -137,6 +137,10 @@ def _make_step(job):
     opt = _optimizer(*job["opt"])
     if job.get("o2"):
         model, opt = amp.decorate(model, opt, level="O2")
+    if job.get("gsp"):   # the public ZeRO entry tags the optimizer
+        from paddle_tpu_torch.distributed import group_sharded_parallel
+
+        model, opt, _ = group_sharded_parallel(model, opt, job["gsp"])
     scaler = None
     if job.get("scaler"):
         scaler = amp.GradScaler(**job["scaler"])
@@ -422,3 +426,286 @@ def loaded_modules():
 
     return sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+
+
+# ------------------------------------------------------------ api_compat
+def api_groups():
+    """Groups (made collectively: both ranks make both), the world group
+    and ParallelEnv."""
+    import paddle_tpu_torch.distributed as D
+    import torch.distributed as dist
+
+    pair = D.new_group([0, 1])
+    solo = D.new_group([1])          # rank 0 makes it too, as torch needs
+    world = D.get_group(0)
+    pe = D.ParallelEnv()
+    me = torch.tensor([float(pe.rank + 1)])
+    return {"ids": (pair.id, solo.id), "pair_rank": pair.rank,
+            "solo_member": solo.is_member(), "nranks": pair.nranks,
+            "world": (world.id, world.ranks, world.pg is dist.group.WORLD),
+            "lookup": D.get_group(pair.id) is pair,
+            "env": (pe.rank, pe.world_size, pe.nranks, pe.local_rank,
+                    pe.device_id),
+            "pair_reduce": _np(D.reduce(me, dst=1, group=pair)),
+            "solo_reduce": _np(D.reduce(me, dst=0, group=solo))}
+
+
+def api_p2p():
+    """Every P2P form between the two ranks: send/recv without and with
+    a buffer, isend/irecv, tags as separate streams, batch_isend_irecv,
+    and stream.send/recv."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.distributed import stream
+
+    r, out = env.get_rank(), {}
+    if r == 0:
+        D.send(torch.arange(6, dtype=torch.float32).reshape(2, 3), dst=1,
+               tag=7)
+        buf = torch.zeros(1)
+        got = D.recv(buf, src=1, tag=9)
+        out["recv_buf"] = (_np(buf), got is buf)
+        D.isend(torch.tensor([[1, 2], [3, 4]]), dst=1, tag=3).wait()
+        a = D.isend(torch.tensor([1.0]), dst=1, tag=11)
+        b = D.isend(torch.tensor([2.0]), dst=1, tag=12)
+        a.wait()
+        b.wait()
+        reqs = D.batch_isend_irecv([
+            D.P2POp(D.irecv, None, 1, tag=5),
+            D.P2POp(D.isend, torch.full((3,), 2.5, dtype=torch.bfloat16), 1,
+                    tag=4)])
+        out["batch"] = _np(reqs[0].wait())
+        reqs[1].wait()
+        stream.send(torch.tensor([7, 8], dtype=torch.int32), dst=1,
+                    sync_op=False, use_calc_stream=True)
+    else:
+        got = D.recv(src=0, tag=7)                     # no buffer
+        out["recv_nobuf"] = (_np(got), str(got.dtype))
+        D.send(torch.tensor([5.0]), dst=0, tag=9)
+        got = D.irecv(src=0, tag=3).wait()
+        out["irecv"] = (_np(got), str(got.dtype))
+        # tag 12 first: the two tags are separate streams
+        out["tags"] = (_np(D.recv(src=0, tag=12)), _np(D.recv(src=0, tag=11)))
+        buf = torch.zeros(3, dtype=torch.bfloat16)
+        reqs = D.batch_isend_irecv([
+            D.P2POp(D.irecv, buf, 0, tag=4),
+            D.P2POp(D.isend, torch.tensor([10.0, 11.0]), 0, tag=5)])
+        out["batch"] = (_np(reqs[0].wait()), _np(buf))
+        reqs[1].wait()
+        out["stream"] = _np(stream.recv(src=0, use_calc_stream=True))
+    return out
+
+
+def api_collectives(x, rows):
+    """reduce/scatter/alltoall_single/all_gather_object over the world
+    (no mesh), then over the mesh's "dp" axis through a Group made with
+    ``axis=``, and stream.all_reduce. ``x`` is the [2, ...] input of the
+    reference's shard_map (rank r holds ``x[r:r+1]``); ``rows`` the
+    scatter list."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.distributed import stream
+
+    r = env.get_rank()
+    mine = torch.as_tensor(x[r:r + 1])
+    out = {"reduce": D.reduce(mine, dst=1),
+           "reduce_max": D.reduce(mine, dst=0, op=C.ReduceOp.MAX),
+           "scatter": D.scatter(torch.as_tensor(x).reshape(-1), src=0),
+           "alltoall": D.alltoall_single(torch.arange(4.0) + 10 * r),
+           "objects": D.all_gather_object([], {"rank": r, "s": "x" * r})}
+    buf = torch.zeros(rows.shape[1:])
+    got = D.scatter(buf, [torch.as_tensor(v) for v in rows], src=1)
+    out["scatter_list"] = (got, buf)
+    into = torch.empty(4)
+    D.alltoall_single(torch.arange(4.0) * (r + 1), into)
+    out["alltoall_into"] = into
+    try:
+        D.alltoall_single(torch.ones(4), in_split_sizes=[1, 3])
+        out["uneven"] = "no error"
+    except NotImplementedError as e:
+        out["uneven"] = str(e)
+    m = init_mesh(dp=2)
+    try:
+        gdp = D.new_group([0, 1], axis="dp")
+        out["reduce_axis"] = D.reduce(mine, dst=0, group=gdp)
+        out["scatter_axis"] = D.scatter(torch.as_tensor(x).reshape(-1), src=1,
+                                        group="dp")
+        out["stream_all_reduce"] = stream.all_reduce(
+            mine, group="dp", sync_op=False, use_calc_stream=True)
+        out["wait"] = D.wait(mine)
+    finally:
+        set_mesh(None)
+    return _np(out)
+
+
+def api_deadline():
+    """Rank 0 receives from rank 1, which sends nothing: the receive
+    fails at its own deadline (seconds taken, the error's text)."""
+    import time
+
+    import paddle_tpu_torch.distributed as D
+
+    if env.get_rank() != 0:
+        return None
+    t0 = time.monotonic()
+    try:
+        D.recv(src=1, tag=99, timeout=1.0)
+    except TimeoutError as e:
+        return (time.monotonic() - t0, str(e))
+    return (time.monotonic() - t0, "no error")
+
+
+def group_sharded_save(job, out_dir):
+    """Train ``job`` (its optimizer tagged by group_sharded_parallel) and
+    save the pair with save_group_sharded_model (rank 0 writes): the
+    losses, the gathered parameters, and whether the optimizer holds the
+    step's split hook outside its update (it must not)."""
+    from paddle_tpu_torch.distributed import save_group_sharded_model
+    from paddle_tpu_torch.distributed.shard import step_of
+
+    m = init_mesh(job["mesh"])
+    try:
+        step = _make_step(job)
+        losses = [float(step(b)) for b in job["batches"]]
+        assert step_of(step.optimizer) is step
+        save_group_sharded_model(step.model, out_dir, step.optimizer)
+        return {"losses": losses,
+                "params": _np(step.state_dict()["params"]),
+                "stage": step.sharding_stage,
+                "split_hook_left": step.optimizer._split is not None}
+    finally:
+        set_mesh(None)
+
+
+# ------------------------------------------------------------ localsgd
+def localsgd(job, k_steps, axis, via_fleet):
+    """``LocalSGDStep`` (directly on ``axis``, or through
+    fleet.distributed_model with strategy.localsgd) for the batches: the
+    losses and this rank's replica (and, under ``job["o2"]``, its float32
+    masters) after each step."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.parallel.localsgd import LocalSGDStep
+
+    model = _build(job["kind"], job.get("cfg", {}), job["state"])
+    opt = _optimizer(*job["opt"])
+    if job.get("o2"):
+        from paddle_tpu_torch import amp
+
+        model, opt = amp.decorate(model, opt, level="O2")
+    loss_fn = LOSSES[job.get("loss")]
+    if via_fleet:
+        s = fleet.DistributedStrategy()
+        s.localsgd = True
+        s.localsgd_configs = {"k_steps": k_steps}
+        fleet.init(strategy=s, device="cpu")
+        step = fleet.distributed_model(model, opt, loss_fn=loss_fn)
+    else:
+        step = LocalSGDStep(model, opt, loss_fn, mesh=init_mesh({axis: 2}),
+                            k_steps=k_steps, axis=axis)
+    try:
+        losses, replicas, masters = [], [], []
+        for b in job["batches"]:
+            losses.append(float(step(b)))
+            replicas.append(_np(step.replica_params()))
+            masters.append(_np({k: v.clone() for k, v in step.opt_state.get(
+                "master_weights", {}).items()}))
+        avg = _np(step.averaged_params())
+        return {"type": type(step).__name__, "k_steps": step.k_steps,
+                "losses": losses, "replicas": replicas, "masters": masters,
+                "dtypes": {k: str(p.dtype) for k, p in step.params.items()},
+                "averaged": avg}
+    finally:
+        set_mesh(None)
+
+
+# ------------------------------------------------------------ checkpoints
+def ckpt_save(job, directory, steps):
+    """Train ``steps`` batches of ``job`` and save the step's sharded
+    state from every rank as one checkpoint: the gathered state after
+    the save, and this rank's shard files' process tags."""
+    from paddle_tpu_torch.distributed.checkpoint import save_state
+
+    m = init_mesh(job["mesh"])
+    try:
+        step = _make_step(job)
+        for b in job["batches"][:steps]:
+            step(b)
+        tree, shardings = step.sharded_state_dict()
+        save_state(tree, directory, shardings=shardings)
+        sd = step.state_dict()
+        return {"params": _np(sd["params"]),
+                "opt_state": _np({k: v for k, v in sd["opt_state"].items()
+                                  if isinstance(v, dict)}),
+                "count": sd["count"]}
+    finally:
+        set_mesh(None)
+
+
+def ckpt_load(job, directory, steps, save_to=None):
+    """Build ``job``'s step on its mesh, restore ``directory`` through
+    ``load_state(shardings=)`` (then, with ``save_to``, save the restored
+    state there from every rank), train the next ``steps`` batches: the
+    gathered state right after the restore and the losses after it."""
+    from paddle_tpu_torch.distributed.checkpoint import (last_load_stats,
+                                                         load_state,
+                                                         save_state)
+
+    m = init_mesh(job["mesh"])
+    try:
+        step = _make_step(job)
+        _, shardings = step.sharded_state_dict()
+        flat = load_state(directory, shardings=shardings)
+        step.set_sharded_state_dict(flat)
+        if save_to is not None:
+            tree, shardings = step.sharded_state_dict()
+            save_state(tree, save_to, shardings=shardings)
+        sd = step.state_dict()
+        out = {"params": _np(sd["params"]),
+               "opt_state": _np({k: v for k, v in sd["opt_state"].items()
+                                 if isinstance(v, dict)}),
+               "count": sd["count"],
+               "local": {k: tuple(v.shape) for k, v in flat.items()
+                         if isinstance(v, torch.Tensor)},
+               "stats": last_load_stats()}
+        done = out["count"]
+        out["losses"] = [float(step(b))
+                         for b in job["batches"][done:done + steps]]
+        return out
+    finally:
+        set_mesh(None)
+
+
+def prefetch_sharded(batches, spec):
+    """Every batch through prefetch_to_device(mesh=, spec=) on the CPU:
+    this rank's slices."""
+    from paddle_tpu_torch.distributed.mesh import PartitionSpec
+    from paddle_tpu_torch.io.device_prefetch import prefetch_to_device
+
+    m = init_mesh(dp=2)
+    try:
+        it = prefetch_to_device(iter(batches), mesh=m,
+                                spec=PartitionSpec(*spec), device="cpu")
+        got = [_np(b) for b in it]
+        it.close()
+        return got
+    finally:
+        set_mesh(None)
+
+
+def supervised_save(job, root, steps):
+    """Train ``steps`` batches of ``job`` and cut a checkpoint through
+    ``TrainingSupervisor.save_now`` (a collective: every rank gathers the
+    full state; process 0 writes it): the gathered parameters."""
+    from paddle_tpu_torch.framework.supervisor import (RecoveryPolicy,
+                                                       TrainingSupervisor)
+
+    m = init_mesh(job["mesh"])
+    try:
+        step = _make_step(job)
+        for b in job["batches"][:steps]:
+            step(b)
+        sup = TrainingSupervisor(step, RecoveryPolicy(
+            checkpoint_dir=root, save_interval_steps=1, async_save=False))
+        sup.save_now()
+        sup.checkpoint.wait()
+        return _np(step.state_dict()["params"])
+    finally:
+        set_mesh(None)
